@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  These need a GPU with nvcc (they build the kernels) and skip
+without one; run them there with
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
+
+(``--noconftest``: tests/conftest.py imports JAX, which the card's host
+need not have.)
+
+Small shapes with ragged edges (T not a multiple of the tiles, dh < 128,
+a row with every key masked, out-of-range gather rows).  Tolerance as in
+chip_smoke.py: bitwise for the gather, max |err| <= 1e-4 * max(1,
+max|ref|) for the fp32 kernels.
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (kernels build and run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref):
+    lim = 1e-4 * max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= lim
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("width", [(25, 128), (200,), (7,)])
+def test_gather_bitwise(dev, dtype, width):
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
+
+    t = (torch.randn((37, *width), device=dev) * 50).to(dtype)
+    rows = torch.tensor([[0, 5, 5, 36], [1, -3, 99, 2]], dtype=torch.int32, device=dev)
+    _build.reset_counts()
+    got = gather_rows(t, rows)
+    torch.cuda.synchronize()
+    assert _build.launches == {"gather_rows": 1}
+    assert torch.equal(got, gather_rows_plain(t, rows))
+
+
+@pytest.mark.parametrize("T,dh,bias", [(37, 16, False), (70, 40, True), (200, 128, True)])
+def test_flash(dev, T, dh, bias):
+    from vog_tpu_torch.kernels.attention import flash_attention_fwd, flash_attention_plain
+
+    B, H, F = 3, 2, 7
+    q, k, v = (torch.randn((B, H, T, dh), device=dev) for _ in range(3))
+    mask = (torch.rand((B, T), device=dev) > 0.3).float()
+    mask[:, 0] = 1.0
+    mask[2] = 0.0
+    fb = torch.randn((H, F, F), device=dev) if bias else None
+    fid = torch.randint(0, F, (T,), dtype=torch.int32, device=dev) if bias else None
+    o, lse = flash_attention_fwd(q, k, v, mask, fb, fid)
+    ro, rl = flash_attention_plain(q, k, v, mask, fb, fid)
+    _close(o, ro)
+    _close(lse[:2], rl[:2])
+
+
+@pytest.mark.parametrize("A,T,dh", [(1, 33, 16), (5, 200, 128), (8, 90, 64)])
+def test_mm(dev, A, T, dh):
+    from vog_tpu_torch.kernels.mm_attention import mm_attention_fwd, mm_attention_plain
+
+    B, H, F = 2, 3, 5
+    qm, km, vm = (torch.randn((B, H, T, dh), device=dev) for _ in range(3))
+    cn = -3 * torch.rand((B, H, A, T), device=dev)
+    mask = (torch.rand((B, T), device=dev) > 0.3).float()
+    mask[:, 0] = 1.0
+    fb = torch.randn((H, F, F), device=dev)
+    fid = torch.randint(0, F, (T,), dtype=torch.int32, device=dev)
+    for got, ref in zip(mm_attention_fwd(qm, km, vm, cn, mask, fb, fid),
+                        mm_attention_plain(qm, km, vm, cn, mask, fb, fid)):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("B,T,A,D", [(2, 13, 5, 512), (1, 40, 3, 96), (3, 200, 5, 256), (2, 37, 1, 64)])
+def test_head(dev, B, T, A, D):
+    from vog_tpu_torch.kernels.grounding_head import fused_grounding_head, grounding_head_plain
+
+    Dh = D // 2
+    args = (torch.randn((B, T, D), device=dev), torch.randn((B, A, D), device=dev),
+            torch.randn((B, T, D), device=dev), torch.randn((B, A, D), device=dev),
+            torch.randn((D, D), device=dev) / D**0.5, torch.randn((D, Dh), device=dev) / D**0.5,
+            torch.randn((Dh,), device=dev), torch.randn((Dh,), device=dev), torch.randn((), device=dev))
+    _close(fused_grounding_head(*args), grounding_head_plain(*args))
+
+
+def test_wrappers_raise_on_bad_input(dev):
+    from vog_tpu_torch.kernels.attention import flash_attention
+    from vog_tpu_torch.kernels.gather import gather_rows
+    from vog_tpu_torch.kernels.grounding_head import fused_grounding_head
+
+    q = torch.randn((1, 1, 8, 16), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q.double(), torch.ones((1, 8), device=dev))
+    with pytest.raises(ValueError):
+        gather_rows(torch.zeros((4, 8), device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
+    B, T, A, D = 1, 8, 6, 64  # A > 5: the kernel does not take it
+    x = torch.zeros((B, T, D), device=dev)
+    y = torch.zeros((B, A, D), device=dev)
+    w = torch.zeros((D, D), device=dev)
+    with pytest.raises(ValueError):
+        fused_grounding_head(x, y, x, y, w, w[:, :32].contiguous(), w[0, :32].contiguous(),
+                             w[0, :32].contiguous(), w[0, 0])

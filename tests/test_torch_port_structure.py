@@ -1,0 +1,121 @@
+"""Structural rules of the PyTorch port (``vog_tpu_torch``):
+
+  * importing it, or any of its modules, pulls in neither JAX nor the JAX
+    package ``vog_tpu``; no file of it, nor ``chip_smoke.py``, imports them;
+  * its entry points run on the card by default and raise without one;
+  * every kernel module has a CUDA source, a plain version, and a check
+    in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
+  * ``chip_smoke.py`` fails, and prints no result, without a GPU or alone
+    in a directory.
+"""
+
+import ast
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "vog_tpu_torch"
+SMOKE = ROOT / "chip_smoke.py"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vog_tpu"}
+
+# kernel module -> (CUDA source, the kernel's name in chip_smoke.py's table)
+KERNELS = {
+    "gather.py": ("gather.cu", "gather_rows"),
+    "attention.py": ("attention.cu", "flash_attention"),
+    "mm_attention.py": ("mm_attention.cu", "mm_shared_qk_attention"),
+    "grounding_head.py": ("grounding_head.cu", "fused_grounding_head"),
+}
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py")
+    )
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_import_leaves_jax_and_vog_tpu_out():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_file_imports_jax_or_vog_tpu():
+    files = list(PKG.rglob("*.py")) + [SMOKE]
+    assert len(files) > 15
+    bad = {str(f.relative_to(ROOT)): sorted(_imported_roots(f) & FORBIDDEN) for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_every_kernel_module_has_source_plain_version_and_smoke_check():
+    from vog_tpu_torch.kernels import _build
+
+    modules = sorted(p.name for p in (PKG / "kernels").glob("*.py") if not p.name.startswith("_"))
+    assert modules == sorted(KERNELS)
+    smoke = SMOKE.read_text()
+    smoke_strings = {n.value for n in ast.walk(ast.parse(smoke))
+                     if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    for mod, (src, name) in KERNELS.items():
+        assert (PKG / "csrc" / src).exists() and src in _build.SOURCES
+        text = (PKG / "kernels" / mod).read_text()
+        assert "_plain" in text and "_build.count(NAME)" in text and f'NAME = "{name}"' in text
+        assert name in smoke_strings, f"chip_smoke.py has no check of {name}"
+        assert f"vog_tpu_torch/csrc/{src}" in smoke_strings
+    assert sorted(_build.SOURCES) == sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vog_tpu_torch import resolve_device
+    from vog_tpu_torch.config import Cfg
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+
+    with pytest.raises(RuntimeError):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        DeviceFeatureTables(Cfg(), 2)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_wrappers_refuse_other_devices():
+    from vog_tpu_torch.kernels.gather import gather_rows
+
+    with pytest.raises(ValueError):
+        gather_rows(torch.empty((3, 4), device="meta"), torch.zeros(2, dtype=torch.int32))
+
+
+def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    here = subprocess.run([sys.executable, str(SMOKE)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    alone = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                           text=True, timeout=120)
+    for run in (here, alone):
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout

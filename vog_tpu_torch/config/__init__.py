@@ -1,0 +1,21 @@
+from vog_tpu_torch.config.defaults import (
+    Cfg,
+    DsCfg,
+    MdlCfg,
+    MiscCfg,
+    TrainCfg,
+    get_default_cfg,
+    post_proc_config,
+    update_from_dict,
+)
+
+__all__ = [
+    "Cfg",
+    "DsCfg",
+    "MdlCfg",
+    "MiscCfg",
+    "TrainCfg",
+    "get_default_cfg",
+    "post_proc_config",
+    "update_from_dict",
+]

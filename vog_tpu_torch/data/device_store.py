@@ -1,0 +1,142 @@
+"""Device-resident feature tables: the feature store lives on the card.
+
+Counterpart of vog_tpu/data/device_store.py (single device).  The tables
+are ``feats (N, F*P*prop_dim/128, 128)`` and ``seg (N, F*seg_dim/128,
+128)``, row-contiguous, in f32, bf16 or int8 with one scale per trailing
+vector; batches carry ``vid_rows (B, V) int32`` and ``gather_from_tables``
+resolves them on the card through the gather kernel
+(kernels/gather.py), so a request carries a few KB instead of ~34 MB of
+features.  The tables are filled chunk by chunk, so peak memory is the
+table plus one chunk.  The row-sharded store waits for a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from vog_tpu_torch.device import DeviceLike, resolve_device
+from vog_tpu_torch.kernels.gather import gather_rows
+
+
+def _table_shape(n: int, width: int) -> tuple:
+    """3-D ``(N, width//128, 128)`` when the row width is a multiple of 128,
+    else flat ``(N, width)`` (the JAX package's layout; the gather kernel
+    takes either)."""
+    if width % 128 == 0:
+        return (n, width // 128, 128)
+    return (n, width)
+
+
+def _pack_rows(local: Dict[str, torch.Tensor], dtype: torch.dtype, int8: bool) -> Dict[str, torch.Tensor]:
+    """(rows, ...) fp32 arrays -> the packed tables.  int8 quantizes per
+    trailing vector: s = maxabs/127 (1 where the vector is zero),
+    q = clip(round(x / s), -127, 127); ``{k}_scale`` (rows, n_vectors)
+    sits beside each int8 table."""
+    out = {}
+    for k, v in local.items():
+        v = torch.as_tensor(v)
+        shape = _table_shape(v.shape[0], int(np.prod(v.shape[1:])))
+        if int8:
+            s = v.abs().amax(dim=-1) / 127.0
+            s = torch.where(s == 0, torch.ones_like(s), s).float()
+            q = torch.clamp(torch.round(v / s[..., None]), -127, 127).to(torch.int8)
+            out[k] = q.reshape(shape)
+            out[k + "_scale"] = s.reshape(s.shape[0], -1)
+        else:
+            out[k] = v.reshape(shape).to(dtype)
+    return out
+
+
+class DeviceFeatureTables:
+    """Packed per-video feature tables on one device: ``tables`` is
+    {"feats", "seg"} (+ "feats_scale"/"seg_scale" for int8), row i being
+    video i."""
+
+    def __init__(
+        self,
+        cfg,
+        n_rows: int,
+        half: bool = False,
+        int8: bool = False,
+        device: DeviceLike = None,
+    ):
+        ds = cfg.ds
+        self.device = resolve_device(device)
+        self.int8 = bool(int8)
+        self.dtype = torch.int8 if int8 else (torch.bfloat16 if half else torch.float32)
+        self.shapes = {
+            "feats": (ds.num_frms, ds.num_prop_per_frm, ds.prop_dim),
+            "seg": (ds.num_frms, ds.seg_dim),
+        }
+        self.n_rows = int(n_rows)
+        self.tables: Dict[str, torch.Tensor] = {}
+        for k, s in self.shapes.items():
+            shape = _table_shape(self.n_rows, int(np.prod(s)))
+            self.tables[k] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            if self.int8:
+                self.tables[k + "_scale"] = torch.ones(
+                    (self.n_rows, int(np.prod(s[:-1]))), dtype=torch.float32, device=self.device
+                )
+
+    def write(self, i0: int, feats, seg) -> None:
+        """Pack fp32 rows ``feats (m,F,P,D)``, ``seg (m,F,Dv)`` into rows
+        [i0, i0+m), on the table's device."""
+        local = {
+            "feats": torch.as_tensor(feats).to(self.device, torch.float32),
+            "seg": torch.as_tensor(seg).to(self.device, torch.float32),
+        }
+        m = local["feats"].shape[0]
+        for k, v in _pack_rows(local, self.dtype, self.int8).items():
+            self.tables[k][i0 : i0 + m] = v
+
+    @classmethod
+    def from_arrays(cls, cfg, feats, seg, half=False, int8=False,
+                    device: DeviceLike = None, chunk_rows: int = 256):
+        """Tables from host or device arrays ``feats (N,F,P,D)``, ``seg (N,F,Dv)``."""
+        t = cls(cfg, len(feats), half=half, int8=int8, device=device)
+        for i0 in range(0, len(feats), chunk_rows):
+            t.write(i0, feats[i0 : i0 + chunk_rows], seg[i0 : i0 + chunk_rows])
+        return t
+
+    @classmethod
+    def random(cls, cfg, n_rows: int, seed: int, half=False, int8=False,
+               device: DeviceLike = None, chunk_rows: int = 256, scale: float = 0.3):
+        """Tables of normal(0, scale) rows made on the device from a seeded
+        ``torch.Generator`` (stand-in data at a deployment's table size)."""
+        t = cls(cfg, n_rows, half=half, int8=int8, device=device)
+        g = torch.Generator(device=t.device)
+        g.manual_seed(seed)
+        fs, ss = t.shapes["feats"], t.shapes["seg"]
+        for i0 in range(0, n_rows, chunk_rows):
+            m = min(chunk_rows, n_rows - i0)
+            f = torch.randn((m, *fs), generator=g, device=t.device) * scale
+            s = torch.randn((m, *ss), generator=g, device=t.device) * scale
+            t.write(i0, f, s)
+        return t
+
+
+def _row_width(table: torch.Tensor) -> int:
+    return int(np.prod(table.shape[1:]))
+
+
+def gather_from_tables(batch: Dict, tables: Dict) -> Dict:
+    """Resolve ``vid_rows`` against the resident tables into the canonical
+    ``props (B,V,F,P,D)`` / ``seg_feats (B,V,F,Dv)`` fp32 batch fields."""
+    rows = batch["vid_rows"].to(torch.int32).contiguous()  # (B, V)
+    B, V, F, P = batch["prop_mask"].shape
+    D = _row_width(tables["feats"]) // (F * P)
+    Dv = _row_width(tables["seg"]) // F
+    out = {k: v for k, v in batch.items() if k != "vid_rows"}
+    props = gather_rows(tables["feats"], rows).reshape(B, V, F, P, D).float()
+    seg = gather_rows(tables["seg"], rows).reshape(B, V, F, Dv).float()
+    if "feats_scale" in tables:  # int8 tables: dequantize per vector
+        fs = gather_rows(tables["feats_scale"], rows).reshape(B, V, F, P, 1)
+        ss = gather_rows(tables["seg_scale"], rows).reshape(B, V, F, 1)
+        props = props * fs
+        seg = seg * ss
+    out["props"] = props
+    out["seg_feats"] = seg
+    return out

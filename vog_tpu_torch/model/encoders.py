@@ -1,0 +1,70 @@
+"""Language and visual encoders (counterpart of vog_tpu/model/encoders.py).
+
+  * LangEncoder: GloVe embedding -> BiLSTM -> per-arg rep =
+    relu(Linear([span mean ; role embedding ; verb hidden state])).
+  * PropEncoder: relu(Linear([RoI fc6 ; 5-d box])).
+  * SegEncoder: relu(Linear(TSN segment feature)).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from vog_tpu_torch.model.lstm import TorchBiLSTM
+
+
+def span_pool(hidden: torch.Tensor, spans: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+    """Masked mean of hidden (B,L,D) over each arg's inclusive token span
+    (B,A,2) -> (B,A,D); empty spans give zeros."""
+    B, L, D = hidden.shape
+    t = torch.arange(L, device=hidden.device)[None, None, :]
+    s, e = spans[..., 0:1], spans[..., 1:2]
+    in_span = (t >= s) & (t <= e) & (t < seq_len[:, None, None])
+    w = in_span.to(hidden.dtype)
+    denom = w.sum(-1, keepdim=True).clamp(min=1.0)
+    return torch.matmul(w / denom, hidden)
+
+
+class LangEncoder(nn.Module):
+    def __init__(self, cfg, vocab_size: int):
+        super().__init__()
+        m = cfg.mdl
+        self.embed = nn.Embedding(vocab_size, m.emb_dim)
+        self.bilstm = TorchBiLSTM(m.emb_dim, m.lstm_dim)
+        self.role_embed = nn.Embedding(cfg.ds.num_roles, m.role_dim)
+        self.arg_proj = nn.Linear(4 * m.lstm_dim + m.role_dim, m.vis_dim)
+
+    def forward(self, tokens, seq_len, srl_spans, srl_roles, verb_idx) -> Dict:
+        x = self.embed(tokens.long())  # (B,L,emb)
+        y, _ = self.bilstm(x, seq_len)
+        arg_span = span_pool(y, srl_spans, seq_len)  # (B,A,2H)
+        role_emb = self.role_embed(srl_roles.long())  # (B,A,role_dim)
+        B, L, _ = y.shape
+        vi = verb_idx.long().clamp(0, L - 1)
+        verb_rep = y[torch.arange(B, device=y.device), vi]  # (B,2H)
+        A = arg_span.shape[1]
+        verb_tiled = verb_rep[:, None].expand(B, A, verb_rep.shape[-1])
+        arg_rep = torch.relu(self.arg_proj(torch.cat([arg_span, role_emb, verb_tiled], dim=-1)))
+        return {"arg_rep": arg_rep, "verb_rep": verb_rep, "hidden": y}
+
+
+class PropEncoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.prop_proj = nn.Linear(cfg.ds.prop_dim + 5, cfg.mdl.vis_dim)
+
+    def forward(self, props: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([props.float(), boxes.float()], dim=-1)
+        return torch.relu(self.prop_proj(x))
+
+
+class SegEncoder(nn.Module):
+    def __init__(self, cfg):
+        super().__init__()
+        self.seg_proj = nn.Linear(cfg.ds.seg_dim, cfg.mdl.vis_dim)
+
+    def forward(self, seg: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.seg_proj(seg.float()))

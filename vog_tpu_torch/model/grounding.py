@@ -1,0 +1,173 @@
+"""The model zoo: ImgGrnd, VidGrnd, VOGNet (+ selector), forward only.
+
+Counterpart of vog_tpu/model/grounding.py.  Every model consumes the clip
+view of ``sampling.assemble_batch`` and returns logits (B', A, T).  The
+fused head always goes through the head kernel's wrapper (the CUDA kernel
+on the card, its plain version on the CPU).  The loss waits for the
+training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn as nn
+
+from vog_tpu_torch.device import DeviceLike, resolve_device
+from vog_tpu_torch.kernels.grounding_head import fused_grounding_head
+from vog_tpu_torch.model.dtypes import act_dtype
+from vog_tpu_torch.model.encoders import LangEncoder, PropEncoder, SegEncoder
+from vog_tpu_torch.model.transformer import (
+    ObjectTransformer,
+    RelMultiHeadAttention,
+    RelTransformer,
+    RelTransformerDecomposed,
+)
+from vog_tpu_torch.sampling.conc import view_dims
+
+
+def _lecun(shape) -> nn.Parameter:
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, std=1.0 / math.sqrt(shape[0]))
+    return nn.Parameter(w)
+
+
+class GroundingHead(nn.Module):
+    """h = relu(W_v vis + b_v + W_l arg + W_x (vis * arg));
+    logit = w2 . relu(W1 h + b1) + b2.  Weights keep the JAX package's
+    (in, out) layout and names, which is also the kernel's layout."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        D = cfg.mdl.vis_dim
+        Dh = D // 2
+        self.fuse_vis_kernel = _lecun((D, D))
+        self.fuse_vis_bias = nn.Parameter(torch.zeros(D))
+        self.fuse_lang_kernel = _lecun((D, D))
+        self.fuse_cross_kernel = _lecun((D, D))
+        self.head1_kernel = _lecun((D, Dh))
+        self.head1_bias = nn.Parameter(torch.zeros(Dh))
+        self.head2_kernel = _lecun((Dh, 1))
+        self.head2_bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, vis: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
+        wv = torch.matmul(vis, self.fuse_vis_kernel) + self.fuse_vis_bias  # (B,T,D)
+        wl = torch.matmul(arg, self.fuse_lang_kernel)  # (B,A,D)
+        return fused_grounding_head(
+            vis.contiguous(), arg.contiguous(), wv, wl, self.fuse_cross_kernel,
+            self.head1_kernel, self.head1_bias, self.head2_kernel[:, 0].contiguous(),
+            self.head2_bias,
+        )
+
+
+class DotGroundingHead(nn.Module):
+    """score = <MLP_v(vis_t), MLP_l(arg_a)> / sqrt(D) + bias."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        D = cfg.mdl.vis_dim
+        self.v1, self.v2 = nn.Linear(D, D), nn.Linear(D, D)
+        self.l1, self.l2 = nn.Linear(D, D), nn.Linear(D, D)
+        self.score_bias = nn.Parameter(torch.zeros(()))
+
+    def forward(self, vis: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
+        D = vis.shape[-1]
+        v = self.v2(torch.relu(self.v1(vis)))
+        lg = self.l2(torch.relu(self.l1(arg)))
+        return torch.matmul(lg, v.transpose(-1, -2)) / math.sqrt(D) + self.score_bias
+
+
+class ImgGrnd(nn.Module):
+    """Per-proposal scoring with no cross-frame reasoning."""
+
+    def __init__(self, cfg, vocab_size: int, n_frames: int):
+        super().__init__()
+        self.cfg = cfg
+        self.n_frames = n_frames
+        self.lang = LangEncoder(cfg, vocab_size)
+        self.prop_enc = PropEncoder(cfg)
+        self.seg_enc = SegEncoder(cfg)
+        self.head = DotGroundingHead(cfg) if cfg.mdl.head_type == "dot" else GroundingHead(cfg)
+
+    def encode(self, clip: Dict):
+        lang = self.lang(
+            clip["tokens"], clip["seq_len"], clip["srl_spans"], clip["srl_roles"], clip["verb_idx"]
+        )
+        penc = self.prop_enc(clip["props"], clip["boxes"])  # (B,T,D)
+        senc = self.seg_enc(clip["seg"])  # (B,F,D)
+        vis = penc + senc[:, clip["frame_ids"].long()]
+        key_mask = clip["mask"].float().contiguous()
+        fid = clip["frame_ids"].to(torch.int32).contiguous()
+        return vis, lang, key_mask, fid
+
+    def forward(self, clip: Dict) -> torch.Tensor:
+        vis, lang, _, _ = self.encode(clip)
+        return self.head(vis, lang["arg_rep"])
+
+
+class VidGrnd(ImgGrnd):
+    """ImgGrnd + object transformer (temporal PE self-attention)."""
+
+    def __init__(self, cfg, vocab_size: int, n_frames: int):
+        super().__init__(cfg, vocab_size, n_frames)
+        self.obj_tx = ObjectTransformer(cfg)
+
+    def forward(self, clip: Dict) -> torch.Tensor:
+        vis, lang, key_mask, fid = self.encode(clip)
+        vis = self.obj_tx(vis, key_mask, fid)
+        return self.head(vis, lang["arg_rep"])
+
+
+class VOGNet(ImgGrnd):
+    """VidGrnd + multimodal transformer with relative position encoding."""
+
+    def __init__(self, cfg, vocab_size: int, n_frames: int):
+        super().__init__(cfg, vocab_size, n_frames)
+        D = cfg.mdl.vis_dim
+        self.obj_tx = ObjectTransformer(cfg)
+        if cfg.mdl.decomposed_mm:
+            self.mm_tx = RelTransformerDecomposed(cfg, n_frames)
+        else:
+            self.mm_tx = RelTransformer(cfg, n_frames)
+        self.mm_proj_vis = nn.Linear(D, D)
+        self.mm_proj_arg = nn.Linear(D, D, bias=False)
+        self.mm_head = nn.Linear(D, 1)
+
+    def forward(self, clip: Dict) -> torch.Tensor:
+        vis, lang, key_mask, fid = self.encode(clip)
+        vis = self.obj_tx(vis, key_mask, fid)
+        arg = lang["arg_rep"]  # (B,A,D)
+        B, T, D = vis.shape
+        A = arg.shape[1]
+        m = self.mm_proj_vis(vis)
+        g = self.mm_proj_arg(arg)
+        if self.cfg.mdl.decomposed_mm:
+            mm = self.mm_tx(m, g, key_mask, fid)
+        else:
+            tokens = (m[:, None] + g[:, :, None]).reshape(B * A, T, D)
+            mm = self.mm_tx(tokens, key_mask.repeat_interleave(A, dim=0), fid)
+        mm = mm.reshape(B, A, T, D)
+        logits = self.head(vis, arg)
+        return logits + self.mm_head(torch.relu(mm))[..., 0]
+
+
+MODELS = {"img_grnd": ImgGrnd, "vid_grnd": VidGrnd, "vog": VOGNet}
+
+
+def get_model(cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0) -> nn.Module:
+    """Build the configured model in eval mode on ``device`` (cuda by
+    default), with random weights made from ``seed``."""
+    dev = resolve_device(device)
+    if act_dtype(cfg) != torch.float32:
+        raise NotImplementedError("the port serves fp32 activations; bf16 comes in a later slice")
+    ds = cfg.ds
+    _, n_frames, _ = view_dims(ds.conc_type, ds.num_cmp, ds.num_frms, ds.num_prop_per_frm)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = MODELS[cfg.mdl.name](cfg, vocab_size, n_frames)
+        for mod in model.modules():
+            if isinstance(mod, RelMultiHeadAttention):
+                nn.init.normal_(mod.rpe_table, std=0.02)
+    return model.to(dev).eval()

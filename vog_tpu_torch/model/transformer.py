@@ -1,0 +1,202 @@
+"""Transformers: object self-attention + relative-position multimodal.
+
+Counterpart of vog_tpu/model/transformer.py: post-LN layers (LayerNorm
+eps 1e-6, as flax), multi-head attention over (B,H,T,dh), and a learned
+relative-frame bias factored through frames: a (H, 2K+1) table becomes a
+(H, F, F) frame-pair bias that the attention kernel reads per token pair,
+so no (T,T) bias exists.
+
+Attention always goes through the kernel wrappers (kernels/attention.py,
+kernels/mm_attention.py): on the card they launch the CUDA kernels, on the
+CPU they run the plain versions.  The JAX package's T >= 1024 kernel gates
+were tuned on a TPU and are not copied; sequence-parallel ring attention
+waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as Fn
+
+from vog_tpu_torch.kernels.attention import flash_attention
+from vog_tpu_torch.kernels.mm_attention import mm_shared_qk_attention
+
+
+def sinusoidal_pe(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal encoding of integer positions -> (len(pos), dim)."""
+    pos = positions.float()[:, None]
+    half = dim // 2
+    freq = torch.exp(
+        -math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    )
+    ang = pos * freq[None, :]
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    if pe.shape[-1] < dim:
+        pe = Fn.pad(pe, (0, dim - pe.shape[-1]))
+    return pe
+
+
+def _frame_dist(n_frames: int, K: int) -> torch.Tensor:
+    f = np.arange(n_frames)
+    return torch.from_numpy(np.clip(f[:, None] - f[None, :], -K, K) + K)
+
+
+def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
+    B, L, D = t.shape
+    return t.reshape(B, L, H, D // H).permute(0, 2, 1, 3).contiguous()
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with no positional bias (the object transformer adds PE)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        D = cfg.mdl.vis_dim
+        self.H = cfg.mdl.n_heads
+        self.qkv = nn.Linear(D, 3 * D)
+        self.out = nn.Linear(D, D)
+
+    def forward(self, x, key_mask, frame_ids):
+        B, T, D = x.shape
+        q, k, v = (_heads(t, self.H) for t in self.qkv(x).chunk(3, dim=-1))
+        o = flash_attention(q, k, v, key_mask)
+        return self.out(o.permute(0, 2, 1, 3).reshape(B, T, D))
+
+
+class RelMultiHeadAttention(nn.Module):
+    """MHA with a learned relative-frame-distance bias."""
+
+    def __init__(self, cfg, n_frames: int):
+        super().__init__()
+        D = cfg.mdl.vis_dim
+        self.H, K = cfg.mdl.n_heads, cfg.mdl.rpe_max_dist
+        self.qkv = nn.Linear(D, 3 * D)
+        self.out = nn.Linear(D, D)
+        self.rpe_table = nn.Parameter(torch.zeros(self.H, 2 * K + 1))
+        self.register_buffer("dist", _frame_dist(n_frames, K), persistent=False)
+
+    def frame_bias(self) -> torch.Tensor:
+        return self.rpe_table[:, self.dist].contiguous()  # (H,F,F)
+
+    def forward(self, x, key_mask, frame_ids):
+        B, T, D = x.shape
+        q, k, v = (_heads(t, self.H) for t in self.qkv(x).chunk(3, dim=-1))
+        o = flash_attention(q, k, v, key_mask, self.frame_bias(), frame_ids)
+        return self.out(o.permute(0, 2, 1, 3).reshape(B, T, D))
+
+
+class DecomposedRelAttention(RelMultiHeadAttention):
+    """Arg-decomposed relative attention for VOGNet's first mm layer.
+
+    Tokens are x_{a,t} = m_t + g_a.  Per head and arg the logits are
+    s_ij + c_aj with the shared s = qm_i.km_j (+ bias) and the per-arg key
+    term c_aj = qg_a.km_j; every other term is constant over j and cancels
+    in the softmax.  So one shared score matrix serves all A args through
+    the combined-logit softmax softmax_j(s_ij + c_aj), and vg_a shifts each
+    output since the probabilities sum to 1.  The kernel takes
+    cn = c - max_j c and the pre-scaled qm."""
+
+    def forward(self, m, g, key_mask, frame_ids):
+        B, T, D = m.shape
+        A = g.shape[1]
+        H = self.H
+        dh = D // H
+        qm, km, vm = (_heads(t, H) for t in self.qkv(m).chunk(3, dim=-1))
+        # the bias lives in the m-part; the g-part is the linear part only
+        qg, kg, vg = (_heads(t, H) for t in Fn.linear(g, self.qkv.weight).chunk(3, dim=-1))
+        scale = 1.0 / math.sqrt(dh)
+        c = torch.matmul(qg, km.transpose(-1, -2)) * scale  # (B,H,A,T)
+        c = torch.where(key_mask[:, None, None, :] > 0, c, torch.zeros_like(c))
+        cn = (c - c.amax(dim=-1, keepdim=True)).contiguous()
+        pv = mm_shared_qk_attention(
+            (qm * scale).contiguous(), km, vm, cn, key_mask, self.frame_bias(), frame_ids
+        )  # (B,H,A,T,dh)
+        out = pv + vg[:, :, :, None]
+        out = out.permute(0, 2, 3, 1, 4).reshape(B, A, T, D)
+        return self.out(out)
+
+
+class TxLayer(nn.Module):
+    """Post-LN encoder layer: attention -> add&norm -> FFN -> add&norm."""
+
+    def __init__(self, cfg, relative: bool = False, n_frames: int = 0):
+        super().__init__()
+        D = cfg.mdl.vis_dim
+        self.attn = RelMultiHeadAttention(cfg, n_frames) if relative else MultiHeadAttention(cfg)
+        self.ln1 = nn.LayerNorm(D, eps=1e-6)
+        self.ff1 = nn.Linear(D, cfg.mdl.ff_mult * D)
+        self.ff2 = nn.Linear(cfg.mdl.ff_mult * D, D)
+        self.ln2 = nn.LayerNorm(D, eps=1e-6)
+
+    def forward(self, x, key_mask, frame_ids):
+        x = self.ln1(x + self.attn(x, key_mask, frame_ids))
+        return self.ln2(x + self.ff2(torch.relu(self.ff1(x))))
+
+
+class ObjectTransformer(nn.Module):
+    """Self-attention over all (frame, prop) tokens with sinusoidal PE on
+    the frame index."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.layers = nn.ModuleList(TxLayer(cfg) for _ in range(cfg.mdl.obj_tx_layers))
+
+    def forward(self, vis, key_mask, frame_ids):
+        x = vis + sinusoidal_pe(frame_ids, vis.shape[-1])[None].to(vis.dtype)
+        for layer in self.layers:
+            x = layer(x, key_mask, frame_ids)
+        return x
+
+
+class RelTransformer(nn.Module):
+    """VOGNet's multimodal transformer with relative position encoding."""
+
+    def __init__(self, cfg, n_frames: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TxLayer(cfg, relative=True, n_frames=n_frames) for _ in range(cfg.mdl.mm_tx_layers)
+        )
+
+    def forward(self, x, key_mask, frame_ids):
+        for layer in self.layers:
+            x = layer(x, key_mask, frame_ids)
+        return x
+
+
+class DecomposedRelTxLayer(TxLayer):
+    """First mm layer on the (m, g) decomposition -> (B*A, T, D)."""
+
+    def __init__(self, cfg, n_frames: int):
+        super().__init__(cfg, relative=True, n_frames=n_frames)
+        self.attn = DecomposedRelAttention(cfg, n_frames)
+
+    def forward(self, m, g, key_mask, frame_ids):
+        B, T, D = m.shape
+        A = g.shape[1]
+        attn = self.attn(m, g, key_mask, frame_ids)  # (B,A,T,D)
+        x = self.ln1((m[:, None] + g[:, :, None] + attn).reshape(B * A, T, D))
+        return self.ln2(x + self.ff2(torch.relu(self.ff1(x))))
+
+
+class RelTransformerDecomposed(nn.Module):
+    """RelTransformer whose first layer takes the (m, g) decomposition;
+    later layers run on the materialised (B*A, T) tokens."""
+
+    def __init__(self, cfg, n_frames: int):
+        super().__init__()
+        layers: List[nn.Module] = [DecomposedRelTxLayer(cfg, n_frames)]
+        layers += [TxLayer(cfg, relative=True, n_frames=n_frames) for _ in range(1, cfg.mdl.mm_tx_layers)]
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, m, g, key_mask, frame_ids):
+        A = g.shape[1]
+        x = self.layers[0](m, g, key_mask, frame_ids)
+        key_mask_a = key_mask.repeat_interleave(A, dim=0)
+        for layer in self.layers[1:]:
+            x = layer(x, key_mask_a, frame_ids)
+        return x

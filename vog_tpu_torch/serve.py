@@ -1,0 +1,130 @@
+"""Serving path: weights -> batched grounding on the card.
+
+Counterpart of vog_tpu/serve.py.  ``Predictor`` maps a canonical request
+batch (numpy) to grounded boxes per SRL argument: the chosen video slot,
+proposal index, its box (normalised xyxy) and score, plus the canonical
+score grid.  With device-resident ``tables`` a batch may carry
+``vid_rows`` instead of props/seg_feats; the gather kernel resolves them
+on the card.
+
+``dispatch`` uploads the batch from pinned memory, enqueues the forward
+and the copies of the outputs back to pinned host memory, records an
+event and returns without waiting; ``fetch`` waits on that event.  So a
+caller (``ServingLoop``) overlaps one batch's host work with another's
+compute.
+
+Precision: fp32 matmuls stay full fp32 on the card; ``Predictor`` sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.backends.cudnn.allow_tf32 = False``.  Loading an orbax checkpoint
+waits for the checkpoint loader of a later slice; weights come as a flax
+params tree (converted by ``interop.from_jax``) or a state_dict.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vog_tpu_torch.data.device_store import gather_from_tables
+from vog_tpu_torch.device import DeviceLike, resolve_device
+from vog_tpu_torch.interop.from_jax import params_from_jax
+from vog_tpu_torch.model.grounding import get_model
+from vog_tpu_torch.sampling import assemble_batch, scores_to_canonical
+
+# 0/1 fields a batch may ship as uint8
+COMPACT_KEYS = ("targets", "prop_mask", "gt_frame_mask", "srl_arg_mask", "batch_mask")
+
+
+def cast_compact(batch: Dict) -> Dict:
+    out = dict(batch)
+    for k in COMPACT_KEYS:
+        if k in out:
+            out[k] = out[k].float()
+    return out
+
+
+class _Pending:
+    """Outputs of one dispatch: host tensors being filled, and the event
+    that marks their copies done."""
+
+    def __init__(self, host: Dict[str, torch.Tensor], event: Optional[torch.cuda.Event]):
+        self.host = host
+        self.event = event
+
+
+class Predictor:
+    def __init__(
+        self,
+        cfg,
+        params,
+        vocab_size: int,
+        tables: Optional[Dict[str, torch.Tensor]] = None,
+        device: DeviceLike = None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.model = get_model(cfg, vocab_size, device=self.device)
+        if params is not None:
+            sd = params
+            if any(isinstance(v, dict) or hasattr(v, "items") for v in params.values()):
+                sd = params_from_jax(params, cfg)
+            self.model.load_state_dict(sd, strict=True)
+        self.tables = tables
+        self.conc = cfg.ds.conc_type
+
+    def _upload(self, v) -> torch.Tensor:
+        t = torch.as_tensor(np.asarray(v))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The forward on tensors already on the device."""
+        if self.tables is not None and "vid_rows" in batch:
+            batch = gather_from_tables(batch, self.tables)
+        batch = cast_compact(batch)
+        clip = assemble_batch(batch, self.conc)
+        logits = self.model(clip)
+        B, V, F, P = batch["prop_mask"].shape
+        scores = scores_to_canonical(logits, self.conc, B, V, F, P)  # (B,A,V,F,P)
+        # padded proposals carry untrained logits: never let them win
+        scores = torch.where(batch["prop_mask"][:, None] > 0, scores, torch.full_like(scores, -1e30))
+        A = scores.shape[1]
+        cand = scores.permute(0, 1, 3, 2, 4).reshape(B, A, F, V * P)
+        choice = torch.argmax(cand, dim=-1)  # first maximum, as jnp.argmax
+        v_hat, p_hat = choice // P, choice % P
+        b_idx = torch.arange(B, device=cand.device)[:, None, None]
+        f_idx = torch.arange(F, device=cand.device)[None, None, :]
+        boxes = batch["prop_boxes"][b_idx, v_hat, f_idx, p_hat, :4]
+        return {
+            "scores": scores,
+            "pred_vid": v_hat.to(torch.int32),
+            "pred_prop": p_hat.to(torch.int32),
+            "pred_box": boxes,
+            "pred_score": cand.amax(dim=-1),
+        }
+
+    def dispatch(self, batch: Dict[str, np.ndarray]) -> _Pending:
+        """Enqueue one batch and return without waiting for the card."""
+        with torch.inference_mode():
+            out = self.predict({k: self._upload(v) for k, v in batch.items()})
+            if self.device.type != "cuda":
+                return _Pending(out, None)
+            host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            return _Pending(host, event)
+
+    @staticmethod
+    def fetch(out: _Pending) -> Dict[str, np.ndarray]:
+        """Wait for a ``dispatch`` result and return it as numpy."""
+        if out.event is not None:
+            out.event.synchronize()
+        return {k: v.numpy() for k, v in out.host.items()}
+
+    def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return self.fetch(self.dispatch(batch))
