@@ -8,10 +8,11 @@ the last line:
 
 1. card: ``nvidia-smi`` name and power limit, the device name; TF32 off;
 2. build: nvcc builds every kernel of ``vog_tpu_torch/csrc`` (in parallel);
-3. kernels: each of the four kernels against its plain PyTorch version on
+3. kernels: each of the four forward kernels against its plain PyTorch version on
    the card, at the serving path's shapes (GT5 SPAT, B=16): bitwise for
-   the gather in f32/bf16/int8, max |err| <= 1e-4 * max(1, max|ref|) for
-   the fp32 kernels (sums run in another order); then CUDA-event times of
+   the gather in f32/bf16/int8, max |err| <= 1e-4 * max(1, max|ref|) and
+   |err| / |ref| <= 1e-3 (norms over the tensor) for the fp32 kernels (sums
+   run in another order); then CUDA-event times of
    the kernel, the plain version and the library call where one exists
    (median of 15 runs of 10 back-to-back calls),
    and the bound of each kernel (bytes over 3.35 TB/s or fp32 operations
@@ -24,7 +25,26 @@ the last line:
    the scores of a few requests agree with the same weights run on the CPU
    through the plain path; prints p50/p95 latency and requests/s;
 5. profile: one B=16 batch, its host wall time, its forward's stream span
-   and its device time by kernel (torch.profiler), and the idle share.
+   and its device time by kernel (torch.profiler), and the idle share;
+6. backward kernels: each of the three against its plain backward on the
+   card at the GT5 shapes (flash with and without the frame bias, a batch
+   row with every key masked; the head with the upstream gradient zeroed
+   on the rows within 2e-5 of a ReLU kink), and each plain backward
+   against torch.autograd of its plain forward, within phase 3's limits;
+   their times and bounds as in phase 3;
+7. train: the production recipe (``configs/gt5_production.yml``: B=16,
+   lr 5e-4 cosine after 100 warm-up steps, pos_weight 5, skip_nonfinite 50,
+   grad_clip 1, dropout 0.1) at full width, fp32 activations, batches
+   drawn from the device tables.  (a) the first step on the card against
+   the same step on the CPU plain path (same weights and batch, dropout 0,
+   TF32 off): loss within 1e-4 relative, every parameter's gradient within
+   1e-4 * max(1, max|g|) and 1e-2 relative; as a control, the same card
+   step with the head's db1 and the mm attention's dfb zeroed must fail
+   that comparison; (b) 30 steps: every loss finite, no step dropped by
+   the guard, the first and last loss, the median step time and samples/s,
+   the launches per step of all seven kernels (each > 0) and one profiled
+   step's device idle share; (c) the state after (b) through (a)'s
+   comparison once more.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -45,6 +65,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOP_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 TOL = 1e-4  # fp32 kernels: max |err| <= TOL * max(1, max|ref|)
+REL_TOL = 1e-3  # and |err| / |ref| (norms over the tensor): a zeroed or halved result fails
+# a whole train step card vs CPU: each gradient's |err| / |ref| (a zeroed or
+# halved leaf gives 1 or 0.5; the end-to-end chain reaches ~1e-3 on the
+# input projections' weights)
+TRAIN_REL_TOL = 1e-2
+WORST_REL = {}  # check name (first word) -> worst relative error of check_close
 
 
 def fail(msg: str) -> None:
@@ -85,11 +111,21 @@ def max_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
+def rel_err(got, ref) -> float:
+    """|got - ref| / |ref| over the whole tensor (Frobenius norms); when
+    ``ref`` is zero, 0 if ``got`` is too, else inf."""
+    d = float((got.double() - ref.double()).norm())
+    n = float(ref.double().norm())
+    return d / n if n > 0 else (0.0 if d == 0 else float("inf"))
+
+
 def check_close(name, got, ref) -> float:
-    err = max_err(got, ref)
+    err, rel = max_err(got, ref), rel_err(got, ref)
     lim = TOL * max(1.0, float(ref.abs().max()))
-    if not err <= lim:
-        fail(f"{name}: max |err| {err:.3e} > {lim:.3e}")
+    key = name.split()[0]
+    WORST_REL[key] = max(WORST_REL.get(key, 0.0), rel)
+    if not (err <= lim and rel <= REL_TOL):
+        fail(f"{name}: max |err| {err:.3e} (limit {lim:.3e}), relative err {rel:.3e} (limit {REL_TOL:.0e})")
     return err
 
 
@@ -405,8 +441,375 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8):
                                     n_requests=n_requests, flushes=flushes[0])
 
 
-KERNEL_SYMBOLS = {"gather_rows": "gather_", "flash_attention": "flash_fwd",
-                  "mm_shared_qk_attention": "mm_fwd", "fused_grounding_head": "head_fwd"}
+def away_from_kinks(vis, arg, wv, wl, wx, w1, b1, g, eps: float = 2e-5):
+    """``g`` with zeros on the (b, a, t) rows of the grounding head where a
+    pre-activation (z0 or z1, computed in fp64) lies within ``eps`` of its
+    ReLU's kink, and the share of rows zeroed.  There two right
+    implementations that round differently may take different sides of the
+    kink and their gradients differ by a whole term; a check of the head's
+    backward compares on the other rows only."""
+    import torch
+
+    with torch.no_grad():
+        d = lambda t: t.double()  # noqa: E731
+        z0 = d(wv)[:, None] + d(wl)[:, :, None] + torch.matmul(d(vis)[:, None] * d(arg)[:, :, None], d(wx))
+        z1 = torch.matmul(torch.relu(z0), d(w1)) + d(b1)
+        near = (z0.abs() < eps).any(-1) | (z1.abs() < eps).any(-1)
+        return torch.where(near, torch.zeros_like(g), g), float(near.double().mean())
+
+
+def phase_kernels_bwd(cfg, B: int = 16):
+    """Each backward kernel against its plain backward, and each plain
+    backward against autograd of its plain forward, on the card at the
+    training path's shapes; returns the kernel table rows."""
+    import torch
+
+    from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    V, F, P, A = cfg.ds.num_cmp, cfg.ds.num_frms, cfg.ds.num_prop_per_frm, cfg.ds.max_srl_args
+    D, H = cfg.mdl.vis_dim, cfg.mdl.n_heads
+    dh, T = D // H, F * V * P
+    out = []
+
+    def autograd_of(fwd, args, diff, cot):
+        xs = [a.detach().clone().requires_grad_(i in diff) if a is not None else None
+              for i, a in enumerate(args)]
+        return torch.autograd.grad(fwd(*xs), [xs[i] for i in diff], cot)
+
+    # -- flash attention backward -----------------------------------------
+    q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
+    mask[:, 0] = 1.0
+    mask[B - 1] = 0.0  # one batch row with every key masked
+    fid_spat = (torch.arange(T, device=dev) // (V * P)).to(torch.int32)
+    fid_mixed = torch.randint(0, F, (T,), generator=g, device=dev, dtype=torch.int32)
+    fb = torch.randn((H, F, F), generator=g, device=dev) * 0.5
+    do = torch.randn((B, H, T, dh), generator=g, device=dev)
+    err = 0.0
+    for bias, fid in ((None, None), (fb, fid_spat), (fb, fid_mixed)):
+        o, lse = attention.flash_attention_fwd(q, k, v, mask, bias, fid)
+        got = attention.flash_attention_bwd(q, k, v, mask, bias, fid, o, lse, do)
+        ref = attention.flash_attention_bwd_plain(q, k, v, mask, bias, fid, o, lse, do)
+        diff = (0, 1, 2) if bias is None else (0, 1, 2, 4)
+        auto = autograd_of(lambda *a: attention.flash_attention_plain(*a)[0],
+                           (q, k, v, mask, bias, fid), diff, do)
+        for x, y, z in zip(got, ref, auto):
+            err = max(err, check_close("flash_attention_bwd", x, y))
+            check_close("flash_attention_bwd_plain vs autograd", y, z)
+    o, lse = attention.flash_attention_fwd(q, k, v, mask)
+    ms = time_ms(lambda: attention.flash_attention_bwd(q, k, v, mask, None, None, o, lse, do))
+    plain = time_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, mask, None, None, o, lse, do))
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sd = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=(mask > 0)[:, None, None, :])
+    lib = time_ms(lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True))
+    fl = 10.0 * B * H * T * T * dh  # S, dP, dV, dK, dQ: 2*T*T*dh each, from the saved o and lse
+    bms, by = bound_ms(nbytes(q, k, v, o, do, lse, mask) + 3 * nbytes(q), fl)
+    out.append(dict(name="flash_attention_bwd", route="cuda", source="vog_tpu_torch/csrc/attention.cu",
+                    replaces="vog_tpu/kernels/attention.py:344", max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=lib,
+                    shape=f"q,k,v {tuple(q.shape)} f32, no bias (checked also with bias)"))
+    print(f"[kernels-bwd] flash_attention_bwd max_err={err:.3e} (no bias, spat bias, mixed-frame bias; "
+          f"one all-masked row) ms={ms:.4f} plain={plain:.4f} sdpa-bwd={lib:.4f} bound={bms:.4f}", flush=True)
+
+    # -- mm shared-QK attention backward ----------------------------------
+    qm = q * (1.0 / dh**0.5)
+    cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
+    gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
+    err = 0.0
+    for fid in (fid_spat, fid_mixed):
+        fwd = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid)
+        got = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *fwd, gm)
+        ref = mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid, *fwd, gm)
+        auto = autograd_of(lambda *a: mm_attention.mm_attention_plain(*a)[0],
+                           (qm, k, v, cn, mask, fb, fid), (0, 1, 2, 3, 5), gm)
+        for x, y, z in zip(got, ref, auto):
+            err = max(err, check_close("mm_shared_qk_attention_bwd", x, y))
+            check_close("mm_shared_qk_attention_bwd_plain vs autograd", y, z)
+    fwd = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)
+    ms = time_ms(lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm))
+    plain = time_ms(lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm))
+    fl = 2.0 * B * H * T * T * dh * (3 + 2 * A)
+    bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn), fl)
+    out.append(dict(name="mm_shared_qk_attention_bwd", route="cuda",
+                    source="vog_tpu_torch/csrc/mm_attention.cu",
+                    replaces="vog_tpu/kernels/mm_attention.py:383", max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32, emit mode (dq, dfb from comb)"))
+    print(f"[kernels-bwd] mm_shared_qk_attention_bwd max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
+          f"bound={bms:.4f}", flush=True)
+
+    # -- fused grounding head backward ------------------------------------
+    Dh = D // 2
+    vis = torch.relu(torch.randn((B, T, D), generator=g, device=dev))
+    arg = torch.relu(torch.randn((B, A, D), generator=g, device=dev))
+    wx = torch.randn((D, D), generator=g, device=dev) / D**0.5
+    w1 = torch.randn((D, Dh), generator=g, device=dev) / D**0.5
+    b1 = torch.randn((Dh,), generator=g, device=dev) * 0.1
+    w2 = torch.randn((Dh,), generator=g, device=dev) / Dh**0.5
+    b2 = torch.randn((1,), generator=g, device=dev)
+    wv = vis @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+    wl = arg @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+    args = (vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    gh, kink = away_from_kinks(*args[:7], torch.randn((B, A, T), generator=g, device=dev))
+    if kink > 0.05:
+        fail(f"fused_grounding_head_bwd: {kink:.3f} of the rows lie near a ReLU kink")
+    got = grounding_head.grounding_head_bwd(*args, gh)
+    ref = grounding_head.grounding_head_bwd_plain(*args, gh)
+    auto = autograd_of(grounding_head.grounding_head_plain, args, tuple(range(9)), gh)
+    err = 0.0
+    for x, y, z in zip(got, ref, auto):
+        err = max(err, check_close("fused_grounding_head_bwd", x, y))
+        check_close("fused_grounding_head_bwd_plain vs autograd", y, z)
+    ms = time_ms(lambda: grounding_head.grounding_head_bwd(*args, gh))
+    plain = time_ms(lambda: grounding_head.grounding_head_bwd_plain(*args, gh))
+    fl = 6.0 * B * A * T * (D * D + D * Dh)
+    bms, by = bound_ms(2 * nbytes(*args) + nbytes(gh), fl)
+    out.append(dict(name="fused_grounding_head_bwd", route="cuda",
+                    source="vog_tpu_torch/csrc/grounding_head.cu",
+                    replaces="vog_tpu/kernels/grounding_head.py:218", max_abs_err=err, ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    shape=f"vis {tuple(vis.shape)}, A={A} f32, all 9 grads; {kink:.4f} of rows near a kink"))
+    print(f"[kernels-bwd] fused_grounding_head_bwd max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
+          f"bound={bms:.4f} (g zeroed on {kink:.4f} of rows near a ReLU kink)", flush=True)
+    return out
+
+
+TRAIN_STEPS = 30
+KERNEL_NAMES = ("gather_rows", "flash_attention", "mm_shared_qk_attention", "fused_grounding_head",
+                "flash_attention_bwd", "mm_shared_qk_attention_bwd", "fused_grounding_head_bwd")
+
+
+def train_cfg(dropout: float):
+    """The serving model with the production training recipe."""
+    cfg = serve_cfg()
+    t = cfg.train
+    t.bs, t.lr, t.lr_schedule, t.warmup_steps, t.total_steps = 16, 5e-4, "cosine", 100, 1000
+    t.pos_weight, t.skip_nonfinite, t.grad_clip = 5.0, 50, 1.0
+    cfg.mdl.dropout = dropout
+    return cfg
+
+
+def make_train_batches(cfg, n: int, B: int, n_rows: int, vocab: int, seed: int):
+    """``n`` batches of ``B`` requests with targets: a few positive
+    proposals of the positive video for each valid arg."""
+    import numpy as np
+
+    ds = cfg.ds
+    V, F, P, A = ds.num_cmp, ds.num_frms, ds.num_prop_per_frm, ds.max_srl_args
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for i in range(n):
+        reqs = make_requests(cfg, B, n_rows, vocab, seed=seed + 100 * i)
+        b = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+        t = np.zeros((B, V, A, F, P), np.uint8)
+        pos = rng.integers(0, V, B)
+        hit = rng.uniform(size=(B, A, F, P)) > 0.9
+        t[np.arange(B), pos] = hit
+        b["targets"] = t * b["srl_arg_mask"][:, None, :, None, None]
+        b["batch_mask"] = np.ones((B,), np.uint8)
+        out.append(b)
+    return out
+
+
+def step_grads(cfg, sd, batch, tables, dev: str):
+    """One train step from the weights ``sd`` on ``dev`` -> (loss, every
+    parameter's gradient on the CPU); ``batch`` holds ``vid_rows`` into the
+    card's ``tables`` (gathered here for the CPU)."""
+    import torch
+
+    from vog_tpu_torch.data.device_store import gather_from_tables
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_train_step
+
+    b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    if dev == "cpu":
+        b, tables = {k: v.cpu() for k, v in gather_from_tables(b, tables).items()}, None
+    model = get_model(cfg, 5000, device=dev, train=True)
+    model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
+    _, aux = make_train_step(cfg)(TrainState.create(cfg, model), b, seed=0, tables=tables)
+    return float(aux["loss"]), {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+
+def grad_faults(got, ref):
+    """-> [(leaf, max |err|, relative err)] of the leaves outside either
+    limit: max |err| <= TOL * max(1, max|g|) and rel_err <= TRAIN_REL_TOL."""
+    out = []
+    for k, r in ref.items():
+        err, rel = max_err(got[k], r), rel_err(got[k], r)
+        if not (err <= TOL * max(1.0, float(r.abs().max())) and rel <= TRAIN_REL_TOL):
+            out.append((k, err, rel))
+    return out
+
+
+def compare_step(cfg, sd, batch, tables, what: str):
+    """One train step on the card and on the CPU plain path from the same
+    weights ``sd`` and batch (dropout 0): loss within 1e-4 relative, every
+    gradient within both limits of ``grad_faults``.  -> (loss, max |err|,
+    worst relative err and its leaf, the smallest leaf by max|g|, the CPU
+    gradients)."""
+    lc, gc = step_grads(cfg, sd, batch, tables, "cuda")
+    lp, gp = step_grads(cfg, sd, batch, tables, "cpu")
+    if not abs(lc - lp) <= 1e-4 * abs(lp):
+        fail(f"train {what}: card loss {lc:.7f} != CPU loss {lp:.7f}")
+    bad = grad_faults(gc, gp)
+    if bad:
+        fail(f"train {what}: gradients differ from the CPU (leaf, max |err|, rel): {bad}")
+    rels = {k: rel_err(gc[k], r) for k, r in gp.items()}
+    worst = max(rels, key=rels.get)
+    small = min((k for k in gp if gp[k].abs().max() > 0), key=lambda k: float(gp[k].abs().max()))
+    return (lc, max(max_err(gc[k], r) for k, r in gp.items()), (worst, rels[worst]),
+            (small, float(gp[small].abs().max()), rels[small]), gp)
+
+
+def planted_zero_control(cfg, sd, batch, tables, gp):
+    """The card step once more with two backward kernels' smallest outputs
+    set to zero (the head's db1, the mm attention's dfb); ``grad_faults``
+    against the CPU gradients ``gp`` must name the leaves they feed, or
+    the comparison could not see such a fault.  -> the leaves named."""
+    import torch
+
+    from vog_tpu_torch.kernels import grounding_head, mm_attention
+
+    def zeroed(fn, i):
+        def run(*a):
+            out = list(fn(*a))
+            out[i] = torch.zeros_like(out[i])
+            return tuple(out)
+        return run
+
+    real = grounding_head.grounding_head_bwd, mm_attention.mm_attention_bwd
+    grounding_head.grounding_head_bwd = zeroed(real[0], 6)  # db1
+    mm_attention.mm_attention_bwd = zeroed(real[1], 4)  # dfb
+    try:
+        _, gc = step_grads(cfg, sd, batch, tables, "cuda")
+    finally:
+        grounding_head.grounding_head_bwd, mm_attention.mm_attention_bwd = real
+    named = [k for k, _, _ in grad_faults(gc, gp)]
+    for leaf in ("head1_bias", "rpe_table"):
+        if not any(k.endswith(leaf) for k in named):
+            fail(f"train: a zeroed {leaf} gradient passed the card-vs-CPU comparison (faults {named})")
+    return named
+
+
+def phase_train(tables, card: str, B: int = 16):
+    """(a) first step card vs CPU, (b) 30 production-recipe steps from the
+    device tables, (c) the trained state card vs CPU again."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_train_step
+
+    cfg, parity = train_cfg(0.1), train_cfg(0.0)
+    batches = make_train_batches(cfg, TRAIN_STEPS + 1, B, tables.n_rows, 5000, seed=11)
+    model = get_model(cfg, 5000, device="cuda", seed=3, train=True)
+    sd0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    loss_a, err_a, worst_a, small_a, gp = compare_step(parity, sd0, batches[0], tables.tables, "first step")
+    print(f"[train] (a) first step card vs CPU plain path: loss {loss_a:.6f}, max grad err {err_a:.3e}, "
+          f"worst relative err {worst_a[1]:.3e} ({worst_a[0]}); smallest leaf {small_a[0]} max|g| "
+          f"{small_a[1]:.3e} relative err {small_a[2]:.3e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    named = planted_zero_control(parity, sd0, batches[0], tables.tables, gp)
+    print(f"[train] (a) control: zeroed head db1 and mm dfb on the card are rejected on {named}", flush=True)
+
+    state = TrainState.create(cfg, model)
+    step = make_train_step(cfg)
+    dev_batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()} for b in batches]
+    state, _ = step(state, dev_batches[-1], seed=0, tables=tables.tables)  # warm-up, not counted
+    torch.cuda.synchronize()
+    losses, times = [], []
+    _build.reset_counts()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, aux = step(state, dev_batches[i], seed=0, tables=tables.tables)
+        losses.append(aux["loss"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(_build.launches)
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"train: a non-finite loss in {losses}")
+    if int(state.opt_state["total_notfinite"]) != 0:
+        fail(f"train: the guard dropped {int(state.opt_state['total_notfinite'])} steps")
+    for n in KERNEL_NAMES:
+        if counts.get(n, 0) <= 0:
+            fail(f"kernel {n} was not launched on the train path (counts {counts})")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, dev_batches[0], seed=0, tables=tables.tables)
+        torch.cuda.synchronize()
+        span = (time.perf_counter() - t0) * 1e3
+    by_symbol = {}
+    by_kernel, other = device_time_by_kernel(prof, 1, by_symbol)
+    busy = sum(by_kernel.values()) + sum(other.values())
+    med = statistics.median(times)
+    idle = max(0.0, 1 - busy / med)  # against the unprofiled median step
+    per_step = {n: counts.get(n, 0) / TRAIN_STEPS for n in KERNEL_NAMES}
+    print(f"[train] (b) {TRAIN_STEPS} steps, B={B}, production recipe: loss first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}, all finite; median step {med:.2f} ms, {B / med * 1e3:.1f} samples/s on {card}",
+          flush=True)
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[train] (b) launches per step {per_step}; one profiled step: device busy {busy:.2f} ms, "
+          f"idle share {idle:.2f} of the median step (span with the profiler on {span:.2f} ms); ours "
+          + ", ".join(f"{k}={v:.3f}" for k, v in by_kernel.items())
+          + f"; other {sum(other.values()):.3f} ms in {len(other)} ops: "
+          + "; ".join(f"{k[:40]}={v:.3f}" for k, v in top), flush=True)
+    print("[train] (b) our kernels by symbol: " + ", ".join(f"{k}={v:.3f}" for k, v in by_symbol.items()),
+          flush=True)
+
+    sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    if not all(torch.isfinite(v).all() for v in sd.values()):
+        fail("train: the state after the run holds non-finite values")
+    loss_c, err_c, worst_c, small_c, _ = compare_step(parity, sd, batches[1], tables.tables, "trained state")
+    print(f"[train] (c) trained state card vs CPU plain path: loss {loss_c:.6f}, max grad err {err_c:.3e}, "
+          f"worst relative err {worst_c[1]:.3e} ({worst_c[0]}); smallest leaf {small_c[0]} max|g| "
+          f"{small_c[1]:.3e} relative err {small_c[2]:.3e}", flush=True)
+    return counts, dict(steps=TRAIN_STEPS, batch=B, loss_first=losses[0], loss_last=losses[-1],
+                        median_step_ms=med, samples_per_s=B / med * 1e3, step_ms=times,
+                        launches_per_step=per_step, profiled_step_ms=span, device_busy_ms=busy,
+                        idle_share=idle, kernels_ms=by_kernel, other_device_ms=sum(other.values()),
+                        top_other=[[k[:60], v] for k, v in top], ours_by_symbol=by_symbol,
+                        first_step_grad_err=err_a, trained_grad_err=err_c, first_step_worst_rel=worst_a,
+                        trained_worst_rel=worst_c, first_step_smallest_leaf=small_a,
+                        trained_smallest_leaf=small_c, planted_zero_rejected=named)
+
+
+# each wrapper's __global__ functions in vog_tpu_torch/csrc
+KERNEL_SYMBOLS = {"gather_rows": ("gather_vec16", "gather_bytes"), "flash_attention": ("flash_fwd",),
+                  "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
+                  "flash_attention_bwd": ("flash_bwd_dkv", "flash_bwd_dq"),
+                  "mm_shared_qk_attention_bwd": ("mm_bwd_dkv",),
+                  "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w")}
+
+
+def device_time_by_kernel(prof, reps: int, by_symbol=None):
+    """-> (ms per rep of each of our kernels, ms per rep of every other
+    device op) from a torch.profiler run; ``by_symbol``, a dict, also gets
+    our kernels' ms by their own symbol (a wrapper may launch several)."""
+    import torch
+
+    by_kernel = {k: 0.0 for k in KERNEL_SYMBOLS}
+    other = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = us / 1e3 / reps
+        hit = [(k, sym) for k, syms in KERNEL_SYMBOLS.items() for sym in syms if sym in e.key]
+        if hit:
+            by_kernel[hit[0][0]] += ms
+            if by_symbol is not None:
+                by_symbol[hit[0][1]] = by_symbol.get(hit[0][1], 0.0) + ms
+        else:
+            other[e.key] = other.get(e.key, 0.0) + ms
+    return by_kernel, other
 
 
 def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
@@ -433,20 +836,8 @@ def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
             for _ in range(reps):
                 pred.predict(dev)
             torch.cuda.synchronize()
-    by_kernel = {k: 0.0 for k in KERNEL_SYMBOLS}
-    other = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = us / 1e3 / reps
-        hit = [k for k, sym in KERNEL_SYMBOLS.items() if sym in e.key]
-        if hit:
-            by_kernel[hit[0]] += ms
-        else:
-            other[e.key] = other.get(e.key, 0.0) + ms
+    by_kernel, other = device_time_by_kernel(prof, reps)
+    by_kernel = {k: v for k, v in by_kernel.items() if not k.endswith("_bwd")}
     busy = sum(by_kernel.values()) + sum(other.values())
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     out = dict(batch=B, call_wall_ms=statistics.median(walls), forward_span_ms=span,
@@ -479,10 +870,19 @@ def main() -> int:
           flush=True)
     rows = phase_kernels(cfg, tables)
     pred, reqs, counts, serve = phase_serve(cfg, tables, card)
-    for r in rows:
-        r["launches"] = counts.get(r["name"], 0)
     prof = phase_profile(pred, reqs)
-    print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "card": card}), flush=True)
+    del pred
+    rows += phase_kernels_bwd(cfg)
+    train_counts, train = phase_train(tables, card)
+    print("[kernels] worst relative err by check: " + ", ".join(f"{k}={v:.2e}" for k, v in WORST_REL.items()),
+          flush=True)
+    for r in rows:
+        r["max_rel_err"] = WORST_REL.get(r["name"], 0.0)  # the gather is checked bitwise
+        # forward kernels: launches on the serving path; backward: on the train path
+        r["launches"] = counts.get(r["name"], 0) if r["name"] in counts else train_counts.get(r["name"], 0)
+        r["train_launches_per_step"] = train_counts.get(r["name"], 0) / TRAIN_STEPS
+    print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train, "card": card}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

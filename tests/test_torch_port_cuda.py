@@ -109,3 +109,118 @@ def test_wrappers_raise_on_bad_input(dev):
     with pytest.raises(ValueError):
         fused_grounding_head(x, y, x, y, w, w[:, :32].contiguous(), w[0, :32].contiguous(),
                              w[0, :32].contiguous(), w[0, 0])
+
+
+# --------------------------------------------------------------------------
+# backward kernels: each against its plain backward (T = 200 and a ragged
+# T), and the autograd Function against autograd of the plain forward
+# --------------------------------------------------------------------------
+def _attn_inputs(dev, B, H, T, dh, F, all_masked=True):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T * 7 + dh)
+    q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.3).float()
+    mask[:, 0] = 1.0
+    if all_masked:
+        mask[B - 1] = 0.0
+    fb = torch.randn((H, F, F), generator=g, device=dev)
+    fid = torch.randint(0, F, (T,), generator=g, device=dev, dtype=torch.int32)
+    return g, q, k, v, mask, fb, fid
+
+
+@pytest.mark.parametrize("T,dh,bias", [(200, 128, True), (200, 128, False), (45, 40, True)])
+def test_flash_bwd_kernel(dev, T, dh, bias):
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    )
+
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, 3, 2, T, dh, 10)
+    fb, fid = (fb, fid) if bias else (None, None)
+    o, lse = flash_attention_fwd(q, k, v, mask, fb, fid)
+    do = torch.randn(o.shape, generator=g, device=dev)
+    _build.reset_counts()
+    got = flash_attention_bwd(q, k, v, mask, fb, fid, o, lse, do)
+    torch.cuda.synchronize()
+    assert _build.launches == {"flash_attention_bwd": 1}
+    for a, b in zip(got, flash_attention_bwd_plain(q, k, v, mask, fb, fid, o, lse, do)):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("A,T,dh", [(5, 200, 128), (3, 45, 40)])
+def test_mm_bwd_kernel(dev, A, T, dh):
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.mm_attention import (
+        mm_attention_bwd, mm_attention_bwd_plain, mm_attention_fwd,
+    )
+
+    g, qm, km, vm, mask, fb, fid = _attn_inputs(dev, 2, 3, T, dh, 10)
+    cn = -3 * torch.rand((2, 3, A, T), generator=g, device=dev)
+    fwd = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
+    go = torch.randn(fwd[0].shape, generator=g, device=dev)
+    _build.reset_counts()
+    got = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go)
+    torch.cuda.synchronize()
+    assert _build.launches == {"mm_shared_qk_attention_bwd": 1}
+    for a, b in zip(got, mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *fwd, go)):
+        _close(a, b)
+
+
+def _head_inputs(dev, B, T, A, D):
+    g = torch.Generator(device=dev)
+    g.manual_seed(B * T + D)
+    Dh = D // 2
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    return (torch.relu(r(B, T, D)), torch.relu(r(B, A, D)), r(B, T, D) * 0.5, r(B, A, D) * 0.5,
+            r(D, D) / D**0.5, r(D, Dh) / D**0.5, r(Dh) * 0.1, r(Dh) / Dh**0.5, r(1)), g
+
+
+@pytest.mark.parametrize("B,T,A,D", [(16, 200, 5, 512), (3, 37, 3, 96)])
+def test_head_bwd_kernel(dev, B, T, A, D):
+    from chip_smoke import away_from_kinks
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.grounding_head import grounding_head_bwd, grounding_head_bwd_plain
+
+    args, g = _head_inputs(dev, B, T, A, D)
+    go, share = away_from_kinks(*args[:7], torch.randn((B, A, T), generator=g, device=dev))
+    assert share < 0.05
+    _build.reset_counts()
+    got = grounding_head_bwd(*args, go)
+    torch.cuda.synchronize()
+    assert _build.launches == {"fused_grounding_head_bwd": 1}
+    for a, b in zip(got, grounding_head_bwd_plain(*args, go)):
+        _close(a, b)
+
+
+def _autograd_pair(fn, plain, args, diff):
+    """Gradients of sum(out * w) through ``fn`` and through ``plain``."""
+    outs = []
+    for f in (fn, plain):
+        xs = [a.detach().clone().requires_grad_(i in diff) if a is not None else None
+              for i, a in enumerate(args)]
+        out = f(*xs)
+        w = torch.linspace(-1, 1, out.numel(), device=out.device).reshape(out.shape)
+        outs.append(torch.autograd.grad((out * w).sum(), [xs[i] for i in diff]))
+    return outs
+
+
+def test_functions_match_autograd_of_plain(dev):
+    from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
+
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, 2, 2, 21, 16, 4)
+    got, ref = _autograd_pair(attention.flash_attention,
+                              lambda *a: attention.flash_attention_plain(*a)[0],
+                              (q, k, v, mask, fb, fid), (0, 1, 2, 4))
+    for a, b in zip(got, ref):
+        _close(a, b)
+    cn = -3 * torch.rand((2, 2, 3, 21), generator=g, device=dev)
+    got, ref = _autograd_pair(mm_attention.mm_shared_qk_attention,
+                              lambda *a: mm_attention.mm_attention_plain(*a)[0],
+                              (q, k, v, cn, mask, fb, fid), (0, 1, 2, 3, 5))
+    for a, b in zip(got, ref):
+        _close(a, b)
+    args, _ = _head_inputs(dev, 2, 19, 3, 64)
+    got, ref = _autograd_pair(grounding_head.fused_grounding_head,
+                              grounding_head.grounding_head_plain, args, tuple(range(9)))
+    for a, b in zip(got, ref):
+        _close(a, b)

@@ -12,6 +12,7 @@
 import ast
 import json
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -24,12 +25,13 @@ PKG = ROOT / "vog_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vog_tpu"}
 
-# kernel module -> (CUDA source, the kernel's name in chip_smoke.py's table)
+# kernel module -> (CUDA source, the kernel's name in chip_smoke.py's
+# table, the backward's name there or None)
 KERNELS = {
-    "gather.py": ("gather.cu", "gather_rows"),
-    "attention.py": ("attention.cu", "flash_attention"),
-    "mm_attention.py": ("mm_attention.cu", "mm_shared_qk_attention"),
-    "grounding_head.py": ("grounding_head.cu", "fused_grounding_head"),
+    "gather.py": ("gather.cu", "gather_rows", None),
+    "attention.py": ("attention.cu", "flash_attention", "flash_attention_bwd"),
+    "mm_attention.py": ("mm_attention.cu", "mm_shared_qk_attention", "mm_shared_qk_attention_bwd"),
+    "grounding_head.py": ("grounding_head.cu", "fused_grounding_head", "fused_grounding_head_bwd"),
 }
 
 
@@ -78,12 +80,27 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
     smoke = SMOKE.read_text()
     smoke_strings = {n.value for n in ast.walk(ast.parse(smoke))
                      if isinstance(n, ast.Constant) and isinstance(n.value, str)}
-    for mod, (src, name) in KERNELS.items():
+    symbols = ast.literal_eval(
+        next(n.value for n in ast.walk(ast.parse(smoke))
+             if isinstance(n, ast.Assign) and getattr(n.targets[0], "id", "") == "KERNEL_SYMBOLS")
+    )
+    for mod, (src, name, bwd) in KERNELS.items():
         assert (PKG / "csrc" / src).exists() and src in _build.SOURCES
         text = (PKG / "kernels" / mod).read_text()
         assert "_plain" in text and "_build.count(NAME)" in text and f'NAME = "{name}"' in text
         assert name in smoke_strings, f"chip_smoke.py has no check of {name}"
         assert f"vog_tpu_torch/csrc/{src}" in smoke_strings
+        assert name in symbols
+        kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)",
+                             (PKG / "csrc" / src).read_text())
+        for key in (name, bwd):
+            if key is not None:  # the profile's symbols name kernels of this source
+                assert set(symbols[key]) <= set(kernels), (key, symbols[key], kernels)
+        if bwd is not None:
+            assert "_bwd_plain(" in text and "_build.count(NAME_BWD)" in text
+            assert f'NAME_BWD = "{bwd}"' in text and "torch.autograd.Function" in text
+            assert bwd in smoke_strings, f"chip_smoke.py has no check of {bwd}"
+            assert bwd in symbols, f"chip_smoke.py's profile does not attribute {bwd}"
     assert sorted(_build.SOURCES) == sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
 
 

@@ -19,6 +19,20 @@
 // A x dh accumulator, 4 adjacent columns a lane; the probabilities go
 // through shared memory so the P.V loop reads them and V as float4.  The (T,T) scores and
 // the A value streams never reach device memory.
+//
+// Backward: mm_bwd_dkv, the counterpart of the TPU's dk/dv/dcn kernel in
+// its default "emit" mode (vog_tpu/kernels/mm_attention.py
+// §_make_bwd_dkv_kernel(True)).  A block owns 32 keys (a warp 4) and walks
+// the query rows in tiles of 32, lane i taking query i: it recomputes
+// p_a = exp(s + cn_a - m_a) from the saved per-arg row max and
+// denominator, ds_a = p_a (g_a.vm - delta_a) / den_a, and accumulates
+// dv = sum_a sum_i (p_a/den_a) g_a,i and dk = sum_i comb_i qm_i with
+// comb = sum_a ds_a (masked), in registers, and dcn_a = sum_i ds_a per
+// lane, reduced by a fixed shuffle tree at the end.  It also writes comb
+// (B*H, T, T) through a shared-memory tile, coalesced; dq = comb . km and
+// the frame-bias gradient are products over it outside the kernel, as in
+// the TPU package.  Bound by fp32 operations (the A g_a.vm products and
+// the A dv sums dominate).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -236,7 +250,249 @@ int launch(const float* qm, const float* km, const float* vm, const float* cn,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// backward (emit mode)
+// ---------------------------------------------------------------------------
+constexpr int kKPW = 4;              // keys per warp
+constexpr int kBKb = kWarps * kKPW;  // keys per block
+constexpr int kBQt = 32;             // query rows per tile (lane i = row i)
+constexpr int kCbs = kBQt + 1;       // comb tile row stride (no bank conflicts)
+
+__device__ inline float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+template <int A>
+__global__ void __launch_bounds__(kWarps * 32)
+mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
+           const float* __restrict__ vm, const float* __restrict__ cn,
+           const float* __restrict__ key_mask, const float* __restrict__ fb,
+           const int* __restrict__ fid, const float* __restrict__ gout,
+           const float* __restrict__ mrow, const float* __restrict__ den,
+           const float* __restrict__ delta, float* __restrict__ dk,
+           float* __restrict__ dv, float* __restrict__ dcn,
+           float* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kBKb;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int dq = stride_q(dh), dk4 = stride_k(dh), n4 = dq / 4;
+
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // kBKb x dq (broadcast reads)
+  float* Vs = Ks + kBKb * dq;                    // kBKb x dq
+  float* Qs = Vs + kBKb * dq;                    // kBQt x dk4 (lane rows)
+  float* Gs = Qs + kBQt * dk4;                   // A x kBQt x dk4: g_a rows
+  float* Pn = Gs + A * kBQt * dk4;               // kWarps x A x kKPW x kBQt
+  float* Cb = Pn + kWarps * A * kKPW * kBQt;     // kBKb x kCbs: comb^T tile
+  float* Cs = Cb + kBKb * kCbs;                  // A x kBKb: cn of the keys
+  float* St = Cs + A * kBKb;                     // 3 x A x kBQt: m, den, delta
+  float* fbs = St + 3 * A * kBQt;                // F x F
+  float* mks = fbs + F * F;                      // kBKb
+  int* fks = reinterpret_cast<int*>(mks + kBKb); // kBKb
+  int* fqs = fks + kBKb;                         // kBQt
+  float* pn = Pn + warp * A * kKPW * kBQt;
+
+  const size_t base = (size_t)bh * T * dh;
+  for (int idx = tid; idx < F * F; idx += blockDim.x)
+    fbs[idx] = fb[(size_t)h * F * F + idx];
+  stage_rows(Ks, dq, km + base, k0, kBKb, T, dh, vec);
+  stage_rows(Vs, dq, vm + base, k0, kBKb, T, dh, vec);
+  for (int idx = tid; idx < A * kBKb; idx += blockDim.x) {
+    const int a = idx / kBKb, j = idx % kBKb, kj = k0 + j;
+    Cs[idx] = kj < T ? cn[((size_t)bh * A + a) * T + kj] : 0.f;
+  }
+  if (tid < kBKb) {
+    const int kj = k0 + tid;
+    mks[tid] = kj < T ? key_mask[(size_t)b * T + kj] : 0.f;
+    fks[tid] = kj < T ? fid[kj] : 0;
+  }
+
+  float adk[kKPW][kC], adv[kKPW][kC], dc[kKPW][A];
+#pragma unroll
+  for (int kk = 0; kk < kKPW; ++kk) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) adk[kk][c] = adv[kk][c] = 0.f;
+#pragma unroll
+    for (int a = 0; a < A; ++a) dc[kk][a] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < T; q0 += kBQt) {
+    __syncthreads();  // the previous tile is consumed (and the keys staged)
+    stage_rows(Qs, dk4, qm + base, q0, kBQt, T, dh, vec);
+    for (int a = 0; a < A; ++a)
+      stage_rows(Gs + a * kBQt * dk4, dk4, gout + ((size_t)bh * A + a) * T * dh, q0,
+                 kBQt, T, dh, vec);
+    for (int idx = tid; idx < A * kBQt; idx += blockDim.x) {
+      const int a = idx / kBQt, r = idx % kBQt, qi = q0 + r;
+      const size_t row = ((size_t)bh * A + a) * T + qi;
+      St[idx] = qi < T ? mrow[row] : 0.f;
+      St[A * kBQt + idx] = qi < T ? den[row] : 1.f;
+      St[2 * A * kBQt + idx] = qi < T ? delta[row] : 0.f;
+    }
+    if (tid < kBQt) fqs[tid] = q0 + tid < T ? fid[q0 + tid] : 0;
+    __syncthreads();
+
+    const bool row_ok = q0 + lane < T;
+    float s[kKPW], gv[A][kKPW];
+#pragma unroll
+    for (int kk = 0; kk < kKPW; ++kk) {
+      s[kk] = 0.f;
+#pragma unroll
+      for (int a = 0; a < A; ++a) gv[a][kk] = 0.f;
+    }
+    const float4* q4 = reinterpret_cast<const float4*>(Qs + lane * dk4);
+    for (int d4 = 0; d4 < n4; ++d4) {
+      const float4 qv = q4[d4];
+      float4 kv[kKPW], vv[kKPW];
+#pragma unroll
+      for (int kk = 0; kk < kKPW; ++kk) {
+        const int kl = warp * kKPW + kk;
+        kv[kk] = reinterpret_cast<const float4*>(Ks + kl * dq)[d4];
+        vv[kk] = reinterpret_cast<const float4*>(Vs + kl * dq)[d4];
+        s[kk] = dot4(qv, kv[kk], s[kk]);
+      }
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const float4 gq = reinterpret_cast<const float4*>(Gs + (a * kBQt + lane) * dk4)[d4];
+#pragma unroll
+        for (int kk = 0; kk < kKPW; ++kk) gv[a][kk] = dot4(gq, vv[kk], gv[a][kk]);
+      }
+    }
+    const int fq = fqs[lane];
+#pragma unroll
+    for (int kk = 0; kk < kKPW; ++kk) {
+      const int kl = warp * kKPW + kk;
+      const bool ok = row_ok && k0 + kl < T;
+      const bool valid = mks[kl] > 0.f;
+      const float sv = valid ? s[kk] + fbs[fq * F + fks[kl]] : kNeg;
+      float cb = 0.f;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const float inv = 1.f / St[A * kBQt + a * kBQt + lane];  // den >= 1
+        const float p = ok ? expf(sv + Cs[a * kBKb + kl] - St[a * kBQt + lane]) : 0.f;
+        const float ds = p * ((gv[a][kk] - St[2 * A * kBQt + a * kBQt + lane]) * inv);
+        cb += ds;
+        dc[kk][a] += ds;
+        pn[(a * kKPW + kk) * kBQt + lane] = p * inv;
+      }
+      Cb[kl * kCbs + lane] = valid ? cb : 0.f;
+    }
+    __syncwarp();
+    // dv += sum_a (p_a/den_a)^T g_a, dk += comb^T qm; lane owns 4 columns
+    if (4 * lane < dq) {
+      for (int i = 0; i < kBQt; ++i) {
+        const float4 qv = reinterpret_cast<const float4*>(Qs + i * dk4)[lane];
+#pragma unroll
+        for (int kk = 0; kk < kKPW; ++kk) {
+          const float c = Cb[(warp * kKPW + kk) * kCbs + i];
+          adk[kk][0] = fmaf(c, qv.x, adk[kk][0]);
+          adk[kk][1] = fmaf(c, qv.y, adk[kk][1]);
+          adk[kk][2] = fmaf(c, qv.z, adk[kk][2]);
+          adk[kk][3] = fmaf(c, qv.w, adk[kk][3]);
+        }
+#pragma unroll
+        for (int a = 0; a < A; ++a) {
+          const float4 gq = reinterpret_cast<const float4*>(Gs + (a * kBQt + i) * dk4)[lane];
+#pragma unroll
+          for (int kk = 0; kk < kKPW; ++kk) {
+            const float p = pn[(a * kKPW + kk) * kBQt + i];
+            adv[kk][0] = fmaf(p, gq.x, adv[kk][0]);
+            adv[kk][1] = fmaf(p, gq.y, adv[kk][1]);
+            adv[kk][2] = fmaf(p, gq.z, adv[kk][2]);
+            adv[kk][3] = fmaf(p, gq.w, adv[kk][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the whole comb tile is in shared memory
+    // emit comb[bh, q0 + r, k0 + j], keys fastest (coalesced)
+    for (int idx = tid; idx < kBQt * kBKb; idx += blockDim.x) {
+      const int r = idx / kBKb, j = idx % kBKb;
+      if (q0 + r < T && k0 + j < T)
+        comb[((size_t)bh * T + q0 + r) * T + k0 + j] = Cb[j * kCbs + r];
+    }
+  }
+
+#pragma unroll
+  for (int kk = 0; kk < kKPW; ++kk) {
+    const int kj = k0 + warp * kKPW + kk;
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      float d = dc[kk][a];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (lane == 0 && kj < T) dcn[((size_t)bh * A + a) * T + kj] = d;
+    }
+    if (kj >= T) continue;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int d = 4 * lane + c;
+      if (d < dh) {
+        dk[base + (size_t)kj * dh + d] = adk[kk][c];
+        dv[base + (size_t)kj * dh + d] = adv[kk][c];
+      }
+    }
+  }
+}
+
+template <int A>
+int launch_bwd(const float* qm, const float* km, const float* vm, const float* cn,
+               const float* key_mask, const float* fb, const int* fid,
+               const float* gout, const float* mrow, const float* den,
+               const float* delta, float* dk, float* dv, float* dcn,
+               float* comb, int B, int H, int T, int dh, int F,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)2 * kBKb * stride_q(dh) +
+                                       (1 + A) * kBQt * stride_k(dh) +
+                                       kWarps * A * kKPW * kBQt + kBKb * kCbs +
+                                       A * kBKb + 3 * A * kBQt + F * F + kBKb) +
+                      sizeof(int) * (kBKb + kBQt);
+  cudaError_t e = cudaFuncSetAttribute(
+      mm_bwd_dkv<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
+                   aligned16(gout);
+  dim3 grid((T + kBKb - 1) / kBKb, B * H);
+  mm_bwd_dkv<A><<<grid, kWarps * 32, smem, stream>>>(
+      qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn,
+      comb, H, T, dh, F, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
+                          const float* cn, const float* key_mask,
+                          const float* fb, const int* fid, const float* gout,
+                          const float* mrow, const float* den,
+                          const float* delta, float* dk, float* dv, float* dcn,
+                          float* comb, int B, int H, int A, int T, int dh,
+                          int F, void* stream) {
+  if (dh > kMaxDh || dh < 1) return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define VOG_MM_BWD_CASE(n)                                                    \
+  case n:                                                                     \
+    return launch_bwd<n>(qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, \
+                         delta, dk, dv, dcn, comb, B, H, T, dh, F, s);
+  switch (A) {
+    VOG_MM_BWD_CASE(1)
+    VOG_MM_BWD_CASE(2)
+    VOG_MM_BWD_CASE(3)
+    VOG_MM_BWD_CASE(4)
+    VOG_MM_BWD_CASE(5)
+    VOG_MM_BWD_CASE(6)
+    VOG_MM_BWD_CASE(7)
+    VOG_MM_BWD_CASE(8)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef VOG_MM_BWD_CASE
+}
 
 extern "C" int vog_mm_fwd(const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,

@@ -1,15 +1,24 @@
-"""Attention forward with a factored relative-frame bias, fp32.
+"""Attention with a factored relative-frame bias, fp32, forward and backward.
 
   o = softmax_j(q_i.k_j / sqrt(dh) + fb[h, fid_i, fid_j], key-masked) . v
 
-Replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel,
+Forward: replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel,
 _bias_block).  CUDA kernel: csrc/attention.cu.  On the H100 it is bound by
 fp32 operations at GT5 shapes; the kernel runs an online softmax over
 32-key tiles (the TPU kernel's whole-key-axis block does not fit 227 KB of
 shared memory at T=4000) and reads the bias from the head's (F, F) table
 in shared memory instead of the TPU kernel's one-hot matmul.  Masked keys
 take the finite ``NEG`` so a row with every key masked stays finite.
-Forward only: the backward kernels come with the training slice.
+
+Backward: replaces §_flash_bwd in its default "recompute" mode: a dk/dv
+kernel over key tiles, then a dq + frame-bias-grad kernel over query
+tiles, both recomputing p = exp(s - lse) from the forward's saved LSE
+(``_block_tile``), so no (T, T) tensor reaches device memory.  The
+frame-bias gradient is one (F, F) partial per (b, h, query tile), added up
+here in a fixed order.  ``flash_attention`` is a ``torch.autograd.Function``:
+the CUDA kernels on the card, ``flash_attention_plain`` /
+``flash_attention_bwd_plain`` on the CPU.  ``key_mask`` and ``frame_ids``
+get no gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ from vog_tpu_torch.kernels import _build
 
 NEG = -1e30
 NAME = "flash_attention"
+NAME_BWD = "flash_attention_bwd"
+MAX_BWD_FRAMES = 64  # the dq kernel's frame-bias partial takes F <= 64
+BWD_Q_ROWS = 32  # query rows a block of the dq kernel (kBQ in csrc/attention.cu)
 
 
 def _bias_inputs(H, T, frame_bias, frame_ids, device):
@@ -47,18 +59,9 @@ def flash_attention_plain(
     return torch.matmul(torch.softmax(s, dim=-1), v), lse
 
 
-def flash_attention_fwd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_mask: torch.Tensor,
-    frame_bias: Optional[torch.Tensor] = None,
-    frame_ids: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q,k,v (B,H,T,dh) fp32; key_mask (B,T); frame_bias (H,F,F) or None;
-    frame_ids (T,) -> (o, lse)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, key_mask, frame_bias, frame_ids)
+def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
+    """The kernels' argument checks -> (frame_bias, frame_ids) with the
+    zero bias filled in."""
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     dev = q.device
@@ -78,6 +81,25 @@ def flash_attention_fwd(
         raise ValueError(f"{NAME}: key_mask/frame_bias shapes do not match q")
     if frame_ids.shape[0] != T:
         raise ValueError(f"{NAME}: frame_ids length != T")
+    return frame_bias, frame_ids
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    frame_bias: Optional[torch.Tensor] = None,
+    frame_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q,k,v (B,H,T,dh) fp32; key_mask (B,T); frame_bias (H,F,F) or None;
+    frame_ids (T,) -> (o, lse)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, key_mask, frame_bias, frame_ids)
+    frame_bias, frame_ids = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
+    dev = q.device
+    B, H, T, dh = q.shape
+    Fn = frame_bias.shape[-1]
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
@@ -91,6 +113,81 @@ def flash_attention_fwd(
     return o, lse
 
 
+def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
+    """Plain PyTorch backward from the saved LSE -> (dq, dk, dv, dfb (H,F,F)),
+    as the TPU kernels' ``_block_tile`` defines it: p = exp(s - lse),
+    ds = p (do.v - delta) with delta = sum(do * o), masked keys give ds = 0.
+    A batch row with every key masked has lse = -1e30 + log T, which is
+    -1e30 in fp32: there p = 1/T (the softmax of equal scores), as
+    autograd of ``flash_attention_plain`` gives."""
+    B, H, T, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    frame_bias, frame_ids = _bias_inputs(H, T, frame_bias, frame_ids, q.device)
+    fid = frame_ids.long()
+    valid = key_mask[:, None, None, :] > 0
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale + frame_bias.float()[:, fid][:, :, fid][None]
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    none = (key_mask > 0).sum(-1) == 0  # (B,)
+    p = torch.where(none[:, None, None, None], torch.full_like(s, 1.0 / T), torch.exp(s - lse[..., None]))
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = torch.where(valid, p * (torch.matmul(do, v.transpose(-1, -2)) - delta), torch.zeros_like(s))
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    onehot = torch.nn.functional.one_hot(fid, frame_bias.shape[-1]).to(ds.dtype)  # (T,F)
+    dfb = torch.einsum("fi,bhij,jg->hfg", onehot.t(), ds, onehot)
+    return dq, dk, dv, dfb
+
+
+def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
+    """Backward of ``flash_attention_fwd`` -> (dq, dk, dv, dfb (H,F,F)):
+    the two CUDA kernels on the card, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do)
+    frame_bias, frame_ids = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
+    dev = q.device
+    B, H, T, dh = q.shape
+    Fn = frame_bias.shape[-1]
+    if Fn > MAX_BWD_FRAMES:
+        raise ValueError(f"{NAME_BWD}: {Fn} frames > {MAX_BWD_FRAMES}")
+    for name, t in (("o", o), ("do", do)):
+        _build.require(t, name, torch.float32, 4, dev)
+        if t.shape != q.shape:
+            raise ValueError(f"{NAME_BWD}: {name} shape {tuple(t.shape)} != q shape")
+    _build.require(lse, "lse", torch.float32, 3, dev)
+    delta = (do * o).sum(-1).contiguous()  # (B,H,T)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    nq = -(-T // BWD_Q_ROWS)
+    part = torch.empty((B, H, nq, Fn, Fn), dtype=torch.float32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 13 + [I] * 5 + [_build.F, P])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), key_mask.data_ptr(), frame_bias.data_ptr(),
+            frame_ids.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            part.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh), _build.stream_ptr(q))
+    _build.check(rc, NAME_BWD)
+    _build.count(NAME_BWD)
+    return dq, dk, dv, part.sum(dim=(0, 2))
+
+
+class FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, frame_bias, frame_ids):
+        o, lse = flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids)
+        ctx.has_bias = frame_bias is not None
+        ctx.save_for_backward(q, k, v, key_mask, frame_bias, frame_ids, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_mask, frame_bias, frame_ids, o, lse = ctx.saved_tensors
+        dq, dk, dv, dfb = flash_attention_bwd(
+            q, k, v, key_mask, frame_bias, frame_ids, o, lse, do.contiguous()
+        )
+        return dq, dk, dv, None, (dfb if ctx.has_bias else None), None
+
+
 def flash_attention(q, k, v, key_mask, frame_bias=None, frame_ids=None) -> torch.Tensor:
-    """Fused attention -> (B,H,T,dh), the JAX package's signature."""
-    return flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids)[0]
+    """Fused attention -> (B,H,T,dh), the JAX package's signature, with
+    its gradient (``FlashAttention``)."""
+    return FlashAttention.apply(q, k, v, key_mask, frame_bias, frame_ids)

@@ -1,4 +1,4 @@
-"""Fused cross-MLP grounding head forward, fp32.
+"""Fused cross-MLP grounding head, fp32, forward and backward.
 
   logit[b,a,t] = w2 . relu(relu(wv_t + wl_a + (vis_t * arg_a) @ Wx) @ W1 + b1) + b2
 
@@ -10,7 +10,19 @@ for all A args, keeps the (A*16, D) cross and hidden tiles in shared
 memory and writes only the (B,A,T) logits.  The stems ``wv``
 (with its bias) and ``wl`` are computed by the caller.  Weights keep the
 JAX layout: Wx (D_in, D), W1 (D, Dh).  No single library call computes
-this function.  Forward only.
+this function.
+
+Backward: replaces §_fused_head_bwd (``_bwd_kernel``, all 9 gradients).
+The TPU kernel accumulates the (D,D) and (D,Dh) weight gradients in VMEM
+across its sequential grid; CUDA blocks run in parallel, so the card runs
+two kernels (csrc/grounding_head.cu): ``head_bwd_rows`` recomputes the
+tiles per (b, 16 tokens) and writes dvis, dwv, h, dz0, dz1 and per-block
+partials of darg, dwl, db1, dw2; ``head_bwd_w`` forms dWx = sum cross^T dz0
+and dW1 = sum h^T dz1 in row chunks.  The partials are added up here in a
+fixed order (``sum`` over a dimension), so the gradients do not change
+between runs.  All products run in 3xTF32, as the forward.
+``fused_grounding_head`` is a ``torch.autograd.Function``: the CUDA
+kernels on the card, ``grounding_head_bwd_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -20,6 +32,9 @@ import torch
 from vog_tpu_torch.kernels import _build
 
 NAME = "fused_grounding_head"
+NAME_BWD = "fused_grounding_head_bwd"
+W_CHUNKS = 8  # row chunks of the weight-gradient kernel (blocks in flight)
+ROW_TOKENS = 16  # tokens a block of the row kernel (kBT in csrc/grounding_head.cu)
 
 
 def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
@@ -30,20 +45,8 @@ def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     return torch.matmul(h1, w2) + b2
 
 
-def fused_grounding_head(
-    vis: torch.Tensor,  # (B,T,D)
-    arg: torch.Tensor,  # (B,A,D)
-    wv: torch.Tensor,  # (B,T,D)
-    wl: torch.Tensor,  # (B,A,D)
-    wx: torch.Tensor,  # (D,D)
-    w1: torch.Tensor,  # (D,Dh)
-    b1: torch.Tensor,  # (Dh,)
-    w2: torch.Tensor,  # (Dh,)
-    b2: torch.Tensor,  # () or (1,)
-) -> torch.Tensor:
-    """-> logits (B,A,T)."""
-    if vis.device.type == "cpu":
-        return grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
+    """The kernels' argument checks -> b2 as a (1,) tensor."""
     if vis.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {vis.device}")
     dev = vis.device
@@ -66,8 +69,18 @@ def fused_grounding_head(
             raise ValueError(f"{NAME}: {name} shape {tuple(t.shape)} != {shape}")
     if b2.numel() != 1 or b2.device != dev or b2.dtype != f32:
         raise ValueError(f"{NAME}: b2 must be one fp32 value on {dev}")
-    b2 = b2.reshape(1).contiguous()
-    out = torch.empty((B, A, T), dtype=f32, device=dev)
+    return b2.reshape(1).contiguous()
+
+
+def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
+    """vis (B,T,D), arg (B,A,D), wv (B,T,D), wl (B,A,D), wx (D,D),
+    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T)."""
+    if vis.device.type == "cpu":
+        return grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    B, T, D = vis.shape
+    A, Dh = arg.shape[1], w1.shape[1]
+    out = torch.empty((B, A, T), dtype=torch.float32, device=vis.device)
     P, I = _build.P, _build.I
     fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 10 + [I] * 5 + [P])
     rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(),
@@ -76,3 +89,89 @@ def fused_grounding_head(
     _build.check(rc, NAME)
     _build.count(NAME)
     return out
+
+
+def grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
+    """Plain PyTorch backward -> (dvis, darg, dwv, dwl, dwx, dw1, db1, dw2,
+    db2), as the TPU kernel's ``_bwd_kernel`` defines it (relu' is 0 at 0)."""
+    cross = vis[:, None] * arg[:, :, None]  # (B,A,T,D)
+    z0 = wv[:, None] + wl[:, :, None] + torch.matmul(cross, wx)
+    h = torch.relu(z0)
+    z1 = torch.matmul(h, w1) + b1
+    gg = g[..., None]  # (B,A,T,1)
+    dz1 = torch.where(z1 > 0, gg * w2, torch.zeros_like(z1))
+    dz0 = torch.where(z0 > 0, torch.matmul(dz1, w1.t()), torch.zeros_like(z0))
+    dcross = torch.matmul(dz0, wx.t())
+    D, Dh = wx.shape[0], w1.shape[1]
+    return (
+        (dcross * arg[:, :, None]).sum(1),
+        (dcross * vis[:, None]).sum(2),
+        dz0.sum(1),
+        dz0.sum(2),
+        torch.matmul(cross.reshape(-1, D).t(), dz0.reshape(-1, D)),
+        torch.matmul(h.reshape(-1, D).t(), dz1.reshape(-1, Dh)),
+        dz1.reshape(-1, Dh).sum(0),
+        (torch.relu(z1) * gg).reshape(-1, Dh).sum(0),
+        g.sum().reshape(b2.shape),
+    )
+
+
+def grounding_head_bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
+    """Backward of ``grounding_head_fwd`` -> the 9 gradients: the two CUDA
+    kernels on the card, the plain version on the CPU."""
+    if vis.device.type == "cpu":
+        return grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g)
+    b2c = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    dev = vis.device
+    B, T, D = vis.shape
+    A, Dh = arg.shape[1], w1.shape[1]
+    _build.require(g, "g", torch.float32, 3, dev)
+    if tuple(g.shape) != (B, A, T):
+        raise ValueError(f"{NAME_BWD}: g shape {tuple(g.shape)} != {(B, A, T)}")
+    nt = -(-T // ROW_TOKENS)
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    h, dz0, dz1 = e(B, A, T, D), e(B, A, T, D), e(B, A, T, Dh)
+    dvis, dwv = e(B, T, D), e(B, T, D)
+    darg_p, dwl_p = e(B, nt, A, D), e(B, nt, A, D)
+    db1_p, dw2_p = e(B, nt, Dh), e(B, nt, Dh)
+    dwx_p, dw1_p = e(W_CHUNKS, D, D), e(W_CHUNKS, D, Dh)
+    P, I = _build.P, _build.I
+    fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 20 + [I] * 6 + [P])
+    rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), wx.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(), h.data_ptr(),
+            dz0.data_ptr(), dz1.data_ptr(), dvis.data_ptr(), dwv.data_ptr(),
+            darg_p.data_ptr(), dwl_p.data_ptr(), db1_p.data_ptr(), dw2_p.data_ptr(),
+            dwx_p.data_ptr(), dw1_p.data_ptr(), B, A, T, D, Dh, W_CHUNKS,
+            _build.stream_ptr(vis))
+    _build.check(rc, NAME_BWD)
+    _build.count(NAME_BWD)
+    return (
+        dvis, darg_p.sum(1), dwv, dwl_p.sum(1), dwx_p.sum(0), dw1_p.sum(0),
+        db1_p.sum((0, 1)), dw2_p.sum((0, 1)), g.sum().reshape(b2.shape),
+    )
+
+
+class FusedGroundingHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vis, arg, wv, wl, wx, w1, b1, w2, b2):
+        ctx.save_for_backward(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+        return grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return grounding_head_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def fused_grounding_head(
+    vis: torch.Tensor,  # (B,T,D)
+    arg: torch.Tensor,  # (B,A,D)
+    wv: torch.Tensor,  # (B,T,D)
+    wl: torch.Tensor,  # (B,A,D)
+    wx: torch.Tensor,  # (D,D)
+    w1: torch.Tensor,  # (D,Dh)
+    b1: torch.Tensor,  # (Dh,)
+    w2: torch.Tensor,  # (Dh,)
+    b2: torch.Tensor,  # () or (1,)
+) -> torch.Tensor:
+    """-> logits (B,A,T), with its gradient (``FusedGroundingHead``)."""
+    return FusedGroundingHead.apply(vis, arg, wv, wl, wx, w1, b1, w2, b2)

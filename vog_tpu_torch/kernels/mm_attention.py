@@ -1,4 +1,5 @@
-"""Shared-QK multi-arg attention forward (decomposed first mm layer), fp32.
+"""Shared-QK multi-arg attention (decomposed first mm layer), fp32, forward
+and backward.
 
 Per arg a:  out_a = softmax_j(s_ij + cn_aj) . vm,
             s = qm.km^T + fb[h, fid_i, fid_j], key-masked to NEG,
@@ -11,7 +12,20 @@ value products dominate); the kernel scores each key tile once for all
 args, keeps a per-arg running max and denominator (each final denominator
 is >= 1) and an A x dh accumulator per query row, so neither the (T,T)
 scores nor the A value streams reach device memory.  No library call
-computes this function.  Forward only.
+computes this function.
+
+Backward: replaces §_mm_attn_bwd in the TPU package's default "emit" mode.
+One CUDA kernel (csrc/mm_attention.cu, mm_bwd_dkv) recomputes p_a from the
+saved per-arg row max and denominator and writes dk, dv, dcn and the
+summed score gradient comb = sum_a ds_a (B*H, T, T); dq = comb . km and the
+frame-bias gradient (onehot^T comb onehot, summed over b) are plain
+products over it, as the TPU package leaves them to XLA.  Emit rather than
+recompute: recompute would redo the A g_a.vm products for dq (A+1 extra
+passes over every (i, j)), which the TPU package measured slower, and the
+emitted buffer is small at GT5 (64 x 200 x 200 fp32, 10 MB).
+``mm_shared_qk_attention`` is a ``torch.autograd.Function``: the CUDA
+kernel on the card, ``mm_attention_bwd_plain`` on the CPU.  ``key_mask``
+and ``frame_ids`` get no gradient.
 """
 
 from __future__ import annotations
@@ -24,6 +38,7 @@ from vog_tpu_torch.kernels import _build
 
 NEG = -1e30
 NAME = "mm_shared_qk_attention"
+NAME_BWD = "mm_shared_qk_attention_bwd"
 
 
 def mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
@@ -40,19 +55,7 @@ def mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
     return out, m[..., 0], den[..., 0]
 
 
-def mm_attention_fwd(
-    qm: torch.Tensor,
-    km: torch.Tensor,
-    vm: torch.Tensor,
-    cn: torch.Tensor,
-    key_mask: torch.Tensor,
-    frame_bias: torch.Tensor,
-    frame_ids: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """qm,km,vm (B,H,T,dh) fp32; cn (B,H,A,T); key_mask (B,T) fp32;
-    frame_bias (H,F,F); frame_ids (T,) int32 -> (out, row max, den)."""
-    if qm.device.type == "cpu":
-        return mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+def _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
     if qm.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {qm.device}")
     dev = qm.device
@@ -73,6 +76,26 @@ def mm_attention_fwd(
         raise ValueError(f"{NAME}: cn/key_mask shapes do not match qm")
     if tuple(frame_bias.shape) != (H, Fn, Fn) or frame_ids.shape[0] != T:
         raise ValueError(f"{NAME}: frame_bias/frame_ids shapes do not match qm")
+
+
+def mm_attention_fwd(
+    qm: torch.Tensor,
+    km: torch.Tensor,
+    vm: torch.Tensor,
+    cn: torch.Tensor,
+    key_mask: torch.Tensor,
+    frame_bias: torch.Tensor,
+    frame_ids: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """qm,km,vm (B,H,T,dh) fp32; cn (B,H,A,T); key_mask (B,T) fp32;
+    frame_bias (H,F,F); frame_ids (T,) int32 -> (out, row max, den)."""
+    if qm.device.type == "cpu":
+        return mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    dev = qm.device
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    Fn = frame_bias.shape[-1]
     out = torch.empty((B, H, A, T, dh), dtype=torch.float32, device=dev)
     mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
@@ -87,6 +110,85 @@ def mm_attention_fwd(
     return out, mrow, den
 
 
+def _dq_dfb(comb, km, frame_ids, Fn, H):
+    """dq = comb . km and dfb = sum_b onehot^T comb onehot (H,F,F)."""
+    BH, T, _ = comb.shape
+    dq = torch.matmul(comb, km.reshape(BH, T, -1))
+    onehot = torch.nn.functional.one_hot(frame_ids.long(), Fn).to(comb.dtype)  # (T,F)
+    dfb = torch.matmul(torch.matmul(onehot.t(), comb), onehot)  # (BH,F,F)
+    return dq.reshape(km.shape), dfb.reshape(-1, H, Fn, Fn).sum(0)
+
+
+def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g):
+    """Plain PyTorch backward from the saved per-arg row max and
+    denominator -> (dq, dk, dv, dcn, dfb), as ``_make_bwd_dkv_kernel``
+    defines it: p_a = exp(s + cn_a - m_a), ds_a = p_a (g_a.vm - delta_a) /
+    den_a, comb = sum_a ds_a masked to the valid keys, dcn_a = sum_i ds_a."""
+    B, H, T, dh = qm.shape
+    Fn = frame_bias.shape[-1]
+    fid = frame_ids.long()
+    valid = key_mask[:, None, None, :] > 0
+    s = torch.matmul(qm, km.transpose(-1, -2)) + frame_bias.float()[:, fid][:, :, fid][None]
+    s = torch.where(valid, s, torch.full_like(s, NEG))
+    p = torch.exp(s[:, :, None] + cn[:, :, :, None, :] - mrow[..., None])  # (B,H,A,T,T)
+    delta = (g * out).sum(-1)  # (B,H,A,T)
+    gv = torch.matmul(g, vm[:, :, None].transpose(-1, -2))  # (B,H,A,T,T)
+    ds = p * (gv - delta[..., None]) / den[..., None]
+    dcn = ds.sum(-2)
+    comb = torch.where(valid, ds.sum(2), torch.zeros_like(s))  # (B,H,T,T)
+    dv = torch.matmul((p / den[..., None]).transpose(-1, -2), g).sum(2)
+    dk = torch.matmul(comb.transpose(-1, -2), qm)
+    dq, dfb = _dq_dfb(comb.reshape(B * H, T, T), km, frame_ids, Fn, H)
+    return dq, dk, dv, dcn, dfb
+
+
+def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g):
+    """Backward of ``mm_attention_fwd`` -> (dq, dk, dv, dcn, dfb): the CUDA
+    kernel and two products over its comb on the card, the plain version
+    on the CPU."""
+    if qm.device.type == "cpu":
+        return mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
+                                      out, mrow, den, g)
+    _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    dev = qm.device
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    Fn = frame_bias.shape[-1]
+    _build.require(g, "g", torch.float32, 5, dev)
+    if g.shape != out.shape or tuple(g.shape) != (B, H, A, T, dh):
+        raise ValueError(f"{NAME_BWD}: g shape {tuple(g.shape)} != out shape")
+    for name, t in (("mrow", mrow), ("den", den)):
+        _build.require(t, name, torch.float32, 4, dev)
+    delta = (g * out).sum(-1).contiguous()  # (B,H,A,T)
+    dk, dv = torch.empty_like(km), torch.empty_like(vm)
+    dcn = torch.empty_like(cn)
+    comb = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 15 + [I] * 6 + [P])
+    rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
+            frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), mrow.data_ptr(),
+            den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dcn.data_ptr(),
+            comb.data_ptr(), B, H, A, T, dh, Fn, _build.stream_ptr(qm))
+    _build.check(rc, NAME_BWD)
+    _build.count(NAME_BWD)
+    dq, dfb = _dq_dfb(comb, km, frame_ids, Fn, H)
+    return dq, dk, dv, dcn, dfb
+
+
+class MMSharedQKAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qm, km, vm, cn, key_mask, frame_bias, frame_ids):
+        out, mrow, den = mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+        ctx.save_for_backward(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        dq, dk, dv, dcn, dfb = mm_attention_bwd(*ctx.saved_tensors, g.contiguous())
+        return dq, dk, dv, dcn, None, dfb, None
+
+
 def mm_shared_qk_attention(qm, km, vm, cn, key_mask, frame_bias, frame_ids) -> torch.Tensor:
-    """-> (B,H,A,T,dh), the JAX package's signature."""
-    return mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids)[0]
+    """-> (B,H,A,T,dh), the JAX package's signature, with its gradient
+    (``MMSharedQKAttention``)."""
+    return MMSharedQKAttention.apply(qm, km, vm, cn, key_mask, frame_bias, frame_ids)

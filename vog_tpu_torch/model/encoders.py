@@ -1,6 +1,7 @@
 """Language and visual encoders (counterpart of vog_tpu/model/encoders.py).
 
-  * LangEncoder: GloVe embedding -> BiLSTM -> per-arg rep =
+  * LangEncoder: GloVe embedding (frozen unless ``mdl.train_embeddings``,
+    as the JAX package's stop_gradient) -> BiLSTM -> per-arg rep =
     relu(Linear([span mean ; role embedding ; verb hidden state])).
   * PropEncoder: relu(Linear([RoI fc6 ; 5-d box])).
   * SegEncoder: relu(Linear(TSN segment feature)).
@@ -12,6 +13,7 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as Fn
 
 from vog_tpu_torch.model.lstm import TorchBiLSTM
 
@@ -32,13 +34,15 @@ class LangEncoder(nn.Module):
     def __init__(self, cfg, vocab_size: int):
         super().__init__()
         m = cfg.mdl
+        self.train_embeddings = bool(m.train_embeddings)
         self.embed = nn.Embedding(vocab_size, m.emb_dim)
         self.bilstm = TorchBiLSTM(m.emb_dim, m.lstm_dim)
         self.role_embed = nn.Embedding(cfg.ds.num_roles, m.role_dim)
         self.arg_proj = nn.Linear(4 * m.lstm_dim + m.role_dim, m.vis_dim)
 
     def forward(self, tokens, seq_len, srl_spans, srl_roles, verb_idx) -> Dict:
-        x = self.embed(tokens.long())  # (B,L,emb)
+        table = self.embed.weight if self.train_embeddings else self.embed.weight.detach()
+        x = Fn.embedding(tokens.long(), table)  # (B,L,emb)
         y, _ = self.bilstm(x, seq_len)
         arg_span = span_pool(y, srl_spans, seq_len)  # (B,A,2H)
         role_emb = self.role_embed(srl_roles.long())  # (B,A,role_dim)

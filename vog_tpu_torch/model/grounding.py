@@ -1,10 +1,10 @@
-"""The model zoo: ImgGrnd, VidGrnd, VOGNet (+ selector), forward only.
+"""The model zoo: ImgGrnd, VidGrnd, VOGNet (+ selector).
 
 Counterpart of vog_tpu/model/grounding.py.  Every model consumes the clip
 view of ``sampling.assemble_batch`` and returns logits (B', A, T).  The
-fused head always goes through the head kernel's wrapper (the CUDA kernel
-on the card, its plain version on the CPU).  The loss waits for the
-training slice.
+fused head always goes through the head kernel's wrapper (the CUDA kernels
+on the card, the plain versions on the CPU, forward and backward).  The
+loss is in ``model/loss.py``.
 """
 
 from __future__ import annotations
@@ -156,12 +156,15 @@ class VOGNet(ImgGrnd):
 MODELS = {"img_grnd": ImgGrnd, "vid_grnd": VidGrnd, "vog": VOGNet}
 
 
-def get_model(cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0) -> nn.Module:
-    """Build the configured model in eval mode on ``device`` (cuda by
-    default), with random weights made from ``seed``."""
+def get_model(
+    cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0, train: bool = False
+) -> nn.Module:
+    """Build the configured model on ``device`` (cuda by default), with
+    random weights made from ``seed``, in eval mode, or in train mode
+    (dropout on, and cuDNN's BiLSTM backward allowed) when ``train``."""
     dev = resolve_device(device)
     if act_dtype(cfg) != torch.float32:
-        raise NotImplementedError("the port serves fp32 activations; bf16 comes in a later slice")
+        raise NotImplementedError("the port runs fp32 activations; bf16 comes in a later slice")
     ds = cfg.ds
     _, n_frames, _ = view_dims(ds.conc_type, ds.num_cmp, ds.num_frms, ds.num_prop_per_frm)
     with torch.random.fork_rng(devices=[]):
@@ -170,4 +173,4 @@ def get_model(cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0) ->
         for mod in model.modules():
             if isinstance(mod, RelMultiHeadAttention):
                 nn.init.normal_(mod.rpe_table, std=0.02)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

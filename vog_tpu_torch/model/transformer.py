@@ -8,7 +8,13 @@ so no (T,T) bias exists.
 
 Attention always goes through the kernel wrappers (kernels/attention.py,
 kernels/mm_attention.py): on the card they launch the CUDA kernels, on the
-CPU they run the plain versions.  The JAX package's T >= 1024 kernel gates
+CPU they run the plain versions, forward and backward.
+
+Dropout (``mdl.dropout``) sits where the JAX package has it: on the output
+of each attention block and on the FFN hidden of each layer.  It draws
+from an explicit ``torch.Generator`` that the train step seeds from
+(seed, step), as the JAX step folds the step into its key; it is off in
+eval mode and at rate 0.  The JAX package's T >= 1024 kernel gates
 were tuned on a TPU and are not copied; sequence-parallel ring attention
 waits for a later slice.
 """
@@ -46,6 +52,31 @@ def _frame_dist(n_frames: int, K: int) -> torch.Tensor:
     return torch.from_numpy(np.clip(f[:, None] - f[None, :], -K, K) + K)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout drawn from ``self.generator`` (set by
+    ``set_dropout_generator``), never from the global generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode needs set_dropout_generator first")
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Make every dropout site of ``model`` draw from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
     B, L, D = t.shape
     return t.reshape(B, L, H, D // H).permute(0, 2, 1, 3).contiguous()
@@ -60,12 +91,13 @@ class MultiHeadAttention(nn.Module):
         self.H = cfg.mdl.n_heads
         self.qkv = nn.Linear(D, 3 * D)
         self.out = nn.Linear(D, D)
+        self.drop = Dropout(cfg.mdl.dropout)
 
     def forward(self, x, key_mask, frame_ids):
         B, T, D = x.shape
         q, k, v = (_heads(t, self.H) for t in self.qkv(x).chunk(3, dim=-1))
         o = flash_attention(q, k, v, key_mask)
-        return self.out(o.permute(0, 2, 1, 3).reshape(B, T, D))
+        return self.drop(self.out(o.permute(0, 2, 1, 3).reshape(B, T, D)))
 
 
 class RelMultiHeadAttention(nn.Module):
@@ -79,6 +111,7 @@ class RelMultiHeadAttention(nn.Module):
         self.out = nn.Linear(D, D)
         self.rpe_table = nn.Parameter(torch.zeros(self.H, 2 * K + 1))
         self.register_buffer("dist", _frame_dist(n_frames, K), persistent=False)
+        self.drop = Dropout(cfg.mdl.dropout)
 
     def frame_bias(self) -> torch.Tensor:
         return self.rpe_table[:, self.dist].contiguous()  # (H,F,F)
@@ -87,7 +120,7 @@ class RelMultiHeadAttention(nn.Module):
         B, T, D = x.shape
         q, k, v = (_heads(t, self.H) for t in self.qkv(x).chunk(3, dim=-1))
         o = flash_attention(q, k, v, key_mask, self.frame_bias(), frame_ids)
-        return self.out(o.permute(0, 2, 1, 3).reshape(B, T, D))
+        return self.drop(self.out(o.permute(0, 2, 1, 3).reshape(B, T, D)))
 
 
 class DecomposedRelAttention(RelMultiHeadAttention):
@@ -118,7 +151,7 @@ class DecomposedRelAttention(RelMultiHeadAttention):
         )  # (B,H,A,T,dh)
         out = pv + vg[:, :, :, None]
         out = out.permute(0, 2, 3, 1, 4).reshape(B, A, T, D)
-        return self.out(out)
+        return self.drop(self.out(out))
 
 
 class TxLayer(nn.Module):
@@ -132,10 +165,11 @@ class TxLayer(nn.Module):
         self.ff1 = nn.Linear(D, cfg.mdl.ff_mult * D)
         self.ff2 = nn.Linear(cfg.mdl.ff_mult * D, D)
         self.ln2 = nn.LayerNorm(D, eps=1e-6)
+        self.drop = Dropout(cfg.mdl.dropout)
 
     def forward(self, x, key_mask, frame_ids):
         x = self.ln1(x + self.attn(x, key_mask, frame_ids))
-        return self.ln2(x + self.ff2(torch.relu(self.ff1(x))))
+        return self.ln2(x + self.ff2(self.drop(torch.relu(self.ff1(x)))))
 
 
 class ObjectTransformer(nn.Module):
@@ -180,7 +214,7 @@ class DecomposedRelTxLayer(TxLayer):
         A = g.shape[1]
         attn = self.attn(m, g, key_mask, frame_ids)  # (B,A,T,D)
         x = self.ln1((m[:, None] + g[:, :, None] + attn).reshape(B * A, T, D))
-        return self.ln2(x + self.ff2(torch.relu(self.ff1(x))))
+        return self.ln2(x + self.ff2(self.drop(torch.relu(self.ff1(x)))))
 
 
 class RelTransformerDecomposed(nn.Module):
