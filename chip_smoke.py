@@ -14,9 +14,13 @@ the last line:
    |err| / |ref| <= 1e-3 (norms over the tensor) for the fp32 kernels (sums
    run in another order); then CUDA-event times of
    the kernel, the plain version and the library call where one exists
-   (median of 15 runs of 10 back-to-back calls),
-   and the bound of each kernel (bytes over 3.35 TB/s or fp32 operations
-   over 67 TFLOP/s, the H100 SXM peaks);
+   (SDPA for the flash attention, and for the mm attention on its query
+   repeated over the A args with a float mask, checked against the kernel
+   first; median of 15 runs of 10 back-to-back calls),
+   and the bound of each kernel: the larger of its bytes over 3.35 TB/s and
+   its operations over 165 TFLOP/s, the H100 SXM peaks (the operations at
+   the rate of the fastest route that meets the fp32 parity limits,
+   3xTF32 on the tensor cores: 495 / 3 TFLOP/s);
 4. serve: 15,000-row bf16 feature tables made on the card from a seed,
    full-width VOGNet (GT5 production widths, random weights from a seed),
    96 ``vid_rows`` requests from 8 concurrent clients through
@@ -31,7 +35,8 @@ the last line:
    row with every key masked; the head with the upstream gradient zeroed
    on the rows within 2e-5 of a ReLU kink), and each plain backward
    against torch.autograd of its plain forward, within phase 3's limits;
-   their times and bounds as in phase 3;
+   their times, library calls (SDPA's backward; for mm with the float
+   mask's gradient) and bounds as in phase 3;
 7. train: the production recipe (``configs/gt5_production.yml``: B=16,
    lr 5e-4 cosine after 100 warm-up steps, pos_weight 5, skip_nonfinite 50,
    grad_clip 1, dropout 0.1) at full width, fp32 activations, batches
@@ -63,7 +68,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-FP32_FLOP_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+# H100 SXM, 3xTF32 on the tensor cores (495 TFLOP/s TF32 dense / 3): the
+# fastest route that meets the port's fp32 parity limits (fp32 FMA outside
+# the tensor cores runs at 67 TFLOP/s)
+PEAK_FLOP_PER_S = 495e12 / 3
 TOL = 1e-4  # fp32 kernels: max |err| <= TOL * max(1, max|ref|)
 REL_TOL = 1e-3  # and |err| / |ref| (norms over the tensor): a zeroed or halved result fails
 # a whole train step card vs CPU: each gradient's |err| / |ref| (a zeroed or
@@ -99,7 +107,7 @@ def time_ms(fn, reps: int = 15, inner: int = 10, warm: int = 3) -> float:
 
 
 def bound_ms(n_bytes: float, n_flops: float):
-    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / FP32_FLOP_PER_S * 1e3
+    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / PEAK_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -127,6 +135,36 @@ def check_close(name, got, ref) -> float:
     if not (err <= lim and rel <= REL_TOL):
         fail(f"{name}: max |err| {err:.3e} (limit {lim:.3e}), relative err {rel:.3e} (limit {REL_TOL:.0e})")
     return err
+
+
+def check_yardstick(name, got, ref) -> float:
+    """A library call timed beside a kernel computes the same function:
+    |err| / |ref| <= 1e-2 (a wrong mask, scale or layout gives an error of
+    order 1; the library's own rounding is not held to the kernels'
+    limits).  -> the relative error."""
+    rel = rel_err(got, ref)
+    if not rel <= 1e-2:
+        fail(f"{name}: the library call differs from the kernel, relative err {rel:.3e}")
+    return rel
+
+
+def mm_sdpa_inputs(qm, cn, mask, fb, fid):
+    """One scaled_dot_product_attention call that computes the shared-QK
+    multi-arg attention: the query repeated over the A args, (B, H, A*T, dh),
+    and a float mask fb[h, fid_i, fid_j] + cn[b, h, a, j] with masked keys
+    at NEG (B, H, A*T, T)."""
+    import torch
+
+    from vog_tpu_torch.kernels.mm_attention import NEG
+
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    fidl = fid.long()
+    bias = fb[:, fidl][:, :, fidl]  # (H, T, T)
+    m = bias[None, :, None] + cn[:, :, :, None, :]  # (B, H, A, T, T)
+    m = torch.where((mask > 0)[:, None, None, None, :], m, torch.full_like(m, NEG))
+    q_rep = qm[:, :, None].expand(B, H, A, T, dh).reshape(B, H, A * T, dh).contiguous()
+    return q_rep, m.reshape(B, H, A * T, T).contiguous()
 
 
 def phase_card():
@@ -267,14 +305,22 @@ def phase_kernels(cfg, tables, B: int = 16):
             err = max(err, check_close("mm_shared_qk_attention stats", x[: B - 1], y[: B - 1]))
     ms = time_ms(lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat))
     plain = time_ms(lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat))
+    q_rep, fmask = mm_sdpa_inputs(qm, cn, mask, fb, fid_spat)  # the 51 MB mask, built once
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q_rep, k, v, attn_mask=fmask, scale=1.0)
+    ref = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)[0]
+    lib_rel = check_yardstick("mm_shared_qk_attention sdpa", sdpa().reshape(ref.shape), ref)
+    lib = time_ms(sdpa)
+    del q_rep, fmask
     fl = 2.0 * B * H * T * T * dh * (1 + A)
     out_b = B * H * A * T * (dh + 2) * 4
     bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, fid_spat) + out_b, fl)
     out.append(dict(name="mm_shared_qk_attention", route="cuda", source="vog_tpu_torch/csrc/mm_attention.cu",
                     replaces="vog_tpu/kernels/mm_attention.py:315", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=None, shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32"))
+                    bound_ms=bms, bound_by=by, library_ms=lib, shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32",
+                    library=f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}"))
     print(f"[kernels] mm_shared_qk_attention max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
-          f"bound={bms:.4f}", flush=True)
+          f"sdpa={lib:.4f} (rel err vs kernel {lib_rel:.2e}) bound={bms:.4f}", flush=True)
 
     # -- fused grounding head ----------------------------------------------
     Dh = D // 2
@@ -531,15 +577,31 @@ def phase_kernels_bwd(cfg, B: int = 16):
     fwd = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)
     ms = time_ms(lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm))
     plain = time_ms(lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm))
+    # yardstick: SDPA's backward over the repeated query, k, v and the float
+    # mask (whose gradient carries dcn and dfb)
+    q_rep, fmask = mm_sdpa_inputs(qm, cn, mask, fb, fid_spat)
+    leaves = [t.detach().clone().requires_grad_() for t in (q_rep, k, v, fmask)]
+    sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+    check_yardstick("mm_shared_qk_attention_bwd sdpa", sd.detach().reshape(fwd[0].shape), fwd[0])
+    gsd = gm.reshape(sd.shape)
+    try:
+        grads = torch.autograd.grad(sd, leaves, gsd, retain_graph=True)
+        lib_note = "SDPA backward, grads of q (repeated), k, v and the float mask"
+        if grads[3] is None:
+            raise RuntimeError("no gradient for the float mask")
+        lib = time_ms(lambda: torch.autograd.grad(sd, leaves, gsd, retain_graph=True))
+    except RuntimeError as e:  # the backend gives the mask no gradient
+        lib, lib_note = None, f"none: SDPA gives the float mask no gradient ({str(e)[:120]})"
+    del q_rep, fmask, leaves, sd, gsd
     fl = 2.0 * B * H * T * T * dh * (3 + 2 * A)
     bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn), fl)
     out.append(dict(name="mm_shared_qk_attention_bwd", route="cuda",
                     source="vog_tpu_torch/csrc/mm_attention.cu",
                     replaces="vog_tpu/kernels/mm_attention.py:383", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=None,
+                    bound_ms=bms, bound_by=by, library_ms=lib, library=lib_note,
                     shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32, emit mode (dq, dfb from comb)"))
     print(f"[kernels-bwd] mm_shared_qk_attention_bwd max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
-          f"bound={bms:.4f}", flush=True)
+          f"sdpa-bwd={lib if lib is None else f'{lib:.4f}'} ({lib_note}) bound={bms:.4f}", flush=True)
 
     # -- fused grounding head backward ------------------------------------
     Dh = D // 2
@@ -782,7 +844,7 @@ def phase_train(tables, card: str, B: int = 16):
 # each wrapper's __global__ functions in vog_tpu_torch/csrc
 KERNEL_SYMBOLS = {"gather_rows": ("gather_vec16", "gather_bytes"), "flash_attention": ("flash_fwd",),
                   "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
-                  "flash_attention_bwd": ("flash_bwd_dkv", "flash_bwd_dq"),
+                  "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"),
                   "mm_shared_qk_attention_bwd": ("mm_bwd_dkv",),
                   "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w")}
 

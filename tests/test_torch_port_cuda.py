@@ -7,8 +7,10 @@ without one; run them there with
 (``--noconftest``: tests/conftest.py imports JAX, which the card's host
 need not have.)
 
-Small shapes with ragged edges (T not a multiple of the tiles, dh < 128,
-a row with every key masked, out-of-range gather rows).  Tolerance as in
+Small shapes with ragged edges (T not a multiple of the tiles, T = 1,
+dh < 128 and not a multiple of 8 or of 4, a row with every key masked,
+out-of-range gather rows), and the attention kernels at the P100 length
+(T = 4000).  Tolerance as in
 chip_smoke.py: bitwise for the gather, max |err| <= 1e-4 * max(1,
 max|ref|) for the fp32 kernels.
 """
@@ -47,21 +49,29 @@ def test_gather_bitwise(dev, dtype, width):
     assert torch.equal(got, gather_rows_plain(t, rows))
 
 
-@pytest.mark.parametrize("T,dh,bias", [(37, 16, False), (70, 40, True), (200, 128, True)])
-def test_flash(dev, T, dh, bias):
+# (B, H, T, dh, bias): batch row B - 1 has every key masked when B > 1
+FLASH_CASES = [(3, 2, 37, 16, False), (3, 2, 70, 40, True), (3, 2, 200, 128, True),
+               (3, 2, 45, 20, True), (3, 2, 1, 128, True), (3, 2, 1, 20, False),
+               (3, 2, 50, 37, True), (1, 1, 4000, 128, True)]
+
+
+@pytest.mark.parametrize("B,H,T,dh,bias", FLASH_CASES)
+def test_flash(dev, B, H, T, dh, bias):
     from vog_tpu_torch.kernels.attention import flash_attention_fwd, flash_attention_plain
 
-    B, H, F = 3, 2, 7
+    F = 7
     q, k, v = (torch.randn((B, H, T, dh), device=dev) for _ in range(3))
     mask = (torch.rand((B, T), device=dev) > 0.3).float()
     mask[:, 0] = 1.0
-    mask[2] = 0.0
+    if B > 1:
+        mask[B - 1] = 0.0
     fb = torch.randn((H, F, F), device=dev) if bias else None
     fid = torch.randint(0, F, (T,), dtype=torch.int32, device=dev) if bias else None
     o, lse = flash_attention_fwd(q, k, v, mask, fb, fid)
     ro, rl = flash_attention_plain(q, k, v, mask, fb, fid)
     _close(o, ro)
-    _close(lse[:2], rl[:2])
+    n = B - 1 if B > 1 else B  # the lse of the all-masked row is -1e30 + log T
+    _close(lse[:n], rl[:n])
 
 
 @pytest.mark.parametrize("A,T,dh", [(1, 33, 16), (5, 200, 128), (8, 90, 64)])
@@ -128,14 +138,17 @@ def _attn_inputs(dev, B, H, T, dh, F, all_masked=True):
     return g, q, k, v, mask, fb, fid
 
 
-@pytest.mark.parametrize("T,dh,bias", [(200, 128, True), (200, 128, False), (45, 40, True)])
-def test_flash_bwd_kernel(dev, T, dh, bias):
+@pytest.mark.parametrize("B,H,T,dh,bias", [
+    (3, 2, 200, 128, True), (3, 2, 200, 128, False), (3, 2, 45, 40, True), (3, 2, 45, 20, True),
+    (3, 2, 1, 128, True), (3, 2, 1, 20, False), (3, 2, 50, 37, True), (1, 1, 4000, 128, True),
+])
+def test_flash_bwd_kernel(dev, B, H, T, dh, bias):
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.attention import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     )
 
-    g, q, k, v, mask, fb, fid = _attn_inputs(dev, 3, 2, T, dh, 10)
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, B, H, T, dh, 10, all_masked=B > 1)
     fb, fid = (fb, fid) if bias else (None, None)
     o, lse = flash_attention_fwd(q, k, v, mask, fb, fid)
     do = torch.randn(o.shape, generator=g, device=dev)
@@ -143,7 +156,37 @@ def test_flash_bwd_kernel(dev, T, dh, bias):
     got = flash_attention_bwd(q, k, v, mask, fb, fid, o, lse, do)
     torch.cuda.synchronize()
     assert _build.launches == {"flash_attention_bwd": 1}
-    for a, b in zip(got, flash_attention_bwd_plain(q, k, v, mask, fb, fid, o, lse, do)):
+    ref = flash_attention_bwd_plain(q, k, v, mask, fb, fid, o, lse, do)
+    for a, b in zip(got[:3], ref[:3]):
+        _close(a, b)
+    if bias:
+        _close(got[3], ref[3])
+    else:  # one frame: sum_ij ds_ij, zero up to the plain version's rounding
+        assert not got[3].any()
+
+
+def test_flash_no_bias_gt5_one_launch_each(dev):
+    """The object transformer's call at GT5 (no frame bias): one launch of
+    each wrapper, each within the limits of its plain version."""
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd, flash_attention_plain,
+    )
+
+    g, q, k, v, mask, _, _ = _attn_inputs(dev, 16, 4, 200, 128, 10)
+    _build.reset_counts()
+    o, lse = flash_attention_fwd(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert _build.launches == {"flash_attention": 1}
+    ro, rl = flash_attention_plain(q, k, v, mask)
+    _close(o, ro)
+    _close(lse[:15], rl[:15])
+    do = torch.randn(o.shape, generator=g, device=dev)
+    got = flash_attention_bwd(q, k, v, mask, None, None, o, lse, do)
+    torch.cuda.synchronize()
+    assert _build.launches == {"flash_attention": 1, "flash_attention_bwd": 1}
+    ref = flash_attention_bwd_plain(q, k, v, mask, None, None, o, lse, do)
+    for a, b in zip(got[:3], ref[:3]):
         _close(a, b)
 
 

@@ -5,6 +5,8 @@
   * its entry points run on the card by default and raise without one;
   * every kernel module has a CUDA source, a plain version, and a check
     in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
+  * a kernel library's name hashes its source and the shared headers, and
+    the flash kernels multiply on the tensor cores and copy asynchronously;
   * ``chip_smoke.py`` fails, and prints no result, without a GPU or alone
     in a directory.
 """
@@ -136,3 +138,53 @@ def test_chip_smoke_fails_without_gpu_and_alone(tmp_path):
     for run in (here, alone):
         assert run.returncode != 0
         assert '"ok": true' not in run.stdout
+
+
+def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
+    """An edit of a shared header (csrc/*.cuh) renames every library, so a
+    stale build is never loaded; an unchanged tree keeps its names."""
+    from vog_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PKG / "csrc", csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv("VOG_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["tf32.cuh"]
+    before = {src: _build._lib_path(src) for src in _build.SOURCES}
+    assert before == {src: _build._lib_path(src) for src in _build.SOURCES}
+    assert all(p.name.startswith(pathlib.Path(src).stem + "-") for src, p in before.items())
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {src: _build._lib_path(src) for src in _build.SOURCES}
+    assert all(after[src] != before[src] for src in _build.SOURCES)
+
+
+def _kernel_bodies(text):
+    """__global__ function name -> its text up to the next __global__."""
+    parts = re.split(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)", text)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def test_flash_kernels_use_tensor_cores_and_async_copies():
+    """Every flash kernel multiplies with 3xTF32 mma.sync (tf32.cuh) and
+    streams its tiles with cp.async; the head shares the same header.
+    (flash_bwd_delta, the backward's row sums, has no product.)"""
+    csrc = PKG / "csrc"
+    header = (csrc / "tf32.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    for src in ("attention.cu", "grounding_head.cu"):
+        text = (csrc / src).read_text()
+        assert '#include "tf32.cuh"' in text
+        assert "__device__ inline void mma3(" not in text  # one copy, in the header
+    text = (csrc / "attention.cu").read_text()
+    assert "cp.async.cg.shared.global" in text
+    helpers = text[: text.index("__global__")]
+    for helper in ("scores", "accumulate"):  # the products, on the tensor cores
+        body = helpers[helpers.index(f"__device__ inline void {helper}("):]
+        assert "mma3(" in body[: body.index("\n}\n")], helper
+    bodies = _kernel_bodies(text)
+    assert sorted(bodies) == ["flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
+    del bodies["flash_bwd_delta"]
+    for name, body in bodies.items():
+        assert "scores<" in body and "accumulate<" in body, name
+        assert "load_rows<" in body and "cp_wait_all()" in body, name

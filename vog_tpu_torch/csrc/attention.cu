@@ -1,239 +1,414 @@
-// Flash attention forward with a factored relative-frame bias, fp32.
+// Flash attention with a factored relative-frame bias, fp32, forward and
+// backward, on Hopper's tensor cores in 3xTF32.
 //
-//   o[b,h,i]  = softmax_j( q_i.k_j * scale + fb[h, fid_i, fid_j] ; key-masked ) . v
+//   o[b,h,i]   = softmax_j( q_i.k_j * scale + fb[h, fid_i, fid_j] ; key-masked ) . v
 //   lse[b,h,i] = log-sum-exp of the same row
 //
-// Replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel, _bias_block):
-// the TPU kernel keeps the whole key axis of a 128-row q block in VMEM and
-// needs no rescaling; it builds the bias tile with a one-hot matmul that
-// exists for Mosaic.  On the H100 a block has at most 227 KB of shared
-// memory, so this kernel runs an ONLINE softmax over 32-key tiles and reads
-// the bias straight from the (F, F) table of its head, staged in shared
-// memory, at fb[fid_i, fid_j].  At GT5 (T=200, dh=128) the work is ~1.3
-// GFLOP for B=16, bound by fp32 operations (no tensor cores: TF32 would
-// miss the 1e-4 parity bound).  Design: a warp owns four query rows (32 a
-// block); lane j scores key j of the tile against all four with float4
-// reads of shared memory, the warp reduces max and sum with shuffles and
-// parks the probabilities in shared memory; in the P.V product each lane
-// owns 4 adjacent output columns and reads V rows and probabilities as
-// float4, each V element once for the four rows.  K rows are padded by four floats so the
-// lanes' float4 reads hit distinct banks.  Masked keys
-// take the finite -1e30 of the TPU kernel, so a row with every key masked
-// stays finite; keys past T are excluded.
+// Replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel, _bias_block)
+// and §_flash_bwd in its "recompute" mode (_make_bwd_dkv_kernel,
+// _bwd_dq_kernel).  The TPU forward keeps the whole key axis of a 128-row q
+// block in VMEM and builds the bias tile with a one-hot matmul that exists
+// for Mosaic.  A block here has at most 227 KB of shared memory, so these
+// kernels run an online softmax over key tiles and read the bias from the
+// head's (F, F) table in shared memory at fb[fid_i, fid_j].
 //
-// Backward (recompute mode, as vog_tpu/kernels/attention.py §_flash_bwd with
-// bwd_mode="recompute": the (T, T) score gradient never reaches device
-// memory), two kernels:
+// What bounds them on the H100: at GT5 (B=16, H=4, T=200, dh=128) the
+// forward does 4 BH T^2 dh = 1.3 GFLOP on 26 MB, the backward 10 BH T^2 dh
+// from the saved o and lse: both are bound by operations.  fp32 FMA runs at
+// 67 TFLOP/s; the tensor cores run TF32 at 495, but plain TF32 (10 mantissa
+// bits) misses the port's 1e-4 parity bound, so every product runs in
+// 3xTF32 (tf32.cuh), 495 / 3 = 165 TFLOP/s of fp32-accurate work.  At GT5
+// a grid has only 64 (b, h) x 4 blocks of 4 warps, two warps for each of
+// the 528 schedulers, so latency is hidden within a warp or not at all,
+// and the instruction stream around the products (operand splits,
+// shared-memory fragment reads, addressing) weighs as much as the mma.
 //
-//   flash_bwd_dkv  a block owns 32 keys (a warp 4) and walks the query rows
-//                  in tiles of 32, lane i taking query i of the tile: it
-//                  recomputes p = exp(s - lse) and ds = p (do.v - delta)
-//                  and accumulates dv = sum_i p do_i and dk = scale sum_i
-//                  ds q_i in registers, 4 adjacent columns a lane;
-//   flash_bwd_dq   a block owns 32 query rows (a warp 4), as the forward,
-//                  walks the key tiles and accumulates dq = scale sum_j ds
-//                  k_j; it also sums ds by (query frame, key frame) in a
-//                  fixed order (a lane per key frame, then per row) into
-//                  one (F, F) partial per block, which the wrapper adds up
-//                  in a fixed order: the frame-bias gradient is the same
-//                  on every run (no float atomics).
+// Design, all three kernels:
+//  * 4 warps; a warp owns 16 rows (query rows in flash_fwd and flash_bwd_dq,
+//    key rows in flash_bwd_dkv), a block 64.  Every product is mma.sync
+//    m16n8k8 in 3xTF32: S = Q K^T and O += P V forward; S, dP = dO V^T,
+//    dV += P^T dO, dK += dS^T Q and dQ += dS K backward.  The operands are
+//    split with split_int (two integer/fp32 operations, no conversion
+//    instruction).
+//  * The head dim is a compile-time 128 (smaller dh is zero padded), so
+//    every loop over it unrolls and the loads run ahead of the products.
+//    A score tile is summed in two accumulator sets (even and odd k-steps)
+//    so that its dependent mma chains are half as long.
+//  * The resident rows (Q, or Q and dO, or K and V) stay in shared memory
+//    and are split as their fragments are read.  The streamed tiles (K/V
+//    in flash_fwd, 32 rows; K/V in flash_bwd_dq and Q/dO in flash_bwd_dkv,
+//    16 rows) come in by cp.async (16-byte copies, zero-filled past T and
+//    past dh) into a two-stage ring: tile i+1 loads while tile i is
+//    multiplied, with one __syncthreads a tile.  Shared memory: 101 KB a
+//    block, two blocks (8 warps) an SM, which at GT5 holds the whole grid
+//    (256 blocks) at once.
+//  * A shared row holds 128 floats plus 4: with a row stride of 4 (mod 8)
+//    words, both kinds of fragment read below (rows g, columns t; and rows
+//    2t, 2t+1, columns g) hit 32 distinct banks.
+//  * P (and dS) pass from the C fragment of one product to the A fragment
+//    of the next in registers, with no shuffle and no shared tile.  Within a
+//    k-step of 8 keys the A fragment's column t is taken as key 2t and its
+//    column t+4 as key 2t+1, and the B fragment's rows t and t+4 as rows 2t
+//    and 2t+1 of V (or dO, Q, K): the sum over the 8 keys is unchanged, and
+//    the C fragment (c0..c3 at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1))
+//    is then the A fragment (a0, a2, a1, a3) as it stands.  Quad shuffles
+//    would cost 8 a fragment, a shared tile a store, a warp sync and a load.
+//  * The softmax statistics work on C fragments: a row's values sit in the
+//    four lanes of a quad, so its max is two __shfl_xor_sync; the running
+//    sum stays per lane and is summed over the quad once, at the end.
+//  * Masked keys take the finite -1e30 of the TPU kernel, so a row with
+//    every key masked stays finite (it averages V over the T real keys);
+//    keys past T are excluded (-inf).  A single frame (F == 1, which is also
+//    how the wrapper passes "no bias") adds the head's scalar fb[h] and
+//    skips the frame-id lookups.
 //
-// Bound by fp32 operations at GT5 (about 14 BH T^2 dh).  A batch row whose
-// keys are all masked has lse = -1e30 + log T = -1e30 in fp32, so p is
-// taken as 1/T there (the softmax of equal scores), which is what
-// autograd of the plain forward gives; its ds is masked to 0.
+// Backward (recompute: the (T, T) score gradient never reaches device
+// memory): flash_bwd_delta forms delta = rowsum(do * o), a warp a row, then
+// two kernels:
+//   flash_bwd_dkv  a block owns 64 keys and walks the query tiles: p =
+//                  exp(s - lse), ds = p (dp - delta), dv += p^T do and
+//                  dk += ds^T q, accumulated in registers;
+//   flash_bwd_dq   a block owns 64 query rows and walks the key tiles:
+//                  dq += ds k.  With F > 1 it also sums ds by (query frame,
+//                  key frame) in a fixed order (a lane per key frame, keys
+//                  in order, then rows in order) into one (F, F) partial
+//                  per block, which the wrapper adds up in a fixed order:
+//                  the frame-bias gradient is the same on every run (no
+//                  float atomics).  With F == 1 the gradient of the scalar
+//                  is sum_ij ds_ij, zero for every row up to rounding
+//                  (sum_j p_ij dp_ij = delta_i), so the pass is skipped and
+//                  the wrapper returns zeros.
+// A batch row whose keys are all masked has lse = -1e30 + log T = -1e30 in
+// fp32, so p is taken as 1/T there (the softmax of equal scores), which is
+// what autograd of the plain forward gives; its ds is masked to 0.
+//
+// The previous design (fp32 FMA loops on the CUDA cores, a warp per four
+// rows, synchronous float4 staging of 32-row tiles) took 0.1327 / 0.1338 ms
+// forward and 0.4111 / 0.4264 ms backward at GT5 (chip_smoke.py, H100 80GB
+// HBM3, 700 W); this design's times are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32.cuh"  // split_int, mma3
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kQPW = 4;  // query rows per warp
-constexpr int kBQ = kWarps * kQPW;
-constexpr int kBK = 32;
-constexpr int kMaxDh = 128;
-constexpr int kC = kMaxDh / 32;  // output columns per lane (4*lane + c)
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16 * kWarps;  // rows a block owns
+constexpr int kTileF = 32;          // rows of a streamed tile: forward
+constexpr int kTileB = 16;          // rows of a streamed tile: backward
+constexpr int kMaxDh = 128;         // the padded head dim
+constexpr int kND = kMaxDh / 8;     // k-steps (or 8-wide column tiles) over it
+constexpr int kLd = kMaxDh + 4;     // shared row stride (floats)
+constexpr int kMaxFb = 64;          // frames the dq kernel's dfb takes
+constexpr int kDsLd = kTileB + 1;   // row stride of a warp's ds tile (frame sums)
 constexpr float kNeg = -1e30f;
+// a key's code: its frame id (>= 0) when valid, else one of these
+constexpr int kMasked = -1;
+constexpr int kPast = -2;  // key index >= T
 
-// Shared-memory row strides: dq = dh rounded up to 4 (zero padded) for Q
-// and V, dk = dq + 4 for K, so that lane j's float4 reads of K row j fall
-// in distinct banks.
-__host__ __device__ inline int stride_q(int dh) { return (dh + 3) / 4 * 4; }
-__host__ __device__ inline int stride_k(int dh) { return stride_q(dh) + 4; }
-inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+__host__ __device__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
-// Stage rows [row0, row0 + rows) of a (T, dh) matrix into shared memory
-// with row stride ``stride`` (>= dh rounded up to 4), zero-filling rows
-// past T and columns past dh.  float4 copies when ``vec`` (dh % 4 == 0 and
-// 16-byte aligned pointers), else scalar copies.
-__device__ inline void stage_rows(float* __restrict__ dst, int stride,
-                                  const float* __restrict__ src, int row0,
-                                  int rows, int T, int dh, bool vec) {
-  const int dq = (dh + 3) / 4 * 4;
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 16 (or 4) bytes; zero-fills the destination when !ok
+__device__ inline void cp_async16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ inline void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+__device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ inline void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Asynchronous copy of rows [row0, row0 + ROWS) of a (T, dh) matrix into
+// shared memory (row stride kLd), zero-filled past T and from dh up to
+// kMaxDh.  16-byte copies when ``vec`` (dh % 4 == 0, 16-byte aligned
+// pointers), else 4-byte copies.  The caller commits the group.
+template <int ROWS>
+__device__ inline void load_rows(float* dst, const float* __restrict__ src, int row0, int T,
+                                 int dh, bool vec) {
   if (vec) {
-    const int n4 = dh / 4;
-    for (int idx = threadIdx.x; idx < rows * n4; idx += blockDim.x) {
-      const int r = idx / n4, c = idx - r * n4, row = row0 + r;
-      const float4 v = row < T
-          ? __ldg(reinterpret_cast<const float4*>(src + (size_t)row * dh) + c)
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(dst + r * stride)[c] = v;
+    constexpr int n4 = kMaxDh / 4;
+    for (int idx = threadIdx.x; idx < ROWS * n4; idx += kThreads) {
+      const int r = idx / n4, c = 4 * (idx % n4), row = row0 + r;
+      const bool ok = row < T && c < dh;
+      cp_async16(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < rows * dq; idx += blockDim.x) {
-      const int r = idx / dq, d = idx - r * dq, row = row0 + r;
-      dst[r * stride + d] = (row < T && d < dh) ? src[(size_t)row * dh + d] : 0.f;
+    for (int idx = threadIdx.x; idx < ROWS * kMaxDh; idx += kThreads) {
+      const int r = idx / kMaxDh, c = idx % kMaxDh, row = row0 + r;
+      const bool ok = row < T && c < dh;
+      cp_async4(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
     }
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <bool kFrames>
+__device__ inline int key_code(const float* __restrict__ key_mask, const int* __restrict__ fid,
+                               int b, int j, int T) {
+  return j >= T ? kPast : (key_mask[(size_t)b * T + j] > 0.f ? (kFrames ? fid[j] : 0) : kMasked);
+}
+
+// split A fragment of the 16x8 tile at (0, k0) of a row-major shared X
+__device__ inline void frag_a(const float* X, int k0, int g, int t, uint32_t (&ab)[4],
+                              uint32_t (&as)[4]) {
+  const float* p = X + g * kLd + k0 + t;
+  split_int(p[0], ab[0], as[0]);
+  split_int(p[8 * kLd], ab[1], as[1]);
+  split_int(p[4], ab[2], as[2]);
+  split_int(p[8 * kLd + 4], ab[3], as[3]);
+}
+
+// split B fragment of the 8x8 tile at (k0, n0) of X^T, X a row-major shared
+// matrix whose rows are the n index: b0 = X[n0+g][k0+t], b1 = X[n0+g][k0+t+4]
+__device__ inline void frag_bt(const float* X, int n0, int k0, int g, int t, uint32_t (&bb)[2],
+                               uint32_t (&bs)[2]) {
+  const float* p = X + (n0 + g) * kLd + k0 + t;
+  split_int(p[0], bb[0], bs[0]);
+  split_int(p[4], bb[1], bs[1]);
+}
+
+// split B fragment of the 8x8 tile at (k0, n0) of a row-major shared X
+// whose rows are the k index, rows in pair order (see a_from_c):
+// b0 = X[k0+2t][n0+g], b1 = X[k0+2t+1][n0+g]
+__device__ inline void frag_b_pairs(const float* X, int k0, int n0, int g, int t,
+                                    uint32_t (&bb)[2], uint32_t (&bs)[2]) {
+  const float* p = X + (k0 + 2 * t) * kLd + n0 + g;
+  split_int(p[0], bb[0], bs[0]);
+  split_int(p[kLd], bb[1], bs[1]);
+}
+
+// the split A fragment of a C fragment whose 8 columns become the k index
+// in pair order (column 2t -> k = t, column 2t+1 -> k = t+4)
+__device__ inline void a_from_c(const float (&c)[4], uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  split_int(c[0], ab[0], as[0]);
+  split_int(c[2], ab[1], as[1]);
+  split_int(c[1], ab[2], as[2]);
+  split_int(c[3], ab[3], as[3]);
+}
+
+template <int NT>
+__device__ inline void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
+}
+
+// c = X1 Y1^T and d = X2 Y2^T over the padded head dim, for the warp's 16
+// rows of X1, X2 (row-major shared, kLd) and NT*8 rows of Y1, Y2.  Each
+// product is summed in two accumulator sets (even and odd k-steps), which
+// halves its dependent mma chains; TWO = false computes c alone (d may
+// then alias c).
+template <int NT, bool TWO>
+__device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float* X1,
+                              const float* Y1, const float* X2, const float* Y2, int g, int t) {
+  float c2[2][NT][4], d2[2][NT][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    zero(c2[p]);
+    zero(d2[p]);
+  }
+#pragma unroll
+  for (int ks = 0; ks < kND; ++ks) {
+    uint32_t ab[4], as[4], bb[2], bs[2];
+    frag_a(X1, 8 * ks, g, t, ab, as);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      frag_bt(Y1, 8 * j, 8 * ks, g, t, bb, bs);
+      mma3(c2[ks & 1][j], ab, as, bb, bs);
+    }
+    if (TWO) {
+      frag_a(X2, 8 * ks, g, t, ab, as);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        frag_bt(Y2, 8 * j, 8 * ks, g, t, bb, bs);
+        mma3(d2[ks & 1][j], ab, as, bb, bs);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c[j][i] = c2[0][j][i] + c2[1][j][i];
+      if (TWO) d[j][i] = d2[0][j][i] + d2[1][j][i];
+    }
+}
+
+// acc[n] += A . Y over the warp's 16 rows: A the C fragments of a 16 x NT*8
+// tile (k in pair order), Y a row-major shared (NT*8, kLd) tile
+template <int NT>
+__device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4], const float* Y,
+                                  int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ab[4], as[4];
+    a_from_c(a[j], ab, as);
+#pragma unroll
+    for (int n = 0; n < kND; ++n) {
+      uint32_t bb[2], bs[2];
+      frag_b_pairs(Y, 8 * j, 8 * n, g, t, bb, bs);
+      mma3(acc[n], ab, as, bb, bs);
+    }
+  }
+}
+
+__device__ inline float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ inline float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// the bias of (query frame fq, key code c >= 0): fb[h, fq, c] from the
+// shared table when kFrames, else the head's scalar fb0
+template <bool kFrames>
+__device__ inline float bias(const float* fbs, float fb0, int F, int fq, int c) {
+  return kFrames ? fbs[fq * F + c] : fb0;
+}
+
+// this lane's 2 x 2 values of a (16 x 128) C-fragment accumulator to rows
+// r0 and r0 + 8 of a (T, dh) matrix, times mul
+__device__ inline void store_rows(float* __restrict__ out, const float (&acc)[kND][4], int r0,
+                                  int T, int dh, int t, float mul0, float mul1) {
+#pragma unroll
+  for (int n = 0; n < kND; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * n + 2 * t + e;
+      if (col < dh) {
+        if (r0 < T) out[(size_t)r0 * dh + col] = acc[n][e] * mul0;
+        if (r0 + 8 < T) out[(size_t)(r0 + 8) * dh + col] = acc[n][2 + e] * mul1;
+      }
+    }
+}
+
+template <bool kFrames>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ key_mask,
           const float* __restrict__ fb, const int* __restrict__ fid,
           float* __restrict__ o, float* __restrict__ lse, int H, int T,
           int dh, int F, float scale, bool vec) {
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int dq = stride_q(dh), dk = stride_k(dh), n4 = dq / 4;
+  constexpr int NT = kTileF / 8;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // kBK x dk
-  float* Vs = Ks + kBK * dk;                     // kBK x dq
-  float* Qs = Vs + kBK * dq;                     // kBQ x dq
-  float* Ps = Qs + kBQ * dq;                     // kWarps x kQPW x kBK
-  float* fbs = Ps + kBQ * kBK;                   // F x F
-  float* mks = fbs + F * F;                      // kBK
-  int* fks = reinterpret_cast<int*>(mks + kBK);  // kBK
-  float* pw = Ps + warp * kQPW * kBK;  // this warp's probabilities
+  float* Qs = reinterpret_cast<float*>(smem4);                // kRows x kLd
+  float* Ks = Qs + kRows * kLd;                                // 2 stages x kTileF x kLd
+  float* Vs = Ks + 2 * kTileF * kLd;                           // 2 stages x kTileF x kLd
+  int* codes = reinterpret_cast<int*>(Vs + 2 * kTileF * kLd);  // 2 stages x kTileF
+  float* fbs = reinterpret_cast<float*>(codes + 2 * kTileF);   // F x F (kFrames)
 
   const size_t base = (size_t)bh * T * dh;
-  for (int idx = tid; idx < F * F; idx += blockDim.x)
-    fbs[idx] = fb[(size_t)h * F * F + idx];
-  stage_rows(Qs, dq, q + base, q0, kBQ, T, dh, vec);
+  const float* kb = k + base;
+  const float* vb = v + base;
+  auto stage = [&](int s, int j0) {
+    load_rows<kTileF>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileF>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
+    if (tid < kTileF) codes[s * kTileF + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
+    cp_commit();
+  };
+  if (kFrames)
+    for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
+  load_rows<kRows>(Qs, q + base, q0, T, dh, vec);
+  stage(0, 0);  // one group: Q and the first K/V tile
 
-  float m[kQPW], l[kQPW], acc[kQPW][kC];
-  int fq[kQPW];
-#pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int qi = q0 + warp * kQPW + qq;
-    m[qq] = kNeg;
-    l[qq] = 0.f;
-    fq[qq] = qi < T ? fid[qi] : 0;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[qq][c] = 0.f;
-  }
-  const float4* q4 = reinterpret_cast<const float4*>(Qs + warp * kQPW * dq);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+  const int fq0 = kFrames && r0 < T ? fid[r0] : 0;
+  const int fq1 = kFrames && r1 < T ? fid[r1] : 0;
+  const float* Qw = Qs + warp * 16 * kLd;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this lane's part of the sum
+  float acc[kND][4];
+  zero(acc);
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and Q/fb are staged)
-    stage_rows(Ks, dk, k + base, k0, kBK, T, dh, vec);
-    stage_rows(Vs, dq, v + base, k0, kBK, T, dh, vec);
-    if (tid < kBK) {
-      const int kj = k0 + tid;
-      mks[tid] = kj < T ? key_mask[(size_t)b * T + kj] : 0.f;
-      fks[tid] = kj < T ? fid[kj] : 0;
-    }
-    __syncthreads();
+  const int ntiles = (T + kTileF - 1) / kTileF;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    cp_wait_all();
+    __syncthreads();  // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kTileF);
+    const float* Kt = Ks + s * kTileF * kLd;
+    const float* Vt = Vs + s * kTileF * kLd;
+    const int* ct = codes + s * kTileF;
 
-    const int nk = min(kBK, T - k0);
-    const bool key_ok = lane < nk;
-    // lane j scores key j against the warp's kQPW query rows
-    float s[kQPW];
+    float sc[NT][4];
+    scores<NT, false>(sc, sc, Qw, Kt, Qw, Kt, g, t);  // S = Q K^T
+
+    // online softmax on the C fragments: rows g (c0, c1) and g + 8 (c2, c3)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int qq = 0; qq < kQPW; ++qq) s[qq] = 0.f;
-    const float4* k4 = reinterpret_cast<const float4*>(Ks + lane * dk);
-    for (int d4 = 0; d4 < n4; ++d4) {
-      const float4 kv = k4[d4];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int qq = 0; qq < kQPW; ++qq) {
-        const float4 qv = q4[qq * n4 + d4];
-        s[qq] = fmaf(qv.x, kv.x, s[qq]);
-        s[qq] = fmaf(qv.y, kv.y, s[qq]);
-        s[qq] = fmaf(qv.z, kv.z, s[qq]);
-        s[qq] = fmaf(qv.w, kv.w, s[qq]);
-      }
-    }
-    float p[kQPW];
-#pragma unroll
-    for (int qq = 0; qq < kQPW; ++qq) {
-      float sq = s[qq] * scale;
-      sq = mks[lane] > 0.f ? sq + fbs[fq[qq] * F + fks[lane]] : kNeg;
-      if (!key_ok) sq = -INFINITY;
-      float tmax = sq;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float m_new = fmaxf(m[qq], tmax);
-      const float alpha = expf(m[qq] - m_new);
-      p[qq] = key_ok ? expf(sq - m_new) : 0.f;
-      float psum = p[qq];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[qq] = l[qq] * alpha + psum;
-      m[qq] = m_new;
-#pragma unroll
-      for (int c = 0; c < kC; ++c) acc[qq][c] *= alpha;
-      pw[qq * kBK + lane] = p[qq];
-    }
-    __syncwarp();
-    // P.V: lane owns columns 4*lane..4*lane+3; V rows and p come as float4
-    // (keys past T have p = 0 and zero V rows)
-    for (int j4 = 0; j4 < nk; j4 += 4) {
-      float4 vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        vv[i] = 4 * lane < dq ? reinterpret_cast<const float4*>(Vs + (j4 + i) * dq)[lane]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int qq = 0; qq < kQPW; ++qq) {
-        const float4 pp = reinterpret_cast<const float4*>(pw + qq * kBK)[j4 / 4];
-        const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[qq][0] = fmaf(pj[i], vv[i].x, acc[qq][0]);
-          acc[qq][1] = fmaf(pj[i], vv[i].y, acc[qq][1]);
-          acc[qq][2] = fmaf(pj[i], vv[i].z, acc[qq][2]);
-          acc[qq][3] = fmaf(pj[i], vv[i].w, acc[qq][3]);
+      for (int e = 0; e < 2; ++e) {
+        const int c = ct[8 * j + 2 * t + e];
+        float x0, x1;
+        if (c >= 0) {
+          x0 = sc[j][e] * scale + bias<kFrames>(fbs, fb0, F, fq0, c);
+          x1 = sc[j][2 + e] * scale + bias<kFrames>(fbs, fb0, F, fq1, c);
+        } else {
+          x0 = x1 = c == kMasked ? kNeg : -INFINITY;
         }
+        sc[j][e] = x0;
+        sc[j][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
       }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[j][e] = expf(sc[j][e] - mn0);
+        sc[j][2 + e] = expf(sc[j][2 + e] - mn1);
+        l0 += sc[j][e];
+        l1 += sc[j][2 + e];
+      }
+#pragma unroll
+    for (int n = 0; n < kND; ++n) {
+      acc[n][0] *= a0;
+      acc[n][1] *= a0;
+      acc[n][2] *= a1;
+      acc[n][3] *= a1;
     }
-    __syncwarp();  // pw is rewritten by the next tile
+    accumulate<NT>(acc, sc, Vt, g, t);  // O += P V (keys past T: p = 0, zero rows)
   }
 
-#pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int qi = q0 + warp * kQPW + qq;
-    if (qi >= T) continue;
-    const float inv = 1.f / l[qq];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int d = 4 * lane + c;
-      if (d < dh) o[base + (size_t)qi * dh + d] = acc[qq][c] * inv;
-    }
-    if (lane == 0) lse[(size_t)bh * T + qi] = m[qq] + logf(l[qq]);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  store_rows(o + base, acc, r0, T, dh, t, 1.f / l0, 1.f / l1);
+  if (t == 0) {
+    if (r0 < T) lse[(size_t)bh * T + r0] = m0 + logf(l0);
+    if (r1 < T) lse[(size_t)bh * T + r1] = m1 + logf(l1);
   }
 }
 
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
-constexpr int kKPW = 4;               // keys per warp (dk/dv kernel)
-constexpr int kBKb = kWarps * kKPW;   // keys per block (dk/dv kernel)
-constexpr int kBQt = 32;              // query rows per tile (dk/dv kernel)
-constexpr int kMaxFb = 64;            // frames the dq kernel's dfb takes
-
-__device__ inline float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
 
 // 1 when batch row b has no valid key (every thread of the block agrees)
 __device__ inline int all_masked(const float* __restrict__ key_mask, int b, int T) {
@@ -242,7 +417,30 @@ __device__ inline int all_masked(const float* __restrict__ key_mask, int b, int 
   return !__syncthreads_or(any);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// delta[r] = sum_d dout[r, d] o[r, d], a warp a row
+__global__ void __launch_bounds__(256)
+flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
+                float* __restrict__ delta, int rows, int dh) {
+  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  float sum = 0.f;
+  if (dh % 4 == 0 && aligned16(o) && aligned16(dout)) {
+    const float4* o4 = reinterpret_cast<const float4*>(o + (size_t)r * dh);
+    const float4* d4 = reinterpret_cast<const float4*>(dout + (size_t)r * dh);
+    for (int c = lane; c < dh / 4; c += 32) {
+      const float4 a = __ldg(o4 + c), b = __ldg(d4 + c);
+      sum += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    }
+  } else {
+    for (int d = lane; d < dh; d += 32) sum += o[(size_t)r * dh + d] * dout[(size_t)r * dh + d];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) delta[r] = sum;
+}
+
+template <bool kFrames>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -250,136 +448,97 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const int* __restrict__ fid, float* __restrict__ dk,
               float* __restrict__ dv, int H, int T, int dh, int F, float scale,
               bool vec) {
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBKb;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int dq = stride_q(dh), dk4 = stride_k(dh), n4 = dq / 4;
+  constexpr int NT = kTileB / 8;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // kBKb x dq (broadcast reads)
-  float* Vs = Ks + kBKb * dq;                    // kBKb x dq
-  float* Qs = Vs + kBKb * dq;                    // kBQt x dk4 (lane rows)
-  float* Os = Qs + kBQt * dk4;                   // kBQt x dk4: dO rows
-  float* Pw = Os + kBQt * dk4;                   // kWarps x kKPW x kBQt
-  float* Dw = Pw + kWarps * kKPW * kBQt;         // the same, masked ds
-  float* fbs = Dw + kWarps * kKPW * kBQt;        // F x F
-  float* mks = fbs + F * F;                      // kBKb
-  float* ls = mks + kBKb;                        // kBQt
-  float* dls = ls + kBQt;                        // kBQt
-  int* fks = reinterpret_cast<int*>(dls + kBQt); // kBKb
-  int* fqs = fks + kBKb;                         // kBQt
-  float* pw = Pw + warp * kKPW * kBQt;
-  float* dw = Dw + warp * kKPW * kBQt;
+  float* Ks = reinterpret_cast<float*>(smem4);               // kRows x kLd
+  float* Vs = Ks + kRows * kLd;                               // kRows x kLd
+  float* Qs = Vs + kRows * kLd;                               // 2 stages x kTileB x kLd
+  float* Os = Qs + 2 * kTileB * kLd;                          // 2 stages x kTileB x kLd: dO
+  float* ls = Os + 2 * kTileB * kLd;                          // 2 x kTileB: lse
+  float* dls = ls + 2 * kTileB;                               // 2 x kTileB: delta
+  int* fqs = reinterpret_cast<int*>(dls + 2 * kTileB);       // 2 x kTileB: query frame, -1 past T
+  float* fbs = reinterpret_cast<float*>(fqs + 2 * kTileB);   // F x F (kFrames)
 
   const size_t base = (size_t)bh * T * dh;
-  for (int idx = tid; idx < F * F; idx += blockDim.x)
-    fbs[idx] = fb[(size_t)h * F * F + idx];
-  stage_rows(Ks, dq, k + base, k0, kBKb, T, dh, vec);
-  stage_rows(Vs, dq, v + base, k0, kBKb, T, dh, vec);
-  if (tid < kBKb) {
-    const int kj = k0 + tid;
-    mks[tid] = kj < T ? key_mask[(size_t)b * T + kj] : 0.f;
-    fks[tid] = kj < T ? fid[kj] : 0;
-  }
-  const int none = all_masked(key_mask, b, T);  // also syncs the staging
+  const float* qb = q + base;
+  const float* ob = dout + base;
+  auto stage = [&](int s, int i0) {
+    load_rows<kTileB>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
+    load_rows<kTileB>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
+    if (tid < kTileB) {
+      const int qi = i0 + tid;
+      ls[s * kTileB + tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+      dls[s * kTileB + tid] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+      fqs[s * kTileB + tid] = qi < T ? (kFrames ? fid[qi] : 0) : -1;
+    }
+    cp_commit();
+  };
+  if (kFrames)
+    for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
+  load_rows<kRows>(Ks, k + base, k0, T, dh, vec);
+  load_rows<kRows>(Vs, v + base, k0, T, dh, vec);
+  stage(0, 0);  // one group: K, V and the first Q/dO tile
+  const int none = all_masked(key_mask, b, T);
   const float p_none = 1.f / (float)T;
 
-  float adk[kKPW][kC], adv[kKPW][kC];
-#pragma unroll
-  for (int kk = 0; kk < kKPW; ++kk)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) adk[kk][c] = adv[kk][c] = 0.f;
+  const int kr0 = k0 + warp * 16 + g;  // this lane's keys: kr0 and kr0 + 8
+  const int kc[2] = {key_code<kFrames>(key_mask, fid, b, kr0, T), key_code<kFrames>(key_mask, fid, b, kr0 + 8, T)};
+  const float* Kw = Ks + warp * 16 * kLd;
+  const float* Vw = Vs + warp * 16 * kLd;
+  float adk[kND][4], adv[kND][4];
+  zero(adk);
+  zero(adv);
 
-  for (int q0 = 0; q0 < T; q0 += kBQt) {
-    __syncthreads();  // the previous query tile is consumed
-    stage_rows(Qs, dk4, q + base, q0, kBQt, T, dh, vec);
-    stage_rows(Os, dk4, dout + base, q0, kBQt, T, dh, vec);
-    if (tid < kBQt) {
-      const int qi = q0 + tid;
-      ls[tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-      dls[tid] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
-      fqs[tid] = qi < T ? fid[qi] : 0;
-    }
-    __syncthreads();
+  const int ntiles = (T + kTileB - 1) / kTileB;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    cp_wait_all();
+    __syncthreads();  // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kTileB);
+    const float* Qt = Qs + s * kTileB * kLd;
+    const float* Ot = Os + s * kTileB * kLd;
+    const float* lt = ls + s * kTileB;
+    const float* dlt = dls + s * kTileB;
+    const int* ft = fqs + s * kTileB;
 
-    // lane i: query q0 + i against the warp's kKPW keys
-    const bool row_ok = q0 + lane < T;
-    float s[kKPW], dp[kKPW];
+    // S^T = K Q^T and dP^T = V dO^T (16 keys x kTileB queries a warp)
+    float st[NT][4], dpt[NT][4];
+    scores<NT, true>(st, dpt, Kw, Qt, Vw, Ot, g, t);
+
+    // p and ds on the C fragments: key kr0 (c0, c1) and kr0 + 8 (c2, c3)
 #pragma unroll
-    for (int kk = 0; kk < kKPW; ++kk) s[kk] = dp[kk] = 0.f;
-    const float4* q4 = reinterpret_cast<const float4*>(Qs + lane * dk4);
-    const float4* o4 = reinterpret_cast<const float4*>(Os + lane * dk4);
-    for (int d4 = 0; d4 < n4; ++d4) {
-      const float4 qv = q4[d4], ov = o4[d4];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int kk = 0; kk < kKPW; ++kk) {
-        const int kl = warp * kKPW + kk;
-        s[kk] = dot4(qv, reinterpret_cast<const float4*>(Ks + kl * dq)[d4], s[kk]);
-        dp[kk] = dot4(ov, reinterpret_cast<const float4*>(Vs + kl * dq)[d4], dp[kk]);
-      }
-    }
-    const float li = ls[lane], di = dls[lane];
-    const int fq = fqs[lane];
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float li = lt[col], di = dlt[col];
+        const int fq = ft[col];  // -1: query past T
 #pragma unroll
-    for (int kk = 0; kk < kKPW; ++kk) {
-      const int kl = warp * kKPW + kk;
-      const bool ok = row_ok && k0 + kl < T;
-      const bool valid = mks[kl] > 0.f;
-      const float sc = valid ? s[kk] * scale + fbs[fq * F + fks[kl]] : kNeg;
-      const float p = !ok ? 0.f : (none ? p_none : expf(sc - li));
-      pw[kk * kBQt + lane] = p;
-      dw[kk * kBQt + lane] = valid ? p * (dp[kk] - di) : 0.f;
-    }
-    __syncwarp();
-    // dv += p^T dO, dk += ds^T Q over the tile's rows; lane owns 4 columns
-    if (4 * lane < dq) {
-      for (int i4 = 0; i4 < kBQt; i4 += 4) {
-        float4 ov[4], qv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ov[i] = reinterpret_cast<const float4*>(Os + (i4 + i) * dk4)[lane];
-          qv[i] = reinterpret_cast<const float4*>(Qs + (i4 + i) * dk4)[lane];
-        }
-#pragma unroll
-        for (int kk = 0; kk < kKPW; ++kk) {
-          const float4 pp = reinterpret_cast<const float4*>(pw + kk * kBQt)[i4 / 4];
-          const float4 dd = reinterpret_cast<const float4*>(dw + kk * kBQt)[i4 / 4];
-          const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
-          const float dj[4] = {dd.x, dd.y, dd.z, dd.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            adv[kk][0] = fmaf(pj[i], ov[i].x, adv[kk][0]);
-            adv[kk][1] = fmaf(pj[i], ov[i].y, adv[kk][1]);
-            adv[kk][2] = fmaf(pj[i], ov[i].z, adv[kk][2]);
-            adv[kk][3] = fmaf(pj[i], ov[i].w, adv[kk][3]);
-            adk[kk][0] = fmaf(dj[i], qv[i].x, adk[kk][0]);
-            adk[kk][1] = fmaf(dj[i], qv[i].y, adk[kk][1]);
-            adk[kk][2] = fmaf(dj[i], qv[i].z, adk[kk][2]);
-            adk[kk][3] = fmaf(dj[i], qv[i].w, adk[kk][3]);
-          }
+        for (int r = 0; r < 2; ++r) {
+          const int c = kc[r], i = 2 * r + e;
+          const float x = c >= 0 ? st[j][i] * scale + bias<kFrames>(fbs, fb0, F, max(fq, 0), c) : kNeg;
+          const float p = (fq < 0 || c == kPast) ? 0.f : (none ? p_none : expf(x - li));
+          st[j][i] = p;
+          dpt[j][i] = c >= 0 ? p * (dpt[j][i] - di) : 0.f;
         }
       }
-    }
-    __syncwarp();  // pw/dw are rewritten by the next tile
+
+    accumulate<NT>(adv, st, Ot, g, t);   // dV += P^T dO
+    accumulate<NT>(adk, dpt, Qt, g, t);  // dK += dS^T Q
   }
 
-#pragma unroll
-  for (int kk = 0; kk < kKPW; ++kk) {
-    const int kj = k0 + warp * kKPW + kk;
-    if (kj >= T) continue;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int d = 4 * lane + c;
-      if (d < dh) {
-        dk[base + (size_t)kj * dh + d] = adk[kk][c] * scale;
-        dv[base + (size_t)kj * dh + d] = adv[kk][c];
-      }
-    }
-  }
+  store_rows(dk + base, adk, kr0, T, dh, t, scale, scale);
+  store_rows(dv + base, adv, kr0, T, dh, t, 1.f, 1.f);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <bool kFrames>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -387,139 +546,153 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const int* __restrict__ fid, float* __restrict__ dqo,
              float* __restrict__ dfb_part, int H, int T, int dh, int F,
              float scale, bool vec) {
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int dq = stride_q(dh), dk4 = stride_k(dh), n4 = dq / 4;
+  constexpr int NT = kTileB / 8;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // kBK x dk4 (lane rows)
-  float* Vs = Ks + kBK * dk4;                    // kBK x dk4
-  float* Qs = Vs + kBK * dk4;                    // kBQ x dq (broadcast reads)
-  float* Os = Qs + kBQ * dq;                     // kBQ x dq: dO rows
-  float* Dw = Os + kBQ * dq;                     // kWarps x kQPW x kBK
-  float* fbs = Dw + kBQ * kBK;                   // F x F
-  float* racc = fbs + F * F;                     // kBQ x F frame sums
-  float* mks = racc + kBQ * F;                   // kBK
-  int* fks = reinterpret_cast<int*>(mks + kBK);  // kBK
-  float* dw = Dw + warp * kQPW * kBK;
+  float* Qs = reinterpret_cast<float*>(smem4);                // kRows x kLd
+  float* Os = Qs + kRows * kLd;                                // kRows x kLd: dO
+  float* Ks = Os + kRows * kLd;                                // 2 stages x kTileB x kLd
+  float* Vs = Ks + 2 * kTileB * kLd;                           // 2 stages x kTileB x kLd
+  int* codes = reinterpret_cast<int*>(Vs + 2 * kTileB * kLd);  // 2 stages x kTileB
+  float* fbs = reinterpret_cast<float*>(codes + 2 * kTileB);   // F x F (kFrames)
+  float* dsw = fbs + F * F;                                     // kWarps x 16 x kDsLd (kFrames)
+  float* racc = dsw + kWarps * 16 * kDsLd;                      // kRows x F (kFrames)
 
   const size_t base = (size_t)bh * T * dh;
-  for (int idx = tid; idx < F * F; idx += blockDim.x)
-    fbs[idx] = fb[(size_t)h * F * F + idx];
-  stage_rows(Qs, dq, q + base, q0, kBQ, T, dh, vec);
-  stage_rows(Os, dq, dout + base, q0, kBQ, T, dh, vec);
+  const float* kb = k + base;
+  const float* vb = v + base;
+  auto stage = [&](int s, int j0) {
+    load_rows<kTileB>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileB>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
+    if (tid < kTileB) codes[s * kTileB + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
+    cp_commit();
+  };
+  if (kFrames)
+    for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
+  load_rows<kRows>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows>(Os, dout + base, q0, T, dh, vec);
+  stage(0, 0);  // one group: Q, dO and the first K/V tile
 
-  float acc[kQPW][kC], li[kQPW], di[kQPW], rs[kQPW][2];
-  int fq[kQPW];
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+  const int fq0 = kFrames && r0 < T ? fid[r0] : 0;
+  const int fq1 = kFrames && r1 < T ? fid[r1] : 0;
+  const float li0 = r0 < T ? lse[(size_t)bh * T + r0] : 0.f;
+  const float li1 = r1 < T ? lse[(size_t)bh * T + r1] : 0.f;
+  const float di0 = r0 < T ? delta[(size_t)bh * T + r0] : 0.f;
+  const float di1 = r1 < T ? delta[(size_t)bh * T + r1] : 0.f;
+  const float* Qw = Qs + warp * 16 * kLd;
+  const float* Ow = Os + warp * 16 * kLd;
+  float* dw = dsw + warp * 16 * kDsLd;
+  float acc[kND][4];
+  zero(acc);
+  // frame sums (kFrames): rs[r][x] sums ds of warp row r over the keys of
+  // frame lane + 32 x
+  float rs[16][2];
 #pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int qi = q0 + warp * kQPW + qq;
-    fq[qq] = qi < T ? fid[qi] : 0;
-    li[qq] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-    di[qq] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
-    rs[qq][0] = rs[qq][1] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) acc[qq][c] = 0.f;
-  }
-  const float4* q4 = reinterpret_cast<const float4*>(Qs + warp * kQPW * dq);
-  const float4* o4 = reinterpret_cast<const float4*>(Os + warp * kQPW * dq);
+  for (int r = 0; r < 16; ++r) rs[r][0] = rs[r][1] = 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += kBK) {
-    __syncthreads();
-    stage_rows(Ks, dk4, k + base, k0, kBK, T, dh, vec);
-    stage_rows(Vs, dk4, v + base, k0, kBK, T, dh, vec);
-    if (tid < kBK) {
-      const int kj = k0 + tid;
-      mks[tid] = kj < T ? key_mask[(size_t)b * T + kj] : 0.f;
-      fks[tid] = kj < T ? fid[kj] : -1;
-    }
-    __syncthreads();
+  const int ntiles = (T + kTileB - 1) / kTileB;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    cp_wait_all();
+    __syncthreads();  // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kTileB);
+    const float* Kt = Ks + s * kTileB * kLd;
+    const float* Vt = Vs + s * kTileB * kLd;
+    const int* ct = codes + s * kTileB;
 
-    const int nk = min(kBK, T - k0);
-    const bool key_ok = lane < nk;
-    float s[kQPW], dp[kQPW];
+    // S = Q K^T and dP = dO V^T (16 rows x kTileB keys a warp)
+    float sc[NT][4], dp[NT][4];
+    scores<NT, true>(sc, dp, Qw, Kt, Ow, Vt, g, t);
+
+    // ds on the C fragments (masked keys and keys past T give 0)
 #pragma unroll
-    for (int qq = 0; qq < kQPW; ++qq) s[qq] = dp[qq] = 0.f;
-    const float4* k4 = reinterpret_cast<const float4*>(Ks + lane * dk4);
-    const float4* v4 = reinterpret_cast<const float4*>(Vs + lane * dk4);
-    for (int d4 = 0; d4 < n4; ++d4) {
-      const float4 kv = k4[d4], vv = v4[d4];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int qq = 0; qq < kQPW; ++qq) {
-        s[qq] = dot4(q4[qq * n4 + d4], kv, s[qq]);
-        dp[qq] = dot4(o4[qq * n4 + d4], vv, dp[qq]);
+      for (int e = 0; e < 2; ++e) {
+        const int c = ct[8 * j + 2 * t + e];
+        float d0 = 0.f, d1 = 0.f;
+        if (c >= 0) {
+          const float x0 = sc[j][e] * scale + bias<kFrames>(fbs, fb0, F, fq0, c);
+          const float x1 = sc[j][2 + e] * scale + bias<kFrames>(fbs, fb0, F, fq1, c);
+          d0 = expf(x0 - li0) * (dp[j][e] - di0);
+          d1 = expf(x1 - li1) * (dp[j][2 + e] - di1);
+        }
+        sc[j][e] = d0;
+        sc[j][2 + e] = d1;
       }
-    }
-    const bool valid = key_ok && mks[lane] > 0.f;
+
+    accumulate<NT>(acc, sc, Kt, g, t);  // dQ += dS K
+
+    if (kFrames) {
+      // the warp's ds tile through shared memory, then a lane per key
+      // frame adds up its keys in order
 #pragma unroll
-    for (int qq = 0; qq < kQPW; ++qq) {
-      const float sc = s[qq] * scale + fbs[fq[qq] * F + (key_ok ? fks[lane] : 0)];
-      // masked keys (and every key of an all-masked row) give ds = 0
-      dw[qq * kBK + lane] = valid ? expf(sc - li[qq]) * (dp[qq] - di[qq]) : 0.f;
-    }
-    __syncwarp();
-    // dq += ds . K; lane owns 4 columns (keys past T have ds = 0, zero rows)
-    if (4 * lane < dq) {
-      for (int j4 = 0; j4 < nk; j4 += 4) {
-        float4 kv[4];
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          kv[i] = reinterpret_cast<const float4*>(Ks + (j4 + i) * dk4)[lane];
+        for (int e = 0; e < 2; ++e) {
+          dw[g * kDsLd + 8 * j + 2 * t + e] = sc[j][e];
+          dw[(g + 8) * kDsLd + 8 * j + 2 * t + e] = sc[j][2 + e];
+        }
+      __syncwarp();
+      const int nk = min(kTileB, T - it * kTileB);
+      for (int jj = 0; jj < nk; ++jj) {
+        const int fk = ct[jj];
+        if (fk == lane) {
 #pragma unroll
-        for (int qq = 0; qq < kQPW; ++qq) {
-          const float4 dd = reinterpret_cast<const float4*>(dw + qq * kBK)[j4 / 4];
-          const float dj[4] = {dd.x, dd.y, dd.z, dd.w};
+          for (int r = 0; r < 16; ++r) rs[r][0] += dw[r * kDsLd + jj];
+        } else if (fk == lane + 32) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[qq][0] = fmaf(dj[i], kv[i].x, acc[qq][0]);
-            acc[qq][1] = fmaf(dj[i], kv[i].y, acc[qq][1]);
-            acc[qq][2] = fmaf(dj[i], kv[i].z, acc[qq][2]);
-            acc[qq][3] = fmaf(dj[i], kv[i].w, acc[qq][3]);
-          }
+          for (int r = 0; r < 16; ++r) rs[r][1] += dw[r * kDsLd + jj];
         }
       }
+      __syncwarp();  // dw is rewritten by the next tile
     }
-    // frame sums: lane g owns key frames g and g + 32, keys in order
-    for (int j = 0; j < nk; ++j) {
-      const int fk = fks[j];
-#pragma unroll
-      for (int qq = 0; qq < kQPW; ++qq) {
-        const float d = dw[qq * kBK + j];
-        if (fk == lane) rs[qq][0] += d;
-        if (fk == lane + 32) rs[qq][1] += d;
-      }
-    }
-    __syncwarp();
   }
 
+  store_rows(dqo + base, acc, r0, T, dh, t, scale, scale);
+  if (!kFrames) return;
 #pragma unroll
-  for (int qq = 0; qq < kQPW; ++qq) {
-    const int r = warp * kQPW + qq, qi = q0 + r;
-    if (lane < F) racc[r * F + lane] = rs[qq][0];
-    if (lane + 32 < F) racc[r * F + lane + 32] = rs[qq][1];
-    if (qi >= T) continue;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int d = 4 * lane + c;
-      if (d < dh) dqo[base + (size_t)qi * dh + d] = acc[qq][c] * scale;
-    }
+  for (int r = 0; r < 16; ++r) {
+    const int rr = warp * 16 + r;
+    if (lane < F) racc[rr * F + lane] = rs[r][0];
+    if (lane + 32 < F) racc[rr * F + lane + 32] = rs[r][1];
   }
   __syncthreads();
   // this block's (F, F) partial: rows in order, those of query frame f
   float* part = dfb_part + ((size_t)bh * gridDim.x + blockIdx.x) * F * F;
-  for (int cell = tid; cell < F * F; cell += blockDim.x) {
-    const int f = cell / F, g = cell - f * F;
+  for (int cell = tid; cell < F * F; cell += kThreads) {
+    const int f = cell / F, gk = cell - f * F;
     float sum = 0.f;
-    for (int r = 0; r < kBQ && q0 + r < T; ++r)
-      if (fid[q0 + r] == f) sum += racc[r * F + g];
+    for (int r = 0; r < kRows && q0 + r < T; ++r)
+      if (fid[q0 + r] == f) sum += racc[r * F + gk];
     part[cell] = sum;
   }
 }
 
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace
 
+// delta = rowsum(dout * o) of (rows, dh) matrices, the backward's input
+extern "C" int vog_flash_delta(const float* o, const float* dout, float* delta, int rows, int dh,
+                               void* stream) {
+  if (rows == 0) return 0;
+  flash_bwd_delta<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(o, dout, delta,
+                                                                                rows, dh);
+  return (int)cudaGetLastError();
+}
+
+// fb and fid may be null when F == 1 (no bias); dfb_part: (B, H,
+// ceil(T / 64), F, F), written only when F > 1
 extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, const float* key_mask,
@@ -532,49 +705,47 @@ extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout);
-  const int dqs = stride_q(dh), dks = stride_k(dh);
-  const size_t smem_kv = sizeof(float) * ((size_t)2 * kBKb * dqs + 2 * kBQt * dks +
-                                          2 * kWarps * kKPW * kBQt + F * F + kBKb +
-                                          2 * kBQt) +
-                         sizeof(int) * (kBKb + kBQt);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  const bool frames = F > 1;
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
+  const size_t rows_bytes = sizeof(float) * (size_t)(2 * kRows + 4 * kTileB) * kLd;
+  const size_t fb_bytes = frames ? sizeof(float) * F * F : 0;
+
+  const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
+  auto dkv = frames ? flash_bwd_dkv<true> : flash_bwd_dkv<false>;
+  cudaError_t e = set_smem(dkv, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid_kv((T + kBKb - 1) / kBKb, B * H);
-  flash_bwd_dkv<<<grid_kv, kWarps * 32, smem_kv, s>>>(
-      q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv, H, T, dh, F, scale, vec);
+  dkv<<<grid, kThreads, smem_kv, s>>>(q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv,
+                                      H, T, dh, F, scale, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem_q = sizeof(float) * ((size_t)2 * kBK * dks + 2 * kBQ * dqs +
-                                         kBQ * kBK + F * F + kBQ * F + kBK) +
-                        sizeof(int) * kBK;
-  e = cudaFuncSetAttribute(flash_bwd_dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem_q);
+
+  const size_t smem_q = rows_bytes + sizeof(int) * 2 * kTileB + fb_bytes +
+                        (frames ? sizeof(float) * (kWarps * 16 * kDsLd + kRows * F) : 0);
+  auto dqk = frames ? flash_bwd_dq<true> : flash_bwd_dq<false>;
+  e = set_smem(dqk, smem_q);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid_q((T + kBQ - 1) / kBQ, B * H);
-  flash_bwd_dq<<<grid_q, kWarps * 32, smem_q, s>>>(
-      q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part, H, T, dh, F, scale, vec);
+  dqk<<<grid, kThreads, smem_q, s>>>(q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part,
+                                     H, T, dh, F, scale, vec);
   return (int)cudaGetLastError();
 }
 
+// fb and fid may be null when F == 1 (no bias)
 extern "C" int vog_flash_fwd(const float* q, const float* k, const float* v,
                              const float* key_mask, const float* fb,
                              const int* fid, float* o, float* lse, int B,
                              int H, int T, int dh, int F, float scale,
                              void* stream) {
-  if (dh > kMaxDh || dh < 1) return (int)cudaErrorInvalidValue;
+  if (dh > kMaxDh || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)kBK * stride_k(dh) +
-                                       kBK * stride_q(dh) +
-                                       kBQ * stride_q(dh) + kBQ * kBK + F * F +
-                                       kBK) +
-                      sizeof(int) * kBK;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool frames = F > 1;
+  const size_t smem = sizeof(float) * (size_t)(kRows + 4 * kTileF) * kLd +
+                      sizeof(int) * 2 * kTileF + (frames ? sizeof(float) * F * F : 0);
+  auto fwd = frames ? flash_fwd<true> : flash_fwd<false>;
+  cudaError_t e = set_smem(fwd, smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  dim3 grid((T + kBQ - 1) / kBQ, B * H);
-  flash_fwd<<<grid, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
+  fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, key_mask, fb, fid, o, lse, H, T, dh, F, scale, vec);
   return (int)cudaGetLastError();
 }

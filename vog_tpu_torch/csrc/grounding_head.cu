@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32.cuh"  // split, mma3 and the fragment loaders
+
 namespace {
 
 constexpr int kWarps = 16;
@@ -55,52 +57,6 @@ constexpr int kMaxD = 512;
 constexpr int kMaxDh = 256;
 constexpr int kN1 = 32;  // first-product columns per warp (4 n-tiles)
 constexpr int kN2 = 16;  // second-product columns per warp (2 n-tiles)
-
-__device__ inline uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ inline void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ inline void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a . b in 3xTF32 (the small terms first)
-__device__ inline void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
-                            const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
-  mma(c, as, bb);
-  mma(c, ab, bs);
-  mma(c, ab, bb);
-}
-
-// A fragment of the 16x8 tile at (r0, k0) of a row-major shared matrix
-__device__ inline void load_a(const float* X, int ld, int r0, int k0, int lane,
-                              uint32_t (&big)[4], uint32_t (&small)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* p = X + (r0 + g) * ld + k0 + t;
-  split(p[0], big[0], small[0]);
-  split(p[8 * ld], big[1], small[1]);
-  split(p[4], big[2], small[2]);
-  split(p[8 * ld + 4], big[3], small[3]);
-}
-
-// raw B fragment of the 8x8 tile at (k0, n0) of a row-major global matrix
-__device__ inline void load_b(const float* __restrict__ W, int ld, int k0, int n0, int lane,
-                              float (&v)[2]) {
-  const int g = lane >> 2, t = lane & 3;
-  v[0] = __ldg(W + (size_t)(k0 + t) * ld + n0 + g);
-  v[1] = __ldg(W + (size_t)(k0 + t + 4) * ld + n0 + g);
-}
 
 template <int A>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -263,14 +219,6 @@ int launch(const float* vis, const float* arg, const float* wv,
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
-
-// raw B fragment of the 8x8 tile at (k0, n0) of W^T, W row-major (n, k)
-__device__ inline void load_bt(const float* __restrict__ W, int ld, int k0, int n0, int lane,
-                               float (&v)[2]) {
-  const int g = lane >> 2, t = lane & 3;
-  v[0] = __ldg(W + (size_t)(n0 + g) * ld + k0 + t);
-  v[1] = __ldg(W + (size_t)(n0 + g) * ld + k0 + t + 4);
-}
 
 // acc[A][NT][4] += X (rows 16m.., shared, ld) . B for the warp's NT n-tiles
 // at n0, over k in [0, K); B(k, n) = W[k * ldw + n] or, when trans,

@@ -1,0 +1,90 @@
+// 3xTF32 matrix products on Hopper's tensor cores (mma.sync m16n8k8),
+// shared by grounding_head.cu and attention.cu.
+//
+// Plain TF32 keeps 10 mantissa bits and misses the port's fp32 parity bound
+// (1e-4 x max(1, max|ref|)).  3xTF32 splits each fp32 operand x into a TF32
+// part big = rna(x) and a TF32 remainder small = rna(x - big), and takes a.b
+// as a_small.b_big + a_big.b_small + a_big.b_big (the small terms first; the
+// small.small term lies below fp32 rounding): fp32-level accuracy at three
+// mma a step.
+//
+// Fragment layouts of mma.m16n8k8 with .tf32 operands (PTX ISA), with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 8, row-major):  a0 (g, t)    a1 (g+8, t)    a2 (g, t+4)    a3 (g+8, t+4)
+//   B (8 x 8, k x n):       b0 (k=t, n=g)               b1 (k=t+4, n=g)
+//   C (16 x 8):             c0 (g, 2t)   c1 (g, 2t+1)   c2 (g+8, 2t)   c3 (g+8, 2t+1)
+//
+// Each .cu that includes this header builds into its own library, so the
+// helpers live in an anonymous namespace.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace {
+
+__device__ inline uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ inline void split(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// A cheaper split in two full-rate operations (no conversion instruction):
+// big = x with its low 13 mantissa bits cleared (TF32 toward zero), small =
+// x - big exactly, handed to the tensor core as it is (the unit reads only
+// its TF32 bits).  |small| < 2^-10 |x|, so each operand keeps an error of at
+// most 2^-20 |x|: a few 1e-6 relative on a product, where split gives ~1e-6.
+__device__ inline void split_int(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+__device__ inline void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in 3xTF32 (the small terms first)
+__device__ inline void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                            const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
+  mma(c, as, bb);
+  mma(c, ab, bs);
+  mma(c, ab, bb);
+}
+
+// A fragment of the 16x8 tile at (r0, k0) of a row-major shared matrix
+__device__ inline void load_a(const float* X, int ld, int r0, int k0, int lane,
+                              uint32_t (&big)[4], uint32_t (&small)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* p = X + (r0 + g) * ld + k0 + t;
+  split(p[0], big[0], small[0]);
+  split(p[8 * ld], big[1], small[1]);
+  split(p[4], big[2], small[2]);
+  split(p[8 * ld + 4], big[3], small[3]);
+}
+
+// raw B fragment of the 8x8 tile at (k0, n0) of a row-major global matrix
+__device__ inline void load_b(const float* __restrict__ W, int ld, int k0, int n0, int lane,
+                              float (&v)[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  v[0] = __ldg(W + (size_t)(k0 + t) * ld + n0 + g);
+  v[1] = __ldg(W + (size_t)(k0 + t + 4) * ld + n0 + g);
+}
+
+// raw B fragment of the 8x8 tile at (k0, n0) of W^T, W row-major (n, k)
+__device__ inline void load_bt(const float* __restrict__ W, int ld, int k0, int n0, int lane,
+                               float (&v)[2]) {
+  const int g = lane >> 2, t = lane & 3;
+  v[0] = __ldg(W + (size_t)(n0 + g) * ld + k0 + t);
+  v[1] = __ldg(W + (size_t)(n0 + g) * ld + k0 + t + 4);
+}
+
+}  // namespace

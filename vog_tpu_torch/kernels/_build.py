@@ -5,7 +5,8 @@ Each ``.cu`` source has a plain C interface and compiles on its own with
 is loaded with ctypes (no PyTorch headers, so a build takes seconds).
 All sources compile in parallel, one nvcc process each, at first use,
 into ``vog_tpu_torch/build/`` (or ``$VOG_TORCH_BUILD_DIR``).  A library's
-file name carries the hash of its source, so an edited source rebuilds.
+file name carries the hash of its source and of every header in ``csrc``
+(``*.cuh``), so an edited source or header rebuilds.
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.
@@ -65,7 +66,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> Path:
-    digest = hashlib.sha256((CSRC / src).read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return build_dir() / f"{Path(src).stem}-{digest}.so"
 
 

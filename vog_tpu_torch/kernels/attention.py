@@ -4,21 +4,24 @@
 
 Forward: replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel,
 _bias_block).  CUDA kernel: csrc/attention.cu.  On the H100 it is bound by
-fp32 operations at GT5 shapes; the kernel runs an online softmax over
-32-key tiles (the TPU kernel's whole-key-axis block does not fit 227 KB of
-shared memory at T=4000) and reads the bias from the head's (F, F) table
-in shared memory instead of the TPU kernel's one-hot matmul.  Masked keys
-take the finite ``NEG`` so a row with every key masked stays finite.
+operations at GT5 shapes; the kernel runs its products on the tensor cores
+in 3xTF32 (fp32-level accuracy) and an online softmax over 32-key tiles
+that stream in by cp.async (the TPU kernel's whole-key-axis block does not
+fit 227 KB of shared memory at T=4000), and reads the bias from the head's
+(F, F) table in shared memory instead of the TPU kernel's one-hot matmul.
+Masked keys take the finite ``NEG`` so a row with every key masked stays
+finite.
 
 Backward: replaces §_flash_bwd in its default "recompute" mode: a dk/dv
 kernel over key tiles, then a dq + frame-bias-grad kernel over query
 tiles, both recomputing p = exp(s - lse) from the forward's saved LSE
 (``_block_tile``), so no (T, T) tensor reaches device memory.  The
 frame-bias gradient is one (F, F) partial per (b, h, query tile), added up
-here in a fixed order.  ``flash_attention`` is a ``torch.autograd.Function``:
-the CUDA kernels on the card, ``flash_attention_plain`` /
-``flash_attention_bwd_plain`` on the CPU.  ``key_mask`` and ``frame_ids``
-get no gradient.
+here in a fixed order; with a single frame (F == 1, also the no-bias case)
+it is sum_ij ds_ij, zero up to rounding, and is returned as zeros.
+``flash_attention`` is a ``torch.autograd.Function``: the CUDA kernels on
+the card, ``flash_attention_plain`` / ``flash_attention_bwd_plain`` on the
+CPU.  ``key_mask`` and ``frame_ids`` get no gradient.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ NEG = -1e30
 NAME = "flash_attention"
 NAME_BWD = "flash_attention_bwd"
 MAX_BWD_FRAMES = 64  # the dq kernel's frame-bias partial takes F <= 64
-BWD_Q_ROWS = 32  # query rows a block of the dq kernel (kBQ in csrc/attention.cu)
+BWD_Q_ROWS = 64  # query rows a block of the dq kernel (kRows in csrc/attention.cu)
 
 
 def _bias_inputs(H, T, frame_bias, frame_ids, device):
@@ -60,28 +63,32 @@ def flash_attention_plain(
 
 
 def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
-    """The kernels' argument checks -> (frame_bias, frame_ids) with the
-    zero bias filled in."""
+    """The kernels' argument checks -> (frame count F, pointer of
+    frame_bias, pointer of frame_ids); with no bias F = 1 and both
+    pointers are None (the kernels add no bias then)."""
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     dev = q.device
     B, H, T, dh = q.shape
     if dh > 128:
         raise ValueError(f"{NAME}: head dim {dh} > 128 is not supported by the kernel")
-    frame_bias, frame_ids = _bias_inputs(H, T, frame_bias, frame_ids, dev)
-    Fn = frame_bias.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.float32, 4, dev)
         if tuple(t.shape) != (B, H, T, dh):
             raise ValueError(f"{NAME}: {name} shape {tuple(t.shape)} != q shape")
     _build.require(key_mask, "key_mask", torch.float32, 2, dev)
+    if tuple(key_mask.shape) != (B, T):
+        raise ValueError(f"{NAME}: key_mask shape {tuple(key_mask.shape)} does not match q")
+    if frame_bias is None:
+        return 1, None, None
+    Fn = frame_bias.shape[-1]
     _build.require(frame_bias, "frame_bias", torch.float32, 3, dev)
     _build.require(frame_ids, "frame_ids", torch.int32, 1, dev)
-    if tuple(key_mask.shape) != (B, T) or tuple(frame_bias.shape) != (H, Fn, Fn):
-        raise ValueError(f"{NAME}: key_mask/frame_bias shapes do not match q")
+    if tuple(frame_bias.shape) != (H, Fn, Fn):
+        raise ValueError(f"{NAME}: frame_bias shape {tuple(frame_bias.shape)} does not match q")
     if frame_ids.shape[0] != T:
         raise ValueError(f"{NAME}: frame_ids length != T")
-    return frame_bias, frame_ids
+    return Fn, frame_bias.data_ptr(), frame_ids.data_ptr()
 
 
 def flash_attention_fwd(
@@ -96,17 +103,14 @@ def flash_attention_fwd(
     frame_ids (T,) -> (o, lse)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_mask, frame_bias, frame_ids)
-    frame_bias, frame_ids = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
-    dev = q.device
+    Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
     B, H, T, dh = q.shape
-    Fn = frame_bias.shape[-1]
     o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     P, I = _build.P, _build.I
     fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, P])
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
-            frame_bias.data_ptr(), frame_ids.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr,
+            o.data_ptr(), lse.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
             _build.stream_ptr(q))
     _build.check(rc, NAME)
     _build.count(NAME)
@@ -141,13 +145,13 @@ def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, 
 
 def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
     """Backward of ``flash_attention_fwd`` -> (dq, dk, dv, dfb (H,F,F)):
-    the two CUDA kernels on the card, the plain version on the CPU."""
+    the CUDA kernels (delta, then dk/dv and dq) on the card, the plain
+    version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do)
-    frame_bias, frame_ids = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
+    Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
     dev = q.device
     B, H, T, dh = q.shape
-    Fn = frame_bias.shape[-1]
     if Fn > MAX_BWD_FRAMES:
         raise ValueError(f"{NAME_BWD}: {Fn} frames > {MAX_BWD_FRAMES}")
     for name, t in (("o", o), ("do", do)):
@@ -155,19 +159,25 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
         if t.shape != q.shape:
             raise ValueError(f"{NAME_BWD}: {name} shape {tuple(t.shape)} != q shape")
     _build.require(lse, "lse", torch.float32, 3, dev)
-    delta = (do * o).sum(-1).contiguous()  # (B,H,T)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    nq = -(-T // BWD_Q_ROWS)
-    part = torch.empty((B, H, nq, Fn, Fn), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)  # rowsum(do * o)
+    fn = _build.function("attention.cu", "vog_flash_delta", [P] * 3 + [I] * 2 + [P])
+    _build.check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
+                    _build.stream_ptr(q)), NAME_BWD)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the kernel writes the frame-bias partials only when F > 1
+    part = (torch.empty((B, H, -(-T // BWD_Q_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
+            if Fn > 1 else None)
     fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 13 + [I] * 5 + [_build.F, P])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), key_mask.data_ptr(), frame_bias.data_ptr(),
-            frame_ids.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            part.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh), _build.stream_ptr(q))
+            delta.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr, dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
+            _build.stream_ptr(q))
     _build.check(rc, NAME_BWD)
     _build.count(NAME_BWD)
-    return dq, dk, dv, part.sum(dim=(0, 2))
+    dfb = torch.zeros((H, 1, 1), dtype=torch.float32, device=dev) if part is None else part.sum(dim=(0, 2))
+    return dq, dk, dv, dfb
 
 
 class FlashAttention(torch.autograd.Function):

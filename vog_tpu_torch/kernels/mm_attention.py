@@ -11,8 +11,12 @@ kernel: csrc/mm_attention.cu.  Bound by fp32 operations on the H100 (the A
 value products dominate); the kernel scores each key tile once for all
 args, keeps a per-arg running max and denominator (each final denominator
 is >= 1) and an A x dh accumulator per query row, so neither the (T,T)
-scores nor the A value streams reach device memory.  No library call
-computes this function.
+scores nor the A value streams reach device memory.  One library call
+computes the same output: ``scaled_dot_product_attention`` on the query
+repeated over the A args, (B, H, A*T, dh), with a float mask fb[h, fid_i,
+fid_j] + cn[b, h, a, j] (masked keys at NEG; 51 MB at GT5).
+``chip_smoke.py`` times it as this kernel's yardstick; the port never
+calls it.
 
 Backward: replaces §_mm_attn_bwd in the TPU package's default "emit" mode.
 One CUDA kernel (csrc/mm_attention.cu, mm_bwd_dkv) recomputes p_a from the
