@@ -12,13 +12,17 @@ the last line:
    the card, at the serving path's shapes (GT5 SPAT, B=16): bitwise for
    the gather in f32/bf16/int8, max |err| <= 1e-4 * max(1, max|ref|) and
    |err| / |ref| <= 1e-3 (norms over the tensor) for the fp32 kernels (sums
-   run in another order); then CUDA-event times of
-   the kernel, the plain version and the library call where one exists
-   (SDPA for the flash attention, and for the mm attention on its query
-   repeated over the A args with a float mask, checked against the kernel
-   first; median of 15 runs of 10 back-to-back calls),
-   and the bound of each kernel: the larger of its bytes over 3.35 TB/s and
-   its operations over 165 TFLOP/s, the H100 SXM peaks (the operations at
+   run in another order); then CUDA-event times of the kernel, the plain
+   version and the library call where one exists (``index_select`` for
+   the gather, also at the smallest serve bucket of 4 rows; SDPA for the
+   flash attention, and for the mm attention on its query repeated over
+   the A args with a float mask, checked against the kernel first; median
+   of 15 runs of 10 back-to-back calls, each timed twice: queued behind a
+   sleep kernel, so that the events time the card alone, and as the host
+   issues them, so that a call costs the larger of the card's time and
+   the host's issue of it), and the bound of each kernel: the larger of
+   its bytes over 3.35 TB/s and its operations over 165 TFLOP/s, the
+   H100 SXM peaks (the operations at
    the rate of the fastest route that meets the fp32 parity limits,
    3xTF32 on the tensor cores: 495 / 3 TFLOP/s);
 4. serve: 15,000-row bf16 feature tables made on the card from a seed,
@@ -29,7 +33,8 @@ the last line:
    the scores of a few requests agree with the same weights run on the CPU
    through the plain path; prints p50/p95 latency and requests/s;
 5. profile: one B=16 batch, its host wall time, its forward's stream span
-   and its device time by kernel (torch.profiler), and the idle share;
+   (as the host issues it, and queued behind a sleep) and its device time
+   by kernel (torch.profiler), and the idle share of each span;
 6. backward kernels: each of the three against its plain backward on the
    card at the GT5 shapes (flash with and without the frame bias, a batch
    row with every key masked; the head with the upstream gradient zeroed
@@ -86,24 +91,65 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, reps: int = 15, inner: int = 10, warm: int = 3) -> float:
+MAX_SLEEP_CYCLES = 1 << 30  # ~0.6 s at the H100's clock
+
+
+def time_ms(fn, reps: int = 15, inner: int = 10, warm: int = 3, queued: bool = True) -> float:
     """Median over ``reps`` of the CUDA-event time of ``inner`` back-to-back
-    calls, per call, after warm-up."""
+    calls, per call, after warm-up.
+
+    ``queued`` (device time): the calls are queued behind a sleep kernel,
+    so the host has issued them all before the card reaches the first
+    event, and the events time the card alone.  A rep in which the card
+    reached the first event before the host had queued the last call is
+    run again with a sleep twice as long; one that still does behind the
+    longest sleep fails the run.  Not ``queued`` (issue included): no
+    sleep, so a call costs the larger of the card's time and the host's
+    issue of it (a Python wrapper can take longer to issue than a small
+    kernel takes to run)."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
+    ts, cycles = [], 1 << 21
+    while len(ts) < reps:
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
         s.record()
         for _ in range(inner):
             fn()
         e.record()
+        caught_up = queued and s.query()
         e.synchronize()
+        if caught_up:
+            if cycles >= MAX_SLEEP_CYCLES:
+                fail(f"time_ms: the card caught up with the host behind a sleep of {cycles} cycles")
+            cycles *= 2
+            continue
         ts.append(s.elapsed_time(e) / inner)
     return statistics.median(ts)
+
+
+def timings(kernel, plain, library=None) -> dict:
+    """A kernel's wrapper, its plain version and the library call (None:
+    none), each timed both ways of ``time_ms``: device time (``ms``,
+    ``plain_ms``, ``library_ms``) and with the host's issue (``issue_ms``,
+    ``plain_issue_ms``, ``library_issue_ms``)."""
+    out = {}
+    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        out[key + "ms"] = None if fn is None else time_ms(fn)
+        out[key + "issue_ms"] = None if fn is None else time_ms(fn, queued=False)
+    return out
+
+
+def fmt_times(t: dict, lib: str = "library") -> str:
+    """``timings`` as ``ms=... plain=... <lib>=...``, device time and, after
+    the slash, with the host's issue."""
+    def pair(key):
+        return "none" if t[key + "ms"] is None else f"{t[key + 'ms']:.4f}/{t[key + 'issue_ms']:.4f}"
+    return f"ms={pair('')} plain={pair('plain_')} {lib}={pair('library_')}"
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -244,27 +290,32 @@ def phase_kernels(cfg, tables, B: int = 16):
         r = torch.randint(-5, 520, (B, V), generator=g, device=dev, dtype=torch.int32)  # out of range too
         if not torch.equal(gather.gather_rows(t, r), gather.gather_rows_plain(t, r)):
             fail(f"gather_rows {t.dtype}: not bitwise equal to the plain version")
-    # time over 8 row sets (8 x 13 MB > the 50 MB L2), so each call reads cold rows
-    sets = [torch.randint(0, tables.n_rows, (B, V), generator=g, device=dev, dtype=torch.int32)
-            for _ in range(8)]
-    turn = [0]
-
-    def nxt():
-        turn[0] = (turn[0] + 1) % len(sets)
-        return sets[turn[0]]
-
-    flat = rows.reshape(-1)
-    ms = time_ms(lambda: gather.gather_rows(feats, nxt()))
-    plain = time_ms(lambda: gather.gather_rows_plain(feats, nxt()))
-    lib = time_ms(lambda: torch.index_select(feats, 0, nxt().reshape(-1)))
+    # time over 8 row sets (8 x 13 MB > the 50 MB L2), so each call reads
+    # cold rows; at B and at the smallest serve bucket (B=1, 4 rows), each
+    # beside index_select; the table row keeps B
     row_bytes = feats[0].numel() * feats.element_size()
-    bms, by = bound_ms(2 * flat.numel() * row_bytes + nbytes(rows), 0)
+    times = {}
+    for nb in (B, 1):
+        sets = [torch.randint(0, tables.n_rows, (nb, V), generator=g, device=dev, dtype=torch.int32)
+                for _ in range(8)]
+        turn = [0]
+
+        def nxt():
+            turn[0] = (turn[0] + 1) % len(sets)
+            return sets[turn[0]]
+
+        times[nb] = timings(lambda: gather.gather_rows(feats, nxt()),
+                            lambda: gather.gather_rows_plain(feats, nxt()),
+                            lambda: torch.index_select(feats, 0, nxt().reshape(-1)))
+        times[nb]["bound_ms"] = bound_ms(2 * nb * V * row_bytes + nbytes(sets[0]), 0)[0]
+    t, b1 = times[B], times[1]
     out.append(dict(name="gather_rows", route="cuda", source="vog_tpu_torch/csrc/gather.cu",
-                    replaces="vog_tpu/kernels/gather.py:79", max_abs_err=0.0, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=lib,
-                    shape=f"bf16 table {tuple(feats.shape)}, rows {tuple(rows.shape)}"))
-    print(f"[kernels] gather_rows bitwise (bf16 feats+seg, f32, int8) ms={ms:.4f} plain={plain:.4f} "
-          f"index_select={lib:.4f} bound={bms:.4f}", flush=True)
+                    replaces="vog_tpu/kernels/gather.py:79", max_abs_err=0.0, bound_by="bytes", **t,
+                    shape=f"bf16 table {tuple(feats.shape)}, rows {tuple(rows.shape)}",
+                    **{"b1_" + k: x for k, x in b1.items()}))
+    print(f"[kernels] gather_rows bitwise (bf16 feats+seg, f32, int8); device/with issue: B={B}: "
+          f"{fmt_times(t, 'index_select')} bound={t['bound_ms']:.4f}; B=1 ({V} rows): "
+          f"{fmt_times(b1, 'index_select')} bound={b1['bound_ms']:.4f}", flush=True)
 
     # -- flash attention: no bias (object transformer) and with bias -----
     q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
@@ -281,17 +332,17 @@ def phase_kernels(cfg, tables, B: int = 16):
         # the lse of the all-masked row is -1e30 + log T: checked on the others
         err = max(err, check_close("flash_attention", o, ro),
                   check_close("flash_attention lse", lse[: B - 1], rl[: B - 1]))
-    ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, mask))
-    plain = time_ms(lambda: attention.flash_attention_plain(q, k, v, mask))
     bmask = (mask > 0)[:, None, None, :]
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask))
+    t = timings(lambda: attention.flash_attention_fwd(q, k, v, mask),
+                lambda: attention.flash_attention_plain(q, k, v, mask),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask))
     fl = 4.0 * B * H * T * T * dh
     bms, by = bound_ms(nbytes(q, k, v, mask) + nbytes(q) + B * H * T * 4, fl)
     out.append(dict(name="flash_attention", route="cuda", source="vog_tpu_torch/csrc/attention.cu",
-                    replaces="vog_tpu/kernels/attention.py:286", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=lib, shape=f"q,k,v {tuple(q.shape)} f32, no bias"))
+                    replaces="vog_tpu/kernels/attention.py:286", max_abs_err=err, **t,
+                    bound_ms=bms, bound_by=by, shape=f"q,k,v {tuple(q.shape)} f32, no bias"))
     print(f"[kernels] flash_attention max_err={err:.3e} (no bias, spat bias, mixed-frame bias) "
-          f"ms={ms:.4f} plain={plain:.4f} sdpa={lib:.4f} bound={bms:.4f}", flush=True)
+          f"{fmt_times(t, 'sdpa')} bound={bms:.4f}", flush=True)
 
     # -- mm shared-QK attention -------------------------------------------
     qm = q * (1.0 / dh**0.5)
@@ -303,24 +354,23 @@ def phase_kernels(cfg, tables, B: int = 16):
         err = max(err, check_close("mm_shared_qk_attention", got[0], ref[0]))
         for x, y in zip(got[1:], ref[1:]):  # row max and denominator
             err = max(err, check_close("mm_shared_qk_attention stats", x[: B - 1], y[: B - 1]))
-    ms = time_ms(lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat))
-    plain = time_ms(lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat))
     q_rep, fmask = mm_sdpa_inputs(qm, cn, mask, fb, fid_spat)  # the 51 MB mask, built once
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q_rep, k, v, attn_mask=fmask, scale=1.0)
     ref = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)[0]
     lib_rel = check_yardstick("mm_shared_qk_attention sdpa", sdpa().reshape(ref.shape), ref)
-    lib = time_ms(sdpa)
+    t = timings(lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat),
+                lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat), sdpa)
     del q_rep, fmask
     fl = 2.0 * B * H * T * T * dh * (1 + A)
     out_b = B * H * A * T * (dh + 2) * 4
     bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, fid_spat) + out_b, fl)
     out.append(dict(name="mm_shared_qk_attention", route="cuda", source="vog_tpu_torch/csrc/mm_attention.cu",
-                    replaces="vog_tpu/kernels/mm_attention.py:315", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=lib, shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32",
+                    replaces="vog_tpu/kernels/mm_attention.py:315", max_abs_err=err, **t,
+                    bound_ms=bms, bound_by=by, shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32",
                     library=f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}"))
-    print(f"[kernels] mm_shared_qk_attention max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
-          f"sdpa={lib:.4f} (rel err vs kernel {lib_rel:.2e}) bound={bms:.4f}", flush=True)
+    print(f"[kernels] mm_shared_qk_attention max_err={err:.3e} {fmt_times(t, 'sdpa')} "
+          f"(sdpa rel err vs kernel {lib_rel:.2e}) bound={bms:.4f}", flush=True)
 
     # -- fused grounding head ----------------------------------------------
     Dh = D // 2
@@ -336,15 +386,14 @@ def phase_kernels(cfg, tables, B: int = 16):
     args = (vis, arg, wv, wl, wx, w1, b1, w2, b2)
     err = check_close("fused_grounding_head", grounding_head.fused_grounding_head(*args),
                       grounding_head.grounding_head_plain(*args))
-    ms = time_ms(lambda: grounding_head.fused_grounding_head(*args))
-    plain = time_ms(lambda: grounding_head.grounding_head_plain(*args))
+    t = timings(lambda: grounding_head.fused_grounding_head(*args),
+                lambda: grounding_head.grounding_head_plain(*args))
     fl = 2.0 * B * A * T * (D * D + D * Dh + Dh)
     bms, by = bound_ms(nbytes(*args) + B * A * T * 4, fl)
     out.append(dict(name="fused_grounding_head", route="cuda", source="vog_tpu_torch/csrc/grounding_head.cu",
-                    replaces="vog_tpu/kernels/grounding_head.py:190", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=None, shape=f"vis {tuple(vis.shape)}, A={A} f32"))
-    print(f"[kernels] fused_grounding_head max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
-          f"bound={bms:.4f}", flush=True)
+                    replaces="vog_tpu/kernels/grounding_head.py:190", max_abs_err=err, **t,
+                    bound_ms=bms, bound_by=by, shape=f"vis {tuple(vis.shape)}, A={A} f32"))
+    print(f"[kernels] fused_grounding_head max_err={err:.3e} {fmt_times(t)} bound={bms:.4f}", flush=True)
     return out
 
 
@@ -546,19 +595,19 @@ def phase_kernels_bwd(cfg, B: int = 16):
             err = max(err, check_close("flash_attention_bwd", x, y))
             check_close("flash_attention_bwd_plain vs autograd", y, z)
     o, lse = attention.flash_attention_fwd(q, k, v, mask)
-    ms = time_ms(lambda: attention.flash_attention_bwd(q, k, v, mask, None, None, o, lse, do))
-    plain = time_ms(lambda: attention.flash_attention_bwd_plain(q, k, v, mask, None, None, o, lse, do))
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
     sd = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=(mask > 0)[:, None, None, :])
-    lib = time_ms(lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True))
+    t = timings(lambda: attention.flash_attention_bwd(q, k, v, mask, None, None, o, lse, do),
+                lambda: attention.flash_attention_bwd_plain(q, k, v, mask, None, None, o, lse, do),
+                lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True))
     fl = 10.0 * B * H * T * T * dh  # S, dP, dV, dK, dQ: 2*T*T*dh each, from the saved o and lse
     bms, by = bound_ms(nbytes(q, k, v, o, do, lse, mask) + 3 * nbytes(q), fl)
     out.append(dict(name="flash_attention_bwd", route="cuda", source="vog_tpu_torch/csrc/attention.cu",
-                    replaces="vog_tpu/kernels/attention.py:344", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=lib,
+                    replaces="vog_tpu/kernels/attention.py:344", max_abs_err=err, **t,
+                    bound_ms=bms, bound_by=by,
                     shape=f"q,k,v {tuple(q.shape)} f32, no bias (checked also with bias)"))
     print(f"[kernels-bwd] flash_attention_bwd max_err={err:.3e} (no bias, spat bias, mixed-frame bias; "
-          f"one all-masked row) ms={ms:.4f} plain={plain:.4f} sdpa-bwd={lib:.4f} bound={bms:.4f}", flush=True)
+          f"one all-masked row) {fmt_times(t, 'sdpa-bwd')} bound={bms:.4f}", flush=True)
 
     # -- mm shared-QK attention backward ----------------------------------
     qm = q * (1.0 / dh**0.5)
@@ -575,33 +624,32 @@ def phase_kernels_bwd(cfg, B: int = 16):
             err = max(err, check_close("mm_shared_qk_attention_bwd", x, y))
             check_close("mm_shared_qk_attention_bwd_plain vs autograd", y, z)
     fwd = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)
-    ms = time_ms(lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm))
-    plain = time_ms(lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm))
     # yardstick: SDPA's backward over the repeated query, k, v and the float
     # mask (whose gradient carries dcn and dfb)
     q_rep, fmask = mm_sdpa_inputs(qm, cn, mask, fb, fid_spat)
-    leaves = [t.detach().clone().requires_grad_() for t in (q_rep, k, v, fmask)]
+    leaves = [x.detach().clone().requires_grad_() for x in (q_rep, k, v, fmask)]
     sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
     check_yardstick("mm_shared_qk_attention_bwd sdpa", sd.detach().reshape(fwd[0].shape), fwd[0])
     gsd = gm.reshape(sd.shape)
+    lib = lambda: torch.autograd.grad(sd, leaves, gsd, retain_graph=True)  # noqa: E731
     try:
-        grads = torch.autograd.grad(sd, leaves, gsd, retain_graph=True)
-        lib_note = "SDPA backward, grads of q (repeated), k, v and the float mask"
-        if grads[3] is None:
+        if lib()[3] is None:
             raise RuntimeError("no gradient for the float mask")
-        lib = time_ms(lambda: torch.autograd.grad(sd, leaves, gsd, retain_graph=True))
+        lib_note = "SDPA backward, grads of q (repeated), k, v and the float mask"
     except RuntimeError as e:  # the backend gives the mask no gradient
         lib, lib_note = None, f"none: SDPA gives the float mask no gradient ({str(e)[:120]})"
+    t = timings(lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm),
+                lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm), lib)
     del q_rep, fmask, leaves, sd, gsd
     fl = 2.0 * B * H * T * T * dh * (3 + 2 * A)
     bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn), fl)
     out.append(dict(name="mm_shared_qk_attention_bwd", route="cuda",
                     source="vog_tpu_torch/csrc/mm_attention.cu",
-                    replaces="vog_tpu/kernels/mm_attention.py:383", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=lib, library=lib_note,
+                    replaces="vog_tpu/kernels/mm_attention.py:383", max_abs_err=err, **t,
+                    bound_ms=bms, bound_by=by, library=lib_note,
                     shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32, emit mode (dq, dfb from comb)"))
-    print(f"[kernels-bwd] mm_shared_qk_attention_bwd max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
-          f"sdpa-bwd={lib if lib is None else f'{lib:.4f}'} ({lib_note}) bound={bms:.4f}", flush=True)
+    print(f"[kernels-bwd] mm_shared_qk_attention_bwd max_err={err:.3e} {fmt_times(t, 'sdpa-bwd')} "
+          f"({lib_note}) bound={bms:.4f}", flush=True)
 
     # -- fused grounding head backward ------------------------------------
     Dh = D // 2
@@ -625,16 +673,16 @@ def phase_kernels_bwd(cfg, B: int = 16):
     for x, y, z in zip(got, ref, auto):
         err = max(err, check_close("fused_grounding_head_bwd", x, y))
         check_close("fused_grounding_head_bwd_plain vs autograd", y, z)
-    ms = time_ms(lambda: grounding_head.grounding_head_bwd(*args, gh))
-    plain = time_ms(lambda: grounding_head.grounding_head_bwd_plain(*args, gh))
+    t = timings(lambda: grounding_head.grounding_head_bwd(*args, gh),
+                lambda: grounding_head.grounding_head_bwd_plain(*args, gh))
     fl = 6.0 * B * A * T * (D * D + D * Dh)
     bms, by = bound_ms(2 * nbytes(*args) + nbytes(gh), fl)
     out.append(dict(name="fused_grounding_head_bwd", route="cuda",
                     source="vog_tpu_torch/csrc/grounding_head.cu",
-                    replaces="vog_tpu/kernels/grounding_head.py:218", max_abs_err=err, ms=ms, plain_ms=plain,
-                    bound_ms=bms, bound_by=by, library_ms=None,
+                    replaces="vog_tpu/kernels/grounding_head.py:218", max_abs_err=err, **t,
+                    bound_ms=bms, bound_by=by,
                     shape=f"vis {tuple(vis.shape)}, A={A} f32, all 9 grads; {kink:.4f} of rows near a kink"))
-    print(f"[kernels-bwd] fused_grounding_head_bwd max_err={err:.3e} ms={ms:.4f} plain={plain:.4f} "
+    print(f"[kernels-bwd] fused_grounding_head_bwd max_err={err:.3e} {fmt_times(t)} "
           f"bound={bms:.4f} (g zeroed on {kink:.4f} of rows near a ReLU kink)", flush=True)
     return out
 
@@ -842,7 +890,7 @@ def phase_train(tables, card: str, B: int = 16):
 
 
 # each wrapper's __global__ functions in vog_tpu_torch/csrc
-KERNEL_SYMBOLS = {"gather_rows": ("gather_vec16", "gather_bytes"), "flash_attention": ("flash_fwd",),
+KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_k",), "flash_attention": ("flash_fwd",),
                   "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
                   "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"),
                   "mm_shared_qk_attention_bwd": ("mm_bwd_dkv",),
@@ -876,8 +924,11 @@ def device_time_by_kernel(prof, reps: int, by_symbol=None):
 
 def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
     """Where the time of one B=16 batch goes: host wall of a whole call
-    (upload, forward, copy back), the forward's stream span (CUDA events),
-    and the device time by kernel from torch.profiler."""
+    (upload, forward, copy back), the forward's stream span (CUDA events
+    around one forward as the host issues it; the idle share is against
+    this span), the same span with the forward queued behind a sleep (the
+    card's time alone, host gaps removed), and the device time by kernel
+    from torch.profiler."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -892,7 +943,8 @@ def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
             walls.append((time.perf_counter() - t0) * 1e3)
     with torch.inference_mode():
         dev = {k: pred._upload(v) for k, v in batch.items()}
-        span = time_ms(lambda: pred.predict(dev), reps=5, inner=1)
+        span = time_ms(lambda: pred.predict(dev), reps=5, inner=1, queued=False)
+        queued_span = time_ms(lambda: pred.predict(dev), reps=5, inner=1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -904,9 +956,11 @@ def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     out = dict(batch=B, call_wall_ms=statistics.median(walls), forward_span_ms=span,
                device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / span), kernels_ms=by_kernel,
+               queued_span_ms=queued_span, queued_idle_share=max(0.0, 1.0 - busy / queued_span),
                other_device_ms=sum(other.values()), top_other=[[k[:60], v] for k, v in top])
     print(f"[profile] B={B}: call wall {out['call_wall_ms']:.3f} ms, forward span {span:.3f} ms, "
-          f"device busy {busy:.3f} ms (idle {out['idle_share']:.2f}); ours "
+          f"device busy {busy:.3f} ms (idle {out['idle_share']:.2f}); queued behind a sleep: span "
+          f"{queued_span:.3f} ms (idle {out['queued_idle_share']:.2f}); ours "
           + ", ".join(f"{k}={v:.3f}" for k, v in by_kernel.items())
           + f"; other {out['other_device_ms']:.3f} ms: "
           + "; ".join(f"{k[:40]}={v:.3f}" for k, v in top), flush=True)

@@ -9,10 +9,11 @@ need not have.)
 
 Small shapes with ragged edges (T not a multiple of the tiles, T = 1,
 dh < 128 and not a multiple of 8 or of 4, a row with every key masked,
-out-of-range gather rows), and the attention kernels at the P100 length
-(T = 4000).  Tolerance as in
-chip_smoke.py: bitwise for the gather, max |err| <= 1e-4 * max(1,
-max|ref|) for the fp32 kernels.
+every arg count of the mm attention, out-of-range, negative and empty
+gather rows at 1, 4 and 64 rows a call), and the attention kernels at the
+P100 length (T = 4000).  Tolerance as in chip_smoke.py: bitwise for the
+gather, max |err| <= 1e-4 * max(1, max|ref|) for the fp32 kernels (and
+|err| / |ref| <= 1e-3 for the mm forward).
 """
 
 import pytest
@@ -34,19 +35,44 @@ def _close(got, ref):
     assert float((got - ref).abs().max()) <= lim
 
 
+def _close_rel(got, ref):
+    """max |err| <= 1e-4 * max(1, max|ref|) and |err| / |ref| <= 1e-3
+    (Frobenius norms): a zeroed or halved result fails."""
+    _close(got, ref)
+    d, n = float((got.double() - ref.double()).norm()), float(ref.double().norm())
+    assert (d / n if n > 0 else d) <= 1e-3
+
+
+# widths: 3200 B (a multiple of 16 B), 200 f32 / bf16 / int8 values, 7
+# values (28, 14 or 7 B: the byte path for bf16 and int8), a GT5 feats
+# row (800 x 128: 200 KB in bf16, several pieces a row)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("width", [(25, 128), (200,), (7,)])
-def test_gather_bitwise(dev, dtype, width):
+@pytest.mark.parametrize("width", [(25, 128), (200,), (7,), (800, 128)])
+@pytest.mark.parametrize("n_req", [1, 4, 64])
+def test_gather_bitwise(dev, dtype, width, n_req):
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.gather import gather_rows, gather_rows_plain
 
     t = (torch.randn((37, *width), device=dev) * 50).to(dtype)
-    rows = torch.tensor([[0, 5, 5, 36], [1, -3, 99, 2]], dtype=torch.int32, device=dev)
+    base = torch.tensor([0, 5, 5, 36, 1, -3, 99, 2], dtype=torch.int32)  # out of range, negative
+    rows = base.repeat(8)[:n_req].to(dev)
+    rows = rows.reshape(-1, 2) if n_req > 1 else rows
     _build.reset_counts()
     got = gather_rows(t, rows)
     torch.cuda.synchronize()
     assert _build.launches == {"gather_rows": 1}
     assert torch.equal(got, gather_rows_plain(t, rows))
+
+
+def test_gather_empty_rows(dev):
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.gather import gather_rows
+
+    t = torch.randn((5, 800, 128), device=dev).to(torch.bfloat16)
+    _build.reset_counts()
+    got = gather_rows(t, torch.zeros((0, 4), dtype=torch.int32, device=dev))
+    assert got.shape == (0, 4, 800, 128) and got.dtype == t.dtype
+    assert _build.launches == {}
 
 
 # (B, H, T, dh, bias): batch row B - 1 has every key masked when B > 1
@@ -74,20 +100,39 @@ def test_flash(dev, B, H, T, dh, bias):
     _close(lse[:n], rl[:n])
 
 
-@pytest.mark.parametrize("A,T,dh", [(1, 33, 16), (5, 200, 128), (8, 90, 64)])
-def test_mm(dev, A, T, dh):
+# (B, A, T, dh): every A at GT5's T and dh; dh 20, 37 (not a multiple of
+# 4), 64, 128; T = 1, 33 and 45 (not multiples of the 32-key tile), 90,
+# 200; batch row B - 1 has every key masked when B > 1; the P100 length
+MM_CASES = ([(3, a, 200, 128) for a in range(1, 9)]
+            + [(3, 5, 45, dh) for dh in (20, 37, 64, 128)]
+            + [(3, 3, 1, 128), (3, 3, 33, 128), (3, 1, 33, 16), (3, 8, 90, 64), (1, 5, 4000, 128)])
+
+
+@pytest.mark.parametrize("B,A,T,dh", MM_CASES)
+def test_mm(dev, B, A, T, dh):
+    from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.mm_attention import mm_attention_fwd, mm_attention_plain
 
-    B, H, F = 2, 3, 5
-    qm, km, vm = (torch.randn((B, H, T, dh), device=dev) for _ in range(3))
-    cn = -3 * torch.rand((B, H, A, T), device=dev)
-    mask = (torch.rand((B, T), device=dev) > 0.3).float()
+    H, F = 2 if B > 1 else 1, 5
+    g = torch.Generator(device=dev)
+    g.manual_seed(A * 1000 + T + dh)
+    qm, km, vm = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
+    cn = -3 * torch.rand((B, H, A, T), generator=g, device=dev)
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.3).float()
     mask[:, 0] = 1.0
-    fb = torch.randn((H, F, F), device=dev)
-    fid = torch.randint(0, F, (T,), dtype=torch.int32, device=dev)
-    for got, ref in zip(mm_attention_fwd(qm, km, vm, cn, mask, fb, fid),
-                        mm_attention_plain(qm, km, vm, cn, mask, fb, fid)):
-        _close(got, ref)
+    if B > 1:
+        mask[B - 1] = 0.0
+    fb = torch.randn((H, F, F), generator=g, device=dev)
+    fid = torch.randint(0, F, (T,), dtype=torch.int32, device=dev, generator=g)
+    _build.reset_counts()
+    got = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
+    torch.cuda.synchronize()
+    assert _build.launches == {"mm_shared_qk_attention": 1}
+    ref = mm_attention_plain(qm, km, vm, cn, mask, fb, fid)
+    _close_rel(got[0], ref[0])
+    n = B - 1 if B > 1 else B  # the all-masked row's stats sit at -1e30 and T
+    for x, y in zip(got[1:], ref[1:]):  # row max and denominator
+        _close_rel(x[:n], y[:n])
 
 
 @pytest.mark.parametrize("B,T,A,D", [(2, 13, 5, 512), (1, 40, 3, 96), (3, 200, 5, 256), (2, 37, 1, 64)])

@@ -5,8 +5,9 @@
   * its entry points run on the card by default and raise without one;
   * every kernel module has a CUDA source, a plain version, and a check
     in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
-  * a kernel library's name hashes its source and the shared headers, and
-    the flash kernels multiply on the tensor cores and copy asynchronously;
+  * a kernel library's name hashes its source and the shared headers; the
+    flash kernels and the mm forward multiply on the tensor cores and copy
+    asynchronously, and the gather streams a 16-byte unit a thread;
   * ``chip_smoke.py`` fails, and prints no result, without a GPU or alone
     in a directory.
 """
@@ -150,7 +151,7 @@ def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setenv("VOG_TORCH_BUILD_DIR", str(tmp_path / "build"))
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["tf32.cuh"]
+    assert [h.name for h in headers] == ["tf32.cuh", "tiles.cuh"]
     before = {src: _build._lib_path(src) for src in _build.SOURCES}
     assert before == {src: _build._lib_path(src) for src in _build.SOURCES}
     assert all(p.name.startswith(pathlib.Path(src).stem + "-") for src, p in before.items())
@@ -166,25 +167,53 @@ def _kernel_bodies(text):
 
 
 def test_flash_kernels_use_tensor_cores_and_async_copies():
-    """Every flash kernel multiplies with 3xTF32 mma.sync (tf32.cuh) and
-    streams its tiles with cp.async; the head shares the same header.
-    (flash_bwd_delta, the backward's row sums, has no product.)"""
+    """Every flash kernel multiplies with 3xTF32 mma.sync (tf32.cuh,
+    through the tile products of tiles.cuh) and streams its tiles with
+    cp.async; the head shares the same header.  (flash_bwd_delta, the
+    backward's row sums, has no product.)"""
     csrc = PKG / "csrc"
     header = (csrc / "tf32.cuh").read_text()
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
-    for src in ("attention.cu", "grounding_head.cu"):
-        text = (csrc / src).read_text()
-        assert '#include "tf32.cuh"' in text
-        assert "__device__ inline void mma3(" not in text  # one copy, in the header
-    text = (csrc / "attention.cu").read_text()
-    assert "cp.async.cg.shared.global" in text
-    helpers = text[: text.index("__global__")]
+    tiles = (csrc / "tiles.cuh").read_text()
+    assert '#include "tf32.cuh"' in tiles and "cp.async.cg.shared.global" in tiles
     for helper in ("scores", "accumulate"):  # the products, on the tensor cores
-        body = helpers[helpers.index(f"__device__ inline void {helper}("):]
+        body = tiles[tiles.index(f"__device__ inline void {helper}("):]
         assert "mma3(" in body[: body.index("\n}\n")], helper
+    for src in ("attention.cu", "grounding_head.cu", "mm_attention.cu"):
+        text = (csrc / src).read_text()
+        assert '#include "tf32.cuh"' in text or '#include "tiles.cuh"' in text
+        assert "__device__ inline void mma3(" not in text  # one copy, in the header
+        assert "__device__ inline void load_rows(" not in text
+    text = (csrc / "attention.cu").read_text()
+    assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
     assert sorted(bodies) == ["flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
     del bodies["flash_bwd_delta"]
     for name, body in bodies.items():
         assert "scores<" in body and "accumulate<" in body, name
         assert "load_rows<" in body and "cp_wait_all()" in body, name
+
+
+def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
+    """The mm forward computes its score tile once for all args and its A
+    value products in 3xTF32 mma.sync (tf32.cuh, through tiles.cuh) from
+    cp.async tiles; the backward's entry point is still there; the gather
+    moves one streaming 16-byte unit a thread, in enough blocks that every
+    resident thread has a load in flight."""
+    csrc = PKG / "csrc"
+    text = (csrc / "mm_attention.cu").read_text()
+    assert '#include "tiles.cuh"' in text
+    bodies = _kernel_bodies(text)
+    assert sorted(bodies) == ["mm_bwd_dkv", "mm_fwd"]
+    fwd = bodies["mm_fwd"]
+    assert fwd.count("mma3(") == 2  # S = Q K^T once per key tile; P_a V for every arg
+    assert fwd.count("frag_bt(") == 1 and "frag_b_pairs(" in fwd and "split_int(" in fwd
+    assert "load_rows<" in fwd and "cp_async4(" in fwd and "cp_wait_all()" in fwd
+    assert 'extern "C" int vog_mm_bwd(' in text and 'extern "C" int vog_mm_fwd(' in text
+    gather = (csrc / "gather.cu").read_text()
+    assert "ld.global.nc.L1::no_allocate.v4.u32" in gather and "st.global.cs.v4.u32" in gather
+    body = _kernel_bodies(gather)["gather_rows_k"]
+    # one streaming 16-byte unit a thread: the bytes in flight come from
+    # many blocks, not from a loop in a thread
+    assert "store_stream(" in body and "load_stream(" in body and "for (" not in body
+    assert 'extern "C" int vog_gather_rows(' in gather

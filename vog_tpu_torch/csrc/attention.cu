@@ -42,17 +42,11 @@
 //    multiplied, with one __syncthreads a tile.  Shared memory: 101 KB a
 //    block, two blocks (8 warps) an SM, which at GT5 holds the whole grid
 //    (256 blocks) at once.
-//  * A shared row holds 128 floats plus 4: with a row stride of 4 (mod 8)
-//    words, both kinds of fragment read below (rows g, columns t; and rows
-//    2t, 2t+1, columns g) hit 32 distinct banks.
-//  * P (and dS) pass from the C fragment of one product to the A fragment
-//    of the next in registers, with no shuffle and no shared tile.  Within a
-//    k-step of 8 keys the A fragment's column t is taken as key 2t and its
-//    column t+4 as key 2t+1, and the B fragment's rows t and t+4 as rows 2t
-//    and 2t+1 of V (or dO, Q, K): the sum over the 8 keys is unchanged, and
-//    the C fragment (c0..c3 at (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1))
-//    is then the A fragment (a0, a2, a1, a3) as it stands.  Quad shuffles
-//    would cost 8 a fragment, a shared tile a store, a warp sync and a load.
+//  * Shared rows of 128 + 4 floats (conflict-free fragment reads), and P
+//    (and dS) passed from the C fragment of one product to the A fragment
+//    of the next in registers by reading each 8-key step in pair order:
+//    tiles.cuh says how.  Quad shuffles would cost 8 a fragment, a shared
+//    tile a store, a warp sync and a load.
 //  * The softmax statistics work on C fragments: a row's values sit in the
 //    four lanes of a quad, so its max is two __shfl_xor_sync; the running
 //    sum stays per lane and is summed over the quad once, at the end.
@@ -91,210 +85,23 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32.cuh"  // split_int, mma3
+#include "tiles.cuh"  // cp.async row tiles, fragments, scores, accumulate (3xTF32)
 
 namespace {
-
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;  // rows a block owns
 constexpr int kTileF = 32;          // rows of a streamed tile: forward
 constexpr int kTileB = 16;          // rows of a streamed tile: backward
-constexpr int kMaxDh = 128;         // the padded head dim
-constexpr int kND = kMaxDh / 8;     // k-steps (or 8-wide column tiles) over it
-constexpr int kLd = kMaxDh + 4;     // shared row stride (floats)
 constexpr int kMaxFb = 64;          // frames the dq kernel's dfb takes
 constexpr int kDsLd = kTileB + 1;   // row stride of a warp's ds tile (frame sums)
-constexpr float kNeg = -1e30f;
-// a key's code: its frame id (>= 0) when valid, else one of these
-constexpr int kMasked = -1;
-constexpr int kPast = -2;  // key index >= T
-
-__host__ __device__ inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 16 (or 4) bytes; zero-fills the destination when !ok
-__device__ inline void cp_async16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ inline void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-__device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ inline void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-// Asynchronous copy of rows [row0, row0 + ROWS) of a (T, dh) matrix into
-// shared memory (row stride kLd), zero-filled past T and from dh up to
-// kMaxDh.  16-byte copies when ``vec`` (dh % 4 == 0, 16-byte aligned
-// pointers), else 4-byte copies.  The caller commits the group.
-template <int ROWS>
-__device__ inline void load_rows(float* dst, const float* __restrict__ src, int row0, int T,
-                                 int dh, bool vec) {
-  if (vec) {
-    constexpr int n4 = kMaxDh / 4;
-    for (int idx = threadIdx.x; idx < ROWS * n4; idx += kThreads) {
-      const int r = idx / n4, c = 4 * (idx % n4), row = row0 + r;
-      const bool ok = row < T && c < dh;
-      cp_async16(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * kMaxDh; idx += kThreads) {
-      const int r = idx / kMaxDh, c = idx % kMaxDh, row = row0 + r;
-      const bool ok = row < T && c < dh;
-      cp_async4(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
-    }
-  }
-}
-
-template <bool kFrames>
-__device__ inline int key_code(const float* __restrict__ key_mask, const int* __restrict__ fid,
-                               int b, int j, int T) {
-  return j >= T ? kPast : (key_mask[(size_t)b * T + j] > 0.f ? (kFrames ? fid[j] : 0) : kMasked);
-}
-
-// split A fragment of the 16x8 tile at (0, k0) of a row-major shared X
-__device__ inline void frag_a(const float* X, int k0, int g, int t, uint32_t (&ab)[4],
-                              uint32_t (&as)[4]) {
-  const float* p = X + g * kLd + k0 + t;
-  split_int(p[0], ab[0], as[0]);
-  split_int(p[8 * kLd], ab[1], as[1]);
-  split_int(p[4], ab[2], as[2]);
-  split_int(p[8 * kLd + 4], ab[3], as[3]);
-}
-
-// split B fragment of the 8x8 tile at (k0, n0) of X^T, X a row-major shared
-// matrix whose rows are the n index: b0 = X[n0+g][k0+t], b1 = X[n0+g][k0+t+4]
-__device__ inline void frag_bt(const float* X, int n0, int k0, int g, int t, uint32_t (&bb)[2],
-                               uint32_t (&bs)[2]) {
-  const float* p = X + (n0 + g) * kLd + k0 + t;
-  split_int(p[0], bb[0], bs[0]);
-  split_int(p[4], bb[1], bs[1]);
-}
-
-// split B fragment of the 8x8 tile at (k0, n0) of a row-major shared X
-// whose rows are the k index, rows in pair order (see a_from_c):
-// b0 = X[k0+2t][n0+g], b1 = X[k0+2t+1][n0+g]
-__device__ inline void frag_b_pairs(const float* X, int k0, int n0, int g, int t,
-                                    uint32_t (&bb)[2], uint32_t (&bs)[2]) {
-  const float* p = X + (k0 + 2 * t) * kLd + n0 + g;
-  split_int(p[0], bb[0], bs[0]);
-  split_int(p[kLd], bb[1], bs[1]);
-}
-
-// the split A fragment of a C fragment whose 8 columns become the k index
-// in pair order (column 2t -> k = t, column 2t+1 -> k = t+4)
-__device__ inline void a_from_c(const float (&c)[4], uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  split_int(c[0], ab[0], as[0]);
-  split_int(c[2], ab[1], as[1]);
-  split_int(c[1], ab[2], as[2]);
-  split_int(c[3], ab[3], as[3]);
-}
-
-template <int NT>
-__device__ inline void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
-}
-
-// c = X1 Y1^T and d = X2 Y2^T over the padded head dim, for the warp's 16
-// rows of X1, X2 (row-major shared, kLd) and NT*8 rows of Y1, Y2.  Each
-// product is summed in two accumulator sets (even and odd k-steps), which
-// halves its dependent mma chains; TWO = false computes c alone (d may
-// then alias c).
-template <int NT, bool TWO>
-__device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float* X1,
-                              const float* Y1, const float* X2, const float* Y2, int g, int t) {
-  float c2[2][NT][4], d2[2][NT][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    zero(c2[p]);
-    zero(d2[p]);
-  }
-#pragma unroll
-  for (int ks = 0; ks < kND; ++ks) {
-    uint32_t ab[4], as[4], bb[2], bs[2];
-    frag_a(X1, 8 * ks, g, t, ab, as);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      frag_bt(Y1, 8 * j, 8 * ks, g, t, bb, bs);
-      mma3(c2[ks & 1][j], ab, as, bb, bs);
-    }
-    if (TWO) {
-      frag_a(X2, 8 * ks, g, t, ab, as);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        frag_bt(Y2, 8 * j, 8 * ks, g, t, bb, bs);
-        mma3(d2[ks & 1][j], ab, as, bb, bs);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      c[j][i] = c2[0][j][i] + c2[1][j][i];
-      if (TWO) d[j][i] = d2[0][j][i] + d2[1][j][i];
-    }
-}
-
-// acc[n] += A . Y over the warp's 16 rows: A the C fragments of a 16 x NT*8
-// tile (k in pair order), Y a row-major shared (NT*8, kLd) tile
-template <int NT>
-__device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4], const float* Y,
-                                  int g, int t) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    uint32_t ab[4], as[4];
-    a_from_c(a[j], ab, as);
-#pragma unroll
-    for (int n = 0; n < kND; ++n) {
-      uint32_t bb[2], bs[2];
-      frag_b_pairs(Y, 8 * j, 8 * n, g, t, bb, bs);
-      mma3(acc[n], ab, as, bb, bs);
-    }
-  }
-}
-
-__device__ inline float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ inline float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // the bias of (query frame fq, key code c >= 0): fb[h, fq, c] from the
 // shared table when kFrames, else the head's scalar fb0
 template <bool kFrames>
 __device__ inline float bias(const float* fbs, float fb0, int F, int fq, int c) {
   return kFrames ? fbs[fq * F + c] : fb0;
-}
-
-// this lane's 2 x 2 values of a (16 x 128) C-fragment accumulator to rows
-// r0 and r0 + 8 of a (T, dh) matrix, times mul
-__device__ inline void store_rows(float* __restrict__ out, const float (&acc)[kND][4], int r0,
-                                  int T, int dh, int t, float mul0, float mul1) {
-#pragma unroll
-  for (int n = 0; n < kND; ++n)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = 8 * n + 2 * t + e;
-      if (col < dh) {
-        if (r0 < T) out[(size_t)r0 * dh + col] = acc[n][e] * mul0;
-        if (r0 + 8 < T) out[(size_t)(r0 + 8) * dh + col] = acc[n][2 + e] * mul1;
-      }
-    }
 }
 
 template <bool kFrames>
@@ -321,15 +128,15 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    load_rows<kTileF>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
-    load_rows<kTileF>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
+    load_rows<kTileF, kThreads>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileF, kThreads>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
     if (tid < kTileF) codes[s * kTileF + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   if (kFrames)
     for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads>(Qs, q + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -399,7 +206,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  store_rows(o + base, acc, r0, T, dh, t, 1.f / l0, 1.f / l1);
+  store_rows(o + base, acc, r0, 0, T, dh, t, 1.f / l0, 1.f / l1);
   if (t == 0) {
     if (r0 < T) lse[(size_t)bh * T + r0] = m0 + logf(l0);
     if (r1 < T) lse[(size_t)bh * T + r1] = m1 + logf(l1);
@@ -468,8 +275,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + base;
   const float* ob = dout + base;
   auto stage = [&](int s, int i0) {
-    load_rows<kTileB>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
-    load_rows<kTileB>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
+    load_rows<kTileB, kThreads>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
+    load_rows<kTileB, kThreads>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
     if (tid < kTileB) {
       const int qi = i0 + tid;
       ls[s * kTileB + tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
@@ -481,8 +288,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   if (kFrames)
     for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows>(Ks, k + base, k0, T, dh, vec);
-  load_rows<kRows>(Vs, v + base, k0, T, dh, vec);
+  load_rows<kRows, kThreads>(Ks, k + base, k0, T, dh, vec);
+  load_rows<kRows, kThreads>(Vs, v + base, k0, T, dh, vec);
   stage(0, 0);  // one group: K, V and the first Q/dO tile
   const int none = all_masked(key_mask, b, T);
   const float p_none = 1.f / (float)T;
@@ -533,8 +340,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     accumulate<NT>(adk, dpt, Qt, g, t);  // dK += dS^T Q
   }
 
-  store_rows(dk + base, adk, kr0, T, dh, t, scale, scale);
-  store_rows(dv + base, adv, kr0, T, dh, t, 1.f, 1.f);
+  store_rows(dk + base, adk, kr0, 0, T, dh, t, scale, scale);
+  store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
 }
 
 template <bool kFrames>
@@ -566,16 +373,16 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    load_rows<kTileB>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
-    load_rows<kTileB>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
+    load_rows<kTileB, kThreads>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileB, kThreads>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
     if (tid < kTileB) codes[s * kTileB + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   if (kFrames)
     for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows>(Qs, q + base, q0, T, dh, vec);
-  load_rows<kRows>(Os, dout + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads>(Os, dout + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q, dO and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -655,7 +462,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  store_rows(dqo + base, acc, r0, T, dh, t, scale, scale);
+  store_rows(dqo + base, acc, r0, 0, T, dh, t, scale, scale);
   if (!kFrames) return;
 #pragma unroll
   for (int r = 0; r < 16; ++r) {

@@ -1,5 +1,6 @@
 // 3xTF32 matrix products on Hopper's tensor cores (mma.sync m16n8k8),
-// shared by grounding_head.cu and attention.cu.
+// shared by grounding_head.cu and, through tiles.cuh, the attention
+// kernels (attention.cu, mm_attention.cu).
 //
 // Plain TF32 keeps 10 mantissa bits and misses the port's fp32 parity bound
 // (1e-4 x max(1, max|ref|)).  3xTF32 splits each fp32 operand x into a TF32

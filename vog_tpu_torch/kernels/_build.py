@@ -131,7 +131,9 @@ def function(src: str, name: str, argtypes) -> object:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s device, without
+    building a ``torch.cuda.Stream`` object (a few µs a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(rc: int, name: str) -> None:

@@ -3,11 +3,15 @@
 Replaces vog_tpu/kernels/gather.py §gather_rows (Pallas manual DMA, one
 async copy per row through an 8-slot semaphore ring).  CUDA kernel:
 csrc/gather.cu.  Bound by bytes on the H100 (each requested row read once
-and written once); the kernel splits each row into 64 KB chunks, one
-block each, and moves 16-byte vectors, so it fills the card at a batch of
-64 rows and is bitwise exact for every dtype.  Unlike the TPU kernel it
-takes any row width, so there is no fallback: on a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it runs the plain version.
+and written once); the kernel splits a call's n_req x row_bytes evenly
+into pieces of one 16-byte unit a thread, 256 a block, with streaming
+loads and stores, so a call of 4 GT5 rows reaches every SM (200 blocks)
+and one of 64 rows keeps every resident thread's load in flight (3,200
+blocks).  It copies bytes, so it is bitwise exact for every dtype.
+Unlike the TPU kernel it takes any row width (a byte a thread where the
+width is not a multiple of 16 bytes), so there is no fallback: on a CUDA
+tensor it launches the kernel or raises; on a CPU tensor it runs the
+plain version.  An empty ``rows`` launches nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import torch
 from vog_tpu_torch.kernels import _build
 
 NAME = "gather_rows"
+_ARGTYPES = (_build.P, _build.P, _build.P, _build.LL, _build.LL, _build.LL, _build.P)
 
 
 def gather_rows_plain(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -28,11 +33,13 @@ def gather_rows_plain(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``table`` (N, ...) of any dtype; ``rows`` int32 of any shape ->
     ``rows.shape + table.shape[1:]``."""
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, rows)
-    if table.device.type != "cuda":
-        raise ValueError(f"gather_rows: unsupported device {table.device}")
+    # the serving path calls this twice a flush on a few rows, where the
+    # host's issue of the call costs more than the copy: checks stay cheap
     dev = table.device
+    if dev.type == "cpu":
+        return gather_rows_plain(table, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"gather_rows: unsupported device {dev}")
     if not table.is_contiguous() or table.dim() < 1:
         raise ValueError("gather_rows: table must be contiguous with a row axis")
     if rows.device != dev or rows.dtype != torch.int32 or not rows.is_contiguous():
@@ -40,12 +47,12 @@ def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     n = table.shape[0]
     if n == 0:
         raise ValueError("gather_rows: empty table")
-    row_bytes = table[0].numel() * table.element_size()
-    out = torch.empty((*rows.shape, *table.shape[1:]), dtype=table.dtype, device=dev)
-    P, LL = _build.P, _build.LL
-    fn = _build.function("gather.cu", "vog_gather_rows", [P, P, P, LL, LL, LL, P])
-    rc = fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(), n, row_bytes,
-            rows.numel(), _build.stream_ptr(table))
+    out = torch.empty(rows.shape + table.shape[1:], dtype=table.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("gather.cu", "vog_gather_rows", _ARGTYPES)
+    rc = fn(table.data_ptr(), rows.data_ptr(), out.data_ptr(), n,
+            table.numel() // n * table.element_size(), rows.numel(), _build.stream_ptr(table))
     _build.check(rc, NAME)
     _build.count(NAME)
     return out

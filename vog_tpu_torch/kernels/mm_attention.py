@@ -7,16 +7,19 @@ with the 1/sqrt(dh) scale folded into qm by the caller and cn the per-arg
 log-domain key weighting in its natural (B,H,A,T) layout.
 
 Replaces vog_tpu/kernels/mm_attention.py §_fwd (_fwd_kernel).  CUDA
-kernel: csrc/mm_attention.cu.  Bound by fp32 operations on the H100 (the A
-value products dominate); the kernel scores each key tile once for all
-args, keeps a per-arg running max and denominator (each final denominator
-is >= 1) and an A x dh accumulator per query row, so neither the (T,T)
-scores nor the A value streams reach device memory.  One library call
-computes the same output: ``scaled_dot_product_attention`` on the query
-repeated over the A args, (B, H, A*T, dh), with a float mask fb[h, fid_i,
-fid_j] + cn[b, h, a, j] (masked keys at NEG; 51 MB at GT5).
-``chip_smoke.py`` times it as this kernel's yardstick; the port never
-calls it.
+kernel: csrc/mm_attention.cu (mm_fwd).  Bound by operations on the H100
+(the A value products dominate), so every product runs on the tensor
+cores in 3xTF32 (``mma.sync``, fp32-level accuracy, as the flash kernels):
+a block of 4 warps owns 16 query rows and streams 32-key tiles of km, vm
+and cn by ``cp.async``; it computes each score tile once for all args into
+shared memory, then each warp keeps a per-arg running max and denominator
+(each final denominator is >= 1) and the A outputs of its 32 columns in
+registers, so neither the (T,T) scores nor the A value streams reach
+device memory.  One library call computes the same output:
+``scaled_dot_product_attention`` on the query repeated over the A args,
+(B, H, A*T, dh), with a float mask fb[h, fid_i, fid_j] + cn[b, h, a, j]
+(masked keys at NEG; 51 MB at GT5).  ``chip_smoke.py`` times it as this
+kernel's yardstick; the port never calls it.
 
 Backward: replaces §_mm_attn_bwd in the TPU package's default "emit" mode.
 One CUDA kernel (csrc/mm_attention.cu, mm_bwd_dkv) recomputes p_a from the
