@@ -34,7 +34,9 @@ the last line:
    through the plain path; prints p50/p95 latency and requests/s;
 5. profile: one B=16 batch, its host wall time, its forward's stream span
    (as the host issues it, and queued behind a sleep) and its device time
-   by kernel (torch.profiler), and the idle share of each span;
+   by kernel (torch.profiler), the device's busy time (the union of the
+   kernels' intervals; their summed times beside it), and the idle share
+   of each span;
 6. backward kernels: each of the three against its plain backward on the
    card at the GT5 shapes (flash with and without the frame bias, a batch
    row with every key masked; the head with the upstream gradient zeroed
@@ -536,7 +538,23 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8):
                                     n_requests=n_requests, flushes=flushes[0])
 
 
-def away_from_kinks(vis, arg, wv, wl, wx, w1, b1, g, eps: float = 2e-5):
+KINK_EPS = 2e-5  # a ReLU input this close to 0 may take either side in another rounding
+MAX_KINK_SHARE = 0.05  # a check fails when more of its rows or logits than this are zeroed
+
+
+def near_kinks(vis, arg, wv, wl, wx, w1, b1, eps: float = KINK_EPS):
+    """(B, A, T) True where a pre-activation of the grounding head (z0 or z1,
+    computed in fp64 from these inputs) lies within ``eps`` of its ReLU's kink."""
+    import torch
+
+    with torch.no_grad():
+        d = lambda t: t.double()  # noqa: E731
+        z0 = d(wv)[:, None] + d(wl)[:, :, None] + torch.matmul(d(vis)[:, None] * d(arg)[:, :, None], d(wx))
+        z1 = torch.matmul(torch.relu(z0), d(w1)) + d(b1)
+        return (z0.abs() < eps).any(-1) | (z1.abs() < eps).any(-1)
+
+
+def away_from_kinks(vis, arg, wv, wl, wx, w1, b1, g, eps: float = KINK_EPS):
     """``g`` with zeros on the (b, a, t) rows of the grounding head where a
     pre-activation (z0 or z1, computed in fp64) lies within ``eps`` of its
     ReLU's kink, and the share of rows zeroed.  There two right
@@ -545,12 +563,8 @@ def away_from_kinks(vis, arg, wv, wl, wx, w1, b1, g, eps: float = 2e-5):
     backward compares on the other rows only."""
     import torch
 
-    with torch.no_grad():
-        d = lambda t: t.double()  # noqa: E731
-        z0 = d(wv)[:, None] + d(wl)[:, :, None] + torch.matmul(d(vis)[:, None] * d(arg)[:, :, None], d(wx))
-        z1 = torch.matmul(torch.relu(z0), d(w1)) + d(b1)
-        near = (z0.abs() < eps).any(-1) | (z1.abs() < eps).any(-1)
-        return torch.where(near, torch.zeros_like(g), g), float(near.double().mean())
+    near = near_kinks(vis, arg, wv, wl, wx, w1, b1, eps)
+    return torch.where(near, torch.zeros_like(g), g), float(near.double().mean())
 
 
 def phase_kernels_bwd(cfg, B: int = 16):
@@ -724,10 +738,31 @@ def make_train_batches(cfg, n: int, B: int, n_rows: int, vocab: int, seed: int):
     return out
 
 
-def step_grads(cfg, sd, batch, tables, dev: str):
+def kink_keep(model, vis, arg, mm):
+    """-> ((B, A, T) float: 0 on the logits whose grounding-head
+    pre-activation (z0 or z1) or ``mm_head`` ReLU input (the mm layer's
+    output) lies within KINK_EPS of a kink, in fp64 from this forward's
+    values, else 1; the share of zeros).  Through such a logit alone, a
+    rounding difference can flip a whole term of the gradient."""
+    import torch
+
+    hd = model.head
+    with torch.no_grad():
+        d = lambda t: t.detach().double()  # noqa: E731
+        wv = torch.matmul(d(vis), d(hd.fuse_vis_kernel)) + d(hd.fuse_vis_bias)
+        wl = torch.matmul(d(arg), d(hd.fuse_lang_kernel))
+        near = near_kinks(vis, arg, wv, wl, hd.fuse_cross_kernel, hd.head1_kernel, hd.head1_bias)
+        near |= (d(mm).reshape(*near.shape, -1).abs() < KINK_EPS).any(-1)
+    return (~near).float(), float(near.double().mean())
+
+
+def step_grads(cfg, sd, batch, tables, dev: str, keep=None):
     """One train step from the weights ``sd`` on ``dev`` -> (loss, every
-    parameter's gradient on the CPU); ``batch`` holds ``vid_rows`` into the
-    card's ``tables`` (gathered here for the CPU)."""
+    parameter's gradient on the CPU, keep, share); ``batch`` holds
+    ``vid_rows`` into the card's ``tables`` (gathered here for the CPU).
+    The cotangent of the model's logits is multiplied by ``keep``: by the
+    given one, or, when None, by ``kink_keep`` of this step's own forward
+    (returned with its share of zeros)."""
     import torch
 
     from vog_tpu_torch.data.device_store import gather_from_tables
@@ -739,8 +774,24 @@ def step_grads(cfg, sd, batch, tables, dev: str):
         b, tables = {k: v.cpu() for k, v in gather_from_tables(b, tables).items()}, None
     model = get_model(cfg, 5000, device=dev, train=True)
     model.load_state_dict({k: v.to(dev) for k, v in sd.items()}, strict=True)
-    _, aux = make_train_step(cfg)(TrainState.create(cfg, model), b, seed=0, tables=tables)
-    return float(aux["loss"]), {k: p.grad.cpu() for k, p in model.named_parameters()}
+    seen, used = {}, {}
+
+    def on_logits(mod, inputs, logits):
+        k, share = (keep, None) if keep is not None else kink_keep(model, seen["vis"], seen["arg"], seen["mm"])
+        used.update(keep=k, share=share)
+        k = k.to(logits.device)
+        logits.register_hook(lambda gr: gr * k)
+
+    hooks = [model.head.register_forward_hook(lambda m, i, o: seen.update(vis=i[0], arg=i[1])),
+             model.mm_tx.register_forward_hook(lambda m, i, o: seen.update(mm=o)),
+             model.register_forward_hook(on_logits)]
+    try:
+        _, aux = make_train_step(cfg)(TrainState.create(cfg, model), b, seed=0, tables=tables)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    return float(aux["loss"]), grads, used["keep"].cpu(), used["share"]
 
 
 def grad_faults(got, ref):
@@ -756,12 +807,16 @@ def grad_faults(got, ref):
 
 def compare_step(cfg, sd, batch, tables, what: str):
     """One train step on the card and on the CPU plain path from the same
-    weights ``sd`` and batch (dropout 0): loss within 1e-4 relative, every
-    gradient within both limits of ``grad_faults``.  -> (loss, max |err|,
-    worst relative err and its leaf, the smallest leaf by max|g|, the CPU
-    gradients)."""
-    lc, gc = step_grads(cfg, sd, batch, tables, "cuda")
-    lp, gp = step_grads(cfg, sd, batch, tables, "cpu")
+    weights ``sd`` and batch (dropout 0), kink-aware: the CPU step's
+    forward finds the logits near a ReLU kink (``kink_keep``, at most
+    MAX_KINK_SHARE of them) and both steps zero their cotangent.  Loss
+    within 1e-4 relative, every gradient within both limits of
+    ``grad_faults``.  -> (loss, max |err|, worst relative err and its leaf,
+    the smallest leaf by max|g|, the CPU gradients, keep, share)."""
+    lp, gp, keep, share = step_grads(cfg, sd, batch, tables, "cpu")
+    if share > MAX_KINK_SHARE:
+        fail(f"train {what}: {share:.3f} of the logits lie near a ReLU kink")
+    lc, gc, _, _ = step_grads(cfg, sd, batch, tables, "cuda", keep)
     if not abs(lc - lp) <= 1e-4 * abs(lp):
         fail(f"train {what}: card loss {lc:.7f} != CPU loss {lp:.7f}")
     bad = grad_faults(gc, gp)
@@ -771,14 +826,15 @@ def compare_step(cfg, sd, batch, tables, what: str):
     worst = max(rels, key=rels.get)
     small = min((k for k in gp if gp[k].abs().max() > 0), key=lambda k: float(gp[k].abs().max()))
     return (lc, max(max_err(gc[k], r) for k, r in gp.items()), (worst, rels[worst]),
-            (small, float(gp[small].abs().max()), rels[small]), gp)
+            (small, float(gp[small].abs().max()), rels[small]), gp, keep, share)
 
 
-def planted_zero_control(cfg, sd, batch, tables, gp):
-    """The card step once more with two backward kernels' smallest outputs
-    set to zero (the head's db1, the mm attention's dfb); ``grad_faults``
-    against the CPU gradients ``gp`` must name the leaves they feed, or
-    the comparison could not see such a fault.  -> the leaves named."""
+def planted_zero_control(cfg, sd, batch, tables, gp, keep):
+    """The card step once more, with ``keep`` as the comparison applied it,
+    and two backward kernels' smallest outputs set to zero (the head's db1,
+    the mm attention's dfb); ``grad_faults`` against the CPU gradients
+    ``gp`` must name the leaves they feed, or the comparison could not see
+    such a fault.  -> the leaves named."""
     import torch
 
     from vog_tpu_torch.kernels import grounding_head, mm_attention
@@ -794,7 +850,7 @@ def planted_zero_control(cfg, sd, batch, tables, gp):
     grounding_head.grounding_head_bwd = zeroed(real[0], 6)  # db1
     mm_attention.mm_attention_bwd = zeroed(real[1], 4)  # dfb
     try:
-        _, gc = step_grads(cfg, sd, batch, tables, "cuda")
+        _, gc, _, _ = step_grads(cfg, sd, batch, tables, "cuda", keep)
     finally:
         grounding_head.grounding_head_bwd, mm_attention.mm_attention_bwd = real
     named = [k for k, _, _ in grad_faults(gc, gp)]
@@ -820,12 +876,14 @@ def phase_train(tables, card: str, B: int = 16):
     model = get_model(cfg, 5000, device="cuda", seed=3, train=True)
     sd0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     t0 = time.perf_counter()
-    loss_a, err_a, worst_a, small_a, gp = compare_step(parity, sd0, batches[0], tables.tables, "first step")
+    loss_a, err_a, worst_a, small_a, gp, keep, kink_a = compare_step(parity, sd0, batches[0], tables.tables,
+                                                                     "first step")
     print(f"[train] (a) first step card vs CPU plain path: loss {loss_a:.6f}, max grad err {err_a:.3e}, "
           f"worst relative err {worst_a[1]:.3e} ({worst_a[0]}); smallest leaf {small_a[0]} max|g| "
-          f"{small_a[1]:.3e} relative err {small_a[2]:.3e} ({time.perf_counter() - t0:.1f} s)", flush=True)
-    named = planted_zero_control(parity, sd0, batches[0], tables.tables, gp)
-    print(f"[train] (a) control: zeroed head db1 and mm dfb on the card are rejected on {named}", flush=True)
+          f"{small_a[1]:.3e} relative err {small_a[2]:.3e}; cotangent zeroed on {kink_a:.4f} of the logits "
+          f"(near a ReLU kink) ({time.perf_counter() - t0:.1f} s)", flush=True)
+    named_a = planted_zero_control(parity, sd0, batches[0], tables.tables, gp, keep)
+    print(f"[train] (a) control: zeroed head db1 and mm dfb on the card are rejected on {named_a}", flush=True)
 
     state = TrainState.create(cfg, model)
     step = make_train_step(cfg)
@@ -856,7 +914,8 @@ def phase_train(tables, card: str, B: int = 16):
         span = (time.perf_counter() - t0) * 1e3
     by_symbol = {}
     by_kernel, other = device_time_by_kernel(prof, 1, by_symbol)
-    busy = sum(by_kernel.values()) + sum(other.values())
+    ksum = sum(by_kernel.values()) + sum(other.values())
+    busy = device_busy_ms(prof, 1, ksum)
     med = statistics.median(times)
     idle = max(0.0, 1 - busy / med)  # against the unprofiled median step
     per_step = {n: counts.get(n, 0) / TRAIN_STEPS for n in KERNEL_NAMES}
@@ -864,8 +923,9 @@ def phase_train(tables, card: str, B: int = 16):
           f"{losses[-1]:.5f}, all finite; median step {med:.2f} ms, {B / med * 1e3:.1f} samples/s on {card}",
           flush=True)
     top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[train] (b) launches per step {per_step}; one profiled step: device busy {busy:.2f} ms, "
-          f"idle share {idle:.2f} of the median step (span with the profiler on {span:.2f} ms); ours "
+    print(f"[train] (b) launches per step {per_step}; one profiled step: device busy {busy:.2f} ms "
+          f"(kernel times summed {ksum:.2f} ms), idle share {idle:.2f} of the median step (span with the "
+          f"profiler on {span:.2f} ms); ours "
           + ", ".join(f"{k}={v:.3f}" for k, v in by_kernel.items())
           + f"; other {sum(other.values()):.3f} ms in {len(other)} ops: "
           + "; ".join(f"{k[:40]}={v:.3f}" for k, v in top), flush=True)
@@ -875,25 +935,31 @@ def phase_train(tables, card: str, B: int = 16):
     sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
     if not all(torch.isfinite(v).all() for v in sd.values()):
         fail("train: the state after the run holds non-finite values")
-    loss_c, err_c, worst_c, small_c, _ = compare_step(parity, sd, batches[1], tables.tables, "trained state")
+    loss_c, err_c, worst_c, small_c, gp, keep, kink_c = compare_step(parity, sd, batches[1], tables.tables,
+                                                                     "trained state")
     print(f"[train] (c) trained state card vs CPU plain path: loss {loss_c:.6f}, max grad err {err_c:.3e}, "
           f"worst relative err {worst_c[1]:.3e} ({worst_c[0]}); smallest leaf {small_c[0]} max|g| "
-          f"{small_c[1]:.3e} relative err {small_c[2]:.3e}", flush=True)
+          f"{small_c[1]:.3e} relative err {small_c[2]:.3e}; cotangent zeroed on {kink_c:.4f} of the logits "
+          f"(near a ReLU kink)", flush=True)
+    named_c = planted_zero_control(parity, sd, batches[1], tables.tables, gp, keep)
+    print(f"[train] (c) control: zeroed head db1 and mm dfb on the card are rejected on {named_c}", flush=True)
     return counts, dict(steps=TRAIN_STEPS, batch=B, loss_first=losses[0], loss_last=losses[-1],
                         median_step_ms=med, samples_per_s=B / med * 1e3, step_ms=times,
                         launches_per_step=per_step, profiled_step_ms=span, device_busy_ms=busy,
+                        kernel_time_sum_ms=ksum,
                         idle_share=idle, kernels_ms=by_kernel, other_device_ms=sum(other.values()),
                         top_other=[[k[:60], v] for k, v in top], ours_by_symbol=by_symbol,
                         first_step_grad_err=err_a, trained_grad_err=err_c, first_step_worst_rel=worst_a,
                         trained_worst_rel=worst_c, first_step_smallest_leaf=small_a,
-                        trained_smallest_leaf=small_c, planted_zero_rejected=named)
+                        trained_smallest_leaf=small_c, kink_share_first=kink_a, kink_share_trained=kink_c,
+                        planted_zero_rejected=[named_a, named_c])
 
 
 # each wrapper's __global__ functions in vog_tpu_torch/csrc
 KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_k",), "flash_attention": ("flash_fwd",),
                   "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
                   "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"),
-                  "mm_shared_qk_attention_bwd": ("mm_bwd_dkv",),
+                  "mm_shared_qk_attention_bwd": ("mm_bwd_delta", "mm_bwd_dkv"),
                   "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w")}
 
 
@@ -920,6 +986,27 @@ def device_time_by_kernel(prof, reps: int, by_symbol=None):
         else:
             other[e.key] = other.get(e.key, 0.0) + ms
     return by_kernel, other
+
+
+def device_busy_ms(prof, reps: int, kernel_sum: float) -> float:
+    """ms per rep during which the card ran at least one kernel or copy: the
+    union of the device events' intervals in a torch.profiler run, so that
+    kernels running at once on two streams (the head backward's two parts)
+    count once.  ``kernel_sum``, the sum of their times, when the trace
+    holds no device intervals."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        return kernel_sum
+    total, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            total, lo, hi = total + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return (total + hi - lo) / 1e3 / reps
 
 
 def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
@@ -952,14 +1039,17 @@ def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
             torch.cuda.synchronize()
     by_kernel, other = device_time_by_kernel(prof, reps)
     by_kernel = {k: v for k, v in by_kernel.items() if not k.endswith("_bwd")}
-    busy = sum(by_kernel.values()) + sum(other.values())
+    ksum = sum(by_kernel.values()) + sum(other.values())
+    busy = device_busy_ms(prof, reps, ksum)
     top = sorted(other.items(), key=lambda kv: -kv[1])[:6]
     out = dict(batch=B, call_wall_ms=statistics.median(walls), forward_span_ms=span,
-               device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / span), kernels_ms=by_kernel,
+               device_busy_ms=busy, kernel_time_sum_ms=ksum, idle_share=max(0.0, 1.0 - busy / span),
+               kernels_ms=by_kernel,
                queued_span_ms=queued_span, queued_idle_share=max(0.0, 1.0 - busy / queued_span),
                other_device_ms=sum(other.values()), top_other=[[k[:60], v] for k, v in top])
     print(f"[profile] B={B}: call wall {out['call_wall_ms']:.3f} ms, forward span {span:.3f} ms, "
-          f"device busy {busy:.3f} ms (idle {out['idle_share']:.2f}); queued behind a sleep: span "
+          f"device busy {busy:.3f} ms (kernel times summed {ksum:.3f}; idle {out['idle_share']:.2f}); "
+          f"queued behind a sleep: span "
           f"{queued_span:.3f} ms (idle {out['queued_idle_share']:.2f}); ours "
           + ", ".join(f"{k}={v:.3f}" for k, v in by_kernel.items())
           + f"; other {out['other_device_ms']:.3f} ms: "

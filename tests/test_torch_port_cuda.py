@@ -11,7 +11,8 @@ Small shapes with ragged edges (T not a multiple of the tiles, T = 1,
 dh < 128 and not a multiple of 8 or of 4, a row with every key masked,
 every arg count of the mm attention, out-of-range, negative and empty
 gather rows at 1, 4 and 64 rows a call), and the attention kernels at the
-P100 length (T = 4000).  Tolerance as in chip_smoke.py: bitwise for the
+P100 length (T = 4000).  The mm and head backwards also give bitwise-equal
+gradients on a second call.  Tolerance as in chip_smoke.py: bitwise for the
 gather, max |err| <= 1e-4 * max(1, max|ref|) for the fp32 kernels (and
 |err| / |ref| <= 1e-3 for the mm forward).
 """
@@ -235,7 +236,10 @@ def test_flash_no_bias_gt5_one_launch_each(dev):
         _close(a, b)
 
 
-@pytest.mark.parametrize("A,T,dh", [(5, 200, 128), (3, 45, 40)])
+# T = 13 (below one 64-key block) and 65 (one key past it), dh = 40, A = 1
+# and 8; batch row 1 has every key masked
+@pytest.mark.parametrize("A,T,dh", [(5, 200, 128), (3, 45, 40), (1, 13, 40), (8, 13, 40), (1, 65, 40),
+                                    (8, 65, 40), (1, 200, 128), (8, 200, 128)])
 def test_mm_bwd_kernel(dev, A, T, dh):
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.mm_attention import (
@@ -252,6 +256,8 @@ def test_mm_bwd_kernel(dev, A, T, dh):
     assert _build.launches == {"mm_shared_qk_attention_bwd": 1}
     for a, b in zip(got, mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *fwd, go)):
         _close(a, b)
+    again = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed order, no atomics
 
 
 def _head_inputs(dev, B, T, A, D):
@@ -263,7 +269,9 @@ def _head_inputs(dev, B, T, A, D):
             r(D, D) / D**0.5, r(D, Dh) / D**0.5, r(Dh) * 0.1, r(Dh) / Dh**0.5, r(1)), g
 
 
-@pytest.mark.parametrize("B,T,A,D", [(16, 200, 5, 512), (3, 37, 3, 96)])
+# Dh = D / 2; A = 1 at D = 32, Dh = 16, and T = 1
+@pytest.mark.parametrize("B,T,A,D", [(16, 200, 5, 512), (3, 37, 3, 96), (2, 1, 1, 32), (3, 37, 1, 32),
+                                     (2, 1, 5, 512)])
 def test_head_bwd_kernel(dev, B, T, A, D):
     from chip_smoke import away_from_kinks
     from vog_tpu_torch.kernels import _build
@@ -278,6 +286,8 @@ def test_head_bwd_kernel(dev, B, T, A, D):
     assert _build.launches == {"fused_grounding_head_bwd": 1}
     for a, b in zip(got, grounding_head_bwd_plain(*args, go)):
         _close(a, b)
+    again = grounding_head_bwd(*args, go)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # partials summed in a fixed order
 
 
 def _autograd_pair(fn, plain, args, diff):

@@ -6,8 +6,9 @@
   * every kernel module has a CUDA source, a plain version, and a check
     in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
   * a kernel library's name hashes its source and the shared headers; the
-    flash kernels and the mm forward multiply on the tensor cores and copy
-    asynchronously, and the gather streams a 16-byte unit a thread;
+    flash kernels and both mm kernels multiply on the tensor cores and copy
+    asynchronously, the head's weight gradients stream by cp.async in one
+    launch, and the gather streams a 16-byte unit a thread;
   * ``chip_smoke.py`` fails, and prints no result, without a GPU or alone
     in a directory.
 """
@@ -204,7 +205,7 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     text = (csrc / "mm_attention.cu").read_text()
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["mm_bwd_dkv", "mm_fwd"]
+    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_fwd"]
     fwd = bodies["mm_fwd"]
     assert fwd.count("mma3(") == 2  # S = Q K^T once per key tile; P_a V for every arg
     assert fwd.count("frag_bt(") == 1 and "frag_b_pairs(" in fwd and "split_int(" in fwd
@@ -217,3 +218,54 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     # many blocks, not from a loop in a thread
     assert "store_stream(" in body and "load_stream(" in body and "for (" not in body
     assert 'extern "C" int vog_gather_rows(' in gather
+
+
+def test_mm_backward_on_tensor_cores_scores_once_a_query_tile():
+    """The mm backward multiplies in 3xTF32 mma.sync through the tile
+    products of tiles.cuh (no fp32 FMA loops), streams its query and g_a
+    tiles with cp.async, and computes its score tile S^T = K Q^T once a
+    query tile, before the loop over the args; delta comes from a kernel
+    of its own, and the C entry point is still there."""
+    text = (PKG / "csrc" / "mm_attention.cu").read_text()
+    body = _kernel_bodies(text)["mm_bwd_dkv"]
+    assert "scores<" in body and "accumulate<" in body and "fmaf(" not in body
+    assert "load_rows<" in body and "cp_wait_all()" in body and "cp_commit()" in body
+    tiles = body.index("for (int it = 0; it < ntiles; ++it)")
+    args = body.index("for (int a = 0; a < A; ++a, ++j)")
+    s_tile = "scores<NT, false>(st, st, Kw, Qt"
+    assert body.count(s_tile) == 1 and body.count("Kw,") == 2 and tiles < body.index(s_tile) < args
+    assert body.index("scores<NT, false>(dpt, dpt, Vw, Gt") > args  # dP_a^T = V G_a^T, per arg
+    assert "mm_bwd_delta<<<" in text and 'extern "C" int vog_mm_bwd(' in text
+
+
+def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
+    """The head's weight-gradient kernel streams its row stages by 16-byte
+    cp.async into a ring (one barrier a stage) and multiplies in 3xTF32;
+    one launch covers dWx and dW1 for its rows (a call launches it once
+    after each of the row kernel's two parts), and at GT5 (D=512, Dh=256)
+    its grid puts at least two blocks on each of the H100's 132 SMs.  The
+    row kernel streams its weights by cp.async into per-warp rings."""
+    from vog_tpu_torch.kernels.grounding_head import W_CHUNKS
+
+    text = (PKG / "csrc" / "grounding_head.cu").read_text()
+    bodies = _kernel_bodies(text)
+    assert sorted(bodies) == ["head_bwd_rows", "head_bwd_w", "head_fwd"]
+    w = bodies["head_bwd_w"]
+    w = w[: w.index("\n}\n")]
+    assert "cp_async16(" in w and "cp_wait<" in w and "cp_commit()" in w and "mma3(" in w
+    assert w.count("__syncthreads()") == 1 and "dwx_part" in w and "dw1_part" in w
+    part = text[text.index("cudaError_t launch_part("):]
+    part = part[: part.index("\n}\n")]
+    assert part.count("head_bwd_w<<<") == 1 and part.count("head_bwd_rows<A><<<") == 1
+    assert text.count("head_bwd_w<<<") == 1 and text.count("head_bwd_rows<A><<<") == 1
+    launch = text[text.index("int launch_bwd("):]
+    launch = launch[: launch.index("\n}\n")]
+    assert launch.count("launch_part<A>(") == 3  # one part, or two on two streams
+    rows = bodies["head_bwd_rows"]
+    assert rows.count("gemm_rows<") == 4 and "ring" in rows
+    gemm = text[text.index("__device__ inline void gemm_rows("):]
+    gemm = gemm[: gemm.index("\n}\n")]
+    assert "cp_async16(" in gemm and "cp_wait<" in gemm and "__syncthreads()" not in gemm
+    assert 'extern "C" int vog_head_bwd(' in text
+    tiles = (512 // 128) * (512 // 64 + 256 // 64)  # 128 x 64 output tiles of dWx and dW1
+    assert tiles * W_CHUNKS >= 2 * 132

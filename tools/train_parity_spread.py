@@ -8,12 +8,16 @@ trained on the card from batches of seed s + 8 as chip_smoke.py's phase
 (b) trains it (a warm-up step, 30 steps, one more step on the first
 batch: s = 3 is chip_smoke.py's own state), then one step of the trained
 state on the card and on the CPU plain path on the second batch, as
-chip_smoke.py's (c) compares them.  Prints, per seed, the loss and the
+chip_smoke.py's (c) compares them: kink-aware, the cotangent zeroed on
+the logits near a ReLU kink (``chip_smoke.kink_keep`` of the CPU step's
+forward).  Prints, per seed, the share of logits zeroed, the loss and the
 worst relative gradient error (Frobenius norm over each leaf) with its
 leaf: with the card's kernels, with every float kernel's wrapper
 (forward and backward) replaced on the card by its plain version, and
 with one family's (flash, mm, head) replaced at a time, so that a
-kernel's share of the error shows.  Reports, fails nothing.
+kernel's share of the error shows; and, with the kernels, the comparison
+without the kink mask ("unmasked", as (c) was before it).  Reports,
+fails nothing.
 
 ``--root`` takes another checkout of the repository (its ``chip_smoke.py``
 and ``vog_tpu_torch``), so that two trees are measured by the same code.
@@ -91,19 +95,24 @@ def main() -> int:
         loss = float(aux["loss"])
         state, _ = step(state, dev[0], seed=0, tables=tables)  # chip_smoke.py's profiled step
         sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
-        lp, gp = cs.step_grads(parity, sd, batches[1], tables, "cpu")
-        r = dict(seed=s, last_train_loss=loss, cpu_loss=lp)
+        lp, gp, keep, share = cs.step_grads(parity, sd, batches[1], tables, "cpu")
+        r = dict(seed=s, last_train_loss=loss, cpu_loss=lp, kink_share=share)
         for name, fams in (("kernels", ()), ("plain", FAMILIES), *((f + " plain", (f,)) for f in FAMILIES)):
             undo = plain_kernels(fams)
             try:
-                lc, gc = cs.step_grads(parity, sd, batches[1], tables, "cuda")
+                lc, gc, _, _ = cs.step_grads(parity, sd, batches[1], tables, "cuda", keep)
             finally:
                 undo()
             r[name] = (*worst(gc, gp, cs.rel_err), lc)
+        ones = torch.ones_like(keep)
+        _, gp1, _, _ = cs.step_grads(parity, sd, batches[1], tables, "cpu", ones)
+        lc, gc, _, _ = cs.step_grads(parity, sd, batches[1], tables, "cuda", ones)
+        r["unmasked"] = (*worst(gc, gp1, cs.rel_err), lc)
         out.append(r)
-        print(f"[spread] seed {s}: loss of the 30th step {loss:.6f}; (c) CPU loss {lp:.6f}; worst relative "
-              "err (leaf, card loss): " + "; ".join(f"{k} {r[k][1]:.3e} ({r[k][0]}, {r[k][2]:.6f})"
-                                                   for k in r if k not in ("seed", "last_train_loss", "cpu_loss"))
+        skip = ("seed", "last_train_loss", "cpu_loss", "kink_share")
+        print(f"[spread] seed {s}: loss of the 30th step {loss:.6f}; (c) CPU loss {lp:.6f}, cotangent zeroed "
+              f"on {share:.4f} of the logits; worst relative err (leaf, card loss): "
+              + "; ".join(f"{k} {r[k][1]:.3e} ({r[k][0]}, {r[k][2]:.6f})" for k in r if k not in skip)
               + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     print(json.dumps({"root": a.root, "spread": out}), flush=True)
     return 0

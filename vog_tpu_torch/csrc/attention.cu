@@ -228,22 +228,7 @@ __device__ inline int all_masked(const float* __restrict__ key_mask, int b, int 
 __global__ void __launch_bounds__(256)
 flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
                 float* __restrict__ delta, int rows, int dh) {
-  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  float sum = 0.f;
-  if (dh % 4 == 0 && aligned16(o) && aligned16(dout)) {
-    const float4* o4 = reinterpret_cast<const float4*>(o + (size_t)r * dh);
-    const float4* d4 = reinterpret_cast<const float4*>(dout + (size_t)r * dh);
-    for (int c = lane; c < dh / 4; c += 32) {
-      const float4 a = __ldg(o4 + c), b = __ldg(d4 + c);
-      sum += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-    }
-  } else {
-    for (int d = lane; d < dh; d += 32) sum += o[(size_t)r * dh + d] * dout[(size_t)r * dh + d];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) delta[r] = sum;
+  row_dots(o, dout, delta, rows, dh);
 }
 
 template <bool kFrames>

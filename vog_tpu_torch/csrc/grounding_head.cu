@@ -25,27 +25,47 @@
 // gradients).  The TPU kernel keeps the (D,D) and (D,Dh) weight-gradient
 // accumulators resident in VMEM across its whole grid; a 1 MB fp32
 // accumulator does not fit a block's 227 KB here, and blocks run in no
-// order.  So two kernels:
+// order.  So two kernels.  The work is 6 B A T (D^2 + D Dh) = 37.7 GFLOP at
+// GT5 (four row products and two weight products), bound by operations:
 //
 //   head_bwd_rows  per (b, 16 tokens) block, the forward's tiling: it
-//                  recomputes z0, h and z1 (3xTF32, as the forward), forms
-//                  dz1 = [z1 > 0] g w2, dh = dz1 W1^T, dz0 = [z0 > 0] dh and
-//                  dcross = dz0 Wx^T on the tensor cores, one (A*16, D)
-//                  shared tile reused for h, dz1 and dz0 in turn; it writes
-//                  dvis, dwv, per-block partials of darg, dwl, db1, dw2, and
-//                  h, dz0, dz1 (B,A,T,.) for the second kernel;
-//   head_bwd_w     dWx = sum_rows cross^T dz0 (cross = vis * arg formed on
-//                  the fly) and dW1 = sum_rows h^T dz1: 64 x 64 output tiles
-//                  split over row chunks (3xTF32), one partial per chunk.
+//                  recomputes z0, h and z1, forms dz1 = [z1 > 0] g w2, dh =
+//                  dz1 W1^T, dz0 = [z0 > 0] dh and dcross = dz0 Wx^T (four
+//                  3xTF32 products, one (A*16, D) shared tile reused for
+//                  cross, h, dz1 and dz0 in turn); it writes dvis, dwv,
+//                  per-block partials of darg, dwl, db1, dw2, and the cross
+//                  rows, h, dz0, dz1 (B,A,T,.) for the second kernel.  Each
+//                  warp streams its own weight columns by cp.async, 8
+//                  k-rows a stage, into a ring of 3 stages in shared memory
+//                  (``gemm_rows``: two stages ahead, warp syncs only), in
+//                  place of loads from L2 one k-step ahead; a block-wide
+//                  ring (one __syncthreads a stage) measured slower than
+//                  those loads.  16 warps and the 165 KB tile hold one
+//                  block an SM (the accumulators alone take the register
+//                  file), so the GT5 grid of 13 x 16 = 208 blocks takes
+//                  1.58 waves;
+//   head_bwd_w     dWx = sum_rows cross^T dz0 and dW1 = sum_rows h^T dz1
+//                  in one launch: a 128 x 64 output tile of either a block,
+//                  8 warps of 32 x 32 (each split fragment feeds 2 or 4
+//                  mma3), rows streamed 32 a stage by cp.async into a ring
+//                  of 3, one partial per row chunk; 48 tiles x 11 chunks =
+//                  528 blocks at GT5, two waves of two blocks an SM.
 //
+// The two overlap (``launch_bwd``): the batch rows whose row blocks fit one
+// wave run first, and the weight kernel's chunks over their rows fill the
+// SMs that the row kernel's second wave, on a second stream, leaves idle.
 // Every partial is added up by the wrapper in a fixed order, so the
-// gradients are the same on every run.  The work is 6 B A T (D^2 + D Dh)
-// operations, bound by operations; the h/dz0/dz1 round trip is ~165 MB.
+// gradients are the same on every run.  The previous design (the weight
+// kernel staging 64 x 64 tiles synchronously with scalar loads and forming
+// cross with two divisions an element, in two launches; the row kernel's
+// weights read from L2 by every warp) took 1.8102 / 1.8190 ms at GT5
+// (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tf32.cuh"  // split, mma3 and the fragment loaders
+#include "tiles.cuh"  // cp.async; through it tf32.cuh: split, mma3, the fragment loaders
 
 namespace {
 
@@ -54,7 +74,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBT = 16;  // tokens per block: rows M = A * kBT, A m-tiles
 constexpr int kMaxA = 5;
 constexpr int kMaxD = 512;
-constexpr int kMaxDh = 256;
+constexpr int kMaxHid = 256;  // Dh
 constexpr int kN1 = 32;  // first-product columns per warp (4 n-tiles)
 constexpr int kN2 = 16;  // second-product columns per warp (2 n-tiles)
 
@@ -220,37 +240,69 @@ int launch(const float* vis, const float* arg, const float* wv,
 // backward
 // ---------------------------------------------------------------------------
 
+constexpr int kRing = 3;                 // stages of a warp's weight ring
+constexpr int kWarpSlab = 8 * (32 + 8);  // floats a stage: 8 k-rows of <= 32 columns
+
 // acc[A][NT][4] += X (rows 16m.., shared, ld) . B for the warp's NT n-tiles
-// at n0, over k in [0, K); B(k, n) = W[k * ldw + n] or, when trans,
-// W[n * ldw + k].  B fragments are read one k-step ahead.
+// at n0, over k in [0, K): B(k, n) = W[k * ldw + n] or, when trans,
+// W[n * ldw + k].  The warp streams its own B columns by 16-byte cp.async,
+// 8 k-rows a stage, into its ring of kRing stages in shared memory, two
+// stages ahead of use, with no block barrier (a warp sync a stage).  A
+// stage is [k][8 NT + 8] (conflict-free b reads of rows t and t + 4) or,
+// when trans, [n][8] with the two 4-float halves of a row swapped on every
+// other group of 4 rows (the reads of rows g and g + 4 then hit other
+// banks).  Operands are split with split_int.
 template <int A, int NT, bool trans>
 __device__ inline void gemm_rows(float (&acc)[A][NT][4], const float* X, int ld,
                                  const float* __restrict__ W, int ldw, int n0, int K,
-                                 int lane) {
-  float braw[NT][2];
+                                 float* ring, int lane) {
+  constexpr int NC = 8 * NT, LDB = NC + 8;  // the warp's columns; a stage's row stride
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = K / 8;
+  auto load = [&](int s) {
+    if (s < nk) {
+      float* dst = ring + (s % kRing) * kWarpSlab;
+      const int k0 = 8 * s;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    if (trans) load_bt(W, ldw, 0, n0 + 8 * j, lane, braw[j]);
-    else load_b(W, ldw, 0, n0 + 8 * j, lane, braw[j]);
-  }
-  for (int k0 = 0; k0 < K; k0 += 8) {
+      for (int c = lane; c < 2 * NC; c += 32) {  // 16-byte chunks
+        if (trans) {  // rows n0 .. n0 + NC - 1 of W, columns k0 .. k0 + 7
+          const int n = c >> 1, half = c & 1;
+          cp_async16(dst + 8 * n + 4 * (half ^ ((n >> 2) & 1)),
+                     W + (size_t)(n0 + n) * ldw + k0 + 4 * half, true);
+        } else {  // rows k0 .. k0 + 7 of W, columns n0 .. n0 + NC - 1
+          const int kk = c / (NC / 4), col = 4 * (c % (NC / 4));
+          cp_async16(dst + kk * LDB + col, W + (size_t)(k0 + kk) * ldw + n0 + col, true);
+        }
+      }
+    }
+    cp_commit();  // an empty group past the last stage keeps the count
+  };
+  __syncwarp();  // every lane is done with the ring's previous product
+  load(0);
+  load(1);
+  for (int s = 0; s < nk; ++s) {
+    cp_wait<kRing - 2>();
+    __syncwarp();  // the warp's copies of stage s are in; every lane is done with stage s - 1
+    load(s + kRing - 1);
+    const float* sb = ring + (s % kRing) * kWarpSlab;
     uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      split(braw[j][0], bb[j][0], bs[j][0]);
-      split(braw[j][1], bb[j][1], bs[j][1]);
+      const int n = 8 * j + g, sw = 4 * (g >> 2);  // (n >> 2) & 1 == g >> 2
+      const float b0 = trans ? sb[8 * n + (t ^ sw)] : sb[t * LDB + n];
+      const float b1 = trans ? sb[8 * n + ((t + 4) ^ sw)] : sb[(t + 4) * LDB + n];
+      split_int(b0, bb[j][0], bs[j][0]);
+      split_int(b1, bb[j][1], bs[j][1]);
     }
-    if (k0 + 8 < K) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        if (trans) load_bt(W, ldw, k0 + 8, n0 + 8 * j, lane, braw[j]);
-        else load_b(W, ldw, k0 + 8, n0 + 8 * j, lane, braw[j]);
-      }
-    }
+    const int k0 = 8 * s;
 #pragma unroll
     for (int m = 0; m < A; ++m) {
+      const float* p = X + (16 * m + g) * ld + k0 + t;
       uint32_t ab[4], as[4];
-      load_a(X, ld, 16 * m, k0, lane, ab, as);
+      split_int(p[0], ab[0], as[0]);
+      split_int(p[8 * ld], ab[1], as[1]);
+      split_int(p[4], ab[2], as[2]);
+      split_int(p[8 * ld + 4], ab[3], as[3]);
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma3(acc[m][j], ab, as, bb[j], bs[j]);
     }
@@ -270,28 +322,33 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
               const float* __restrict__ wv, const float* __restrict__ wl,
               const float* __restrict__ wx, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ gin, float* __restrict__ h_out,
+              const float* __restrict__ gin, float* __restrict__ cross_out,
+              float* __restrict__ h_out,
               float* __restrict__ dz0_out, float* __restrict__ dz1_out,
               float* __restrict__ dvis, float* __restrict__ dwv,
               float* __restrict__ darg_part, float* __restrict__ dwl_part,
               float* __restrict__ db1_part, float* __restrict__ dw2_part, int T,
-              int D, int Dh) {
+              int D, int Dh, int b_first) {
   constexpr int M = A * kBT;
   const int ld = D + 4, ld1 = Dh + 4;
-  const int b = blockIdx.y;
+  const int b = b_first + blockIdx.y;
   const int t0 = blockIdx.x * kBT;
   const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
 
   extern __shared__ float xs[];  // M x ld: cross, then h, dz1 (ld1), dz0
+  float* ring = xs + M * ld + (threadIdx.x >> 5) * kRing * kWarpSlab;  // this warp's weight ring
 
   for (int idx = tid; idx < M * D; idx += kThreads) {
     const int r = idx / D, kk = idx - r * D;
     const int a = r / kBT, t = t0 + r % kBT;
-    xs[r * ld + kk] = t < T ? vis[((size_t)b * T + t) * D + kk] *
-                                  arg[((size_t)b * A + a) * D + kk]
-                            : 0.f;
+    float x = 0.f;
+    if (t < T) {  // the cross rows, also the weight kernel's dWx operand
+      x = vis[((size_t)b * T + t) * D + kk] * arg[((size_t)b * A + a) * D + kk];
+      cross_out[(((size_t)b * A + a) * T + t) * D + kk] = x;
+    }
+    xs[r * ld + kk] = x;
   }
   __syncthreads();
 
@@ -305,7 +362,7 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-  if (w_ok) gemm_rows<A, 4, false>(acc, xs, ld, wx, D, nw, D, lane);
+  if (w_ok) gemm_rows<A, 4, false>(acc, xs, ld, wx, D, nw, D, ring, lane);
   __syncthreads();  // every warp is done reading the cross tile
   uint32_t pos[(A * 16 + 31) / 32];  // z0 > 0 at this lane's (m, j, i)
 #pragma unroll
@@ -342,7 +399,7 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc2[m][j][i] = 0.f;
-  if (w2_ok) gemm_rows<A, 2, false>(acc2, xs, ld, w1, Dh, n2, D, lane);
+  if (w2_ok) gemm_rows<A, 2, false>(acc2, xs, ld, w1, Dh, n2, D, ring, lane);
   __syncthreads();  // every warp is done reading h
   if (w2_ok) {
     float pw2[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, pb1[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -384,7 +441,7 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-  if (w_ok) gemm_rows<A, 4, true>(acc, xs, ld1, w1, Dh, nw, Dh, lane);
+  if (w_ok) gemm_rows<A, 4, true>(acc, xs, ld1, w1, Dh, nw, Dh, ring, lane);
   __syncthreads();  // every warp is done reading dz1
   if (w_ok) {
 #pragma unroll
@@ -425,7 +482,7 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
   if (w_ok) {
-    gemm_rows<A, 4, true>(acc, xs, ld, wx, D, nw, D, lane);
+    gemm_rows<A, 4, true>(acc, xs, ld, wx, D, nw, D, ring, lane);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -457,130 +514,241 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
   }
 }
 
-// C[z] = sum over rows R in chunk z of X[R]^T Y[R]: X (R, Dx) is vis * arg
-// (cross) or h, Y (R, N) is dz0 or dz1, rows R = (b, a, t).  A 64 x 64
-// output tile a block, 8 warps of 16 x 32, 3xTF32.
-constexpr int kWT = 64;       // output tile edge
-constexpr int kWK = 32;       // rows a stage
-constexpr int kWld = kWT + 8; // shared row stride (conflict-free fragments)
+// C[z] = sum over the rows R of chunk z of X[R]^T Y[R], for both weights
+// in one launch: X the cross rows (dWx, Y = dz0) or h (dW1, Y = dz1), both
+// (R, D), rows R = (b, a, t).  A block owns a 128 x 64 output tile of one
+// of the two and chunk chunk0 + blockIdx.y of the rows [r_begin, r_end); its 8 warps own 32 x 32 each (a split A
+// fragment feeds 4 mma3, a split B fragment 2).  Rows stream 32 a stage by
+// 16-byte cp.async into a ring of 3 stages, one __syncthreads a stage.
+constexpr int kWM = 128;            // output rows (X columns) a block
+constexpr int kWN = 64;             // output columns (Y columns) a block
+constexpr int kWK = 32;             // rows a stage
+constexpr int kWStages = 3;
+constexpr int kWThreads = 256;
+constexpr int kWXld = kWM + 8;      // shared row strides: 8 (mod 32) words,
+constexpr int kWYld = kWN + 8;      // conflict-free fragment reads
+constexpr int kWStage = kWK * (kWXld + kWYld);  // floats a stage
 
-__global__ void __launch_bounds__(256)
-head_bwd_w(const float* __restrict__ vis, const float* __restrict__ arg,
-           const float* __restrict__ X, const float* __restrict__ Y,
-           float* __restrict__ part, int A, int T, int Dx, int N, int R,
-           int rows_per_chunk) {
-  __shared__ float Xs[kWK * kWld];
-  __shared__ float Ys[kWK * kWld];
-  const int n0 = blockIdx.x * kWT, i0 = blockIdx.y * kWT;
-  const int r_lo = blockIdx.z * rows_per_chunk;
-  const int r_hi = min(R, r_lo + rows_per_chunk);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+__global__ void __launch_bounds__(kWThreads, 2)
+head_bwd_w(const float* __restrict__ cross, const float* __restrict__ dz0,
+           const float* __restrict__ h, const float* __restrict__ dz1,
+           float* __restrict__ dwx_part, float* __restrict__ dw1_part, int D, int Dh,
+           int r_begin, int r_end, int chunk0, int rows_per_chunk) {
+  extern __shared__ float4 wsm4[];
+  float* sm = reinterpret_cast<float*>(wsm4);  // kWStages x (X: kWK x kWXld, Y: kWK x kWYld)
+  // tiles of dWx first (D/kWM x D/kWN), then of dW1 (D/kWM x Dh/kWN)
+  const int tm = (D + kWM - 1) / kWM, tnx = (D + kWN - 1) / kWN;
+  int tile = blockIdx.x;
+  const bool first = tile < tm * tnx;
+  if (!first) tile -= tm * tnx;
+  const int tn = first ? tnx : (Dh + kWN - 1) / kWN;
+  const int i0 = (tile / tn) * kWM, n0 = (tile % tn) * kWN;
+  const int N = first ? D : Dh;
+  const float* X = first ? cross : h;
+  const float* Y = first ? dz0 : dz1;
+  const int chunk = chunk0 + blockIdx.y;
+  const int r_lo = r_begin + blockIdx.y * rows_per_chunk;
+  const int r_hi = min(r_end, r_lo + rows_per_chunk);
+  const int nst = r_hi > r_lo ? (r_hi - r_lo + kWK - 1) / kWK : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int mt = warp % 4, nh = warp / 4;
-  float acc[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  const int wm = 32 * (warp & 3), wn = 32 * (warp >> 2);
 
-  for (int r0 = r_lo; r0 < r_hi; r0 += kWK) {
-    __syncthreads();
-    for (int idx = tid; idx < kWK * kWT; idx += 256) {
-      const int rr = idx / kWT, c = idx % kWT, R0 = r0 + rr;
-      float x = 0.f, y = 0.f;
-      if (R0 < r_hi) {
-        if (i0 + c < Dx) {
-          if (X != nullptr) {
-            x = X[(size_t)R0 * Dx + i0 + c];
-          } else {
-            const int bb = R0 / (A * T), rem = R0 - bb * A * T, a = rem / T, t = rem - a * T;
-            x = vis[((size_t)bb * T + t) * Dx + i0 + c] * arg[((size_t)bb * A + a) * Dx + i0 + c];
-          }
+  auto stage = [&](int s) {
+    if (s < nst) {
+      float* xs = sm + (s % kWStages) * kWStage;
+      float* ys = xs + kWK * kWXld;
+      const int r0 = r_lo + s * kWK;
+      for (int c = tid; c < kWK * (kWM + kWN) / 4; c += kWThreads) {
+        if (c < kWK * kWM / 4) {  // X: 32 chunks of 16 bytes a row
+          const int rr = c / (kWM / 4), col = 4 * (c % (kWM / 4)), row = r0 + rr;
+          const bool ok = row < r_hi && i0 + col < D;
+          cp_async16(xs + rr * kWXld + col, ok ? X + (size_t)row * D + i0 + col : X, ok);
+        } else {  // Y: 16 chunks a row
+          const int cy = c - kWK * kWM / 4;
+          const int rr = cy / (kWN / 4), col = 4 * (cy % (kWN / 4)), row = r0 + rr;
+          const bool ok = row < r_hi && n0 + col < N;
+          cp_async16(ys + rr * kWYld + col, ok ? Y + (size_t)row * N + n0 + col : Y, ok);
         }
-        if (n0 + c < N) y = Y[(size_t)R0 * N + n0 + c];
       }
-      Xs[rr * kWld + c] = x;
-      Ys[rr * kWld + c] = y;
     }
-    __syncthreads();
+    cp_commit();  // an empty group past the last stage keeps the count
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+
+  stage(0);
+  stage(1);
+  for (int s = 0; s < nst; ++s) {
+    cp_wait<kWStages - 2>();
+    __syncthreads();  // stage s is in; every warp is done with stage s - 1
+    stage(s + kWStages - 1);
+    const float* xs = sm + (s % kWStages) * kWStage;
+    const float* ys = xs + kWK * kWXld;
 #pragma unroll
     for (int k0 = 0; k0 < kWK; k0 += 8) {
-      uint32_t ab[4], as[4];
-      const float* p = Xs + (k0 + tq) * kWld + 16 * mt + g;
-      split(p[0], ab[0], as[0]);          // (row g,     k tq)
-      split(p[8], ab[1], as[1]);          // (row g + 8, k tq)
-      split(p[4 * kWld], ab[2], as[2]);   // (row g,     k tq + 4)
-      split(p[4 * kWld + 8], ab[3], as[3]);
+      // A = X^T: a0 (i = g, k = tq), a1 (g + 8, tq), a2 (g, tq + 4), a3 (g + 8, tq + 4)
+      uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* p = xs + (k0 + tq) * kWXld + wm + 16 * m + g;
+        split_int(p[0], ab[m][0], as[m][0]);
+        split_int(p[8], ab[m][1], as[m][1]);
+        split_int(p[4 * kWXld], ab[m][2], as[m][2]);
+        split_int(p[4 * kWXld + 8], ab[m][3], as[m][3]);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        uint32_t bb[2], bs[2];
-        const float* q = Ys + (k0 + tq) * kWld + 32 * nh + 8 * j + g;
-        split(q[0], bb[0], bs[0]);
-        split(q[4 * kWld], bb[1], bs[1]);
-        mma3(acc[j], ab, as, bb, bs);
+        const float* q = ys + (k0 + tq) * kWYld + wn + 8 * j + g;
+        split_int(q[0], bb[j][0], bs[j][0]);
+        split_int(q[4 * kWYld], bb[j][1], bs[j][1]);
       }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma3(acc[m][j], ab[m], as[m], bb[j], bs[j]);
     }
   }
-  float* out = part + (size_t)blockIdx.z * Dx * N;
+
+  float* out = first ? dwx_part + (size_t)chunk * D * D : dw1_part + (size_t)chunk * D * Dh;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = i0 + 16 * mt + g + (i >= 2 ? 8 : 0);
-      const int col = n0 + 32 * nh + 8 * j + 2 * tq + (i & 1);
-      if (row < Dx && col < N) out[(size_t)row * N + col] = acc[j][i];
-    }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = i0 + wm + 16 * m + g + 8 * hh;
+        const int col = n0 + wn + 8 * j + 2 * tq;
+        if (row < D && col < N)
+          *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+              make_float2(acc[m][j][2 * hh], acc[m][j][2 * hh + 1]);
+      }
 }
 
+// A second stream, and events, for the overlap in launch_bwd: made once a
+// process for each device, at its first call there.
+struct SideStream {
+  cudaStream_t s = nullptr;
+  cudaEvent_t in = nullptr, out = nullptr;
+  int sms = 0;
+};
+constexpr int kMaxDevices = 64;
+
+cudaError_t side_stream(SideStream*& out) {
+  static SideStream sides[kMaxDevices];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  SideStream& x = sides[dev];
+  if (x.s == nullptr) {
+    e = cudaDeviceGetAttribute(&x.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&x.in, cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaEventCreateWithFlags(&x.out, cudaEventDisableTiming);
+    if (e == cudaSuccess) e = cudaStreamCreateWithFlags(&x.s, cudaStreamNonBlocking);
+    if (e != cudaSuccess) return e;
+  }
+  out = &x;
+  return cudaSuccess;
+}
+
+// The row kernel's blocks of batch rows [b0, b1), then on the same stream
+// the weight kernel over their rows in chunks [c0, c1).
+template <int A>
+cudaError_t launch_part(const float* vis, const float* arg, const float* wv, const float* wl,
+                        const float* wx, const float* w1, const float* b1, const float* w2,
+                        const float* gin, float* cross, float* h, float* dz0, float* dz1,
+                        float* dvis, float* dwv, float* darg_part, float* dwl_part,
+                        float* db1_part, float* dw2_part, float* dwx_part, float* dw1_part,
+                        int T, int D, int Dh, int bb0, int bb1, int c0, int c1,
+                        cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)A * kBT * (D + 4) + kWarps * kRing * kWarpSlab);
+  head_bwd_rows<A><<<dim3((T + kBT - 1) / kBT, bb1 - bb0), kThreads, smem, stream>>>(
+      vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv, darg_part,
+      dwl_part, db1_part, dw2_part, T, D, Dh, bb0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int r0 = bb0 * A * T, r1 = bb1 * A * T;
+  const int per = ((r1 - r0 + (c1 - c0) - 1) / (c1 - c0) + kWK - 1) / kWK * kWK;
+  const int tiles = ((D + kWM - 1) / kWM) * ((D + kWN - 1) / kWN + (Dh + kWN - 1) / kWN);
+  head_bwd_w<<<dim3(tiles, c1 - c0), kWThreads, sizeof(float) * kWStages * kWStage, stream>>>(
+      cross, dz0, h, dz1, dwx_part, dw1_part, D, Dh, r0, r1, c0, per);
+  return cudaGetLastError();
+}
+
+// The row kernel holds one block an SM, so at GT5 its 208 blocks take 1.58
+// waves and the second leaves 56 SMs idle.  The batch rows whose blocks
+// fit one wave (b < nb1) run first on the caller's stream, and the weight
+// kernel's chunks over their rows follow there at once; the other batch
+// rows' blocks run on a second stream, followed by their chunks, so the
+// first chunks fill the SMs that the row kernel's second wave leaves
+// idle.  The caller's stream waits for the second at the end.  The
+// partials go to fixed chunks: the gradients do not depend on the overlap.
 template <int A>
 int launch_bwd(const float* vis, const float* arg, const float* wv, const float* wl,
                const float* wx, const float* w1, const float* b1, const float* w2,
-               const float* gin, float* h, float* dz0, float* dz1, float* dvis,
+               const float* gin, float* cross, float* h, float* dz0, float* dz1, float* dvis,
                float* dwv, float* darg_part, float* dwl_part, float* db1_part,
                float* dw2_part, float* dwx_part, float* dw1_part, int B, int T,
                int D, int Dh, int chunks, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)A * kBT * (D + 4);
+  const size_t smem = sizeof(float) * ((size_t)A * kBT * (D + 4) + kWarps * kRing * kWarpSlab);
   cudaError_t e = cudaFuncSetAttribute(
       head_bwd_rows<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(head_bwd_w, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(sizeof(float) * kWStages * kWStage));
+  SideStream* side = nullptr;
+  if (e == cudaSuccess) e = side_stream(side);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + kBT - 1) / kBT, B);
-  head_bwd_rows<A><<<grid, kThreads, smem, stream>>>(
-      vis, arg, wv, wl, wx, w1, b1, w2, gin, h, dz0, dz1, dvis, dwv, darg_part,
-      dwl_part, db1_part, dw2_part, T, D, Dh);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int R = B * A * T;
-  const int per = ((R + chunks - 1) / chunks + kWK - 1) / kWK * kWK;
-  dim3 gx((D + kWT - 1) / kWT, (D + kWT - 1) / kWT, chunks);
-  head_bwd_w<<<gx, 256, 0, stream>>>(vis, arg, nullptr, dz0, dwx_part, A, T, D, D, R, per);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dim3 g1((Dh + kWT - 1) / kWT, (D + kWT - 1) / kWT, chunks);
-  head_bwd_w<<<g1, 256, 0, stream>>>(vis, arg, h, dz1, dw1_part, A, T, D, Dh, R, per);
-  return (int)cudaGetLastError();
+  const int nb1 = side->sms / ((T + kBT - 1) / kBT);
+  const int c1 = (int)((long long)chunks * nb1 / B);
+  if (nb1 < 1 || nb1 >= B || c1 < 1 || c1 >= chunks)  // no second wave, or too few chunks
+    return (int)launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis,
+                               dwv, darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part,
+                               T, D, Dh, 0, B, 0, chunks, stream);
+  e = cudaEventRecord(side->in, stream);  // the inputs are ready on the caller's stream
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(side->s, side->in, 0);
+  if (e == cudaSuccess)
+    e = launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
+                       darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
+                       0, nb1, 0, c1, stream);
+  if (e == cudaSuccess)
+    e = launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
+                       darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
+                       nb1, B, c1, chunks, side->s);
+  if (e == cudaSuccess) e = cudaEventRecord(side->out, side->s);
+  if (e == cudaSuccess) e = cudaStreamWaitEvent(stream, side->out, 0);
+  return (int)e;
 }
 
 }  // namespace
 
-// chunks: the row split of the weight-gradient kernel (dwx_part holds
-// chunks x D x D, dw1_part chunks x D x Dh); darg/dwl partials hold
+// cross, h, dz0: (B, A, T, D) and dz1 (B, A, T, Dh) scratch between the
+// two kernels; chunks: the row split of the weight-gradient kernel
+// (dwx_part holds chunks x D x D, dw1_part chunks x D x Dh); darg/dwl partials hold
 // B x ceil(T/16) x A x D, db1/dw2 partials B x ceil(T/16) x Dh.
 extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
                             const float* wl, const float* wx, const float* w1,
                             const float* b1, const float* w2, const float* gin,
-                            float* h, float* dz0, float* dz1, float* dvis,
+                            float* cross, float* h, float* dz0, float* dz1, float* dvis,
                             float* dwv, float* darg_part, float* dwl_part,
                             float* db1_part, float* dw2_part, float* dwx_part,
                             float* dw1_part, int B, int A, int T, int D, int Dh,
                             int chunks, void* stream) {
-  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxDh || Dh % 16 != 0 ||
-      chunks < 1)
+  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0 ||
+      chunks < 1 || !aligned16(wx) || !aligned16(w1))  // the weights stream by 16-byte cp.async
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOG_HEAD_BWD_CASE(n)                                                        \
   case n:                                                                           \
-    return launch_bwd<n>(vis, arg, wv, wl, wx, w1, b1, w2, gin, h, dz0, dz1, dvis, \
+    return launch_bwd<n>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, \
                          dwv, darg_part, dwl_part, db1_part, dw2_part, dwx_part,   \
                          dw1_part, B, T, D, Dh, chunks, s);
   switch (A) {
@@ -600,7 +768,7 @@ extern "C" int vog_head_fwd(const float* vis, const float* arg,
                             const float* w1, const float* b1, const float* w2,
                             const float* b2, float* out, int B, int A, int T,
                             int D, int Dh, void* stream) {
-  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxDh || Dh % 16 != 0)
+  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

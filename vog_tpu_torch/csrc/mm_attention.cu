@@ -47,19 +47,41 @@
 // 0.3037 ms at GT5 (chip_smoke.py, H100 80GB HBM3, 700 W); this design's
 // times are in PERF.md.
 //
-// Backward: mm_bwd_dkv, the counterpart of the TPU's dk/dv/dcn kernel in
-// its default "emit" mode (vog_tpu/kernels/mm_attention.py
-// §_make_bwd_dkv_kernel(True)).  A block owns 32 keys (a warp 4) and walks
-// the query rows in tiles of 32, lane i taking query i: it recomputes
-// p_a = exp(s + cn_a - m_a) from the saved per-arg row max and
-// denominator, ds_a = p_a (g_a.vm - delta_a) / den_a, and accumulates
-// dv = sum_a sum_i (p_a/den_a) g_a,i and dk = sum_i comb_i qm_i with
-// comb = sum_a ds_a (masked), in registers, and dcn_a = sum_i ds_a per
-// lane, reduced by a fixed shuffle tree at the end.  It also writes comb
-// (B*H, T, T) through a shared-memory tile, coalesced; dq = comb . km and
-// the frame-bias gradient are products over it outside the kernel, as in
-// the TPU package.  Bound by fp32 operations (the A g_a.vm products and
-// the A dv sums dominate).
+// Backward: the counterpart of the TPU's dk/dv/dcn kernel in its default
+// "emit" mode (vog_tpu/kernels/mm_attention.py §_make_bwd_dkv_kernel(True)),
+// from the saved per-arg row max m_a and denominator den_a:
+//   p_a = exp(s + cn_a - m_a),  ds_a = p_a (g_a.vm - delta_a) / den_a,
+//   dv = sum_a (p_a / den_a)^T g_a,  comb = sum_a ds_a (valid keys),
+//   dk = comb^T qm,  dcn_a = sum_i ds_a,
+// and comb (B*H, T, T) written out: dq = comb . km and the frame-bias
+// gradient are products over it outside the kernel, as in the TPU package.
+// At GT5 the kernel's work is 2 BH T^2 dh (2 + 2A) = 7.9 GFLOP (S, dK,
+// and per arg dP_a and dV): bound by operations, so it runs on the tensor
+// cores in 3xTF32 (the previous design, on the CUDA cores in fp32 FMA,
+// issued about one shared-memory load for every 3-7 FMAs).  Two kernels:
+//  * mm_bwd_delta: delta_a = rowsum(g_a * o_a), a warp a row;
+//  * mm_bwd_dkv, modelled on csrc/attention.cu's flash_bwd_dkv: a block of
+//    4 warps owns 64 keys (a warp 16), K and V resident in shared memory,
+//    and walks the query rows in tiles of 16.  Per tile it computes S^T =
+//    K Q^T + fb ONCE for all args; then per arg a, dP_a^T = V G_a^T, P_a^T
+//    = exp(S^T + cn_a - m_a) / den_a, dV += P_a^T G_a (P passed from the C
+//    to the A fragment in registers), ds_a = P_a^T (dP_a^T - delta_a)
+//    added into comb^T and into this lane's dcn_a partial; after the last
+//    arg, comb^T is masked, dK += comb^T Q, and comb is stored from the C
+//    fragments (each store writes 8 consecutive keys of 4 query rows: whole
+//    32-byte sectors).  Every product is mma.sync m16n8k8 in 3xTF32 through
+//    tiles.cuh.  The stream is a ring over (query tile, arg) steps: each
+//    step's g_a tile (and with arg 0 the tile's Q rows, m, den, delta and
+//    frames) comes in by cp.async one step ahead, one __syncthreads a step.
+//    dcn is reduced over the 4 lanes of a key by a fixed shuffle tree: the
+//    gradients are the same on every run.  103 KB of shared memory at A=5,
+//    two blocks (8 warps) an SM, so at GT5 the 4 x 64 = 256 blocks run as
+//    one wave; warps whose keys all lie past T only load.
+// The previous design (fp32 FMA on the CUDA cores: a lane a query row, 32
+// keys a block, synchronous staging of Q and the A g_a tiles, 158 KB of
+// shared memory, one block an SM) took 0.8822 / 0.8867 ms at GT5
+// (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
+// PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -302,52 +324,21 @@ int launch(const float* qm, const float* km, const float* vm, const float* cn,
 // ---------------------------------------------------------------------------
 // backward (emit mode)
 // ---------------------------------------------------------------------------
-constexpr int kWarps = 8;
-constexpr int kC = kMaxDh / 32;  // output columns per lane (4*lane + c)
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdKeys = 16 * kBwdWarps;  // keys a block owns (a warp 16)
+constexpr int kBwdTile = 16;              // query rows of a streamed tile
+constexpr int kBwdNT = kBwdTile / 8;      // its 8-wide column tiles
 
-// Shared-memory row strides of the backward: dq = dh rounded up to 4 for
-// Q and V, dk = dq + 4 for K (conflict-free float4 reads of K rows).
-__host__ __device__ inline int stride_q(int dh) { return (dh + 3) / 4 * 4; }
-__host__ __device__ inline int stride_k(int dh) { return stride_q(dh) + 4; }
-
-// Stage rows [row0, row0 + rows) of a (T, dh) matrix into shared memory
-// with row stride ``stride`` (>= dh rounded up to 4), zero-filling rows
-// past T and columns past dh.  float4 copies when ``vec`` (dh % 4 == 0 and
-// 16-byte aligned pointers), else scalar copies.
-__device__ inline void stage_rows(float* __restrict__ dst, int stride,
-                                  const float* __restrict__ src, int row0,
-                                  int rows, int T, int dh, bool vec) {
-  const int dq = (dh + 3) / 4 * 4;
-  if (vec) {
-    const int n4 = dh / 4;
-    for (int idx = threadIdx.x; idx < rows * n4; idx += blockDim.x) {
-      const int r = idx / n4, c = idx - r * n4, row = row0 + r;
-      const float4 v = row < T
-          ? __ldg(reinterpret_cast<const float4*>(src + (size_t)row * dh) + c)
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(dst + r * stride)[c] = v;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * dq; idx += blockDim.x) {
-      const int r = idx / dq, d = idx - r * dq, row = row0 + r;
-      dst[r * stride + d] = (row < T && d < dh) ? src[(size_t)row * dh + d] : 0.f;
-    }
-  }
-}
-constexpr int kKPW = 4;              // keys per warp
-constexpr int kBKb = kWarps * kKPW;  // keys per block
-constexpr int kBQt = 32;             // query rows per tile (lane i = row i)
-constexpr int kCbs = kBQt + 1;       // comb tile row stride (no bank conflicts)
-
-__device__ inline float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// delta[r] = sum_d g[r, d] o[r, d] over the (B*H*A*T, dh) rows, a warp a row
+__global__ void __launch_bounds__(256)
+mm_bwd_delta(const float* __restrict__ o, const float* __restrict__ gout,
+             float* __restrict__ delta, int rows, int dh) {
+  row_dots(o, gout, delta, rows, dh);
 }
 
 template <int A>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kBwdThreads, 2)
 mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ vm, const float* __restrict__ cn,
            const float* __restrict__ key_mask, const float* __restrict__ fb,
@@ -356,189 +347,195 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ delta, float* __restrict__ dk,
            float* __restrict__ dv, float* __restrict__ dcn,
            float* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBKb;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int dq = stride_q(dh), dk4 = stride_k(dh), n4 = dq / 4;
+  constexpr int NT = kBwdNT;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kBwdKeys;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
 
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // kBKb x dq (broadcast reads)
-  float* Vs = Ks + kBKb * dq;                    // kBKb x dq
-  float* Qs = Vs + kBKb * dq;                    // kBQt x dk4 (lane rows)
-  float* Gs = Qs + kBQt * dk4;                   // A x kBQt x dk4: g_a rows
-  float* Pn = Gs + A * kBQt * dk4;               // kWarps x A x kKPW x kBQt
-  float* Cb = Pn + kWarps * A * kKPW * kBQt;     // kBKb x kCbs: comb^T tile
-  float* Cs = Cb + kBKb * kCbs;                  // A x kBKb: cn of the keys
-  float* St = Cs + A * kBKb;                     // 3 x A x kBQt: m, den, delta
-  float* fbs = St + 3 * A * kBQt;                // F x F
-  float* mks = fbs + F * F;                      // kBKb
-  int* fks = reinterpret_cast<int*>(mks + kBKb); // kBKb
-  int* fqs = fks + kBKb;                         // kBQt
-  float* pn = Pn + warp * A * kKPW * kBQt;
+  float* Ks = reinterpret_cast<float*>(smem4);              // kBwdKeys x kLd
+  float* Vs = Ks + kBwdKeys * kLd;                           // kBwdKeys x kLd
+  float* Qs = Vs + kBwdKeys * kLd;                           // 2 tiles x kBwdTile x kLd
+  float* Gs = Qs + 2 * kBwdTile * kLd;                       // 2 steps x kBwdTile x kLd: g_a
+  float* Ss = Gs + 2 * kBwdTile * kLd;                       // 2 tiles x 3 x A x kBwdTile: m, den, delta
+  float* Cs = Ss + 2 * 3 * A * kBwdTile;                     // A x kBwdKeys: cn of the keys
+  float* fbs = Cs + A * kBwdKeys;                            // F x F
+  int* fqs = reinterpret_cast<int*>(fbs + F * F);            // 2 tiles x kBwdTile: query frames
 
   const size_t base = (size_t)bh * T * dh;
-  for (int idx = tid; idx < F * F; idx += blockDim.x)
-    fbs[idx] = fb[(size_t)h * F * F + idx];
-  stage_rows(Ks, dq, km + base, k0, kBKb, T, dh, vec);
-  stage_rows(Vs, dq, vm + base, k0, kBKb, T, dh, vec);
-  for (int idx = tid; idx < A * kBKb; idx += blockDim.x) {
-    const int a = idx / kBKb, j = idx % kBKb, kj = k0 + j;
-    Cs[idx] = kj < T ? cn[((size_t)bh * A + a) * T + kj] : 0.f;
-  }
-  if (tid < kBKb) {
-    const int kj = k0 + tid;
-    mks[tid] = kj < T ? key_mask[(size_t)b * T + kj] : 0.f;
-    fks[tid] = kj < T ? fid[kj] : 0;
-  }
-
-  float adk[kKPW][kC], adv[kKPW][kC], dc[kKPW][A];
-#pragma unroll
-  for (int kk = 0; kk < kKPW; ++kk) {
-#pragma unroll
-    for (int c = 0; c < kC; ++c) adk[kk][c] = adv[kk][c] = 0.f;
-#pragma unroll
-    for (int a = 0; a < A; ++a) dc[kk][a] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < T; q0 += kBQt) {
-    __syncthreads();  // the previous tile is consumed (and the keys staged)
-    stage_rows(Qs, dk4, qm + base, q0, kBQt, T, dh, vec);
-    for (int a = 0; a < A; ++a)
-      stage_rows(Gs + a * kBQt * dk4, dk4, gout + ((size_t)bh * A + a) * T * dh, q0,
-                 kBQt, T, dh, vec);
-    for (int idx = tid; idx < A * kBQt; idx += blockDim.x) {
-      const int a = idx / kBQt, r = idx % kBQt, qi = q0 + r;
-      const size_t row = ((size_t)bh * A + a) * T + qi;
-      St[idx] = qi < T ? mrow[row] : 0.f;
-      St[A * kBQt + idx] = qi < T ? den[row] : 1.f;
-      St[2 * A * kBQt + idx] = qi < T ? delta[row] : 0.f;
-    }
-    if (tid < kBQt) fqs[tid] = q0 + tid < T ? fid[q0 + tid] : 0;
-    __syncthreads();
-
-    const bool row_ok = q0 + lane < T;
-    float s[kKPW], gv[A][kKPW];
-#pragma unroll
-    for (int kk = 0; kk < kKPW; ++kk) {
-      s[kk] = 0.f;
-#pragma unroll
-      for (int a = 0; a < A; ++a) gv[a][kk] = 0.f;
-    }
-    const float4* q4 = reinterpret_cast<const float4*>(Qs + lane * dk4);
-    for (int d4 = 0; d4 < n4; ++d4) {
-      const float4 qv = q4[d4];
-      float4 kv[kKPW], vv[kKPW];
-#pragma unroll
-      for (int kk = 0; kk < kKPW; ++kk) {
-        const int kl = warp * kKPW + kk;
-        kv[kk] = reinterpret_cast<const float4*>(Ks + kl * dq)[d4];
-        vv[kk] = reinterpret_cast<const float4*>(Vs + kl * dq)[d4];
-        s[kk] = dot4(qv, kv[kk], s[kk]);
+  const float* qb = qm + base;
+  const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
+  const int ntiles = (T + kBwdTile - 1) / kBwdTile, nsteps = ntiles * A;
+  // step j = (query tile j / A, arg j % A): its g_a tile, and with arg 0
+  // the tile's Q rows, statistics and frames; one commit group a step
+  auto stage = [&](int j) {
+    const int it = j / A, a = j - it * A, i0 = it * kBwdTile;
+    load_rows<kBwdTile, kBwdThreads>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
+                                     i0, T, dh, vec);
+    if (a == 0) {
+      load_rows<kBwdTile, kBwdThreads>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
+      float* st = Ss + (it & 1) * 3 * A * kBwdTile;
+      for (int i = tid; i < 3 * A * kBwdTile; i += kBwdThreads) {  // zero past T
+        const int w = i / (A * kBwdTile), r = i % (A * kBwdTile), qi = i0 + r % kBwdTile;
+        const float* src = (w == 0 ? mrow : w == 1 ? den : delta) + arow + (size_t)(r / kBwdTile) * T + qi;
+        cp_async4(st + i, qi < T ? src : mrow, qi < T);
       }
-#pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const float4 gq = reinterpret_cast<const float4*>(Gs + (a * kBQt + lane) * dk4)[d4];
-#pragma unroll
-        for (int kk = 0; kk < kKPW; ++kk) gv[a][kk] = dot4(gq, vv[kk], gv[a][kk]);
+      if (tid < kBwdTile) {
+        const int qi = i0 + tid;
+        cp_async4(reinterpret_cast<float*>(fqs + (it & 1) * kBwdTile + tid),
+                  reinterpret_cast<const float*>(qi < T ? fid + qi : fid), qi < T);
       }
     }
-    const int fq = fqs[lane];
+    cp_commit();
+  };
+  for (int i = tid; i < F * F; i += kBwdThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  for (int i = tid; i < A * kBwdKeys; i += kBwdThreads) {
+    const int a = i / kBwdKeys, kj = k0 + i % kBwdKeys;
+    Cs[i] = kj < T ? cn[arow + (size_t)a * T + kj] : 0.f;
+  }
+  load_rows<kBwdKeys, kBwdThreads>(Ks, km + base, k0, T, dh, vec);
+  load_rows<kBwdKeys, kBwdThreads>(Vs, vm + base, k0, T, dh, vec);
+  stage(0);  // one group: K, V and step 0
+
+  // this lane's keys: kr0 = k0 + 16 warp + g and kr0 + 8 (rows g, g + 8 of
+  // the warp's C fragments), query columns 8j + 2t + e of a tile
+  const int kl0 = warp * 16 + g, kr0 = k0 + kl0;
+  const int kc[2] = {key_code<true>(key_mask, fid, b, kr0, T), key_code<true>(key_mask, fid, b, kr0 + 8, T)};
+  const bool active = k0 + warp * 16 < T;  // a warp whose keys are all past T only loads
+  const float* Kw = Ks + warp * 16 * kLd;
+  const float* Vw = Vs + warp * 16 * kLd;
+  float adk[kND][4], adv[kND][4];
+  zero(adk);
+  zero(adv);
+  float dc[A][2];  // this lane's part of dcn_a at its two keys
 #pragma unroll
-    for (int kk = 0; kk < kKPW; ++kk) {
-      const int kl = warp * kKPW + kk;
-      const bool ok = row_ok && k0 + kl < T;
-      const bool valid = mks[kl] > 0.f;
-      const float sv = valid ? s[kk] + fbs[fq * F + fks[kl]] : kNeg;
-      float cb = 0.f;
+  for (int a = 0; a < A; ++a) dc[a][0] = dc[a][1] = 0.f;
+  float st[NT][4], cb[NT][4];  // S^T (biased, masked) of the tile; comb^T = sum_a ds_a^T
+
+  int j = 0;  // the step in flight
+  auto advance = [&]() {
+    cp_wait_all();
+    __syncthreads();  // step j is in; every warp is done with step j - 1
+    if (j + 1 < nsteps) stage(j + 1);
+  };
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = it * kBwdTile;
+    const float* Qt = Qs + (it & 1) * kBwdTile * kLd;
+    const float* Ss_t = Ss + (it & 1) * 3 * A * kBwdTile;
+    advance();  // step (it, 0): the tile's Q, statistics and frames, and g_0
+    if (active) {  // S^T = K Q^T + fb, once a query tile for all args; masked keys at kNeg
+      scores<NT, false>(st, st, Kw, Qt, Kw, Qt, g, t);
+      const int* ft = fqs + (it & 1) * kBwdTile;
 #pragma unroll
-      for (int a = 0; a < A; ++a) {
-        const float inv = 1.f / St[A * kBQt + a * kBQt + lane];  // den >= 1
-        const float p = ok ? expf(sv + Cs[a * kBKb + kl] - St[a * kBQt + lane]) : 0.f;
-        const float ds = p * ((gv[a][kk] - St[2 * A * kBQt + a * kBQt + lane]) * inv);
-        cb += ds;
-        dc[kk][a] += ds;
-        pn[(a * kKPW + kk) * kBQt + lane] = p * inv;
-      }
-      Cb[kl * kCbs + lane] = valid ? cb : 0.f;
-    }
-    __syncwarp();
-    // dv += sum_a (p_a/den_a)^T g_a, dk += comb^T qm; lane owns 4 columns
-    if (4 * lane < dq) {
-      for (int i = 0; i < kBQt; ++i) {
-        const float4 qv = reinterpret_cast<const float4*>(Qs + i * dk4)[lane];
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int kk = 0; kk < kKPW; ++kk) {
-          const float c = Cb[(warp * kKPW + kk) * kCbs + i];
-          adk[kk][0] = fmaf(c, qv.x, adk[kk][0]);
-          adk[kk][1] = fmaf(c, qv.y, adk[kk][1]);
-          adk[kk][2] = fmaf(c, qv.z, adk[kk][2]);
-          adk[kk][3] = fmaf(c, qv.w, adk[kk][3]);
-        }
+        for (int e = 0; e < 2; ++e) {
+          const int fq = ft[8 * n + 2 * t + e];
 #pragma unroll
-        for (int a = 0; a < A; ++a) {
-          const float4 gq = reinterpret_cast<const float4*>(Gs + (a * kBQt + i) * dk4)[lane];
-#pragma unroll
-          for (int kk = 0; kk < kKPW; ++kk) {
-            const float p = pn[(a * kKPW + kk) * kBQt + i];
-            adv[kk][0] = fmaf(p, gq.x, adv[kk][0]);
-            adv[kk][1] = fmaf(p, gq.y, adv[kk][1]);
-            adv[kk][2] = fmaf(p, gq.z, adv[kk][2]);
-            adv[kk][3] = fmaf(p, gq.w, adv[kk][3]);
+          for (int r = 0; r < 2; ++r) {
+            const int c = kc[r];
+            st[n][2 * r + e] = c >= 0 ? st[n][2 * r + e] + fbs[fq * F + c] : kNeg;
           }
         }
+      zero(cb);
+    }
+#pragma unroll 1
+    for (int a = 0; a < A; ++a, ++j) {
+      if (a > 0) advance();
+      if (!active) continue;
+      const float* Gt = Gs + (j & 1) * kBwdTile * kLd;
+      const float* mt = Ss_t + a * kBwdTile;
+      const float* dnt = mt + A * kBwdTile;
+      const float* dlt = dnt + A * kBwdTile;
+      float dpt[NT][4];
+      scores<NT, false>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);  // dP_a^T = V G_a^T
+
+      // P_a^T = exp(S^T + cn_a - m_a) / den_a; ds_a = P_a^T (dP_a^T - delta_a)
+      const float cn0 = Cs[a * kBwdKeys + kl0], cn1 = Cs[a * kBwdKeys + kl0 + 8];
+      float pt[NT][4], ds0 = 0.f, ds1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * t + e;
+          const bool qok = i0 + col < T;
+          const float m = mt[col], inv = qok ? 1.f / dnt[col] : 0.f, dl = dlt[col];  // den >= 1
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 2 * r + e;
+            const float p = !qok || kc[r] == kPast ? 0.f : expf(st[n][i] + (r ? cn1 : cn0) - m) * inv;
+            const float ds = p * (dpt[n][i] - dl);
+            pt[n][i] = p;
+            cb[n][i] += ds;
+            if (r) ds1 += ds;
+            else ds0 += ds;
+          }
+        }
+#pragma unroll
+      for (int aa = 0; aa < A; ++aa)  // a static index keeps dc in registers
+        if (aa == a) {
+          dc[aa][0] += ds0;
+          dc[aa][1] += ds1;
+        }
+      accumulate<NT>(adv, pt, Gt, g, t);  // dV += P_a^T G_a
+    }
+    if (!active) continue;
+
+    // comb^T masked to the valid keys; dK += comb^T Q
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (kc[i >> 1] < 0) cb[n][i] = 0.f;
+    accumulate<NT>(adk, cb, Qt, g, t);
+    // comb[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = i0 + 8 * n + 2 * t + e;
+        if (qi >= T) continue;
+        float* row = comb + ((size_t)bh * T + qi) * T;
+        if (kr0 < T) row[kr0] = cb[n][e];
+        if (kr0 + 8 < T) row[kr0 + 8] = cb[n][2 + e];
       }
-    }
-    __syncthreads();  // the whole comb tile is in shared memory
-    // emit comb[bh, q0 + r, k0 + j], keys fastest (coalesced)
-    for (int idx = tid; idx < kBQt * kBKb; idx += blockDim.x) {
-      const int r = idx / kBKb, j = idx % kBKb;
-      if (q0 + r < T && k0 + j < T)
-        comb[((size_t)bh * T + q0 + r) * T + k0 + j] = Cb[j * kCbs + r];
-    }
   }
 
+  // dcn: the four lanes of a key add their query columns, in a fixed order
 #pragma unroll
-  for (int kk = 0; kk < kKPW; ++kk) {
-    const int kj = k0 + warp * kKPW + kk;
+  for (int a = 0; a < A; ++a)
 #pragma unroll
-    for (int a = 0; a < A; ++a) {
-      float d = dc[kk][a];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-      if (lane == 0 && kj < T) dcn[((size_t)bh * A + a) * T + kj] = d;
+    for (int r = 0; r < 2; ++r) {
+      const float d = quad_sum(dc[a][r]);
+      const int kj = kr0 + 8 * r;
+      if (t == 0 && active && kj < T) dcn[arow + (size_t)a * T + kj] = d;
     }
-    if (kj >= T) continue;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int d = 4 * lane + c;
-      if (d < dh) {
-        dk[base + (size_t)kj * dh + d] = adk[kk][c];
-        dv[base + (size_t)kj * dh + d] = adv[kk][c];
-      }
-    }
-  }
+  if (!active) return;
+  store_rows(dk + base, adk, kr0, 0, T, dh, t, 1.f, 1.f);
+  store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
 }
 
 template <int A>
 int launch_bwd(const float* qm, const float* km, const float* vm, const float* cn,
                const float* key_mask, const float* fb, const int* fid,
-               const float* gout, const float* mrow, const float* den,
-               const float* delta, float* dk, float* dv, float* dcn,
+               const float* gout, const float* out, const float* mrow, const float* den,
+               float* delta, float* dk, float* dv, float* dcn,
                float* comb, int B, int H, int T, int dh, int F,
                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)2 * kBKb * stride_q(dh) +
-                                       (1 + A) * kBQt * stride_k(dh) +
-                                       kWarps * A * kKPW * kBQt + kBKb * kCbs +
-                                       A * kBKb + 3 * A * kBQt + F * F + kBKb) +
-                      sizeof(int) * (kBKb + kBQt);
-  cudaError_t e = cudaFuncSetAttribute(
-      mm_bwd_dkv<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int rows = B * H * A * T;
+  mm_bwd_delta<<<(rows + 7) / 8, 256, 0, stream>>>(out, gout, delta, rows, dh);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = sizeof(float) * ((size_t)(2 * kBwdKeys + 4 * kBwdTile) * kLd +
+                                       6 * A * kBwdTile + A * kBwdKeys + F * F) +
+                      sizeof(int) * 2 * kBwdTile;
+  e = cudaFuncSetAttribute(mm_bwd_dkv<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
                    aligned16(gout);
-  dim3 grid((T + kBKb - 1) / kBKb, B * H);
-  mm_bwd_dkv<A><<<grid, kWarps * 32, smem, stream>>>(
+  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H);
+  mm_bwd_dkv<A><<<grid, kBwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn,
       comb, H, T, dh, F, vec);
   return (int)cudaGetLastError();
@@ -546,11 +543,12 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
 
 }  // namespace
 
+// delta: (B,H,A,T) scratch, written here from gout and the forward's out
 extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, const float* gout,
-                          const float* mrow, const float* den,
-                          const float* delta, float* dk, float* dv, float* dcn,
+                          const float* out, const float* mrow, const float* den,
+                          float* delta, float* dk, float* dv, float* dcn,
                           float* comb, int B, int H, int A, int T, int dh,
                           int F, void* stream) {
   if (dh > kMaxDh || dh < 1) return (int)cudaErrorInvalidValue;
@@ -558,8 +556,8 @@ extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOG_MM_BWD_CASE(n)                                                    \
   case n:                                                                     \
-    return launch_bwd<n>(qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, \
-                         delta, dk, dv, dcn, comb, B, H, T, dh, F, s);
+    return launch_bwd<n>(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow,  \
+                         den, delta, dk, dv, dcn, comb, B, H, T, dh, F, s);
   switch (A) {
     VOG_MM_BWD_CASE(1)
     VOG_MM_BWD_CASE(2)

@@ -1,6 +1,6 @@
 // 3xTF32 matrix products on Hopper's tensor cores (mma.sync m16n8k8),
-// shared by grounding_head.cu and, through tiles.cuh, the attention
-// kernels (attention.cu, mm_attention.cu).
+// shared, through tiles.cuh, by every product kernel (attention.cu,
+// mm_attention.cu, grounding_head.cu).
 //
 // Plain TF32 keeps 10 mantissa bits and misses the port's fp32 parity bound
 // (1e-4 x max(1, max|ref|)).  3xTF32 splits each fp32 operand x into a TF32
@@ -78,14 +78,6 @@ __device__ inline void load_b(const float* __restrict__ W, int ld, int k0, int n
   const int g = lane >> 2, t = lane & 3;
   v[0] = __ldg(W + (size_t)(k0 + t) * ld + n0 + g);
   v[1] = __ldg(W + (size_t)(k0 + t + 4) * ld + n0 + g);
-}
-
-// raw B fragment of the 8x8 tile at (k0, n0) of W^T, W row-major (n, k)
-__device__ inline void load_bt(const float* __restrict__ W, int ld, int k0, int n0, int lane,
-                               float (&v)[2]) {
-  const int g = lane >> 2, t = lane & 3;
-  v[0] = __ldg(W + (size_t)(n0 + g) * ld + k0 + t);
-  v[1] = __ldg(W + (size_t)(n0 + g) * ld + k0 + t + 4);
 }
 
 }  // namespace

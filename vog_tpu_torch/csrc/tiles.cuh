@@ -1,6 +1,7 @@
 // Shared-memory tiles of (T, dh) fp32 matrices and the 3xTF32 products
-// over them, shared by the attention kernels (attention.cu and the
-// forward of mm_attention.cu).
+// over them, shared by the attention kernels (attention.cu and
+// mm_attention.cu, forward and backward); grounding_head.cu takes its
+// cp.async helpers.
 //
 //  * The head dim is a compile-time 128 (smaller dh is zero padded), so
 //    every loop over it unrolls and the loads run ahead of the products.
@@ -56,6 +57,11 @@ __device__ inline void cp_async4(float* dst, const float* src, bool ok) {
 }
 __device__ inline void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ inline void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ inline void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Asynchronous copy, by a block of THREADS threads, of rows [row0, row0 +
 // ROWS) of a (T, dh) matrix into shared memory (row stride kLd),
@@ -190,6 +196,28 @@ __device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4],
       mma3(acc[n], ab, as, bb, bs);
     }
   }
+}
+
+// out[r] = sum_d x[r, d] y[r, d] over (rows, dh) matrices, a warp a row of
+// a 256-thread block (8 rows a block): a backward's delta
+__device__ inline void row_dots(const float* __restrict__ x, const float* __restrict__ y,
+                                float* __restrict__ out, int rows, int dh) {
+  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  float sum = 0.f;
+  if (dh % 4 == 0 && aligned16(x) && aligned16(y)) {
+    const float4* x4 = reinterpret_cast<const float4*>(x + (size_t)r * dh);
+    const float4* y4 = reinterpret_cast<const float4*>(y + (size_t)r * dh);
+    for (int c = lane; c < dh / 4; c += 32) {
+      const float4 a = __ldg(x4 + c), b = __ldg(y4 + c);
+      sum += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+    }
+  } else {
+    for (int d = lane; d < dh; d += 32) sum += x[(size_t)r * dh + d] * y[(size_t)r * dh + d];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) out[r] = sum;
 }
 
 __device__ inline float quad_max(float x) {

@@ -16,9 +16,14 @@ Backward: replaces §_fused_head_bwd (``_bwd_kernel``, all 9 gradients).
 The TPU kernel accumulates the (D,D) and (D,Dh) weight gradients in VMEM
 across its sequential grid; CUDA blocks run in parallel, so the card runs
 two kernels (csrc/grounding_head.cu): ``head_bwd_rows`` recomputes the
-tiles per (b, 16 tokens) and writes dvis, dwv, h, dz0, dz1 and per-block
-partials of darg, dwl, db1, dw2; ``head_bwd_w`` forms dWx = sum cross^T dz0
-and dW1 = sum h^T dz1 in row chunks.  The partials are added up here in a
+tiles per (b, 16 tokens), its weights streamed by ``cp.async`` into per-warp
+rings, and writes dvis, dwv, the cross rows, h, dz0, dz1 and per-block
+partials of darg, dwl, db1, dw2; ``head_bwd_w``, one launch for both
+weights, forms dWx = sum cross^T dz0 and dW1 = sum h^T dz1 in row chunks
+(rows streamed by ``cp.async``).  The batch rows past the row kernel's
+first wave run on a second stream, so that the weight kernel's first
+chunks fill the SMs its second wave leaves idle; the caller's stream
+waits for it.  The partials are added up here in a
 fixed order (``sum`` over a dimension), so the gradients do not change
 between runs.  All products run in 3xTF32, as the forward.
 ``fused_grounding_head`` is a ``torch.autograd.Function``: the CUDA
@@ -33,7 +38,10 @@ from vog_tpu_torch.kernels import _build
 
 NAME = "fused_grounding_head"
 NAME_BWD = "fused_grounding_head_bwd"
-W_CHUNKS = 8  # row chunks of the weight-gradient kernel (blocks in flight)
+# row chunks of the weight-gradient kernel: at GT5 its 48 output tiles x 11
+# chunks = 528 blocks, two blocks on each of the H100's 132 SMs twice over
+# (split 6 + 5 between the row kernel's two parts)
+W_CHUNKS = 11
 ROW_TOKENS = 16  # tokens a block of the row kernel (kBT in csrc/grounding_head.cu)
 
 
@@ -130,15 +138,15 @@ def grounding_head_bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
         raise ValueError(f"{NAME_BWD}: g shape {tuple(g.shape)} != {(B, A, T)}")
     nt = -(-T // ROW_TOKENS)
     e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    h, dz0, dz1 = e(B, A, T, D), e(B, A, T, D), e(B, A, T, Dh)
+    cross, h, dz0, dz1 = e(B, A, T, D), e(B, A, T, D), e(B, A, T, D), e(B, A, T, Dh)
     dvis, dwv = e(B, T, D), e(B, T, D)
     darg_p, dwl_p = e(B, nt, A, D), e(B, nt, A, D)
     db1_p, dw2_p = e(B, nt, Dh), e(B, nt, Dh)
     dwx_p, dw1_p = e(W_CHUNKS, D, D), e(W_CHUNKS, D, Dh)
     P, I = _build.P, _build.I
-    fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 20 + [I] * 6 + [P])
+    fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 21 + [I] * 6 + [P])
     rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), wx.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(), h.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(), cross.data_ptr(), h.data_ptr(),
             dz0.data_ptr(), dz1.data_ptr(), dvis.data_ptr(), dwv.data_ptr(),
             darg_p.data_ptr(), dwl_p.data_ptr(), db1_p.data_ptr(), dw2_p.data_ptr(),
             dwx_p.data_ptr(), dw1_p.data_ptr(), B, A, T, D, Dh, W_CHUNKS,

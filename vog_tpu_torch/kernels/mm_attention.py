@@ -22,9 +22,12 @@ device memory.  One library call computes the same output:
 kernel's yardstick; the port never calls it.
 
 Backward: replaces §_mm_attn_bwd in the TPU package's default "emit" mode.
-One CUDA kernel (csrc/mm_attention.cu, mm_bwd_dkv) recomputes p_a from the
-saved per-arg row max and denominator and writes dk, dv, dcn and the
-summed score gradient comb = sum_a ds_a (B*H, T, T); dq = comb . km and the
+Two CUDA kernels (csrc/mm_attention.cu): mm_bwd_delta forms delta_a =
+rowsum(g_a * out_a); mm_bwd_dkv (3xTF32 ``mma.sync``, a block of 4 warps
+owns 64 keys and streams 16-row query tiles and each arg's g_a tile by
+``cp.async``) computes each score tile once for all args, recomputes p_a
+from the saved per-arg row max and denominator and writes dk, dv, dcn and
+the summed score gradient comb = sum_a ds_a (B*H, T, T); dq = comb . km and the
 frame-bias gradient (onehot^T comb onehot, summed over b) are plain
 products over it, as the TPU package leaves them to XLA.  Emit rather than
 recompute: recompute would redo the A g_a.vm products for dq (A+1 extra
@@ -151,7 +154,7 @@ def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out,
 
 def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g):
     """Backward of ``mm_attention_fwd`` -> (dq, dk, dv, dcn, dfb): the CUDA
-    kernel and two products over its comb on the card, the plain version
+    kernels and two products over their comb on the card, the plain version
     on the CPU."""
     if qm.device.type == "cpu":
         return mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
@@ -166,16 +169,17 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
         raise ValueError(f"{NAME_BWD}: g shape {tuple(g.shape)} != out shape")
     for name, t in (("mrow", mrow), ("den", den)):
         _build.require(t, name, torch.float32, 4, dev)
-    delta = (g * out).sum(-1).contiguous()  # (B,H,A,T)
+    _build.require(out, "out", torch.float32, 5, dev)
+    delta = torch.empty_like(cn)  # (B,H,A,T) rowsum(g * out), written by the kernel
     dk, dv = torch.empty_like(km), torch.empty_like(vm)
     dcn = torch.empty_like(cn)
     comb = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 15 + [I] * 6 + [P])
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 16 + [I] * 6 + [P])
     rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
-            frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), mrow.data_ptr(),
-            den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dcn.data_ptr(),
-            comb.data_ptr(), B, H, A, T, dh, Fn, _build.stream_ptr(qm))
+            frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
+            mrow.data_ptr(), den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dcn.data_ptr(), comb.data_ptr(), B, H, A, T, dh, Fn, _build.stream_ptr(qm))
     _build.check(rc, NAME_BWD)
     _build.count(NAME_BWD)
     dq, dfb = _dq_dfb(comb, km, frame_ids, Fn, H)
