@@ -6,7 +6,9 @@
 Phases, each printing its own lines; any failure exits non-zero before
 the last line:
 
-1. card: ``nvidia-smi`` name and power limit, the device name; TF32 off;
+1. card: ``nvidia-smi`` name and power limit, the device name (TF32 is
+   off by PyTorch's default for matmuls, and ``get_model`` turns both
+   switches off from ``misc.matmul_precision``);
 2. build: nvcc builds every kernel of ``vog_tpu_torch/csrc`` (in parallel);
 3. kernels: each of the four forward kernels against its plain PyTorch version on
    the card, at the serving path's shapes (GT5 SPAT, B=16): bitwise for
@@ -37,7 +39,8 @@ the last line:
    by kernel (torch.profiler), the device's busy time (the union of the
    kernels' intervals; their summed times beside it), and the idle share
    of each span;
-6. backward kernels: each of the three against its plain backward on the
+6. backward kernels: each of the three, flash and mm in both of their
+   modes ("recompute" and "emit"), against its plain backward on the
    card at the GT5 shapes (flash with and without the frame bias, a batch
    row with every key masked; the head with the upstream gradient zeroed
    on the rows within 2e-5 of a ReLU kink), and each plain backward
@@ -55,8 +58,18 @@ the last line:
    that comparison; (b) 30 steps: every loss finite, no step dropped by
    the guard, the first and last loss, the median step time and samples/s,
    the launches per step of all seven kernels (each > 0) and one profiled
-   step's device idle share; (c) the state after (b) through (a)'s
-   comparison once more.
+   step's device idle share, and the peak memory of a step; (c) the state
+   after (b) through (a)'s comparison once more.  Both comparisons are
+   kink-aware (``kink_keep``);
+8. P100 (T=4000, B=2), after the GT5 tables are freed: the int8 store of
+   the JAX package's single-chip P100 run (5,549 rows, 11,557 MB) made on
+   the card, then phases 3-6 at P100 shapes (serve: 16 requests, 4
+   clients, max_batch 2, scores against the plain path on the card,
+   ``plain_kernels``), and phase 7 with the JAX package's P100 recipe for
+   10 steps in each backward-mode pair (``MODE_PAIRS``: flash recompute +
+   mm emit, flash emit + mm recompute), compared with the plain path on
+   the card; then the peak memory of one step in the other two mode
+   combinations.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -65,7 +78,10 @@ package.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -134,15 +150,20 @@ def time_ms(fn, reps: int = 15, inner: int = 10, warm: int = 3, queued: bool = T
     return statistics.median(ts)
 
 
-def timings(kernel, plain, library=None) -> dict:
+# time_ms's (reps, inner) at GT5, and at P100, whose calls each take
+# milliseconds (the plain versions tens of them)
+TIMING = {"gt5": (15, 10), "p100": (7, 3)}
+
+
+def timings(kernel, plain, library=None, reps: int = 15, inner: int = 10) -> dict:
     """A kernel's wrapper, its plain version and the library call (None:
     none), each timed both ways of ``time_ms``: device time (``ms``,
     ``plain_ms``, ``library_ms``) and with the host's issue (``issue_ms``,
     ``plain_issue_ms``, ``library_issue_ms``)."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        out[key + "ms"] = None if fn is None else time_ms(fn)
-        out[key + "issue_ms"] = None if fn is None else time_ms(fn, queued=False)
+        out[key + "ms"] = None if fn is None else time_ms(fn, reps, inner)
+        out[key + "issue_ms"] = None if fn is None else time_ms(fn, reps, inner, queued=False)
     return out
 
 
@@ -229,8 +250,6 @@ def phase_card():
     name = torch.cuda.get_device_name(0)
     print(f"[card] device={name} count={torch.cuda.device_count()} torch={torch.__version__} "
           f"cuda={torch.version.cuda}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return name, card
 
 
@@ -241,13 +260,23 @@ def phase_build():
     print(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f} s into {_build.build_dir()}", flush=True)
     for src in _build.SOURCES:
         log = _build.build_dir() / f"{Path(src).stem}.log"
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    print(f"[build] {src}: {line.strip()}", flush=True)
+        if not log.exists():
+            continue
+        fn, spill = "?", ""
+        for line in log.read_text().splitlines():  # ptxas -v: properties, spills, then registers
+            if "Function properties for" in line:
+                # the mangled name, short: "mm_bwd_dqILi8EE" is mm_bwd_dq<8>
+                fn = line.rsplit(" ", 1)[-1].split("_cu_", 1)[-1][8:].split("Ev", 1)[0].lstrip("0123456789")
+            elif "spill" in line:
+                spill = line.strip()
+            elif "Used" in line:
+                print(f"[build] {src} {fn}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
 
 
-def serve_cfg():
+def serve_cfg(exp_setting: str = "gt5"):
+    """The production model (fp32 activations, matmul precision
+    "highest"); GT5 with bf16 tables, or P100 (100 proposals a frame,
+    T = 4000) with int8 tables, as the JAX package's single-chip P100 run."""
     from vog_tpu_torch.config import Cfg, post_proc_config
 
     cfg = Cfg()  # production widths: vis 512, 4 heads, lstm 256, emb 300, role 128
@@ -258,8 +287,9 @@ def serve_cfg():
     cfg.mdl.mm_tx_layers = 1
     cfg.mdl.dtype = "float32"
     cfg.ds.conc_type = "spat"
-    cfg.ds.exp_setting = "gt5"
-    cfg.misc.half_feats = True
+    cfg.ds.exp_setting = exp_setting
+    cfg.misc.half_feats = exp_setting == "gt5"
+    cfg.misc.int8_feats = exp_setting == "p100"
     return post_proc_config(cfg)
 
 
@@ -271,6 +301,8 @@ def phase_kernels(cfg, tables, B: int = 16):
     from vog_tpu_torch.data.device_store import _pack_rows
     from vog_tpu_torch.kernels import attention, grounding_head, gather, mm_attention
 
+    tag = cfg.ds.exp_setting
+    reps, inner = TIMING[tag]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -281,15 +313,17 @@ def phase_kernels(cfg, tables, B: int = 16):
     rows[0, 1] = rows[0, 0]  # a duplicate row
     out = []
 
-    # -- gather: bitwise in bf16 (the resident tables), f32 and int8 ------
-    feats, seg = tables.tables["feats"], tables.tables["seg"]
-    for name, t in (("bf16 feats", feats), ("bf16 seg", seg)):
+    # -- gather: bitwise in the resident tables' type (and their int8
+    # scales), f32 and int8 ------------------------------------------------
+    feats = tables.tables["feats"]
+    for name, t in tables.tables.items():
         if not torch.equal(gather.gather_rows(t, rows), gather.gather_rows_plain(t, rows)):
-            fail(f"gather_rows {name}: not bitwise equal to the plain version")
-    small = torch.randn((512, F, P, cfg.ds.prop_dim), generator=g, device=dev) * 0.3
+            fail(f"gather_rows {name} ({t.dtype}): not bitwise equal to the plain version")
+    n_small = min(512, (256 << 20) // (F * P * cfg.ds.prop_dim * 4))  # at most 256 MB of f32 rows
+    small = torch.randn((n_small, F, P, cfg.ds.prop_dim), generator=g, device=dev) * 0.3
     for dt, int8 in ((torch.float32, False), (torch.int8, True)):
         t = _pack_rows({"feats": small}, dt, int8)["feats"]
-        r = torch.randint(-5, 520, (B, V), generator=g, device=dev, dtype=torch.int32)  # out of range too
+        r = torch.randint(-5, n_small + 8, (B, V), generator=g, device=dev, dtype=torch.int32)  # out of range too
         if not torch.equal(gather.gather_rows(t, r), gather.gather_rows_plain(t, r)):
             fail(f"gather_rows {t.dtype}: not bitwise equal to the plain version")
     # time over 8 row sets (8 x 13 MB > the 50 MB L2), so each call reads
@@ -308,14 +342,15 @@ def phase_kernels(cfg, tables, B: int = 16):
 
         times[nb] = timings(lambda: gather.gather_rows(feats, nxt()),
                             lambda: gather.gather_rows_plain(feats, nxt()),
-                            lambda: torch.index_select(feats, 0, nxt().reshape(-1)))
+                            lambda: torch.index_select(feats, 0, nxt().reshape(-1)), reps, inner)
         times[nb]["bound_ms"] = bound_ms(2 * nb * V * row_bytes + nbytes(sets[0]), 0)[0]
     t, b1 = times[B], times[1]
     out.append(dict(name="gather_rows", route="cuda", source="vog_tpu_torch/csrc/gather.cu",
                     replaces="vog_tpu/kernels/gather.py:79", max_abs_err=0.0, bound_by="bytes", **t,
-                    shape=f"bf16 table {tuple(feats.shape)}, rows {tuple(rows.shape)}",
+                    shape=f"{feats.dtype} table {tuple(feats.shape)}, rows {tuple(rows.shape)}",
                     **{"b1_" + k: x for k, x in b1.items()}))
-    print(f"[kernels] gather_rows bitwise (bf16 feats+seg, f32, int8); device/with issue: B={B}: "
+    print(f"[kernels {tag}] gather_rows bitwise ({', '.join(tables.tables)} as resident; f32, int8); "
+          f"device/with issue: B={B}: "
           f"{fmt_times(t, 'index_select')} bound={t['bound_ms']:.4f}; B=1 ({V} rows): "
           f"{fmt_times(b1, 'index_select')} bound={b1['bound_ms']:.4f}", flush=True)
 
@@ -337,13 +372,14 @@ def phase_kernels(cfg, tables, B: int = 16):
     bmask = (mask > 0)[:, None, None, :]
     t = timings(lambda: attention.flash_attention_fwd(q, k, v, mask),
                 lambda: attention.flash_attention_plain(q, k, v, mask),
-                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask))
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask),
+                reps, inner)
     fl = 4.0 * B * H * T * T * dh
     bms, by = bound_ms(nbytes(q, k, v, mask) + nbytes(q) + B * H * T * 4, fl)
     out.append(dict(name="flash_attention", route="cuda", source="vog_tpu_torch/csrc/attention.cu",
                     replaces="vog_tpu/kernels/attention.py:286", max_abs_err=err, **t,
                     bound_ms=bms, bound_by=by, shape=f"q,k,v {tuple(q.shape)} f32, no bias"))
-    print(f"[kernels] flash_attention max_err={err:.3e} (no bias, spat bias, mixed-frame bias) "
+    print(f"[kernels {tag}] flash_attention max_err={err:.3e} (no bias, spat bias, mixed-frame bias) "
           f"{fmt_times(t, 'sdpa')} bound={bms:.4f}", flush=True)
 
     # -- mm shared-QK attention -------------------------------------------
@@ -362,7 +398,8 @@ def phase_kernels(cfg, tables, B: int = 16):
     ref = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)[0]
     lib_rel = check_yardstick("mm_shared_qk_attention sdpa", sdpa().reshape(ref.shape), ref)
     t = timings(lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat),
-                lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat), sdpa)
+                lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat), sdpa,
+                reps, inner)
     del q_rep, fmask
     fl = 2.0 * B * H * T * T * dh * (1 + A)
     out_b = B * H * A * T * (dh + 2) * 4
@@ -371,7 +408,7 @@ def phase_kernels(cfg, tables, B: int = 16):
                     replaces="vog_tpu/kernels/mm_attention.py:315", max_abs_err=err, **t,
                     bound_ms=bms, bound_by=by, shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32",
                     library=f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}"))
-    print(f"[kernels] mm_shared_qk_attention max_err={err:.3e} {fmt_times(t, 'sdpa')} "
+    print(f"[kernels {tag}] mm_shared_qk_attention max_err={err:.3e} {fmt_times(t, 'sdpa')} "
           f"(sdpa rel err vs kernel {lib_rel:.2e}) bound={bms:.4f}", flush=True)
 
     # -- fused grounding head ----------------------------------------------
@@ -389,13 +426,13 @@ def phase_kernels(cfg, tables, B: int = 16):
     err = check_close("fused_grounding_head", grounding_head.fused_grounding_head(*args),
                       grounding_head.grounding_head_plain(*args))
     t = timings(lambda: grounding_head.fused_grounding_head(*args),
-                lambda: grounding_head.grounding_head_plain(*args))
+                lambda: grounding_head.grounding_head_plain(*args), None, reps, inner)
     fl = 2.0 * B * A * T * (D * D + D * Dh + Dh)
     bms, by = bound_ms(nbytes(*args) + B * A * T * 4, fl)
     out.append(dict(name="fused_grounding_head", route="cuda", source="vog_tpu_torch/csrc/grounding_head.cu",
                     replaces="vog_tpu/kernels/grounding_head.py:190", max_abs_err=err, **t,
                     bound_ms=bms, bound_by=by, shape=f"vis {tuple(vis.shape)}, A={A} f32"))
-    print(f"[kernels] fused_grounding_head max_err={err:.3e} {fmt_times(t)} bound={bms:.4f}", flush=True)
+    print(f"[kernels {tag}] fused_grounding_head max_err={err:.3e} {fmt_times(t)} bound={bms:.4f}", flush=True)
     return out
 
 
@@ -431,7 +468,13 @@ def make_requests(cfg, n: int, n_rows: int, vocab: int, seed: int):
     return reqs
 
 
-def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8):
+def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, max_batch: int = 16,
+                buckets=(1, 2, 4, 8), ref_on: str = "cpu", n_ref: int = 4):
+    """``n_requests`` vid_rows requests from ``clients`` threads through
+    ``ServingLoop``; the scores of the first ``n_ref`` against the same
+    weights on the plain path: on the CPU (``ref_on="cpu"``), or on the
+    card with every float kernel swapped for its plain version
+    (``"plain"``: a T=4000 plain forward on the host is slow)."""
     import numpy as np
     import torch
 
@@ -440,6 +483,7 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8):
     from vog_tpu_torch.serve import Predictor
     from vog_tpu_torch.serving import ServingLoop
 
+    tag = cfg.ds.exp_setting
     vocab = 5000
     pred = Predictor(cfg, None, vocab, tables=tables.tables, device="cuda")
     flushes = [0]
@@ -451,7 +495,8 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8):
 
     pred.dispatch = counted
     reqs = make_requests(cfg, n_requests, tables.n_rows, vocab, seed=0)
-    loop = ServingLoop(pred, max_batch=16, max_wait_ms=2.0, pipeline_depth=2, bucket_sizes=[1, 2, 4, 8])
+    loop = ServingLoop(pred, max_batch=max_batch, max_wait_ms=2.0, pipeline_depth=2,
+                       bucket_sizes=list(buckets))
     results, lat = [None] * n_requests, [0.0] * n_requests
     errors = []
     try:
@@ -499,46 +544,56 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8):
         if counts.get(n, 0) <= 0:
             fail(f"kernel {n} was not launched on the serving path (counts {counts})")
 
-    # the same weights through the plain path on the CPU, features gathered
-    # from the card's tables (bf16 -> f32 is exact)
-    n_ref = 4
-    sd = {k: v.cpu() for k, v in pred.model.state_dict().items()}
-    cpu = Predictor(cfg, sd, vocab, device="cpu")
     sub = {k: np.stack([r[k] for r in reqs[:n_ref]]) for k in reqs[0]}
-    with torch.no_grad():
-        g = gather_from_tables(
-            {"vid_rows": torch.from_numpy(sub["vid_rows"]).cuda(),
-             "prop_mask": torch.from_numpy(sub["prop_mask"]).cuda()}, tables.tables)
-    full = {k: v for k, v in sub.items() if k != "vid_rows"}
-    full["props"] = g["props"].cpu().numpy()
-    full["seg_feats"] = g["seg_feats"].cpu().numpy()
-    full["batch_mask"] = np.ones((n_ref,), np.uint8)
-    ref = cpu(full)
+    sub["batch_mask"] = np.ones((n_ref,), np.uint8)
+    if ref_on == "cpu":
+        # the same weights through the plain path on the CPU, features
+        # gathered from the card's tables (bf16 -> f32 is exact)
+        sd = {k: v.cpu() for k, v in pred.model.state_dict().items()}
+        cpu = Predictor(cfg, sd, vocab, device="cpu")
+        with torch.no_grad():
+            g = gather_from_tables(
+                {"vid_rows": torch.from_numpy(sub["vid_rows"]).cuda(),
+                 "prop_mask": torch.from_numpy(sub["prop_mask"]).cuda()}, tables.tables)
+        full = {k: v for k, v in sub.items() if k != "vid_rows"}
+        full["props"] = g["props"].cpu().numpy()
+        full["seg_feats"] = g["seg_feats"].cpu().numpy()
+        ref = cpu(full)
+    else:  # the same predictor on the card, its float kernels swapped for their plain versions
+        undo = plain_kernels(FAMILIES)
+        try:
+            ref = pred(sub)
+        finally:
+            undo()
     valid = sub["prop_mask"][:, None].astype(bool).repeat(A, 1)
     got = np.stack([results[i]["scores"] for i in range(n_ref)])
     scale = max(1.0, float(np.abs(ref["scores"][valid]).max()))
     err = float(np.abs(got[valid] - ref["scores"][valid]).max())
     tol = 2e-4 * scale  # fp32 on both sides, sums in another order
     if not err <= tol:
-        fail(f"served scores differ from the CPU plain path: {err:.3e} > {tol:.3e}")
+        fail(f"served scores differ from the plain path ({ref_on}): {err:.3e} > {tol:.3e}")
     cand = ref["scores"].transpose(0, 1, 3, 2, 4).reshape(n_ref, A, F, V * P)
     top2 = np.sort(cand, -1)[..., -2:]
     clear = (top2[..., 1] - top2[..., 0]) > 2 * tol
     for k in ("pred_vid", "pred_prop"):
         gk = np.stack([results[i][k] for i in range(n_ref)])
         if not np.array_equal(gk[clear], ref[k][clear]):
-            fail(f"{k} differs from the CPU plain path where the top-2 margin exceeds {2 * tol:.2e}")
+            fail(f"{k} differs from the plain path ({ref_on}) where the top-2 margin exceeds {2 * tol:.2e}")
     p50, p95 = np.percentile(lat, 50), np.percentile(lat, 95)
     rps = n_requests / wall
-    print(f"[serve] {n_requests} requests, {clients} clients, max_batch 16: p50={p50:.2f} ms "
+    print(f"[serve {tag}] {n_requests} requests, {clients} clients, max_batch {max_batch}: p50={p50:.2f} ms "
           f"p95={p95:.2f} ms {rps:.1f} req/s on {card}", flush=True)
-    print(f"[serve] launches on the serving path: {counts} over {flushes[0]} flushes; CPU-vs-card score max err {err:.3e} "
-          f"(tol {tol:.2e}), {int(clear.sum())}/{clear.size} argmaxes compared", flush=True)
+    print(f"[serve {tag}] launches on the serving path: {counts} over {flushes[0]} flushes; score max err "
+          f"{err:.3e} against the plain path ({ref_on}) (tol {tol:.2e}), {int(clear.sum())}/{clear.size} "
+          f"argmaxes compared", flush=True)
     return pred, reqs, counts, dict(p50_ms=p50, p95_ms=p95, requests_per_s=rps,
                                     n_requests=n_requests, flushes=flushes[0])
 
 
 KINK_EPS = 2e-5  # a ReLU input this close to 0 may take either side in another rounding
+# the mm layer's FFN: 2,048 ReLUs a logit (the head has 768); at KINK_EPS
+# they alone zeroed 5 % of the logits, 7.4 % in all, over MAX_KINK_SHARE
+FFN_KINK_EPS = 5e-6
 MAX_KINK_SHARE = 0.05  # a check fails when more of its rows or logits than this are zeroed
 
 
@@ -567,14 +622,39 @@ def away_from_kinks(vis, arg, wv, wl, wx, w1, b1, g, eps: float = KINK_EPS):
     return torch.where(near, torch.zeros_like(g), g), float(near.double().mean())
 
 
+# the rows of each backward function, one a mode: (mode, its name, the TPU
+# kernel it replaces), the JAX package's default mode first
+BWD_MODES = {
+    "flash_attention_bwd": (
+        ("recompute", "flash_attention_bwd", "vog_tpu/kernels/attention.py:344"),
+        ("emit", "flash_attention_bwd_emit", "vog_tpu/kernels/attention.py:165")),
+    "mm_shared_qk_attention_bwd": (
+        ("emit", "mm_shared_qk_attention_bwd", "vog_tpu/kernels/mm_attention.py:383"),
+        ("recompute", "mm_shared_qk_attention_bwd_recompute", "vog_tpu/kernels/mm_attention.py:238")),
+}
+
+
+# each backward's outputs, for the checks' messages
+OUT_NAMES = {
+    "flash_attention_bwd": ("dq", "dk", "dv", "dfb"),
+    "mm_shared_qk_attention_bwd": ("dq", "dk", "dv", "dcn", "dfb"),
+    "fused_grounding_head_bwd": ("dvis", "darg", "dwv", "dwl", "dwx", "dw1", "db1", "dw2", "db2"),
+}
+OUT_NAMES.update({name: OUT_NAMES[fn] for fn, modes in BWD_MODES.items() for _, name, _ in modes})
+
+
 def phase_kernels_bwd(cfg, B: int = 16):
-    """Each backward kernel against its plain backward, and each plain
-    backward against autograd of its plain forward, on the card at the
-    training path's shapes; returns the kernel table rows."""
+    """Each backward kernel, in each of its modes, against its plain
+    backward, and each plain backward against autograd of its plain
+    forward, on the card at the training path's shapes; the two modes of a
+    function against each other; returns the kernel table rows (one a
+    mode: the modes compute the same function and share its bound)."""
     import torch
 
     from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
 
+    tag = cfg.ds.exp_setting
+    reps, inner = TIMING[tag]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(2)
@@ -588,6 +668,21 @@ def phase_kernels_bwd(cfg, B: int = 16):
               for i, a in enumerate(args)]
         return torch.autograd.grad(fwd(*xs), [xs[i] for i in diff], cot)
 
+    def mode_rows(fn, got_by_mode, timed, lib, lib_note, bound, base):
+        """One row a mode of ``fn``'s backward (the plain version and the
+        library call timed once for both); prints the modes' gap."""
+        gap = max(max_err(x, y) for x, y in zip(*got_by_mode.values()))
+        shared = timings(None, lambda: timed(None, plain=True), lib, reps, inner)
+        for mode, name, replaces in BWD_MODES[fn]:
+            t = {**shared, **{k: v for k, v in timings(lambda: timed(mode), None, None, reps, inner).items()
+                               if k in ("ms", "issue_ms")}}
+            out.append(dict(name=name, mode=mode, replaces=replaces, max_abs_err=base[mode], **t,
+                            bound_ms=bound[0], bound_by=bound[1], modes_max_abs_diff=gap, library=lib_note,
+                            **base["row"]))
+            print(f"[kernels-bwd {tag}] {name} ({mode}) max_err={base[mode]:.3e} {fmt_times(t, 'sdpa-bwd')} "
+                  f"bound={bound[0]:.4f}", flush=True)
+        print(f"[kernels-bwd {tag}] {fn}: max |emit - recompute| {gap:.3e} over the outputs", flush=True)
+
     # -- flash attention backward -----------------------------------------
     q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
     mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
@@ -597,51 +692,62 @@ def phase_kernels_bwd(cfg, B: int = 16):
     fid_mixed = torch.randint(0, F, (T,), generator=g, device=dev, dtype=torch.int32)
     fb = torch.randn((H, F, F), generator=g, device=dev) * 0.5
     do = torch.randn((B, H, T, dh), generator=g, device=dev)
-    err = 0.0
+    err = {"recompute": 0.0, "emit": 0.0}
     for bias, fid in ((None, None), (fb, fid_spat), (fb, fid_mixed)):
         o, lse = attention.flash_attention_fwd(q, k, v, mask, bias, fid)
-        got = attention.flash_attention_bwd(q, k, v, mask, bias, fid, o, lse, do)
         ref = attention.flash_attention_bwd_plain(q, k, v, mask, bias, fid, o, lse, do)
         diff = (0, 1, 2) if bias is None else (0, 1, 2, 4)
         auto = autograd_of(lambda *a: attention.flash_attention_plain(*a)[0],
                            (q, k, v, mask, bias, fid), diff, do)
-        for x, y, z in zip(got, ref, auto):
-            err = max(err, check_close("flash_attention_bwd", x, y))
-            check_close("flash_attention_bwd_plain vs autograd", y, z)
+        for out_name, y, z in zip(OUT_NAMES["flash_attention_bwd"], ref, auto):
+            check_close(f"flash_attention_bwd_plain {out_name} vs autograd", y, z)
+        got = {}
+        for mode, name, _ in BWD_MODES["flash_attention_bwd"]:
+            # without a bias the frame-bias gradient is not returned (autograd gives none)
+            got[mode] = attention.flash_attention_bwd(q, k, v, mask, bias, fid, o, lse, do,
+                                                      bwd_mode=mode)[: len(diff)]
+            for out_name, x, y in zip(OUT_NAMES[name], got[mode], ref):
+                err[mode] = max(err[mode], check_close(f"{name} {out_name}", x, y))
     o, lse = attention.flash_attention_fwd(q, k, v, mask)
     qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
     sd = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=(mask > 0)[:, None, None, :])
-    t = timings(lambda: attention.flash_attention_bwd(q, k, v, mask, None, None, o, lse, do),
-                lambda: attention.flash_attention_bwd_plain(q, k, v, mask, None, None, o, lse, do),
-                lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True))
     fl = 10.0 * B * H * T * T * dh  # S, dP, dV, dK, dQ: 2*T*T*dh each, from the saved o and lse
-    bms, by = bound_ms(nbytes(q, k, v, o, do, lse, mask) + 3 * nbytes(q), fl)
-    out.append(dict(name="flash_attention_bwd", route="cuda", source="vog_tpu_torch/csrc/attention.cu",
-                    replaces="vog_tpu/kernels/attention.py:344", max_abs_err=err, **t,
-                    bound_ms=bms, bound_by=by,
-                    shape=f"q,k,v {tuple(q.shape)} f32, no bias (checked also with bias)"))
-    print(f"[kernels-bwd] flash_attention_bwd max_err={err:.3e} (no bias, spat bias, mixed-frame bias; "
-          f"one all-masked row) {fmt_times(t, 'sdpa-bwd')} bound={bms:.4f}", flush=True)
+    bound = bound_ms(nbytes(q, k, v, o, do, lse, mask) + 3 * nbytes(q), fl)
+    err["row"] = dict(route="cuda", source="vog_tpu_torch/csrc/attention.cu",
+                      shape=f"q,k,v {tuple(q.shape)} f32, no bias (checked also with bias)")
+    mode_rows("flash_attention_bwd", got,
+              lambda mode, plain=False: (attention.flash_attention_bwd_plain if plain else
+                                         attention.flash_attention_bwd)(
+                  q, k, v, mask, None, None, o, lse, do, bwd_mode=mode),
+              lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True),
+              "SDPA backward, no bias", bound, err)
+    del qs, ks, vs, sd
 
     # -- mm shared-QK attention backward ----------------------------------
     qm = q * (1.0 / dh**0.5)
     cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
     gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
-    err = 0.0
+    err = {"recompute": 0.0, "emit": 0.0}
     for fid in (fid_spat, fid_mixed):
         fwd = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid)
-        got = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *fwd, gm)
         ref = mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid, *fwd, gm)
         auto = autograd_of(lambda *a: mm_attention.mm_attention_plain(*a)[0],
                            (qm, k, v, cn, mask, fb, fid), (0, 1, 2, 3, 5), gm)
-        for x, y, z in zip(got, ref, auto):
-            err = max(err, check_close("mm_shared_qk_attention_bwd", x, y))
-            check_close("mm_shared_qk_attention_bwd_plain vs autograd", y, z)
+        for out_name, y, z in zip(OUT_NAMES["mm_shared_qk_attention_bwd"], ref, auto):
+            check_close(f"mm_shared_qk_attention_bwd_plain {out_name} vs autograd", y, z)
+        del auto
+        got = {}
+        for mode, name, _ in BWD_MODES["mm_shared_qk_attention_bwd"]:
+            got[mode] = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *fwd, gm, bwd_mode=mode)
+            for out_name, x, y in zip(OUT_NAMES[name], got[mode], ref):
+                err[mode] = max(err[mode], check_close(f"{name} {out_name}", x, y))
+        del ref
     fwd = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat)
     # yardstick: SDPA's backward over the repeated query, k, v and the float
     # mask (whose gradient carries dcn and dfb)
     q_rep, fmask = mm_sdpa_inputs(qm, cn, mask, fb, fid_spat)
     leaves = [x.detach().clone().requires_grad_() for x in (q_rep, k, v, fmask)]
+    del q_rep, fmask
     sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
     check_yardstick("mm_shared_qk_attention_bwd sdpa", sd.detach().reshape(fwd[0].shape), fwd[0])
     gsd = gm.reshape(sd.shape)
@@ -652,18 +758,16 @@ def phase_kernels_bwd(cfg, B: int = 16):
         lib_note = "SDPA backward, grads of q (repeated), k, v and the float mask"
     except RuntimeError as e:  # the backend gives the mask no gradient
         lib, lib_note = None, f"none: SDPA gives the float mask no gradient ({str(e)[:120]})"
-    t = timings(lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm),
-                lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm), lib)
-    del q_rep, fmask, leaves, sd, gsd
     fl = 2.0 * B * H * T * T * dh * (3 + 2 * A)
-    bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn), fl)
-    out.append(dict(name="mm_shared_qk_attention_bwd", route="cuda",
-                    source="vog_tpu_torch/csrc/mm_attention.cu",
-                    replaces="vog_tpu/kernels/mm_attention.py:383", max_abs_err=err, **t,
-                    bound_ms=bms, bound_by=by, library=lib_note,
-                    shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32, emit mode (dq, dfb from comb)"))
-    print(f"[kernels-bwd] mm_shared_qk_attention_bwd max_err={err:.3e} {fmt_times(t, 'sdpa-bwd')} "
-          f"({lib_note}) bound={bms:.4f}", flush=True)
+    bound = bound_ms(nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn), fl)
+    err["row"] = dict(route="cuda", source="vog_tpu_torch/csrc/mm_attention.cu",
+                      shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32")
+    mode_rows("mm_shared_qk_attention_bwd", got,
+              lambda mode, plain=False: (mm_attention.mm_attention_bwd_plain if plain else
+                                         mm_attention.mm_attention_bwd)(
+                  qm, k, v, cn, mask, fb, fid_spat, *fwd, gm, bwd_mode=mode),
+              lib, lib_note, bound, err)
+    del leaves, sd, gsd, lib, got
 
     # -- fused grounding head backward ------------------------------------
     Dh = D // 2
@@ -684,11 +788,11 @@ def phase_kernels_bwd(cfg, B: int = 16):
     ref = grounding_head.grounding_head_bwd_plain(*args, gh)
     auto = autograd_of(grounding_head.grounding_head_plain, args, tuple(range(9)), gh)
     err = 0.0
-    for x, y, z in zip(got, ref, auto):
-        err = max(err, check_close("fused_grounding_head_bwd", x, y))
-        check_close("fused_grounding_head_bwd_plain vs autograd", y, z)
+    for out_name, x, y, z in zip(OUT_NAMES["fused_grounding_head_bwd"], got, ref, auto):
+        err = max(err, check_close(f"fused_grounding_head_bwd {out_name}", x, y))
+        check_close(f"fused_grounding_head_bwd_plain {out_name} vs autograd", y, z)
     t = timings(lambda: grounding_head.grounding_head_bwd(*args, gh),
-                lambda: grounding_head.grounding_head_bwd_plain(*args, gh))
+                lambda: grounding_head.grounding_head_bwd_plain(*args, gh), None, reps, inner)
     fl = 6.0 * B * A * T * (D * D + D * Dh)
     bms, by = bound_ms(2 * nbytes(*args) + nbytes(gh), fl)
     out.append(dict(name="fused_grounding_head_bwd", route="cuda",
@@ -696,24 +800,64 @@ def phase_kernels_bwd(cfg, B: int = 16):
                     replaces="vog_tpu/kernels/grounding_head.py:218", max_abs_err=err, **t,
                     bound_ms=bms, bound_by=by,
                     shape=f"vis {tuple(vis.shape)}, A={A} f32, all 9 grads; {kink:.4f} of rows near a kink"))
-    print(f"[kernels-bwd] fused_grounding_head_bwd max_err={err:.3e} {fmt_times(t)} "
+    print(f"[kernels-bwd {tag}] fused_grounding_head_bwd max_err={err:.3e} {fmt_times(t)} "
           f"bound={bms:.4f} (g zeroed on {kink:.4f} of rows near a ReLU kink)", flush=True)
     return out
 
 
 TRAIN_STEPS = 30
-KERNEL_NAMES = ("gather_rows", "flash_attention", "mm_shared_qk_attention", "fused_grounding_head",
-                "flash_attention_bwd", "mm_shared_qk_attention_bwd", "fused_grounding_head_bwd")
+P100_TRAIN_STEPS = 10
+FWD_NAMES = ("gather_rows", "flash_attention", "mm_shared_qk_attention", "fused_grounding_head")
+KERNEL_NAMES = FWD_NAMES + ("flash_attention_bwd", "mm_shared_qk_attention_bwd", "fused_grounding_head_bwd")
+# the backward-mode pairs of the P100 train phase: (VOG_FLASH_BWD, VOG_MM_BWD)
+# -> the kernels the step must launch, and those it must not
+MODE_PAIRS = {
+    ("recompute", "emit"): (KERNEL_NAMES, ("flash_attention_bwd_emit", "mm_shared_qk_attention_bwd_recompute")),
+    ("emit", "recompute"): (FWD_NAMES + ("flash_attention_bwd_emit", "mm_shared_qk_attention_bwd_recompute",
+                                         "fused_grounding_head_bwd"),
+                            ("flash_attention_bwd", "mm_shared_qk_attention_bwd")),
+}
 
 
-def train_cfg(dropout: float):
-    """The serving model with the production training recipe."""
-    cfg = serve_cfg()
+def train_cfg(dropout: float, exp_setting: str = "gt5"):
+    """The serving model with the production training recipe: GT5's
+    (``configs/gt5_production.yml``), or the JAX package's P100 learnability
+    recipe (BASELINE.md: B=2, lr 1e-3 cosine after 100 warm-up steps,
+    pos_weight 20, skip_nonfinite 3, grad_clip 1)."""
+    cfg = serve_cfg(exp_setting)
     t = cfg.train
-    t.bs, t.lr, t.lr_schedule, t.warmup_steps, t.total_steps = 16, 5e-4, "cosine", 100, 1000
-    t.pos_weight, t.skip_nonfinite, t.grad_clip = 5.0, 50, 1.0
+    if exp_setting == "gt5":
+        t.bs, t.lr, t.pos_weight, t.skip_nonfinite = 16, 5e-4, 5.0, 50
+    else:
+        t.bs, t.lr, t.pos_weight, t.skip_nonfinite = 2, 1e-3, 20.0, 3
+    t.lr_schedule, t.warmup_steps, t.total_steps, t.grad_clip = "cosine", 100, 1000, 1.0
     cfg.mdl.dropout = dropout
     return cfg
+
+
+FAMILIES = ("flash", "mm", "head")
+
+
+def plain_kernels(families=FAMILIES):
+    """Swap the wrappers of ``families`` (forward and backward) for their
+    plain versions, on every device; -> undo."""
+    from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
+
+    swaps = {"flash": [(attention, "flash_attention_fwd", attention.flash_attention_plain),
+                       (attention, "flash_attention_bwd", attention.flash_attention_bwd_plain)],
+             "mm": [(mm_attention, "mm_attention_fwd", mm_attention.mm_attention_plain),
+                    (mm_attention, "mm_attention_bwd", mm_attention.mm_attention_bwd_plain)],
+             "head": [(grounding_head, "grounding_head_fwd", grounding_head.grounding_head_plain),
+                      (grounding_head, "grounding_head_bwd", grounding_head.grounding_head_bwd_plain)]}
+    swaps = [s for f in families for s in swaps[f]]
+    real = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+
+    def undo():
+        for m, n, f in real:
+            setattr(m, n, f)
+    return undo
 
 
 def make_train_batches(cfg, n: int, B: int, n_rows: int, vocab: int, seed: int):
@@ -738,11 +882,14 @@ def make_train_batches(cfg, n: int, B: int, n_rows: int, vocab: int, seed: int):
     return out
 
 
-def kink_keep(model, vis, arg, mm):
+def kink_keep(model, vis, arg, mm, ff1):
     """-> ((B, A, T) float: 0 on the logits whose grounding-head
-    pre-activation (z0 or z1) or ``mm_head`` ReLU input (the mm layer's
-    output) lies within KINK_EPS of a kink, in fp64 from this forward's
-    values, else 1; the share of zeros).  Through such a logit alone, a
+    pre-activation (z0 or z1), ``mm_head`` ReLU input (the mm layer's
+    output) lies within KINK_EPS of a kink, or a ReLU input of the mm
+    layer's FFN (``ff1``'s output, (B*A, T, 4D); the logit's own token, as
+    the mm layer is the last) within FFN_KINK_EPS, in fp64 from this
+    forward's values, else 1; the share of zeros and the share that the FFN
+    alone adds).  Through such a logit alone, a
     rounding difference can flip a whole term of the gradient."""
     import torch
 
@@ -753,16 +900,23 @@ def kink_keep(model, vis, arg, mm):
         wl = torch.matmul(d(arg), d(hd.fuse_lang_kernel))
         near = near_kinks(vis, arg, wv, wl, hd.fuse_cross_kernel, hd.head1_kernel, hd.head1_bias)
         near |= (d(mm).reshape(*near.shape, -1).abs() < KINK_EPS).any(-1)
-    return (~near).float(), float(near.double().mean())
+        lin = model.mm_tx.layers[-1].ff1
+        z = torch.matmul(d(ff1), d(lin.weight).t()) + d(lin.bias)
+        near_ff = (z.reshape(*near.shape, -1).abs() < FFN_KINK_EPS).any(-1)
+        added = float((near_ff & ~near).double().mean())
+        near |= near_ff
+    return (~near).float(), float(near.double().mean()), added
 
 
-def step_grads(cfg, sd, batch, tables, dev: str, keep=None):
-    """One train step from the weights ``sd`` on ``dev`` -> (loss, every
-    parameter's gradient on the CPU, keep, share); ``batch`` holds
+def step_grads(cfg, sd, batch, tables, dev: str, keep=None, plain: bool = False):
+    """One train step from the weights ``sd`` on ``dev`` (``plain``: with
+    every float kernel swapped for its plain version) -> (loss, every
+    parameter's gradient on the CPU, keep, (share, the FFN's part of it));
+    ``batch`` holds
     ``vid_rows`` into the card's ``tables`` (gathered here for the CPU).
     The cotangent of the model's logits is multiplied by ``keep``: by the
     given one, or, when None, by ``kink_keep`` of this step's own forward
-    (returned with its share of zeros)."""
+    (returned with its shares of zeros)."""
     import torch
 
     from vog_tpu_torch.data.device_store import gather_from_tables
@@ -777,21 +931,26 @@ def step_grads(cfg, sd, batch, tables, dev: str, keep=None):
     seen, used = {}, {}
 
     def on_logits(mod, inputs, logits):
-        k, share = (keep, None) if keep is not None else kink_keep(model, seen["vis"], seen["arg"], seen["mm"])
-        used.update(keep=k, share=share)
+        k, share, ffn = ((keep, None, None) if keep is not None else
+                         kink_keep(model, seen["vis"], seen["arg"], seen["mm"], seen["ff1"]))
+        used.update(keep=k, share=share, ffn_share=ffn)
         k = k.to(logits.device)
         logits.register_hook(lambda gr: gr * k)
 
     hooks = [model.head.register_forward_hook(lambda m, i, o: seen.update(vis=i[0], arg=i[1])),
              model.mm_tx.register_forward_hook(lambda m, i, o: seen.update(mm=o)),
+             model.mm_tx.layers[-1].ff1.register_forward_hook(lambda m, i, o: seen.update(ff1=i[0])),
              model.register_forward_hook(on_logits)]
+    undo = plain_kernels() if plain else (lambda: None)
     try:
         _, aux = make_train_step(cfg)(TrainState.create(cfg, model), b, seed=0, tables=tables)
     finally:
+        undo()
         for hk in hooks:
             hk.remove()
     grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
-    return float(aux["loss"]), grads, used["keep"].cpu(), used["share"]
+    share = None if used["share"] is None else (used["share"], used["ffn_share"])
+    return float(aux["loss"]), grads, used["keep"].cpu(), share
 
 
 def grad_faults(got, ref):
@@ -805,23 +964,28 @@ def grad_faults(got, ref):
     return out
 
 
-def compare_step(cfg, sd, batch, tables, what: str):
-    """One train step on the card and on the CPU plain path from the same
-    weights ``sd`` and batch (dropout 0), kink-aware: the CPU step's
-    forward finds the logits near a ReLU kink (``kink_keep``, at most
-    MAX_KINK_SHARE of them) and both steps zero their cotangent.  Loss
-    within 1e-4 relative, every gradient within both limits of
-    ``grad_faults``.  -> (loss, max |err|, worst relative err and its leaf,
-    the smallest leaf by max|g|, the CPU gradients, keep, share)."""
-    lp, gp, keep, share = step_grads(cfg, sd, batch, tables, "cpu")
+def compare_step(cfg, sd, batch, tables, what: str, ref_on: str = "cpu"):
+    """One train step on the card and on the plain path from the same
+    weights ``sd`` and batch (dropout 0): on the CPU (``ref_on="cpu"``) or
+    on the card with every float kernel swapped for its plain version
+    (``"plain"``).  Kink-aware: the plain step's forward finds the logits
+    near a ReLU kink (``kink_keep``, at most MAX_KINK_SHARE of them) and
+    both steps zero their cotangent.  Loss within 1e-4 relative, every
+    gradient within both limits of ``grad_faults``.  -> (loss, max |err|,
+    worst relative err and its leaf, the smallest leaf by max|g|, the plain
+    path's gradients, keep, share)."""
+    lp, gp, keep, (share, ffn) = step_grads(cfg, sd, batch, tables, "cpu" if ref_on == "cpu" else "cuda",
+                                            plain=ref_on != "cpu")
+    print(f"[train] {what}: {share:.4f} of the logits near a ReLU kink, {ffn:.4f} of them by the mm "
+          f"layer's FFN alone", flush=True)
     if share > MAX_KINK_SHARE:
         fail(f"train {what}: {share:.3f} of the logits lie near a ReLU kink")
     lc, gc, _, _ = step_grads(cfg, sd, batch, tables, "cuda", keep)
     if not abs(lc - lp) <= 1e-4 * abs(lp):
-        fail(f"train {what}: card loss {lc:.7f} != CPU loss {lp:.7f}")
+        fail(f"train {what}: card loss {lc:.7f} != plain ({ref_on}) loss {lp:.7f}")
     bad = grad_faults(gc, gp)
     if bad:
-        fail(f"train {what}: gradients differ from the CPU (leaf, max |err|, rel): {bad}")
+        fail(f"train {what}: gradients differ from the plain path ({ref_on}) (leaf, max |err|, rel): {bad}")
     rels = {k: rel_err(gc[k], r) for k, r in gp.items()}
     worst = max(rels, key=rels.get)
     small = min((k for k in gp if gp[k].abs().max() > 0), key=lambda k: float(gp[k].abs().max()))
@@ -840,8 +1004,8 @@ def planted_zero_control(cfg, sd, batch, tables, gp, keep):
     from vog_tpu_torch.kernels import grounding_head, mm_attention
 
     def zeroed(fn, i):
-        def run(*a):
-            out = list(fn(*a))
+        def run(*a, **kw):
+            out = list(fn(*a, **kw))
             out[i] = torch.zeros_like(out[i])
             return tuple(out)
         return run
@@ -856,13 +1020,17 @@ def planted_zero_control(cfg, sd, batch, tables, gp, keep):
     named = [k for k, _, _ in grad_faults(gc, gp)]
     for leaf in ("head1_bias", "rpe_table"):
         if not any(k.endswith(leaf) for k in named):
-            fail(f"train: a zeroed {leaf} gradient passed the card-vs-CPU comparison (faults {named})")
+            fail(f"train: a zeroed {leaf} gradient passed the card-vs-plain comparison (faults {named})")
     return named
 
 
-def phase_train(tables, card: str, B: int = 16):
-    """(a) first step card vs CPU, (b) 30 production-recipe steps from the
-    device tables, (c) the trained state card vs CPU again."""
+def phase_train(tables, card: str, exp_setting: str = "gt5", steps: int = TRAIN_STEPS,
+                ref_on: str = "cpu", launched=KERNEL_NAMES, absent=(), label: str = ""):
+    """(a) first step card vs the plain path (``ref_on``: the CPU, or the
+    card with the plain versions), (b) ``steps`` production-recipe steps
+    from the device tables, every kernel of ``launched`` launched and none
+    of ``absent``, one step's peak memory, (c) the trained state against
+    the plain path again."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -871,19 +1039,22 @@ def phase_train(tables, card: str, B: int = 16):
     from vog_tpu_torch.model.grounding import get_model
     from vog_tpu_torch.train import TrainState, make_train_step
 
-    cfg, parity = train_cfg(0.1), train_cfg(0.0)
-    batches = make_train_batches(cfg, TRAIN_STEPS + 1, B, tables.n_rows, 5000, seed=11)
+    cfg, parity = train_cfg(0.1, exp_setting), train_cfg(0.0, exp_setting)
+    B, tag = cfg.train.bs, f"{exp_setting}{label}"
+    batches = make_train_batches(cfg, steps + 1, B, tables.n_rows, 5000, seed=11)
     model = get_model(cfg, 5000, device="cuda", seed=3, train=True)
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("train: get_model left TF32 on (misc.matmul_precision is 'highest')")
     sd0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     t0 = time.perf_counter()
     loss_a, err_a, worst_a, small_a, gp, keep, kink_a = compare_step(parity, sd0, batches[0], tables.tables,
-                                                                     "first step")
-    print(f"[train] (a) first step card vs CPU plain path: loss {loss_a:.6f}, max grad err {err_a:.3e}, "
+                                                                     "first step", ref_on)
+    print(f"[train {tag}] (a) first step card vs plain path ({ref_on}): loss {loss_a:.6f}, max grad err {err_a:.3e}, "
           f"worst relative err {worst_a[1]:.3e} ({worst_a[0]}); smallest leaf {small_a[0]} max|g| "
           f"{small_a[1]:.3e} relative err {small_a[2]:.3e}; cotangent zeroed on {kink_a:.4f} of the logits "
           f"(near a ReLU kink) ({time.perf_counter() - t0:.1f} s)", flush=True)
     named_a = planted_zero_control(parity, sd0, batches[0], tables.tables, gp, keep)
-    print(f"[train] (a) control: zeroed head db1 and mm dfb on the card are rejected on {named_a}", flush=True)
+    print(f"[train {tag}] (a) control: zeroed head db1 and mm dfb on the card are rejected on {named_a}", flush=True)
 
     state = TrainState.create(cfg, model)
     step = make_train_step(cfg)
@@ -891,22 +1062,29 @@ def phase_train(tables, card: str, B: int = 16):
     state, _ = step(state, dev_batches[-1], seed=0, tables=tables.tables)  # warm-up, not counted
     torch.cuda.synchronize()
     losses, times = [], []
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         state, aux = step(state, dev_batches[i], seed=0, tables=tables.tables)
         losses.append(aux["loss"])
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated()
     counts = dict(_build.launches)
     losses = [float(x) for x in losses]
     if not all(np.isfinite(losses)):
         fail(f"train: a non-finite loss in {losses}")
     if int(state.opt_state["total_notfinite"]) != 0:
         fail(f"train: the guard dropped {int(state.opt_state['total_notfinite'])} steps")
-    for n in KERNEL_NAMES:
+    for n in launched:
         if counts.get(n, 0) <= 0:
-            fail(f"kernel {n} was not launched on the train path (counts {counts})")
+            fail(f"kernel {n} was not launched on the train path {tag} (counts {counts})")
+    for n in absent:
+        if counts.get(n, 0):
+            fail(f"kernel {n} was launched on the train path {tag}, whose mode does not run it ({counts})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, dev_batches[0], seed=0, tables=tables.tables)
@@ -918,32 +1096,34 @@ def phase_train(tables, card: str, B: int = 16):
     busy = device_busy_ms(prof, 1, ksum)
     med = statistics.median(times)
     idle = max(0.0, 1 - busy / med)  # against the unprofiled median step
-    per_step = {n: counts.get(n, 0) / TRAIN_STEPS for n in KERNEL_NAMES}
-    print(f"[train] (b) {TRAIN_STEPS} steps, B={B}, production recipe: loss first {losses[0]:.5f} last "
-          f"{losses[-1]:.5f}, all finite; median step {med:.2f} ms, {B / med * 1e3:.1f} samples/s on {card}",
-          flush=True)
+    per_step = {n: c / steps for n, c in counts.items()}
+    print(f"[train {tag}] (b) {steps} steps, B={B}, production recipe: loss first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}, all finite; median step {med:.2f} ms, {B / med * 1e3:.1f} samples/s on {card}; "
+          f"peak memory of a step {peak / 1e9:.3f} GB ({(peak - resident) / 1e9:.3f} GB above the "
+          f"{resident / 1e9:.3f} GB resident before it)", flush=True)
     top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[train] (b) launches per step {per_step}; one profiled step: device busy {busy:.2f} ms "
+    print(f"[train {tag}] (b) launches per step {per_step}; one profiled step: device busy {busy:.2f} ms "
           f"(kernel times summed {ksum:.2f} ms), idle share {idle:.2f} of the median step (span with the "
           f"profiler on {span:.2f} ms); ours "
           + ", ".join(f"{k}={v:.3f}" for k, v in by_kernel.items())
           + f"; other {sum(other.values()):.3f} ms in {len(other)} ops: "
           + "; ".join(f"{k[:40]}={v:.3f}" for k, v in top), flush=True)
-    print("[train] (b) our kernels by symbol: " + ", ".join(f"{k}={v:.3f}" for k, v in by_symbol.items()),
+    print(f"[train {tag}] (b) our kernels by symbol: " + ", ".join(f"{k}={v:.3f}" for k, v in by_symbol.items()),
           flush=True)
 
     sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
     if not all(torch.isfinite(v).all() for v in sd.values()):
         fail("train: the state after the run holds non-finite values")
     loss_c, err_c, worst_c, small_c, gp, keep, kink_c = compare_step(parity, sd, batches[1], tables.tables,
-                                                                     "trained state")
-    print(f"[train] (c) trained state card vs CPU plain path: loss {loss_c:.6f}, max grad err {err_c:.3e}, "
+                                                                     "trained state", ref_on)
+    print(f"[train {tag}] (c) trained state card vs plain path ({ref_on}): loss {loss_c:.6f}, max grad err {err_c:.3e}, "
           f"worst relative err {worst_c[1]:.3e} ({worst_c[0]}); smallest leaf {small_c[0]} max|g| "
           f"{small_c[1]:.3e} relative err {small_c[2]:.3e}; cotangent zeroed on {kink_c:.4f} of the logits "
           f"(near a ReLU kink)", flush=True)
     named_c = planted_zero_control(parity, sd, batches[1], tables.tables, gp, keep)
-    print(f"[train] (c) control: zeroed head db1 and mm dfb on the card are rejected on {named_c}", flush=True)
-    return counts, dict(steps=TRAIN_STEPS, batch=B, loss_first=losses[0], loss_last=losses[-1],
+    print(f"[train {tag}] (c) control: zeroed head db1 and mm dfb on the card are rejected on {named_c}", flush=True)
+    return counts, dict(steps=steps, batch=B, loss_first=losses[0], loss_last=losses[-1],
+                        peak_memory_gb=peak / 1e9, resident_gb=resident / 1e9,
                         median_step_ms=med, samples_per_s=B / med * 1e3, step_ms=times,
                         launches_per_step=per_step, profiled_step_ms=span, device_busy_ms=busy,
                         kernel_time_sum_ms=ksum,
@@ -955,11 +1135,13 @@ def phase_train(tables, card: str, B: int = 16):
                         planted_zero_rejected=[named_a, named_c])
 
 
-# each wrapper's __global__ functions in vog_tpu_torch/csrc
+# each wrapper's __global__ functions in vog_tpu_torch/csrc, by function: a
+# backward's two modes share their symbols (its emit mode's products over ds
+# or comb are cuBLAS calls, counted among the other ops)
 KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_k",), "flash_attention": ("flash_fwd",),
                   "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
                   "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"),
-                  "mm_shared_qk_attention_bwd": ("mm_bwd_delta", "mm_bwd_dkv"),
+                  "mm_shared_qk_attention_bwd": ("mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq"),
                   "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w")}
 
 
@@ -1057,6 +1239,75 @@ def phase_profile(pred, reqs, B: int = 16, reps: int = 5):
     return out
 
 
+@contextlib.contextmanager
+def bwd_modes(flash: str, mm: str):
+    """The backward modes that the attention wrappers resolve from the
+    environment, as the JAX package's VOG_FLASH_BWD / VOG_MM_BWD."""
+    old = {k: os.environ.get(k) for k in ("VOG_FLASH_BWD", "VOG_MM_BWD")}
+    os.environ.update(VOG_FLASH_BWD=flash, VOG_MM_BWD=mm)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def step_peak(tables, modes) -> tuple:
+    """Peak memory of one P100 production-recipe step (after a warm-up step)
+    with the backward ``modes`` (flash, mm) -> (peak GB, GB above what was
+    resident before the step)."""
+    import torch
+
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_train_step
+
+    cfg = train_cfg(0.1, "p100")
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+               for b in make_train_batches(cfg, 2, cfg.train.bs, tables.n_rows, 5000, seed=11)]
+    state = TrainState.create(cfg, get_model(cfg, 5000, device="cuda", seed=3, train=True))
+    step = make_train_step(cfg)
+    with bwd_modes(*modes):
+        state, _ = step(state, batches[1], seed=0, tables=tables.tables)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batches[0], seed=0, tables=tables.tables)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 1e9, (peak - resident) / 1e9
+
+
+# the JAX package's single-chip P100 run (BASELINE.md, "P100 at the largest
+# single-chip-feasible scale"): 5,549 videos, an int8 store of 11,557 MB
+P100_ROWS = 5549
+P100_STORE_MB = 11557
+
+
+def p100_tables(cfg):
+    """The P100 int8 device tables at the JAX package's single-chip size,
+    made on the card from a seed, 64 rows (0.5 GB of fp32) a chunk."""
+    import torch
+
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+
+    t0 = time.perf_counter()
+    tables = DeviceFeatureTables.random(cfg, P100_ROWS, seed=0, int8=True, device="cuda", chunk_rows=64)
+    torch.cuda.synchronize()
+    ds = cfg.ds
+    F, P = ds.num_frms, ds.num_prop_per_frm
+    want = P100_ROWS * (F * P * ds.prop_dim + F * P * 4 + F * ds.seg_dim + F * 4)  # int8 rows, f32 scales
+    got = sum(nbytes(t) for t in tables.tables.values())
+    if got != want or abs(got / 1e6 - P100_STORE_MB) > 1.0:
+        fail(f"P100 tables hold {got} bytes; expected {want} (the JAX package's {P100_STORE_MB} MB)")
+    print(f"[tables p100] {P100_ROWS} rows int8 with f32 scales, {got / 1e6:.1f} MB on the card (the JAX "
+          f"package's single-chip store: {P100_STORE_MB} MB), built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return tables
+
+
 def main() -> int:
     name, card = phase_card()
     if not (ROOT / "vog_tpu_torch").is_dir():
@@ -1066,28 +1317,83 @@ def main() -> int:
 
     from vog_tpu_torch.data.device_store import DeviceFeatureTables
 
+    for k in ("VOG_FLASH_BWD", "VOG_MM_BWD"):  # the GT5 phases run the JAX package's default modes
+        os.environ.pop(k, None)
     phase_build()
+
+    # -- GT5 (T = 200, B = 16) ---------------------------------------------
     cfg = serve_cfg()
     t0 = time.perf_counter()
     tables = DeviceFeatureTables.random(cfg, 15000, seed=0, half=True, device="cuda")
     torch.cuda.synchronize()
     gb = sum(nbytes(t) for t in tables.tables.values()) / 1e9
-    print(f"[tables] 15000 rows bf16, {gb:.2f} GB on the card, built in {time.perf_counter() - t0:.1f} s",
+    print(f"[tables gt5] 15000 rows bf16, {gb:.2f} GB on the card, built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    rows = phase_kernels(cfg, tables)
-    pred, reqs, counts, serve = phase_serve(cfg, tables, card)
-    prof = phase_profile(pred, reqs)
-    del pred
-    rows += phase_kernels_bwd(cfg)
-    train_counts, train = phase_train(tables, card)
-    print("[kernels] worst relative err by check: " + ", ".join(f"{k}={v:.2e}" for k, v in WORST_REL.items()),
-          flush=True)
+    rows_gt5 = phase_kernels(cfg, tables)
+    pred, reqs, counts_gt5, serve_gt5 = phase_serve(cfg, tables, card)
+    prof_gt5 = phase_profile(pred, reqs)
+    del pred, reqs
+    rows_gt5 += phase_kernels_bwd(cfg)
+    train_counts_gt5, train_gt5 = phase_train(tables, card)
+    worst_gt5 = dict(WORST_REL)
+    WORST_REL.clear()
+    del tables  # the P100 checks below need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- P100 (T = 4000, B = 2) --------------------------------------------
+    cfg = serve_cfg("p100")
+    tables = p100_tables(cfg)
+    rows = phase_kernels(cfg, tables, B=2)
+    pred, reqs, counts, serve = phase_serve(cfg, tables, card, n_requests=16, clients=4, max_batch=2,
+                                            buckets=(1, 2), ref_on="plain", n_ref=2)
+    prof = phase_profile(pred, reqs, B=2)
+    del pred, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += phase_kernels_bwd(cfg, B=2)
+    train, train_counts = {}, {}
+    for (fm, mm), (launched, absent) in MODE_PAIRS.items():
+        key = f"flash {fm}, mm {mm}"
+        with bwd_modes(fm, mm):
+            train_counts[key], train[key] = phase_train(tables, card, "p100", P100_TRAIN_STEPS, "plain",
+                                                        launched, absent, label=f" ({key})")
+    peaks = {f"flash {fm}, mm {mm}": step_peak(tables, (fm, mm))
+             for fm, mm in (("recompute", "recompute"), ("emit", "emit"))}
+    print("[train p100] peak memory of one step, GB (above the resident): "
+          + "; ".join(f"{k}: {v['peak_memory_gb']:.3f} ({v['peak_memory_gb'] - v['resident_gb']:.3f})"
+                      for k, v in train.items())
+          + "; " + "; ".join(f"{k}: {p:.3f} ({a:.3f})" for k, (p, a) in peaks.items()), flush=True)
+
+    print("[kernels] worst relative err by check: gt5 " + ", ".join(f"{k}={v:.2e}" for k, v in worst_gt5.items())
+          + "; p100 " + ", ".join(f"{k}={v:.2e}" for k, v in WORST_REL.items()), flush=True)
+
+    def launches(name, serve_counts, train_runs):
+        """-> (launches on the serving path or the first train run that
+        launches ``name``, that run's steps)."""
+        if name in serve_counts:
+            return serve_counts[name], None
+        for c, steps in train_runs:
+            if c.get(name):
+                return c[name], steps
+        return 0, None
+
+    gt5 = {r["name"]: r for r in rows_gt5}
+    runs = [(c, P100_TRAIN_STEPS) for c in train_counts.values()]
     for r in rows:
         r["max_rel_err"] = WORST_REL.get(r["name"], 0.0)  # the gather is checked bitwise
-        # forward kernels: launches on the serving path; backward: on the train path
-        r["launches"] = counts.get(r["name"], 0) if r["name"] in counts else train_counts.get(r["name"], 0)
-        r["train_launches_per_step"] = train_counts.get(r["name"], 0) / TRAIN_STEPS
-    print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train, "card": card}),
+        # forward kernels: launches on the serving path; backward: on the train path that runs them
+        r["launches"], steps = launches(r["name"], counts, runs)
+        r["train_launches_per_step"] = None if steps is None else r["launches"] / steps
+        g = gt5[r["name"]]
+        g["max_rel_err"] = worst_gt5.get(r["name"], 0.0)
+        g["launches"], steps = launches(r["name"], counts_gt5, [(train_counts_gt5, TRAIN_STEPS)])
+        r["gt5"] = {k: g.get(k) for k in ("shape", "launches", "max_abs_err", "max_rel_err", "ms", "issue_ms",
+                                          "plain_ms", "plain_issue_ms", "library_ms", "library_issue_ms",
+                                          "bound_ms", "bound_by")}
+    print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train,
+                      "peak_memory_gb": {k: list(v) for k, v in peaks.items()},
+                      "gt5": {"serve": serve_gt5, "profile": prof_gt5, "train": train_gt5}, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

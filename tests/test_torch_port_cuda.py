@@ -12,7 +12,10 @@ dh < 128 and not a multiple of 8 or of 4, a row with every key masked,
 every arg count of the mm attention, out-of-range, negative and empty
 gather rows at 1, 4 and 64 rows a call), and the attention kernels at the
 P100 length (T = 4000).  The mm and head backwards also give bitwise-equal
-gradients on a second call.  Tolerance as in chip_smoke.py: bitwise for the
+gradients on a second call.  Both backward modes of the flash and mm
+attention (``bwd_mode``): each against the plain backward, and against
+each other (their sums differ only by rounding); the head at A = 6 and 8
+(two launches of at most 5 args).  Tolerance as in chip_smoke.py: bitwise for the
 gather, max |err| <= 1e-4 * max(1, max|ref|) for the fp32 kernels (and
 |err| / |ref| <= 1e-3 for the mm forward).
 """
@@ -158,13 +161,15 @@ def test_wrappers_raise_on_bad_input(dev):
         flash_attention(q, q, q.double(), torch.ones((1, 8), device=dev))
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((4, 8), device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
-    B, T, A, D = 1, 8, 6, 64  # A > 5: the kernel does not take it
+    B, T, A, D = 1, 8, 3, 48  # D % 32 != 0: the kernel does not take it
     x = torch.zeros((B, T, D), device=dev)
     y = torch.zeros((B, A, D), device=dev)
     w = torch.zeros((D, D), device=dev)
     with pytest.raises(ValueError):
-        fused_grounding_head(x, y, x, y, w, w[:, :32].contiguous(), w[0, :32].contiguous(),
-                             w[0, :32].contiguous(), w[0, 0])
+        fused_grounding_head(x, y, x, y, w, w[:, :24].contiguous(), w[0, :24].contiguous(),
+                             w[0, :24].contiguous(), w[0, 0])
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, torch.ones((1, 8), device=dev), bwd_mode="bogus")
 
 
 # --------------------------------------------------------------------------
@@ -321,4 +326,116 @@ def test_functions_match_autograd_of_plain(dev):
     got, ref = _autograd_pair(grounding_head.fused_grounding_head,
                               grounding_head.grounding_head_plain, args, tuple(range(9)))
     for a, b in zip(got, ref):
+        _close(a, b)
+
+
+# --------------------------------------------------------------------------
+# the backward modes that are not the TPU package's default, and the head
+# at more args than one launch takes
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("A,T,dh", [(1, 45, 40), (5, 200, 128), (8, 65, 40), (8, 200, 128),
+                                    (5, 1, 128), (5, 1000, 128)])
+def test_mm_bwd_recompute_kernel(dev, A, T, dh):
+    """mm_bwd_dkv without comb, then mm_bwd_dq; batch row 1 has every key
+    masked (its dq and its share of dfb are 0, as autograd of the plain
+    forward gives)."""
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.mm_attention import (
+        mm_attention_bwd, mm_attention_bwd_plain, mm_attention_fwd,
+    )
+
+    g, qm, km, vm, mask, fb, fid = _attn_inputs(dev, 2, 3, T, dh, 10)
+    cn = -3 * torch.rand((2, 3, A, T), generator=g, device=dev)
+    fwd = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
+    go = torch.randn(fwd[0].shape, generator=g, device=dev)
+    _build.reset_counts()
+    got = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go, bwd_mode="recompute")
+    torch.cuda.synchronize()
+    assert _build.launches == {"mm_shared_qk_attention_bwd_recompute": 1}
+    check = _close_rel if T > 1 else _close  # at T = 1 every ds is 0 up to rounding
+    for a, b in zip(got, mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *fwd, go)):
+        check(a, b)
+    assert not got[0][1].any()  # the all-masked row's dq
+    again = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go, bwd_mode="recompute")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed order, no atomics
+
+
+@pytest.mark.parametrize("B,H,T,dh,bias", [
+    (3, 2, 200, 128, True), (3, 2, 200, 128, False), (3, 2, 45, 40, True), (3, 2, 1, 128, True),
+    (2, 2, 1000, 128, True), (1, 1, 4000, 128, True),
+])
+def test_flash_bwd_emit_kernel(dev, B, H, T, dh, bias):
+    """flash_bwd_dkv storing ds, then the two products; flash_bwd_dq is not
+    launched."""
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    )
+
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, B, H, T, dh, 10, all_masked=B > 1)
+    fb, fid = (fb, fid) if bias else (None, None)
+    o, lse = flash_attention_fwd(q, k, v, mask, fb, fid)
+    do = torch.randn(o.shape, generator=g, device=dev)
+    _build.reset_counts()
+    got = flash_attention_bwd(q, k, v, mask, fb, fid, o, lse, do, bwd_mode="emit")
+    torch.cuda.synchronize()
+    assert _build.launches == {"flash_attention_bwd_emit": 1}
+    ref = flash_attention_bwd_plain(q, k, v, mask, fb, fid, o, lse, do)
+    for a, b in zip(got[:3], ref[:3]):
+        _close(a, b)
+    if bias:
+        _close(got[3], ref[3])
+    else:
+        assert not got[3].any()
+
+
+def test_bwd_modes_agree_through_autograd(dev):
+    """Each function's two modes through its autograd Function (the mode
+    carried in ctx) against each other and autograd of the plain forward;
+    the launches name the mode."""
+    from vog_tpu_torch.kernels import _build, attention, mm_attention
+
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, 2, 2, 300, 128, 10)
+    cn = -3 * torch.rand((2, 2, 5, 300), generator=g, device=dev)
+    cases = (
+        (attention.flash_attention, lambda *a: attention.flash_attention_plain(*a)[0],
+         (q, k, v, mask, fb, fid), (0, 1, 2, 4), ("flash_attention_bwd", "flash_attention_bwd_emit")),
+        (mm_attention.mm_shared_qk_attention, lambda *a: mm_attention.mm_attention_plain(*a)[0],
+         (q, k, v, cn, mask, fb, fid), (0, 1, 2, 3, 5),
+         ("mm_shared_qk_attention_bwd_recompute", "mm_shared_qk_attention_bwd")),
+    )
+    for fn, plain, args, diff, names in cases:
+        grads = {}
+        for mode, name in zip(("recompute", "emit"), names):
+            _build.reset_counts()
+            grads[mode], ref = _autograd_pair(lambda *a: fn(*a, bwd_mode=mode), plain, args, diff)
+            torch.cuda.synchronize()
+            assert _build.launches.get(name) == 1 and sum(
+                _build.launches.get(n, 0) for n in names) == 1, _build.launches
+            for a, b in zip(grads[mode], ref):
+                _close(a, b)
+        for a, b in zip(grads["recompute"], grads["emit"]):
+            _close_rel(a, b)
+
+
+@pytest.mark.parametrize("B,T,A,D", [(2, 37, 6, 512), (3, 200, 8, 256), (2, 4000, 8, 512)])
+def test_head_more_args_than_a_launch(dev, B, T, A, D):
+    from chip_smoke import away_from_kinks
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.grounding_head import (
+        fused_grounding_head, grounding_head_bwd, grounding_head_bwd_plain, grounding_head_plain,
+    )
+
+    args, g = _head_inputs(dev, B, T, A, D)
+    _build.reset_counts()
+    out = fused_grounding_head(*args)
+    torch.cuda.synchronize()
+    assert _build.launches == {"fused_grounding_head": 2}
+    _close_rel(out, grounding_head_plain(*args))
+    go, share = away_from_kinks(*args[:7], torch.randn((B, A, T), generator=g, device=dev))
+    assert share < 0.05
+    got = grounding_head_bwd(*args, go)
+    torch.cuda.synchronize()
+    assert _build.launches == {"fused_grounding_head": 2, "fused_grounding_head_bwd": 2}
+    for a, b in zip(got, grounding_head_bwd_plain(*args, go)):
         _close(a, b)

@@ -78,7 +78,7 @@ def test_flash_grads_match_jax(mode, bias, shape):
         fb, fid = None, None
     cot = rng.normal(size=(B, H, T, dh)).astype(np.float32)
     diff = (0, 1, 2, 4) if bias else (0, 1, 2)
-    got = _grads(flash_attention, (q, k, v, mask, fb, fid), diff, cot)
+    got = _grads(lambda *a: flash_attention(*a, bwd_mode=mode), (q, k, v, mask, fb, fid), diff, cot)
     ref = _jax_grads(lambda *a: jflash(*a, interpret=True, bwd_mode=mode),
                      (q, k, v, mask, fb, fid), diff, cot)
     for name, a, b in zip(("dq", "dk", "dv", "dfb"), got, ref):
@@ -118,7 +118,7 @@ def test_mm_grads_match_jax(mode, shape):
     rng, args = _mm_inputs(2, B, H, A, T, dh)
     cot = rng.normal(size=(B, H, A, T, dh)).astype(np.float32)
     diff = (0, 1, 2, 3, 5)
-    got = _grads(mm_shared_qk_attention, args, diff, cot)
+    got = _grads(lambda *a: mm_shared_qk_attention(*a, bwd_mode=mode), args, diff, cot)
     ref = _jax_grads(lambda *a: jmm(*a, interpret=True, bwd_mode=mode), args, diff, cot)
     for name, a, b in zip(("dq", "dk", "dv", "dcn", "dfb"), got, ref):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-3, err_msg=name)

@@ -29,6 +29,13 @@ PKG = ROOT / "vog_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vog_tpu"}
 
+# the rows of chip_smoke.py's table for the backward modes that are not the
+# TPU package's default: module -> (its constant, the row's name)
+MODE_ROWS = {
+    "attention.py": ("NAME_BWD_EMIT", "flash_attention_bwd_emit"),
+    "mm_attention.py": ("NAME_BWD_RECOMPUTE", "mm_shared_qk_attention_bwd_recompute"),
+}
+
 # kernel module -> (CUDA source, the kernel's name in chip_smoke.py's
 # table, the backward's name there or None)
 KERNELS = {
@@ -105,6 +112,10 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
             assert f'NAME_BWD = "{bwd}"' in text and "torch.autograd.Function" in text
             assert bwd in smoke_strings, f"chip_smoke.py has no check of {bwd}"
             assert bwd in symbols, f"chip_smoke.py's profile does not attribute {bwd}"
+        if mod in MODE_ROWS:  # the other backward mode: counted under its own name, checked
+            const, row = MODE_ROWS[mod]
+            assert f'{const} = "{row}"' in text and f"_build.count({const})" in text
+            assert row in smoke_strings, f"chip_smoke.py has no check of {row}"
     assert sorted(_build.SOURCES) == sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
 
 
@@ -205,7 +216,7 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     text = (csrc / "mm_attention.cu").read_text()
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_fwd"]
+    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq", "mm_fwd"]
     fwd = bodies["mm_fwd"]
     assert fwd.count("mma3(") == 2  # S = Q K^T once per key tile; P_a V for every arg
     assert fwd.count("frag_bt(") == 1 and "frag_b_pairs(" in fwd and "split_int(" in fwd
@@ -236,6 +247,30 @@ def test_mm_backward_on_tensor_cores_scores_once_a_query_tile():
     assert body.count(s_tile) == 1 and body.count("Kw,") == 2 and tiles < body.index(s_tile) < args
     assert body.index("scores<NT, false>(dpt, dpt, Vw, Gt") > args  # dP_a^T = V G_a^T, per arg
     assert "mm_bwd_delta<<<" in text and 'extern "C" int vog_mm_bwd(' in text
+
+
+def test_backward_modes_not_default_have_kernels_of_their_own():
+    """The modes the TPU package selects by ``bwd_mode`` or env: flash emit
+    stores ds from its dk/dv kernel (kEmit) and skips the dq kernel; mm
+    recompute skips mm_bwd_dkv's comb store and runs mm_bwd_dq, which
+    multiplies in 3xTF32 through tiles.cuh, streams its key tiles by
+    cp.async, computes S once a key tile before the loop over the args and
+    writes per-block frame-bias partials (no float atomics)."""
+    csrc = PKG / "csrc"
+    flash = (csrc / "attention.cu").read_text()
+    dkv = _kernel_bodies(flash)["flash_bwd_dkv"]
+    assert "if (kEmit)" in dkv and "ds + ((size_t)bh * T + qi) * T" in dkv
+    entry = flash[flash.index('extern "C" int vog_flash_bwd('):]
+    assert "flash_bwd_dkv<true, true>" in entry and "|| emit) return" in entry
+    mm = (csrc / "mm_attention.cu").read_text()
+    assert "if (!kEmit) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
+    dq = _kernel_bodies(mm)["mm_bwd_dq"]
+    assert "scores<1, false>(sc, sc, Qw, Kh" in dq and "accumulate<1>(acc, comb, Kh" in dq
+    assert "load_rows<" in dq and "cp_wait_all()" in dq and "atomicAdd" not in dq
+    tiles = dq.index("for (int it = 0; it < ntiles; ++it)")
+    args = dq.index("for (int a = 0; a < A; ++a)", tiles)
+    assert tiles < dq.index("scores<1, false>(sc, sc") < args < dq.index("scores<1, false>(gv, gv")
+    assert "dfb_part" in dq and "mm_bwd_dq<A><<<" in mm
 
 
 def test_head_weight_gradients_stream_by_cp_async_in_one_launch():

@@ -38,31 +38,6 @@ def worst(gc, gp, rel_err):
     return k, rels[k]
 
 
-FAMILIES = ("flash", "mm", "head")
-
-
-def plain_kernels(families):
-    """Swap the wrappers of ``families`` (forward and backward) for their
-    plain versions; -> undo."""
-    from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
-
-    swaps = {"flash": [(attention, "flash_attention_fwd", attention.flash_attention_plain),
-                       (attention, "flash_attention_bwd", attention.flash_attention_bwd_plain)],
-             "mm": [(mm_attention, "mm_attention_fwd", mm_attention.mm_attention_plain),
-                    (mm_attention, "mm_attention_bwd", mm_attention.mm_attention_bwd_plain)],
-             "head": [(grounding_head, "grounding_head_fwd", grounding_head.grounding_head_plain),
-                      (grounding_head, "grounding_head_bwd", grounding_head.grounding_head_bwd_plain)]}
-    swaps = [s for f in families for s in swaps[f]]
-    real = [(m, n, getattr(m, n)) for m, n, _ in swaps]
-    for m, n, f in swaps:
-        setattr(m, n, f)
-
-    def undo():
-        for m, n, f in real:
-            setattr(m, n, f)
-    return undo
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -78,8 +53,6 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     tables = DeviceFeatureTables.random(cs.serve_cfg(), 15000, seed=0, half=True, device="cuda").tables
     cfg, parity = cs.train_cfg(0.1), cs.train_cfg(0.0)
     out = []
@@ -95,10 +68,11 @@ def main() -> int:
         loss = float(aux["loss"])
         state, _ = step(state, dev[0], seed=0, tables=tables)  # chip_smoke.py's profiled step
         sd = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
-        lp, gp, keep, share = cs.step_grads(parity, sd, batches[1], tables, "cpu")
+        lp, gp, keep, (share, _) = cs.step_grads(parity, sd, batches[1], tables, "cpu")
         r = dict(seed=s, last_train_loss=loss, cpu_loss=lp, kink_share=share)
-        for name, fams in (("kernels", ()), ("plain", FAMILIES), *((f + " plain", (f,)) for f in FAMILIES)):
-            undo = plain_kernels(fams)
+        fams_by_name = (("kernels", ()), ("plain", cs.FAMILIES), *((f + " plain", (f,)) for f in cs.FAMILIES))
+        for name, fams in fams_by_name:
+            undo = cs.plain_kernels(fams)
             try:
                 lc, gc, _, _ = cs.step_grads(parity, sd, batches[1], tables, "cuda", keep)
             finally:

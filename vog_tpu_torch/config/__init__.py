@@ -4,6 +4,7 @@ from vog_tpu_torch.config.defaults import (
     MdlCfg,
     MiscCfg,
     TrainCfg,
+    apply_matmul_precision,
     get_default_cfg,
     post_proc_config,
     update_from_dict,
@@ -15,6 +16,7 @@ __all__ = [
     "MdlCfg",
     "MiscCfg",
     "TrainCfg",
+    "apply_matmul_precision",
     "get_default_cfg",
     "post_proc_config",
     "update_from_dict",

@@ -1,10 +1,10 @@
 """Config system: dataclasses mirroring the reference yaml schema.
 
 Copy of vog_tpu/config/defaults.py for the PyTorch port (the port imports
-nothing of vog_tpu).  ``apply_matmul_precision`` is JAX-only and is not
-copied: the port's fp32 matmul precision is set with
-``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False`` (see ``serve.py``).
+nothing of vog_tpu).  ``apply_matmul_precision`` is the counterpart of
+the JAX function of that name: it sets PyTorch's two TF32 switches from
+``misc.matmul_precision`` (the JAX one's PRNG and compile-cache flags
+have no counterpart here).
 
 Reference parity: ``configs/anet_srl_cfg.yml`` + ``code/extended_config.py``
 (yacs CfgNode, dotted-key CLI overrides, post-processing that derives
@@ -246,6 +246,24 @@ class MiscCfg:
     # (BASELINE.md skip_nonfinite section); with the cache warm, restart/
     # resume/serve processes pay ~0.  "" disables.
     compile_cache: str = "tmp/jax_cache"
+
+
+def apply_matmul_precision(cfg: "Cfg") -> None:
+    """Set the process's fp32 matmul precision from ``misc.matmul_precision``.
+
+    "highest" turns off TF32 for matmuls and for cuDNN (whose default is
+    on: the fp32 BiLSTM would otherwise run in TF32), so every fp32 product
+    keeps fp32 accuracy, as JAX's "highest".  The bf16 mode that "default"
+    selects in the JAX package is not ported yet."""
+    import torch
+
+    if cfg.misc.matmul_precision != "highest":
+        raise NotImplementedError(
+            f"misc.matmul_precision={cfg.misc.matmul_precision!r}: the port runs "
+            "'highest' only (fp32 products, TF32 off)"
+        )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @dataclass

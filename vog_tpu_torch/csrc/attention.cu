@@ -4,11 +4,12 @@
 //   o[b,h,i]   = softmax_j( q_i.k_j * scale + fb[h, fid_i, fid_j] ; key-masked ) . v
 //   lse[b,h,i] = log-sum-exp of the same row
 //
-// Replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel, _bias_block)
-// and §_flash_bwd in its "recompute" mode (_make_bwd_dkv_kernel,
-// _bwd_dq_kernel).  The TPU forward keeps the whole key axis of a 128-row q
-// block in VMEM and builds the bias tile with a one-hot matmul that exists
-// for Mosaic.  A block here has at most 227 KB of shared memory, so these
+// Replaces vog_tpu/kernels/attention.py §_fwd_call (_fwd_kernel,
+// _bias_block) and §_flash_bwd in both of its modes: "recompute"
+// (_make_bwd_dkv_kernel(False), _bwd_dq_kernel) and "emit"
+// (_make_bwd_dkv_kernel(True)).  The TPU forward keeps the whole key axis
+// of a 128-row q block in VMEM and builds the bias tile with a one-hot
+// matmul that exists for Mosaic.  A block here has at most 227 KB of shared memory, so these
 // kernels run an online softmax over key tiles and read the bias from the
 // head's (F, F) table in shared memory at fb[fid_i, fid_j].
 //
@@ -72,6 +73,14 @@
 //                  is sum_ij ds_ij, zero for every row up to rounding
 //                  (sum_j p_ij dp_ij = delta_i), so the pass is skipped and
 //                  the wrapper returns zeros.
+// Emit mode runs flash_bwd_dkv alone, with kEmit: it also stores the masked
+// ds of every (query, key) to a (B*H, T, T) buffer from its C fragments
+// (a warp's store writes 8 consecutive keys for each of 4 queries: whole
+// 32-byte sectors; offsets in size_t, as B*H*T^2 passes 2^31 at B=16,
+// T=4000), and the wrapper forms dq = scale ds.k and the frame-bias
+// gradient as plain products over it, as the TPU package leaves them to
+// XLA.  It writes 4 BH T^2 bytes (512 MB at P100, B=2) that the products
+// read back, and saves the dq kernel's recompute of S and dP.
 // A batch row whose keys are all masked has lse = -1e30 + log T = -1e30 in
 // fp32, so p is taken as 1/T there (the softmax of equal scores), which is
 // what autograd of the plain forward gives; its ds is masked to 0.
@@ -231,15 +240,16 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
   row_dots(o, dout, delta, rows, dh);
 }
 
-template <bool kFrames>
+// kEmit: also store the masked ds (B*H, T, T), query-major ("emit" mode)
+template <bool kFrames, bool kEmit>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const float* __restrict__ key_mask, const float* __restrict__ fb,
               const int* __restrict__ fid, float* __restrict__ dk,
-              float* __restrict__ dv, int H, int T, int dh, int F, float scale,
-              bool vec) {
+              float* __restrict__ dv, float* __restrict__ ds, int H, int T, int dh,
+              int F, float scale, bool vec) {
   constexpr int NT = kTileB / 8;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = blockIdx.x * kRows;
@@ -323,6 +333,18 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
     accumulate<NT>(adv, st, Ot, g, t);   // dV += P^T dO
     accumulate<NT>(adk, dpt, Qt, g, t);  // dK += dS^T Q
+    if (kEmit) {  // ds[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = it * kTileB + 8 * j + 2 * t + e;
+          if (qi >= T) continue;
+          float* row = ds + ((size_t)bh * T + qi) * T;
+          if (kr0 < T) row[kr0] = dpt[j][e];
+          if (kr0 + 8 < T) row[kr0 + 8] = dpt[j][2 + e];
+        }
+    }
   }
 
   store_rows(dk + base, adk, kr0, 0, T, dh, t, scale, scale);
@@ -483,14 +505,16 @@ extern "C" int vog_flash_delta(const float* o, const float* dout, float* delta, 
   return (int)cudaGetLastError();
 }
 
-// fb and fid may be null when F == 1 (no bias); dfb_part: (B, H,
-// ceil(T / 64), F, F), written only when F > 1
+// fb and fid may be null when F == 1 (no bias).  Recompute mode (ds null):
+// dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
+// Emit mode (ds, (B*H, T, T), not null): dk, dv and ds only; dq and
+// dfb_part are not touched.
 extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, const float* key_mask,
                              const float* fb, const int* fid, float* dq,
-                             float* dk, float* dv, float* dfb_part, int B,
-                             int H, int T, int dh, int F, float scale,
+                             float* dk, float* dv, float* dfb_part, float* ds,
+                             int B, int H, int T, int dh, int F, float scale,
                              void* stream) {
   if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFb) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
@@ -503,13 +527,15 @@ extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
   const size_t fb_bytes = frames ? sizeof(float) * F * F : 0;
 
   const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
-  auto dkv = frames ? flash_bwd_dkv<true> : flash_bwd_dkv<false>;
+  const bool emit = ds != nullptr;
+  auto dkv = frames ? (emit ? flash_bwd_dkv<true, true> : flash_bwd_dkv<true, false>)
+                    : (emit ? flash_bwd_dkv<false, true> : flash_bwd_dkv<false, false>);
   cudaError_t e = set_smem(dkv, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  dkv<<<grid, kThreads, smem_kv, s>>>(q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv,
+  dkv<<<grid, kThreads, smem_kv, s>>>(q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv, ds,
                                       H, T, dh, F, scale, vec);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || emit) return (int)e;
 
   const size_t smem_q = rows_bytes + sizeof(int) * 2 * kTileB + fb_bytes +
                         (frames ? sizeof(float) * (kWarps * 16 * kDsLd + kRows * F) : 0);

@@ -47,14 +47,16 @@
 // 0.3037 ms at GT5 (chip_smoke.py, H100 80GB HBM3, 700 W); this design's
 // times are in PERF.md.
 //
-// Backward: the counterpart of the TPU's dk/dv/dcn kernel in its default
-// "emit" mode (vog_tpu/kernels/mm_attention.py §_make_bwd_dkv_kernel(True)),
+// Backward: the counterpart of the TPU's dk/dv/dcn kernel in both of its
+// modes (vog_tpu/kernels/mm_attention.py §_make_bwd_dkv_kernel(True) in the
+// default "emit" mode, (False) with §_bwd_dq_kernel in "recompute" mode),
 // from the saved per-arg row max m_a and denominator den_a:
 //   p_a = exp(s + cn_a - m_a),  ds_a = p_a (g_a.vm - delta_a) / den_a,
 //   dv = sum_a (p_a / den_a)^T g_a,  comb = sum_a ds_a (valid keys),
 //   dk = comb^T qm,  dcn_a = sum_i ds_a,
-// and comb (B*H, T, T) written out: dq = comb . km and the frame-bias
-// gradient are products over it outside the kernel, as in the TPU package.
+// and, in emit mode, comb (B*H, T, T) written out: dq = comb . km and the
+// frame-bias gradient are products over it outside the kernel, as in the
+// TPU package.
 // At GT5 the kernel's work is 2 BH T^2 dh (2 + 2A) = 7.9 GFLOP (S, dK,
 // and per arg dP_a and dV): bound by operations, so it runs on the tensor
 // cores in 3xTF32 (the previous design, on the CUDA cores in fp32 FMA,
@@ -82,6 +84,27 @@
 // shared memory, one block an SM) took 0.8822 / 0.8867 ms at GT5
 // (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
 // PERF.md.
+//
+// Recompute mode: mm_bwd_dkv without the comb store (kEmit false), then
+// mm_bwd_dq, the counterpart of §_bwd_dq_kernel: no (T, T) buffer (comb is
+// 512 MB at P100, B=2, T=4000), for (2 + A) more products over every (i,
+// j): S, each g_a.vm^T, and comb.km.  A block of 4 warps owns 32 query rows
+// (two row groups of 16) with their Q rows and all A g_a tiles resident in
+// shared memory (the A g_a tiles are what a query tile needs: 5 x 32 x 132
+// floats = 84 KB at A=5), and streams 16-key tiles of km, vm, cn and the
+// key codes by cp.async in a two-stage ring.  Warp (row group r, key half
+// k) takes the tile's keys 8k..8k+7 for its 16 rows: S = Q K^T + fb once
+// for all args; per arg, gv_a = G_a V^T, p_a = exp(S + cn_a - m_a) /
+// den_a and ds_a = p_a (gv_a - delta_a) summed into comb on the valid keys
+// (masked keys and keys past T give 0, as the TPU kernel masks ds); then
+// dQ += comb K (P-style: comb's C fragments are the A fragments), and comb
+// goes through a per-warp shared tile into per-lane sums by key frame (a
+// lane per frame, keys in order).  At the end the two key halves of a row
+// group add their dQ and frame sums through shared memory in a fixed
+// order, and the block writes one (F, F) frame-bias partial (rows in
+// order) that the wrapper adds up in a fixed order: the gradients are the
+// same on every run.  Shared memory: 139 KB at A=5, 212 KB at A=8 with F =
+// 64, so one block (4 warps) an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -337,7 +360,8 @@ mm_bwd_delta(const float* __restrict__ o, const float* __restrict__ gout,
   row_dots(o, gout, delta, rows, dh);
 }
 
-template <int A>
+// kEmit: also store comb (B*H, T, T), query-major ("emit" mode)
+template <int A, bool kEmit>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ vm, const float* __restrict__ cn,
@@ -489,6 +513,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
       for (int i = 0; i < 4; ++i)
         if (kc[i >> 1] < 0) cb[n][i] = 0.f;
     accumulate<NT>(adk, cb, Qt, g, t);
+    if (!kEmit) continue;
     // comb[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -516,13 +541,199 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
   store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// backward, recompute mode: dq and the frame-bias partials
+// ---------------------------------------------------------------------------
+constexpr int kDqWarps = 4;
+constexpr int kDqThreads = kDqWarps * 32;
+constexpr int kDqRows = 32;       // query rows a block owns: two row groups of 16
+constexpr int kDqTile = 16;       // keys of a streamed tile: two halves of 8
+constexpr int kDqLd = 8 + 1;      // row stride of a warp's comb tile (frame sums)
+constexpr int kMaxFrames = 64;    // a lane per key frame, two frames a lane
+
+template <int A>
+__global__ void __launch_bounds__(kDqThreads, 1)
+mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
+          const float* __restrict__ vm, const float* __restrict__ cn,
+          const float* __restrict__ key_mask, const float* __restrict__ fb,
+          const int* __restrict__ fid, const float* __restrict__ gout,
+          const float* __restrict__ mrow, const float* __restrict__ den,
+          const float* __restrict__ delta, float* __restrict__ dq,
+          float* __restrict__ dfb_part, int H, int T, int dh, int F, bool vec) {
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kDqRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 1, kh = warp >> 1;  // row group (16 rows), key half (8 keys of a tile)
+
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);      // kDqRows x kLd
+  float* Gs = Qs + kDqRows * kLd;                    // A x kDqRows x kLd: g_a of the rows
+  float* Ks = Gs + A * kDqRows * kLd;                // 2 stages x kDqTile x kLd
+  float* Vs = Ks + 2 * kDqTile * kLd;                // 2 stages x kDqTile x kLd
+  float* Cs = Vs + 2 * kDqTile * kLd;                // 2 stages x A x kDqTile: cn of the keys
+  float* St = Cs + 2 * A * kDqTile;                  // 3 x A x kDqRows: m, 1 / den, delta
+  float* dsw = St + 3 * A * kDqRows;                 // kDqWarps x 16 x kDqLd: a warp's comb
+  float* racc = dsw + kDqWarps * 16 * kDqLd;         // kDqRows x F: frame sums of the rows
+  float* fbs = racc + kDqRows * F;                   // F x F
+  int* codes = reinterpret_cast<int*>(fbs + F * F);  // 2 stages x kDqTile
+
+  const size_t base = (size_t)bh * T * dh;
+  const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
+  const float* kb = km + base;
+  const float* vb = vm + base;
+  const float* cb = cn + arow;
+  auto stage = [&](int s, int j0) {
+    load_rows<kDqTile, kDqThreads>(Ks + s * kDqTile * kLd, kb, j0, T, dh, vec);
+    load_rows<kDqTile, kDqThreads>(Vs + s * kDqTile * kLd, vb, j0, T, dh, vec);
+    for (int i = tid; i < A * kDqTile; i += kDqThreads) {  // cn, zero past T
+      const int a = i / kDqTile, j = j0 + i % kDqTile;
+      cp_async4(Cs + s * A * kDqTile + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
+    }
+    if (tid < kDqTile) codes[s * kDqTile + tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
+    cp_commit();
+  };
+  for (int i = tid; i < F * F; i += kDqThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  for (int i = tid; i < 3 * A * kDqRows; i += kDqThreads) {  // rows past T: m 0, 1/den 1, delta 0
+    const int w = i / (A * kDqRows), r = i % (A * kDqRows), qi = q0 + r % kDqRows;
+    const size_t at = arow + (size_t)(r / kDqRows) * T + qi;
+    St[i] = qi >= T ? (w == 1 ? 1.f : 0.f) : w == 0 ? mrow[at] : w == 1 ? 1.f / den[at] : delta[at];
+  }
+  load_rows<kDqRows, kDqThreads>(Qs, qm + base, q0, T, dh, vec);
+#pragma unroll 1
+  for (int a = 0; a < A; ++a)
+    load_rows<kDqRows, kDqThreads>(Gs + a * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh, q0, T,
+                                   dh, vec);
+  stage(0, 0);  // one group: Q, the A g_a tiles and the first key tile
+
+  const int r0 = 16 * rg + g;  // this lane's rows of the block: r0 and r0 + 8
+  const int fq0 = q0 + r0 < T ? fid[q0 + r0] : 0, fq1 = q0 + r0 + 8 < T ? fid[q0 + r0 + 8] : 0;
+  const float* Qw = Qs + 16 * rg * kLd;
+  float* dw = dsw + warp * 16 * kDqLd;
+  float acc[kND][4];  // dQ of the warp's 16 rows over its key halves
+  zero(acc);
+  float rs[16][2];  // rs[r][x]: comb of warp row r summed over the keys of frame lane + 32 x
+#pragma unroll
+  for (int r = 0; r < 16; ++r) rs[r][0] = rs[r][1] = 0.f;
+
+  const int ntiles = (T + kDqTile - 1) / kDqTile;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    cp_wait_all();
+    __syncthreads();  // tile it is in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kDqTile);
+    const float* Kh = Ks + (s * kDqTile + 8 * kh) * kLd;  // the warp's 8 keys
+    const float* Vh = Vs + (s * kDqTile + 8 * kh) * kLd;
+    const float* Ct = Cs + s * A * kDqTile + 8 * kh;
+    const int* ct = codes + s * kDqTile + 8 * kh;
+
+    // S = Q K^T + fb, once for all args: rows g, g + 8 (c0, c1 / c2, c3), keys 2t, 2t + 1
+    float sc[1][4];
+    scores<1, false>(sc, sc, Qw, Kh, Qw, Kh, g, t);
+    const int c[2] = {ct[2 * t], ct[2 * t + 1]};
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (c[e] >= 0) {
+        sc[0][e] += fbs[fq0 * F + c[e]];
+        sc[0][2 + e] += fbs[fq1 * F + c[e]];
+      }
+    float comb[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+    for (int a = 0; a < A; ++a) {
+      float gv[1][4];
+      const float* Ga = Gs + (a * kDqRows + 16 * rg) * kLd;
+      scores<1, false>(gv, gv, Ga, Vh, Ga, Vh, g, t);  // gv_a = G_a V^T
+      const float* sm = St + a * kDqRows + r0;
+      const float m0 = sm[0], m1 = sm[8];
+      const float i0 = sm[A * kDqRows], i1 = sm[A * kDqRows + 8];
+      const float d0 = sm[2 * A * kDqRows], d1 = sm[2 * A * kDqRows + 8];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (c[e] >= 0) {  // ds_a on the valid keys; masked keys and keys past T give 0
+          const float ca = Ct[a * kDqTile + 2 * t + e];
+          comb[0][e] += expf(sc[0][e] + ca - m0) * i0 * (gv[0][e] - d0);
+          comb[0][2 + e] += expf(sc[0][2 + e] + ca - m1) * i1 * (gv[0][2 + e] - d1);
+        }
+    }
+    accumulate<1>(acc, comb, Kh, g, t);  // dQ += comb K
+
+    // comb through the warp's shared tile; a lane per key frame adds up its keys in order
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      dw[g * kDqLd + 2 * t + e] = comb[0][e];
+      dw[(g + 8) * kDqLd + 2 * t + e] = comb[0][2 + e];
+    }
+    __syncwarp();
+#pragma unroll 1
+    for (int jj = 0; jj < 8; ++jj) {
+      const int fk = ct[jj];  // < 0: masked or past T, never a lane's frame
+      if (fk == lane) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) rs[r][0] += dw[r * kDqLd + jj];
+      } else if (fk == lane + 32) {
+#pragma unroll
+        for (int r = 0; r < 16; ++r) rs[r][1] += dw[r * kDqLd + jj];
+      }
+    }
+    __syncwarp();  // dw is rewritten by the next tile
+  }
+
+  // the two key halves of a row group: half 1 hands its dQ and frame sums
+  // to half 0 through shared memory (Gs and racc), which adds them in order
+  __syncthreads();  // every warp is done with Gs
+  float* red = Gs + rg * 16 * kLd;
+  if (kh == 1) {
+#pragma unroll
+    for (int n = 0; n < kND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        red[g * kLd + 8 * n + 2 * t + e] = acc[n][e];
+        red[(g + 8) * kLd + 8 * n + 2 * t + e] = acc[n][2 + e];
+      }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (lane < F) racc[(16 * rg + r) * F + lane] = rs[r][0];
+      if (lane + 32 < F) racc[(16 * rg + r) * F + lane + 32] = rs[r][1];
+    }
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int n = 0; n < kND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[n][e] += red[g * kLd + 8 * n + 2 * t + e];
+        acc[n][2 + e] += red[(g + 8) * kLd + 8 * n + 2 * t + e];
+      }
+    store_rows(dq + base, acc, q0 + r0, 0, T, dh, t, 1.f, 1.f);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      if (lane < F) racc[(16 * rg + r) * F + lane] += rs[r][0];
+      if (lane + 32 < F) racc[(16 * rg + r) * F + lane + 32] += rs[r][1];
+    }
+  }
+  __syncthreads();
+  // this block's (F, F) partial: rows in order, those of query frame f
+  float* part = dfb_part + ((size_t)bh * gridDim.x + blockIdx.x) * F * F;
+  for (int cell = tid; cell < F * F; cell += kDqThreads) {
+    const int f = cell / F, gk = cell - f * F;
+    float sum = 0.f;
+    for (int r = 0; r < kDqRows && q0 + r < T; ++r)
+      if (fid[q0 + r] == f) sum += racc[r * F + gk];
+    part[cell] = sum;
+  }
+}
+
+// delta, then mm_bwd_dkv; with comb (emit mode) it stores comb, else
+// (recompute mode) mm_bwd_dq follows for dq and the frame-bias partials
 template <int A>
 int launch_bwd(const float* qm, const float* km, const float* vm, const float* cn,
                const float* key_mask, const float* fb, const int* fid,
                const float* gout, const float* out, const float* mrow, const float* den,
-               float* delta, float* dk, float* dv, float* dcn,
-               float* comb, int B, int H, int T, int dh, int F,
-               cudaStream_t stream) {
+               float* delta, float* dk, float* dv, float* dcn, float* comb, float* dq,
+               float* dfb_part, int B, int H, int T, int dh, int F, cudaStream_t stream) {
   const int rows = B * H * A * T;
   mm_bwd_delta<<<(rows + 7) / 8, 256, 0, stream>>>(out, gout, delta, rows, dh);
   cudaError_t e = cudaGetLastError();
@@ -530,34 +741,51 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
   const size_t smem = sizeof(float) * ((size_t)(2 * kBwdKeys + 4 * kBwdTile) * kLd +
                                        6 * A * kBwdTile + A * kBwdKeys + F * F) +
                       sizeof(int) * 2 * kBwdTile;
-  e = cudaFuncSetAttribute(mm_bwd_dkv<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool emit = comb != nullptr;
+  auto dkv = emit ? mm_bwd_dkv<A, true> : mm_bwd_dkv<A, false>;
+  e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
                    aligned16(gout);
   dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H);
-  mm_bwd_dkv<A><<<grid, kBwdThreads, smem, stream>>>(
+  dkv<<<grid, kBwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn,
       comb, H, T, dh, F, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || emit) return (int)e;
+  const size_t smem_q = sizeof(float) * ((size_t)((1 + A) * kDqRows + 4 * kDqTile) * kLd +
+                                         2 * A * kDqTile + 3 * A * kDqRows +
+                                         kDqWarps * 16 * kDqLd + kDqRows * F + F * F) +
+                        sizeof(int) * 2 * kDqTile;
+  e = cudaFuncSetAttribute(mm_bwd_dq<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  if (e != cudaSuccess) return (int)e;
+  mm_bwd_dq<A><<<dim3((T + kDqRows - 1) / kDqRows, B * H), kDqThreads, smem_q, stream>>>(
+      qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dq, dfb_part, H, T, dh, F, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// delta: (B,H,A,T) scratch, written here from gout and the forward's out
+// delta: (B,H,A,T) scratch, written here from gout and the forward's out.
+// Emit mode: comb (B*H, T, T) not null; dq and dfb_part are not touched.
+// Recompute mode: comb null; dq (B,H,T,dh) and dfb_part (B, H, ceil(T /
+// 32), F, F) are written.
 extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, const float* gout,
                           const float* out, const float* mrow, const float* den,
                           float* delta, float* dk, float* dv, float* dcn,
-                          float* comb, int B, int H, int A, int T, int dh,
-                          int F, void* stream) {
-  if (dh > kMaxDh || dh < 1) return (int)cudaErrorInvalidValue;
+                          float* comb, float* dq, float* dfb_part, int B, int H,
+                          int A, int T, int dh, int F, void* stream) {
+  if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
+  if (comb == nullptr && (dq == nullptr || dfb_part == nullptr)) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOG_MM_BWD_CASE(n)                                                    \
   case n:                                                                     \
     return launch_bwd<n>(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow,  \
-                         den, delta, dk, dv, dcn, comb, B, H, T, dh, F, s);
+                         den, delta, dk, dv, dcn, comb, dq, dfb_part, B, H, T,  \
+                         dh, F, s);
   switch (A) {
     VOG_MM_BWD_CASE(1)
     VOG_MM_BWD_CASE(2)
@@ -578,7 +806,7 @@ extern "C" int vog_mm_fwd(const float* qm, const float* km, const float* vm,
                           const float* fb, const int* fid, float* o,
                           float* mrow, float* den, int B, int H, int A, int T,
                           int dh, int F, void* stream) {
-  if (dh > kMaxDh || dh < 1) return (int)cudaErrorInvalidValue;
+  if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOG_MM_CASE(n) \

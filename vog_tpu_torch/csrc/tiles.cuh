@@ -181,7 +181,16 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
 }
 
 // acc[n] += A . Y over the warp's 16 rows: A the C fragments of a 16 x
-// NT*8 tile (k in pair order), Y a row-major shared (NT*8, kLd) tile
+// NT*8 tile (k in pair order), Y a row-major shared (NT*8, kLd) tile.
+// Each 8-step's product is formed from zero and added to acc in fp32.
+// Fed back as the mma's C operand over a whole axis, an accumulator's
+// relative error grows with the chain's length (the tensor core's fp32
+// sums are not rounded to nearest): at T=4000 (chip_smoke.py, H100),
+// mm_bwd_dkv's dV, whose chain runs over A args a query tile, reached
+// 1.4e-4 against an fp64 reference (3.0e-6 this way), and the train
+// step's comparison failed on a leaf that the flash kernels' chains feed
+// (1.2e-4 against its 1e-4 limit).  The four adds a product cost the
+// flash kernels ~10 % (PERF.md).
 template <int NT>
 __device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4], const float* Y,
                                   int g, int t) {
@@ -193,7 +202,10 @@ __device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4],
     for (int n = 0; n < kND; ++n) {
       uint32_t bb[2], bs[2];
       frag_b_pairs(Y, 8 * j, 8 * n, g, t, bb, bs);
-      mma3(acc[n], ab, as, bb, bs);
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma3(part, ab, as, bb, bs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += part[i];
     }
   }
 }

@@ -12,21 +12,34 @@ fit 227 KB of shared memory at T=4000), and reads the bias from the head's
 Masked keys take the finite ``NEG`` so a row with every key masked stays
 finite.
 
-Backward: replaces §_flash_bwd in its default "recompute" mode: a dk/dv
-kernel over key tiles, then a dq + frame-bias-grad kernel over query
-tiles, both recomputing p = exp(s - lse) from the forward's saved LSE
-(``_block_tile``), so no (T, T) tensor reaches device memory.  The
-frame-bias gradient is one (F, F) partial per (b, h, query tile), added up
-here in a fixed order; with a single frame (F == 1, also the no-bias case)
-it is sum_ij ds_ij, zero up to rounding, and is returned as zeros.
-``flash_attention`` is a ``torch.autograd.Function``: the CUDA kernels on
-the card, ``flash_attention_plain`` / ``flash_attention_bwd_plain`` on the
-CPU.  ``key_mask`` and ``frame_ids`` get no gradient.
+Backward: replaces §_flash_bwd in both of its modes, chosen per call
+(``bwd_mode``) or for the process (``VOG_FLASH_BWD``) as the TPU package
+chooses them (``resolve_bwd_mode``, default "recompute").  Both recompute
+p = exp(s - lse) from the forward's saved LSE (``_block_tile``) in a dk/dv
+kernel over key tiles (flash_bwd_dkv).
+  * "recompute" (``_make_bwd_dkv_kernel(False)`` + ``_bwd_dq_kernel``): a
+    dq + frame-bias-grad kernel over query tiles (flash_bwd_dq) derives the
+    tiles again, so no (T, T) tensor reaches device memory.  The
+    frame-bias gradient is one (F, F) partial per (b, h, query tile),
+    added up here in a fixed order.
+  * "emit" (``_make_bwd_dkv_kernel(True)``): flash_bwd_dkv also writes the
+    masked score gradient ds (B*H, T, T); dq = scale * ds . k and the
+    frame-bias gradient (onehot^T ds onehot, summed over b) are then plain
+    products here, as the TPU package leaves them to XLA (512 MB at P100,
+    B=2, T=4000).
+With a single frame (F == 1, also the no-bias case) the frame-bias
+gradient is sum_ij ds_ij, zero up to rounding, and both modes return
+zeros.  ``flash_attention`` is a ``torch.autograd.Function`` whose ctx
+carries the mode from the forward to the backward: the CUDA kernels on
+the card, ``flash_attention_plain`` / ``flash_attention_bwd_plain`` (the
+same function in both modes) on the CPU.  ``key_mask`` and ``frame_ids``
+get no gradient.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -35,9 +48,25 @@ from vog_tpu_torch.kernels import _build
 
 NEG = -1e30
 NAME = "flash_attention"
-NAME_BWD = "flash_attention_bwd"
+NAME_BWD = "flash_attention_bwd"  # recompute mode
+NAME_BWD_EMIT = "flash_attention_bwd_emit"
+MAX_DH = 128  # the kernels' padded head dim (kMaxDh in csrc/tiles.cuh)
 MAX_BWD_FRAMES = 64  # the dq kernel's frame-bias partial takes F <= 64
 BWD_Q_ROWS = 64  # query rows a block of the dq kernel (kRows in csrc/attention.cu)
+
+
+def resolve_bwd_mode(mode: Optional[str]) -> str:
+    """The backward's mode, as the TPU package's ``_resolve_bwd_mode``
+    picks it: None or "auto" reads ``VOG_FLASH_BWD``, whose "auto" (or
+    absence) means "recompute"; anything but "emit" and "recompute"
+    raises."""
+    if mode is None or mode == "auto":
+        mode = os.environ.get("VOG_FLASH_BWD", "auto")
+    if mode == "auto":
+        mode = "recompute"
+    if mode not in ("emit", "recompute"):
+        raise ValueError(f"bad flash bwd_mode {mode!r}")
+    return mode
 
 
 def _bias_inputs(H, T, frame_bias, frame_ids, device):
@@ -70,8 +99,8 @@ def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     dev = q.device
     B, H, T, dh = q.shape
-    if dh > 128:
-        raise ValueError(f"{NAME}: head dim {dh} > 128 is not supported by the kernel")
+    if dh > MAX_DH:
+        raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH} is not supported by the kernel")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.float32, 4, dev)
         if tuple(t.shape) != (B, H, T, dh):
@@ -117,13 +146,16 @@ def flash_attention_fwd(
     return o, lse
 
 
-def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
+def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do,
+                              bwd_mode=None):
     """Plain PyTorch backward from the saved LSE -> (dq, dk, dv, dfb (H,F,F)),
     as the TPU kernels' ``_block_tile`` defines it: p = exp(s - lse),
     ds = p (do.v - delta) with delta = sum(do * o), masked keys give ds = 0.
     A batch row with every key masked has lse = -1e30 + log T, which is
     -1e30 in fp32: there p = 1/T (the softmax of equal scores), as
-    autograd of ``flash_attention_plain`` gives."""
+    autograd of ``flash_attention_plain`` gives.  Both modes compute this
+    function; ``bwd_mode`` is taken for the kernel wrapper's signature and
+    does not change the arithmetic."""
     B, H, T, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     frame_bias, frame_ids = _bias_inputs(H, T, frame_bias, frame_ids, q.device)
@@ -143,10 +175,12 @@ def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, 
     return dq, dk, dv, dfb
 
 
-def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
-    """Backward of ``flash_attention_fwd`` -> (dq, dk, dv, dfb (H,F,F)):
-    the CUDA kernels (delta, then dk/dv and dq) on the card, the plain
-    version on the CPU."""
+def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bwd_mode=None):
+    """Backward of ``flash_attention_fwd`` -> (dq, dk, dv, dfb (H,F,F)): on
+    the card the CUDA kernels of ``bwd_mode`` (``resolve_bwd_mode``): delta,
+    then dk/dv and dq ("recompute"), or dk/dv with ds and two products over
+    it ("emit"); the plain version on the CPU."""
+    mode = resolve_bwd_mode(bwd_mode)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do)
     Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
@@ -164,27 +198,44 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do):
     fn = _build.function("attention.cu", "vog_flash_delta", [P] * 3 + [I] * 2 + [P])
     _build.check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
                     _build.stream_ptr(q)), NAME_BWD)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the kernel writes the frame-bias partials only when F > 1
-    part = (torch.empty((B, H, -(-T // BWD_Q_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
-            if Fn > 1 else None)
-    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 13 + [I] * 5 + [_build.F, P])
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    scale = 1.0 / math.sqrt(dh)
+    if mode == "emit":
+        ds = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
+        dq = part = None
+    else:
+        ds = None
+        dq = torch.empty_like(q)
+        # the kernel writes the frame-bias partials only when F > 1
+        part = (torch.empty((B, H, -(-T // BWD_Q_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
+                if Fn > 1 else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 14 + [I] * 5 + [_build.F, P])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr, dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            None if part is None else part.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
+            delta.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr, ptr(dq),
+            dk.data_ptr(), dv.data_ptr(), ptr(part), ptr(ds), B, H, T, dh, Fn, scale,
             _build.stream_ptr(q))
+    zeros = lambda: torch.zeros((H, 1, 1), dtype=torch.float32, device=dev)  # noqa: E731
+    if mode == "emit":
+        _build.check(rc, NAME_BWD_EMIT)
+        _build.count(NAME_BWD_EMIT)
+        dq = torch.matmul(ds, k.reshape(B * H, T, dh)).reshape(q.shape) * scale
+        if Fn == 1:
+            return dq, dk, dv, zeros()
+        onehot = torch.nn.functional.one_hot(frame_ids.long(), Fn).to(ds.dtype)  # (T,F)
+        dfb = torch.matmul(onehot.t(), torch.matmul(ds, onehot))  # (BH,F,F)
+        return dq, dk, dv, dfb.reshape(B, H, Fn, Fn).sum(0)
     _build.check(rc, NAME_BWD)
     _build.count(NAME_BWD)
-    dfb = torch.zeros((H, 1, 1), dtype=torch.float32, device=dev) if part is None else part.sum(dim=(0, 2))
-    return dq, dk, dv, dfb
+    return dq, dk, dv, zeros() if part is None else part.sum(dim=(0, 2))
 
 
 class FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, frame_bias, frame_ids):
+    def forward(ctx, q, k, v, key_mask, frame_bias, frame_ids, bwd_mode):
         o, lse = flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids)
         ctx.has_bias = frame_bias is not None
+        ctx.bwd_mode = bwd_mode
         ctx.save_for_backward(q, k, v, key_mask, frame_bias, frame_ids, o, lse)
         return o
 
@@ -192,12 +243,16 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, key_mask, frame_bias, frame_ids, o, lse = ctx.saved_tensors
         dq, dk, dv, dfb = flash_attention_bwd(
-            q, k, v, key_mask, frame_bias, frame_ids, o, lse, do.contiguous()
+            q, k, v, key_mask, frame_bias, frame_ids, o, lse, do.contiguous(), bwd_mode=ctx.bwd_mode
         )
-        return dq, dk, dv, None, (dfb if ctx.has_bias else None), None
+        return dq, dk, dv, None, (dfb if ctx.has_bias else None), None, None
 
 
-def flash_attention(q, k, v, key_mask, frame_bias=None, frame_ids=None) -> torch.Tensor:
+def flash_attention(q, k, v, key_mask, frame_bias=None, frame_ids=None,
+                    bwd_mode: Optional[str] = None) -> torch.Tensor:
     """Fused attention -> (B,H,T,dh), the JAX package's signature, with
-    its gradient (``FlashAttention``)."""
-    return FlashAttention.apply(q, k, v, key_mask, frame_bias, frame_ids)
+    its gradient (``FlashAttention``); ``bwd_mode`` ("emit", "recompute",
+    "auto" or None) is resolved here, at the call, as the TPU package
+    resolves it."""
+    return FlashAttention.apply(q, k, v, key_mask, frame_bias, frame_ids,
+                                resolve_bwd_mode(bwd_mode))

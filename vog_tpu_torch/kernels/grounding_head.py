@@ -26,6 +26,15 @@ chunks fill the SMs its second wave leaves idle; the caller's stream
 waits for it.  The partials are added up here in a
 fixed order (``sum`` over a dimension), so the gradients do not change
 between runs.  All products run in 3xTF32, as the forward.
+
+Args: the kernels take 1 <= A <= 5 (their row tile holds the A args of
+16 tokens; at A=5 the backward's accumulators fill the register file).
+A head's logits are independent across args, so for A > 5 both wrappers
+split the args into groups of at most 5, as even as possible
+(``arg_groups``: 6 -> 3 + 3, 8 -> 4 + 4), launch the kernels once a
+group, concatenate the logits and the per-arg gradients (darg, dwl), and
+add the shared ones (dvis, dwv and the weight gradients) group by group
+in order.  The CPU path takes the same groups.
 ``fused_grounding_head`` is a ``torch.autograd.Function``: the CUDA
 kernels on the card, ``grounding_head_bwd_plain`` on the CPU.
 """
@@ -43,6 +52,24 @@ NAME_BWD = "fused_grounding_head_bwd"
 # (split 6 + 5 between the row kernel's two parts)
 W_CHUNKS = 11
 ROW_TOKENS = 16  # tokens a block of the row kernel (kBT in csrc/grounding_head.cu)
+KERNEL_ARGS = 5  # the most args a launch takes (kMaxA in csrc/grounding_head.cu)
+
+
+def arg_groups(A: int):
+    """[(a0, a1), ...]: A args in ceil(A / KERNEL_ARGS) groups of at most
+    KERNEL_ARGS, as even as possible, in order."""
+    n = -(-A // KERNEL_ARGS)
+    bounds = [A * i // n for i in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def shape_fault(D: int, Dh: int):
+    """Why the kernels do not take feature width D and hidden width Dh, or
+    None when they do."""
+    if D > 512 or D % 32 or Dh > 256 or Dh % 16:
+        return (f"the head kernels take D <= 512 with D % 32 == 0 and Dh <= 256 with "
+                f"Dh % 16 == 0 (D={D}, Dh={Dh})")
+    return None
 
 
 def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
@@ -61,11 +88,9 @@ def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     B, T, D = vis.shape
     A = arg.shape[1]
     Dh = w1.shape[1]
-    if D > 512 or D % 32 or Dh > 256 or Dh % 16 or not 1 <= A <= 5:
-        raise ValueError(
-            f"{NAME}: kernel takes D <= 512 with D % 32 == 0, Dh <= 256 with Dh % 16 == 0, "
-            f"1 <= A <= 5 (D={D}, Dh={Dh}, A={A})"
-        )
+    fault = shape_fault(D, Dh)
+    if fault or not 1 <= A <= KERNEL_ARGS:
+        raise ValueError(f"{NAME}: {fault or f'a launch takes 1 <= A <= {KERNEL_ARGS} (A={A})'}")
     f32 = torch.float32
     for name, t, shape in (
         ("vis", vis, (B, T, D)), ("wv", wv, (B, T, D)), ("arg", arg, (B, A, D)),
@@ -80,9 +105,24 @@ def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     return b2.reshape(1).contiguous()
 
 
+def _groups(arg, wl, g=None):
+    """(arg, wl[, g]) sliced to each of ``arg_groups``."""
+    for a0, a1 in arg_groups(arg.shape[1]):
+        sl = lambda t: t[:, a0:a1].contiguous()  # noqa: E731
+        yield (sl(arg), sl(wl)) + (() if g is None else (sl(g),))
+
+
 def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     """vis (B,T,D), arg (B,A,D), wv (B,T,D), wl (B,A,D), wx (D,D),
-    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T)."""
+    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T); the
+    args in groups of at most KERNEL_ARGS."""
+    if arg.shape[1] <= KERNEL_ARGS:
+        return _fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    return torch.cat([_fwd(vis, a, wv, l, wx, w1, b1, w2, b2) for a, l in _groups(arg, wl)], dim=1)
+
+
+def _fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
+    """One launch (A <= KERNEL_ARGS) on the card, the plain version on the CPU."""
     if vis.device.type == "cpu":
         return grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2)
     b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)
@@ -125,8 +165,21 @@ def grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
 
 
 def grounding_head_bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
-    """Backward of ``grounding_head_fwd`` -> the 9 gradients: the two CUDA
-    kernels on the card, the plain version on the CPU."""
+    """Backward of ``grounding_head_fwd`` -> the 9 gradients, the args in
+    the forward's groups: per-arg gradients concatenated, the others added
+    group by group in order."""
+    if arg.shape[1] <= KERNEL_ARGS:
+        return _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g)
+    parts = [_bwd(vis, a, wv, l, wx, w1, b1, w2, b2, gg) for a, l, gg in _groups(arg, wl, g)]
+    cat = lambda i: torch.cat([p[i] for p in parts], dim=1)  # noqa: E731
+    add = lambda i: sum(p[i] for p in parts)  # noqa: E731  (in group order)
+    return (add(0), cat(1), add(2), cat(3), add(4), add(5), add(6), add(7),
+            g.sum().reshape(b2.shape))
+
+
+def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
+    """One group's 9 gradients: the two CUDA kernels on the card, the plain
+    version on the CPU."""
     if vis.device.type == "cpu":
         return grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g)
     b2c = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)

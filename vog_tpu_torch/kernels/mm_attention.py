@@ -21,26 +21,36 @@ device memory.  One library call computes the same output:
 (masked keys at NEG; 51 MB at GT5).  ``chip_smoke.py`` times it as this
 kernel's yardstick; the port never calls it.
 
-Backward: replaces §_mm_attn_bwd in the TPU package's default "emit" mode.
-Two CUDA kernels (csrc/mm_attention.cu): mm_bwd_delta forms delta_a =
-rowsum(g_a * out_a); mm_bwd_dkv (3xTF32 ``mma.sync``, a block of 4 warps
-owns 64 keys and streams 16-row query tiles and each arg's g_a tile by
-``cp.async``) computes each score tile once for all args, recomputes p_a
-from the saved per-arg row max and denominator and writes dk, dv, dcn and
-the summed score gradient comb = sum_a ds_a (B*H, T, T); dq = comb . km and the
-frame-bias gradient (onehot^T comb onehot, summed over b) are plain
-products over it, as the TPU package leaves them to XLA.  Emit rather than
-recompute: recompute would redo the A g_a.vm products for dq (A+1 extra
-passes over every (i, j)), which the TPU package measured slower, and the
-emitted buffer is small at GT5 (64 x 200 x 200 fp32, 10 MB).
-``mm_shared_qk_attention`` is a ``torch.autograd.Function``: the CUDA
-kernel on the card, ``mm_attention_bwd_plain`` on the CPU.  ``key_mask``
-and ``frame_ids`` get no gradient.
+Backward: replaces §_mm_attn_bwd in both of its modes, chosen per call
+(``bwd_mode``) or for the process (``VOG_MM_BWD``) as the TPU package
+chooses them (``resolve_bwd_mode``, default "emit").  In both, mm_bwd_delta
+forms delta_a = rowsum(g_a * out_a) and mm_bwd_dkv (3xTF32 ``mma.sync``, a
+block of 4 warps owns 64 keys and streams 16-row query tiles and each
+arg's g_a tile by ``cp.async``) computes each score tile once for all args,
+recomputes p_a from the saved per-arg row max and denominator and writes
+dk, dv and dcn (csrc/mm_attention.cu).
+  * "emit" (``_make_bwd_dkv_kernel(True)``): mm_bwd_dkv also writes the
+    summed score gradient comb = sum_a ds_a (B*H, T, T); dq = comb . km and
+    the frame-bias gradient (onehot^T comb onehot, summed over b) are plain
+    products over it, as the TPU package leaves them to XLA.  The default,
+    as in the TPU package: recompute redoes the A g_a.vm products for dq
+    (A+1 extra passes over every (i, j)).
+  * "recompute" (``_bwd_dkv_noemit_kernel`` + ``_bwd_dq_kernel``): no
+    (T, T) buffer; mm_bwd_dq derives the tiles again over query rows (S
+    once a key tile for all args, then each arg's g_a.vm^T and ds_a), sums
+    comb on chip, accumulates dq = comb . km and one (F, F) frame-bias
+    partial per (b, h, 32 query rows), which the wrapper adds up in a fixed
+    order.  For memory: comb is 512 MB at P100 (B=2, T=4000).
+Both modes compute the same function; on the CPU both run
+``mm_attention_bwd_plain``.  ``mm_shared_qk_attention`` is a
+``torch.autograd.Function`` whose ctx carries the mode from the forward to
+the backward.  ``key_mask`` and ``frame_ids`` get no gradient.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -48,7 +58,25 @@ from vog_tpu_torch.kernels import _build
 
 NEG = -1e30
 NAME = "mm_shared_qk_attention"
-NAME_BWD = "mm_shared_qk_attention_bwd"
+NAME_BWD = "mm_shared_qk_attention_bwd"  # emit mode
+NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
+MAX_ARGS = 8  # the kernels' A (template cases 1..8 in csrc/mm_attention.cu)
+MAX_DH = 128
+MAX_FRAMES = 64  # the (F, F) bias table in shared memory; the dq kernel's frame sums
+DQ_ROWS = 32  # query rows a block of mm_bwd_dq owns (kDqRows in csrc/mm_attention.cu)
+
+
+def resolve_bwd_mode(mode: Optional[str]) -> str:
+    """The backward's mode, as the TPU package's ``_resolve_mm_bwd_mode``
+    picks it: None or "auto" reads ``VOG_MM_BWD``, whose "auto" (or
+    absence) means "emit"; anything but "emit" and "recompute" raises."""
+    if mode is None or mode == "auto":
+        mode = os.environ.get("VOG_MM_BWD", "auto")
+    if mode == "auto":
+        mode = "emit"
+    if mode not in ("emit", "recompute"):
+        raise ValueError(f"bad mm bwd_mode {mode!r}")
+    return mode
 
 
 def mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
@@ -72,8 +100,9 @@ def _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
     B, H, T, dh = qm.shape
     A = cn.shape[2]
     Fn = frame_bias.shape[-1]
-    if dh > 128 or not 1 <= A <= 8:
-        raise ValueError(f"{NAME}: kernel takes dh <= 128 and 1 <= A <= 8 (dh={dh}, A={A})")
+    if dh > MAX_DH or not 1 <= A <= MAX_ARGS or Fn > MAX_FRAMES:
+        raise ValueError(f"{NAME}: kernel takes dh <= {MAX_DH}, 1 <= A <= {MAX_ARGS} and "
+                         f"F <= {MAX_FRAMES} (dh={dh}, A={A}, F={Fn})")
     for name, t in (("qm", qm), ("km", km), ("vm", vm)):
         _build.require(t, name, torch.float32, 4, dev)
         if tuple(t.shape) != (B, H, T, dh):
@@ -129,11 +158,14 @@ def _dq_dfb(comb, km, frame_ids, Fn, H):
     return dq.reshape(km.shape), dfb.reshape(-1, H, Fn, Fn).sum(0)
 
 
-def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g):
+def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g,
+                           bwd_mode=None):
     """Plain PyTorch backward from the saved per-arg row max and
     denominator -> (dq, dk, dv, dcn, dfb), as ``_make_bwd_dkv_kernel``
     defines it: p_a = exp(s + cn_a - m_a), ds_a = p_a (g_a.vm - delta_a) /
-    den_a, comb = sum_a ds_a masked to the valid keys, dcn_a = sum_i ds_a."""
+    den_a, comb = sum_a ds_a masked to the valid keys, dcn_a = sum_i ds_a.
+    Both modes compute this function; ``bwd_mode`` is taken for the
+    kernel wrapper's signature and does not change the arithmetic."""
     B, H, T, dh = qm.shape
     Fn = frame_bias.shape[-1]
     fid = frame_ids.long()
@@ -152,10 +184,12 @@ def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out,
     return dq, dk, dv, dcn, dfb
 
 
-def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g):
-    """Backward of ``mm_attention_fwd`` -> (dq, dk, dv, dcn, dfb): the CUDA
-    kernels and two products over their comb on the card, the plain version
-    on the CPU."""
+def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g,
+                     bwd_mode=None):
+    """Backward of ``mm_attention_fwd`` -> (dq, dk, dv, dcn, dfb): on the
+    card the CUDA kernels of ``bwd_mode`` (``resolve_bwd_mode``), in emit
+    mode with two products over their comb; the plain version on the CPU."""
+    mode = resolve_bwd_mode(bwd_mode)
     if qm.device.type == "cpu":
         return mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
                                       out, mrow, den, g)
@@ -173,33 +207,51 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
     delta = torch.empty_like(cn)  # (B,H,A,T) rowsum(g * out), written by the kernel
     dk, dv = torch.empty_like(km), torch.empty_like(vm)
     dcn = torch.empty_like(cn)
-    comb = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
+    if mode == "emit":
+        comb = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
+        dq = part = None
+    else:  # no (T, T) buffer: dq and the frame-bias partials from mm_bwd_dq
+        comb = None
+        dq = torch.empty_like(qm)
+        part = torch.empty((B, H, -(-T // DQ_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 16 + [I] * 6 + [P])
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P])
     rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
             frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
             mrow.data_ptr(), den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dcn.data_ptr(), comb.data_ptr(), B, H, A, T, dh, Fn, _build.stream_ptr(qm))
-    _build.check(rc, NAME_BWD)
-    _build.count(NAME_BWD)
-    dq, dfb = _dq_dfb(comb, km, frame_ids, Fn, H)
+            dcn.data_ptr(), ptr(comb), ptr(dq), ptr(part), B, H, A, T, dh, Fn,
+            _build.stream_ptr(qm))
+    if mode == "emit":
+        _build.check(rc, NAME_BWD)
+        _build.count(NAME_BWD)
+        dq, dfb = _dq_dfb(comb, km, frame_ids, Fn, H)
+    else:
+        _build.check(rc, NAME_BWD_RECOMPUTE)
+        _build.count(NAME_BWD_RECOMPUTE)
+        dfb = part.sum(dim=(0, 2))
     return dq, dk, dv, dcn, dfb
 
 
 class MMSharedQKAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qm, km, vm, cn, key_mask, frame_bias, frame_ids):
+    def forward(ctx, qm, km, vm, cn, key_mask, frame_bias, frame_ids, bwd_mode):
         out, mrow, den = mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+        ctx.bwd_mode = bwd_mode
         ctx.save_for_backward(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        dq, dk, dv, dcn, dfb = mm_attention_bwd(*ctx.saved_tensors, g.contiguous())
-        return dq, dk, dv, dcn, None, dfb, None
+        dq, dk, dv, dcn, dfb = mm_attention_bwd(*ctx.saved_tensors, g.contiguous(),
+                                                bwd_mode=ctx.bwd_mode)
+        return dq, dk, dv, dcn, None, dfb, None, None
 
 
-def mm_shared_qk_attention(qm, km, vm, cn, key_mask, frame_bias, frame_ids) -> torch.Tensor:
+def mm_shared_qk_attention(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
+                           bwd_mode: Optional[str] = None) -> torch.Tensor:
     """-> (B,H,A,T,dh), the JAX package's signature, with its gradient
-    (``MMSharedQKAttention``)."""
-    return MMSharedQKAttention.apply(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    (``MMSharedQKAttention``); ``bwd_mode`` ("emit", "recompute", "auto" or
+    None) is resolved here, at the call, as the TPU package resolves it."""
+    return MMSharedQKAttention.apply(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
+                                     resolve_bwd_mode(bwd_mode))

@@ -13,11 +13,11 @@ event and returns without waiting; ``fetch`` waits on that event.  So a
 caller (``ServingLoop``) overlaps one batch's host work with another's
 compute.
 
-Precision: fp32 matmuls stay full fp32 on the card; ``Predictor`` sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` and
-``torch.backends.cudnn.allow_tf32 = False``.  Loading an orbax checkpoint
-waits for the checkpoint loader of a later slice; weights come as a flax
-params tree (converted by ``interop.from_jax``) or a state_dict.
+Precision: ``Predictor`` applies ``misc.matmul_precision`` with
+``config.apply_matmul_precision``, as ``get_model`` does.  Loading an
+orbax checkpoint waits for the checkpoint loader of a later slice;
+weights come as a flax params tree (converted by ``interop.from_jax``)
+or a state_dict.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from vog_tpu_torch.config import apply_matmul_precision
 from vog_tpu_torch.data.device_store import gather_from_tables
 from vog_tpu_torch.device import DeviceLike, resolve_device
 from vog_tpu_torch.interop.from_jax import params_from_jax
@@ -65,8 +66,7 @@ class Predictor:
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        apply_matmul_precision(cfg)
         self.model = get_model(cfg, vocab_size, device=self.device)
         if params is not None:
             sd = params
