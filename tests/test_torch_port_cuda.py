@@ -14,8 +14,9 @@ gather rows at 1, 4 and 64 rows a call), and the attention kernels at the
 P100 length (T = 4000).  The mm and head backwards also give bitwise-equal
 gradients on a second call.  Both backward modes of the flash and mm
 attention (``bwd_mode``): each against the plain backward, and against
-each other (their sums differ only by rounding); the head at A = 6 and 8
-(two launches of at most 5 args).  Tolerance as in chip_smoke.py: bitwise for the
+each other (their sums differ only by rounding); the head's forward at A
+up to 8 in one launch, bitwise on a repeat call, and its backward at A =
+6 and 8 (two launches of at most 5 args).  Tolerance as in chip_smoke.py: bitwise for the
 gather, max |err| <= 1e-4 * max(1, max|ref|) for the fp32 kernels (and
 |err| / |ref| <= 1e-3 for the mm forward).
 """
@@ -139,8 +140,16 @@ def test_mm(dev, B, A, T, dh):
         _close_rel(x[:n], y[:n])
 
 
-@pytest.mark.parametrize("B,T,A,D", [(2, 13, 5, 512), (1, 40, 3, 96), (3, 200, 5, 256), (2, 37, 1, 64)])
+# the forward's items are 64 flattened (b, t) rows: B * T below, at and just
+# past one item, T = 4000 (P100), the GT5 shape, A up to 8 in one launch,
+# D = 32 .. 512 (zero-padded to a multiple of 64), Dh = D / 2
+@pytest.mark.parametrize("B,T,A,D", [
+    (2, 13, 5, 512), (1, 40, 3, 96), (3, 200, 5, 256), (2, 37, 1, 64),
+    (1, 63, 5, 512), (1, 64, 3, 512), (1, 65, 1, 512), (2, 4000, 5, 512), (16, 200, 5, 512),
+    (2, 37, 6, 256), (3, 45, 8, 96), (2, 1, 1, 32),
+])
 def test_head(dev, B, T, A, D):
+    from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.grounding_head import fused_grounding_head, grounding_head_plain
 
     Dh = D // 2
@@ -148,7 +157,26 @@ def test_head(dev, B, T, A, D):
             torch.randn((B, T, D), device=dev), torch.randn((B, A, D), device=dev),
             torch.randn((D, D), device=dev) / D**0.5, torch.randn((D, Dh), device=dev) / D**0.5,
             torch.randn((Dh,), device=dev), torch.randn((Dh,), device=dev), torch.randn((), device=dev))
-    _close(fused_grounding_head(*args), grounding_head_plain(*args))
+    _build.reset_counts()
+    got = fused_grounding_head(*args)
+    torch.cuda.synchronize()
+    assert _build.launches == {"fused_grounding_head": 1}  # any A in one launch
+    _close_rel(got, grounding_head_plain(*args))
+    assert torch.equal(got, fused_grounding_head(*args))  # bitwise on a repeat call
+
+
+@pytest.mark.parametrize("D,Dh", [(512, 256), (96, 48), (32, 16)])
+def test_head_fwd_stream_matches_plain(dev, D, Dh):
+    """head_fwd_prep's weight stream, bitwise against its plain version."""
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.grounding_head import fwd_stream_floats, fwd_stream_plain
+
+    wx, w1 = torch.randn((D, D), device=dev), torch.randn((D, Dh), device=dev)
+    got = torch.full((fwd_stream_floats(D),), float("nan"), device=dev)
+    fn = _build.function("grounding_head.cu", "vog_head_fwd_prep", [_build.P] * 3 + [_build.I] * 2 + [_build.P])
+    assert fn(wx.data_ptr(), w1.data_ptr(), got.data_ptr(), D, Dh, _build.stream_ptr(wx)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, fwd_stream_plain(wx, w1))
 
 
 def test_wrappers_raise_on_bad_input(dev):
@@ -333,9 +361,10 @@ def test_functions_match_autograd_of_plain(dev):
 # the backward modes that are not the TPU package's default, and the head
 # at more args than one launch takes
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("A,T,dh", [(1, 45, 40), (5, 200, 128), (8, 65, 40), (8, 200, 128),
-                                    (5, 1, 128), (5, 1000, 128)])
-def test_mm_bwd_recompute_kernel(dev, A, T, dh):
+@pytest.mark.parametrize("A,T,dh,F", [(1, 45, 40, 10), (5, 200, 128, 10), (8, 65, 40, 10), (8, 200, 128, 10),
+                                      (5, 1, 128, 10), (5, 1000, 128, 10), (8, 200, 128, 64),
+                                      (5, 4000, 128, 40)])
+def test_mm_bwd_recompute_kernel(dev, A, T, dh, F):
     """mm_bwd_dkv without comb, then mm_bwd_dq; batch row 1 has every key
     masked (its dq and its share of dfb are 0, as autograd of the plain
     forward gives)."""
@@ -344,7 +373,7 @@ def test_mm_bwd_recompute_kernel(dev, A, T, dh):
         mm_attention_bwd, mm_attention_bwd_plain, mm_attention_fwd,
     )
 
-    g, qm, km, vm, mask, fb, fid = _attn_inputs(dev, 2, 3, T, dh, 10)
+    g, qm, km, vm, mask, fb, fid = _attn_inputs(dev, 2, 3, T, dh, F)
     cn = -3 * torch.rand((2, 3, A, T), generator=g, device=dev)
     fwd = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
     go = torch.randn(fwd[0].shape, generator=g, device=dev)
@@ -430,12 +459,12 @@ def test_head_more_args_than_a_launch(dev, B, T, A, D):
     _build.reset_counts()
     out = fused_grounding_head(*args)
     torch.cuda.synchronize()
-    assert _build.launches == {"fused_grounding_head": 2}
+    assert _build.launches == {"fused_grounding_head": 1}  # the forward takes any A
     _close_rel(out, grounding_head_plain(*args))
     go, share = away_from_kinks(*args[:7], torch.randn((B, A, T), generator=g, device=dev))
     assert share < 0.05
     got = grounding_head_bwd(*args, go)
     torch.cuda.synchronize()
-    assert _build.launches == {"fused_grounding_head": 2, "fused_grounding_head_bwd": 2}
+    assert _build.launches == {"fused_grounding_head": 1, "fused_grounding_head_bwd": 2}
     for a, b in zip(got, grounding_head_bwd_plain(*args, go)):
         _close(a, b)

@@ -146,3 +146,102 @@ def test_head_plain_vs_pallas(B, T, A, D):
     got = fused_grounding_head(*(_t(a) for a in args))
     assert tuple(got.shape) == (B, A, T)
     np.testing.assert_allclose(got.numpy(), ref, atol=2e-4)
+
+
+def _head_fwd_emulated(args, stream, grid):
+    """The card forward's arithmetic in numpy (fp64): a persistent grid of
+    ``grid`` blocks walking the items (64 flattened (b, t) rows, one arg),
+    each reading the weight stream as head_fwd does (A fragment slot u of
+    k half e <- column 2u + e of the k-step).  -> (logits, times each
+    (b, a, t) was written)."""
+    vis, arg, wv, wl, _, _, b1, w2, b2 = (np.asarray(a, np.float64) for a in args)
+    B, T, D = vis.shape
+    A, Dh = arg.shape[1], b1.shape[0]
+    dp = -(-D // 64) * 64
+    per = dp // 8 * 512 + 8 * 2048
+    halves = np.asarray(stream, np.float64).reshape(-1, 2, 2048)  # a stage's big, then small parts
+    s = halves.sum(1).reshape(dp // 64, per)
+    pad = lambda x, n: np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, n - x.shape[-1])])  # noqa: E731
+    rows = np.arange(B * T)
+    out, hits = np.zeros((B, A, T)), np.zeros((B, A, T), np.int64)
+    nitems = -(-B * T // 64) * A
+    for blk in range(grid):
+        for item in range(blk, nitems, grid):
+            n = rows[item // A * 64:(item // A + 1) * 64]
+            a = item % A
+            bb, tt = n // T, n % T
+            x = pad(vis[bb, tt] * arg[bb, a], dp)
+            acc2 = np.zeros((len(n), 256))
+            for c in range(dp // 64):
+                acc1 = np.zeros((len(n), 64))
+                for st in range(dp // 8):
+                    step = s[c, st * 512:(st + 1) * 512].reshape(2, 64, 4)  # [e][n][u]
+                    for u in range(4):
+                        for e in range(2):
+                            acc1 += x[:, 8 * st + 2 * u + e, None] * step[e, :, u]
+                h = np.maximum(acc1 + pad(wv[bb, tt], dp)[:, 64 * c:64 * c + 64]
+                               + pad(wl[bb, a], dp)[:, 64 * c:64 * c + 64], 0)
+                for j in range(8):
+                    step = s[c, dp // 8 * 512 + j * 2048:dp // 8 * 512 + (j + 1) * 2048].reshape(2, 256, 4)
+                    for u in range(4):
+                        for e in range(2):
+                            acc2 += h[:, 8 * j + 2 * u + e, None] * step[e, :, u]
+            out[bb, a, tt] = np.maximum(acc2 + pad(b1, 256), 0) @ pad(w2, 256) + b2
+            hits[bb, a, tt] += 1
+    return out, hits
+
+
+@pytest.mark.parametrize("B,T,A,D,grid", [(2, 37, 3, 96, 5), (1, 130, 2, 64, 3), (3, 5, 7, 32, 132)])
+def test_head_fwd_stream_and_item_walk(B, T, A, D, grid):
+    """The forward's weight stream (``fwd_stream_plain``, the plain version
+    of head_fwd_prep) holds Wx and W1 where head_fwd reads them: a numpy
+    emulation of the kernel's fragment mapping and item walk gives the plain
+    head's logits, and the walk writes every (b, a, t) exactly once."""
+    from vog_tpu_torch.kernels.grounding_head import fwd_stream_floats, fwd_stream_plain, grounding_head_plain
+
+    rng = np.random.default_rng(4)
+    Dh = D // 2
+    r = lambda scale, *s: rng.normal(size=s, scale=scale).astype(np.float32)  # noqa: E731
+    args = [r(0.5, B, T, D), r(0.5, B, A, D), r(0.5, B, T, D), r(0.5, B, A, D),
+            r(0.5 / np.sqrt(D), D, D), r(0.5 / np.sqrt(D), D, Dh), r(0.5, Dh),
+            r(0.5 / np.sqrt(Dh), Dh), np.float32(0.3)]
+    stream = fwd_stream_plain(_t(args[4]), _t(args[5]))
+    assert stream.numel() == fwd_stream_floats(D)
+    got, hits = _head_fwd_emulated(args, stream.numpy(), grid)
+    assert (hits == 1).all()
+    ref = grounding_head_plain(*(_t(a).double() for a in args)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-9)
+
+
+def test_head_fwd_stream_layout_as_the_prep_kernel_indexes_it():
+    """``fwd_stream_plain`` element by element as head_fwd_prep computes
+    each output offset (csrc/grounding_head.cu), zero past D and Dh: each
+    stage's big parts (TF32 toward zero) and then its small parts, which
+    add up to the weight exactly."""
+    from vog_tpu_torch.kernels.grounding_head import fwd_stream_plain
+
+    D, Dh = 96, 48
+    rng = np.random.default_rng(5)
+    wx, w1 = rng.normal(size=(D, D)).astype(np.float32), rng.normal(size=(D, Dh)).astype(np.float32)
+    got = fwd_stream_plain(_t(wx), _t(w1)).numpy()
+    dp = 128
+    per = dp // 8 * 512 + 8 * 2048
+    want = np.zeros_like(got)
+    for o in range(got.size):
+        stage, part = o // 4096, (o // 2048) & 1
+        c, r = divmod(stage * 2048 + o % 2048, per)
+        z1 = r >= dp // 8 * 512
+        step, w = divmod(r - dp // 8 * 512, 2048) if z1 else divmod(r, 512)
+        halfsize = 1024 if z1 else 256
+        u, n8, half, ng = w & 3, (w >> 2) & 7, w // halfsize, (w % halfsize) >> 5
+        n, kk = 8 * ng + n8, 8 * step + 2 * u + half
+        v = np.float32(0)
+        if z1 and 64 * c + kk < D and n < Dh:
+            v = w1[64 * c + kk, n]
+        elif not z1 and kk < D and 64 * c + n < D:
+            v = wx[kk, 64 * c + n]
+        big = (np.array(v, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+        want[o] = v - big if part else big
+    np.testing.assert_array_equal(got, want)
+    halves = got.reshape(-1, 2, 2048)
+    assert ((halves[:, 0].view(np.uint32) & 0x1FFF) == 0).all()  # TF32 big parts

@@ -265,11 +265,21 @@ def test_backward_modes_not_default_have_kernels_of_their_own():
     mm = (csrc / "mm_attention.cu").read_text()
     assert "if (!kEmit) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
     dq = _kernel_bodies(mm)["mm_bwd_dq"]
-    assert "scores<1, false>(sc, sc, Qw, Kh" in dq and "accumulate<1>(acc, comb, Kh" in dq
-    assert "load_rows<" in dq and "cp_wait_all()" in dq and "atomicAdd" not in dq
+    # 8 warps, two 8-key n-tiles a warp for each split A fragment; steps of
+    # (key tile, arg) streamed by cp.async, g_a never all resident
+    assert "kDqWarps = 8;" in mm and "constexpr int NT = kDqTile / 16;" in dq
+    assert "scores<NT, false>(sc, sc, Qw, Kh" in dq and "accumulate<NT>(acc, comb, Kh" in dq
+    assert "load_rows<" in dq and "cp_wait_all()" in dq and "cp_commit()" in dq
+    assert "atomicAdd" not in dq and "atomicAdd(" not in mm
     tiles = dq.index("for (int it = 0; it < ntiles; ++it)")
-    args = dq.index("for (int a = 0; a < A; ++a)", tiles)
-    assert tiles < dq.index("scores<1, false>(sc, sc") < args < dq.index("scores<1, false>(gv, gv")
+    args = dq.index("for (int a = 0; a < A; ++a, ++j)", tiles)
+    s_once = dq.index("if (a == 0) {  // S = Q K^T + fb, once a key tile for all args")
+    assert tiles < args < s_once < dq.index("scores<NT, false>(sc, sc") < dq.index("scores<NT, false>(gv, gv")
+    # the frame sums on the tensor cores; the two key halves and the block's
+    # (F, F) partial added in a fixed order
+    sums = mm[mm.index("__device__ inline void frame_sums("):]
+    assert "mma(part, as, b);" in sums[: sums.index("\n}\n")]
+    assert "frame_sums<NT>(rs, comb, c, F, g)" in dq and "put_rs(true)" in dq
     assert "dfb_part" in dq and "mm_bwd_dq<A><<<" in mm
 
 
@@ -284,7 +294,7 @@ def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
 
     text = (PKG / "csrc" / "grounding_head.cu").read_text()
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["head_bwd_rows", "head_bwd_w", "head_fwd"]
+    assert sorted(bodies) == ["head_bwd_rows", "head_bwd_w", "head_fwd", "head_fwd_prep"]
     w = bodies["head_bwd_w"]
     w = w[: w.index("\n}\n")]
     assert "cp_async16(" in w and "cp_wait<" in w and "cp_commit()" in w and "mma3(" in w
@@ -304,3 +314,32 @@ def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
     assert 'extern "C" int vog_head_bwd(' in text
     tiles = (512 // 128) * (512 // 64 + 256 // 64)  # 128 x 64 output tiles of dWx and dW1
     assert tiles * W_CHUNKS >= 2 * 132
+
+
+def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
+    """The head forward multiplies with Hopper's wgmma (TF32, A from
+    registers, B from shared memory, 3xTF32 in three products a k-step),
+    its weights laid out once a call by a prologue kernel and streamed into
+    a ring by the copy engine (cp.async.bulk with an mbarrier a stage), its
+    wv / wl tiles by cp.async; a persistent grid of one warpgroup an SM
+    walks the items; no atomics; both kernels count under the forward's
+    one launch name."""
+    text = (PKG / "csrc" / "grounding_head.cu").read_text()
+    fwd = _kernel_bodies(text)["head_fwd"]
+    fwd = fwd[: fwd.index("\nsize_t fwd_smem(")]
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in text
+    assert "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32" in text
+    assert fwd.count("wgmma_n64(acc1,") == 3 and fwd.count("wgmma_n256(acc2,") == 3
+    assert "wg_fence();" in fwd and "wg_commit();" in fwd and "wg_wait<" in fwd
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in text
+    assert "bulk_load(" in fwd and "mbar_wait(" in fwd and "cp_async16(" in fwd
+    assert "item += gridDim.x" in fwd or "it * gridDim.x" in fwd  # the persistent walk
+    assert "atomicAdd(" not in fwd and "kFThreads = 128;" in text
+    launch = text[text.index("int launch_fwd("):]
+    assert "items < sms ? items : sms" in launch[: launch.index("\n}\n")]
+    prep = _kernel_bodies(text)["head_fwd_prep"]
+    assert "stream[o] = part ? v - big : big;" in prep  # split once a call
+    py = (PKG / "kernels" / "grounding_head.py").read_text()
+    fwd_py = py[py.index("def grounding_head_fwd("):py.index("def grounding_head_bwd_plain(")]
+    assert '"vog_head_fwd_prep"' in fwd_py and '"vog_head_fwd"' in fwd_py
+    assert fwd_py.count("_build.count(NAME)") == 1 and "_groups(" not in fwd_py

@@ -4,22 +4,55 @@
 //
 // Replaces vog_tpu/kernels/grounding_head.py §_fwd_call (_fwd_kernel).  The
 // plain math materialises four (B,A,T,D) intermediates; this kernel keeps
-// them on chip and writes only the (B,A,T) logits.  At GT5 (B=16, A=5,
-// T=200, D=512, Dh=256) the two products are 12.6 GFLOP against ~13 MB of
-// inputs, so it is bound by operations.  Plain TF32 would miss the 1e-4
-// parity bound, and fp32 FMA loops ran behind cuBLAS's fp32 GEMMs, so the
-// products run on the tensor cores in 3xTF32: each fp32 operand is split
-// into a TF32 part and a TF32 remainder, and a.b is taken as
-// a_small.b_big + a_big.b_small + a_big.b_big (fp32-level accuracy, three
-// mma.sync m16n8k8 per tile step).
+// them on chip and writes only the (B,A,T) logits.  The work is 2 B A T
+// (D^2 + D Dh) (12.6 GFLOP at GT5: B=16, A=5, T=200, D=512, Dh=256; 31.5 at
+// P100: B=2, T=4000) against ~13 MB of inputs: bound by operations.  Plain
+// TF32 would miss the 1e-4 parity bound, so the products run on the tensor
+// cores in 3xTF32: each fp32 operand x is split into big = x with its low 13
+// mantissa bits cleared and small = x - big, and a.b is taken as
+// a_small.b_big + a_big.b_small + a_big.b_big (fp32-level accuracy).
 //
-// Design: a block owns (b, 16 tokens) for all A args, i.e. an (A*16, D)
-// tile of cross rows built in shared memory (rows padded by 4 floats so
-// the A-fragment reads hit distinct banks).  Each of 16 warps owns 32
-// output columns of the first product for all rows, reading Wx fragments
-// from L2 one k-step ahead; the relu'd hidden tile then overwrites the
-// cross tile, each warp owns 16 columns of the second product, and the
-// w2 dot is a shuffle + shared-memory reduction.  wgmma comes later.
+// On the H100 half of the bound needs ~250 TFLOP/s of TF32 issue, which
+// mma.sync does not reach (60-110 in the port's kernels), so the products
+// are Hopper's warpgroup wgmma (m64nNk8, A from registers, B from shared
+// memory).  Design (head_fwd_prep + head_fwd):
+//  * head_fwd_prep, once a call: Wx^T and W1^T as one stream in the order
+//    head_fwd reads them, each 8-wide k-step in the K-major core matrices
+//    that TF32 wgmma takes for B (8 n-rows x 4 k, 128 bytes), zero-padded
+//    to D_pad = ceil(D / 64) 64 and Dh to 256, the k of a step in pair
+//    order (slot t <- k 2t, slot t + 4 <- k 2t + 1) so that A fragments
+//    come from float2 reads and, for the second product, straight from the
+//    first product's accumulators; each 16 KB stage holds its weights split
+//    once (big parts, then small parts), so no block splits them again;
+//  * head_fwd: a persistent grid (one 128-thread block, one warpgroup, an
+//    SM) walks the items (64 flattened (b, t) rows, one arg): the cross
+//    tile vis * arg_a (64 x D_pad) is built in shared memory by cp.async
+//    (the next item's rows prefetched into L2 meanwhile), then for each
+//    64-column chunk of z0: acc1 = cross . Wx[:, chunk] (K = D_pad), then
+//    h = relu(acc1 + wv + wl) is split in registers into the A fragments of
+//    acc2 += h . W1[chunk, :] (N = 256): the (64, D) hidden tile never
+//    exists, the z1 accumulator stays in registers over the chunks, and the
+//    w2 dot ends the item with a 4-lane shuffle a row.  The stream comes in
+//    by cp.async.bulk (the copy engine, an mbarrier a stage) into a ring of
+//    4, three stages ahead, with no block barrier a stage; one wgmma group
+//    a pair of z0 k-steps (four A fragment sets in flight) or a z1 k-step.
+//    Items are (row tile, arg), so any A takes one launch and the grid
+//    stays full (GT5: 250 items, P100: 625, on 132 SMs).
+// What bounds it: the wgmma chains of one warpgroup (each k-step's group
+// waits for the one before last, so the tensor pipe holds one or two small
+// groups), then the weight loads (the ring is as deep as the 133 KB cross
+// tile leaves room for: three stages ahead, about one bulk-copy latency),
+// then the cross build at each item's start.  Tried first and not kept
+// (slower than this design on the card): each stage split by the block
+// itself between the wgmma groups, with a per-stage block barrier (the
+// first design, times in PERF.md); a producer warpgroup splitting the
+// stages (one stage of slack between the two roles); each thread copying
+// only its own cross elements, 8 bytes at a time.
+// The previous design (a 512-thread block owning (b, 16 tokens) for all A
+// args, 3xTF32 mma.sync, every warp re-reading and re-splitting its weight
+// columns from L2 one k-step ahead) took 0.3680 / 0.3651 ms at GT5 and
+// 0.7205 ms at P100 (chip_smoke.py, H100 80GB HBM3, 700 W); this design's
+// times are in PERF.md.
 //
 // Backward (vog_tpu/kernels/grounding_head.py §_fused_head_bwd, all 9
 // gradients).  The TPU kernel keeps the (D,D) and (D,Dh) weight-gradient
@@ -62,177 +95,415 @@
 // (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
 // PERF.md.
 
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tiles.cuh"  // cp.async; through it tf32.cuh: split, mma3, the fragment loaders
+#include "tiles.cuh"  // cp.async; through it tf32.cuh: split_int, mma3
 
 namespace {
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kBT = 16;  // tokens per block: rows M = A * kBT, A m-tiles
-constexpr int kMaxA = 5;
+constexpr int kBT = 16;  // tokens per block of the backward's row kernel: rows M = A * kBT
 constexpr int kMaxD = 512;
 constexpr int kMaxHid = 256;  // Dh
 constexpr int kN1 = 32;  // first-product columns per warp (4 n-tiles)
 constexpr int kN2 = 16;  // second-product columns per warp (2 n-tiles)
 
-template <int A>
-__global__ void __launch_bounds__(kThreads, 1)
-head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
-         const float* __restrict__ wv, const float* __restrict__ wl,
-         const float* __restrict__ wx, const float* __restrict__ w1,
-         const float* __restrict__ b1, const float* __restrict__ w2,
-         const float* __restrict__ b2, float* __restrict__ out, int T, int D,
-         int Dh) {
-  constexpr int M = A * kBT;
-  const int ld = D + 4;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * kBT;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;
+// ---------------------------------------------------------------------------
+// forward: Hopper helpers (wgmma, mbarrier, bulk copy)
+// ---------------------------------------------------------------------------
 
-  extern __shared__ float xs[];  // M x ld: the cross tile, then the hidden tile
-  __shared__ float red[kWarps][M];
+// shared-memory matrix descriptor of a K-major operand without swizzle:
+// core matrices of 8 rows x 16 bytes, ``lbo`` bytes between the two core
+// matrices of a k-step (k 0-3, 4-7), ``sbo`` bytes between 8-row groups
+__device__ inline uint64_t kmajor_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3ffff) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32;
+}
+__device__ inline void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ inline void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+// wait until at most N of the warpgroup's committed wgmma groups are in flight
+template <int N>
+__device__ inline void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
-  for (int idx = tid; idx < M * D; idx += kThreads) {
-    const int r = idx / D, kk = idx - r * D;  // kk fastest: coalesced reads
-    const int a = r / kBT, t = t0 + r % kBT;
-    xs[r * ld + kk] = t < T ? vis[((size_t)b * T + t) * D + kk] *
-                                  arg[((size_t)b * A + a) * D + kk]
-                            : 0.f;
-  }
-  __syncthreads();
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
 
-  // ---- z0 = cross . Wx: warp columns nw .. nw+31, all A m-tiles ----------
-  const int nw = warp * kN1;
-  const bool w_ok = nw < D;  // D % 32 == 0: a warp's columns are all in or out
-  float acc[A][4][4];
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-  if (w_ok) {
-    float braw[4][2];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) load_b(wx, D, 0, nw + 8 * j, lane, braw[j]);
-    for (int k0 = 0; k0 < D; k0 += 8) {
-      uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        split(braw[j][0], bb[j][0], bs[j][0]);
-        split(braw[j][1], bb[j][1], bs[j][1]);
-      }
-      if (k0 + 8 < D) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) load_b(wx, D, k0 + 8, nw + 8 * j, lane, braw[j]);
-      }
-#pragma unroll
-      for (int m = 0; m < A; ++m) {
-        uint32_t ab[4], as[4];
-        load_a(xs, ld, 16 * m, k0, lane, ab, as);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma3(acc[m][j], ab, as, bb[j], bs[j]);
-      }
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+// ``bytes`` (a multiple of 16) from global to shared memory by the copy
+// engine; the mbarrier completes when they have landed
+__device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// d (64 x 64, C-fragment order) += a (this warp's 16 x 8 rows, registers) . b (8 x 64,
+// K-major in shared memory: the descriptor ``desc``), TF32 inputs, fp32 sums
+__device__ inline void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+// d (64 x 256, C-fragment order) += a (this warp's 16 x 8 rows, registers) . b (8 x 256,
+// K-major in shared memory: the descriptor ``desc``), TF32 inputs, fp32 sums
+__device__ inline void wgmma_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// forward: kernels
+// ---------------------------------------------------------------------------
+constexpr int kFRows = 64;           // rows of an item: 64 flattened (b, t) tokens, one arg
+constexpr int kFThreads = 128;       // one warpgroup
+constexpr int kNC = 64;              // z0 columns a chunk (acc1: 64 x 64)
+constexpr int kNZ = 256;             // z1 columns, Dh padded (acc2: 64 x 256)
+constexpr int kStep1 = kNC * 8;      // floats of a z0 k-step (2 KB)
+constexpr int kStep2 = kNZ * 8;      // floats of a z1 k-step (8 KB)
+constexpr int kStage = 2 * kStep2;   // floats a stage: 4 z0 k-steps or 1 z1 k-step, big then small parts
+constexpr int kFRing = 4;            // stages of the weight ring (loads three stages ahead)
+constexpr int kWvLd = kNC + 8;       // row stride of the wv chunk tile (8 mod 32 words)
+constexpr uint32_t kBigMask = 0xffffe000u;
+
+// floats of a chunk's weights: D_pad / 8 z0 k-steps, then 8 z1 k-steps
+__host__ __device__ inline int chunk_floats(int Dp) { return Dp / 8 * kStep1 + 8 * kStep2; }
+
+// The weight stream: stages of kStep2 weights, chunk c = 0 .. D_pad / 64 - 1
+// after chunk: 4 z0 k-steps a stage (k 8s .. 8s + 7 of Wx's rows, columns
+// 64c ..), then 8 stages of one z1 k-step (W1 rows 64c + 8j .., all 256
+// padded columns).  A k-step is [k half][n / 8][n % 8][k slot 0-3]; slot u
+// of half e holds k 2u + e of the step (pair order).  Each stage is stored
+// twice: its big parts (low 13 mantissa bits cleared), then its small parts.
+__global__ void __launch_bounds__(256)
+head_fwd_prep(const float* __restrict__ wx, const float* __restrict__ w1,
+              float* __restrict__ stream, int D, int Dp, int Dh) {
+  const int per = chunk_floats(Dp), total = 2 * (Dp / kNC) * per;
+  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < total; o += gridDim.x * blockDim.x) {
+    const int stage = o / kStage, part = (o / kStep2) & 1;
+    const int raw = stage * kStep2 + o % kStep2;  // the weight's place in the unsplit stream
+    const int c = raw / per, r = raw - c * per;
+    const int z1 = r >= Dp / 8 * kStep1;
+    const int step = z1 ? (r - Dp / 8 * kStep1) / kStep2 : r / kStep1;
+    const int w = z1 ? (r - Dp / 8 * kStep1) % kStep2 : r % kStep1;
+    const int u = w & 3, n8 = (w >> 2) & 7, half = w / (z1 ? kStep2 / 2 : kStep1 / 2);
+    const int ng = (w % (z1 ? kStep2 / 2 : kStep1 / 2)) >> 5;
+    const int n = 8 * ng + n8, kk = 8 * step + 2 * u + half;
+    float v = 0.f;
+    if (z1) {  // W1 row 64c + kk, column n
+      const int k = kNC * c + kk;
+      if (k < D && n < Dh) v = w1[(size_t)k * Dh + n];
+    } else {  // Wx row kk, column 64c + n
+      const int col = kNC * c + n;
+      if (kk < D && col < D) v = wx[(size_t)kk * D + col];
     }
-  }
-  __syncthreads();  // every warp is done reading the cross tile
-  if (w_ok) {
-#pragma unroll
-    for (int m = 0; m < A; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * m + g + (i >= 2 ? 8 : 0);
-          const int n = nw + 8 * j + 2 * tq + (i & 1);
-          const int a = r / kBT, t = t0 + r % kBT;
-          const float z = t < T ? acc[m][j][i] + wv[((size_t)b * T + t) * D + n] +
-                                      wl[((size_t)b * A + a) * D + n]
-                                : 0.f;
-          xs[r * ld + n] = fmaxf(z, 0.f);
-        }
-  }
-  __syncthreads();
-
-  // ---- z1 = h . W1 + b1: warp columns n2 .. n2+15 ------------------------
-  const int n2 = warp * kN2;
-  const bool w2_ok = n2 < Dh;  // Dh % 16 == 0
-  float acc2[A][2][4];
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc2[m][j][i] = 0.f;
-  if (w2_ok) {
-    float braw[2][2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) load_b(w1, Dh, 0, n2 + 8 * j, lane, braw[j]);
-    for (int k0 = 0; k0 < D; k0 += 8) {
-      uint32_t bb[2][2], bs[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        split(braw[j][0], bb[j][0], bs[j][0]);
-        split(braw[j][1], bb[j][1], bs[j][1]);
-      }
-      if (k0 + 8 < D) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) load_b(w1, Dh, k0 + 8, n2 + 8 * j, lane, braw[j]);
-      }
-#pragma unroll
-      for (int m = 0; m < A; ++m) {
-        uint32_t ab[4], as[4];
-        load_a(xs, ld, 16 * m, k0, lane, ab, as);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) mma3(acc2[m][j], ab, as, bb[j], bs[j]);
-      }
-    }
-  }
-  // w2 . relu(z1): this lane's columns, then the 4 lanes of a row, then warps
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float part = 0.f;
-      if (w2_ok) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int n = n2 + 8 * j + 2 * tq + e;
-            part += fmaxf(acc2[m][j][2 * h + e] + b1[n], 0.f) * w2[n];
-          }
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (tq == 0) red[warp][16 * m + g + 8 * h] = part;
-    }
-  __syncthreads();
-  if (tid < M) {
-    const int a = tid / kBT, t = t0 + tid % kBT;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red[w][tid];
-    if (t < T) out[((size_t)b * A + a) * T + t] = sum + b2[0];
+    const float big = __uint_as_float(__float_as_uint(v) & kBigMask);
+    stream[o] = part ? v - big : big;
   }
 }
 
-template <int A>
-int launch(const float* vis, const float* arg, const float* wv,
-           const float* wl, const float* wx, const float* w1,
-           const float* b1, const float* w2, const float* b2, float* out,
-           int B, int T, int D, int Dh, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)A * kBT * (D + 4);
-  cudaError_t e = cudaFuncSetAttribute(
-      head_fwd<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(kFThreads, 1)
+head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
+         const float* __restrict__ wv, const float* __restrict__ wl,
+         const float* __restrict__ wstream, const float* __restrict__ b1,
+         const float* __restrict__ w2, const float* __restrict__ b2,
+         float* __restrict__ out, int B, int A, int T, int D, int Dp, int Dh) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int ldx = Dp + 8;  // cross row stride: 8 mod 32 words, conflict-free float2 fragment reads
+  extern __shared__ __align__(1024) float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);  // kFRing x kStage: a stage's big parts, then its small parts
+  float* cross = ring + kFRing * kStage;          // kFRows x ldx
+  float* wvs = cross + kFRows * ldx;              // kFRows x kWvLd: wv of the chunk's columns
+  float* b1s = wvs + kFRows * kWvLd;              // kNZ, zero past Dh
+  float* w2s = b1s + kNZ;                         // kNZ, zero past Dh
+  uint64_t* full = reinterpret_cast<uint64_t*>(w2s + kNZ);  // kFRing: a stage has landed
+
+  const int BT = B * T;
+  const int nitems = (BT + kFRows - 1) / kFRows * A;
+  const int nch = Dp / kNC, p1 = Dp / 32;  // chunks; z0 stages a chunk (4 k-steps a stage)
+  const int per_item = nch * (p1 + 8);    // stages an item
+  const int items = (nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int total = items * per_item;     // stages this block reads
+
+  if (tid == 0) {
+    for (int r = 0; r < kFRing; ++r) mbar_init(full + r, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kNZ; i += kFThreads) {
+    b1s[i] = i < Dh ? b1[i] : 0.f;
+    w2s[i] = i < Dh ? w2[i] : 0.f;
+  }
+  __syncthreads();
+  // stage q of the block's stream (stage q % per_item of an item) into ring slot q % kFRing
+  auto issue = [&](int q) {
+    if (q < total)
+      bulk_load(ring + (q % kFRing) * kStage, wstream + (size_t)(q % per_item) * kStage, kStage * 4,
+                full + q % kFRing);
+  };
+  if (tid == 0)
+    for (int q = 0; q < kFRing; ++q) issue(q);
+  // after stage q's wgmmas are issued and every earlier stage's have
+  // completed: refill the ring slot of stage q - 1
+  auto refill = [&](int q) {
+    if (tid == 0 && q >= 1) issue(q - 1 + kFRing);
+  };
+
+  const int r0 = 16 * warp + g;  // this thread's rows of an item: r0 and r0 + 8
+  uint32_t fa[4][4], fs[4][4];    // A fragments (big, small) of four k-steps in flight
+  int q = 0;                      // the stage the next wgmma group reads
+  for (int it = 0; it < items; ++it) {
+    const int item = blockIdx.x + it * gridDim.x;
+    const int row0 = item / A * kFRows, a = item % A;
+    __syncthreads();  // every thread is done with the previous item's tiles
+    // cross = vis * arg_a: the vis rows by cp.async (zero past BT and D), then scaled in place
+    for (int idx = tid; idx < kFRows * (Dp / 4); idx += kFThreads) {
+      const int r = idx / (Dp / 4), c = 4 * (idx % (Dp / 4)), n = row0 + r;
+      const bool ok = n < BT && c < D;
+      cp_async16(cross + r * ldx + c, ok ? vis + (size_t)n * D + c : vis, ok);
+    }
+    cp_commit();
+    cp_wait_all();
+#pragma unroll 4
+    for (int idx = tid; idx < kFRows * (Dp / 4); idx += kFThreads) {  // the thread's own copies
+      const int r = idx / (Dp / 4), c = 4 * (idx % (Dp / 4)), n = row0 + r;
+      if (n < BT && c < D) {
+        float4* x = reinterpret_cast<float4*>(cross + r * ldx + c);
+        const float4 w = __ldg(reinterpret_cast<const float4*>(arg + ((size_t)(n / T) * A + a) * D + c));
+        const float4 v = *x;
+        *x = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+      }
+    }
+    if (it + 1 < items) {  // the next item's vis rows into L2 while this one runs
+      const int nrow0 = (item + gridDim.x) / A * kFRows;
+      for (int idx = tid; idx < kFRows * (Dp / 32); idx += kFThreads) {  // one 128-byte line each
+        const int r = idx / (Dp / 32), c = 32 * (idx % (Dp / 32)), n = nrow0 + r;
+        if (n < BT && c < D) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(vis + (size_t)n * D + c));
+      }
+    }
+    // wl of this thread's rows (their (b, a)), read through L1 in the z1 epilogue
+    const float* wl0 = wl + ((size_t)(min(row0 + r0, BT - 1) / T) * A + a) * D;
+    const float* wl1 = wl + ((size_t)(min(row0 + r0 + 8, BT - 1) / T) * A + a) * D;
+    float acc2[kNZ / 2];
+#pragma unroll
+    for (int i = 0; i < kNZ / 2; ++i) acc2[i] = 0.f;
+
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();  // the cross tile is in; every thread is done with the previous chunk's wv
+      // wv of the chunk's columns, by cp.async (zero past D and BT)
+      for (int idx = tid; idx < kFRows * (kNC / 4); idx += kFThreads) {
+        const int r = idx / (kNC / 4), cc = 4 * (idx % (kNC / 4)), n = row0 + r, col = kNC * c + cc;
+        const bool ok = n < BT && col < D;
+        cp_async16(wvs + r * kWvLd + cc, ok ? wv + (size_t)n * D + col : wv, ok);
+      }
+      cp_commit();
+      float acc1[kNC / 2];
+#pragma unroll
+      for (int i = 0; i < kNC / 2; ++i) acc1[i] = 0.f;
+
+      // acc1 = cross . Wx[:, chunk]: p1 stages of 4 k-steps
+#pragma unroll 1
+      for (int s = 0; s < p1; ++s, ++q) {
+        mbar_wait(full + q % kFRing, (q / kFRing) & 1);
+        const float* sb = ring + (q % kFRing) * kStage;
+#pragma unroll
+        for (int pp = 0; pp < 2; ++pp) {  // a wgmma group of two k-steps
+          float2 x[2][2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k0 = 8 * (4 * s + 2 * pp + h) + 2 * t;
+            x[h][0] = *reinterpret_cast<const float2*>(cross + r0 * ldx + k0);
+            x[h][1] = *reinterpret_cast<const float2*>(cross + (r0 + 8) * ldx + k0);
+          }
+          wg_wait<1>();  // the group that read fragment sets 2 pp, 2 pp + 1 has completed
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int f = 2 * pp + h;
+            // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+            const float xs[4] = {x[h][0].x, x[h][1].x, x[h][0].y, x[h][1].y};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split_int(xs[i], fa[f][i], fs[f][i]);
+          }
+          wg_fence();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int f = 2 * pp + h, kk = 2 * pp + h;
+            const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
+            const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
+            wgmma_n64(acc1, fs[f], db);
+            wgmma_n64(acc1, fa[f], ds);
+            wgmma_n64(acc1, fa[f], db);
+          }
+          wg_commit();
+        }
+        refill(q);  // the waits left only stage q's two groups in flight
+      }
+      wg_wait<0>();
+      cp_wait_all();
+      __syncthreads();  // acc1 is final; every thread's wv copies are in
+
+      // acc2 += relu(acc1 + wv + wl) . W1[chunk, :]: 8 stages of one k-step
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j, ++q) {
+        const float2 v0 = *reinterpret_cast<const float2*>(wvs + r0 * kWvLd + 8 * j + 2 * t);
+        const float2 v1 = *reinterpret_cast<const float2*>(wvs + (r0 + 8) * kWvLd + 8 * j + 2 * t);
+        const int col = kNC * c + 8 * j + 2 * t;  // D is even: both columns or neither lie below D
+        const float2 zero2 = make_float2(0.f, 0.f);
+        const float2 l0 = col < D ? __ldg(reinterpret_cast<const float2*>(wl0 + col)) : zero2;
+        const float2 l1 = col < D ? __ldg(reinterpret_cast<const float2*>(wl1 + col)) : zero2;
+        // C fragment (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) -> A slots (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+        const float hs[4] = {fmaxf(acc1[4 * j] + v0.x + l0.x, 0.f), fmaxf(acc1[4 * j + 2] + v1.x + l1.x, 0.f),
+                             fmaxf(acc1[4 * j + 1] + v0.y + l0.y, 0.f),
+                             fmaxf(acc1[4 * j + 3] + v1.y + l1.y, 0.f)};
+        const int f = 2 + (j & 1);  // stage q - 2, the last to read set f, has completed
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_int(hs[i], fa[f][i], fs[f][i]);
+        mbar_wait(full + q % kFRing, (q / kFRing) & 1);
+        wg_fence();
+        const float* sb = ring + (q % kFRing) * kStage;
+        const uint64_t db = kmajor_desc(sb, kStep2 / 2 * 4, 128);
+        const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
+        wgmma_n256(acc2, fs[f], db);
+        wgmma_n256(acc2, fa[f], ds);
+        wgmma_n256(acc2, fa[f], db);
+        wg_commit();
+        wg_wait<1>();  // stage q - 1 has completed
+        refill(q);
+      }
+    }
+    wg_wait<0>();
+
+    // logit = w2 . relu(acc2 + b1) + b2: this thread's columns, then the 4 lanes of a row
+    float p0 = 0.f, p1r = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNZ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * t + e;
+        p0 += fmaxf(acc2[4 * j + e] + b1s[n], 0.f) * w2s[n];
+        p1r += fmaxf(acc2[4 * j + 2 + e] + b1s[n], 0.f) * w2s[n];
+      }
+    p0 = quad_sum(p0);
+    p1r = quad_sum(p1r);
+    if (t == 0) {
+      const int n0 = row0 + r0, n1 = n0 + 8;
+      if (n0 < BT) out[((size_t)(n0 / T) * A + a) * T + n0 % T] = p0 + b2[0];
+      if (n1 < BT) out[((size_t)(n1 / T) * A + a) * T + n1 % T] = p1r + b2[0];
+    }
+  }
+}
+
+size_t fwd_smem(int Dp) {
+  return sizeof(float) * ((size_t)kFRing * kStage + (size_t)kFRows * (Dp + 8) + kFRows * kWvLd +
+                          2 * kNZ) +
+         sizeof(uint64_t) * kFRing;
+}
+
+int launch_fwd(const float* vis, const float* arg, const float* wv, const float* wl,
+               const float* wstream, const float* b1, const float* w2, const float* b2,
+               float* out, int B, int A, int T, int D, int Dh, cudaStream_t stream) {
+  static int sms = 0;
+  cudaError_t e = cudaSuccess;
+  if (sms == 0) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int Dp = (D + kNC - 1) / kNC * kNC;
+  const size_t smem = fwd_smem(Dp);
+  e = cudaFuncSetAttribute(head_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + kBT - 1) / kBT, B);
-  head_fwd<A><<<grid, kThreads, smem, stream>>>(vis, arg, wv, wl, wx, w1, b1,
-                                                w2, b2, out, T, D, Dh);
+  const int items = (B * T + kFRows - 1) / kFRows * A;
+  head_fwd<<<items < sms ? items : sms, kFThreads, smem, stream>>>(vis, arg, wv, wl, wstream, b1,
+                                                                   w2, b2, out, B, A, T, D, Dp, Dh);
   return (int)cudaGetLastError();
 }
 
@@ -763,27 +1034,28 @@ extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
 #undef VOG_HEAD_BWD_CASE
 }
 
-extern "C" int vog_head_fwd(const float* vis, const float* arg,
-                            const float* wv, const float* wl, const float* wx,
-                            const float* w1, const float* b1, const float* w2,
-                            const float* b2, float* out, int B, int A, int T,
-                            int D, int Dh, void* stream) {
+// The forward's weight stream (head_fwd_prep): wstream holds 2 D_pad / 64 *
+// (D_pad * 64 + 8 * 2048) floats, D_pad = ceil(D / 64) 64.
+extern "C" int vog_head_fwd_prep(const float* wx, const float* w1, float* wstream, int D, int Dh,
+                                 void* stream) {
   if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const int Dp = (D + kNC - 1) / kNC * kNC;
+  const int total = 2 * (Dp / kNC) * chunk_floats(Dp);
+  head_fwd_prep<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(wx, w1, wstream,
+                                                                                    D, Dp, Dh);
+  return (int)cudaGetLastError();
+}
+
+// logits from the stream that vog_head_fwd_prep wrote; any A
+extern "C" int vog_head_fwd(const float* vis, const float* arg, const float* wv,
+                            const float* wl, const float* wstream, const float* b1,
+                            const float* w2, const float* b2, float* out, int B, int A,
+                            int T, int D, int Dh, void* stream) {
+  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0 || A < 1 ||
+      !aligned16(vis) || !aligned16(arg) || !aligned16(wv) || !aligned16(wl) || !aligned16(wstream))
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static_assert(kMaxA == 5, "the cases below cover A = 1..kMaxA");
-#define VOG_HEAD_CASE(n) \
-  case n:                \
-    return launch<n>(vis, arg, wv, wl, wx, w1, b1, w2, b2, out, B, T, D, Dh, s);
-  switch (A) {
-    VOG_HEAD_CASE(1)
-    VOG_HEAD_CASE(2)
-    VOG_HEAD_CASE(3)
-    VOG_HEAD_CASE(4)
-    VOG_HEAD_CASE(5)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef VOG_HEAD_CASE
+  return launch_fwd(vis, arg, wv, wl, wstream, b1, w2, b2, out, B, A, T, D, Dh,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -88,23 +88,35 @@
 // Recompute mode: mm_bwd_dkv without the comb store (kEmit false), then
 // mm_bwd_dq, the counterpart of §_bwd_dq_kernel: no (T, T) buffer (comb is
 // 512 MB at P100, B=2, T=4000), for (2 + A) more products over every (i,
-// j): S, each g_a.vm^T, and comb.km.  A block of 4 warps owns 32 query rows
-// (two row groups of 16) with their Q rows and all A g_a tiles resident in
-// shared memory (the A g_a tiles are what a query tile needs: 5 x 32 x 132
-// floats = 84 KB at A=5), and streams 16-key tiles of km, vm, cn and the
-// key codes by cp.async in a two-stage ring.  Warp (row group r, key half
-// k) takes the tile's keys 8k..8k+7 for its 16 rows: S = Q K^T + fb once
-// for all args; per arg, gv_a = G_a V^T, p_a = exp(S + cn_a - m_a) /
-// den_a and ds_a = p_a (gv_a - delta_a) summed into comb on the valid keys
-// (masked keys and keys past T give 0, as the TPU kernel masks ds); then
-// dQ += comb K (P-style: comb's C fragments are the A fragments), and comb
-// goes through a per-warp shared tile into per-lane sums by key frame (a
-// lane per frame, keys in order).  At the end the two key halves of a row
-// group add their dQ and frame sums through shared memory in a fixed
-// order, and the block writes one (F, F) frame-bias partial (rows in
-// order) that the wrapper adds up in a fixed order: the gradients are the
-// same on every run.  Shared memory: 139 KB at A=5, 212 KB at A=8 with F =
-// 64, so one block (4 warps) an SM.
+// j): S, each g_a.vm^T, and comb.km (229 GFLOP at P100, A=5: bound by
+// operations, 1.39 ms of the bound).  On the H100 the products are 3xTF32
+// mma.sync, whose fragments each warp splits as it reads them, so what
+// bounds a kernel is how many products each split fragment feeds and how
+// many warps hide the shared-memory latency.  The previous design (4
+// warps an SM: a block of 32 query rows with all A g_a tiles resident,
+// 139 KB; 16-key tiles, 8 keys a warp, so each split A fragment fed one
+// product; the frame sums through a per-warp shared tile, a lane per
+// frame) took 12.19 / 11.94 ms at P100 (chip_smoke.py, H100 80GB HBM3,
+// 700 W), 19 TFLOP/s.  This design: a block of 8 warps owns 64 query rows
+// (four row groups of 16, two key halves each) with its Q rows resident,
+// and walks the keys in tiles of 64: a tile's km, vm, cn and key codes
+// come in by cp.async once every warp is done with the tile before, and
+// the steps (tile, arg) stream the arg's g_a rows by cp.async into a
+// two-stage ring, one step ahead, as mm_bwd_dkv streams (query tile, arg):
+// the A g_a tiles are never all resident (193 KB at A=8, F=64: any A, one
+// block of 8 warps an SM), and each g_a row is read once a 64-key tile.
+// Warp (row group r, key half k) takes the tile's keys 32k..32k+31 for its
+// 16 rows (four 8-key n-tiles per split A fragment): S = Q K^T + fb at arg
+// 0, kept in registers over the args; per arg gv_a = G_a V^T and ds_a =
+// p_a (gv_a - delta_a) summed into comb on the valid keys (masked keys and
+// keys past T give 0, as the TPU kernel masks ds); after
+// the last arg dQ += comb K (comb's C fragments are the A fragments) and
+// the frame sums rs += comb . onehot(key frames) on the tensor cores
+// (frame_sums).  At the end the two key halves of a row group add their
+// dQ and frame sums through shared memory in a fixed order, and the block
+// writes one (F, F) frame-bias partial (rows in order) that the wrapper
+// adds up in a fixed order: the gradients are the same on every run, with
+// no atomics.  This design's times are in PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -544,12 +556,39 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
 // ---------------------------------------------------------------------------
 // backward, recompute mode: dq and the frame-bias partials
 // ---------------------------------------------------------------------------
-constexpr int kDqWarps = 4;
+constexpr int kDqWarps = 8;
 constexpr int kDqThreads = kDqWarps * 32;
-constexpr int kDqRows = 32;       // query rows a block owns: two row groups of 16
-constexpr int kDqTile = 16;       // keys of a streamed tile: two halves of 8
-constexpr int kDqLd = 8 + 1;      // row stride of a warp's comb tile (frame sums)
-constexpr int kMaxFrames = 64;    // a lane per key frame, two frames a lane
+constexpr int kDqRows = 64;       // query rows a block owns: four row groups of 16
+constexpr int kDqTile = 64;       // keys of a tile: two halves of 32, a warp's four n-tiles
+constexpr int kMaxFrames = 64;
+constexpr int kFrameTiles = kMaxFrames / 8;  // 8-frame column tiles of the frame sums
+
+// rs (a warp's 16 rows x the key frames, C fragments) += comb . onehot:
+// comb's C fragments (NT tiles of 8 keys) are the A fragments (keys in pair
+// order), the one-hot B fragment is exact in TF32 (1 where key 2t or 2t + 1
+// lies in frame 8f + g; masked keys and keys past T have codes < 0), so two
+// mma a tile (small, then big) give the fp32 sum.  Each product is formed
+// from zero and added in fp32 (a chain over T keys, as tiles.cuh §accumulate).
+template <int NT>
+__device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&comb)[NT][4],
+                                  const int (&c)[NT][2], int F, int g) {
+  const uint32_t one = __float_as_uint(1.f);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    uint32_t ab[4], as[4];
+    a_from_c(comb[n], ab, as);
+#pragma unroll
+    for (int f = 0; f < kFrameTiles; ++f) {
+      if (8 * f >= F) break;
+      const uint32_t b[2] = {c[n][0] == 8 * f + g ? one : 0u, c[n][1] == 8 * f + g ? one : 0u};
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma(part, as, b);
+      mma(part, ab, b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rs[f][i] += part[i];
+    }
+  }
+}
 
 template <int A>
 __global__ void __launch_bounds__(kDqThreads, 1)
@@ -560,37 +599,46 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           const float* __restrict__ mrow, const float* __restrict__ den,
           const float* __restrict__ delta, float* __restrict__ dq,
           float* __restrict__ dfb_part, int H, int T, int dh, int F, bool vec) {
+  constexpr int NT = kDqTile / 16;  // a warp's 8-key n-tiles
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kDqRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 1, kh = warp >> 1;  // row group (16 rows), key half (8 keys of a tile)
+  const int rg = warp & 3, kh = warp >> 2;  // row group (16 rows), key half (16 keys of a tile)
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);      // kDqRows x kLd
-  float* Gs = Qs + kDqRows * kLd;                    // A x kDqRows x kLd: g_a of the rows
-  float* Ks = Gs + A * kDqRows * kLd;                // 2 stages x kDqTile x kLd
-  float* Vs = Ks + 2 * kDqTile * kLd;                // 2 stages x kDqTile x kLd
-  float* Cs = Vs + 2 * kDqTile * kLd;                // 2 stages x A x kDqTile: cn of the keys
-  float* St = Cs + 2 * A * kDqTile;                  // 3 x A x kDqRows: m, 1 / den, delta
-  float* dsw = St + 3 * A * kDqRows;                 // kDqWarps x 16 x kDqLd: a warp's comb
-  float* racc = dsw + kDqWarps * 16 * kDqLd;         // kDqRows x F: frame sums of the rows
-  float* fbs = racc + kDqRows * F;                   // F x F
-  int* codes = reinterpret_cast<int*>(fbs + F * F);  // 2 stages x kDqTile
+  float* Gs = Qs + kDqRows * kLd;                    // 2 steps x kDqRows x kLd: g_a of the rows
+  float* Ks = Gs + 2 * kDqRows * kLd;                // kDqTile x kLd
+  float* Vs = Ks + kDqTile * kLd;                    // kDqTile x kLd
+  float* Cs = Vs + kDqTile * kLd;                    // A x kDqTile: cn of the keys
+  float* St = Cs + A * kDqTile;                      // 3 x A x kDqRows: m, 1 / den, delta
+  float* fbs = St + 3 * A * kDqRows;                 // F x F
+  int* codes = reinterpret_cast<int*>(fbs + F * F);  // kDqTile
 
   const size_t base = (size_t)bh * T * dh;
   const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
   const float* kb = km + base;
   const float* vb = vm + base;
   const float* cb = cn + arow;
-  auto stage = [&](int s, int j0) {
-    load_rows<kDqTile, kDqThreads>(Ks + s * kDqTile * kLd, kb, j0, T, dh, vec);
-    load_rows<kDqTile, kDqThreads>(Vs + s * kDqTile * kLd, vb, j0, T, dh, vec);
+  const int ntiles = (T + kDqTile - 1) / kDqTile, nsteps = ntiles * A;
+  // step j = (key tile j / A, arg j % A): its g_a rows, a step ahead
+  auto stage = [&](int j) {
+    const int a = j % A;
+    load_rows<kDqRows, kDqThreads>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
+                                   q0, T, dh, vec);
+    cp_commit();
+  };
+  // key tile it: its K and V rows, cn and key codes, once every warp is done with the tile before
+  auto load_tile = [&](int it) {
+    const int j0 = it * kDqTile;
+    load_rows<kDqTile, kDqThreads>(Ks, kb, j0, T, dh, vec);
+    load_rows<kDqTile, kDqThreads>(Vs, vb, j0, T, dh, vec);
     for (int i = tid; i < A * kDqTile; i += kDqThreads) {  // cn, zero past T
-      const int a = i / kDqTile, j = j0 + i % kDqTile;
-      cp_async4(Cs + s * A * kDqTile + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
+      const int aa = i / kDqTile, jj = j0 + i % kDqTile;
+      cp_async4(Cs + i, jj < T ? cb + (size_t)aa * T + jj : cb, jj < T);
     }
-    if (tid < kDqTile) codes[s * kDqTile + tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
+    if (tid < kDqTile) codes[tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   for (int i = tid; i < F * F; i += kDqThreads) fbs[i] = fb[(size_t)h * F * F + i];
@@ -600,102 +648,93 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
     St[i] = qi >= T ? (w == 1 ? 1.f : 0.f) : w == 0 ? mrow[at] : w == 1 ? 1.f / den[at] : delta[at];
   }
   load_rows<kDqRows, kDqThreads>(Qs, qm + base, q0, T, dh, vec);
-#pragma unroll 1
-  for (int a = 0; a < A; ++a)
-    load_rows<kDqRows, kDqThreads>(Gs + a * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh, q0, T,
-                                   dh, vec);
-  stage(0, 0);  // one group: Q, the A g_a tiles and the first key tile
+  stage(0);
+  load_tile(0);
 
   const int r0 = 16 * rg + g;  // this lane's rows of the block: r0 and r0 + 8
   const int fq0 = q0 + r0 < T ? fid[q0 + r0] : 0, fq1 = q0 + r0 + 8 < T ? fid[q0 + r0 + 8] : 0;
   const float* Qw = Qs + 16 * rg * kLd;
-  float* dw = dsw + warp * 16 * kDqLd;
   float acc[kND][4];  // dQ of the warp's 16 rows over its key halves
   zero(acc);
-  float rs[16][2];  // rs[r][x]: comb of warp row r summed over the keys of frame lane + 32 x
-#pragma unroll
-  for (int r = 0; r < 16; ++r) rs[r][0] = rs[r][1] = 0.f;
+  float rs[kFrameTiles][4];  // the rows' comb summed by key frame (C fragments, 16 x 64 frames)
+  zero(rs);
+  float sc[NT][4], comb[NT][4];  // S (biased) of the tile; comb = sum_a ds_a
+  int c[NT][2];                  // codes of this lane's keys 8n + 2t + e of its half
 
-  const int ntiles = (T + kDqTile - 1) / kDqTile;
+  constexpr int kHalf = kDqTile / 2;
+  const float* Kh = Ks + kHalf * kh * kLd;  // the warp's 32 keys of a tile
+  const float* Vh = Vs + kHalf * kh * kLd;
+  const float* Ct = Cs + kHalf * kh;
+  int j = 0;  // the step in flight
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it & 1;
-    cp_wait_all();
-    __syncthreads();  // tile it is in; every warp is done with tile it - 1
-    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kDqTile);
-    const float* Kh = Ks + (s * kDqTile + 8 * kh) * kLd;  // the warp's 8 keys
-    const float* Vh = Vs + (s * kDqTile + 8 * kh) * kLd;
-    const float* Ct = Cs + s * A * kDqTile + 8 * kh;
-    const int* ct = codes + s * kDqTile + 8 * kh;
-
-    // S = Q K^T + fb, once for all args: rows g, g + 8 (c0, c1 / c2, c3), keys 2t, 2t + 1
-    float sc[1][4];
-    scores<1, false>(sc, sc, Qw, Kh, Qw, Kh, g, t);
-    const int c[2] = {ct[2 * t], ct[2 * t + 1]};
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (c[e] >= 0) {
-        sc[0][e] += fbs[fq0 * F + c[e]];
-        sc[0][2 + e] += fbs[fq1 * F + c[e]];
-      }
-    float comb[1][4] = {{0.f, 0.f, 0.f, 0.f}};
 #pragma unroll 1
-    for (int a = 0; a < A; ++a) {
-      float gv[1][4];
-      const float* Ga = Gs + (a * kDqRows + 16 * rg) * kLd;
-      scores<1, false>(gv, gv, Ga, Vh, Ga, Vh, g, t);  // gv_a = G_a V^T
+    for (int a = 0; a < A; ++a, ++j) {
+      cp_wait_all();
+      __syncthreads();  // step j (with arg 0, the tile) is in; every warp is done with step j - 1
+      if (j + 1 < nsteps) stage(j + 1);
+      if (a == 0) {  // S = Q K^T + fb, once a key tile for all args
+        scores<NT, false>(sc, sc, Qw, Kh, Qw, Kh, g, t);
+        const int* ct = codes + kHalf * kh;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            c[n][e] = ct[8 * n + 2 * t + e];
+            if (c[n][e] >= 0) {
+              sc[n][e] += fbs[fq0 * F + c[n][e]];
+              sc[n][2 + e] += fbs[fq1 * F + c[n][e]];
+            }
+          }
+        zero(comb);
+      }
+      float gv[NT][4];
+      const float* Ga = Gs + ((j & 1) * kDqRows + 16 * rg) * kLd;
+      scores<NT, false>(gv, gv, Ga, Vh, Ga, Vh, g, t);  // gv_a = G_a V^T
       const float* sm = St + a * kDqRows + r0;
       const float m0 = sm[0], m1 = sm[8];
       const float i0 = sm[A * kDqRows], i1 = sm[A * kDqRows + 8];
       const float d0 = sm[2 * A * kDqRows], d1 = sm[2 * A * kDqRows + 8];
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (c[e] >= 0) {  // ds_a on the valid keys; masked keys and keys past T give 0
-          const float ca = Ct[a * kDqTile + 2 * t + e];
-          comb[0][e] += expf(sc[0][e] + ca - m0) * i0 * (gv[0][e] - d0);
-          comb[0][2 + e] += expf(sc[0][2 + e] + ca - m1) * i1 * (gv[0][2 + e] - d1);
-        }
-    }
-    accumulate<1>(acc, comb, Kh, g, t);  // dQ += comb K
-
-    // comb through the warp's shared tile; a lane per key frame adds up its keys in order
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      dw[g * kDqLd + 2 * t + e] = comb[0][e];
-      dw[(g + 8) * kDqLd + 2 * t + e] = comb[0][2 + e];
+        for (int e = 0; e < 2; ++e)
+          if (c[n][e] >= 0) {  // ds_a on the valid keys; masked keys and keys past T give 0
+            const float ca = Ct[a * kDqTile + 8 * n + 2 * t + e];
+            comb[n][e] += expf(sc[n][e] + ca - m0) * i0 * (gv[n][e] - d0);
+            comb[n][2 + e] += expf(sc[n][2 + e] + ca - m1) * i1 * (gv[n][2 + e] - d1);
+          }
     }
-    __syncwarp();
-#pragma unroll 1
-    for (int jj = 0; jj < 8; ++jj) {
-      const int fk = ct[jj];  // < 0: masked or past T, never a lane's frame
-      if (fk == lane) {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) rs[r][0] += dw[r * kDqLd + jj];
-      } else if (fk == lane + 32) {
-#pragma unroll
-        for (int r = 0; r < 16; ++r) rs[r][1] += dw[r * kDqLd + jj];
-      }
+    accumulate<NT>(acc, comb, Kh, g, t);  // dQ += comb K
+    frame_sums<NT>(rs, comb, c, F, g);
+    if (it + 1 < ntiles) {
+      __syncthreads();  // every warp is done with the tile's K, V, cn and codes
+      load_tile(it + 1);
     }
-    __syncwarp();  // dw is rewritten by the next tile
   }
 
   // the two key halves of a row group: half 1 hands its dQ and frame sums
-  // to half 0 through shared memory (Gs and racc), which adds them in order
+  // to half 0 through shared memory (the g_a ring), which adds them in order
   __syncthreads();  // every warp is done with Gs
-  float* red = Gs + rg * 16 * kLd;
+  float* red = Gs;                    // kDqRows x kLd
+  float* racc = Gs + kDqRows * kLd;   // kDqRows x F: frame sums of the rows
+  auto put_rs = [&](bool add) {
+#pragma unroll
+    for (int f = 0; f < kFrameTiles; ++f)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 8 * f + 2 * t + (i & 1), r = r0 + (i >= 2 ? 8 : 0);
+        if (col < F) racc[r * F + col] = add ? racc[r * F + col] + rs[f][i] : rs[f][i];
+      }
+  };
   if (kh == 1) {
 #pragma unroll
     for (int n = 0; n < kND; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        red[g * kLd + 8 * n + 2 * t + e] = acc[n][e];
-        red[(g + 8) * kLd + 8 * n + 2 * t + e] = acc[n][2 + e];
+        red[r0 * kLd + 8 * n + 2 * t + e] = acc[n][e];
+        red[(r0 + 8) * kLd + 8 * n + 2 * t + e] = acc[n][2 + e];
       }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      if (lane < F) racc[(16 * rg + r) * F + lane] = rs[r][0];
-      if (lane + 32 < F) racc[(16 * rg + r) * F + lane + 32] = rs[r][1];
-    }
+    put_rs(false);
   }
   __syncthreads();
   if (kh == 0) {
@@ -703,16 +742,11 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
     for (int n = 0; n < kND; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        acc[n][e] += red[g * kLd + 8 * n + 2 * t + e];
-        acc[n][2 + e] += red[(g + 8) * kLd + 8 * n + 2 * t + e];
+        acc[n][e] += red[r0 * kLd + 8 * n + 2 * t + e];
+        acc[n][2 + e] += red[(r0 + 8) * kLd + 8 * n + 2 * t + e];
       }
     store_rows(dq + base, acc, q0 + r0, 0, T, dh, t, 1.f, 1.f);
-  } else {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      if (lane < F) racc[(16 * rg + r) * F + lane] += rs[r][0];
-      if (lane + 32 < F) racc[(16 * rg + r) * F + lane + 32] += rs[r][1];
-    }
+    put_rs(true);
   }
   __syncthreads();
   // this block's (F, F) partial: rows in order, those of query frame f
@@ -753,10 +787,9 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
       comb, H, T, dh, F, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || emit) return (int)e;
-  const size_t smem_q = sizeof(float) * ((size_t)((1 + A) * kDqRows + 4 * kDqTile) * kLd +
-                                         2 * A * kDqTile + 3 * A * kDqRows +
-                                         kDqWarps * 16 * kDqLd + kDqRows * F + F * F) +
-                        sizeof(int) * 2 * kDqTile;
+  const size_t smem_q = sizeof(float) * ((size_t)(3 * kDqRows + 2 * kDqTile) * kLd +
+                                         A * kDqTile + 3 * A * kDqRows + F * F) +
+                        sizeof(int) * kDqTile;
   e = cudaFuncSetAttribute(mm_bwd_dq<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (e != cudaSuccess) return (int)e;
   mm_bwd_dq<A><<<dim3((T + kDqRows - 1) / kDqRows, B * H), kDqThreads, smem_q, stream>>>(
@@ -769,7 +802,7 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
 // delta: (B,H,A,T) scratch, written here from gout and the forward's out.
 // Emit mode: comb (B*H, T, T) not null; dq and dfb_part are not touched.
 // Recompute mode: comb null; dq (B,H,T,dh) and dfb_part (B, H, ceil(T /
-// 32), F, F) are written.
+// 64), F, F) are written.
 extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, const float* gout,

@@ -1,10 +1,11 @@
 // 3xTF32 matrix products on Hopper's tensor cores (mma.sync m16n8k8),
-// shared, through tiles.cuh, by every product kernel (attention.cu,
-// mm_attention.cu, grounding_head.cu).
+// shared, through tiles.cuh, by the attention kernels (attention.cu,
+// mm_attention.cu) and the head's backward (grounding_head.cu); the head's
+// forward takes split_int for its wgmma fragments.
 //
 // Plain TF32 keeps 10 mantissa bits and misses the port's fp32 parity bound
 // (1e-4 x max(1, max|ref|)).  3xTF32 splits each fp32 operand x into a TF32
-// part big = rna(x) and a TF32 remainder small = rna(x - big), and takes a.b
+// part big and a remainder small = x - big (split_int), and takes a.b
 // as a_small.b_big + a_big.b_small + a_big.b_big (the small terms first; the
 // small.small term lies below fp32 rounding): fp32-level accuracy at three
 // mma a step.
@@ -24,22 +25,11 @@
 
 namespace {
 
-__device__ inline uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ inline void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-// A cheaper split in two full-rate operations (no conversion instruction):
+// The split in two full-rate operations (no conversion instruction):
 // big = x with its low 13 mantissa bits cleared (TF32 toward zero), small =
 // x - big exactly, handed to the tensor core as it is (the unit reads only
 // its TF32 bits).  |small| < 2^-10 |x|, so each operand keeps an error of at
-// most 2^-20 |x|: a few 1e-6 relative on a product, where split gives ~1e-6.
+// most 2^-20 |x|: a few 1e-6 relative on a product.
 __device__ inline void split_int(float x, uint32_t& big, uint32_t& small) {
   big = __float_as_uint(x) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big));
@@ -59,25 +49,6 @@ __device__ inline void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32
   mma(c, as, bb);
   mma(c, ab, bs);
   mma(c, ab, bb);
-}
-
-// A fragment of the 16x8 tile at (r0, k0) of a row-major shared matrix
-__device__ inline void load_a(const float* X, int ld, int r0, int k0, int lane,
-                              uint32_t (&big)[4], uint32_t (&small)[4]) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* p = X + (r0 + g) * ld + k0 + t;
-  split(p[0], big[0], small[0]);
-  split(p[8 * ld], big[1], small[1]);
-  split(p[4], big[2], small[2]);
-  split(p[8 * ld + 4], big[3], small[3]);
-}
-
-// raw B fragment of the 8x8 tile at (k0, n0) of a row-major global matrix
-__device__ inline void load_b(const float* __restrict__ W, int ld, int k0, int n0, int lane,
-                              float (&v)[2]) {
-  const int g = lane >> 2, t = lane & 3;
-  v[0] = __ldg(W + (size_t)(k0 + t) * ld + n0 + g);
-  v[1] = __ldg(W + (size_t)(k0 + t + 4) * ld + n0 + g);
 }
 
 }  // namespace

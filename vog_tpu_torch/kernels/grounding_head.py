@@ -3,14 +3,18 @@
   logit[b,a,t] = w2 . relu(relu(wv_t + wl_a + (vis_t * arg_a) @ Wx) @ W1 + b1) + b2
 
 Replaces vog_tpu/kernels/grounding_head.py §_fwd_call (_fwd_kernel).  CUDA
-kernel: csrc/grounding_head.cu.  Bound by operations on the H100 (12.6
-GFLOP against ~13 MB of inputs at GT5, B=16); the products run on the
-tensor cores in 3xTF32 (fp32-level accuracy); a block owns (b, 16 tokens)
-for all A args, keeps the (A*16, D) cross and hidden tiles in shared
-memory and writes only the (B,A,T) logits.  The stems ``wv``
-(with its bias) and ``wl`` are computed by the caller.  Weights keep the
-JAX layout: Wx (D_in, D), W1 (D, Dh).  No single library call computes
-this function.
+kernels: csrc/grounding_head.cu.  Bound by operations on the H100 (12.6
+GFLOP against ~13 MB of inputs at GT5, B=16), so the products run on the
+tensor cores in 3xTF32 (fp32-level accuracy), as Hopper's wgmma:
+``head_fwd_prep`` lays Wx^T and W1^T out once a call as the stream of
+K-major k-steps that wgmma reads (into the buffer ``wstream``), and
+``head_fwd``, a persistent grid of one warpgroup an SM, walks the items
+(64 flattened (b, t) rows, one arg): the cross tile in shared memory, the
+two products chained chunk by chunk in registers, the weights streamed by
+the copy engine.  It writes only the (B,A,T) logits and takes any A in
+one launch.  The stems ``wv`` (with its bias) and ``wl`` are computed by
+the caller.  Weights keep the JAX layout: Wx (D_in, D), W1 (D, Dh).  No
+single library call computes this function.
 
 Backward: replaces §_fused_head_bwd (``_bwd_kernel``, all 9 gradients).
 The TPU kernel accumulates the (D,D) and (D,Dh) weight gradients in VMEM
@@ -25,16 +29,16 @@ first wave run on a second stream, so that the weight kernel's first
 chunks fill the SMs its second wave leaves idle; the caller's stream
 waits for it.  The partials are added up here in a
 fixed order (``sum`` over a dimension), so the gradients do not change
-between runs.  All products run in 3xTF32, as the forward.
+between runs.  All products run in 3xTF32 mma.sync.
 
-Args: the kernels take 1 <= A <= 5 (their row tile holds the A args of
-16 tokens; at A=5 the backward's accumulators fill the register file).
-A head's logits are independent across args, so for A > 5 both wrappers
-split the args into groups of at most 5, as even as possible
-(``arg_groups``: 6 -> 3 + 3, 8 -> 4 + 4), launch the kernels once a
-group, concatenate the logits and the per-arg gradients (darg, dwl), and
-add the shared ones (dvis, dwv and the weight gradients) group by group
-in order.  The CPU path takes the same groups.
+Args: the backward's kernels take 1 <= A <= 5 (their row tile holds the
+A args of 16 tokens; at A=5 the accumulators fill the register file).  A
+head's logits are independent across args, so for A > 5 the backward
+splits the args into groups of at most 5, as even as possible
+(``arg_groups``: 6 -> 3 + 3, 8 -> 4 + 4), launches the kernels once a
+group, concatenates the per-arg gradients (darg, dwl), and adds the shared
+ones (dvis, dwv and the weight gradients) group by group in order.  The
+CPU path takes the same groups.
 ``fused_grounding_head`` is a ``torch.autograd.Function``: the CUDA
 kernels on the card, ``grounding_head_bwd_plain`` on the CPU.
 """
@@ -52,15 +56,51 @@ NAME_BWD = "fused_grounding_head_bwd"
 # (split 6 + 5 between the row kernel's two parts)
 W_CHUNKS = 11
 ROW_TOKENS = 16  # tokens a block of the row kernel (kBT in csrc/grounding_head.cu)
-KERNEL_ARGS = 5  # the most args a launch takes (kMaxA in csrc/grounding_head.cu)
+KERNEL_ARGS = 5  # the most args a backward launch takes (vog_head_bwd's cases)
+FWD_CHUNK = 64  # z0 columns a chunk of the forward (kNC in csrc/grounding_head.cu)
 
 
 def arg_groups(A: int):
     """[(a0, a1), ...]: A args in ceil(A / KERNEL_ARGS) groups of at most
-    KERNEL_ARGS, as even as possible, in order."""
+    KERNEL_ARGS, as even as possible, in order (the backward's launches)."""
     n = -(-A // KERNEL_ARGS)
     bounds = [A * i // n for i in range(n + 1)]
     return list(zip(bounds[:-1], bounds[1:]))
+
+
+def fwd_stream_floats(D: int) -> int:
+    """Floats of the forward's weight stream (``head_fwd_prep``): for each
+    of the D_pad / 64 chunks, D_pad / 8 z0 k-steps of 64 x 8 and 8 z1
+    k-steps of 256 x 8 (D_pad = D rounded up to 64), each stored as its big
+    and its small parts."""
+    dp = -(-D // FWD_CHUNK) * FWD_CHUNK
+    return 2 * (dp // FWD_CHUNK) * (dp // 8 * FWD_CHUNK * 8 + 8 * 256 * 8)
+
+
+def fwd_stream_plain(wx, w1) -> torch.Tensor:
+    """Plain version of ``head_fwd_prep``: Wx (D, D) and W1 (D, Dh) as the
+    forward's weight stream, zero-padded to D_pad (a multiple of 64) and
+    to 256 hidden columns.  Chunk c holds the z0 k-steps s (Wx rows 8s ..
+    8s+7, columns 64c ..) and then the z1 k-steps j (W1 rows 64c + 8j ..,
+    all 256 columns); a k-step is [k half e][column n][k slot u], where slot
+    u of half e holds row 2u + e of the step (the K-major core matrices of
+    TF32 wgmma, k in pair order).  The stream is cut into stages of 2048
+    weights (4 z0 k-steps or 1 z1 k-step), each stored as its big parts (the
+    low 13 mantissa bits cleared: TF32 toward zero), then its small parts
+    (the rest, exact): big + small rebuilds every weight."""
+    D, Dh = wx.shape[0], w1.shape[1]
+    dp = -(-D // FWD_CHUNK) * FWD_CHUNK
+    nch = dp // FWD_CHUNK
+    wxp = wx.new_zeros((dp, dp))
+    wxp[:D, :D] = wx
+    w1p = w1.new_zeros((dp, 256))
+    w1p[:D, :Dh] = w1
+    # row k = 8 step + 2 u + e -> (step, u, e); Wx column 64 c + n -> (c, n)
+    z0 = wxp.reshape(dp // 8, 4, 2, nch, FWD_CHUNK).permute(3, 0, 2, 4, 1).reshape(nch, -1)
+    z1 = w1p.reshape(nch, 8, 4, 2, 256).permute(0, 1, 3, 4, 2).reshape(nch, -1)
+    raw = torch.cat([z0, z1], dim=1).reshape(-1, 2048).contiguous()
+    big = (raw.view(torch.int32) & -8192).view(torch.float32)  # 0xffffe000
+    return torch.stack([big, raw - big], dim=1).reshape(-1).contiguous()
 
 
 def shape_fault(D: int, Dh: int):
@@ -80,8 +120,9 @@ def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     return torch.matmul(h1, w2) + b2
 
 
-def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
-    """The kernels' argument checks -> b2 as a (1,) tensor."""
+def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, max_args=KERNEL_ARGS) -> torch.Tensor:
+    """The kernels' argument checks (at most ``max_args`` args, None: any)
+    -> b2 as a (1,) tensor."""
     if vis.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {vis.device}")
     dev = vis.device
@@ -89,8 +130,8 @@ def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     A = arg.shape[1]
     Dh = w1.shape[1]
     fault = shape_fault(D, Dh)
-    if fault or not 1 <= A <= KERNEL_ARGS:
-        raise ValueError(f"{NAME}: {fault or f'a launch takes 1 <= A <= {KERNEL_ARGS} (A={A})'}")
+    if fault or A < 1 or (max_args is not None and A > max_args):
+        raise ValueError(f"{NAME}: {fault or f'a launch takes 1 <= A <= {max_args} (A={A})'}")
     f32 = torch.float32
     for name, t, shape in (
         ("vis", vis, (B, T, D)), ("wv", wv, (B, T, D)), ("arg", arg, (B, A, D)),
@@ -105,35 +146,32 @@ def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     return b2.reshape(1).contiguous()
 
 
-def _groups(arg, wl, g=None):
-    """(arg, wl[, g]) sliced to each of ``arg_groups``."""
+def _groups(arg, wl, g):
+    """(arg, wl, g) sliced to each of ``arg_groups``."""
     for a0, a1 in arg_groups(arg.shape[1]):
         sl = lambda t: t[:, a0:a1].contiguous()  # noqa: E731
-        yield (sl(arg), sl(wl)) + (() if g is None else (sl(g),))
+        yield sl(arg), sl(wl), sl(g)
 
 
 def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
     """vis (B,T,D), arg (B,A,D), wv (B,T,D), wl (B,A,D), wx (D,D),
-    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T); the
-    args in groups of at most KERNEL_ARGS."""
-    if arg.shape[1] <= KERNEL_ARGS:
-        return _fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2)
-    return torch.cat([_fwd(vis, a, wv, l, wx, w1, b1, w2, b2) for a, l in _groups(arg, wl)], dim=1)
-
-
-def _fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
-    """One launch (A <= KERNEL_ARGS) on the card, the plain version on the CPU."""
+    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T): the
+    CUDA kernels on the card (one launch, any A), the plain version on the
+    CPU."""
     if vis.device.type == "cpu":
         return grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2)
-    b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, max_args=None)
     B, T, D = vis.shape
     A, Dh = arg.shape[1], w1.shape[1]
     out = torch.empty((B, A, T), dtype=torch.float32, device=vis.device)
+    stream = torch.empty((fwd_stream_floats(D),), dtype=torch.float32, device=vis.device)
     P, I = _build.P, _build.I
-    fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 10 + [I] * 5 + [P])
-    rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(),
-            wx.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), B, A, T, D, Dh, _build.stream_ptr(vis))
+    prep = _build.function("grounding_head.cu", "vog_head_fwd_prep", [P] * 3 + [I] * 2 + [P])
+    _build.check(prep(wx.data_ptr(), w1.data_ptr(), stream.data_ptr(), D, Dh, _build.stream_ptr(vis)), NAME)
+    fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 9 + [I] * 5 + [P])
+    rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), stream.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, A, T, D, Dh,
+            _build.stream_ptr(vis))
     _build.check(rc, NAME)
     _build.count(NAME)
     return out

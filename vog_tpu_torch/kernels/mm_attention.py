@@ -36,10 +36,12 @@ dk, dv and dcn (csrc/mm_attention.cu).
     as in the TPU package: recompute redoes the A g_a.vm products for dq
     (A+1 extra passes over every (i, j)).
   * "recompute" (``_bwd_dkv_noemit_kernel`` + ``_bwd_dq_kernel``): no
-    (T, T) buffer; mm_bwd_dq derives the tiles again over query rows (S
-    once a key tile for all args, then each arg's g_a.vm^T and ds_a), sums
-    comb on chip, accumulates dq = comb . km and one (F, F) frame-bias
-    partial per (b, h, 32 query rows), which the wrapper adds up in a fixed
+    (T, T) buffer; mm_bwd_dq (8 warps, 64 query rows a block, 64-key
+    tiles, each arg's g_a rows streamed by ``cp.async``) derives the tiles again
+    over query rows (S once a key tile for all args, then each arg's
+    g_a.vm^T and ds_a), sums comb on chip, accumulates dq = comb . km and
+    the frame sums on the tensor cores, and writes one (F, F) frame-bias
+    partial per (b, h, 64 query rows), which the wrapper adds up in a fixed
     order.  For memory: comb is 512 MB at P100 (B=2, T=4000).
 Both modes compute the same function; on the CPU both run
 ``mm_attention_bwd_plain``.  ``mm_shared_qk_attention`` is a
@@ -63,7 +65,7 @@ NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
 MAX_ARGS = 8  # the kernels' A (template cases 1..8 in csrc/mm_attention.cu)
 MAX_DH = 128
 MAX_FRAMES = 64  # the (F, F) bias table in shared memory; the dq kernel's frame sums
-DQ_ROWS = 32  # query rows a block of mm_bwd_dq owns (kDqRows in csrc/mm_attention.cu)
+DQ_ROWS = 64  # query rows a block of mm_bwd_dq owns (kDqRows in csrc/mm_attention.cu)
 
 
 def resolve_bwd_mode(mode: Optional[str]) -> str:
