@@ -63,7 +63,17 @@ the last line:
    step's device idle share, and the peak memory of a step; (c) the state
    after (b) through (a)'s comparison once more.  Both comparisons are
    kink-aware (``kink_keep``);
-8. P100 (T=4000, B=2), after the GT5 tables are freed: the int8 store of
+8. dispatch gt5: the production recipe's dispatch (``steps_per_dispatch``
+   16, ``eval_batches_per_dispatch`` 10) with index-only batches against
+   annotation tables made from a seed (40,000 annotations): 37 steps as
+   CUDA-graph dispatches of 16, 16 and 5 bitwise against 37 eager steps
+   (the 7 kernels launched by the replays), freeze on NaN (skip_nonfinite
+   0: a dispatch of 16 with a NaN row first read by step 6 ends bitwise at
+   the eager state after step 5; a control without it does not), 10 eval
+   batches as one dispatch bitwise against 10 eager eval steps, and the
+   times eager against graph: train step, eval batches/s, serve with
+   ``cuda_graphs`` off and on, the peak memory of a captured step;
+9. P100 (T=4000, B=2), after the GT5 tables are freed: the int8 store of
    the JAX package's single-chip P100 run (5,549 rows, 11,557 MB) made on
    the card, then phases 3-6 at P100 shapes (serve: 16 requests, 4
    clients, max_batch 2, scores against the plain path on the card,
@@ -71,7 +81,8 @@ the last line:
    10 steps in each backward-mode pair (``MODE_PAIRS``: flash recompute +
    mm emit, flash emit + mm recompute), compared with the plain path on
    the card; then the peak memory of one step in the other two mode
-   combinations.
+   combinations; and one CUDA-graph dispatch of 8 steps bitwise against 8
+   eager steps, with its step time and the peak memory of a captured step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -474,7 +485,7 @@ SERVE_PASSES = 3  # timed passes of the requests, after a discarded one
 
 
 def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, max_batch: int = 16,
-                buckets=(1, 2, 4, 8), ref_on: str = "cpu", n_ref: int = 4):
+                buckets=(1, 2, 4, 8), ref_on: str = "cpu", n_ref: int = 4, cuda_graphs: bool = True):
     """``n_requests`` vid_rows requests from ``clients`` threads through
     ``ServingLoop``: one pass discarded after ``prewarm``, then
     ``SERVE_PASSES`` timed passes (p50 / p95 / req/s of each, and their
@@ -482,7 +493,9 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
     checked for shape and finiteness, and the scores of the first ``n_ref`` against the same
     weights on the plain path: on the CPU (``ref_on="cpu"``), or on the
     card with every float kernel swapped for its plain version
-    (``"plain"``: a T=4000 plain forward on the host is slow)."""
+    (``"plain"``: a T=4000 plain forward on the host is slow).
+    ``cuda_graphs``: the Predictor's forward as a CUDA graph per bucket
+    (its default), or eager."""
     import numpy as np
     import torch
 
@@ -491,9 +504,9 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
     from vog_tpu_torch.serve import Predictor
     from vog_tpu_torch.serving import ServingLoop
 
-    tag = cfg.ds.exp_setting
+    tag = cfg.ds.exp_setting + ("" if cuda_graphs else ", cuda_graphs off")
     vocab = 5000
-    pred = Predictor(cfg, None, vocab, tables=tables.tables, device="cuda")
+    pred = Predictor(cfg, None, vocab, tables=tables.tables, device="cuda", cuda_graphs=cuda_graphs)
     flushes = [0]
     dispatch = pred.dispatch
 
@@ -902,6 +915,59 @@ def make_train_batches(cfg, n: int, B: int, n_rows: int, vocab: int, seed: int):
     return out
 
 
+def random_ann_arrays(cfg, n_anns: int, n_vids: int, seed: int):
+    """Per-annotation and per-video arrays of the annotation tables'
+    schema (``vog_tpu_torch.data.ann_store.pack_ann_tables``) made from a
+    seed: valid token spans, one or two annotated frames for each valid
+    arg, a few positive proposals in each."""
+    import numpy as np
+
+    ds = cfg.ds
+    L, A, F, P = ds.max_seq_len, ds.max_srl_args, ds.num_frms, ds.num_prop_per_frm
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 0.5, (n_vids, F, P, 2))
+    wh = rng.uniform(0.1, 0.5, (n_vids, F, P, 2))
+    boxes = np.concatenate([xy, xy + wh, wh[..., :1] * wh[..., 1:]], -1).astype(np.float32)
+    pmask = np.ones((n_vids, F, P), np.uint8)
+    pmask[rng.uniform(size=n_vids) < 0.3, :, P - 1] = 0  # a padded proposal slot
+    seq = rng.integers(6, L + 1, n_anns)
+    tokens = rng.integers(2, 5000, (n_anns, L)).astype(np.int32) * (np.arange(L) < seq[:, None])
+    starts = rng.integers(0, seq[:, None] - 1, (n_anns, A))
+    spans = np.stack([starts, np.minimum(starts + rng.integers(0, 3, (n_anns, A)), seq[:, None] - 1)], -1)
+    amask = (np.arange(A) < rng.integers(2, A + 1, n_anns)[:, None]).astype(np.uint8)
+    # one or two annotated frames an arg, as in ASRL
+    rank = rng.uniform(size=(n_anns, A, F)).argsort(-1).argsort(-1)
+    fmask = (rank < rng.integers(1, 3, (n_anns, A, 1))).astype(np.uint8) * amask[:, :, None]
+    gxy = rng.uniform(0, 0.5, (n_anns, A, F, 2))
+    gt = np.concatenate([gxy, gxy + rng.uniform(0.1, 0.5, (n_anns, A, F, 2))], -1).astype(np.float32)
+    anns = {
+        "tokens": tokens.astype(np.int32), "seq_len": seq.astype(np.int32),
+        "verb_idx": rng.integers(0, seq).astype(np.int32),
+        "srl_roles": rng.integers(1, ds.num_roles, (n_anns, A)).astype(np.int32),
+        "srl_spans": spans.astype(np.int32), "srl_arg_mask": amask, "gt_frame_mask": fmask,
+        "pos_targets": ((rng.uniform(size=(n_anns, A, F, P)) > 0.9) * fmask[..., None]).astype(np.uint8),
+        "gt_boxes": gt,
+    }
+    return anns, {"prop_boxes": boxes, "prop_mask": pmask}
+
+
+def make_index_batches(cfg, n: int, B: int, n_anns: int, n_rows: int, seed: int):
+    """``n`` index-only batches of ``B`` samples (``ann_row``, ``vid_rows``,
+    ``pos_vid``, ``ann_idx`` int32, ``batch_mask`` uint8), each group of V
+    distinct videos."""
+    import numpy as np
+
+    V = cfg.ds.num_cmp
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        rows = rng.integers(0, n_anns, B).astype(np.int32)
+        vids = np.stack([rng.choice(n_rows, V, replace=False) for _ in range(B)]).astype(np.int32)
+        out.append({"ann_row": rows, "vid_rows": vids, "pos_vid": rng.integers(0, V, B).astype(np.int32),
+                    "ann_idx": rows.copy(), "batch_mask": np.ones((B,), np.uint8)})
+    return out
+
+
 def kink_keep(model, vis, arg, mm, ff1):
     """-> ((B, A, T) float: 0 on the logits whose grounding-head
     pre-activation (z0 or z1), ``mm_head`` ReLU input (the mm layer's
@@ -1300,6 +1366,295 @@ def step_peak(tables, modes) -> tuple:
     return peak / 1e9, (peak - resident) / 1e9
 
 
+# [dispatch gt5]: the production recipe's dispatch (configs/gt5_production.yml
+# steps_per_dispatch 16, eval_batches_per_dispatch 10): 37 steps in groups of
+# 16, 16 and an epoch-tail of 5; ~40k annotations (the real ASRL size the
+# JAX package's ann_store.py sizes its tables for)
+DISPATCH_GROUPS = (16, 16, 5)
+DISPATCH_TIMED = 4  # dispatches of K timed after the checks
+N_ANNS = 40000
+P100_DISPATCH_K = 8  # the JAX package's P100 run used K = 8
+
+
+def stack_batches(batches):
+    import numpy as np
+
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def states_equal(a, b) -> list:
+    """-> the names of the state tensors (parameters, both moments, the
+    guard counters, the step count) that differ bitwise."""
+    import torch
+
+    ta, tb = a.tensors(), b.tensors()
+    return [k for k in ta if not torch.equal(ta[k], tb[k])]
+
+
+def profiled_busy(fn, reps: int) -> tuple:
+    """``fn`` once under torch.profiler -> (device busy ms per rep, kernel
+    times summed per rep); busy is None when the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel, other = device_time_by_kernel(prof, reps)
+    ksum = sum(by_kernel.values()) + sum(other.values())
+    busy = device_busy_ms(prof, reps, ksum)
+    return (busy if busy > 0 else None), ksum
+
+
+def phase_dispatch(tables, card: str) -> dict:
+    """[dispatch gt5]: the production recipe's dispatch at full width (GT5
+    widths, B=16, SPAT, dropout 0.1, skip_nonfinite 50, fp32), index-only
+    batches against annotation tables made from a seed.  (1) 37 steps as
+    CUDA-graph dispatches of 16, 16 and 5, bitwise against 37 eager steps
+    (parameters, both moments, guard counters, step count, and every aux);
+    (2) freeze on NaN (skip_nonfinite 0, a NaN feature row first read by
+    step 6): the state after a dispatch of 16 bitwise the eager state after
+    step 5, and a control without the NaN not; (3) E=10 eval batches as one
+    dispatch (compact form) bitwise against 10 eager eval steps, and
+    ``finalize_metrics``; (4) times, eager against graph: the train step
+    (host clock to a synchronize: eager a step, graph a dispatch over K),
+    samples/s, device busy from torch.profiler and the idle share; eval
+    batches/s; serve p50 / p95 / req/s with ``cuda_graphs`` off and on
+    (``phase_serve``); the peak memory of a captured step."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.data.ann_store import AnnTables, ann_table_bytes
+    from vog_tpu_torch.evaluation import finalize_metrics
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import (TrainState, dispatch_sizes, make_eval_step, make_multi_eval_step,
+                                     make_multi_train_step, make_train_step)
+
+    cfg = train_cfg(0.1)
+    cfg.train.steps_per_dispatch, cfg.train.eval_batches_per_dispatch = 16, 10
+    K, E = dispatch_sizes(cfg)
+    B, n_steps = cfg.train.bs, sum(DISPATCH_GROUPS)
+    t0 = time.perf_counter()
+    anns, vids = random_ann_arrays(cfg, N_ANNS, tables.n_rows, seed=21)
+    ann = AnnTables.from_arrays(cfg, anns, vids, device="cuda")
+    del anns, vids
+    ann_bytes = sum(nbytes(t) for t in ann.tables.values())
+    if ann_bytes != ann_table_bytes(cfg, N_ANNS, tables.n_rows):
+        fail(f"dispatch: annotation tables hold {ann_bytes} bytes, not ann_table_bytes's")
+    all_tables = {**tables.tables, **ann.tables}
+    batches = make_index_batches(cfg, n_steps + K * (DISPATCH_TIMED + 1) + E, B, N_ANNS, tables.n_rows, seed=22)
+    per_batch = sum(v.nbytes for v in batches[0].values())
+    print(f"[dispatch gt5] annotation tables: {N_ANNS} annotations, {tables.n_rows} videos, "
+          f"{ann_bytes / 1e6:.2f} MB on the card ({time.perf_counter() - t0:.1f} s); an index-only batch of "
+          f"{B}: {per_batch} bytes ({per_batch / 1e6:.6f} MB), a dispatch of {K}: {K * per_batch / 1e6:.6f} MB",
+          flush=True)
+
+    def dev(b):
+        return {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+
+    def fresh(c):
+        return TrainState.create(c, get_model(c, 5000, device="cuda", seed=3, train=True))
+
+    # (1) graph train against eager, 37 steps
+    step, multi = make_train_step(cfg), make_multi_train_step(cfg)
+    eager, graph = fresh(cfg), fresh(cfg)
+    e_aux, e_ms = [], []
+    for b in batches[:n_steps]:
+        db = dev(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_aux.append(step(eager, db, 0, all_tables)[1])
+        torch.cuda.synchronize()
+        e_ms.append((time.perf_counter() - t0) * 1e3)
+    g_aux, off, capture_s = [], 0, None
+    for i, n in enumerate(DISPATCH_GROUPS):
+        if i == 1:
+            _build.reset_counts()
+        t0 = time.perf_counter()
+        _, aux = multi(graph, stack_batches(batches[off:off + n]), 0, all_tables)
+        losses = aux["loss"].cpu()  # the host's one read a dispatch
+        if i == 0:
+            capture_s = time.perf_counter() - t0
+        g_aux.append(aux)
+        off += n
+    counts = dict(_build.launches)
+    diff = states_equal(graph, eager)
+    if diff:
+        fail(f"dispatch: {len(diff)} state tensors of the graph run differ from the eager steps: {diff[:5]}")
+    for k in e_aux[0]:
+        if not torch.equal(torch.cat([a[k] for a in g_aux]), torch.stack([a[k] for a in e_aux])):
+            fail(f"dispatch: the graph's aux {k} differs from the eager steps'")
+    if int(graph.step) != n_steps or not torch.isfinite(losses).all():
+        fail(f"dispatch: step count {int(graph.step)} or a non-finite loss {losses.tolist()}")
+    replays = sum(DISPATCH_GROUPS[1:])
+    for n in KERNEL_NAMES:
+        if counts.get(n, 0) <= 0:
+            fail(f"kernel {n} was not launched by the graph dispatches (counts {counts})")
+    cap = next(iter(graph.graphs.values()))
+    print(f"[dispatch gt5] (1) {n_steps} steps as CUDA-graph dispatches of {'+'.join(map(str, DISPATCH_GROUPS))} "
+          f"bitwise equal to {n_steps} eager steps (parameters, both moments, guard counters, step count "
+          f"{int(graph.step)}, every aux); capture with its warm-up {capture_s:.2f} s; launches per replayed "
+          f"step {({k: v / replays for k, v in counts.items()})}; peak memory of a captured step "
+          f"{cap.peak_bytes / 1e9:.3f} GB (the graph's pool; a static input of {cap.static.nbytes} bytes)",
+          flush=True)
+
+    # (4a) train times: eager a step, graph a dispatch of K over K
+    d_ms, off = [], n_steps
+    for _ in range(DISPATCH_TIMED):
+        t0 = time.perf_counter()
+        _, aux = multi(graph, stack_batches(batches[off:off + K]), 0, all_tables)
+        aux["loss"].cpu()
+        d_ms.append((time.perf_counter() - t0) * 1e3)
+        off += K
+    e_med, g_med = statistics.median(e_ms), statistics.median(d_ms) / K
+    eb = dev(batches[off])
+    e_busy, e_ksum = profiled_busy(lambda: step(eager, eb, 0, all_tables), 1)
+    nxt = stack_batches(batches[off:off + K])
+    g_busy, g_ksum = profiled_busy(lambda: multi(graph, nxt, 0, all_tables)[1]["loss"].cpu(), K)
+
+    def idle(busy, med):
+        return None if busy is None else max(0.0, 1 - busy / med)
+
+    def fmt(x, unit=""):
+        return "not measured" if x is None else f"{x:.2f}{unit}"
+
+    train = dict(eager_step_ms=e_med, graph_step_ms=g_med, eager_samples_per_s=B / e_med * 1e3,
+                 graph_samples_per_s=B / g_med * 1e3, eager_busy_ms=e_busy, graph_busy_ms=g_busy,
+                 eager_kernel_sum_ms=e_ksum, graph_kernel_sum_ms=g_ksum, eager_idle=idle(e_busy, e_med),
+                 graph_idle=idle(g_busy, g_med), eager_step_ms_all=e_ms, graph_dispatch_ms=d_ms,
+                 capture_s=capture_s, peak_captured_step_gb=cap.peak_bytes / 1e9,
+                 launches_per_step={k: v / replays for k, v in counts.items()})
+    print(f"[dispatch gt5] (4) train step, host clock to a synchronize: eager median {e_med:.2f} ms "
+          f"({B / e_med * 1e3:.1f} samples/s, busy {fmt(e_busy, ' ms')}, idle {fmt(idle(e_busy, e_med))}); "
+          f"graph median {g_med:.2f} ms a step over {DISPATCH_TIMED} dispatches of {K} ({B / g_med * 1e3:.1f} "
+          f"samples/s, busy {fmt(g_busy, ' ms')} a step, idle {fmt(idle(g_busy, g_med))}); dispatch ms "
+          + ", ".join(f"{x:.1f}" for x in d_ms) + f" on {card}", flush=True)
+
+    # (2) freeze on NaN
+    cfg0 = train_cfg(0.1)
+    cfg0.train.skip_nonfinite = 0
+    fb = make_index_batches(cfg0, K, B, N_ANNS, tables.n_rows, seed=23)
+    bad = int(fb[5]["vid_rows"][0, 0])
+    for b in fb[:5]:
+        b["vid_rows"][b["vid_rows"] == bad] = (bad + 1) % tables.n_rows  # step 6 is the first to read it
+    ref, frozen = fresh(cfg0), fresh(cfg0)
+    step0 = make_train_step(cfg0)
+    for b in fb[:5]:
+        step0(ref, dev(b), 0, all_tables)
+    start = frozen.snapshot()
+    row = tables.tables["feats"][bad].clone()
+    multi0 = make_multi_train_step(cfg0)
+    try:
+        tables.tables["feats"][bad] = float("nan")
+        _, aux = multi0(frozen, stack_batches(fb), 0, all_tables)
+    finally:
+        tables.tables["feats"][bad] = row
+    losses = aux["loss"].cpu()
+    diff = states_equal(frozen, ref)
+    if diff or int(frozen.step) != 5 or not (torch.isnan(losses[5]) and torch.isfinite(losses[:5]).all()):
+        fail(f"dispatch: the frozen state differs from the eager state after step 5 ({diff[:5]}), step "
+             f"{int(frozen.step)}, losses {losses.tolist()}")
+    frozen.restore(start)
+    multi0(frozen, stack_batches(fb), 0, all_tables)
+    control = states_equal(frozen, ref)
+    if not control or int(frozen.step) != K:
+        fail("dispatch: the control without the NaN equals the eager state after step 5")
+    print(f"[dispatch gt5] (2) freeze on NaN (skip_nonfinite 0, NaN in feature row {bad}, first read by step 6): "
+          f"after a dispatch of {K} the state is bitwise the eager state after step 5, step count "
+          f"{5}; loss of step 6 {losses[5].item()}; the control without the NaN differs in "
+          f"{len(control)} of {len(ref.tensors())} state tensors (step count {int(frozen.step)})", flush=True)
+    del ref, frozen, start
+
+    # (3) eval: E batches as one dispatch against E eager eval steps
+    eb_stack = stack_batches(batches[-E:])
+    ev_step, ev_multi = make_eval_step(cfg), make_multi_eval_step(cfg)
+    got = ev_multi(graph, eb_stack, all_tables)
+    ref_ev = [ev_step(graph, dev(b), all_tables) for b in batches[-E:]]
+    for k in got:
+        if not torch.equal(got[k], torch.stack([r[k] for r in ref_ev])):
+            fail(f"dispatch: eval output {k} of the graph differs from the eager eval steps")
+    sums = {k: float(got[k].sum()) for k in ("n_pairs", "n_acc", "n_vacc", "n_queries", "n_strict", "n_cons")}
+    metrics = finalize_metrics(sums)
+    e_ev, g_ev = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [ev_step(graph, dev(b), all_tables) for b in batches[-E:]]
+        float(torch.stack([o["n_pairs"] for o in outs]).sum())
+        e_ev.append(E / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        float(ev_multi(graph, eb_stack, all_tables)["n_pairs"].sum())
+        g_ev.append(E / (time.perf_counter() - t0))
+    ev = dict(eager_batches_per_s=statistics.median(e_ev), graph_batches_per_s=statistics.median(g_ev),
+              metrics=metrics, n_overflow=float(got["n_overflow"].sum()),
+              loss=float(got["loss_sum"].sum() / got["n_batch"].sum()))
+    print(f"[dispatch gt5] (3) {E} eval batches (compact, {got['pair_arg'].shape[-1]} pairs a query) as one "
+          f"dispatch bitwise equal to {E} eager eval steps; finalize_metrics {metrics}, overflow "
+          f"{ev['n_overflow']:.0f}, loss {ev['loss']:.5f}; eval batches/s (host clock, median of 3): eager "
+          f"{ev['eager_batches_per_s']:.1f}, graph {ev['graph_batches_per_s']:.1f}", flush=True)
+    del graph, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (4b) serve, cuda_graphs off then on
+    serve = {}
+    for on in (False, True):
+        pred, _, _, serve[on] = phase_serve(serve_cfg(), tables, card, cuda_graphs=on)
+        del pred
+    print(f"[dispatch gt5] (4) serve, cuda_graphs off / on: p50 {serve[False]['p50_ms']:.2f} / "
+          f"{serve[True]['p50_ms']:.2f} ms, p95 {serve[False]['p95_ms']:.2f} / {serve[True]['p95_ms']:.2f} ms, "
+          f"{serve[False]['requests_per_s']:.1f} / {serve[True]['requests_per_s']:.1f} req/s on {card}", flush=True)
+    return dict(train=train, eval=ev, serve_eager=serve[False], serve_graph=serve[True],
+                ann_table_mb=ann_bytes / 1e6, index_batch_bytes=per_batch)
+
+
+def phase_dispatch_p100(tables, card: str) -> dict:
+    """One dispatch of K=8 P100 steps (the JAX package's P100 recipe, the
+    default backward modes) as a CUDA graph, bitwise against 8 eager steps;
+    then one more dispatch timed (host clock, over K), against the eager
+    steps' median; the peak memory of a captured step."""
+    import torch
+
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_multi_train_step, make_train_step
+
+    cfg = train_cfg(0.1, "p100")
+    K, B = P100_DISPATCH_K, cfg.train.bs
+    batches = make_train_batches(cfg, 2 * K, B, tables.n_rows, 5000, seed=31)
+
+    def fresh():
+        return TrainState.create(cfg, get_model(cfg, 5000, device="cuda", seed=3, train=True))
+
+    eager, graph = fresh(), fresh()
+    step, multi = make_train_step(cfg), make_multi_train_step(cfg)
+    e_ms = []
+    for b in batches[:K]:
+        db = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(eager, db, 0, tables.tables)
+        torch.cuda.synchronize()
+        e_ms.append((time.perf_counter() - t0) * 1e3)
+    multi(graph, stack_batches(batches[:K]), 0, tables.tables)[1]["loss"].cpu()
+    diff = states_equal(graph, eager)
+    if diff:
+        fail(f"dispatch p100: {len(diff)} state tensors of the graph run differ from the eager steps: {diff[:5]}")
+    t0 = time.perf_counter()
+    multi(graph, stack_batches(batches[K:]), 0, tables.tables)[1]["loss"].cpu()
+    g_ms = (time.perf_counter() - t0) * 1e3 / K
+    cap = next(iter(graph.graphs.values()))
+    e_med = statistics.median(e_ms)
+    print(f"[dispatch p100] {K} steps as one CUDA-graph dispatch bitwise equal to {K} eager steps (flash "
+          f"recompute, mm emit); step, host clock: eager median {e_med:.2f} ms, graph {g_ms:.2f} ms a step "
+          f"({B / g_ms * 1e3:.1f} samples/s); peak memory of a captured step {cap.peak_bytes / 1e9:.3f} GB "
+          f"on {card}", flush=True)
+    return dict(eager_step_ms=e_med, graph_step_ms=g_ms, eager_step_ms_all=e_ms,
+                peak_captured_step_gb=cap.peak_bytes / 1e9)
+
+
 # the JAX package's single-chip P100 run (BASELINE.md, "P100 at the largest
 # single-chip-feasible scale"): 5,549 videos, an int8 store of 11,557 MB
 P100_ROWS = 5549
@@ -1355,6 +1710,7 @@ def main() -> int:
     del pred, reqs
     rows_gt5 += phase_kernels_bwd(cfg)
     train_counts_gt5, train_gt5 = phase_train(tables, card)
+    dispatch_gt5 = phase_dispatch(tables, card)
     worst_gt5 = dict(WORST_REL)
     WORST_REL.clear()
     del tables  # the P100 checks below need the room
@@ -1378,6 +1734,7 @@ def main() -> int:
         with bwd_modes(fm, mm):
             train_counts[key], train[key] = phase_train(tables, card, "p100", P100_TRAIN_STEPS, "plain",
                                                         launched, absent, label=f" ({key})")
+    dispatch_p100 = phase_dispatch_p100(tables, card)
     peaks = {f"flash {fm}, mm {mm}": step_peak(tables, (fm, mm))
              for fm, mm in (("recompute", "recompute"), ("emit", "emit"))}
     print("[train p100] peak memory of one step, GB (above the resident): "
@@ -1413,7 +1770,8 @@ def main() -> int:
                                           "bound_ms", "bound_by")}
     print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train,
                       "peak_memory_gb": {k: list(v) for k, v in peaks.items()},
-                      "gt5": {"serve": serve_gt5, "profile": prof_gt5, "train": train_gt5}, "card": card}),
+                      "gt5": {"serve": serve_gt5, "profile": prof_gt5, "train": train_gt5},
+                      "dispatch": {"gt5": dispatch_gt5, "p100": dispatch_p100}, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -19,6 +19,15 @@ up to 8 in one launch, bitwise on a repeat call, and its backward at A =
 6 and 8 (two launches of at most 5 args).  Tolerance as in chip_smoke.py: bitwise for the
 gather, max |err| <= 1e-4 * max(1, max|ref|) for the fp32 kernels (and
 |err| / |ref| <= 1e-3 for the mm forward).
+
+CUDA graphs (train/graphs.py), on a narrow model at GT5's token count
+(T = 200) with index-only batches: a captured K-step dispatch and its
+shorter tail bitwise equal to eager steps (state, aux and launches), freeze
+on NaN, a captured eval dispatch, a captured B = 16 step whose head
+backward forks onto its second stream (gradients bitwise the eager
+step's), the graphed Predictor bitwise the eager one in every bucket, and
+a capture that fails raising with the state untouched; and the dropout
+keep mask's bits equal on the CPU and the card.
 """
 
 import pytest
@@ -468,3 +477,200 @@ def test_head_more_args_than_a_launch(dev, B, T, A, D):
     assert _build.launches == {"fused_grounding_head": 1, "fused_grounding_head_bwd": 2}
     for a, b in zip(got, grounding_head_bwd_plain(*args, go)):
         _close(a, b)
+
+
+# --------------------------------------------------------------------------
+# CUDA graphs: the fused dispatches and the serving forward
+# --------------------------------------------------------------------------
+def _tiny(dropout=0.1, skip=2, bs=4):
+    """A narrow VOGNet at GT5's shapes (SPAT, T = 200), its device tables
+    (features and annotations) made from a seed."""
+    import numpy as np
+
+    from chip_smoke import random_ann_arrays, serve_cfg
+    from vog_tpu_torch.data.ann_store import AnnTables
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+
+    cfg = serve_cfg()
+    m = cfg.mdl
+    cfg.ds.prop_dim, cfg.ds.seg_dim = 64, 48
+    m.emb_dim, m.lstm_dim, m.vis_dim, m.role_dim, m.n_heads = 32, 16, 32, 8, 2
+    m.dropout = dropout
+    t = cfg.train
+    t.bs, t.lr, t.lr_schedule, t.warmup_steps, t.total_steps = bs, 1e-3, "cosine", 3, 50
+    t.skip_nonfinite, t.pos_weight, t.grad_clip = skip, 5.0, 1.0
+    n_rows, n_anns = 40, 60
+    feats = DeviceFeatureTables.random(cfg, n_rows, seed=0, device="cuda")
+    anns, vids = random_ann_arrays(cfg, n_anns, n_rows, seed=1)
+    tables = {**feats.tables, **AnnTables.from_arrays(cfg, anns, vids, device="cuda").tables}
+    return cfg, tables, n_anns, n_rows
+
+
+def _stack(batches):
+    import numpy as np
+
+    return {k: np.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _state(cfg, seed=3):
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState
+
+    return TrainState.create(cfg, get_model(cfg, 5000, device="cuda", seed=seed, train=True))
+
+
+def _assert_states_equal(a, b):
+    ta, tb = a.tensors(), b.tensors()
+    for k in ta:
+        assert torch.equal(ta[k], tb[k]), k
+
+
+def test_graph_multi_step_bitwise_eager(dev):
+    from chip_smoke import make_index_batches
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.train import make_multi_train_step, make_train_step
+
+    cfg, tables, n_anns, n_rows = _tiny()
+    batches = make_index_batches(cfg, 6, cfg.train.bs, n_anns, n_rows, seed=2)
+    graph, eager = _state(cfg), _state(cfg)
+    multi, step = make_multi_train_step(cfg), make_train_step(cfg)
+    _, aux0 = multi(graph, _stack(batches[:4]), 7, tables)  # capture, then 4 replays
+    _build.reset_counts()
+    _, aux1 = multi(graph, _stack(batches[4:]), 7, tables)  # the tail: 2 replays of the same graph
+    torch.cuda.synchronize()
+    replayed = dict(_build.launches)
+    assert len(graph.graphs) == 1
+    eager_aux = []
+    for i, b in enumerate(batches):
+        if i == 4:
+            _build.reset_counts()
+        eager_aux.append(step(eager, {k: torch.as_tensor(v).cuda() for k, v in b.items()}, 7, tables)[1])
+    torch.cuda.synchronize()
+    assert replayed == dict(_build.launches) and len(replayed) == 7, (replayed, _build.launches)
+    _assert_states_equal(graph, eager)
+    for k in aux0:
+        got = torch.cat([aux0[k], aux1[k]])
+        assert torch.equal(got, torch.stack([a[k] for a in eager_aux])), k
+    assert int(graph.step) == 6
+
+
+def test_graph_freeze_on_nan(dev):
+    from chip_smoke import make_index_batches
+    from vog_tpu_torch.train import make_multi_train_step, make_train_step
+
+    cfg, tables, n_anns, n_rows = _tiny(skip=0)
+    batches = make_index_batches(cfg, 4, cfg.train.bs, n_anns, n_rows, seed=3)
+    bad = int(batches[2]["vid_rows"][0, 0])
+    for b in batches[:2]:
+        b["vid_rows"][b["vid_rows"] == bad] = (bad + 1) % n_rows  # only step 3 reads the row
+    graph, eager = _state(cfg), _state(cfg)
+    for b in batches[:2]:
+        make_train_step(cfg)(eager, {k: torch.as_tensor(v).cuda() for k, v in b.items()}, 0, tables)
+    tables["feats"][bad] = float("nan")
+    _, aux = make_multi_train_step(cfg)(graph, _stack(batches), 0, tables)
+    assert torch.isnan(aux["loss"][2]) and torch.isfinite(aux["loss"][:2]).all()
+    _assert_states_equal(graph, eager)
+    assert int(graph.step) == 2
+
+
+def test_graph_multi_eval_bitwise(dev):
+    from chip_smoke import make_index_batches
+    from vog_tpu_torch.train import make_eval_step, make_multi_eval_step
+
+    cfg, tables, n_anns, n_rows = _tiny()
+    batches = make_index_batches(cfg, 5, cfg.train.bs, n_anns, n_rows, seed=4)
+    state = _state(cfg)
+    got = make_multi_eval_step(cfg)(state, _stack(batches), tables)
+    step = make_eval_step(cfg)
+    ref = [step(state, {k: torch.as_tensor(v).cuda() for k, v in b.items()}, tables) for b in batches]
+    for k in got:
+        assert torch.equal(got[k], torch.stack([r[k] for r in ref])), k
+    assert float(got["n_pairs"].sum()) > 0
+
+
+def test_graph_step_with_head_side_stream(dev):
+    """B = 16 at T = 200: the head backward's row kernel takes more than one
+    wave, so it forks its second stream (grounding_head.cu §launch_bwd)."""
+    from chip_smoke import make_index_batches
+    from vog_tpu_torch.train import make_multi_train_step, make_train_step
+
+    cfg, tables, n_anns, n_rows = _tiny(bs=16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert sms // -(-200 // 16) < 16  # the rows past the first wave go to the second stream
+    batches = make_index_batches(cfg, 2, 16, n_anns, n_rows, seed=5)
+    graph, eager = _state(cfg), _state(cfg)
+    make_multi_train_step(cfg)(graph, _stack(batches), 1, tables)
+    step = make_train_step(cfg)
+    for b in batches:
+        step(eager, {k: torch.as_tensor(v).cuda() for k, v in b.items()}, 1, tables)
+    torch.cuda.synchronize()
+    for (k, p), q in zip(graph.model.named_parameters(), eager.model.parameters()):
+        assert torch.equal(p.grad, q.grad), k
+    _assert_states_equal(graph, eager)
+
+
+def test_graphed_predictor_equals_eager(dev):
+    import numpy as np
+
+    from chip_smoke import make_requests
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.serve import Predictor
+
+    cfg, tables, n_anns, n_rows = _tiny()
+    eager = Predictor(cfg, None, 5000, tables=tables, device="cuda", cuda_graphs=False)
+    sd = eager.model.state_dict()
+    graphed = Predictor(cfg, sd, 5000, tables=tables, device="cuda")
+    reqs = make_requests(cfg, 8, n_rows, 5000, seed=6)
+    for bucket in (1, 2, 4):
+        batch = {k: np.stack([r[k] for r in reqs[:bucket]]) for k in reqs[0]}
+        batch["batch_mask"] = np.ones((bucket,), np.uint8)
+        ref = eager(batch)
+        pend = [graphed.dispatch(batch) for _ in range(graphed.ring_depth)]  # the whole ring in flight
+        _build.reset_counts()
+        outs = [graphed.fetch(p) for p in pend] + [graphed(batch)]
+        assert _build.launches == {"gather_rows": 2, "flash_attention": 1, "mm_shared_qk_attention": 1,
+                                   "fused_grounding_head": 1}, _build.launches
+        for out in outs:
+            assert set(out) == set(ref)
+            for k in ref:
+                assert np.array_equal(out[k], ref[k]), (bucket, k)
+    assert len(graphed.graphs) == 3
+
+
+def test_dropout_bits_cpu_equal_card(dev):
+    from vog_tpu_torch.model.transformer import dropout_keep, dropout_key
+
+    for seed, step, micro, site, shape in [(0, 0, 0, 0, (7, 33)), (5, 123, 1, 3, (16, 200, 512)),
+                                           (2**40 + 1, 2**31 - 1, 2, 9, (80, 200, 2048))]:
+        masks = [dropout_keep(dropout_key(seed, torch.tensor(step, dtype=torch.int32, device=d), micro),
+                              site, shape, 0.1) for d in ("cpu", dev)]
+        assert torch.equal(masks[0], masks[1].cpu()), (seed, step, micro, site)
+
+
+def test_capture_failure_raises(dev, monkeypatch):
+    """A host read inside the step fails its capture: the dispatch raises,
+    runs nothing eagerly in its place, and leaves the state as it was.
+    (Last in the file: a failed capture is the one test that leaves the
+    context's error state to the tests after it.)"""
+    from chip_smoke import make_index_batches
+    from vog_tpu_torch.train import make_multi_train_step
+    from vog_tpu_torch.train import state as st
+
+    cfg, tables, n_anns, n_rows = _tiny()
+    batches = make_index_batches(cfg, 2, cfg.train.bs, n_anns, n_rows, seed=7)
+    state = _state(cfg)
+    real = st.compute_loss
+
+    def reads_the_host(*a, **k):
+        loss, aux = real(*a, **k)
+        float(loss.detach())  # a host read: legal eagerly, not under capture
+        return loss, aux
+
+    monkeypatch.setattr(st, "compute_loss", reads_the_host)
+    before = state.snapshot()
+    with pytest.raises(RuntimeError):
+        make_multi_train_step(cfg)(state, _stack(batches), 0, tables)
+    torch.cuda.synchronize()
+    assert not state.graphs
+    for k, v in state.tensors().items():
+        assert torch.equal(v, before[k]), k

@@ -9,8 +9,12 @@
     grad_norm, guard counter, and every parameter's gradient carried
     across by ``params_from_jax`` (the JAX gradient is read back from
     Adam's first moment, mu = 0.1 g after one step without clipping);
-  * dropout at the five sites: active in train mode, off at rate 0 and in
-    eval mode, the same masks for the same (seed, step).
+  * dropout at its sites: active in train mode, off at rate 0 and in
+    eval mode, the same masks for the same (seed, step); the counter-based
+    keep mask (``dropout_keep``): the same bits for the same (seed, step,
+    microbatch, site), other bits when any of them changes, and a keep
+    rate within binomial bounds (the card test holds the CPU's bits
+    against the card's).
 
 Tolerances: the optimizer 1e-6 relative (the same fp32 operations in the
 same order); the train step's loss and grad_norm 1e-4 relative and each
@@ -30,11 +34,10 @@ from tests.test_torch_port_model import port_cfg
 from vog_tpu.train import state as jstate
 from vog_tpu_torch.interop.from_jax import params_from_jax
 from vog_tpu_torch.model.grounding import get_model
-from vog_tpu_torch.model.transformer import Dropout, set_dropout_generator
+from vog_tpu_torch.model.transformer import Dropout, dropout_keep, dropout_key, set_dropout_key
 from vog_tpu_torch.sampling import assemble_batch
 from vog_tpu_torch.serve import cast_compact
 from vog_tpu_torch.train import TrainState, make_optimizer, make_train_step
-from vog_tpu_torch.train.state import dropout_generator
 
 
 # --------------------------------------------------------------------------
@@ -153,12 +156,14 @@ def test_trained_embedding_gets_a_gradient():
 # dropout
 # --------------------------------------------------------------------------
 def _logits(model, clip, seed, step):
-    set_dropout_generator(model, dropout_generator(torch.device("cpu"), seed, step))
+    set_dropout_key(model, dropout_key(seed, torch.tensor(step, dtype=torch.int32)))
     with torch.no_grad():
         return model(clip)
 
 
 def test_dropout_sites_train_mode_and_generator():
+    """The sites, train mode, and the keyed mask (the key takes the place
+    of the generator the step used to seed)."""
     cfg = _cfg(tiny=True)  # dropout 0.1
     pcfg = port_cfg(cfg)
     model = get_model(pcfg, 400, device="cpu", train=True)
@@ -169,6 +174,7 @@ def test_dropout_sites_train_mode_and_generator():
     clip = assemble_batch(cast_compact({k: torch.from_numpy(v) for k, v in
                                         _random_batch(cfg, 2, seed=3).items()}), pcfg.ds.conc_type)
     a, b, c = _logits(model, clip, 7, 3), _logits(model, clip, 7, 3), _logits(model, clip, 7, 4)
+    assert sorted(m.site for m in model.modules() if isinstance(m, Dropout)) == list(range(n_sites))
     assert torch.equal(a, b)  # same (seed, step): same masks
     assert not torch.allclose(a, c)  # another step: other masks
     model.eval()
@@ -182,12 +188,62 @@ def test_dropout_sites_train_mode_and_generator():
 
 
 def test_dropout_needs_a_generator():
+    """Train-mode dropout needs its key (set_dropout_key) first; then it
+    keeps x / (1 - rate) or zero."""
     d = Dropout(0.5).train()
     with pytest.raises(RuntimeError):
         d(torch.ones(4))
-    d.generator = dropout_generator(torch.device("cpu"), 0, 0)
+    d.key = dropout_key(0, torch.tensor(0))
     y = d(torch.ones(1000))
     assert set(y.unique().tolist()) == {0.0, 2.0}
+
+
+KEYS = [(0, 0, 0, 0), (7, 3, 1, 2), (2**40 + 5, 123456, 0, 7), (1, 2**31 - 1, 3, 1)]
+
+
+@pytest.mark.parametrize("seed,step,micro,site", KEYS)
+def test_dropout_keep_same_bits(seed, step, micro, site):
+    def mask():
+        return dropout_keep(dropout_key(seed, torch.tensor(step, dtype=torch.int32), micro), site,
+                            (3, 50, 64), 0.1)
+
+    a = mask()
+    assert a.dtype == torch.bool and a.shape == (3, 50, 64)
+    assert torch.equal(a, mask())
+
+
+@pytest.mark.parametrize("which", ["seed", "step", "micro", "site"])
+def test_dropout_keep_differs(which):
+    """Changing any one of (seed, step, microbatch, site) redraws the mask:
+    two independent masks at rate 0.5 differ in half of the elements."""
+    base = dict(seed=7, step=3, micro=1, site=2)
+    other = dict(base, **{which: base[which] + 1})
+
+    def mask(seed, step, micro, site):
+        return dropout_keep(dropout_key(seed, torch.tensor(step, dtype=torch.int32), micro), site,
+                            (64, 256), 0.5)
+
+    diff = (mask(**base) != mask(**other)).double().mean().item()
+    n = 64 * 256
+    assert abs(diff - 0.5) <= 5 * np.sqrt(0.25 / n), diff
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5, 0.9])
+def test_dropout_keep_rate_binomial(rate):
+    """The kept count of 2**20 elements lies within 5 standard deviations
+    of its binomial mean, and so do the kept pairs of neighbours along a
+    row and down a column (no correlation between neighbours)."""
+    keep = dropout_keep(dropout_key(11, torch.tensor(5, dtype=torch.int32)), 3, (1024, 1024), rate)
+    p = 1 - rate
+
+    def within(k, n, q):
+        return abs(k - n * q) <= 5 * np.sqrt(n * q * (1 - q))
+
+    n = keep.numel()
+    assert within(keep.sum().item(), n, p)
+    kf = keep.double()
+    assert within((kf[:, 1:] * kf[:, :-1]).sum().item(), 1024 * 1023, p * p)
+    assert within((kf[1:] * kf[:-1]).sum().item(), 1024 * 1023, p * p)
 
 
 def test_get_model_builds_in_eval_or_train_mode():

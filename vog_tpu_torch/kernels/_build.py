@@ -9,7 +9,9 @@ file name carries the hash of its source and of every header in ``csrc``
 (``*.cuh``), so an edited source or header rebuilds.
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)
+takes back the counts of its capture, whose launches do not run, and adds
+them again at every replay, which runs them.
 """
 
 from __future__ import annotations
@@ -48,6 +50,23 @@ def count(name: str) -> None:
 def reset_counts() -> None:
     with _count_lock:
         launches.clear()
+
+
+def take_counts_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Remove and return the counts added since the snapshot ``before``."""
+    with _count_lock:
+        delta = {k: v - before.get(k, 0) for k, v in launches.items() if v > before.get(k, 0)}
+        for k, d in delta.items():
+            launches[k] -= d
+            if not launches[k]:
+                del launches[k]
+    return delta
+
+
+def add_counts(delta: Dict[str, int], times: int = 1) -> None:
+    with _count_lock:
+        for k, d in delta.items():
+            launches[k] = launches.get(k, 0) + d * times
 
 
 def build_dir() -> Path:

@@ -11,10 +11,12 @@ kernels/mm_attention.py): on the card they launch the CUDA kernels, on the
 CPU they run the plain versions, forward and backward.
 
 Dropout (``mdl.dropout``) sits where the JAX package has it: on the output
-of each attention block and on the FFN hidden of each layer.  It draws
-from an explicit ``torch.Generator`` that the train step seeds from
-(seed, step), as the JAX step folds the step into its key; it is off in
-eval mode and at rate 0.  The JAX package's T >= 1024 kernel gates
+of each attention block and on the FFN hidden of each layer.  Its keep
+mask is a pure function of a key (from seed, step and microbatch, the step
+a device tensor), the site and the element index (``dropout_keep``), in
+torch integer ops: the same bits on the CPU and the card, in an eager step
+and in a CUDA graph replay, with no generator state.  It is off in eval
+mode and at rate 0.  The JAX package's T >= 1024 kernel gates
 were tuned on a TPU and are not copied; sequence-parallel ring attention
 waits for a later slice.
 """
@@ -52,29 +54,98 @@ def _frame_dist(n_frames: int, K: int) -> torch.Tensor:
     return torch.from_numpy(np.clip(f[:, None] - f[None, :], -K, K) + K)
 
 
+M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2**32 for int64 tensors holding uint32 values, in 16-bit
+    halves of c so that no product leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser (a bijection) on int64 uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _mix32_host(x: int) -> int:
+    x &= M32
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & M32
+    return x ^ (x >> 16)
+
+
+def _as_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 uint32 values -> the int32 of the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def dropout_key(seed: int, step: torch.Tensor, micro: int = 0) -> torch.Tensor:
+    """The key of (seed, step, microbatch): an int64 0-dim tensor on the
+    step's device holding a uint32 value.  ``step`` may be a device tensor
+    (the train state's), so the key needs no host read."""
+    h = _mix32_host(_mix32_host(seed) ^ _mix32_host(seed >> 32) ^ 0x9E3779B9)
+    k = _mix32(torch.as_tensor(step).to(torch.int64).reshape(()) & M32 ^ h)
+    return _mix32(k ^ _mix32_host(micro ^ 0x7F4A7C15))
+
+
+def dropout_keep(key: torch.Tensor, site: int, shape, rate: float) -> torch.Tensor:
+    """The keep mask (bool, ``shape``) of site ``site`` under ``key``:
+    element (r, c) of the (rows, shape[-1]) view keeps when a hash of
+    (key, site, r, c) is at least ``rate`` of the way through the 32-bit
+    range.  The row and column hashes are full murmur3 mixes of their
+    counters under a site key; the element's two rounds of multiply and
+    xorshift in int32 (which wraps, as on every platform torch runs on)
+    make the keep probability 1 - rate to 2**-32."""
+    dev = key.device
+    n = 1
+    for d in shape:
+        n *= int(d)
+    W = int(shape[-1]) if len(shape) else 1
+    R = n // W if W else 0
+    ks = _mix32(key ^ _mix32_host(site * 0x9E3779B9 + 1))
+    rows = _mix32(torch.arange(R, dtype=torch.int64, device=dev) ^ ks)
+    cols = _mix32(torch.arange(W, dtype=torch.int64, device=dev) ^ _mix32(ks ^ 0x5BD1E995))
+    x = _as_int32(rows)[:, None] ^ _as_int32(cols)[None, :]
+    x = x * 0x2C1B3C6D
+    x = x ^ (x >> 15)
+    x = x * 0x297A2D39
+    thr = int(round(rate * 2.0 ** 32)) - (1 << 31)
+    return (x >= thr).reshape(shape)
+
+
 class Dropout(nn.Module):
-    """Inverted dropout drawn from ``self.generator`` (set by
-    ``set_dropout_generator``), never from the global generator."""
+    """Inverted dropout with the counter-based mask of ``dropout_keep``
+    under the key set by ``set_dropout_key``; ``site`` is this module's
+    place among the model's dropout modules."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
-        self.generator = None
+        self.key = None
+        self.site = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        if self.generator is None:
-            raise RuntimeError("dropout in train mode needs set_dropout_generator first")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        if self.key is None:
+            raise RuntimeError("dropout in train mode needs set_dropout_key first")
+        keep = dropout_keep(self.key, self.site, x.shape, self.rate)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
-def set_dropout_generator(model: nn.Module, generator) -> None:
-    """Make every dropout site of ``model`` draw from ``generator``."""
-    for m in model.modules():
-        if isinstance(m, Dropout):
-            m.generator = generator
+def set_dropout_key(model: nn.Module, key) -> None:
+    """Give every dropout site of ``model`` the key and its site number
+    (its place in ``model.modules()``)."""
+    for site, m in enumerate(m for m in model.modules() if isinstance(m, Dropout)):
+        m.key, m.site = key, site
 
 
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:

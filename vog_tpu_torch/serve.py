@@ -11,7 +11,14 @@ on the card.
 and the copies of the outputs back to pinned host memory, records an
 event and returns without waiting; ``fetch`` waits on that event.  So a
 caller (``ServingLoop``) overlaps one batch's host work with another's
-compute.
+compute.  On the card with ``cuda_graphs`` (the default) the forward is a
+CUDA graph captured once for each batch shape (each serving bucket, at
+``ServingLoop.prewarm``), the counterpart of jit's per-shape cache: a
+dispatch copies the batch from a persistent pinned staging buffer into the
+graph's static input, replays it, and copies the outputs into a ring of
+``ring_depth`` persistent pinned buffers (train/graphs.py §ServeGraph);
+``fetch`` copies them out and frees the slot.  ``cuda_graphs=False`` runs
+the forward eagerly.
 
 Precision: ``Predictor`` applies ``misc.matmul_precision`` with
 ``config.apply_matmul_precision``, as ``get_model`` does.  Loading an
@@ -22,7 +29,7 @@ or a state_dict.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,12 +54,15 @@ def cast_compact(batch: Dict) -> Dict:
 
 
 class _Pending:
-    """Outputs of one dispatch: host tensors being filled, and the event
-    that marks their copies done."""
+    """Outputs of one dispatch: host tensors being filled, the event that
+    marks their copies done, and, for a graph's ring slot, the callback
+    that frees it."""
 
-    def __init__(self, host: Dict[str, torch.Tensor], event: Optional[torch.cuda.Event]):
+    def __init__(self, host: Dict[str, torch.Tensor], event: Optional[torch.cuda.Event],
+                 release: Optional[Callable[[], None]] = None):
         self.host = host
         self.event = event
+        self.release = release
 
 
 class Predictor:
@@ -63,6 +73,7 @@ class Predictor:
         vocab_size: int,
         tables: Optional[Dict[str, torch.Tensor]] = None,
         device: DeviceLike = None,
+        cuda_graphs: bool = True,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -75,6 +86,11 @@ class Predictor:
             self.model.load_state_dict(sd, strict=True)
         self.tables = tables
         self.conc = cfg.ds.conc_type
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        # pinned output slots a bucket's graph keeps: a dispatch and a fetch
+        # in turn need one, ServingLoop raises it to its pipeline's need
+        self.ring_depth = 2
+        self.graphs: Dict[tuple, object] = {}  # batch shapes -> ServeGraph
 
     def _upload(self, v) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(v))
@@ -110,6 +126,15 @@ class Predictor:
 
     def dispatch(self, batch: Dict[str, np.ndarray]) -> _Pending:
         """Enqueue one batch and return without waiting for the card."""
+        if self.cuda_graphs:
+            from vog_tpu_torch.train.graphs import ServeGraph  # here: train imports this module
+
+            key = tuple((k, np.shape(v), str(np.asarray(v).dtype)) for k, v in batch.items())
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = ServeGraph(self.predict, batch, self.device, self.ring_depth)
+            r, host, event = g.dispatch(batch)
+            return _Pending(host, event, lambda: g.release(r))
         with torch.inference_mode():
             out = self.predict({k: self._upload(v) for k, v in batch.items()})
             if self.device.type != "cuda":
@@ -121,10 +146,16 @@ class Predictor:
 
     @staticmethod
     def fetch(out: _Pending) -> Dict[str, np.ndarray]:
-        """Wait for a ``dispatch`` result and return it as numpy."""
+        """Wait for a ``dispatch`` result and return it as numpy (copied
+        out of a graph's ring slot, which is then free again)."""
         if out.event is not None:
             out.event.synchronize()
-        return {k: v.numpy() for k, v in out.host.items()}
+        if out.release is None:
+            return {k: v.numpy() for k, v in out.host.items()}
+        try:
+            return {k: v.numpy().copy() for k, v in out.host.items()}
+        finally:
+            out.release()
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return self.fetch(self.dispatch(batch))

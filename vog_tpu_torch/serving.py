@@ -66,6 +66,11 @@ class ServingLoop:
             hasattr(predictor, a) for a in ("dispatch", "fetch")
         )
         self._completer: Optional[threading.Thread] = None
+        if self._pipelined and hasattr(predictor, "ring_depth"):
+            # up to pipeline_depth + 1 flushes are dispatched and not yet
+            # fetched: one being fetched, pipeline_depth - 1 queued, one
+            # dispatched and waiting to queue
+            predictor.ring_depth = max(predictor.ring_depth, pipeline_depth + 1)
         if self._pipelined:
             self._pipe: "queue.Queue" = queue.Queue(maxsize=pipeline_depth - 1)
             self._completer = threading.Thread(target=self._complete, daemon=True)
@@ -89,7 +94,8 @@ class ServingLoop:
     def prewarm(self, request: Dict[str, np.ndarray]) -> None:
         """Run one padded call per bucket up front, bypassing the queue, so
         the first client of a bucket pays no warm-up (kernel build, CUDA
-        context, allocator growth)."""
+        context, allocator growth, and a graphed Predictor's capture of the
+        bucket's CUDA graph)."""
         for b in self.bucket_sizes:
             batch = {k: np.stack([request[k]] * b) for k in request}
             if "batch_mask" not in batch:

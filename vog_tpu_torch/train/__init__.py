@@ -1,5 +1,22 @@
-"""Training: the optimizer, the non-finite guard and the train step."""
+"""Training: the optimizer, the non-finite guard, the train and eval steps
+and their fused multi-step dispatches."""
 
-from vog_tpu_torch.train.state import TrainState, make_optimizer, make_train_step
+from vog_tpu_torch.train.state import (
+    TrainState,
+    dispatch_sizes,
+    make_eval_step,
+    make_multi_eval_step,
+    make_multi_train_step,
+    make_optimizer,
+    make_train_step,
+)
 
-__all__ = ["TrainState", "make_optimizer", "make_train_step"]
+__all__ = [
+    "TrainState",
+    "dispatch_sizes",
+    "make_eval_step",
+    "make_multi_eval_step",
+    "make_multi_train_step",
+    "make_optimizer",
+    "make_train_step",
+]
