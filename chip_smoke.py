@@ -84,6 +84,40 @@ the last line:
    combinations; and one CUDA-graph dispatch of 8 steps bitwise against 8
    eager steps, with its step time and the peak memory of a captured step.
 
+The production numerics (``mdl.dtype`` bfloat16, ``misc.matmul_precision``
+"default": bf16 activations, one TF32 pass for every fp32 product and
+kernel; each phase that switches precision restores "highest" after it):
+
+10. kernels default, in each regime after phase 6: each kernel's "default"
+    variant (launches counted as ``name@default``), forward and backward
+    in both modes, against its plain version at "highest" on the same
+    inputs: relative max-diff (max |err| / max(1, max|ref|)) within 2e-2
+    forward and 5e-2 for every gradient, the JAX package's bounds for its
+    "default" kernels, and |err| / |ref| <= 5e-3 (Frobenius); the head
+    backward given its own row pass's ReLU decisions
+    (``head_bwd_given``).  Times both ways, the plain version and the
+    library call under TF32, the bound at 495 TFLOP/s (TF32 dense);
+11. serve gt5 prod, after phase 8: the production model in bf16 with
+    "default", 96 requests as phase 4: scores within 2e-2 x max|score| of
+    the CPU plain path in the same numerics (bf16 itself moves a score by
+    about 1.3e-2 of max|score|: the CPU's bf16 against its fp32, printed
+    beside it) and 3e-2 x max|score| of the card's fp32 "highest" scores
+    (the JAX package's bf16 bound), p50 / p95 / req/s beside phase 4's;
+12. dispatch gt5 prod: ``configs/gt5_production.yml`` as it is (bf16,
+    "default", half_feats, index-only, K=16, E=10; ``prod_cfg``): 37
+    graph steps bitwise against 37 eager steps launching the "default"
+    variants and no other, fp32 parameters and optimizer state; the first
+    step against the CPU plain path in the same numerics (loss, the whole
+    gradient's and each leaf's cosine: ``PROD_*``), which a zeroed head
+    db1 and mm dfb on the card must fail; step ms, samples/s, device busy
+    and idle, our kernels' and the other ops' device ms, the peak memory
+    of a captured step, beside phase 8's;
+13. dispatch p100 prod, after phase 9: the P100 recipe in bf16 with
+    "default", two CUDA-graph dispatches of 8 in each backward-mode pair:
+    losses finite, none dropped, the pair's "default" kernels launched and
+    no other; step ms and the peak memory of a captured step beside phase
+    9's dispatch.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -188,8 +222,8 @@ def fmt_times(t: dict, lib: str = "library") -> str:
     return f"ms={pair('')} plain={pair('plain_')} {lib}={pair('library_')}"
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / PEAK_FLOP_PER_S * 1e3
+def bound_ms(n_bytes: float, n_flops: float, peak: float = PEAK_FLOP_PER_S):
+    tb, tf = n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -228,6 +262,46 @@ def check_yardstick(name, got, ref) -> float:
     if not rel <= 1e-2:
         fail(f"{name}: the library call differs from the kernel, relative err {rel:.3e}")
     return rel
+
+
+# The "default" variants (one TF32 pass) against their plain versions at
+# "highest": the JAX package's bounds for its "default" kernels (relative
+# max-diff max |err| / max(1, max |ref|), BASELINE.md: 2e-2 forward, 5e-2
+# gradients) and |err| / |ref| <= 5e-3 (Frobenius); their bound is at the
+# H100 SXM's TF32 dense peak
+DEFAULT_FWD_TOL, DEFAULT_GRAD_TOL, DEFAULT_FRO_TOL = 2e-2, 5e-2, 5e-3
+TF32_FLOP_PER_S = 495e12
+WORST_DEFAULT = {}  # check name (first word) -> (worst relative max-diff, worst Frobenius)
+
+
+def check_default(name, got, ref, fwd: bool) -> tuple:
+    """-> (max |err|, relative max-diff, Frobenius relative err) of a
+    "default" kernel's output against its plain version at "highest";
+    fails outside DEFAULT_{FWD,GRAD}_TOL or DEFAULT_FRO_TOL."""
+    err = max_err(got, ref)
+    rel, fro = err / max(1.0, float(ref.abs().max())), rel_err(got, ref)
+    key = name.split()[0]
+    w = WORST_DEFAULT.get(key, (0.0, 0.0))
+    WORST_DEFAULT[key] = (max(w[0], rel), max(w[1], fro))
+    lim = DEFAULT_FWD_TOL if fwd else DEFAULT_GRAD_TOL
+    if not (rel <= lim and fro <= DEFAULT_FRO_TOL):
+        fail(f"{name}: relative max-diff {rel:.3e} (limit {lim:.0e}), Frobenius {fro:.3e} "
+             f"(limit {DEFAULT_FRO_TOL:.0e})")
+    return err, rel, fro
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """Both TF32 switches (what ``apply_matmul_precision`` sets) on or off
+    inside the block, restored after."""
+    import torch
+
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def mm_sdpa_inputs(qm, cn, mask, fb, fid):
@@ -270,9 +344,12 @@ def phase_build():
     from vog_tpu_torch.kernels import _build
 
     secs = _build.build_all()
-    print(f"[build] {len(_build.SOURCES)} kernels built in {secs:.1f} s into {_build.build_dir()}", flush=True)
-    for src in _build.SOURCES:
-        log = _build.build_dir() / f"{Path(src).stem}.log"
+    print(f"[build] {len(_build.LIBRARIES)} libraries ({len(_build.SOURCES)} sources, the three with TF32 "
+          f"products at \"highest\" and at \"default\") built in {secs:.1f} s into {_build.build_dir()}",
+          flush=True)
+    for src, prec in _build.LIBRARIES:
+        stem = _build.lib_stem(src, prec)
+        log = _build.build_dir() / f"{stem}.log"
         if not log.exists():
             continue
         fn, spill = "?", ""
@@ -283,7 +360,7 @@ def phase_build():
             elif "spill" in line:
                 spill = line.strip()
             elif "Used" in line:
-                print(f"[build] {src} {fn}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
+                print(f"[build] {stem} {fn}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
 
 
 def serve_cfg(exp_setting: str = "gt5"):
@@ -484,8 +561,29 @@ def make_requests(cfg, n: int, n_rows: int, vocab: int, seed: int):
 SERVE_PASSES = 3  # timed passes of the requests, after a discarded one
 
 
+def cpu_outputs(cfg, sd, sub, tables) -> dict:
+    """The Predictor's outputs for the request batch ``sub`` through the
+    plain path on the CPU, with the weights ``sd`` and the features
+    gathered from the card's tables (bf16 -> f32 is exact)."""
+    import torch
+
+    from vog_tpu_torch.data.device_store import gather_from_tables
+    from vog_tpu_torch.serve import Predictor
+
+    cpu = Predictor(cfg, {k: v.cpu() for k, v in sd.items()}, 5000, device="cpu")
+    with torch.no_grad():
+        g = gather_from_tables(
+            {"vid_rows": torch.from_numpy(sub["vid_rows"]).cuda(),
+             "prop_mask": torch.from_numpy(sub["prop_mask"]).cuda()}, tables.tables)
+    full = {k: v for k, v in sub.items() if k != "vid_rows"}
+    full["props"] = g["props"].cpu().numpy()
+    full["seg_feats"] = g["seg_feats"].cpu().numpy()
+    return cpu(full)
+
+
 def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, max_batch: int = 16,
-                buckets=(1, 2, 4, 8), ref_on: str = "cpu", n_ref: int = 4, cuda_graphs: bool = True):
+                buckets=(1, 2, 4, 8), ref_on: str = "cpu", n_ref: int = 4, cuda_graphs: bool = True,
+                score_tol=None):
     """``n_requests`` vid_rows requests from ``clients`` threads through
     ``ServingLoop``: one pass discarded after ``prewarm``, then
     ``SERVE_PASSES`` timed passes (p50 / p95 / req/s of each, and their
@@ -493,18 +591,21 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
     checked for shape and finiteness, and the scores of the first ``n_ref`` against the same
     weights on the plain path: on the CPU (``ref_on="cpu"``), or on the
     card with every float kernel swapped for its plain version
-    (``"plain"``: a T=4000 plain forward on the host is slow).
+    (``"plain"``: a T=4000 plain forward on the host is slow), within
+    2e-4 * max(1, max|score|) (fp32), or ``score_tol`` * max|score| (the
+    production numerics: the plain path in the same numerics).
     ``cuda_graphs``: the Predictor's forward as a CUDA graph per bucket
-    (its default), or eager."""
+    (its default), or eager.  The float kernels must launch in the variant
+    of ``misc.matmul_precision``, and no other."""
     import numpy as np
     import torch
 
-    from vog_tpu_torch.data.device_store import gather_from_tables
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.serve import Predictor
     from vog_tpu_torch.serving import ServingLoop
 
-    tag = cfg.ds.exp_setting + ("" if cuda_graphs else ", cuda_graphs off")
+    prod = cfg.misc.matmul_precision == "default"
+    tag = cfg.ds.exp_setting + (" prod" if prod else "") + ("" if cuda_graphs else ", cuda_graphs off")
     vocab = 5000
     pred = Predictor(cfg, None, vocab, tables=tables.tables, device="cuda", cuda_graphs=cuda_graphs)
     flushes = [0]
@@ -568,26 +669,17 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
                 fail(f"{k} shape {out[k].shape} != {s}")
             if not np.isfinite(out[k]).all():
                 fail(f"{k} is not finite")
-    names = ("gather_rows", "flash_attention", "mm_shared_qk_attention", "fused_grounding_head")
+    names = [variant_name(n, cfg) for n in FWD_NAMES]
     for n in names:
         if counts.get(n, 0) <= 0:
             fail(f"kernel {n} was not launched on the serving path (counts {counts})")
+    if set(counts) - set(names):
+        fail(f"the serving path launched kernels of another precision or path: {counts}")
 
     sub = {k: np.stack([r[k] for r in reqs[:n_ref]]) for k in reqs[0]}
     sub["batch_mask"] = np.ones((n_ref,), np.uint8)
     if ref_on == "cpu":
-        # the same weights through the plain path on the CPU, features
-        # gathered from the card's tables (bf16 -> f32 is exact)
-        sd = {k: v.cpu() for k, v in pred.model.state_dict().items()}
-        cpu = Predictor(cfg, sd, vocab, device="cpu")
-        with torch.no_grad():
-            g = gather_from_tables(
-                {"vid_rows": torch.from_numpy(sub["vid_rows"]).cuda(),
-                 "prop_mask": torch.from_numpy(sub["prop_mask"]).cuda()}, tables.tables)
-        full = {k: v for k, v in sub.items() if k != "vid_rows"}
-        full["props"] = g["props"].cpu().numpy()
-        full["seg_feats"] = g["seg_feats"].cpu().numpy()
-        ref = cpu(full)
+        ref = cpu_outputs(cfg, pred.model.state_dict(), sub, tables)
     else:  # the same predictor on the card, its float kernels swapped for their plain versions
         undo = plain_kernels(FAMILIES)
         try:
@@ -596,9 +688,10 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
             undo()
     valid = sub["prop_mask"][:, None].astype(bool).repeat(A, 1)
     got = np.stack([results[i]["scores"] for i in range(n_ref)])
-    scale = max(1.0, float(np.abs(ref["scores"][valid]).max()))
+    top = float(np.abs(ref["scores"][valid]).max())
     err = float(np.abs(got[valid] - ref["scores"][valid]).max())
-    tol = 2e-4 * scale  # fp32 on both sides, sums in another order
+    # fp32 on both sides, sums in another order; or the production numerics on both
+    tol = 2e-4 * max(1.0, top) if score_tol is None else score_tol * top
     if not err <= tol:
         fail(f"served scores differ from the plain path ({ref_on}): {err:.3e} > {tol:.3e}")
     cand = ref["scores"].transpose(0, 1, 3, 2, 4).reshape(n_ref, A, F, V * P)
@@ -620,7 +713,8 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
           f"({SERVE_PASSES} passes); score max err "
           f"{err:.3e} against the plain path ({ref_on}) (tol {tol:.2e}), {int(clear.sum())}/{clear.size} "
           f"argmaxes compared", flush=True)
-    return pred, reqs, counts, dict(med, passes=per, n_requests=n_requests, flushes=flushes[0])
+    return pred, reqs, counts, dict(med, passes=per, n_requests=n_requests, flushes=flushes[0],
+                                    score_err=err, score_tol=tol)
 
 
 KINK_EPS = 2e-5  # a ReLU input this close to 0 may take either side in another rounding
@@ -835,6 +929,224 @@ def phase_kernels_bwd(cfg, B: int = 16):
                     shape=f"vis {tuple(vis.shape)}, A={A} f32, all 9 grads; {kink:.4f} of rows near a kink"))
     print(f"[kernels-bwd {tag}] fused_grounding_head_bwd max_err={err:.3e} {fmt_times(t)} "
           f"bound={bms:.4f} (g zeroed on {kink:.4f} of rows near a ReLU kink)", flush=True)
+    return out
+
+
+def head_bwd_given(args, g, h_kernel, dz1_kernel):
+    """The plain head backward in fp64 with the ReLU decisions of the
+    kernel's row pass ([z0 > 0] from its h, [z1 > 0] from its dz1 where
+    g w2 != 0) -> (the 9 gradients, the shares of z0 and z1 whose decision
+    differs from fp64's).  One TF32 pass moves a pre-activation by ~1e-3 of
+    its terms, so some lie across a kink from fp64 (a few 1e-4 of them,
+    with most rows touching one); through such an element a whole term of a
+    gradient flips.  Given the kernel's decisions the comparison holds its
+    arithmetic, as the fp32 checks zero the cotangent near a kink
+    (``away_from_kinks``)."""
+    import torch
+
+    vis, arg, wv, wl, wx, w1, b1, w2, b2 = (a.double() for a in args)
+    cross = vis[:, None] * arg[:, :, None]
+    z0 = wv[:, None] + wl[:, :, None] + torch.matmul(cross, wx)
+    h = torch.relu(z0)
+    z1 = torch.matmul(h, w1) + b1
+    gg = g.double()[..., None]
+    m0, m1 = h_kernel > 0, dz1_kernel != 0
+    live = (gg * w2) != 0
+    flips = (float((m0 != (z0 > 0)).double().mean()), float(((m1 != (z1 > 0)) & live).double().mean()))
+    dz1 = torch.where(m1, gg * w2, torch.zeros_like(z1))
+    dz0 = torch.where(m0, torch.matmul(dz1, w1.t()), torch.zeros_like(z0))
+    dcross = torch.matmul(dz0, wx.t())
+    D, Dh = wx.shape[0], w1.shape[1]
+    grads = ((dcross * arg[:, :, None]).sum(1), (dcross * vis[:, None]).sum(2), dz0.sum(1), dz0.sum(2),
+             torch.matmul(cross.reshape(-1, D).t(), dz0.reshape(-1, D)),
+             torch.matmul(h.reshape(-1, D).t(), dz1.reshape(-1, Dh)), dz1.reshape(-1, Dh).sum(0),
+             (torch.relu(z1) * gg).reshape(-1, Dh).sum(0), g.double().sum().reshape(b2.shape))
+    return grads, flips
+
+
+def phase_kernels_default(cfg, B: int = 16):
+    """[kernels <tag> default]: each kernel's "default" variant (one TF32
+    pass; the products around it with TF32 on), forward and backward in
+    both modes, against its plain version at "highest" (TF32 off) on the
+    same inputs (``check_default``); the head backward given its row pass's
+    ReLU decisions (``head_bwd_given``).  Times as phases 3 and 6, with the
+    plain version and the library call under TF32, and the bound at
+    495 TFLOP/s.  -> the kernel table rows (without launches)."""
+    import torch
+
+    from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
+
+    tag = cfg.ds.exp_setting
+    reps, inner = TIMING[tag]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    V, F, P, A = cfg.ds.num_cmp, cfg.ds.num_frms, cfg.ds.num_prop_per_frm, cfg.ds.max_srl_args
+    D, H = cfg.mdl.vis_dim, cfg.mdl.n_heads
+    dh, T = D // H, F * V * P
+    d = "default"
+    out = []
+
+    def plain(fn):
+        with tf32(False):
+            return fn()
+
+    def kern(fn):
+        with tf32(True):
+            return fn()
+
+    def row(name, src, replaces, errs, t, fl, nb, shape, library=None):
+        bms, by = bound_ms(nb, fl, TF32_FLOP_PER_S)
+        r = dict(name=f"{name}@default", precision=d, route="cuda", source=f"vog_tpu_torch/csrc/{src}",
+                 replaces=replaces, max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+                 frobenius_rel_err=max(e[2] for e in errs), **t, bound_ms=bms, bound_by=by, shape=shape,
+                 library=library)
+        out.append(r)
+        print(f"[kernels {tag} default] {r['name']} relative max-diff {r['max_rel_err']:.3e} Frobenius "
+              f"{r['frobenius_rel_err']:.3e} (max |err| {r['max_abs_err']:.3e}) {fmt_times(t, 'library')} "
+              f"bound={bms:.4f} (TF32)", flush=True)
+
+    # -- flash attention, forward and backward ----------------------------
+    q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
+    mask[:, 0] = 1.0
+    fid_spat = (torch.arange(T, device=dev) // (V * P)).to(torch.int32)
+    fb = torch.randn((H, F, F), generator=g, device=dev) * 0.5
+    fid_mixed = torch.randint(0, F, (T,), generator=g, device=dev, dtype=torch.int32)
+    errs = []
+    for bias, fid in ((None, None), (fb, fid_spat), (fb, fid_mixed)):
+        o, lse = kern(lambda: attention.flash_attention_fwd(q, k, v, mask, bias, fid, precision=d))
+        ro, rl = plain(lambda: attention.flash_attention_plain(q, k, v, mask, bias, fid))
+        errs += [check_default("flash_attention@default", o, ro, True),
+                 check_default("flash_attention@default lse", lse, rl, True)]
+    bmask = (mask > 0)[:, None, None, :]
+    t = kern(lambda: timings(lambda: attention.flash_attention_fwd(q, k, v, mask, precision=d),
+                             lambda: attention.flash_attention_plain(q, k, v, mask),
+                             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask),
+                             reps, inner))
+    row("flash_attention", "attention.cu", "vog_tpu/kernels/attention.py:286", errs, t,
+        4.0 * B * H * T * T * dh, nbytes(q, k, v, mask) + nbytes(q) + B * H * T * 4,
+        f"q,k,v {tuple(q.shape)} f32, no bias (checked also with bias)", "SDPA, bool mask, TF32")
+    do = torch.randn((B, H, T, dh), generator=g, device=dev)
+    ro, rl = plain(lambda: attention.flash_attention_plain(q, k, v, mask))
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sd = kern(lambda: torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=bmask))
+    shared = kern(lambda: timings(
+        None, lambda: attention.flash_attention_bwd_plain(q, k, v, mask, None, None, ro, rl, do),
+        lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True), reps, inner))
+    for mode, name, replaces in BWD_MODES["flash_attention_bwd"]:
+        errs = []
+        for bias, fid in ((None, None), (fb, fid_spat)):
+            bo, bl = plain(lambda: attention.flash_attention_plain(q, k, v, mask, bias, fid))
+            ref = plain(lambda: attention.flash_attention_bwd_plain(q, k, v, mask, bias, fid, bo, bl, do))
+            got = kern(lambda: attention.flash_attention_bwd(q, k, v, mask, bias, fid, bo, bl, do,
+                                                             bwd_mode=mode, precision=d))
+            n = 3 if bias is None else 4
+            errs += [check_default(f"{name}@default {on}", x, y, False)
+                     for on, x, y in zip(OUT_NAMES[name][:n], got[:n], ref[:n])]
+        t = {**shared, **{kk: vv for kk, vv in kern(lambda: timings(
+            lambda: attention.flash_attention_bwd(q, k, v, mask, None, None, ro, rl, do, bwd_mode=mode,
+                                                  precision=d), None, None, reps, inner)).items()
+            if kk in ("ms", "issue_ms")}}
+        row(name, "attention.cu", replaces, errs, t, 10.0 * B * H * T * T * dh,
+            nbytes(q, k, v, ro, do, rl, mask) + 3 * nbytes(q),
+            f"q,k,v {tuple(q.shape)} f32, {mode}" + (", ds bf16" if mode == "emit" else ""),
+            "SDPA backward, no bias, TF32")
+    del qs, ks, vs, sd
+
+    # -- mm shared-QK attention, forward and backward ---------------------
+    qm = q * (1.0 / dh**0.5)
+    cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
+    errs = []
+    for fid in (fid_spat, fid_mixed):
+        got = kern(lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid, precision=d))
+        ref = plain(lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid))
+        errs += [check_default(f"mm_shared_qk_attention@default {on}", x, y, True)
+                 for on, x, y in zip(("out", "max", "den"), got, ref)]
+    q_rep, fmask = mm_sdpa_inputs(qm, cn, mask, fb, fid_spat)
+    t = kern(lambda: timings(
+        lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat, precision=d),
+        lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q_rep, k, v, attn_mask=fmask, scale=1.0),
+        reps, inner))
+    row("mm_shared_qk_attention", "mm_attention.cu", "vog_tpu/kernels/mm_attention.py:315", errs, t,
+        2.0 * B * H * T * T * dh * (1 + A),
+        nbytes(qm, k, v, cn, mask, fb, fid_spat) + B * H * A * T * (dh + 2) * 4,
+        f"qm,km,vm {tuple(qm.shape)}, A={A} f32", "SDPA, query repeated over A, float mask, TF32")
+    gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
+    fwd = plain(lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat))
+    leaves = [x.detach().clone().requires_grad_() for x in (q_rep, k, v, fmask)]
+    del q_rep, fmask
+    sd = kern(lambda: torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3],
+                                                                       scale=1.0))
+    gsd = gm.reshape(sd.shape)
+    lib = lambda: torch.autograd.grad(sd, leaves, gsd, retain_graph=True)  # noqa: E731
+    try:
+        if kern(lib)[3] is None:
+            raise RuntimeError("no gradient for the float mask")
+    except RuntimeError:
+        lib = None
+    shared = kern(lambda: timings(
+        None, lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm),
+        lib, reps, inner))
+    del leaves, sd, gsd, lib
+    for mode, name, replaces in BWD_MODES["mm_shared_qk_attention_bwd"]:
+        errs = []
+        for fid in (fid_spat, fid_mixed):
+            fw = plain(lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid))
+            ref = plain(lambda: mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid, *fw, gm))
+            got = kern(lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *fw, gm,
+                                                             bwd_mode=mode, precision=d))
+            errs += [check_default(f"{name}@default {on}", x, y, False)
+                     for on, x, y in zip(OUT_NAMES[name], got, ref)]
+            del fw, ref, got
+        t = {**shared, **{kk: vv for kk, vv in kern(lambda: timings(
+            lambda: mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid_spat, *fwd, gm, bwd_mode=mode,
+                                                  precision=d), None, None, reps, inner)).items()
+            if kk in ("ms", "issue_ms")}}
+        row(name, "mm_attention.cu", replaces, errs, t, 2.0 * B * H * T * T * dh * (3 + 2 * A),
+            nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn),
+            f"qm,km,vm {tuple(qm.shape)}, A={A} f32, {mode}" + (", comb bf16" if mode == "emit" else ""),
+            "SDPA backward over the repeated query and the float mask, TF32" if shared["library_ms"] else None)
+    del fwd, gm
+
+    # -- fused grounding head, forward and backward -----------------------
+    Dh = D // 2
+    vis = torch.relu(torch.randn((B, T, D), generator=g, device=dev))
+    arg = torch.relu(torch.randn((B, A, D), generator=g, device=dev))
+    wx = torch.randn((D, D), generator=g, device=dev) / D**0.5
+    w1 = torch.randn((D, Dh), generator=g, device=dev) / D**0.5
+    b1 = torch.randn((Dh,), generator=g, device=dev) * 0.1
+    w2 = torch.randn((Dh,), generator=g, device=dev) / Dh**0.5
+    b2 = torch.randn((1,), generator=g, device=dev)
+    wv = vis @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+    wl = arg @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+    args = (vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    got = kern(lambda: grounding_head.grounding_head_fwd(*args, precision=d))
+    errs = [check_default("fused_grounding_head@default", got,
+                          plain(lambda: grounding_head.grounding_head_plain(*args)), True)]
+    t = kern(lambda: timings(lambda: grounding_head.grounding_head_fwd(*args, precision=d),
+                             lambda: grounding_head.grounding_head_plain(*args), None, reps, inner))
+    row("fused_grounding_head", "grounding_head.cu", "vog_tpu/kernels/grounding_head.py:190", errs, t,
+        2.0 * B * A * T * (D * D + D * Dh + Dh), nbytes(*args) + B * A * T * 4, f"vis {tuple(vis.shape)}, A={A} f32")
+    gh = torch.randn((B, A, T), generator=g, device=dev)
+    scratch = {}
+    got = kern(lambda: grounding_head.grounding_head_bwd(*args, gh, precision=d, scratch=scratch))
+    ref, flips = head_bwd_given(args, gh, scratch["h"], scratch["dz1"])
+    del scratch
+    errs = [check_default(f"fused_grounding_head_bwd@default {on}", x, y, False)
+            for on, x, y in zip(OUT_NAMES["fused_grounding_head_bwd"], got, ref)]
+    raw = rel_err(got[0], plain(lambda: grounding_head.grounding_head_bwd_plain(*args, gh))[0])
+    del ref
+    t = kern(lambda: timings(lambda: grounding_head.grounding_head_bwd(*args, gh, precision=d),
+                             lambda: grounding_head.grounding_head_bwd_plain(*args, gh), None, reps, inner))
+    row("fused_grounding_head_bwd", "grounding_head.cu", "vog_tpu/kernels/grounding_head.py:218", errs, t,
+        6.0 * B * A * T * (D * D + D * Dh), 2 * nbytes(*args) + nbytes(gh),
+        f"vis {tuple(vis.shape)}, A={A} f32, all 9 grads, given the kernel's ReLU decisions")
+    print(f"[kernels {tag} default] fused_grounding_head_bwd@default: ReLU decisions off fp64's on "
+          f"{flips[0]:.2e} of z0 and {flips[1]:.2e} of z1; dvis Frobenius against the plain backward's own "
+          f"decisions {raw:.3e} (what those flips add)", flush=True)
+    out[-1].update(relu_flip_share_z0=flips[0], relu_flip_share_z1=flips[1], raw_dvis_frobenius=raw)
     return out
 
 
@@ -1171,6 +1483,8 @@ def phase_train(tables, card: str, exp_setting: str = "gt5", steps: int = TRAIN_
     for n in absent:
         if counts.get(n, 0):
             fail(f"kernel {n} was launched on the train path {tag}, whose mode does not run it ({counts})")
+    if any("@" in n for n in counts):
+        fail(f"the fp32 / \"highest\" train path {tag} launched a \"default\" variant ({counts})")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, dev_batches[0], seed=0, tables=tables.tables)
@@ -1391,10 +1705,11 @@ def states_equal(a, b) -> list:
     return [k for k in ta if not torch.equal(ta[k], tb[k])]
 
 
-def profiled_busy(fn, reps: int) -> tuple:
+def profiled_busy(fn, reps: int, split=None) -> tuple:
     """``fn`` once under torch.profiler -> (device busy ms per rep, kernel
     times summed per rep); busy is None when the trace holds no device
-    time."""
+    time.  ``split``, a dict, gets ``ours`` and ``other``
+    (``device_time_by_kernel``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1403,6 +1718,8 @@ def profiled_busy(fn, reps: int) -> tuple:
         fn()
         torch.cuda.synchronize()
     by_kernel, other = device_time_by_kernel(prof, reps)
+    if split is not None:
+        split.update(ours=by_kernel, other=other)
     ksum = sum(by_kernel.values()) + sum(other.values())
     busy = device_busy_ms(prof, reps, ksum)
     return (busy if busy > 0 else None), ksum
@@ -1493,6 +1810,8 @@ def phase_dispatch(tables, card: str) -> dict:
     for n in KERNEL_NAMES:
         if counts.get(n, 0) <= 0:
             fail(f"kernel {n} was not launched by the graph dispatches (counts {counts})")
+    if any("@" in n for n in counts):
+        fail(f"the fp32 / \"highest\" dispatch launched a \"default\" variant ({counts})")
     cap = next(iter(graph.graphs.values()))
     print(f"[dispatch gt5] (1) {n_steps} steps as CUDA-graph dispatches of {'+'.join(map(str, DISPATCH_GROUPS))} "
           f"bitwise equal to {n_steps} eager steps (parameters, both moments, guard counters, step count "
@@ -1655,6 +1974,338 @@ def phase_dispatch_p100(tables, card: str) -> dict:
                 peak_captured_step_gb=cap.peak_bytes / 1e9)
 
 
+def variant_name(name: str, cfg) -> str:
+    """A kernel's launch counter under ``cfg``'s ``misc.matmul_precision``:
+    the gather (a copy) has one variant, the float kernels ``name`` at
+    "highest" and ``name@default`` at "default"."""
+    from vog_tpu_torch.kernels import _build
+
+    return name if name == "gather_rows" else _build.variant(name, cfg.misc.matmul_precision)
+
+
+def prod_cfg(exp_setting: str = "gt5", dropout: float = 0.1):
+    """The production recipe's numerics on ``train_cfg``: bf16 activations
+    and matmul precision "default".  At GT5 with steps_per_dispatch 16 and
+    eval_batches_per_dispatch 10 this is ``configs/gt5_production.yml`` as
+    it is (vog, SPAT, B=16, lr 5e-4 cosine after 100 warm-up steps,
+    pos_weight 5, skip_nonfinite 50, half_feats, device and annotation
+    tables), built here because the card's host has no PyYAML; total_steps
+    1000 for the cosine (the yml leaves it to the CLI's epochs)."""
+    cfg = train_cfg(dropout, exp_setting)
+    cfg.mdl.dtype, cfg.misc.matmul_precision = "bfloat16", "default"
+    if exp_setting == "gt5":
+        cfg.train.steps_per_dispatch, cfg.train.eval_batches_per_dispatch = 16, 10
+    return cfg
+
+
+# bf16 + "default" on the card against the CPU plain path in the same
+# numerics, of max|score|.  One TF32 pass on the card and exact fp32 on the
+# CPU send some bf16 roundings different ways: a reading of 1.118e-2 (H100
+# 80GB HBM3, 700 W), as large as bf16 itself moves the scores (the CPU's
+# bf16 scores against its fp32 ones on the same weights, which
+# phase_serve_prod prints beside it)
+PROD_SERVE_TOL = 2e-2
+PROD_VS_FP32_TOL = 3e-2  # bf16 against fp32 scores: the JAX package's bound (tests/test_bf16_mode.py)
+
+
+def phase_serve_prod(tables, card: str, serve32: dict) -> tuple:
+    """[serve gt5 prod]: the production model in bf16 with "default"
+    precision, 96 requests as [serve gt5]: scores against the CPU plain path
+    in the same numerics within 1e-2 * max|score|, and against the card's
+    fp32 / "highest" scores of the same weights within 3e-2 * max|score|;
+    p50 / p95 / req/s beside the fp32 readings of this run.  -> (launch
+    counts, readings)."""
+    import numpy as np
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.serve import Predictor
+
+    cfg32 = serve_cfg()
+    cfg = serve_cfg()
+    cfg.mdl.dtype, cfg.misc.matmul_precision = "bfloat16", "default"
+    reqs = make_requests(cfg, 8, tables.n_rows, 5000, seed=0)  # the first requests of phase_serve
+    sub = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    sub["batch_mask"] = np.ones((len(reqs),), np.uint8)
+    pred32 = Predictor(cfg32, None, 5000, tables=tables.tables, device="cuda")  # the same seeded weights
+    s32 = pred32(sub)["scores"]
+    cpu32 = cpu_outputs(cfg32, pred32.model.state_dict(), sub, tables)["scores"]
+    del pred32
+    try:
+        pred, _, counts, serve = phase_serve(cfg, tables, card, score_tol=PROD_SERVE_TOL)
+        s16 = pred(sub)["scores"]
+        cpu16 = cpu_outputs(cfg, pred.model.state_dict(), sub, tables)["scores"]
+        del pred
+    finally:
+        apply_matmul_precision(cfg32)  # the phases after this one run fp32 / "highest"
+    valid = sub["prop_mask"][:, None].astype(bool).repeat(cfg.ds.max_srl_args, 1)
+    top = float(np.abs(s32[valid]).max())
+    err = float(np.abs(s16[valid] - s32[valid]).max())
+    floor = float(np.abs(cpu16[valid] - cpu32[valid]).max()) / float(np.abs(cpu32[valid]).max())
+    if not err <= PROD_VS_FP32_TOL * top:
+        fail(f"serve prod: bf16 scores differ from fp32 by {err:.3e} > {PROD_VS_FP32_TOL} x {top:.3e}")
+    serve.update(vs_fp32_err=err, vs_fp32_scale=top, cpu_bf16_vs_fp32=floor)
+    print(f"[serve gt5 prod] bf16 + default against fp32 + highest (same weights, {len(reqs)} requests): max "
+          f"|score diff| {err:.3e} = {err / top:.3e} of max|score| (limit {PROD_VS_FP32_TOL}); on the CPU, bf16 "
+          f"against fp32 {floor:.3e} of max|score| (what bf16 moves a score); card against the CPU plain path "
+          f"in bf16 {serve['score_err']:.3e} (limit {serve['score_tol']:.3e}); p50 / p95 ms, req/s: "
+          f"prod {serve['p50_ms']:.2f} / {serve['p95_ms']:.2f}, {serve['requests_per_s']:.1f}; fp32 "
+          f"{serve32['p50_ms']:.2f} / {serve32['p95_ms']:.2f}, {serve32['requests_per_s']:.1f} on {card}",
+          flush=True)
+    return counts, serve
+
+
+# the first production step, card against CPU (the same seeded weights
+# and batch): twice the worst of the first readings (H100 80GB HBM3, 700 W:
+# loss 1.594e-4 relative, whole-gradient cosine 1 - 2.06e-6, worst leaf
+# lang.bilstm.bwd.weight_ih_l0 1 - 1.63e-4), from a first bound of 1e-2,
+# 0.999 and 0.99
+PROD_LOSS_TOL = 3.2e-4  # loss, relative
+PROD_COS = 1 - 4.2e-6  # cosine of the whole gradient
+PROD_LEAF_COS = 1 - 3.3e-4  # cosine of each leaf's gradient
+
+
+def grad_cosines(got, ref) -> tuple:
+    """-> (the whole gradient's cosine, {leaf: cosine} over the leaves whose
+    reference gradient is not zero)."""
+    import torch
+
+    def cos(a, b):
+        a, b = a.double().reshape(-1), b.double().reshape(-1)
+        n = float(a.norm() * b.norm())
+        return float(a @ b) / n if n > 0 else 0.0
+
+    leaves = {k: cos(got[k], r) for k, r in ref.items() if r.abs().max() > 0}
+    whole = cos(torch.cat([got[k].reshape(-1) for k in ref]), torch.cat([r.reshape(-1) for r in ref.values()]))
+    return whole, leaves
+
+
+def prod_step_check(cfg, sd, batch, tables) -> dict:
+    """The first production-numerics step on the card against the same step
+    on the CPU plain path in the same numerics (dropout 0, same weights and
+    batch): loss within PROD_LOSS_TOL relative, the whole gradient's cosine
+    >= PROD_COS, each leaf's >= PROD_LEAF_COS; then the planted control (the
+    head's db1 and the mm attention's dfb zeroed on the card) must fail it
+    on those leaves.  -> the readings."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import grounding_head, mm_attention
+
+    B, A = cfg.train.bs, cfg.ds.max_srl_args
+    T = cfg.ds.num_frms * cfg.ds.num_prop_per_frm * cfg.ds.num_cmp
+    keep = torch.ones((B, A, T))  # no kink mask: the cosines absorb a flipped ReLU
+    t0 = time.perf_counter()
+    lp, gp, _, _ = step_grads(cfg, sd, batch, tables, "cpu", keep)
+    lc, gc, _, _ = step_grads(cfg, sd, batch, tables, "cuda", keep)
+    whole, leaves = grad_cosines(gc, gp)
+    worst = min(leaves, key=leaves.get)
+    dl = abs(lc - lp) / abs(lp)
+    if not (dl <= PROD_LOSS_TOL and whole >= PROD_COS and leaves[worst] >= PROD_LEAF_COS):
+        fail(f"dispatch prod: first step card vs CPU: loss {lc:.6f} vs {lp:.6f} ({dl:.2e}), gradient cosine "
+             f"{whole:.6f}, worst leaf {worst} {leaves[worst]:.6f}")
+    flat = all(g.dtype == torch.float32 for g in gc.values())
+    if not flat:
+        fail("dispatch prod: a gradient is not fp32 in bf16 mode")
+
+    def zeroed(fn, i):
+        def run(*a, **kw):
+            out = list(fn(*a, **kw))
+            out[i] = torch.zeros_like(out[i])
+            return tuple(out)
+        return run
+
+    real = grounding_head.grounding_head_bwd, mm_attention.mm_attention_bwd
+    grounding_head.grounding_head_bwd = zeroed(real[0], 6)  # db1
+    mm_attention.mm_attention_bwd = zeroed(real[1], 4)  # dfb
+    try:
+        _, gz, _, _ = step_grads(cfg, sd, batch, tables, "cuda", keep)
+    finally:
+        grounding_head.grounding_head_bwd, mm_attention.mm_attention_bwd = real
+    _, zl = grad_cosines(gz, gp)
+    named = sorted(k for k, c in zl.items() if c < PROD_LEAF_COS)
+    for leaf in ("head1_bias", "rpe_table"):
+        if not any(k.endswith(leaf) for k in named):
+            fail(f"dispatch prod: a zeroed {leaf} gradient passed the card-vs-CPU comparison ({named})")
+    apply_matmul_precision(cfg)  # step_grads's models applied it; keep the phase's numerics
+    out = dict(loss_card=lc, loss_cpu=lp, loss_rel_err=dl, grad_cosine=whole, worst_leaf=worst,
+               worst_leaf_cosine=leaves[worst], planted_zero_rejected=named, secs=time.perf_counter() - t0)
+    print(f"[dispatch gt5 prod] first step card vs CPU plain path, both bf16 + default: loss {lc:.6f} vs "
+          f"{lp:.6f} (relative {dl:.3e}, limit {PROD_LOSS_TOL:.1e}); whole-gradient cosine 1 - {1 - whole:.3e} "
+          f"(limit 1 - {1 - PROD_COS:.1e}); worst leaf {worst} cosine 1 - {1 - leaves[worst]:.3e} (limit 1 - "
+          f"{1 - PROD_LEAF_COS:.1e}); control: zeroed "
+          f"head db1 and mm dfb rejected on {named} ({out['secs']:.1f} s)", flush=True)
+    return out
+
+
+def phase_dispatch_prod(tables, card: str, fp32: dict) -> tuple:
+    """[dispatch gt5 prod]: ``configs/gt5_production.yml`` as it is
+    (``prod_cfg``): bf16, "default", half_feats, index-only batches, K=16,
+    E=10.  (1) 37 steps as CUDA-graph dispatches of 16, 16 and 5 bitwise
+    against 37 eager steps, launching the "default" kernels and no
+    "highest" one; (2) the first step against the CPU plain path in the
+    same numerics (``prod_step_check``) with its planted control; (3) step
+    ms, samples/s, device busy and idle (torch.profiler), the peak memory of
+    a captured step, beside [dispatch gt5]'s fp32 readings of this run.
+    -> (launch counts per replayed step, readings)."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.data.ann_store import AnnTables
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, dispatch_sizes, make_multi_train_step, make_train_step
+
+    cfg = prod_cfg()
+    K, E = dispatch_sizes(cfg)
+    B, n_steps = cfg.train.bs, sum(DISPATCH_GROUPS)
+    anns, vids = random_ann_arrays(cfg, N_ANNS, tables.n_rows, seed=21)
+    all_tables = {**tables.tables, **AnnTables.from_arrays(cfg, anns, vids, device="cuda").tables}
+    del anns, vids
+    batches = make_index_batches(cfg, n_steps + K * (DISPATCH_TIMED + 1), B, N_ANNS, tables.n_rows, seed=24)
+
+    def fresh():
+        return TrainState.create(cfg, get_model(cfg, 5000, device="cuda", seed=3, train=True))
+
+    try:
+        step, multi = make_train_step(cfg), make_multi_train_step(cfg)
+        eager, graph = fresh(), fresh()
+        e_aux, e_ms = [], []
+        for b in batches[:n_steps]:
+            db = {k: torch.as_tensor(v).cuda() for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e_aux.append(step(eager, db, 0, all_tables)[1])
+            torch.cuda.synchronize()
+            e_ms.append((time.perf_counter() - t0) * 1e3)
+        g_aux, off = [], 0
+        for i, n in enumerate(DISPATCH_GROUPS):
+            if i == 1:
+                _build.reset_counts()
+            _, aux = multi(graph, stack_batches(batches[off:off + n]), 0, all_tables)
+            aux["loss"].cpu()
+            g_aux.append(aux)
+            off += n
+        counts = dict(_build.launches)
+        diff = states_equal(graph, eager)
+        if diff:
+            fail(f"dispatch prod: {len(diff)} state tensors of the graph run differ from the eager steps: {diff[:5]}")
+        for k in e_aux[0]:
+            if not torch.equal(torch.cat([a[k] for a in g_aux]), torch.stack([a[k] for a in e_aux])):
+                fail(f"dispatch prod: the graph's aux {k} differs from the eager steps'")
+        losses = torch.cat([a["loss"] for a in g_aux]).cpu()
+        if not torch.isfinite(losses).all() or int(graph.opt_state["total_notfinite"]) != 0:
+            fail(f"dispatch prod: a non-finite loss or a dropped step ({losses.tolist()})")
+        if not all(t.dtype == torch.float32 for t in graph.tensors().values() if t.is_floating_point()):
+            fail("dispatch prod: a parameter or optimizer tensor is not fp32 in bf16 mode")
+        replays = sum(DISPATCH_GROUPS[1:])
+        want = {variant_name(n, cfg) for n in KERNEL_NAMES}
+        if set(counts) != want:
+            fail(f"dispatch prod: launched {sorted(counts)}, expected exactly {sorted(want)}")
+        per_step = {k: v / replays for k, v in counts.items()}
+        cap = next(iter(graph.graphs.values()))
+        print(f"[dispatch gt5 prod] (1) {n_steps} steps (configs/gt5_production.yml: bf16, default, half_feats, "
+              f"index-only, K={K}, E={E}) as CUDA-graph dispatches of {'+'.join(map(str, DISPATCH_GROUPS))} "
+              f"bitwise equal to {n_steps} eager steps; losses first {float(losses[0]):.5f} last "
+              f"{float(losses[-1]):.5f}; launches per replayed step {per_step}; peak memory of a captured step "
+              f"{cap.peak_bytes / 1e9:.3f} GB (fp32: {fp32['peak_captured_step_gb']:.3f} GB)", flush=True)
+
+        d_ms = []
+        for _ in range(DISPATCH_TIMED):
+            t0 = time.perf_counter()
+            multi(graph, stack_batches(batches[off:off + K]), 0, all_tables)[1]["loss"].cpu()
+            d_ms.append((time.perf_counter() - t0) * 1e3)
+            off += K
+        e_med, g_med = statistics.median(e_ms), statistics.median(d_ms) / K
+        nxt = stack_batches(batches[off - K:off])
+        split = {}
+        g_busy, g_ksum = profiled_busy(lambda: multi(graph, nxt, 0, all_tables)[1]["loss"].cpu(), K, split)
+        idle = None if g_busy is None else max(0.0, 1 - g_busy / g_med)
+        top = sorted(split["other"].items(), key=lambda kv: -kv[1])[:8]
+        readings = dict(eager_step_ms=e_med, graph_step_ms=g_med, graph_samples_per_s=B / g_med * 1e3,
+                        graph_busy_ms=g_busy, graph_kernel_sum_ms=g_ksum, graph_idle=idle,
+                        graph_dispatch_ms=d_ms, peak_captured_step_gb=cap.peak_bytes / 1e9,
+                        launches_per_step=per_step, kernels_ms=split["ours"],
+                        other_device_ms=sum(split["other"].values()), top_other=[[k[:60], v] for k, v in top])
+        fmt = lambda x, u="": "not measured" if x is None else f"{x:.2f}{u}"  # noqa: E731
+        print(f"[dispatch gt5 prod] (3) train step, host clock to a synchronize: eager median {e_med:.2f} ms, "
+              f"graph {g_med:.2f} ms a step ({B / g_med * 1e3:.1f} samples/s, busy {fmt(g_busy, ' ms')}, idle "
+              f"{fmt(idle)}); fp32 in this run: eager {fp32['eager_step_ms']:.2f} ms, graph "
+              f"{fp32['graph_step_ms']:.2f} ms ({fp32['graph_samples_per_s']:.1f} samples/s, busy "
+              f"{fmt(fp32['graph_busy_ms'], ' ms')}, idle {fmt(fp32['graph_idle'])}) on {card}", flush=True)
+        print(f"[dispatch gt5 prod] (3) device ms a step by kernel: ours "
+              + ", ".join(f"{k}={v:.3f}" for k, v in split["ours"].items())
+              + f"; other {readings['other_device_ms']:.3f} ms in {len(split['other'])} ops: "
+              + "; ".join(f"{k[:40]}={v:.3f}" for k, v in top), flush=True)
+        del graph, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (2) the first step against the CPU plain path, both in the production numerics
+        parity = prod_cfg(dropout=0.0)
+        tb = make_train_batches(parity, 1, B, tables.n_rows, 5000, seed=11)[0]
+        sd = {k: v.detach().cpu() for k, v in
+              get_model(parity, 5000, device="cuda", seed=3, train=True).state_dict().items()}
+        readings["first_step"] = prod_step_check(parity, sd, tb, tables.tables)
+    finally:
+        apply_matmul_precision(serve_cfg())  # the phases after this one run fp32 / "highest"
+    return counts, readings
+
+
+def phase_dispatch_p100_prod(tables, card: str, fp32: dict) -> tuple:
+    """[dispatch p100 prod]: the P100 recipe in bf16 with "default"
+    precision, one CUDA-graph dispatch of K=8 in each backward-mode pair
+    (``MODE_PAIRS``): losses finite, no step dropped, the "default" kernels
+    of the pair launched and no other; the step time of a second dispatch
+    (host clock, over K) and the peak memory of a captured step beside
+    [dispatch p100]'s fp32 readings.  -> (launch counts by pair, readings)."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_multi_train_step
+
+    cfg = prod_cfg("p100")
+    K, B = P100_DISPATCH_K, cfg.train.bs
+    batches = make_train_batches(cfg, 2 * K, B, tables.n_rows, 5000, seed=31)
+    counts, out = {}, {}
+    try:
+        for (fm, mm), (launched, absent) in MODE_PAIRS.items():
+            key = f"flash {fm}, mm {mm}"
+            with bwd_modes(fm, mm):
+                state = TrainState.create(cfg, get_model(cfg, 5000, device="cuda", seed=3, train=True))
+                multi = make_multi_train_step(cfg)
+                _build.reset_counts()
+                losses = multi(state, stack_batches(batches[:K]), 0, tables.tables)[1]["loss"].cpu()
+                counts[key] = dict(_build.launches)
+                t0 = time.perf_counter()
+                losses = torch.cat([losses, multi(state, stack_batches(batches[K:]), 0,
+                                                  tables.tables)[1]["loss"].cpu()])
+                g_ms = (time.perf_counter() - t0) * 1e3 / K
+            if not torch.isfinite(losses).all() or int(state.opt_state["total_notfinite"]) != 0:
+                fail(f"dispatch p100 prod ({key}): a non-finite loss or a dropped step ({losses.tolist()})")
+            want = {variant_name(n, cfg) for n in launched}
+            got = {k for k, v in counts[key].items() if v}
+            if got != want:
+                fail(f"dispatch p100 prod ({key}): launched {sorted(got)}, expected {sorted(want)}")
+            cap = next(iter(state.graphs.values()))
+            out[key] = dict(graph_step_ms=g_ms, samples_per_s=B / g_ms * 1e3,
+                            peak_captured_step_gb=cap.peak_bytes / 1e9, loss_first=float(losses[0]),
+                            loss_last=float(losses[-1]))
+            print(f"[dispatch p100 prod] ({key}) bf16 + default, {2 * K} steps as two CUDA-graph dispatches of "
+                  f"{K}: losses finite (first {float(losses[0]):.5f}, last {float(losses[-1]):.5f}), none "
+                  f"dropped; graph {g_ms:.2f} ms a step ({B / g_ms * 1e3:.1f} samples/s), peak memory of a "
+                  f"captured step {cap.peak_bytes / 1e9:.3f} GB; fp32 dispatch of this run (flash recompute, mm "
+                  f"emit): {fp32['graph_step_ms']:.2f} ms, {fp32['peak_captured_step_gb']:.3f} GB on {card}",
+                  flush=True)
+            del state, multi
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        apply_matmul_precision(serve_cfg("p100"))
+    return counts, out
+
+
 # the JAX package's single-chip P100 run (BASELINE.md, "P100 at the largest
 # single-chip-feasible scale"): 5,549 videos, an int8 store of 11,557 MB
 P100_ROWS = 5549
@@ -1709,10 +2360,14 @@ def main() -> int:
     prof_gt5 = phase_profile(pred, reqs)
     del pred, reqs
     rows_gt5 += phase_kernels_bwd(cfg)
+    rows_def_gt5 = phase_kernels_default(cfg)
     train_counts_gt5, train_gt5 = phase_train(tables, card)
     dispatch_gt5 = phase_dispatch(tables, card)
-    worst_gt5 = dict(WORST_REL)
+    serve_prod_counts, serve_prod = phase_serve_prod(tables, card, serve_gt5)
+    dispatch_prod_counts, dispatch_prod = phase_dispatch_prod(tables, card, dispatch_gt5["train"])
+    worst_gt5, worst_def_gt5 = dict(WORST_REL), dict(WORST_DEFAULT)
     WORST_REL.clear()
+    WORST_DEFAULT.clear()
     del tables  # the P100 checks below need the room
     gc.collect()
     torch.cuda.empty_cache()
@@ -1728,6 +2383,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows += phase_kernels_bwd(cfg, B=2)
+    rows_def = phase_kernels_default(cfg, B=2)
     train, train_counts = {}, {}
     for (fm, mm), (launched, absent) in MODE_PAIRS.items():
         key = f"flash {fm}, mm {mm}"
@@ -1735,6 +2391,7 @@ def main() -> int:
             train_counts[key], train[key] = phase_train(tables, card, "p100", P100_TRAIN_STEPS, "plain",
                                                         launched, absent, label=f" ({key})")
     dispatch_p100 = phase_dispatch_p100(tables, card)
+    p100_prod_counts, dispatch_p100_prod = phase_dispatch_p100_prod(tables, card, dispatch_p100)
     peaks = {f"flash {fm}, mm {mm}": step_peak(tables, (fm, mm))
              for fm, mm in (("recompute", "recompute"), ("emit", "emit"))}
     print("[train p100] peak memory of one step, GB (above the resident): "
@@ -1744,6 +2401,9 @@ def main() -> int:
 
     print("[kernels] worst relative err by check: gt5 " + ", ".join(f"{k}={v:.2e}" for k, v in worst_gt5.items())
           + "; p100 " + ", ".join(f"{k}={v:.2e}" for k, v in WORST_REL.items()), flush=True)
+    print("[kernels default] worst (relative max-diff, Frobenius) by check: gt5 "
+          + ", ".join(f"{k}=({a:.2e}, {b:.2e})" for k, (a, b) in worst_def_gt5.items()) + "; p100 "
+          + ", ".join(f"{k}=({a:.2e}, {b:.2e})" for k, (a, b) in WORST_DEFAULT.items()), flush=True)
 
     def launches(name, serve_counts, train_runs):
         """-> (launches on the serving path or the first train run that
@@ -1768,10 +2428,28 @@ def main() -> int:
         r["gt5"] = {k: g.get(k) for k in ("shape", "launches", "max_abs_err", "max_rel_err", "ms", "issue_ms",
                                           "plain_ms", "plain_issue_ms", "library_ms", "library_issue_ms",
                                           "bound_ms", "bound_by")}
+    # the "default" variants: launches on the production paths (GT5: the
+    # forward kernels on [serve gt5 prod], the backward on [dispatch gt5
+    # prod]; P100: [dispatch p100 prod], both mode pairs)
+    def prod_launches(name, counts_list):
+        return sum(c.get(name, 0) for c in counts_list)
+
+    gt5_def = {r["name"]: r for r in rows_def_gt5}
+    keys = ("shape", "launches", "max_abs_err", "max_rel_err", "frobenius_rel_err", "ms", "issue_ms", "plain_ms",
+            "plain_issue_ms", "library_ms", "library_issue_ms", "bound_ms", "bound_by")
+    for r in rows_def:
+        r["launches"] = prod_launches(r["name"], list(p100_prod_counts.values()))
+        gd = gt5_def[r["name"]]
+        gd["launches"] = prod_launches(r["name"], [serve_prod_counts, dispatch_prod_counts])
+        r["gt5"] = {k: gd.get(k) for k in keys}
+    rows += rows_def
     print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train,
                       "peak_memory_gb": {k: list(v) for k, v in peaks.items()},
                       "gt5": {"serve": serve_gt5, "profile": prof_gt5, "train": train_gt5},
-                      "dispatch": {"gt5": dispatch_gt5, "p100": dispatch_p100}, "card": card}),
+                      "dispatch": {"gt5": dispatch_gt5, "p100": dispatch_p100},
+                      "prod": {"serve_gt5": serve_prod, "dispatch_gt5": dispatch_prod,
+                               "dispatch_p100": dispatch_p100_prod},
+                      "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -28,6 +28,16 @@ backward forks onto its second stream (gradients bitwise the eager
 step's), the graphed Predictor bitwise the eager one in every bucket, and
 a capture that fails raising with the state untouched; and the dropout
 keep mask's bits equal on the CPU and the card.
+
+The production numerics: each kernel's "default" variant (one TF32 pass)
+forward and backward, in both backward modes, against its plain version
+(max |err| <= 2e-2 forward and 5e-2 gradients of max(1, max |ref|), the
+JAX package's bounds for its "default" kernels, and 5e-3 relative in the
+Frobenius norm; the head backward given its own ReLU decisions),
+launches counted under ``name@default``; the emit modes'
+bf16 ds / comb at "default"; a switch of precision between two dispatches
+capturing a second graph; and a bf16 model's graphed steps bitwise equal
+to its eager steps.
 """
 
 import pytest
@@ -645,6 +655,172 @@ def test_dropout_bits_cpu_equal_card(dev):
         masks = [dropout_keep(dropout_key(seed, torch.tensor(step, dtype=torch.int32, device=d), micro),
                               site, shape, 0.1) for d in ("cpu", dev)]
         assert torch.equal(masks[0], masks[1].cpu()), (seed, step, micro, site)
+
+
+# --------------------------------------------------------------------------
+# the production numerics: "default" (one TF32 pass) variants, bf16 emit
+# --------------------------------------------------------------------------
+def _close_default(got, ref, fwd):
+    """A "default" kernel against its plain version at "highest": max |err|
+    <= 2e-2 (forward) or 5e-2 (gradients) of max(1, max |ref|), the JAX
+    package's bounds for its "default" kernels (relative max-diff, as its
+    tools/verify_kernels.py measures it), and |err| / |ref| <= 5e-3
+    (Frobenius)."""
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((got - ref).abs().max()) <= (2e-2 if fwd else 5e-2) * scale
+    d, n = float((got.double() - ref.double()).norm()), float(ref.double().norm())
+    assert (d / n if n > 0 else d) <= 5e-3
+
+
+@pytest.mark.parametrize("kernel,mode", [("flash", "recompute"), ("flash", "emit"), ("mm", "emit"),
+                                         ("mm", "recompute"), ("head", None)])
+def test_default_variant_matches_plain(dev, kernel, mode):
+    """Each kernel's "default" variant, forward and backward (both modes;
+    emit stores its ds / comb in bf16), against its plain version, with
+    its launches counted under the variant's name."""
+    from vog_tpu_torch.kernels import _build, attention, grounding_head, mm_attention
+
+    d = "default"
+    if kernel == "head":
+        from chip_smoke import head_bwd_given
+
+        args, g = _head_inputs(dev, 3, 37, 3, 96)
+        go = torch.randn((3, 3, 37), generator=g, device=dev)
+        _build.reset_counts()
+        out = grounding_head.grounding_head_fwd(*args, precision=d)
+        scratch = {}
+        got = grounding_head.grounding_head_bwd(*args, go, precision=d, scratch=scratch)
+        torch.cuda.synchronize()
+        assert _build.launches == {"fused_grounding_head@default": 1, "fused_grounding_head_bwd@default": 1}
+        _close_default(out, grounding_head.grounding_head_plain(*args), True)
+        # given the kernel's own ReLU decisions: one TF32 pass puts a few
+        # pre-activations across a kink from fp64's, which flips whole terms
+        ref, _ = head_bwd_given(args, go, scratch["h"], scratch["dz1"])
+    else:
+        g, q, k, v, mask, fb, fid = _attn_inputs(dev, 3, 2, 45, 40, 5)
+        mask[2] = 1.0  # no all-masked row: its outputs sit at the masked fill
+        if kernel == "flash":
+            ro, rl = attention.flash_attention_plain(q, k, v, mask, fb, fid)
+            do = torch.randn(ro.shape, generator=g, device=dev)
+            _build.reset_counts()
+            o, lse = attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=d)
+            got = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode, precision=d)
+            name = "flash_attention_bwd" + ("_emit" if mode == "emit" else "")
+            torch.cuda.synchronize()
+            assert _build.launches == {"flash_attention@default": 1, f"{name}@default": 1}
+            _close_default(o, ro, True)
+            _close_default(lse, rl, True)
+            ref = attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do)
+        else:
+            cn = -3 * torch.rand((3, 2, 4, 45), generator=g, device=dev)
+            rf = mm_attention.mm_attention_plain(q * 0.2, k, v, cn, mask, fb, fid)
+            go = torch.randn(rf[0].shape, generator=g, device=dev)
+            _build.reset_counts()
+            out = mm_attention.mm_attention_fwd(q * 0.2, k, v, cn, mask, fb, fid, precision=d)
+            got = mm_attention.mm_attention_bwd(q * 0.2, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
+                                                precision=d)
+            name = "mm_shared_qk_attention_bwd" + ("_recompute" if mode == "recompute" else "")
+            torch.cuda.synchronize()
+            assert _build.launches == {"mm_shared_qk_attention@default": 1, f"{name}@default": 1}
+            for x, y in zip(out, rf):
+                _close_default(x, y, True)
+            ref = mm_attention.mm_attention_bwd_plain(q * 0.2, k, v, cn, mask, fb, fid, *rf, go)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        _close_default(a, b.to(a.dtype), False)
+
+
+@pytest.mark.parametrize("kernel", ["flash", "mm"])
+def test_default_emit_stores_bf16(dev, kernel, monkeypatch):
+    """At "default" the emit modes' (T, T) score gradient is bf16 (half the
+    bytes), and the products over it widen it to fp32."""
+    from vog_tpu_torch.kernels import _build, attention, mm_attention
+
+    seen = []
+    real = _build.bmm_wide
+    monkeypatch.setattr(_build, "bmm_wide", lambda a, b: seen.append(a.dtype) or real(a, b))
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, 2, 2, 200, 128, 10)
+    for prec, want in (("highest", torch.float32), ("default", torch.bfloat16)):
+        seen.clear()
+        if kernel == "flash":
+            o, lse = attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=prec)
+            got = attention.flash_attention_bwd(q, k, v, mask, fb, fid, o, lse, torch.ones_like(o),
+                                                bwd_mode="emit", precision=prec)
+        else:
+            cn = -torch.rand((2, 2, 5, 200), generator=g, device=dev)
+            fwd = mm_attention.mm_attention_fwd(q * 0.1, k, v, cn, mask, fb, fid, precision=prec)
+            got = mm_attention.mm_attention_bwd(q * 0.1, k, v, cn, mask, fb, fid, *fwd,
+                                                torch.ones_like(fwd[0]), bwd_mode="emit", precision=prec)
+        torch.cuda.synchronize()
+        assert seen and set(seen) == {want} and all(x.dtype == torch.float32 for x in got)
+
+
+def test_graph_recaptures_on_precision_switch(dev):
+    """A captured step records the kernels' variant and cuBLAS's TF32
+    switch: after a switch of ``misc.matmul_precision`` the next dispatch
+    captures anew (the "default" variants launch), and switching back
+    replays the first capture."""
+    from chip_smoke import make_index_batches
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.train import make_multi_train_step
+
+    cfg, tables, n_anns, n_rows = _tiny()
+    batches = make_index_batches(cfg, 6, cfg.train.bs, n_anns, n_rows, seed=9)
+    state, multi = _state(cfg), make_multi_train_step(cfg)
+    try:
+        for i, prec in enumerate(("highest", "default", "highest")):
+            cfg.misc.matmul_precision = prec
+            apply_matmul_precision(cfg)
+            _build.reset_counts()
+            _, aux = multi(state, _stack(batches[2 * i:2 * i + 2]), 0, tables)
+            torch.cuda.synchronize()
+            assert torch.isfinite(aux["loss"]).all()
+            assert len(state.graphs) == min(i + 1, 2)
+            names = set(_build.launches)
+            assert ("flash_attention@default" in names) == (prec == "default"), names
+            assert ("flash_attention" in names) == (prec == "highest"), names
+    finally:
+        cfg.misc.matmul_precision = "highest"
+        apply_matmul_precision(cfg)
+
+
+def test_bf16_model_trains_and_serves_on_the_card(dev):
+    """The production numerics (bf16 activations, "default") on the card:
+    a graphed dispatch bitwise equal to its eager steps, fp32 parameters
+    and logits, and the "default" kernels launched."""
+    import numpy as np
+
+    from chip_smoke import make_index_batches, make_requests
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.train import make_multi_train_step, make_train_step
+
+    cfg, tables, n_anns, n_rows = _tiny()
+    cfg.mdl.dtype, cfg.misc.matmul_precision = "bfloat16", "default"
+    try:
+        batches = make_index_batches(cfg, 3, cfg.train.bs, n_anns, n_rows, seed=10)
+        graph, eager = _state(cfg), _state(cfg)
+        _build.reset_counts()
+        make_multi_train_step(cfg)(graph, _stack(batches), 0, tables)
+        step = make_train_step(cfg)
+        for b in batches:
+            step(eager, {k: torch.as_tensor(v).cuda() for k, v in b.items()}, 0, tables)
+        torch.cuda.synchronize()
+        _assert_states_equal(graph, eager)
+        assert all(t.dtype == torch.float32 for t in graph.tensors().values() if t.is_floating_point())
+        assert {"flash_attention_bwd@default", "mm_shared_qk_attention_bwd@default",
+                "fused_grounding_head_bwd@default"} <= set(_build.launches), _build.launches
+        pred = Predictor(cfg, graph.model.state_dict(), 5000, tables=tables, device="cuda")
+        reqs = make_requests(cfg, 2, n_rows, 5000, seed=11)
+        batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+        batch["batch_mask"] = np.ones((2,), np.uint8)
+        out = pred(batch)
+        assert out["scores"].dtype == np.float32 and np.isfinite(out["pred_score"]).all()
+    finally:
+        cfg.misc.matmul_precision = "highest"
+        apply_matmul_precision(cfg)
 
 
 def test_capture_failure_raises(dev, monkeypatch):

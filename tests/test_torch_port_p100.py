@@ -14,7 +14,8 @@ package on the CPU, and the repairs that came with it:
     argument and ``VOG_FLASH_BWD`` / ``VOG_MM_BWD`` value, a bad one
     included;
   * ``apply_matmul_precision``: ``get_model`` alone turns both TF32
-    switches off, and any precision but "highest" raises;
+    switches off at "highest" and on at "default", and any other
+    precision raises;
   * the fused head at A = 6 and 8 (two kernel launches of 3 or 4 args on
     the card) against the JAX package's head kernel in interpret mode,
     forward and all 9 gradients (atol 5e-4, rtol 1e-3: the JAX package's
@@ -169,10 +170,14 @@ def test_get_model_applies_matmul_precision(monkeypatch):
     get_model(pcfg, 50, device="cpu", train=True)  # no Predictor built
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
-    pcfg.misc.matmul_precision = "default"
-    with pytest.raises(NotImplementedError, match="misc.matmul_precision"):
+    pcfg.misc.matmul_precision = "default"  # the production recipe's: TF32 on, both switches
+    get_model(pcfg, 50, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is True
+    assert torch.backends.cudnn.allow_tf32 is True
+    pcfg.misc.matmul_precision = "high"
+    with pytest.raises(ValueError, match="misc.matmul_precision"):
         apply_matmul_precision(pcfg)
-    with pytest.raises(NotImplementedError, match="misc.matmul_precision"):
+    with pytest.raises(ValueError, match="misc.matmul_precision"):
         get_model(pcfg, 50, device="cpu")
 
 

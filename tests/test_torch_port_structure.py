@@ -98,7 +98,9 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
     for mod, (src, name, bwd) in KERNELS.items():
         assert (PKG / "csrc" / src).exists() and src in _build.SOURCES
         text = (PKG / "kernels" / mod).read_text()
-        assert "_plain" in text and "_build.count(NAME)" in text and f'NAME = "{name}"' in text
+        # a kernel with TF32 products counts its launches at the precision it ran
+        prec = "" if src == "gather.cu" else ", prec"
+        assert "_plain" in text and f"_build.count(NAME{prec})" in text and f'NAME = "{name}"' in text
         assert name in smoke_strings, f"chip_smoke.py has no check of {name}"
         assert f"vog_tpu_torch/csrc/{src}" in smoke_strings
         assert name in symbols
@@ -108,13 +110,13 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
             if key is not None:  # the profile's symbols name kernels of this source
                 assert set(symbols[key]) <= set(kernels), (key, symbols[key], kernels)
         if bwd is not None:
-            assert "_bwd_plain(" in text and "_build.count(NAME_BWD)" in text
+            assert "_bwd_plain(" in text and "_build.count(NAME_BWD, prec)" in text
             assert f'NAME_BWD = "{bwd}"' in text and "torch.autograd.Function" in text
             assert bwd in smoke_strings, f"chip_smoke.py has no check of {bwd}"
             assert bwd in symbols, f"chip_smoke.py's profile does not attribute {bwd}"
         if mod in MODE_ROWS:  # the other backward mode: counted under its own name, checked
             const, row = MODE_ROWS[mod]
-            assert f'{const} = "{row}"' in text and f"_build.count({const})" in text
+            assert f'{const} = "{row}"' in text and f"_build.count({const}, prec)" in text
             assert row in smoke_strings, f"chip_smoke.py has no check of {row}"
     assert sorted(_build.SOURCES) == sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
 
@@ -188,9 +190,12 @@ def test_flash_kernels_use_tensor_cores_and_async_copies():
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
     tiles = (csrc / "tiles.cuh").read_text()
     assert '#include "tf32.cuh"' in tiles and "cp.async.cg.shared.global" in tiles
-    for helper in ("scores", "accumulate"):  # the products, on the tensor cores
+    # the products, on the tensor cores: 3xTF32 or one pass, by a template parameter
+    mma_p = header[header.index("__device__ inline void mma_p("):]
+    assert "mma3(" in mma_p[: mma_p.index("\n}\n")] and "cvt.rna.tf32.f32" in header
+    for helper in ("scores", "accumulate"):
         body = tiles[tiles.index(f"__device__ inline void {helper}("):]
-        assert "mma3(" in body[: body.index("\n}\n")], helper
+        assert "mma_p<kOne>(" in body[: body.index("\n}\n")], helper
     for src in ("attention.cu", "grounding_head.cu", "mm_attention.cu"):
         text = (csrc / src).read_text()
         assert '#include "tf32.cuh"' in text or '#include "tiles.cuh"' in text
@@ -218,8 +223,9 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     bodies = _kernel_bodies(text)
     assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq", "mm_fwd"]
     fwd = bodies["mm_fwd"]
-    assert fwd.count("mma3(") == 2  # S = Q K^T once per key tile; P_a V for every arg
-    assert fwd.count("frag_bt(") == 1 and "frag_b_pairs(" in fwd and "split_int(" in fwd
+    # S = Q K^T once per key tile; P_a V for every arg (3xTF32, or one pass)
+    assert fwd.count("mma_p<kOnePass>(") == 2
+    assert fwd.count("frag_bt(") == 1 and "frag_b_pairs(" in fwd and "split<kOnePass>(" in fwd
     assert "load_rows<" in fwd and "cp_async4(" in fwd and "cp_wait_all()" in fwd
     assert 'extern "C" int vog_mm_bwd(' in text and 'extern "C" int vog_mm_fwd(' in text
     gather = (csrc / "gather.cu").read_text()
@@ -285,7 +291,8 @@ def test_backward_modes_not_default_have_kernels_of_their_own():
 
 def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
     """The head's weight-gradient kernel streams its row stages by 16-byte
-    cp.async into a ring (one barrier a stage) and multiplies in 3xTF32;
+    cp.async into a ring (one barrier a stage) and multiplies in 3xTF32 (one
+    TF32 pass in the "default" library);
     one launch covers dWx and dW1 for its rows (a call launches it once
     after each of the row kernel's two parts), and at GT5 (D=512, Dh=256)
     its grid puts at least two blocks on each of the H100's 132 SMs.  The
@@ -297,7 +304,8 @@ def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
     assert sorted(bodies) == ["head_bwd_rows", "head_bwd_w", "head_fwd", "head_fwd_prep"]
     w = bodies["head_bwd_w"]
     w = w[: w.index("\n}\n")]
-    assert "cp_async16(" in w and "cp_wait<" in w and "cp_commit()" in w and "mma3(" in w
+    assert "cp_async16(" in w and "cp_wait<" in w and "cp_commit()" in w
+    assert "mma_p<kOnePass>(" in w  # 3xTF32, or one pass in the "default" library
     assert w.count("__syncthreads()") == 1 and "dwx_part" in w and "dw1_part" in w
     part = text[text.index("cudaError_t launch_part("):]
     part = part[: part.index("\n}\n")]
@@ -342,4 +350,4 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
     py = (PKG / "kernels" / "grounding_head.py").read_text()
     fwd_py = py[py.index("def grounding_head_fwd("):py.index("def grounding_head_bwd_plain(")]
     assert '"vog_head_fwd_prep"' in fwd_py and '"vog_head_fwd"' in fwd_py
-    assert fwd_py.count("_build.count(NAME)") == 1 and "_groups(" not in fwd_py
+    assert fwd_py.count("_build.count(NAME, prec)") == 1 and "_groups(" not in fwd_py

@@ -6,6 +6,7 @@ from vog_tpu_torch.config.defaults import (
     TrainCfg,
     apply_matmul_precision,
     get_default_cfg,
+    kernel_precision,
     post_proc_config,
     update_from_dict,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "TrainCfg",
     "apply_matmul_precision",
     "get_default_cfg",
+    "kernel_precision",
     "post_proc_config",
     "update_from_dict",
 ]

@@ -248,22 +248,41 @@ class MiscCfg:
     compile_cache: str = "tmp/jax_cache"
 
 
-def apply_matmul_precision(cfg: "Cfg") -> None:
-    """Set the process's fp32 matmul precision from ``misc.matmul_precision``.
+PRECISIONS = ("highest", "default")
 
-    "highest" turns off TF32 for matmuls and for cuDNN (whose default is
+
+def apply_matmul_precision(cfg: "Cfg") -> None:
+    """Set the process's fp32 matmul precision from ``misc.matmul_precision``
+    (counterpart of ``vog_tpu/config/defaults.py §apply_matmul_precision``,
+    which sets ``jax_default_matmul_precision``).
+
+    "highest" turns TF32 off for matmuls and for cuDNN (whose default is
     on: the fp32 BiLSTM would otherwise run in TF32), so every fp32 product
-    keeps fp32 accuracy, as JAX's "highest".  The bf16 mode that "default"
-    selects in the JAX package is not ported yet."""
+    keeps fp32 accuracy, as JAX's "highest".  "default" turns both on: one
+    reduced-precision pass, which JAX reads as TF32 on an NVIDIA card, for
+    cuBLAS's products and the BiLSTM's cuDNN products alike; the kernels
+    read the same switch through ``kernel_precision``.  Any other value
+    raises.  Only these two backend switches are set, never
+    ``torch.set_float32_matmul_precision``: on some CPUs oneDNN reads that
+    global and may run fp32 CPU matmuls in bf16."""
     import torch
 
-    if cfg.misc.matmul_precision != "highest":
-        raise NotImplementedError(
-            f"misc.matmul_precision={cfg.misc.matmul_precision!r}: the port runs "
-            "'highest' only (fp32 products, TF32 off)"
-        )
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    p = cfg.misc.matmul_precision
+    if p not in PRECISIONS:
+        raise ValueError(f"misc.matmul_precision={p!r}: the port runs {' or '.join(PRECISIONS)}")
+    on = p == "default"
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def kernel_precision() -> str:
+    """"highest" (3xTF32: fp32-level products) or "default" (one TF32 pass),
+    read from the switch ``apply_matmul_precision`` sets, as the JAX
+    package's kernels read ``jax_default_matmul_precision``
+    (``vog_tpu/kernels/attention.py §_precision``)."""
+    import torch
+
+    return "default" if torch.backends.cuda.matmul.allow_tf32 else "highest"
 
 
 @dataclass

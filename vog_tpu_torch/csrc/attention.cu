@@ -85,6 +85,13 @@
 // fp32, so p is taken as 1/T there (the softmax of equal scores), which is
 // what autograd of the plain forward gives; its ds is masked to 0.
 //
+// Precision: this file builds twice (kernels/_build.py).  As it is, every
+// product is 3xTF32 ("highest"); with -DVOG_ONE_PASS=1 every product is one
+// TF32 pass, its operands rounded to nearest ("default", the production
+// recipe's: tf32.cuh), and emit mode stores ds in bf16 (store_ds), as the JAX
+// package does at "default" on the chip.  The kernels' code is the same:
+// the pass count is a template parameter of tiles.cuh's helpers.
+//
 // The previous design (fp32 FMA loops on the CUDA cores, a warp per four
 // rows, synchronous float4 staging of 32-row tiles) took 0.1327 / 0.1338 ms
 // forward and 0.4111 / 0.4264 ms backward at GT5 (chip_smoke.py, H100 80GB
@@ -248,7 +255,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const float* __restrict__ key_mask, const float* __restrict__ fb,
               const int* __restrict__ fid, float* __restrict__ dk,
-              float* __restrict__ dv, float* __restrict__ ds, int H, int T, int dh,
+              float* __restrict__ dv, DsT* __restrict__ ds, int H, int T, int dh,
               int F, float scale, bool vec) {
   constexpr int NT = kTileB / 8;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -340,9 +347,9 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 2; ++e) {
           const int qi = it * kTileB + 8 * j + 2 * t + e;
           if (qi >= T) continue;
-          float* row = ds + ((size_t)bh * T + qi) * T;
-          if (kr0 < T) row[kr0] = dpt[j][e];
-          if (kr0 + 8 < T) row[kr0 + 8] = dpt[j][2 + e];
+          DsT* row = ds + ((size_t)bh * T + qi) * T;
+          if (kr0 < T) store_ds(row + kr0, dpt[j][e]);
+          if (kr0 + 8 < T) store_ds(row + kr0 + 8, dpt[j][2 + e]);
         }
     }
   }
@@ -507,13 +514,13 @@ extern "C" int vog_flash_delta(const float* o, const float* dout, float* delta, 
 
 // fb and fid may be null when F == 1 (no bias).  Recompute mode (ds null):
 // dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
-// Emit mode (ds, (B*H, T, T), not null): dk, dv and ds only; dq and
-// dfb_part are not touched.
+// Emit mode (ds, (B*H, T, T), fp32, or bf16 in the one-pass library, not
+// null): dk, dv and ds only; dq and dfb_part are not touched.
 extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, const float* key_mask,
                              const float* fb, const int* fid, float* dq,
-                             float* dk, float* dv, float* dfb_part, float* ds,
+                             float* dk, float* dv, float* dfb_part, void* ds_out,
                              int B, int H, int T, int dh, int F, float scale,
                              void* stream) {
   if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFb) return (int)cudaErrorInvalidValue;
@@ -527,6 +534,7 @@ extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
   const size_t fb_bytes = frames ? sizeof(float) * F * F : 0;
 
   const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
+  DsT* ds = static_cast<DsT*>(ds_out);
   const bool emit = ds != nullptr;
   auto dkv = frames ? (emit ? flash_bwd_dkv<true, true> : flash_bwd_dkv<true, false>)
                     : (emit ? flash_bwd_dkv<false, true> : flash_bwd_dkv<false, false>);

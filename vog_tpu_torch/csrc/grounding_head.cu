@@ -94,12 +94,21 @@
 // weights read from L2 by every warp) took 1.8102 / 1.8190 ms at GT5
 // (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
 // PERF.md.
+//
+// Precision: this file builds twice (kernels/_build.py).  As it is, every
+// product is 3xTF32 ("highest"); with -DVOG_ONE_PASS=1 ("default", the
+// production recipe's) every product is one TF32 pass, operands rounded to
+// nearest (tf32.cuh): head_fwd_prep lays out one rounded part a stage (the
+// weight stream halves, and the ring holds twice the stages in the same
+// shared memory), each k-step issues one wgmma, not three, and the
+// backward's mma.sync products take one pass (split, mma_p).  The
+// operands stay fp32, as the JAX package keeps them.
 
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tiles.cuh"  // cp.async; through it tf32.cuh: split_int, mma3
+#include "tiles.cuh"  // cp.async; through it tf32.cuh: split, mma_p, round_tf32, kOnePass
 
 namespace {
 
@@ -247,8 +256,9 @@ constexpr int kNC = 64;              // z0 columns a chunk (acc1: 64 x 64)
 constexpr int kNZ = 256;             // z1 columns, Dh padded (acc2: 64 x 256)
 constexpr int kStep1 = kNC * 8;      // floats of a z0 k-step (2 KB)
 constexpr int kStep2 = kNZ * 8;      // floats of a z1 k-step (8 KB)
-constexpr int kStage = 2 * kStep2;   // floats a stage: 4 z0 k-steps or 1 z1 k-step, big then small parts
-constexpr int kFRing = 4;            // stages of the weight ring (loads three stages ahead)
+constexpr int kParts = kOnePass ? 1 : 2;  // parts a weight is stored as: rounded, or big and small
+constexpr int kStage = kParts * kStep2;   // floats a stage: 4 z0 k-steps or 1 z1 k-step, each part
+constexpr int kFRing = 8 / kParts;   // stages of the weight ring (64 KB: loads 3 or 7 stages ahead)
 constexpr int kWvLd = kNC + 8;       // row stride of the wv chunk tile (8 mod 32 words)
 constexpr uint32_t kBigMask = 0xffffe000u;
 
@@ -260,13 +270,14 @@ __host__ __device__ inline int chunk_floats(int Dp) { return Dp / 8 * kStep1 + 8
 // 64c ..), then 8 stages of one z1 k-step (W1 rows 64c + 8j .., all 256
 // padded columns).  A k-step is [k half][n / 8][n % 8][k slot 0-3]; slot u
 // of half e holds k 2u + e of the step (pair order).  Each stage is stored
-// twice: its big parts (low 13 mantissa bits cleared), then its small parts.
+// twice: its big parts (low 13 mantissa bits cleared), then its small parts;
+// in a one-pass library once, each weight rounded to the nearest TF32.
 __global__ void __launch_bounds__(256)
 head_fwd_prep(const float* __restrict__ wx, const float* __restrict__ w1,
               float* __restrict__ stream, int D, int Dp, int Dh) {
-  const int per = chunk_floats(Dp), total = 2 * (Dp / kNC) * per;
+  const int per = chunk_floats(Dp), total = kParts * (Dp / kNC) * per;
   for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < total; o += gridDim.x * blockDim.x) {
-    const int stage = o / kStage, part = (o / kStep2) & 1;
+    const int stage = o / kStage, part = kOnePass ? 0 : (o / kStep2) & 1;
     const int raw = stage * kStep2 + o % kStep2;  // the weight's place in the unsplit stream
     const int c = raw / per, r = raw - c * per;
     const int z1 = r >= Dp / 8 * kStep1;
@@ -283,8 +294,12 @@ head_fwd_prep(const float* __restrict__ wx, const float* __restrict__ w1,
       const int col = kNC * c + n;
       if (kk < D && col < D) v = wx[(size_t)kk * D + col];
     }
-    const float big = __uint_as_float(__float_as_uint(v) & kBigMask);
-    stream[o] = part ? v - big : big;
+    if constexpr (kOnePass) {
+      stream[o] = __uint_as_float(round_tf32(v));
+    } else {
+      const float big = __uint_as_float(__float_as_uint(v) & kBigMask);
+      stream[o] = part ? v - big : big;
+    }
   }
 }
 
@@ -298,7 +313,7 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
   const int g = lane >> 2, t = lane & 3;
   const int ldx = Dp + 8;  // cross row stride: 8 mod 32 words, conflict-free float2 fragment reads
   extern __shared__ __align__(1024) float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);  // kFRing x kStage: a stage's big parts, then its small parts
+  float* ring = reinterpret_cast<float*>(smem4);  // kFRing x kStage: a stage's big (or rounded) parts, then its small parts
   float* cross = ring + kFRing * kStage;          // kFRows x ldx
   float* wvs = cross + kFRows * ldx;              // kFRows x kWvLd: wv of the chunk's columns
   float* b1s = wvs + kFRows * kWvLd;              // kNZ, zero past Dh
@@ -336,7 +351,7 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
   };
 
   const int r0 = 16 * warp + g;  // this thread's rows of an item: r0 and r0 + 8
-  uint32_t fa[4][4], fs[4][4];    // A fragments (big, small) of four k-steps in flight
+  uint32_t fa[4][4], fs[4][4];    // A fragments (big, small; one pass: rounded, unused) of four k-steps in flight
   int q = 0;                      // the stage the next wgmma group reads
   for (int it = 0; it < items; ++it) {
     const int item = blockIdx.x + it * gridDim.x;
@@ -409,16 +424,18 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
             // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
             const float xs[4] = {x[h][0].x, x[h][1].x, x[h][0].y, x[h][1].y};
 #pragma unroll
-            for (int i = 0; i < 4; ++i) split_int(xs[i], fa[f][i], fs[f][i]);
+            for (int i = 0; i < 4; ++i) split<kOnePass>(xs[i], fa[f][i], fs[f][i]);
           }
           wg_fence();
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int f = 2 * pp + h, kk = 2 * pp + h;
             const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
-            const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
-            wgmma_n64(acc1, fs[f], db);
-            wgmma_n64(acc1, fa[f], ds);
+            if constexpr (!kOnePass) {
+              const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
+              wgmma_n64(acc1, fs[f], db);
+              wgmma_n64(acc1, fa[f], ds);
+            }
             wgmma_n64(acc1, fa[f], db);
           }
           wg_commit();
@@ -444,14 +461,16 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
                              fmaxf(acc1[4 * j + 3] + v1.y + l1.y, 0.f)};
         const int f = 2 + (j & 1);  // stage q - 2, the last to read set f, has completed
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split_int(hs[i], fa[f][i], fs[f][i]);
+        for (int i = 0; i < 4; ++i) split<kOnePass>(hs[i], fa[f][i], fs[f][i]);
         mbar_wait(full + q % kFRing, (q / kFRing) & 1);
         wg_fence();
         const float* sb = ring + (q % kFRing) * kStage;
         const uint64_t db = kmajor_desc(sb, kStep2 / 2 * 4, 128);
-        const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
-        wgmma_n256(acc2, fs[f], db);
-        wgmma_n256(acc2, fa[f], ds);
+        if constexpr (!kOnePass) {
+          const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
+          wgmma_n256(acc2, fs[f], db);
+          wgmma_n256(acc2, fa[f], ds);
+        }
         wgmma_n256(acc2, fa[f], db);
         wg_commit();
         wg_wait<1>();  // stage q - 1 has completed
@@ -522,7 +541,7 @@ constexpr int kWarpSlab = 8 * (32 + 8);  // floats a stage: 8 k-rows of <= 32 co
 // stage is [k][8 NT + 8] (conflict-free b reads of rows t and t + 4) or,
 // when trans, [n][8] with the two 4-float halves of a row swapped on every
 // other group of 4 rows (the reads of rows g and g + 4 then hit other
-// banks).  Operands are split with split_int.
+// banks).  Operands are split with split (tf32.cuh: 3xTF32 or one pass).
 template <int A, int NT, bool trans>
 __device__ inline void gemm_rows(float (&acc)[A][NT][4], const float* X, int ld,
                                  const float* __restrict__ W, int ldw, int n0, int K,
@@ -562,20 +581,20 @@ __device__ inline void gemm_rows(float (&acc)[A][NT][4], const float* X, int ld,
       const int n = 8 * j + g, sw = 4 * (g >> 2);  // (n >> 2) & 1 == g >> 2
       const float b0 = trans ? sb[8 * n + (t ^ sw)] : sb[t * LDB + n];
       const float b1 = trans ? sb[8 * n + ((t + 4) ^ sw)] : sb[(t + 4) * LDB + n];
-      split_int(b0, bb[j][0], bs[j][0]);
-      split_int(b1, bb[j][1], bs[j][1]);
+      split<kOnePass>(b0, bb[j][0], bs[j][0]);
+      split<kOnePass>(b1, bb[j][1], bs[j][1]);
     }
     const int k0 = 8 * s;
 #pragma unroll
     for (int m = 0; m < A; ++m) {
       const float* p = X + (16 * m + g) * ld + k0 + t;
       uint32_t ab[4], as[4];
-      split_int(p[0], ab[0], as[0]);
-      split_int(p[8 * ld], ab[1], as[1]);
-      split_int(p[4], ab[2], as[2]);
-      split_int(p[8 * ld + 4], ab[3], as[3]);
+      split<kOnePass>(p[0], ab[0], as[0]);
+      split<kOnePass>(p[8 * ld], ab[1], as[1]);
+      split<kOnePass>(p[4], ab[2], as[2]);
+      split<kOnePass>(p[8 * ld + 4], ab[3], as[3]);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) mma3(acc[m][j], ab, as, bb[j], bs[j]);
+      for (int j = 0; j < NT; ++j) mma_p<kOnePass>(acc[m][j], ab, as, bb[j], bs[j]);
     }
   }
 }
@@ -869,21 +888,21 @@ head_bwd_w(const float* __restrict__ cross, const float* __restrict__ dz0,
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const float* p = xs + (k0 + tq) * kWXld + wm + 16 * m + g;
-        split_int(p[0], ab[m][0], as[m][0]);
-        split_int(p[8], ab[m][1], as[m][1]);
-        split_int(p[4 * kWXld], ab[m][2], as[m][2]);
-        split_int(p[4 * kWXld + 8], ab[m][3], as[m][3]);
+        split<kOnePass>(p[0], ab[m][0], as[m][0]);
+        split<kOnePass>(p[8], ab[m][1], as[m][1]);
+        split<kOnePass>(p[4 * kWXld], ab[m][2], as[m][2]);
+        split<kOnePass>(p[4 * kWXld + 8], ab[m][3], as[m][3]);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float* q = ys + (k0 + tq) * kWYld + wn + 8 * j + g;
-        split_int(q[0], bb[j][0], bs[j][0]);
-        split_int(q[4 * kWYld], bb[j][1], bs[j][1]);
+        split<kOnePass>(q[0], bb[j][0], bs[j][0]);
+        split<kOnePass>(q[4 * kWYld], bb[j][1], bs[j][1]);
       }
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mma3(acc[m][j], ab[m], as[m], bb[j], bs[j]);
+        for (int j = 0; j < 4; ++j) mma_p<kOnePass>(acc[m][j], ab[m], as[m], bb[j], bs[j]);
     }
   }
 
@@ -1034,14 +1053,15 @@ extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
 #undef VOG_HEAD_BWD_CASE
 }
 
-// The forward's weight stream (head_fwd_prep): wstream holds 2 D_pad / 64 *
-// (D_pad * 64 + 8 * 2048) floats, D_pad = ceil(D / 64) 64.
+// The forward's weight stream (head_fwd_prep): wstream holds kParts (2, or
+// 1 in the one-pass library) x D_pad / 64 x (D_pad * 64 + 8 * 2048)
+// floats, D_pad = ceil(D / 64) 64.
 extern "C" int vog_head_fwd_prep(const float* wx, const float* w1, float* wstream, int D, int Dh,
                                  void* stream) {
   if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int Dp = (D + kNC - 1) / kNC * kNC;
-  const int total = 2 * (Dp / kNC) * chunk_floats(Dp);
+  const int total = kParts * (Dp / kNC) * chunk_floats(Dp);
   head_fwd_prep<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(wx, w1, wstream,
                                                                                     D, Dp, Dh);
   return (int)cudaGetLastError();

@@ -117,6 +117,14 @@
 // writes one (F, F) frame-bias partial (rows in order) that the wrapper
 // adds up in a fixed order: the gradients are the same on every run, with
 // no atomics.  This design's times are in PERF.md.
+//
+// Precision: this file builds twice (kernels/_build.py), as attention.cu:
+// 3xTF32 ("highest") as it is, one TF32 pass ("default") with
+// -DVOG_ONE_PASS=1, where emit mode also stores comb in bf16, as the JAX
+// package does at "default" on the chip.  The pass count is a template
+// parameter of the helpers (tiles.cuh, tf32.cuh), not of these kernels,
+// so the template instances (A = 1..8 of four kernels) do not double in
+// either build.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -224,7 +232,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
         uint32_t ab[4], as[4], bb[2], bs[2];
         frag_a(Qs, 8 * ks, g, t, ab, as);
         frag_bt(Kw, 0, 8 * ks, g, t, bb, bs);
-        mma3(cs[ks % kSets], ab, as, bb, bs);
+        mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
       }
       const int j = 8 * warp + 2 * t;
       float x[4];
@@ -266,7 +274,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           x[i] = expf(x[i] - mn);  // keys past T: 0
-          split_int(x[i], pb[i], ps[i]);
+          split<kOnePass>(x[i], pb[i], ps[i]);
         }
         l[a] = l[a] * al + ((x[0] + x[1]) + (x[2] + x[3]));
         float4* pr = reinterpret_cast<float4*>(Ps + (a * kFwdRows + sr) * kPLd + 2 * sk);
@@ -307,7 +315,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
         const uint32_t as[4] = {__float_as_uint(u.z), __float_as_uint(w.z), __float_as_uint(u.w),
                                 __float_as_uint(w.w)};
 #pragma unroll
-        for (int n = 0; n < kFwdNT; ++n) mma3(acc[a][n], ab, as, bb[n], bs[n]);
+        for (int n = 0; n < kFwdNT; ++n) mma_p<kOnePass>(acc[a][n], ab, as, bb[n], bs[n]);
       }
     }
   }
@@ -382,7 +390,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ mrow, const float* __restrict__ den,
            const float* __restrict__ delta, float* __restrict__ dk,
            float* __restrict__ dv, float* __restrict__ dcn,
-           float* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
+           DsT* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
   constexpr int NT = kBwdNT;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int k0 = blockIdx.x * kBwdKeys;
@@ -533,9 +541,9 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
       for (int e = 0; e < 2; ++e) {
         const int qi = i0 + 8 * n + 2 * t + e;
         if (qi >= T) continue;
-        float* row = comb + ((size_t)bh * T + qi) * T;
-        if (kr0 < T) row[kr0] = cb[n][e];
-        if (kr0 + 8 < T) row[kr0 + 8] = cb[n][2 + e];
+        DsT* row = comb + ((size_t)bh * T + qi) * T;
+        if (kr0 < T) store_ds(row + kr0, cb[n][e]);
+        if (kr0 + 8 < T) store_ds(row + kr0 + 8, cb[n][2 + e]);
       }
   }
 
@@ -567,7 +575,8 @@ constexpr int kFrameTiles = kMaxFrames / 8;  // 8-frame column tiles of the fram
 // comb's C fragments (NT tiles of 8 keys) are the A fragments (keys in pair
 // order), the one-hot B fragment is exact in TF32 (1 where key 2t or 2t + 1
 // lies in frame 8f + g; masked keys and keys past T have codes < 0), so two
-// mma a tile (small, then big) give the fp32 sum.  Each product is formed
+// mma a tile (small, then big) give the fp32 sum; one (comb rounded to
+// TF32) in a one-pass library.  Each product is formed
 // from zero and added in fp32 (a chain over T keys, as tiles.cuh §accumulate).
 template <int NT>
 __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&comb)[NT][4],
@@ -582,7 +591,7 @@ __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&com
       if (8 * f >= F) break;
       const uint32_t b[2] = {c[n][0] == 8 * f + g ? one : 0u, c[n][1] == 8 * f + g ? one : 0u};
       float part[4] = {0.f, 0.f, 0.f, 0.f};
-      mma(part, as, b);
+      if constexpr (!kOnePass) mma(part, as, b);
       mma(part, ab, b);
 #pragma unroll
       for (int i = 0; i < 4; ++i) rs[f][i] += part[i];
@@ -766,7 +775,7 @@ template <int A>
 int launch_bwd(const float* qm, const float* km, const float* vm, const float* cn,
                const float* key_mask, const float* fb, const int* fid,
                const float* gout, const float* out, const float* mrow, const float* den,
-               float* delta, float* dk, float* dv, float* dcn, float* comb, float* dq,
+               float* delta, float* dk, float* dv, float* dcn, DsT* comb, float* dq,
                float* dfb_part, int B, int H, int T, int dh, int F, cudaStream_t stream) {
   const int rows = B * H * A * T;
   mm_bwd_delta<<<(rows + 7) / 8, 256, 0, stream>>>(out, gout, delta, rows, dh);
@@ -800,7 +809,8 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
 }  // namespace
 
 // delta: (B,H,A,T) scratch, written here from gout and the forward's out.
-// Emit mode: comb (B*H, T, T) not null; dq and dfb_part are not touched.
+// Emit mode: comb (B*H, T, T), fp32 or, in the one-pass library, bf16, not
+// null; dq and dfb_part are not touched.
 // Recompute mode: comb null; dq (B,H,T,dh) and dfb_part (B, H, ceil(T /
 // 64), F, F) are written.
 extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
@@ -808,9 +818,10 @@ extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
                           const float* fb, const int* fid, const float* gout,
                           const float* out, const float* mrow, const float* den,
                           float* delta, float* dk, float* dv, float* dcn,
-                          float* comb, float* dq, float* dfb_part, int B, int H,
+                          void* comb_out, float* dq, float* dfb_part, int B, int H,
                           int A, int T, int dh, int F, void* stream) {
   if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
+  DsT* comb = static_cast<DsT*>(comb_out);
   if (comb == nullptr && (dq == nullptr || dfb_part == nullptr)) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

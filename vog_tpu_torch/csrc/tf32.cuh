@@ -16,6 +16,18 @@
 //   B (8 x 8, k x n):       b0 (k=t, n=g)               b1 (k=t+4, n=g)
 //   C (16 x 8):             c0 (g, 2t)   c1 (g, 2t+1)   c2 (g+8, 2t)   c3 (g+8, 2t+1)
 //
+// One pass ("default" precision, the production recipe's): JAX reads
+// jax_default_matmul_precision="default" as TF32 on an NVIDIA card, one
+// product a step with each operand rounded to TF32.  Each .cu builds twice
+// (kernels/_build.py): as it is ("highest", kOnePass false, 3xTF32) and
+// with -DVOG_ONE_PASS=1 ("default").  The fragment and k-step helpers take
+// the pass count as a template parameter (split, mma_p, and tiles.cuh's
+// helpers), so the "highest" instances compile to the 3xTF32 code.  A
+// one-pass operand is rounded to nearest (cvt.rna, ties away from zero, as
+// cuBLAS's TF32 products round) and not split: the tensor core reads only
+// an operand's TF32 bits, so raw fp32 bits, or split_int's truncated big
+// part, would truncate toward zero, a bias of one sign over a T=4000 sum.
+//
 // Each .cu that includes this header builds into its own library, so the
 // helpers live in an anonymous namespace.
 
@@ -23,7 +35,13 @@
 
 #include <stdint.h>
 
+#ifndef VOG_ONE_PASS
+#define VOG_ONE_PASS 0
+#endif
+
 namespace {
+
+constexpr bool kOnePass = VOG_ONE_PASS != 0;  // this library's pass count: 1 or 3
 
 // The split in two full-rate operations (no conversion instruction):
 // big = x with its low 13 mantissa bits cleared (TF32 toward zero), small =
@@ -49,6 +67,35 @@ __device__ inline void mma3(float (&c)[4], const uint32_t (&ab)[4], const uint32
   mma(c, as, bb);
   mma(c, ab, bs);
   mma(c, ab, bb);
+}
+
+// x rounded to the nearest TF32 (ties away from zero), low 13 bits clear
+__device__ inline uint32_t round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// an operand's parts: one pass, big = x rounded to TF32 (small unused, 0);
+// three passes, split_int
+template <bool kOne>
+__device__ inline void split(float x, uint32_t& big, uint32_t& small) {
+  if constexpr (kOne) {
+    big = round_tf32(x);
+    small = 0u;
+  } else {
+    split_int(x, big, small);
+  }
+}
+
+// c += a . b in one TF32 pass (the big parts) or in 3xTF32
+template <bool kOne>
+__device__ inline void mma_p(float (&c)[4], const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                             const uint32_t (&bb)[2], const uint32_t (&bs)[2]) {
+  if constexpr (kOne)
+    mma(c, ab, bb);
+  else
+    mma3(c, ab, as, bb, bs);
 }
 
 }  // namespace

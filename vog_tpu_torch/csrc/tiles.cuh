@@ -1,5 +1,5 @@
-// Shared-memory tiles of (T, dh) fp32 matrices and the 3xTF32 products
-// over them, shared by the attention kernels (attention.cu and
+// Shared-memory tiles of (T, dh) fp32 matrices and the TF32 products
+// over them (3xTF32, or one pass: tf32.cuh), shared by the attention kernels (attention.cu and
 // mm_attention.cu, forward and backward); grounding_head.cu takes its
 // cp.async helpers.
 //
@@ -21,15 +21,28 @@
 //  * Masked keys take the finite -1e30 of the TPU kernels, keys past T are
 //    excluded (-inf): a key's code is its frame id when valid, else
 //    kMasked or kPast.
+//  * The fragment and product helpers take the pass count (kOne: one TF32
+//    pass, else 3xTF32; tf32.cuh) as a template parameter whose default is
+//    the library's kOnePass.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32.cuh"  // split_int, mma3
+#include <type_traits>
+
+#include "tf32.cuh"  // split, mma_p (one pass or 3xTF32), kOnePass
 
 namespace {
+
+// An emit mode's stored score gradient (flash ds, mm comb): fp32, or bf16
+// in a one-pass library, as the JAX package stores it at "default" on the
+// chip (vog_tpu/kernels/attention.py:385-400, mm_attention.py:413-427)
+using DsT = std::conditional_t<kOnePass, __nv_bfloat16, float>;
+__device__ inline void store_ds(float* p, float x) { *p = x; }
+__device__ inline void store_ds(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 constexpr int kMaxDh = 128;      // the padded head dim
 constexpr int kND = kMaxDh / 8;  // k-steps (or 8-wide column tiles) over it
@@ -94,41 +107,45 @@ __device__ inline int key_code(const float* __restrict__ key_mask, const int* __
 }
 
 // split A fragment of the 16x8 tile at (0, k0) of a row-major shared X
+template <bool kOne = kOnePass>
 __device__ inline void frag_a(const float* X, int k0, int g, int t, uint32_t (&ab)[4],
                               uint32_t (&as)[4]) {
   const float* p = X + g * kLd + k0 + t;
-  split_int(p[0], ab[0], as[0]);
-  split_int(p[8 * kLd], ab[1], as[1]);
-  split_int(p[4], ab[2], as[2]);
-  split_int(p[8 * kLd + 4], ab[3], as[3]);
+  split<kOne>(p[0], ab[0], as[0]);
+  split<kOne>(p[8 * kLd], ab[1], as[1]);
+  split<kOne>(p[4], ab[2], as[2]);
+  split<kOne>(p[8 * kLd + 4], ab[3], as[3]);
 }
 
 // split B fragment of the 8x8 tile at (k0, n0) of X^T, X a row-major shared
 // matrix whose rows are the n index: b0 = X[n0+g][k0+t], b1 = X[n0+g][k0+t+4]
+template <bool kOne = kOnePass>
 __device__ inline void frag_bt(const float* X, int n0, int k0, int g, int t, uint32_t (&bb)[2],
                                uint32_t (&bs)[2]) {
   const float* p = X + (n0 + g) * kLd + k0 + t;
-  split_int(p[0], bb[0], bs[0]);
-  split_int(p[4], bb[1], bs[1]);
+  split<kOne>(p[0], bb[0], bs[0]);
+  split<kOne>(p[4], bb[1], bs[1]);
 }
 
 // split B fragment of the 8x8 tile at (k0, n0) of a row-major shared X
 // whose rows are the k index, rows in pair order (see a_from_c):
 // b0 = X[k0+2t][n0+g], b1 = X[k0+2t+1][n0+g]
+template <bool kOne = kOnePass>
 __device__ inline void frag_b_pairs(const float* X, int k0, int n0, int g, int t,
                                     uint32_t (&bb)[2], uint32_t (&bs)[2]) {
   const float* p = X + (k0 + 2 * t) * kLd + n0 + g;
-  split_int(p[0], bb[0], bs[0]);
-  split_int(p[kLd], bb[1], bs[1]);
+  split<kOne>(p[0], bb[0], bs[0]);
+  split<kOne>(p[kLd], bb[1], bs[1]);
 }
 
 // the split A fragment of a C fragment whose 8 columns become the k index
 // in pair order (column 2t -> k = t, column 2t+1 -> k = t+4)
+template <bool kOne = kOnePass>
 __device__ inline void a_from_c(const float (&c)[4], uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  split_int(c[0], ab[0], as[0]);
-  split_int(c[2], ab[1], as[1]);
-  split_int(c[1], ab[2], as[2]);
-  split_int(c[3], ab[3], as[3]);
+  split<kOne>(c[0], ab[0], as[0]);
+  split<kOne>(c[2], ab[1], as[1]);
+  split<kOne>(c[1], ab[2], as[2]);
+  split<kOne>(c[3], ab[3], as[3]);
 }
 
 template <int NT>
@@ -144,7 +161,7 @@ __device__ inline void zero(float (&c)[NT][4]) {
 // product is summed in two accumulator sets (even and odd k-steps), which
 // halves its dependent mma chains; TWO = false computes c alone (d may
 // then alias c).
-template <int NT, bool TWO>
+template <int NT, bool TWO, bool kOne = kOnePass>
 __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float* X1,
                               const float* Y1, const float* X2, const float* Y2, int g, int t) {
   float c2[2][NT][4], d2[2][NT][4];
@@ -156,18 +173,18 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
 #pragma unroll
   for (int ks = 0; ks < kND; ++ks) {
     uint32_t ab[4], as[4], bb[2], bs[2];
-    frag_a(X1, 8 * ks, g, t, ab, as);
+    frag_a<kOne>(X1, 8 * ks, g, t, ab, as);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      frag_bt(Y1, 8 * j, 8 * ks, g, t, bb, bs);
-      mma3(c2[ks & 1][j], ab, as, bb, bs);
+      frag_bt<kOne>(Y1, 8 * j, 8 * ks, g, t, bb, bs);
+      mma_p<kOne>(c2[ks & 1][j], ab, as, bb, bs);
     }
     if (TWO) {
-      frag_a(X2, 8 * ks, g, t, ab, as);
+      frag_a<kOne>(X2, 8 * ks, g, t, ab, as);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        frag_bt(Y2, 8 * j, 8 * ks, g, t, bb, bs);
-        mma3(d2[ks & 1][j], ab, as, bb, bs);
+        frag_bt<kOne>(Y2, 8 * j, 8 * ks, g, t, bb, bs);
+        mma_p<kOne>(d2[ks & 1][j], ab, as, bb, bs);
       }
     }
   }
@@ -191,19 +208,19 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
 // step's comparison failed on a leaf that the flash kernels' chains feed
 // (1.2e-4 against its 1e-4 limit).  The four adds a product cost the
 // flash kernels ~10 % (PERF.md).
-template <int NT>
+template <int NT, bool kOne = kOnePass>
 __device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4], const float* Y,
                                   int g, int t) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     uint32_t ab[4], as[4];
-    a_from_c(a[j], ab, as);
+    a_from_c<kOne>(a[j], ab, as);
 #pragma unroll
     for (int n = 0; n < kND; ++n) {
       uint32_t bb[2], bs[2];
-      frag_b_pairs(Y, 8 * j, 8 * n, g, t, bb, bs);
+      frag_b_pairs<kOne>(Y, 8 * j, 8 * n, g, t, bb, bs);
       float part[4] = {0.f, 0.f, 0.f, 0.f};
-      mma3(part, ab, as, bb, bs);
+      mma_p<kOne>(part, ab, as, bb, bs);
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[n][i] += part[i];
     }

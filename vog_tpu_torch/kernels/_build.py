@@ -5,8 +5,16 @@ Each ``.cu`` source has a plain C interface and compiles on its own with
 is loaded with ctypes (no PyTorch headers, so a build takes seconds).
 All sources compile in parallel, one nvcc process each, at first use,
 into ``vog_tpu_torch/build/`` (or ``$VOG_TORCH_BUILD_DIR``).  A library's
-file name carries the hash of its source and of every header in ``csrc``
-(``*.cuh``), so an edited source or header rebuilds.
+file name carries the hash of its source, its flags and every header in
+``csrc`` (``*.cuh``), so an edited source or header rebuilds.
+
+Precision: every source builds at "highest" (3xTF32 products, fp32-level
+accuracy), and the three with TF32 products build once more at "default"
+(``-DVOG_ONE_PASS=1``: one TF32 pass, bf16 emitted score gradients;
+``csrc/tf32.cuh``), each its own library and its own nvcc process, so the
+second build adds no wall time where there are cores for it.  A wrapper
+takes the library of ``config.kernel_precision()`` and counts its launches
+under ``variant(name, precision)`` (``flash_attention@default``).
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)
@@ -30,6 +38,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("gather.cu", "attention.cu", "mm_attention.cu", "grounding_head.cu")
+PRECISION_FLAGS = {"highest": (), "default": ("-DVOG_ONE_PASS=1",)}
+# every library: (source, precision); the gather (a byte copy) has no products
+LIBRARIES = tuple((s, "highest") for s in SOURCES) + tuple(
+    (s, "default") for s in SOURCES if s != "gather.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,9 +54,12 @@ _fns: Dict[str, object] = {}
 launches: Dict[str, int] = {}
 
 
-def count(name: str) -> None:
+def count(name: str, precision: str = "highest") -> None:
+    """One launch of kernel ``name`` at ``precision`` (counted under
+    ``variant(name, precision)``)."""
+    key = variant(name, precision)
     with _count_lock:
-        launches[name] = launches.get(name, 0) + 1
+        launches[key] = launches.get(key, 0) + 1
 
 
 def reset_counts() -> None:
@@ -69,6 +84,18 @@ def add_counts(delta: Dict[str, int], times: int = 1) -> None:
             launches[k] = launches.get(k, 0) + d * times
 
 
+def variant(name: str, precision: str) -> str:
+    """A kernel's counter name at ``precision``: ``name`` at "highest",
+    ``name@default`` at "default"."""
+    return name if precision == "highest" else f"{name}@{precision}"
+
+
+def lib_stem(src: str, precision: str) -> str:
+    """The library's (and its build log's) name: ``attention`` or
+    ``attention@default``."""
+    return variant(Path(src).stem, precision)
+
+
 def build_dir() -> Path:
     d = os.environ.get("VOG_TORCH_BUILD_DIR")
     return Path(d) if d else CSRC.parent / "build"
@@ -84,39 +111,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _lib_path(src: str) -> Path:
+def _lib_path(src: str, precision: str = "highest") -> Path:
     h = hashlib.sha256((CSRC / src).read_bytes())
+    h.update(" ".join(PRECISION_FLAGS[precision]).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
-    return build_dir() / f"{Path(src).stem}-{digest}.so"
+    return build_dir() / f"{lib_stem(src, precision)}-{digest}.so"
 
 
 def build_all() -> float:
-    """Compile every source whose library is missing; returns seconds."""
+    """Compile every library (``LIBRARIES``) that is missing, all in
+    parallel; returns seconds."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [s for s in SOURCES if not _lib_path(s).exists()]
+        todo = [(s, p) for s, p in LIBRARIES if not _lib_path(s, p).exists()]
         if not todo:
             return time.perf_counter() - t0
         out = build_dir()
         out.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
-        for src in todo:
-            lib = _lib_path(src)
+        for src, prec in todo:
+            lib = _lib_path(src, prec)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-            procs.append((src, lib, tmp, subprocess.Popen(
+            cmd = [nvcc, *NVCC_FLAGS, *PRECISION_FLAGS[prec], "-o", str(tmp), str(CSRC / src)]
+            procs.append((lib_stem(src, prec), lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
         failed = []
-        for src, lib, tmp, p in procs:
+        for stem, lib, tmp, p in procs:
             log, _ = p.communicate()
-            (out / f"{Path(src).stem}.log").write_text(log)
+            (out / f"{stem}.log").write_text(log)
             if p.returncode != 0:
-                failed.append(f"{src}:\n{log}")
+                failed.append(f"{stem}:\n{log}")
             else:
                 os.replace(tmp, lib)
         if failed:
@@ -124,29 +153,57 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def library(src: str) -> ctypes.CDLL:
-    """The loaded library of one source (built on first use)."""
-    lib = _libs.get(src)
+def library(src: str, precision: str = "highest") -> ctypes.CDLL:
+    """The loaded library of one source at ``precision`` (built on first
+    use)."""
+    key = lib_stem(src, precision)
+    lib = _libs.get(key)
     if lib is None:
         build_all()
         with _lock:
-            lib = _libs.get(src)
+            lib = _libs.get(key)
             if lib is None:
-                lib = ctypes.CDLL(str(_lib_path(src)))
-                _libs[src] = lib
+                lib = ctypes.CDLL(str(_lib_path(src, precision)))
+                _libs[key] = lib
     return lib
 
 
-def function(src: str, name: str, argtypes) -> object:
-    """The C entry point ``name`` of ``src``'s library, with its argument
-    types declared and an int (cudaError_t) result."""
-    fn = _fns.get(name)
+def function(src: str, name: str, argtypes, precision: str = "highest") -> object:
+    """The C entry point ``name`` of ``src``'s library at ``precision``,
+    with its argument types declared and an int (cudaError_t) result."""
+    key = (lib_stem(src, precision), name)
+    fn = _fns.get(key)
     if fn is None:
-        fn = getattr(library(src), name)
+        fn = getattr(library(src, precision), name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[key] = fn
     return fn
+
+
+# an emit mode's products widen a bf16 score gradient in slices of at most
+# this many values (128 MB of fp32)
+WIDEN_FLOATS = 1 << 25
+
+
+def bmm_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (N, M, K) @ b ((N, K, P) or (K, P)) -> fp32 (N, M, P).  A bf16
+    ``a`` (the emit modes' ds or comb at "default") is widened to fp32, as
+    the JAX package's einsum promotes it, in slices of N holding at most
+    WIDEN_FLOATS values (P100: 2 of the 8 (b, h) slices of 16M), and the
+    product runs at the process's precision (TF32 at "default").  Not a
+    bf16 product: PyTorch's would round the result to bf16, a rounding the
+    JAX package does not make."""
+    if a.dtype == torch.float32:
+        return torch.matmul(a, b)
+    N, M, K = a.shape
+    n = max(1, WIDEN_FLOATS // (M * K))
+    if n >= N:
+        return torch.matmul(a.float(), b)
+    out = torch.empty((N, M, b.shape[-1]), dtype=torch.float32, device=a.device)
+    for i in range(0, N, n):
+        torch.matmul(a[i:i + n].float(), b if b.dim() == 2 else b[i:i + n], out=out[i:i + n])
+    return out
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -1,4 +1,5 @@
-"""Attention with a factored relative-frame bias, fp32, forward and backward.
+"""Attention with a factored relative-frame bias, fp32 operands, forward and
+backward.
 
   o = softmax_j(q_i.k_j / sqrt(dh) + fb[h, fid_i, fid_j], key-masked) . v
 
@@ -34,6 +35,18 @@ carries the mode from the forward to the backward: the CUDA kernels on
 the card, ``flash_attention_plain`` / ``flash_attention_bwd_plain`` (the
 same function in both modes) on the CPU.  ``key_mask`` and ``frame_ids``
 get no gradient.
+
+Precision (``config.kernel_precision``, the counterpart of the TPU
+package's ``_precision``): at "highest" the kernels' products are 3xTF32;
+at "default" they run one TF32 pass (the library built with
+``-DVOG_ONE_PASS=1``, ``csrc/tf32.cuh``), count their launches as
+``flash_attention@default`` and so on, and emit mode stores ds in bf16, as
+the TPU package does at "default" on the chip; the two products over it
+widen it to fp32 (``_build.bmm_wide``), as the TPU package's einsum
+promotes it, and run at the process's precision (TF32).  The forward
+reads the precision and its ctx carries it to the backward.  On the CPU
+both precisions run the plain version in fp32 (it takes ``precision`` for
+the wrapper's signature only).
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
 
 NEG = -1e30
@@ -78,7 +92,7 @@ def _bias_inputs(H, T, frame_bias, frame_ids, device):
 
 
 def flash_attention_plain(
-    q, k, v, key_mask, frame_bias=None, frame_ids=None
+    q, k, v, key_mask, frame_bias=None, frame_ids=None, precision=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version -> (o (B,H,T,dh), lse (B,H,T))."""
     B, H, T, dh = q.shape
@@ -127,9 +141,12 @@ def flash_attention_fwd(
     key_mask: torch.Tensor,
     frame_bias: Optional[torch.Tensor] = None,
     frame_ids: Optional[torch.Tensor] = None,
+    precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q,k,v (B,H,T,dh) fp32; key_mask (B,T); frame_bias (H,F,F) or None;
-    frame_ids (T,) -> (o, lse)."""
+    frame_ids (T,) -> (o, lse).  ``precision``: "highest" or "default"
+    (None: ``kernel_precision()``)."""
+    prec = precision or kernel_precision()
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_mask, frame_bias, frame_ids)
     Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
@@ -137,25 +154,25 @@ def flash_attention_fwd(
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     P, I = _build.P, _build.I
-    fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, P])
+    fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, P], prec)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr,
             o.data_ptr(), lse.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
             _build.stream_ptr(q))
     _build.check(rc, NAME)
-    _build.count(NAME)
+    _build.count(NAME, prec)
     return o, lse
 
 
 def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do,
-                              bwd_mode=None):
+                              bwd_mode=None, precision=None):
     """Plain PyTorch backward from the saved LSE -> (dq, dk, dv, dfb (H,F,F)),
     as the TPU kernels' ``_block_tile`` defines it: p = exp(s - lse),
     ds = p (do.v - delta) with delta = sum(do * o), masked keys give ds = 0.
     A batch row with every key masked has lse = -1e30 + log T, which is
     -1e30 in fp32: there p = 1/T (the softmax of equal scores), as
     autograd of ``flash_attention_plain`` gives.  Both modes compute this
-    function; ``bwd_mode`` is taken for the kernel wrapper's signature and
-    does not change the arithmetic."""
+    function; ``bwd_mode`` and ``precision`` are taken for the kernel
+    wrapper's signature and do not change the arithmetic."""
     B, H, T, dh = q.shape
     scale = 1.0 / math.sqrt(dh)
     frame_bias, frame_ids = _bias_inputs(H, T, frame_bias, frame_ids, q.device)
@@ -175,12 +192,15 @@ def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, 
     return dq, dk, dv, dfb
 
 
-def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bwd_mode=None):
+def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bwd_mode=None,
+                        precision=None):
     """Backward of ``flash_attention_fwd`` -> (dq, dk, dv, dfb (H,F,F)): on
-    the card the CUDA kernels of ``bwd_mode`` (``resolve_bwd_mode``): delta,
-    then dk/dv and dq ("recompute"), or dk/dv with ds and two products over
-    it ("emit"); the plain version on the CPU."""
+    the card the CUDA kernels of ``bwd_mode`` (``resolve_bwd_mode``) at
+    ``precision`` (None: ``kernel_precision()``): delta, then dk/dv and dq
+    ("recompute"), or dk/dv with ds (bf16 at "default") and two products
+    over it ("emit"); the plain version on the CPU."""
     mode = resolve_bwd_mode(bwd_mode)
+    prec = precision or kernel_precision()
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do)
     Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
@@ -195,13 +215,14 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
     _build.require(lse, "lse", torch.float32, 3, dev)
     P, I = _build.P, _build.I
     delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)  # rowsum(do * o)
-    fn = _build.function("attention.cu", "vog_flash_delta", [P] * 3 + [I] * 2 + [P])
+    fn = _build.function("attention.cu", "vog_flash_delta", [P] * 3 + [I] * 2 + [P], prec)
     _build.check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
                     _build.stream_ptr(q)), NAME_BWD)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     scale = 1.0 / math.sqrt(dh)
     if mode == "emit":
-        ds = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
+        ds_type = torch.float32 if prec == "highest" else torch.bfloat16
+        ds = torch.empty((B * H, T, T), dtype=ds_type, device=dev)
         dq = part = None
     else:
         ds = None
@@ -210,7 +231,7 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
         part = (torch.empty((B, H, -(-T // BWD_Q_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
                 if Fn > 1 else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 14 + [I] * 5 + [_build.F, P])
+    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 14 + [I] * 5 + [_build.F, P], prec)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr, ptr(dq),
             dk.data_ptr(), dv.data_ptr(), ptr(part), ptr(ds), B, H, T, dh, Fn, scale,
@@ -218,22 +239,23 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
     zeros = lambda: torch.zeros((H, 1, 1), dtype=torch.float32, device=dev)  # noqa: E731
     if mode == "emit":
         _build.check(rc, NAME_BWD_EMIT)
-        _build.count(NAME_BWD_EMIT)
-        dq = torch.matmul(ds, k.reshape(B * H, T, dh)).reshape(q.shape) * scale
+        _build.count(NAME_BWD_EMIT, prec)
+        dq = _build.bmm_wide(ds, k.reshape(B * H, T, dh)).reshape(q.shape) * scale
         if Fn == 1:
             return dq, dk, dv, zeros()
-        onehot = torch.nn.functional.one_hot(frame_ids.long(), Fn).to(ds.dtype)  # (T,F)
-        dfb = torch.matmul(onehot.t(), torch.matmul(ds, onehot))  # (BH,F,F)
+        onehot = torch.nn.functional.one_hot(frame_ids.long(), Fn).float()  # (T,F)
+        dfb = torch.matmul(onehot.t(), _build.bmm_wide(ds, onehot))  # (BH,F,F)
         return dq, dk, dv, dfb.reshape(B, H, Fn, Fn).sum(0)
     _build.check(rc, NAME_BWD)
-    _build.count(NAME_BWD)
+    _build.count(NAME_BWD, prec)
     return dq, dk, dv, zeros() if part is None else part.sum(dim=(0, 2))
 
 
 class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_mask, frame_bias, frame_ids, bwd_mode):
-        o, lse = flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids)
+        ctx.precision = kernel_precision()
+        o, lse = flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids, ctx.precision)
         ctx.has_bias = frame_bias is not None
         ctx.bwd_mode = bwd_mode
         ctx.save_for_backward(q, k, v, key_mask, frame_bias, frame_ids, o, lse)
@@ -243,8 +265,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, key_mask, frame_bias, frame_ids, o, lse = ctx.saved_tensors
         dq, dk, dv, dfb = flash_attention_bwd(
-            q, k, v, key_mask, frame_bias, frame_ids, o, lse, do.contiguous(), bwd_mode=ctx.bwd_mode
-        )
+            q, k, v, key_mask, frame_bias, frame_ids, o, lse, do.contiguous(), bwd_mode=ctx.bwd_mode,
+            precision=ctx.precision)
         return dq, dk, dv, None, (dfb if ctx.has_bias else None), None, None
 
 

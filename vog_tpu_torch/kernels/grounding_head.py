@@ -1,4 +1,4 @@
-"""Fused cross-MLP grounding head, fp32, forward and backward.
+"""Fused cross-MLP grounding head, fp32 operands, forward and backward.
 
   logit[b,a,t] = w2 . relu(relu(wv_t + wl_a + (vis_t * arg_a) @ Wx) @ W1 + b1) + b2
 
@@ -41,12 +41,23 @@ ones (dvis, dwv and the weight gradients) group by group in order.  The
 CPU path takes the same groups.
 ``fused_grounding_head`` is a ``torch.autograd.Function``: the CUDA
 kernels on the card, ``grounding_head_bwd_plain`` on the CPU.
+
+Precision (``config.kernel_precision``): at "highest" the products are
+3xTF32, as above; at "default" (the library built with
+``-DVOG_ONE_PASS=1``) they are one TF32 pass: ``head_fwd_prep`` lays out
+each weight once, rounded to the nearest TF32, so the stream halves, each
+k-step issues one wgmma instead of three, and the backward's mma.sync
+products take one pass.  Launches count as ``fused_grounding_head@default``
+and ``fused_grounding_head_bwd@default``.  The operands stay fp32 (as the
+JAX package keeps them, its grounding.py:92-98); the forward reads the
+precision and its ctx carries it to the backward.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
 
 NAME = "fused_grounding_head"
@@ -68,16 +79,24 @@ def arg_groups(A: int):
     return list(zip(bounds[:-1], bounds[1:]))
 
 
-def fwd_stream_floats(D: int) -> int:
+def fwd_stream_floats(D: int, precision: str = "highest") -> int:
     """Floats of the forward's weight stream (``head_fwd_prep``): for each
     of the D_pad / 64 chunks, D_pad / 8 z0 k-steps of 64 x 8 and 8 z1
     k-steps of 256 x 8 (D_pad = D rounded up to 64), each stored as its big
-    and its small parts."""
+    and its small parts ("highest") or once, rounded ("default")."""
     dp = -(-D // FWD_CHUNK) * FWD_CHUNK
-    return 2 * (dp // FWD_CHUNK) * (dp // 8 * FWD_CHUNK * 8 + 8 * 256 * 8)
+    parts = 2 if precision == "highest" else 1
+    return parts * (dp // FWD_CHUNK) * (dp // 8 * FWD_CHUNK * 8 + 8 * 256 * 8)
 
 
-def fwd_stream_plain(wx, w1) -> torch.Tensor:
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to the nearest TF32, ties away from zero, the low
+    13 bits cleared: ``cvt.rna.tf32.f32`` (csrc/tf32.cuh §round_tf32) for
+    finite values."""
+    return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
+
+
+def fwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
     """Plain version of ``head_fwd_prep``: Wx (D, D) and W1 (D, Dh) as the
     forward's weight stream, zero-padded to D_pad (a multiple of 64) and
     to 256 hidden columns.  Chunk c holds the z0 k-steps s (Wx rows 8s ..
@@ -87,7 +106,9 @@ def fwd_stream_plain(wx, w1) -> torch.Tensor:
     TF32 wgmma, k in pair order).  The stream is cut into stages of 2048
     weights (4 z0 k-steps or 1 z1 k-step), each stored as its big parts (the
     low 13 mantissa bits cleared: TF32 toward zero), then its small parts
-    (the rest, exact): big + small rebuilds every weight."""
+    (the rest, exact): big + small rebuilds every weight.  At "default" a
+    stage holds each weight once, rounded to the nearest TF32
+    (``round_tf32``)."""
     D, Dh = wx.shape[0], w1.shape[1]
     dp = -(-D // FWD_CHUNK) * FWD_CHUNK
     nch = dp // FWD_CHUNK
@@ -99,6 +120,8 @@ def fwd_stream_plain(wx, w1) -> torch.Tensor:
     z0 = wxp.reshape(dp // 8, 4, 2, nch, FWD_CHUNK).permute(3, 0, 2, 4, 1).reshape(nch, -1)
     z1 = w1p.reshape(nch, 8, 4, 2, 256).permute(0, 1, 3, 4, 2).reshape(nch, -1)
     raw = torch.cat([z0, z1], dim=1).reshape(-1, 2048).contiguous()
+    if precision != "highest":
+        return round_tf32(raw).reshape(-1)
     big = (raw.view(torch.int32) & -8192).view(torch.float32)  # 0xffffe000
     return torch.stack([big, raw - big], dim=1).reshape(-1).contiguous()
 
@@ -112,8 +135,9 @@ def shape_fault(D: int, Dh: int):
     return None
 
 
-def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
-    """Plain PyTorch version -> (B,A,T)."""
+def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, precision=None) -> torch.Tensor:
+    """Plain PyTorch version -> (B,A,T) (``precision`` is taken for the
+    wrapper's signature only)."""
     cross = vis[:, None] * arg[:, :, None]  # (B,A,T,D)
     h = torch.relu(wv[:, None] + wl[:, :, None] + torch.matmul(cross, wx))
     h1 = torch.relu(torch.matmul(h, w1) + b1)
@@ -153,33 +177,35 @@ def _groups(arg, wl, g):
         yield sl(arg), sl(wl), sl(g)
 
 
-def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2) -> torch.Tensor:
+def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, precision=None) -> torch.Tensor:
     """vis (B,T,D), arg (B,A,D), wv (B,T,D), wl (B,A,D), wx (D,D),
     w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T): the
-    CUDA kernels on the card (one launch, any A), the plain version on the
-    CPU."""
+    CUDA kernels at ``precision`` (None: ``kernel_precision()``) on the
+    card (one launch, any A), the plain version on the CPU."""
+    prec = precision or kernel_precision()
     if vis.device.type == "cpu":
         return grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2)
     b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, max_args=None)
     B, T, D = vis.shape
     A, Dh = arg.shape[1], w1.shape[1]
     out = torch.empty((B, A, T), dtype=torch.float32, device=vis.device)
-    stream = torch.empty((fwd_stream_floats(D),), dtype=torch.float32, device=vis.device)
+    stream = torch.empty((fwd_stream_floats(D, prec),), dtype=torch.float32, device=vis.device)
     P, I = _build.P, _build.I
-    prep = _build.function("grounding_head.cu", "vog_head_fwd_prep", [P] * 3 + [I] * 2 + [P])
+    prep = _build.function("grounding_head.cu", "vog_head_fwd_prep", [P] * 3 + [I] * 2 + [P], prec)
     _build.check(prep(wx.data_ptr(), w1.data_ptr(), stream.data_ptr(), D, Dh, _build.stream_ptr(vis)), NAME)
-    fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 9 + [I] * 5 + [P])
+    fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 9 + [I] * 5 + [P], prec)
     rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), stream.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, A, T, D, Dh,
             _build.stream_ptr(vis))
     _build.check(rc, NAME)
-    _build.count(NAME)
+    _build.count(NAME, prec)
     return out
 
 
-def grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
+def grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, precision=None):
     """Plain PyTorch backward -> (dvis, darg, dwv, dwl, dwx, dw1, db1, dw2,
-    db2), as the TPU kernel's ``_bwd_kernel`` defines it (relu' is 0 at 0)."""
+    db2), as the TPU kernel's ``_bwd_kernel`` defines it (relu' is 0 at 0;
+    ``precision`` is taken for the wrapper's signature only)."""
     cross = vis[:, None] * arg[:, :, None]  # (B,A,T,D)
     z0 = wv[:, None] + wl[:, :, None] + torch.matmul(cross, wx)
     h = torch.relu(z0)
@@ -202,20 +228,25 @@ def grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
     )
 
 
-def grounding_head_bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
-    """Backward of ``grounding_head_fwd`` -> the 9 gradients, the args in
-    the forward's groups: per-arg gradients concatenated, the others added
-    group by group in order."""
+def grounding_head_bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, precision=None, scratch=None):
+    """Backward of ``grounding_head_fwd`` at ``precision`` (None:
+    ``kernel_precision()``) -> the 9 gradients, the args in the forward's
+    groups: per-arg gradients concatenated, the others added group by group
+    in order.  ``scratch`` (a dict, at most KERNEL_ARGS args, on the card):
+    filled with the row kernel's h = relu(z0) and dz1 = [z1 > 0] g w2
+    (B, A, T, .), its ReLU decisions, for a check that holds the arithmetic
+    apart from the kinks (chip_smoke.py)."""
+    prec = precision or kernel_precision()
     if arg.shape[1] <= KERNEL_ARGS:
-        return _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g)
-    parts = [_bwd(vis, a, wv, l, wx, w1, b1, w2, b2, gg) for a, l, gg in _groups(arg, wl, g)]
+        return _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch)
+    parts = [_bwd(vis, a, wv, l, wx, w1, b1, w2, b2, gg, prec) for a, l, gg in _groups(arg, wl, g)]
     cat = lambda i: torch.cat([p[i] for p in parts], dim=1)  # noqa: E731
     add = lambda i: sum(p[i] for p in parts)  # noqa: E731  (in group order)
     return (add(0), cat(1), add(2), cat(3), add(4), add(5), add(6), add(7),
             g.sum().reshape(b2.shape))
 
 
-def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
+def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
     """One group's 9 gradients: the two CUDA kernels on the card, the plain
     version on the CPU."""
     if vis.device.type == "cpu":
@@ -235,7 +266,7 @@ def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
     db1_p, dw2_p = e(B, nt, Dh), e(B, nt, Dh)
     dwx_p, dw1_p = e(W_CHUNKS, D, D), e(W_CHUNKS, D, Dh)
     P, I = _build.P, _build.I
-    fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 21 + [I] * 6 + [P])
+    fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 21 + [I] * 6 + [P], prec)
     rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), wx.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(), cross.data_ptr(), h.data_ptr(),
             dz0.data_ptr(), dz1.data_ptr(), dvis.data_ptr(), dwv.data_ptr(),
@@ -243,7 +274,9 @@ def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g):
             dwx_p.data_ptr(), dw1_p.data_ptr(), B, A, T, D, Dh, W_CHUNKS,
             _build.stream_ptr(vis))
     _build.check(rc, NAME_BWD)
-    _build.count(NAME_BWD)
+    _build.count(NAME_BWD, prec)
+    if scratch is not None:
+        scratch.update(h=h, dz1=dz1)
     return (
         dvis, darg_p.sum(1), dwv, dwl_p.sum(1), dwx_p.sum(0), dw1_p.sum(0),
         db1_p.sum((0, 1)), dw2_p.sum((0, 1)), g.sum().reshape(b2.shape),
@@ -254,11 +287,12 @@ class FusedGroundingHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, vis, arg, wv, wl, wx, w1, b1, w2, b2):
         ctx.save_for_backward(vis, arg, wv, wl, wx, w1, b1, w2, b2)
-        return grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+        ctx.precision = kernel_precision()
+        return grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, ctx.precision)
 
     @staticmethod
     def backward(ctx, g):
-        return grounding_head_bwd(*ctx.saved_tensors, g.contiguous())
+        return grounding_head_bwd(*ctx.saved_tensors, g.contiguous(), precision=ctx.precision)
 
 
 def fused_grounding_head(

@@ -1,5 +1,5 @@
-"""Shared-QK multi-arg attention (decomposed first mm layer), fp32, forward
-and backward.
+"""Shared-QK multi-arg attention (decomposed first mm layer), fp32 operands,
+forward and backward.
 
 Per arg a:  out_a = softmax_j(s_ij + cn_aj) . vm,
             s = qm.km^T + fb[h, fid_i, fid_j], key-masked to NEG,
@@ -47,6 +47,16 @@ Both modes compute the same function; on the CPU both run
 ``mm_attention_bwd_plain``.  ``mm_shared_qk_attention`` is a
 ``torch.autograd.Function`` whose ctx carries the mode from the forward to
 the backward.  ``key_mask`` and ``frame_ids`` get no gradient.
+
+Precision (``config.kernel_precision``), as ``kernels/attention.py``: at
+"highest" 3xTF32 products; at "default" one TF32 pass (the library built
+with ``-DVOG_ONE_PASS=1``), launches counted as
+``mm_shared_qk_attention@default`` and so on, and emit mode stores comb
+in bf16, as the TPU package does at "default" on the chip (its
+mm_attention.py:413-427), widened to fp32 for the two products over it
+(``_build.bmm_wide``).  The forward reads the precision and its ctx
+carries it to the backward; the plain versions take ``precision`` for the
+wrappers' signature only.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
 
 NEG = -1e30
@@ -81,7 +92,7 @@ def resolve_bwd_mode(mode: Optional[str]) -> str:
     return mode
 
 
-def mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
+def mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, precision=None):
     """Plain PyTorch version -> (out (B,H,A,T,dh), row max (B,H,A,T),
     denominator (B,H,A,T))."""
     fid = frame_ids.long()
@@ -127,9 +138,12 @@ def mm_attention_fwd(
     key_mask: torch.Tensor,
     frame_bias: torch.Tensor,
     frame_ids: torch.Tensor,
+    precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """qm,km,vm (B,H,T,dh) fp32; cn (B,H,A,T); key_mask (B,T) fp32;
-    frame_bias (H,F,F); frame_ids (T,) int32 -> (out, row max, den)."""
+    frame_bias (H,F,F); frame_ids (T,) int32 -> (out, row max, den), at
+    ``precision`` (None: ``kernel_precision()``)."""
+    prec = precision or kernel_precision()
     if qm.device.type == "cpu":
         return mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
     _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
@@ -141,33 +155,38 @@ def mm_attention_fwd(
     mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P])
+    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P], prec)
     rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
             key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(),
             out.data_ptr(), mrow.data_ptr(), den.data_ptr(),
             B, H, A, T, dh, Fn, _build.stream_ptr(qm))
     _build.check(rc, NAME)
-    _build.count(NAME)
+    _build.count(NAME, prec)
     return out, mrow, den
 
 
 def _dq_dfb(comb, km, frame_ids, Fn, H):
-    """dq = comb . km and dfb = sum_b onehot^T comb onehot (H,F,F)."""
+    """dq = comb . km and dfb = sum_b onehot^T comb onehot (H,F,F), in fp32
+    (a bf16 comb widened: ``_build.bmm_wide``)."""
     BH, T, _ = comb.shape
-    dq = torch.matmul(comb, km.reshape(BH, T, -1))
-    onehot = torch.nn.functional.one_hot(frame_ids.long(), Fn).to(comb.dtype)  # (T,F)
-    dfb = torch.matmul(torch.matmul(onehot.t(), comb), onehot)  # (BH,F,F)
+    dq = _build.bmm_wide(comb, km.reshape(BH, T, -1))
+    onehot = torch.nn.functional.one_hot(frame_ids.long(), Fn).float()  # (T,F)
+    if comb.dtype == torch.float32:
+        dfb = torch.matmul(torch.matmul(onehot.t(), comb), onehot)  # (BH,F,F)
+    else:
+        dfb = torch.matmul(onehot.t(), _build.bmm_wide(comb, onehot))
     return dq.reshape(km.shape), dfb.reshape(-1, H, Fn, Fn).sum(0)
 
 
 def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g,
-                           bwd_mode=None):
+                           bwd_mode=None, precision=None):
     """Plain PyTorch backward from the saved per-arg row max and
     denominator -> (dq, dk, dv, dcn, dfb), as ``_make_bwd_dkv_kernel``
     defines it: p_a = exp(s + cn_a - m_a), ds_a = p_a (g_a.vm - delta_a) /
     den_a, comb = sum_a ds_a masked to the valid keys, dcn_a = sum_i ds_a.
-    Both modes compute this function; ``bwd_mode`` is taken for the
-    kernel wrapper's signature and does not change the arithmetic."""
+    Both modes compute this function; ``bwd_mode`` and ``precision`` are
+    taken for the kernel wrapper's signature and do not change the
+    arithmetic."""
     B, H, T, dh = qm.shape
     Fn = frame_bias.shape[-1]
     fid = frame_ids.long()
@@ -187,11 +206,14 @@ def mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out,
 
 
 def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g,
-                     bwd_mode=None):
+                     bwd_mode=None, precision=None):
     """Backward of ``mm_attention_fwd`` -> (dq, dk, dv, dcn, dfb): on the
-    card the CUDA kernels of ``bwd_mode`` (``resolve_bwd_mode``), in emit
-    mode with two products over their comb; the plain version on the CPU."""
+    card the CUDA kernels of ``bwd_mode`` (``resolve_bwd_mode``) at
+    ``precision`` (None: ``kernel_precision()``), in emit mode with two
+    products over their comb (bf16 at "default"); the plain version on the
+    CPU."""
     mode = resolve_bwd_mode(bwd_mode)
+    prec = precision or kernel_precision()
     if qm.device.type == "cpu":
         return mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
                                       out, mrow, den, g)
@@ -210,7 +232,8 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
     dk, dv = torch.empty_like(km), torch.empty_like(vm)
     dcn = torch.empty_like(cn)
     if mode == "emit":
-        comb = torch.empty((B * H, T, T), dtype=torch.float32, device=dev)
+        comb = torch.empty((B * H, T, T), dtype=torch.float32 if prec == "highest" else torch.bfloat16,
+                           device=dev)
         dq = part = None
     else:  # no (T, T) buffer: dq and the frame-bias partials from mm_bwd_dq
         comb = None
@@ -218,7 +241,7 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
         part = torch.empty((B, H, -(-T // DQ_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P])
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P], prec)
     rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
             frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
             mrow.data_ptr(), den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -226,11 +249,11 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
             _build.stream_ptr(qm))
     if mode == "emit":
         _build.check(rc, NAME_BWD)
-        _build.count(NAME_BWD)
+        _build.count(NAME_BWD, prec)
         dq, dfb = _dq_dfb(comb, km, frame_ids, Fn, H)
     else:
         _build.check(rc, NAME_BWD_RECOMPUTE)
-        _build.count(NAME_BWD_RECOMPUTE)
+        _build.count(NAME_BWD_RECOMPUTE, prec)
         dfb = part.sum(dim=(0, 2))
     return dq, dk, dv, dcn, dfb
 
@@ -238,7 +261,9 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
 class MMSharedQKAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qm, km, vm, cn, key_mask, frame_bias, frame_ids, bwd_mode):
-        out, mrow, den = mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+        ctx.precision = kernel_precision()
+        out, mrow, den = mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
+                                          ctx.precision)
         ctx.bwd_mode = bwd_mode
         ctx.save_for_backward(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den)
         return out
@@ -246,7 +271,7 @@ class MMSharedQKAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         dq, dk, dv, dcn, dfb = mm_attention_bwd(*ctx.saved_tensors, g.contiguous(),
-                                                bwd_mode=ctx.bwd_mode)
+                                                bwd_mode=ctx.bwd_mode, precision=ctx.precision)
         return dq, dk, dv, dcn, None, dfb, None, None
 
 

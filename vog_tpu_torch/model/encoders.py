@@ -5,6 +5,10 @@
     relu(Linear([span mean ; role embedding ; verb hidden state])).
   * PropEncoder: relu(Linear([RoI fc6 ; 5-d box])).
   * SegEncoder: relu(Linear(TSN segment feature)).
+
+The BiLSTM and the language path run fp32; the arg rep handed to the
+visual fusion, and the two visual encoders, follow the activation dtype
+(``model/dtypes.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as Fn
 
+from vog_tpu_torch.model.dtypes import act_dtype, linear
 from vog_tpu_torch.model.lstm import TorchBiLSTM
 
 
@@ -35,6 +40,7 @@ class LangEncoder(nn.Module):
         super().__init__()
         m = cfg.mdl
         self.train_embeddings = bool(m.train_embeddings)
+        self.dt = act_dtype(cfg)
         self.embed = nn.Embedding(vocab_size, m.emb_dim)
         self.bilstm = TorchBiLSTM(m.emb_dim, m.lstm_dim)
         self.role_embed = nn.Embedding(cfg.ds.num_roles, m.role_dim)
@@ -52,6 +58,9 @@ class LangEncoder(nn.Module):
         A = arg_span.shape[1]
         verb_tiled = verb_rep[:, None].expand(B, A, verb_rep.shape[-1])
         arg_rep = torch.relu(self.arg_proj(torch.cat([arg_span, role_emb, verb_tiled], dim=-1)))
+        # the language path stays fp32; only the rep handed to the visual
+        # fusion follows the activation dtype
+        arg_rep = arg_rep.to(self.dt)
         return {"arg_rep": arg_rep, "verb_rep": verb_rep, "hidden": y}
 
 
@@ -59,16 +68,19 @@ class PropEncoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.prop_proj = nn.Linear(cfg.ds.prop_dim + 5, cfg.mdl.vis_dim)
+        self.dt = act_dtype(cfg)
 
     def forward(self, props: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([props.float(), boxes.float()], dim=-1)
-        return torch.relu(self.prop_proj(x))
+        # features may arrive bf16 (misc.half_feats) or fp32; compute in the activation dtype
+        x = torch.cat([props.to(self.dt), boxes.to(self.dt)], dim=-1)
+        return torch.relu(linear(x, self.prop_proj))
 
 
 class SegEncoder(nn.Module):
     def __init__(self, cfg):
         super().__init__()
         self.seg_proj = nn.Linear(cfg.ds.seg_dim, cfg.mdl.vis_dim)
+        self.dt = act_dtype(cfg)
 
     def forward(self, seg: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.seg_proj(seg.float()))
+        return torch.relu(linear(seg.to(self.dt), self.seg_proj))

@@ -4,7 +4,10 @@ Counterpart of vog_tpu/model/grounding.py.  Every model consumes the clip
 view of ``sampling.assemble_batch`` and returns logits (B', A, T).  The
 fused head always goes through the head kernel's wrapper (the CUDA kernels
 on the card, the plain versions on the CPU, forward and backward).  The
-loss is in ``model/loss.py``.
+loss is in ``model/loss.py``.  Under the bf16 activation policy
+(``model/dtypes.py``) the visual and multimodal path computes in bf16,
+the head kernel takes fp32 operands, and every model returns fp32
+logits.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from vog_tpu_torch.config import apply_matmul_precision
 from vog_tpu_torch.device import DeviceLike, resolve_device
 from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
 from vog_tpu_torch.kernels.grounding_head import fused_grounding_head
-from vog_tpu_torch.model.dtypes import act_dtype
+from vog_tpu_torch.model.dtypes import act_dtype, linear
 from vog_tpu_torch.model.encoders import LangEncoder, PropEncoder, SegEncoder
 from vog_tpu_torch.model.transformer import (
     ObjectTransformer,
@@ -55,17 +58,23 @@ class GroundingHead(nn.Module):
         self.head2_bias = nn.Parameter(torch.zeros(1))
 
     def forward(self, vis: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
-        wv = torch.matmul(vis, self.fuse_vis_kernel) + self.fuse_vis_bias  # (B,T,D)
-        wl = torch.matmul(arg, self.fuse_lang_kernel)  # (B,A,D)
+        # the stems in the activation dtype (vis's), the params cast per
+        # matmul; the kernel's operands fp32, its logits fp32
+        dt = vis.dtype
+        wv = torch.matmul(vis, self.fuse_vis_kernel.to(dt)) + self.fuse_vis_bias.to(dt)  # (B,T,D)
+        wl = torch.matmul(arg, self.fuse_lang_kernel.to(dt))  # (B,A,D)
+        f32 = torch.float32
         return fused_grounding_head(
-            vis.contiguous(), arg.contiguous(), wv, wl, self.fuse_cross_kernel,
+            vis.to(f32).contiguous(), arg.to(f32).contiguous(), wv.to(f32), wl.to(f32),
+            self.fuse_cross_kernel,
             self.head1_kernel, self.head1_bias, self.head2_kernel[:, 0].contiguous(),
             self.head2_bias,
         )
 
 
 class DotGroundingHead(nn.Module):
-    """score = <MLP_v(vis_t), MLP_l(arg_a)> / sqrt(D) + bias."""
+    """score = <MLP_v(vis_t), MLP_l(arg_a)> / sqrt(D) + bias: the MLPs in
+    the activation dtype (vis's), the scores fp32."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -76,9 +85,9 @@ class DotGroundingHead(nn.Module):
 
     def forward(self, vis: torch.Tensor, arg: torch.Tensor) -> torch.Tensor:
         D = vis.shape[-1]
-        v = self.v2(torch.relu(self.v1(vis)))
-        lg = self.l2(torch.relu(self.l1(arg)))
-        return torch.matmul(lg, v.transpose(-1, -2)) / math.sqrt(D) + self.score_bias
+        v = linear(torch.relu(linear(vis, self.v1)), self.v2)
+        lg = linear(torch.relu(linear(arg, self.l1)), self.l2)
+        return torch.matmul(lg.float(), v.float().transpose(-1, -2)) / math.sqrt(D) + self.score_bias
 
 
 class ImgGrnd(nn.Module):
@@ -87,6 +96,7 @@ class ImgGrnd(nn.Module):
     def __init__(self, cfg, vocab_size: int, n_frames: int):
         super().__init__()
         self.cfg = cfg
+        self.dt = act_dtype(cfg)  # the activation dtype (params stay fp32)
         self.n_frames = n_frames
         self.lang = LangEncoder(cfg, vocab_size)
         self.prop_enc = PropEncoder(cfg)
@@ -143,16 +153,16 @@ class VOGNet(ImgGrnd):
         arg = lang["arg_rep"]  # (B,A,D)
         B, T, D = vis.shape
         A = arg.shape[1]
-        m = self.mm_proj_vis(vis)
-        g = self.mm_proj_arg(arg)
+        m = linear(vis, self.mm_proj_vis)
+        g = linear(arg, self.mm_proj_arg)
         if self.cfg.mdl.decomposed_mm:
             mm = self.mm_tx(m, g, key_mask, fid)
         else:
             tokens = (m[:, None] + g[:, :, None]).reshape(B * A, T, D)
             mm = self.mm_tx(tokens, key_mask.repeat_interleave(A, dim=0), fid)
         mm = mm.reshape(B, A, T, D)
-        logits = self.head(vis, arg)
-        return logits + self.mm_head(torch.relu(mm))[..., 0]
+        logits = self.head(vis, arg)  # fp32
+        return logits + linear(torch.relu(mm), self.mm_head)[..., 0].float()
 
 
 MODELS = {"img_grnd": ImgGrnd, "vid_grnd": VidGrnd, "vog": VOGNet}
@@ -194,13 +204,12 @@ def get_model(
     """Build the configured model on ``device`` (cuda by default), with
     random weights made from ``seed``, in eval mode, or in train mode
     (dropout on, and cuDNN's BiLSTM backward allowed) when ``train``.
-    Applies ``misc.matmul_precision``; on the card, checks the kernels'
+    The parameters are fp32 whatever ``mdl.dtype`` says (the activation
+    dtype, ``model/dtypes.py``).  Applies ``misc.matmul_precision``; on the card, checks the kernels'
     shape ranges first (``check_kernel_shapes``)."""
     if torch.device("cuda" if device is None else device).type == "cuda":
         check_kernel_shapes(cfg)
     dev = resolve_device(device)
-    if act_dtype(cfg) != torch.float32:
-        raise NotImplementedError("the port runs fp32 activations; bf16 comes in a later slice")
     apply_matmul_precision(cfg)
     ds = cfg.ds
     _, n_frames, _ = view_dims(ds.conc_type, ds.num_cmp, ds.num_frms, ds.num_prop_per_frm)

@@ -15,8 +15,15 @@ of each attention block and on the FFN hidden of each layer.  Its keep
 mask is a pure function of a key (from seed, step and microbatch, the step
 a device tensor), the site and the element index (``dropout_keep``), in
 torch integer ops: the same bits on the CPU and the card, in an eager step
-and in a CUDA graph replay, with no generator state.  It is off in eval
-mode and at rate 0.  The JAX package's T >= 1024 kernel gates
+and in a CUDA graph replay, with no generator state; it applies to bf16
+tensors unchanged.  It is off in eval mode and at rate 0.
+
+Activation dtype (``model/dtypes.py``): the projections (qkv, out, ff1,
+ff2) and the LayerNorms compute and store in the activation dtype, with
+fp32 parameters cast per call; the LayerNorm statistics, the attention
+kernels' operands and results, and the decomposed layer's per-arg key
+term c (and cn) are fp32, each kernel result cast back to the activation
+dtype.  The JAX package's T >= 1024 kernel gates
 were tuned on a TPU and are not copied; sequence-parallel ring attention
 waits for a later slice.
 """
@@ -33,6 +40,7 @@ import torch.nn.functional as Fn
 
 from vog_tpu_torch.kernels.attention import flash_attention
 from vog_tpu_torch.kernels.mm_attention import mm_shared_qk_attention
+from vog_tpu_torch.model.dtypes import LayerNorm, act_dtype, linear
 
 
 def sinusoidal_pe(positions: torch.Tensor, dim: int) -> torch.Tensor:
@@ -160,15 +168,16 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         D = cfg.mdl.vis_dim
         self.H = cfg.mdl.n_heads
+        self.dt = act_dtype(cfg)
         self.qkv = nn.Linear(D, 3 * D)
         self.out = nn.Linear(D, D)
         self.drop = Dropout(cfg.mdl.dropout)
 
     def forward(self, x, key_mask, frame_ids):
         B, T, D = x.shape
-        q, k, v = (_heads(t, self.H) for t in self.qkv(x).chunk(3, dim=-1))
-        o = flash_attention(q, k, v, key_mask)
-        return self.drop(self.out(o.permute(0, 2, 1, 3).reshape(B, T, D)))
+        q, k, v = (_heads(t, self.H).float() for t in linear(x, self.qkv, self.dt).chunk(3, dim=-1))
+        o = flash_attention(q, k, v, key_mask).to(self.dt)  # kernel operands fp32
+        return self.drop(linear(o.permute(0, 2, 1, 3).reshape(B, T, D), self.out))
 
 
 class RelMultiHeadAttention(nn.Module):
@@ -178,6 +187,7 @@ class RelMultiHeadAttention(nn.Module):
         super().__init__()
         D = cfg.mdl.vis_dim
         self.H, K = cfg.mdl.n_heads, cfg.mdl.rpe_max_dist
+        self.dt = act_dtype(cfg)
         self.qkv = nn.Linear(D, 3 * D)
         self.out = nn.Linear(D, D)
         self.rpe_table = nn.Parameter(torch.zeros(self.H, 2 * K + 1))
@@ -189,9 +199,9 @@ class RelMultiHeadAttention(nn.Module):
 
     def forward(self, x, key_mask, frame_ids):
         B, T, D = x.shape
-        q, k, v = (_heads(t, self.H) for t in self.qkv(x).chunk(3, dim=-1))
-        o = flash_attention(q, k, v, key_mask, self.frame_bias(), frame_ids)
-        return self.drop(self.out(o.permute(0, 2, 1, 3).reshape(B, T, D)))
+        q, k, v = (_heads(t, self.H).float() for t in linear(x, self.qkv, self.dt).chunk(3, dim=-1))
+        o = flash_attention(q, k, v, key_mask, self.frame_bias(), frame_ids).to(self.dt)
+        return self.drop(linear(o.permute(0, 2, 1, 3).reshape(B, T, D), self.out))
 
 
 class DecomposedRelAttention(RelMultiHeadAttention):
@@ -203,26 +213,33 @@ class DecomposedRelAttention(RelMultiHeadAttention):
     in the softmax.  So one shared score matrix serves all A args through
     the combined-logit softmax softmax_j(s_ij + c_aj), and vg_a shifts each
     output since the probabilities sum to 1.  The kernel takes
-    cn = c - max_j c and the pre-scaled qm."""
+    cn = c - max_j c and the pre-scaled qm, in fp32.  In bf16 the g-part is
+    qkv(g) - qkv(0), as the JAX package forms it in the activation dtype;
+    in fp32 it is the bias-free product (the same value)."""
 
     def forward(self, m, g, key_mask, frame_ids):
         B, T, D = m.shape
         A = g.shape[1]
         H = self.H
         dh = D // H
-        qm, km, vm = (_heads(t, H) for t in self.qkv(m).chunk(3, dim=-1))
+        dt = self.dt
+        qm, km, vm = (_heads(t, H).float() for t in linear(m, self.qkv, dt).chunk(3, dim=-1))
         # the bias lives in the m-part; the g-part is the linear part only
-        qg, kg, vg = (_heads(t, H) for t in Fn.linear(g, self.qkv.weight).chunk(3, dim=-1))
+        if dt == torch.float32:
+            g_lin = Fn.linear(g, self.qkv.weight)
+        else:
+            g_lin = linear(g, self.qkv, dt) - self.qkv.bias.to(dt)  # qkv(g) - qkv(0)
+        qg, kg, vg = (_heads(t, H) for t in g_lin.chunk(3, dim=-1))
         scale = 1.0 / math.sqrt(dh)
-        c = torch.matmul(qg, km.transpose(-1, -2)) * scale  # (B,H,A,T)
+        c = torch.matmul(qg.float(), km.transpose(-1, -2)) * scale  # (B,H,A,T) fp32
         c = torch.where(key_mask[:, None, None, :] > 0, c, torch.zeros_like(c))
         cn = (c - c.amax(dim=-1, keepdim=True)).contiguous()
         pv = mm_shared_qk_attention(
             (qm * scale).contiguous(), km, vm, cn, key_mask, self.frame_bias(), frame_ids
-        )  # (B,H,A,T,dh)
-        out = pv + vg[:, :, :, None]
+        )  # (B,H,A,T,dh) fp32
+        out = (pv + vg.float()[:, :, :, None]).to(dt)
         out = out.permute(0, 2, 3, 1, 4).reshape(B, A, T, D)
-        return self.drop(self.out(out))
+        return self.drop(linear(out, self.out))
 
 
 class TxLayer(nn.Module):
@@ -232,15 +249,19 @@ class TxLayer(nn.Module):
         super().__init__()
         D = cfg.mdl.vis_dim
         self.attn = RelMultiHeadAttention(cfg, n_frames) if relative else MultiHeadAttention(cfg)
-        self.ln1 = nn.LayerNorm(D, eps=1e-6)
+        self.ln1 = LayerNorm(D, eps=1e-6)
         self.ff1 = nn.Linear(D, cfg.mdl.ff_mult * D)
         self.ff2 = nn.Linear(cfg.mdl.ff_mult * D, D)
-        self.ln2 = nn.LayerNorm(D, eps=1e-6)
+        self.ln2 = LayerNorm(D, eps=1e-6)
         self.drop = Dropout(cfg.mdl.dropout)
 
     def forward(self, x, key_mask, frame_ids):
         x = self.ln1(x + self.attn(x, key_mask, frame_ids))
-        return self.ln2(x + self.ff2(self.drop(torch.relu(self.ff1(x)))))
+        return self.ln2(x + self.ffn(x))
+
+    def ffn(self, x):
+        """ff2(dropout(relu(ff1(x)))) in x's dtype."""
+        return linear(self.drop(torch.relu(linear(x, self.ff1))), self.ff2)
 
 
 class ObjectTransformer(nn.Module):
@@ -285,7 +306,7 @@ class DecomposedRelTxLayer(TxLayer):
         A = g.shape[1]
         attn = self.attn(m, g, key_mask, frame_ids)  # (B,A,T,D)
         x = self.ln1((m[:, None] + g[:, :, None] + attn).reshape(B * A, T, D))
-        return self.ln2(x + self.ff2(self.drop(torch.relu(self.ff1(x)))))
+        return self.ln2(x + self.ffn(x))
 
 
 class RelTransformerDecomposed(nn.Module):

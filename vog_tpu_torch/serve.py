@@ -12,7 +12,8 @@ and the copies of the outputs back to pinned host memory, records an
 event and returns without waiting; ``fetch`` waits on that event.  So a
 caller (``ServingLoop``) overlaps one batch's host work with another's
 compute.  On the card with ``cuda_graphs`` (the default) the forward is a
-CUDA graph captured once for each batch shape (each serving bucket, at
+CUDA graph captured once for each batch shape and numerics
+(``train/graphs.py §numerics_key``; each serving bucket, at
 ``ServingLoop.prewarm``), the counterpart of jit's per-shape cache: a
 dispatch copies the batch from a persistent pinned staging buffer into the
 graph's static input, replays it, and copies the outputs into a ring of
@@ -90,7 +91,7 @@ class Predictor:
         # pinned output slots a bucket's graph keeps: a dispatch and a fetch
         # in turn need one, ServingLoop raises it to its pipeline's need
         self.ring_depth = 2
-        self.graphs: Dict[tuple, object] = {}  # batch shapes -> ServeGraph
+        self.graphs: Dict[tuple, object] = {}  # (numerics, batch shapes) -> ServeGraph
 
     def _upload(self, v) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(v))
@@ -127,9 +128,10 @@ class Predictor:
     def dispatch(self, batch: Dict[str, np.ndarray]) -> _Pending:
         """Enqueue one batch and return without waiting for the card."""
         if self.cuda_graphs:
-            from vog_tpu_torch.train.graphs import ServeGraph  # here: train imports this module
+            from vog_tpu_torch.train.graphs import ServeGraph, numerics_key  # here: train imports this module
 
-            key = tuple((k, np.shape(v), str(np.asarray(v).dtype)) for k, v in batch.items())
+            key = (numerics_key(self.model),) + tuple(
+                (k, np.shape(v), str(np.asarray(v).dtype)) for k, v in batch.items())
             g = self.graphs.get(key)
             if g is None:
                 g = self.graphs[key] = ServeGraph(self.predict, batch, self.device, self.ring_depth)

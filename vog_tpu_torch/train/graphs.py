@@ -37,6 +37,12 @@ What capture needs, and how it is met:
   * no host read, host copy or fresh pinned buffer inside the step; the
     allocations of the captured step go to the graph's private pool.
 
+A capture records the kernels' variant ("highest" or "default",
+``config.kernel_precision``) and cuBLAS's TF32 switch in force at capture
+time, so every cache key holds ``numerics_key`` (the precision and the
+model's activation dtype): a process that changes ``misc.matmul_precision``
+captures anew rather than replay the old numerics.
+
 A capture or replay that fails raises; nothing falls back to an eager
 loop.  Launch counts: the capture's launches do not run, so they are
 taken back from ``_build.launches`` and added again at every replay.
@@ -50,6 +56,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
 
 ALIGN = 16  # bytes: every field of a row starts at a 16-byte boundary
@@ -71,6 +78,13 @@ def step_spec(stacked: Dict[str, Any]) -> Spec:
 
 def _spec_key(spec: Spec) -> tuple:
     return tuple((k, s, str(d)) for k, (s, d) in spec.items())
+
+
+def numerics_key(model) -> tuple:
+    """What a capture fixes of the numerics: the kernels' precision (with
+    it cuBLAS's and cuDNN's TF32 switches) and the model's activation
+    dtype."""
+    return (kernel_precision(), str(model.dt))
 
 
 def tables_key(tables: Optional[Dict[str, torch.Tensor]]) -> tuple:
@@ -206,13 +220,14 @@ class _Captured:
 
 def train_graph(step: Callable, freeze: bool, state, stacked: Dict[str, Any], seed: int,
                 tables: Optional[Dict[str, torch.Tensor]]) -> _Captured:
-    """The captured train step of (``step``, batch shapes, seed, tables) on
-    ``state``, captured at first use (cached in ``state.graphs``; a longer
+    """The captured train step of (``step``, batch shapes, seed, tables,
+    ``numerics_key``) on ``state``, captured at first use (cached in ``state.graphs``; a longer
     dispatch than the cached capacity captures anew).  With ``freeze`` a
     device flag carries the poison from replay to replay, cleared at each
     dispatch."""
     n = len(next(iter(stacked.values())))
-    key = ("train", id(step), freeze, _spec_key(step_spec(stacked)), int(seed), tables_key(tables))
+    key = ("train", id(step), freeze, _spec_key(step_spec(stacked)), int(seed), tables_key(tables),
+           numerics_key(state.model))
     g = state.graphs.get(key)
     if g is not None and g.capacity >= n:
         return g
@@ -238,7 +253,7 @@ def eval_graph(step: Callable, state, stacked: Dict[str, Any],
     """The captured eval step (cached as ``train_graph``); the state is
     only read."""
     n = len(next(iter(stacked.values())))
-    key = ("eval", id(step), _spec_key(step_spec(stacked)), tables_key(tables))
+    key = ("eval", id(step), _spec_key(step_spec(stacked)), tables_key(tables), numerics_key(state.model))
     g = state.graphs.get(key)
     if g is not None and g.capacity >= n:
         return g
