@@ -118,6 +118,21 @@ kernel; each phase that switches precision restores "highest" after it):
     no other; step ms and the peak memory of a captured step beside phase
     9's dispatch.
 
+The training entry point (after phase 12, once the GT5 random tables are
+freed, before P100):
+
+14. learner gt5 prod (``phase_learner``): a fixture written by the port's
+    writer at the recipe's widths (3,000 / 1,000 / 200 segments), trained
+    through ``python -m vog_tpu_torch.cli.train``'s ``main`` with
+    ``configs/gt5_production.yml`` for 2 epochs: every logged loss finite,
+    every "default" kernel of the path launched (counts per epoch), the
+    final acc above the untrained model's, ``cli.eval`` on "best" and
+    ``offline.eval_fun`` on the predictions agreeing with the Learner, a
+    SIGTERM after dispatch 10 of epoch 1 and a resume ending bitwise at the
+    uninterrupted run's state; table build, epoch time, samples/s beside
+    phase 12's, the idle share of a profiled epoch, eval batches/s,
+    checkpoint saves and the peak memory, each with the card.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 package.
@@ -128,6 +143,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2251,6 +2267,234 @@ def phase_dispatch_prod(tables, card: str, fp32: dict) -> tuple:
     return counts, readings
 
 
+# [learner gt5 prod]: the training entry point end to end at the recipe's
+# widths, on a fixture written by the port's writer (the recipe's 15,000
+# segments cut to 3,200; 2 epochs, not 10)
+LEARNER_SEGS = (3000, 1000, 200)  # train / valid / test segments
+LEARNER_EPOCHS = 2
+LEARNER_CUT = 10  # SIGTERM after this dispatch of epoch 1, then resume
+
+
+def read_events(tmp: Path, uid: str, kind: str) -> list:
+    with open(tmp / "ext_logs" / f"{uid}.events.jsonl") as f:
+        return [r for r in map(json.loads, f) if r["event"] == kind]
+
+
+def release_card() -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_learner(card: str, dispatch_prod: dict) -> dict:
+    """``learner_runs`` in the yml's numerics; the phases after it run "highest"."""
+    from vog_tpu_torch.config import apply_matmul_precision
+
+    try:
+        return learner_runs(card, dispatch_prod)
+    finally:
+        apply_matmul_precision(serve_cfg())
+
+
+def learner_runs(card: str, dispatch_prod: dict) -> dict:
+    """[learner gt5 prod]: ``python -m vog_tpu_torch.cli.train <uid>
+    --cfg=configs/gt5_production.yml --ds.data_dir=<dir>`` through
+    ``cli.train.main`` at the recipe's full widths, nothing else overridden
+    but ``train.epochs`` and ``misc.tmp_path``.  (1) ``generate_scaled``
+    writes the fixture (prop 2048, seg 3072, GloVe 300, 10 frames, 5
+    proposals; ``LEARNER_SEGS``); (2) the same model's ``validate()``
+    before training, then three epochs of it: the second traced (device
+    busy), the third untraced (wall), for the card's idle share;
+    (3) the run: every logged loss finite, every "default" kernel of the
+    path launched (counts per epoch), the final acc above the untrained
+    model's, "best" and "last" written, ``cli.eval`` on "best" giving the
+    best epoch's acc again, ``offline.eval_fun`` on the last predictions
+    file giving the Learner's metrics; (4) a SIGTERM after dispatch
+    ``LEARNER_CUT`` of epoch 1 and ``--train.resume=true`` to the end: the
+    final state bitwise the uninterrupted run's.  -> the readings, and the
+    run's launch counts."""
+    import signal
+    import tempfile
+
+    import torch
+
+    from vog_tpu_torch.cli import eval as eval_cli
+    from vog_tpu_torch.cli import train as train_cli
+    from vog_tpu_torch.data.fixtures import generate_scaled
+    from vog_tpu_torch.evaluation.offline import eval_fun
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.train import learner as learner_mod
+
+    tag = "[learner gt5 prod]"
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="vog_learner_") as tmp:
+        tmp = Path(tmp)
+        data, runs = tmp / "data", tmp / "runs"
+        t0 = time.perf_counter()
+        generate_scaled(data, *LEARNER_SEGS, verbose=False)
+        n_anns = {s: sum(1 for _ in open(data / f"anns_{s}.jsonl")) for s in ("train", "valid", "test")}
+        out["fixture_s"] = time.perf_counter() - t0
+        out["fixture_bytes"] = sum(f.stat().st_size for f in data.iterdir())
+        print(f"{tag} (1) fixture by the port's writer: {'/'.join(map(str, LEARNER_SEGS))} train/valid/test "
+              f"segments, {n_anns} queries, {out['fixture_bytes'] / 1e9:.3f} GB on disk "
+              f"(featpack.bin {(data / 'featpack.bin').stat().st_size / 1e9:.3f} GB), written in "
+              f"{out['fixture_s']:.1f} s", flush=True)
+
+        def argv(uid, *more):
+            return [uid, f"--cfg={ROOT / 'configs' / 'gt5_production.yml'}", f"--ds.data_dir={data}",
+                    f"--train.epochs={LEARNER_EPOCHS}", f"--misc.tmp_path={runs}", *more]
+
+        # (2) the untrained model's acc; an epoch that captures the graphs;
+        # then an epoch with its eval under the tracer (the device's busy
+        # time; the tracer slows the host, so its wall is not the epoch's)
+        # and the next one untraced (the wall): the idle share of one
+        # Learner's work.  No "best" save in either, so both do the same.
+        lrn, _ = train_cli.build(argv("untrained"))
+        acc0 = lrn.validate()["acc"]
+        lrn.fit(epochs=1)
+        lrn.best_metric = math.inf
+        t0 = time.perf_counter()
+        busy, ksum = profiled_busy(lambda: lrn.fit(epochs=1), 1)
+        traced = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lrn.fit(epochs=1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        del lrn
+        if busy is not None and busy > wall:
+            fail(f"{tag} device busy {busy:.1f} ms over the traced epoch exceeds the untraced epoch's wall "
+                 f"{wall:.1f} ms")
+        out.update(untrained_acc=acc0, profiled_busy_ms=busy, epoch_and_eval_ms=wall,
+                   idle=None if busy is None else 1 - busy / wall)
+        print(f"{tag} (2) untrained acc {acc0:.4f}; an epoch with its eval under torch.profiler: device busy "
+              f"{'not measured' if busy is None else f'{busy:.1f} ms'} (kernel sum {ksum:.1f} ms; traced wall "
+              f"{traced:.1f} ms, the tracer's); the next epoch with its eval untraced: wall {wall:.1f} ms, "
+              f"on {card}", flush=True)
+        release_card()
+
+        # (3) the run
+        _build.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = train_cli.main(argv("run"))
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        counts = dict(_build.launches)
+        release_card()
+        cfg = train_cli.build_cfg(train_cli.parse_argv(argv("run"))[1])
+        losses = [v for r in read_events(runs, "run", "log") for v in r["losses"]]
+        if not losses or not all(map(math.isfinite, losses)):
+            fail(f"{tag} a logged loss is not finite: {[v for v in losses if not math.isfinite(v)][:5]}")
+        epochs = read_events(runs, "run", "epoch")
+        want = {variant_name(n, cfg) for n in KERNEL_NAMES}
+        missing = [k for k in sorted(want) if not counts.get(k)]
+        if missing:
+            fail(f"{tag} kernels of the path never launched: {missing} (launched {counts})")
+        if m["acc"] <= acc0:
+            fail(f"{tag} final acc {m['acc']:.4f} is not above the untrained model's {acc0:.4f}")
+        for t in ("best", "last"):
+            if not (runs / "models" / "run" / f"{t}.pt").is_file():
+                fail(f"{tag} no {t} checkpoint")
+        evals = read_events(runs, "run", "eval")
+        offline = eval_fun(evals[-1]["pred_file"], "valid", cfg)
+        keys = ("acc", "vacc", "strict_acc", "cons", "num_pairs", "num_queries")
+        if {k: offline[k] for k in keys} != {k: m[k] for k in keys}:
+            fail(f"{tag} offline.eval_fun {offline} differs from the Learner's metrics {m}")
+        tables = read_events(runs, "run", "tables")
+        saves = read_events(runs, "run", "save")
+        records = [json.loads(line) for line in open(runs / "ext_logs" / "run.jsonl")]
+        best = max(records, key=lambda r: r["acc"])
+        again = eval_cli.main(argv("run", "--tag=best"))
+        release_card()
+        if again["acc"] != best["acc"]:
+            fail(f"{tag} cli.eval on best gives acc {again['acc']} against the best epoch's {best['acc']}")
+        out.update(metrics=m, best_acc=best["acc"], losses_first_last=[losses[0], losses[-1]], launches=counts,
+                   launches_per_epoch=[e["kernel_launches"] for e in epochs],
+                   eval_launches=[e["kernel_launches"] for e in evals],
+                   epoch_s=[e["seconds"] for e in epochs], samples_per_s=[e["samples_per_s"] for e in epochs],
+                   loader_wait_s=[e["loader_wait_s"] for e in epochs], dispatch_s=[e["dispatch_s"] for e in epochs],
+                   pairs_per_s=[e["pairs_per_s"] for e in epochs], dispatches=[e["dispatches"] for e in epochs],
+                   tables=[{k: t[k] for k in ("table", "bytes", "seconds")} for t in tables],
+                   eval_batches_per_s=[e["batches_per_s"] for e in evals],
+                   saves=[{k: s[k] for k in ("tag", "bytes", "seconds")} for s in saves])
+        print(f"{tag} (3) cli.train: {sum(out['dispatches'])} dispatches, {len(losses)} logged losses finite, "
+              f"first {losses[0]:.5f} last {losses[-1]:.5f}; acc {m['acc']:.4f} (untrained {acc0:.4f}), best "
+              f"{best['acc']:.4f} again by cli.eval on best; offline.eval_fun on {Path(evals[-1]['pred_file']).name} "
+              f"equal; run {out['run_s']:.1f} s", flush=True)
+        for r, e in zip(records, epochs):
+            print(f"{tag} (3) epoch {r['epoch']}: acc {r['acc']:.4f}, learning rate at its end {e['lr_end']:.4e}",
+                  flush=True)
+        for i, (e, ev) in enumerate(zip(epochs, evals)):
+            print(f"{tag} (3) epoch {i} launches, train: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(e["kernel_launches"].items())) + "; its eval: " + ", ".join(
+                f"{k}={v}" for k, v in sorted(ev["kernel_launches"].items())), flush=True)
+
+        # (4) SIGTERM after dispatch LEARNER_CUT of epoch 1, then resume to the end
+        real, cut = learner_mod.make_multi_train_step, out["dispatches"][0] + LEARNER_CUT
+
+        def cut_after(cfg_):
+            multi, calls = real(cfg_), [0]
+
+            def dispatch(*a, **kw):
+                res = multi(*a, **kw)
+                calls[0] += 1
+                if calls[0] == cut:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return res
+
+            return dispatch
+
+        learner_mod.make_multi_train_step = cut_after
+        try:
+            train_cli.main(argv("cut"))
+        finally:
+            learner_mod.make_multi_train_step = real
+        release_card()
+        meta = torch.load(runs / "models" / "cut" / "last.pt", weights_only=True)["meta"]
+        if (meta["epoch"], meta["batch_in_epoch"]) != (1, LEARNER_CUT * cfg.train.steps_per_dispatch):
+            fail(f"{tag} the SIGTERM save is at epoch {meta['epoch']} batch {meta['batch_in_epoch']}, expected "
+                 f"epoch 1 batch {LEARNER_CUT * cfg.train.steps_per_dispatch}")
+        train_cli.main(argv("cut", "--train.resume=true"))
+        release_card()
+        a = torch.load(runs / "models" / "run" / "last.pt", weights_only=True)["state"]
+        b = torch.load(runs / "models" / "cut" / "last.pt", weights_only=True)["state"]
+        diff = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a if not torch.equal(a[k], b[k])}
+        out["resume_max_abs_diff"] = max(diff.values(), default=0.0)
+        print(f"{tag} (4) SIGTERM after dispatch {LEARNER_CUT} of epoch 1 (batch {meta['batch_in_epoch']}), resumed "
+              f"to the end: final state against the uninterrupted run's: {len(a) - len(diff)}/{len(a)} tensors "
+              f"bitwise, max abs diff {out['resume_max_abs_diff']:.3e}", flush=True)
+        if diff:
+            fail(f"{tag} resume is not bitwise: {sorted(diff.items(), key=lambda kv: -kv[1])[:5]}")
+
+    # (5) the numbers, each with the card
+    feats = next(t for t in out["tables"] if t["table"] == "features")
+    ann = next(t for t in out["tables"] if t["table"] == "annotations")
+    save = [s for s in out["saves"] if s["tag"] == "last"]
+    for line in (
+        f"table build: features {feats['seconds']:.2f} s, {feats['bytes'] / 1e9:.3f} GB; annotations "
+        f"{ann['seconds']:.2f} s, {ann['bytes'] / 1e9:.4f} GB",
+        "epoch wall s (host blocked on the loader; in the dispatches and their reads): "
+        + ", ".join(f"{v:.2f} ({w:.2f}; {d:.2f})" for v, w, d in zip(out["epoch_s"], out["loader_wait_s"],
+                                                                   out["dispatch_s"])),
+        "samples/s: " + ", ".join(f"{v:.1f}" for v in out["samples_per_s"])
+        + f"; [dispatch gt5 prod] samples/s in this call: {dispatch_prod['graph_samples_per_s']:.1f}",
+        "pairs/s: " + ", ".join(f"{v:.1f}" for v in out["pairs_per_s"]),
+        "idle share over one epoch and its eval: "
+        + ("not measured" if out["idle"] is None else f"{out['idle']:.3f} (device busy "
+           f"{out['profiled_busy_ms']:.1f} ms traced, wall {out['epoch_and_eval_ms']:.1f} ms of the same "
+           "Learner's next epoch untraced)"),
+        "eval batches/s: " + ", ".join(f"{v:.1f}" for v in out["eval_batches_per_s"]),
+        f"checkpoint save (last): {statistics.median(s['seconds'] for s in save):.3f} s median of {len(save)}, "
+        f"{save[0]['bytes'] / 1e6:.1f} MB",
+        f"peak memory of the run: {out['peak_memory_gb']:.3f} GB",
+    ):
+        print(f"{tag} (5) {line} on {card}", flush=True)
+    return out
+
+
 def phase_dispatch_p100_prod(tables, card: str, fp32: dict) -> tuple:
     """[dispatch p100 prod]: the P100 recipe in bf16 with "default"
     precision, one CUDA-graph dispatch of K=8 in each backward-mode pair
@@ -2368,9 +2612,10 @@ def main() -> int:
     worst_gt5, worst_def_gt5 = dict(WORST_REL), dict(WORST_DEFAULT)
     WORST_REL.clear()
     WORST_DEFAULT.clear()
-    del tables  # the P100 checks below need the room
+    del tables  # the Learner's own tables and the P100 checks below need the room
     gc.collect()
     torch.cuda.empty_cache()
+    learner = phase_learner(card, dispatch_prod)
 
     # -- P100 (T = 4000, B = 2) --------------------------------------------
     cfg = serve_cfg("p100")
@@ -2442,6 +2687,8 @@ def main() -> int:
         gd = gt5_def[r["name"]]
         gd["launches"] = prod_launches(r["name"], [serve_prod_counts, dispatch_prod_counts])
         r["gt5"] = {k: gd.get(k) for k in keys}
+        # the training entry point's run ([learner gt5 prod]), counted from 0 just before it
+        r["gt5"]["learner_launches"] = learner["launches"].get(r["name"], 0)
     rows += rows_def
     print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train,
                       "peak_memory_gb": {k: list(v) for k, v in peaks.items()},
@@ -2449,6 +2696,7 @@ def main() -> int:
                       "dispatch": {"gt5": dispatch_gt5, "p100": dispatch_p100},
                       "prod": {"serve_gt5": serve_prod, "dispatch_gt5": dispatch_prod,
                                "dispatch_p100": dispatch_p100_prod},
+                      "learner": {k: v for k, v in learner.items() if k != "launches"},
                       "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

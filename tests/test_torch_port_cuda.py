@@ -850,3 +850,88 @@ def test_capture_failure_raises(dev, monkeypatch):
     assert not state.graphs
     for k, v in state.tensors().items():
         assert torch.equal(v, before[k]), k
+
+
+# -- the Learner on the card ---------------------------------------------------
+
+
+def _learner_argv(tmp_path, uid, *extra):
+    """A narrow model of the production recipe (configs/gt5_production.yml:
+    bf16, "default", half_feats, device and annotation tables, index-only)
+    on a fixture written by the port, K = 3, E = 2."""
+    from pathlib import Path
+
+    from vog_tpu_torch.data.fixtures import generate_fixture
+
+    data = tmp_path / "data"
+    if not (data / "featpack.bin").exists():
+        generate_fixture(data, n_train=24, n_valid=8, n_test=4, prop_dim=64, seg_dim=48, glove_dim=32, seed=1)
+    yml = Path(__file__).resolve().parents[1] / "configs" / "gt5_production.yml"
+    return [uid, f"--cfg={yml}", f"--ds.data_dir={data}", f"--misc.tmp_path={tmp_path / 'tmp'}",
+            "--ds.prop_dim=64", "--ds.seg_dim=48", "--ds.glove_dim=32", "--mdl.emb_dim=32", "--mdl.lstm_dim=16",
+            "--mdl.vis_dim=32", "--mdl.role_dim=8", "--mdl.n_heads=2", "--train.bs=2", "--train.epochs=2",
+            "--train.steps_per_dispatch=3", "--train.eval_batches_per_dispatch=2", "--misc.progress=off", *extra]
+
+
+def test_learner_fit_replays_graphs_bitwise_eager_steps(dev, tmp_path):
+    """An epoch of ``Learner.fit`` on the card runs its dispatches as
+    captured graphs (train and eval), launches every "default" kernel, and
+    ends bitwise at the state of the same batches as eager single steps."""
+    import math
+
+    from vog_tpu_torch.cli.train import build
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.train import make_train_step
+
+    try:
+        fit, _ = build(_learner_argv(tmp_path, "graphs", "--train.epochs=1"))
+        assert fit.device.type == "cuda" and "ann_i32" in fit._tables
+        _build.reset_counts()
+        m = fit.fit()
+        kinds = {k[0] for k in fit.state.graphs}
+        assert kinds == {"train", "eval"} and math.isfinite(m["val_loss"])
+        launched = {k for k, v in _build.launches.items() if v > 0}
+        assert {f"{n}@default" for n in ("flash_attention", "flash_attention_bwd", "mm_shared_qk_attention",
+                                         "mm_shared_qk_attention_bwd", "fused_grounding_head",
+                                         "fused_grounding_head_bwd")} | {"gather_rows"} <= launched
+
+        eager, _ = build(_learner_argv(tmp_path, "eager", "--train.epochs=1"))
+        step = make_train_step(eager.cfg)
+        for stacked in eager.data.train_dl:
+            for i in range(len(stacked["batch_mask"])):
+                step(eager.state, {k: torch.as_tensor(v[i]).cuda() for k, v in stacked.items()}, eager.seed,
+                     eager._tables)
+        _assert_states_equal(fit.state, eager.state)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def test_learner_resume_on_the_card_is_bitwise(dev, tmp_path):
+    """SIGTERM after a dispatch, then ``train.resume``: the card's final
+    state equals the uninterrupted run's, bitwise."""
+    import os
+    import signal
+
+    from vog_tpu_torch.cli.train import build
+
+    try:
+        full, _ = build(_learner_argv(tmp_path, "full"))
+        full.fit()
+        cut, _ = build(_learner_argv(tmp_path, "cut"))
+        orig, calls = cut._train_multi, {"n": 0}
+
+        def step(*a, **kw):
+            out = orig(*a, **kw)
+            calls["n"] += 1
+            if calls["n"] == 6:  # epoch 1's second dispatch (an epoch: 12 batches, 4 dispatches)
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+        cut._train_multi = step
+        cut.fit()
+        assert cut._preempted and (cut.epoch, cut.batch_in_epoch) == (1, 6)
+        res, _ = build(_learner_argv(tmp_path, "cut", "--train.resume=true"))
+        res.fit(epochs=1)
+        _assert_states_equal(res.state, full.state)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

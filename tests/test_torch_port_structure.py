@@ -351,3 +351,67 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
     fwd_py = py[py.index("def grounding_head_fwd("):py.index("def grounding_head_bwd_plain(")]
     assert '"vog_head_fwd_prep"' in fwd_py and '"vog_head_fwd"' in fwd_py
     assert fwd_py.count("_build.count(NAME, prec)") == 1 and "_groups(" not in fwd_py
+
+
+# modules the card's host lacks: imported only inside the function that needs them
+LAZY_ONLY = {"h5py", "yaml"}
+
+
+def _module_level_roots(path):
+    """Roots imported when the module is imported: its body and class
+    bodies, not function bodies."""
+    roots = set()
+
+    def visit(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                roots.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                roots.add(node.module.split(".")[0])
+            visit(ast.iter_child_nodes(node))
+
+    visit(ast.parse(path.read_text()).body)
+    return roots
+
+
+def test_no_module_level_h5py_or_yaml():
+    """Every module of the port (the data path, the Learner and the CLIs
+    included) and chip_smoke.py import h5py and PyYAML only inside the
+    function that needs them, and the whole package imports with both
+    absent."""
+    files = list(PKG.rglob("*.py")) + [SMOKE]
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for new in ("data/dataset.py", "data/featpack.py", "data/fixtures.py", "data/loader.py", "data/vocab.py",
+                "data/boxes.py", "data/contrastive.py", "evaluation/offline.py", "native/__init__.py",
+                "train/learner.py", "train/progress.py", "cli/train.py", "cli/eval.py"):
+        assert f"vog_tpu_torch/{new}" in names, new
+    bad = {str(f.relative_to(ROOT)): sorted(_module_level_roots(f) & LAZY_ONLY) for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['h5py'] = None; sys.modules['yaml'] = None\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "from vog_tpu_torch.config import get_default_cfg\n"
+        "cfg = get_default_cfg('configs/gt5_production.yml')\n"
+        "print(cfg.train.steps_per_dispatch, cfg.mdl.dtype)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["16", "bfloat16"]
+
+
+def test_featpack_library_builds_into_the_build_dir(tmp_path, monkeypatch):
+    """The packed store's C++ gather builds with g++ into the port's build
+    directory (``$VOG_TORCH_BUILD_DIR``, else ``vog_tpu_torch/build/``),
+    named by its source's hash, and never beside its source."""
+    from vog_tpu_torch import native
+
+    monkeypatch.delenv("VOG_TORCH_BUILD_DIR", raising=False)
+    assert native.featpack_path().parent == PKG / "build"
+    monkeypatch.setenv("VOG_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    lib = native.build_featpack()
+    assert lib.parent == tmp_path / "build" and lib.name.startswith("libfeatpack-") and lib.stat().st_size > 0
+    assert lib == native.featpack_path() and native.build_featpack() == lib  # built once
+    assert not list((PKG / "native").glob("*.so"))

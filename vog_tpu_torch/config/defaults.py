@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
@@ -44,12 +45,11 @@ class DsCfg:
     num_roles: int = 24  # SRL role vocabulary size (V, ARG0..ARGM-*)
     shuffle_cmp: bool = True  # shuffle positive position in train groups
     # device-resident feature tables (data/device_store.py): upload the
-    # whole feats/seg store to HBM once; batches carry vid_rows and the
-    # gather runs inside the jitted step.  auto = on when the table fits
-    # the per-chip budget, replicated on one chip or row-sharded over the
-    # mesh 'data' axis when only the per-shard slice fits (P100-at-100GB).
-    # shard = force row-sharding (collective gather) regardless of size.
-    device_store: str = "auto"  # auto | on | shard | off
+    # whole feats/seg store to the card once; batches carry vid_rows and
+    # the gather runs inside the step.  auto = on when the tables fit half
+    # of the card's free memory, off on the CPU (use_device_store); the
+    # JAX package's "shard" (row-sharded over a mesh) is not ported yet.
+    device_store: str = "auto"  # auto | on | off
     # index-only input path (data/ann_store.py): annotation statics
     # (tokens/spans/targets/GT boxes + per-video proposal boxes) also
     # device-resident; batches shrink to four int32 index fields per
@@ -134,9 +134,9 @@ class TrainCfg:
     resume_path: str = ""
     log_every: int = 10
     ckpt_every_steps: int = 0  # 0 = per-epoch only
-    # periodic mid-epoch saves commit in a background thread (async orbax)
-    # so the step loop never stalls on filesystem writes; epoch-end /
-    # best / final saves always block until durable
+    # the JAX package commits periodic mid-epoch saves in a background
+    # thread; the port's Learner writes every save synchronously (and says
+    # so in its log when this is on)
     async_ckpt: bool = True
     # >0: drop non-finite gradient updates (optax.apply_if_finite) instead
     # of poisoning the weights; value = max consecutive dropped steps
@@ -353,15 +353,122 @@ def _merge_nested(cfg: Cfg, d: Dict[str, Any], prefix: str = "") -> None:
             _set_dotted(cfg, key, v)
 
 
+# The YAML subset of configs/*.yml, resolved as yaml.safe_load resolves
+# it; a plain scalar that YAML would read as anything else (another
+# boolean or null spelling, a special or dot-led float, an indicator) is
+# refused rather than read as a string
+_WORDS = {"true": True, "false": False, "null": None}
+_YAML_WORDS = ("true", "false", "null", "yes", "no", "on", "off", "~")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9]*)$")
+_FLOAT = re.compile(r"^[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?$")
+_INDICATORS = tuple("[]{}&*!|>%@`'\"#,?-+.0123456789")
+
+
+class YamlSubsetError(ValueError):
+    """A line of a yml outside the subset ``read_yaml_subset`` reads."""
+
+
+def _yaml_scalar(text: str, where: str) -> Any:
+    if text[0] in "'\"":
+        q, body = text[0], text[1:-1]
+        if len(text) < 2 or text[-1] != q or q in body or "\\" in body:
+            raise YamlSubsetError(f"{where}: quoted scalar {text!r} is outside the subset")
+        return body
+    if text in _WORDS:
+        return _WORDS[text]
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    if text.lower() in _YAML_WORDS or text.startswith(_INDICATORS) or ": " in text or " #" in text \
+            or text.endswith(":"):
+        raise YamlSubsetError(f"{where}: scalar {text!r} is outside the subset (quote it if it is a string)")
+    return text
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a ``#`` comment (one at the start, or after a
+    space, outside quotes) and without trailing spaces."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            if c == quote:
+                quote = None
+        elif c in "'\"" and (i == 0 or line[i - 1] in " :"):
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] == " "):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def read_yaml_subset(text: str, name: str = "<yml>") -> Dict[str, Any]:
+    """Parse the YAML subset the repo's configs use, as ``yaml.safe_load``
+    would: nested block maps by indentation (spaces), ``key: scalar``
+    lines, plain scalars, quoted strings without escapes, ``#`` comments,
+    ``true`` / ``false``, ``null`` or an empty value, decimal ints and
+    floats such as ``5.0e-4``.  Anything else (other boolean or null
+    spellings, special floats, sequences, flow collections, anchors, tags,
+    block scalars, tabs, duplicate keys, a document marker) raises
+    ``YamlSubsetError`` naming the line."""
+    root: Dict[str, Any] = {}
+    stack = [(-1, root)]  # (indent of the map's keys, the map)
+    pending = None  # (indent, parent map, key) of a "key:" line awaiting its block
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"{name}:{n}"
+        if "\t" in raw[: len(raw) - len(raw.lstrip(" \t"))]:
+            raise YamlSubsetError(f"{where}: a tab in the indentation")
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        if line.startswith(("---", "...")):
+            raise YamlSubsetError(f"{where}: document markers are outside the subset")
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        if pending is not None:
+            p_indent, p_map, p_key = pending
+            pending = None
+            if indent > p_indent:
+                child: Dict[str, Any] = {}
+                p_map[p_key] = child
+                stack.append((indent, child))
+            else:
+                p_map[p_key] = None
+        while stack and indent < stack[-1][0]:
+            stack.pop()
+        if not stack or indent != stack[-1][0]:
+            if stack[-1][0] == -1 and not stack[-1][1]:
+                stack[-1] = (indent, root)
+            else:
+                raise YamlSubsetError(f"{where}: indentation does not match an enclosing map")
+        cur = stack[-1][1]
+        m = re.match(r"^([A-Za-z_][A-Za-z0-9_.\-]*):(?: (.*))?$", body)
+        if not m:
+            raise YamlSubsetError(f"{where}: {body!r} is not a 'key: value' line of the subset")
+        key, value = m.group(1), (m.group(2) or "").strip()
+        if key in cur:
+            raise YamlSubsetError(f"{where}: duplicate key {key!r}")
+        if value == "":
+            cur[key] = None
+            pending = (indent, cur, key)
+        else:
+            cur[key] = _yaml_scalar(value, where)
+    return root
+
+
+def load_yml(path: str) -> Dict[str, Any]:
+    """A config yml as nested dicts, read by ``read_yaml_subset``: no
+    PyYAML needed (the card's host has none)."""
+    with open(path) as f:
+        return read_yaml_subset(f.read(), str(path))
+
+
 def get_default_cfg(yml_path: Optional[str] = None) -> Cfg:
-    """Build the default config, optionally merging a yaml file with the
+    """Build the default config, optionally merging a yml file with the
     same nested schema — reference ``extended_config.py §get_default_cfg``
-    loading ``configs/anet_srl_cfg.yml``."""
+    loading ``configs/anet_srl_cfg.yml``.  The yml is read by
+    ``read_yaml_subset``, which equals ``yaml.safe_load`` on the subset
+    the configs use and raises, naming the line, on anything else."""
     cfg = Cfg()
     if yml_path:
-        import yaml  # only when a yaml file is given: not every host has PyYAML
-
-        with open(yml_path) as f:
-            loaded = yaml.safe_load(f) or {}
-        _merge_nested(cfg, loaded)
+        _merge_nested(cfg, load_yml(yml_path))
     return post_proc_config(cfg)

@@ -15,13 +15,15 @@ int32 fields a sample (plus the uint8 ``batch_mask``)::
 for field in the JAX package's dtypes (uint8 masks and targets, which
 ``cast_compact`` then casts); the feature gather (``vid_rows``) follows
 in ``gather_from_tables``.  ``AnnTables.from_arrays`` packs the tables
-from per-annotation and per-video arrays; building them from a dataset
-split waits for the port's dataset.
+from per-annotation and per-video arrays; ``AnnTables.from_datasets``
+from the splits of a dataset (the JAX package's ``DeviceAnnTables``): one
+table for all three splits, a split's rows starting at its
+``split_offset``, so every split runs the same captured eval step.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -78,8 +80,39 @@ class AnnTables:
     """The five annotation tables on one device (``tables``), row i of the
     video tables being the feature tables' row i."""
 
-    def __init__(self, tables: Dict[str, torch.Tensor]):
+    def __init__(self, tables: Dict[str, torch.Tensor], split_offset: Optional[Dict[str, int]] = None):
         self.tables = tables
+        self.split_offset = split_offset or {}
+        self.n_anns = int(tables["ann_i32"].shape[0])
+
+    @classmethod
+    def from_datasets(cls, cfg, datasets: Dict, vid_rows: Dict[str, int],
+                      device: DeviceLike = None) -> "AnnTables":
+        """Tables of every annotation of ``datasets`` (split ->
+        ``AnetSRLDataset``; train, valid, test in that order, each from its
+        ``split_offset``) and of every video of ``vid_rows``
+        (``DeviceFeatureTables.rows``: row i of the video tables is row i
+        of the feature tables), from the datasets' memoised statics."""
+        offsets, n = {}, 0
+        for split in ("train", "valid", "test"):
+            if split in datasets:
+                offsets[split] = n
+                n += len(datasets[split])
+        keys = ("tokens", "seq_len", "verb_idx", "srl_roles", "srl_spans", "srl_arg_mask",
+                "gt_frame_mask", "pos_targets", "gt_boxes")
+        stats = [datasets[s]._ann_static(i) for s in offsets for i in range(len(datasets[s]))]
+        anns = {k: np.stack([st[k] for st in stats]) for k in keys}
+        any_ds = next(iter(datasets.values()))
+        nv = max(vid_rows.values()) + 1 if vid_rows else 0
+        _, _, F, P, _ = _dims(cfg)
+        vids = {"prop_boxes": np.zeros((nv, F, P, 5), np.float32),
+                "prop_mask": np.zeros((nv, F, P), np.uint8)}
+        for vid, row in vid_rows.items():
+            pb, pm, _, _ = any_ds._vid_static(vid)
+            vids["prop_boxes"][row], vids["prop_mask"][row] = pb, pm
+        t = cls.from_arrays(cfg, anns, vids, device=device)
+        t.split_offset = offsets
+        return t
 
     @classmethod
     def from_arrays(cls, cfg, anns: Dict[str, np.ndarray], vids: Dict[str, np.ndarray],

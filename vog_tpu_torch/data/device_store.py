@@ -7,18 +7,58 @@ vector; batches carry ``vid_rows (B, V) int32`` and ``gather_from_tables``
 resolves them on the card through the gather kernel
 (kernels/gather.py), so a request carries a few KB instead of ~34 MB of
 features.  The tables are filled chunk by chunk, so peak memory is the
-table plus one chunk.  The row-sharded store waits for a later slice.
+table plus one chunk: ``from_store`` streams a feature store's videos
+(row i = the store's video i, ``rows`` maps a video to its row) a chunk
+of rows at a time through one threaded read.
+
+``use_device_store`` decides ``ds.device_store``: "on" and "off" as they
+say; "auto" is on when the tables fit ``FREE_SHARE`` of the card's free
+memory (``torch.cuda.mem_get_info``) and off on the CPU.  The JAX
+package's fixed 8 GB budget and its TPU-only gate were set for a TPU
+v5e's 16 GB and are not copied.  The row-sharded store ("shard") waits
+for the multi-device slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from vog_tpu_torch.device import DeviceLike, resolve_device
 from vog_tpu_torch.kernels.gather import gather_rows
+
+
+# "auto" keeps the tables to this share of the card's free memory: the
+# rest holds the model, the optimizer, a captured step's pool and eval
+FREE_SHARE = 0.5
+
+
+def table_bytes(cfg, n_videos: int) -> int:
+    """The feature tables' size for ``n_videos`` rows under
+    ``misc.int8_feats`` (scales included) / ``misc.half_feats``."""
+    ds = cfg.ds
+    per_vid = ds.num_frms * (ds.num_prop_per_frm * ds.prop_dim + ds.seg_dim)
+    if cfg.misc.int8_feats:
+        return n_videos * (per_vid + ds.num_frms * (ds.num_prop_per_frm + 1) * 4)
+    return n_videos * per_vid * (2 if cfg.misc.half_feats else 4)
+
+
+def use_device_store(cfg, n_videos: int, device: torch.device, extra_bytes: int = 0) -> bool:
+    """``ds.device_store`` on ``device``: "on" / "off" as set; "auto" on
+    when the tables (plus ``extra_bytes``, the annotation tables) fit
+    ``FREE_SHARE`` of the card's free memory, off on the CPU."""
+    want = cfg.ds.device_store
+    if want not in ("auto", "on", "off"):
+        raise ValueError(f"ds.device_store={want!r}: the port takes auto, on or off "
+                         "(the row-sharded store waits for the multi-device slice)")
+    if want != "auto":
+        return want == "on"
+    if device.type != "cuda":
+        return False
+    free, _ = torch.cuda.mem_get_info(device)
+    return table_bytes(cfg, n_videos) + extra_bytes <= FREE_SHARE * free
 
 
 def _table_shape(n: int, width: int) -> tuple:
@@ -72,6 +112,7 @@ class DeviceFeatureTables:
             "seg": (ds.num_frms, ds.seg_dim),
         }
         self.n_rows = int(n_rows)
+        self.rows: Optional[Dict[str, int]] = None  # video -> row, for tables built from a store
         self.tables: Dict[str, torch.Tensor] = {}
         for k, s in self.shapes.items():
             shape = _table_shape(self.n_rows, int(np.prod(s)))
@@ -91,6 +132,32 @@ class DeviceFeatureTables:
         m = local["feats"].shape[0]
         for k, v in _pack_rows(local, self.dtype, self.int8).items():
             self.tables[k][i0 : i0 + m] = v
+
+    @classmethod
+    def from_store(cls, cfg, store, half: bool = False, int8: bool = False,
+                   device: DeviceLike = None, chunk_rows: int = 256) -> "DeviceFeatureTables":
+        """Tables of every video of ``store`` (``store.videos()`` order;
+        ``rows`` maps a video to its row), streamed ``chunk_rows`` videos at
+        a time: one read of the chunk's feats and seg (one threaded call
+        for the packed store), each clipped or zero-padded to (F, P) and F
+        frames as the JAX package's ``_stream_build_tables``, then packed
+        on the device."""
+        vids: List[str] = store.videos()
+        t = cls(cfg, len(vids), half=half, int8=int8, device=device)
+        t.rows = {v: i for i, v in enumerate(vids)}
+        (F, P, D), (_, Dv) = t.shapes["feats"], t.shapes["seg"]
+        many = getattr(store, "gather_many", None)
+        for i0 in range(0, len(vids), chunk_rows):
+            chunk = vids[i0:i0 + chunk_rows]
+            got = many(chunk, fields=("feats", "seg")) if many else [store.get_feats(v) for v in chunk]
+            feats = np.zeros((len(chunk), F, P, D), np.float32)
+            seg = np.zeros((len(chunk), F, Dv), np.float32)
+            for j, (fv, sv) in enumerate(got):
+                fi, pi = min(fv.shape[0], F), min(fv.shape[1], P)
+                feats[j, :fi, :pi] = fv[:fi, :pi]
+                seg[j, :min(sv.shape[0], F)] = sv[:F]
+            t.write(i0, feats, seg)
+        return t
 
     @classmethod
     def from_arrays(cls, cfg, feats, seg, half=False, int8=False,

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -199,14 +200,20 @@ def check_kernel_shapes(cfg) -> None:
 
 
 def get_model(
-    cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0, train: bool = False
+    cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0, train: bool = False,
+    glove=None,
 ) -> nn.Module:
     """Build the configured model on ``device`` (cuda by default), with
     random weights made from ``seed``, in eval mode, or in train mode
     (dropout on, and cuDNN's BiLSTM backward allowed) when ``train``.
-    The parameters are fp32 whatever ``mdl.dtype`` says (the activation
-    dtype, ``model/dtypes.py``).  Applies ``misc.matmul_precision``; on the card, checks the kernels'
-    shape ranges first (``check_kernel_shapes``)."""
+    ``glove``, a ``(vocab_size, mdl.emb_dim)`` array (the vocabulary's
+    GloVe table), sets the word embedding, as the JAX package's
+    ``LangEncoder`` initialises its ``embed`` param from it; it stays
+    frozen unless ``mdl.train_embeddings``.  Without it the embedding is
+    random.  The parameters are fp32 whatever ``mdl.dtype`` says (the
+    activation dtype, ``model/dtypes.py``).  Applies
+    ``misc.matmul_precision``; on the card, checks the kernels' shape
+    ranges first (``check_kernel_shapes``)."""
     if torch.device("cuda" if device is None else device).type == "cuda":
         check_kernel_shapes(cfg)
     dev = resolve_device(device)
@@ -219,4 +226,11 @@ def get_model(
         for mod in model.modules():
             if isinstance(mod, RelMultiHeadAttention):
                 nn.init.normal_(mod.rpe_table, std=0.02)
+    if glove is not None:
+        table = torch.as_tensor(np.asarray(glove, dtype=np.float32))
+        if tuple(table.shape) != tuple(model.lang.embed.weight.shape):
+            raise ValueError(f"glove table {tuple(table.shape)} does not match the embedding "
+                             f"(vocab_size, mdl.emb_dim) = {tuple(model.lang.embed.weight.shape)}")
+        with torch.no_grad():
+            model.lang.embed.weight.copy_(table)
     return model.to(dev).train(train)

@@ -1,5 +1,6 @@
 """Training: the optimizer, the non-finite guard, the train and eval steps
-and their fused multi-step dispatches."""
+and their fused multi-step dispatches; the Learner (``train/learner.py``)
+runs them over a dataset."""
 
 from vog_tpu_torch.train.state import (
     TrainState,

@@ -1,0 +1,490 @@
+"""Learner: the trainer runtime (counterpart of vog_tpu/train/learner.py,
+single device).
+
+Reference parity: ``utils/trn_utils.py §Learner``: epochs of train and
+validate, the smoothed loss, txt and json-lines logs under
+``tmp/{txt_logs,models,predictions,ext_logs}/{uid}…``, best and last
+checkpoints, resume, and predictions pickles scored by the evaluator.
+
+Setup, as the JAX Learner: the model from ``get_model`` with the
+vocabulary's GloVe table; the feature tables on the device from the
+dataset's store (``ds.device_store``; "auto" from the card's free memory,
+``data/device_store.py §use_device_store``) and, with them, the
+annotation tables (``ds.ann_store``), every split's dataset then emitting
+index-only samples; ``train.total_steps`` derived for the cosine; K train
+steps and E eval batches a dispatch (``dispatch_sizes``), each dispatch one
+``make_multi_train_step`` / ``make_multi_eval_step`` call (CUDA graph
+replays on the card).  The loader's thread stacks a dispatch's K batches
+while the card runs the previous dispatch.
+
+Each dispatch's aux (K losses, grad norms, the guard's count) is read once
+on the host, and before anything else happens: a guard past
+``train.skip_nonfinite`` raises ``FloatingPointError`` at that dispatch,
+before any save (the JAX Learner checks at log points only, after the
+periodic save), and so does a non-finite loss without the guard when
+``misc.check_nans``.  Then a SIGTERM (flagged by the handler) saves "last"
+and returns; then the periodic save; then logging.
+
+Checkpoints are one torch file a tag (``models/{uid}/{tag}.pt``): the
+parameters, Adam's flat moments, the guard counters and the int32 step
+(``TrainState.tensors``), with epoch, ``batch_in_epoch``, ``best_metric``
+and seed.  A save writes a temporary file and renames it, so a reader
+never sees a torn file (fsync'd before the rename); saves are synchronous (``train.async_ckpt`` is
+logged as such).  ``train.resume`` loads "last" (or ``resume_path``) and
+``fit`` continues mid-epoch from ``batch_in_epoch``, bitwise the
+uninterrupted run.
+
+Besides the JAX Learner's txt and json-lines logs, ``ext_logs/{uid}.events.jsonl``
+gets one record a log point (the dispatch's losses), an epoch (wall time,
+the host's time blocked on the loader and in the dispatches, samples/s,
+the learning rate at its end, kernel launches), an eval (batches, seconds, kernel launches),
+a table build and a save (seconds, bytes).
+
+Not ported yet (each raises naming its key): multi-device and multi-host
+(``misc.multihost``, a mesh), ``misc.checkify``, the TensorBoard mirror
+(``misc.tensorboard_dir``), ``misc.profile_dir``, ``mdl.sp_attention``;
+nor reading the JAX package's orbax checkpoints.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+import signal
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vog_tpu_torch.config import apply_matmul_precision
+from vog_tpu_torch.data.ann_store import AnnTables, ann_table_bytes
+from vog_tpu_torch.data.device_store import DeviceFeatureTables, use_device_store
+from vog_tpu_torch.data.loader import DataWrap, collate
+from vog_tpu_torch.device import DeviceLike, resolve_device
+from vog_tpu_torch.evaluation import finalize_metrics
+from vog_tpu_torch.kernels import _build
+from vog_tpu_torch.model.grounding import get_model
+from vog_tpu_torch.train.progress import ProgressBar, progress_enabled
+from vog_tpu_torch.train.state import (
+    TrainState,
+    dispatch_sizes,
+    make_multi_eval_step,
+    make_multi_train_step,
+)
+
+
+class SmoothenValue:
+    """EMA loss smoothing — reference ``utils/trn_utils.py §SmoothenValue``."""
+
+    def __init__(self, beta: float = 0.9):
+        self.beta = beta
+        self.n = 0
+        self.mov_avg = 0.0
+        self.smooth = 0.0
+
+    def add_value(self, val: float) -> None:
+        self.n += 1
+        self.mov_avg = self.beta * self.mov_avg + (1 - self.beta) * val
+        self.smooth = self.mov_avg / (1 - self.beta**self.n)
+
+
+def _launched_since(before: Dict[str, int]) -> Dict[str, int]:
+    """Kernel launches counted since the snapshot ``before`` of
+    ``_build.launches``."""
+    return {k: v - before.get(k, 0) for k, v in _build.launches.items() if v > before.get(k, 0)}
+
+
+def _not_ported(cfg) -> List[str]:
+    m = cfg.misc
+    out = []
+    for key, on in (("misc.multihost", m.multihost), ("misc.checkify", m.checkify),
+                    ("misc.tensorboard_dir", bool(m.tensorboard_dir)), ("misc.profile_dir", bool(m.profile_dir)),
+                    ("mdl.sp_attention", cfg.mdl.sp_attention), ("misc.mesh_model", m.mesh_model != 1),
+                    ("misc.mesh_data", m.mesh_data not in (-1, 1))):
+        if on:
+            out.append(key)
+    return out
+
+
+class Learner:
+    SUM_KEYS = ("n_pairs", "n_acc", "n_vacc", "n_queries", "n_strict", "n_cons")
+
+    def __init__(self, uid: str, data: DataWrap, cfg, device: DeviceLike = None):
+        faults = _not_ported(cfg)
+        if faults:
+            raise ValueError(f"not ported to vog_tpu_torch yet: {', '.join(faults)} (single device, no mesh)")
+        self.uid, self.data, self.cfg = uid, data, cfg
+        self.device = resolve_device(device)
+        tmp = Path(cfg.misc.tmp_path)
+        self.dirs = {k: tmp / k for k in ("models", "txt_logs", "predictions", "ext_logs")}
+        for d in self.dirs.values():
+            d.mkdir(parents=True, exist_ok=True)
+        self.log_file = self.dirs["txt_logs"] / f"{uid}.txt"
+        self.json_log = self.dirs["ext_logs"] / f"{uid}.jsonl"
+        self.events_log = self.dirs["ext_logs"] / f"{uid}.events.jsonl"
+        self.ckpt_dir = (self.dirs["models"] / uid).absolute()
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.seed = int(cfg.train.seed)
+        self.bs = int(cfg.train.bs)
+        self._preempted = False
+        self.best_metric = -float("inf")
+        self.epoch = 0
+        self.batch_in_epoch = 0
+
+        # the cosine needs the true horizon: total_steps 0 means derive it
+        if cfg.train.lr_schedule == "cosine" and cfg.train.total_steps == 0:
+            cfg.train.total_steps = cfg.train.epochs * len(data.train_dl)
+
+        # device-resident feature tables, then the annotation tables: the
+        # batches shrink to vid_rows, then to four int32 fields a sample
+        self._tables: Optional[Dict[str, torch.Tensor]] = None
+        splits = {s: dl.ds for s, dl in (("train", data.train_dl), ("valid", data.valid_dl),
+                                         ("test", data.test_dl)) if dl is not None}
+        store = data.train_dl.ds.store
+        n_videos = len(store.videos())
+        want_ann = cfg.ds.ann_store != "off"
+        ann_bytes = ann_table_bytes(cfg, sum(len(d) for d in splits.values()), n_videos) if want_ann else 0
+        if use_device_store(cfg, n_videos, self.device, ann_bytes):
+            t0 = time.perf_counter()
+            dft = DeviceFeatureTables.from_store(cfg, store, half=cfg.misc.half_feats, int8=cfg.misc.int8_feats,
+                                                 device=self.device)
+            self._sync()
+            nb = sum(v.nbytes for v in dft.tables.values())
+            dt = time.perf_counter() - t0
+            self._tables = dict(dft.tables)
+            for d in splits.values():
+                d.device_rows = dft.rows
+            self.log(f"device feature store: {n_videos} videos resident ({nb / 1e6:.0f} MB, {dft.dtype}) "
+                     f"built in {dt:.2f} s")
+            self.event("tables", table="features", videos=n_videos, bytes=nb, seconds=dt)
+            if want_ann:
+                t0 = time.perf_counter()
+                ann = AnnTables.from_datasets(cfg, splits, dft.rows, device=self.device)
+                self._sync()
+                nb, dt = sum(v.nbytes for v in ann.tables.values()), time.perf_counter() - t0
+                self._tables.update(ann.tables)
+                for s, d in splits.items():
+                    d.index_only = True
+                    d.ann_row_offset = ann.split_offset[s]
+                self.log(f"device annotation store: {ann.n_anns} anns resident ({nb / 1e6:.1f} MB) built in "
+                         f"{dt:.2f} s — index-only input path")
+                self.event("tables", table="annotations", anns=ann.n_anns, bytes=nb, seconds=dt)
+        else:
+            self.log(f"device feature store off (ds.device_store={cfg.ds.device_store}): features travel "
+                     "with each batch")
+            if cfg.ds.ann_store == "on":
+                self.log("ds.ann_store=on ignored: requires an active ds.device_store")
+
+        apply_matmul_precision(cfg)
+        self.model = get_model(cfg, len(data.vocab), device=self.device, seed=self.seed, train=True,
+                               glove=data.vocab.vectors)
+        self.state = TrainState.create(cfg, self.model)
+
+        self.K, self.E = dispatch_sizes(cfg)
+        self._train_multi = make_multi_train_step(cfg)
+        self._eval_multi = make_multi_eval_step(cfg)
+        # the loader's thread groups K batches and stacks them into one
+        # (K, B, ...) batch (K=1: one batch, ungrouped), while the card
+        # runs the previous dispatch
+        data.train_dl.group = self.K
+        data.train_dl.transform = lambda b: collate(b if isinstance(b, list) else [b])
+        if cfg.train.async_ckpt:
+            self.log("train.async_ckpt: the port writes checkpoints synchronously (atomic rename)")
+
+        if cfg.train.resume:
+            self.load(cfg.train.resume_path or None)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- logging --------------------------------------------------------------
+    def log(self, msg: str) -> None:
+        line = f"[{time.strftime('%H:%M:%S')}] {msg}"
+        print(line, flush=True)
+        with open(self.log_file, "a") as f:
+            f.write(line + "\n")
+
+    def log_json(self, record: Dict) -> None:
+        with open(self.json_log, "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def event(self, kind: str, **fields) -> None:
+        """One record of the Learner's own readings (events.jsonl)."""
+        with open(self.events_log, "a") as f:
+            f.write(json.dumps({"event": kind, "epoch": self.epoch, **fields}) + "\n")
+
+    # -- checkpointing --------------------------------------------------------
+    def ckpt_path(self, tag: str) -> Path:
+        return self.ckpt_dir / f"{tag}.pt"
+
+    def save(self, tag: str = "last") -> Path:
+        """Write ``models/{uid}/{tag}.pt``: the state's tensors and the
+        meta, to a temporary name renamed into place."""
+        t0 = time.perf_counter()
+        payload = {
+            "state": {k: v.detach().cpu() for k, v in self.state.tensors().items()},
+            "meta": {"epoch": self.epoch, "batch_in_epoch": self.batch_in_epoch,
+                     "best_metric": self.best_metric, "seed": self.seed, "uid": self.uid},
+        }
+        path = self.ckpt_path(tag)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            torch.save(payload, f)
+            f.flush()
+            os.fsync(f.fileno())  # durable before it takes the name
+        os.replace(tmp, path)
+        dt = time.perf_counter() - t0
+        self.event("save", tag=tag, bytes=path.stat().st_size, seconds=dt,
+                   batch_in_epoch=self.batch_in_epoch)
+        return path
+
+    def load(self, path: Optional[str] = None, tag: str = "last") -> None:
+        """Restore a checkpoint of this port (``path``, else ``tag`` of
+        this uid) into the state, in place (captured graphs stay valid);
+        a tensor missing or of another shape raises."""
+        ckpt = Path(path).absolute() if path else self.ckpt_path(tag)
+        payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+        saved, cur = payload["state"], self.state.tensors()
+        if set(saved) != set(cur):
+            raise ValueError(f"checkpoint {ckpt} holds other tensors: missing "
+                             f"{sorted(set(cur) - set(saved))[:5]}, extra {sorted(set(saved) - set(cur))[:5]}")
+        with torch.no_grad():
+            for k, v in cur.items():
+                if v.shape != saved[k].shape or v.dtype != saved[k].dtype:
+                    raise ValueError(f"checkpoint {ckpt}: {k} is {saved[k].dtype} {tuple(saved[k].shape)}, "
+                                     f"the model's {v.dtype} {tuple(v.shape)}")
+                v.copy_(saved[k])
+        meta = payload["meta"]
+        self.epoch = int(meta["epoch"])
+        self.batch_in_epoch = int(meta["batch_in_epoch"])
+        self.best_metric = float(meta["best_metric"])
+        self.log(f"resumed from {ckpt} at step {int(self.state.step)} (epoch {self.epoch}, "
+                 f"batch {self.batch_in_epoch})")
+
+    # -- preemption -----------------------------------------------------------
+    def _install_preempt(self):
+        """Trap SIGTERM to set a flag that ``fit`` reads after every
+        dispatch (then a blocking save of "last" and a return).  -> the
+        previous handler, or None when off or off the main thread."""
+        if not self.cfg.train.save_on_preempt or threading.current_thread() is not threading.main_thread():
+            return None
+        self._preempted = False
+
+        def handler(signum, frame):
+            self._preempted = True
+
+        return {signal.SIGTERM: signal.signal(signal.SIGTERM, handler)}
+
+    @staticmethod
+    def _restore_preempt(prev) -> None:
+        for sig, h in (prev or {}).items():
+            signal.signal(sig, h)
+
+    # -- train ----------------------------------------------------------------
+    def fit(self, epochs: Optional[int] = None) -> Dict:
+        """Train ``epochs`` epochs from the current position (a resumed
+        epoch's rest counts as one); None: to the end of ``train.epochs``,
+        so a resumed run ends where the uninterrupted one does (the JAX
+        Learner runs ``train.epochs`` more epochs after a resume, past its
+        cosine's horizon)."""
+        if epochs is None:
+            epochs = self.cfg.train.epochs - self.epoch
+        # resume replays the epoch's order and seeks past consumed batches
+        self.data.train_dl.epoch = self.epoch
+        prev = self._install_preempt()
+        try:
+            return self._fit_loop(epochs)
+        finally:
+            self._restore_preempt(prev)
+
+    def _check_dispatch(self, lo: np.ndarray, aux: Dict[str, np.ndarray], at: str) -> None:
+        """The guard's give-up (and, without the guard, a non-finite loss
+        under ``misc.check_nans``) raises at the dispatch that shows it."""
+        t = self.cfg.train
+        gnf = aux.get("guard_notfinite")
+        if gnf is not None and int(np.max(gnf)) > t.skip_nonfinite:
+            raise FloatingPointError(
+                f"skip_nonfinite guard gave up: > {t.skip_nonfinite} consecutive non-finite steps at {at} — "
+                "params are poisoned; lower train.lr or raise train.skip_nonfinite")
+        if t.skip_nonfinite == 0 and not np.all(np.isfinite(lo)) and self.cfg.misc.check_nans:
+            gn = np.asarray(aux["grad_norm"]).reshape(-1)
+            raise FloatingPointError(f"non-finite loss {lo.tolist()} at {at} (grad_norm={gn.tolist()}); "
+                                     "the dispatch froze the state at its last finite step")
+
+    def _fit_loop(self, epochs: int) -> Dict:
+        cfg = self.cfg
+        smooth = SmoothenValue()
+        metrics: Dict = {}
+        skip = self.batch_in_epoch
+        host_step = int(self.state.step) if cfg.train.ckpt_every_steps else 0
+        show_bar = progress_enabled(cfg.misc.progress)
+        for ep_i in range(epochs):
+            t0 = time.perf_counter()
+            launches0 = dict(_build.launches)
+            n_seen = n_disp = 0
+            self.data.train_dl.start_batch = skip
+            it_pos = skip  # batch index; a dispatch advances it by its K
+            bar = ProgressBar(len(self.data.train_dl), desc=f"ep {self.epoch}", enabled=show_bar)
+            bar.n = skip
+            waited = in_dispatch = 0.0  # host s blocked on the loader; in the dispatches and their reads
+            t_end = time.perf_counter()
+            for stacked in self.data.train_dl:
+                t_got = time.perf_counter()
+                waited += t_got - t_end
+                i = it_pos
+                kb = int(stacked["batch_mask"].shape[0])  # an epoch's last group may be short
+                self.batch_in_epoch = i + kb
+                _, aux = self._train_multi(self.state, stacked, self.seed, self._tables)
+                aux = {k: v.cpu().numpy() for k, v in aux.items()}  # the dispatch's one host read
+                in_dispatch += time.perf_counter() - t_got
+                n_seen += self.bs * kb
+                n_disp += 1
+                host_step += kb
+                it_pos += kb
+                bar.update(kb)
+                lo = aux["loss"].reshape(-1)
+                at = f"ep {self.epoch} it {it_pos - 1}"
+                self._check_dispatch(lo, aux, at)
+                if self._preempted:
+                    bar.close("preempted")
+                    self.log(f"SIGTERM: saving at ep {self.epoch} batch {self.batch_in_epoch} and leaving fit()")
+                    self.save("last")
+                    return metrics
+                every = cfg.train.ckpt_every_steps
+                if every and host_step // every > (host_step - kb) // every:
+                    self.save("last")
+                if i == 0 or it_pos // cfg.train.log_every > i // cfg.train.log_every:
+                    self._log_point(lo, aux, smooth, bar, at)
+                t_end = time.perf_counter()
+            dt = time.perf_counter() - t0
+            pairs = n_seen * cfg.ds.num_cmp
+            bar.close(f"{pairs / max(dt, 1e-9):.0f} pairs/s")
+            self.event("epoch", seconds=dt, loader_wait_s=waited, dispatch_s=in_dispatch, samples=n_seen,
+                       dispatches=n_disp, lr_end=float(self.state.tx.lr(self.state.opt_state["count"])),
+                       samples_per_s=n_seen / max(dt, 1e-9), pairs_per_s=pairs / max(dt, 1e-9),
+                       kernel_launches=_launched_since(launches0))
+            # eval every eval_every epochs and always after the last
+            do_eval = ep_i == epochs - 1 or self.epoch % max(cfg.train.eval_every, 1) == 0
+            if do_eval:
+                metrics = self.validate()
+                metrics.update(epoch=self.epoch, train_time_s=round(dt, 2),
+                               pairs_per_sec=round(pairs / max(dt, 1e-9), 2))
+                self.log(f"ep {self.epoch} metrics {metrics}")
+                self.log_json(metrics)
+            else:
+                self.log(f"ep {self.epoch} done in {dt:.1f}s (eval skipped; eval_every={cfg.train.eval_every})")
+            skip = 0
+            self.batch_in_epoch = 0
+            self.epoch += 1  # the checkpoint's meta names the next epoch to run
+            self.save("last")
+            if do_eval and metrics["acc"] > self.best_metric:
+                self.best_metric = metrics["acc"]
+                self.save("best")
+        return metrics
+
+    def _log_point(self, lo: np.ndarray, aux: Dict[str, np.ndarray], smooth: SmoothenValue, bar, at: str) -> None:
+        loss = float(lo[-1])
+        self.event("log", it=int(at.rsplit(" ", 1)[1]), losses=[float(v) for v in lo],
+                   grad_norms=[float(v) for v in np.asarray(aux["grad_norm"]).reshape(-1)])
+        if not np.all(np.isfinite(lo)):
+            how = "update dropped by skip_nonfinite" if self.cfg.train.skip_nonfinite > 0 else \
+                "the dispatch froze the state"
+            self.log(f"{at} non-finite loss ({how})")
+            return
+        gnf = aux.get("guard_notfinite")
+        nbad = int(np.max(gnf)) if gnf is not None else 0
+        if nbad > 0:
+            self.log(f"{at}: {nbad} consecutive non-finite GRAD step(s) with finite loss — updates dropped "
+                     "by skip_nonfinite, params frozen")
+        for v in lo:
+            smooth.add_value(float(v))
+        bar.update(0, loss=loss, smooth=smooth.smooth)
+        self.log(f"{at} loss {loss:.4f} smooth {smooth.smooth:.4f}")
+
+    # -- eval -----------------------------------------------------------------
+    def _run_eval(self, dl, split: str) -> Dict:
+        sums = {k: 0.0 for k in self.SUM_KEYS}
+        sums["loss_sum"] = 0.0
+        sums["n_batch"] = 0.0
+        preds: List[Dict] = []
+        n_props = int(self.cfg.ds.num_prop_per_frm)
+        max_b = self.cfg.train.num_eval_batches
+        if max_b and len(dl) > max_b:
+            self.log(f"eval[{split}] TRUNCATED to {max_b}/{len(dl)} batches (train.num_eval_batches) — "
+                     "metrics are partial")
+        t0 = time.perf_counter()
+        launches0 = dict(_build.launches)
+        n_batches = 0
+
+        def consume(out: Dict[str, np.ndarray], batch: Dict[str, np.ndarray]) -> None:
+            for k in sums:
+                sums[k] += float(out[k])
+            ann_idx, bm, pos_vid = batch["ann_idx"], batch["batch_mask"], batch["pos_vid"]
+            if "pair_valid" in out:
+                if out["n_overflow"] > 0:
+                    self.log(f"eval[{split}] WARNING: {int(out['n_overflow'])} considered pairs exceeded "
+                             "train.eval_max_pairs — predictions payload truncated (metrics unaffected)")
+                valid = out["pair_valid"]
+                for b in range(len(ann_idx)):
+                    if bm[b] == 0:
+                        continue
+                    k = valid[b] > 0
+                    preds.append({"ann_idx": int(ann_idx[b]), "pred_vid": out["pair_vid"][b][k].tolist(),
+                                  "pred_prop": out["pair_prop"][b][k].tolist(),
+                                  "iou": out["pair_iou"][b][k].tolist(),
+                                  "arg_idx": out["pair_arg"][b][k].tolist(),
+                                  "frame_idx": out["pair_frame"][b][k].tolist(),
+                                  "scores": out["pair_scores"][b][k].tolist(),
+                                  "pos_vid": int(pos_vid[b]), "num_props": n_props})
+            else:  # full grids (train.eval_max_pairs = 0)
+                for b in range(len(ann_idx)):
+                    if bm[b] == 0:
+                        continue
+                    sel = out["considered"][b] > 0
+                    ai, fi = np.nonzero(sel)
+                    preds.append({"ann_idx": int(ann_idx[b]), "pred_vid": out["pred_vid"][b][sel].tolist(),
+                                  "pred_prop": out["pred_prop"][b][sel].tolist(),
+                                  "iou": out["pred_iou"][b][sel].tolist(), "arg_idx": ai.tolist(),
+                                  "frame_idx": fi.tolist(), "scores": out["cand_scores"][b, ai, fi].tolist(),
+                                  "pos_vid": int(pos_vid[b]), "num_props": n_props})
+
+        group: List[Dict] = []
+
+        def flush() -> None:
+            if not group:
+                return
+            out = self._eval_multi(self.state, collate(group), self._tables)
+            out = {k: v.cpu().numpy() for k, v in out.items()}  # one host read a dispatch
+            for e, b in enumerate(group):
+                consume({k: v[e] for k, v in out.items()}, b)
+            group.clear()
+
+        for i, batch in enumerate(dl):
+            if max_b and i >= max_b:
+                break
+            group.append(batch)
+            n_batches += 1
+            if len(group) == self.E:
+                flush()
+        flush()
+        dt = time.perf_counter() - t0
+        pred_file = self.dirs["predictions"] / f"{self.uid}_{split}_{self.epoch}.pkl"
+        with open(pred_file, "wb") as f:
+            pickle.dump(preds, f)
+        self.event("eval", split=split, batches=n_batches, seconds=dt, batches_per_s=n_batches / max(dt, 1e-9),
+                   pred_file=str(pred_file), kernel_launches=_launched_since(launches0))
+        metrics = finalize_metrics(sums)
+        metrics["val_loss"] = sums["loss_sum"] / max(sums["n_batch"], 1.0)
+        return metrics
+
+    def validate(self) -> Dict:
+        return self._run_eval(self.data.valid_dl, "valid")
+
+    def testing(self) -> Dict:
+        return self._run_eval(self.data.test_dl, "test")
+

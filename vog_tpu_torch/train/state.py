@@ -70,6 +70,7 @@ class Optimizer(NamedTuple):
     # update, new state, the gradient's global norm)
     flat_update: Callable[..., Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]]
     wd: float  # flat_update reads the flat params only when wd > 0
+    lr: Callable[[torch.Tensor], torch.Tensor]  # the schedule: step count -> learning rate
 
 
 def _flat(tree: Tree) -> torch.Tensor:
@@ -134,7 +135,7 @@ def make_optimizer(cfg) -> Optimizer:
         sizes = [v.numel() for v in grads.values()]
         return ({k: o.view_as(v) for (k, v), o in zip(grads.items(), out.split(sizes))}, new)
 
-    return Optimizer(init, update, flat_update, float(t.wd))
+    return Optimizer(init, update, flat_update, float(t.wd), lr)
 
 
 class FlatGrads:
