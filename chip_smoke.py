@@ -26,7 +26,9 @@ the last line:
    its bytes over 3.35 TB/s and its operations over 165 TFLOP/s, the
    H100 SXM peaks (the operations at
    the rate of the fastest route that meets the fp32 parity limits,
-   3xTF32 on the tensor cores: 495 / 3 TFLOP/s);
+   3xTF32 on the tensor cores: 495 / 3 TFLOP/s); and each forward
+   kernel's launch called directly, without its ``torch.library`` op,
+   with the host's issue (the wrapper's route before the op);
 4. serve: 15,000-row bf16 feature tables made on the card from a seed,
    full-width VOGNet (GT5 production widths, random weights from a seed),
    96 ``vid_rows`` requests from 8 concurrent clients through
@@ -48,7 +50,10 @@ the last line:
    on the rows within 2e-5 of a ReLU kink), and each plain backward
    against torch.autograd of its plain forward, within phase 3's limits;
    their times, library calls (SDPA's backward; for mm with the float
-   mask's gradient) and bounds as in phase 3;
+   mask's gradient) and bounds as in phase 3; then ``[threads gt5]``:
+   every wrapper's forward and backward (through autograd, both modes of
+   flash and mm), at both precisions, from a fresh thread bitwise as from
+   the main thread (``thread_calls``, ``fresh_thread_mismatches``);
 7. train: the production recipe (``configs/gt5_production.yml``: B=16,
    lr 5e-4 cosine after 100 warm-up steps, pos_weight 5, skip_nonfinite 50,
    grad_clip 1, dropout 0.1) at full width, fp32 activations, batches
@@ -121,17 +126,34 @@ kernel; each phase that switches precision restores "highest" after it):
 The training entry point (after phase 12, once the GT5 random tables are
 freed, before P100):
 
-14. learner gt5 prod (``phase_learner``): a fixture written by the port's
-    writer at the recipe's widths (3,000 / 1,000 / 200 segments), trained
-    through ``python -m vog_tpu_torch.cli.train``'s ``main`` with
-    ``configs/gt5_production.yml`` for 2 epochs: every logged loss finite,
-    every "default" kernel of the path launched (counts per epoch), the
-    final acc above the untrained model's, ``cli.eval`` on "best" and
-    ``offline.eval_fun`` on the predictions agreeing with the Learner, a
-    SIGTERM after dispatch 10 of epoch 1 and a resume ending bitwise at the
-    uninterrupted run's state; table build, epoch time, samples/s beside
-    phase 12's, the idle share of a profiled epoch, eval batches/s,
-    checkpoint saves and the peak memory, each with the card.
+14. learner gt5 prod (``phase_learner``, ``learner_runs``): a fixture
+    written by the port's writer at the recipe's widths, BASELINE.md's GT5
+    curve set (5,600 segments: 3,920 / 1,400 / 280), trained through
+    ``python -m vog_tpu_torch.cli.train``'s ``main`` with
+    ``configs/gt5_production.yml`` for 6 epochs of a cosine over 24: a
+    SIGTERM after dispatch 10 of epoch 1, a resume to the end of epoch 1
+    bitwise at a Learner's state after two epochs uninterrupted, and a
+    resume to the end; every logged loss finite and no non-finite step,
+    every "default" kernel of the path launched (counts per epoch), each
+    epoch's acc beside the JAX package's curve and the learnability bound
+    (acc past 0.4 by epoch 5, best at least 0.6), ``cli.eval`` on "best"
+    and ``offline.eval_fun`` on the predictions agreeing with the Learner;
+    table build, epoch time, samples/s beside phase 12's, the idle share
+    of a profiled epoch, eval batches/s, checkpoint saves and the peak
+    memory, each with the card;
+15. serve cli gt5 prod (``phase_serve_cli``): ``python -m
+    vog_tpu_torch.cli.serve``'s ``main`` on that run's "best" checkpoint
+    (``--selftest=96 --concurrency=8``, its JSON line), the CLI's predictor
+    bitwise ``Predictor.from_checkpoint`` on 16 valid requests, and its
+    HTTP mode on a loopback port answering as the in-process call;
+16. export gt5 prod (``phase_export``): ``cli.export`` of "best" at B=16,
+    with the bf16 tables inside and in the int8 encoding: each program's
+    forward ops by node, each replay against the live eager predictor
+    (bitwise, else the serve bounds), ``cli.serve --artifact`` beside the
+    live loop, and a ``ServingLoop`` with buckets around it refused.
+
+No thread may warn that it ran cuBLAS without a current CUDA context
+(``watch_context_warnings``).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -236,6 +258,13 @@ def fmt_times(t: dict, lib: str = "library") -> str:
     def pair(key):
         return "none" if t[key + "ms"] is None else f"{t[key + 'ms']:.4f}/{t[key + 'issue_ms']:.4f}"
     return f"ms={pair('')} plain={pair('plain_')} {lib}={pair('library_')}"
+
+
+def fmt_direct(t: dict) -> str:
+    """The kernel's launch called directly, without its op's dispatcher
+    (``direct_issue_ms``), with the host's issue: the wrapper's route
+    before the ``torch.library`` op."""
+    return f" direct launch (no op) w/ issue={t['direct_issue_ms']:.4f}"
 
 
 def bound_ms(n_bytes: float, n_flops: float, peak: float = PEAK_FLOP_PER_S):
@@ -404,11 +433,13 @@ def phase_kernels(cfg, tables, B: int = 16):
     path's shapes; returns the kernel table rows (without launches)."""
     import torch
 
+    from vog_tpu_torch.config import kernel_precision
     from vog_tpu_torch.data.device_store import _pack_rows
     from vog_tpu_torch.kernels import attention, grounding_head, gather, mm_attention
 
     tag = cfg.ds.exp_setting
     reps, inner = TIMING[tag]
+    prec = kernel_precision()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -449,6 +480,8 @@ def phase_kernels(cfg, tables, B: int = 16):
         times[nb] = timings(lambda: gather.gather_rows(feats, nxt()),
                             lambda: gather.gather_rows_plain(feats, nxt()),
                             lambda: torch.index_select(feats, 0, nxt().reshape(-1)), reps, inner)
+        times[nb]["direct_issue_ms"] = time_ms(lambda: gather._gather_rows_cuda(feats, nxt()), reps, inner,
+                                               queued=False)
         times[nb]["bound_ms"] = bound_ms(2 * nb * V * row_bytes + nbytes(sets[0]), 0)[0]
     t, b1 = times[B], times[1]
     out.append(dict(name="gather_rows", route="cuda", source="vog_tpu_torch/csrc/gather.cu",
@@ -457,8 +490,8 @@ def phase_kernels(cfg, tables, B: int = 16):
                     **{"b1_" + k: x for k, x in b1.items()}))
     print(f"[kernels {tag}] gather_rows bitwise ({', '.join(tables.tables)} as resident; f32, int8); "
           f"device/with issue: B={B}: "
-          f"{fmt_times(t, 'index_select')} bound={t['bound_ms']:.4f}; B=1 ({V} rows): "
-          f"{fmt_times(b1, 'index_select')} bound={b1['bound_ms']:.4f}", flush=True)
+          f"{fmt_times(t, 'index_select')} bound={t['bound_ms']:.4f}{fmt_direct(t)}; B=1 ({V} rows): "
+          f"{fmt_times(b1, 'index_select')} bound={b1['bound_ms']:.4f}{fmt_direct(b1)}", flush=True)
 
     # -- flash attention: no bias (object transformer) and with bias -----
     q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
@@ -480,13 +513,15 @@ def phase_kernels(cfg, tables, B: int = 16):
                 lambda: attention.flash_attention_plain(q, k, v, mask),
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask),
                 reps, inner)
+    t["direct_issue_ms"] = time_ms(lambda: attention._flash_fwd_cuda(q, k, v, mask, None, None, prec), reps, inner,
+                                   queued=False)
     fl = 4.0 * B * H * T * T * dh
     bms, by = bound_ms(nbytes(q, k, v, mask) + nbytes(q) + B * H * T * 4, fl)
     out.append(dict(name="flash_attention", route="cuda", source="vog_tpu_torch/csrc/attention.cu",
                     replaces="vog_tpu/kernels/attention.py:286", max_abs_err=err, **t,
                     bound_ms=bms, bound_by=by, shape=f"q,k,v {tuple(q.shape)} f32, no bias"))
     print(f"[kernels {tag}] flash_attention max_err={err:.3e} (no bias, spat bias, mixed-frame bias) "
-          f"{fmt_times(t, 'sdpa')} bound={bms:.4f}", flush=True)
+          f"{fmt_times(t, 'sdpa')} bound={bms:.4f}{fmt_direct(t)}", flush=True)
 
     # -- mm shared-QK attention -------------------------------------------
     qm = q * (1.0 / dh**0.5)
@@ -506,6 +541,8 @@ def phase_kernels(cfg, tables, B: int = 16):
     t = timings(lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid_spat),
                 lambda: mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid_spat), sdpa,
                 reps, inner)
+    t["direct_issue_ms"] = time_ms(lambda: mm_attention._mm_fwd_cuda(qm, k, v, cn, mask, fb, fid_spat, prec), reps,
+                                   inner, queued=False)
     del q_rep, fmask
     fl = 2.0 * B * H * T * T * dh * (1 + A)
     out_b = B * H * A * T * (dh + 2) * 4
@@ -515,7 +552,7 @@ def phase_kernels(cfg, tables, B: int = 16):
                     bound_ms=bms, bound_by=by, shape=f"qm,km,vm {tuple(qm.shape)}, A={A} f32",
                     library=f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}"))
     print(f"[kernels {tag}] mm_shared_qk_attention max_err={err:.3e} {fmt_times(t, 'sdpa')} "
-          f"(sdpa rel err vs kernel {lib_rel:.2e}) bound={bms:.4f}", flush=True)
+          f"(sdpa rel err vs kernel {lib_rel:.2e}) bound={bms:.4f}{fmt_direct(t)}", flush=True)
 
     # -- fused grounding head ----------------------------------------------
     Dh = D // 2
@@ -533,12 +570,14 @@ def phase_kernels(cfg, tables, B: int = 16):
                       grounding_head.grounding_head_plain(*args))
     t = timings(lambda: grounding_head.fused_grounding_head(*args),
                 lambda: grounding_head.grounding_head_plain(*args), None, reps, inner)
+    t["direct_issue_ms"] = time_ms(lambda: grounding_head._head_fwd_cuda(*args, prec), reps, inner, queued=False)
     fl = 2.0 * B * A * T * (D * D + D * Dh + Dh)
     bms, by = bound_ms(nbytes(*args) + B * A * T * 4, fl)
     out.append(dict(name="fused_grounding_head", route="cuda", source="vog_tpu_torch/csrc/grounding_head.cu",
                     replaces="vog_tpu/kernels/grounding_head.py:190", max_abs_err=err, **t,
                     bound_ms=bms, bound_by=by, shape=f"vis {tuple(vis.shape)}, A={A} f32"))
-    print(f"[kernels {tag}] fused_grounding_head max_err={err:.3e} {fmt_times(t)} bound={bms:.4f}", flush=True)
+    print(f"[kernels {tag}] fused_grounding_head max_err={err:.3e} {fmt_times(t)} bound={bms:.4f}{fmt_direct(t)}",
+          flush=True)
     return out
 
 
@@ -946,6 +985,97 @@ def phase_kernels_bwd(cfg, B: int = 16):
     print(f"[kernels-bwd {tag}] fused_grounding_head_bwd max_err={err:.3e} {fmt_times(t)} "
           f"bound={bms:.4f} (g zeroed on {kink:.4f} of rows near a ReLU kink)", flush=True)
     return out
+
+
+def thread_calls(B: int, H: int, T: int, dh: int, F: int, A: int, D: int, seed: int = 3) -> dict:
+    """Every kernel wrapper on seeded inputs on the card: the four forwards
+    (through their ops) and each backward through autograd, flash and mm
+    in both modes -> {name: a call returning a tuple of tensors}."""
+    import torch
+
+    from vog_tpu_torch.kernels import attention, gather, grounding_head, mm_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    table = rnd(64, 40, 128).to(torch.bfloat16)
+    rows = torch.randint(0, 64, (B, 4), generator=g, device=dev, dtype=torch.int32)
+    q, k, v, do = rnd(B, H, T, dh), rnd(B, H, T, dh), rnd(B, H, T, dh), rnd(B, H, T, dh)
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
+    mask[:, 0] = 1.0
+    fb = rnd(H, F, F) * 0.5
+    fid = torch.randint(0, F, (T,), generator=g, device=dev, dtype=torch.int32)
+    qm, cn, gm = q * dh**-0.5, -3.0 * torch.rand((B, H, A, T), generator=g, device=dev), rnd(B, H, A, T, dh)
+    Dh = D // 2
+    vis, arg = torch.relu(rnd(B, T, D)), torch.relu(rnd(B, A, D))
+    head = (vis, arg, vis @ (rnd(D, D) / D**0.5), arg @ (rnd(D, D) / D**0.5), rnd(D, D) / D**0.5,
+            rnd(D, Dh) / D**0.5, rnd(Dh) * 0.1, rnd(Dh) / Dh**0.5, rnd(1))
+    gh = rnd(B, A, T)
+
+    def grad_of(fn, leaves, cot):
+        xs = [x.detach().clone().requires_grad_() for x in leaves]
+        return torch.autograd.grad(fn(*xs), xs, cot)
+
+    calls = {
+        "gather_rows": lambda: (gather.gather_rows(table, rows),),
+        "flash_attention": lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid),
+        "mm_shared_qk_attention": lambda: mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid),
+        "fused_grounding_head": lambda: (grounding_head.grounding_head_fwd(*head),),
+        "fused_grounding_head_bwd": lambda: grad_of(grounding_head.fused_grounding_head, head, gh),
+    }
+    for mode in ("recompute", "emit"):
+        calls[f"flash_attention_bwd ({mode})"] = lambda mode=mode: grad_of(
+            lambda q_, k_, v_, fb_: attention.flash_attention(q_, k_, v_, mask, fb_, fid, bwd_mode=mode),
+            (q, k, v, fb), do)
+        calls[f"mm_shared_qk_attention_bwd ({mode})"] = lambda mode=mode: grad_of(
+            lambda q_, k_, v_, cn_, fb_: mm_attention.mm_shared_qk_attention(q_, k_, v_, cn_, mask, fb_, fid,
+                                                                            bwd_mode=mode),
+            (qm, k, v, cn, fb), gm)
+    return calls
+
+
+def fresh_thread_mismatches(calls: dict) -> list:
+    """Run every call on this thread, then all of them again on a fresh
+    ``threading.Thread`` (its backwards on autograd's worker thread) ->
+    the names whose outputs are not bitwise the first run's."""
+    import torch
+
+    first = {n: [t.clone() for t in fn()] for n, fn in calls.items()}
+    torch.cuda.synchronize()
+    again, errors = {}, []
+
+    def body():
+        try:
+            for n, fn in calls.items():
+                again[n] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:  # surfaced on the calling thread below
+            errors.append(e)
+
+    th = threading.Thread(target=body)
+    th.start()
+    th.join()
+    if errors:
+        raise errors[0]
+    return [n for n in calls if len(again[n]) != len(first[n])
+            or not all(torch.equal(a, b) for a, b in zip(first[n], again[n]))]
+
+
+def phase_threads(cfg) -> None:
+    """[threads gt5]: every kernel wrapper and its backward, at both
+    precisions, from a fresh thread bitwise as from the main thread (the
+    device guard of each C entry point, ``csrc/device.cuh``)."""
+    V, F, P, A = cfg.ds.num_cmp, cfg.ds.num_frms, cfg.ds.num_prop_per_frm, cfg.ds.max_srl_args
+    D, H = cfg.mdl.vis_dim, cfg.mdl.n_heads
+    for prec, on in (("highest", False), ("default", True)):
+        with tf32(on):
+            calls = thread_calls(16, H, F * V * P, D // H, F, A, D)
+            bad = fresh_thread_mismatches(calls)
+        if bad:
+            fail(f"[threads gt5] {prec}: not bitwise on a fresh thread: {bad}")
+        print(f"[threads gt5] {prec}: {len(calls)} wrappers ({', '.join(calls)}) on a fresh thread bitwise as on "
+              "the main thread", flush=True)
 
 
 def head_bwd_given(args, g, h_kernel, dz1_kernel):
@@ -2270,9 +2400,19 @@ def phase_dispatch_prod(tables, card: str, fp32: dict) -> tuple:
 # [learner gt5 prod]: the training entry point end to end at the recipe's
 # widths, on a fixture written by the port's writer (the recipe's 15,000
 # segments cut to 3,200; 2 epochs, not 10)
-LEARNER_SEGS = (3000, 1000, 200)  # train / valid / test segments
-LEARNER_EPOCHS = 2
+# [learner gt5 prod]: one fixture of BASELINE.md's GT5 curve set, 5,600
+# segments in generate_scaled's proportions (70 / 25 / 5 %)
+LEARNER_SEGS = (3920, 1400, 280)  # train / valid / test segments
+LEARNER_EPOCHS = 6  # the curve's epochs
+LEARNER_HORIZON = 24  # the cosine's epochs (train.total_steps), BASELINE.md's curve
 LEARNER_CUT = 10  # SIGTERM after this dispatch of epoch 1, then resume
+# the learnability bound, stated in PERF.md before the run: acc first past
+# CURVE_PASS_ACC at epoch CURVE_PASS_BY or earlier, the best acc over the
+# epochs at least CURVE_BEST_ACC, no non-finite step
+CURVE_PASS_ACC, CURVE_PASS_BY, CURVE_BEST_ACC = 0.4, 5, 0.6
+# the JAX package's curve on this recipe and data (BASELINE.md §GT5
+# learnability curves, B=16 row, a TPU v5e run): acc by epoch
+JAX_CURVE = {0: 0.083, 4: 0.735}
 
 
 def read_events(tmp: Path, uid: str, kind: str) -> list:
@@ -2287,196 +2427,241 @@ def release_card() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_learner(card: str, dispatch_prod: dict) -> dict:
-    """``learner_runs`` in the yml's numerics; the phases after it run "highest"."""
+def phase_learner(card: str, dispatch_prod: dict) -> tuple:
+    """``learner_runs``, then ``phase_serve_cli`` and ``phase_export`` on
+    its "best" checkpoint, in the yml's numerics; the phases after them run
+    "highest".  -> (the learner's readings, the serve CLI's, the export's)."""
+    import tempfile
+
     from vog_tpu_torch.config import apply_matmul_precision
 
     try:
-        return learner_runs(card, dispatch_prod)
+        with tempfile.TemporaryDirectory(prefix="vog_learner_") as tmp:
+            tmp = Path(tmp)
+            learner = learner_runs(card, dispatch_prod, tmp)
+            serve = phase_serve_cli(card, tmp)
+            export = phase_export(card, tmp, serve)
+            return learner, serve, export
     finally:
         apply_matmul_precision(serve_cfg())
 
 
-def learner_runs(card: str, dispatch_prod: dict) -> dict:
+def learner_argv(tmp: Path, uid: str, *more) -> list:
+    """``cli.train``-style arguments of the learner phase's runs: the yml
+    as it is on the fixture, the curve's epochs, the cosine over
+    ``LEARNER_HORIZON`` epochs (``tmp / "horizon"`` holds its steps)."""
+    total = int((tmp / "horizon").read_text())
+    return [uid, f"--cfg={ROOT / 'configs' / 'gt5_production.yml'}", f"--ds.data_dir={tmp / 'data'}",
+            f"--train.epochs={LEARNER_EPOCHS}", f"--train.total_steps={total}", f"--misc.tmp_path={tmp / 'runs'}",
+            *more]
+
+
+def learner_runs(card: str, dispatch_prod: dict, tmp: Path) -> dict:
     """[learner gt5 prod]: ``python -m vog_tpu_torch.cli.train <uid>
     --cfg=configs/gt5_production.yml --ds.data_dir=<dir>`` through
     ``cli.train.main`` at the recipe's full widths, nothing else overridden
-    but ``train.epochs`` and ``misc.tmp_path``.  (1) ``generate_scaled``
-    writes the fixture (prop 2048, seg 3072, GloVe 300, 10 frames, 5
-    proposals; ``LEARNER_SEGS``); (2) the same model's ``validate()``
-    before training, then three epochs of it: the second traced (device
-    busy), the third untraced (wall), for the card's idle share;
-    (3) the run: every logged loss finite, every "default" kernel of the
-    path launched (counts per epoch), the final acc above the untrained
-    model's, "best" and "last" written, ``cli.eval`` on "best" giving the
-    best epoch's acc again, ``offline.eval_fun`` on the last predictions
-    file giving the Learner's metrics; (4) a SIGTERM after dispatch
-    ``LEARNER_CUT`` of epoch 1 and ``--train.resume=true`` to the end: the
-    final state bitwise the uninterrupted run's.  -> the readings, and the
-    run's launch counts."""
+    but ``train.epochs``, ``train.total_steps`` and ``misc.tmp_path``.
+    (1) ``generate_scaled`` writes the fixture (prop 2048, seg 3072, GloVe
+    300, 10 frames, 5 proposals; ``LEARNER_SEGS``); the cosine's horizon is
+    ``LEARNER_HORIZON`` epochs of its train split; (2) a Learner's
+    ``validate()`` before training, then three epochs of it: the first
+    captures the graphs, the second traced (device busy), the third
+    untraced (wall), for the card's idle share; its state after two epochs
+    is kept; (3) the curve run "curve": a SIGTERM after dispatch
+    ``LEARNER_CUT`` of epoch 1, a resume to the end of epoch 1, whose state
+    must be bitwise (2)'s after two epochs, and a resume to the end of
+    ``LEARNER_EPOCHS``: every logged loss finite, no non-finite step, every
+    "default" kernel of the path launched (counts per epoch), each epoch's
+    acc beside ``JAX_CURVE``, the learnability bound (``CURVE_*``), the
+    final acc above the untrained model's, "best" and "last" written,
+    ``cli.eval`` on "best" giving the best epoch's acc again,
+    ``offline.eval_fun`` on the last predictions file giving the Learner's
+    metrics.  -> the readings, and the last resume's launch counts."""
     import signal
-    import tempfile
 
     import torch
 
     from vog_tpu_torch.cli import eval as eval_cli
     from vog_tpu_torch.cli import train as train_cli
     from vog_tpu_torch.data.fixtures import generate_scaled
+    from vog_tpu_torch.data.loader import get_data
     from vog_tpu_torch.evaluation.offline import eval_fun
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.train import learner as learner_mod
 
     tag = "[learner gt5 prod]"
     out = {}
-    with tempfile.TemporaryDirectory(prefix="vog_learner_") as tmp:
-        tmp = Path(tmp)
-        data, runs = tmp / "data", tmp / "runs"
-        t0 = time.perf_counter()
-        generate_scaled(data, *LEARNER_SEGS, verbose=False)
-        n_anns = {s: sum(1 for _ in open(data / f"anns_{s}.jsonl")) for s in ("train", "valid", "test")}
-        out["fixture_s"] = time.perf_counter() - t0
-        out["fixture_bytes"] = sum(f.stat().st_size for f in data.iterdir())
-        print(f"{tag} (1) fixture by the port's writer: {'/'.join(map(str, LEARNER_SEGS))} train/valid/test "
-              f"segments, {n_anns} queries, {out['fixture_bytes'] / 1e9:.3f} GB on disk "
-              f"(featpack.bin {(data / 'featpack.bin').stat().st_size / 1e9:.3f} GB), written in "
-              f"{out['fixture_s']:.1f} s", flush=True)
+    data, runs = tmp / "data", tmp / "runs"
+    t0 = time.perf_counter()
+    generate_scaled(data, *LEARNER_SEGS, verbose=False)
+    n_anns = {s: sum(1 for _ in open(data / f"anns_{s}.jsonl")) for s in ("train", "valid", "test")}
+    out["fixture_s"] = time.perf_counter() - t0
+    out["fixture_bytes"] = sum(f.stat().st_size for f in data.iterdir())
+    out["split"] = {"segments": dict(zip(("train", "valid", "test"), LEARNER_SEGS)), "queries": n_anns}
+    (tmp / "horizon").write_text("0")
+    cfg = train_cli.build_cfg(train_cli.parse_argv(learner_argv(tmp, "x"))[1])
+    n_steps = len(get_data(cfg).train_dl)
+    K = cfg.train.steps_per_dispatch
+    (tmp / "horizon").write_text(str(LEARNER_HORIZON * n_steps))
+    argv = lambda uid, *more: learner_argv(tmp, uid, *more)  # noqa: E731
+    print(f"{tag} (1) fixture by the port's writer: {'/'.join(map(str, LEARNER_SEGS))} train/valid/test "
+          f"segments, {n_anns} queries, {out['fixture_bytes'] / 1e9:.3f} GB on disk "
+          f"(featpack.bin {(data / 'featpack.bin').stat().st_size / 1e9:.3f} GB), written in "
+          f"{out['fixture_s']:.1f} s; {n_steps} steps an epoch, train.total_steps "
+          f"{LEARNER_HORIZON * n_steps} ({LEARNER_HORIZON} epochs)", flush=True)
 
-        def argv(uid, *more):
-            return [uid, f"--cfg={ROOT / 'configs' / 'gt5_production.yml'}", f"--ds.data_dir={data}",
-                    f"--train.epochs={LEARNER_EPOCHS}", f"--misc.tmp_path={runs}", *more]
+    # (2) the untrained model's acc; an epoch that captures the graphs;
+    # then an epoch with its eval under the tracer (the device's busy
+    # time; the tracer slows the host, so its wall is not the epoch's)
+    # and the next one untraced (the wall): the idle share of one
+    # Learner's work.  No "best" save in either, so both do the same.
+    lrn, _ = train_cli.build(argv("untrained"))
+    acc0 = lrn.validate()["acc"]
+    lrn.fit(epochs=1)
+    lrn.best_metric = math.inf
+    t0 = time.perf_counter()
+    busy, ksum = profiled_busy(lambda: lrn.fit(epochs=1), 1)
+    traced = (time.perf_counter() - t0) * 1e3
+    two_epochs = {k: v.to("cpu", copy=True) for k, v in lrn.state.tensors().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lrn.fit(epochs=1)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    del lrn
+    if busy is not None and busy > wall:
+        fail(f"{tag} device busy {busy:.1f} ms over the traced epoch exceeds the untraced epoch's wall "
+             f"{wall:.1f} ms")
+    out.update(untrained_acc=acc0, profiled_busy_ms=busy, epoch_and_eval_ms=wall,
+               idle=None if busy is None else 1 - busy / wall)
+    print(f"{tag} (2) untrained acc {acc0:.4f}; an epoch with its eval under torch.profiler: device busy "
+          f"{'not measured' if busy is None else f'{busy:.1f} ms'} (kernel sum {ksum:.1f} ms; traced wall "
+          f"{traced:.1f} ms, the tracer's); the next epoch with its eval untraced: wall {wall:.1f} ms, "
+          f"on {card}", flush=True)
+    release_card()
 
-        # (2) the untrained model's acc; an epoch that captures the graphs;
-        # then an epoch with its eval under the tracer (the device's busy
-        # time; the tracer slows the host, so its wall is not the epoch's)
-        # and the next one untraced (the wall): the idle share of one
-        # Learner's work.  No "best" save in either, so both do the same.
-        lrn, _ = train_cli.build(argv("untrained"))
-        acc0 = lrn.validate()["acc"]
-        lrn.fit(epochs=1)
-        lrn.best_metric = math.inf
-        t0 = time.perf_counter()
-        busy, ksum = profiled_busy(lambda: lrn.fit(epochs=1), 1)
-        traced = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lrn.fit(epochs=1)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        del lrn
-        if busy is not None and busy > wall:
-            fail(f"{tag} device busy {busy:.1f} ms over the traced epoch exceeds the untraced epoch's wall "
-                 f"{wall:.1f} ms")
-        out.update(untrained_acc=acc0, profiled_busy_ms=busy, epoch_and_eval_ms=wall,
-                   idle=None if busy is None else 1 - busy / wall)
-        print(f"{tag} (2) untrained acc {acc0:.4f}; an epoch with its eval under torch.profiler: device busy "
-              f"{'not measured' if busy is None else f'{busy:.1f} ms'} (kernel sum {ksum:.1f} ms; traced wall "
-              f"{traced:.1f} ms, the tracer's); the next epoch with its eval untraced: wall {wall:.1f} ms, "
-              f"on {card}", flush=True)
-        release_card()
+    # (3) the curve: SIGTERM after dispatch LEARNER_CUT of epoch 1, a
+    # resume to the end of epoch 1 (against (2)'s state), a resume to the end
+    real, cut = learner_mod.make_multi_train_step, -(-n_steps // K) + LEARNER_CUT
 
-        # (3) the run
-        _build.reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        m = train_cli.main(argv("run"))
-        torch.cuda.synchronize()
-        out["run_s"] = time.perf_counter() - t0
-        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        counts = dict(_build.launches)
-        release_card()
-        cfg = train_cli.build_cfg(train_cli.parse_argv(argv("run"))[1])
-        losses = [v for r in read_events(runs, "run", "log") for v in r["losses"]]
-        if not losses or not all(map(math.isfinite, losses)):
-            fail(f"{tag} a logged loss is not finite: {[v for v in losses if not math.isfinite(v)][:5]}")
-        epochs = read_events(runs, "run", "epoch")
-        want = {variant_name(n, cfg) for n in KERNEL_NAMES}
-        missing = [k for k in sorted(want) if not counts.get(k)]
-        if missing:
-            fail(f"{tag} kernels of the path never launched: {missing} (launched {counts})")
-        if m["acc"] <= acc0:
-            fail(f"{tag} final acc {m['acc']:.4f} is not above the untrained model's {acc0:.4f}")
-        for t in ("best", "last"):
-            if not (runs / "models" / "run" / f"{t}.pt").is_file():
-                fail(f"{tag} no {t} checkpoint")
-        evals = read_events(runs, "run", "eval")
-        offline = eval_fun(evals[-1]["pred_file"], "valid", cfg)
-        keys = ("acc", "vacc", "strict_acc", "cons", "num_pairs", "num_queries")
-        if {k: offline[k] for k in keys} != {k: m[k] for k in keys}:
-            fail(f"{tag} offline.eval_fun {offline} differs from the Learner's metrics {m}")
-        tables = read_events(runs, "run", "tables")
-        saves = read_events(runs, "run", "save")
-        records = [json.loads(line) for line in open(runs / "ext_logs" / "run.jsonl")]
-        best = max(records, key=lambda r: r["acc"])
-        again = eval_cli.main(argv("run", "--tag=best"))
-        release_card()
-        if again["acc"] != best["acc"]:
-            fail(f"{tag} cli.eval on best gives acc {again['acc']} against the best epoch's {best['acc']}")
-        out.update(metrics=m, best_acc=best["acc"], losses_first_last=[losses[0], losses[-1]], launches=counts,
-                   launches_per_epoch=[e["kernel_launches"] for e in epochs],
-                   eval_launches=[e["kernel_launches"] for e in evals],
-                   epoch_s=[e["seconds"] for e in epochs], samples_per_s=[e["samples_per_s"] for e in epochs],
-                   loader_wait_s=[e["loader_wait_s"] for e in epochs], dispatch_s=[e["dispatch_s"] for e in epochs],
-                   pairs_per_s=[e["pairs_per_s"] for e in epochs], dispatches=[e["dispatches"] for e in epochs],
-                   tables=[{k: t[k] for k in ("table", "bytes", "seconds")} for t in tables],
-                   eval_batches_per_s=[e["batches_per_s"] for e in evals],
-                   saves=[{k: s[k] for k in ("tag", "bytes", "seconds")} for s in saves])
-        print(f"{tag} (3) cli.train: {sum(out['dispatches'])} dispatches, {len(losses)} logged losses finite, "
-              f"first {losses[0]:.5f} last {losses[-1]:.5f}; acc {m['acc']:.4f} (untrained {acc0:.4f}), best "
-              f"{best['acc']:.4f} again by cli.eval on best; offline.eval_fun on {Path(evals[-1]['pred_file']).name} "
-              f"equal; run {out['run_s']:.1f} s", flush=True)
-        for r, e in zip(records, epochs):
-            print(f"{tag} (3) epoch {r['epoch']}: acc {r['acc']:.4f}, learning rate at its end {e['lr_end']:.4e}",
-                  flush=True)
-        for i, (e, ev) in enumerate(zip(epochs, evals)):
-            print(f"{tag} (3) epoch {i} launches, train: " + ", ".join(
-                f"{k}={v}" for k, v in sorted(e["kernel_launches"].items())) + "; its eval: " + ", ".join(
-                f"{k}={v}" for k, v in sorted(ev["kernel_launches"].items())), flush=True)
+    def cut_after(cfg_):
+        multi, calls = real(cfg_), [0]
 
-        # (4) SIGTERM after dispatch LEARNER_CUT of epoch 1, then resume to the end
-        real, cut = learner_mod.make_multi_train_step, out["dispatches"][0] + LEARNER_CUT
+        def dispatch(*a, **kw):
+            res = multi(*a, **kw)
+            calls[0] += 1
+            if calls[0] == cut:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return res
 
-        def cut_after(cfg_):
-            multi, calls = real(cfg_), [0]
+        return dispatch
 
-            def dispatch(*a, **kw):
-                res = multi(*a, **kw)
-                calls[0] += 1
-                if calls[0] == cut:
-                    os.kill(os.getpid(), signal.SIGTERM)
-                return res
+    t0 = time.perf_counter()
+    learner_mod.make_multi_train_step = cut_after
+    try:
+        train_cli.main(argv("curve"))
+    finally:
+        learner_mod.make_multi_train_step = real
+    release_card()
+    last = runs / "models" / "curve" / "last.pt"
+    meta = torch.load(last, weights_only=True)["meta"]
+    if (meta["epoch"], meta["batch_in_epoch"]) != (1, LEARNER_CUT * K):
+        fail(f"{tag} the SIGTERM save is at epoch {meta['epoch']} batch {meta['batch_in_epoch']}, expected "
+             f"epoch 1 batch {LEARNER_CUT * K}")
+    train_cli.main(argv("curve", "--train.resume=true", "--train.epochs=2"))
+    release_card()
+    a = torch.load(last, weights_only=True)["state"]
+    diff = {k: float((a[k].double() - two_epochs[k].double()).abs().max()) for k in a
+            if not torch.equal(a[k], two_epochs[k])}
+    out["resume_max_abs_diff"] = max(diff.values(), default=0.0)
+    print(f"{tag} (3) SIGTERM after dispatch {LEARNER_CUT} of epoch 1 (batch {meta['batch_in_epoch']}), resumed "
+          f"to the end of epoch 1: the state against (2)'s after two epochs uninterrupted: "
+          f"{len(a) - len(diff)}/{len(a)} tensors bitwise, max abs diff {out['resume_max_abs_diff']:.3e}",
+          flush=True)
+    if diff:
+        fail(f"{tag} resume is not bitwise: {sorted(diff.items(), key=lambda kv: -kv[1])[:5]}")
+    _build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    m = train_cli.main(argv("curve", "--train.resume=true"))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["last_resume_s"] = time.perf_counter() - t1
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    counts = dict(_build.launches)
+    release_card()
+    losses = [v for r in read_events(runs, "curve", "log") for v in r["losses"]]
+    if not losses or not all(map(math.isfinite, losses)):
+        fail(f"{tag} a logged loss is not finite: {[v for v in losses if not math.isfinite(v)][:5]}")
+    state = torch.load(last, weights_only=True)["state"]
+    out["nonfinite_steps"] = int(state["opt:total_notfinite"])
+    if out["nonfinite_steps"]:
+        fail(f"{tag} {out['nonfinite_steps']} non-finite steps")
+    epochs = read_events(runs, "curve", "epoch")[-(LEARNER_EPOCHS - 2):]  # the last resume's, whole epochs
+    want = {variant_name(n, cfg) for n in KERNEL_NAMES}
+    missing = [k for k in sorted(want) if not counts.get(k)]
+    if missing:
+        fail(f"{tag} kernels of the path never launched: {missing} (launched {counts})")
+    records = [json.loads(line) for line in open(runs / "ext_logs" / "curve.jsonl")]
+    accs = [r["acc"] for r in records]
+    if [r["epoch"] for r in records] != list(range(LEARNER_EPOCHS)):
+        fail(f"{tag} eval records of epochs {[r['epoch'] for r in records]}, expected 0..{LEARNER_EPOCHS - 1}")
+    for r in records:
+        jax_acc = JAX_CURVE.get(r["epoch"])
+        print(f"{tag} (3) epoch {r['epoch']}: acc {r['acc']:.4f}"
+              + (f" (the JAX package: {jax_acc:.3f}, BASELINE.md)" if jax_acc is not None else ""), flush=True)
+    passed = next((i for i, x in enumerate(accs) if x > CURVE_PASS_ACC), None)
+    out.update(curve=accs, first_past_bound=passed, best_acc=max(accs))
+    print(f"{tag} (3) the bound: acc first past {CURVE_PASS_ACC} at epoch {passed} (bound: {CURVE_PASS_BY} or "
+          f"earlier), best {max(accs):.4f} (bound: {CURVE_BEST_ACC}), {out['nonfinite_steps']} non-finite steps "
+          "(bound: 0)", flush=True)
+    if passed is None or passed > CURVE_PASS_BY or max(accs) < CURVE_BEST_ACC:
+        fail(f"{tag} the learnability bound is missed: acc by epoch {accs}")
+    if m["acc"] <= acc0:
+        fail(f"{tag} final acc {m['acc']:.4f} is not above the untrained model's {acc0:.4f}")
+    for t in ("best", "last"):
+        if not (runs / "models" / "curve" / f"{t}.pt").is_file():
+            fail(f"{tag} no {t} checkpoint")
+    evals = read_events(runs, "curve", "eval")
+    offline = eval_fun(evals[-1]["pred_file"], "valid", cfg)
+    keys = ("acc", "vacc", "strict_acc", "cons", "num_pairs", "num_queries")
+    if {k: offline[k] for k in keys} != {k: m[k] for k in keys}:
+        fail(f"{tag} offline.eval_fun {offline} differs from the Learner's metrics {m}")
+    tables = read_events(runs, "curve", "tables")
+    saves = read_events(runs, "curve", "save")
+    best = max(records, key=lambda r: r["acc"])
+    again = eval_cli.main(argv("curve", "--tag=best"))
+    release_card()
+    if again["acc"] != best["acc"]:
+        fail(f"{tag} cli.eval on best gives acc {again['acc']} against the best epoch's {best['acc']}")
+    out.update(metrics=m, losses_first_last=[losses[0], losses[-1]], launches=counts,
+               launches_per_epoch=[e["kernel_launches"] for e in epochs],
+               eval_launches=[e["kernel_launches"] for e in evals[-len(epochs):]],
+               epoch_s=[e["seconds"] for e in epochs], samples_per_s=[e["samples_per_s"] for e in epochs],
+               loader_wait_s=[e["loader_wait_s"] for e in epochs], dispatch_s=[e["dispatch_s"] for e in epochs],
+               pairs_per_s=[e["pairs_per_s"] for e in epochs], dispatches=[e["dispatches"] for e in epochs],
+               lr_end=[e["lr_end"] for e in epochs],
+               tables=[{k: t[k] for k in ("table", "bytes", "seconds")} for t in tables],
+               eval_batches_per_s=[e["batches_per_s"] for e in evals],
+               saves=[{k: s[k] for k in ("tag", "bytes", "seconds")} for s in saves])
+    print(f"{tag} (3) cli.train: {len(losses)} logged losses finite, first {losses[0]:.5f} last {losses[-1]:.5f}; "
+          f"acc {m['acc']:.4f} (untrained {acc0:.4f}), best {best['acc']:.4f} (epoch {best['epoch']}) again by "
+          f"cli.eval on best; offline.eval_fun on {Path(evals[-1]['pred_file']).name} equal; the three runs "
+          f"{out['run_s']:.1f} s", flush=True)
+    for i, (e, ev) in enumerate(zip(epochs, evals[-len(epochs):])):
+        print(f"{tag} (3) epoch {LEARNER_EPOCHS - len(epochs) + i} (learning rate at its end {e['lr_end']:.4e}) "
+              "launches, train: " + ", ".join(f"{k}={v}" for k, v in sorted(e["kernel_launches"].items()))
+              + "; its eval: " + ", ".join(f"{k}={v}" for k, v in sorted(ev["kernel_launches"].items())),
+              flush=True)
 
-            return dispatch
-
-        learner_mod.make_multi_train_step = cut_after
-        try:
-            train_cli.main(argv("cut"))
-        finally:
-            learner_mod.make_multi_train_step = real
-        release_card()
-        meta = torch.load(runs / "models" / "cut" / "last.pt", weights_only=True)["meta"]
-        if (meta["epoch"], meta["batch_in_epoch"]) != (1, LEARNER_CUT * cfg.train.steps_per_dispatch):
-            fail(f"{tag} the SIGTERM save is at epoch {meta['epoch']} batch {meta['batch_in_epoch']}, expected "
-                 f"epoch 1 batch {LEARNER_CUT * cfg.train.steps_per_dispatch}")
-        train_cli.main(argv("cut", "--train.resume=true"))
-        release_card()
-        a = torch.load(runs / "models" / "run" / "last.pt", weights_only=True)["state"]
-        b = torch.load(runs / "models" / "cut" / "last.pt", weights_only=True)["state"]
-        diff = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a if not torch.equal(a[k], b[k])}
-        out["resume_max_abs_diff"] = max(diff.values(), default=0.0)
-        print(f"{tag} (4) SIGTERM after dispatch {LEARNER_CUT} of epoch 1 (batch {meta['batch_in_epoch']}), resumed "
-              f"to the end: final state against the uninterrupted run's: {len(a) - len(diff)}/{len(a)} tensors "
-              f"bitwise, max abs diff {out['resume_max_abs_diff']:.3e}", flush=True)
-        if diff:
-            fail(f"{tag} resume is not bitwise: {sorted(diff.items(), key=lambda kv: -kv[1])[:5]}")
-
-    # (5) the numbers, each with the card
+    # (4) the numbers, each with the card
     feats = next(t for t in out["tables"] if t["table"] == "features")
     ann = next(t for t in out["tables"] if t["table"] == "annotations")
     save = [s for s in out["saves"] if s["tag"] == "last"]
     for line in (
         f"table build: features {feats['seconds']:.2f} s, {feats['bytes'] / 1e9:.3f} GB; annotations "
         f"{ann['seconds']:.2f} s, {ann['bytes'] / 1e9:.4f} GB",
-        "epoch wall s (host blocked on the loader; in the dispatches and their reads): "
+        "epoch wall s of the last resume (host blocked on the loader; in the dispatches and their reads): "
         + ", ".join(f"{v:.2f} ({w:.2f}; {d:.2f})" for v, w, d in zip(out["epoch_s"], out["loader_wait_s"],
                                                                    out["dispatch_s"])),
         "samples/s: " + ", ".join(f"{v:.1f}" for v in out["samples_per_s"])
@@ -2489,9 +2674,202 @@ def learner_runs(card: str, dispatch_prod: dict) -> dict:
         "eval batches/s: " + ", ".join(f"{v:.1f}" for v in out["eval_batches_per_s"]),
         f"checkpoint save (last): {statistics.median(s['seconds'] for s in save):.3f} s median of {len(save)}, "
         f"{save[0]['bytes'] / 1e6:.1f} MB",
-        f"peak memory of the run: {out['peak_memory_gb']:.3f} GB",
+        f"peak memory of the last resume: {out['peak_memory_gb']:.3f} GB",
     ):
-        print(f"{tag} (5) {line} on {card}", flush=True)
+        print(f"{tag} (4) {line} on {card}", flush=True)
+    return out
+
+
+def valid_requests(data, n: int) -> list:
+    from vog_tpu_torch.serving import batch_to_requests
+
+    reqs = []
+    for batch in data.valid_dl:
+        reqs.extend(batch_to_requests(batch))
+        if len(reqs) >= n:
+            break
+    return reqs[:n]
+
+
+def stack_requests(reqs: list) -> dict:
+    import numpy as np
+
+    batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    batch["batch_mask"] = np.ones((len(reqs),), np.uint8)
+    return batch
+
+
+def phase_serve_cli(card: str, tmp: Path) -> dict:
+    """[serve cli gt5 prod]: ``python -m vog_tpu_torch.cli.serve curve
+    --cfg=configs/gt5_production.yml --tag=best --selftest=96
+    --concurrency=8`` through ``cli.serve.main`` on the learner phase's
+    "best" checkpoint (its JSON line, the four "default" forward kernels
+    launched); the CLI's predictor (``_build_predictor``) against
+    ``Predictor.from_checkpoint`` in this process on 16 valid requests,
+    bitwise; and the HTTP mode on a loopback port, in a thread: four
+    ``POST /predict`` calls through urllib give the in-process call's
+    ``pred_*``.  -> the selftest's readings."""
+    import urllib.request
+
+    import numpy as np
+
+    from vog_tpu_torch.cli import serve as serve_cli
+    from vog_tpu_torch.cli.train import build_cfg, parse_argv
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.serving import ServingLoop
+
+    tag = "[serve cli gt5 prod]"
+    _build.reset_counts()
+    out = serve_cli.main(learner_argv(tmp, "curve", "--tag=best", "--selftest=96", "--concurrency=8"))
+    counts = dict(_build.launches)
+    release_card()
+    cfg = build_cfg(parse_argv(learner_argv(tmp, "curve"))[1])
+    want = [variant_name(n, cfg) for n in FWD_NAMES]
+    if [k for k in want if not counts.get(k)]:
+        fail(f"{tag} forward kernels not launched by the selftest: {counts}")
+    print(f"{tag} selftest (its JSON line above): p50 {out['p50_ms']:.3f} ms, p95 {out['p95_ms']:.3f} ms, "
+          f"p99 {out['p99_ms']:.3f} ms, {out['requests_per_sec']:.1f} req/s; launches {counts} on {card}",
+          flush=True)
+
+    pred, data = serve_cli._build_predictor(cfg, "curve", "best", random_init=False)
+    ref = Predictor.from_checkpoint(cfg, tmp / "runs" / "models" / "curve" / "best.pt", tables=pred.tables,
+                                    glove=data.vocab.vectors)
+    batch = stack_requests(valid_requests(data, 16))
+    got, want_out = pred(batch), ref(batch)
+    bad = [k for k in want_out if not np.array_equal(got[k], want_out[k])]
+    if bad:
+        fail(f"{tag} the CLI's predictor differs from Predictor.from_checkpoint on {bad}")
+    del ref
+    loop = ServingLoop(pred, max_batch=cfg.train.bs, max_wait_ms=2.0)
+    srv = serve_cli._http_server(loop, 0, "127.0.0.1")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/predict"
+        for r in valid_requests(data, 4):
+            body = json.dumps({k: np.asarray(v).tolist() for k, v in r.items()}).encode()
+            with urllib.request.urlopen(urllib.request.Request(url, data=body, method="POST"), timeout=120) as f:
+                resp = json.loads(f.read())
+            direct = loop(r)
+            for k in ("pred_vid", "pred_prop", "pred_box", "pred_score"):
+                if not np.array_equal(np.asarray(resp[k], direct[k].dtype), direct[k]):
+                    fail(f"{tag} HTTP {k} differs from the in-process call")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+        loop.close()
+    del pred, loop
+    release_card()
+    print(f"{tag} the CLI's predictor bitwise Predictor.from_checkpoint on 16 valid requests (every output); "
+          "POST /predict on 127.0.0.1 gives the in-process pred_* for 4 requests", flush=True)
+    return out
+
+
+def phase_export(card: str, tmp: Path, live_serve: dict) -> dict:
+    """[export gt5 prod]: ``cli.export`` of the "best" checkpoint at B=16,
+    with the bf16 tables inside, and in the int8 encoding without tables
+    (size, seconds); each program's nodes by target, every forward op of
+    its path there (the gather only with tables); each replay against the
+    live ``Predictor(cuda_graphs=False)`` on 16 valid requests (the int8
+    one given the request the artifact decodes), bitwise, else within the
+    serve bounds (bf16: 2e-2 x max|score|); ``cli.serve --artifact
+    --selftest=96 --concurrency=8`` beside the live loop's selftest, with
+    the four "default" forward kernels launched; a ``ServingLoop`` with
+    ``bucket_sizes`` around the artifact raises.  -> the readings."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.cli import export as export_cli
+    from vog_tpu_torch.cli import serve as serve_cli
+    from vog_tpu_torch.cli.train import build_cfg, parse_argv
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+    from vog_tpu_torch.data.loader import get_data
+    from vog_tpu_torch.export import ExportedPredictor, encode_features, forward_op_counts
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.serving import ServingLoop
+
+    tag = "[export gt5 prod]"
+    base = learner_argv(tmp, "curve", "--tag=best", "--batch=16")
+    cfg = build_cfg(parse_argv(learner_argv(tmp, "curve"))[1])
+    arts = {"bf16 tables": (tmp / "exports" / "tables", ["--with_tables"]),
+            "int8": (tmp / "exports" / "int8", ["--encoding=int8"])}
+    out = {}
+    for name, (path, extra) in arts.items():
+        r = export_cli.main(base + [f"--out={path}", *extra])
+        release_card()
+        nodes = {}
+        for node in torch.export.load(str(path / "program.pt2")).graph.nodes:
+            if node.op == "call_function":
+                nodes[str(node.target)] = nodes.get(str(node.target), 0) + 1
+        ops = forward_op_counts(torch.export.load(str(path / "program.pt2")).graph)
+        # every forward op of the path as a node (the gather only with tables)
+        if [k for k, v in ops.items() if (v > 0) != (k != "gather_rows" or name == "bf16 tables")]:
+            fail(f"{tag} {name}: the program's forward ops {ops} (by target: {nodes})")
+        out[name] = dict(bytes=r["bytes"], seconds=r["seconds"], self_check_max_abs_diff=r["max_abs_diff"],
+                         ops=ops, nodes=sum(nodes.values()))
+        print(f"{tag} {name}: exported in {r['seconds']:.1f} s, {r['bytes'] / 1e6:.1f} MB; program nodes by "
+              f"target: forward ops {ops}, {sum(nodes.values())} call nodes of {len(nodes)} targets; the CLI's "
+              f"self-check max |dscore| {r['max_abs_diff']:.3g}", flush=True)
+
+    # the replays against the live predictor, eager
+    data = get_data(cfg)
+    store = data.valid_dl.ds.store
+    dft = DeviceFeatureTables.from_store(cfg, store, half=cfg.misc.half_feats, int8=cfg.misc.int8_feats)
+    best = tmp / "runs" / "models" / "curve" / "best.pt"
+    live = Predictor.from_checkpoint(cfg, best, tables=dft.tables, glove=data.vocab.vectors, cuda_graphs=False)
+    feats_reqs = valid_requests(data, 16)  # features in the request
+    for dl in (data.valid_dl,):
+        dl.ds.device_rows = dft.rows
+    rows_reqs = valid_requests(data, 16)
+    for name, reqs in (("bf16 tables", rows_reqs), ("int8", feats_reqs)):
+        rep = ExportedPredictor(arts[name][0])
+        batch = stack_requests(reqs)
+        if name == "int8":
+            q = encode_features(batch, "int8")
+            decoded = {**batch, "props": q["props"].astype(np.float32) * q["props_scale"][..., None],
+                       "seg_feats": q["seg_feats"].astype(np.float32) * q["seg_scale"][..., None]}
+        else:
+            decoded = batch
+        want = live(decoded)
+        _build.reset_counts()
+        got = rep(batch)
+        counts = dict(_build.launches)
+        bitwise = all(np.array_equal(got[k], want[k]) for k in want)
+        valid = want["scores"] > -1e29
+        d = float(np.abs(got["scores"][valid] - want["scores"][valid]).max())
+        lim = 2e-2 * float(np.abs(want["scores"][valid]).max())
+        out[name].update(bitwise=bitwise, max_abs_diff=d, launches=counts)
+        print(f"{tag} {name}: replay against the live Predictor(cuda_graphs=False) on 16 valid requests: "
+              f"{'bitwise' if bitwise else f'max |dscore| {d:.3e} (bound {lim:.3e}, bf16 2e-2 x max|score|)'}; "
+              f"launches {counts}", flush=True)
+        if not bitwise and d > lim:
+            fail(f"{tag} {name}: replay differs from the live predictor by {d:.3e} > {lim:.3e}")
+        if name == "bf16 tables":
+            try:
+                ServingLoop(rep, max_batch=rep.batch_size, bucket_sizes=[1, 2, 4, 8])
+                fail(f"{tag} a ServingLoop with bucket_sizes around the artifact did not raise")
+            except ValueError as e:
+                print(f"{tag} ServingLoop(bucket_sizes=[1, 2, 4, 8]) around the artifact raises: {e}", flush=True)
+        del rep
+    del live, dft
+    release_card()
+
+    _build.reset_counts()
+    art = serve_cli.main(learner_argv(tmp, "curve", f"--artifact={arts['bf16 tables'][0]}", "--selftest=96",
+                                      "--concurrency=8"))
+    counts = dict(_build.launches)
+    release_card()
+    if [k for k in (variant_name(n, cfg) for n in FWD_NAMES) if not counts.get(k)]:
+        fail(f"{tag} forward kernels not launched by the artifact's selftest: {counts}")
+    out["serve"] = art
+    print(f"{tag} cli.serve --artifact --selftest=96 --concurrency=8: p50 {art['p50_ms']:.3f} ms, p95 "
+          f"{art['p95_ms']:.3f} ms, {art['requests_per_sec']:.1f} req/s (fixed B=16, no buckets) against the "
+          f"live loop's p50 {live_serve['p50_ms']:.3f} ms, p95 {live_serve['p95_ms']:.3f} ms, "
+          f"{live_serve['requests_per_sec']:.1f} req/s (CUDA graphs, buckets) in this call; launches {counts} "
+          f"on {card}", flush=True)
     return out
 
 
@@ -2578,8 +2956,30 @@ def p100_tables(cfg):
     return tables
 
 
+# PyTorch's warning that a thread ran cuBLAS with no current CUDA context,
+# as recorded by ``watch_context_warnings``; the run fails on one
+CONTEXT_WARNINGS: list = []
+
+
+def watch_context_warnings() -> None:
+    """Record every shown warning that a thread found no current CUDA
+    context (autograd's worker thread before the device's context is bound
+    there: ``vog_tpu_torch/device.py``); it is still shown."""
+    import warnings
+
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "no current CUDA context" in str(message):
+            CONTEXT_WARNINGS.append(f"{filename}:{lineno}: {message}")
+        shown(message, category, filename, lineno, file, line)
+
+    warnings.showwarning = show
+
+
 def main() -> int:
     name, card = phase_card()
+    watch_context_warnings()
     if not (ROOT / "vog_tpu_torch").is_dir():
         fail("vog_tpu_torch is not beside chip_smoke.py")
     sys.path.insert(0, str(ROOT))
@@ -2604,6 +3004,7 @@ def main() -> int:
     prof_gt5 = phase_profile(pred, reqs)
     del pred, reqs
     rows_gt5 += phase_kernels_bwd(cfg)
+    phase_threads(cfg)
     rows_def_gt5 = phase_kernels_default(cfg)
     train_counts_gt5, train_gt5 = phase_train(tables, card)
     dispatch_gt5 = phase_dispatch(tables, card)
@@ -2615,7 +3016,7 @@ def main() -> int:
     del tables  # the Learner's own tables and the P100 checks below need the room
     gc.collect()
     torch.cuda.empty_cache()
-    learner = phase_learner(card, dispatch_prod)
+    learner, serve_cli, export = phase_learner(card, dispatch_prod)
 
     # -- P100 (T = 4000, B = 2) --------------------------------------------
     cfg = serve_cfg("p100")
@@ -2690,6 +3091,9 @@ def main() -> int:
         # the training entry point's run ([learner gt5 prod]), counted from 0 just before it
         r["gt5"]["learner_launches"] = learner["launches"].get(r["name"], 0)
     rows += rows_def
+    if CONTEXT_WARNINGS:
+        fail(f"a thread ran cuBLAS with no current CUDA context: {CONTEXT_WARNINGS}")
+    print("[threads] no warning of a thread without a current CUDA context in the run", flush=True)
     print(json.dumps({"kernels": rows, "serve": serve, "profile": prof, "train": train,
                       "peak_memory_gb": {k: list(v) for k, v in peaks.items()},
                       "gt5": {"serve": serve_gt5, "profile": prof_gt5, "train": train_gt5},
@@ -2697,6 +3101,7 @@ def main() -> int:
                       "prod": {"serve_gt5": serve_prod, "dispatch_gt5": dispatch_prod,
                                "dispatch_p100": dispatch_p100_prod},
                       "learner": {k: v for k, v in learner.items() if k != "launches"},
+                      "serve_cli": serve_cli, "export": export,
                       "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

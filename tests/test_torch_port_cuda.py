@@ -193,7 +193,7 @@ def test_head_fwd_stream_matches_plain(dev, D, Dh):
     wx, w1 = torch.randn((D, D), device=dev), torch.randn((D, Dh), device=dev)
     got = torch.full((fwd_stream_floats(D),), float("nan"), device=dev)
     fn = _build.function("grounding_head.cu", "vog_head_fwd_prep", [_build.P] * 3 + [_build.I] * 2 + [_build.P])
-    assert fn(wx.data_ptr(), w1.data_ptr(), got.data_ptr(), D, Dh, _build.stream_ptr(wx)) == 0
+    assert fn(wx.device.index, wx.data_ptr(), w1.data_ptr(), got.data_ptr(), D, Dh, _build.stream_ptr(wx)) == 0
     torch.cuda.synchronize()
     assert torch.equal(got, fwd_stream_plain(wx, w1))
 
@@ -935,3 +935,90 @@ def test_learner_resume_on_the_card_is_bitwise(dev, tmp_path):
         _assert_states_equal(res.state, full.state)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+# --------------------------------------------------------------------------
+# the device guard, the forward ops, the exported program
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_wrappers_bitwise_on_a_fresh_thread(dev, precision):
+    """Every wrapper's forward and backward (through autograd, both modes of
+    flash and mm) from a fresh thread is bitwise the main thread's."""
+    from chip_smoke import fresh_thread_mismatches, tf32, thread_calls
+
+    with tf32(precision == "default"):
+        assert fresh_thread_mismatches(thread_calls(B=2, H=2, T=37, dh=40, F=3, A=5, D=64)) == []
+
+
+def test_forward_ops_match_plain(dev):
+    """The four ``torch.ops.vog`` forward ops on CUDA tensors launch their
+    kernels (counted) and agree with the plain versions."""
+    from vog_tpu_torch.kernels import _build, attention, gather, grounding_head, mm_attention
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    table = torch.randn((30, 7, 128), generator=g, device=dev).to(torch.bfloat16)
+    rows = torch.randint(-2, 33, (3, 4), generator=g, device=dev, dtype=torch.int32)
+    _build.reset_counts()
+    assert torch.equal(torch.ops.vog.gather_rows(table, rows), gather.gather_rows_plain(table, rows))
+    B, H, T, dh, F, A, D = 2, 2, 45, 32, 3, 4, 64
+    q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
+    mask = torch.ones((B, T), device=dev)
+    fb = torch.randn((H, F, F), generator=g, device=dev)
+    fid = torch.randint(0, F, (T,), generator=g, device=dev, dtype=torch.int32)
+    for got, ref in zip(torch.ops.vog.flash_attention_fwd(q, k, v, mask, fb, fid, "highest"),
+                        attention.flash_attention_plain(q, k, v, mask, fb, fid)):
+        _close(got, ref)
+    cn = -torch.rand((B, H, A, T), generator=g, device=dev)
+    for got, ref in zip(torch.ops.vog.mm_attention_fwd(q, k, v, cn, mask, fb, fid, "highest"),
+                        mm_attention.mm_attention_plain(q, k, v, cn, mask, fb, fid)):
+        _close(got, ref)
+    vis, arg = torch.relu(torch.randn((B, T, D), generator=g, device=dev)), torch.randn((B, A, D), device=dev)
+    args = (vis, arg, torch.randn((B, T, D), device=dev), torch.randn((B, A, D), device=dev),
+            torch.randn((D, D), device=dev) / 8, torch.randn((D, 32), device=dev) / 8, torch.zeros(32, device=dev),
+            torch.randn(32, device=dev), torch.zeros((), device=dev))
+    _close(torch.ops.vog.grounding_head_fwd(*args, "highest"), grounding_head.grounding_head_plain(*args))
+    assert _build.launches == {"gather_rows": 1, "flash_attention": 1, "mm_shared_qk_attention": 1,
+                               "fused_grounding_head": 1}, _build.launches
+
+
+def test_export_on_the_card_holds_the_four_ops(dev, tmp_path):
+    """A narrow model's artifact with tables, exported on the card: its
+    program calls each forward op; its replay launches the kernels and
+    equals the eager live predictor bitwise, with the LSTMs' weights in
+    cuDNN's one buffer; the program does not keep its example inputs."""
+    import warnings
+
+    import numpy as np
+
+    from chip_smoke import make_requests
+    from vog_tpu_torch.export import ExportedPredictor, export_predictor, forward_op_counts
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.serve import Predictor
+
+    cfg, tables, _, n_rows = _tiny()
+    feats = {k: v for k, v in tables.items() if k in ("feats", "seg", "feats_scale", "seg_scale")}
+    live = Predictor(cfg, None, 5000, tables=feats, device="cuda", cuda_graphs=False)
+    path = export_predictor(live, 4, tmp_path / "art", with_tables=True)
+    ep = torch.export.load(str(path / "program.pt2"))
+    counts = forward_op_counts(ep.graph)
+    assert counts == {"gather_rows": 2, "flash_attention_fwd": 1, "mm_attention_fwd": 1,
+                      "grounding_head_fwd": 1}, counts
+    assert ep.example_inputs is None
+    rep = ExportedPredictor(path)
+    reqs = make_requests(cfg, 4, n_rows, 5000, seed=2)
+    batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    batch["batch_mask"] = np.ones((4,), np.uint8)
+    ds = cfg.ds
+    batch["targets"] = np.zeros((4, ds.num_cmp, ds.max_srl_args, ds.num_frms, ds.num_prop_per_frm), np.uint8)
+    ref = live(batch)
+    _build.reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = rep(batch)
+    assert _build.launches == {"gather_rows": 2, "flash_attention": 1, "mm_shared_qk_attention": 1,
+                               "fused_grounding_head": 1}, _build.launches
+    for k in ref:
+        assert np.array_equal(got[k], ref[k]), k
+    # the LSTMs' weights lie in cuDNN's one buffer (no copy at each call)
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]

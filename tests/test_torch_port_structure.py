@@ -165,7 +165,7 @@ def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setenv("VOG_TORCH_BUILD_DIR", str(tmp_path / "build"))
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["tf32.cuh", "tiles.cuh"]
+    assert [h.name for h in headers] == ["device.cuh", "tf32.cuh", "tiles.cuh"]
     before = {src: _build._lib_path(src) for src in _build.SOURCES}
     assert before == {src: _build._lib_path(src) for src in _build.SOURCES}
     assert all(p.name.startswith(pathlib.Path(src).stem + "-") for src, p in before.items())

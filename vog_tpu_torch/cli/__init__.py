@@ -1,2 +1,2 @@
-"""Command-line entry points: ``python -m vog_tpu_torch.cli.train`` and
-``python -m vog_tpu_torch.cli.eval``."""
+"""Command-line entry points: ``python -m vog_tpu_torch.cli.train``,
+``cli.eval``, ``cli.serve`` and ``cli.export``."""

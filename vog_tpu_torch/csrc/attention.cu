@@ -102,6 +102,7 @@
 #include <stdint.h>
 
 #include "tiles.cuh"  // cp.async row tiles, fragments, scores, accumulate (3xTF32)
+#include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 namespace {
 
@@ -504,8 +505,9 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }  // namespace
 
 // delta = rowsum(dout * o) of (rows, dh) matrices, the backward's input
-extern "C" int vog_flash_delta(const float* o, const float* dout, float* delta, int rows, int dh,
+extern "C" int vog_flash_delta(int device, const float* o, const float* dout, float* delta, int rows, int dh,
                                void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (rows == 0) return 0;
   flash_bwd_delta<<<(rows + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(o, dout, delta,
                                                                                 rows, dh);
@@ -516,13 +518,14 @@ extern "C" int vog_flash_delta(const float* o, const float* dout, float* delta, 
 // dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
 // Emit mode (ds, (B*H, T, T), fp32, or bf16 in the one-pass library, not
 // null): dk, dv and ds only; dq and dfb_part are not touched.
-extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
+extern "C" int vog_flash_bwd(int device, const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, const float* key_mask,
                              const float* fb, const int* fid, float* dq,
                              float* dk, float* dv, float* dfb_part, void* ds_out,
                              int B, int H, int T, int dh, int F, float scale,
                              void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFb) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -556,11 +559,12 @@ extern "C" int vog_flash_bwd(const float* q, const float* k, const float* v,
 }
 
 // fb and fid may be null when F == 1 (no bias)
-extern "C" int vog_flash_fwd(const float* q, const float* k, const float* v,
+extern "C" int vog_flash_fwd(int device, const float* q, const float* k, const float* v,
                              const float* key_mask, const float* fb,
                              const int* fid, float* o, float* lse, int B,
                              int H, int T, int dh, int F, float scale,
                              void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (dh > kMaxDh || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   const bool frames = F > 1;

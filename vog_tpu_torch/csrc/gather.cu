@@ -23,6 +23,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 namespace {
 
@@ -68,9 +69,10 @@ int launch(const void* table, const int* rows, void* out, long long n_rows, long
 
 }  // namespace
 
-extern "C" int vog_gather_rows(const void* table, const int* rows, void* out,
+extern "C" int vog_gather_rows(int device, const void* table, const int* rows, void* out,
                                long long n_rows, long long row_bytes,
                                long long n_req, void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (n_req == 0 || row_bytes == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned = (row_bytes % 16 == 0) &&

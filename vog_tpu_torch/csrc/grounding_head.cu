@@ -108,7 +108,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 #include "tiles.cuh"  // cp.async; through it tf32.cuh: split, mma_p, round_tf32, kOnePass
+#include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 namespace {
 
@@ -505,17 +509,26 @@ size_t fwd_smem(int Dp) {
          sizeof(uint64_t) * kFRing;
 }
 
+// The SM count of each device, read at its first forward there (a
+// persistent grid of one block an SM).
+constexpr int kMaxDevices = 64;
+
+cudaError_t sm_count(int device, int& sms) {
+  static std::atomic<int> counts[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  sms = counts[device].load(std::memory_order_relaxed);
+  if (sms > 0) return cudaSuccess;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess) counts[device].store(sms, std::memory_order_relaxed);
+  return e;
+}
+
 int launch_fwd(const float* vis, const float* arg, const float* wv, const float* wl,
                const float* wstream, const float* b1, const float* w2, const float* b2,
-               float* out, int B, int A, int T, int D, int Dh, cudaStream_t stream) {
-  static int sms = 0;
-  cudaError_t e = cudaSuccess;
-  if (sms == 0) {
-    int dev = 0;
-    e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+               float* out, int B, int A, int T, int D, int Dh, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t e = sm_count(device, sms);
+  if (e != cudaSuccess) return (int)e;
   const int Dp = (D + kNC - 1) / kNC * kNC;
   const size_t smem = fwd_smem(Dp);
   e = cudaFuncSetAttribute(head_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -922,23 +935,22 @@ head_bwd_w(const float* __restrict__ cross, const float* __restrict__ dz0,
 }
 
 // A second stream, and events, for the overlap in launch_bwd: made once a
-// process for each device, at its first call there.
+// process for each device, at its first call there (the device of the
+// tensors, which the entry point's guard has made current).
 struct SideStream {
   cudaStream_t s = nullptr;
   cudaEvent_t in = nullptr, out = nullptr;
   int sms = 0;
 };
-constexpr int kMaxDevices = 64;
 
-cudaError_t side_stream(SideStream*& out) {
+cudaError_t side_stream(int device, SideStream*& out) {
   static SideStream sides[kMaxDevices];
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  SideStream& x = sides[dev];
+  static std::mutex made;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(made);
+  SideStream& x = sides[device];
   if (x.s == nullptr) {
-    e = cudaDeviceGetAttribute(&x.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t e = sm_count(device, x.sms);
     if (e == cudaSuccess) e = cudaEventCreateWithFlags(&x.in, cudaEventDisableTiming);
     if (e == cudaSuccess) e = cudaEventCreateWithFlags(&x.out, cudaEventDisableTiming);
     if (e == cudaSuccess) e = cudaStreamCreateWithFlags(&x.s, cudaStreamNonBlocking);
@@ -986,7 +998,7 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
                const float* gin, float* cross, float* h, float* dz0, float* dz1, float* dvis,
                float* dwv, float* darg_part, float* dwl_part, float* db1_part,
                float* dw2_part, float* dwx_part, float* dw1_part, int B, int T,
-               int D, int Dh, int chunks, cudaStream_t stream) {
+               int D, int Dh, int chunks, int device, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)A * kBT * (D + 4) + kWarps * kRing * kWarpSlab);
   cudaError_t e = cudaFuncSetAttribute(
       head_bwd_rows<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -994,7 +1006,7 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
     e = cudaFuncSetAttribute(head_bwd_w, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)(sizeof(float) * kWStages * kWStage));
   SideStream* side = nullptr;
-  if (e == cudaSuccess) e = side_stream(side);
+  if (e == cudaSuccess) e = side_stream(device, side);
   if (e != cudaSuccess) return (int)e;
   const int nb1 = side->sms / ((T + kBT - 1) / kBT);
   const int c1 = (int)((long long)chunks * nb1 / B);
@@ -1023,7 +1035,7 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
 // two kernels; chunks: the row split of the weight-gradient kernel
 // (dwx_part holds chunks x D x D, dw1_part chunks x D x Dh); darg/dwl partials hold
 // B x ceil(T/16) x A x D, db1/dw2 partials B x ceil(T/16) x Dh.
-extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
+extern "C" int vog_head_bwd(int device, const float* vis, const float* arg, const float* wv,
                             const float* wl, const float* wx, const float* w1,
                             const float* b1, const float* w2, const float* gin,
                             float* cross, float* h, float* dz0, float* dz1, float* dvis,
@@ -1031,6 +1043,7 @@ extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
                             float* db1_part, float* dw2_part, float* dwx_part,
                             float* dw1_part, int B, int A, int T, int D, int Dh,
                             int chunks, void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0 ||
       chunks < 1 || !aligned16(wx) || !aligned16(w1))  // the weights stream by 16-byte cp.async
     return (int)cudaErrorInvalidValue;
@@ -1040,7 +1053,7 @@ extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
   case n:                                                                           \
     return launch_bwd<n>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, \
                          dwv, darg_part, dwl_part, db1_part, dw2_part, dwx_part,   \
-                         dw1_part, B, T, D, Dh, chunks, s);
+                         dw1_part, B, T, D, Dh, chunks, device, s);
   switch (A) {
     VOG_HEAD_BWD_CASE(1)
     VOG_HEAD_BWD_CASE(2)
@@ -1056,8 +1069,9 @@ extern "C" int vog_head_bwd(const float* vis, const float* arg, const float* wv,
 // The forward's weight stream (head_fwd_prep): wstream holds kParts (2, or
 // 1 in the one-pass library) x D_pad / 64 x (D_pad * 64 + 8 * 2048)
 // floats, D_pad = ceil(D / 64) 64.
-extern "C" int vog_head_fwd_prep(const float* wx, const float* w1, float* wstream, int D, int Dh,
+extern "C" int vog_head_fwd_prep(int device, const float* wx, const float* w1, float* wstream, int D, int Dh,
                                  void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int Dp = (D + kNC - 1) / kNC * kNC;
@@ -1068,14 +1082,15 @@ extern "C" int vog_head_fwd_prep(const float* wx, const float* w1, float* wstrea
 }
 
 // logits from the stream that vog_head_fwd_prep wrote; any A
-extern "C" int vog_head_fwd(const float* vis, const float* arg, const float* wv,
+extern "C" int vog_head_fwd(int device, const float* vis, const float* arg, const float* wv,
                             const float* wl, const float* wstream, const float* b1,
                             const float* w2, const float* b2, float* out, int B, int A,
                             int T, int D, int Dh, void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0 || A < 1 ||
       !aligned16(vis) || !aligned16(arg) || !aligned16(wv) || !aligned16(wl) || !aligned16(wstream))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  return launch_fwd(vis, arg, wv, wl, wstream, b1, w2, b2, out, B, A, T, D, Dh,
+  return launch_fwd(vis, arg, wv, wl, wstream, b1, w2, b2, out, B, A, T, D, Dh, device,
                     static_cast<cudaStream_t>(stream));
 }

@@ -131,6 +131,7 @@
 #include <stdint.h>
 
 #include "tiles.cuh"  // cp.async row tiles, their 3xTF32 fragments
+#include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 namespace {
 
@@ -813,13 +814,14 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
 // null; dq and dfb_part are not touched.
 // Recompute mode: comb null; dq (B,H,T,dh) and dfb_part (B, H, ceil(T /
 // 64), F, F) are written.
-extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
+extern "C" int vog_mm_bwd(int device, const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, const float* gout,
                           const float* out, const float* mrow, const float* den,
                           float* delta, float* dk, float* dv, float* dcn,
                           void* comb_out, float* dq, float* dfb_part, int B, int H,
                           int A, int T, int dh, int F, void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
   DsT* comb = static_cast<DsT*>(comb_out);
   if (comb == nullptr && (dq == nullptr || dfb_part == nullptr)) return (int)cudaErrorInvalidValue;
@@ -845,11 +847,12 @@ extern "C" int vog_mm_bwd(const float* qm, const float* km, const float* vm,
 #undef VOG_MM_BWD_CASE
 }
 
-extern "C" int vog_mm_fwd(const float* qm, const float* km, const float* vm,
+extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, float* o,
                           float* mrow, float* den, int B, int H, int A, int T,
                           int dh, int F, void* stream) {
+  VOG_DEVICE_GUARD(device);
   if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

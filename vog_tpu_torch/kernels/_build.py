@@ -170,15 +170,45 @@ def library(src: str, precision: str = "highest") -> ctypes.CDLL:
 
 def function(src: str, name: str, argtypes, precision: str = "highest") -> object:
     """The C entry point ``name`` of ``src``'s library at ``precision``,
-    with its argument types declared and an int (cudaError_t) result."""
+    with its argument types declared and an int (cudaError_t) result.
+    Every entry point takes the device ordinal of its tensors first (an
+    int ahead of ``argtypes``): it launches under a guard that makes that
+    device current on the calling thread (``csrc/device.cuh``), whichever
+    thread calls it and whichever device is current there."""
     key = (lib_stem(src, precision), name)
     fn = _fns.get(key)
     if fn is None:
         fn = getattr(library(src, precision), name)
-        fn.argtypes = list(argtypes)
+        fn.argtypes = [ctypes.c_int, *argtypes]
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
+
+
+OPS_NAMESPACE = "vog"
+
+
+def define_op(schema: str, cuda, cpu, fake) -> None:
+    """Register the op ``vog::<schema>`` (``torch.ops.vog.<name>``): on a
+    CUDA tensor ``cuda`` (the kernel's launch), on a CPU tensor ``cpu``
+    (its plain version), and on a fake tensor (``torch.export``'s tracing,
+    the meta device) ``fake``, which gives only the outputs' shapes and
+    dtypes, so a traced tensor never reaches the launch.  Each forward
+    kernel of the serving path is such an op and its wrapper calls it, so
+    the live paths and an exported program take one route to the kernel."""
+    name, args = schema.split("(", 1)
+    qualname = f"{OPS_NAMESPACE}::{name}"
+    torch.library.define(qualname, "(" + args)
+    torch.library.impl(qualname, "cuda")(cuda)
+    torch.library.impl(qualname, "cpu")(cpu)
+    torch.library.register_fake(qualname)(fake)
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records a call on ``ts`` (None entries skipped):
+    where it does not (inference, a traced export), a wrapper calls its
+    forward op alone, without its ``torch.autograd.Function``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
 
 
 # an emit mode's products widen a bf16 score gradient in slices of at most

@@ -134,6 +134,31 @@ def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
     return Fn, frame_bias.data_ptr(), frame_ids.data_ptr()
 
 
+def _flash_fwd_cuda(q, k, v, key_mask, frame_bias, frame_ids, prec):
+    """The forward kernel's launch (the op's CUDA implementation)."""
+    Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
+    B, H, T, dh = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    P, I = _build.P, _build.I
+    fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, P], prec)
+    rc = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), fb_ptr,
+            fid_ptr, o.data_ptr(), lse.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
+            _build.stream_ptr(q))
+    _build.check(rc, NAME)
+    _build.count(NAME, prec)
+    return o, lse
+
+
+# the op ``vog::flash_attention_fwd`` (``_build.define_op``)
+_build.define_op(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor key_mask, Tensor? frame_bias, "
+    "Tensor? frame_ids, str precision) -> (Tensor, Tensor)",
+    cuda=_flash_fwd_cuda, cpu=flash_attention_plain,
+    fake=lambda q, k, v, key_mask, frame_bias, frame_ids, precision: (
+        torch.empty_like(q), q.new_empty(q.shape[:3])))
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -144,23 +169,12 @@ def flash_attention_fwd(
     precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q,k,v (B,H,T,dh) fp32; key_mask (B,T); frame_bias (H,F,F) or None;
-    frame_ids (T,) -> (o, lse).  ``precision``: "highest" or "default"
-    (None: ``kernel_precision()``)."""
-    prec = precision or kernel_precision()
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, key_mask, frame_bias, frame_ids)
-    Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
-    B, H, T, dh = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    P, I = _build.P, _build.I
-    fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, P], prec)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr,
-            o.data_ptr(), lse.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
-            _build.stream_ptr(q))
-    _build.check(rc, NAME)
-    _build.count(NAME, prec)
-    return o, lse
+    frame_ids (T,) -> (o, lse), through the op ``vog::flash_attention_fwd``.
+    ``precision``: "highest" or "default" (None: ``kernel_precision()``)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{NAME}: unsupported device {q.device}")
+    return torch.ops.vog.flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids,
+                                             precision or kernel_precision())
 
 
 def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do,
@@ -216,7 +230,7 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
     P, I = _build.P, _build.I
     delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)  # rowsum(do * o)
     fn = _build.function("attention.cu", "vog_flash_delta", [P] * 3 + [I] * 2 + [P], prec)
-    _build.check(fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
+    _build.check(fn(dev.index, o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
                     _build.stream_ptr(q)), NAME_BWD)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     scale = 1.0 / math.sqrt(dh)
@@ -232,7 +246,7 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
                 if Fn > 1 else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 14 + [I] * 5 + [_build.F, P], prec)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+    rc = fn(dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr, ptr(dq),
             dk.data_ptr(), dv.data_ptr(), ptr(part), ptr(ds), B, H, T, dh, Fn, scale,
             _build.stream_ptr(q))
@@ -273,8 +287,10 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, key_mask, frame_bias=None, frame_ids=None,
                     bwd_mode: Optional[str] = None) -> torch.Tensor:
     """Fused attention -> (B,H,T,dh), the JAX package's signature, with
-    its gradient (``FlashAttention``); ``bwd_mode`` ("emit", "recompute",
-    "auto" or None) is resolved here, at the call, as the TPU package
-    resolves it."""
-    return FlashAttention.apply(q, k, v, key_mask, frame_bias, frame_ids,
-                                resolve_bwd_mode(bwd_mode))
+    its gradient (``FlashAttention``) where an input requires one (else
+    the forward op alone); ``bwd_mode`` ("emit", "recompute", "auto" or
+    None) is resolved here, at the call, as the TPU package resolves it."""
+    mode = resolve_bwd_mode(bwd_mode)
+    if not _build.needs_grad(q, k, v, frame_bias):  # inference, an export: the op alone
+        return flash_attention_fwd(q, k, v, key_mask, frame_bias, frame_ids)[0]
+    return FlashAttention.apply(q, k, v, key_mask, frame_bias, frame_ids, mode)

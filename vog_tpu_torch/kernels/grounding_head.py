@@ -179,27 +179,45 @@ def _groups(arg, wl, g):
 
 def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, precision=None) -> torch.Tensor:
     """vis (B,T,D), arg (B,A,D), wv (B,T,D), wl (B,A,D), wx (D,D),
-    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T): the
-    CUDA kernels at ``precision`` (None: ``kernel_precision()``) on the
-    card (one launch, any A), the plain version on the CPU."""
-    prec = precision or kernel_precision()
-    if vis.device.type == "cpu":
-        return grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    w1 (D,Dh), b1 (Dh,), w2 (Dh,), b2 () or (1,) -> logits (B,A,T), through
+    the op ``vog::grounding_head_fwd``: the CUDA kernels at ``precision``
+    (None: ``kernel_precision()``) on the card (one launch, any A), the
+    plain version on the CPU."""
+    if vis.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{NAME}: unsupported device {vis.device}")
+    return torch.ops.vog.grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2,
+                                            precision or kernel_precision())
+
+
+def _head_fwd_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, prec) -> torch.Tensor:
+    """The forward kernels' launch, one a call of any A (the op's CUDA
+    implementation)."""
     b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, max_args=None)
+    dev = vis.device
     B, T, D = vis.shape
     A, Dh = arg.shape[1], w1.shape[1]
-    out = torch.empty((B, A, T), dtype=torch.float32, device=vis.device)
-    stream = torch.empty((fwd_stream_floats(D, prec),), dtype=torch.float32, device=vis.device)
+    out = torch.empty((B, A, T), dtype=torch.float32, device=dev)
+    stream = torch.empty((fwd_stream_floats(D, prec),), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
     prep = _build.function("grounding_head.cu", "vog_head_fwd_prep", [P] * 3 + [I] * 2 + [P], prec)
-    _build.check(prep(wx.data_ptr(), w1.data_ptr(), stream.data_ptr(), D, Dh, _build.stream_ptr(vis)), NAME)
+    _build.check(prep(dev.index, wx.data_ptr(), w1.data_ptr(), stream.data_ptr(), D, Dh,
+                      _build.stream_ptr(vis)), NAME)
     fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 9 + [I] * 5 + [P], prec)
-    rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), stream.data_ptr(),
+    rc = fn(dev.index, vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), stream.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, A, T, D, Dh,
             _build.stream_ptr(vis))
     _build.check(rc, NAME)
     _build.count(NAME, prec)
     return out
+
+
+# the op ``vog::grounding_head_fwd`` (``_build.define_op``)
+_build.define_op(
+    "grounding_head_fwd(Tensor vis, Tensor arg, Tensor wv, Tensor wl, Tensor wx, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2, str precision) -> Tensor",
+    cuda=_head_fwd_cuda, cpu=grounding_head_plain,
+    fake=lambda vis, arg, wv, wl, wx, w1, b1, w2, b2, precision: vis.new_empty(
+        (vis.shape[0], arg.shape[1], vis.shape[1])))
 
 
 def grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, precision=None):
@@ -267,7 +285,7 @@ def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
     dwx_p, dw1_p = e(W_CHUNKS, D, D), e(W_CHUNKS, D, Dh)
     P, I = _build.P, _build.I
     fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 21 + [I] * 6 + [P], prec)
-    rc = fn(vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), wx.data_ptr(),
+    rc = fn(dev.index, vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), wx.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(), cross.data_ptr(), h.data_ptr(),
             dz0.data_ptr(), dz1.data_ptr(), dvis.data_ptr(), dwv.data_ptr(),
             darg_p.data_ptr(), dwl_p.data_ptr(), db1_p.data_ptr(), dw2_p.data_ptr(),
@@ -306,5 +324,8 @@ def fused_grounding_head(
     w2: torch.Tensor,  # (Dh,)
     b2: torch.Tensor,  # () or (1,)
 ) -> torch.Tensor:
-    """-> logits (B,A,T), with its gradient (``FusedGroundingHead``)."""
+    """-> logits (B,A,T), with its gradient (``FusedGroundingHead``) where
+    an input requires one, else the forward op alone."""
+    if not _build.needs_grad(vis, arg, wv, wl, wx, w1, b1, w2, b2):
+        return grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2)
     return FusedGroundingHead.apply(vis, arg, wv, wl, wx, w1, b1, w2, b2)

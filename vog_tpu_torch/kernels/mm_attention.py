@@ -130,6 +130,40 @@ def _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
         raise ValueError(f"{NAME}: frame_bias/frame_ids shapes do not match qm")
 
 
+def _mm_fwd_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
+    """The forward kernel's launch (the op's CUDA implementation)."""
+    _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    dev = qm.device
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    Fn = frame_bias.shape[-1]
+    out = torch.empty((B, H, A, T, dh), dtype=torch.float32, device=dev)
+    mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
+    den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P], prec)
+    rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
+            key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(),
+            out.data_ptr(), mrow.data_ptr(), den.data_ptr(),
+            B, H, A, T, dh, Fn, _build.stream_ptr(qm))
+    _build.check(rc, NAME)
+    _build.count(NAME, prec)
+    return out, mrow, den
+
+
+def _mm_fwd_fake(qm, km, vm, cn, key_mask, frame_bias, frame_ids, precision):
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    return qm.new_empty((B, H, A, T, dh)), qm.new_empty((B, H, A, T)), qm.new_empty((B, H, A, T))
+
+
+# the op ``vog::mm_attention_fwd`` (``_build.define_op``)
+_build.define_op(
+    "mm_attention_fwd(Tensor qm, Tensor km, Tensor vm, Tensor cn, Tensor key_mask, Tensor frame_bias, "
+    "Tensor frame_ids, str precision) -> (Tensor, Tensor, Tensor)",
+    cuda=_mm_fwd_cuda, cpu=mm_attention_plain, fake=_mm_fwd_fake)
+
+
 def mm_attention_fwd(
     qm: torch.Tensor,
     km: torch.Tensor,
@@ -142,27 +176,12 @@ def mm_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """qm,km,vm (B,H,T,dh) fp32; cn (B,H,A,T); key_mask (B,T) fp32;
     frame_bias (H,F,F); frame_ids (T,) int32 -> (out, row max, den), at
-    ``precision`` (None: ``kernel_precision()``)."""
-    prec = precision or kernel_precision()
-    if qm.device.type == "cpu":
-        return mm_attention_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
-    _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
-    dev = qm.device
-    B, H, T, dh = qm.shape
-    A = cn.shape[2]
-    Fn = frame_bias.shape[-1]
-    out = torch.empty((B, H, A, T, dh), dtype=torch.float32, device=dev)
-    mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
-    den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
-    P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P], prec)
-    rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
-            key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(),
-            out.data_ptr(), mrow.data_ptr(), den.data_ptr(),
-            B, H, A, T, dh, Fn, _build.stream_ptr(qm))
-    _build.check(rc, NAME)
-    _build.count(NAME, prec)
-    return out, mrow, den
+    ``precision`` (None: ``kernel_precision()``), through the op
+    ``vog::mm_attention_fwd``."""
+    if qm.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{NAME}: unsupported device {qm.device}")
+    return torch.ops.vog.mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
+                                          precision or kernel_precision())
 
 
 def _dq_dfb(comb, km, frame_ids, Fn, H):
@@ -242,8 +261,8 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     P, I = _build.P, _build.I
     fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P], prec)
-    rc = fn(qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
-            frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
+    rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
+            key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
             mrow.data_ptr(), den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dcn.data_ptr(), ptr(comb), ptr(dq), ptr(part), B, H, A, T, dh, Fn,
             _build.stream_ptr(qm))
@@ -278,7 +297,10 @@ class MMSharedQKAttention(torch.autograd.Function):
 def mm_shared_qk_attention(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
                            bwd_mode: Optional[str] = None) -> torch.Tensor:
     """-> (B,H,A,T,dh), the JAX package's signature, with its gradient
-    (``MMSharedQKAttention``); ``bwd_mode`` ("emit", "recompute", "auto" or
+    (``MMSharedQKAttention``) where an input requires one (else the forward
+    op alone); ``bwd_mode`` ("emit", "recompute", "auto" or
     None) is resolved here, at the call, as the TPU package resolves it."""
-    return MMSharedQKAttention.apply(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
-                                     resolve_bwd_mode(bwd_mode))
+    mode = resolve_bwd_mode(bwd_mode)
+    if not _build.needs_grad(qm, km, vm, cn, frame_bias):  # inference, an export: the op alone
+        return mm_attention_fwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids)[0]
+    return MMSharedQKAttention.apply(qm, km, vm, cn, key_mask, frame_bias, frame_ids, mode)

@@ -22,14 +22,16 @@ graph's static input, replays it, and copies the outputs into a ring of
 the forward eagerly.
 
 Precision: ``Predictor`` applies ``misc.matmul_precision`` with
-``config.apply_matmul_precision``, as ``get_model`` does.  Loading an
-orbax checkpoint waits for the checkpoint loader of a later slice;
-weights come as a flax params tree (converted by ``interop.from_jax``)
-or a state_dict.
+``config.apply_matmul_precision``, as ``get_model`` does.  Weights come
+as a flax params tree (converted by ``interop.from_jax``), a state_dict,
+or a checkpoint of the port's Learner (``Predictor.from_checkpoint``);
+a ``vog_tpu`` orbax checkpoint becomes one with
+``tools/orbax_to_torch_port.py``.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -54,6 +56,35 @@ def cast_compact(batch: Dict) -> Dict:
     return out
 
 
+def predict_batch(model, conc: str, batch: Dict[str, torch.Tensor],
+                  tables: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """A canonical batch on the device -> the grounding outputs (the
+    ``Predictor``'s forward, and the exported program's)."""
+    if tables is not None and "vid_rows" in batch:
+        batch = gather_from_tables(batch, tables)
+    batch = cast_compact(batch)
+    clip = assemble_batch(batch, conc)
+    logits = model(clip)
+    B, V, F, P = batch["prop_mask"].shape
+    scores = scores_to_canonical(logits, conc, B, V, F, P)  # (B,A,V,F,P)
+    # padded proposals carry untrained logits: never let them win
+    scores = torch.where(batch["prop_mask"][:, None] > 0, scores, torch.full_like(scores, -1e30))
+    A = scores.shape[1]
+    cand = scores.permute(0, 1, 3, 2, 4).reshape(B, A, F, V * P)
+    choice = torch.argmax(cand, dim=-1)  # first maximum, as jnp.argmax
+    v_hat, p_hat = choice // P, choice % P
+    b_idx = torch.arange(B, device=cand.device)[:, None, None]
+    f_idx = torch.arange(F, device=cand.device)[None, None, :]
+    boxes = batch["prop_boxes"][b_idx, v_hat, f_idx, p_hat, :4]
+    return {
+        "scores": scores,
+        "pred_vid": v_hat.to(torch.int32),
+        "pred_prop": p_hat.to(torch.int32),
+        "pred_box": boxes,
+        "pred_score": cand.amax(dim=-1),
+    }
+
+
 class _Pending:
     """Outputs of one dispatch: host tensors being filled, the event that
     marks their copies done, and, for a graph's ring slot, the callback
@@ -75,11 +106,12 @@ class Predictor:
         tables: Optional[Dict[str, torch.Tensor]] = None,
         device: DeviceLike = None,
         cuda_graphs: bool = True,
+        glove=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         apply_matmul_precision(cfg)
-        self.model = get_model(cfg, vocab_size, device=self.device)
+        self.model = get_model(cfg, vocab_size, device=self.device, glove=glove)
         if params is not None:
             sd = params
             if any(isinstance(v, dict) or hasattr(v, "items") for v in params.values()):
@@ -93,6 +125,22 @@ class Predictor:
         self.ring_depth = 2
         self.graphs: Dict[tuple, object] = {}  # (numerics, batch shapes) -> ServeGraph
 
+    @classmethod
+    def from_checkpoint(cls, cfg, ckpt_path, tables: Optional[Dict[str, torch.Tensor]] = None,
+                        device: DeviceLike = None, glove=None, cuda_graphs: bool = True) -> "Predictor":
+        """A Predictor of the parameters of a port checkpoint
+        (``train/learner.py §save``: ``models/{uid}/{tag}.pt``), as
+        vog_tpu/serve.py §from_checkpoint restores the params alone: the
+        optimizer's moments and the step are not read.  The model is built
+        as the Learner builds it (``glove``: the vocabulary's GloVe table);
+        the vocabulary's size is the saved embedding's."""
+        payload = torch.load(Path(ckpt_path), map_location="cpu", weights_only=True)
+        params = {k.split(":", 1)[1]: v for k, v in payload["state"].items() if k.startswith("param:")}
+        if "lang.embed.weight" not in params:
+            raise ValueError(f"{ckpt_path} holds no parameters of the port's model")
+        return cls(cfg, params, int(params["lang.embed.weight"].shape[0]), tables=tables, device=device,
+                   cuda_graphs=cuda_graphs, glove=glove)
+
     def _upload(self, v) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(v))
         if self.device.type == "cuda":
@@ -101,29 +149,7 @@ class Predictor:
 
     def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The forward on tensors already on the device."""
-        if self.tables is not None and "vid_rows" in batch:
-            batch = gather_from_tables(batch, self.tables)
-        batch = cast_compact(batch)
-        clip = assemble_batch(batch, self.conc)
-        logits = self.model(clip)
-        B, V, F, P = batch["prop_mask"].shape
-        scores = scores_to_canonical(logits, self.conc, B, V, F, P)  # (B,A,V,F,P)
-        # padded proposals carry untrained logits: never let them win
-        scores = torch.where(batch["prop_mask"][:, None] > 0, scores, torch.full_like(scores, -1e30))
-        A = scores.shape[1]
-        cand = scores.permute(0, 1, 3, 2, 4).reshape(B, A, F, V * P)
-        choice = torch.argmax(cand, dim=-1)  # first maximum, as jnp.argmax
-        v_hat, p_hat = choice // P, choice % P
-        b_idx = torch.arange(B, device=cand.device)[:, None, None]
-        f_idx = torch.arange(F, device=cand.device)[None, None, :]
-        boxes = batch["prop_boxes"][b_idx, v_hat, f_idx, p_hat, :4]
-        return {
-            "scores": scores,
-            "pred_vid": v_hat.to(torch.int32),
-            "pred_prop": p_hat.to(torch.int32),
-            "pred_box": boxes,
-            "pred_score": cand.amax(dim=-1),
-        }
+        return predict_batch(self.model, self.conc, batch, self.tables)
 
     def dispatch(self, batch: Dict[str, np.ndarray]) -> _Pending:
         """Enqueue one batch and return without waiting for the card."""

@@ -51,6 +51,17 @@ class ServingLoop:
         # bucket >= n instead of always to max_batch, so light load pays
         # bucket-sized compute.  None = a single shape (max_batch).
         if bucket_sizes:
+            # fail fast: a fixed-shape predictor (ExportedPredictor, an
+            # exported program at one batch size) cannot serve the smaller
+            # buckets; without this its first sub-max flush would fail as
+            # per-request Future exceptions instead of here
+            fixed_bs = getattr(predictor, "batch_size", None)
+            if fixed_bs is not None:
+                raise ValueError(
+                    "bucket_sizes is incompatible with a fixed-shape "
+                    f"predictor (batch_size={fixed_bs}); pass "
+                    "bucket_sizes=None"
+                )
             bs = sorted({int(b) for b in bucket_sizes if 0 < int(b) <= self.max_batch})
             self.bucket_sizes = bs + ([] if bs and bs[-1] == self.max_batch else [self.max_batch])
         else:

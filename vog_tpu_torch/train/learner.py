@@ -42,8 +42,8 @@ a table build and a save (seconds, bytes).
 
 Not ported yet (each raises naming its key): multi-device and multi-host
 (``misc.multihost``, a mesh), ``misc.checkify``, the TensorBoard mirror
-(``misc.tensorboard_dir``), ``misc.profile_dir``, ``mdl.sp_attention``;
-nor reading the JAX package's orbax checkpoints.
+(``misc.tensorboard_dir``), ``misc.profile_dir``, ``mdl.sp_attention``.
+A ``vog_tpu`` orbax checkpoint loads after ``tools/orbax_to_torch_port.py``.
 """
 
 from __future__ import annotations
@@ -246,10 +246,17 @@ class Learner:
     def load(self, path: Optional[str] = None, tag: str = "last") -> None:
         """Restore a checkpoint of this port (``path``, else ``tag`` of
         this uid) into the state, in place (captured graphs stay valid);
-        a tensor missing or of another shape raises."""
+        a tensor missing or of another shape raises.  A file of parameters
+        and step alone (``tools/orbax_to_torch_port.py``'s fallback)
+        restores those and keeps the optimizer's fresh state, as the JAX
+        Learner's fallback does, and logs it."""
         ckpt = Path(path).absolute() if path else self.ckpt_path(tag)
         payload = torch.load(ckpt, map_location="cpu", weights_only=True)
         saved, cur = payload["state"], self.state.tensors()
+        if set(saved) == {k for k in cur if not k.startswith("opt:")}:
+            cur = {k: v for k, v in cur.items() if k in saved}
+            self.log(f"checkpoint {ckpt} holds parameters and step only: the optimizer's moments and "
+                     "counters start fresh")
         if set(saved) != set(cur):
             raise ValueError(f"checkpoint {ckpt} holds other tensors: missing "
                              f"{sorted(set(cur) - set(saved))[:5]}, extra {sorted(set(saved) - set(cur))[:5]}")
@@ -381,9 +388,14 @@ class Learner:
             skip = 0
             self.batch_in_epoch = 0
             self.epoch += 1  # the checkpoint's meta names the next epoch to run
-            self.save("last")
-            if do_eval and metrics["acc"] > self.best_metric:
+            # the best metric is updated before "last" is saved, so a resume
+            # from it knows this epoch's (the JAX Learner saves first: a
+            # worse later epoch then overwrites "best" after a resume)
+            improved = do_eval and metrics["acc"] > self.best_metric
+            if improved:
                 self.best_metric = metrics["acc"]
+            self.save("last")
+            if improved:
                 self.save("best")
         return metrics
 
