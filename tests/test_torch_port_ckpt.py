@@ -29,6 +29,7 @@ import torch
 import jax
 
 from tests.conftest import small_cfg
+from tests.test_torch_port_learner import one_thread  # noqa: F401  (the module's Learners on one thread)
 from tests.test_torch_port_model import port_cfg
 from tests.test_torch_port_serve import _check_against
 from vog_tpu.data import get_data as jget_data

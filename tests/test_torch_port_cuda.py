@@ -38,7 +38,17 @@ launches counted under ``name@default``; the emit modes'
 bf16 ds / comb at "default"; a switch of precision between two dispatches
 capturing a second graph; and a bf16 model's graphed steps bitwise equal
 to its eager steps.
+
+The Learner's keys and the artifact's graph: an asynchronous save's host
+copy lands before the next graphed dispatch writes the state (the file
+loads bitwise as the state before it); ``misc.checkify``'s checked step
+passes clean on the card, its dispatch mode is active on autograd's
+worker thread, and a NaN in the head's backward kernel output raises
+naming the kernel; the artifact's CUDA-graph replay bitwise its eager
+replay; an artifact capture that fails raises.
 """
+
+import json
 
 import pytest
 import torch
@@ -937,6 +947,103 @@ def test_learner_resume_on_the_card_is_bitwise(dev, tmp_path):
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 
 
+def test_async_save_copy_lands_before_the_next_dispatch(dev, tmp_path):
+    """``save(blocking=False)`` queues the state's host copy; the next
+    graphed dispatch, which writes the state in place, runs after it: the
+    file loads bitwise as the state before that dispatch."""
+    from vog_tpu_torch.cli.train import build
+
+    try:
+        lrn, _ = build(_learner_argv(tmp_path, "async", "--train.epochs=1", "--train.async_ckpt=true"))
+        lrn.fit()  # captures the graphs
+        want = lrn.state.snapshot()
+        stacked = next(iter(lrn.data.train_dl))
+        lrn.save("mid", blocking=False)
+        lrn._train_multi(lrn.state, stacked, lrn.seed, lrn._tables)  # at once: no wait for the copy
+        moved = lrn.state.snapshot()
+        assert any(not torch.equal(moved[k], v) for k, v in want.items())
+        lrn.load(tag="mid")
+        got = lrn.state.tensors()
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+        rec = [r for r in map(json.loads, open(lrn.events_log)) if r["event"] == "save"][-1]
+        assert rec["tag"] == "mid" and rec["blocking"] is False
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+
+def test_checkify_catches_a_backward_kernels_nan(dev, monkeypatch):
+    """Under ``misc.checkify`` on the card: a clean checked step passes
+    (no false alarm from the kernels or cuDNN); the dispatch mode is active
+    on autograd's worker thread, where the head's backward kernel runs; a
+    NaN in that kernel's output, written where no aten op sees it, raises
+    naming the kernel."""
+    import threading
+
+    from chip_smoke import make_index_batches
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from vog_tpu_torch.kernels import grounding_head
+    from vog_tpu_torch.train.checkify import CheckifyError, make_checked_train_step
+
+    cfg, tables, n_anns, n_rows = _tiny(dropout=0.0)
+    batches = make_index_batches(cfg, 2, cfg.train.bs, n_anns, n_rows, seed=5)
+    state = _state(cfg)
+    step = make_checked_train_step(cfg)
+    _, aux = step(state, _stack(batches[:1]), 0, tables)
+    assert torch.isfinite(aux["loss"]).all()
+    real, seen = grounding_head.grounding_head_bwd, {}
+
+    def poisoned(*a, **kw):
+        grads = real(*a, **kw)
+        seen.update(thread=threading.current_thread(), modes=torch._C._len_torch_dispatch_stack())
+        with _disable_current_modes():  # as a raw kernel writes: no aten op the checks see
+            grads[4].view(-1)[0] = float("nan")
+        return grads
+
+    monkeypatch.setattr(grounding_head, "grounding_head_bwd", poisoned)
+    with pytest.raises(CheckifyError, match="kernel fused_grounding_head_bwd in the backward of "
+                                            "FusedGroundingHeadBackward"):
+        step(state, _stack(batches[1:]), 0, tables)
+    assert seen["thread"] is not threading.main_thread() and seen["modes"] > 0
+
+
+def test_graphed_artifact_equals_its_eager_replay(dev, tmp_path):
+    """A narrow model's artifact with tables, on the card: its CUDA-graph
+    replay (captured at the first request, then replayed) is bitwise its
+    eager replay, with the whole output ring in flight, and launches the
+    four forward kernels each replay."""
+    import numpy as np
+
+    from chip_smoke import make_requests
+    from vog_tpu_torch.export import ExportedPredictor, export_predictor
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.serve import Predictor
+
+    cfg, tables, _, n_rows = _tiny()
+    feats = {k: v for k, v in tables.items() if k in ("feats", "seg", "feats_scale", "seg_scale")}
+    live = Predictor(cfg, None, 5000, tables=feats, device="cuda", cuda_graphs=False)
+    path = export_predictor(live, 4, tmp_path / "art", with_tables=True)
+    eager, graphed = ExportedPredictor(path, cuda_graphs=False), ExportedPredictor(path)
+    assert graphed.cuda_graphs and not eager.cuda_graphs
+    reqs = make_requests(cfg, 4, n_rows, 5000, seed=2)
+    batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    batch["batch_mask"] = np.ones((4,), np.uint8)
+    ds = cfg.ds
+    batch["targets"] = np.zeros((4, ds.num_cmp, ds.max_srl_args, ds.num_frms, ds.num_prop_per_frm), np.uint8)
+    ref = eager(batch)
+    graphed(batch)  # the capture
+    pend = [graphed.dispatch(batch) for _ in range(graphed.ring_depth)]
+    _build.reset_counts()
+    outs = [graphed.fetch(p) for p in pend] + [graphed(batch)]
+    assert _build.launches == {"gather_rows": 2, "flash_attention": 1, "mm_shared_qk_attention": 1,
+                               "fused_grounding_head": 1}, _build.launches
+    for out in outs:
+        for k in ref:
+            assert np.array_equal(out[k], ref[k]), k
+    assert len(graphed.graphs) == 1 and not eager.graphs
+
+
 # --------------------------------------------------------------------------
 # the device guard, the forward ops, the exported program
 # --------------------------------------------------------------------------
@@ -984,9 +1091,11 @@ def test_forward_ops_match_plain(dev):
 
 def test_export_on_the_card_holds_the_four_ops(dev, tmp_path):
     """A narrow model's artifact with tables, exported on the card: its
-    program calls each forward op; its replay launches the kernels and
-    equals the eager live predictor bitwise, with the LSTMs' weights in
-    cuDNN's one buffer; the program does not keep its example inputs."""
+    program calls each forward op; its eager replay (``cuda_graphs=False``;
+    the graphed one: ``test_graphed_artifact_equals_its_eager_replay``)
+    launches the kernels and equals the eager live predictor bitwise, with
+    the LSTMs' weights in cuDNN's one buffer; the program does not keep its
+    example inputs."""
     import warnings
 
     import numpy as np
@@ -1005,7 +1114,7 @@ def test_export_on_the_card_holds_the_four_ops(dev, tmp_path):
     assert counts == {"gather_rows": 2, "flash_attention_fwd": 1, "mm_attention_fwd": 1,
                       "grounding_head_fwd": 1}, counts
     assert ep.example_inputs is None
-    rep = ExportedPredictor(path)
+    rep = ExportedPredictor(path, cuda_graphs=False)
     reqs = make_requests(cfg, 4, n_rows, 5000, seed=2)
     batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
     batch["batch_mask"] = np.ones((4,), np.uint8)
@@ -1022,3 +1131,36 @@ def test_export_on_the_card_holds_the_four_ops(dev, tmp_path):
         assert np.array_equal(got[k], ref[k]), k
     # the LSTMs' weights lie in cuDNN's one buffer (no copy at each call)
     assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+
+
+def test_artifact_capture_failure_raises(dev, tmp_path):
+    """A host read inside the artifact's program fails its capture: the
+    request raises and nothing replays eagerly in its place.  (Last in the
+    file, as ``test_capture_failure_raises``: a failed capture may leave the
+    context's error state to the tests after it.)"""
+    import numpy as np
+
+    from chip_smoke import make_requests
+    from vog_tpu_torch.export import ExportedPredictor, export_predictor
+    from vog_tpu_torch.serve import Predictor
+
+    cfg, tables, _, n_rows = _tiny()
+    feats = {k: v for k, v in tables.items() if k in ("feats", "seg", "feats_scale", "seg_scale")}
+    live = Predictor(cfg, None, 5000, tables=feats, device="cuda", cuda_graphs=False)
+    rep = ExportedPredictor(export_predictor(live, 2, tmp_path / "art", with_tables=True))
+    program = rep.program
+
+    def reads_the_host(*a):
+        out = program(*a)
+        float(out[0].sum())  # a host read: legal eagerly, not under capture
+        return out
+
+    rep.program = reads_the_host
+    reqs = make_requests(cfg, 2, n_rows, 5000, seed=4)
+    batch = {k: np.stack([r[k] for r in reqs]) for k in reqs[0]}
+    batch["batch_mask"] = np.ones((2,), np.uint8)
+    ds = cfg.ds
+    batch["targets"] = np.zeros((2, ds.num_cmp, ds.max_srl_args, ds.num_frms, ds.num_prop_per_frm), np.uint8)
+    with pytest.raises(RuntimeError):
+        rep(batch)
+    assert not rep.graphs

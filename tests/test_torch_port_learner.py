@@ -48,6 +48,18 @@ LOSS_RTOL = 2e-4
 SUMS = ("n_acc", "n_vacc", "n_strict", "n_cons")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The module's Learners on one intra-op thread: a Learner runs many
+    small ops, and with the suite's workers sharing the cores the thread
+    pool's waits for its descheduled threads slow each op a hundredfold (a
+    resume test of 1 s alone took 400 s among the workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fx(tmp_path_factory):
     d = tmp_path_factory.mktemp("port_learner_fx")

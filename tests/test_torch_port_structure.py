@@ -3,6 +3,7 @@
   * importing it, or any of its modules, pulls in neither JAX nor the JAX
     package ``vog_tpu``; no file of it, nor ``chip_smoke.py``, imports them;
   * its entry points run on the card by default and raise without one;
+  * the Learner refuses only the multi-device keys;
   * every kernel module has a CUDA source, a plain version, and a check
     in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
   * a kernel library's name hashes its source and the shared headers; the
@@ -119,6 +120,24 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
             assert f'{const} = "{row}"' in text and f"_build.count({const}, prec)" in text
             assert row in smoke_strings, f"chip_smoke.py has no check of {row}"
     assert sorted(_build.SOURCES) == sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
+
+
+def test_not_ported_names_only_the_multi_device_keys():
+    """The Learner takes every single-device key (``misc.checkify``,
+    ``misc.profile_dir``, ``misc.tensorboard_dir``, ``train.async_ckpt``)
+    and refuses only the multi-device ones; ``train/checkify.py`` imports
+    no JAX."""
+    from vog_tpu_torch.config import Cfg
+    from vog_tpu_torch.train.learner import _not_ported
+
+    cfg = Cfg()
+    m = cfg.misc
+    m.checkify, m.profile_dir, m.tensorboard_dir, cfg.train.async_ckpt = True, "prof", "tb", True
+    assert _not_ported(cfg) == []
+    m.multihost, cfg.mdl.sp_attention, m.mesh_model, m.mesh_data = True, True, 2, 4
+    assert _not_ported(cfg) == ["misc.multihost", "mdl.sp_attention", "misc.mesh_model", "misc.mesh_data"]
+    checkify = PKG / "train" / "checkify.py"
+    assert checkify.is_file() and not _imported_roots(checkify) & FORBIDDEN
 
 
 def test_entry_points_default_to_cuda():
@@ -354,7 +373,7 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
 
 
 # modules the card's host lacks: imported only inside the function that needs them
-LAZY_ONLY = {"h5py", "yaml"}
+LAZY_ONLY = {"h5py", "yaml", "tensorboard"}
 
 
 def _module_level_roots(path):
@@ -378,9 +397,9 @@ def _module_level_roots(path):
 
 def test_no_module_level_h5py_or_yaml():
     """Every module of the port (the data path, the Learner and the CLIs
-    included) and chip_smoke.py import h5py and PyYAML only inside the
-    function that needs them, and the whole package imports with both
-    absent."""
+    included) and chip_smoke.py import h5py, PyYAML and tensorboard only
+    inside the function that needs them, and the whole package imports
+    with all three absent."""
     files = list(PKG.rglob("*.py")) + [SMOKE]
     names = {str(f.relative_to(ROOT)) for f in files}
     for new in ("data/dataset.py", "data/featpack.py", "data/fixtures.py", "data/loader.py", "data/vocab.py",
@@ -391,7 +410,7 @@ def test_no_module_level_h5py_or_yaml():
     assert not {k: v for k, v in bad.items() if v}
     code = (
         "import importlib, sys\n"
-        "sys.modules['h5py'] = None; sys.modules['yaml'] = None\n"
+        "sys.modules['h5py'] = None; sys.modules['yaml'] = None; sys.modules['tensorboard'] = None\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "from vog_tpu_torch.config import get_default_cfg\n"
         "cfg = get_default_cfg('configs/gt5_production.yml')\n"

@@ -12,9 +12,11 @@ the host's wait), with CUDA events around back-to-back calls (median of
 15 x 10, ``chip_smoke.time_ms`` with the host's issue):
 
   * the live ``Predictor`` with ``cuda_graphs`` off and on;
-  * the artifact's ``ExportedPredictor``, as it loads (its LSTM weights
-    laid out in cuDNN's one buffer);
-  * the same program with the LSTM weights as the loaded program holds
+  * the artifact's ``ExportedPredictor``: its replay through the CUDA
+    graph of the loaded program (the default), and eagerly
+    (``cuda_graphs=False``, its LSTM weights laid out in cuDNN's one
+    buffer);
+  * the eager replay with the LSTM weights as the loaded program holds
     them (separate tensors: cuDNN copies them into one at each call).
 
 It checks each replay against the live eager predictor (bitwise) and
@@ -65,11 +67,12 @@ def main(argv=None) -> dict:
     out = {"card": card, "batch": B, "rows": n_rows}
     with tempfile.TemporaryDirectory(prefix="vog_artifact_") as tmp:
         path = export_predictor(live, B, Path(tmp) / "art", with_tables=True)
-        flat = ExportedPredictor(path)
-        loose = ExportedPredictor(path)
+        art_graphed = ExportedPredictor(path)
+        flat = ExportedPredictor(path, cuda_graphs=False)
+        loose = ExportedPredictor(path, cuda_graphs=False)
         loose.program = torch.export.load(str(path / "program.pt2")).module()  # as loaded, not laid out
-        for name, pred in (("live eager", live), ("live graphed", graphed), ("artifact", flat),
-                           ("artifact, LSTM weights as loaded", loose)):
+        for name, pred in (("live eager", live), ("live graphed", graphed), ("artifact graphed", art_graphed),
+                           ("artifact eager", flat), ("artifact eager, LSTM weights as loaded", loose)):
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")  # the loose program's cuDNN copy warns at each call
                 got = pred(batch)

@@ -134,9 +134,9 @@ class TrainCfg:
     resume_path: str = ""
     log_every: int = 10
     ckpt_every_steps: int = 0  # 0 = per-epoch only
-    # the JAX package commits periodic mid-epoch saves in a background
-    # thread; the port's Learner writes every save synchronously (and says
-    # so in its log when this is on)
+    # saves return once the state's host copy is queued, and a writer
+    # thread writes the file (the SIGTERM save blocks); the JAX package
+    # commits only its periodic mid-epoch saves in the background
     async_ckpt: bool = True
     # >0: drop non-finite gradient updates (optax.apply_if_finite) instead
     # of poisoning the weights; value = max consecutive dropped steps
@@ -226,18 +226,18 @@ class MiscCfg:
     # rbg is ~8% faster end-to-end on TPU (dropout mask generation);
     # threefry keeps cross-platform reproducible streams
     prng_impl: str = "rbg"
-    profile_dir: str = ""  # non-empty: jax.profiler trace of train steps
+    profile_dir: str = ""  # non-empty: a torch.profiler trace of train steps (from the 2nd dispatch)
     # non-empty: mirror train loss + eval metrics to TensorBoard event
-    # files under this dir (uid-suffixed), via tf.summary (SURVEY §5
-    # metrics row "optional TensorBoard").  The txt/jsonl artifacts stay
-    # authoritative; this is additive and rank-0-only.
+    # files under this dir (uid-suffixed), via torch.utils.tensorboard when
+    # the tensorboard package is there (else logged off).  The txt/jsonl
+    # artifacts stay authoritative; this is additive.
     tensorboard_dir: str = ""
     profile_steps: int = 5  # steps to capture per epoch when profiling
     check_nans: bool = True  # raise on non-finite loss at log points
     # terminal progress bars (reference trainer parity: tqdm/fastprogress);
     # auto = only when stderr is a TTY, so redirected runs stay clean
     progress: str = "auto"  # auto | on | off
-    checkify: bool = False  # wrap train step with jax checkify NaN/div guards
+    checkify: bool = False  # eager train steps under NaN / integer-division checks (train/checkify.py)
     multihost: bool = False  # jax.distributed.initialize() before mesh setup
     # persistent XLA compilation cache: compiled executables serialize to
     # this dir and later processes skip the compile entirely.  Crucial on

@@ -3,9 +3,14 @@
 
 ``export_predictor`` traces the live ``Predictor``'s forward at one batch
 size with ``torch.export`` and saves it with the weights inside, and
-``ExportedPredictor`` replays it without the model code: it imports only
-the kernel modules, which register the ops, and sets the precision the
-program was exported at (``misc.matmul_precision``, in the manifest).  The four forward
+``ExportedPredictor`` replays it without building the model: the program
+is the model, its kernel ops registered by the kernel modules, at the
+precision the program was exported at (``misc.matmul_precision``, in the
+manifest).  On the card the replay is a CUDA graph of the loaded program,
+captured at the first request (``train/graphs.py §ServeGraph``, as the
+live ``Predictor`` captures a bucket: static inputs, a ring of pinned
+outputs) and keyed by the numerics in force; ``cuda_graphs=False``, and
+the CPU, replay the program eagerly.  A capture that fails raises.  The four forward
 kernels of the serving path are ``torch.library`` ops (``vog::gather_rows``,
 ``vog::flash_attention_fwd``, ``vog::mm_attention_fwd``,
 ``vog::grounding_head_fwd``), so the program holds each as one node and
@@ -48,8 +53,11 @@ import torch
 from torch import nn
 
 from vog_tpu_torch.config import Cfg, apply_matmul_precision
+from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.device import DeviceLike, resolve_device
 from vog_tpu_torch.kernels import attention, gather, grounding_head, mm_attention  # noqa: F401  (the ops)
+from vog_tpu_torch.serve import Predictor, _Pending
+from vog_tpu_torch.train.graphs import ServeGraph
 
 ENCODINGS = ("f32", "bf16", "int8")
 FORMAT = "vog-torch-export-1"
@@ -260,9 +268,11 @@ class ExportedPredictor:
     contract (a dict of host arrays in, a dict of host arrays out, and
     ``dispatch`` / ``fetch``), so it drops into ``ServingLoop`` (without
     ``bucket_sizes``: ``batch_size`` is fixed).  The tables of a
-    ``with_tables`` artifact go to the device once, at load."""
+    ``with_tables`` artifact go to the device once, at load.  On the card
+    with ``cuda_graphs`` (the default) each request replays the program's
+    CUDA graph."""
 
-    def __init__(self, path, device: DeviceLike = None):
+    def __init__(self, path, device: DeviceLike = None, cuda_graphs: bool = True):
         p = Path(path)
         with open(p / "manifest.json") as f:
             self.manifest = json.load(f)
@@ -288,6 +298,12 @@ class ExportedPredictor:
         if self.manifest["with_tables"]:
             saved = torch.load(p / "tables.pt", map_location="cpu", weights_only=True)
             self._tables = tuple(saved[k].to(self.device) for k in self.manifest["table_keys"])
+        self.cuda_graphs = bool(cuda_graphs) and self.device.type == "cuda"
+        self.ring_depth = 2  # pinned output slots of the graph; ServingLoop raises it to its pipeline's need
+        self.graphs: Dict[tuple, ServeGraph] = {}  # (numerics, request shapes) -> the captured replay
+
+    def _forward(self, fields: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return dict(zip(OUT_KEYS, self.program(*self._tables, *(fields[k] for k in self.manifest["schema"]))))
 
     def _feed(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """The request checked against the schema (float features encoded
@@ -304,31 +320,30 @@ class ExportedPredictor:
             feed[k] = v
         return feed
 
-    def dispatch(self, batch: Dict[str, np.ndarray]):
-        """Check and upload one batch, enqueue the program and the copies of
-        its outputs to the host, and return without waiting: -> (host
-        tensors being filled, the event that marks their copies done)."""
+    def dispatch(self, batch: Dict[str, np.ndarray]) -> _Pending:
+        """Check and upload one batch, enqueue the program (its graph's
+        replay on the card) and the copies of its outputs to the host, and
+        return without waiting."""
+        feed = {k: _torch_input(v) for k, v in self._feed(batch).items()}
+        if self.cuda_graphs:
+            key = (kernel_precision(), self.manifest["mdl_dtype"]) + tuple(
+                (k, tuple(v.shape), str(v.dtype)) for k, v in feed.items())
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = ServeGraph(self._forward, feed, self.device, self.ring_depth)
+            r, host, event = g.dispatch(feed)
+            return _Pending(host, event, lambda: g.release(r))
         cuda = self.device.type == "cuda"
-        args = []
-        for v in self._feed(batch).values():
-            t = _torch_input(v)
-            args.append(t.pin_memory().to(self.device, non_blocking=True) if cuda else t)
         with torch.inference_mode():
-            outs = self.program(*self._tables, *args)
-            host = {k: v.to("cpu", non_blocking=cuda) for k, v in zip(OUT_KEYS, outs)}
+            args = {k: t.pin_memory().to(self.device, non_blocking=True) if cuda else t for k, t in feed.items()}
+            host = {k: v.to("cpu", non_blocking=cuda) for k, v in self._forward(args).items()}
         event = None
         if cuda:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return host, event
+        return _Pending(host, event)
 
-    @staticmethod
-    def fetch(out) -> Dict[str, np.ndarray]:
-        """Wait for a ``dispatch`` result and return it as numpy."""
-        host, event = out
-        if event is not None:
-            event.synchronize()
-        return {k: v.numpy() for k, v in host.items()}
+    fetch = staticmethod(Predictor.fetch)
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         return self.fetch(self.dispatch(batch))

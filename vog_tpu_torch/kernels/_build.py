@@ -236,6 +236,16 @@ def bmm_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def check_outputs(name: str, *tensors) -> None:
+    """Hand a backward's gradients to ``misc.checkify``'s NaN check
+    (train/checkify.py §check_kernel_outputs): its dispatch mode never sees
+    the values a raw kernel writes.  Nothing unless a dispatch mode is on."""
+    if torch._C._len_torch_dispatch_stack():
+        from vog_tpu_torch.train.checkify import check_kernel_outputs
+
+        check_kernel_outputs(name, *tensors)
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     """The raw handle of the current stream of ``t``'s device, without
     building a ``torch.cuda.Stream`` object (a few µs a call)."""

@@ -281,6 +281,7 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv, dfb = flash_attention_bwd(
             q, k, v, key_mask, frame_bias, frame_ids, o, lse, do.contiguous(), bwd_mode=ctx.bwd_mode,
             precision=ctx.precision)
+        _build.check_outputs(NAME_BWD_EMIT if ctx.bwd_mode == "emit" else NAME_BWD, dq, dk, dv, dfb)
         return dq, dk, dv, None, (dfb if ctx.has_bias else None), None, None
 
 

@@ -310,7 +310,9 @@ class FusedGroundingHead(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return grounding_head_bwd(*ctx.saved_tensors, g.contiguous(), precision=ctx.precision)
+        grads = grounding_head_bwd(*ctx.saved_tensors, g.contiguous(), precision=ctx.precision)
+        _build.check_outputs(NAME_BWD, *grads)
+        return grads
 
 
 def fused_grounding_head(

@@ -291,6 +291,8 @@ class MMSharedQKAttention(torch.autograd.Function):
     def backward(ctx, g):
         dq, dk, dv, dcn, dfb = mm_attention_bwd(*ctx.saved_tensors, g.contiguous(),
                                                 bwd_mode=ctx.bwd_mode, precision=ctx.precision)
+        name = NAME_BWD_RECOMPUTE if ctx.bwd_mode == "recompute" else NAME_BWD
+        _build.check_outputs(name, dq, dk, dv, dcn, dfb)
         return dq, dk, dv, dcn, None, dfb, None, None
 
 

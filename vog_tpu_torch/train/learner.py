@@ -28,21 +28,42 @@ and returns; then the periodic save; then logging.
 Checkpoints are one torch file a tag (``models/{uid}/{tag}.pt``): the
 parameters, Adam's flat moments, the guard counters and the int32 step
 (``TrainState.tensors``), with epoch, ``batch_in_epoch``, ``best_metric``
-and seed.  A save writes a temporary file and renames it, so a reader
-never sees a torn file (fsync'd before the rename); saves are synchronous (``train.async_ckpt`` is
-logged as such).  ``train.resume`` loads "last" (or ``resume_path``) and
-``fit`` continues mid-epoch from ``batch_in_epoch``, bitwise the
-uninterrupted run.
+and seed.  ``save`` copies the state to host buffers (pinned on the card;
+the copy is queued on the stream that the next dispatch runs on, so it
+lands before that dispatch writes the state in place), and one writer
+thread (``CheckpointWriter``) writes the file, serialised: a temporary
+file, fsync'd, renamed into place, so a reader never sees a torn file,
+and the meta inside the file never pairs with another save's tensors.
+With ``train.async_ckpt`` the periodic and the epoch's saves return once
+the copy is queued (the JAX Learner blocks on its epoch saves); the
+SIGTERM save blocks.  A write that failed raises at the next ``save`` or
+``wait_for_checkpoints``, which ``load`` and the end of ``fit`` call.
+``train.resume`` loads "last" (or ``resume_path``) and ``fit`` continues
+mid-epoch from ``batch_in_epoch``, bitwise the uninterrupted run.
+
+``misc.checkify`` runs each train step eagerly under the checks of
+``train/checkify.py`` (a NaN from any op, an integer division by zero),
+one step a dispatch, no graph; the step raises ``CheckifyError`` naming
+the first failing op and its module.  ``misc.profile_dir``: a
+``torch.profiler`` trace (CPU, and CUDA on the card) from the second
+dispatch of each epoch (the first captures the graphs) until
+``misc.profile_steps`` steps are covered, each dispatch annotated, written
+as a Chrome trace ``{profile_dir}/{uid}.ep{epoch}.trace.json``.
+``misc.tensorboard_dir``: the JAX Learner's scalars (``train/loss``,
+``train/loss_smooth`` at each log point, ``valid/<metric>`` a validation)
+at its step numbers, through ``torch.utils.tensorboard`` into
+``{tensorboard_dir}/{uid}``; without the ``tensorboard`` package the
+mirror logs that it is off and training goes on.
 
 Besides the JAX Learner's txt and json-lines logs, ``ext_logs/{uid}.events.jsonl``
 gets one record a log point (the dispatch's losses), an epoch (wall time,
 the host's time blocked on the loader and in the dispatches, samples/s,
 the learning rate at its end, kernel launches), an eval (batches, seconds, kernel launches),
-a table build and a save (seconds, bytes).
+a table build, a save (when its file lands: bytes, the seconds the loop
+was blocked by its copy and the writer's seconds) and a profiler trace.
 
 Not ported yet (each raises naming its key): multi-device and multi-host
-(``misc.multihost``, a mesh), ``misc.checkify``, the TensorBoard mirror
-(``misc.tensorboard_dir``), ``misc.profile_dir``, ``mdl.sp_attention``.
+(``misc.multihost``, ``mdl.sp_attention``, a mesh).
 A ``vog_tpu`` orbax checkpoint loads after ``tools/orbax_to_torch_port.py``.
 """
 
@@ -54,6 +75,8 @@ import pickle
 import signal
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -68,6 +91,7 @@ from vog_tpu_torch.device import DeviceLike, resolve_device
 from vog_tpu_torch.evaluation import finalize_metrics
 from vog_tpu_torch.kernels import _build
 from vog_tpu_torch.model.grounding import get_model
+from vog_tpu_torch.train.checkify import make_checked_train_step
 from vog_tpu_torch.train.progress import ProgressBar, progress_enabled
 from vog_tpu_torch.train.state import (
     TrainState,
@@ -98,13 +122,97 @@ def _launched_since(before: Dict[str, int]) -> Dict[str, int]:
     return {k: v - before.get(k, 0) for k, v in _build.launches.items() if v > before.get(k, 0)}
 
 
+class CheckpointWriter:
+    """Checkpoint files written by one thread, in the order saved.
+
+    ``submit`` copies the tensors into a set of host buffers (pinned when
+    they lie on the card, the copy queued on the current stream, which the
+    dispatches that write the state run on after it) and returns; the
+    thread waits for the copy, then writes, fsyncs and renames the file.
+    At most ``RING`` buffer sets exist; a save that finds none free waits
+    for the oldest write.  A failed write is raised by the next ``submit``
+    or ``wait``, once."""
+
+    RING = 2
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-writer")
+        self._pending: List[Future] = []
+        self._free: List[Dict[str, torch.Tensor]] = []
+        self._sets = 0
+        self._lock = threading.Lock()
+
+    def _raise_done(self) -> None:
+        """Drop the finished writes; raise the first that failed."""
+        done = [f for f in self._pending if f.done()]
+        self._pending = [f for f in self._pending if not f.done()]
+        for f in done:
+            f.result()
+
+    def _buffers(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        while True:
+            with self._lock:
+                if self._free:
+                    return self._free.pop()
+                if self._sets < self.RING:
+                    self._sets += 1
+                    pin = any(v.is_cuda for v in tensors.values())
+                    return {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pin) for k, v in tensors.items()}
+            self._pending.pop(0).result()  # the oldest write gives its set back
+
+    def submit(self, path: Path, tensors: Dict[str, torch.Tensor], meta: Dict, done) -> None:
+        """Queue ``{"state": tensors, "meta": meta}`` for ``path``; ``done(bytes,
+        copy_s, write_s)`` runs on the writer thread once the file has its
+        name (``copy_s``: the seconds this call blocked)."""
+        t0 = time.perf_counter()
+        self._raise_done()
+        host = self._buffers(tensors)
+        event = None
+        for k, v in tensors.items():
+            host[k].copy_(v.detach(), non_blocking=v.is_cuda)
+            if v.is_cuda and event is None:
+                event = torch.cuda.Event()
+        if event is not None:
+            event.record(torch.cuda.current_stream(next(v.device for v in tensors.values() if v.is_cuda)))
+        copy_s = time.perf_counter() - t0
+
+        def write() -> None:
+            try:
+                t1 = time.perf_counter()
+                if event is not None:
+                    event.synchronize()
+                tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+                with open(tmp, "wb") as f:
+                    torch.save({"state": host, "meta": meta}, f)
+                    f.flush()
+                    os.fsync(f.fileno())  # durable before it takes the name
+                os.replace(tmp, path)
+                done(path.stat().st_size, copy_s, time.perf_counter() - t1)
+            finally:
+                with self._lock:
+                    self._free.append(host)
+
+        self._pending.append(self._pool.submit(write))
+
+    def wait(self) -> None:
+        """Block until every queued write has landed; raise the first
+        failure among them."""
+        pending, self._pending = self._pending, []
+        errors = []
+        for f in pending:
+            try:
+                f.result()
+            except Exception as e:  # every write is waited for before the first failure is raised
+                errors.append(e)
+        if errors:
+            raise errors[0]
+
+
 def _not_ported(cfg) -> List[str]:
     m = cfg.misc
     out = []
-    for key, on in (("misc.multihost", m.multihost), ("misc.checkify", m.checkify),
-                    ("misc.tensorboard_dir", bool(m.tensorboard_dir)), ("misc.profile_dir", bool(m.profile_dir)),
-                    ("mdl.sp_attention", cfg.mdl.sp_attention), ("misc.mesh_model", m.mesh_model != 1),
-                    ("misc.mesh_data", m.mesh_data not in (-1, 1))):
+    for key, on in (("misc.multihost", m.multihost), ("mdl.sp_attention", cfg.mdl.sp_attention),
+                    ("misc.mesh_model", m.mesh_model != 1), ("misc.mesh_data", m.mesh_data not in (-1, 1))):
         if on:
             out.append(key)
     return out
@@ -131,6 +239,9 @@ class Learner:
         self.seed = int(cfg.train.seed)
         self.bs = int(cfg.train.bs)
         self._preempted = False
+        self._writer = CheckpointWriter()
+        self._events_lock = threading.Lock()  # the writer thread records its saves too
+        self._tb_writer = None if cfg.misc.tensorboard_dir else False  # False: off; None: not opened yet
         self.best_metric = -float("inf")
         self.epoch = 0
         self.batch_in_epoch = 0
@@ -185,15 +296,22 @@ class Learner:
         self.state = TrainState.create(cfg, self.model)
 
         self.K, self.E = dispatch_sizes(cfg)
-        self._train_multi = make_multi_train_step(cfg)
+        if cfg.misc.checkify:
+            # the checks read the host once a step, and a graph cannot
+            # check its ops: one eager step a dispatch, as the JAX Learner
+            if self.K > 1:
+                self.log("train.steps_per_dispatch disabled: incompatible with misc.checkify (per-step error "
+                         "sync) — using single-step dispatch")
+            self.K = 1
+            self._train_multi = make_checked_train_step(cfg)
+        else:
+            self._train_multi = make_multi_train_step(cfg)
         self._eval_multi = make_multi_eval_step(cfg)
         # the loader's thread groups K batches and stacks them into one
         # (K, B, ...) batch (K=1: one batch, ungrouped), while the card
         # runs the previous dispatch
         data.train_dl.group = self.K
         data.train_dl.transform = lambda b: collate(b if isinstance(b, list) else [b])
-        if cfg.train.async_ckpt:
-            self.log("train.async_ckpt: the port writes checkpoints synchronously (atomic rename)")
 
         if cfg.train.resume:
             self.load(cfg.train.resume_path or None)
@@ -215,33 +333,54 @@ class Learner:
 
     def event(self, kind: str, **fields) -> None:
         """One record of the Learner's own readings (events.jsonl)."""
-        with open(self.events_log, "a") as f:
-            f.write(json.dumps({"event": kind, "epoch": self.epoch, **fields}) + "\n")
+        line = json.dumps({"event": kind, "epoch": self.epoch, **fields}) + "\n"
+        with self._events_lock, open(self.events_log, "a") as f:
+            f.write(line)
+
+    def _tb_scalars(self, scalars: Dict, step: int) -> None:
+        """The TensorBoard mirror (``misc.tensorboard_dir``): each int or
+        float of ``scalars`` at ``step``, flushed."""
+        if self._tb_writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                self.log("misc.tensorboard_dir set but tensorboard missing — off")
+                self._tb_writer = False
+            else:
+                self._tb_writer = SummaryWriter(str(Path(self.cfg.misc.tensorboard_dir) / self.uid))
+        if self._tb_writer is False:
+            return
+        for k, v in scalars.items():
+            if isinstance(v, (int, float)):
+                self._tb_writer.add_scalar(k, v, step)
+        self._tb_writer.flush()
 
     # -- checkpointing --------------------------------------------------------
     def ckpt_path(self, tag: str) -> Path:
         return self.ckpt_dir / f"{tag}.pt"
 
-    def save(self, tag: str = "last") -> Path:
-        """Write ``models/{uid}/{tag}.pt``: the state's tensors and the
-        meta, to a temporary name renamed into place."""
-        t0 = time.perf_counter()
-        payload = {
-            "state": {k: v.detach().cpu() for k, v in self.state.tensors().items()},
-            "meta": {"epoch": self.epoch, "batch_in_epoch": self.batch_in_epoch,
-                     "best_metric": self.best_metric, "seed": self.seed, "uid": self.uid},
-        }
+    def save(self, tag: str = "last", blocking: bool = True) -> Path:
+        """Write ``models/{uid}/{tag}.pt``: the state's tensors and the meta
+        (``CheckpointWriter``).  ``blocking``: return once the file has its
+        name; else once the host copy is queued.  A record "save" follows
+        when the file lands."""
         path = self.ckpt_path(tag)
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        with open(tmp, "wb") as f:
-            torch.save(payload, f)
-            f.flush()
-            os.fsync(f.fileno())  # durable before it takes the name
-        os.replace(tmp, path)
-        dt = time.perf_counter() - t0
-        self.event("save", tag=tag, bytes=path.stat().st_size, seconds=dt,
-                   batch_in_epoch=self.batch_in_epoch)
+        meta = {"epoch": self.epoch, "batch_in_epoch": self.batch_in_epoch, "best_metric": self.best_metric,
+                "seed": self.seed, "uid": self.uid}
+
+        def done(nbytes: int, copy_s: float, write_s: float) -> None:
+            self.event("save", epoch=meta["epoch"], tag=tag, bytes=nbytes, blocking=blocking, copy_s=copy_s,
+                       write_s=write_s, seconds=copy_s + write_s, batch_in_epoch=meta["batch_in_epoch"])
+
+        self._writer.submit(path, self.state.tensors(), meta, done)
+        if blocking:
+            self._writer.wait()
         return path
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until every queued save has landed (raising a write's
+        failure); ``load`` and the end of ``fit`` call it."""
+        self._writer.wait()
 
     def load(self, path: Optional[str] = None, tag: str = "last") -> None:
         """Restore a checkpoint of this port (``path``, else ``tag`` of
@@ -250,6 +389,7 @@ class Learner:
         and step alone (``tools/orbax_to_torch_port.py``'s fallback)
         restores those and keeps the optimizer's fresh state, as the JAX
         Learner's fallback does, and logs it."""
+        self.wait_for_checkpoints()
         ckpt = Path(path).absolute() if path else self.ckpt_path(tag)
         payload = torch.load(ckpt, map_location="cpu", weights_only=True)
         saved, cur = payload["state"], self.state.tensors()
@@ -305,9 +445,17 @@ class Learner:
         self.data.train_dl.epoch = self.epoch
         prev = self._install_preempt()
         try:
-            return self._fit_loop(epochs)
+            metrics = self._fit_loop(epochs)
+        except BaseException:
+            try:  # the loop's error goes up; a write that failed as well is logged
+                self.wait_for_checkpoints()
+            except Exception as e:
+                self.log(f"a checkpoint write failed too: {e!r}")
+            raise
         finally:
             self._restore_preempt(prev)
+        self.wait_for_checkpoints()
+        return metrics
 
     def _check_dispatch(self, lo: np.ndarray, aux: Dict[str, np.ndarray], at: str) -> None:
         """The guard's give-up (and, without the guard, a non-finite loss
@@ -330,10 +478,12 @@ class Learner:
         skip = self.batch_in_epoch
         host_step = int(self.state.step) if cfg.train.ckpt_every_steps else 0
         show_bar = progress_enabled(cfg.misc.progress)
+        wait = not cfg.train.async_ckpt
         for ep_i in range(epochs):
             t0 = time.perf_counter()
             launches0 = dict(_build.launches)
             n_seen = n_disp = 0
+            prof = None
             self.data.train_dl.start_batch = skip
             it_pos = skip  # batch index; a dispatch advances it by its K
             bar = ProgressBar(len(self.data.train_dl), desc=f"ep {self.epoch}", enabled=show_bar)
@@ -346,8 +496,14 @@ class Learner:
                 i = it_pos
                 kb = int(stacked["batch_mask"].shape[0])  # an epoch's last group may be short
                 self.batch_in_epoch = i + kb
-                _, aux = self._train_multi(self.state, stacked, self.seed, self._tables)
+                if cfg.misc.profile_dir and n_disp == 1:  # the first dispatch captures the graphs
+                    prof = self._start_profile()
+                with torch.profiler.record_function(f"train dispatch at it {i}") if prof else nullcontext():
+                    _, aux = self._train_multi(self.state, stacked, self.seed, self._tables)
                 aux = {k: v.cpu().numpy() for k, v in aux.items()}  # the dispatch's one host read
+                if prof is not None and i + kb > cfg.misc.profile_steps:
+                    self._stop_profile(prof)
+                    prof = None
                 in_dispatch += time.perf_counter() - t_got
                 n_seen += self.bs * kb
                 n_disp += 1
@@ -359,15 +515,21 @@ class Learner:
                 self._check_dispatch(lo, aux, at)
                 if self._preempted:
                     bar.close("preempted")
+                    if prof is not None:
+                        self._stop_profile(prof)
                     self.log(f"SIGTERM: saving at ep {self.epoch} batch {self.batch_in_epoch} and leaving fit()")
-                    self.save("last")
+                    self.save("last", blocking=True)
                     return metrics
                 every = cfg.train.ckpt_every_steps
                 if every and host_step // every > (host_step - kb) // every:
-                    self.save("last")
+                    self.save("last", blocking=wait)
                 if i == 0 or it_pos // cfg.train.log_every > i // cfg.train.log_every:
-                    self._log_point(lo, aux, smooth, bar, at)
+                    # the JAX Learner's TensorBoard step
+                    tb_step = host_step if every else it_pos + self.epoch * len(self.data.train_dl)
+                    self._log_point(lo, aux, smooth, bar, at, tb_step)
                 t_end = time.perf_counter()
+            if prof is not None:
+                self._stop_profile(prof)
             dt = time.perf_counter() - t0
             pairs = n_seen * cfg.ds.num_cmp
             bar.close(f"{pairs / max(dt, 1e-9):.0f} pairs/s")
@@ -383,6 +545,7 @@ class Learner:
                                pairs_per_sec=round(pairs / max(dt, 1e-9), 2))
                 self.log(f"ep {self.epoch} metrics {metrics}")
                 self.log_json(metrics)
+                self._tb_scalars({f"valid/{k}": v for k, v in metrics.items()}, self.epoch)
             else:
                 self.log(f"ep {self.epoch} done in {dt:.1f}s (eval skipped; eval_every={cfg.train.eval_every})")
             skip = 0
@@ -394,12 +557,35 @@ class Learner:
             improved = do_eval and metrics["acc"] > self.best_metric
             if improved:
                 self.best_metric = metrics["acc"]
-            self.save("last")
+            self.save("last", blocking=wait)
             if improved:
-                self.save("best")
+                self.save("best", blocking=wait)
         return metrics
 
-    def _log_point(self, lo: np.ndarray, aux: Dict[str, np.ndarray], smooth: SmoothenValue, bar, at: str) -> None:
+    def _start_profile(self):
+        """``misc.profile_dir``: a torch.profiler trace from here (CPU, and
+        CUDA on the card)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """End the trace after the card has run what it covers, and write
+        it as ``{profile_dir}/{uid}.ep{epoch}.trace.json``."""
+        self._sync()
+        prof.stop()
+        out = Path(self.cfg.misc.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"{self.uid}.ep{self.epoch}.trace.json"
+        prof.export_chrome_trace(str(path))
+        self.log(f"profiler trace written to {path}")
+        self.event("profile", path=str(path), batch_in_epoch=self.batch_in_epoch)
+
+    def _log_point(self, lo: np.ndarray, aux: Dict[str, np.ndarray], smooth: SmoothenValue, bar, at: str,
+                   tb_step: int) -> None:
         loss = float(lo[-1])
         self.event("log", it=int(at.rsplit(" ", 1)[1]), losses=[float(v) for v in lo],
                    grad_norms=[float(v) for v in np.asarray(aux["grad_norm"]).reshape(-1)])
@@ -417,6 +603,7 @@ class Learner:
             smooth.add_value(float(v))
         bar.update(0, loss=loss, smooth=smooth.smooth)
         self.log(f"{at} loss {loss:.4f} smooth {smooth.smooth:.4f}")
+        self._tb_scalars({"train/loss": loss, "train/loss_smooth": smooth.smooth}, tb_step)
 
     # -- eval -----------------------------------------------------------------
     def _run_eval(self, dl, split: str) -> Dict:
