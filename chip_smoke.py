@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vog_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dist   # card, build and [dist gt5 prod] alone, on every card
 
 Phases, each printing its own lines; any failure exits non-zero before
 the last line:
@@ -166,6 +167,25 @@ freed, before P100):
     graphed replay, the eager replay and the live graphed predictor timed
     in one call, ``cli.serve --artifact`` (graphed) beside the live loop,
     and a ``ServingLoop`` with buckets around it refused.
+
+Data parallelism across processes (after phase 17, before P100):
+
+18. dist gt5 prod (``phase_dist``), each world spawned from here
+    (``run_world``; a rank that fails or a world past 600 s fails the
+    run), each rank's shard of one random bf16 table (3,000 rows a rank,
+    ``dist_tables``) and index-only batches of train.bs x world rows:
+    (a) an NCCL world of every card (``dist_nccl_rank``): the production
+    recipe's graphed dispatch of K=16 (the gradient's all-reduce, the
+    loss's count and the sharded store's all-gather and reduce-scatters
+    captured) bitwise its 16 eager steps, at world 1 bitwise the
+    single-device dispatch, at world > 1 the first step in fp32 "highest"
+    against one process on the global batch (compare_step's bounds); step
+    ms, samples/s, the nccl kernels' share of a profiled step; (b) a gloo
+    world of 2 ranks on card 0 (``dist_gloo_rank``, fp32, dropout 0.1,
+    eager K=1): 3 steps and one eval through ``gather_eval`` against one
+    process on the global batches (losses 1e-4, the first step's
+    gradients, eval sums); in both, the ranks' states bitwise equal
+    (``state_digest``) and every kernel of the path launched.
 
 No thread may warn that it ran cuBLAS without a current CUDA context
 (``watch_context_warnings``).
@@ -2577,8 +2597,8 @@ def learner_runs(card: str, dispatch_prod: dict, tmp: Path) -> dict:
     # resume to the end of epoch 1 (against (2)'s state), a resume to the end
     real, cut = learner_mod.make_multi_train_step, -(-n_steps // K) + LEARNER_CUT
 
-    def cut_after(cfg_):
-        multi, calls = real(cfg_), [0]
+    def cut_after(*args):
+        multi, calls = real(*args), [0]
 
         def dispatch(*a, **kw):
             res = multi(*a, **kw)
@@ -3129,6 +3149,386 @@ def p100_tables(cfg):
 
 # PyTorch's warning that a thread ran cuBLAS with no current CUDA context,
 # as recorded by ``watch_context_warnings``; the run fails on one
+# [dist gt5 prod]: data parallelism across processes (vog_tpu_torch/train/dist.py)
+DIST_ROWS = 3000  # feature-table rows a rank (a few thousand, not the serve phases' 15,000)
+DIST_CHUNK = 250  # rows made by one generator: a shard's rows are the full table's
+DIST_ANNS = 4000
+DIST_GLOO_STEPS = 3
+DIST_TIMEOUT = 600  # seconds a world may run before it is killed
+
+
+def dist_tables(cfg, first: int, n: int, device):
+    """Rows [first, first + n) of one global random table (bf16 under
+    ``half_feats``): each chunk of DIST_CHUNK rows from its own seeded
+    generator, so a rank's shard holds bitwise the rows of the full table
+    (``first`` a multiple of DIST_CHUNK)."""
+    import torch
+
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+
+    t = DeviceFeatureTables(cfg, n, half=cfg.misc.half_feats, device=device)
+    fs, ss = t.shapes["feats"], t.shapes["seg"]
+    for i0 in range(0, n, DIST_CHUNK):
+        g = torch.Generator(device=device)
+        g.manual_seed(1_000_003 + (first + i0) // DIST_CHUNK)
+        m = min(DIST_CHUNK, n - i0)
+        t.write(i0, torch.randn((m, *fs), generator=g, device=device) * 0.3,
+                torch.randn((m, *ss), generator=g, device=device) * 0.3)
+    return t
+
+
+def _world_entry(rank, fn, world, backend, tmp, args):
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank, world_size=world)
+    try:
+        out = fn(rank, world, *args)
+        with open(f"{tmp}/result{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world(fn, world: int, backend: str, *args, timeout: float = DIST_TIMEOUT) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined in
+    one ``backend`` group (rank r on card r under nccl, every rank on card
+    0 under gloo) -> each rank's JSON result, in rank order.  A rank that
+    raises, or a world past ``timeout`` seconds (killed), raises."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="vog_world_")
+    try:
+        ctx = mp.start_processes(_world_entry, args=(fn, world, backend, tmp, args), nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"a {backend} world of {world} ranks ran past {timeout} s")
+        out = []
+        for r in range(world):
+            with open(f"{tmp}/result{r}.json") as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def state_digest(state) -> str:
+    """One hash of every state tensor's bytes: ranks whose digests agree hold
+    bitwise the same state."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in state.tensors().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_setup(rank, world, cfg, n_rows, n_anns, n_batches, dev):
+    """This rank's shard of the feature tables, the replicated annotation
+    tables, and ``n_batches`` global index-only batches of train.bs x world
+    rows -> (mesh, tables, global batches, this rank's rows of each)."""
+    from vog_tpu_torch.data.ann_store import AnnTables
+    from vog_tpu_torch.train.dist import local_batch_rows, make_mesh
+
+    mesh = make_mesh(cfg)
+    shard = dist_tables(cfg, rank * n_rows, n_rows, dev)
+    anns, vids = random_ann_arrays(cfg, n_anns, n_rows * world, seed=21)
+    tables = {**shard.tables, **AnnTables.from_arrays(cfg, anns, vids, device=dev).tables}
+    batches = make_index_batches(cfg, n_batches, cfg.train.bs * world, n_anns, n_rows * world, seed=24)
+    lo, hi = local_batch_rows(mesh, cfg.train.bs * world)
+    return mesh, tables, batches, [{k: v[lo:hi] for k, v in b.items()} for b in batches]
+
+
+def _full_tables(cfg, world, n_rows, n_anns, dev):
+    """The replicated tables of one process: every rank's rows."""
+    from vog_tpu_torch.data.ann_store import AnnTables
+
+    anns, vids = random_ann_arrays(cfg, n_anns, n_rows * world, seed=21)
+    return {**dist_tables(cfg, 0, n_rows * world, dev).tables,
+            **AnnTables.from_arrays(cfg, anns, vids, device=dev).tables}
+
+
+def _leaf_grads(state) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in state.leaves(state.flat.grad).items()}
+
+
+def dist_nccl_rank(rank, world, cfg, cfg32, n_rows, n_anns):
+    """(a) One rank of the NCCL world: the production recipe's graphed
+    dispatch of K steps (the gradient's all-reduce, the loss's count and
+    the sharded store's all-gather and reduce-scatters captured) bitwise
+    against K eager steps of this world; at world 1 bitwise against the
+    single-device dispatch; then a timed and a profiled dispatch.  With
+    ``cfg32`` (world > 1) the first step in fp32 / "highest" against one
+    process on the global batch (rank 0), within compare_step's bounds.
+    Last, rank 0 alone times the single-device dispatch on its batches
+    (the one card's step beside the world's, in this call)."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, dispatch_sizes, make_multi_train_step, make_train_step
+    from vog_tpu_torch.train.dist import shard_batch_local
+
+    dev = torch.device("cuda", rank)
+    apply_matmul_precision(cfg)
+    K, _ = dispatch_sizes(cfg)
+    mesh, tables, batches, local = _dist_setup(rank, world, cfg, n_rows, n_anns, 3 * K, dev)
+
+    def fresh(c):
+        return TrainState.create(c, get_model(c, 5000, device=dev, seed=3, train=True))
+
+    step, multi = make_train_step(cfg, mesh, shard_store=True), make_multi_train_step(cfg, mesh, shard_store=True)
+    one = make_multi_train_step(cfg)  # the single-device dispatch
+    eager, graph = fresh(cfg), fresh(cfg)
+    e_aux, e_ms = [], []
+    for b in local[:K]:
+        db = shard_batch_local(b, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_aux.append(step(eager, db, 0, tables)[1])
+        torch.cuda.synchronize()
+        e_ms.append((time.perf_counter() - t0) * 1e3)
+    _build.reset_counts()
+    _, g_aux = multi(graph, stack_batches(local[:K]), 0, tables)  # capture, then K replays
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    diff = states_equal(graph, eager)
+    if diff:
+        raise RuntimeError(f"rank {rank}: the graphed dispatch's state differs from {K} eager steps: {diff[:5]}")
+    for k in e_aux[0]:
+        if not torch.equal(g_aux[k], torch.stack([a[k] for a in e_aux])):
+            raise RuntimeError(f"rank {rank}: the graphed dispatch's aux {k} differs from the eager steps'")
+    losses = g_aux["loss"].cpu()
+    if not torch.isfinite(losses).all():
+        raise RuntimeError(f"rank {rank}: a non-finite loss {losses.tolist()}")
+    out = {"counts": counts, "losses": losses.tolist(), "eager_step_ms": statistics.median(e_ms),
+           "peak_captured_step_gb": next(iter(graph.graphs.values())).peak_bytes / 1e9}
+    single, full = (fresh(cfg) if world == 1 else None), None
+    if world == 1:  # the single-device dispatch on the same tables (the one shard is the table)
+        one(single, stack_batches(local[:K]), 0, tables)
+        diff = states_equal(single, graph)
+        if diff:
+            raise RuntimeError(f"the world-1 nccl dispatch differs from the single-device dispatch: {diff[:5]}")
+        out["single_bitwise"] = True
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    nxt = stack_batches(local[K:2 * K])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi(graph, nxt, 0, tables)[1]["loss"].cpu()
+    out["graph_step_ms"] = (time.perf_counter() - t0) * 1e3 / K
+    out["samples_per_s"] = cfg.train.bs * world / out["graph_step_ms"] * 1e3
+    split = {}
+    busy, _ = profiled_busy(lambda: multi(graph, stack_batches(local[2 * K:3 * K]), 0, tables)[1]["loss"].cpu(),
+                            K, split)
+    nccl = {k[:60]: v for k, v in split["other"].items() if "nccl" in k.lower()}
+    out.update(busy_ms=busy, nccl_ms=nccl, nccl_ms_total=sum(nccl.values()), digest=state_digest(graph))
+    del graph
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if cfg32 is not None:  # the first step against one process on the global batch, fp32 "highest"
+        apply_matmul_precision(cfg32)
+        st = fresh(cfg32)
+        _, aux = make_train_step(cfg32, mesh, shard_store=True)(st, shard_batch_local(local[0], dev), 0, tables)
+        got = (float(aux["loss"]), _leaf_grads(st))
+        del st
+        if rank == 0:
+            full = _full_tables(cfg32, world, n_rows, n_anns, dev)
+            ref = fresh(cfg32)
+            _, raux = make_train_step(cfg32)(ref, shard_batch_local(batches[0], dev), 0, full)
+            lp, gp = float(raux["loss"]), _leaf_grads(ref)
+            if not abs(got[0] - lp) <= 1e-4 * abs(lp):
+                raise RuntimeError(f"world {world}: first loss {got[0]:.7f} != one process's {lp:.7f}")
+            bad = grad_faults(got[1], gp)
+            if bad:
+                raise RuntimeError(f"world {world}: gradients differ from one process's (leaf, max |err|, rel): "
+                                   f"{bad[:5]}")
+            out["fp32_first_step"] = {"loss": got[0], "one_process_loss": lp,
+                                      "max_abs_err": max(max_err(got[1][k], r) for k, r in gp.items()),
+                                      "worst_rel": max(rel_err(got[1][k], r) for k, r in gp.items())}
+            del ref
+    if rank == 0:  # the single-device dispatch on this rank's batches, timed as the world's
+        apply_matmul_precision(cfg)
+        if single is None:
+            full = full if full is not None else _full_tables(cfg, world, n_rows, n_anns, dev)
+            single = fresh(cfg)
+            one(single, stack_batches(local[:K]), 0, full)  # the capture
+        tabs = tables if world == 1 else full
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(single, stack_batches(local[K:2 * K]), 0, tabs)[1]["loss"].cpu()
+        out["single_card_step_ms"] = (time.perf_counter() - t0) * 1e3 / K
+        out["single_card_samples_per_s"] = cfg.train.bs / out["single_card_step_ms"] * 1e3
+    return out
+
+
+def dist_gloo_rank(rank, world, cfg, n_rows, n_anns, steps):
+    """(b) One rank of a gloo world sharing card 0: every kernel, eager
+    single steps with the row-sharded store (collectives staged through the
+    host) on this rank's rows, one eval through ``gather_eval``; rank 0
+    then runs one process on the global batches with the full tables and
+    compares the losses, the first step's gradients and the eval sums."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_eval_step, make_train_step
+    from vog_tpu_torch.train.dist import shard_batch_local
+    from vog_tpu_torch.train.multihost import gather_eval
+
+    dev = torch.device("cuda", 0)
+    apply_matmul_precision(cfg)
+    mesh, tables, batches, local = _dist_setup(rank, world, cfg, n_rows, n_anns, steps, dev)
+    sum_keys = ("n_pairs", "n_acc", "n_vacc", "n_queries", "n_strict", "n_cons", "loss_sum", "n_batch")
+
+    def fresh():
+        return TrainState.create(cfg, get_model(cfg, 5000, device=dev, seed=3, train=True))
+
+    def run(state, train_step, eval_step, bs, tabs):
+        ev = eval_step(state, shard_batch_local(bs[0], dev), tabs)
+        sums = {k: float(ev[k]) for k in sum_keys}
+        losses, grads, ms = [], None, []
+        for b in bs:
+            db = shard_batch_local(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, aux = train_step(state, db, 0, tabs)
+            losses.append(float(aux["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if grads is None:
+                grads = _leaf_grads(state)
+        return sums, losses, grads, ms
+
+    state = fresh()
+    _build.reset_counts()
+    sums, losses, grads, ms = run(state, make_train_step(cfg, mesh, shard_store=True),
+                                  make_eval_step(cfg, mesh, shard_store=True), local, tables)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    sums, preds = gather_eval(sums, [int(i) for i in local[0]["ann_idx"]], mesh.group)
+    if preds != [int(i) for i in batches[0]["ann_idx"]]:
+        raise RuntimeError(f"rank {rank}: gather_eval's predictions are not the global batch's in rank order")
+    out = {"counts": counts, "losses": losses, "step_ms": statistics.median(ms),
+           "samples_per_s": cfg.train.bs * world / statistics.median(ms) * 1e3, "sums": sums,
+           "digest": state_digest(state)}
+    del state
+    gc.collect()
+    if rank == 0:
+        full = _full_tables(cfg, world, n_rows, n_anns, dev)
+        rsums, rlosses, rgrads, _ = run(fresh(), make_train_step(cfg), make_eval_step(cfg), batches, full)
+        for i, (a, b) in enumerate(zip(losses, rlosses)):
+            if not abs(a - b) <= 1e-4 * abs(b):
+                raise RuntimeError(f"gloo world: step {i} loss {a:.7f} != one process's {b:.7f}")
+        bad = grad_faults(grads, rgrads)
+        if bad:
+            raise RuntimeError(f"gloo world: first-step gradients differ from one process's: {bad[:5]}")
+        for k in sum_keys:
+            lim = 1e-4 * abs(rsums[k]) if k == "loss_sum" else (0 if k in ("n_pairs", "n_queries", "n_batch")
+                                                                 else 1)
+            if not abs(sums[k] - rsums[k]) <= lim:
+                raise RuntimeError(f"gloo world: eval {k} {sums[k]} != one process's {rsums[k]}")
+        out["one_process"] = {"losses": rlosses, "sums": rsums,
+                              "max_abs_err": max(max_err(grads[k], r) for k, r in rgrads.items())}
+    return out
+
+
+def dist_cfgs(world: int):
+    """-> ((a)'s production recipe and its fp32 "highest" twin for the
+    world > 1 parity step, or None), (b)'s fp32 recipe: each with
+    ``misc.multihost`` and the row-sharded store."""
+    a = prod_cfg()
+    b = train_cfg(0.1)
+    for c in (a, b):
+        c.misc.multihost, c.ds.device_store = True, "shard"
+    b.train.steps_per_dispatch = 1
+    a32 = None
+    if world > 1:
+        a32 = prod_cfg(dropout=0.0)
+        a32.mdl.dtype, a32.misc.matmul_precision = "float32", "highest"
+        a32.misc.multihost, a32.ds.device_store = True, "shard"
+    return a, a32, b
+
+
+def phase_dist(card: str) -> dict:
+    """[dist gt5 prod]: (a) an NCCL world of every card (``dist_nccl_rank``)
+    and (b) a gloo world of 2 ranks on card 0 (``dist_gloo_rank``), each
+    spawned from here; the ranks' states bitwise equal (digests), every
+    kernel of the path launched in each world; backend, world, step ms and
+    samples/s printed."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+
+    release_card()
+    world = torch.cuda.device_count()
+    a, a32, b = dist_cfgs(world)
+    t0 = time.perf_counter()
+    try:
+        ra = run_world(dist_nccl_rank, world, "nccl", a, a32, DIST_ROWS, DIST_ANNS)
+    except Exception as e:
+        fail(f"dist nccl world of {world}: {e}")
+    ta = time.perf_counter() - t0
+    want = {variant_name(n, a) for n in KERNEL_NAMES}
+    r0 = ra[0]
+    if set(r0["counts"]) != want or min(r0["counts"].values()) <= 0:
+        fail(f"dist nccl: launched {r0['counts']}, expected each of {sorted(want)}")
+    if len({r["digest"] for r in ra}) != 1:
+        fail("dist nccl: the ranks' states differ after the dispatches")
+    K = len(r0["losses"])
+    share = r0["nccl_ms_total"] / r0["graph_step_ms"]
+    print(f"[dist gt5 prod] (a) backend nccl, world {world} (spawned, rank r on card r; "
+          f"{DIST_ROWS} rows a rank, row-sharded bf16 store): a graphed dispatch of K={K} bitwise equal to {K} "
+          f"eager steps{' and to the single-device dispatch' if world == 1 else ''}; the ranks' states bitwise "
+          f"equal; step ms eager {r0['eager_step_ms']:.2f}, graph {r0['graph_step_ms']:.2f} "
+          f"({r0['samples_per_s']:.1f} samples/s, global batch {a.train.bs * world}); device busy "
+          f"{r0['busy_ms'] if r0['busy_ms'] is None else round(r0['busy_ms'], 3)} ms a step, nccl kernels "
+          f"{r0['nccl_ms_total']:.3f} ms ({share:.3f} of the step: {r0['nccl_ms']}); peak memory of a captured "
+          f"step {r0['peak_captured_step_gb']:.3f} GB; launches (the capture's warm-up step and {K} replays) "
+          f"{r0['counts']}; the single-device dispatch on rank 0's batches in this call: "
+          f"{r0['single_card_step_ms']:.2f} ms a step ({r0['single_card_samples_per_s']:.1f} samples/s); world "
+          f"run {ta:.1f} s on {card}", flush=True)
+    if "fp32_first_step" in r0:
+        f = r0["fp32_first_step"]
+        print(f"[dist gt5 prod] (a) fp32 highest first step of the world of {world} against one process on the "
+              f"global batch of {a.train.bs * world}: loss {f['loss']:.7f} vs {f['one_process_loss']:.7f}, "
+              f"max |err| {f['max_abs_err']:.2e}, worst relative {f['worst_rel']:.2e}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        rb = run_world(dist_gloo_rank, 2, "gloo", b, DIST_ROWS, DIST_ANNS, DIST_GLOO_STEPS)
+    except Exception as e:
+        fail(f"dist gloo world of 2: {e}")
+    tb = time.perf_counter() - t0
+    want_b = set(KERNEL_NAMES)
+    if set(rb[0]["counts"]) != want_b or min(rb[0]["counts"].values()) <= 0:
+        fail(f"dist gloo: launched {rb[0]['counts']}, expected each of {sorted(want_b)}")
+    if rb[0]["digest"] != rb[1]["digest"]:
+        fail(f"dist gloo: the two ranks' states differ after {DIST_GLOO_STEPS} steps")
+    one = rb[0]["one_process"]
+    print(f"[dist gt5 prod] (b) backend gloo, world 2 on one card (fp32, dropout 0.1, row-sharded store, eager "
+          f"K=1): {DIST_GLOO_STEPS} losses {rb[0]['losses']} vs one process {one['losses']}, first-step gradient "
+          f"max |err| {one['max_abs_err']:.2e}; eval sums through gather_eval {rb[0]['sums']} vs {one['sums']}; "
+          f"the ranks' states bitwise equal; step ms {rb[0]['step_ms']:.2f} ({rb[0]['samples_per_s']:.1f} "
+          f"samples/s, global batch {b.train.bs * 2}); world run {tb:.1f} s on {card}", flush=True)
+    apply_matmul_precision(serve_cfg())
+    return {"nccl": {"world": world, **{k: v for k, v in r0.items() if k != "digest"}, "seconds": ta},
+            "gloo": {"world": 2, **{k: v for k, v in rb[0].items() if k != "digest"}, "seconds": tb}}
+
+
 CONTEXT_WARNINGS: list = []
 
 
@@ -3161,6 +3561,11 @@ def main() -> int:
     for k in ("VOG_FLASH_BWD", "VOG_MM_BWD"):  # the GT5 phases run the JAX package's default modes
         os.environ.pop(k, None)
     phase_build()
+    if "--dist" in sys.argv[1:]:  # [dist gt5 prod] alone, on every card of the machine
+        print(json.dumps({"dist": phase_dist(card), "card": card}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- GT5 (T = 200, B = 16) ---------------------------------------------
     cfg = serve_cfg()
@@ -3188,6 +3593,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     learner, serve_cli, export = phase_learner(card, dispatch_prod)
+    dist = phase_dist(card)
 
     # -- P100 (T = 4000, B = 2) --------------------------------------------
     cfg = serve_cfg("p100")
@@ -3261,6 +3667,10 @@ def main() -> int:
         r["gt5"] = {k: gd.get(k) for k in keys}
         # the training entry point's run ([learner gt5 prod]), counted from 0 just before it
         r["gt5"]["learner_launches"] = learner["launches"].get(r["name"], 0)
+        # [dist gt5 prod] (a): rank 0's graphed dispatch in the nccl world, counted from 0 just before it
+        r["gt5"]["dist_nccl_launches"] = dist["nccl"]["counts"].get(r["name"], 0)
+    for r in rows:  # [dist gt5 prod] (b): rank 0's eager steps in the gloo world (fp32)
+        r["gt5"]["dist_gloo_launches"] = dist["gloo"]["counts"].get(r["name"], 0)
     rows += rows_def
     if CONTEXT_WARNINGS:
         fail(f"a thread ran cuBLAS with no current CUDA context: {CONTEXT_WARNINGS}")
@@ -3272,7 +3682,7 @@ def main() -> int:
                       "prod": {"serve_gt5": serve_prod, "dispatch_gt5": dispatch_prod,
                                "dispatch_p100": dispatch_p100_prod},
                       "learner": {k: v for k, v in learner.items() if k != "launches"},
-                      "serve_cli": serve_cli, "export": export,
+                      "serve_cli": serve_cli, "export": export, "dist": dist,
                       "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

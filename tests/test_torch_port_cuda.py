@@ -46,6 +46,12 @@ passes clean on the card, its dispatch mode is active on autograd's
 worker thread, and a NaN in the head's backward kernel output raises
 naming the kernel; the artifact's CUDA-graph replay bitwise its eager
 replay; an artifact capture that fails raises.
+
+Data parallelism across processes: an NCCL world of one rank whose
+graphed dispatch (collectives captured) is bitwise its eager steps and
+the single-device dispatch, and a gloo world of two ranks on one card
+against one process on the global batch (``chip_smoke.py``'s worlds at
+narrow widths).
 """
 
 import json
@@ -1164,3 +1170,48 @@ def test_artifact_capture_failure_raises(dev, tmp_path):
     with pytest.raises(RuntimeError):
         rep(batch)
     assert not rep.graphs
+
+
+# --------------------------------------------------------------------------
+# data parallelism across processes (train/dist.py): chip_smoke.py's worlds
+# at narrow widths
+# --------------------------------------------------------------------------
+def _dist_cfg(dtype: str, precision: str, K: int):
+    from chip_smoke import serve_cfg
+
+    cfg = serve_cfg()
+    m = cfg.mdl
+    cfg.ds.prop_dim, cfg.ds.seg_dim = 64, 48
+    m.emb_dim, m.lstm_dim, m.vis_dim, m.role_dim, m.n_heads = 32, 16, 32, 8, 2
+    m.dropout, m.dtype, cfg.misc.matmul_precision = 0.1, dtype, precision
+    t = cfg.train
+    t.bs, t.lr, t.lr_schedule, t.warmup_steps, t.total_steps = 4, 1e-3, "cosine", 3, 50
+    t.skip_nonfinite, t.pos_weight, t.grad_clip, t.steps_per_dispatch = 2, 5.0, 1.0, K
+    cfg.misc.multihost, cfg.ds.device_store = True, "shard"
+    return cfg
+
+
+def test_dist_nccl_world1_dispatch_bitwise(dev):
+    """An NCCL world of one rank (spawned): the graphed dispatch of K = 4
+    with the all-reduce, the loss's count and the sharded store's
+    collectives captured, bitwise its eager steps and the single-device
+    dispatch (``chip_smoke.dist_nccl_rank`` raises otherwise)."""
+    from chip_smoke import KERNEL_NAMES, dist_nccl_rank, run_world, variant_name
+
+    cfg = _dist_cfg("bfloat16", "default", 4)
+    (r,) = run_world(dist_nccl_rank, 1, "nccl", cfg, None, 250, 60)
+    assert r["single_bitwise"] and len(r["losses"]) == 4
+    assert set(r["counts"]) == {variant_name(n, cfg) for n in KERNEL_NAMES}
+
+
+def test_dist_gloo_two_ranks_on_one_card(dev):
+    """A gloo world of two ranks on one card: eager steps with the sharded
+    store, one eval through ``gather_eval``, against one process on the
+    global batch (``chip_smoke.dist_gloo_rank``); the ranks' states bitwise
+    equal."""
+    from chip_smoke import KERNEL_NAMES, dist_gloo_rank, run_world
+
+    cfg = _dist_cfg("float32", "highest", 1)
+    r0, r1 = run_world(dist_gloo_rank, 2, "gloo", cfg, 250, 60, 3)
+    assert r0["digest"] == r1["digest"] and "one_process" in r0
+    assert set(r0["counts"]) == set(KERNEL_NAMES)

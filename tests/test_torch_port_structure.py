@@ -3,7 +3,7 @@
   * importing it, or any of its modules, pulls in neither JAX nor the JAX
     package ``vog_tpu``; no file of it, nor ``chip_smoke.py``, imports them;
   * its entry points run on the card by default and raise without one;
-  * the Learner refuses only the multi-device keys;
+  * the Learner refuses only the model axis's multi-device keys;
   * every kernel module has a CUDA source, a plain version, and a check
     in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
   * a kernel library's name hashes its source and the shared headers; the
@@ -125,19 +125,22 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
 def test_not_ported_names_only_the_multi_device_keys():
     """The Learner takes every single-device key (``misc.checkify``,
     ``misc.profile_dir``, ``misc.tensorboard_dir``, ``train.async_ckpt``)
-    and refuses only the multi-device ones; ``train/checkify.py`` imports
-    no JAX."""
+    and the data axis's (``misc.multihost``, ``misc.mesh_data``), and
+    refuses only the model axis's multi-device keys; ``train/checkify.py``,
+    ``train/dist.py`` and ``train/multihost.py`` import no JAX."""
     from vog_tpu_torch.config import Cfg
     from vog_tpu_torch.train.learner import _not_ported
 
     cfg = Cfg()
     m = cfg.misc
     m.checkify, m.profile_dir, m.tensorboard_dir, cfg.train.async_ckpt = True, "prof", "tb", True
+    m.multihost, m.mesh_data = True, 4
     assert _not_ported(cfg) == []
-    m.multihost, cfg.mdl.sp_attention, m.mesh_model, m.mesh_data = True, True, 2, 4
-    assert _not_ported(cfg) == ["misc.multihost", "mdl.sp_attention", "misc.mesh_model", "misc.mesh_data"]
-    checkify = PKG / "train" / "checkify.py"
-    assert checkify.is_file() and not _imported_roots(checkify) & FORBIDDEN
+    cfg.mdl.sp_attention, m.mesh_model = True, 2
+    assert _not_ported(cfg) == ["mdl.sp_attention", "misc.mesh_model"]
+    for name in ("checkify.py", "dist.py", "multihost.py"):
+        path = PKG / "train" / name
+        assert path.is_file() and not _imported_roots(path) & FORBIDDEN, name
 
 
 def test_entry_points_default_to_cuda():

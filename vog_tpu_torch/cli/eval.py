@@ -8,6 +8,8 @@ there is one (else it scores the fresh model, and says so), scores the
 split, writes the predictions pickle and returns the metric dict.  The
 second re-scores a saved predictions file offline
 (``evaluation/offline.py §eval_fun``): no model, no checkpoint, no card.
+Under torchrun with ``--misc.multihost=true`` the first form scores the
+split data-parallel, as ``cli.train`` trains.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict
 
 from vog_tpu_torch.cli.train import build_cfg, device_of, parse_argv
 from vog_tpu_torch.data.loader import get_data
+from vog_tpu_torch.train.dist import init_distributed, make_mesh
 from vog_tpu_torch.train.learner import Learner
 
 
@@ -32,7 +35,9 @@ def main(argv=None) -> Dict:
         m = eval_fun(pred_file, split, cfg)
         print(f"rescored {pred_file} [{split}]: {m}", flush=True)
         return m
-    learner = Learner(uid, get_data(cfg), cfg, device=device_of(cfg))
+    device = init_distributed(cfg, device_of(cfg))
+    mesh = make_mesh(cfg)
+    learner = Learner(uid, get_data(cfg, mesh), cfg, device=device, mesh=mesh)
     ckpt = learner.ckpt_path(tag)
     if ckpt.exists():
         learner.load(tag=tag)

@@ -11,6 +11,14 @@ dotted config overrides, building data, model and Learner and calling fit
 It runs on the card; ``--misc.platform=cpu`` (the JAX CLI's own key) runs
 the plain PyTorch path on the CPU instead, and without a GPU nothing else
 runs.  ``misc.matmul_precision`` is applied before the model is built.
+
+Data-parallel, one process a card (``train/dist.py``)::
+
+  torchrun --nproc-per-node N -m vog_tpu_torch.cli.train <uid> ... --misc.multihost=true
+
+joins the process group (nccl; gloo with ``--misc.platform=cpu``) before
+the mesh and the data, as the JAX CLI initialises ``jax.distributed``;
+the global batch is ``train.bs`` x N.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Dict, Optional, Set, Tuple
 
 from vog_tpu_torch.config import apply_matmul_precision, get_default_cfg, post_proc_config, update_from_dict
 from vog_tpu_torch.data.loader import get_data
+from vog_tpu_torch.train.dist import init_distributed, make_mesh
 from vog_tpu_torch.train.learner import Learner
 
 PLATFORMS = {"": None, "gpu": "cuda", "cpu": "cpu"}  # misc.platform, JAX's names
@@ -64,9 +73,10 @@ def build(argv) -> Tuple[Learner, Set[str]]:
     """The Learner of a command line -> (learner, flags)."""
     uid, overrides, flags = parse_argv(argv)
     cfg = build_cfg(overrides)
-    device = device_of(cfg)
-    data = get_data(cfg)
-    learner = Learner(uid, data, cfg, device=device)
+    device = init_distributed(cfg, device_of(cfg))
+    mesh = make_mesh(cfg)
+    data = get_data(cfg, mesh)
+    learner = Learner(uid, data, cfg, device=device, mesh=mesh)
     learner.log(f"uid={uid} device={learner.device} cfg={cfg.to_json()}")
     return learner, flags
 

@@ -47,9 +47,10 @@ class DsCfg:
     # device-resident feature tables (data/device_store.py): upload the
     # whole feats/seg store to the card once; batches carry vid_rows and
     # the gather runs inside the step.  auto = on when the tables fit half
-    # of the card's free memory, off on the CPU (use_device_store); the
-    # JAX package's "shard" (row-sharded over a mesh) is not ported yet.
-    device_store: str = "auto"  # auto | on | off
+    # of the card's free memory, else "shard" when a data-parallel
+    # world's 1/N of them does, else off; off on the CPU
+    # (device_store_mode).  "shard": row-sharded over the world's ranks.
+    device_store: str = "auto"  # auto | on | off | shard
     # index-only input path (data/ann_store.py): annotation statics
     # (tokens/spans/targets/GT boxes + per-video proposal boxes) also
     # device-resident; batches shrink to four int32 index fields per
@@ -200,7 +201,7 @@ class MiscCfg:
     # JAX_PLATFORMS alone is not authoritative — site hooks can re-pin it,
     # only jax.config.update survives).  "" = platform default.
     platform: str = ""
-    mesh_data: int = -1  # -1 = all devices on data axis
+    mesh_data: int = -1  # -1 = every process of the world on the data axis
     mesh_model: int = 1
     half_feats: bool = False  # store features bf16 in HBM (compute stays fp32)
     # int8-quantized device feature tables (per-proposal-vector symmetric
@@ -238,7 +239,7 @@ class MiscCfg:
     # auto = only when stderr is a TTY, so redirected runs stay clean
     progress: str = "auto"  # auto | on | off
     checkify: bool = False  # eager train steps under NaN / integer-division checks (train/checkify.py)
-    multihost: bool = False  # jax.distributed.initialize() before mesh setup
+    multihost: bool = False  # join torchrun's process group before mesh setup (train/dist.py)
     # persistent XLA compilation cache: compiled executables serialize to
     # this dir and later processes skip the compile entirely.  Crucial on
     # high-latency/loaded TPU links — the SAME program measured 16 s to

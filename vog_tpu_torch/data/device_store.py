@@ -11,17 +11,28 @@ table plus one chunk: ``from_store`` streams a feature store's videos
 (row i = the store's video i, ``rows`` maps a video to its row) a chunk
 of rows at a time through one threaded read.
 
-``use_device_store`` decides ``ds.device_store``: "on" and "off" as they
-say; "auto" is on when the tables fit ``FREE_SHARE`` of the card's free
-memory (``torch.cuda.mem_get_info``) and off on the CPU.  The JAX
-package's fixed 8 GB budget and its TPU-only gate were set for a TPU
-v5e's 16 GB and are not copied.  The row-sharded store ("shard") waits
-for the multi-device slice.
+``device_store_mode`` decides ``ds.device_store``: "on" and "off" as
+they say, "shard" row-sharded over a data-parallel world; "auto" is on
+(replicated) when the tables fit ``FREE_SHARE`` of the card's free memory
+(``torch.cuda.mem_get_info``), else sharded when a world's 1/N of them
+does, else off, and off on the CPU.  The JAX package's fixed 8 GB budget
+and its TPU-only gate were set for a TPU v5e's 16 GB and are not copied.
+
+The row-sharded store (counterpart of the JAX package's ``shard=True``
+tables and ``sharded_gather_from_tables``): rank r of N holds rows
+[r*n, (r+1)*n) of the table padded to N*n rows, built from its own slice
+of the store; the step's gather all-gathers the global batch's
+``vid_rows``, gathers them from the local shard with the gather kernel
+(rows clamped to the shard), dequantises int8 locally, zeroes the rows
+that another rank owns and reduce-scatters over the batch, so each rank
+ends with its own rows, each the sum of one owner's copy and zeros
+(exact).  The table never moves; a step moves the global batch's
+gathered rows once.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,20 +56,45 @@ def table_bytes(cfg, n_videos: int) -> int:
     return n_videos * per_vid * (2 if cfg.misc.half_feats else 4)
 
 
-def use_device_store(cfg, n_videos: int, device: torch.device, extra_bytes: int = 0) -> bool:
-    """``ds.device_store`` on ``device``: "on" / "off" as set; "auto" on
-    when the tables (plus ``extra_bytes``, the annotation tables) fit
-    ``FREE_SHARE`` of the card's free memory, off on the CPU."""
+def device_store_mode(cfg, n_videos: int, device: torch.device, extra_bytes: int = 0, mesh=None) -> str:
+    """``ds.device_store`` on ``device`` -> "on" (replicated), "shard" or
+    "off": "on" / "off" / "shard" as set ("shard" needs ``mesh``, a
+    data-parallel world: train/dist.py); "auto": on when the tables (plus
+    ``extra_bytes``, the annotation tables, which stay replicated) fit
+    ``FREE_SHARE`` of the card's free memory, else shard when 1/N of the
+    tables does in a world of N > 1, else off; off on the CPU."""
     want = cfg.ds.device_store
-    if want not in ("auto", "on", "off"):
-        raise ValueError(f"ds.device_store={want!r}: the port takes auto, on or off "
-                         "(the row-sharded store waits for the multi-device slice)")
+    grouped = mesh is not None and mesh.group is not None
+    if want not in ("auto", "on", "off", "shard"):
+        raise ValueError(f"ds.device_store={want!r}: the port takes auto, on, off or shard")
+    if want == "shard" and not grouped:
+        raise ValueError("ds.device_store=shard row-shards the tables over a data-parallel world: it needs "
+                         "misc.multihost=true under torchrun (one process has nothing to shard over)")
     if want != "auto":
-        return want == "on"
+        return want
     if device.type != "cuda":
-        return False
+        return "off"
     free, _ = torch.cuda.mem_get_info(device)
-    return table_bytes(cfg, n_videos) + extra_bytes <= FREE_SHARE * free
+    tb = table_bytes(cfg, n_videos)
+    if tb + extra_bytes <= FREE_SHARE * free:
+        return "on"
+    world = mesh.world if grouped else 1
+    if world > 1 and -(-tb // world) + extra_bytes <= FREE_SHARE * free:
+        return "shard"
+    return "off"
+
+
+def use_device_store(cfg, n_videos: int, device: torch.device, extra_bytes: int = 0) -> bool:
+    """``device_store_mode`` of one process: whether the replicated tables
+    are built."""
+    return device_store_mode(cfg, n_videos, device, extra_bytes) == "on"
+
+
+def shard_rows(n_videos: int, rank: int, world: int) -> tuple:
+    """(first, stop, rows a shard): rank's rows of ``n_videos`` padded to a
+    multiple of ``world``; rows at or past ``n_videos`` are padding."""
+    per = -(-n_videos // world)
+    return rank * per, min((rank + 1) * per, n_videos), per
 
 
 def _table_shape(n: int, width: int) -> tuple:
@@ -93,7 +129,7 @@ def _pack_rows(local: Dict[str, torch.Tensor], dtype: torch.dtype, int8: bool) -
 class DeviceFeatureTables:
     """Packed per-video feature tables on one device: ``tables`` is
     {"feats", "seg"} (+ "feats_scale"/"seg_scale" for int8), row i being
-    video i."""
+    video i; or, built with ``shard``, this rank's row shard of them."""
 
     def __init__(
         self,
@@ -135,20 +171,24 @@ class DeviceFeatureTables:
 
     @classmethod
     def from_store(cls, cfg, store, half: bool = False, int8: bool = False,
-                   device: DeviceLike = None, chunk_rows: int = 256) -> "DeviceFeatureTables":
+                   device: DeviceLike = None, chunk_rows: int = 256,
+                   shard: Optional[Tuple[int, int]] = None) -> "DeviceFeatureTables":
         """Tables of every video of ``store`` (``store.videos()`` order;
         ``rows`` maps a video to its row), streamed ``chunk_rows`` videos at
         a time: one read of the chunk's feats and seg (one threaded call
         for the packed store), each clipped or zero-padded to (F, P) and F
         frames as the JAX package's ``_stream_build_tables``, then packed
-        on the device."""
+        on the device.  ``shard`` = (rank, world): only this rank's rows
+        (``shard_rows``), read from the store and packed; ``rows`` still
+        maps every video to its global row."""
         vids: List[str] = store.videos()
-        t = cls(cfg, len(vids), half=half, int8=int8, device=device)
+        lo, hi, n = (0, len(vids), len(vids)) if shard is None else shard_rows(len(vids), *shard)
+        t = cls(cfg, n, half=half, int8=int8, device=device)
         t.rows = {v: i for i, v in enumerate(vids)}
         (F, P, D), (_, Dv) = t.shapes["feats"], t.shapes["seg"]
         many = getattr(store, "gather_many", None)
-        for i0 in range(0, len(vids), chunk_rows):
-            chunk = vids[i0:i0 + chunk_rows]
+        for i0 in range(lo, hi, chunk_rows):
+            chunk = vids[i0:min(i0 + chunk_rows, hi)]
             got = many(chunk, fields=("feats", "seg")) if many else [store.get_feats(v) for v in chunk]
             feats = np.zeros((len(chunk), F, P, D), np.float32)
             seg = np.zeros((len(chunk), F, Dv), np.float32)
@@ -156,7 +196,7 @@ class DeviceFeatureTables:
                 fi, pi = min(fv.shape[0], F), min(fv.shape[1], P)
                 feats[j, :fi, :pi] = fv[:fi, :pi]
                 seg[j, :min(sv.shape[0], F)] = sv[:F]
-            t.write(i0, feats, seg)
+            t.write(i0 - lo, feats, seg)
         return t
 
     @classmethod
@@ -206,4 +246,35 @@ def gather_from_tables(batch: Dict, tables: Dict) -> Dict:
         seg = seg * ss
     out["props"] = props
     out["seg_feats"] = seg
+    return out
+
+
+def sharded_gather_from_tables(batch: Dict, tables: Dict, mesh) -> Dict:
+    """``gather_from_tables`` against row-sharded tables (``shard_rows``):
+    ``batch`` holds this rank's rows, ``tables`` its shard.  The global
+    batch's ``vid_rows`` are all-gathered, gathered from the local shard
+    (rows clamped to it), int8 dequantised here, zeroed where another rank
+    owns the row, and reduce-scattered over the batch: this rank's rows
+    come back, each from its one owner."""
+    rows = mesh.all_gather(batch["vid_rows"].to(torch.int32).contiguous())  # (world * B, V)
+    B, V, F, P = batch["prop_mask"].shape
+    D = _row_width(tables["feats"]) // (F * P)
+    Dv = _row_width(tables["seg"]) // F
+    n = tables["feats"].shape[0]
+    start = mesh.rank * n
+    mine = ((rows >= start) & (rows < start + n))[..., None]
+    loc = (rows - start).clamp(0, n - 1).to(torch.int32).contiguous()
+    Bg = rows.shape[0]
+    f = gather_rows(tables["feats"], loc).reshape(Bg, V, -1)
+    s = gather_rows(tables["seg"], loc).reshape(Bg, V, -1)
+    if "feats_scale" in tables:  # int8: dequantise locally, the scatter then carries f32
+        fs = gather_rows(tables["feats_scale"], loc).reshape(Bg, V, F, P, 1)
+        ss = gather_rows(tables["seg_scale"], loc).reshape(Bg, V, F, 1)
+        f = (f.reshape(Bg, V, F, P, D).float() * fs).reshape(Bg, V, -1)
+        s = (s.reshape(Bg, V, F, Dv).float() * ss).reshape(Bg, V, -1)
+    f = mesh.reduce_scatter(torch.where(mine, f, torch.zeros((), dtype=f.dtype, device=f.device)))
+    s = mesh.reduce_scatter(torch.where(mine, s, torch.zeros((), dtype=s.dtype, device=s.device)))
+    out = {k: v for k, v in batch.items() if k != "vid_rows"}
+    out["props"] = f.reshape(B, V, F, P, D).float()
+    out["seg_feats"] = s.reshape(B, V, F, Dv).float()
     return out

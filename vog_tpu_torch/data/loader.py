@@ -8,9 +8,13 @@ generator of (seed, epoch, index), so a mid-epoch resume seeks to a batch
 without building the ones before it.  A background thread builds the
 batches (and runs ``transform`` on them, which the Learner uses to stack a
 dispatch's group) while the card runs the previous dispatch; the queue is
-bounded and the thread stops when the consumer leaves.  Multi-host input
-sharding (the JAX package's ``local_rows``) waits for the multi-device
-slice of the port.
+bounded and the thread stops when the consumer leaves.  Data-parallel
+input sharding (the JAX package's ``local_rows``, the DistributedSampler's
+split): every rank builds the same epoch order and only its rows
+[lo, hi) of each global batch, each sample's generator keyed on (seed,
+epoch, index) as in the full batch, so the rows are bitwise the full
+batch's; ``get_data(cfg, mesh)`` sizes the global batch as ``train.bs``
+times the world, and the Learner sets each rank's rows.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ class BatchIterator:
         # — the Learner stacks it here for the fused multi-step dispatch
         # (train.steps_per_dispatch).
         self.group: int = 1
+        # data-parallel input sharding: (start, stop) builds only rows
+        # [start, stop) of each global batch, the rank's (train/dist.py
+        # §local_batch_rows); None = the full batch
+        self.local_rows: Optional[tuple] = None
 
     def __len__(self) -> int:
         n = len(self.ds)
@@ -85,15 +93,18 @@ class BatchIterator:
                 int(i), np.random.default_rng([self.seed, epoch, int(i)])
             )
 
-        # batch mask (final eval batch may be short of self.bs)
+        # global batch mask (final eval batch may be short of self.bs)
         bm = np.zeros((self.bs,), np.uint8)
         bm[: len(batch_idxs)] = 1
-        samples = [build(i) for i in batch_idxs]
-        n_pad = self.bs - len(samples)
-        if n_pad > 0:  # pad to the static shape
-            samples = samples + [samples[-1]] * n_pad
+        lo, hi = self.local_rows if self.local_rows is not None else (0, self.bs)
+        # keyed per sample, so rows [lo, hi) alone are bitwise the full batch's
+        samples = [build(i) for i in batch_idxs[lo:hi]]
+        n_pad = (hi - lo) - len(samples)
+        if n_pad > 0:  # pad to the local static shape
+            donor = samples[-1] if samples else build(batch_idxs[-1])
+            samples = samples + [donor] * n_pad
         batch = collate(samples)
-        batch["batch_mask"] = bm
+        batch["batch_mask"] = bm[lo:hi]
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -175,17 +186,17 @@ class DataWrap:
     vocab: Vocab
 
 
-def get_data(cfg) -> DataWrap:
+def get_data(cfg, mesh=None) -> DataWrap:
     """Build the three split iterators (reference ``get_data(cfg)``) over
-    ``open_store``'s store."""
+    ``open_store``'s store.  ``mesh`` (train/dist.py): the global batch is
+    ``train.bs`` times its world (``misc.mesh_data``)."""
     vocab = get_vocab(cfg)
     store = open_store(cfg.ds.data_dir)
+    bs = cfg.train.bs * (mesh.world if mesh is not None else 1)
 
     def mk(split: str, shuffle: bool, drop_last: bool) -> BatchIterator:
         ds = AnetSRLDataset(cfg, split, vocab, store)
-        return BatchIterator(
-            ds, cfg.train.bs, shuffle=shuffle, drop_last=drop_last, seed=cfg.train.seed
-        )
+        return BatchIterator(ds, bs, shuffle=shuffle, drop_last=drop_last, seed=cfg.train.seed)
 
     return DataWrap(
         train_dl=mk("train", True, True),

@@ -104,11 +104,11 @@ def dropout_key(seed: int, step: torch.Tensor, micro: int = 0) -> torch.Tensor:
     return _mix32(k ^ _mix32_host(micro ^ 0x7F4A7C15))
 
 
-def dropout_keep(key: torch.Tensor, site: int, shape, rate: float) -> torch.Tensor:
+def dropout_keep(key: torch.Tensor, site: int, shape, rate: float, row0: int = 0) -> torch.Tensor:
     """The keep mask (bool, ``shape``) of site ``site`` under ``key``:
     element (r, c) of the (rows, shape[-1]) view keeps when a hash of
-    (key, site, r, c) is at least ``rate`` of the way through the 32-bit
-    range.  The row and column hashes are full murmur3 mixes of their
+    (key, site, row0 + r, c) is at least ``rate`` of the way through the
+    32-bit range (``row0``: the view's first row in the global batch).  The row and column hashes are full murmur3 mixes of their
     counters under a site key; the element's two rounds of multiply and
     xorshift in int32 (which wraps, as on every platform torch runs on)
     make the keep probability 1 - rate to 2**-32."""
@@ -119,7 +119,7 @@ def dropout_keep(key: torch.Tensor, site: int, shape, rate: float) -> torch.Tens
     W = int(shape[-1]) if len(shape) else 1
     R = n // W if W else 0
     ks = _mix32(key ^ _mix32_host(site * 0x9E3779B9 + 1))
-    rows = _mix32(torch.arange(R, dtype=torch.int64, device=dev) ^ ks)
+    rows = _mix32(torch.arange(row0, row0 + R, dtype=torch.int64, device=dev) ^ ks)
     cols = _mix32(torch.arange(W, dtype=torch.int64, device=dev) ^ _mix32(ks ^ 0x5BD1E995))
     x = _as_int32(rows)[:, None] ^ _as_int32(cols)[None, :]
     x = x * 0x2C1B3C6D
@@ -132,28 +132,42 @@ def dropout_keep(key: torch.Tensor, site: int, shape, rate: float) -> torch.Tens
 class Dropout(nn.Module):
     """Inverted dropout with the counter-based mask of ``dropout_keep``
     under the key set by ``set_dropout_key``; ``site`` is this module's
-    place among the model's dropout modules."""
+    place among the model's dropout modules.  ``samples`` = (first, n):
+    the input's n samples are samples [first, first + n) of the global
+    batch (a rank's rows under data parallelism), and its leading dims
+    fold them batch first, so its rows are numbered from first * rows a
+    sample: every rank draws the bits that one process on the global
+    batch draws for the same rows."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.key = None
         self.site = 0
+        self.samples = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         if self.key is None:
             raise RuntimeError("dropout in train mode needs set_dropout_key first")
-        keep = dropout_keep(self.key, self.site, x.shape, self.rate)
+        first, n = self.samples
+        row0 = 0
+        if first:
+            rows = x.numel() // x.shape[-1]
+            if rows % n:
+                raise ValueError(f"dropout: {rows} rows do not fold {n} samples")
+            row0 = first * (rows // n)
+        keep = dropout_keep(self.key, self.site, x.shape, self.rate, row0)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
-def set_dropout_key(model: nn.Module, key) -> None:
-    """Give every dropout site of ``model`` the key and its site number
-    (its place in ``model.modules()``)."""
+def set_dropout_key(model: nn.Module, key, samples=(0, 1)) -> None:
+    """Give every dropout site of ``model`` the key, its site number (its
+    place in ``model.modules()``) and the global batch's ``samples``
+    (first, n) that the next forward holds (``Dropout``)."""
     for site, m in enumerate(m for m in model.modules() if isinstance(m, Dropout)):
-        m.key, m.site = key, site
+        m.key, m.site, m.samples = key, site, (int(samples[0]), int(samples[1]))
 
 
 def _heads(t: torch.Tensor, H: int) -> torch.Tensor:

@@ -214,15 +214,16 @@ def check_kernel_outputs(name: str, *tensors: Optional[torch.Tensor]) -> None:
             return
 
 
-def make_checked_train_step(cfg):
+def make_checked_train_step(cfg, mesh=None, shard_store: bool = False):
     """-> ``multi_step(state, stacked, seed, tables=None) -> (state, auxs)``,
     ``make_multi_train_step``'s signature: each step of the stacked host
     batch uploaded and run eagerly by ``make_train_step``'s step under a
     ``Checker``, which raises ``CheckifyError`` after the step (its one
-    host read); every aux with a leading step axis."""
+    host read); every aux with a leading step axis.  ``mesh``,
+    ``shard_store``: as ``make_train_step``."""
     from vog_tpu_torch.train.state import make_train_step
 
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, mesh, shard_store)
 
     def multi_step(state, stacked: Dict[str, Any], seed: int, tables=None):
         dev = state.step.device

@@ -43,6 +43,12 @@ time, so every cache key holds ``numerics_key`` (the precision and the
 model's activation dtype): a process that changes ``misc.matmul_precision``
 captures anew rather than replay the old numerics.
 
+A step with collectives (data parallelism, train/dist.py) captures
+them too: NCCL's kernels join the graph like any other, after the
+warm-up step has created the communicator; such a capture runs in
+"thread_local" mode, so the process group's watchdog thread may query
+its events meanwhile.
+
 A capture or replay that fails raises; nothing falls back to an eager
 loop.  Launch counts: the capture's launches do not run, so they are
 taken back from ``_build.launches`` and added again at every replay.
@@ -175,13 +181,13 @@ class _Captured:
     def __init__(self, device: torch.device, stacked: Dict[str, Any], capacity: int,
                  body: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],
                  before_warm_up: Callable[[], Any] = None, after_warm_up: Callable[[Any], None] = None,
-                 reset: Callable[[], None] = None):
+                 reset: Callable[[], None] = None, capture_error_mode: str = "global"):
         self.device, self.capacity, self.reset = device, int(capacity), reset
         self.static = StaticBatch(step_spec(stacked), capacity, device)
         self.slot = torch.zeros((), dtype=torch.int64, device=device)
         self.static.load(stacked, 1)  # row 0: a real batch for the warm-up
         self.graph = torch.cuda.CUDAGraph()
-        capture = torch.cuda.graph(self.graph)
+        capture = torch.cuda.graph(self.graph, capture_error_mode=capture_error_mode)
         saved = before_warm_up() if before_warm_up else None
         outs = _warm_up(capture, lambda: body(self._fields()))
         if after_warm_up:
@@ -219,12 +225,13 @@ class _Captured:
 
 
 def train_graph(step: Callable, freeze: bool, state, stacked: Dict[str, Any], seed: int,
-                tables: Optional[Dict[str, torch.Tensor]]) -> _Captured:
+                tables: Optional[Dict[str, torch.Tensor]], collectives: bool = False) -> _Captured:
     """The captured train step of (``step``, batch shapes, seed, tables,
     ``numerics_key``) on ``state``, captured at first use (cached in ``state.graphs``; a longer
     dispatch than the cached capacity captures anew).  With ``freeze`` a
     device flag carries the poison from replay to replay, cleared at each
-    dispatch."""
+    dispatch.  ``collectives``: the step holds a process group's (captured
+    in "thread_local" mode)."""
     n = len(next(iter(stacked.values())))
     key = ("train", id(step), freeze, _spec_key(step_spec(stacked)), int(seed), tables_key(tables),
            numerics_key(state.model))
@@ -242,14 +249,15 @@ def train_graph(step: Callable, freeze: bool, state, stacked: Dict[str, Any], se
         return aux
 
     g = _Captured(dev, stacked, n, body, before_warm_up=state.snapshot, after_warm_up=state.restore,
-                  reset=frozen.zero_ if freeze else None)
+                  reset=frozen.zero_ if freeze else None,
+                  capture_error_mode="thread_local" if collectives else "global")
     g.step = step  # keeps id(step) unique while the graph is cached
     state.graphs[key] = g
     return g
 
 
 def eval_graph(step: Callable, state, stacked: Dict[str, Any],
-               tables: Optional[Dict[str, torch.Tensor]]) -> _Captured:
+               tables: Optional[Dict[str, torch.Tensor]], collectives: bool = False) -> _Captured:
     """The captured eval step (cached as ``train_graph``); the state is
     only read."""
     n = len(next(iter(stacked.values())))
@@ -258,7 +266,8 @@ def eval_graph(step: Callable, state, stacked: Dict[str, Any],
     if g is not None and g.capacity >= n:
         return g
     state.graphs.pop(key, None)
-    g = _Captured(state.step.device, stacked, n, lambda batch: step(state, batch, tables))
+    g = _Captured(state.step.device, stacked, n, lambda batch: step(state, batch, tables),
+                  capture_error_mode="thread_local" if collectives else "global")
     g.step = step
     state.graphs[key] = g
     return g

@@ -1,5 +1,5 @@
 """Learner: the trainer runtime (counterpart of vog_tpu/train/learner.py,
-single device).
+one card a process, data-parallel across processes).
 
 Reference parity: ``utils/trn_utils.py §Learner``: epochs of train and
 validate, the smoothed loss, txt and json-lines logs under
@@ -62,8 +62,21 @@ the learning rate at its end, kernel launches), an eval (batches, seconds, kerne
 a table build, a save (when its file lands: bytes, the seconds the loop
 was blocked by its copy and the writer's seconds) and a profiler trace.
 
-Not ported yet (each raises naming its key): multi-device and multi-host
-(``misc.multihost``, ``mdl.sp_attention``, a mesh).
+Data parallelism (``mesh``, train/dist.py; ``misc.multihost`` under
+torchrun): every rank runs the same Learner on its rows of each global
+batch of ``train.bs`` x world (``get_data(cfg, mesh)`` sizes it, the
+Learner sets the loaders' ``local_rows``); the steps reduce the loss's counts and the
+gradient over the ranks (train/state.py), so the ranks' states stay
+bitwise equal; ``ds.device_store`` may row-shard the feature tables
+("shard", or "auto" when only a rank's share fits).  Only rank 0 logs,
+writes the events, TensorBoard, profiles, checkpoints and predictions (the
+JAX Learner's ``_is_main``); the eval sums and predictions go through
+``gather_eval``; every rank waits at a barrier before a load (rank 0's
+writes landed first); a SIGTERM on any rank stops every rank after the
+same dispatch (one all-reduce of the flag a dispatch).
+
+Not ported yet (each raises naming its key): the ``model`` axis
+(``misc.mesh_model``, ``mdl.sp_attention``).
 A ``vog_tpu`` orbax checkpoint loads after ``tools/orbax_to_torch_port.py``.
 """
 
@@ -85,13 +98,15 @@ import torch
 
 from vog_tpu_torch.config import apply_matmul_precision
 from vog_tpu_torch.data.ann_store import AnnTables, ann_table_bytes
-from vog_tpu_torch.data.device_store import DeviceFeatureTables, use_device_store
+from vog_tpu_torch.data.device_store import DeviceFeatureTables, device_store_mode
 from vog_tpu_torch.data.loader import DataWrap, collate
 from vog_tpu_torch.device import DeviceLike, resolve_device
 from vog_tpu_torch.evaluation import finalize_metrics
 from vog_tpu_torch.kernels import _build
 from vog_tpu_torch.model.grounding import get_model
 from vog_tpu_torch.train.checkify import make_checked_train_step
+from vog_tpu_torch.train.dist import Mesh, local_batch_rows, make_mesh
+from vog_tpu_torch.train.multihost import gather_eval
 from vog_tpu_torch.train.progress import ProgressBar, progress_enabled
 from vog_tpu_torch.train.state import (
     TrainState,
@@ -209,24 +224,22 @@ class CheckpointWriter:
 
 
 def _not_ported(cfg) -> List[str]:
-    m = cfg.misc
-    out = []
-    for key, on in (("misc.multihost", m.multihost), ("mdl.sp_attention", cfg.mdl.sp_attention),
-                    ("misc.mesh_model", m.mesh_model != 1), ("misc.mesh_data", m.mesh_data not in (-1, 1))):
-        if on:
-            out.append(key)
-    return out
+    """The keys of the mesh's ``model`` axis, which the port lacks."""
+    return [key for key, on in (("mdl.sp_attention", cfg.mdl.sp_attention),
+                                ("misc.mesh_model", cfg.misc.mesh_model != 1)) if on]
 
 
 class Learner:
     SUM_KEYS = ("n_pairs", "n_acc", "n_vacc", "n_queries", "n_strict", "n_cons")
 
-    def __init__(self, uid: str, data: DataWrap, cfg, device: DeviceLike = None):
+    def __init__(self, uid: str, data: DataWrap, cfg, device: DeviceLike = None, mesh: Optional[Mesh] = None):
         faults = _not_ported(cfg)
         if faults:
-            raise ValueError(f"not ported to vog_tpu_torch yet: {', '.join(faults)} (single device, no mesh)")
+            raise ValueError(f"not ported to vog_tpu_torch yet: {', '.join(faults)} (the data axis only)")
         self.uid, self.data, self.cfg = uid, data, cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg)
+        self.main = self.mesh.rank == 0  # rank 0 alone writes files
         tmp = Path(cfg.misc.tmp_path)
         self.dirs = {k: tmp / k for k in ("models", "txt_logs", "predictions", "ext_logs")}
         for d in self.dirs.values():
@@ -238,6 +251,15 @@ class Learner:
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.seed = int(cfg.train.seed)
         self.bs = int(cfg.train.bs)
+        self.global_bs = self.bs * self.mesh.world
+        if data.train_dl.bs != self.global_bs:
+            raise ValueError(f"the loaders build batches of {data.train_dl.bs} rows, the world's global batch is "
+                             f"{self.global_bs} (train.bs x {self.mesh.world}): build them with get_data(cfg, mesh)")
+        if self.mesh.world > 1:
+            rows = local_batch_rows(self.mesh, self.global_bs)
+            for dl in (data.train_dl, data.valid_dl, data.test_dl):
+                if dl is not None:
+                    dl.local_rows = rows
         self._preempted = False
         self._writer = CheckpointWriter()
         self._events_lock = threading.Lock()  # the writer thread records its saves too
@@ -259,19 +281,23 @@ class Learner:
         n_videos = len(store.videos())
         want_ann = cfg.ds.ann_store != "off"
         ann_bytes = ann_table_bytes(cfg, sum(len(d) for d in splits.values()), n_videos) if want_ann else 0
-        if use_device_store(cfg, n_videos, self.device, ann_bytes):
+        mode = device_store_mode(cfg, n_videos, self.device, ann_bytes, self.mesh)
+        self.shard_store = mode == "shard"
+        if mode != "off":
             t0 = time.perf_counter()
             dft = DeviceFeatureTables.from_store(cfg, store, half=cfg.misc.half_feats, int8=cfg.misc.int8_feats,
-                                                 device=self.device)
+                                                 device=self.device,
+                                                 shard=(self.mesh.rank, self.mesh.world) if self.shard_store else None)
             self._sync()
             nb = sum(v.nbytes for v in dft.tables.values())
             dt = time.perf_counter() - t0
             self._tables = dict(dft.tables)
             for d in splits.values():
                 d.device_rows = dft.rows
-            self.log(f"device feature store: {n_videos} videos resident ({nb / 1e6:.0f} MB, {dft.dtype}) "
+            how = f"row-sharded /{self.mesh.world}: {dft.n_rows} rows a rank, " if self.shard_store else ""
+            self.log(f"device feature store: {n_videos} videos resident ({how}{nb / 1e6:.0f} MB, {dft.dtype}) "
                      f"built in {dt:.2f} s")
-            self.event("tables", table="features", videos=n_videos, bytes=nb, seconds=dt)
+            self.event("tables", table="features", videos=n_videos, bytes=nb, seconds=dt, sharded=self.shard_store)
             if want_ann:
                 t0 = time.perf_counter()
                 ann = AnnTables.from_datasets(cfg, splits, dft.rows, device=self.device)
@@ -303,10 +329,10 @@ class Learner:
                 self.log("train.steps_per_dispatch disabled: incompatible with misc.checkify (per-step error "
                          "sync) — using single-step dispatch")
             self.K = 1
-            self._train_multi = make_checked_train_step(cfg)
+            self._train_multi = make_checked_train_step(cfg, self.mesh, self.shard_store)
         else:
-            self._train_multi = make_multi_train_step(cfg)
-        self._eval_multi = make_multi_eval_step(cfg)
+            self._train_multi = make_multi_train_step(cfg, self.mesh, self.shard_store)
+        self._eval_multi = make_multi_eval_step(cfg, self.mesh, self.shard_store)
         # the loader's thread groups K batches and stacks them into one
         # (K, B, ...) batch (K=1: one batch, ungrouped), while the card
         # runs the previous dispatch
@@ -322,17 +348,23 @@ class Learner:
 
     # -- logging --------------------------------------------------------------
     def log(self, msg: str) -> None:
+        if not self.main:
+            return
         line = f"[{time.strftime('%H:%M:%S')}] {msg}"
         print(line, flush=True)
         with open(self.log_file, "a") as f:
             f.write(line + "\n")
 
     def log_json(self, record: Dict) -> None:
+        if not self.main:
+            return
         with open(self.json_log, "a") as f:
             f.write(json.dumps(record) + "\n")
 
     def event(self, kind: str, **fields) -> None:
         """One record of the Learner's own readings (events.jsonl)."""
+        if not self.main:
+            return
         line = json.dumps({"event": kind, "epoch": self.epoch, **fields}) + "\n"
         with self._events_lock, open(self.events_log, "a") as f:
             f.write(line)
@@ -340,6 +372,8 @@ class Learner:
     def _tb_scalars(self, scalars: Dict, step: int) -> None:
         """The TensorBoard mirror (``misc.tensorboard_dir``): each int or
         float of ``scalars`` at ``step``, flushed."""
+        if not self.main:
+            return
         if self._tb_writer is None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -363,8 +397,10 @@ class Learner:
         """Write ``models/{uid}/{tag}.pt``: the state's tensors and the meta
         (``CheckpointWriter``).  ``blocking``: return once the file has its
         name; else once the host copy is queued.  A record "save" follows
-        when the file lands."""
+        when the file lands.  Rank 0 alone writes."""
         path = self.ckpt_path(tag)
+        if not self.main:
+            return path
         meta = {"epoch": self.epoch, "batch_in_epoch": self.batch_in_epoch, "best_metric": self.best_metric,
                 "seed": self.seed, "uid": self.uid}
 
@@ -388,8 +424,10 @@ class Learner:
         a tensor missing or of another shape raises.  A file of parameters
         and step alone (``tools/orbax_to_torch_port.py``'s fallback)
         restores those and keeps the optimizer's fresh state, as the JAX
-        Learner's fallback does, and logs it."""
+        Learner's fallback does, and logs it.  Every rank waits at a barrier
+        until rank 0's writes have landed, then reads the file."""
         self.wait_for_checkpoints()
+        self.mesh.barrier()
         ckpt = Path(path).absolute() if path else self.ckpt_path(tag)
         payload = torch.load(ckpt, map_location="cpu", weights_only=True)
         saved, cur = payload["state"], self.state.tensors()
@@ -426,6 +464,14 @@ class Learner:
             self._preempted = True
 
         return {signal.SIGTERM: signal.signal(signal.SIGTERM, handler)}
+
+    def _preempted_anywhere(self) -> bool:
+        """This rank's SIGTERM flag, or'ed over the ranks (each dispatch), so
+        every rank leaves ``fit`` after the same dispatch."""
+        if self.mesh.group is None:
+            return self._preempted
+        flag = torch.tensor([int(self._preempted)], dtype=torch.int32, device=self.device)
+        return bool(self.mesh.all_reduce_(flag).item())
 
     @staticmethod
     def _restore_preempt(prev) -> None:
@@ -496,7 +542,7 @@ class Learner:
                 i = it_pos
                 kb = int(stacked["batch_mask"].shape[0])  # an epoch's last group may be short
                 self.batch_in_epoch = i + kb
-                if cfg.misc.profile_dir and n_disp == 1:  # the first dispatch captures the graphs
+                if cfg.misc.profile_dir and n_disp == 1 and self.main:  # the first dispatch captures the graphs
                     prof = self._start_profile()
                 with torch.profiler.record_function(f"train dispatch at it {i}") if prof else nullcontext():
                     _, aux = self._train_multi(self.state, stacked, self.seed, self._tables)
@@ -505,7 +551,7 @@ class Learner:
                     self._stop_profile(prof)
                     prof = None
                 in_dispatch += time.perf_counter() - t_got
-                n_seen += self.bs * kb
+                n_seen += self.global_bs * kb
                 n_disp += 1
                 host_step += kb
                 it_pos += kb
@@ -513,7 +559,7 @@ class Learner:
                 lo = aux["loss"].reshape(-1)
                 at = f"ep {self.epoch} it {it_pos - 1}"
                 self._check_dispatch(lo, aux, at)
-                if self._preempted:
+                if self._preempted_anywhere():
                     bar.close("preempted")
                     if prof is not None:
                         self._stop_profile(prof)
@@ -671,10 +717,13 @@ class Learner:
             if len(group) == self.E:
                 flush()
         flush()
+        if self.mesh.group is not None:  # the ranks' sums and predictions, in rank order
+            sums, preds = gather_eval(sums, preds, self.mesh.group)
         dt = time.perf_counter() - t0
         pred_file = self.dirs["predictions"] / f"{self.uid}_{split}_{self.epoch}.pkl"
-        with open(pred_file, "wb") as f:
-            pickle.dump(preds, f)
+        if self.main:
+            with open(pred_file, "wb") as f:
+                pickle.dump(preds, f)
         self.event("eval", split=split, batches=n_batches, seconds=dt, batches_per_s=n_batches / max(dt, 1e-9),
                    pred_file=str(pred_file), kernel_launches=_launched_since(launches0))
         metrics = finalize_metrics(sums)

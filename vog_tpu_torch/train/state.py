@@ -37,6 +37,22 @@ The step's averaged gradient stays in each parameter's ``.grad``.
 E eval batches from a stacked (K, B, ...) batch as one dispatch: on the
 card one CUDA graph replay a step (train/graphs.py), elsewhere the same
 body in an eager loop; both equal K single steps bitwise.
+
+Data parallelism (``mesh``, train/dist.py): each rank's step takes its
+local rows of the global batch.  The loss's counts are summed over the
+ranks before the division, so each rank's loss is its share of the global
+batch's masked mean (model/loss.py), and ``aux["loss"]`` the global loss;
+the flat gradient is summed over the ranks by one all-reduce right after
+``FlatGrads.collect``, before the norm, the clipping and the non-finite
+guard, so every rank takes the same decisions and the parameters stay
+bitwise equal across ranks; dropout numbers the rank's rows from its
+first global sample.  With ``train.grad_accum`` = K, microbatch i is the
+union of the ranks' local microbatches i (DDP's split; the JAX step
+splits the global batch into K contiguous blocks instead), normalised by
+its own global counts.  On the card the collectives are captured in the
+step's CUDA graph (NCCL); a graphed dispatch on a gloo group raises.
+``shard_store``: the feature tables are row-sharded over the ranks and the
+gather is collective (data/device_store.py §sharded_gather_from_tables).
 """
 
 from __future__ import annotations
@@ -49,12 +65,13 @@ import torch
 import torch.nn as nn
 
 from vog_tpu_torch.data.ann_store import expand_index_batch
-from vog_tpu_torch.data.device_store import gather_from_tables
+from vog_tpu_torch.data.device_store import gather_from_tables, sharded_gather_from_tables
 from vog_tpu_torch.evaluation import evaluate_batch
 from vog_tpu_torch.model.loss import compute_loss
 from vog_tpu_torch.model.transformer import dropout_key, set_dropout_key
 from vog_tpu_torch.sampling import assemble_batch, scores_to_canonical
 from vog_tpu_torch.serve import cast_compact
+from vog_tpu_torch.train.dist import Mesh
 from vog_tpu_torch.train.graphs import eval_graph, train_graph
 
 Tree = Dict[str, torch.Tensor]
@@ -238,11 +255,13 @@ class TrainState:
         return norm
 
 
-def make_gather(cfg) -> Callable:
+def make_gather(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> Callable:
     """The in-step resolve against the device tables (``_make_gather`` of
     the JAX package): an index-only batch (``ann_row``, with ``ann_i32``
     among the tables) expands first, then ``vid_rows`` gathers the
-    features."""
+    features, from the rank's row shard and through ``mesh``'s collectives
+    when ``shard_store``."""
+    feats = (lambda b, t: sharded_gather_from_tables(b, t, mesh)) if shard_store else gather_from_tables
 
     def gather(batch: Dict[str, torch.Tensor], tables: Optional[Dict[str, torch.Tensor]]):
         if tables is None:
@@ -250,13 +269,28 @@ def make_gather(cfg) -> Callable:
         if "ann_row" in batch and "ann_i32" in tables:
             batch = expand_index_batch(batch, tables, cfg)
         if "vid_rows" in batch:
-            batch = gather_from_tables(batch, tables)
+            batch = feats(batch, tables)
         return batch
 
     return gather
 
 
-def _make_step(cfg) -> Callable:
+def _grouped(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.group is not None
+
+
+def _reducer(mesh: Optional[Mesh]) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """The sum over the data axis (None without a process group)."""
+    return mesh.all_reduce_ if _grouped(mesh) else None
+
+
+def _check_graphable(mesh: Optional[Mesh]) -> None:
+    if _grouped(mesh) and mesh.backend != "nccl":
+        raise RuntimeError(f"a graphed dispatch captures its collectives, and the {mesh.backend} process group's "
+                           "cannot be captured: run nccl on the card (or the eager make_train_step)")
+
+
+def _make_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> Callable:
     """-> ``step(state, batch, seed, tables, frozen) -> (aux, frozen)``:
     one train step in place.  ``frozen`` None: no freeze; a bool tensor:
     the state keeps every value where ``frozen | ~isfinite(loss)`` holds,
@@ -265,12 +299,14 @@ def _make_step(cfg) -> Callable:
     accum = max(int(cfg.train.grad_accum), 1)
     t = cfg.train
     num_cmp = cfg.ds.num_cmp if conc == "sep" else 1
-    gather = make_gather(cfg)
+    gather = make_gather(cfg, mesh, shard_store)
+    reduce = _reducer(mesh)
+    rank = mesh.rank if mesh is not None else 0
 
     def micro_loss(model, mb, tables):
         clip = assemble_batch(cast_compact(gather(mb, tables)), conc)
         loss, _ = compute_loss(model(clip), clip, t.pos_weight, t.loss_type, t.rank_weight,
-                               rank_num_cmp=num_cmp)
+                               rank_num_cmp=num_cmp, reduce_counts=reduce)
         return loss
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
@@ -284,7 +320,7 @@ def _make_step(cfg) -> Callable:
         mbs = B // accum
         losses = []
         for i in range(accum):
-            set_dropout_key(model, dropout_key(seed, state.step, i))
+            set_dropout_key(model, dropout_key(seed, state.step, i), samples=(rank * mbs, mbs))
             mb = batch if accum == 1 else {k: v[i * mbs:(i + 1) * mbs] for k, v in batch.items()}
             loss = micro_loss(model, mb, tables)
             loss.backward()
@@ -292,6 +328,9 @@ def _make_step(cfg) -> Callable:
         with torch.no_grad():
             g = state.flat.collect(accum)
             loss = torch.stack(losses).mean()
+            if reduce is not None:  # the shares of the global loss and its gradient
+                reduce(g)
+                loss = reduce(loss)
             if frozen is not None:
                 frozen = frozen | ~torch.isfinite(loss)
             aux = {"loss": loss, "grad_norm": state.apply_update(g, frozen)}
@@ -302,15 +341,16 @@ def _make_step(cfg) -> Callable:
     return step
 
 
-def make_train_step(cfg) -> Callable:
+def make_train_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> Callable:
     """-> ``train_step(state, batch, seed, tables=None) -> (state, aux)``.
     ``batch`` holds tensors on the model's device; with ``tables`` (the
     device-resident feature tables, and the annotation tables) it may
     carry ``vid_rows`` in place of props/seg_feats, or be index-only.
     aux: ``loss`` (the microbatches' mean), ``grad_norm`` (before
     clipping) and, with the guard, ``guard_notfinite``.  Eager, on any
-    device: this is the ``steps_per_dispatch`` = 1 path."""
-    step = _make_step(cfg)
+    device: this is the ``steps_per_dispatch`` = 1 path.  ``mesh``: data
+    parallelism over its ranks (``batch`` holds this rank's rows)."""
+    step = _make_step(cfg, mesh, shard_store)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
                    tables: Optional[Dict[str, torch.Tensor]] = None):
@@ -320,15 +360,21 @@ def make_train_step(cfg) -> Callable:
     return train_step
 
 
-def make_eval_step(cfg) -> Callable:
+def make_eval_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> Callable:
     """-> ``eval_step(state, batch, tables=None) -> out``: the model in
     eval mode, the loss with ``compute_loss``'s defaults, and
     ``evaluate_batch`` (compact when ``train.eval_max_pairs`` > 0; < 0
     means 2 A, one or two annotated frames an arg in ASRL), plus
     ``loss_sum`` = loss * n_batch and ``n_batch`` = max(sum(batch_mask),
-    1) for aggregation."""
+    1) for aggregation.  With ``mesh`` the loss and n_batch are the global
+    batch's, and the outputs additive over the ranks (what
+    ``train/multihost.py §gather_eval`` sums): each rank's ``loss_sum`` is
+    its share of the loss times the global n_batch, and rank 0 alone
+    reports n_batch."""
     conc = cfg.ds.conc_type
-    gather = make_gather(cfg)
+    gather = make_gather(cfg, mesh, shard_store)
+    reduce = _reducer(mesh)
+    rank = mesh.rank if mesh is not None else 0
     max_pairs = int(cfg.train.eval_max_pairs)
     if max_pairs < 0:
         max_pairs = 2 * cfg.ds.max_srl_args
@@ -340,14 +386,17 @@ def make_eval_step(cfg) -> Callable:
             b = cast_compact(gather(batch, tables))
             clip = assemble_batch(b, conc)
             logits = model(clip)
-            loss, _ = compute_loss(logits, clip)
+            loss, _ = compute_loss(logits, clip, reduce_counts=reduce)
             B, V, F, P = b["prop_mask"].shape
             out = evaluate_batch(scores_to_canonical(logits, conc, B, V, F, P), b["prop_boxes"],
                                  b["gt_boxes"], b["gt_frame_mask"], b["srl_arg_mask"], b["pos_vid"],
                                  b["batch_mask"], b["prop_mask"], max_pairs=max_pairs)
-            nb = b["batch_mask"].sum().clamp(min=1.0)
+            nb = b["batch_mask"].sum()
+            if reduce is not None:
+                nb = reduce(nb)
+            nb = nb.clamp(min=1.0)
             out["loss_sum"] = loss * nb
-            out["n_batch"] = nb
+            out["n_batch"] = nb if rank == 0 else torch.zeros_like(nb)
         return out
 
     return eval_step
@@ -374,7 +423,7 @@ def _on_card(state: TrainState) -> bool:
     return state.step.device.type == "cuda"
 
 
-def make_multi_train_step(cfg) -> Callable:
+def make_multi_train_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> Callable:
     """K train steps as one dispatch (``train.steps_per_dispatch``):
     ``multi_step(state, stacked, seed, tables=None) -> (state, auxs)``,
     ``stacked`` a dict of (K, B, ...) host arrays, every aux
@@ -391,15 +440,18 @@ def make_multi_train_step(cfg) -> Callable:
     captured step's static input and K replays of that graph
     (train/graphs.py); a shorter group (an epoch's tail) replays it fewer
     times.  A capture or replay that fails raises: nothing falls back to
-    the eager loop.  Elsewhere the same body runs in an eager loop."""
-    step = _make_step(cfg)
+    the eager loop.  Elsewhere the same body runs in an eager loop.
+    ``mesh``, ``shard_store``: as ``make_train_step``; the graph holds the
+    step's collectives, so on the card the group must be NCCL."""
+    step = _make_step(cfg, mesh, shard_store)
     freeze = int(cfg.train.skip_nonfinite) == 0
 
     def multi_step(state: TrainState, stacked: Dict[str, Any], seed: int,
                    tables: Optional[Dict[str, torch.Tensor]] = None):
         n = len(next(iter(stacked.values())))
         if _on_card(state):
-            return state, train_graph(step, freeze, state, stacked, seed, tables)(stacked, n)
+            _check_graphable(mesh)
+            return state, train_graph(step, freeze, state, stacked, seed, tables, _grouped(mesh))(stacked, n)
         frozen = torch.zeros((), dtype=torch.bool, device=state.step.device) if freeze else None
         auxs = []
         for i in range(n):
@@ -410,19 +462,20 @@ def make_multi_train_step(cfg) -> Callable:
     return multi_step
 
 
-def make_multi_eval_step(cfg) -> Callable:
+def make_multi_eval_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> Callable:
     """E eval batches as one dispatch (``train.eval_batches_per_dispatch``):
     ``multi_eval(state, stacked, tables=None)`` -> every ``eval_step``
     output with a leading E axis, bitwise equal to E ``eval_step`` calls.
     On the card one replay a batch of a captured eval step, as
     ``make_multi_train_step``."""
-    step = make_eval_step(cfg)
+    step = make_eval_step(cfg, mesh, shard_store)
 
     def multi_eval(state: TrainState, stacked: Dict[str, Any],
                    tables: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         n = len(next(iter(stacked.values())))
         if _on_card(state):
-            return eval_graph(step, state, stacked, tables)(stacked, n)
+            _check_graphable(mesh)
+            return eval_graph(step, state, stacked, tables, _grouped(mesh))(stacked, n)
         return _stack([step(state, _slot(stacked, i), tables) for i in range(n)])
 
     return multi_eval
