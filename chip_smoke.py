@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``vog_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dist   # card, build and [dist gt5 prod] alone, on every card
+    python3 chip_smoke.py --dist   # card, build, [dist gt5 prod] and [model axis gt5 prod] alone, on every card
 
 Phases, each printing its own lines; any failure exits non-zero before
 the last line:
@@ -186,6 +186,27 @@ Data parallelism across processes (after phase 17, before P100):
     process on the global batches (losses 1e-4, the first step's
     gradients, eval sums); in both, the ranks' states bitwise equal
     (``state_digest``) and every kernel of the path launched.
+
+The mesh's model axis (after phase 18):
+
+19. model axis gt5 prod (``phase_model_axis``), each world spawned from
+    here as phase 18's: (a) with more than one card, an NCCL world of
+    every card (``model_axis_nccl_rank``): meshes (1, n) tensor-parallel,
+    (n/2, 2) tensor x data parallel and (1, n) with the ring, each the
+    production recipe's graphed dispatch of K=16 (the data and model
+    groups' collectives and the ring's P2P captured) bitwise its eager
+    steps, the ranks' whole and gathered states equal, the fp32 "highest"
+    first step against one process on the global batch (compare_step's
+    bounds), step ms and samples/s beside the single card's dispatch in
+    the same call; then [sp p100 serve] (``sp_p100_serve``): a P100
+    ``Predictor`` (T=4000, B=2) on n model ranks with the ring, p50 / p95
+    beside the single card's graphed predictor and its scores within 2e-4
+    of max|score| (fp32); (b) a gloo world of 2 ranks on card 0, mesh
+    (1, 2) (``model_axis_gloo_rank``, fp32, dropout 0.1, eager): 3
+    tensor-parallel steps (every kernel at 2 heads a rank), the ring with
+    ``decomposed_mm`` on and off, one serve flush through the follower,
+    each against one process on the card; the ranks' whole parameters and
+    gathered states bitwise equal, and a rerun's.
 
 No thread may warn that it ran cuBLAS without a current CUDA context
 (``watch_context_warnings``).
@@ -3155,6 +3176,7 @@ DIST_CHUNK = 250  # rows made by one generator: a shard's rows are the full tabl
 DIST_ANNS = 4000
 DIST_GLOO_STEPS = 3
 DIST_TIMEOUT = 600  # seconds a world may run before it is killed
+EXIT_GRACE = 30.0  # seconds a world's ranks may take to exit once every rank has written its result
 
 
 def dist_tables(cfg, first: int, n: int, device):
@@ -3185,8 +3207,9 @@ def _world_entry(rank, fn, world, backend, tmp, args):
     dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", rank=rank, world_size=world)
     try:
         out = fn(rank, world, *args)
-        with open(f"{tmp}/result{rank}.json", "w") as f:
+        with open(f"{tmp}/result{rank}.part", "w") as f:
             json.dump(out, f)
+        os.replace(f"{tmp}/result{rank}.part", f"{tmp}/result{rank}.json")  # whole when it has its name
     finally:
         dist.destroy_process_group()
 
@@ -3206,8 +3229,18 @@ def run_world(fn, world: int, backend: str, *args, timeout: float = DIST_TIMEOUT
         ctx = mp.start_processes(_world_entry, args=(fn, world, backend, tmp, args), nprocs=world, join=False,
                                  start_method="spawn")
         deadline = time.monotonic() + timeout
+        done_at = None
         while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
+            now = time.monotonic()
+            if done_at is None and all(os.path.exists(f"{tmp}/result{r}.json") for r in range(world)):
+                done_at = now  # every rank has its result: the rest is the group's teardown
+            if done_at is not None and now > done_at + EXIT_GRACE:
+                print(f"[world] {backend} world of {world}: every rank wrote its result but a rank had not "
+                      f"exited {EXIT_GRACE:.0f} s later (the group's teardown); killed", flush=True)
+                for p in ctx.processes:
+                    p.kill()
+                break
+            if now > deadline:
                 for p in ctx.processes:
                     p.kill()
                 raise TimeoutError(f"a {backend} world of {world} ranks ran past {timeout} s")
@@ -3529,6 +3562,487 @@ def phase_dist(card: str) -> dict:
             "gloo": {"world": 2, **{k: v for k, v in rb[0].items() if k != "digest"}, "seconds": tb}}
 
 
+# [model axis gt5 prod]: tensor parallelism and the sequence-parallel ring
+# (vog_tpu_torch/train/dist.py, model/parallel.py, kernels/ring_attention.py)
+MA_ROWS = 3000  # feature-table rows, replicated on each card (a few thousand, as [dist gt5 prod])
+MA_ANNS = 4000
+MA_STEPS = 3  # (b)'s eager TP steps, run twice (the rerun's gathered state bitwise the first's)
+MA_REQUESTS = 16  # (b)'s requests through the follower: one flush of max_batch 16
+SP_P100_ROWS = 64  # [sp p100 serve]: random int8 P100 rows a card holds (8.2 MB a row)
+SP_P100_REQUESTS = 16
+SP_SERVE_TOL = 2e-4  # of max|score|: the ring against the single-card predictor, fp32
+
+
+def _whole_leaf_grads(state, cfg) -> dict:
+    """The step's gradient by parameter, each sharded leaf gathered over the
+    model axis (a collective of the model group) -> host tensors."""
+    from vog_tpu_torch.train.dist import gather_tensor, tp_rule
+
+    tp = getattr(state.model, "tp", None)
+    return {k: (v if tp is None else gather_tensor(v, tp_rule(k, cfg), tp)).detach().cpu().clone()
+            for k, v in state.leaves(state.flat.grad).items()}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in tensors.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def whole_digest(state) -> str:
+    """The hash of the state gathered whole (a collective of the model group)."""
+    return _digest(state.whole_tensors())
+
+
+def replicated_digest(state, cfg) -> str:
+    """The hash of this rank's whole (unsharded) parameters."""
+    from vog_tpu_torch.train.dist import tp_rule
+
+    return _digest({k: p for k, p in state.model.named_parameters() if tp_rule(k, cfg) is None})
+
+
+def ma_cfg(base, mesh_model: int, sp: bool = False, decomposed: bool = True):
+    import copy
+
+    c = copy.deepcopy(base)
+    c.misc.multihost, c.misc.mesh_model, c.misc.mesh_data = True, mesh_model, -1
+    c.mdl.sp_attention, c.mdl.decomposed_mm = sp, decomposed
+    return c
+
+
+def _step_runs(c, mesh, batches, tables, dev):
+    """Eager train steps of ``c`` on ``mesh`` (None: one process) from the
+    seed-3 model -> (state, losses, the first step's whole gradients, ms a
+    step)."""
+    import torch
+
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_train_step
+    from vog_tpu_torch.train.dist import shard_batch_local
+
+    st = TrainState.create(c, get_model(c, 5000, device=dev, seed=3, train=True, mesh=mesh))
+    step = make_train_step(c, mesh)
+    losses, grads, ms = [], None, []
+    for b in batches:
+        db = shard_batch_local(b, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, aux = step(st, db, 0, tables)
+        losses.append(float(aux["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if grads is None:
+            grads = _whole_leaf_grads(st, c)
+    return st, losses, grads, ms
+
+
+def _against_one(what, losses, grads, ref_losses, ref_grads) -> dict:
+    """Losses within 1e-4 relative and every gradient within
+    ``grad_faults``' limits of one process's, else raise."""
+    for i, (a, b) in enumerate(zip(losses, ref_losses)):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise RuntimeError(f"{what}: step {i} loss {a:.7f} != one process's {b:.7f}")
+    bad = grad_faults(grads, ref_grads)
+    if bad:
+        raise RuntimeError(f"{what}: first-step gradients differ from one process's: {bad[:5]}")
+    return {"losses": losses, "one_process_losses": ref_losses,
+            "max_abs_err": max(max_err(grads[k], r) for k, r in ref_grads.items()),
+            "worst_rel": max(rel_err(grads[k], r) for k, r in ref_grads.items())}
+
+
+def ring_ms(mesh, dev, B: int, H: int, T: int, dh: int, reps: int = 5) -> dict:
+    """The ring's forward and forward + backward ms at one attention
+    layer's shapes (this rank's T/m block), every model rank timing it
+    together."""
+    import torch
+
+    from vog_tpu_torch.kernels.ring_attention import ring_attention
+
+    g = torch.Generator(device=dev).manual_seed(mesh.rank)
+    n = T // mesh.model
+    q, k, v = (torch.randn(B, H, n, dh, device=dev, generator=g, requires_grad=True) for _ in range(3))
+    mask = torch.ones(B, n, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            ring_attention(q, k, v, mask, None, None, mesh)
+
+    def fwd_bwd():
+        ring_attention(q, k, v, mask, None, None, mesh).sum().backward()
+
+    out = {}
+    for name, fn in (("fwd_ms", fwd), ("fwd_bwd_ms", fwd_bwd)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def model_axis_gloo_rank(rank, world, tp_cfg, sp_cfgs, serve_c, n_rows, n_anns, steps):
+    """(b) One rank of a gloo world of 2 on card 0, mesh (1, 2), fp32: the
+    TP eager steps (every kernel at 2 heads), twice (the rerun's gathered
+    state bitwise the first's); one step with the ring for each of
+    ``sp_cfgs``; one serve flush through the follower.  Rank 0 holds each
+    against one process on the card."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.serving import ServingLoop
+    from vog_tpu_torch.train.dist import make_mesh
+
+    dev = torch.device("cuda", 0)
+    apply_matmul_precision(tp_cfg)
+    tables = _full_tables(tp_cfg, 1, n_rows, n_anns, dev)
+    batches = make_index_batches(tp_cfg, steps, tp_cfg.train.bs, n_anns, n_rows, seed=24)
+    mesh = make_mesh(tp_cfg)
+    _build.reset_counts()
+    st, losses, grads, ms = _step_runs(tp_cfg, mesh, batches, tables, dev)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    out = {"mesh": [mesh.data, mesh.model], "backend": mesh.backend, "counts": counts,
+           "step_ms": statistics.median(ms), "samples_per_s": tp_cfg.train.bs / statistics.median(ms) * 1e3,
+           "replicated": replicated_digest(st, tp_cfg), "gathered": whole_digest(st)}
+    del st
+    st, rerun, _, _ = _step_runs(tp_cfg, mesh, batches, tables, dev)
+    out["rerun_gathered"], out["rerun_losses"] = whole_digest(st), rerun
+    del st
+    if rank == 0:
+        one, l1, g1, ms1 = _step_runs(ma_cfg(tp_cfg, 1), None, batches, tables, dev)
+        del one
+        out["tp"] = _against_one("model axis gloo tp", losses, grads, l1, g1)
+        out["one_process_step_ms"] = statistics.median(ms1)
+    gc.collect()
+    out["sp"] = {}
+    for c in sp_cfgs:
+        key = "decomposed" if c.mdl.decomposed_mm else "materialised"
+        m_sp = make_mesh(c)
+        _build.reset_counts()
+        st, l_sp, g_sp, ms_sp = _step_runs(c, m_sp, batches[:1], tables, dev)
+        rec = {"counts": dict(_build.launches), "step_ms": ms_sp[0], "replicated": replicated_digest(st, c)}
+        del st
+        if rank == 0:
+            one, l1, g1, _ = _step_runs(ma_cfg(c, 1, sp=False, decomposed=c.mdl.decomposed_mm), None, batches[:1],
+                                        tables, dev)
+            del one
+            rec.update(_against_one(f"model axis gloo sp ({key})", l_sp, g_sp, l1, g1))
+        out["sp"][key] = rec
+        gc.collect()
+    H, dh = tp_cfg.mdl.n_heads, tp_cfg.mdl.vis_dim // tp_cfg.mdl.n_heads
+    out["ring"] = ring_ms(m_sp, dev, tp_cfg.train.bs, H, 200, dh)
+
+    apply_matmul_precision(serve_c)
+    m_serve = make_mesh(serve_c)
+    sd = get_model(ma_cfg(serve_c, 1, sp=False), 5000, device=dev, seed=3).state_dict()
+    pred = Predictor(serve_c, sd, 5000, tables=tables, device=dev, cuda_graphs=False, mesh=m_serve)
+    if m_serve.model_index != 0:
+        out["followed"] = pred.follow()
+        return out
+    reqs = make_requests(serve_c, MA_REQUESTS, n_rows, 5000, seed=31)
+    loop = ServingLoop(pred, max_batch=MA_REQUESTS, max_wait_ms=200.0)
+    try:
+        got = [f.result(timeout=300) for f in [loop.submit(r) for r in reqs]]
+    finally:
+        loop.close()
+        pred.close()
+    one = Predictor(ma_cfg(serve_c, 1, sp=False), sd, 5000, tables=tables, device=dev, cuda_graphs=False)
+    want = one(stack_requests(reqs) | {"batch_mask": np.ones(len(reqs), np.uint8)})
+    valid = want["scores"] > -1e29
+    scale = float(np.abs(want["scores"][valid]).max())
+    err = max(float(np.abs(g["scores"] - want["scores"][i]).max()) for i, g in enumerate(got))
+    if not err <= SP_SERVE_TOL * scale:
+        raise RuntimeError(f"model axis gloo serve: the follower's flush scores differ from one predictor's by "
+                           f"{err:.3e} (limit {SP_SERVE_TOL * scale:.3e})")
+    out["serve"] = {"requests": len(got), "max_abs_err": err, "limit": SP_SERVE_TOL * scale}
+    return out
+
+
+def model_axis_nccl_rank(rank, world, meshes, n_rows, n_anns):
+    """(a) One rank of an NCCL world of every card, one mesh after another
+    (``meshes``: (the production recipe on it, its fp32 "highest" twin)):
+    the graphed dispatch of K steps (both axes' collectives and the ring's
+    P2P captured) bitwise K eager steps; a timed and a profiled dispatch;
+    the fp32 first step against one process on the global batch (rank 0);
+    rank 0 times the single-card dispatch on its batches in the same call.
+    Then [sp p100 serve]."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, dispatch_sizes, make_multi_train_step, make_train_step
+    from vog_tpu_torch.train.dist import local_batch_rows, make_mesh, shard_batch_local
+
+    dev = torch.device("cuda", rank)
+    results = []
+    tables = None
+    for cfg, cfg32 in meshes:
+        apply_matmul_precision(cfg)
+        K, _ = dispatch_sizes(cfg)
+        mesh = make_mesh(cfg)
+        if tables is None:
+            tables = _full_tables(cfg, 1, n_rows, n_anns, dev)
+        gbs = cfg.train.bs * mesh.data
+        batches = make_index_batches(cfg, 3 * K, gbs, n_anns, n_rows, seed=24)
+        lo, hi = local_batch_rows(mesh, gbs)
+        local = [{k: v[lo:hi] for k, v in b.items()} for b in batches]
+
+        def fresh(c, m=mesh):
+            return TrainState.create(c, get_model(c, 5000, device=dev, seed=3, train=True, mesh=m))
+
+        step, multi = make_train_step(cfg, mesh), make_multi_train_step(cfg, mesh)
+        eager, graph = fresh(cfg), fresh(cfg)
+        e_aux, e_ms = [], []
+        for b in local[:K]:
+            db = shard_batch_local(b, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e_aux.append(step(eager, db, 0, tables)[1])
+            torch.cuda.synchronize()
+            e_ms.append((time.perf_counter() - t0) * 1e3)
+        _build.reset_counts()
+        _, g_aux = multi(graph, stack_batches(local[:K]), 0, tables)  # capture, then K replays
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        diff = states_equal(graph, eager)
+        if diff:
+            raise RuntimeError(f"rank {rank} mesh {mesh.data}x{mesh.model}: the graphed dispatch's state differs "
+                               f"from {K} eager steps: {diff[:5]}")
+        for k in e_aux[0]:
+            if not torch.equal(g_aux[k], torch.stack([a[k] for a in e_aux])):
+                raise RuntimeError(f"rank {rank}: the graphed dispatch's aux {k} differs from the eager steps'")
+        losses = g_aux["loss"].cpu()
+        if not torch.isfinite(losses).all():
+            raise RuntimeError(f"rank {rank}: a non-finite loss {losses.tolist()}")
+        out = {"mesh": [mesh.data, mesh.model], "sp": bool(cfg.mdl.sp_attention), "counts": counts,
+               "losses": losses.tolist(), "eager_step_ms": statistics.median(e_ms),
+               "peak_captured_step_gb": next(iter(graph.graphs.values())).peak_bytes / 1e9}
+        del eager
+        release_card()
+        nxt = stack_batches(local[K:2 * K])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        multi(graph, nxt, 0, tables)[1]["loss"].cpu()
+        out["graph_step_ms"] = (time.perf_counter() - t0) * 1e3 / K
+        out["samples_per_s"] = gbs / out["graph_step_ms"] * 1e3
+        split = {}
+        busy, _ = profiled_busy(lambda: multi(graph, stack_batches(local[2 * K:3 * K]), 0, tables)[1]["loss"].cpu(),
+                                K, split)
+        nccl = {k[:60]: v for k, v in split["other"].items() if "nccl" in k.lower()}
+        out.update(busy_ms=busy, nccl_ms=nccl, nccl_ms_total=sum(nccl.values()),
+                   replicated=replicated_digest(graph, cfg), gathered=whole_digest(graph))
+        del graph
+        release_card()
+
+        apply_matmul_precision(cfg32)  # the first step against one process on the global batch
+        st, l32, g32, _ = _step_runs(cfg32, make_mesh(cfg32), local[:1], tables, dev)
+        del st
+        if rank == 0:
+            ref, lp, gp, _ = _step_runs(ma_cfg(cfg32, 1, sp=False), None, batches[:1], tables, dev)
+            del ref
+            out["fp32_first_step"] = _against_one(f"mesh {mesh.data}x{mesh.model}", l32, g32, lp, gp)
+            apply_matmul_precision(cfg)  # the single-card dispatch on rank 0's batches, timed as the world's
+            one = make_multi_train_step(ma_cfg(cfg, 1, sp=False))
+            single = fresh(ma_cfg(cfg, 1, sp=False), None)
+            one(single, stack_batches(local[:K]), 0, tables)  # the capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one(single, stack_batches(local[K:2 * K]), 0, tables)[1]["loss"].cpu()
+            out["single_card_step_ms"] = (time.perf_counter() - t0) * 1e3 / K
+            out["single_card_samples_per_s"] = cfg.train.bs / out["single_card_step_ms"] * 1e3
+            del single
+        release_card()
+        results.append(out)
+    del tables
+    release_card()
+    return {"meshes": results, "sp_p100_serve": sp_p100_serve(rank, world)}
+
+
+def _serve_pass(loop, reqs, clients: int) -> list:
+    """Every request of ``reqs`` from ``clients`` threads -> (latencies
+    in ms, responses in request order)."""
+    lat, got = [0.0] * len(reqs), [None] * len(reqs)
+
+    def client(i0):
+        for i in range(i0, len(reqs), clients):
+            t0 = time.perf_counter()
+            got[i] = loop(reqs[i])
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return lat, got
+
+
+def sp_p100_serve(rank, world) -> dict:
+    """[sp p100 serve]: a ``Predictor`` at P100 (T=4000, B=2) on a model
+    axis of every card with the ring (fp32), rank 0 serving 16 requests
+    from 4 clients (one pass discarded, one timed) and the others
+    following; rank 0 then serves them through the single-card graphed
+    predictor in the same call, and the ring's scores must be its within
+    SP_SERVE_TOL x max|score|."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.serving import ServingLoop
+    from vog_tpu_torch.train.dist import make_mesh
+
+    dev = torch.device("cuda", rank)
+    cfg = ma_cfg(serve_cfg("p100"), world, sp=True)
+    apply_matmul_precision(cfg)
+    tables = DeviceFeatureTables.random(cfg, SP_P100_ROWS, seed=0, int8=True, device=dev, chunk_rows=16).tables
+    mesh = make_mesh(cfg)
+    sd = get_model(ma_cfg(cfg, 1, sp=False), 5000, device=dev, seed=3).state_dict()
+    pred = Predictor(cfg, sd, 5000, tables=tables, device=dev, cuda_graphs=False, mesh=mesh)
+    if mesh.model_index != 0:
+        return {"followed": pred.follow()}
+    reqs = make_requests(cfg, SP_P100_REQUESTS, SP_P100_ROWS, 5000, seed=41)
+    out = {}
+    for name, p in (("ring", pred), ("single", None)):
+        if p is None:
+            p = Predictor(ma_cfg(cfg, 1, sp=False), sd, 5000, tables=tables, device=dev)
+        loop = ServingLoop(p, max_batch=2, bucket_sizes=[1, 2])
+        try:
+            loop.prewarm(reqs[0])
+            _serve_pass(loop, reqs, 4)  # discarded
+            lat, got = _serve_pass(loop, reqs, 4)
+        finally:
+            loop.close()
+            if name == "ring":
+                pred.close()
+        out[name] = {"p50_ms": float(np.percentile(lat, 50)), "p95_ms": float(np.percentile(lat, 95)),
+                     "scores": [g["scores"] for g in got]}
+    ring, single = out["ring"].pop("scores"), out["single"].pop("scores")
+    valid = np.concatenate([s[s > -1e29] for s in single])
+    scale = float(np.abs(valid).max())
+    err = max(float(np.abs(a - b).max()) for a, b in zip(ring, single))
+    if not err <= SP_SERVE_TOL * scale:
+        raise RuntimeError(f"[sp p100 serve]: the ring's scores differ from the single card's by {err:.3e} "
+                           f"(limit {SP_SERVE_TOL * scale:.3e})")
+    out["max_abs_err"], out["limit"] = err, SP_SERVE_TOL * scale
+    return out
+
+
+def phase_model_axis(card: str) -> dict:
+    """[model axis gt5 prod]: (a) with more than one card, an NCCL world of
+    every card (``model_axis_nccl_rank``) on meshes (1, n), (n/2, 2) and
+    (1, n) with the ring, then [sp p100 serve]; (b) a gloo world of 2 ranks
+    on card 0, mesh (1, 2) (``model_axis_gloo_rank``).  Every rank's
+    failure fails the run; mesh, backend, step ms, samples/s and the ring's
+    ms printed."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+
+    release_card()
+    n = torch.cuda.device_count()
+    out = {}
+    if n > 1:
+        meshes = []
+        for m, sp in ((n, False), (2, False), (n, True)):
+            a32 = prod_cfg(dropout=0.0)
+            a32.mdl.dtype, a32.misc.matmul_precision = "float32", "highest"
+            meshes.append((ma_cfg(prod_cfg(), m, sp=sp), ma_cfg(a32, m, sp=sp)))
+        t0 = time.perf_counter()
+        try:
+            ra = run_world(model_axis_nccl_rank, n, "nccl", meshes, MA_ROWS, MA_ANNS)
+        except Exception as e:
+            fail(f"model axis nccl world of {n}: {e}")
+        ta = time.perf_counter() - t0
+        for i, r0 in enumerate(ra[0]["meshes"]):
+            mesh = f"({r0['mesh'][0]}, {r0['mesh'][1]}){' sp' if r0['sp'] else ''}"
+            if len({r["meshes"][i]["gathered"] for r in ra}) != 1 or \
+                    len({r["meshes"][i]["replicated"] for r in ra}) != 1:
+                fail(f"model axis nccl {mesh}: the ranks' states differ after the dispatches")
+            # every kernel of the path at H/m heads; with the ring, the object layer's flash is not on it
+            want = {variant_name(k, meshes[i][0]) for k in KERNEL_NAMES
+                    if not (r0["sp"] and k.startswith("flash_attention"))}
+            if set(r0["counts"]) != want or min(r0["counts"].values()) <= 0:
+                fail(f"model axis nccl {mesh}: launched {r0['counts']}, expected each of {sorted(want)}")
+            f = r0["fp32_first_step"]
+            print(f"[model axis gt5 prod] (a) mesh {mesh}, backend nccl: a graphed dispatch of "
+                  f"K={len(r0['losses'])} bitwise its eager steps, the ranks' gathered and whole states equal; "
+                  f"step ms eager {r0['eager_step_ms']:.2f}, graph {r0['graph_step_ms']:.2f} "
+                  f"({r0['samples_per_s']:.1f} samples/s, global batch {16 * r0['mesh'][0]}), nccl kernels "
+                  f"{r0['nccl_ms_total']:.3f} ms ({r0['nccl_ms']}); device busy {r0['busy_ms']} ms a step; peak "
+                  f"memory of a captured step {r0['peak_captured_step_gb']:.3f} GB; launches {r0['counts']}; fp32 "
+                  f"first step: loss {f['losses'][0]:.7f} vs one process {f['one_process_losses'][0]:.7f}, max "
+                  f"|err| {f['max_abs_err']:.2e}, worst relative {f['worst_rel']:.2e}; the single card's dispatch "
+                  f"in this call {r0['single_card_step_ms']:.2f} ms a step ({r0['single_card_samples_per_s']:.1f} "
+                  f"samples/s) on {card}", flush=True)
+        s = ra[0]["sp_p100_serve"]
+        print(f"[sp p100 serve] {n} model ranks, the ring (fp32, eager, T=4000, B=2, 16 requests from 4 clients, "
+              f"max_batch 2): p50 {s['ring']['p50_ms']:.2f} ms, p95 {s['ring']['p95_ms']:.2f} ms; the single "
+              f"card's graphed predictor in this call: p50 {s['single']['p50_ms']:.2f} ms, p95 "
+              f"{s['single']['p95_ms']:.2f} ms; scores max |err| {s['max_abs_err']:.3e} (limit "
+              f"{s['limit']:.3e}); followers {[r['sp_p100_serve'].get('followed') for r in ra[1:]]} flushes; "
+              f"world run {ta:.1f} s on {card}", flush=True)
+        out["nccl"] = {"world": n, "meshes": [{k: v for k, v in r.items() if k not in ("gathered", "replicated")}
+                                              for r in ra[0]["meshes"]], "sp_p100_serve": s, "seconds": ta}
+    tp_c = ma_cfg(train_cfg(0.1), 2)
+    tp_c.train.steps_per_dispatch = 1
+    sp_cs = [ma_cfg(train_cfg(0.1), 2, sp=True, decomposed=dec) for dec in (True, False)]
+    serve_c = ma_cfg(serve_cfg(), 2, sp=True)
+    t0 = time.perf_counter()
+    try:
+        rb = run_world(model_axis_gloo_rank, 2, "gloo", tp_c, sp_cs, serve_c, MA_ROWS, MA_ANNS, MA_STEPS)
+    except Exception as e:
+        fail(f"model axis gloo world of 2: {e}")
+    tb = time.perf_counter() - t0
+    r0, r1 = rb
+    want = set(KERNEL_NAMES)
+    if set(r0["counts"]) != want or min(r0["counts"].values()) <= 0:
+        fail(f"model axis gloo tp: launched {r0['counts']}, expected each of {sorted(want)}")
+    for what in ("replicated", "gathered"):
+        if r0[what] != r1[what]:
+            fail(f"model axis gloo tp: the two ranks' {what} states differ after {MA_STEPS} steps")
+    if r0["gathered"] != r0["rerun_gathered"] or r0["rerun_losses"] != r0["tp"]["losses"]:
+        fail("model axis gloo tp: a rerun of the steps does not give bitwise the same gathered state")
+    for key in r0["sp"]:
+        if r0["sp"][key]["replicated"] != r1["sp"][key]["replicated"]:
+            fail(f"model axis gloo sp ({key}): the two ranks' whole parameters differ")
+    if r1.get("followed", 0) < 1:
+        fail(f"model axis gloo serve: the follower followed {r1.get('followed')} flushes")
+    tp, sp = r0["tp"], r0["sp"]
+    print(f"[model axis gt5 prod] (b) mesh (1, 2), backend gloo on one card (fp32, dropout 0.1, eager, the "
+          f"collectives and the ring's P2P staged through the host): TP {MA_STEPS} losses {tp['losses']} vs one "
+          f"process {tp['one_process_losses']}, first-step gradient max |err| {tp['max_abs_err']:.2e}, worst "
+          f"relative {tp['worst_rel']:.2e}; the ranks' whole and gathered states bitwise equal, and a rerun's; "
+          f"step ms {r0['step_ms']:.2f} ({r0['samples_per_s']:.1f} samples/s; one process "
+          f"{r0['one_process_step_ms']:.2f} ms); launches at 2 heads {r0['counts']}; sp: "
+          + "; ".join(f"{k} loss {v['losses'][0]:.7f} vs {v['one_process_losses'][0]:.7f}, max |err| "
+                      f"{v['max_abs_err']:.2e}, step ms {v['step_ms']:.2f}, launches {v['counts']}"
+                      for k, v in sp.items())
+          + f"; the ring at one object-layer's shapes (16, 4, 100 of 200, 128): fwd {r0['ring']['fwd_ms']:.2f} ms, "
+          f"fwd+bwd {r0['ring']['fwd_bwd_ms']:.2f} ms; one serve flush of {r0['serve']['requests']} requests "
+          f"through the follower: scores max |err| {r0['serve']['max_abs_err']:.3e} (limit "
+          f"{r0['serve']['limit']:.3e}); world run {tb:.1f} s on {card}", flush=True)
+    out["gloo"] = {k: v for k, v in r0.items() if k not in ("gathered", "replicated", "rerun_gathered")}
+    out["gloo"]["seconds"] = tb
+    apply_matmul_precision(serve_cfg())
+    return out
+
+
 CONTEXT_WARNINGS: list = []
 
 
@@ -3561,8 +4075,9 @@ def main() -> int:
     for k in ("VOG_FLASH_BWD", "VOG_MM_BWD"):  # the GT5 phases run the JAX package's default modes
         os.environ.pop(k, None)
     phase_build()
-    if "--dist" in sys.argv[1:]:  # [dist gt5 prod] alone, on every card of the machine
-        print(json.dumps({"dist": phase_dist(card), "card": card}), flush=True)
+    if "--dist" in sys.argv[1:]:  # [dist gt5 prod] and [model axis gt5 prod] alone, on every card
+        print(json.dumps({"dist": phase_dist(card), "model_axis": phase_model_axis(card), "card": card}),
+              flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
@@ -3594,6 +4109,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     learner, serve_cli, export = phase_learner(card, dispatch_prod)
     dist = phase_dist(card)
+    model_axis = phase_model_axis(card)
 
     # -- P100 (T = 4000, B = 2) --------------------------------------------
     cfg = serve_cfg("p100")
@@ -3671,6 +4187,8 @@ def main() -> int:
         r["gt5"]["dist_nccl_launches"] = dist["nccl"]["counts"].get(r["name"], 0)
     for r in rows:  # [dist gt5 prod] (b): rank 0's eager steps in the gloo world (fp32)
         r["gt5"]["dist_gloo_launches"] = dist["gloo"]["counts"].get(r["name"], 0)
+        # [model axis gt5 prod] (b): rank 0's eager TP steps at 2 heads a rank, counted from 0 just before them
+        r["gt5"]["model_axis_gloo_launches"] = model_axis["gloo"]["counts"].get(r["name"], 0)
     rows += rows_def
     if CONTEXT_WARNINGS:
         fail(f"a thread ran cuBLAS with no current CUDA context: {CONTEXT_WARNINGS}")
@@ -3682,7 +4200,7 @@ def main() -> int:
                       "prod": {"serve_gt5": serve_prod, "dispatch_gt5": dispatch_prod,
                                "dispatch_p100": dispatch_p100_prod},
                       "learner": {k: v for k, v in learner.items() if k != "launches"},
-                      "serve_cli": serve_cli, "export": export, "dist": dist,
+                      "serve_cli": serve_cli, "export": export, "dist": dist, "model_axis": model_axis,
                       "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -52,6 +52,12 @@ graphed dispatch (collectives captured) is bitwise its eager steps and
 the single-device dispatch, and a gloo world of two ranks on one card
 against one process on the global batch (``chip_smoke.py``'s worlds at
 narrow widths).
+
+The mesh's model axis, in gloo worlds of two ranks on one card: the
+tensor-parallel steps, the ring (``decomposed_mm`` on and off) and a
+served flush through the follower against one process
+(``chip_smoke.model_axis_gloo_rank``), and the ring alone against the
+dense path.
 """
 
 import json
@@ -1215,3 +1221,66 @@ def test_dist_gloo_two_ranks_on_one_card(dev):
     r0, r1 = run_world(dist_gloo_rank, 2, "gloo", cfg, 250, 60, 3)
     assert r0["digest"] == r1["digest"] and "one_process" in r0
     assert set(r0["counts"]) == set(KERNEL_NAMES)
+
+
+# --------------------------------------------------------------------------
+# the mesh's model axis (tensor parallelism, the sequence-parallel ring):
+# gloo worlds on one card
+# --------------------------------------------------------------------------
+def test_model_axis_gloo_world_on_one_card(dev):
+    """A gloo world of two ranks on one card, mesh (1, 2), at narrow widths
+    (one head a rank): the tensor-parallel eager steps (every kernel
+    launched), the ring with ``decomposed_mm`` on and off, and one serve
+    flush through the follower, each against one process on the card
+    (``chip_smoke.model_axis_gloo_rank`` raises otherwise); the ranks'
+    whole parameters and gathered states bitwise equal, and a rerun's."""
+    from chip_smoke import KERNEL_NAMES, ma_cfg, model_axis_gloo_rank, run_world, serve_cfg
+
+    tp = ma_cfg(_dist_cfg("float32", "highest", 1), 2)
+    tp.ds.device_store = "on"
+    sps = [ma_cfg(tp, 2, sp=True, decomposed=d) for d in (True, False)]
+    serve = ma_cfg(serve_cfg(), 2, sp=True)
+    m = serve.mdl
+    serve.ds.prop_dim, serve.ds.seg_dim = 64, 48
+    m.emb_dim, m.lstm_dim, m.vis_dim, m.role_dim, m.n_heads = 32, 16, 32, 8, 2
+    r0, r1 = run_world(model_axis_gloo_rank, 2, "gloo", tp, sps, serve, 250, 60, 3)
+    assert set(r0["counts"]) == set(KERNEL_NAMES)
+    assert r0["gathered"] == r1["gathered"] == r0["rerun_gathered"] and r0["replicated"] == r1["replicated"]
+    assert set(r0["sp"]) == {"decomposed", "materialised"} and r1["followed"] >= 1 and "serve" in r0
+
+
+def test_ring_on_one_card_matches_dense(dev):
+    """``ring_attention`` in a gloo world of two ranks on one card (the P2P
+    staged through the host), with and without the frame bias, against
+    the flash kernel's plain version over the whole T on the CPU: the
+    output within 2e-5 and the gradients within 3e-5."""
+    import pathlib
+    import sys
+
+    from vog_tpu_torch.kernels.attention import flash_attention
+
+    # by its own name: a package named ``tests`` on the card's host may shadow this directory
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    from _torch_dist_worker import ring_cases, run_world
+
+    g = torch.Generator().manual_seed(5)
+    B, H, F, Pn, dh = 2, 2, 8, 8, 16
+    T = F * Pn
+    q, k, v, cot = (torch.randn(B, H, T, dh, generator=g) for _ in range(4))
+    mask = (torch.rand(B, T, generator=g) > 0.3).float()
+    mask[:, :Pn] = 1.0
+    fids = torch.arange(T, dtype=torch.int32) // Pn
+    bias = 0.1 * torch.randn(H, F, F, generator=g)
+    cases = [(q, k, v, mask, b, fids, cot) for b in (None, bias)]
+    ranks = run_world(ring_cases, 2, cases, "cuda")
+    for i, b in enumerate((None, bias)):
+        got = [torch.cat([r[i][j] for r in ranks], dim=2) for j in range(4)]
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        bb = None if b is None else b.clone().requires_grad_(True)
+        o = flash_attention(*leaves, mask) if b is None else flash_attention(*leaves, mask, bb, fids)
+        o.backward(cot)
+        assert (got[0] - o.detach()).abs().max() <= 2e-5
+        for a, ref in zip(got[1:], leaves):
+            assert (a - ref.grad).abs().max() <= 3e-5
+        if b is not None:
+            assert (sum(r[i][4] for r in ranks) - bb.grad).abs().max() <= 3e-5

@@ -18,8 +18,9 @@ the narrow widths of ``test_torch_port_train.py``:
     gather on the CPU) against ``vog_tpu``'s ``sharded_gather_from_tables``
     on a 2-device mesh and against the replicated gather, in bf16 and int8,
     with rows at both shards' edges: bitwise;
-  * (7) the refusals: ``misc.mesh_model=2`` and ``mdl.sp_attention``
-    (each naming its key), ``misc.mesh_data`` that is not the world or
+  * (7) the refusals: ``misc.mesh_model=2`` in one process (the Learner's
+    and ``make_mesh``'s, naming the key), a ring ``Predictor`` without
+    ``mdl.sp_attention``, ``misc.mesh_data`` that is not the world or
     without ``misc.multihost``, ``ds.device_store=shard`` in one process,
     and a graphed dispatch on a gloo group (naming the backend).
 
@@ -186,16 +187,17 @@ def test_refusals_name_their_keys(tmp_path):
     from vog_tpu_torch.train.learner import Learner
     from vog_tpu_torch.train.state import _check_graphable
 
-    for key, set_ in (("misc.mesh_model", lambda c: setattr(c.misc, "mesh_model", 2)),
-                      ("mdl.sp_attention", lambda c: setattr(c.mdl, "sp_attention", True))):
-        cfg = Cfg()
-        set_(cfg)
-        with pytest.raises(ValueError, match=key):
-            Learner("x", None, cfg, device="cpu")
+    from vog_tpu_torch.serve import Predictor
+
     cfg = Cfg()
     cfg.misc.mesh_model = 2
+    with pytest.raises(ValueError, match="misc.mesh_model=2 does not divide the world of 1"):
+        Learner("x", None, cfg, device="cpu")
     with pytest.raises(ValueError, match="misc.mesh_model"):
         make_mesh(cfg)
+    ring = Mesh(rank=0, world=2, group=object(), backend="gloo", model=2, model_group=object(), model_ranks=(0, 1))
+    with pytest.raises(ValueError, match="mdl.sp_attention=true"):
+        Predictor(Cfg(), None, 50, device="cpu", mesh=ring)
     cfg = Cfg()
     cfg.misc.mesh_data = 2
     with pytest.raises(ValueError, match="misc.mesh_data=2 without misc.multihost"):

@@ -3,9 +3,13 @@
   * importing it, or any of its modules, pulls in neither JAX nor the JAX
     package ``vog_tpu``; no file of it, nor ``chip_smoke.py``, imports them;
   * its entry points run on the card by default and raise without one;
-  * the Learner refuses only the model axis's multi-device keys;
+  * the mesh refuses a model axis that its world or widths cannot take,
+    naming the key; the model axis's modules import no JAX;
   * every kernel module has a CUDA source, a plain version, and a check
-    in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu);
+    in ``chip_smoke.py`` (as tests/test_kernel_gate.py does for vog_tpu),
+    but the ring (``kernels/ring_attention.py``), whose block products are
+    ``torch.matmul`` around P2P sends, as the JAX ring's are einsums
+    around ``ppermute`` with no Pallas kernel;
   * a kernel library's name hashes its source and the shared headers; the
     flash kernels and both mm kernels multiply on the tensor cores and copy
     asynchronously, the head's weight gradients stream by cp.async in one
@@ -45,6 +49,8 @@ KERNELS = {
     "mm_attention.py": ("mm_attention.cu", "mm_shared_qk_attention", "mm_shared_qk_attention_bwd"),
     "grounding_head.py": ("grounding_head.cu", "fused_grounding_head", "fused_grounding_head_bwd"),
 }
+# modules of kernels/ with no CUDA kernel (their JAX counterparts have no pallas_call)
+NO_KERNEL = ("ring_attention.py",)
 
 
 def _modules():
@@ -88,7 +94,9 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
     from vog_tpu_torch.kernels import _build
 
     modules = sorted(p.name for p in (PKG / "kernels").glob("*.py") if not p.name.startswith("_"))
-    assert modules == sorted(KERNELS)
+    assert modules == sorted(list(KERNELS) + list(NO_KERNEL))
+    for mod in NO_KERNEL:
+        assert "_build" not in (PKG / "kernels" / mod).read_text()
     smoke = SMOKE.read_text()
     smoke_strings = {n.value for n in ast.walk(ast.parse(smoke))
                      if isinstance(n, ast.Constant) and isinstance(n.value, str)}
@@ -123,24 +131,30 @@ def test_every_kernel_module_has_source_plain_version_and_smoke_check():
 
 
 def test_not_ported_names_only_the_multi_device_keys():
-    """The Learner takes every single-device key (``misc.checkify``,
-    ``misc.profile_dir``, ``misc.tensorboard_dir``, ``train.async_ckpt``)
-    and the data axis's (``misc.multihost``, ``misc.mesh_data``), and
-    refuses only the model axis's multi-device keys; ``train/checkify.py``,
-    ``train/dist.py`` and ``train/multihost.py`` import no JAX."""
+    """Nothing of the JAX package's mesh is left unported: the Learner has
+    no list of refused keys, and one process's mesh refuses a model axis
+    its world cannot hold, naming ``misc.mesh_model``; ``mdl.sp_attention``
+    at ``misc.mesh_model=1`` is one process's model.  ``train/checkify.py``,
+    ``train/dist.py``, ``train/multihost.py``, ``model/parallel.py`` and
+    ``kernels/ring_attention.py`` import no JAX."""
     from vog_tpu_torch.config import Cfg
-    from vog_tpu_torch.train.learner import _not_ported
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import learner
+    from vog_tpu_torch.train.dist import Mesh, make_mesh
 
+    assert not hasattr(learner, "_not_ported")
     cfg = Cfg()
-    m = cfg.misc
-    m.checkify, m.profile_dir, m.tensorboard_dir, cfg.train.async_ckpt = True, "prof", "tb", True
-    m.multihost, m.mesh_data = True, 4
-    assert _not_ported(cfg) == []
-    cfg.mdl.sp_attention, m.mesh_model = True, 2
-    assert _not_ported(cfg) == ["mdl.sp_attention", "misc.mesh_model"]
-    for name in ("checkify.py", "dist.py", "multihost.py"):
-        path = PKG / "train" / name
-        assert path.is_file() and not _imported_roots(path) & FORBIDDEN, name
+    cfg.misc.mesh_model = 2
+    with pytest.raises(ValueError, match="misc.mesh_model=2 does not divide the world of 1"):
+        make_mesh(cfg)
+    cfg.misc.mesh_model, cfg.mdl.sp_attention = 1, True
+    assert make_mesh(cfg) == Mesh()
+    cfg.mdl.name, cfg.mdl.vis_dim, cfg.mdl.n_heads = "vid_grnd", 32, 2
+    model = get_model(cfg, 50, device="cpu", mesh=Mesh())
+    assert model.tp is None and model.sp is None
+    for path in (PKG / "train" / "checkify.py", PKG / "train" / "dist.py", PKG / "train" / "multihost.py",
+                 PKG / "model" / "parallel.py", PKG / "kernels" / "ring_attention.py"):
+        assert path.is_file() and not _imported_roots(path) & FORBIDDEN, path.name
 
 
 def test_entry_points_default_to_cuda():

@@ -31,6 +31,16 @@ buckets).  ``--serve.batch`` (default ``train.bs``), ``--serve.wait_ms``,
 batch, each prewarmed, which captures its CUDA graph) shape the loop.
 It runs on the card; ``--misc.platform=cpu`` runs the plain path on the
 CPU, and without a GPU nothing else runs.
+
+The sequence-parallel ring across processes::
+
+  torchrun --nproc-per-node M -m vog_tpu_torch.cli.serve <uid> ... \
+      --misc.multihost=true --misc.mesh_model=M --mdl.sp_attention=true --selftest=16
+
+  Every rank builds the Predictor on the mesh's model axis (the weights
+  whole); rank 0 runs the loop and the clients, the others follow its
+  flushes (``Predictor.follow``) and return {"followed": n}.  The forward
+  is eager (no CUDA graphs).
 """
 
 from __future__ import annotations
@@ -52,12 +62,18 @@ def _build_predictor(cfg, uid: str, tag: str, random_init: bool):
     """-> (the live Predictor, the data): the feature tables on the device
     from the dataset's store when ``ds.device_store`` resolves on (the
     loaders then emit ``vid_rows``), the weights from the uid's checkpoint
-    or fresh."""
+    or fresh; under ``misc.multihost`` on the mesh's model axis (the
+    ring)."""
     from vog_tpu_torch.data.device_store import DeviceFeatureTables, use_device_store
-    from vog_tpu_torch.device import resolve_device
     from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.train.dist import init_distributed, make_mesh
 
-    device = resolve_device(device_of(cfg))
+    device = init_distributed(cfg, device_of(cfg))
+    mesh = make_mesh(cfg)
+    if mesh.data > 1:
+        raise ValueError(f"misc.mesh_data={mesh.data}: cli.serve runs the model axis only (one predictor, its "
+                         "attention on the ring); set misc.mesh_data=1")
+    on_axis = {"mesh": mesh, "cuda_graphs": False} if mesh.model > 1 else {}
     data = get_data(cfg)
     glove = data.vocab.vectors
     tables = None
@@ -72,10 +88,10 @@ def _build_predictor(cfg, uid: str, tag: str, random_init: bool):
                 dl.ds.device_rows = dft.rows
         print(f"device store: {n_videos} videos resident", flush=True)
     if random_init:
-        pred = Predictor(cfg, None, len(data.vocab), tables=tables, device=device, glove=glove)
+        pred = Predictor(cfg, None, len(data.vocab), tables=tables, device=device, glove=glove, **on_axis)
     else:
         ckpt = Path(cfg.misc.tmp_path) / "models" / uid / f"{tag}.pt"
-        pred = Predictor.from_checkpoint(cfg, ckpt, tables=tables, device=device, glove=glove)
+        pred = Predictor.from_checkpoint(cfg, ckpt, tables=tables, device=device, glove=glove, **on_axis)
     return pred, data
 
 
@@ -196,6 +212,10 @@ def main(argv=None) -> Dict:
         print(f"serving exported artifact {artifact}", flush=True)
     else:
         pred, data = _build_predictor(cfg, uid, tag, "random_init" in flags)
+        if pred.mesh is not None and pred.mesh.model_index != 0:  # a follower of rank 0's flushes
+            out = {"followed": pred.follow()}
+            print(json.dumps(out), flush=True)
+            return out
     max_batch = max_batch or cfg.train.bs
     # powers of two below max_batch: light load pads to a small bucket
     # instead of the full batch (one CUDA graph a bucket)
@@ -225,6 +245,8 @@ def main(argv=None) -> Dict:
         raise SystemExit("pass --selftest=N or --port=P")
     finally:
         loop.close()
+        if getattr(pred, "mesh", None) is not None:
+            pred.close()
 
 
 if __name__ == "__main__":

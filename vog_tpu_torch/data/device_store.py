@@ -19,9 +19,10 @@ does, else off, and off on the CPU.  The JAX package's fixed 8 GB budget
 and its TPU-only gate were set for a TPU v5e's 16 GB and are not copied.
 
 The row-sharded store (counterpart of the JAX package's ``shard=True``
-tables and ``sharded_gather_from_tables``): rank r of N holds rows
-[r*n, (r+1)*n) of the table padded to N*n rows, built from its own slice
-of the store; the step's gather all-gathers the global batch's
+tables and ``sharded_gather_from_tables``): data index r of N holds
+rows [r*n, (r+1)*n) of the table padded to N*n rows, built from its own
+slice of the store (the model ranks of a data index hold the same
+shard), and the collectives run over the data group; the step's gather all-gathers the global batch's
 ``vid_rows``, gathers them from the local shard with the gather kernel
 (rows clamped to the shard), dequantises int8 locally, zeroes the rows
 that another rank owns and reduce-scatters over the batch, so each rank
@@ -64,7 +65,7 @@ def device_store_mode(cfg, n_videos: int, device: torch.device, extra_bytes: int
     ``FREE_SHARE`` of the card's free memory, else shard when 1/N of the
     tables does in a world of N > 1, else off; off on the CPU."""
     want = cfg.ds.device_store
-    grouped = mesh is not None and mesh.group is not None
+    grouped = mesh is not None and mesh.data_group is not None
     if want not in ("auto", "on", "off", "shard"):
         raise ValueError(f"ds.device_store={want!r}: the port takes auto, on, off or shard")
     if want == "shard" and not grouped:
@@ -78,7 +79,7 @@ def device_store_mode(cfg, n_videos: int, device: torch.device, extra_bytes: int
     tb = table_bytes(cfg, n_videos)
     if tb + extra_bytes <= FREE_SHARE * free:
         return "on"
-    world = mesh.world if grouped else 1
+    world = mesh.data if grouped else 1
     if world > 1 and -(-tb // world) + extra_bytes <= FREE_SHARE * free:
         return "shard"
     return "off"
@@ -256,12 +257,12 @@ def sharded_gather_from_tables(batch: Dict, tables: Dict, mesh) -> Dict:
     (rows clamped to it), int8 dequantised here, zeroed where another rank
     owns the row, and reduce-scattered over the batch: this rank's rows
     come back, each from its one owner."""
-    rows = mesh.all_gather(batch["vid_rows"].to(torch.int32).contiguous())  # (world * B, V)
+    rows = mesh.all_gather(batch["vid_rows"].to(torch.int32).contiguous())  # (data * B, V)
     B, V, F, P = batch["prop_mask"].shape
     D = _row_width(tables["feats"]) // (F * P)
     Dv = _row_width(tables["seg"]) // F
     n = tables["feats"].shape[0]
-    start = mesh.rank * n
+    start = mesh.data_index * n
     mine = ((rows >= start) & (rows < start + n))[..., None]
     loc = (rows - start).clamp(0, n - 1).to(torch.int32).contiguous()
     Bg = rows.shape[0]

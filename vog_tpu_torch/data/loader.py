@@ -189,10 +189,10 @@ class DataWrap:
 def get_data(cfg, mesh=None) -> DataWrap:
     """Build the three split iterators (reference ``get_data(cfg)``) over
     ``open_store``'s store.  ``mesh`` (train/dist.py): the global batch is
-    ``train.bs`` times its world (``misc.mesh_data``)."""
+    ``train.bs`` times its data axis (``misc.mesh_data``)."""
     vocab = get_vocab(cfg)
     store = open_store(cfg.ds.data_dir)
-    bs = cfg.train.bs * (mesh.world if mesh is not None else 1)
+    bs = cfg.train.bs * (mesh.data if mesh is not None else 1)
 
     def mk(split: str, shuffle: bool, drop_last: bool) -> BatchIterator:
         ds = AnetSRLDataset(cfg, split, vocab, store)

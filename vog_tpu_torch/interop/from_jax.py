@@ -14,6 +14,11 @@ types, ``decomposed_mm`` on and off.
   * raw parameters (the fused head's kernels in their (in, out) layout,
     ``rpe_table``, ``score_bias``) are copied as they are;
   * ``layer{i}`` scopes become ``layers.{i}``.
+
+On the mesh's model axis, ``train/dist.py §shard_state_dict(sd, mesh,
+cfg)`` then gives each rank its part of the returned state dict, so a
+tensor-parallel world starts from the params that the JAX package's
+``(d, m)`` step takes.
 """
 
 from __future__ import annotations

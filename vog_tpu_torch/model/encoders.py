@@ -8,7 +8,10 @@
 
 The BiLSTM and the language path run fp32; the arg rep handed to the
 visual fusion, and the two visual encoders, follow the activation dtype
-(``model/dtypes.py``).
+(``model/dtypes.py``).  Under tensor parallelism (``tp``, a ``Mesh``) the
+two visual projections are column-sharded: each rank computes its block
+of the D output features (relu on the local columns), and the model
+gathers them once (model/grounding.py §encode).
 """
 
 from __future__ import annotations
@@ -65,9 +68,9 @@ class LangEncoder(nn.Module):
 
 
 class PropEncoder(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp=None):
         super().__init__()
-        self.prop_proj = nn.Linear(cfg.ds.prop_dim + 5, cfg.mdl.vis_dim)
+        self.prop_proj = nn.Linear(cfg.ds.prop_dim + 5, cfg.mdl.vis_dim // (tp.model if tp else 1))
         self.dt = act_dtype(cfg)
 
     def forward(self, props: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -77,9 +80,9 @@ class PropEncoder(nn.Module):
 
 
 class SegEncoder(nn.Module):
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp=None):
         super().__init__()
-        self.seg_proj = nn.Linear(cfg.ds.seg_dim, cfg.mdl.vis_dim)
+        self.seg_proj = nn.Linear(cfg.ds.seg_dim, cfg.mdl.vis_dim // (tp.model if tp else 1))
         self.dt = act_dtype(cfg)
 
     def forward(self, seg: torch.Tensor) -> torch.Tensor:

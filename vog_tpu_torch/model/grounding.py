@@ -8,7 +8,18 @@ loss is in ``model/loss.py``.  Under the bf16 activation policy
 (``model/dtypes.py``) the visual and multimodal path computes in bf16,
 the head kernel takes fp32 operands, and every model returns fp32
 logits.
+
+The mesh's model axis (``get_model(..., mesh=)``, train/dist.py): under
+tensor parallelism (training, ``misc.mesh_model`` > 1) the model is built
+whole from the seed, then each rank keeps its part (``shard_state_dict``);
+the encoders' projections, the attention heads and the FFNs are split
+(model/transformer.py), and the head, ``mm_proj_*``, ``mm_head``, the
+LayerNorms and the language path stay whole on every rank.  With
+``mdl.sp_attention`` the attention blocks run the ring; a
+``Predictor`` builds the model whole with the ring alone
+(``tensor_parallel=False``), as the JAX ``Predictor(mesh=)`` does.
 """
+
 
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
 from vog_tpu_torch.kernels.grounding_head import fused_grounding_head
 from vog_tpu_torch.model.dtypes import act_dtype, linear
 from vog_tpu_torch.model.encoders import LangEncoder, PropEncoder, SegEncoder
+from vog_tpu_torch.model.parallel import gather_from_model
 from vog_tpu_torch.model.transformer import (
     ObjectTransformer,
     RelMultiHeadAttention,
@@ -94,14 +106,15 @@ class DotGroundingHead(nn.Module):
 class ImgGrnd(nn.Module):
     """Per-proposal scoring with no cross-frame reasoning."""
 
-    def __init__(self, cfg, vocab_size: int, n_frames: int):
+    def __init__(self, cfg, vocab_size: int, n_frames: int, tp=None, sp=None):
         super().__init__()
         self.cfg = cfg
         self.dt = act_dtype(cfg)  # the activation dtype (params stay fp32)
         self.n_frames = n_frames
+        self.tp, self.sp = tp, sp
         self.lang = LangEncoder(cfg, vocab_size)
-        self.prop_enc = PropEncoder(cfg)
-        self.seg_enc = SegEncoder(cfg)
+        self.prop_enc = PropEncoder(cfg, tp)
+        self.seg_enc = SegEncoder(cfg, tp)
         self.head = DotGroundingHead(cfg) if cfg.mdl.head_type == "dot" else GroundingHead(cfg)
 
     def encode(self, clip: Dict):
@@ -110,7 +123,7 @@ class ImgGrnd(nn.Module):
         )
         penc = self.prop_enc(clip["props"], clip["boxes"])  # (B,T,D)
         senc = self.seg_enc(clip["seg"])  # (B,F,D)
-        vis = penc + senc[:, clip["frame_ids"].long()]
+        vis = gather_from_model(penc + senc[:, clip["frame_ids"].long()], self.tp)  # whole D
         key_mask = clip["mask"].float().contiguous()
         fid = clip["frame_ids"].to(torch.int32).contiguous()
         return vis, lang, key_mask, fid
@@ -123,9 +136,9 @@ class ImgGrnd(nn.Module):
 class VidGrnd(ImgGrnd):
     """ImgGrnd + object transformer (temporal PE self-attention)."""
 
-    def __init__(self, cfg, vocab_size: int, n_frames: int):
-        super().__init__(cfg, vocab_size, n_frames)
-        self.obj_tx = ObjectTransformer(cfg)
+    def __init__(self, cfg, vocab_size: int, n_frames: int, tp=None, sp=None):
+        super().__init__(cfg, vocab_size, n_frames, tp, sp)
+        self.obj_tx = ObjectTransformer(cfg, tp, sp)
 
     def forward(self, clip: Dict) -> torch.Tensor:
         vis, lang, key_mask, fid = self.encode(clip)
@@ -136,14 +149,14 @@ class VidGrnd(ImgGrnd):
 class VOGNet(ImgGrnd):
     """VidGrnd + multimodal transformer with relative position encoding."""
 
-    def __init__(self, cfg, vocab_size: int, n_frames: int):
-        super().__init__(cfg, vocab_size, n_frames)
+    def __init__(self, cfg, vocab_size: int, n_frames: int, tp=None, sp=None):
+        super().__init__(cfg, vocab_size, n_frames, tp, sp)
         D = cfg.mdl.vis_dim
-        self.obj_tx = ObjectTransformer(cfg)
+        self.obj_tx = ObjectTransformer(cfg, tp, sp)
         if cfg.mdl.decomposed_mm:
-            self.mm_tx = RelTransformerDecomposed(cfg, n_frames)
+            self.mm_tx = RelTransformerDecomposed(cfg, n_frames, tp, sp)
         else:
-            self.mm_tx = RelTransformer(cfg, n_frames)
+            self.mm_tx = RelTransformer(cfg, n_frames, tp, sp)
         self.mm_proj_vis = nn.Linear(D, D)
         self.mm_proj_arg = nn.Linear(D, D, bias=False)
         self.mm_head = nn.Linear(D, 1)
@@ -201,7 +214,7 @@ def check_kernel_shapes(cfg) -> None:
 
 def get_model(
     cfg, vocab_size: int, device: DeviceLike = None, seed: int = 0, train: bool = False,
-    glove=None,
+    glove=None, mesh=None, tensor_parallel: bool = True,
 ) -> nn.Module:
     """Build the configured model on ``device`` (cuda by default), with
     random weights made from ``seed``, in eval mode, or in train mode
@@ -213,19 +226,40 @@ def get_model(
     random.  The parameters are fp32 whatever ``mdl.dtype`` says (the
     activation dtype, ``model/dtypes.py``).  Applies
     ``misc.matmul_precision``; on the card, checks the kernels' shape
-    ranges first (``check_kernel_shapes``)."""
+    ranges first (``check_kernel_shapes``).
+
+    ``mesh`` (train/dist.py) with a model axis longer than 1: tensor
+    parallelism when ``tensor_parallel`` (this rank keeps its part of the
+    whole model the seed makes, ``shard_state_dict``), and the
+    sequence-parallel ring when ``mdl.sp_attention``; the model's ``tp``
+    and ``sp`` attributes hold the mesh of each, or None."""
     if torch.device("cuda" if device is None else device).type == "cuda":
         check_kernel_shapes(cfg)
     dev = resolve_device(device)
     apply_matmul_precision(cfg)
     ds = cfg.ds
     _, n_frames, _ = view_dims(ds.conc_type, ds.num_cmp, ds.num_frms, ds.num_prop_per_frm)
+    axis = mesh is not None and mesh.model > 1
+    tp = mesh if axis and tensor_parallel else None
+    sp = mesh if axis and cfg.mdl.sp_attention and cfg.mdl.name != "img_grnd" else None
+    _, n_f, n_p = view_dims(ds.conc_type, ds.num_cmp, ds.num_frms, ds.num_prop_per_frm)
+    if sp is not None and (n_f * n_p) % mesh.model:
+        # the JAX dispatch falls back to the whole attention there; a ring
+        # block's qkv and out gradients are summed over the model ranks
+        raise ValueError(f"mdl.sp_attention: {n_f * n_p} tokens do not split over misc.mesh_model="
+                         f"{mesh.model} ranks")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = MODELS[cfg.mdl.name](cfg, vocab_size, n_frames)
         for mod in model.modules():
             if isinstance(mod, RelMultiHeadAttention):
                 nn.init.normal_(mod.rpe_table, std=0.02)
+        if tp is not None or sp is not None:  # the whole model's values, this rank's part of them
+            from vog_tpu_torch.train.dist import shard_state_dict
+
+            whole = model.state_dict()
+            model = MODELS[cfg.mdl.name](cfg, vocab_size, n_frames, tp, sp)
+            model.load_state_dict(shard_state_dict(whole, mesh, cfg) if tp is not None else whole, strict=True)
     if glove is not None:
         table = torch.as_tensor(np.asarray(glove, dtype=np.float32))
         if tuple(table.shape) != tuple(model.lang.embed.weight.shape):

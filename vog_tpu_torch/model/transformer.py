@@ -24,8 +24,25 @@ fp32 parameters cast per call; the LayerNorm statistics, the attention
 kernels' operands and results, and the decomposed layer's per-arg key
 term c (and cn) are fp32, each kernel result cast back to the activation
 dtype.  The JAX package's T >= 1024 kernel gates
-were tuned on a TPU and are not copied; sequence-parallel ring attention
-waits for a later slice.
+were tuned on a TPU and are not copied.
+
+The mesh's model axis (train/dist.py), given as ``tp`` and ``sp`` (a
+``Mesh`` or None) by ``get_model``:
+
+  * ``tp``, tensor parallelism (``param_shardings``' layout): each rank
+    holds H/m heads of every attention block (qkv's q, k and v column
+    blocks split by heads, its ``rpe_table`` rows sliced at use), ``out``
+    row-sharded; ``ff1`` column-sharded, its dropout numbering the rank's
+    columns from their global offset, ``ff2`` row-sharded
+    (model/parallel.py).  The kernels run at H/m heads.
+  * ``sp``, the sequence-parallel ring (``mdl.sp_attention``): the
+    object transformer's and the materialised multimodal layers'
+    attention blocks keep qkv and out whole, project only their rank's
+    T/m token block, run ``kernels/ring_attention.py`` and all-gather the
+    block's output over T; the block's dropout sees the gathered (B, T, D)
+    output (``get_model`` refuses a T that m does not divide).  The
+    decomposed first mm layer keeps the mm kernel (heads split under
+    ``tp``).
 """
 
 from __future__ import annotations
@@ -40,7 +57,9 @@ import torch.nn.functional as Fn
 
 from vog_tpu_torch.kernels.attention import flash_attention
 from vog_tpu_torch.kernels.mm_attention import mm_shared_qk_attention
+from vog_tpu_torch.kernels.ring_attention import ring_attention
 from vog_tpu_torch.model.dtypes import LayerNorm, act_dtype, linear
+from vog_tpu_torch.model.parallel import copy_to_model, gather_from_model, row_linear
 
 
 def sinusoidal_pe(positions: torch.Tensor, dim: int) -> torch.Tensor:
@@ -104,11 +123,12 @@ def dropout_key(seed: int, step: torch.Tensor, micro: int = 0) -> torch.Tensor:
     return _mix32(k ^ _mix32_host(micro ^ 0x7F4A7C15))
 
 
-def dropout_keep(key: torch.Tensor, site: int, shape, rate: float, row0: int = 0) -> torch.Tensor:
+def dropout_keep(key: torch.Tensor, site: int, shape, rate: float, row0: int = 0, col0: int = 0) -> torch.Tensor:
     """The keep mask (bool, ``shape``) of site ``site`` under ``key``:
     element (r, c) of the (rows, shape[-1]) view keeps when a hash of
-    (key, site, row0 + r, c) is at least ``rate`` of the way through the
-    32-bit range (``row0``: the view's first row in the global batch).  The row and column hashes are full murmur3 mixes of their
+    (key, site, row0 + r, col0 + c) is at least ``rate`` of the way through
+    the 32-bit range (``row0``: the view's first row in the global batch;
+    ``col0``: its first column in the whole tensor, for a column shard).  The row and column hashes are full murmur3 mixes of their
     counters under a site key; the element's two rounds of multiply and
     xorshift in int32 (which wraps, as on every platform torch runs on)
     make the keep probability 1 - rate to 2**-32."""
@@ -120,7 +140,7 @@ def dropout_keep(key: torch.Tensor, site: int, shape, rate: float, row0: int = 0
     R = n // W if W else 0
     ks = _mix32(key ^ _mix32_host(site * 0x9E3779B9 + 1))
     rows = _mix32(torch.arange(row0, row0 + R, dtype=torch.int64, device=dev) ^ ks)
-    cols = _mix32(torch.arange(W, dtype=torch.int64, device=dev) ^ _mix32(ks ^ 0x5BD1E995))
+    cols = _mix32(torch.arange(col0, col0 + W, dtype=torch.int64, device=dev) ^ _mix32(ks ^ 0x5BD1E995))
     x = _as_int32(rows)[:, None] ^ _as_int32(cols)[None, :]
     x = x * 0x2C1B3C6D
     x = x ^ (x >> 15)
@@ -137,11 +157,13 @@ class Dropout(nn.Module):
     batch (a rank's rows under data parallelism), and its leading dims
     fold them batch first, so its rows are numbered from first * rows a
     sample: every rank draws the bits that one process on the global
-    batch draws for the same rows."""
+    batch draws for the same rows.  ``col0``: the input's first column in
+    the whole tensor (a column shard's offset under tensor parallelism)."""
 
-    def __init__(self, rate: float):
+    def __init__(self, rate: float, col0: int = 0):
         super().__init__()
         self.rate = float(rate)
+        self.col0 = int(col0)
         self.key = None
         self.site = 0
         self.samples = (0, 1)
@@ -158,7 +180,7 @@ class Dropout(nn.Module):
             if rows % n:
                 raise ValueError(f"dropout: {rows} rows do not fold {n} samples")
             row0 = first * (rows // n)
-        keep = dropout_keep(self.key, self.site, x.shape, self.rate, row0)
+        keep = dropout_keep(self.key, self.site, x.shape, self.rate, row0, self.col0)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
@@ -175,47 +197,68 @@ def _heads(t: torch.Tensor, H: int) -> torch.Tensor:
     return t.reshape(B, L, H, D // H).permute(0, 2, 1, 3).contiguous()
 
 
-class MultiHeadAttention(nn.Module):
-    """MHA with no positional bias (the object transformer adds PE)."""
+def _ways(mesh) -> int:
+    return mesh.model if mesh is not None else 1
 
-    def __init__(self, cfg):
+
+class MultiHeadAttention(nn.Module):
+    """MHA with no positional bias (the object transformer adds PE).
+    ``tp``: this rank's H/m heads, ``out`` row-sharded; ``sp``: the ring
+    over T (qkv and out whole)."""
+
+    def __init__(self, cfg, tp=None, sp=None):
         super().__init__()
         D = cfg.mdl.vis_dim
-        self.H = cfg.mdl.n_heads
+        self.sp = sp
+        self.tp = None if sp is not None else tp
+        m = _ways(self.tp)
+        self.H, self.h0 = cfg.mdl.n_heads // m, (self.tp.model_index if self.tp else 0) * (cfg.mdl.n_heads // m)
+        self.dh = D // cfg.mdl.n_heads
         self.dt = act_dtype(cfg)
-        self.qkv = nn.Linear(D, 3 * D)
-        self.out = nn.Linear(D, D)
+        self.qkv = nn.Linear(D, 3 * D // m)
+        self.out = nn.Linear(D // m, D)
         self.drop = Dropout(cfg.mdl.dropout)
+
+    def frame_bias(self):
+        return None
 
     def forward(self, x, key_mask, frame_ids):
         B, T, D = x.shape
+        if self.sp is not None:
+            return self.drop(self._ring(x, key_mask, frame_ids))
+        x = copy_to_model(x, self.tp)
         q, k, v = (_heads(t, self.H).float() for t in linear(x, self.qkv, self.dt).chunk(3, dim=-1))
-        o = flash_attention(q, k, v, key_mask).to(self.dt)  # kernel operands fp32
-        return self.drop(linear(o.permute(0, 2, 1, 3).reshape(B, T, D), self.out))
+        fb = self.frame_bias()
+        o = (flash_attention(q, k, v, key_mask) if fb is None else
+             flash_attention(q, k, v, key_mask, fb, frame_ids)).to(self.dt)  # kernel operands fp32
+        return self.drop(row_linear(o.permute(0, 2, 1, 3).reshape(B, T, self.H * self.dh), self.out, self.tp))
+
+    def _ring(self, x, key_mask, frame_ids):
+        """This rank's T/m tokens projected, attended over all T by the
+        ring, ``out`` applied, the blocks gathered over T."""
+        sp = self.sp
+        B, T, D = x.shape
+        n = T // sp.model
+        lo = sp.model_index * n
+        xs = copy_to_model(x, sp)[:, lo:lo + n]
+        q, k, v = (_heads(t, self.H).float() for t in linear(xs, self.qkv, self.dt).chunk(3, dim=-1))
+        o = ring_attention(q, k, v, key_mask[:, lo:lo + n], self.frame_bias(), frame_ids[lo:lo + n], sp)
+        o = linear(o.to(self.dt).permute(0, 2, 1, 3).reshape(B, n, D), self.out)
+        return gather_from_model(o, sp, dim=1)
 
 
-class RelMultiHeadAttention(nn.Module):
+class RelMultiHeadAttention(MultiHeadAttention):
     """MHA with a learned relative-frame-distance bias."""
 
-    def __init__(self, cfg, n_frames: int):
-        super().__init__()
-        D = cfg.mdl.vis_dim
-        self.H, K = cfg.mdl.n_heads, cfg.mdl.rpe_max_dist
-        self.dt = act_dtype(cfg)
-        self.qkv = nn.Linear(D, 3 * D)
-        self.out = nn.Linear(D, D)
-        self.rpe_table = nn.Parameter(torch.zeros(self.H, 2 * K + 1))
+    def __init__(self, cfg, n_frames: int, tp=None, sp=None):
+        super().__init__(cfg, tp, sp)
+        K = cfg.mdl.rpe_max_dist
+        self.rpe_table = nn.Parameter(torch.zeros(cfg.mdl.n_heads, 2 * K + 1))
         self.register_buffer("dist", _frame_dist(n_frames, K), persistent=False)
-        self.drop = Dropout(cfg.mdl.dropout)
 
     def frame_bias(self) -> torch.Tensor:
-        return self.rpe_table[:, self.dist].contiguous()  # (H,F,F)
-
-    def forward(self, x, key_mask, frame_ids):
-        B, T, D = x.shape
-        q, k, v = (_heads(t, self.H).float() for t in linear(x, self.qkv, self.dt).chunk(3, dim=-1))
-        o = flash_attention(q, k, v, key_mask, self.frame_bias(), frame_ids).to(self.dt)
-        return self.drop(linear(o.permute(0, 2, 1, 3).reshape(B, T, D), self.out))
+        """(H, F, F) of this rank's heads."""
+        return self.rpe_table[self.h0:self.h0 + self.H][:, self.dist].contiguous()
 
 
 class DecomposedRelAttention(RelMultiHeadAttention):
@@ -229,14 +272,17 @@ class DecomposedRelAttention(RelMultiHeadAttention):
     output since the probabilities sum to 1.  The kernel takes
     cn = c - max_j c and the pre-scaled qm, in fp32.  In bf16 the g-part is
     qkv(g) - qkv(0), as the JAX package forms it in the activation dtype;
-    in fp32 it is the bias-free product (the same value)."""
+    in fp32 it is the bias-free product (the same value).  It keeps the mm
+    kernel under ``mdl.sp_attention`` (its heads split under ``tp``)."""
+
+    def __init__(self, cfg, n_frames: int, tp=None):
+        super().__init__(cfg, n_frames, tp, None)
 
     def forward(self, m, g, key_mask, frame_ids):
         B, T, D = m.shape
         A = g.shape[1]
-        H = self.H
-        dh = D // H
-        dt = self.dt
+        H, dh, dt = self.H, self.dh, self.dt
+        m, g = copy_to_model(m, self.tp), copy_to_model(g, self.tp)
         qm, km, vm = (_heads(t, H).float() for t in linear(m, self.qkv, dt).chunk(3, dim=-1))
         # the bias lives in the m-part; the g-part is the linear part only
         if dt == torch.float32:
@@ -252,22 +298,26 @@ class DecomposedRelAttention(RelMultiHeadAttention):
             (qm * scale).contiguous(), km, vm, cn, key_mask, self.frame_bias(), frame_ids
         )  # (B,H,A,T,dh) fp32
         out = (pv + vg.float()[:, :, :, None]).to(dt)
-        out = out.permute(0, 2, 3, 1, 4).reshape(B, A, T, D)
-        return self.drop(linear(out, self.out))
+        out = out.permute(0, 2, 3, 1, 4).reshape(B, A, T, H * dh)
+        return self.drop(row_linear(out, self.out, self.tp))
 
 
 class TxLayer(nn.Module):
-    """Post-LN encoder layer: attention -> add&norm -> FFN -> add&norm."""
+    """Post-LN encoder layer: attention -> add&norm -> FFN -> add&norm.
+    ``tp``: ff1 column-sharded, ff2 row-sharded."""
 
-    def __init__(self, cfg, relative: bool = False, n_frames: int = 0):
+    def __init__(self, cfg, relative: bool = False, n_frames: int = 0, tp=None, sp=None):
         super().__init__()
         D = cfg.mdl.vis_dim
-        self.attn = RelMultiHeadAttention(cfg, n_frames) if relative else MultiHeadAttention(cfg)
+        self.tp = tp
+        m = _ways(tp)
+        hidden = cfg.mdl.ff_mult * D // m
+        self.attn = RelMultiHeadAttention(cfg, n_frames, tp, sp) if relative else MultiHeadAttention(cfg, tp, sp)
         self.ln1 = LayerNorm(D, eps=1e-6)
-        self.ff1 = nn.Linear(D, cfg.mdl.ff_mult * D)
-        self.ff2 = nn.Linear(cfg.mdl.ff_mult * D, D)
+        self.ff1 = nn.Linear(D, hidden)
+        self.ff2 = nn.Linear(hidden, D)
         self.ln2 = LayerNorm(D, eps=1e-6)
-        self.drop = Dropout(cfg.mdl.dropout)
+        self.drop = Dropout(cfg.mdl.dropout, col0=(tp.model_index if tp else 0) * hidden)
 
     def forward(self, x, key_mask, frame_ids):
         x = self.ln1(x + self.attn(x, key_mask, frame_ids))
@@ -275,16 +325,17 @@ class TxLayer(nn.Module):
 
     def ffn(self, x):
         """ff2(dropout(relu(ff1(x)))) in x's dtype."""
-        return linear(self.drop(torch.relu(linear(x, self.ff1))), self.ff2)
+        h = self.drop(torch.relu(linear(copy_to_model(x, self.tp), self.ff1)))
+        return row_linear(h, self.ff2, self.tp)
 
 
 class ObjectTransformer(nn.Module):
     """Self-attention over all (frame, prop) tokens with sinusoidal PE on
     the frame index."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, tp=None, sp=None):
         super().__init__()
-        self.layers = nn.ModuleList(TxLayer(cfg) for _ in range(cfg.mdl.obj_tx_layers))
+        self.layers = nn.ModuleList(TxLayer(cfg, tp=tp, sp=sp) for _ in range(cfg.mdl.obj_tx_layers))
 
     def forward(self, vis, key_mask, frame_ids):
         x = vis + sinusoidal_pe(frame_ids, vis.shape[-1])[None].to(vis.dtype)
@@ -296,10 +347,10 @@ class ObjectTransformer(nn.Module):
 class RelTransformer(nn.Module):
     """VOGNet's multimodal transformer with relative position encoding."""
 
-    def __init__(self, cfg, n_frames: int):
+    def __init__(self, cfg, n_frames: int, tp=None, sp=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TxLayer(cfg, relative=True, n_frames=n_frames) for _ in range(cfg.mdl.mm_tx_layers)
+            TxLayer(cfg, relative=True, n_frames=n_frames, tp=tp, sp=sp) for _ in range(cfg.mdl.mm_tx_layers)
         )
 
     def forward(self, x, key_mask, frame_ids):
@@ -311,9 +362,9 @@ class RelTransformer(nn.Module):
 class DecomposedRelTxLayer(TxLayer):
     """First mm layer on the (m, g) decomposition -> (B*A, T, D)."""
 
-    def __init__(self, cfg, n_frames: int):
-        super().__init__(cfg, relative=True, n_frames=n_frames)
-        self.attn = DecomposedRelAttention(cfg, n_frames)
+    def __init__(self, cfg, n_frames: int, tp=None):
+        super().__init__(cfg, relative=True, n_frames=n_frames, tp=tp)
+        self.attn = DecomposedRelAttention(cfg, n_frames, tp)
 
     def forward(self, m, g, key_mask, frame_ids):
         B, T, D = m.shape
@@ -327,10 +378,11 @@ class RelTransformerDecomposed(nn.Module):
     """RelTransformer whose first layer takes the (m, g) decomposition;
     later layers run on the materialised (B*A, T) tokens."""
 
-    def __init__(self, cfg, n_frames: int):
+    def __init__(self, cfg, n_frames: int, tp=None, sp=None):
         super().__init__()
-        layers: List[nn.Module] = [DecomposedRelTxLayer(cfg, n_frames)]
-        layers += [TxLayer(cfg, relative=True, n_frames=n_frames) for _ in range(1, cfg.mdl.mm_tx_layers)]
+        layers: List[nn.Module] = [DecomposedRelTxLayer(cfg, n_frames, tp)]
+        layers += [TxLayer(cfg, relative=True, n_frames=n_frames, tp=tp, sp=sp)
+                   for _ in range(1, cfg.mdl.mm_tx_layers)]
         self.layers = nn.ModuleList(layers)
 
     def forward(self, m, g, key_mask, frame_ids):

@@ -27,6 +27,17 @@ as a flax params tree (converted by ``interop.from_jax``), a state_dict,
 or a checkpoint of the port's Learner (``Predictor.from_checkpoint``);
 a ``vog_tpu`` orbax checkpoint becomes one with
 ``tools/orbax_to_torch_port.py``.
+
+The sequence-parallel ring (``mesh`` with a model axis longer than 1 and
+``mdl.sp_attention``, as the JAX ``Predictor(mesh=)`` installs it): the
+parameters stay whole on every rank and the attention blocks run the ring
+over the model group (``get_model(..., tensor_parallel=False)``).  Model
+rank 0 is the leader: its ``dispatch`` first broadcasts the padded batch
+over the model group (its fields' shapes and dtypes, then each field);
+the other model ranks run ``follow``, which takes each broadcast batch
+through the same forward until the leader's ``close``.  Its forward is
+eager: the followers' forwards pair with the leader's collectives a flush
+at a time, outside any captured graph, so ``cuda_graphs`` must be off.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vog_tpu_torch.config import apply_matmul_precision
 from vog_tpu_torch.data.device_store import gather_from_tables
@@ -107,11 +119,21 @@ class Predictor:
         device: DeviceLike = None,
         cuda_graphs: bool = True,
         glove=None,
+        mesh=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.model_group is not None else None
+        if self.mesh is not None:
+            if not cfg.mdl.sp_attention:
+                raise ValueError(f"a Predictor on a model axis of {mesh.model} runs the sequence-parallel ring: "
+                                 "set mdl.sp_attention=true (its parameters stay whole)")
+            if cuda_graphs and self.device.type == "cuda":
+                raise ValueError("a Predictor on the model axis runs its forward eagerly (the followers pair "
+                                 "with each flush's collectives): pass cuda_graphs=False")
         apply_matmul_precision(cfg)
-        self.model = get_model(cfg, vocab_size, device=self.device, glove=glove)
+        self.model = get_model(cfg, vocab_size, device=self.device, glove=glove, mesh=self.mesh,
+                               tensor_parallel=False)
         if params is not None:
             sd = params
             if any(isinstance(v, dict) or hasattr(v, "items") for v in params.values()):
@@ -127,7 +149,8 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, cfg, ckpt_path, tables: Optional[Dict[str, torch.Tensor]] = None,
-                        device: DeviceLike = None, glove=None, cuda_graphs: bool = True) -> "Predictor":
+                        device: DeviceLike = None, glove=None, cuda_graphs: bool = True,
+                        mesh=None) -> "Predictor":
         """A Predictor of the parameters of a port checkpoint
         (``train/learner.py §save``: ``models/{uid}/{tag}.pt``), as
         vog_tpu/serve.py §from_checkpoint restores the params alone: the
@@ -139,7 +162,7 @@ class Predictor:
         if "lang.embed.weight" not in params:
             raise ValueError(f"{ckpt_path} holds no parameters of the port's model")
         return cls(cfg, params, int(params["lang.embed.weight"].shape[0]), tables=tables, device=device,
-                   cuda_graphs=cuda_graphs, glove=glove)
+                   cuda_graphs=cuda_graphs, glove=glove, mesh=mesh)
 
     def _upload(self, v) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(v))
@@ -151,8 +174,64 @@ class Predictor:
         """The forward on tensors already on the device."""
         return predict_batch(self.model, self.conc, batch, self.tables)
 
+    def _share(self, batch: Optional[Dict[str, np.ndarray]]) -> Optional[Dict[str, torch.Tensor]]:
+        """The leader's ``batch`` (None: the close message) broadcast over
+        the model group -> its fields on this rank's device, or None."""
+        mesh = self.mesh
+        lead = mesh.model_index == 0
+        spec = [None if not lead or batch is None else
+                [(k, tuple(np.shape(v)), np.asarray(v).dtype.str) for k, v in batch.items()]]
+        nccl = mesh.backend == "nccl"
+        dist.broadcast_object_list(spec, src=mesh.model_ranks[0], group=mesh.model_group,
+                                   device=self.device if nccl else None)
+        if spec[0] is None:
+            return None
+        comm = self.device if nccl else torch.device("cpu")
+        out = {}
+        for k, shape, dt in spec[0]:
+            if lead:
+                t = torch.from_numpy(np.ascontiguousarray(batch[k])).to(comm)
+            else:
+                t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, np.dtype(dt))).dtype, device=comm)
+            out[k] = mesh.broadcast_(t).to(self.device)
+        return out
+
+    def follow(self) -> int:
+        """A follower's loop (model index > 0): each batch the leader
+        broadcasts through the same forward, until its ``close``.  -> the
+        number of batches followed."""
+        n = 0
+        while True:
+            with self._on_device():
+                batch = self._share(None)
+                if batch is None:
+                    return n
+                with torch.inference_mode():
+                    self.predict(batch)
+            n += 1
+
+    def close(self) -> None:
+        """The leader's close message: every follower leaves ``follow``."""
+        if self.mesh is not None and self.mesh.model_index == 0:
+            with self._on_device():
+                self._share(None)
+
+    def _on_device(self):
+        from contextlib import nullcontext
+
+        return torch.cuda.device(self.device) if self.device.type == "cuda" else nullcontext()
+
     def dispatch(self, batch: Dict[str, np.ndarray]) -> _Pending:
         """Enqueue one batch and return without waiting for the card."""
+        if self.mesh is not None:  # the leader: the batch to the followers, then the forward
+            with self._on_device(), torch.inference_mode():
+                out = self.predict(self._share(batch))
+                if self.device.type != "cuda":
+                    return _Pending(out, None)
+                host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                return _Pending(host, event)
         if self.cuda_graphs:
             from vog_tpu_torch.train.graphs import ServeGraph, numerics_key  # here: train imports this module
 

@@ -43,11 +43,12 @@ time, so every cache key holds ``numerics_key`` (the precision and the
 model's activation dtype): a process that changes ``misc.matmul_precision``
 captures anew rather than replay the old numerics.
 
-A step with collectives (data parallelism, train/dist.py) captures
-them too: NCCL's kernels join the graph like any other, after the
-warm-up step has created the communicator; such a capture runs in
-"thread_local" mode, so the process group's watchdog thread may query
-its events meanwhile.
+A step with collectives (the mesh's data and model axes, train/dist.py)
+captures them too: NCCL's kernels join the graph like any other, after
+the warm-up step has created each group's communicator (the data group's,
+the model group's, the ring's P2P pairs); such a capture runs in
+"thread_local" mode, so the process groups' watchdog thread may query
+their events meanwhile.
 
 A capture or replay that fails raises; nothing falls back to an eager
 loop.  Launch counts: the capture's launches do not run, so they are

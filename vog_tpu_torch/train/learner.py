@@ -63,8 +63,8 @@ a table build, a save (when its file lands: bytes, the seconds the loop
 was blocked by its copy and the writer's seconds) and a profiler trace.
 
 Data parallelism (``mesh``, train/dist.py; ``misc.multihost`` under
-torchrun): every rank runs the same Learner on its rows of each global
-batch of ``train.bs`` x world (``get_data(cfg, mesh)`` sizes it, the
+torchrun): every rank runs the same Learner on its data index's rows of
+each global batch of ``train.bs`` x ``data`` (``get_data(cfg, mesh)`` sizes it, the
 Learner sets the loaders' ``local_rows``); the steps reduce the loss's counts and the
 gradient over the ranks (train/state.py), so the ranks' states stay
 bitwise equal; ``ds.device_store`` may row-shard the feature tables
@@ -75,8 +75,15 @@ JAX Learner's ``_is_main``); the eval sums and predictions go through
 writes landed first); a SIGTERM on any rank stops every rank after the
 same dispatch (one all-reduce of the flag a dispatch).
 
-Not ported yet (each raises naming its key): the ``model`` axis
-(``misc.mesh_model``, ``mdl.sp_attention``).
+The model axis (``misc.mesh_model`` = m > 1): the model is built with
+the mesh (``get_model(..., mesh=)``): tensor parallelism, and the
+sequence-parallel ring under ``mdl.sp_attention``, as the JAX Learner
+applies ``param_shardings`` and installs the ring.  A save gathers the
+sharded parameters and moments over the model group of data index 0
+(``TrainState.whole_tensors``), so the file is the one a single process
+writes; a load reads the whole file on every rank and keeps the rank's
+part (``TrainState.local_tensors``).  The eval gather runs over the data
+group.
 A ``vog_tpu`` orbax checkpoint loads after ``tools/orbax_to_torch_port.py``.
 """
 
@@ -223,19 +230,10 @@ class CheckpointWriter:
             raise errors[0]
 
 
-def _not_ported(cfg) -> List[str]:
-    """The keys of the mesh's ``model`` axis, which the port lacks."""
-    return [key for key, on in (("mdl.sp_attention", cfg.mdl.sp_attention),
-                                ("misc.mesh_model", cfg.misc.mesh_model != 1)) if on]
-
-
 class Learner:
     SUM_KEYS = ("n_pairs", "n_acc", "n_vacc", "n_queries", "n_strict", "n_cons")
 
     def __init__(self, uid: str, data: DataWrap, cfg, device: DeviceLike = None, mesh: Optional[Mesh] = None):
-        faults = _not_ported(cfg)
-        if faults:
-            raise ValueError(f"not ported to vog_tpu_torch yet: {', '.join(faults)} (the data axis only)")
         self.uid, self.data, self.cfg = uid, data, cfg
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(cfg)
@@ -251,11 +249,11 @@ class Learner:
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.seed = int(cfg.train.seed)
         self.bs = int(cfg.train.bs)
-        self.global_bs = self.bs * self.mesh.world
+        self.global_bs = self.bs * self.mesh.data
         if data.train_dl.bs != self.global_bs:
             raise ValueError(f"the loaders build batches of {data.train_dl.bs} rows, the world's global batch is "
-                             f"{self.global_bs} (train.bs x {self.mesh.world}): build them with get_data(cfg, mesh)")
-        if self.mesh.world > 1:
+                             f"{self.global_bs} (train.bs x {self.mesh.data}): build them with get_data(cfg, mesh)")
+        if self.mesh.data > 1:
             rows = local_batch_rows(self.mesh, self.global_bs)
             for dl in (data.train_dl, data.valid_dl, data.test_dl):
                 if dl is not None:
@@ -287,14 +285,15 @@ class Learner:
             t0 = time.perf_counter()
             dft = DeviceFeatureTables.from_store(cfg, store, half=cfg.misc.half_feats, int8=cfg.misc.int8_feats,
                                                  device=self.device,
-                                                 shard=(self.mesh.rank, self.mesh.world) if self.shard_store else None)
+                                                 shard=(self.mesh.data_index, self.mesh.data) if self.shard_store
+                                                 else None)
             self._sync()
             nb = sum(v.nbytes for v in dft.tables.values())
             dt = time.perf_counter() - t0
             self._tables = dict(dft.tables)
             for d in splits.values():
                 d.device_rows = dft.rows
-            how = f"row-sharded /{self.mesh.world}: {dft.n_rows} rows a rank, " if self.shard_store else ""
+            how = f"row-sharded /{self.mesh.data}: {dft.n_rows} rows a rank, " if self.shard_store else ""
             self.log(f"device feature store: {n_videos} videos resident ({how}{nb / 1e6:.0f} MB, {dft.dtype}) "
                      f"built in {dt:.2f} s")
             self.event("tables", table="features", videos=n_videos, bytes=nb, seconds=dt, sharded=self.shard_store)
@@ -318,7 +317,7 @@ class Learner:
 
         apply_matmul_precision(cfg)
         self.model = get_model(cfg, len(data.vocab), device=self.device, seed=self.seed, train=True,
-                               glove=data.vocab.vectors)
+                               glove=data.vocab.vectors, mesh=self.mesh)
         self.state = TrainState.create(cfg, self.model)
 
         self.K, self.E = dispatch_sizes(cfg)
@@ -397,8 +396,13 @@ class Learner:
         """Write ``models/{uid}/{tag}.pt``: the state's tensors and the meta
         (``CheckpointWriter``).  ``blocking``: return once the file has its
         name; else once the host copy is queued.  A record "save" follows
-        when the file lands.  Rank 0 alone writes."""
+        when the file lands.  Rank 0 alone writes, the whole model's
+        tensors: on the model axis the ranks of data index 0 gather them
+        first."""
         path = self.ckpt_path(tag)
+        if self.mesh.data_index != 0:
+            return path
+        tensors = self.state.whole_tensors()
         if not self.main:
             return path
         meta = {"epoch": self.epoch, "batch_in_epoch": self.batch_in_epoch, "best_metric": self.best_metric,
@@ -408,7 +412,7 @@ class Learner:
             self.event("save", epoch=meta["epoch"], tag=tag, bytes=nbytes, blocking=blocking, copy_s=copy_s,
                        write_s=write_s, seconds=copy_s + write_s, batch_in_epoch=meta["batch_in_epoch"])
 
-        self._writer.submit(path, self.state.tensors(), meta, done)
+        self._writer.submit(path, tensors, meta, done)
         if blocking:
             self._writer.wait()
         return path
@@ -430,7 +434,7 @@ class Learner:
         self.mesh.barrier()
         ckpt = Path(path).absolute() if path else self.ckpt_path(tag)
         payload = torch.load(ckpt, map_location="cpu", weights_only=True)
-        saved, cur = payload["state"], self.state.tensors()
+        saved, cur = self.state.local_tensors(payload["state"]), self.state.tensors()
         if set(saved) == {k for k in cur if not k.startswith("opt:")}:
             cur = {k: v for k, v in cur.items() if k in saved}
             self.log(f"checkpoint {ckpt} holds parameters and step only: the optimizer's moments and "
@@ -471,7 +475,7 @@ class Learner:
         if self.mesh.group is None:
             return self._preempted
         flag = torch.tensor([int(self._preempted)], dtype=torch.int32, device=self.device)
-        return bool(self.mesh.all_reduce_(flag).item())
+        return bool(self.mesh.all_reduce_(flag, "world").item())
 
     @staticmethod
     def _restore_preempt(prev) -> None:
@@ -717,8 +721,8 @@ class Learner:
             if len(group) == self.E:
                 flush()
         flush()
-        if self.mesh.group is not None:  # the ranks' sums and predictions, in rank order
-            sums, preds = gather_eval(sums, preds, self.mesh.group)
+        if self.mesh.data_group is not None:  # the data indices' sums and predictions, in order
+            sums, preds = gather_eval(sums, preds, self.mesh.data_group)
         dt = time.perf_counter() - t0
         pred_file = self.dirs["predictions"] / f"{self.uid}_{split}_{self.epoch}.pkl"
         if self.main:

@@ -28,8 +28,9 @@ def _device(group) -> torch.device:
 
 def gather_eval(sums: Dict[str, float], preds: List[Dict], group=None) -> Tuple[Dict[str, float], List[Dict]]:
     """-> (``sums`` summed over the ranks of ``group`` (the default group
-    when None), every rank's ``preds`` concatenated in rank order).  With
-    no process group it is the identity."""
+    when None; the Learner passes its mesh's data group, whose ranks hold
+    different rows), every rank's ``preds`` concatenated in rank order).
+    With no process group it is the identity."""
     if not dist.is_initialized():
         return dict(sums), list(preds)
     group = group if group is not None else dist.group.WORLD

@@ -53,6 +53,19 @@ its own global counts.  On the card the collectives are captured in the
 step's CUDA graph (NCCL); a graphed dispatch on a gloo group raises.
 ``shard_store``: the feature tables are row-sharded over the ranks and the
 gather is collective (data/device_store.py §sharded_gather_from_tables).
+Each of these runs over the mesh's data group; the rank's rows are its
+data index's.
+
+The model axis (a model from ``get_model(..., mesh=)``): the model ranks
+of a data index compute the same loss.  After the data axis's sum, the
+gradients of the whole parameters that each model rank holds a part of
+(``TrainState.reduce_partial``: the relative-bias tables, and the ring
+blocks' qkv and out under ``mdl.sp_attention``) are summed over the model
+group; the global norm and the non-finite test count the sharded
+parameters' squares over the model ranks and the whole ones once
+(``TrainState.grad_stats``), so clipping and the guard decide as one
+process does; Adam's moments live with their shard.  A graphed dispatch
+captures the model group's NCCL collectives beside the data group's.
 """
 
 from __future__ import annotations
@@ -71,7 +84,7 @@ from vog_tpu_torch.model.loss import compute_loss
 from vog_tpu_torch.model.transformer import dropout_key, set_dropout_key
 from vog_tpu_torch.sampling import assemble_batch, scores_to_canonical
 from vog_tpu_torch.serve import cast_compact
-from vog_tpu_torch.train.dist import Mesh
+from vog_tpu_torch.train.dist import Mesh, gather_tensor, partial_grad, shard_tensor, tp_rule
 from vog_tpu_torch.train.graphs import eval_graph, train_graph
 
 Tree = Dict[str, torch.Tensor]
@@ -120,8 +133,10 @@ def make_optimizer(cfg) -> Optimizer:
                 "nu": torch.zeros(n, dtype=p.dtype, device=p.device)}
 
     def flat_update(g: torch.Tensor, state: Dict[str, Any], p: Optional[torch.Tensor],
-                    frozen: Optional[torch.Tensor] = None):
-        finite = torch.isfinite(g).all()
+                    frozen: Optional[torch.Tensor] = None, stats=None):
+        """``stats``: (finite, norm) of the gradient when it is sharded
+        (``TrainState.grad_stats``); else both from ``g``."""
+        finite = torch.isfinite(g).all() if stats is None else stats[0]
         bad = torch.where(finite, torch.zeros_like(state["notfinite_count"]), state["notfinite_count"] + 1)
         # without the guard (skip_nonfinite 0) every step applies
         apply = finite | (bad > t.skip_nonfinite)
@@ -130,7 +145,7 @@ def make_optimizer(cfg) -> Optimizer:
             apply = apply & ~frozen
             bad = torch.where(frozen, state["notfinite_count"], bad)
             total_bad = torch.where(frozen, state["total_notfinite"], total_bad)
-        norm = torch.sqrt(torch.sum(g * g))
+        norm = torch.sqrt(torch.sum(g * g)) if stats is None else stats[1]
         count = state["count"]
         # fills, not host copies: no wait for the card
         c1 = 1 - torch.pow(torch.full((), B1, device=count.device), (count + 1).float())
@@ -159,9 +174,13 @@ class FlatGrads:
     """A persistent flat gradient vector with a view for each parameter
     (the step's ``.grad``s), and a persistent flat update vector with its
     views (what ``_foreach_add_`` adds): allocated once, so a captured step
-    writes where an eager one does."""
+    writes where an eager one does.  On the model axis: ``sharded`` (a
+    bool vector over the flat gradient, or None) marks the parameters this
+    rank holds a part of, ``partial`` the whole parameters whose gradient
+    each model rank holds a part of (train/dist.py §partial_grad)."""
 
-    def __init__(self, params: List[nn.Parameter]):
+    def __init__(self, params: List[nn.Parameter], sharded: Optional[List[bool]] = None,
+                 partial: Optional[List[bool]] = None):
         self.params = params
         self.sizes = [p.numel() for p in params]
         n = sum(self.sizes)
@@ -170,6 +189,11 @@ class FlatGrads:
         self.upd = torch.zeros_like(self.grad)
         self.grad_views = [g.view_as(p) for g, p in zip(self.grad.split(self.sizes), params)]
         self.upd_views = [u.view_as(p) for u, p in zip(self.upd.split(self.sizes), params)]
+        self.sharded = None
+        if sharded is not None and any(sharded):
+            self.sharded = torch.cat([torch.full((n,), bool(s), device=p0.device)
+                                      for n, s in zip(self.sizes, sharded)])
+        self.partial = [g for g, on in zip(self.grad_views, partial or ()) if on]
 
     def collect(self, accum: int) -> torch.Tensor:
         """The parameters' ``.grad`` (zeros where none) averaged over
@@ -199,14 +223,28 @@ class TrainState:
     step: torch.Tensor
     flat: FlatGrads
     graphs: Dict[Any, Any] = field(default_factory=dict)
+    cfg: Any = None
 
     @classmethod
     def create(cls, cfg, model: nn.Module) -> "TrainState":
+        """The state of ``model``; a model with a model axis (``model.tp``
+        or ``model.sp``, ``get_model(..., mesh=)``) marks its sharded and
+        partial-gradient parameters (train/dist.py)."""
         tx = make_optimizer(cfg)
         params = dict(model.named_parameters())
         p0 = next(iter(params.values()))
+        tp = getattr(model, "tp", None)
+        axis = tp or getattr(model, "sp", None)
+        sharded = [tp_rule(k, cfg) is not None for k in params] if tp is not None else None
+        partial = [partial_grad(k, cfg) for k in params] if axis is not None else None
         return cls(model, tx, tx.init({k: p.detach() for k, p in params.items()}),
-                   torch.zeros((), dtype=torch.int32, device=p0.device), FlatGrads(list(params.values())))
+                   torch.zeros((), dtype=torch.int32, device=p0.device),
+                   FlatGrads(list(params.values()), sharded, partial), cfg=cfg)
+
+    @property
+    def axis(self):
+        """The mesh of the model's model axis, or None."""
+        return getattr(self.model, "tp", None) or getattr(self.model, "sp", None)
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """Every tensor of the state by name: the parameters, both moments,
@@ -222,6 +260,70 @@ class TrainState:
         views shaped like the parameters, by name."""
         names = [k for k, _ in self.model.named_parameters()]
         return {k: v.view_as(p) for k, v, p in zip(names, flat.split(self.flat.sizes), self.flat.params)}
+
+    def whole_tensors(self) -> Dict[str, torch.Tensor]:
+        """``tensors`` of the whole model: each sharded parameter and its
+        moments gathered over the model axis (a collective of the model
+        group: each of its ranks calls it), so the file a tensor-parallel
+        world saves is the one a single process saves."""
+        out = self.tensors()
+        tp = getattr(self.model, "tp", None)
+        if tp is None:
+            return out
+        rules = {k: tp_rule(k, self.cfg) for k, _ in self.model.named_parameters()}
+        for k in rules:
+            out[f"param:{k}"] = gather_tensor(out[f"param:{k}"], rules[k], tp)
+        for k in ("mu", "nu"):
+            out[f"opt:{k}"] = torch.cat([gather_tensor(v, rules[n], tp).reshape(-1)
+                                         for n, v in self.leaves(out[f"opt:{k}"]).items()])
+        return out
+
+    def local_tensors(self, whole: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A whole model's ``tensors`` (a checkpoint's) -> this rank's part
+        of each (the inverse of ``whole_tensors``, no collective)."""
+        tp = getattr(self.model, "tp", None)
+        if tp is None:
+            return whole
+        out = dict(whole)
+        names = [k for k, _ in self.model.named_parameters()]
+        rules = {k: tp_rule(k, self.cfg) for k in names}
+        for k in names:
+            if f"param:{k}" in whole:
+                out[f"param:{k}"] = shard_tensor(whole[f"param:{k}"], rules[k], tp)
+        for k in ("opt:mu", "opt:nu"):
+            if k in whole and all(f"param:{n}" in whole for n in names):
+                sizes = [whole[f"param:{n}"].numel() for n in names]
+                out[k] = torch.cat([shard_tensor(v.view(whole[f"param:{n}"].shape), rules[n], tp).reshape(-1)
+                                    for n, v in zip(names, whole[k].split(sizes))])
+        return out
+
+    def reduce_partial(self) -> None:
+        """Sum the partial-gradient parameters' gradients over the model
+        axis (one all-reduce of their concatenation)."""
+        views = self.flat.partial
+        if not views or self.axis is None:
+            return
+        joined = torch.cat([v.reshape(-1) for v in views])
+        self.axis.all_reduce_(joined, "model")
+        torch._foreach_copy_(views, [p.view_as(v) for p, v in zip(joined.split([v.numel() for v in views]),
+                                                                    views)])
+
+    def grad_stats(self, g: torch.Tensor):
+        """(all finite, global norm) of a gradient whose sharded parameters
+        are split over the model axis: the sharded parameters' sum of
+        squares and non-finite count summed over the model ranks (one
+        all-reduce of two numbers), the whole ones' counted once.  None
+        when nothing is sharded."""
+        mask = self.flat.sharded
+        if mask is None:
+            return None
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        sq = torch.where(mask, g * g, zero)
+        bad = ~torch.isfinite(g)
+        sums = torch.stack([sq.sum(), (bad & mask).sum().to(g.dtype)])
+        self.model.tp.all_reduce_(sums, "model")
+        rest = torch.where(mask, zero, g * g).sum()
+        return (sums[1] == 0) & ~(bad & ~mask).any(), torch.sqrt(sums[0] + rest)
 
     def snapshot(self) -> Dict[str, torch.Tensor]:
         return {k: v.clone() for k, v in self.tensors().items()}
@@ -240,7 +342,7 @@ class TrainState:
         wd = self.tx.wd > 0
         params = self.flat.params
         pflat = torch.cat([p.detach().reshape(-1) for p in params]) if (wd or frozen is not None) else None
-        out, new, norm = self.tx.flat_update(g, self.opt_state, pflat if wd else None, frozen)
+        out, new, norm = self.tx.flat_update(g, self.opt_state, pflat if wd else None, frozen, self.grad_stats(g))
         for k in COUNTERS + ("mu", "nu"):
             self.opt_state[k].copy_(new[k])
         if frozen is None:
@@ -280,8 +382,8 @@ def _grouped(mesh: Optional[Mesh]) -> bool:
 
 
 def _reducer(mesh: Optional[Mesh]) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
-    """The sum over the data axis (None without a process group)."""
-    return mesh.all_reduce_ if _grouped(mesh) else None
+    """The sum over the data axis (None without a data group)."""
+    return mesh.all_reduce_ if mesh is not None and mesh.data_group is not None else None
 
 
 def _check_graphable(mesh: Optional[Mesh]) -> None:
@@ -301,7 +403,7 @@ def _make_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> C
     num_cmp = cfg.ds.num_cmp if conc == "sep" else 1
     gather = make_gather(cfg, mesh, shard_store)
     reduce = _reducer(mesh)
-    rank = mesh.rank if mesh is not None else 0
+    rank = mesh.data_index if mesh is not None else 0
 
     def micro_loss(model, mb, tables):
         clip = assemble_batch(cast_compact(gather(mb, tables)), conc)
@@ -331,6 +433,7 @@ def _make_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) -> C
             if reduce is not None:  # the shares of the global loss and its gradient
                 reduce(g)
                 loss = reduce(loss)
+            state.reduce_partial()
             if frozen is not None:
                 frozen = frozen | ~torch.isfinite(loss)
             aux = {"loss": loss, "grad_norm": state.apply_update(g, frozen)}
@@ -374,7 +477,7 @@ def make_eval_step(cfg, mesh: Optional[Mesh] = None, shard_store: bool = False) 
     conc = cfg.ds.conc_type
     gather = make_gather(cfg, mesh, shard_store)
     reduce = _reducer(mesh)
-    rank = mesh.rank if mesh is not None else 0
+    rank = mesh.data_index if mesh is not None else 0
     max_pairs = int(cfg.train.eval_max_pairs)
     if max_pairs < 0:
         max_pairs = 2 * cfg.ds.max_srl_args
