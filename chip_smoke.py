@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dist   # card, build, [dist gt5 prod] and [model axis gt5 prod] alone, on every card
+    python3 chip_smoke.py --dcode  # card, build, [dcode srl bert-base] and [dcode pipeline] alone
 
 Phases, each printing its own lines; any failure exits non-zero before
 the last line:
@@ -207,6 +208,28 @@ The mesh's model axis (after phase 18):
     ``decomposed_mm`` on and off, one serve flush through the follower,
     each against one process on the card; the ranks' whole parameters and
     gathered states bitwise equal, and a rerun's.
+
+The offline dataset construction (after phase 19, before P100; alone with
+``--dcode``):
+
+20. dcode srl bert-base (``phase_dcode_srl``): the BERT-SRL tagger at
+    BERT-base width (random weights from seed 0, a synthetic 30,522-piece
+    vocab, 4,096 synthetic captions of 10-30 words with words out of the
+    vocab), fp32 "highest": (a) 256 frames through the flash kernel
+    against the same tagger's plain path on the card (last hidden state
+    within 1e-4 x max|h|, tags equal), then every caption through
+    ``tag_sentences`` (sentences/s, frames/s, launches), ``flash_fwd`` at
+    the run's median batch beside its plain version, SDPA and its bound;
+    (b) one fine-tune step of 16 golden frames at full width, every
+    gradient against the plain path on the card (``grad_faults``); (c) the
+    golden harness at the tests' width reaching exact 1.0;
+21. dcode pipeline (``phase_dcode_pipeline``): ``run_pipeline`` with the
+    rule tagger and with phase 20's saved tagger (``bert:``), over a P100
+    fixture of 64 videos, then ``--gt5-from``: every GT box with a P100
+    proposal at IoU >= 0.5 keeps one in the GT5 pack; the built dataset
+    opens with ``get_data``, serves a batch through a ``Predictor`` and
+    takes a train step; none of transformers, tokenizers, safetensors or
+    h5py imported.
 
 No thread may warn that it ran cuBLAS without a current CUDA context
 (``watch_context_warnings``).
@@ -4043,6 +4066,455 @@ def phase_model_axis(card: str) -> dict:
     return out
 
 
+# -- offline dataset construction (dcode) -------------------------------------
+DCODE_CAPTIONS = 4096  # synthetic captions of 10-30 words tagged by [dcode srl bert-base]
+DCODE_CHECK_FRAMES = 256  # frames of (a)'s kernel-against-plain check
+DCODE_STEP_FRAMES = 16  # golden frames of (b)'s fine-tune step
+DCODE_VIDEOS = (40, 12, 12)  # [dcode pipeline]'s P100 fixture: train / valid / test videos
+DCODE_NOUNS = ("man", "woman", "dog", "horse", "ball", "car", "bike", "boat", "guitar", "table", "chair", "cup",
+               "girl", "boy", "rope", "board", "water", "field", "crowd", "camera")
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512)  # structured-prediction-srl-bert's encoder
+
+
+def synthetic_vocab(n: int = 30522, seed: int = 0) -> list:
+    """A WordPiece vocab of ``n`` entries in BERT-base uncased's layout
+    ([PAD], [unused*], [UNK], [CLS], [SEP], [MASK], characters, words,
+    ``##`` pieces): the verb lexicon, the golden set's words and the
+    captions' nouns, then random letter words and pieces from ``seed``."""
+    import string
+
+    import numpy as np
+
+    from vog_tpu_torch.dcode.golden_srl import golden_vocab
+    from vog_tpu_torch.dcode.srl_tagger import LOC_PREPS, STOP, VERB_LEXICON
+
+    chars = list(string.ascii_lowercase + string.digits + string.punctuation)
+    words = sorted(set(golden_vocab()[5:]) | set(VERB_LEXICON) | STOP | LOC_PREPS | set(DCODE_NOUNS))
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars
+             + words + ["##" + c for c in chars] + ["##s", "##es", "##ing", "##ed", "##er", "##ly"])
+    seen = set(vocab)
+    rng = np.random.default_rng(seed)
+    letters = np.array(list(string.ascii_lowercase))
+    while len(vocab) < n:
+        w = "".join(rng.choice(letters, size=int(rng.integers(2, 10))))
+        if rng.uniform() < 0.3:
+            w = "##" + w[:4]
+        if w not in seen:
+            seen.add(w)
+            vocab.append(w)
+    return vocab
+
+
+def synthetic_captions(vocab: list, n: int, seed: int = 0) -> list:
+    """``n`` captions of 10-30 words: subject, a lexicon verb, object and
+    place phrases, filler from the vocab, a second verb in some, and words
+    out of the vocab (random letters, split into pieces; accented and
+    symbol words, some of them [UNK])."""
+    import numpy as np
+
+    from vog_tpu_torch.dcode.srl_tagger import VERB_LEXICON
+
+    rng = np.random.default_rng(seed)
+    verbs = np.array(sorted(VERB_LEXICON))
+    fill = np.array([w for w in vocab[1000:] if not w.startswith("##")])
+    nouns = np.array(DCODE_NOUNS)
+    odd = np.array(["café", "naïve", "señor", "über", "ø", "→", "😀", "日本", "x-ray", "rock'n'roll"])
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out = []
+    for _ in range(n):
+        words = ["the", str(rng.choice(nouns)), str(rng.choice(verbs)), "the", str(rng.choice(nouns)),
+                 "near", "the", str(rng.choice(nouns))]
+        target = int(rng.integers(10, 31))
+        while len(words) < target:
+            r = rng.uniform()
+            if r < 0.55:
+                words.append(str(rng.choice(fill)))
+            elif r < 0.75:
+                words.append("".join(rng.choice(letters, size=int(rng.integers(6, 15)))))
+            elif r < 0.85:
+                words.append(str(rng.choice(odd)))
+            else:
+                words += ["and", str(rng.choice(verbs))]
+        out.append(" ".join(words[:target]))
+    return out
+
+
+def dcode_tagger(cfg_kw: dict, vocab: list, seed: int, dev: str):
+    """A ``BertSrlTagger`` of random weights from ``seed`` (BERT's
+    initialisation, the head PyTorch's), dropout 0."""
+    import torch
+
+    from vog_tpu_torch.dcode.bert import BertConfig, BertModel
+    from vog_tpu_torch.dcode.srl_tagger import BertSrlTagger
+    from vog_tpu_torch.dcode.wordpiece import WordPieceTokenizer
+
+    cfg = BertConfig(vocab_size=len(vocab), hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                     **{k: v for k, v in cfg_kw.items() if k != "vocab_size"})
+    torch.manual_seed(seed)
+    bert = BertModel(cfg).init_weights(torch.Generator().manual_seed(seed))
+    return BertSrlTagger(bert, WordPieceTokenizer(vocab), device=dev)
+
+
+def phase_dcode_srl(card: str, tmp: Path) -> dict:
+    """[dcode srl bert-base]: the BERT-SRL tagger at BERT-base width
+    (``BERT_BASE``; random weights from seed 0, dropout 0), a synthetic
+    30,522-piece vocab and ``DCODE_CAPTIONS`` synthetic captions, fp32
+    "highest".  (a) ``DCODE_CHECK_FRAMES`` frames through the flash kernel
+    against the same tagger's plain path on the card (``plain_kernels``):
+    the last hidden state within 1e-4 x max|h| on the real tokens, the
+    tags equal; then every caption through ``tag_sentences`` (the launches
+    counted from 0 just before it), sentences/s and frames/s; ``flash_fwd``
+    at the run's median batch shape beside its plain version, SDPA and its
+    bound; (b) one fine-tune step (``frame_loss``) of ``DCODE_STEP_FRAMES``
+    golden frames at full width: every gradient against the plain path on
+    the card (``grad_faults``; the key projections' biases, whose gradient
+    is zero in exact arithmetic, by the absolute limit alone), the
+    backward launched; (c) the golden harness at the tests' width
+    (``finetune_srl``, 300 epochs at most) reaching exact 1.0, the flash
+    kernels launched.  Saves (a)'s tagger to ``tmp / "srl_bert_base"``."""
+    import torch
+
+    from vog_tpu_torch.dcode import srl_finetune
+    from vog_tpu_torch.dcode.golden_srl import golden_examples, golden_vocab
+    from vog_tpu_torch.dcode.srl_tagger import BATCH_FRAMES, predicates_of
+    from vog_tpu_torch.kernels import _build, attention
+
+    tag = "[dcode srl bert-base]"
+    out = {}
+    t0 = time.perf_counter()
+    vocab = synthetic_vocab()
+    captions = synthetic_captions(vocab, DCODE_CAPTIONS)
+    tagger = dcode_tagger(BERT_BASE, vocab, 0, "cuda")
+    frames = [(c.split(), v) for c in captions for v in predicates_of(c.split())]
+    n_unk = sum(tagger.tokenizer.word_pieces(w) == [tagger.tokenizer.unk_id] for c in captions for w in c.split())
+    n_words = sum(len(c.split()) for c in captions)
+    print(f"{tag} tagger built in {time.perf_counter() - t0:.1f} s: vocab {len(vocab)}, {len(captions)} captions, "
+          f"{n_words} words ({n_unk} of them [UNK]), {len(frames)} candidate frames", flush=True)
+
+    # (a) the kernel against the plain path on the card
+    check = frames[:DCODE_CHECK_FRAMES]
+    batch, _ = tagger.encode(check)
+    with torch.no_grad():
+        h = tagger.bert(**batch)
+        tags = tagger.frame_tags(check)
+        undo = plain_kernels(("flash",))
+        try:
+            h_plain = tagger.bert(**batch)
+            tags_plain = tagger.frame_tags(check)
+        finally:
+            undo()
+    real = batch["attention_mask"] > 0
+    err = max_err(h[real], h_plain[real])
+    scale = float(h_plain[real].abs().max())
+    if not err <= TOL * scale:
+        fail(f"{tag} last hidden state through the kernel differs from the plain path: {err:.3e} > {TOL} x {scale:.3f}")
+    if tags != tags_plain:
+        fail(f"{tag} tags through the kernel differ from the plain path on "
+             f"{sum(a != b for a, b in zip(tags, tags_plain))} of {len(check)} frames")
+    print(f"{tag} (a) {len(check)} frames (T={batch['input_ids'].shape[1]}): last hidden state max |err| {err:.3e} "
+          f"(limit {TOL} x {scale:.3f}), tags equal", flush=True)
+    tagger.tag_sentences(captions[:256])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    tagged = tagger.tag_sentences(captions)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    if not counts.get("flash_attention"):
+        fail(f"{tag} tagging launched no flash kernel: {counts}")
+    t0 = time.perf_counter()
+    tagger._encodings(frames)  # the host's WordPiece part of the run, alone
+    tok_s = time.perf_counter() - t0
+    out["tagging"] = dict(seconds=dt, tokenize_s=tok_s, sentences_per_s=len(captions) / dt, frames_per_s=len(frames) / dt,
+                          frames=len(frames), sentences=len(captions), tagged=sum(t is not None for t in tagged),
+                          launches=counts, launches_per_1000_sentences=1000 * counts["flash_attention"] / len(captions))
+    print(f"{tag} (a) tag_sentences: {len(captions)} sentences, {len(frames)} frames in {dt:.3f} s: "
+          f"{len(captions) / dt:.1f} sentences/s, {len(frames) / dt:.1f} frames/s, "
+          f"{out['tagging']['tagged']} with a frame (WordPiece alone {tok_s:.3f} s); launches {counts} "
+          f"({out['tagging']['launches_per_1000_sentences']:.1f} flash a 1,000 sentences) on {card}", flush=True)
+
+    # flash_fwd at the run's median batch (frame_tags sorts the frames by length, longest first)
+    encodings = tagger._encodings(frames)
+    lengths = sorted((len(encodings[tuple(w)].input_ids) for w, _ in frames), reverse=True)
+    chunks = [lengths[i:i + BATCH_FRAMES] for i in range(0, len(lengths), BATCH_FRAMES)]
+    mid = chunks[len(chunks) // 2]
+    B, T, H, dh = len(mid), max(mid), BERT_BASE["num_attention_heads"], 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((B, H, T, dh), generator=g, device="cuda") for _ in range(3))
+    lens = torch.tensor(mid, device="cuda")
+    mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
+    o = attention.flash_attention_fwd(q, k, v, mask)[0]
+    ref = attention.flash_attention_plain(q, k, v, mask)[0]
+    ferr = check_close("flash_attention dcode", o, ref)
+    bmask = (mask > 0)[:, None, None, :]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask)  # noqa: E731
+    lib_rel = check_yardstick("flash_attention dcode sdpa", sdpa(), o)
+    t = timings(lambda: attention.flash_attention_fwd(q, k, v, mask),
+                lambda: attention.flash_attention_plain(q, k, v, mask), sdpa)
+    # the work this batch needs: every real query against every real key
+    fl = 4.0 * H * dh * float((lens.double() ** 2).sum())
+    bms, by = bound_ms(nbytes(q, k, v, mask) + nbytes(q) + B * H * T * 4, fl)
+    out["flash"] = dict(shape=f"q,k,v ({B}, {H}, {T}, {dh}) f32, {int(lens.sum())} real tokens", max_abs_err=ferr,
+                        sdpa_rel_err=lib_rel, bound_ms=bms, bound_by=by, **t)
+    print(f"{tag} flash_attention at the median batch ({B}, {H}, {T}, {dh}): max_err={ferr:.3e} "
+          f"{fmt_times(t, 'sdpa')} bound={bms:.4f} ({by})", flush=True)
+    del q, k, v, o, ref, h, h_plain
+
+    # (b) one fine-tune step of golden frames at full width, against the plain path
+    step_tagger = dcode_tagger(BERT_BASE, vocab, 1, "cuda")
+    ex = golden_examples()[:DCODE_STEP_FRAMES]
+    sbatch, labels = srl_finetune.encode_examples(step_tagger, ex)
+
+    def step(plain: bool):
+        undo = plain_kernels(("flash",)) if plain else (lambda: None)
+        step_tagger.model.train()
+        step_tagger.model.zero_grad(set_to_none=True)
+        try:
+            loss = srl_finetune.frame_loss(step_tagger, sbatch, labels)
+            loss.backward()
+        finally:
+            undo()
+            step_tagger.model.eval()
+        return float(loss.detach()), {n: p.grad.detach().cpu().clone() for n, p in step_tagger.model.named_parameters()
+                             if p.grad is not None}
+
+    lp, gp = step(True)
+    _build.reset_counts()
+    lc, gc_ = step(False)
+    torch.cuda.synchronize()
+    step_counts = dict(_build.launches)
+    if not (step_counts.get("flash_attention") and step_counts.get("flash_attention_bwd")):
+        fail(f"{tag} (b) the fine-tune step launched no flash kernel forward and backward: {step_counts}")
+    if not abs(lc - lp) <= 1e-4 * abs(lp):
+        fail(f"{tag} (b) fine-tune loss {lc:.7f} != plain {lp:.7f}")
+    zero_exact = [n for n in gp if n.endswith("attention.self.key.bias")]
+    bad = grad_faults({n: gc_[n] for n in gp if n not in zero_exact}, {n: gp[n] for n in gp if n not in zero_exact})
+    bad += [(n, max_err(gc_[n], gp[n]), None) for n in zero_exact
+            if not max_err(gc_[n], gp[n]) <= TOL * max(1.0, float(gp[n].abs().max()))]
+    if bad:
+        fail(f"{tag} (b) fine-tune gradients differ from the plain path (leaf, max |err|, rel): {bad}")
+    rels = {n: rel_err(gc_[n], gp[n]) for n in gp if n not in zero_exact}
+    worst = max(rels, key=rels.get)
+    out["finetune_step"] = dict(frames=len(ex), shape=tuple(sbatch["input_ids"].shape), loss=lc, loss_plain=lp,
+                                leaves=len(gp), worst_rel=(worst, rels[worst]),
+                                key_bias_max_abs=max(float(gp[n].abs().max()) for n in zero_exact),
+                                launches=step_counts)
+    print(f"{tag} (b) fine-tune step, {len(ex)} golden frames {tuple(sbatch['input_ids'].shape)}: loss {lc:.6f} "
+          f"(plain {lp:.6f}), {len(gp)} gradients within compare_step's limits, worst relative {rels[worst]:.2e} "
+          f"({worst}); the key biases' (zero in exact arithmetic) max |g| "
+          f"{out['finetune_step']['key_bias_max_abs']:.2e}; launches {step_counts}", flush=True)
+    del step_tagger, gp, gc_
+    # flash_bwd (recompute, the default) at (b)'s shape, from random q, k, v, do and (b)'s padding
+    m = sbatch["attention_mask"].float()
+    Bb, Tb = m.shape
+    q, k, v, do = (torch.randn((Bb, H, Tb, dh), generator=g, device="cuda") for _ in range(4))
+    o, lse = attention.flash_attention_fwd(q, k, v, m)
+    got = attention.flash_attention_bwd(q, k, v, m, None, None, o, lse, do)[:3]
+    ref = attention.flash_attention_bwd_plain(q, k, v, m, None, None, o, lse, do)[:3]
+    berr = max(check_close("flash_attention_bwd dcode", x, y) for x, y in zip(got, ref))
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sd = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=(m > 0)[:, None, None, :])
+    sdpa_bwd = lambda: torch.autograd.grad(sd, (qs, ks, vs), do, retain_graph=True)  # noqa: E731
+    lib_rel = check_yardstick("flash_attention_bwd dcode sdpa", torch.cat([x.flatten() for x in sdpa_bwd()]),
+                              torch.cat([x.flatten() for x in got]))
+    t = timings(lambda: attention.flash_attention_bwd(q, k, v, m, None, None, o, lse, do),
+                lambda: attention.flash_attention_bwd_plain(q, k, v, m, None, None, o, lse, do), sdpa_bwd)
+    # S, dP, dV, dK, dQ over the real query and key pairs, from the saved o and lse
+    fl = 10.0 * H * dh * float((m.sum(1).double() ** 2).sum())
+    bms, by = bound_ms(nbytes(q, k, v, o, do, lse, m) + 3 * nbytes(q), fl)
+    out["finetune_step"]["flash_bwd"] = dict(shape=f"q,k,v ({Bb}, {H}, {Tb}, {dh}) f32, {int(m.sum())} real tokens",
+                                             max_abs_err=berr, sdpa_rel_err=lib_rel, bound_ms=bms, bound_by=by, **t)
+    print(f"{tag} flash_attention_bwd (recompute) at (b)'s shape ({Bb}, {H}, {Tb}, {dh}): max_err={berr:.3e} "
+          f"{fmt_times(t, 'sdpa-bwd')} bound={bms:.4f} ({by})", flush=True)
+    del q, k, v, do, o, lse, qs, ks, vs, sd
+    release_card()
+
+    # (c) the golden harness at the tests' width, on the card
+    small = dict(hidden_size=48, num_hidden_layers=2, num_attention_heads=2, intermediate_size=96,
+                 max_position_embeddings=64)
+    golden = dcode_tagger(small, golden_vocab(), 0, "cuda")
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    hist = srl_finetune.finetune_srl(golden, golden_examples(), lr=5e-4, max_epochs=300, seed=0)
+    torch.cuda.synchronize()
+    gdt = time.perf_counter() - t0
+    gcounts = dict(_build.launches)
+    if hist[-1] != 1.0:
+        fail(f"{tag} (c) the golden harness ended at exact {hist[-1]:.3f} after {len(hist)} epochs")
+    if not (gcounts.get("flash_attention") and gcounts.get("flash_attention_bwd")):
+        fail(f"{tag} (c) the golden fine-tune launched no flash kernel forward and backward: {gcounts}")
+    out["golden"] = dict(epochs=len(hist), seconds=gdt, launches=gcounts)
+    print(f"{tag} (c) golden harness: exact 1.0 after {len(hist)} epochs ({len(golden_examples())} frames), "
+          f"{gdt:.1f} s; launches {gcounts}", flush=True)
+    srl_finetune.save_tagger(tagger, str(tmp / "srl_bert_base"))
+    del tagger, golden
+    release_card()
+    return out
+
+
+def dcode_raw(src: Path, out: Path) -> Path:
+    """The pipeline's raw inputs made from a fixture's annotations: one
+    caption a query (its verb inflected), the AE phrase boxes of its
+    arguments, and one caption with no verb."""
+    out.mkdir(parents=True)
+    caps, ae = [], {}
+    suffix = {0: "", 1: "s", 2: "ing"}
+    for split in ("train", "valid", "test"):
+        with open(src / f"anns_{split}.jsonl") as f:
+            anns = [json.loads(ln) for ln in f if ln.strip()]
+        for ann in anns:
+            toks = list(ann["tokens"])
+            toks[ann["verb_idx"]] += suffix[ann["ann_idx"] % 3]
+            caps.append({"vid_seg": ann["vid_seg"], "sentence": " ".join(toks), "split": split})
+            ae[ann["vid_seg"]] = [{"tokens": ["the", a["lemma"]], "frame": b["frame"], "box": b["box"]}
+                                  for a in ann["args"] for b in a["boxes"]]
+    caps.append({"vid_seg": caps[0]["vid_seg"], "sentence": "nothing to see here", "split": "train"})
+    with open(out / "captions.jsonl", "w") as f:
+        f.write("\n".join(json.dumps(c) for c in caps) + "\n")
+    with open(out / "ae_annots.json", "w") as f:
+        json.dump(ae, f)
+    return out
+
+
+def gt5_coverage(p100: Path, gt5: Path, k: int = 5) -> tuple:
+    """Every GT box of the GT5 dataset's annotations, in a frame with at
+    most ``k`` GT boxes, that has a P100 proposal at IoU >= 0.5 keeps one
+    in the GT5 pack -> (GT boxes checked, those in frames of more than k,
+    failures)."""
+    import numpy as np
+
+    from vog_tpu_torch.data.boxes import iou_matrix
+    from vog_tpu_torch.data.featpack import PackedFeatureStore
+
+    src, dst = PackedFeatureStore(p100), PackedFeatureStore(gt5)
+    gts = {}
+    for split in ("train", "valid", "test"):
+        with open(gt5 / f"anns_{split}.jsonl") as f:
+            for ann in (json.loads(ln) for ln in f if ln.strip()):
+                for a in ann["args"]:
+                    for b in a["boxes"]:
+                        gts.setdefault((ann["vid_seg"], int(b["frame"])), []).append(np.asarray(b["box"], np.float32))
+    checked = crowded = 0
+    bad = []
+    for (vid, fr), boxes in sorted(gts.items()):
+        if len(boxes) > k:
+            crowded += len(boxes)
+            continue
+        before, after = src.get_meta(vid)[0][fr], dst.get_meta(vid)[0][fr]
+        for gt in boxes:
+            if iou_matrix(before, gt[None]).max() >= 0.5:
+                checked += 1
+                if not iou_matrix(after, gt[None]).max() >= 0.5:
+                    bad.append((vid, fr))
+    return checked, crowded, bad
+
+
+def phase_dcode_pipeline(card: str, tmp: Path) -> dict:
+    """[dcode pipeline]: ``run_pipeline`` on this machine as installed
+    (no transformers, tokenizers, safetensors or h5py in the process),
+    over a P100 fixture of ``DCODE_VIDEOS`` videos at full feature widths
+    written by the port's writer (100 proposals a frame) and captions made
+    from its annotations (``dcode_raw``), with ``--tagger=rule`` and with
+    ``--tagger=bert:<[dcode srl bert-base]'s saved tagger>`` on the card:
+    first into a P100 dataset beside the fixture's store, then from it with
+    ``--gt5-from`` into a GT5 one.  Checks: every GT box with a P100
+    proposal at IoU >= 0.5 keeps one in the GT5 pack (``gt5_coverage``);
+    the bert GT5 dataset opens with ``get_data``, one valid batch runs
+    through a ``Predictor`` (finite outputs of the batch's shape) and one
+    train batch through a train step (a finite loss).  The GT5 build's
+    seconds, each pipeline's, the tagger's launches."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.data.fixtures import generate_fixture
+    from vog_tpu_torch.data.loader import get_data
+    from vog_tpu_torch.dcode.gt5_builder import build_gt5
+    from vog_tpu_torch.dcode.pipeline import run_pipeline
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.serve import Predictor
+    from vog_tpu_torch.train import TrainState, make_train_step
+
+    tag = "[dcode pipeline]"
+    t0 = time.perf_counter()
+    fx = tmp / "p100_fixture"
+    n_tr, n_va, n_te = DCODE_VIDEOS
+    generate_fixture(fx, n_train=n_tr, n_valid=n_va, n_test=n_te, num_props=100, seed=0)
+    raw = dcode_raw(fx, tmp / "raw")
+    print(f"{tag} P100 fixture of {sum(DCODE_VIDEOS)} videos (100 proposals a frame, feats 2048, seg 3072) "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for name, spec in (("rule", "rule"), ("bert", f"bert:{tmp / 'srl_bert_base'}")):
+        p100, gt5 = tmp / f"p100_{name}", tmp / f"gt5_{name}"
+        p100.mkdir()
+        for f in ("featpack.bin", "featpack.json", "vid_dims.json", "glove.txt"):
+            os.symlink(fx / f, p100 / f)
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        counts = run_pipeline(raw, p100, tagger=spec, device="cuda")
+        t1 = time.perf_counter()
+        run_pipeline(raw, gt5, tagger=spec, gt5_from=str(p100), device="cuda")
+        t2 = time.perf_counter()
+        launches = dict(_build.launches)
+        if name == "bert" and not launches.get("flash_attention"):
+            fail(f"{tag} the bert: tagger launched no flash kernel: {launches}")
+        t3 = time.perf_counter()
+        build_gt5(p100, tmp / f"gt5_only_{name}")
+        gt5_s = time.perf_counter() - t3
+        checked, crowded, bad = gt5_coverage(p100, gt5)
+        if bad or not checked:
+            fail(f"{tag} {name}: {len(bad)} GT boxes lost their IoU >= 0.5 proposal in the GT5 pack "
+                 f"(of {checked} checked): {bad[:5]}")
+        out[name] = dict(queries=counts, pipeline_s=t1 - t0, pipeline_gt5_s=t2 - t1, gt5_build_s=gt5_s,
+                         gt_checked=checked, gt_in_crowded_frames=crowded, launches=launches)
+        print(f"{tag} --tagger={name}: queries {counts}, the pipeline {t1 - t0:.2f} s, with --gt5-from "
+              f"{t2 - t1:.2f} s (the GT5 build alone {gt5_s:.2f} s); {checked} GT boxes keep an IoU >= 0.5 "
+              f"proposal ({crowded} in frames of more than 5 GT boxes not checked); launches {launches}", flush=True)
+    present = [m for m in ("transformers", "tokenizers", "safetensors", "h5py") if m in sys.modules]
+    if present:
+        fail(f"{tag} the pipeline imported {present}")
+
+    cfg = serve_cfg()
+    cfg.ds.data_dir = str(tmp / "gt5_bert")
+    cfg.misc.half_feats = False
+    data = get_data(cfg)
+    batch = stack_requests(valid_requests(data, 4))
+    pred = Predictor(cfg, None, len(data.vocab), device="cuda", cuda_graphs=False, glove=data.vocab.vectors)
+    res = pred(batch)
+    bad = [k for k, v in res.items() if not np.isfinite(np.asarray(v, np.float64)).all()]
+    if bad or res["pred_vid"].shape[0] != 4:
+        fail(f"{tag} Predictor on the built dataset: non-finite {bad} or shapes "
+             f"{ {k: np.shape(v) for k, v in res.items()} }")
+    del pred
+    model = get_model(cfg, len(data.vocab), device="cuda", glove=data.vocab.vectors, train=True)
+    tb = next(iter(data.train_dl))
+    tb = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in tb.items()}
+    _, aux = make_train_step(cfg)(TrainState.create(cfg, model), tb, seed=0, tables=None)
+    loss = float(aux["loss"])
+    if not math.isfinite(loss):
+        fail(f"{tag} a train step on the built dataset gave loss {loss}")
+    out["dataset"] = dict(train=len(data.train_dl.ds), valid=len(data.valid_dl.ds), test=len(data.test_dl.ds),
+                          loss=loss)
+    print(f"{tag} the bert: GT5 dataset opens with get_data ({out['dataset']['train']} / {out['dataset']['valid']} / "
+          f"{out['dataset']['test']} queries); 4 valid requests through a Predictor, finite; one train step, "
+          f"loss {loss:.5f} on {card}", flush=True)
+    del model
+    release_card()
+    return out
+
+
+def phase_dcode(card: str) -> dict:
+    """[dcode srl bert-base] then [dcode pipeline], in one temp dir, fp32
+    "highest"."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="vog_dcode_") as tmp:
+        srl = phase_dcode_srl(card, Path(tmp))
+        return {"srl": srl, "pipeline": phase_dcode_pipeline(card, Path(tmp))}
+
+
 CONTEXT_WARNINGS: list = []
 
 
@@ -4081,6 +4553,11 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--dcode" in sys.argv[1:]:  # [dcode srl bert-base] and [dcode pipeline] alone
+        print(json.dumps({"dcode": phase_dcode(card), "card": card}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- GT5 (T = 200, B = 16) ---------------------------------------------
     cfg = serve_cfg()
@@ -4110,6 +4587,7 @@ def main() -> int:
     learner, serve_cli, export = phase_learner(card, dispatch_prod)
     dist = phase_dist(card)
     model_axis = phase_model_axis(card)
+    dcode = phase_dcode(card)
 
     # -- P100 (T = 4000, B = 2) --------------------------------------------
     cfg = serve_cfg("p100")
@@ -4189,6 +4667,13 @@ def main() -> int:
         r["gt5"]["dist_gloo_launches"] = dist["gloo"]["counts"].get(r["name"], 0)
         # [model axis gt5 prod] (b): rank 0's eager TP steps at 2 heads a rank, counted from 0 just before them
         r["gt5"]["model_axis_gloo_launches"] = model_axis["gloo"]["counts"].get(r["name"], 0)
+    for r in rows:  # the BERT-SRL tagger's flash launches: tag_sentences, and (c)'s finetune_srl
+        if r["name"] == "flash_attention":
+            r["dcode"] = {"launches": dcode["srl"]["tagging"]["launches"]["flash_attention"], **dcode["srl"]["flash"]}
+        elif r["name"] == "flash_attention_bwd":
+            r["dcode"] = {"launches": dcode["srl"]["golden"]["launches"]["flash_attention_bwd"],
+                          "step_launches": dcode["srl"]["finetune_step"]["launches"]["flash_attention_bwd"],
+                          **dcode["srl"]["finetune_step"]["flash_bwd"]}
     rows += rows_def
     if CONTEXT_WARNINGS:
         fail(f"a thread ran cuBLAS with no current CUDA context: {CONTEXT_WARNINGS}")
@@ -4201,7 +4686,7 @@ def main() -> int:
                                "dispatch_p100": dispatch_p100_prod},
                       "learner": {k: v for k, v in learner.items() if k != "launches"},
                       "serve_cli": serve_cli, "export": export, "dist": dist, "model_axis": model_axis,
-                      "card": card}),
+                      "dcode": dcode, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

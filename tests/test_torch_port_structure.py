@@ -1,7 +1,8 @@
 """Structural rules of the PyTorch port (``vog_tpu_torch``):
 
   * importing it, or any of its modules, pulls in neither JAX nor the JAX
-    package ``vog_tpu``; no file of it, nor ``chip_smoke.py``, imports them;
+    package ``vog_tpu``, nor ``transformers``, ``tokenizers`` or
+    ``safetensors``; no file of it, nor ``chip_smoke.py``, imports them;
   * its entry points run on the card by default and raise without one;
   * the mesh refuses a model axis that its world or widths cannot take,
     naming the key; the model axis's modules import no JAX;
@@ -32,7 +33,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "vog_tpu_torch"
 SMOKE = ROOT / "chip_smoke.py"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vog_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vog_tpu", "transformers", "tokenizers", "safetensors"}
 
 # the rows of chip_smoke.py's table for the backward modes that are not the
 # TPU package's default: module -> (its constant, the row's name)
@@ -157,18 +158,39 @@ def test_not_ported_names_only_the_multi_device_keys():
         assert path.is_file() and not _imported_roots(path) & FORBIDDEN, path.name
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from vog_tpu_torch import resolve_device
     from vog_tpu_torch.config import Cfg
     from vog_tpu_torch.data.device_store import DeviceFeatureTables
+    from vog_tpu_torch.dcode.bert import BertConfig, BertModel
+    from vog_tpu_torch.dcode.pipeline import run_pipeline
+    from vog_tpu_torch.dcode.srl_finetune import save_tagger
+    from vog_tpu_torch.dcode.srl_tagger import BertSrlTagger
+    from vog_tpu_torch.dcode.wordpiece import WordPieceTokenizer
 
     with pytest.raises(RuntimeError):
         resolve_device()
     with pytest.raises(RuntimeError):
         DeviceFeatureTables(Cfg(), 2)
     assert resolve_device("cpu").type == "cpu"
+    # the BERT-SRL tagger: from a saved directory, and through the pipeline's bert: tagger
+    cfg = BertConfig(vocab_size=8, hidden_size=8, num_hidden_layers=1, num_attention_heads=2,
+                     intermediate_size=16, max_position_embeddings=16)
+    tok = WordPieceTokenizer(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "man", "throws"])
+    torch.manual_seed(0)
+    model_dir = save_tagger(BertSrlTagger(BertModel(cfg), tok, device="cpu"), str(tmp_path / "tagger"))
+    with pytest.raises(RuntimeError):
+        BertSrlTagger.from_pretrained(model_dir)
+    assert BertSrlTagger.from_pretrained(model_dir, device="cpu").device.type == "cpu"
+    (tmp_path / "raw").mkdir()
+    (tmp_path / "raw" / "captions.jsonl").write_text('{"vid_seg": "v0", "sentence": "the man throws"}\n')
+    (tmp_path / "raw" / "ae_annots.json").write_text("{}")
+    with pytest.raises(RuntimeError):
+        run_pipeline(tmp_path / "raw", tmp_path / "out", tagger=f"bert:{model_dir}")
+    counts = run_pipeline(tmp_path / "raw", tmp_path / "out", tagger=f"bert:{model_dir}", device="cpu")
+    assert set(counts.values()) <= {0}  # no AE boxes: nothing grounded, whatever the random head tags
 
 
 def test_wrappers_refuse_other_devices():
@@ -390,7 +412,7 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
 
 
 # modules the card's host lacks: imported only inside the function that needs them
-LAZY_ONLY = {"h5py", "yaml", "tensorboard"}
+LAZY_ONLY = {"h5py", "yaml", "tensorboard", "allennlp"}
 
 
 def _module_level_roots(path):
@@ -413,21 +435,23 @@ def _module_level_roots(path):
 
 
 def test_no_module_level_h5py_or_yaml():
-    """Every module of the port (the data path, the Learner and the CLIs
-    included) and chip_smoke.py import h5py, PyYAML and tensorboard only
-    inside the function that needs them, and the whole package imports
-    with all three absent."""
+    """Every module of the port (the data path, the Learner, the CLIs and
+    dcode included) and chip_smoke.py import h5py, PyYAML, tensorboard
+    and allennlp only inside the function that needs them, and the whole
+    package imports with all four absent."""
     files = list(PKG.rglob("*.py")) + [SMOKE]
     names = {str(f.relative_to(ROOT)) for f in files}
     for new in ("data/dataset.py", "data/featpack.py", "data/fixtures.py", "data/loader.py", "data/vocab.py",
                 "data/boxes.py", "data/contrastive.py", "evaluation/offline.py", "native/__init__.py",
-                "train/learner.py", "train/progress.py", "cli/train.py", "cli/eval.py"):
+                "train/learner.py", "train/progress.py", "cli/train.py", "cli/eval.py",
+                "dcode/srl_tagger.py", "dcode/gt5_builder.py", "dcode/pipeline.py"):
         assert f"vog_tpu_torch/{new}" in names, new
     bad = {str(f.relative_to(ROOT)): sorted(_module_level_roots(f) & LAZY_ONLY) for f in files}
     assert not {k: v for k, v in bad.items() if v}
     code = (
         "import importlib, sys\n"
         "sys.modules['h5py'] = None; sys.modules['yaml'] = None; sys.modules['tensorboard'] = None\n"
+        "sys.modules['allennlp'] = None\n"
         f"for m in {_modules()!r}: importlib.import_module(m)\n"
         "from vog_tpu_torch.config import get_default_cfg\n"
         "cfg = get_default_cfg('configs/gt5_production.yml')\n"
