@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --dist   # card, build, [dist gt5 prod] and [model axis gt5 prod] alone, on every card
     python3 chip_smoke.py --dcode  # card, build, [dcode srl bert-base] and [dcode pipeline] alone
+    python3 chip_smoke.py --wide   # card, build, [wide shapes] alone
 
 Phases, each printing its own lines; any failure exits non-zero before
 the last line:
@@ -230,6 +231,25 @@ The offline dataset construction (after phase 19, before P100; alone with
     opens with ``get_data``, serves a batch through a ``Predictor`` and
     takes a train step; none of transformers, tokenizers, safetensors or
     h5py imported.
+
+The attention kernels' wide shapes (after phase 21, before P100; alone
+with ``--wide``):
+
+22. wide shapes (``phase_wide``): the production model with ``WIDE``'s
+    keys (2 heads: head dim 256; ``temp`` over 4 videos of 20 frames: 80
+    frames, T=400; 10 args: the mm kernels in two launches of 5; a second
+    mm layer, whose flash attention carries the 80-frame bias), fp32
+    "highest": (a) ``wide_kernel_rows``: the flash kernels at the second
+    mm layer's shape and the mm kernels at the first's, forward and both
+    backward modes, against their plain versions (phase 3's limits),
+    timed beside them, SDPA with the bias as a float mask and the bounds;
+    the flash forward at the BERT-SRL tagger's shape (the dh-64 instance)
+    beside SDPA; (b) 32 requests from 4 clients on 2,000 random bf16 rows,
+    scores against the plain path on the card; (c) phase 7 at 5 steps
+    (first step and trained state against the plain path on the card,
+    with its control), the mm kernels launched twice a call, and 2 steps
+    in the other backward-mode pair (flash emit, mm recompute).  Every
+    wide row's launches are counted on (b) and (c).
 
 No thread may warn that it ran cuBLAS without a current CUDA context
 (``watch_context_warnings``).
@@ -469,10 +489,10 @@ def phase_build():
 
     secs = _build.build_all()
     print(f"[build] {len(_build.LIBRARIES)} libraries ({len(_build.SOURCES)} sources, the three with TF32 "
-          f"products at \"highest\" and at \"default\") built in {secs:.1f} s into {_build.build_dir()}",
-          flush=True)
-    for src, prec in _build.LIBRARIES:
-        stem = _build.lib_stem(src, prec)
+          f"products at \"highest\" and at \"default\", {', '.join(_build.WIDE_SOURCES)} also at DK "
+          f"{_build.WIDE_DK}) built in {secs:.1f} s into {_build.build_dir()}", flush=True)
+    for lib in _build.LIBRARIES:
+        stem = _build.lib_stem(*lib)
         log = _build.build_dir() / f"{stem}.log"
         if not log.exists():
             continue
@@ -487,10 +507,19 @@ def phase_build():
                 print(f"[build] {stem} {fn}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
 
 
-def serve_cfg(exp_setting: str = "gt5"):
+# [wide shapes]: the production model at the shapes the attention kernels
+# took last: 2 heads (head dim 256), ``temp`` over 4 videos of 20 frames
+# (80 frames, T = 400), 10 args (the mm kernels in groups of 5 + 5), and a
+# second mm layer, whose flash attention carries the 80-frame bias
+WIDE = {"mdl.n_heads": 2, "ds.conc_type": "temp", "ds.num_frms": 20, "ds.max_srl_args": 10,
+        "mdl.mm_tx_layers": 2}
+
+
+def serve_cfg(exp_setting: str = "gt5", wide: bool = False):
     """The production model (fp32 activations, matmul precision
     "highest"); GT5 with bf16 tables, or P100 (100 proposals a frame,
-    T = 4000) with int8 tables, as the JAX package's single-chip P100 run."""
+    T = 4000) with int8 tables, as the JAX package's single-chip P100 run;
+    ``wide``: with the keys of ``WIDE``."""
     from vog_tpu_torch.config import Cfg, post_proc_config
 
     cfg = Cfg()  # production widths: vis 512, 4 heads, lstm 256, emb 300, role 128
@@ -504,6 +533,9 @@ def serve_cfg(exp_setting: str = "gt5"):
     cfg.ds.exp_setting = exp_setting
     cfg.misc.half_feats = exp_setting == "gt5"
     cfg.misc.int8_feats = exp_setting == "p100"
+    for key, v in (WIDE if wide else {}).items():
+        group, name = key.split(".")
+        setattr(getattr(cfg, group), name, v)
     return post_proc_config(cfg)
 
 
@@ -717,7 +749,7 @@ def cpu_outputs(cfg, sd, sub, tables) -> dict:
 
 def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, max_batch: int = 16,
                 buckets=(1, 2, 4, 8), ref_on: str = "cpu", n_ref: int = 4, cuda_graphs: bool = True,
-                score_tol=None):
+                score_tol=None, label: str = ""):
     """``n_requests`` vid_rows requests from ``clients`` threads through
     ``ServingLoop``: one pass discarded after ``prewarm``, then
     ``SERVE_PASSES`` timed passes (p50 / p95 / req/s of each, and their
@@ -739,7 +771,7 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
     from vog_tpu_torch.serving import ServingLoop
 
     prod = cfg.misc.matmul_precision == "default"
-    tag = cfg.ds.exp_setting + (" prod" if prod else "") + ("" if cuda_graphs else ", cuda_graphs off")
+    tag = cfg.ds.exp_setting + label + (" prod" if prod else "") + ("" if cuda_graphs else ", cuda_graphs off")
     vocab = 5000
     pred = Predictor(cfg, None, vocab, tables=tables.tables, device="cuda", cuda_graphs=cuda_graphs)
     flushes = [0]
@@ -1392,12 +1424,12 @@ MODE_PAIRS = {
 }
 
 
-def train_cfg(dropout: float, exp_setting: str = "gt5"):
+def train_cfg(dropout: float, exp_setting: str = "gt5", wide: bool = False):
     """The serving model with the production training recipe: GT5's
     (``configs/gt5_production.yml``), or the JAX package's P100 learnability
     recipe (BASELINE.md: B=2, lr 1e-3 cosine after 100 warm-up steps,
-    pos_weight 20, skip_nonfinite 3, grad_clip 1)."""
-    cfg = serve_cfg(exp_setting)
+    pos_weight 20, skip_nonfinite 3, grad_clip 1); ``wide``: ``WIDE``'s keys."""
+    cfg = serve_cfg(exp_setting, wide)
     t = cfg.train
     if exp_setting == "gt5":
         t.bs, t.lr, t.pos_weight, t.skip_nonfinite = 16, 5e-4, 5.0, 50
@@ -1651,12 +1683,12 @@ def planted_zero_control(cfg, sd, batch, tables, gp, keep):
 
 
 def phase_train(tables, card: str, exp_setting: str = "gt5", steps: int = TRAIN_STEPS,
-                ref_on: str = "cpu", launched=KERNEL_NAMES, absent=(), label: str = ""):
+                ref_on: str = "cpu", launched=KERNEL_NAMES, absent=(), label: str = "", wide: bool = False):
     """(a) first step card vs the plain path (``ref_on``: the CPU, or the
     card with the plain versions), (b) ``steps`` production-recipe steps
     from the device tables, every kernel of ``launched`` launched and none
     of ``absent``, one step's peak memory, (c) the trained state against
-    the plain path again."""
+    the plain path again.  ``wide``: the model of ``WIDE``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1665,7 +1697,7 @@ def phase_train(tables, card: str, exp_setting: str = "gt5", steps: int = TRAIN_
     from vog_tpu_torch.model.grounding import get_model
     from vog_tpu_torch.train import TrainState, make_train_step
 
-    cfg, parity = train_cfg(0.1, exp_setting), train_cfg(0.0, exp_setting)
+    cfg, parity = train_cfg(0.1, exp_setting, wide), train_cfg(0.0, exp_setting, wide)
     B, tag = cfg.train.bs, f"{exp_setting}{label}"
     batches = make_train_batches(cfg, steps + 1, B, tables.n_rows, 5000, seed=11)
     model = get_model(cfg, 5000, device="cuda", seed=3, train=True)
@@ -4518,6 +4550,233 @@ def phase_dcode(card: str) -> dict:
 CONTEXT_WARNINGS: list = []
 
 
+WIDE_ROWS = 2000  # feature-table rows of [wide shapes] (20 frames a row: 0.8 GB in bf16)
+WIDE_STEPS = 5  # production-recipe steps of its train phase (b)
+WIDE_SWAPPED_STEPS = 2  # steps in the other backward-mode pair (flash emit, mm recompute)
+WIDE_REQUESTS = 32
+TAGGER_ATTN = (256, 12, 35, 64)  # the BERT-SRL tagger's flash call at BERT-base width (dcode/bert.py)
+WIDE_TIMING = (7, 3)  # time_ms's (reps, inner): each call takes milliseconds, the plain versions more
+
+
+def wide_kernel_rows(cfg) -> tuple:
+    """[wide shapes] kernels: the flash kernels at the second mm layer's
+    shape (B x A sequences, head dim 256, the 80-frame bias) and the mm
+    kernels at the first's (A = 10: two launches of 5 args), forward and
+    both backward modes, each against its plain version on the card
+    (phase 3's limits), then timed beside it, the one library call that
+    computes the same function (SDPA with the bias as a float mask; its
+    backward with the mask's gradient) and the bound; and the flash forward
+    at the BERT-SRL tagger's shape (head dim 64: the instance without
+    padded k-steps) beside SDPA.  -> (the kernel table rows, without
+    launches; the tagger's timings)."""
+    import torch
+
+    from vog_tpu_torch.kernels import attention, mm_attention
+    from vog_tpu_torch.kernels.attention import NEG
+
+    tag = "[wide shapes]"
+    reps, inner = WIDE_TIMING
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    V, F, P, A = cfg.ds.num_cmp, cfg.ds.num_frms, cfg.ds.num_prop_per_frm, cfg.ds.max_srl_args
+    H, dh, B = cfg.mdl.n_heads, cfg.mdl.vis_dim // cfg.mdl.n_heads, cfg.train.bs
+    frames, T = V * F, V * F * P  # temp: the videos' frames in turn
+    fid = (torch.arange(T, device=dev) // P).to(torch.int32)
+    fb = torch.randn((H, frames, frames), generator=g, device=dev) * 0.5
+    inst = f"dh{dh},F{frames}"
+    rows = []
+
+    def add(name, source, replaces, err, t, bound, shape, lib_note):
+        rows.append(dict(name=f"{name}[{inst}]", kernel=name, route="cuda", source=source, replaces=replaces,
+                         max_abs_err=err, **t, bound_ms=bound[0], bound_by=bound[1], shape=shape,
+                         library=lib_note))
+        print(f"{tag} {name}[{inst}] max_err={err:.3e} {fmt_times(t, 'sdpa')} bound={bound[0]:.4f} ({shape})",
+              flush=True)
+
+    # -- flash: the second mm layer's call (B*A sequences, the 80-frame bias)
+    Bf = B * A
+    q, k, v, do = (torch.randn((Bf, H, T, dh), generator=g, device=dev) for _ in range(4))
+    mask = (torch.rand((Bf, T), generator=g, device=dev) > 0.2).float()
+    mask[:, 0] = 1.0
+    o, lse = attention.flash_attention_fwd(q, k, v, mask, fb, fid)
+    ro, rl = attention.flash_attention_plain(q, k, v, mask, fb, fid)
+    err = max(check_close("flash_attention", o, ro), check_close("flash_attention lse", lse, rl))
+    fidl = fid.long()
+    fmask = (fb[:, fidl][:, :, fidl][None]
+             + torch.where(mask > 0, 0.0, NEG)[:, None, None, :]).contiguous()  # (Bf, H, T, T)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=fmask)  # noqa: E731
+    lib_rel = check_yardstick("flash_attention sdpa", sdpa(), o)
+    t = timings(lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid),
+                lambda: attention.flash_attention_plain(q, k, v, mask, fb, fid), sdpa, reps, inner)
+    shape = f"q,k,v {tuple(q.shape)} f32, ({frames}, {frames}) frame bias"
+    add("flash_attention", "vog_tpu_torch/csrc/attention.cu", "vog_tpu/kernels/attention.py:286", err, t,
+        bound_ms(nbytes(q, k, v, mask, fb, fid) + nbytes(q) + nbytes(lse), 4.0 * Bf * H * T * T * dh), shape,
+        f"SDPA, the bias and key mask as a float mask (Bf,H,T,T); rel err vs kernel {lib_rel:.2e}")
+    ref = attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, fmask)]
+    sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+    lib = lambda: torch.autograd.grad(sd, leaves, do, retain_graph=True)  # noqa: E731
+    bound = bound_ms(nbytes(q, k, v, o, do, lse, mask, fb, fid) + 3 * nbytes(q) + nbytes(fb),
+                     10.0 * Bf * H * T * T * dh)
+    shared = timings(None, lambda: attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do),
+                     lib, reps, inner)
+    for mode, name, replaces in BWD_MODES["flash_attention_bwd"]:
+        got = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode)
+        err = max(check_close(f"{name} {n}", x, y) for n, x, y in zip(OUT_NAMES[name], got, ref))
+        del got
+        t = {**shared, **{key: x for key, x in timings(
+            lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode),
+            None, None, reps, inner).items() if key in ("ms", "issue_ms")}}
+        add(name, "vog_tpu_torch/csrc/attention.cu", replaces, err, t, bound, shape,
+            "SDPA backward, grads of q, k, v and the float mask")
+    del q, k, v, do, o, lse, ro, rl, fmask, leaves, sd, lib, ref
+
+    # -- mm: the first mm layer's call (A args in groups of at most 8) ----
+    qm = torch.randn((B, H, T, dh), generator=g, device=dev) * dh ** -0.5
+    km, vm = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(2))
+    cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
+    mask[:, 0] = 1.0
+    fwd = mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
+    rf = mm_attention.mm_attention_plain(qm, km, vm, cn, mask, fb, fid)
+    err = max(check_close("mm_shared_qk_attention", x, y) for x, y in zip(fwd, rf))
+    q_rep, fm = mm_sdpa_inputs(qm, cn, mask, fb, fid)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q_rep, km, vm, attn_mask=fm, scale=1.0)
+    lib_rel = check_yardstick("mm_shared_qk_attention sdpa", sdpa().reshape(fwd[0].shape), fwd[0])
+    t = timings(lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid),
+                lambda: mm_attention.mm_attention_plain(qm, km, vm, cn, mask, fb, fid), sdpa, reps, inner)
+    groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.arg_groups(A))
+    shape = f"qm,km,vm {tuple(qm.shape)}, A={A} ({groups}) f32, ({frames}, {frames}) frame bias"
+    add("mm_shared_qk_attention", "vog_tpu_torch/csrc/mm_attention.cu", "vog_tpu/kernels/mm_attention.py:315",
+        err, t, bound_ms(nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4,
+                         2.0 * B * H * T * T * dh * (1 + A)), shape,
+        f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}")
+    gm = torch.randn(fwd[0].shape, generator=g, device=dev)
+    ref = mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *rf, gm)
+    leaves = [x.detach().clone().requires_grad_() for x in (q_rep, km, vm, fm)]
+    del q_rep, fm
+    sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+    gsd = gm.reshape(sd.shape)
+    lib = lambda: torch.autograd.grad(sd, leaves, gsd, retain_graph=True)  # noqa: E731
+    bound = bound_ms(nbytes(qm, km, vm, cn, mask, fb, gm, *fwd) + 3 * nbytes(qm) + nbytes(cn),
+                     2.0 * B * H * T * T * dh * (3 + 2 * A))
+    shared = timings(None, lambda: mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *rf, gm),
+                     lib, reps, inner)
+    for mode, name, replaces in BWD_MODES["mm_shared_qk_attention_bwd"]:
+        got = mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode)
+        err = max(check_close(f"{name} {n}", x, y) for n, x, y in zip(OUT_NAMES[name], got, ref))
+        del got
+        t = {**shared, **{key: x for key, x in timings(
+            lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode),
+            None, None, reps, inner).items() if key in ("ms", "issue_ms")}}
+        add(name, "vog_tpu_torch/csrc/mm_attention.cu", replaces, err, t, bound, shape,
+            "SDPA backward, grads of q (repeated), k, v and the float mask")
+    del qm, km, vm, cn, fwd, rf, gm, ref, leaves, sd, gsd, lib
+
+    # -- the tagger's flash forward: head dim 64 -------------------------
+    Bt, Ht, Tt, dt = TAGGER_ATTN
+    q, k, v = (torch.randn((Bt, Ht, Tt, dt), generator=g, device=dev) for _ in range(3))
+    mask = (torch.arange(Tt, device=dev)[None] < torch.randint(8, Tt + 1, (Bt, 1), generator=g,
+                                                                device=dev)).float()  # padded sentences
+    o, lse = attention.flash_attention_fwd(q, k, v, mask)
+    ro, rl = attention.flash_attention_plain(q, k, v, mask)
+    err = max(check_close("flash_attention", o, ro), check_close("flash_attention lse", lse, rl))
+    bmask = (mask > 0)[:, None, None, :]
+    t = timings(lambda: attention.flash_attention_fwd(q, k, v, mask),
+                lambda: attention.flash_attention_plain(q, k, v, mask),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bmask),
+                *TIMING["gt5"])
+    bms, by = bound_ms(nbytes(q, k, v, mask) + nbytes(q) + Bt * Ht * Tt * 4, 4.0 * Bt * Ht * Tt * Tt * dt)
+    tagger = dict(shape=f"q,k,v {tuple(q.shape)} f32, no bias", max_abs_err=err, **t, bound_ms=bms, bound_by=by)
+    print(f"{tag} flash_attention at the tagger's shape {TAGGER_ATTN} (dh 64 instance) max_err={err:.3e} "
+          f"{fmt_times(t, 'sdpa')} bound={bms:.4f}", flush=True)
+    return rows, tagger
+
+
+def phase_wide(card: str) -> tuple:
+    """[wide shapes]: the production model at ``WIDE``'s shapes (head dim
+    256, 80 frames, 10 args) on ``WIDE_ROWS`` random bf16 table rows:
+    ``wide_kernel_rows``; then serving (``WIDE_REQUESTS`` requests from 4
+    clients, max_batch 8, scores against the plain path on the card) and
+    training (phase 7 at ``WIDE_STEPS`` steps: the first step and the
+    trained state against the plain path on the card, with its control,
+    and ``WIDE_SWAPPED_STEPS`` steps in the other backward-mode pair), each
+    launching every kernel of its path: the mm attention's forward and
+    backward twice a call (args 5 + 5).  -> (the kernel table rows with
+    their launches on these paths, the phase's results)."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+    from vog_tpu_torch.kernels import _build, mm_attention
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_train_step
+
+    tag = "[wide shapes]"
+    t_phase = time.perf_counter()
+    cfg = serve_cfg(wide=True)
+    print(f"{tag} {WIDE}: head dim {cfg.mdl.vis_dim // cfg.mdl.n_heads}, "
+          f"{cfg.ds.num_cmp * cfg.ds.num_frms} frames, T = "
+          f"{cfg.ds.num_cmp * cfg.ds.num_frms * cfg.ds.num_prop_per_frm}, A = {cfg.ds.max_srl_args}", flush=True)
+    rows, tagger = wide_kernel_rows(train_cfg(0.1, wide=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tables = DeviceFeatureTables.random(cfg, WIDE_ROWS, seed=0, half=True, device="cuda")
+    pred, _, serve_counts, serve = phase_serve(cfg, tables, card, n_requests=WIDE_REQUESTS, clients=4,
+                                               max_batch=8, ref_on="plain", n_ref=4, label=" wide")
+    del pred
+    train_counts, train = phase_train(tables, card, "gt5", WIDE_STEPS, "plain", label=" wide", wide=True)
+    groups = len(mm_attention.arg_groups(cfg.ds.max_srl_args))
+    for name in ("mm_shared_qk_attention", "mm_shared_qk_attention_bwd"):
+        if train_counts.get(name) != groups * WIDE_STEPS:
+            fail(f"{tag} {name}: {train_counts.get(name)} launches in {WIDE_STEPS} steps, not {groups} a step")
+    # the other backward-mode pair: the emit flash and recompute mm kernels on the train path
+    swapped = train_cfg(0.1, wide=True)
+    model = get_model(swapped, 5000, device="cuda", seed=5, train=True)
+    state, step = TrainState.create(swapped, model), make_train_step(swapped)
+    batches = make_train_batches(swapped, WIDE_SWAPPED_STEPS, swapped.train.bs, tables.n_rows, 5000, seed=12)
+    with bwd_modes("emit", "recompute"):
+        _build.reset_counts()
+        for b in batches:
+            state, aux = step(state, {k: torch.as_tensor(x).cuda() for k, x in b.items()}, seed=0,
+                              tables=tables.tables)
+            if not np.isfinite(float(aux["loss"])):
+                fail(f"{tag} a non-finite loss in the emit / recompute pair")
+        torch.cuda.synchronize()
+        swapped_counts = dict(_build.launches)
+    for name in ("flash_attention_bwd_emit", "mm_shared_qk_attention_bwd_recompute"):
+        if swapped_counts.get(name, 0) <= 0:
+            fail(f"{tag} {name} was not launched by the emit / recompute pair ({swapped_counts})")
+    del state, model, step, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = (serve_counts, train_counts, swapped_counts)
+    for r in rows:
+        r["launches"] = sum(c.get(r["kernel"], 0) for c in runs)
+        if r["launches"] <= 0:
+            fail(f"{tag} {r['name']} was launched no time on the wide paths")
+    secs = time.perf_counter() - t_phase
+    print(f"{tag} launches: serve {serve_counts}; train {train_counts}; emit / recompute pair {swapped_counts}; "
+          f"{secs:.1f} s on {card}", flush=True)
+    return rows, dict(serve=serve, train=train, tagger_flash=tagger, serve_launches=serve_counts,
+                      train_launches=train_counts, swapped_launches=swapped_counts, seconds=secs)
+
+
+def run_wide(card: str) -> tuple:
+    """``phase_wide`` with its own worst relative errors: each row gets
+    its kernel's (``max_rel_err``), and the other phases' are kept."""
+    kept = dict(WORST_REL)
+    WORST_REL.clear()
+    rows, wide = phase_wide(card)
+    for r in rows:
+        r["max_rel_err"] = WORST_REL.get(r["kernel"], 0.0)
+    WORST_REL.clear()
+    WORST_REL.update(kept)
+    return rows, wide
+
+
 def watch_context_warnings() -> None:
     """Record every shown warning that a thread found no current CUDA
     context (autograd's worker thread before the device's context is bound
@@ -4558,6 +4817,12 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--wide" in sys.argv[1:]:  # [wide shapes] alone
+        wide_rows, wide = run_wide(card)
+        print(json.dumps({"kernels": wide_rows, "wide": wide, "card": card}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- GT5 (T = 200, B = 16) ---------------------------------------------
     cfg = serve_cfg()
@@ -4588,6 +4853,7 @@ def main() -> int:
     dist = phase_dist(card)
     model_axis = phase_model_axis(card)
     dcode = phase_dcode(card)
+    wide_rows, wide = run_wide(card)
 
     # -- P100 (T = 4000, B = 2) --------------------------------------------
     cfg = serve_cfg("p100")
@@ -4674,7 +4940,7 @@ def main() -> int:
             r["dcode"] = {"launches": dcode["srl"]["golden"]["launches"]["flash_attention_bwd"],
                           "step_launches": dcode["srl"]["finetune_step"]["launches"]["flash_attention_bwd"],
                           **dcode["srl"]["finetune_step"]["flash_bwd"]}
-    rows += rows_def
+    rows += rows_def + wide_rows
     if CONTEXT_WARNINGS:
         fail(f"a thread ran cuBLAS with no current CUDA context: {CONTEXT_WARNINGS}")
     print("[threads] no warning of a thread without a current CUDA context in the run", flush=True)
@@ -4686,7 +4952,7 @@ def main() -> int:
                                "dispatch_p100": dispatch_p100_prod},
                       "learner": {k: v for k, v in learner.items() if k != "launches"},
                       "serve_cli": serve_cli, "export": export, "dist": dist, "model_axis": model_axis,
-                      "dcode": dcode, "card": card}),
+                      "dcode": dcode, "wide": wide, "card": card}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

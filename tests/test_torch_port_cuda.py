@@ -29,6 +29,12 @@ step's), the graphed Predictor bitwise the eager one in every bucket, and
 a capture that fails raising with the state untouched; and the dropout
 keep mask's bits equal on the CPU and the card.
 
+The wide instances (``test_wide_instance_matches_plain``): the flash
+kernels at dh 64, 200 (padded to 256) and 256 and at 65, 80 and 160
+frames, the mm kernels at DK 256, past 64 frames and at 9 and 12 args (in
+groups of at most 8), each forward and backward in both modes at
+"highest" and at "default" against its plain version.
+
 The production numerics: each kernel's "default" variant (one TF32 pass)
 forward and backward, in both backward modes, against its plain version
 (max |err| <= 2e-2 forward and 5e-2 gradients of max(1, max |ref|), the
@@ -677,6 +683,99 @@ def test_dropout_bits_cpu_equal_card(dev):
         masks = [dropout_keep(dropout_key(seed, torch.tensor(step, dtype=torch.int32, device=d), micro),
                               site, shape, 0.1) for d in ("cpu", dev)]
         assert torch.equal(masks[0], masks[1].cpu()), (seed, step, micro, site)
+
+
+# --------------------------------------------------------------------------
+# the wide instances: head dims 64, 200 (padded to 256) and 256, more frames
+# than a block's shared table (65, 80, 160), more args than a launch (9, 12)
+# --------------------------------------------------------------------------
+# (kernel, dh, F, A): flash at each head-dim instance and past 64 frames; mm
+# at DK 256, past 64 frames, and in groups of args (9 -> 5 + 4, 12 -> 6 + 6)
+WIDE_CASES = [("flash", 64, 10, None), ("flash", 200, 10, None), ("flash", 256, 65, None),
+              ("flash", 40, 80, None), ("flash", 256, 160, None), ("flash", 64, 160, None),
+              ("mm", 200, 10, 5), ("mm", 256, 80, 5), ("mm", 128, 65, 3), ("mm", 40, 160, 2),
+              ("mm", 64, 10, 9), ("mm", 256, 10, 12)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("kernel,dh,F,A", WIDE_CASES)
+def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
+    """Each wide instance's forward and its backward in both modes against
+    the plain versions (at "highest": ``_close`` / ``_close_rel``, a batch
+    row with every key masked; at "default": ``_close_default``), launches
+    counted once a group of args, and the recompute mode bitwise on a
+    repeat call (frame sums in a fixed order, no atomics)."""
+    from vog_tpu_torch.kernels import _build, attention, mm_attention
+
+    high = precision == "highest"
+    T = 3 * F + 5 if F > 10 else 77
+    g, q, k, v, mask, fb, fid = _attn_inputs(dev, 2, 2, T, dh, F, all_masked=high)
+    n = 1 if high else 2  # rows checked of the forward's statistics (the all-masked row's sit at -1e30)
+    fwd_check = _close if high else (lambda a, b: _close_default(a, b, True))
+    bwd_check = _close if high else (lambda a, b: _close_default(a, b, False))
+    if kernel == "flash":
+        ro, rl = attention.flash_attention_plain(q, k, v, mask, fb, fid)
+        _build.reset_counts()
+        o, lse = attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=precision)
+        torch.cuda.synchronize()
+        assert _build.launches == {_build.variant("flash_attention", precision): 1}
+        fwd_check(o, ro)
+        fwd_check(lse[:n], rl[:n])
+        do = torch.randn(o.shape, generator=g, device=dev)
+        ref = attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do)
+        for mode, name in (("recompute", "flash_attention_bwd"), ("emit", "flash_attention_bwd_emit")):
+            _build.reset_counts()
+            got = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode,
+                                                precision=precision)
+            torch.cuda.synchronize()
+            assert _build.launches == {_build.variant(name, precision): 1}
+            for a, b in zip(got, ref):
+                bwd_check(a, b)
+            if mode == "recompute":
+                again = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode,
+                                                      precision=precision)
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+        return
+    groups = len(mm_attention.arg_groups(A))
+    qm = q * dh ** -0.5
+    cn = -3 * torch.rand((2, 2, A, T), generator=g, device=dev)
+    rf = mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid)
+    _build.reset_counts()
+    out = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid, precision=precision)
+    torch.cuda.synchronize()
+    assert _build.launches == {_build.variant("mm_shared_qk_attention", precision): groups}
+    (_close_rel if high else fwd_check)(out[0], rf[0])
+    for x, y in zip(out[1:], rf[1:]):
+        fwd_check(x[:n], y[:n])
+    go = torch.randn(rf[0].shape, generator=g, device=dev)
+    ref = mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid, *rf, go)
+    for mode, name in (("emit", "mm_shared_qk_attention_bwd"), ("recompute", "mm_shared_qk_attention_bwd_recompute")):
+        _build.reset_counts()
+        got = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
+                                            precision=precision)
+        torch.cuda.synchronize()
+        assert _build.launches == {_build.variant(name, precision): groups}
+        for a, b in zip(got, ref):
+            (_close_rel if high else bwd_check)(a, b)
+        if mode == "recompute":
+            again = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
+                                                  precision=precision)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_wrappers_raise_past_the_widest_head_dim(dev):
+    """A head dim above 256 raises (the model names its key before:
+    ``check_kernel_shapes``)."""
+    from vog_tpu_torch.kernels import attention, mm_attention
+
+    q = torch.randn((1, 1, 8, 264), device=dev)
+    mask = torch.ones((1, 8), device=dev)
+    with pytest.raises(ValueError, match="head dim 264"):
+        attention.flash_attention_fwd(q, q, q, mask)
+    fb = torch.zeros((1, 1, 1), device=dev)
+    fid = torch.zeros((8,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head dim 264"):
+        mm_attention.mm_attention_fwd(q, q, q, torch.zeros((1, 1, 2, 8), device=dev), mask, fb, fid)
 
 
 # --------------------------------------------------------------------------

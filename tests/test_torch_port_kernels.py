@@ -1,6 +1,10 @@
 """The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
 against the JAX package's Pallas kernels run in interpret mode, forward
-only.  The same numpy inputs go to both.
+only (the gradients: tests/test_torch_port_grads.py, and at the wide
+shapes tests/test_torch_port_wide.py).  The same numpy inputs go to both.
+The attention cases include a head dim of 256 (the card's widest instance)
+and 80 frames (past the 64 whose bias table a block keeps in shared
+memory).
 
 Tolerances: the gather is a copy and must be bitwise equal in every
 dtype.  The fp32 attention and head functions sum in another order than
@@ -87,7 +91,10 @@ def _attn_inputs(seed, B, H, T, dh, F, mixed):
 @pytest.mark.parametrize(
     "shape,with_bias,mixed",
     [((2, 2, 40, 16, 10), False, False), ((2, 2, 40, 16, 10), True, False),
-     ((1, 2, 150, 8, 10), True, True)],
+     ((1, 2, 150, 8, 10), True, True),
+     # the kernels' widest head-dim instance, and more frames than the
+     # (F, F) table a block holds in shared memory (80 > 64)
+     ((1, 2, 40, 256, 10), True, False), ((1, 2, 160, 24, 80), True, True)],
 )
 def test_flash_plain_vs_pallas(shape, with_bias, mixed):
     B, H, T, dh, F = shape
@@ -111,7 +118,8 @@ def test_flash_plain_vs_pallas(shape, with_bias, mixed):
 # --------------------------------------------------------------------------
 # mm shared-QK attention
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("shape,mixed", [((1, 2, 3, 40, 16, 10), False), ((1, 2, 5, 150, 8, 10), True)])
+@pytest.mark.parametrize("shape,mixed", [((1, 2, 3, 40, 16, 10), False), ((1, 2, 5, 150, 8, 10), True),
+                                         ((1, 2, 3, 40, 256, 10), False), ((1, 2, 3, 160, 24, 80), True)])
 def test_mm_plain_vs_pallas(shape, mixed):
     B, H, A, T, dh, F = shape
     q, k, v, mask, fb, fids = _attn_inputs(1, B, H, T, dh, F, mixed)

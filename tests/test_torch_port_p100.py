@@ -20,8 +20,10 @@ package on the CPU, and the repairs that came with it:
     the card) against the JAX package's head kernel in interpret mode,
     forward and all 9 gradients (atol 5e-4, rtol 1e-3: the JAX package's
     own head-gradient tolerance, tests/test_head_kernel.py);
-  * ``get_model`` on the card refuses shapes its kernels do not take, and
-    names the config key.
+  * ``get_model`` on the card refuses shapes its kernels do not take (a
+    head dim above 256, the fused head past its width), and names the
+    config key; ``check_kernel_shapes`` passes a head dim of 256, 70
+    frames and 9 args.
 """
 
 import re
@@ -215,10 +217,8 @@ def _prod_cfg(**over):
 
 
 @pytest.mark.parametrize("over,key", [
-    ({"mdl.n_heads": 2}, "mdl.vis_dim / mdl.n_heads"),  # head dim 256
     ({"mdl.vis_dim": 1024, "mdl.n_heads": 8}, "mdl.vis_dim"),  # the head's D
-    ({"ds.num_frms": 70}, "ds.num_frms"),
-    ({"ds.max_srl_args": 9}, "ds.max_srl_args"),
+    ({"mdl.vis_dim": 1024, "mdl.n_heads": 2}, "mdl.vis_dim / mdl.n_heads"),  # head dim 512
 ])
 def test_get_model_on_the_card_names_the_key_of_a_shape_out_of_range(over, key):
     cfg = _prod_cfg(**over)
@@ -228,3 +228,16 @@ def test_get_model_on_the_card_names_the_key_of_a_shape_out_of_range(over, key):
         get_model(cfg, 50, device="cuda")
     for A in (5, 6, 8):  # the kernels take up to 8 args, the head in groups
         check_kernel_shapes(_prod_cfg(**{"ds.max_srl_args": A, "ds.exp_setting": "p100"}))
+
+
+@pytest.mark.parametrize("over", [
+    {"mdl.n_heads": 2},  # head dim 256: the attention kernels' widest instance
+    {"ds.num_frms": 70},  # 70 frames: the frame-bias table from device memory, its gradient in 64-frame tiles
+    {"ds.max_srl_args": 9},  # 9 args: the mm kernels in groups of 5 + 4
+])
+def test_check_kernel_shapes_takes_what_the_jax_package_runs(over):
+    """Shapes the card refused before its kernels took any head dim up to
+    256, any frame count and any arg count: ``check_kernel_shapes`` passes
+    them, as the JAX package runs them."""
+    check_kernel_shapes(_prod_cfg(**over))
+    check_kernel_shapes(_prod_cfg(**over, **{"ds.conc_type": "temp", "ds.exp_setting": "p100"}))

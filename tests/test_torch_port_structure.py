@@ -283,7 +283,7 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     fwd = bodies["mm_fwd"]
     # S = Q K^T once per key tile; P_a V for every arg (3xTF32, or one pass)
     assert fwd.count("mma_p<kOnePass>(") == 2
-    assert fwd.count("frag_bt(") == 1 and "frag_b_pairs(" in fwd and "split<kOnePass>(" in fwd
+    assert fwd.count("frag_bt<kLd>(") == 1 and "frag_b_pairs<kLd>(" in fwd and "split<kOnePass>(" in fwd
     assert "load_rows<" in fwd and "cp_async4(" in fwd and "cp_wait_all()" in fwd
     assert 'extern "C" int vog_mm_bwd(' in text and 'extern "C" int vog_mm_fwd(' in text
     gather = (csrc / "gather.cu").read_text()
@@ -307,9 +307,9 @@ def test_mm_backward_on_tensor_cores_scores_once_a_query_tile():
     assert "load_rows<" in body and "cp_wait_all()" in body and "cp_commit()" in body
     tiles = body.index("for (int it = 0; it < ntiles; ++it)")
     args = body.index("for (int a = 0; a < A; ++a, ++j)")
-    s_tile = "scores<NT, false>(st, st, Kw, Qt"
+    s_tile = "scores<NT, false, kDK>(st, st, Kw, Qt"
     assert body.count(s_tile) == 1 and body.count("Kw,") == 2 and tiles < body.index(s_tile) < args
-    assert body.index("scores<NT, false>(dpt, dpt, Vw, Gt") > args  # dP_a^T = V G_a^T, per arg
+    assert body.index("scores<NT, false, kDK>(dpt, dpt, Vw, Gt") > args  # dP_a^T = V G_a^T, per arg
     assert "mm_bwd_delta<<<" in text and 'extern "C" int vog_mm_bwd(' in text
 
 
@@ -323,28 +323,34 @@ def test_backward_modes_not_default_have_kernels_of_their_own():
     csrc = PKG / "csrc"
     flash = (csrc / "attention.cu").read_text()
     dkv = _kernel_bodies(flash)["flash_bwd_dkv"]
-    assert "if (kEmit)" in dkv and "ds + ((size_t)bh * T + qi) * T" in dkv
-    entry = flash[flash.index('extern "C" int vog_flash_bwd('):]
-    assert "flash_bwd_dkv<true, true>" in entry and "|| emit) return" in entry
+    assert "if (kEmit && z == 0)" in dkv and "ds + ((size_t)bh * T + qi) * T" in dkv
+    entry = flash[flash.index("int launch_bwd("):]  # the entry point's launches, at each head dim
+    assert "flash_bwd_dkv<DK, kSmemTable, true>" in entry and "|| emit) return" in entry
+    assert "VOG_FLASH_DISPATCH(launch_bwd," in flash[flash.index('extern "C" int vog_flash_bwd('):]
     mm = (csrc / "mm_attention.cu").read_text()
-    assert "if (!kEmit) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
+    assert "if (!kEmit || !first) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
     dq = _kernel_bodies(mm)["mm_bwd_dq"]
-    # 8 warps, two 8-key n-tiles a warp for each split A fragment; steps of
-    # (key tile, arg) streamed by cp.async, g_a never all resident
-    assert "kDqWarps = 8;" in mm and "constexpr int NT = kDqTile / 16;" in dq
-    assert "scores<NT, false>(sc, sc, Qw, Kh" in dq and "accumulate<NT>(acc, comb, Kh" in dq
+    # 8 warps (4 at DK 256), four 8-key n-tiles a warp (two at DK 256) for
+    # each split A fragment; steps of (key tile, arg) streamed by cp.async,
+    # g_a never all resident
+    assert "kDqGroups = kDK > 128 ? 2 : 4;" in mm and "kDqWarps = 2 * kDqGroups;" in mm
+    assert "constexpr int NT = kDqTile / 16;" in dq
+    assert "scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh" in dq
+    assert "accumulate<NT, kNV, kLd>(acc, comb, Kh" in dq
     assert "load_rows<" in dq and "cp_wait_all()" in dq and "cp_commit()" in dq
     assert "atomicAdd" not in dq and "atomicAdd(" not in mm
     tiles = dq.index("for (int it = 0; it < ntiles; ++it)")
     args = dq.index("for (int a = 0; a < A; ++a, ++j)", tiles)
     s_once = dq.index("if (a == 0) {  // S = Q K^T + fb, once a key tile for all args")
-    assert tiles < args < s_once < dq.index("scores<NT, false>(sc, sc") < dq.index("scores<NT, false>(gv, gv")
+    assert tiles < args < s_once < dq.index("scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc")
+    assert dq.index("scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc") < dq.index(
+        "scores<NT, false, kDK, kOnePass, kDqChunk>(gv, gv")
     # the frame sums on the tensor cores; the two key halves and the block's
     # (F, F) partial added in a fixed order
     sums = mm[mm.index("__device__ inline void frame_sums("):]
     assert "mma(part, as, b);" in sums[: sums.index("\n}\n")]
-    assert "frame_sums<NT>(rs, comb, c, F, g)" in dq and "put_rs(true)" in dq
-    assert "dfb_part" in dq and "mm_bwd_dq<A><<<" in mm
+    assert "frame_sums<NT>(rs, comb, c, F, fbase, g)" in dq and "put_rs(true)" in dq
+    assert "dfb_part" in dq and "mm_bwd_dq<A, kSmemTable>" in mm and "dqk<<<" in mm
 
 
 def test_head_weight_gradients_stream_by_cp_async_in_one_launch():

@@ -31,19 +31,28 @@
 //    dV += P^T dO, dK += dS^T Q and dQ += dS K backward.  The operands are
 //    split with split_int (two integer/fp32 operations, no conversion
 //    instruction).
-//  * The head dim is a compile-time 128 (smaller dh is zero padded), so
-//    every loop over it unrolls and the loads run ahead of the products.
-//    A score tile is summed in two accumulator sets (even and odd k-steps)
-//    so that its dependent mma chains are half as long.
+//  * The head dim is a compile-time parameter: instances at DK 64, 128
+//    and 256 (a call pads dh up to the next one with zeros), so every loop
+//    over it unrolls and the loads run ahead of the products, and a dh-64
+//    call (the BERT tagger's) runs no k-steps on padding.  At DK 256 a
+//    tile of rows has two blocks (grid.z), each accumulating a 128-column
+//    slice of the output after computing the whole scores (tiles.cuh
+//    §HeadDim): the accumulators stay at DK 128's registers.  A score tile
+//    is summed in two accumulator sets (even and odd k-steps) so that its
+//    dependent mma chains are half as long.
 //  * The resident rows (Q, or Q and dO, or K and V) stay in shared memory
 //    and are split as their fragments are read.  The streamed tiles (K/V
-//    in flash_fwd, 32 rows; K/V in flash_bwd_dq and Q/dO in flash_bwd_dkv,
-//    16 rows) come in by cp.async (16-byte copies, zero-filled past T and
-//    past dh) into a two-stage ring: tile i+1 loads while tile i is
-//    multiplied, with one __syncthreads a tile.  Shared memory: 101 KB a
-//    block, two blocks (8 warps) an SM, which at GT5 holds the whole grid
-//    (256 blocks) at once.
-//  * Shared rows of 128 + 4 floats (conflict-free fragment reads), and P
+//    in flash_fwd, 32 rows, 16 at DK 256; K/V in flash_bwd_dq and Q/dO in
+//    flash_bwd_dkv, 16 rows) come in by cp.async (16-byte copies,
+//    zero-filled past T and past dh) into a two-stage ring: tile i+1 loads
+//    while tile i is multiplied, with one __syncthreads a tile.  Shared
+//    memory: 101 KB a block at DK 128, two blocks (8 warps) an SM, which at
+//    GT5 holds the whole grid (256 blocks) at once; 200 KB at DK 256 (133
+//    KB forward), one block an SM.
+//    The (F, F) bias table sits in shared memory up to 64 frames, and is
+//    read from device memory (L2) past that (tiles.cuh §kTableF,
+//    §TableMode).
+//  * Shared rows of DK + 4 floats (conflict-free fragment reads), and P
 //    (and dS) passed from the C fragment of one product to the A fragment
 //    of the next in registers by reading each 8-key step in pair order:
 //    tiles.cuh says how.  Quad shuffles would cost 8 a fragment, a shared
@@ -67,9 +76,12 @@
 //                  dq += ds k.  With F > 1 it also sums ds by (query frame,
 //                  key frame) in a fixed order (a lane per key frame, keys
 //                  in order, then rows in order) into one (F, F) partial
-//                  per block, which the wrapper adds up in a fixed order:
-//                  the frame-bias gradient is the same on every run (no
-//                  float atomics).  With F == 1 the gradient of the scalar
+//                  per tile of rows, which the wrapper adds up in a fixed
+//                  order: the frame-bias gradient is the same on every run
+//                  (no float atomics).  Past 64 frames a tile of rows has
+//                  ceil(F / 64) blocks, block z summing key frames
+//                  64z..64z+63 (and computing dq's column slice z at DK
+//                  256), each in that order.  With F == 1 the gradient of the scalar
 //                  is sum_ij ds_ij, zero for every row up to rounding
 //                  (sum_j p_ij dp_ij = delta_i), so the pass is skipped and
 //                  the wrapper returns zeros.
@@ -101,7 +113,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tiles.cuh"  // cp.async row tiles, fragments, scores, accumulate (3xTF32)
+#include "tiles.cuh"  // cp.async row tiles, fragments, scores, accumulate (3xTF32), HeadDim
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 namespace {
@@ -109,28 +121,45 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;  // rows a block owns
-constexpr int kTileF = 32;          // rows of a streamed tile: forward
+// rows of a streamed tile, forward: 32, and 16 at DK 256 (with 32 its
+// score tile's registers spilled: 152-208 bytes in 3xTF32, none with 16;
+// DK 128 keeps the tile it had)
+template <int DK>
+constexpr int kFwdTile = DK > 128 ? 16 : 32;
 constexpr int kTileB = 16;          // rows of a streamed tile: backward
-constexpr int kMaxFb = 64;          // frames the dq kernel's dfb takes
 constexpr int kDsLd = kTileB + 1;   // row stride of a warp's ds tile (frame sums)
 
-// the bias of (query frame fq, key code c >= 0): fb[h, fq, c] from the
-// shared table when kFrames, else the head's scalar fb0
-template <bool kFrames>
-__device__ inline float bias(const float* fbs, float fb0, int F, int fq, int c) {
-  return kFrames ? fbs[fq * F + c] : fb0;
+// the bias of (query frame fq, key code c >= 0): the head's (F, F) table
+// at (fq, c) (tiles.cuh §table_bias), or with no table its scalar fb0
+template <int TM>
+__device__ inline float bias(const float* fbs, const float* __restrict__ fbg, float fb0, int F, int fq,
+                             int c) {
+  return TM == kNoTable ? fb0 : table_bias<TM>(fbs, fbg, F, fq, c);
 }
 
-template <bool kFrames>
-__global__ void __launch_bounds__(kThreads, 2)
+// the head's table in device memory (kFrames), or null
+__device__ inline const float* head_table(const float* __restrict__ fb, int h, int F, bool frames) {
+  return frames ? fb + (size_t)h * F * F : nullptr;
+}
+
+// Shared memory a block: 101 KB at DK 128, two blocks (8 warps) an SM;
+// 133 KB at DK 256 (the backward kernels' 200 KB), one block an SM, hence
+// the launch bounds' minimum of one there.
+template <int DK, int TM>
+__global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ key_mask,
           const float* __restrict__ fb, const int* __restrict__ fid,
           float* __restrict__ o, float* __restrict__ lse, int H, int T,
           int dh, int F, float scale, bool vec) {
+  using HD = HeadDim<DK>;
+  constexpr int kLd = HD::kLd;
+  constexpr int kTileF = kFwdTile<DK>;
   constexpr int NT = kTileF / 8;
+  constexpr bool kFrames = TM != kNoTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows;
+  const int z = HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
+  const int q0 = blockIdx.x * kRows, c0 = z * HD::kDV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -139,21 +168,21 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = Qs + kRows * kLd;                                // 2 stages x kTileF x kLd
   float* Vs = Ks + 2 * kTileF * kLd;                           // 2 stages x kTileF x kLd
   int* codes = reinterpret_cast<int*>(Vs + 2 * kTileF * kLd);  // 2 stages x kTileF
-  float* fbs = reinterpret_cast<float*>(codes + 2 * kTileF);   // F x F (kFrames)
+  float* fbs = reinterpret_cast<float*>(codes + 2 * kTileF);   // F x F (kSmemTable)
+  const float* fbg = head_table(fb, h, F, kFrames);
 
   const size_t base = (size_t)bh * T * dh;
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    load_rows<kTileF, kThreads>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
-    load_rows<kTileF, kThreads>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
+    load_rows<kTileF, kThreads, DK>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
     if (tid < kTileF) codes[s * kTileF + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
-  if (kFrames)
-    for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows, kThreads>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -161,7 +190,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const int fq1 = kFrames && r1 < T ? fid[r1] : 0;
   const float* Qw = Qs + warp * 16 * kLd;
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this lane's part of the sum
-  float acc[kND][4];
+  float acc[HD::kNV][4];
   zero(acc);
 
   const int ntiles = (T + kTileF - 1) / kTileF;
@@ -175,7 +204,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int* ct = codes + s * kTileF;
 
     float sc[NT][4];
-    scores<NT, false>(sc, sc, Qw, Kt, Qw, Kt, g, t);  // S = Q K^T
+    scores<NT, false, DK>(sc, sc, Qw, Kt, Qw, Kt, g, t);  // S = Q K^T
 
     // online softmax on the C fragments: rows g (c0, c1) and g + 8 (c2, c3)
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -186,8 +215,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
         const int c = ct[8 * j + 2 * t + e];
         float x0, x1;
         if (c >= 0) {
-          x0 = sc[j][e] * scale + bias<kFrames>(fbs, fb0, F, fq0, c);
-          x1 = sc[j][2 + e] * scale + bias<kFrames>(fbs, fb0, F, fq1, c);
+          x0 = sc[j][e] * scale + bias<TM>(fbs, fbg, fb0, F, fq0, c);
+          x1 = sc[j][2 + e] * scale + bias<TM>(fbs, fbg, fb0, F, fq1, c);
         } else {
           x0 = x1 = c == kMasked ? kNeg : -INFINITY;
         }
@@ -212,19 +241,19 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
         l1 += sc[j][2 + e];
       }
 #pragma unroll
-    for (int n = 0; n < kND; ++n) {
+    for (int n = 0; n < HD::kNV; ++n) {
       acc[n][0] *= a0;
       acc[n][1] *= a0;
       acc[n][2] *= a1;
       acc[n][3] *= a1;
     }
-    accumulate<NT>(acc, sc, Vt, g, t);  // O += P V (keys past T: p = 0, zero rows)
+    accumulate<NT, HD::kNV, kLd>(acc, sc, Vt + c0, g, t);  // O += P V (keys past T: p = 0, zero rows)
   }
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  store_rows(o + base, acc, r0, 0, T, dh, t, 1.f / l0, 1.f / l1);
-  if (t == 0) {
+  store_rows(o + base, acc, r0, c0, T, dh, t, 1.f / l0, 1.f / l1);
+  if (t == 0 && z == 0) {
     if (r0 < T) lse[(size_t)bh * T + r0] = m0 + logf(l0);
     if (r1 < T) lse[(size_t)bh * T + r1] = m1 + logf(l1);
   }
@@ -248,9 +277,10 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
   row_dots(o, dout, delta, rows, dh);
 }
 
-// kEmit: also store the masked ds (B*H, T, T), query-major ("emit" mode)
-template <bool kFrames, bool kEmit>
-__global__ void __launch_bounds__(kThreads, 2)
+// kEmit: also store the masked ds (B*H, T, T), query-major ("emit" mode);
+// at DK 256 the block of column slice 0 stores it
+template <int DK, int TM, bool kEmit>
+__global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -258,9 +288,13 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const int* __restrict__ fid, float* __restrict__ dk,
               float* __restrict__ dv, DsT* __restrict__ ds, int H, int T, int dh,
               int F, float scale, bool vec) {
+  using HD = HeadDim<DK>;
+  constexpr int kLd = HD::kLd;
   constexpr int NT = kTileB / 8;
+  constexpr bool kFrames = TM != kNoTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kRows;
+  const int z = HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
+  const int k0 = blockIdx.x * kRows, c0 = z * HD::kDV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -272,14 +306,15 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   float* ls = Os + 2 * kTileB * kLd;                          // 2 x kTileB: lse
   float* dls = ls + 2 * kTileB;                               // 2 x kTileB: delta
   int* fqs = reinterpret_cast<int*>(dls + 2 * kTileB);       // 2 x kTileB: query frame, -1 past T
-  float* fbs = reinterpret_cast<float*>(fqs + 2 * kTileB);   // F x F (kFrames)
+  float* fbs = reinterpret_cast<float*>(fqs + 2 * kTileB);   // F x F (kSmemTable)
+  const float* fbg = head_table(fb, h, F, kFrames);
 
   const size_t base = (size_t)bh * T * dh;
   const float* qb = q + base;
   const float* ob = dout + base;
   auto stage = [&](int s, int i0) {
-    load_rows<kTileB, kThreads>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
-    load_rows<kTileB, kThreads>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
+    load_rows<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
+    load_rows<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
     if (tid < kTileB) {
       const int qi = i0 + tid;
       ls[s * kTileB + tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
@@ -288,11 +323,10 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     }
     cp_commit();
   };
-  if (kFrames)
-    for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows, kThreads>(Ks, k + base, k0, T, dh, vec);
-  load_rows<kRows, kThreads>(Vs, v + base, k0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Ks, k + base, k0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Vs, v + base, k0, T, dh, vec);
   stage(0, 0);  // one group: K, V and the first Q/dO tile
   const int none = all_masked(key_mask, b, T);
   const float p_none = 1.f / (float)T;
@@ -301,7 +335,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const int kc[2] = {key_code<kFrames>(key_mask, fid, b, kr0, T), key_code<kFrames>(key_mask, fid, b, kr0 + 8, T)};
   const float* Kw = Ks + warp * 16 * kLd;
   const float* Vw = Vs + warp * 16 * kLd;
-  float adk[kND][4], adv[kND][4];
+  float adk[HD::kNV][4], adv[HD::kNV][4];
   zero(adk);
   zero(adv);
 
@@ -319,7 +353,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
     // S^T = K Q^T and dP^T = V dO^T (16 keys x kTileB queries a warp)
     float st[NT][4], dpt[NT][4];
-    scores<NT, true>(st, dpt, Kw, Qt, Vw, Ot, g, t);
+    scores<NT, true, DK>(st, dpt, Kw, Qt, Vw, Ot, g, t);
 
     // p and ds on the C fragments: key kr0 (c0, c1) and kr0 + 8 (c2, c3)
 #pragma unroll
@@ -332,16 +366,16 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int c = kc[r], i = 2 * r + e;
-          const float x = c >= 0 ? st[j][i] * scale + bias<kFrames>(fbs, fb0, F, max(fq, 0), c) : kNeg;
+          const float x = c >= 0 ? st[j][i] * scale + bias<TM>(fbs, fbg, fb0, F, max(fq, 0), c) : kNeg;
           const float p = (fq < 0 || c == kPast) ? 0.f : (none ? p_none : expf(x - li));
           st[j][i] = p;
           dpt[j][i] = c >= 0 ? p * (dpt[j][i] - di) : 0.f;
         }
       }
 
-    accumulate<NT>(adv, st, Ot, g, t);   // dV += P^T dO
-    accumulate<NT>(adk, dpt, Qt, g, t);  // dK += dS^T Q
-    if (kEmit) {  // ds[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
+    accumulate<NT, HD::kNV, kLd>(adv, st, Ot + c0, g, t);   // dV += P^T dO
+    accumulate<NT, HD::kNV, kLd>(adk, dpt, Qt + c0, g, t);  // dK += dS^T Q
+    if (kEmit && z == 0) {  // ds[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -355,12 +389,17 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  store_rows(dk + base, adk, kr0, 0, T, dh, t, scale, scale);
-  store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
+  store_rows(dk + base, adk, kr0, c0, T, dh, t, scale, scale);
+  store_rows(dv + base, adv, kr0, c0, T, dh, t, 1.f, 1.f);
 }
 
-template <bool kFrames>
-__global__ void __launch_bounds__(kThreads, 2)
+// Block z of a tile of rows computes dq's column slice z (z < kSlices) and,
+// with frames, sums ds over key frames 64z..64z+63 (z < ceil(F / 64)): a
+// launch has max(kSlices, ceil(F / 64)) blocks a tile (grid.z), each
+// summing its frames in the one fixed order, so the frame-bias gradient
+// takes any F with the registers and the order of F <= 64.
+template <int DK, int TM>
+__global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -368,9 +407,20 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const int* __restrict__ fid, float* __restrict__ dqo,
              float* __restrict__ dfb_part, int H, int T, int dh, int F,
              float scale, bool vec) {
+  using HD = HeadDim<DK>;
+  constexpr int kLd = HD::kLd;
   constexpr int NT = kTileB / 8;
+  // after the key loop the frame sums of the rows (kRows x kFrameTile) take the K/V ring's place
+  static_assert(4 * kTileB * kLd >= kRows * kFrameTile, "the frame sums fit the K/V ring");
+  constexpr bool kFrames = TM != kNoTable;
+  // one block a tile of rows: no slices, the frames (if any) in one tile
+  constexpr bool kOne = HD::kSlices == 1 && TM != kGlobalTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows;
+  const int q0 = blockIdx.x * kRows, z = kOne ? 0 : blockIdx.z;
+  const bool do_dq = kOne || z < HD::kSlices;    // dq's column slice z
+  const int c0 = HD::kSlices > 1 ? z * HD::kDV : 0;
+  const int fbase = kFrameTile * z;              // frames 64z..64z+63
+  const bool do_fr = kFrames && (kOne || fbase < F);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -380,24 +430,23 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = Os + kRows * kLd;                                // 2 stages x kTileB x kLd
   float* Vs = Ks + 2 * kTileB * kLd;                           // 2 stages x kTileB x kLd
   int* codes = reinterpret_cast<int*>(Vs + 2 * kTileB * kLd);  // 2 stages x kTileB
-  float* fbs = reinterpret_cast<float*>(codes + 2 * kTileB);   // F x F (kFrames)
-  float* dsw = fbs + F * F;                                     // kWarps x 16 x kDsLd (kFrames)
-  float* racc = dsw + kWarps * 16 * kDsLd;                      // kRows x F (kFrames)
+  float* fbs = reinterpret_cast<float*>(codes + 2 * kTileB);   // F x F (kSmemTable)
+  float* dsw = fbs + table_floats(F);                           // kWarps x 16 x kDsLd (kFrames)
+  const float* fbg = head_table(fb, h, F, kFrames);
 
   const size_t base = (size_t)bh * T * dh;
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    load_rows<kTileB, kThreads>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
-    load_rows<kTileB, kThreads>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
+    load_rows<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileB, kThreads, DK>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
     if (tid < kTileB) codes[s * kTileB + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
-  if (kFrames)
-    for (int i = tid; i < F * F; i += kThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows, kThreads>(Qs, q + base, q0, T, dh, vec);
-  load_rows<kRows, kThreads>(Os, dout + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Os, dout + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q, dO and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -410,10 +459,10 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const float* Qw = Qs + warp * 16 * kLd;
   const float* Ow = Os + warp * 16 * kLd;
   float* dw = dsw + warp * 16 * kDsLd;
-  float acc[kND][4];
+  float acc[HD::kNV][4];
   zero(acc);
-  // frame sums (kFrames): rs[r][x] sums ds of warp row r over the keys of
-  // frame lane + 32 x
+  // frame sums (do_fr): rs[r][x] sums ds of warp row r over the keys of
+  // frame fbase + lane + 32 x
   float rs[16][2];
 #pragma unroll
   for (int r = 0; r < 16; ++r) rs[r][0] = rs[r][1] = 0.f;
@@ -430,7 +479,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T and dP = dO V^T (16 rows x kTileB keys a warp)
     float sc[NT][4], dp[NT][4];
-    scores<NT, true>(sc, dp, Qw, Kt, Ow, Vt, g, t);
+    scores<NT, true, DK>(sc, dp, Qw, Kt, Ow, Vt, g, t);
 
     // ds on the C fragments (masked keys and keys past T give 0)
 #pragma unroll
@@ -440,8 +489,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         const int c = ct[8 * j + 2 * t + e];
         float d0 = 0.f, d1 = 0.f;
         if (c >= 0) {
-          const float x0 = sc[j][e] * scale + bias<kFrames>(fbs, fb0, F, fq0, c);
-          const float x1 = sc[j][2 + e] * scale + bias<kFrames>(fbs, fb0, F, fq1, c);
+          const float x0 = sc[j][e] * scale + bias<TM>(fbs, fbg, fb0, F, fq0, c);
+          const float x1 = sc[j][2 + e] * scale + bias<TM>(fbs, fbg, fb0, F, fq1, c);
           d0 = expf(x0 - li0) * (dp[j][e] - di0);
           d1 = expf(x1 - li1) * (dp[j][2 + e] - di1);
         }
@@ -449,9 +498,9 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         sc[j][2 + e] = d1;
       }
 
-    accumulate<NT>(acc, sc, Kt, g, t);  // dQ += dS K
+    if (do_dq) accumulate<NT, HD::kNV, kLd>(acc, sc, Kt + c0, g, t);  // dQ += dS K
 
-    if (kFrames) {
+    if (do_fr) {
       // the warp's ds tile through shared memory, then a lane per key
       // frame adds up its keys in order
 #pragma unroll
@@ -464,7 +513,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();
       const int nk = min(kTileB, T - it * kTileB);
       for (int jj = 0; jj < nk; ++jj) {
-        const int fk = ct[jj];
+        const int fk = ct[jj] - fbase;  // masked keys and keys past T: < 0
         if (fk == lane) {
 #pragma unroll
           for (int r = 0; r < 16; ++r) rs[r][0] += dw[r * kDsLd + jj];
@@ -477,29 +526,93 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  store_rows(dqo + base, acc, r0, 0, T, dh, t, scale, scale);
-  if (!kFrames) return;
+  if (do_dq) store_rows(dqo + base, acc, r0, c0, T, dh, t, scale, scale);
+  if (!do_fr) return;
+  __syncthreads();  // every warp is done with the K/V ring
+  float* racc = Ks;  // kRows x kFrameTile: the rows' sums over this block's frames
+  const int nf = min(kFrameTile, F - fbase);
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int rr = warp * 16 + r;
-    if (lane < F) racc[rr * F + lane] = rs[r][0];
-    if (lane + 32 < F) racc[rr * F + lane + 32] = rs[r][1];
+    if (lane < nf) racc[rr * kFrameTile + lane] = rs[r][0];
+    if (lane + 32 < nf) racc[rr * kFrameTile + lane + 32] = rs[r][1];
   }
   __syncthreads();
-  // this block's (F, F) partial: rows in order, those of query frame f
+  // this block's columns fbase.. of the (F, F) partial: rows in order, those of query frame f
   float* part = dfb_part + ((size_t)bh * gridDim.x + blockIdx.x) * F * F;
-  for (int cell = tid; cell < F * F; cell += kThreads) {
-    const int f = cell / F, gk = cell - f * F;
+  for (int cell = tid; cell < F * nf; cell += kThreads) {
+    const int f = cell / nf, gk = cell - f * nf;
     float sum = 0.f;
     for (int r = 0; r < kRows && q0 + r < T; ++r)
-      if (fid[q0 + r] == f) sum += racc[r * F + gk];
-    part[cell] = sum;
+      if (fid[q0 + r] == f) sum += racc[r * kFrameTile + gk];
+    part[f * F + fbase + gk] = sum;
   }
 }
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int DK>
+int launch_fwd(const float* q, const float* k, const float* v, const float* key_mask, const float* fb,
+               const int* fid, float* o, float* lse, int B, int H, int T, int dh, int F, float scale,
+               cudaStream_t stream) {
+  using HD = HeadDim<DK>;
+  constexpr int kTileF = kFwdTile<DK>;
+  const bool frames = F > 1;
+  const int tm = table_mode(F);
+  const size_t smem = sizeof(float) * (size_t)(kRows + 4 * kTileF) * HD::kLd +
+                      sizeof(int) * 2 * kTileF + (frames ? sizeof(float) * table_floats(F) : 0);
+  auto fwd = tm == kNoTable ? flash_fwd<DK, kNoTable>
+             : tm == kSmemTable ? flash_fwd<DK, kSmemTable> : flash_fwd<DK, kGlobalTable>;
+  cudaError_t e = set_smem(fwd, smem);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  const dim3 grid((T + kRows - 1) / kRows, B * H, HD::kSlices);
+  fwd<<<grid, kThreads, smem, stream>>>(q, k, v, key_mask, fb, fid, o, lse, H, T, dh, F, scale, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int DK>
+int launch_bwd(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+               const float* delta, const float* key_mask, const float* fb, const int* fid, float* dq,
+               float* dk, float* dv, float* dfb_part, DsT* ds, int B, int H, int T, int dh, int F,
+               float scale, cudaStream_t s) {
+  using HD = HeadDim<DK>;
+  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                   aligned16(dout);
+  const bool frames = F > 1;
+  const int tiles = (T + kRows - 1) / kRows;
+  const size_t rows_bytes = sizeof(float) * (size_t)(2 * kRows + 4 * kTileB) * HD::kLd;
+  const int tm = table_mode(F);
+  const size_t fb_bytes = frames ? sizeof(float) * table_floats(F) : 0;
+
+  const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
+  const bool emit = ds != nullptr;
+  auto dkv = emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true>
+                     : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, true>
+                                        : flash_bwd_dkv<DK, kGlobalTable, true>)
+                  : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false>
+                     : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, false>
+                                        : flash_bwd_dkv<DK, kGlobalTable, false>);
+  cudaError_t e = set_smem(dkv, smem_kv);
+  if (e != cudaSuccess) return (int)e;
+  dkv<<<dim3(tiles, B * H, HD::kSlices), kThreads, smem_kv, s>>>(
+      q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv, ds, H, T, dh, F, scale, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || emit) return (int)e;
+
+  const size_t smem_q = rows_bytes + sizeof(int) * 2 * kTileB + fb_bytes +
+                        (frames ? sizeof(float) * kWarps * 16 * kDsLd : 0);
+  const int frame_tiles = frames ? (F + kFrameTile - 1) / kFrameTile : 0;
+  auto dqk = tm == kNoTable ? flash_bwd_dq<DK, kNoTable>
+             : tm == kSmemTable ? flash_bwd_dq<DK, kSmemTable> : flash_bwd_dq<DK, kGlobalTable>;
+  e = set_smem(dqk, smem_q);
+  if (e != cudaSuccess) return (int)e;
+  dqk<<<dim3(tiles, B * H, frame_tiles > HD::kSlices ? frame_tiles : HD::kSlices), kThreads, smem_q, s>>>(
+      q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part, H, T, dh, F, scale, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -514,6 +627,11 @@ extern "C" int vog_flash_delta(int device, const float* o, const float* dout, fl
   return (int)cudaGetLastError();
 }
 
+// The instance of a head dim: 64, 128 or 256 (dh padded up to it).
+#define VOG_FLASH_DISPATCH(fn, ...)                                      \
+  (dh <= 64 ? fn<64>(__VA_ARGS__) : dh <= 128 ? fn<128>(__VA_ARGS__) \
+                                               : fn<256>(__VA_ARGS__))
+
 // fb and fid may be null when F == 1 (no bias).  Recompute mode (ds null):
 // dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
 // Emit mode (ds, (B*H, T, T), fp32, or bf16 in the one-pass library, not
@@ -526,36 +644,11 @@ extern "C" int vog_flash_bwd(int device, const float* q, const float* k, const f
                              int B, int H, int T, int dh, int F, float scale,
                              void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFb) return (int)cudaErrorInvalidValue;
+  if (dh > kMaxDh || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                   aligned16(dout);
-  const bool frames = F > 1;
-  const dim3 grid((T + kRows - 1) / kRows, B * H);
-  const size_t rows_bytes = sizeof(float) * (size_t)(2 * kRows + 4 * kTileB) * kLd;
-  const size_t fb_bytes = frames ? sizeof(float) * F * F : 0;
-
-  const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
-  DsT* ds = static_cast<DsT*>(ds_out);
-  const bool emit = ds != nullptr;
-  auto dkv = frames ? (emit ? flash_bwd_dkv<true, true> : flash_bwd_dkv<true, false>)
-                    : (emit ? flash_bwd_dkv<false, true> : flash_bwd_dkv<false, false>);
-  cudaError_t e = set_smem(dkv, smem_kv);
-  if (e != cudaSuccess) return (int)e;
-  dkv<<<grid, kThreads, smem_kv, s>>>(q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv, ds,
-                                      H, T, dh, F, scale, vec);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || emit) return (int)e;
-
-  const size_t smem_q = rows_bytes + sizeof(int) * 2 * kTileB + fb_bytes +
-                        (frames ? sizeof(float) * (kWarps * 16 * kDsLd + kRows * F) : 0);
-  auto dqk = frames ? flash_bwd_dq<true> : flash_bwd_dq<false>;
-  e = set_smem(dqk, smem_q);
-  if (e != cudaSuccess) return (int)e;
-  dqk<<<grid, kThreads, smem_q, s>>>(q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part,
-                                     H, T, dh, F, scale, vec);
-  return (int)cudaGetLastError();
+  return VOG_FLASH_DISPATCH(launch_bwd, q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dk, dv,
+                            dfb_part, static_cast<DsT*>(ds_out), B, H, T, dh, F, scale,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // fb and fid may be null when F == 1 (no bias)
@@ -567,15 +660,6 @@ extern "C" int vog_flash_fwd(int device, const float* q, const float* k, const f
   VOG_DEVICE_GUARD(device);
   if (dh > kMaxDh || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
-  const bool frames = F > 1;
-  const size_t smem = sizeof(float) * (size_t)(kRows + 4 * kTileF) * kLd +
-                      sizeof(int) * 2 * kTileF + (frames ? sizeof(float) * F * F : 0);
-  auto fwd = frames ? flash_fwd<true> : flash_fwd<false>;
-  cudaError_t e = set_smem(fwd, smem);
-  if (e != cudaSuccess) return (int)e;
-  const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  const dim3 grid((T + kRows - 1) / kRows, B * H);
-  fwd<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, key_mask, fb, fid, o, lse, H, T, dh, F, scale, vec);
-  return (int)cudaGetLastError();
+  return VOG_FLASH_DISPATCH(launch_fwd, q, k, v, key_mask, fb, fid, o, lse, B, H, T, dh, F, scale,
+                            static_cast<cudaStream_t>(stream));
 }

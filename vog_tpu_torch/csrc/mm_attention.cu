@@ -118,22 +118,54 @@
 // adds up in a fixed order: the gradients are the same on every run, with
 // no atomics.  This design's times are in PERF.md.
 //
+// Head dims, frames and args.  The file builds once for each head-dim
+// instance, DK 128 (dh <= 128, zero padded) and DK 256 (-DVOG_MM_DK=256),
+// each its own library.  At DK 256 every kernel's output columns are split
+// over two blocks of a tile (grid.z; tiles.cuh §HeadDim), each computing
+// the tile's scores, so the accumulators stay at DK 128's registers, and
+// mm_bwd_dq's block halves its rows and key tile to fit shared memory.  The
+// (F, F) bias table sits in shared memory up to 64 frames and is read from
+// device memory past that, an instance each (tiles.cuh §TableMode: up to
+// 64 frames the code and registers are those of a kernel without the
+// other case); past 64 frames mm_bwd_dq
+// gives a tile of rows ceil(F / 64) blocks, each summing 64 key frames in
+// the fixed order.  A is a template parameter, 1..8; the wrapper launches
+// more args in groups of at most 8 (kernels/mm_attention.py §arg_groups).
+//
 // Precision: this file builds twice (kernels/_build.py), as attention.cu:
 // 3xTF32 ("highest") as it is, one TF32 pass ("default") with
 // -DVOG_ONE_PASS=1, where emit mode also stores comb in bf16, as the JAX
 // package does at "default" on the chip.  The pass count is a template
 // parameter of the helpers (tiles.cuh, tf32.cuh), not of these kernels,
-// so the template instances (A = 1..8 of four kernels) do not double in
-// either build.
+// so the template instances (A = 1..8 of three kernels, each at both
+// table modes, tiles.cuh §TableMode) do not double in any of the four
+// builds.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "tiles.cuh"  // cp.async row tiles, their 3xTF32 fragments
+#include "tiles.cuh"  // cp.async row tiles, their 3xTF32 fragments, HeadDim
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
+// This library's head-dim instance: 128 (dh <= 128) or 256 (128 < dh <=
+// 256), one library each (kernels/_build.py), so that nvcc builds the two
+// sets of A = 1..8 instances in parallel.
+#ifndef VOG_MM_DK
+#define VOG_MM_DK 128
+#endif
+
 namespace {
+
+constexpr int kDK = VOG_MM_DK;
+using HD = HeadDim<kDK>;
+constexpr int kLd = HD::kLd;
+constexpr int kND = HD::kND;
+constexpr int kNV = HD::kNV;
+// Shared memory of a block, at A = 8 and a shared (64, 64) table: 107-193 KB
+// at DK 128 (two blocks an SM for mm_fwd and mm_bwd_dkv), 212-221 KB at DK
+// 256 (one block an SM)
+constexpr int kMinBlocks = kDK > 128 ? 1 : 2;
 
 // ---------------------------------------------------------------------------
 // forward
@@ -143,7 +175,14 @@ constexpr int kFwdThreads = kFwdWarps * 32;
 constexpr int kFwdRows = 16;                    // query rows a block owns
 constexpr int kFwdTile = 32;                    // keys a streamed tile (8 a warp in S)
 constexpr int kFwdKT = kFwdTile / 8;            // k-steps of P.V over a tile
-constexpr int kFwdCols = kMaxDh / kFwdWarps;    // output columns a warp owns in P.V
+// Output columns a warp owns in P.V: 32 of the block's column slice.  At
+// DK 256 the columns are split over two blocks (grid.z), not over 8 warps:
+// a block of 8 warps would need a 64-key tile to give each warp its 8 keys
+// of S and 2 rows of the softmax, and the two-stage 64-key K/V ring at DK
+// 256 (266 KB) does not fit; the two blocks each compute the tile's S and
+// softmax (a third or less of the work at A >= 2) and keep A x 32 columns
+// of accumulators a lane, as at DK 128.
+constexpr int kFwdCols = HD::kDV / kFwdWarps;
 constexpr int kFwdNT = kFwdCols / 8;            // their 8-wide column tiles
 constexpr int kSoftRows = kFwdRows / kFwdWarps;  // rows a warp owns in the softmax
 constexpr int kSets = 4;                        // accumulator sets of the S chain
@@ -153,8 +192,8 @@ constexpr int kSLd = kFwdTile + 8;              // S tile row stride (conflict-f
 // conflict-free
 constexpr int kPLd = 2 * kFwdTile + 16;
 
-template <int A>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+template <int A, int TM>
+__global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
 mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
        const float* __restrict__ vm, const float* __restrict__ cn,
        const float* __restrict__ key_mask, const float* __restrict__ fb,
@@ -176,15 +215,16 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
   float* Al = Cs + 2 * A * kFwdTile;                             // A x kFwdRows: rescale factors
   float* Ls = Al + A * kFwdRows;                                 // A x kFwdRows: final sums
   int* codes = reinterpret_cast<int*>(Ls + A * kFwdRows);       // 2 stages x kFwdTile
-  float* fbs = reinterpret_cast<float*>(codes + 2 * kFwdTile);  // F x F
+  float* fbs = reinterpret_cast<float*>(codes + 2 * kFwdTile);  // F x F (F <= kTableF)
+  const float* fbg = fb + (size_t)h * F * F;
 
   const size_t base = (size_t)bh * T * dh;
   const float* kb = km + base;
   const float* vb = vm + base;
   const float* cb = cn + (size_t)bh * A * T;
   auto stage = [&](int s, int j0) {
-    load_rows<kFwdTile, kFwdThreads>(Ks + s * kFwdTile * kLd, kb, j0, T, dh, vec);
-    load_rows<kFwdTile, kFwdThreads>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, vec);
+    load_rows<kFwdTile, kFwdThreads, kDK>(Ks + s * kFwdTile * kLd, kb, j0, T, dh, vec);
+    load_rows<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, vec);
     for (int i = tid; i < A * kFwdTile; i += kFwdThreads) {  // cn, zero past T
       const int a = i / kFwdTile, j = j0 + i % kFwdTile;
       cp_async4(Cs + s * A * kFwdTile + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
@@ -192,8 +232,8 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     if (tid < kFwdTile) codes[s * kFwdTile + tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
-  for (int i = tid; i < F * F; i += kFwdThreads) fbs[i] = fb[(size_t)h * F * F + i];
-  load_rows<kFwdRows, kFwdThreads>(Qs, qm + base, q0, T, dh, vec);
+  stage_table<TM, kFwdThreads>(fbs, fbg, F);
+  load_rows<kFwdRows, kFwdThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first tile
 
   // S phase: rows g, g + 8 of the block, keys 8w..8w+7 of a tile
@@ -202,8 +242,9 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
   // running max of each arg, and this lane's part of its sum
   const int sr = kSoftRows * warp + (lane >> 3), sk = 4 * (lane & 7);
   float m[A], l[A];
-  // P.V phase: rows g, g + 8, columns c0..c0+31, every arg
-  const int c0 = kFwdCols * warp;
+  // P.V phase: rows g, g + 8, columns c0..c0+31 (of the block's slice z), every arg
+  const int z = HD::kSlices > 1 ? blockIdx.z : 0;
+  const int c0 = z * HD::kDV + kFwdCols * warp;
   float acc[A][kFwdNT][4];
 #pragma unroll
   for (int a = 0; a < A; ++a) {
@@ -231,8 +272,8 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
       for (int ks = 0; ks < kND; ++ks) {
         uint32_t ab[4], as[4], bb[2], bs[2];
-        frag_a(Qs, 8 * ks, g, t, ab, as);
-        frag_bt(Kw, 0, 8 * ks, g, t, bb, bs);
+        frag_a<kLd>(Qs, 8 * ks, g, t, ab, as);
+        frag_bt<kLd>(Kw, 0, 8 * ks, g, t, bb, bs);
         mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
       }
       const int j = 8 * warp + 2 * t;
@@ -247,8 +288,8 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
           s1 += cs[q][2 + e];
         }
         if (c >= 0) {
-          x[e] = s0 + fbs[fq0 * F + c];
-          x[2 + e] = s1 + fbs[fq1 * F + c];
+          x[e] = s0 + table_bias<TM>(fbs, fbg, F, fq0, c);
+          x[2 + e] = s1 + table_bias<TM>(fbs, fbg, F, fq1, c);
         } else {
           x[e] = x[2 + e] = c == kMasked ? kNeg : -INFINITY;
         }
@@ -303,7 +344,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     for (int j = 0; j < kFwdKT; ++j) {  // O_a += P_a V over keys 8j..8j+7, every arg
       uint32_t bb[kFwdNT][2], bs[kFwdNT][2];  // V's split B fragments, shared by the args
 #pragma unroll
-      for (int n = 0; n < kFwdNT; ++n) frag_b_pairs(Vt + c0, 8 * j, 8 * n, g, t, bb[n], bs[n]);
+      for (int n = 0; n < kFwdNT; ++n) frag_b_pairs<kLd>(Vt + c0, 8 * j, 8 * n, g, t, bb[n], bs[n]);
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         // P_a's A fragment in pair order (k = t: key 8j+2t, k = t+4: key
@@ -331,7 +372,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     if ((lane & 7) == 0) {
       Ls[a * kFwdRows + sr] = lt;
       const size_t row = ((size_t)bh * A + a) * T + q0 + sr;
-      if (q0 + sr < T) {
+      if (q0 + sr < T && z == 0) {
         mrow[row] = m[a];
         den[row] = lt;
       }
@@ -353,14 +394,14 @@ int launch(const float* qm, const float* km, const float* vm, const float* cn,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(kFwdRows + 4 * kFwdTile) * kLd +
                                        A * kFwdRows * kPLd + kFwdRows * kSLd +
-                                       2 * A * kFwdTile + 2 * A * kFwdRows + F * F) +
+                                       2 * A * kFwdTile + 2 * A * kFwdRows + table_floats(F)) +
                       sizeof(int) * 2 * kFwdTile;
-  cudaError_t e = cudaFuncSetAttribute(
-      mm_fwd<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto fwd = F <= kTableF ? mm_fwd<A, kSmemTable> : mm_fwd<A, kGlobalTable>;
+  cudaError_t e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm);
-  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
-  mm_fwd<A><<<grid, kFwdThreads, smem, stream>>>(
+  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H, HD::kSlices);
+  fwd<<<grid, kFwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, H, T, dh, F, vec);
   return (int)cudaGetLastError();
 }
@@ -381,9 +422,10 @@ mm_bwd_delta(const float* __restrict__ o, const float* __restrict__ gout,
   row_dots(o, gout, delta, rows, dh);
 }
 
-// kEmit: also store comb (B*H, T, T), query-major ("emit" mode)
-template <int A, bool kEmit>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+// kEmit: also store comb (B*H, T, T), query-major ("emit" mode).  Block z
+// accumulates dK and dV's column slice z; slice 0's block stores comb and dcn.
+template <int A, int TM, bool kEmit>
+__global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
 mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ vm, const float* __restrict__ cn,
            const float* __restrict__ key_mask, const float* __restrict__ fb,
@@ -394,7 +436,9 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            DsT* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
   constexpr int NT = kBwdNT;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kBwdKeys;
+  const int z = HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
+  const int k0 = blockIdx.x * kBwdKeys, c0 = z * HD::kDV;
+  const bool first = z == 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -405,8 +449,9 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
   float* Gs = Qs + 2 * kBwdTile * kLd;                       // 2 steps x kBwdTile x kLd: g_a
   float* Ss = Gs + 2 * kBwdTile * kLd;                       // 2 tiles x 3 x A x kBwdTile: m, den, delta
   float* Cs = Ss + 2 * 3 * A * kBwdTile;                     // A x kBwdKeys: cn of the keys
-  float* fbs = Cs + A * kBwdKeys;                            // F x F
-  int* fqs = reinterpret_cast<int*>(fbs + F * F);            // 2 tiles x kBwdTile: query frames
+  float* fbs = Cs + A * kBwdKeys;                            // F x F (F <= kTableF)
+  int* fqs = reinterpret_cast<int*>(fbs + table_floats(F));  // 2 tiles x kBwdTile: query frames
+  const float* fbg = fb + (size_t)h * F * F;
 
   const size_t base = (size_t)bh * T * dh;
   const float* qb = qm + base;
@@ -416,10 +461,10 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
   // the tile's Q rows, statistics and frames; one commit group a step
   auto stage = [&](int j) {
     const int it = j / A, a = j - it * A, i0 = it * kBwdTile;
-    load_rows<kBwdTile, kBwdThreads>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
-                                     i0, T, dh, vec);
+    load_rows<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
+                                          i0, T, dh, vec);
     if (a == 0) {
-      load_rows<kBwdTile, kBwdThreads>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
+      load_rows<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
       float* st = Ss + (it & 1) * 3 * A * kBwdTile;
       for (int i = tid; i < 3 * A * kBwdTile; i += kBwdThreads) {  // zero past T
         const int w = i / (A * kBwdTile), r = i % (A * kBwdTile), qi = i0 + r % kBwdTile;
@@ -434,13 +479,13 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     }
     cp_commit();
   };
-  for (int i = tid; i < F * F; i += kBwdThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  stage_table<TM, kBwdThreads>(fbs, fbg, F);
   for (int i = tid; i < A * kBwdKeys; i += kBwdThreads) {
     const int a = i / kBwdKeys, kj = k0 + i % kBwdKeys;
     Cs[i] = kj < T ? cn[arow + (size_t)a * T + kj] : 0.f;
   }
-  load_rows<kBwdKeys, kBwdThreads>(Ks, km + base, k0, T, dh, vec);
-  load_rows<kBwdKeys, kBwdThreads>(Vs, vm + base, k0, T, dh, vec);
+  load_rows<kBwdKeys, kBwdThreads, kDK>(Ks, km + base, k0, T, dh, vec);
+  load_rows<kBwdKeys, kBwdThreads, kDK>(Vs, vm + base, k0, T, dh, vec);
   stage(0);  // one group: K, V and step 0
 
   // this lane's keys: kr0 = k0 + 16 warp + g and kr0 + 8 (rows g, g + 8 of
@@ -450,7 +495,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
   const bool active = k0 + warp * 16 < T;  // a warp whose keys are all past T only loads
   const float* Kw = Ks + warp * 16 * kLd;
   const float* Vw = Vs + warp * 16 * kLd;
-  float adk[kND][4], adv[kND][4];
+  float adk[kNV][4], adv[kNV][4];
   zero(adk);
   zero(adv);
   float dc[A][2];  // this lane's part of dcn_a at its two keys
@@ -470,7 +515,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     const float* Ss_t = Ss + (it & 1) * 3 * A * kBwdTile;
     advance();  // step (it, 0): the tile's Q, statistics and frames, and g_0
     if (active) {  // S^T = K Q^T + fb, once a query tile for all args; masked keys at kNeg
-      scores<NT, false>(st, st, Kw, Qt, Kw, Qt, g, t);
+      scores<NT, false, kDK>(st, st, Kw, Qt, Kw, Qt, g, t);
       const int* ft = fqs + (it & 1) * kBwdTile;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -480,7 +525,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const int c = kc[r];
-            st[n][2 * r + e] = c >= 0 ? st[n][2 * r + e] + fbs[fq * F + c] : kNeg;
+            st[n][2 * r + e] = c >= 0 ? st[n][2 * r + e] + table_bias<TM>(fbs, fbg, F, fq, c) : kNeg;
           }
         }
       zero(cb);
@@ -494,7 +539,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
       const float* dnt = mt + A * kBwdTile;
       const float* dlt = dnt + A * kBwdTile;
       float dpt[NT][4];
-      scores<NT, false>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);  // dP_a^T = V G_a^T
+      scores<NT, false, kDK>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);  // dP_a^T = V G_a^T
 
       // P_a^T = exp(S^T + cn_a - m_a) / den_a; ds_a = P_a^T (dP_a^T - delta_a)
       const float cn0 = Cs[a * kBwdKeys + kl0], cn1 = Cs[a * kBwdKeys + kl0 + 8];
@@ -523,7 +568,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
           dc[aa][0] += ds0;
           dc[aa][1] += ds1;
         }
-      accumulate<NT>(adv, pt, Gt, g, t);  // dV += P_a^T G_a
+      accumulate<NT, kNV, kLd>(adv, pt, Gt + c0, g, t);  // dV += P_a^T G_a
     }
     if (!active) continue;
 
@@ -533,8 +578,8 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (kc[i >> 1] < 0) cb[n][i] = 0.f;
-    accumulate<NT>(adk, cb, Qt, g, t);
-    if (!kEmit) continue;
+    accumulate<NT, kNV, kLd>(adk, cb, Qt + c0, g, t);
+    if (!kEmit || !first) continue;
     // comb[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -555,33 +600,41 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     for (int r = 0; r < 2; ++r) {
       const float d = quad_sum(dc[a][r]);
       const int kj = kr0 + 8 * r;
-      if (t == 0 && active && kj < T) dcn[arow + (size_t)a * T + kj] = d;
+      if (t == 0 && active && first && kj < T) dcn[arow + (size_t)a * T + kj] = d;
     }
   if (!active) return;
-  store_rows(dk + base, adk, kr0, 0, T, dh, t, 1.f, 1.f);
-  store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
+  store_rows(dk + base, adk, kr0, c0, T, dh, t, 1.f, 1.f);
+  store_rows(dv + base, adv, kr0, c0, T, dh, t, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
 // backward, recompute mode: dq and the frame-bias partials
 // ---------------------------------------------------------------------------
-constexpr int kDqWarps = 8;
+// A block: kDqGroups row groups of 16 rows, each with two warps over the
+// two halves of a key tile.  At DK 256 the rows and the key tile halve (32
+// rows, 32 keys: 166 KB of rows in shared memory against 333 KB at 64 and
+// 64) and a block has 4 warps.
+constexpr int kDqGroups = kDK > 128 ? 2 : 4;
+constexpr int kDqWarps = 2 * kDqGroups;
 constexpr int kDqThreads = kDqWarps * 32;
-constexpr int kDqRows = 64;       // query rows a block owns: four row groups of 16
-constexpr int kDqTile = 64;       // keys of a tile: two halves of 32, a warp's four n-tiles
-constexpr int kMaxFrames = 64;
-constexpr int kFrameTiles = kMaxFrames / 8;  // 8-frame column tiles of the frame sums
+constexpr int kDqRows = 16 * kDqGroups;   // query rows a block owns
+constexpr int kDqTile = kDK > 128 ? 32 : 64;  // keys of a tile: two halves, a warp's n-tiles
+// scores' k-steps a rolled iteration (tiles.cuh): at DK 256 its whole
+// loop of 32 let the loads run ahead and spill (68 bytes in 3xTF32 at A =
+// 5); the other kernels spilled more in chunks of 16 than unrolled whole
+constexpr int kDqChunk = 16;
+constexpr int kFrameTiles = kFrameTile / 8;  // 8-frame column tiles of a block's frame sums
 
-// rs (a warp's 16 rows x the key frames, C fragments) += comb . onehot:
-// comb's C fragments (NT tiles of 8 keys) are the A fragments (keys in pair
-// order), the one-hot B fragment is exact in TF32 (1 where key 2t or 2t + 1
-// lies in frame 8f + g; masked keys and keys past T have codes < 0), so two
-// mma a tile (small, then big) give the fp32 sum; one (comb rounded to
-// TF32) in a one-pass library.  Each product is formed
+// rs (a warp's 16 rows x the key frames fbase.., C fragments) += comb .
+// onehot: comb's C fragments (NT tiles of 8 keys) are the A fragments (keys
+// in pair order), the one-hot B fragment is exact in TF32 (1 where key 2t
+// or 2t + 1 lies in frame fbase + 8f + g; masked keys and keys past T have
+// codes < 0), so two mma a tile (small, then big) give the fp32 sum; one
+// (comb rounded to TF32) in a one-pass library.  Each product is formed
 // from zero and added in fp32 (a chain over T keys, as tiles.cuh §accumulate).
 template <int NT>
 __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&comb)[NT][4],
-                                  const int (&c)[NT][2], int F, int g) {
+                                  const int (&c)[NT][2], int F, int fbase, int g) {
   const uint32_t one = __float_as_uint(1.f);
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -589,8 +642,9 @@ __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&com
     a_from_c(comb[n], ab, as);
 #pragma unroll
     for (int f = 0; f < kFrameTiles; ++f) {
-      if (8 * f >= F) break;
-      const uint32_t b[2] = {c[n][0] == 8 * f + g ? one : 0u, c[n][1] == 8 * f + g ? one : 0u};
+      const int f0 = fbase + 8 * f;
+      if (f0 >= F) break;
+      const uint32_t b[2] = {c[n][0] == f0 + g ? one : 0u, c[n][1] == f0 + g ? one : 0u};
       float part[4] = {0.f, 0.f, 0.f, 0.f};
       if constexpr (!kOnePass) mma(part, as, b);
       mma(part, ab, b);
@@ -600,7 +654,10 @@ __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&com
   }
 }
 
-template <int A>
+// Block z of a tile of rows computes dq's column slice z (z < kSlices) and
+// sums comb over key frames 64z..64z+63 (z < ceil(F / 64)), as
+// csrc/attention.cu's flash_bwd_dq: grid.z = max(kSlices, ceil(F / 64)).
+template <int A, int TM>
 __global__ void __launch_bounds__(kDqThreads, 1)
 mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           const float* __restrict__ vm, const float* __restrict__ cn,
@@ -611,10 +668,16 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           float* __restrict__ dfb_part, int H, int T, int dh, int F, bool vec) {
   constexpr int NT = kDqTile / 16;  // a warp's 8-key n-tiles
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kDqRows;
+  // one block a tile of rows: no slices, the frames in one tile
+  constexpr bool kOne = HD::kSlices == 1 && TM == kSmemTable;
+  const int q0 = blockIdx.x * kDqRows, z = kOne ? 0 : blockIdx.z;
+  const bool do_dq = kOne || z < HD::kSlices;  // dq's column slice z
+  const int c0 = HD::kSlices > 1 ? z * HD::kDV : 0;
+  const int fbase = kFrameTile * z;    // key frames 64z..64z+63
+  const bool do_fr = kOne || fbase < F;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp & 3, kh = warp >> 2;  // row group (16 rows), key half (16 keys of a tile)
+  const int rg = warp % kDqGroups, kh = warp / kDqGroups;  // row group (16 rows), key half of a tile
 
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);      // kDqRows x kLd
@@ -623,8 +686,9 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   float* Vs = Ks + kDqTile * kLd;                    // kDqTile x kLd
   float* Cs = Vs + kDqTile * kLd;                    // A x kDqTile: cn of the keys
   float* St = Cs + A * kDqTile;                      // 3 x A x kDqRows: m, 1 / den, delta
-  float* fbs = St + 3 * A * kDqRows;                 // F x F
-  int* codes = reinterpret_cast<int*>(fbs + F * F);  // kDqTile
+  float* fbs = St + 3 * A * kDqRows;                 // F x F (F <= kTableF)
+  int* codes = reinterpret_cast<int*>(fbs + table_floats(F));  // kDqTile
+  const float* fbg = fb + (size_t)h * F * F;
 
   const size_t base = (size_t)bh * T * dh;
   const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
@@ -635,15 +699,15 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   // step j = (key tile j / A, arg j % A): its g_a rows, a step ahead
   auto stage = [&](int j) {
     const int a = j % A;
-    load_rows<kDqRows, kDqThreads>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
-                                   q0, T, dh, vec);
+    load_rows<kDqRows, kDqThreads, kDK>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
+                                        q0, T, dh, vec);
     cp_commit();
   };
   // key tile it: its K and V rows, cn and key codes, once every warp is done with the tile before
   auto load_tile = [&](int it) {
     const int j0 = it * kDqTile;
-    load_rows<kDqTile, kDqThreads>(Ks, kb, j0, T, dh, vec);
-    load_rows<kDqTile, kDqThreads>(Vs, vb, j0, T, dh, vec);
+    load_rows<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, vec);
+    load_rows<kDqTile, kDqThreads, kDK>(Vs, vb, j0, T, dh, vec);
     for (int i = tid; i < A * kDqTile; i += kDqThreads) {  // cn, zero past T
       const int aa = i / kDqTile, jj = j0 + i % kDqTile;
       cp_async4(Cs + i, jj < T ? cb + (size_t)aa * T + jj : cb, jj < T);
@@ -651,20 +715,20 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
     if (tid < kDqTile) codes[tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
-  for (int i = tid; i < F * F; i += kDqThreads) fbs[i] = fb[(size_t)h * F * F + i];
+  stage_table<TM, kDqThreads>(fbs, fbg, F);
   for (int i = tid; i < 3 * A * kDqRows; i += kDqThreads) {  // rows past T: m 0, 1/den 1, delta 0
     const int w = i / (A * kDqRows), r = i % (A * kDqRows), qi = q0 + r % kDqRows;
     const size_t at = arow + (size_t)(r / kDqRows) * T + qi;
     St[i] = qi >= T ? (w == 1 ? 1.f : 0.f) : w == 0 ? mrow[at] : w == 1 ? 1.f / den[at] : delta[at];
   }
-  load_rows<kDqRows, kDqThreads>(Qs, qm + base, q0, T, dh, vec);
+  load_rows<kDqRows, kDqThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
   stage(0);
   load_tile(0);
 
   const int r0 = 16 * rg + g;  // this lane's rows of the block: r0 and r0 + 8
   const int fq0 = q0 + r0 < T ? fid[q0 + r0] : 0, fq1 = q0 + r0 + 8 < T ? fid[q0 + r0 + 8] : 0;
   const float* Qw = Qs + 16 * rg * kLd;
-  float acc[kND][4];  // dQ of the warp's 16 rows over its key halves
+  float acc[kNV][4];  // dQ (the block's column slice) of the warp's 16 rows over its key halves
   zero(acc);
   float rs[kFrameTiles][4];  // the rows' comb summed by key frame (C fragments, 16 x 64 frames)
   zero(rs);
@@ -672,7 +736,7 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   int c[NT][2];                  // codes of this lane's keys 8n + 2t + e of its half
 
   constexpr int kHalf = kDqTile / 2;
-  const float* Kh = Ks + kHalf * kh * kLd;  // the warp's 32 keys of a tile
+  const float* Kh = Ks + kHalf * kh * kLd;  // the warp's keys of a tile
   const float* Vh = Vs + kHalf * kh * kLd;
   const float* Ct = Cs + kHalf * kh;
   int j = 0;  // the step in flight
@@ -683,7 +747,7 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
       __syncthreads();  // step j (with arg 0, the tile) is in; every warp is done with step j - 1
       if (j + 1 < nsteps) stage(j + 1);
       if (a == 0) {  // S = Q K^T + fb, once a key tile for all args
-        scores<NT, false>(sc, sc, Qw, Kh, Qw, Kh, g, t);
+        scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh, Qw, Kh, g, t);
         const int* ct = codes + kHalf * kh;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -691,15 +755,15 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           for (int e = 0; e < 2; ++e) {
             c[n][e] = ct[8 * n + 2 * t + e];
             if (c[n][e] >= 0) {
-              sc[n][e] += fbs[fq0 * F + c[n][e]];
-              sc[n][2 + e] += fbs[fq1 * F + c[n][e]];
+              sc[n][e] += table_bias<TM>(fbs, fbg, F, fq0, c[n][e]);
+              sc[n][2 + e] += table_bias<TM>(fbs, fbg, F, fq1, c[n][e]);
             }
           }
         zero(comb);
       }
       float gv[NT][4];
       const float* Ga = Gs + ((j & 1) * kDqRows + 16 * rg) * kLd;
-      scores<NT, false>(gv, gv, Ga, Vh, Ga, Vh, g, t);  // gv_a = G_a V^T
+      scores<NT, false, kDK, kOnePass, kDqChunk>(gv, gv, Ga, Vh, Ga, Vh, g, t);  // gv_a = G_a V^T
       const float* sm = St + a * kDqRows + r0;
       const float m0 = sm[0], m1 = sm[8];
       const float i0 = sm[A * kDqRows], i1 = sm[A * kDqRows + 8];
@@ -714,8 +778,8 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
             comb[n][2 + e] += expf(sc[n][2 + e] + ca - m1) * i1 * (gv[n][2 + e] - d1);
           }
     }
-    accumulate<NT>(acc, comb, Kh, g, t);  // dQ += comb K
-    frame_sums<NT>(rs, comb, c, F, g);
+    if (do_dq) accumulate<NT, kNV, kLd>(acc, comb, Kh + c0, g, t);  // dQ += comb K
+    if (do_fr) frame_sums<NT>(rs, comb, c, F, fbase, g);
     if (it + 1 < ntiles) {
       __syncthreads();  // every warp is done with the tile's K, V, cn and codes
       load_tile(it + 1);
@@ -726,47 +790,54 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   // to half 0 through shared memory (the g_a ring), which adds them in order
   __syncthreads();  // every warp is done with Gs
   float* red = Gs;                    // kDqRows x kLd
-  float* racc = Gs + kDqRows * kLd;   // kDqRows x F: frame sums of the rows
+  float* racc = Gs + kDqRows * kLd;   // kDqRows x kFrameTile: frame sums of the rows
   auto put_rs = [&](bool add) {
 #pragma unroll
     for (int f = 0; f < kFrameTiles; ++f)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = 8 * f + 2 * t + (i & 1), r = r0 + (i >= 2 ? 8 : 0);
-        if (col < F) racc[r * F + col] = add ? racc[r * F + col] + rs[f][i] : rs[f][i];
+        if (fbase + col < F)
+          racc[r * kFrameTile + col] = add ? racc[r * kFrameTile + col] + rs[f][i] : rs[f][i];
       }
   };
   if (kh == 1) {
+    if (do_dq) {
 #pragma unroll
-    for (int n = 0; n < kND; ++n)
+      for (int n = 0; n < kNV; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[r0 * kLd + 8 * n + 2 * t + e] = acc[n][e];
-        red[(r0 + 8) * kLd + 8 * n + 2 * t + e] = acc[n][2 + e];
-      }
-    put_rs(false);
+        for (int e = 0; e < 2; ++e) {
+          red[r0 * kLd + 8 * n + 2 * t + e] = acc[n][e];
+          red[(r0 + 8) * kLd + 8 * n + 2 * t + e] = acc[n][2 + e];
+        }
+    }
+    if (do_fr) put_rs(false);
   }
   __syncthreads();
   if (kh == 0) {
+    if (do_dq) {
 #pragma unroll
-    for (int n = 0; n < kND; ++n)
+      for (int n = 0; n < kNV; ++n)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        acc[n][e] += red[r0 * kLd + 8 * n + 2 * t + e];
-        acc[n][2 + e] += red[(r0 + 8) * kLd + 8 * n + 2 * t + e];
-      }
-    store_rows(dq + base, acc, q0 + r0, 0, T, dh, t, 1.f, 1.f);
-    put_rs(true);
+        for (int e = 0; e < 2; ++e) {
+          acc[n][e] += red[r0 * kLd + 8 * n + 2 * t + e];
+          acc[n][2 + e] += red[(r0 + 8) * kLd + 8 * n + 2 * t + e];
+        }
+      store_rows(dq + base, acc, q0 + r0, c0, T, dh, t, 1.f, 1.f);
+    }
+    if (do_fr) put_rs(true);
   }
+  if (!do_fr) return;
   __syncthreads();
-  // this block's (F, F) partial: rows in order, those of query frame f
+  // this block's columns fbase.. of the (F, F) partial: rows in order, those of query frame f
+  const int nf = min(kFrameTile, F - fbase);
   float* part = dfb_part + ((size_t)bh * gridDim.x + blockIdx.x) * F * F;
-  for (int cell = tid; cell < F * F; cell += kDqThreads) {
-    const int f = cell / F, gk = cell - f * F;
+  for (int cell = tid; cell < F * nf; cell += kDqThreads) {
+    const int f = cell / nf, gk = cell - f * nf;
     float sum = 0.f;
     for (int r = 0; r < kDqRows && q0 + r < T; ++r)
-      if (fid[q0 + r] == f) sum += racc[r * F + gk];
-    part[cell] = sum;
+      if (fid[q0 + r] == f) sum += racc[r * kFrameTile + gk];
+    part[f * F + fbase + gk] = sum;
   }
 }
 
@@ -783,37 +854,44 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t smem = sizeof(float) * ((size_t)(2 * kBwdKeys + 4 * kBwdTile) * kLd +
-                                       6 * A * kBwdTile + A * kBwdKeys + F * F) +
+                                       6 * A * kBwdTile + A * kBwdKeys + table_floats(F)) +
                       sizeof(int) * 2 * kBwdTile;
-  const bool emit = comb != nullptr;
-  auto dkv = emit ? mm_bwd_dkv<A, true> : mm_bwd_dkv<A, false>;
+  const bool emit = comb != nullptr, smem_table = F <= kTableF;
+  auto dkv = emit ? (smem_table ? mm_bwd_dkv<A, kSmemTable, true> : mm_bwd_dkv<A, kGlobalTable, true>)
+                  : (smem_table ? mm_bwd_dkv<A, kSmemTable, false> : mm_bwd_dkv<A, kGlobalTable, false>);
   e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
                    aligned16(gout);
-  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H);
+  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H, HD::kSlices);
   dkv<<<grid, kBwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn,
       comb, H, T, dh, F, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || emit) return (int)e;
   const size_t smem_q = sizeof(float) * ((size_t)(3 * kDqRows + 2 * kDqTile) * kLd +
-                                         A * kDqTile + 3 * A * kDqRows + F * F) +
+                                         A * kDqTile + 3 * A * kDqRows + table_floats(F)) +
                         sizeof(int) * kDqTile;
-  e = cudaFuncSetAttribute(mm_bwd_dq<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
+  auto dqk = smem_table ? mm_bwd_dq<A, kSmemTable> : mm_bwd_dq<A, kGlobalTable>;
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (e != cudaSuccess) return (int)e;
-  mm_bwd_dq<A><<<dim3((T + kDqRows - 1) / kDqRows, B * H), kDqThreads, smem_q, stream>>>(
+  const int frame_tiles = (F + kFrameTile - 1) / kFrameTile;
+  const dim3 grid_q((T + kDqRows - 1) / kDqRows, B * H,
+                    frame_tiles > HD::kSlices ? frame_tiles : HD::kSlices);
+  dqk<<<grid_q, kDqThreads, smem_q, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dq, dfb_part, H, T, dh, F, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// dh must be at most this library's head-dim instance (and, at 256, above
+// 128: the wrapper takes the 128 library there).
 // delta: (B,H,A,T) scratch, written here from gout and the forward's out.
 // Emit mode: comb (B*H, T, T), fp32 or, in the one-pass library, bf16, not
 // null; dq and dfb_part are not touched.
 // Recompute mode: comb null; dq (B,H,T,dh) and dfb_part (B, H, ceil(T /
-// 64), F, F) are written.
+// rows), F, F) are written, rows = 64 at DK 128 and 32 at DK 256.
 extern "C" int vog_mm_bwd(int device, const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, const float* gout,
@@ -822,7 +900,7 @@ extern "C" int vog_mm_bwd(int device, const float* qm, const float* km, const fl
                           void* comb_out, float* dq, float* dfb_part, int B, int H,
                           int A, int T, int dh, int F, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
+  if (dh > kDK || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   DsT* comb = static_cast<DsT*>(comb_out);
   if (comb == nullptr && (dq == nullptr || dfb_part == nullptr)) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
@@ -853,7 +931,7 @@ extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const fl
                           float* mrow, float* den, int B, int H, int A, int T,
                           int dh, int F, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kMaxDh || dh < 1 || F < 1 || F > kMaxFrames) return (int)cudaErrorInvalidValue;
+  if (dh > kDK || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOG_MM_CASE(n) \

@@ -3,9 +3,20 @@
 // mm_attention.cu, forward and backward); grounding_head.cu takes its
 // cp.async helpers.
 //
-//  * The head dim is a compile-time 128 (smaller dh is zero padded), so
-//    every loop over it unrolls and the loads run ahead of the products.
-//  * A shared row holds 128 floats plus 4: with a row stride of 4 (mod 8)
+//  * The head dim is a compile-time parameter of every kernel instance
+//    (HeadDim<DK>: DK 64, 128 or 256; a call pads dh up to the next
+//    instance with zeros), so every loop over it unrolls and the loads run
+//    ahead of the products.  The score products (Q K^T, dO V^T, G V^T)
+//    run over all DK; the accumulating products (P V, dS^T Q, ...) of a
+//    block cover DV = min(DK, 128) output columns, so their accumulators
+//    take at most 128 columns' registers at any DK: at DK 256 a launch
+//    has two blocks for each tile of rows, grid.z = 2, one a column
+//    slice, and both compute the tile's scores.  The second slice repeats
+//    the score products: half or less of the forward and dkv kernels'
+//    products, most of the dq kernels' (recompute mode).  One block
+//    holding all 256 columns would need twice the accumulators (256
+//    registers a lane for dK and dV).
+//  * A shared row holds DK floats plus 4: with a row stride of 4 (mod 8)
 //    words, both kinds of fragment read below (rows g, columns t; and rows
 //    2t, 2t+1, columns g) hit 32 distinct banks.
 //  * Rows come in by cp.async (16-byte copies, zero-filled past T and past
@@ -44,9 +55,30 @@ using DsT = std::conditional_t<kOnePass, __nv_bfloat16, float>;
 __device__ inline void store_ds(float* p, float x) { *p = x; }
 __device__ inline void store_ds(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-constexpr int kMaxDh = 128;      // the padded head dim
-constexpr int kND = kMaxDh / 8;  // k-steps (or 8-wide column tiles) over it
-constexpr int kLd = kMaxDh + 4;  // shared row stride (floats)
+// A kernel instance's head dims: DK the padded head dim of the score
+// products, DV the output columns a block accumulates (its column slice,
+// blockIdx.z of kSlices)
+template <int DK>
+struct HeadDim {
+  static_assert(DK == 64 || DK == 128 || DK == 256, "instances: 64, 128, 256");
+  static constexpr int kND = DK / 8;                // k-steps of a score product
+  static constexpr int kLd = DK + 4;                // shared row stride (floats)
+  static constexpr int kDV = DK < 128 ? DK : 128;  // a block's output columns
+  static constexpr int kNV = kDV / 8;               // their 8-wide column tiles
+  static constexpr int kSlices = DK / kDV;          // blocks over the columns (grid.z)
+};
+constexpr int kMaxDh = 256;  // the widest instance
+// Frames whose (F, F) bias table (up to 16 KB) a block holds in shared
+// memory.  Past it the kernels read the head's table from device memory
+// through the read-only cache: every table fits L2 (F = 160 is 100 KB a
+// head), and a block's rows and keys each read a few rows of it, while a
+// shared copy of a wide table would not fit beside DK 256's tiles.
+constexpr int kTableF = 64;
+// Frames a block sums the frame-bias gradient over (the dq kernels): a
+// launch with more frames gives every tile of rows ceil(F / 64) blocks,
+// block z summing frames 64z..64z+63 (and, at DK 256, computing column
+// slice z of dq), so the sums keep their order and registers at any F.
+constexpr int kFrameTile = 64;
 constexpr float kNeg = -1e30f;
 constexpr int kMasked = -1;
 constexpr int kPast = -2;  // key index >= T
@@ -77,23 +109,24 @@ __device__ inline void cp_wait() {
 }
 
 // Asynchronous copy, by a block of THREADS threads, of rows [row0, row0 +
-// ROWS) of a (T, dh) matrix into shared memory (row stride kLd),
-// zero-filled past T and from dh up to kMaxDh.  16-byte copies when
+// ROWS) of a (T, dh) matrix into shared memory (row stride DK + 4),
+// zero-filled past T and from dh up to DK.  16-byte copies when
 // ``vec`` (dh % 4 == 0, 16-byte aligned pointers), else 4-byte copies.
 // The caller commits the group.
-template <int ROWS, int THREADS>
+template <int ROWS, int THREADS, int DK>
 __device__ inline void load_rows(float* dst, const float* __restrict__ src, int row0, int T,
                                  int dh, bool vec) {
+  constexpr int kLd = HeadDim<DK>::kLd;
   if (vec) {
-    constexpr int n4 = kMaxDh / 4;
+    constexpr int n4 = DK / 4;
     for (int idx = threadIdx.x; idx < ROWS * n4; idx += THREADS) {
       const int r = idx / n4, c = 4 * (idx % n4), row = row0 + r;
       const bool ok = row < T && c < dh;
       cp_async16(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * kMaxDh; idx += THREADS) {
-      const int r = idx / kMaxDh, c = idx % kMaxDh, row = row0 + r;
+    for (int idx = threadIdx.x; idx < ROWS * DK; idx += THREADS) {
+      const int r = idx / DK, c = idx % DK, row = row0 + r;
       const bool ok = row < T && c < dh;
       cp_async4(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
     }
@@ -106,23 +139,52 @@ __device__ inline int key_code(const float* __restrict__ key_mask, const int* __
   return j >= T ? kPast : (key_mask[(size_t)b * T + j] > 0.f ? (kFrames ? fid[j] : 0) : kMasked);
 }
 
+// Where a kernel instance reads the frame bias, a template parameter, so
+// that an instance of up to kTableF frames compiles as it would without
+// the other case (its registers and code unchanged): no frames (the flash
+// kernels' scalar bias), the head's (F, F) table staged in shared memory,
+// or the table in device memory (F > kTableF).
+enum TableMode : int { kNoTable = 0, kSmemTable = 1, kGlobalTable = 2 };
+
+// the mode of a launch with F frames (F == 1: the flash kernels' scalar)
+__host__ inline int table_mode(int F) { return F == 1 ? kNoTable : F <= kTableF ? kSmemTable : kGlobalTable; }
+
+// the frame bias of (query frame fq, key frame fk): the shared copy fbs
+// or the head's table fbg in device memory
+template <int TM>
+__device__ inline float table_bias(const float* fbs, const float* __restrict__ fbg, int F, int fq,
+                                   int fk) {
+  return TM == kSmemTable ? fbs[fq * F + fk] : __ldg(fbg + fq * F + fk);
+}
+
+// stage the head's (F, F) table into shared memory when it is held there
+template <int TM, int THREADS>
+__device__ inline void stage_table(float* fbs, const float* __restrict__ fbg, int F) {
+  if (TM == kSmemTable)
+    for (int i = threadIdx.x; i < F * F; i += THREADS) fbs[i] = fbg[i];
+}
+
+// the shared floats of a launch's (F, F) table: 0 when read from device memory
+__host__ __device__ inline size_t table_floats(int F) { return F <= kTableF ? (size_t)F * F : 0; }
+
 // split A fragment of the 16x8 tile at (0, k0) of a row-major shared X
-template <bool kOne = kOnePass>
+// (row stride LD)
+template <int LD, bool kOne = kOnePass>
 __device__ inline void frag_a(const float* X, int k0, int g, int t, uint32_t (&ab)[4],
                               uint32_t (&as)[4]) {
-  const float* p = X + g * kLd + k0 + t;
+  const float* p = X + g * LD + k0 + t;
   split<kOne>(p[0], ab[0], as[0]);
-  split<kOne>(p[8 * kLd], ab[1], as[1]);
+  split<kOne>(p[8 * LD], ab[1], as[1]);
   split<kOne>(p[4], ab[2], as[2]);
-  split<kOne>(p[8 * kLd + 4], ab[3], as[3]);
+  split<kOne>(p[8 * LD + 4], ab[3], as[3]);
 }
 
 // split B fragment of the 8x8 tile at (k0, n0) of X^T, X a row-major shared
 // matrix whose rows are the n index: b0 = X[n0+g][k0+t], b1 = X[n0+g][k0+t+4]
-template <bool kOne = kOnePass>
+template <int LD, bool kOne = kOnePass>
 __device__ inline void frag_bt(const float* X, int n0, int k0, int g, int t, uint32_t (&bb)[2],
                                uint32_t (&bs)[2]) {
-  const float* p = X + (n0 + g) * kLd + k0 + t;
+  const float* p = X + (n0 + g) * LD + k0 + t;
   split<kOne>(p[0], bb[0], bs[0]);
   split<kOne>(p[4], bb[1], bs[1]);
 }
@@ -130,12 +192,12 @@ __device__ inline void frag_bt(const float* X, int n0, int k0, int g, int t, uin
 // split B fragment of the 8x8 tile at (k0, n0) of a row-major shared X
 // whose rows are the k index, rows in pair order (see a_from_c):
 // b0 = X[k0+2t][n0+g], b1 = X[k0+2t+1][n0+g]
-template <bool kOne = kOnePass>
+template <int LD, bool kOne = kOnePass>
 __device__ inline void frag_b_pairs(const float* X, int k0, int n0, int g, int t,
                                     uint32_t (&bb)[2], uint32_t (&bs)[2]) {
-  const float* p = X + (k0 + 2 * t) * kLd + n0 + g;
+  const float* p = X + (k0 + 2 * t) * LD + n0 + g;
   split<kOne>(p[0], bb[0], bs[0]);
-  split<kOne>(p[kLd], bb[1], bs[1]);
+  split<kOne>(p[LD], bb[1], bs[1]);
 }
 
 // the split A fragment of a C fragment whose 8 columns become the k index
@@ -156,12 +218,16 @@ __device__ inline void zero(float (&c)[NT][4]) {
     for (int i = 0; i < 4; ++i) c[j][i] = 0.f;
 }
 
-// c = X1 Y1^T and d = X2 Y2^T over the padded head dim, for the warp's 16
-// rows of X1, X2 (row-major shared, kLd) and NT*8 rows of Y1, Y2.  Each
-// product is summed in two accumulator sets (even and odd k-steps), which
-// halves its dependent mma chains; TWO = false computes c alone (d may
-// then alias c).
-template <int NT, bool TWO, bool kOne = kOnePass>
+// c = X1 Y1^T and d = X2 Y2^T over the padded head dim DK, for the warp's
+// 16 rows of X1, X2 (row-major shared, stride DK + 4) and NT*8 rows of Y1,
+// Y2.  Each product is summed in two accumulator sets (even and odd
+// k-steps), which halves its dependent mma chains; TWO = false computes c
+// alone (d may then alias c).
+// CH > 0: the loop over the k-steps runs in rolled iterations of CH
+// unrolled k-steps (else unrolled whole), which bounds how far ahead of
+// the products the fragment loads run, and so the registers they hold;
+// the sums are the same (k-step ks goes to set ks & 1 either way).
+template <int NT, bool TWO, int DK, bool kOne = kOnePass, int CH = 0>
 __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float* X1,
                               const float* Y1, const float* X2, const float* Y2, int g, int t) {
   float c2[2][NT][4], d2[2][NT][4];
@@ -170,21 +236,29 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
     zero(c2[p]);
     zero(d2[p]);
   }
+  constexpr int LD = HeadDim<DK>::kLd;
+  constexpr int ND = HeadDim<DK>::kND;
+  constexpr int kCh = CH > 0 && CH < ND ? CH : ND;
+  static_assert(kCh % 2 == 0 && ND % kCh == 0, "a chunk holds whole pairs of k-steps");
+#pragma unroll 1
+  for (int k0 = 0; k0 < ND; k0 += kCh) {
 #pragma unroll
-  for (int ks = 0; ks < kND; ++ks) {
-    uint32_t ab[4], as[4], bb[2], bs[2];
-    frag_a<kOne>(X1, 8 * ks, g, t, ab, as);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      frag_bt<kOne>(Y1, 8 * j, 8 * ks, g, t, bb, bs);
-      mma_p<kOne>(c2[ks & 1][j], ab, as, bb, bs);
-    }
-    if (TWO) {
-      frag_a<kOne>(X2, 8 * ks, g, t, ab, as);
+    for (int kk = 0; kk < kCh; ++kk) {
+      const int ks = k0 + kk;
+      uint32_t ab[4], as[4], bb[2], bs[2];
+      frag_a<LD, kOne>(X1, 8 * ks, g, t, ab, as);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        frag_bt<kOne>(Y2, 8 * j, 8 * ks, g, t, bb, bs);
-        mma_p<kOne>(d2[ks & 1][j], ab, as, bb, bs);
+        frag_bt<LD, kOne>(Y1, 8 * j, 8 * ks, g, t, bb, bs);
+        mma_p<kOne>(c2[kk & 1][j], ab, as, bb, bs);
+      }
+      if (TWO) {
+        frag_a<LD, kOne>(X2, 8 * ks, g, t, ab, as);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          frag_bt<LD, kOne>(Y2, 8 * j, 8 * ks, g, t, bb, bs);
+          mma_p<kOne>(d2[kk & 1][j], ab, as, bb, bs);
+        }
       }
     }
   }
@@ -198,7 +272,8 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
 }
 
 // acc[n] += A . Y over the warp's 16 rows: A the C fragments of a 16 x
-// NT*8 tile (k in pair order), Y a row-major shared (NT*8, kLd) tile.
+// NT*8 tile (k in pair order), Y a row-major shared (NT*8, LD) tile, from
+// the block's first column (NV*8 columns).
 // Each 8-step's product is formed from zero and added to acc in fp32.
 // Fed back as the mma's C operand over a whole axis, an accumulator's
 // relative error grows with the chain's length (the tensor core's fp32
@@ -208,17 +283,17 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
 // step's comparison failed on a leaf that the flash kernels' chains feed
 // (1.2e-4 against its 1e-4 limit).  The four adds a product cost the
 // flash kernels ~10 % (PERF.md).
-template <int NT, bool kOne = kOnePass>
-__device__ inline void accumulate(float (&acc)[kND][4], const float (&a)[NT][4], const float* Y,
+template <int NT, int NV, int LD, bool kOne = kOnePass>
+__device__ inline void accumulate(float (&acc)[NV][4], const float (&a)[NT][4], const float* Y,
                                   int g, int t) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     uint32_t ab[4], as[4];
     a_from_c<kOne>(a[j], ab, as);
 #pragma unroll
-    for (int n = 0; n < kND; ++n) {
+    for (int n = 0; n < NV; ++n) {
       uint32_t bb[2], bs[2];
-      frag_b_pairs<kOne>(Y, 8 * j, 8 * n, g, t, bb, bs);
+      frag_b_pairs<LD, kOne>(Y, 8 * j, 8 * n, g, t, bb, bs);
       float part[4] = {0.f, 0.f, 0.f, 0.f};
       mma_p<kOne>(part, ab, as, bb, bs);
 #pragma unroll

@@ -16,6 +16,12 @@ second build adds no wall time where there are cores for it.  A wrapper
 takes the library of ``config.kernel_precision()`` and counts its launches
 under ``variant(name, precision)`` (``flash_attention@default``).
 
+Head dims: ``mm_attention.cu`` builds once more for its DK 256 instance
+(``-DVOG_MM_DK=256``, the libraries ``mm_attention_dk256`` and
+``mm_attention_dk256@default``), so that nvcc compiles its two sets of A =
+1..8 templates in parallel; ``attention.cu`` holds its three instances
+(DK 64, 128, 256) in one library.
+
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)
 takes back the counts of its capture, whose launches do not run, and adds
@@ -39,9 +45,14 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("gather.cu", "attention.cu", "mm_attention.cu", "grounding_head.cu")
 PRECISION_FLAGS = {"highest": (), "default": ("-DVOG_ONE_PASS=1",)}
-# every library: (source, precision); the gather (a byte copy) has no products
-LIBRARIES = tuple((s, "highest") for s in SOURCES) + tuple(
-    (s, "default") for s in SOURCES if s != "gather.cu")
+# the sources that build a second library for their DK 256 instance
+WIDE_SOURCES = ("mm_attention.cu",)
+WIDE_DK = 256
+# every library: (source, precision, dk: None or WIDE_DK); the gather (a
+# byte copy) has no products
+LIBRARIES = (tuple((s, "highest", None) for s in SOURCES)
+             + tuple((s, "default", None) for s in SOURCES if s != "gather.cu")
+             + tuple((s, p, WIDE_DK) for s in WIDE_SOURCES for p in PRECISION_FLAGS))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -90,10 +101,14 @@ def variant(name: str, precision: str) -> str:
     return name if precision == "highest" else f"{name}@{precision}"
 
 
-def lib_stem(src: str, precision: str) -> str:
-    """The library's (and its build log's) name: ``attention`` or
-    ``attention@default``."""
-    return variant(Path(src).stem, precision)
+def lib_stem(src: str, precision: str, dk=None) -> str:
+    """The library's (and its build log's) name: ``attention``,
+    ``attention@default`` or ``mm_attention_dk256@default``."""
+    return variant(Path(src).stem + ("" if dk is None else f"_dk{dk}"), precision)
+
+
+def _flags(precision: str, dk) -> tuple:
+    return PRECISION_FLAGS[precision] + (() if dk is None else (f"-DVOG_MM_DK={dk}",))
 
 
 def build_dir() -> Path:
@@ -111,14 +126,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _lib_path(src: str, precision: str = "highest") -> Path:
+def _lib_path(src: str, precision: str = "highest", dk=None) -> Path:
     h = hashlib.sha256((CSRC / src).read_bytes())
-    h.update(" ".join(PRECISION_FLAGS[precision]).encode())
+    h.update(" ".join(_flags(precision, dk)).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
-    return build_dir() / f"{lib_stem(src, precision)}-{digest}.so"
+    return build_dir() / f"{lib_stem(src, precision, dk)}-{digest}.so"
 
 
 def build_all() -> float:
@@ -126,18 +141,18 @@ def build_all() -> float:
     parallel; returns seconds."""
     t0 = time.perf_counter()
     with _lock:
-        todo = [(s, p) for s, p in LIBRARIES if not _lib_path(s, p).exists()]
+        todo = [lib for lib in LIBRARIES if not _lib_path(*lib).exists()]
         if not todo:
             return time.perf_counter() - t0
         out = build_dir()
         out.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
-        for src, prec in todo:
-            lib = _lib_path(src, prec)
+        for src, prec, dk in todo:
+            lib = _lib_path(src, prec, dk)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, *PRECISION_FLAGS[prec], "-o", str(tmp), str(CSRC / src)]
-            procs.append((lib_stem(src, prec), lib, tmp, subprocess.Popen(
+            cmd = [nvcc, *NVCC_FLAGS, *_flags(prec, dk), "-o", str(tmp), str(CSRC / src)]
+            procs.append((lib_stem(src, prec, dk), lib, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
         failed = []
@@ -153,32 +168,33 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def library(src: str, precision: str = "highest") -> ctypes.CDLL:
-    """The loaded library of one source at ``precision`` (built on first
-    use)."""
-    key = lib_stem(src, precision)
+def library(src: str, precision: str = "highest", dk=None) -> ctypes.CDLL:
+    """The loaded library of one source at ``precision`` (and, for a
+    source of ``WIDE_SOURCES``, its DK 256 instance when ``dk``), built on
+    first use."""
+    key = lib_stem(src, precision, dk)
     lib = _libs.get(key)
     if lib is None:
         build_all()
         with _lock:
             lib = _libs.get(key)
             if lib is None:
-                lib = ctypes.CDLL(str(_lib_path(src, precision)))
+                lib = ctypes.CDLL(str(_lib_path(src, precision, dk)))
                 _libs[key] = lib
     return lib
 
 
-def function(src: str, name: str, argtypes, precision: str = "highest") -> object:
+def function(src: str, name: str, argtypes, precision: str = "highest", dk=None) -> object:
     """The C entry point ``name`` of ``src``'s library at ``precision``,
     with its argument types declared and an int (cudaError_t) result.
     Every entry point takes the device ordinal of its tensors first (an
     int ahead of ``argtypes``): it launches under a guard that makes that
     device current on the calling thread (``csrc/device.cuh``), whichever
     thread calls it and whichever device is current there."""
-    key = (lib_stem(src, precision), name)
+    key = (lib_stem(src, precision, dk), name)
     fn = _fns.get(key)
     if fn is None:
-        fn = getattr(library(src, precision), name)
+        fn = getattr(library(src, precision, dk), name)
         fn.argtypes = [ctypes.c_int, *argtypes]
         fn.restype = ctypes.c_int
         _fns[key] = fn

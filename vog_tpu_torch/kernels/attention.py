@@ -11,7 +11,12 @@ that stream in by cp.async (the TPU kernel's whole-key-axis block does not
 fit 227 KB of shared memory at T=4000), and reads the bias from the head's
 (F, F) table in shared memory instead of the TPU kernel's one-hot matmul.
 Masked keys take the finite ``NEG`` so a row with every key masked stays
-finite.
+finite.  The kernels come in three head-dim instances, 64, 128 and 256
+(a call pads dh up to the next one; at 256 a tile of rows
+has two blocks, each accumulating half of the output's columns), and take
+any frame count: the (F, F) table sits in shared memory up to 64 frames and
+is read from device memory past that, and the dq kernel sums the
+frame-bias gradient in tiles of 64 frames.
 
 Backward: replaces §_flash_bwd in both of its modes, chosen per call
 (``bwd_mode``) or for the process (``VOG_FLASH_BWD``) as the TPU package
@@ -64,8 +69,9 @@ NEG = -1e30
 NAME = "flash_attention"
 NAME_BWD = "flash_attention_bwd"  # recompute mode
 NAME_BWD_EMIT = "flash_attention_bwd_emit"
-MAX_DH = 128  # the kernels' padded head dim (kMaxDh in csrc/tiles.cuh)
-MAX_BWD_FRAMES = 64  # the dq kernel's frame-bias partial takes F <= 64
+# the widest of the kernels' head-dim instances, 64, 128 and 256 (kMaxDh,
+# csrc/tiles.cuh §HeadDim): the kernel pads dh up to the next one
+MAX_DH = 256
 BWD_Q_ROWS = 64  # query rows a block of the dq kernel (kRows in csrc/attention.cu)
 
 
@@ -114,7 +120,7 @@ def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
     dev = q.device
     B, H, T, dh = q.shape
     if dh > MAX_DH:
-        raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH} is not supported by the kernel")
+        raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH} is not supported by the kernels")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.float32, 4, dev)
         if tuple(t.shape) != (B, H, T, dh):
@@ -220,8 +226,6 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
     Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
     dev = q.device
     B, H, T, dh = q.shape
-    if Fn > MAX_BWD_FRAMES:
-        raise ValueError(f"{NAME_BWD}: {Fn} frames > {MAX_BWD_FRAMES}")
     for name, t in (("o", o), ("do", do)):
         _build.require(t, name, torch.float32, 4, dev)
         if t.shape != q.shape:

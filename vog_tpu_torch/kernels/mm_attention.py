@@ -44,7 +44,18 @@ dk, dv and dcn (csrc/mm_attention.cu).
     partial per (b, h, 64 query rows), which the wrapper adds up in a fixed
     order.  For memory: comb is 512 MB at P100 (B=2, T=4000).
 Both modes compute the same function; on the CPU both run
-``mm_attention_bwd_plain``.  ``mm_shared_qk_attention`` is a
+``mm_attention_bwd_plain``.
+
+Shapes: the kernels come in two head-dim instances, 128 and 256
+(``HEAD_DIMS``, each its own library; a call pads dh up to the next one),
+and take any frame count (the (F, F) table in shared memory up to 64
+frames, read from device memory past that; mm_bwd_dq sums the frame-bias
+gradient in tiles of 64 frames).  A launch takes at most 8 args
+(``KERNEL_ARGS``); more run in groups (``arg_groups``: 9 -> 5 + 4), each
+group's launches counted under the kernel's name: the forward's outputs
+are concatenated over A (each arg depends on the shared scores and its
+own cn_a alone), and the groups' gradients added up in group order
+(``sum_arg_groups``).  ``mm_shared_qk_attention`` is a
 ``torch.autograd.Function`` whose ctx carries the mode from the forward to
 the backward.  ``key_mask`` and ``frame_ids`` get no gradient.
 
@@ -73,10 +84,82 @@ NEG = -1e30
 NAME = "mm_shared_qk_attention"
 NAME_BWD = "mm_shared_qk_attention_bwd"  # emit mode
 NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
-MAX_ARGS = 8  # the kernels' A (template cases 1..8 in csrc/mm_attention.cu)
-MAX_DH = 128
-MAX_FRAMES = 64  # the (F, F) bias table in shared memory; the dq kernel's frame sums
-DQ_ROWS = 64  # query rows a block of mm_bwd_dq owns (kDqRows in csrc/mm_attention.cu)
+KERNEL_ARGS = 8  # args a launch takes (template cases 1..8 in csrc/mm_attention.cu)
+# the kernels' head-dim instances, each its own library (the one of 256 is
+# built with -DVOG_MM_DK=256): a call pads dh up to the next one
+HEAD_DIMS = (128, 256)
+MAX_DH = HEAD_DIMS[-1]
+# query rows a block of mm_bwd_dq owns, by instance (kDqRows in csrc/mm_attention.cu)
+DQ_ROWS = {128: 64, 256: 32}
+
+
+def head_dim_instance(dh: int) -> int:
+    """The kernels' instance that takes a head dim of ``dh`` (above
+    ``MAX_DH`` raises)."""
+    for d in HEAD_DIMS:
+        if dh <= d:
+            return d
+    raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH} is not supported by the kernels")
+
+
+def _library_dk(dh: int):
+    """``_build.function``'s ``dk`` of the instance of ``dh``: None for the
+    default library (128), else 256 (``_build.WIDE_DK``)."""
+    return None if head_dim_instance(dh) == HEAD_DIMS[0] else _build.WIDE_DK
+
+
+def arg_groups(A: int):
+    """[(a0, a1), ...]: A args in ceil(A / KERNEL_ARGS) groups of at most
+    KERNEL_ARGS, as even as possible, the larger first (9 -> 5 + 4, 10 ->
+    5 + 5), in order: one launch of each kernel a group."""
+    n = -(-A // KERNEL_ARGS)
+    bounds = [0]
+    for i in range(n):
+        bounds.append(bounds[-1] + A // n + (i < A % n))
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def _args(t: torch.Tensor, a0: int, a1: int) -> torch.Tensor:
+    """Args a0..a1 - 1 of a (B, H, A, ...) tensor, contiguous."""
+    return t[:, :, a0:a1].contiguous()
+
+
+def fwd_by_groups(fwd, qm, km, vm, cn, *rest):
+    """``fwd`` (a kernel's launch, or the plain version) once for each of
+    ``arg_groups``, on its args of ``cn``, -> its outputs concatenated over
+    A.  Exact: each arg's output depends on the shared scores and its own
+    cn_a alone."""
+    groups = arg_groups(cn.shape[2])
+    if len(groups) == 1:
+        return fwd(qm, km, vm, cn, *rest)
+    parts = [fwd(qm, km, vm, _args(cn, a0, a1), *rest) for a0, a1 in groups]
+    return tuple(torch.cat(x, dim=2) for x in zip(*parts))
+
+
+def sum_arg_groups(parts):
+    """The groups' gradients [(dq, dk, dv, dcn, dfb), ...], in group
+    order -> one (dq, dk, dv, dcn, dfb): dq, dk, dv and dfb summed group by
+    group in order (a fixed order: the same sums on every run), dcn
+    concatenated over A."""
+    out = list(parts[0])
+    for p in parts[1:]:
+        for i in (0, 1, 2, 4):
+            out[i] = out[i] + p[i]
+    out[3] = torch.cat([p[3] for p in parts], dim=2)
+    return tuple(out)
+
+
+def bwd_by_groups(bwd, qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g, *rest):
+    """``bwd`` (a kernel's launches, or the plain version) once for each
+    of ``arg_groups``, on its args of cn, out, the row max, the denominator
+    and g, -> the groups' gradients added up by ``sum_arg_groups``."""
+    groups = arg_groups(cn.shape[2])
+    if len(groups) == 1:
+        return bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g, *rest)
+    return sum_arg_groups([
+        bwd(qm, km, vm, _args(cn, a0, a1), key_mask, frame_bias, frame_ids, _args(out, a0, a1),
+            _args(mrow, a0, a1), _args(den, a0, a1), _args(g, a0, a1), *rest)
+        for a0, a1 in groups])
 
 
 def resolve_bwd_mode(mode: Optional[str]) -> str:
@@ -113,9 +196,9 @@ def _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
     B, H, T, dh = qm.shape
     A = cn.shape[2]
     Fn = frame_bias.shape[-1]
-    if dh > MAX_DH or not 1 <= A <= MAX_ARGS or Fn > MAX_FRAMES:
-        raise ValueError(f"{NAME}: kernel takes dh <= {MAX_DH}, 1 <= A <= {MAX_ARGS} and "
-                         f"F <= {MAX_FRAMES} (dh={dh}, A={A}, F={Fn})")
+    head_dim_instance(dh)
+    if A < 1:
+        raise ValueError(f"{NAME}: no args (A={A})")
     for name, t in (("qm", qm), ("km", km), ("vm", vm)):
         _build.require(t, name, torch.float32, 4, dev)
         if tuple(t.shape) != (B, H, T, dh):
@@ -131,8 +214,14 @@ def _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
 
 
 def _mm_fwd_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
-    """The forward kernel's launch (the op's CUDA implementation)."""
+    """The forward kernel's launches (the op's CUDA implementation), one
+    a group of args (``fwd_by_groups``)."""
     _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    return fwd_by_groups(_mm_fwd_launch, qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec)
+
+
+def _mm_fwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
+    """One launch of the forward kernel, at most KERNEL_ARGS args."""
     dev = qm.device
     B, H, T, dh = qm.shape
     A = cn.shape[2]
@@ -141,7 +230,7 @@ def _mm_fwd_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
     mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P], prec)
+    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P], prec, _library_dk(dh))
     rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
             key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(),
             out.data_ptr(), mrow.data_ptr(), den.data_ptr(),
@@ -237,6 +326,13 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
         return mm_attention_bwd_plain(qm, km, vm, cn, key_mask, frame_bias, frame_ids,
                                       out, mrow, den, g)
     _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    return bwd_by_groups(_mm_bwd_launch, qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g,
+                         mode, prec)
+
+
+def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g, mode, prec):
+    """The backward kernels of ``mode`` for one group of at most
+    KERNEL_ARGS args -> (dq, dk, dv, dcn, dfb)."""
     dev = qm.device
     B, H, T, dh = qm.shape
     A = cn.shape[2]
@@ -257,10 +353,11 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
     else:  # no (T, T) buffer: dq and the frame-bias partials from mm_bwd_dq
         comb = None
         dq = torch.empty_like(qm)
-        part = torch.empty((B, H, -(-T // DQ_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
+        rows = DQ_ROWS[head_dim_instance(dh)]
+        part = torch.empty((B, H, -(-T // rows), Fn, Fn), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P], prec)
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P], prec, _library_dk(dh))
     rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
             key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
             mrow.data_ptr(), den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

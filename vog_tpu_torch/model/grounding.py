@@ -32,7 +32,7 @@ import torch.nn as nn
 
 from vog_tpu_torch.config import apply_matmul_precision
 from vog_tpu_torch.device import DeviceLike, resolve_device
-from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
+from vog_tpu_torch.kernels import attention, grounding_head
 from vog_tpu_torch.kernels.grounding_head import fused_grounding_head
 from vog_tpu_torch.model.dtypes import act_dtype, linear
 from vog_tpu_torch.model.encoders import LangEncoder, PropEncoder, SegEncoder
@@ -185,25 +185,18 @@ MODELS = {"img_grnd": ImgGrnd, "vid_grnd": VidGrnd, "vog": VOGNet}
 def check_kernel_shapes(cfg) -> None:
     """Raise ``ValueError``, naming the config key, when the configured
     model gives a kernel on its path a shape the card's kernel does not
-    take.  The JAX package falls back to XLA for any shape; the port's
-    wrappers launch their kernel or raise, so ``get_model`` checks here,
-    before the first forward, for a model built on the card."""
-    ds, mdl = cfg.ds, cfg.mdl
-    _, n_frames, _ = view_dims(ds.conc_type, ds.num_cmp, ds.num_frms, ds.num_prop_per_frm)
-    D, H, A = mdl.vis_dim, mdl.n_heads, ds.max_srl_args
+    take: a head dim above 256 (the attention kernels' widest instance),
+    or a width the fused head does not take.  The attention kernels take
+    any frame count, and any arg count in groups of at most 8.  The JAX
+    package falls back to XLA for any shape; the port's wrappers launch
+    their kernel or raise, so ``get_model`` checks here, before the first
+    forward, for a model built on the card."""
+    mdl = cfg.mdl
+    D, H = mdl.vis_dim, mdl.n_heads
     faults = []
     if mdl.name != "img_grnd" and D // H > attention.MAX_DH:
         faults.append(f"mdl.vis_dim / mdl.n_heads = {D // H}: the attention kernels take a head "
                       f"dim <= {attention.MAX_DH}")
-    if mdl.name == "vog":
-        # the relative-bias kernels hold the (F, F) table in shared memory
-        # and sum the frame-bias gradient by frame
-        if n_frames > attention.MAX_BWD_FRAMES:
-            faults.append(f"ds.num_frms gives {n_frames} frames: the relative-bias attention "
-                          f"kernels take at most {attention.MAX_BWD_FRAMES}")
-        if mdl.decomposed_mm and not 1 <= A <= mm_attention.MAX_ARGS:
-            faults.append(f"ds.max_srl_args = {A}: the mm attention kernels take 1 to "
-                          f"{mm_attention.MAX_ARGS} args")
     if mdl.head_type != "dot":
         fault = grounding_head.shape_fault(D, D // 2)
         if fault:
