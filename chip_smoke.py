@@ -505,6 +505,8 @@ def phase_build():
                 spill = line.strip()
             elif "Used" in line:
                 print(f"[build] {stem} {fn}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
+            elif line.startswith("[nvcc]"):
+                print(f"[build] {stem}: nvcc took {line.split(' ', 1)[1]}", flush=True)
 
 
 # [wide shapes]: the production model at the shapes the attention kernels
@@ -515,11 +517,11 @@ WIDE = {"mdl.n_heads": 2, "ds.conc_type": "temp", "ds.num_frms": 20, "ds.max_srl
         "mdl.mm_tx_layers": 2}
 
 
-def serve_cfg(exp_setting: str = "gt5", wide: bool = False):
+def serve_cfg(exp_setting: str = "gt5", wide=False):
     """The production model (fp32 activations, matmul precision
     "highest"); GT5 with bf16 tables, or P100 (100 proposals a frame,
     T = 4000) with int8 tables, as the JAX package's single-chip P100 run;
-    ``wide``: with the keys of ``WIDE``."""
+    ``wide``: True for the keys of ``WIDE``, or a dict of keys (``WIDER``)."""
     from vog_tpu_torch.config import Cfg, post_proc_config
 
     cfg = Cfg()  # production widths: vis 512, 4 heads, lstm 256, emb 300, role 128
@@ -533,7 +535,7 @@ def serve_cfg(exp_setting: str = "gt5", wide: bool = False):
     cfg.ds.exp_setting = exp_setting
     cfg.misc.half_feats = exp_setting == "gt5"
     cfg.misc.int8_feats = exp_setting == "p100"
-    for key, v in (WIDE if wide else {}).items():
+    for key, v in (WIDE if wide is True else wide or {}).items():
         group, name = key.split(".")
         setattr(getattr(cfg, group), name, v)
     return post_proc_config(cfg)
@@ -846,11 +848,14 @@ def phase_serve(cfg, tables, card: str, n_requests: int = 96, clients: int = 8, 
     sub["batch_mask"] = np.ones((n_ref,), np.uint8)
     if ref_on == "cpu":
         ref = cpu_outputs(cfg, pred.model.state_dict(), sub, tables)
-    else:  # the same predictor on the card, its float kernels swapped for their plain versions
+    else:  # the same predictor on the card, eager (a replayed graph runs the kernels it captured),
+        # its float kernels swapped for their plain versions
         undo = plain_kernels(FAMILIES)
+        graphs, pred.cuda_graphs = pred.cuda_graphs, False
         try:
             ref = pred(sub)
         finally:
+            pred.cuda_graphs = graphs
             undo()
     valid = sub["prop_mask"][:, None].astype(bool).repeat(A, 1)
     got = np.stack([results[i]["scores"] for i in range(n_ref)])
@@ -1424,11 +1429,11 @@ MODE_PAIRS = {
 }
 
 
-def train_cfg(dropout: float, exp_setting: str = "gt5", wide: bool = False):
+def train_cfg(dropout: float, exp_setting: str = "gt5", wide=False):
     """The serving model with the production training recipe: GT5's
     (``configs/gt5_production.yml``), or the JAX package's P100 learnability
     recipe (BASELINE.md: B=2, lr 1e-3 cosine after 100 warm-up steps,
-    pos_weight 20, skip_nonfinite 3, grad_clip 1); ``wide``: ``WIDE``'s keys."""
+    pos_weight 20, skip_nonfinite 3, grad_clip 1); ``wide``: as ``serve_cfg``."""
     cfg = serve_cfg(exp_setting, wide)
     t = cfg.train
     if exp_setting == "gt5":
@@ -1548,19 +1553,25 @@ def kink_keep(model, vis, arg, mm, ff1):
     the mm layer is the last) within FFN_KINK_EPS, in fp64 from this
     forward's values, else 1; the share of zeros and the share that the FFN
     alone adds).  Through such a logit alone, a
-    rounding difference can flip a whole term of the gradient."""
+    rounding difference can flip a whole term of the gradient.  Both eps
+    are the production width's (D 512); a wider model's logit reaches
+    proportionally more ReLUs, so they fall as 512 / D there: the share of
+    logits zeroed stays near the production model's, and more of them are
+    compared."""
     import torch
 
     hd = model.head
+    scale = min(1.0, 512 / hd.fuse_cross_kernel.shape[0])
     with torch.no_grad():
         d = lambda t: t.detach().double()  # noqa: E731
         wv = torch.matmul(d(vis), d(hd.fuse_vis_kernel)) + d(hd.fuse_vis_bias)
         wl = torch.matmul(d(arg), d(hd.fuse_lang_kernel))
-        near = near_kinks(vis, arg, wv, wl, hd.fuse_cross_kernel, hd.head1_kernel, hd.head1_bias)
-        near |= (d(mm).reshape(*near.shape, -1).abs() < KINK_EPS).any(-1)
+        near = near_kinks(vis, arg, wv, wl, hd.fuse_cross_kernel, hd.head1_kernel, hd.head1_bias,
+                          KINK_EPS * scale)
+        near |= (d(mm).reshape(*near.shape, -1).abs() < KINK_EPS * scale).any(-1)
         lin = model.mm_tx.layers[-1].ff1
         z = torch.matmul(d(ff1), d(lin.weight).t()) + d(lin.bias)
-        near_ff = (z.reshape(*near.shape, -1).abs() < FFN_KINK_EPS).any(-1)
+        near_ff = (z.reshape(*near.shape, -1).abs() < FFN_KINK_EPS * scale).any(-1)
         added = float((near_ff & ~near).double().mean())
         near |= near_ff
     return (~near).float(), float(near.double().mean()), added
@@ -1683,12 +1694,13 @@ def planted_zero_control(cfg, sd, batch, tables, gp, keep):
 
 
 def phase_train(tables, card: str, exp_setting: str = "gt5", steps: int = TRAIN_STEPS,
-                ref_on: str = "cpu", launched=KERNEL_NAMES, absent=(), label: str = "", wide: bool = False):
+                ref_on: str = "cpu", launched=KERNEL_NAMES, absent=(), label: str = "", wide=False):
     """(a) first step card vs the plain path (``ref_on``: the CPU, or the
     card with the plain versions), (b) ``steps`` production-recipe steps
     from the device tables, every kernel of ``launched`` launched and none
     of ``absent``, one step's peak memory, (c) the trained state against
-    the plain path again.  ``wide``: the model of ``WIDE``."""
+    the plain path again.  ``wide``: the model of ``WIDE`` (True) or of a
+    dict of keys (``serve_cfg``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4764,17 +4776,303 @@ def phase_wide(card: str) -> tuple:
                       train_launches=train_counts, swapped_launches=swapped_counts, seconds=secs)
 
 
+# [wider shapes]: what the kernels take past the widths of their narrow
+# paths.  (a) the kernels against their plain versions on the card, both
+# precisions, forward and every gradient: the head at B = 2, A = 5, T = 200
+# and each D of WIDER_HEAD_D (300: padded to 320; the rest past 512: its
+# wide path), the flash and mm kernels at each head dim of WIDER_DH (their
+# wide path; 2 heads, 1 at 1024) at GT5's T = 200 (10 frames) and at the
+# wide T = 400 (80 frames), B = 2 (sized for the run's time); (b) the
+# production model at ``WIDER``'s widths (D 1024, Dh 512, head dim 512,
+# GT5 SPAT) served and trained on the card.
+WIDER = {"mdl.vis_dim": 1024, "mdl.n_heads": 2}
+WIDER_HEAD_D = (300, 1024, 2080, 4096)
+WIDER_DH = (384, 512, 1024)
+WIDER_ATTN = ((2, 200, 10), (2, 400, 80))  # (B, T, frames): GT5's SPAT, the wide temp
+WIDER_TIMING = (3, 2)  # time_ms's (reps, inner): a row's few calls, the widest tens of milliseconds
+WIDER_ROWS = 2000  # feature-table rows of (b) (GT5: 10 frames a row)
+WIDER_REQUESTS = 32
+WIDER_STEPS = 3  # fp32 "highest" steps of (b), the first against the plain path
+WIDER_OTHER_STEPS = 2  # steps in each of the other runs of (b): the swapped modes, the production numerics
+WIDER_FLIP_LIMIT = 1e-3  # of z0 or z1: a head backward's ReLU decisions off fp64's (a broken row pass: ~0.5)
+
+
+def wider_kernel_rows() -> list:
+    """[wider shapes] (a): each kernel of the wide paths against its plain
+    version on the card, at "highest" within phase 3's limits
+    (``check_close``) and at "default" within phase 9's
+    (``check_default``); the head backward given its row pass's ReLU
+    decisions (``head_bwd_given``, in fp64: no kink mask at any D), each
+    row timed beside its plain version, the one library call that computes
+    the same function (SDPA; for mm over the query repeated A times) and
+    its bound.  -> the kernel table rows, without launches."""
+    import torch
+
+    from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
+    from vog_tpu_torch.kernels.attention import NEG
+
+    tag = "[wider shapes]"
+    reps, inner = WIDER_TIMING
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    rows = []
+
+    def run(prec, fn):  # the kernel's precision, and the TF32 switches its path runs with
+        with tf32(prec == "default"):
+            return fn()
+
+    def check(prec, name, got, ref, fwd):
+        """-> (max |err|, the row's relative err) within the precision's limits."""
+        if prec == "highest":
+            return check_close(name, got, ref), rel_err(got, ref)
+        err, _, fro = check_default(name, got, ref, fwd)
+        return err, fro
+
+    def add(name, prec, inst, source, replaces, errs, t, fl, nb, shape, library):
+        peak = PEAK_FLOP_PER_S if prec == "highest" else TF32_FLOP_PER_S
+        bms, by = bound_ms(nb, fl, peak)
+        kernel = name if prec == "highest" else f"{name}@default"
+        rows.append(dict(name=f"{kernel}[{inst}]", kernel=kernel, precision=prec, route="cuda",
+                         source=f"vog_tpu_torch/csrc/{source}", replaces=replaces,
+                         max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs), **t,
+                         bound_ms=bms, bound_by=by, shape=shape, library=library))
+        print(f"{tag} {kernel}[{inst}] max_err={rows[-1]['max_abs_err']:.3e} rel={rows[-1]['max_rel_err']:.3e} "
+              f"{fmt_times(t, 'library')} bound={bms:.4f} ({shape})", flush=True)
+
+    # -- the fused head at B = 2, A = 5, T = 200 --------------------------
+    B, A, T = 2, 5, 200
+    for D in WIDER_HEAD_D:
+        Dh = D // 2
+        vis = torch.relu(torch.randn((B, T, D), generator=g, device=dev))
+        arg = torch.relu(torch.randn((B, A, D), generator=g, device=dev))
+        wx = torch.randn((D, D), generator=g, device=dev) / D**0.5
+        w1 = torch.randn((D, Dh), generator=g, device=dev) / D**0.5
+        b1 = torch.randn((Dh,), generator=g, device=dev) * 0.1
+        w2 = torch.randn((Dh,), generator=g, device=dev) / Dh**0.5
+        b2 = torch.randn((1,), generator=g, device=dev)
+        wv = vis @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+        wl = arg @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+        args = (vis, arg, wv, wl, wx, w1, b1, w2, b2)
+        gh = torch.randn((B, A, T), generator=g, device=dev)
+        inst = f"D{D}"
+        shape = f"vis {tuple(vis.shape)}, A={A}, D {D}, Dh {Dh} f32" + (
+            f" (padded to {-(-D // 32) * 32})" if D % 32 else "")
+        for prec in ("highest", "default"):
+            ref = run("highest", lambda: grounding_head.grounding_head_plain(*args))
+            got = run(prec, lambda: grounding_head.grounding_head_fwd(*args, precision=prec))
+            errs = [check(prec, f"fused_grounding_head {inst} {prec}", got, ref, True)]
+            t = run(prec, lambda: timings(lambda: grounding_head.grounding_head_fwd(*args, precision=prec),
+                                          lambda: grounding_head.grounding_head_plain(*args), None, reps, inner))
+            add("fused_grounding_head", prec, inst, "grounding_head.cu", "vog_tpu/kernels/grounding_head.py:190",
+                errs, t, 2.0 * B * A * T * (D * D + D * Dh + Dh), nbytes(*args) + B * A * T * 4, shape, None)
+            scratch = {}
+            got = run(prec, lambda: grounding_head.grounding_head_bwd(*args, gh, precision=prec, scratch=scratch))
+            ref, flips = head_bwd_given(args, gh, scratch["h"], scratch["dz1"])
+            del scratch
+            if max(flips) > WIDER_FLIP_LIMIT:
+                fail(f"fused_grounding_head_bwd {inst} {prec}: ReLU decisions off fp64's on {flips[0]:.2e} of z0, "
+                     f"{flips[1]:.2e} of z1 (limit {WIDER_FLIP_LIMIT:.0e})")
+            errs = [check(prec, f"fused_grounding_head_bwd {inst} {prec} {on}", x, y.float(), False)
+                    for on, x, y in zip(OUT_NAMES["fused_grounding_head_bwd"], got, ref)]
+            del got, ref
+            t = run(prec, lambda: timings(lambda: grounding_head.grounding_head_bwd(*args, gh, precision=prec),
+                                          lambda: grounding_head.grounding_head_bwd_plain(*args, gh), None,
+                                          reps, inner))
+            add("fused_grounding_head_bwd", prec, inst, "grounding_head.cu", "vog_tpu/kernels/grounding_head.py:218",
+                errs, t, 6.0 * B * A * T * (D * D + D * Dh), 2 * nbytes(*args) + nbytes(gh),
+                shape + f", all 9 grads, given the kernel's ReLU decisions (off fp64's on {flips[0]:.1e} of z0, "
+                f"{flips[1]:.1e} of z1)", None)
+        del args, vis, arg, wv, wl, wx, w1, gh
+
+    # -- flash and mm attention past head dim 256 --------------------------
+    for dh in WIDER_DH:
+        H = 1 if dh >= 1024 else 2
+        dk, slices = attention.head_dim_instance(dh)
+        path = f"the DK {dk} instance's wide path, {slices} column slices"
+        for B, T, frames in WIDER_ATTN:
+            inst = f"dh{dh},T{T},F{frames}"
+            fid = (torch.arange(T, device=dev) // (T // frames)).to(torch.int32)
+            fb = torch.randn((H, frames, frames), generator=g, device=dev) * 0.5
+            mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
+            mask[:, 0] = 1.0
+            fidl = fid.long()
+            keymask = torch.where(mask > 0, 0.0, NEG)[:, None, None, :]
+            # flash: q, k, v (B, H, T, dh), the frame bias
+            q, k, v, do = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(4))
+            fmask = (fb[:, fidl][:, :, fidl][None] + keymask).contiguous()
+            shape = f"q,k,v {tuple(q.shape)} f32, ({frames}, {frames}) frame bias; {path}"
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=fmask)  # noqa: E731
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, fmask)]
+            sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+            sdpa_bwd = lambda: torch.autograd.grad(sd, leaves, do, retain_graph=True)  # noqa: E731
+            for prec in ("highest", "default"):
+                ro, rl = run("highest", lambda: attention.flash_attention_plain(q, k, v, mask, fb, fid))
+                o, lse = run(prec, lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=prec))
+                errs = [check(prec, f"flash_attention {inst} {prec}", o, ro, True),
+                        check(prec, f"flash_attention {inst} {prec} lse", lse, rl, True)]
+                check_yardstick("flash_attention sdpa", run(prec, sdpa), ro)
+                t = run(prec, lambda: timings(
+                    lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=prec),
+                    lambda: attention.flash_attention_plain(q, k, v, mask, fb, fid), sdpa, reps, inner))
+                add("flash_attention", prec, inst, "attention.cu", "vog_tpu/kernels/attention.py:286", errs, t,
+                    4.0 * B * H * T * T * dh, nbytes(q, k, v, mask, fb, fid) + nbytes(q) + nbytes(lse), shape,
+                    "SDPA, the bias and key mask as a float mask")
+                ref = run("highest", lambda: attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do))
+                shared = run(prec, lambda: timings(
+                    None, lambda: attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do),
+                    sdpa_bwd, reps, inner))
+                for mode, name, replaces in BWD_MODES["flash_attention_bwd"]:
+                    got = run(prec, lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do,
+                                                                          bwd_mode=mode, precision=prec))
+                    errs = [check(prec, f"{name} {inst} {prec} {on}", x, y, False)
+                            for on, x, y in zip(OUT_NAMES[name], got, ref)]
+                    del got
+                    t = {**shared, **{kk: vv for kk, vv in run(prec, lambda: timings(
+                        lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode,
+                                                              precision=prec), None, None, reps, inner)).items()
+                        if kk in ("ms", "issue_ms")}}
+                    add(name, prec, inst, "attention.cu", replaces, errs, t, 10.0 * B * H * T * T * dh,
+                        nbytes(q, k, v, ro, do, rl, mask, fb, fid) + 3 * nbytes(q) + nbytes(fb), shape + f", {mode}",
+                        "SDPA backward, grads of q, k, v and the float mask")
+                del ref
+            del q, k, v, do, fmask, leaves, sd
+            # mm: qm, km, vm (B, H, T, dh), A = 5 args, the frame bias
+            qm = torch.randn((B, H, T, dh), generator=g, device=dev) * dh ** -0.5
+            km, vm = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(2))
+            cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
+            gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
+            q_rep, fm = mm_sdpa_inputs(qm, cn, mask, fb, fid)
+            groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.arg_groups(A, mm_attention.kernel_args(dh)))
+            shape = f"qm,km,vm {tuple(qm.shape)}, A={A} ({groups}) f32, ({frames}, {frames}) frame bias; {path}"
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q_rep, km, vm, attn_mask=fm, scale=1.0)
+            leaves = [x.detach().clone().requires_grad_() for x in (q_rep, km, vm, fm)]
+            sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+            gsd = gm.reshape(sd.shape)
+            sdpa_bwd = lambda: torch.autograd.grad(sd, leaves, gsd, retain_graph=True)  # noqa: E731
+            for prec in ("highest", "default"):
+                rf = run("highest", lambda: mm_attention.mm_attention_plain(qm, km, vm, cn, mask, fb, fid))
+                got = run(prec, lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid, precision=prec))
+                errs = [check(prec, f"mm_shared_qk_attention {inst} {prec} {on}", x, y, True)
+                        for on, x, y in zip(("out", "max", "den"), got, rf)]
+                check_yardstick("mm_shared_qk_attention sdpa", run(prec, sdpa).reshape(rf[0].shape), rf[0])
+                del got
+                t = run(prec, lambda: timings(
+                    lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid, precision=prec),
+                    lambda: mm_attention.mm_attention_plain(qm, km, vm, cn, mask, fb, fid), sdpa, reps, inner))
+                add("mm_shared_qk_attention", prec, inst, "mm_attention.cu", "vog_tpu/kernels/mm_attention.py:315",
+                    errs, t, 2.0 * B * H * T * T * dh * (1 + A),
+                    nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4, shape,
+                    "SDPA, query repeated over A, float mask (B,H,A*T,T)")
+                ref = run("highest", lambda: mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid,
+                                                                                 *rf, gm))
+                shared = run(prec, lambda: timings(
+                    None, lambda: mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *rf, gm),
+                    sdpa_bwd, reps, inner))
+                for mode, name, replaces in BWD_MODES["mm_shared_qk_attention_bwd"]:
+                    got = run(prec, lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm,
+                                                                          bwd_mode=mode, precision=prec))
+                    errs = [check(prec, f"{name} {inst} {prec} {on}", x, y, False)
+                            for on, x, y in zip(OUT_NAMES[name], got, ref)]
+                    del got
+                    t = {**shared, **{kk: vv for kk, vv in run(prec, lambda: timings(
+                        lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode,
+                                                              precision=prec), None, None, reps, inner)).items()
+                        if kk in ("ms", "issue_ms")}}
+                    add(name, prec, inst, "mm_attention.cu", replaces, errs, t, 2.0 * B * H * T * T * dh * (3 + 2 * A),
+                        nbytes(qm, km, vm, cn, mask, fb, gm, *rf) + 3 * nbytes(qm) + nbytes(cn), shape + f", {mode}",
+                        "SDPA backward, grads of q (repeated), k, v and the float mask")
+                del rf, ref
+            del qm, km, vm, cn, gm, q_rep, fm, leaves, sd, gsd
+    return rows
+
+
+def phase_wider(card: str) -> tuple:
+    """[wider shapes]: (a) ``wider_kernel_rows``; (b) the production model
+    at ``WIDER``'s widths (D 1024, Dh 512, head dim 512) on ``WIDER_ROWS``
+    random bf16 table rows: ``WIDER_REQUESTS`` requests served from 4
+    clients (max_batch 8, scores against the plain path on the card),
+    ``WIDER_STEPS`` fp32 "highest" train steps (phase 7: the first step and
+    the trained state against the plain path on the card, with its
+    control), then ``WIDER_OTHER_STEPS`` eager steps in the other
+    backward-mode pair and in each pair at the production numerics (bf16,
+    "default"), so that every row's kernel runs on the model's path.
+    -> (the rows with their launches on (b), the part's results)."""
+    import numpy as np
+    import torch
+
+    from vog_tpu_torch.data.device_store import DeviceFeatureTables
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, make_train_step
+
+    tag = "[wider shapes]"
+    t_part = time.perf_counter()
+    rows = wider_kernel_rows()
+    secs_a = time.perf_counter() - t_part
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = serve_cfg(wide=WIDER)
+    print(f"{tag} (b) {WIDER}: D {cfg.mdl.vis_dim}, Dh {cfg.mdl.vis_dim // 2}, head dim "
+          f"{cfg.mdl.vis_dim // cfg.mdl.n_heads}, T = {cfg.ds.num_cmp * cfg.ds.num_frms * cfg.ds.num_prop_per_frm}, "
+          f"A = {cfg.ds.max_srl_args}", flush=True)
+    tables = DeviceFeatureTables.random(cfg, WIDER_ROWS, seed=0, half=True, device="cuda")
+    pred, _, serve_counts, serve = phase_serve(cfg, tables, card, n_requests=WIDER_REQUESTS, clients=4,
+                                               max_batch=8, ref_on="plain", n_ref=4, label=" wider")
+    del pred
+    train_counts, train = phase_train(tables, card, "gt5", WIDER_STEPS, "plain", label=" wider", wide=WIDER)
+    other_counts = {}
+    for numerics in ("fp32", "prod"):
+        for fm, mm in (("emit", "recompute"), ("recompute", "emit")) if numerics == "prod" else (("emit", "recompute"),):
+            c = train_cfg(0.1, wide=WIDER)
+            if numerics == "prod":
+                c.mdl.dtype, c.misc.matmul_precision = "bfloat16", "default"
+            model = get_model(c, 5000, device="cuda", seed=5, train=True)
+            state, step = TrainState.create(c, model), make_train_step(c)
+            batches = make_train_batches(c, WIDER_OTHER_STEPS, c.train.bs, tables.n_rows, 5000, seed=13)
+            with bwd_modes(fm, mm):
+                _build.reset_counts()
+                for b in batches:
+                    state, aux = step(state, {k: torch.as_tensor(x).cuda() for k, x in b.items()}, seed=0,
+                                      tables=tables.tables)
+                    if not np.isfinite(float(aux["loss"])):
+                        fail(f"{tag} a non-finite loss in the {numerics} steps (flash {fm}, mm {mm})")
+                torch.cuda.synchronize()
+                other_counts[f"{numerics}: flash {fm}, mm {mm}"] = dict(_build.launches)
+            del model, state, step
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # "highest" for what follows
+    del tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = (serve_counts, train_counts, *other_counts.values())
+    for r in rows:
+        r["launches"] = sum(c.get(r["kernel"], 0) for c in runs)
+        if r["launches"] <= 0:
+            fail(f"{tag} {r['name']} was launched no time on (b)'s paths")
+    secs = time.perf_counter() - t_part
+    print(f"{tag} launches: serve {serve_counts}; train {train_counts}; other steps {other_counts}; "
+          f"(a) {secs_a:.1f} s, all {secs:.1f} s on {card}", flush=True)
+    return rows, dict(serve=serve, train=train, serve_launches=serve_counts, train_launches=train_counts,
+                      other_launches=other_counts, seconds_a=secs_a, seconds=secs)
+
+
 def run_wide(card: str) -> tuple:
-    """``phase_wide`` with its own worst relative errors: each row gets
-    its kernel's (``max_rel_err``), and the other phases' are kept."""
-    kept = dict(WORST_REL)
+    """``phase_wide`` and then ``phase_wider``, with their own worst
+    relative errors: each [wide shapes] row gets its kernel's
+    (``max_rel_err``; a [wider shapes] row carries its own), and the other
+    phases' are kept."""
+    kept, kept_default = dict(WORST_REL), dict(WORST_DEFAULT)
     WORST_REL.clear()
     rows, wide = phase_wide(card)
     for r in rows:
         r["max_rel_err"] = WORST_REL.get(r["kernel"], 0.0)
+    wider_rows, wide["wider"] = phase_wider(card)
     WORST_REL.clear()
     WORST_REL.update(kept)
-    return rows, wide
+    WORST_DEFAULT.clear()
+    WORST_DEFAULT.update(kept_default)
+    return rows + wider_rows, wide
 
 
 def watch_context_warnings() -> None:

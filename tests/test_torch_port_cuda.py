@@ -32,8 +32,13 @@ keep mask's bits equal on the CPU and the card.
 The wide instances (``test_wide_instance_matches_plain``): the flash
 kernels at dh 64, 200 (padded to 256) and 256 and at 65, 80 and 160
 frames, the mm kernels at DK 256, past 64 frames and at 9 and 12 args (in
-groups of at most 8), each forward and backward in both modes at
-"highest" and at "default" against its plain version.
+groups of at most 8), and both past dh 256 (the wide path: dh 300, 512
+and 1024, the mm kernels in groups of at most 4), each forward and
+backward in both modes at "highest" and at "default" against its plain
+version; the wrappers at dh 264 without a bias; the fused head past D
+512 (1024, 2080) and at D 300 (padded), its backward against the plain
+backward given its own ReLU decisions (``test_head_wider_matches_plain``),
+and its weight stream at two hidden groups bitwise.
 
 The production numerics: each kernel's "default" variant (one TF32 pass)
 forward and backward, in both backward modes, against its plain version
@@ -212,14 +217,15 @@ def test_head(dev, B, T, A, D):
     assert torch.equal(got, fused_grounding_head(*args))  # bitwise on a repeat call
 
 
-@pytest.mark.parametrize("D,Dh", [(512, 256), (96, 48), (32, 16)])
+@pytest.mark.parametrize("D,Dh", [(512, 256), (96, 48), (32, 16), (640, 320), (2080, 1040)])
 def test_head_fwd_stream_matches_plain(dev, D, Dh):
-    """head_fwd_prep's weight stream, bitwise against its plain version."""
+    """head_fwd_prep's weight stream, bitwise against its plain version
+    (past Dh 256: a z1 part a hidden group of 256 columns)."""
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.grounding_head import fwd_stream_floats, fwd_stream_plain
 
     wx, w1 = torch.randn((D, D), device=dev), torch.randn((D, Dh), device=dev)
-    got = torch.full((fwd_stream_floats(D),), float("nan"), device=dev)
+    got = torch.full((fwd_stream_floats(D, "highest", Dh),), float("nan"), device=dev)
     fn = _build.function("grounding_head.cu", "vog_head_fwd_prep", [_build.P] * 3 + [_build.I] * 2 + [_build.P])
     assert fn(wx.device.index, wx.data_ptr(), w1.data_ptr(), got.data_ptr(), D, Dh, _build.stream_ptr(wx)) == 0
     torch.cuda.synchronize()
@@ -236,10 +242,10 @@ def test_wrappers_raise_on_bad_input(dev):
         flash_attention(q, q, q.double(), torch.ones((1, 8), device=dev))
     with pytest.raises(ValueError):
         gather_rows(torch.zeros((4, 8), device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
-    B, T, A, D = 1, 8, 3, 48  # D % 32 != 0: the kernel does not take it
+    B, T, A, D = 1, 8, 3, 48
     x = torch.zeros((B, T, D), device=dev)
     y = torch.zeros((B, A, D), device=dev)
-    w = torch.zeros((D, D), device=dev)
+    w = torch.zeros((D, D + 1), device=dev)  # Wx not (D, D)
     with pytest.raises(ValueError):
         fused_grounding_head(x, y, x, y, w, w[:, :24].contiguous(), w[0, :24].contiguous(),
                              w[0, :24].contiguous(), w[0, 0])
@@ -694,7 +700,10 @@ def test_dropout_bits_cpu_equal_card(dev):
 WIDE_CASES = [("flash", 64, 10, None), ("flash", 200, 10, None), ("flash", 256, 65, None),
               ("flash", 40, 80, None), ("flash", 256, 160, None), ("flash", 64, 160, None),
               ("mm", 200, 10, 5), ("mm", 256, 80, 5), ("mm", 128, 65, 3), ("mm", 40, 160, 2),
-              ("mm", 64, 10, 9), ("mm", 256, 10, 12)]
+              ("mm", 64, 10, 9), ("mm", 256, 10, 12),
+              # past 256, the wide path: 4 slices, 3 (dh 300 not a multiple of 8), 8 (dh 1024)
+              ("flash", 512, 10, None), ("flash", 300, 80, None), ("flash", 1024, 2, None),
+              ("mm", 512, 10, 5), ("mm", 300, 80, 9), ("mm", 1024, 10, 2)]
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
@@ -736,7 +745,7 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
                                                       precision=precision)
                 assert all(torch.equal(a, b) for a, b in zip(got, again))
         return
-    groups = len(mm_attention.arg_groups(A))
+    groups = len(mm_attention.arg_groups(A, mm_attention.kernel_args(dh)))
     qm = q * dh ** -0.5
     cn = -3 * torch.rand((2, 2, A, T), generator=g, device=dev)
     rf = mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid)
@@ -764,18 +773,76 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
 
 
 def test_wrappers_raise_past_the_widest_head_dim(dev):
-    """A head dim above 256 raises (the model names its key before:
-    ``check_kernel_shapes``)."""
-    from vog_tpu_torch.kernels import attention, mm_attention
+    """Past the widest instance (256) the wrappers no longer raise: at dh
+    264 (the wide path, three 128-column slices) they launch their kernel,
+    which matches the plain version."""
+    from vog_tpu_torch.kernels import _build, attention, mm_attention
 
-    q = torch.randn((1, 1, 8, 264), device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(264)
+    q, k, v = (torch.randn((1, 1, 8, 264), generator=g, device=dev) for _ in range(3))
     mask = torch.ones((1, 8), device=dev)
-    with pytest.raises(ValueError, match="head dim 264"):
-        attention.flash_attention_fwd(q, q, q, mask)
+    _build.reset_counts()
+    o, lse = attention.flash_attention_fwd(q, k, v, mask)
+    ro, rl = attention.flash_attention_plain(q, k, v, mask)
+    _close_rel(o, ro)
+    _close(lse, rl)
     fb = torch.zeros((1, 1, 1), device=dev)
     fid = torch.zeros((8,), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head dim 264"):
-        mm_attention.mm_attention_fwd(q, q, q, torch.zeros((1, 1, 2, 8), device=dev), mask, fb, fid)
+    cn = -torch.rand((1, 1, 2, 8), generator=g, device=dev)
+    out = mm_attention.mm_attention_fwd(q * 264 ** -0.5, k, v, cn, mask, fb, fid)
+    _close_rel(out[0], mm_attention.mm_attention_plain(q * 264 ** -0.5, k, v, cn, mask, fb, fid)[0])
+    do = torch.randn(o.shape, generator=g, device=dev)  # and the backward without a bias, both modes
+    ref = attention.flash_attention_bwd_plain(q, k, v, mask, None, None, ro, rl, do)
+    for mode in ("recompute", "emit"):
+        got = attention.flash_attention_bwd(q, k, v, mask, None, None, o, lse, do, bwd_mode=mode)
+        for a, b in zip(got[:3], ref[:3]):
+            _close_rel(a, b)
+    torch.cuda.synchronize()
+    assert _build.launches == {"flash_attention": 1, "mm_shared_qk_attention": 1, "flash_attention_bwd": 1,
+                               "flash_attention_bwd_emit": 1}
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("B,T,A,D", [(2, 45, 5, 1024), (1, 37, 6, 2080), (2, 45, 3, 300)])
+def test_head_wider_matches_plain(dev, B, T, A, D, precision):
+    """The fused head past D 512 (its wide path: the cross tile in K
+    slices, a pass a hidden group of 256, the row kernel's column groups
+    over staged K slices) and at D 300 (padded to 320): the forward against
+    the plain version, the 9 gradients against the plain backward given
+    the kernel's ReLU decisions (``chip_smoke.head_bwd_given``, fp64; a
+    kink mask would drop most rows at these widths), one forward launch and
+    one backward launch a group of at most 5 args."""
+    from chip_smoke import head_bwd_given, tf32
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.grounding_head import (
+        arg_groups, grounding_head_bwd, grounding_head_fwd, grounding_head_plain,
+    )
+
+    high = precision == "highest"
+    args, g = _head_inputs(dev, B, T, A, D)
+    gh = torch.randn((B, A, T), generator=g, device=dev)
+    ref = grounding_head_plain(*args)
+    _build.reset_counts()
+    with tf32(not high):
+        got = grounding_head_fwd(*args, precision=precision)
+        scratch = {} if A <= 5 else None
+        grads = grounding_head_bwd(*args, gh, precision=precision, scratch=scratch)
+    torch.cuda.synchronize()
+    assert _build.launches == {_build.variant("fused_grounding_head", precision): 1,
+                               _build.variant("fused_grounding_head_bwd", precision): len(arg_groups(A))}
+    (_close_rel if high else (lambda a, b: _close_default(a, b, True)))(got, ref)
+    if scratch is None:  # two groups: the decisions of each are not kept; the first group's args alone
+        a1 = arg_groups(A)[0][1]
+        sub = (args[0], args[1][:, :a1].contiguous(), args[2], args[3][:, :a1].contiguous(), *args[4:])
+        scratch = {}
+        with tf32(not high):
+            grads = grounding_head_bwd(*sub, gh[:, :a1].contiguous(), precision=precision, scratch=scratch)
+        args, gh = sub, gh[:, :a1].contiguous()
+    want, flips = head_bwd_given(args, gh, scratch["h"], scratch["dz1"])
+    assert max(flips) < 1e-3
+    for a, b in zip(grads, want):
+        (_close if high else (lambda x, y: _close_default(x, y, False)))(a, b.float())
 
 
 # --------------------------------------------------------------------------

@@ -20,10 +20,12 @@ package on the CPU, and the repairs that came with it:
     the card) against the JAX package's head kernel in interpret mode,
     forward and all 9 gradients (atol 5e-4, rtol 1e-3: the JAX package's
     own head-gradient tolerance, tests/test_head_kernel.py);
-  * ``get_model`` on the card refuses shapes its kernels do not take (a
-    head dim above 256, the fused head past its width), and names the
-    config key; ``check_kernel_shapes`` passes a head dim of 256, 70
-    frames and 9 args.
+  * ``get_model`` on the card refuses the shapes its kernels do not take
+    (a head dim that is not a whole number of at least 1, which the JAX
+    package's heads do not take either), and names the config key;
+    ``check_kernel_shapes`` passes what the JAX package runs: head dims of
+    256, 512 and 1024 and one not a multiple of 8, the fused head at D 300,
+    1024 and 2080, 70 frames and 9 args.
 """
 
 import re
@@ -217,8 +219,8 @@ def _prod_cfg(**over):
 
 
 @pytest.mark.parametrize("over,key", [
-    ({"mdl.vis_dim": 1024, "mdl.n_heads": 8}, "mdl.vis_dim"),  # the head's D
-    ({"mdl.vis_dim": 1024, "mdl.n_heads": 2}, "mdl.vis_dim / mdl.n_heads"),  # head dim 512
+    ({"mdl.vis_dim": 1000, "mdl.n_heads": 3}, "mdl.vis_dim"),  # no whole head dim
+    ({"mdl.vis_dim": 2, "mdl.n_heads": 4}, "mdl.vis_dim / mdl.n_heads"),  # a head dim below 1
 ])
 def test_get_model_on_the_card_names_the_key_of_a_shape_out_of_range(over, key):
     cfg = _prod_cfg(**over)
@@ -234,10 +236,16 @@ def test_get_model_on_the_card_names_the_key_of_a_shape_out_of_range(over, key):
     {"mdl.n_heads": 2},  # head dim 256: the attention kernels' widest instance
     {"ds.num_frms": 70},  # 70 frames: the frame-bias table from device memory, its gradient in 64-frame tiles
     {"ds.max_srl_args": 9},  # 9 args: the mm kernels in groups of 5 + 4
+    {"mdl.vis_dim": 1024, "mdl.n_heads": 8},  # the fused head at D 1024 (Dh 512): its wide path
+    {"mdl.vis_dim": 1024, "mdl.n_heads": 2},  # head dim 512: the attention kernels' wide path
+    {"mdl.vis_dim": 300},  # D 300 (head padded to 320), head dim 75
+    {"mdl.vis_dim": 2080},  # D 2080, head dim 520
+    {"mdl.vis_dim": 1024, "mdl.n_heads": 1},  # head dim 1024
 ])
 def test_check_kernel_shapes_takes_what_the_jax_package_runs(over):
-    """Shapes the card refused before its kernels took any head dim up to
-    256, any frame count and any arg count: ``check_kernel_shapes`` passes
-    them, as the JAX package runs them."""
+    """Shapes the card refused before its kernels took every head dim
+    (past 256 their wide path), any frame count, any arg count and the
+    fused head at any width: ``check_kernel_shapes`` passes them, as the
+    JAX package runs them."""
     check_kernel_shapes(_prod_cfg(**over))
     check_kernel_shapes(_prod_cfg(**over, **{"ds.conc_type": "temp", "ds.exp_setting": "p100"}))

@@ -360,7 +360,9 @@ def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
     one launch covers dWx and dW1 for its rows (a call launches it once
     after each of the row kernel's two parts), and at GT5 (D=512, Dh=256)
     its grid puts at least two blocks on each of the H100's 132 SMs.  The
-    row kernel streams its weights by cp.async into per-warp rings."""
+    row kernel streams its weights by cp.async into per-warp rings, in its
+    narrow path and in its wide one (W: past D 512 or Dh 256), each the
+    four products."""
     from vog_tpu_torch.kernels.grounding_head import W_CHUNKS
 
     text = (PKG / "csrc" / "grounding_head.cu").read_text()
@@ -373,13 +375,16 @@ def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
     assert w.count("__syncthreads()") == 1 and "dwx_part" in w and "dw1_part" in w
     part = text[text.index("cudaError_t launch_part("):]
     part = part[: part.index("\n}\n")]
-    assert part.count("head_bwd_w<<<") == 1 and part.count("head_bwd_rows<A><<<") == 1
-    assert text.count("head_bwd_w<<<") == 1 and text.count("head_bwd_rows<A><<<") == 1
+    assert part.count("head_bwd_w<<<") == 1 and part.count("head_bwd_rows<A, W><<<") == 1
+    assert text.count("head_bwd_w<<<") == 1 and text.count("head_bwd_rows<A, W><<<") == 1
     launch = text[text.index("int launch_bwd("):]
     launch = launch[: launch.index("\n}\n")]
-    assert launch.count("launch_part<A>(") == 3  # one part, or two on two streams
-    rows = bodies["head_bwd_rows"]
-    assert rows.count("gemm_rows<") == 4 and "ring" in rows
+    assert launch.count("launch_part<A, W>(") == 3  # one part, or two on two streams
+    assert "bwd_rows_wide<A>(" in bodies["head_bwd_rows"] and "bwd_rows_narrow<A>(" in bodies["head_bwd_rows"]
+    for path in ("bwd_rows_narrow", "bwd_rows_wide"):
+        rows = text[text.index(f"__device__ __forceinline__ void {path}("):]
+        rows = rows[: rows.index("\n}\n")]
+        assert rows.count("gemm_rows<") == 4 and "ring" in rows, path
     gemm = text[text.index("__device__ inline void gemm_rows("):]
     gemm = gemm[: gemm.index("\n}\n")]
     assert "cp_async16(" in gemm and "cp_wait<" in gemm and "__syncthreads()" not in gemm
@@ -395,13 +400,16 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
     a ring by the copy engine (cp.async.bulk with an mbarrier a stage), its
     wv / wl tiles by cp.async; a persistent grid of one warpgroup an SM
     walks the items; no atomics; both kernels count under the forward's
-    one launch name."""
+    one launch name.  Past D 512 or Dh 256 its wide path (W) does the
+    same, z0 by K slices into a scratch, then z1 a group at a time."""
     text = (PKG / "csrc" / "grounding_head.cu").read_text()
     fwd = _kernel_bodies(text)["head_fwd"]
     fwd = fwd[: fwd.index("\nsize_t fwd_smem(")]
     assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in text
     assert "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32" in text
-    assert fwd.count("wgmma_n64(acc1,") == 3 and fwd.count("wgmma_n256(acc2,") == 3
+    # three products a k-step (3xTF32), in the narrow path and in the wide one (W)
+    assert fwd.count("wgmma_n64(acc1,") == 6 and fwd.count("wgmma_n256(acc2,") == 6
+    assert fwd.count("if constexpr (W) {") == 1 and "} else {" in fwd
     assert "wg_fence();" in fwd and "wg_commit();" in fwd and "wg_wait<" in fwd
     assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in text
     assert "bulk_load(" in fwd and "mbar_wait(" in fwd and "cp_async16(" in fwd

@@ -39,7 +39,13 @@
 //    slice of the output after computing the whole scores (tiles.cuh
 //    §HeadDim): the accumulators stay at DK 128's registers.  A score tile
 //    is summed in two accumulator sets (even and odd k-steps) so that its
-//    dependent mma chains are half as long.
+//    dependent mma chains are half as long.  Past 256 the DK 128 instances
+//    take the wide path (template flag W, tiles.cuh): ceil(dh / 128) blocks
+//    a tile of rows, each staging only its 128-column slice of the rows its
+//    accumulating products read (V; Q and dO; K) and reading the score
+//    products' operands from device memory (scores_g), so the resident
+//    rows that no longer fit (64 query rows are 132 KB at dh 512) are
+//    never staged; the frame table is read from device memory at any F.
 //  * The resident rows (Q, or Q and dO, or K and V) stay in shared memory
 //    and are split as their fragments are read.  The streamed tiles (K/V
 //    in flash_fwd, 32 rows, 16 at DK 256; K/V in flash_bwd_dq and Q/dO in
@@ -144,8 +150,9 @@ __device__ inline const float* head_table(const float* __restrict__ fb, int h, i
 
 // Shared memory a block: 101 KB at DK 128, two blocks (8 warps) an SM;
 // 133 KB at DK 256 (the backward kernels' 200 KB), one block an SM, hence
-// the launch bounds' minimum of one there.
-template <int DK, int TM>
+// the launch bounds' minimum of one there.  W: the wide path (tiles.cuh;
+// DK 128, dh > 256): S from device memory, V's column slice z staged.
+template <int DK, int TM, bool W = false>
 __global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ key_mask,
@@ -158,7 +165,7 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NT = kTileF / 8;
   constexpr bool kFrames = TM != kNoTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int z = HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
+  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
   const int q0 = blockIdx.x * kRows, c0 = z * HD::kDV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -175,14 +182,18 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    load_rows<kTileF, kThreads, DK>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
-    load_rows<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
+    if constexpr (W) {
+      load_slice<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, c0, vec);
+    } else {
+      load_rows<kTileF, kThreads, DK>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
+      load_rows<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
+    }
     if (tid < kTileF) codes[s * kTileF + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
+  if constexpr (!W) load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -204,7 +215,10 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const int* ct = codes + s * kTileF;
 
     float sc[NT][4];
-    scores<NT, false, DK>(sc, sc, Qw, Kt, Qw, Kt, g, t);  // S = Q K^T
+    if constexpr (W)  // S = Q K^T
+      scores_g<NT, false>(sc, sc, q + base, kb, q + base, kb, q0 + warp * 16, it * kTileF, T, dh, g, t);
+    else
+      scores<NT, false, DK>(sc, sc, Qw, Kt, Qw, Kt, g, t);
 
     // online softmax on the C fragments: rows g (c0, c1) and g + 8 (c2, c3)
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -247,7 +261,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       acc[n][2] *= a1;
       acc[n][3] *= a1;
     }
-    accumulate<NT, HD::kNV, kLd>(acc, sc, Vt + c0, g, t);  // O += P V (keys past T: p = 0, zero rows)
+    // O += P V (keys past T: p = 0, zero rows); the wide path's Vt is the slice
+    accumulate<NT, HD::kNV, kLd>(acc, sc, Vt + (W ? 0 : c0), g, t);
   }
 
   l0 = quad_sum(l0);
@@ -278,8 +293,10 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
 }
 
 // kEmit: also store the masked ds (B*H, T, T), query-major ("emit" mode);
-// at DK 256 the block of column slice 0 stores it
-template <int DK, int TM, bool kEmit>
+// at DK 256 (and on the wide path) the block of column slice 0 stores it.
+// W: the wide path: S^T and dP^T from device memory, the Q and dO tiles'
+// column slice z staged, no resident K and V.
+template <int DK, int TM, bool kEmit, bool W = false>
 __global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
@@ -293,7 +310,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int NT = kTileB / 8;
   constexpr bool kFrames = TM != kNoTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int z = HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
+  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
   const int k0 = blockIdx.x * kRows, c0 = z * HD::kDV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -313,8 +330,13 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + base;
   const float* ob = dout + base;
   auto stage = [&](int s, int i0) {
-    load_rows<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
-    load_rows<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
+    if constexpr (W) {
+      load_slice<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, c0, vec);
+      load_slice<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, c0, vec);
+    } else {
+      load_rows<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
+      load_rows<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
+    }
     if (tid < kTileB) {
       const int qi = i0 + tid;
       ls[s * kTileB + tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
@@ -325,8 +347,10 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   };
   stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows, kThreads, DK>(Ks, k + base, k0, T, dh, vec);
-  load_rows<kRows, kThreads, DK>(Vs, v + base, k0, T, dh, vec);
+  if constexpr (!W) {
+    load_rows<kRows, kThreads, DK>(Ks, k + base, k0, T, dh, vec);
+    load_rows<kRows, kThreads, DK>(Vs, v + base, k0, T, dh, vec);
+  }
   stage(0, 0);  // one group: K, V and the first Q/dO tile
   const int none = all_masked(key_mask, b, T);
   const float p_none = 1.f / (float)T;
@@ -353,7 +377,10 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
     // S^T = K Q^T and dP^T = V dO^T (16 keys x kTileB queries a warp)
     float st[NT][4], dpt[NT][4];
-    scores<NT, true, DK>(st, dpt, Kw, Qt, Vw, Ot, g, t);
+    if constexpr (W)
+      scores_g<NT, true>(st, dpt, k + base, qb, v + base, ob, k0 + warp * 16, it * kTileB, T, dh, g, t);
+    else
+      scores<NT, true, DK>(st, dpt, Kw, Qt, Vw, Ot, g, t);
 
     // p and ds on the C fragments: key kr0 (c0, c1) and kr0 + 8 (c2, c3)
 #pragma unroll
@@ -373,8 +400,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
 
-    accumulate<NT, HD::kNV, kLd>(adv, st, Ot + c0, g, t);   // dV += P^T dO
-    accumulate<NT, HD::kNV, kLd>(adk, dpt, Qt + c0, g, t);  // dK += dS^T Q
+    accumulate<NT, HD::kNV, kLd>(adv, st, Ot + (W ? 0 : c0), g, t);   // dV += P^T dO
+    accumulate<NT, HD::kNV, kLd>(adk, dpt, Qt + (W ? 0 : c0), g, t);  // dK += dS^T Q
     if (kEmit && z == 0) {  // ds[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -397,8 +424,10 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 // with frames, sums ds over key frames 64z..64z+63 (z < ceil(F / 64)): a
 // launch has max(kSlices, ceil(F / 64)) blocks a tile (grid.z), each
 // summing its frames in the one fixed order, so the frame-bias gradient
-// takes any F with the registers and the order of F <= 64.
-template <int DK, int TM>
+// takes any F with the registers and the order of F <= 64.  W: the wide
+// path: ceil(dh / 128) slices, S and dP from device memory, the K tile's
+// column slice z staged, no resident Q and dO.
+template <int DK, int TM, bool W = false>
 __global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
@@ -414,11 +443,11 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   static_assert(4 * kTileB * kLd >= kRows * kFrameTile, "the frame sums fit the K/V ring");
   constexpr bool kFrames = TM != kNoTable;
   // one block a tile of rows: no slices, the frames (if any) in one tile
-  constexpr bool kOne = HD::kSlices == 1 && TM != kGlobalTable;
+  constexpr bool kOne = !W && HD::kSlices == 1 && TM != kGlobalTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kRows, z = kOne ? 0 : blockIdx.z;
-  const bool do_dq = kOne || z < HD::kSlices;    // dq's column slice z
-  const int c0 = HD::kSlices > 1 ? z * HD::kDV : 0;
+  const bool do_dq = kOne || z < (W ? wide_slices(dh) : HD::kSlices);  // dq's column slice z
+  const int c0 = W || HD::kSlices > 1 ? z * HD::kDV : 0;
   const int fbase = kFrameTile * z;              // frames 64z..64z+63
   const bool do_fr = kFrames && (kOne || fbase < F);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -438,15 +467,21 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    load_rows<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
-    load_rows<kTileB, kThreads, DK>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
+    if constexpr (W) {  // past dh (a block of frame tiles alone): zeros
+      load_slice<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, c0, vec);
+    } else {
+      load_rows<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
+      load_rows<kTileB, kThreads, DK>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
+    }
     if (tid < kTileB) codes[s * kTileB + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
-  load_rows<kRows, kThreads, DK>(Os, dout + base, q0, T, dh, vec);
+  if constexpr (!W) {
+    load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
+    load_rows<kRows, kThreads, DK>(Os, dout + base, q0, T, dh, vec);
+  }
   stage(0, 0);  // one group: Q, dO and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -479,7 +514,10 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T and dP = dO V^T (16 rows x kTileB keys a warp)
     float sc[NT][4], dp[NT][4];
-    scores<NT, true, DK>(sc, dp, Qw, Kt, Ow, Vt, g, t);
+    if constexpr (W)
+      scores_g<NT, true>(sc, dp, q + base, kb, dout + base, vb, q0 + warp * 16, it * kTileB, T, dh, g, t);
+    else
+      scores<NT, true, DK>(sc, dp, Qw, Kt, Ow, Vt, g, t);
 
     // ds on the C fragments (masked keys and keys past T give 0)
 #pragma unroll
@@ -498,7 +536,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         sc[j][2 + e] = d1;
       }
 
-    if (do_dq) accumulate<NT, HD::kNV, kLd>(acc, sc, Kt + c0, g, t);  // dQ += dS K
+    if (do_dq) accumulate<NT, HD::kNV, kLd>(acc, sc, Kt + (W ? 0 : c0), g, t);  // dQ += dS K
 
     if (do_fr) {
       // the warp's ds tile through shared memory, then a lane per key
@@ -554,7 +592,9 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int DK>
+// the wide path (W) reads a frame table from device memory at any F: one
+// instance a table mode fewer
+template <int DK, bool W = false>
 int launch_fwd(const float* q, const float* k, const float* v, const float* key_mask, const float* fb,
                const int* fid, float* o, float* lse, int B, int H, int T, int dh, int F, float scale,
                cudaStream_t stream) {
@@ -564,17 +604,21 @@ int launch_fwd(const float* q, const float* k, const float* v, const float* key_
   const int tm = table_mode(F);
   const size_t smem = sizeof(float) * (size_t)(kRows + 4 * kTileF) * HD::kLd +
                       sizeof(int) * 2 * kTileF + (frames ? sizeof(float) * table_floats(F) : 0);
-  auto fwd = tm == kNoTable ? flash_fwd<DK, kNoTable>
-             : tm == kSmemTable ? flash_fwd<DK, kSmemTable> : flash_fwd<DK, kGlobalTable>;
+  decltype(&flash_fwd<DK, kNoTable>) fwd;
+  if constexpr (W)
+    fwd = tm == kNoTable ? flash_fwd<DK, kNoTable, true> : flash_fwd<DK, kGlobalTable, true>;
+  else
+    fwd = tm == kNoTable ? flash_fwd<DK, kNoTable>
+          : tm == kSmemTable ? flash_fwd<DK, kSmemTable> : flash_fwd<DK, kGlobalTable>;
   cudaError_t e = set_smem(fwd, smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  const dim3 grid((T + kRows - 1) / kRows, B * H, HD::kSlices);
+  const dim3 grid((T + kRows - 1) / kRows, B * H, W ? wide_slices(dh) : HD::kSlices);
   fwd<<<grid, kThreads, smem, stream>>>(q, k, v, key_mask, fb, fid, o, lse, H, T, dh, F, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <int DK>
+template <int DK, bool W = false>
 int launch_bwd(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                const float* delta, const float* key_mask, const float* fb, const int* fid, float* dq,
                float* dk, float* dv, float* dfb_part, DsT* ds, int B, int H, int T, int dh, int F,
@@ -590,15 +634,23 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* dout
 
   const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
   const bool emit = ds != nullptr;
-  auto dkv = emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true>
-                     : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, true>
-                                        : flash_bwd_dkv<DK, kGlobalTable, true>)
-                  : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false>
-                     : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, false>
-                                        : flash_bwd_dkv<DK, kGlobalTable, false>);
+  const int slices = W ? wide_slices(dh) : HD::kSlices;
+  decltype(&flash_bwd_dkv<DK, kNoTable, true>) dkv;
+  if constexpr (W)
+    dkv = emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true, true>
+                                 : flash_bwd_dkv<DK, kGlobalTable, true, true>)
+               : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false, true>
+                                 : flash_bwd_dkv<DK, kGlobalTable, false, true>);
+  else
+    dkv = emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true>
+                  : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, true>
+                                     : flash_bwd_dkv<DK, kGlobalTable, true>)
+               : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false>
+                  : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, false>
+                                     : flash_bwd_dkv<DK, kGlobalTable, false>);
   cudaError_t e = set_smem(dkv, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  dkv<<<dim3(tiles, B * H, HD::kSlices), kThreads, smem_kv, s>>>(
+  dkv<<<dim3(tiles, B * H, slices), kThreads, smem_kv, s>>>(
       q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv, ds, H, T, dh, F, scale, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || emit) return (int)e;
@@ -606,11 +658,15 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* dout
   const size_t smem_q = rows_bytes + sizeof(int) * 2 * kTileB + fb_bytes +
                         (frames ? sizeof(float) * kWarps * 16 * kDsLd : 0);
   const int frame_tiles = frames ? (F + kFrameTile - 1) / kFrameTile : 0;
-  auto dqk = tm == kNoTable ? flash_bwd_dq<DK, kNoTable>
-             : tm == kSmemTable ? flash_bwd_dq<DK, kSmemTable> : flash_bwd_dq<DK, kGlobalTable>;
+  decltype(&flash_bwd_dq<DK, kNoTable>) dqk;
+  if constexpr (W)
+    dqk = tm == kNoTable ? flash_bwd_dq<DK, kNoTable, true> : flash_bwd_dq<DK, kGlobalTable, true>;
+  else
+    dqk = tm == kNoTable ? flash_bwd_dq<DK, kNoTable>
+          : tm == kSmemTable ? flash_bwd_dq<DK, kSmemTable> : flash_bwd_dq<DK, kGlobalTable>;
   e = set_smem(dqk, smem_q);
   if (e != cudaSuccess) return (int)e;
-  dqk<<<dim3(tiles, B * H, frame_tiles > HD::kSlices ? frame_tiles : HD::kSlices), kThreads, smem_q, s>>>(
+  dqk<<<dim3(tiles, B * H, frame_tiles > slices ? frame_tiles : slices), kThreads, smem_q, s>>>(
       q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part, H, T, dh, F, scale, vec);
   return (int)cudaGetLastError();
 }
@@ -627,10 +683,12 @@ extern "C" int vog_flash_delta(int device, const float* o, const float* dout, fl
   return (int)cudaGetLastError();
 }
 
-// The instance of a head dim: 64, 128 or 256 (dh padded up to it).
-#define VOG_FLASH_DISPATCH(fn, ...)                                      \
-  (dh <= 64 ? fn<64>(__VA_ARGS__) : dh <= 128 ? fn<128>(__VA_ARGS__) \
-                                               : fn<256>(__VA_ARGS__))
+// The instance of a head dim: 64, 128 or 256 (dh padded up to it), past
+// 256 the DK 128 instance's wide path.
+#define VOG_FLASH_DISPATCH(fn, ...)                                           \
+  (dh <= 64 ? fn<64>(__VA_ARGS__) : dh <= 128 ? fn<128>(__VA_ARGS__)      \
+                                  : dh <= kMaxDh ? fn<256>(__VA_ARGS__)   \
+                                                 : fn<128, true>(__VA_ARGS__))
 
 // fb and fid may be null when F == 1 (no bias).  Recompute mode (ds null):
 // dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
@@ -644,7 +702,7 @@ extern "C" int vog_flash_bwd(int device, const float* q, const float* k, const f
                              int B, int H, int T, int dh, int F, float scale,
                              void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kMaxDh || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if (dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   return VOG_FLASH_DISPATCH(launch_bwd, q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dk, dv,
                             dfb_part, static_cast<DsT*>(ds_out), B, H, T, dh, F, scale,
@@ -658,7 +716,7 @@ extern "C" int vog_flash_fwd(int device, const float* q, const float* k, const f
                              int H, int T, int dh, int F, float scale,
                              void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kMaxDh || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if (dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   return VOG_FLASH_DISPATCH(launch_fwd, q, k, v, key_mask, fb, fid, o, lse, B, H, T, dh, F, scale,
                             static_cast<cudaStream_t>(stream));

@@ -95,6 +95,19 @@
 // (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
 // PERF.md.
 //
+// Widths: D % 32 == 0 and Dh % 16 == 0 (the wrapper zero-pads others,
+// exactly).  Up to D 512 and Dh 256 the kernels run as above (their narrow
+// path).  Past either they take their wide path (template flag W): the
+// forward computes z0 once, by K slices of 512 columns of the cross tile,
+// into a scratch of device memory, then z1 a group of 256 columns at a
+// time (the stream lays W1 out a group at a time after each chunk's z0
+// stages; head_fwd's comment says more); the row
+// kernel's warps walk column groups, over K slices of 512 staged from the
+// (B, A, T, .) rows it writes for the weight kernel anyway (cross, h, dz1,
+// dz0), its tile the narrow path's at D 512, so A = 5 fits at any D; the
+// weight kernel's 128 x 64 tiles walk any D (the wrapper's row chunks fall
+// with D, so its partials stay near D^2 floats).
+//
 // Precision: this file builds twice (kernels/_build.py).  As it is, every
 // product is 3xTF32 ("highest"); with -DVOG_ONE_PASS=1 ("default", the
 // production recipe's) every product is one TF32 pass, operands rounded to
@@ -119,6 +132,8 @@ namespace {
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBT = 16;  // tokens per block of the backward's row kernel: rows M = A * kBT
+// The widest D and Dh of the narrow path (whole cross tiles, one z1
+// accumulator); past either the kernels take their wide path (W)
 constexpr int kMaxD = 512;
 constexpr int kMaxHid = 256;  // Dh
 constexpr int kN1 = 32;  // first-product columns per warp (4 n-tiles)
@@ -264,36 +279,40 @@ constexpr int kParts = kOnePass ? 1 : 2;  // parts a weight is stored as: rounde
 constexpr int kStage = kParts * kStep2;   // floats a stage: 4 z0 k-steps or 1 z1 k-step, each part
 constexpr int kFRing = 8 / kParts;   // stages of the weight ring (64 KB: loads 3 or 7 stages ahead)
 constexpr int kWvLd = kNC + 8;       // row stride of the wv chunk tile (8 mod 32 words)
+constexpr int kFK = kMaxD;           // the wide path's cross tile: a K slice of 512 columns
 constexpr uint32_t kBigMask = 0xffffe000u;
 
-// floats of a chunk's weights: D_pad / 8 z0 k-steps, then 8 z1 k-steps
-__host__ __device__ inline int chunk_floats(int Dp) { return Dp / 8 * kStep1 + 8 * kStep2; }
+// z1 column groups of 256 (the wide path's passes over z0; 1 up to Dh 256)
+__host__ __device__ inline int hidden_groups(int Dh) { return (Dh + kNZ - 1) / kNZ; }
+// floats of a chunk's weights: D_pad / 8 z0 k-steps, then 8 z1 k-steps a hidden group
+__host__ __device__ inline int chunk_floats(int Dp, int nhg) { return Dp / 8 * kStep1 + 8 * nhg * kStep2; }
 
 // The weight stream: stages of kStep2 weights, chunk c = 0 .. D_pad / 64 - 1
 // after chunk: 4 z0 k-steps a stage (k 8s .. 8s + 7 of Wx's rows, columns
-// 64c ..), then 8 stages of one z1 k-step (W1 rows 64c + 8j .., all 256
-// padded columns).  A k-step is [k half][n / 8][n % 8][k slot 0-3]; slot u
-// of half e holds k 2u + e of the step (pair order).  Each stage is stored
-// twice: its big parts (low 13 mantissa bits cleared), then its small parts;
-// in a one-pass library once, each weight rounded to the nearest TF32.
+// 64c ..), then for each hidden group hg 8 stages of one z1 k-step (W1
+// rows 64c + 8j .., columns 256 hg .. 256 hg + 255, zero past Dh).  A
+// k-step is [k half][n / 8][n % 8][k slot 0-3]; slot u of half e holds k
+// 2u + e of the step (pair order).  Each stage is stored twice: its big
+// parts (low 13 mantissa bits cleared), then its small parts; in a
+// one-pass library once, each weight rounded to the nearest TF32.
 __global__ void __launch_bounds__(256)
 head_fwd_prep(const float* __restrict__ wx, const float* __restrict__ w1,
               float* __restrict__ stream, int D, int Dp, int Dh) {
-  const int per = chunk_floats(Dp), total = kParts * (Dp / kNC) * per;
+  const int per = chunk_floats(Dp, hidden_groups(Dh)), total = kParts * (Dp / kNC) * per;
   for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < total; o += gridDim.x * blockDim.x) {
     const int stage = o / kStage, part = kOnePass ? 0 : (o / kStep2) & 1;
     const int raw = stage * kStep2 + o % kStep2;  // the weight's place in the unsplit stream
     const int c = raw / per, r = raw - c * per;
     const int z1 = r >= Dp / 8 * kStep1;
-    const int step = z1 ? (r - Dp / 8 * kStep1) / kStep2 : r / kStep1;
+    const int step = z1 ? (r - Dp / 8 * kStep1) / kStep2 : r / kStep1;  // z1: 8 hg + j
     const int w = z1 ? (r - Dp / 8 * kStep1) % kStep2 : r % kStep1;
     const int u = w & 3, n8 = (w >> 2) & 7, half = w / (z1 ? kStep2 / 2 : kStep1 / 2);
     const int ng = (w % (z1 ? kStep2 / 2 : kStep1 / 2)) >> 5;
-    const int n = 8 * ng + n8, kk = 8 * step + 2 * u + half;
+    const int n = 8 * ng + n8, kk = 8 * (z1 ? step % 8 : step) + 2 * u + half;
     float v = 0.f;
-    if (z1) {  // W1 row 64c + kk, column n
-      const int k = kNC * c + kk;
-      if (k < D && n < Dh) v = w1[(size_t)k * Dh + n];
+    if (z1) {  // W1 row 64c + kk, column 256 hg + n
+      const int k = kNC * c + kk, col = kNZ * (step / 8) + n;
+      if (k < D && col < Dh) v = w1[(size_t)k * Dh + col];
     } else {  // Wx row kk, column 64c + n
       const int col = kNC * c + n;
       if (kk < D && col < D) v = wx[(size_t)kk * D + col];
@@ -307,15 +326,29 @@ head_fwd_prep(const float* __restrict__ wx, const float* __restrict__ w1,
   }
 }
 
+// W: the wide path (D_pad > 512 or Dh > 256), where neither the whole
+// cross tile (64 x D_pad floats: 133 KB at D 512) nor the z1 accumulator
+// of Dh columns (128 registers a lane hold 256) fits.  An item runs in two
+// phases.  (1) z0 = cross . Wx by K slices of kFK columns: the cross tile
+// holds one slice, built once an item, and each chunk's stages of that
+// slice add into the chunk's accumulators, which a thread keeps between
+// slices in its own places of the block's scratch rows in device memory
+// (``zs``, 64 x D_pad floats a block; its C-fragment elements, so no
+// barrier orders them).  (2) For each group of 256 z1 columns, each chunk's
+// h = relu(z0 + wv + wl) from the scratch feeds z1 += h . W1[chunk,
+// group], and the group adds its part of the logit.  z0 is computed once;
+// the stream is read in this order (``stream_stage``).
+template <bool W>
 __global__ void __launch_bounds__(kFThreads, 1)
 head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
          const float* __restrict__ wv, const float* __restrict__ wl,
          const float* __restrict__ wstream, const float* __restrict__ b1,
          const float* __restrict__ w2, const float* __restrict__ b2,
-         float* __restrict__ out, int B, int A, int T, int D, int Dp, int Dh) {
+         float* __restrict__ out, float* __restrict__ zs, int B, int A, int T, int D, int Dp,
+         int Dh) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int ldx = Dp + 8;  // cross row stride: 8 mod 32 words, conflict-free float2 fragment reads
+  const int ldx = (W ? kFK : Dp) + 8;  // cross row stride: 8 mod 32 words, conflict-free float2 fragment reads
   extern __shared__ __align__(1024) float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);  // kFRing x kStage: a stage's big (or rounded) parts, then its small parts
   float* cross = ring + kFRing * kStage;          // kFRows x ldx
@@ -327,9 +360,27 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
   const int BT = B * T;
   const int nitems = (BT + kFRows - 1) / kFRows * A;
   const int nch = Dp / kNC, p1 = Dp / 32;  // chunks; z0 stages a chunk (4 k-steps a stage)
-  const int per_item = nch * (p1 + 8);    // stages an item
+  const int nhg = W ? hidden_groups(Dh) : 1;  // z1 column groups: the wide path's passes of (2)
+  const int nks = W ? (Dp + kFK - 1) / kFK : 1;  // K slices of the cross tile
+  constexpr int kSliceStages = kFK / 32;         // z0 stages a full slice
+  const int per_item = W ? nch * p1 + nhg * nch * 8 : nch * (p1 + 8);  // stages an item
   const int items = (nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   const int total = items * per_item;     // stages this block reads
+  // the stream's stage of an item's stage u: the narrow path reads the
+  // stream in order; the wide path (1) slice by slice, each chunk's z0
+  // stages of the slice, then (2) group by group, each chunk's 8 z1
+  // stages of the group (a chunk holds its p1 z0 stages, then 8 a group)
+  auto stream_stage = [&](int u) {
+    if constexpr (!W) return u;
+    const int L = p1 + 8 * nhg;
+    if (u < nch * p1) {
+      const int ks = min(u / (nch * kSliceStages), nks - 1), v = u - nch * kSliceStages * ks;
+      const int sl = min(kSliceStages, p1 - kSliceStages * ks), c = v / sl;
+      return c * L + kSliceStages * ks + (v - c * sl);
+    }
+    const int v = u - nch * p1, hg = v / (nch * 8), w = v - hg * nch * 8;
+    return w / 8 * L + p1 + 8 * hg + w % 8;
+  };
 
   if (tid == 0) {
     for (int r = 0; r < kFRing; ++r) mbar_init(full + r, 1);
@@ -343,8 +394,8 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
   // stage q of the block's stream (stage q % per_item of an item) into ring slot q % kFRing
   auto issue = [&](int q) {
     if (q < total)
-      bulk_load(ring + (q % kFRing) * kStage, wstream + (size_t)(q % per_item) * kStage, kStage * 4,
-                full + q % kFRing);
+      bulk_load(ring + (q % kFRing) * kStage, wstream + (size_t)stream_stage(q % per_item) * kStage,
+                kStage * 4, full + q % kFRing);
   };
   if (tid == 0)
     for (int q = 0; q < kFRing; ++q) issue(q);
@@ -361,24 +412,31 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
     const int item = blockIdx.x + it * gridDim.x;
     const int row0 = item / A * kFRows, a = item % A;
     __syncthreads();  // every thread is done with the previous item's tiles
-    // cross = vis * arg_a: the vis rows by cp.async (zero past BT and D), then scaled in place
-    for (int idx = tid; idx < kFRows * (Dp / 4); idx += kFThreads) {
-      const int r = idx / (Dp / 4), c = 4 * (idx % (Dp / 4)), n = row0 + r;
-      const bool ok = n < BT && c < D;
-      cp_async16(cross + r * ldx + c, ok ? vis + (size_t)n * D + c : vis, ok);
-    }
-    cp_commit();
-    cp_wait_all();
-#pragma unroll 4
-    for (int idx = tid; idx < kFRows * (Dp / 4); idx += kFThreads) {  // the thread's own copies
-      const int r = idx / (Dp / 4), c = 4 * (idx % (Dp / 4)), n = row0 + r;
-      if (n < BT && c < D) {
-        float4* x = reinterpret_cast<float4*>(cross + r * ldx + c);
-        const float4 w = __ldg(reinterpret_cast<const float4*>(arg + ((size_t)(n / T) * A + a) * D + c));
-        const float4 v = *x;
-        *x = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+    // cross = vis * arg_a, columns k0 .. k0 + KW - 1 (KW = D_pad, or the
+    // wide path's slice): the vis rows by cp.async (zero past BT and D),
+    // then scaled in place
+    auto build_cross = [&](int k0) {
+      const int kw4 = W ? kFK / 4 : Dp / 4;
+      for (int idx = tid; idx < kFRows * kw4; idx += kFThreads) {
+        const int r = idx / kw4, c = 4 * (idx % kw4), n = row0 + r;
+        const bool ok = n < BT && k0 + c < D;
+        cp_async16(cross + r * ldx + c, ok ? vis + (size_t)n * D + k0 + c : vis, ok);
       }
-    }
+      cp_commit();
+      cp_wait_all();
+#pragma unroll 4
+      for (int idx = tid; idx < kFRows * kw4; idx += kFThreads) {  // the thread's own copies
+        const int r = idx / kw4, c = 4 * (idx % kw4), n = row0 + r;
+        if (n < BT && k0 + c < D) {
+          float4* x = reinterpret_cast<float4*>(cross + r * ldx + c);
+          const float4 w =
+              __ldg(reinterpret_cast<const float4*>(arg + ((size_t)(n / T) * A + a) * D + k0 + c));
+          const float4 v = *x;
+          *x = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+        }
+      }
+    };
+    if constexpr (!W) build_cross(0);
     if (it + 1 < items) {  // the next item's vis rows into L2 while this one runs
       const int nrow0 = (item + gridDim.x) / A * kFRows;
       for (int idx = tid; idx < kFRows * (Dp / 32); idx += kFThreads) {  // one 128-byte line each
@@ -389,110 +447,255 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
     // wl of this thread's rows (their (b, a)), read through L1 in the z1 epilogue
     const float* wl0 = wl + ((size_t)(min(row0 + r0, BT - 1) / T) * A + a) * D;
     const float* wl1 = wl + ((size_t)(min(row0 + r0 + 8, BT - 1) / T) * A + a) * D;
-    float acc2[kNZ / 2];
-#pragma unroll
-    for (int i = 0; i < kNZ / 2; ++i) acc2[i] = 0.f;
-
+    float p0 = 0.f, p1r = 0.f;  // this thread's part of its two rows' logits
+    if constexpr (W) {
+      // this thread's z0 elements (its C-fragment places: rows r0, r0 + 8,
+      // columns 8j + 2t, + 1 of a chunk) in the block's scratch rows
+      float* z0r = zs + ((size_t)blockIdx.x * kFRows + r0) * Dp;
+      float* z1r = z0r + 8 * (size_t)Dp;
+      // (1) z0 = cross . Wx, a K slice of the cross tile at a time
 #pragma unroll 1
-    for (int c = 0; c < nch; ++c) {
-      __syncthreads();  // the cross tile is in; every thread is done with the previous chunk's wv
-      // wv of the chunk's columns, by cp.async (zero past D and BT)
-      for (int idx = tid; idx < kFRows * (kNC / 4); idx += kFThreads) {
-        const int r = idx / (kNC / 4), cc = 4 * (idx % (kNC / 4)), n = row0 + r, col = kNC * c + cc;
-        const bool ok = n < BT && col < D;
-        cp_async16(wvs + r * kWvLd + cc, ok ? wv + (size_t)n * D + col : wv, ok);
-      }
-      cp_commit();
-      float acc1[kNC / 2];
-#pragma unroll
-      for (int i = 0; i < kNC / 2; ++i) acc1[i] = 0.f;
-
-      // acc1 = cross . Wx[:, chunk]: p1 stages of 4 k-steps
+      for (int ks = 0; ks < nks; ++ks) {
+        __syncthreads();  // every thread has read its fragments of the slice before
+        build_cross(kFK * ks);
+        __syncthreads();
+        const int sl = min(kSliceStages, p1 - kSliceStages * ks);
 #pragma unroll 1
-      for (int s = 0; s < p1; ++s, ++q) {
-        mbar_wait(full + q % kFRing, (q / kFRing) & 1);
-        const float* sb = ring + (q % kFRing) * kStage;
+        for (int c = 0; c < nch; ++c) {
+          float acc1[kNC / 2];  // the chunk's sums over the slices before (its own, so no barrier)
 #pragma unroll
-        for (int pp = 0; pp < 2; ++pp) {  // a wgmma group of two k-steps
-          float2 x[2][2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int k0 = 8 * (4 * s + 2 * pp + h) + 2 * t;
-            x[h][0] = *reinterpret_cast<const float2*>(cross + r0 * ldx + k0);
-            x[h][1] = *reinterpret_cast<const float2*>(cross + (r0 + 8) * ldx + k0);
+          for (int j = 0; j < kNC / 8; ++j) {
+            const float2 zero2 = make_float2(0.f, 0.f);
+            const float2 x0 = ks ? *reinterpret_cast<const float2*>(z0r + kNC * c + 8 * j + 2 * t) : zero2;
+            const float2 x1 = ks ? *reinterpret_cast<const float2*>(z1r + kNC * c + 8 * j + 2 * t) : zero2;
+            acc1[4 * j] = x0.x;
+            acc1[4 * j + 1] = x0.y;
+            acc1[4 * j + 2] = x1.x;
+            acc1[4 * j + 3] = x1.y;
           }
-          wg_wait<1>();  // the group that read fragment sets 2 pp, 2 pp + 1 has completed
+#pragma unroll 1
+          for (int s = 0; s < sl; ++s, ++q) {
+            mbar_wait(full + q % kFRing, (q / kFRing) & 1);
+            const float* sb = ring + (q % kFRing) * kStage;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int f = 2 * pp + h;
-            // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
-            const float xs[4] = {x[h][0].x, x[h][1].x, x[h][0].y, x[h][1].y};
+            for (int pp = 0; pp < 2; ++pp) {  // a wgmma group of two k-steps
+              float2 x[2][2];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) split<kOnePass>(xs[i], fa[f][i], fs[f][i]);
-          }
-          wg_fence();
+              for (int h = 0; h < 2; ++h) {
+                const int k0 = 8 * (4 * s + 2 * pp + h) + 2 * t;
+                x[h][0] = *reinterpret_cast<const float2*>(cross + r0 * ldx + k0);
+                x[h][1] = *reinterpret_cast<const float2*>(cross + (r0 + 8) * ldx + k0);
+              }
+              wg_wait<1>();  // the group that read fragment sets 2 pp, 2 pp + 1 has completed
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int f = 2 * pp + h, kk = 2 * pp + h;
-            const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
-            if constexpr (!kOnePass) {
-              const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
-              wgmma_n64(acc1, fs[f], db);
-              wgmma_n64(acc1, fa[f], ds);
+              for (int h = 0; h < 2; ++h) {
+                const int f = 2 * pp + h;
+                const float xs[4] = {x[h][0].x, x[h][1].x, x[h][0].y, x[h][1].y};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) split<kOnePass>(xs[i], fa[f][i], fs[f][i]);
+              }
+              wg_fence();
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int f = 2 * pp + h, kk = 2 * pp + h;
+                const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
+                if constexpr (!kOnePass) {
+                  const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
+                  wgmma_n64(acc1, fs[f], db);
+                  wgmma_n64(acc1, fa[f], ds);
+                }
+                wgmma_n64(acc1, fa[f], db);
+              }
+              wg_commit();
             }
-            wgmma_n64(acc1, fa[f], db);
+            refill(q);
           }
-          wg_commit();
+          wg_wait<0>();
+#pragma unroll
+          for (int j = 0; j < kNC / 8; ++j) {
+            *reinterpret_cast<float2*>(z0r + kNC * c + 8 * j + 2 * t) = make_float2(acc1[4 * j], acc1[4 * j + 1]);
+            *reinterpret_cast<float2*>(z1r + kNC * c + 8 * j + 2 * t) = make_float2(acc1[4 * j + 2], acc1[4 * j + 3]);
+          }
         }
-        refill(q);  // the waits left only stage q's two groups in flight
+      }
+      // (2) z1 += relu(z0 + wv + wl) . W1[chunk, group], a group of 256 columns a pass
+#pragma unroll 1
+      for (int hg = 0; hg < nhg; ++hg) {
+        __syncthreads();  // every thread is done with the previous pass's b1 and w2
+        for (int i = tid; i < kNZ; i += kFThreads) {  // zero past Dh
+          const int n = kNZ * hg + i;
+          b1s[i] = n < Dh ? b1[n] : 0.f;
+          w2s[i] = n < Dh ? w2[n] : 0.f;
+        }
+        float acc2[kNZ / 2];
+#pragma unroll
+        for (int i = 0; i < kNZ / 2; ++i) acc2[i] = 0.f;
+#pragma unroll 1
+        for (int c = 0; c < nch; ++c) {
+          __syncthreads();  // every thread is done with the previous chunk's wv
+          for (int idx = tid; idx < kFRows * (kNC / 4); idx += kFThreads) {
+            const int r = idx / (kNC / 4), cc = 4 * (idx % (kNC / 4)), n = row0 + r, col = kNC * c + cc;
+            const bool ok = n < BT && col < D;
+            cp_async16(wvs + r * kWvLd + cc, ok ? wv + (size_t)n * D + col : wv, ok);
+          }
+          cp_commit();
+          float acc1[kNC / 2];  // z0 of the chunk, as (1) left it
+#pragma unroll
+          for (int j = 0; j < kNC / 8; ++j) {
+            const float2 x0 = *reinterpret_cast<const float2*>(z0r + kNC * c + 8 * j + 2 * t);
+            const float2 x1 = *reinterpret_cast<const float2*>(z1r + kNC * c + 8 * j + 2 * t);
+            acc1[4 * j] = x0.x;
+            acc1[4 * j + 1] = x0.y;
+            acc1[4 * j + 2] = x1.x;
+            acc1[4 * j + 3] = x1.y;
+          }
+          cp_wait_all();
+          __syncthreads();  // every thread's wv copies are in
+#pragma unroll
+          for (int j = 0; j < kNC / 8; ++j, ++q) {
+            const float2 v0 = *reinterpret_cast<const float2*>(wvs + r0 * kWvLd + 8 * j + 2 * t);
+            const float2 v1 = *reinterpret_cast<const float2*>(wvs + (r0 + 8) * kWvLd + 8 * j + 2 * t);
+            const int col = kNC * c + 8 * j + 2 * t;  // D is even: both columns or neither lie below D
+            const float2 zero2 = make_float2(0.f, 0.f);
+            const float2 l0 = col < D ? __ldg(reinterpret_cast<const float2*>(wl0 + col)) : zero2;
+            const float2 l1 = col < D ? __ldg(reinterpret_cast<const float2*>(wl1 + col)) : zero2;
+            const float hs[4] = {fmaxf(acc1[4 * j] + v0.x + l0.x, 0.f), fmaxf(acc1[4 * j + 2] + v1.x + l1.x, 0.f),
+                                 fmaxf(acc1[4 * j + 1] + v0.y + l0.y, 0.f),
+                                 fmaxf(acc1[4 * j + 3] + v1.y + l1.y, 0.f)};
+            const int f = 2 + (j & 1);  // stage q - 2, the last to read set f, has completed
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split<kOnePass>(hs[i], fa[f][i], fs[f][i]);
+            mbar_wait(full + q % kFRing, (q / kFRing) & 1);
+            wg_fence();
+            const float* sb = ring + (q % kFRing) * kStage;
+            const uint64_t db = kmajor_desc(sb, kStep2 / 2 * 4, 128);
+            if constexpr (!kOnePass) {
+              const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
+              wgmma_n256(acc2, fs[f], db);
+              wgmma_n256(acc2, fa[f], ds);
+            }
+            wgmma_n256(acc2, fa[f], db);
+            wg_commit();
+            wg_wait<1>();  // stage q - 1 has completed
+            refill(q);
+          }
+        }
+        wg_wait<0>();
+        // the group's part of the logit: w2 . relu(acc2 + b1) over its columns
+#pragma unroll
+        for (int j = 0; j < kNZ / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = 8 * j + 2 * t + e;
+            p0 += fmaxf(acc2[4 * j + e] + b1s[n], 0.f) * w2s[n];
+            p1r += fmaxf(acc2[4 * j + 2 + e] + b1s[n], 0.f) * w2s[n];
+          }
+      }
+    } else {
+      float acc2[kNZ / 2];
+#pragma unroll
+      for (int i = 0; i < kNZ / 2; ++i) acc2[i] = 0.f;
+
+#pragma unroll 1
+      for (int c = 0; c < nch; ++c) {
+        __syncthreads();  // the cross tile is in; every thread is done with the previous chunk's wv
+        // wv of the chunk's columns, by cp.async (zero past D and BT)
+        for (int idx = tid; idx < kFRows * (kNC / 4); idx += kFThreads) {
+          const int r = idx / (kNC / 4), cc = 4 * (idx % (kNC / 4)), n = row0 + r, col = kNC * c + cc;
+          const bool ok = n < BT && col < D;
+          cp_async16(wvs + r * kWvLd + cc, ok ? wv + (size_t)n * D + col : wv, ok);
+        }
+        cp_commit();
+        float acc1[kNC / 2];
+#pragma unroll
+        for (int i = 0; i < kNC / 2; ++i) acc1[i] = 0.f;
+
+        // acc1 = cross . Wx[:, chunk]: p1 stages of 4 k-steps
+#pragma unroll 1
+        for (int s = 0; s < p1; ++s, ++q) {
+          mbar_wait(full + q % kFRing, (q / kFRing) & 1);
+          const float* sb = ring + (q % kFRing) * kStage;
+#pragma unroll
+          for (int pp = 0; pp < 2; ++pp) {  // a wgmma group of two k-steps
+            float2 x[2][2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k0 = 8 * (4 * s + 2 * pp + h) + 2 * t;
+              x[h][0] = *reinterpret_cast<const float2*>(cross + r0 * ldx + k0);
+              x[h][1] = *reinterpret_cast<const float2*>(cross + (r0 + 8) * ldx + k0);
+            }
+            wg_wait<1>();  // the group that read fragment sets 2 pp, 2 pp + 1 has completed
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int f = 2 * pp + h;
+              // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+              const float xs[4] = {x[h][0].x, x[h][1].x, x[h][0].y, x[h][1].y};
+#pragma unroll
+              for (int i = 0; i < 4; ++i) split<kOnePass>(xs[i], fa[f][i], fs[f][i]);
+            }
+            wg_fence();
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int f = 2 * pp + h, kk = 2 * pp + h;
+              const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
+              if constexpr (!kOnePass) {
+                const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
+                wgmma_n64(acc1, fs[f], db);
+                wgmma_n64(acc1, fa[f], ds);
+              }
+              wgmma_n64(acc1, fa[f], db);
+            }
+            wg_commit();
+          }
+          refill(q);  // the waits left only stage q's two groups in flight
+        }
+        wg_wait<0>();
+        cp_wait_all();
+        __syncthreads();  // acc1 is final; every thread's wv copies are in
+
+        // acc2 += relu(acc1 + wv + wl) . W1[chunk, :]: 8 stages of one k-step
+#pragma unroll
+        for (int j = 0; j < kNC / 8; ++j, ++q) {
+          const float2 v0 = *reinterpret_cast<const float2*>(wvs + r0 * kWvLd + 8 * j + 2 * t);
+          const float2 v1 = *reinterpret_cast<const float2*>(wvs + (r0 + 8) * kWvLd + 8 * j + 2 * t);
+          const int col = kNC * c + 8 * j + 2 * t;  // D is even: both columns or neither lie below D
+          const float2 zero2 = make_float2(0.f, 0.f);
+          const float2 l0 = col < D ? __ldg(reinterpret_cast<const float2*>(wl0 + col)) : zero2;
+          const float2 l1 = col < D ? __ldg(reinterpret_cast<const float2*>(wl1 + col)) : zero2;
+          // C fragment (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) -> A slots (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+          const float hs[4] = {fmaxf(acc1[4 * j] + v0.x + l0.x, 0.f), fmaxf(acc1[4 * j + 2] + v1.x + l1.x, 0.f),
+                               fmaxf(acc1[4 * j + 1] + v0.y + l0.y, 0.f),
+                               fmaxf(acc1[4 * j + 3] + v1.y + l1.y, 0.f)};
+          const int f = 2 + (j & 1);  // stage q - 2, the last to read set f, has completed
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split<kOnePass>(hs[i], fa[f][i], fs[f][i]);
+          mbar_wait(full + q % kFRing, (q / kFRing) & 1);
+          wg_fence();
+          const float* sb = ring + (q % kFRing) * kStage;
+          const uint64_t db = kmajor_desc(sb, kStep2 / 2 * 4, 128);
+          if constexpr (!kOnePass) {
+            const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
+            wgmma_n256(acc2, fs[f], db);
+            wgmma_n256(acc2, fa[f], ds);
+          }
+          wgmma_n256(acc2, fa[f], db);
+          wg_commit();
+          wg_wait<1>();  // stage q - 1 has completed
+          refill(q);
+        }
       }
       wg_wait<0>();
-      cp_wait_all();
-      __syncthreads();  // acc1 is final; every thread's wv copies are in
 
-      // acc2 += relu(acc1 + wv + wl) . W1[chunk, :]: 8 stages of one k-step
+      // logit = w2 . relu(acc2 + b1) + b2: this thread's columns, then the 4 lanes of a row
 #pragma unroll
-      for (int j = 0; j < kNC / 8; ++j, ++q) {
-        const float2 v0 = *reinterpret_cast<const float2*>(wvs + r0 * kWvLd + 8 * j + 2 * t);
-        const float2 v1 = *reinterpret_cast<const float2*>(wvs + (r0 + 8) * kWvLd + 8 * j + 2 * t);
-        const int col = kNC * c + 8 * j + 2 * t;  // D is even: both columns or neither lie below D
-        const float2 zero2 = make_float2(0.f, 0.f);
-        const float2 l0 = col < D ? __ldg(reinterpret_cast<const float2*>(wl0 + col)) : zero2;
-        const float2 l1 = col < D ? __ldg(reinterpret_cast<const float2*>(wl1 + col)) : zero2;
-        // C fragment (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1) -> A slots (g, t), (g+8, t), (g, t+4), (g+8, t+4)
-        const float hs[4] = {fmaxf(acc1[4 * j] + v0.x + l0.x, 0.f), fmaxf(acc1[4 * j + 2] + v1.x + l1.x, 0.f),
-                             fmaxf(acc1[4 * j + 1] + v0.y + l0.y, 0.f),
-                             fmaxf(acc1[4 * j + 3] + v1.y + l1.y, 0.f)};
-        const int f = 2 + (j & 1);  // stage q - 2, the last to read set f, has completed
+      for (int j = 0; j < kNZ / 8; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split<kOnePass>(hs[i], fa[f][i], fs[f][i]);
-        mbar_wait(full + q % kFRing, (q / kFRing) & 1);
-        wg_fence();
-        const float* sb = ring + (q % kFRing) * kStage;
-        const uint64_t db = kmajor_desc(sb, kStep2 / 2 * 4, 128);
-        if constexpr (!kOnePass) {
-          const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
-          wgmma_n256(acc2, fs[f], db);
-          wgmma_n256(acc2, fa[f], ds);
+        for (int e = 0; e < 2; ++e) {
+          const int n = 8 * j + 2 * t + e;
+          p0 += fmaxf(acc2[4 * j + e] + b1s[n], 0.f) * w2s[n];
+          p1r += fmaxf(acc2[4 * j + 2 + e] + b1s[n], 0.f) * w2s[n];
         }
-        wgmma_n256(acc2, fa[f], db);
-        wg_commit();
-        wg_wait<1>();  // stage q - 1 has completed
-        refill(q);
-      }
     }
-    wg_wait<0>();
-
-    // logit = w2 . relu(acc2 + b1) + b2: this thread's columns, then the 4 lanes of a row
-    float p0 = 0.f, p1r = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNZ / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = 8 * j + 2 * t + e;
-        p0 += fmaxf(acc2[4 * j + e] + b1s[n], 0.f) * w2s[n];
-        p1r += fmaxf(acc2[4 * j + 2 + e] + b1s[n], 0.f) * w2s[n];
-      }
     p0 = quad_sum(p0);
     p1r = quad_sum(p1r);
     if (t == 0) {
@@ -503,8 +706,10 @@ head_fwd(const float* __restrict__ vis, const float* __restrict__ arg,
   }
 }
 
-size_t fwd_smem(int Dp) {
-  return sizeof(float) * ((size_t)kFRing * kStage + (size_t)kFRows * (Dp + 8) + kFRows * kWvLd +
+
+// shared memory of head_fwd with a cross tile of kw columns (D_pad, or kFK on the wide path)
+size_t fwd_smem(int kw) {
+  return sizeof(float) * ((size_t)kFRing * kStage + (size_t)kFRows * (kw + 8) + kFRows * kWvLd +
                           2 * kNZ) +
          sizeof(uint64_t) * kFRing;
 }
@@ -523,19 +728,26 @@ cudaError_t sm_count(int device, int& sms) {
   return e;
 }
 
+// zs: the wide path's scratch, zs_blocks x 64 x D_pad floats (the grid
+// takes at most zs_blocks blocks there)
 int launch_fwd(const float* vis, const float* arg, const float* wv, const float* wl,
                const float* wstream, const float* b1, const float* w2, const float* b2,
-               float* out, int B, int A, int T, int D, int Dh, int device, cudaStream_t stream) {
+               float* out, float* zs, int zs_blocks, int B, int A, int T, int D, int Dh, int device,
+               cudaStream_t stream) {
   int sms = 0;
   cudaError_t e = sm_count(device, sms);
   if (e != cudaSuccess) return (int)e;
   const int Dp = (D + kNC - 1) / kNC * kNC;
-  const size_t smem = fwd_smem(Dp);
-  e = cudaFuncSetAttribute(head_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool wide = Dp > kMaxD || Dh > kMaxHid;
+  if (wide && (zs == nullptr || zs_blocks < 1)) return (int)cudaErrorInvalidValue;
+  if (wide && zs_blocks < sms) sms = zs_blocks;
+  const size_t smem = fwd_smem(wide ? kFK : Dp);
+  auto fwd = wide ? head_fwd<true> : head_fwd<false>;
+  e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int items = (B * T + kFRows - 1) / kFRows * A;
-  head_fwd<<<items < sms ? items : sms, kFThreads, smem, stream>>>(vis, arg, wv, wl, wstream, b1,
-                                                                   w2, b2, out, B, A, T, D, Dp, Dh);
+  fwd<<<items < sms ? items : sms, kFThreads, smem, stream>>>(vis, arg, wv, wl, wstream, b1, w2, b2,
+                                                              out, zs, B, A, T, D, Dp, Dh);
   return (int)cudaGetLastError();
 }
 
@@ -619,9 +831,10 @@ __device__ inline float sum_rows8(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
+// The row kernel's narrow path (D <= 512, Dh <= 256): the (A*16, D) tile
+// holds cross, h, dz1 and dz0 in turn, each warp 32 z0 and 16 z1 columns.
 template <int A>
-__global__ void __launch_bounds__(kThreads, 1)
-head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
+__device__ __forceinline__ void bwd_rows_narrow(const float* __restrict__ vis, const float* __restrict__ arg,
               const float* __restrict__ wv, const float* __restrict__ wl,
               const float* __restrict__ wx, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
@@ -817,6 +1030,237 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
   }
 }
 
+// The row kernel's wide path (D > 512 or Dh > 256): the four products as
+// the narrow path's, each warp walking column groups (32 z0 columns, 16 z1
+// columns a warp, 512 and 256 a group of the block), over K slices of kBK
+// columns of their operand rows.  The operands (cross, h, dz1, dz0) are
+// rows this kernel writes to device memory anyway, for the weight kernel:
+// each slice is staged from there into the (A*16, kBK + 4) tile, the
+// size of the narrow path's at D 512, so the tile and A = 5 fit at any D.
+// The ReLU decisions of z0 come back from h (h > 0 iff z0 > 0).  Every
+// global row this kernel reads back it wrote before a __syncthreads.
+constexpr int kBK = kMaxD;
+
+template <int A>
+__device__ __forceinline__ void bwd_rows_wide(const float* __restrict__ vis, const float* __restrict__ arg,
+              const float* __restrict__ wv, const float* __restrict__ wl,
+              const float* __restrict__ wx, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ gin, float* __restrict__ cross_out,
+              float* __restrict__ h_out,
+              float* __restrict__ dz0_out, float* __restrict__ dz1_out,
+              float* __restrict__ dvis, float* __restrict__ dwv,
+              float* __restrict__ darg_part, float* __restrict__ dwl_part,
+              float* __restrict__ db1_part, float* __restrict__ dw2_part, int T,
+              int D, int Dh, int b_first) {
+  constexpr int M = A * kBT;
+  constexpr int ld = kBK + 4;
+  const int b = b_first + blockIdx.y;
+  const int t0 = blockIdx.x * kBT;
+  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+
+  extern __shared__ float xs[];  // M x ld: a K slice of cross, h, dz1 or dz0
+  float* ring = xs + M * ld + (threadIdx.x >> 5) * kRing * kWarpSlab;  // this warp's weight ring
+
+  for (int idx = tid; idx < M * D; idx += kThreads) {  // the cross rows, the first product's operand
+    const int r = idx / D, kk = idx - r * D;
+    const int a = r / kBT, t = t0 + r % kBT;
+    if (t < T) cross_out[(((size_t)b * A + a) * T + t) * D + kk] =
+        vis[((size_t)b * T + t) * D + kk] * arg[((size_t)b * A + a) * D + kk];
+  }
+  // columns [k0, k0 + kBK) of this block's rows of src (B, A, T, n), zero past T and n
+  auto stage = [&](const float* src, int n, int k0) {
+    __syncthreads();  // every warp is done with the tile; src's rows are written
+    for (int idx = tid; idx < M * (kBK / 4); idx += kThreads) {
+      const int r = idx / (kBK / 4), c = 4 * (idx % (kBK / 4));
+      const int a = r / kBT, t = t0 + r % kBT;
+      const bool ok = t < T && k0 + c < n;
+      cp_async16(xs + r * ld + c, ok ? src + (((size_t)b * A + a) * T + t) * n + k0 + c : src, ok);
+    }
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();
+  };
+  auto zero_acc = [&](auto& acc) {
+#pragma unroll
+    for (int m = 0; m < A; ++m)
+#pragma unroll
+      for (int j = 0; j < (int)(sizeof(acc[0]) / sizeof(acc[0][0])); ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
+  };
+  float acc[A][4][4];
+
+  // ---- z0 = cross . Wx (+ stems), h = relu(z0) --------------------------
+#pragma unroll 1
+  for (int nb = 0; nb < D; nb += kWarps * kN1) {
+    const int nw = nb + warp * kN1;
+    zero_acc(acc);
+#pragma unroll 1
+    for (int k0 = 0; k0 < D; k0 += kBK) {
+      stage(cross_out, D, k0);
+      if (nw < D) gemm_rows<A, 4, false>(acc, xs, ld, wx + (size_t)k0 * D, D, nw, min(kBK, D - k0), ring, lane);
+    }
+    if (nw >= D) continue;
+#pragma unroll
+    for (int m = 0; m < A; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = nw + 8 * j + 2 * tq + (i & 1);
+          const int t = t0 + g + (i >= 2 ? 8 : 0);
+          if (t < T)
+            h_out[(((size_t)b * A + m) * T + t) * D + n] =
+                fmaxf(acc[m][j][i] + wv[((size_t)b * T + t) * D + n] + wl[((size_t)b * A + m) * D + n], 0.f);
+        }
+  }
+
+  // ---- z1 = h . W1 + b1; dz1 = [z1 > 0] g w2 ------------------------------
+#pragma unroll 1
+  for (int nb = 0; nb < Dh; nb += kWarps * kN2) {
+    const int n2 = nb + warp * kN2;
+    float acc2[A][2][4];
+    zero_acc(acc2);
+#pragma unroll 1
+    for (int k0 = 0; k0 < D; k0 += kBK) {
+      stage(h_out, D, k0);
+      if (n2 < Dh) gemm_rows<A, 2, false>(acc2, xs, ld, w1 + (size_t)k0 * Dh, Dh, n2, min(kBK, D - k0), ring, lane);
+    }
+    if (n2 >= Dh) continue;
+    float pw2[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, pb1[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int m = 0; m < A; ++m)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = n2 + 8 * j + 2 * tq + (i & 1);
+          const int t = t0 + g + (i >= 2 ? 8 : 0);
+          const float gr = t < T ? gin[((size_t)b * A + m) * T + t] : 0.f;
+          const float z1 = acc2[m][j][i] + b1[n];
+          const float d = z1 > 0.f ? gr * w2[n] : 0.f;
+          pw2[j][i & 1] += fmaxf(z1, 0.f) * gr;
+          pb1[j][i & 1] += d;
+          if (t < T) dz1_out[(((size_t)b * A + m) * T + t) * Dh + n] = d;
+        }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float sw = sum_rows8(pw2[j][e]), sb = sum_rows8(pb1[j][e]);
+        if (g == 0) {
+          const int n = n2 + 8 * j + 2 * tq + e;
+          dw2_part[blk * Dh + n] = sw;
+          db1_part[blk * Dh + n] = sb;
+        }
+      }
+  }
+
+  // ---- dh = dz1 . W1^T; dz0 = [h > 0] dh ----------------------------------
+#pragma unroll 1
+  for (int nb = 0; nb < D; nb += kWarps * kN1) {
+    const int nw = nb + warp * kN1;
+    zero_acc(acc);
+#pragma unroll 1
+    for (int k0 = 0; k0 < Dh; k0 += kBK) {
+      stage(dz1_out, Dh, k0);
+      if (nw < D) gemm_rows<A, 4, true>(acc, xs, ld, w1 + k0, Dh, nw, min(kBK, Dh - k0), ring, lane);
+    }
+    if (nw >= D) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = nw + 8 * j + 2 * tq + (i & 1);
+        const int t = t0 + g + (i >= 2 ? 8 : 0);
+        float sv = 0.f;
+#pragma unroll
+        for (int m = 0; m < A; ++m) {
+          const size_t at = (((size_t)b * A + m) * T + t) * D + n;
+          const float d = t < T && h_out[at] > 0.f ? acc[m][j][i] : 0.f;
+          acc[m][j][i] = d;
+          sv += d;
+          if (t < T) dz0_out[at] = d;
+        }
+        if (t < T) dwv[((size_t)b * T + t) * D + n] = sv;
+      }
+#pragma unroll
+    for (int m = 0; m < A; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sw = sum_rows8(acc[m][j][e] + acc[m][j][e + 2]);
+          if (g == 0) dwl_part[(blk * A + m) * D + nw + 8 * j + 2 * tq + e] = sw;
+        }
+  }
+
+  // ---- dcross = dz0 . Wx^T; dvis = sum_a dcross arg_a, darg = sum_t dcross vis
+#pragma unroll 1
+  for (int nb = 0; nb < D; nb += kWarps * kN1) {
+    const int nw = nb + warp * kN1;
+    zero_acc(acc);
+#pragma unroll 1
+    for (int k0 = 0; k0 < D; k0 += kBK) {
+      stage(dz0_out, D, k0);
+      if (nw < D) gemm_rows<A, 4, true>(acc, xs, ld, wx + k0, D, nw, min(kBK, D - k0), ring, lane);
+    }
+    if (nw >= D) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nw + 8 * j + 2 * tq + e;
+        float da[A];
+#pragma unroll
+        for (int m = 0; m < A; ++m) da[m] = 0.f;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = e + 2 * hh;
+          const int t = t0 + g + 8 * hh;
+          if (t >= T) continue;
+          const float vtn = vis[((size_t)b * T + t) * D + n];
+          float sv = 0.f;
+#pragma unroll
+          for (int m = 0; m < A; ++m) {
+            sv = fmaf(acc[m][j][i], arg[((size_t)b * A + m) * D + n], sv);
+            da[m] = fmaf(acc[m][j][i], vtn, da[m]);
+          }
+          dvis[((size_t)b * T + t) * D + n] = sv;
+        }
+#pragma unroll
+        for (int m = 0; m < A; ++m) {
+          const float sa = sum_rows8(da[m]);
+          if (g == 0) darg_part[(blk * A + m) * D + n] = sa;
+        }
+      }
+  }
+}
+
+template <int A, bool W>
+__global__ void __launch_bounds__(kThreads, 1)
+head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
+              const float* __restrict__ wv, const float* __restrict__ wl,
+              const float* __restrict__ wx, const float* __restrict__ w1,
+              const float* __restrict__ b1, const float* __restrict__ w2,
+              const float* __restrict__ gin, float* __restrict__ cross_out,
+              float* __restrict__ h_out,
+              float* __restrict__ dz0_out, float* __restrict__ dz1_out,
+              float* __restrict__ dvis, float* __restrict__ dwv,
+              float* __restrict__ darg_part, float* __restrict__ dwl_part,
+              float* __restrict__ db1_part, float* __restrict__ dw2_part, int T,
+              int D, int Dh, int b_first) {
+  if constexpr (W)
+    bwd_rows_wide<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross_out, h_out, dz0_out, dz1_out, dvis, dwv,
+                     darg_part, dwl_part, db1_part, dw2_part, T, D, Dh, b_first);
+  else
+    bwd_rows_narrow<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross_out, h_out, dz0_out, dz1_out, dvis, dwv,
+                       darg_part, dwl_part, db1_part, dw2_part, T, D, Dh, b_first);
+}
+
 // C[z] = sum over the rows R of chunk z of X[R]^T Y[R], for both weights
 // in one launch: X the cross rows (dWx, Y = dz0) or h (dW1, Y = dz1), both
 // (R, D), rows R = (b, a, t).  A block owns a 128 x 64 output tile of one
@@ -960,9 +1404,16 @@ cudaError_t side_stream(int device, SideStream*& out) {
   return cudaSuccess;
 }
 
+// shared memory of the row kernel: its tile of A * 16 rows (of D + 4
+// floats, or of a wide path's K slice) and the warps' weight rings
+template <int A, bool W>
+size_t rows_smem(int D) {
+  return sizeof(float) * ((size_t)A * kBT * ((W ? kBK : D) + 4) + kWarps * kRing * kWarpSlab);
+}
+
 // The row kernel's blocks of batch rows [b0, b1), then on the same stream
 // the weight kernel over their rows in chunks [c0, c1).
-template <int A>
+template <int A, bool W>
 cudaError_t launch_part(const float* vis, const float* arg, const float* wv, const float* wl,
                         const float* wx, const float* w1, const float* b1, const float* w2,
                         const float* gin, float* cross, float* h, float* dz0, float* dz1,
@@ -970,8 +1421,7 @@ cudaError_t launch_part(const float* vis, const float* arg, const float* wv, con
                         float* db1_part, float* dw2_part, float* dwx_part, float* dw1_part,
                         int T, int D, int Dh, int bb0, int bb1, int c0, int c1,
                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)A * kBT * (D + 4) + kWarps * kRing * kWarpSlab);
-  head_bwd_rows<A><<<dim3((T + kBT - 1) / kBT, bb1 - bb0), kThreads, smem, stream>>>(
+  head_bwd_rows<A, W><<<dim3((T + kBT - 1) / kBT, bb1 - bb0), kThreads, rows_smem<A, W>(D), stream>>>(
       vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv, darg_part,
       dwl_part, db1_part, dw2_part, T, D, Dh, bb0);
   cudaError_t e = cudaGetLastError();
@@ -992,16 +1442,15 @@ cudaError_t launch_part(const float* vis, const float* arg, const float* wv, con
 // first chunks fill the SMs that the row kernel's second wave leaves
 // idle.  The caller's stream waits for the second at the end.  The
 // partials go to fixed chunks: the gradients do not depend on the overlap.
-template <int A>
+template <int A, bool W>
 int launch_bwd(const float* vis, const float* arg, const float* wv, const float* wl,
                const float* wx, const float* w1, const float* b1, const float* w2,
                const float* gin, float* cross, float* h, float* dz0, float* dz1, float* dvis,
                float* dwv, float* darg_part, float* dwl_part, float* db1_part,
                float* dw2_part, float* dwx_part, float* dw1_part, int B, int T,
                int D, int Dh, int chunks, int device, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)A * kBT * (D + 4) + kWarps * kRing * kWarpSlab);
   cudaError_t e = cudaFuncSetAttribute(
-      head_bwd_rows<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      head_bwd_rows<A, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem<A, W>(D));
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(head_bwd_w, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)(sizeof(float) * kWStages * kWStage));
@@ -1011,19 +1460,19 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
   const int nb1 = side->sms / ((T + kBT - 1) / kBT);
   const int c1 = (int)((long long)chunks * nb1 / B);
   if (nb1 < 1 || nb1 >= B || c1 < 1 || c1 >= chunks)  // no second wave, or too few chunks
-    return (int)launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis,
+    return (int)launch_part<A, W>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis,
                                dwv, darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part,
                                T, D, Dh, 0, B, 0, chunks, stream);
   e = cudaEventRecord(side->in, stream);  // the inputs are ready on the caller's stream
   if (e == cudaSuccess) e = cudaStreamWaitEvent(side->s, side->in, 0);
   if (e == cudaSuccess)
-    e = launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
-                       darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
-                       0, nb1, 0, c1, stream);
+    e = launch_part<A, W>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
+                          darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
+                          0, nb1, 0, c1, stream);
   if (e == cudaSuccess)
-    e = launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
-                       darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
-                       nb1, B, c1, chunks, side->s);
+    e = launch_part<A, W>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
+                          darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
+                          nb1, B, c1, chunks, side->s);
   if (e == cudaSuccess) e = cudaEventRecord(side->out, side->s);
   if (e == cudaSuccess) e = cudaStreamWaitEvent(stream, side->out, 0);
   return (int)e;
@@ -1031,6 +1480,7 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
 
 }  // namespace
 
+// D % 32 == 0, Dh % 16 == 0 (the wrapper zero-pads other widths).
 // cross, h, dz0: (B, A, T, D) and dz1 (B, A, T, Dh) scratch between the
 // two kernels; chunks: the row split of the weight-gradient kernel
 // (dwx_part holds chunks x D x D, dw1_part chunks x D x Dh); darg/dwl partials hold
@@ -1044,16 +1494,20 @@ extern "C" int vog_head_bwd(int device, const float* vis, const float* arg, cons
                             float* dw1_part, int B, int A, int T, int D, int Dh,
                             int chunks, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0 ||
-      chunks < 1 || !aligned16(wx) || !aligned16(w1))  // the weights stream by 16-byte cp.async
+  if (D < 32 || D % 32 != 0 || Dh < 16 || Dh % 16 != 0 || chunks < 1 || !aligned16(wx) ||
+      !aligned16(w1))  // the weights stream by 16-byte cp.async
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOG_HEAD_BWD_CASE(n)                                                        \
-  case n:                                                                           \
-    return launch_bwd<n>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, \
-                         dwv, darg_part, dwl_part, db1_part, dw2_part, dwx_part,   \
-                         dw1_part, B, T, D, Dh, chunks, device, s);
+  const bool wide = D > kMaxD || Dh > kMaxHid;
+#define VOG_HEAD_BWD_CASE(n)                                                                   \
+  case n:                                                                                      \
+    return wide ? launch_bwd<n, true>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1,  \
+                                      dvis, dwv, darg_part, dwl_part, db1_part, dw2_part,      \
+                                      dwx_part, dw1_part, B, T, D, Dh, chunks, device, s)      \
+                : launch_bwd<n, false>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, \
+                                       dvis, dwv, darg_part, dwl_part, db1_part, dw2_part,     \
+                                       dwx_part, dw1_part, B, T, D, Dh, chunks, device, s);
   switch (A) {
     VOG_HEAD_BWD_CASE(1)
     VOG_HEAD_BWD_CASE(2)
@@ -1067,30 +1521,32 @@ extern "C" int vog_head_bwd(int device, const float* vis, const float* arg, cons
 }
 
 // The forward's weight stream (head_fwd_prep): wstream holds kParts (2, or
-// 1 in the one-pass library) x D_pad / 64 x (D_pad * 64 + 8 * 2048)
-// floats, D_pad = ceil(D / 64) 64.
+// 1 in the one-pass library) x D_pad / 64 x (D_pad * 64 + 8 * ceil(Dh /
+// 256) * 2048) floats, D_pad = ceil(D / 64) 64.  D % 32 == 0 and Dh % 16
+// == 0 (the wrapper zero-pads other widths).
 extern "C" int vog_head_fwd_prep(int device, const float* wx, const float* w1, float* wstream, int D, int Dh,
                                  void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (D < 32 || D % 32 != 0 || Dh < 16 || Dh % 16 != 0) return (int)cudaErrorInvalidValue;
   const int Dp = (D + kNC - 1) / kNC * kNC;
-  const int total = kParts * (Dp / kNC) * chunk_floats(Dp);
+  const int total = kParts * (Dp / kNC) * chunk_floats(Dp, hidden_groups(Dh));
   head_fwd_prep<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(wx, w1, wstream,
                                                                                     D, Dp, Dh);
   return (int)cudaGetLastError();
 }
 
-// logits from the stream that vog_head_fwd_prep wrote; any A
+// logits from the stream that vog_head_fwd_prep wrote; any A, D % 32 == 0,
+// Dh % 16 == 0; past D 512 or Dh 256 (the wide path) zs holds zs_blocks x
+// 64 x D_pad floats of scratch (else it may be null)
 extern "C" int vog_head_fwd(int device, const float* vis, const float* arg, const float* wv,
                             const float* wl, const float* wstream, const float* b1,
-                            const float* w2, const float* b2, float* out, int B, int A,
-                            int T, int D, int Dh, void* stream) {
+                            const float* w2, const float* b2, float* out, float* zs,
+                            int zs_blocks, int B, int A, int T, int D, int Dh, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (D < 32 || D > kMaxD || D % 32 != 0 || Dh < 16 || Dh > kMaxHid || Dh % 16 != 0 || A < 1 ||
-      !aligned16(vis) || !aligned16(arg) || !aligned16(wv) || !aligned16(wl) || !aligned16(wstream))
+  if (D < 32 || D % 32 != 0 || Dh < 16 || Dh % 16 != 0 || A < 1 || !aligned16(vis) || !aligned16(arg) ||
+      !aligned16(wv) || !aligned16(wl) || !aligned16(wstream))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  return launch_fwd(vis, arg, wv, wl, wstream, b1, w2, b2, out, B, A, T, D, Dh, device,
+  return launch_fwd(vis, arg, wv, wl, wstream, b1, w2, b2, out, zs, zs_blocks, B, A, T, D, Dh, device,
                     static_cast<cudaStream_t>(stream));
 }

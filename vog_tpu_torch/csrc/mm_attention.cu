@@ -120,7 +120,11 @@
 //
 // Head dims, frames and args.  The file builds once for each head-dim
 // instance, DK 128 (dh <= 128, zero padded) and DK 256 (-DVOG_MM_DK=256),
-// each its own library.  At DK 256 every kernel's output columns are split
+// each its own library; the DK 128 library also holds the wide path for
+// dh > 256 (template flag W, tiles.cuh: ceil(dh / 128) column slices on
+// grid.z, the score products' operands read from device memory, only the
+// block's slice of V, of the Q and g_a tiles, or of K staged, the frame
+// table in device memory), so no third library builds.  At DK 256 every kernel's output columns are split
 // over two blocks of a tile (grid.z; tiles.cuh §HeadDim), each computing
 // the tile's scores, so the accumulators stay at DK 128's registers, and
 // mm_bwd_dq's block halves its rows and key tile to fit shared memory.  The
@@ -130,7 +134,8 @@
 // other case); past 64 frames mm_bwd_dq
 // gives a tile of rows ceil(F / 64) blocks, each summing 64 key frames in
 // the fixed order.  A is a template parameter, 1..8; the wrapper launches
-// more args in groups of at most 8 (kernels/mm_attention.py §arg_groups).
+// more args in groups of at most 8 (4 on the wide path;
+// kernels/mm_attention.py §arg_groups, §kernel_args).
 //
 // Precision: this file builds twice (kernels/_build.py), as attention.cu:
 // 3xTF32 ("highest") as it is, one TF32 pass ("default") with
@@ -166,6 +171,11 @@ constexpr int kNV = HD::kNV;
 // at DK 128 (two blocks an SM for mm_fwd and mm_bwd_dkv), 212-221 KB at DK
 // 256 (one block an SM)
 constexpr int kMinBlocks = kDK > 128 ? 1 : 2;
+// The DK 128 library also holds the wide path (tiles.cuh: dh > 256, the
+// kernels' W instances, the frame table read from device memory at any F),
+// at A <= kWideArgs a launch: half the A cases, for the library's build time
+constexpr bool kWideLib = kDK == 128;
+constexpr int kWideArgs = 4;
 
 // ---------------------------------------------------------------------------
 // forward
@@ -192,7 +202,8 @@ constexpr int kSLd = kFwdTile + 8;              // S tile row stride (conflict-f
 // conflict-free
 constexpr int kPLd = 2 * kFwdTile + 16;
 
-template <int A, int TM>
+// W: the wide path (tiles.cuh): S from device memory, V's column slice z staged
+template <int A, int TM, bool W = false>
 __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
 mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
        const float* __restrict__ vm, const float* __restrict__ cn,
@@ -222,9 +233,14 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
   const float* kb = km + base;
   const float* vb = vm + base;
   const float* cb = cn + (size_t)bh * A * T;
+  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
   auto stage = [&](int s, int j0) {
-    load_rows<kFwdTile, kFwdThreads, kDK>(Ks + s * kFwdTile * kLd, kb, j0, T, dh, vec);
-    load_rows<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, vec);
+    if constexpr (W) {
+      load_slice<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, z * HD::kDV, vec);
+    } else {
+      load_rows<kFwdTile, kFwdThreads, kDK>(Ks + s * kFwdTile * kLd, kb, j0, T, dh, vec);
+      load_rows<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, vec);
+    }
     for (int i = tid; i < A * kFwdTile; i += kFwdThreads) {  // cn, zero past T
       const int a = i / kFwdTile, j = j0 + i % kFwdTile;
       cp_async4(Cs + s * A * kFwdTile + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
@@ -233,7 +249,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     cp_commit();
   };
   stage_table<TM, kFwdThreads>(fbs, fbg, F);
-  load_rows<kFwdRows, kFwdThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
+  if constexpr (!W) load_rows<kFwdRows, kFwdThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first tile
 
   // S phase: rows g, g + 8 of the block, keys 8w..8w+7 of a tile
@@ -243,7 +259,6 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
   const int sr = kSoftRows * warp + (lane >> 3), sk = 4 * (lane & 7);
   float m[A], l[A];
   // P.V phase: rows g, g + 8, columns c0..c0+31 (of the block's slice z), every arg
-  const int z = HD::kSlices > 1 ? blockIdx.z : 0;
   const int c0 = z * HD::kDV + kFwdCols * warp;
   float acc[A][kFwdNT][4];
 #pragma unroll
@@ -268,13 +283,20 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
       float cs[kSets][4];
 #pragma unroll
       for (int q = 0; q < kSets; ++q) cs[q][0] = cs[q][1] = cs[q][2] = cs[q][3] = 0.f;
-      const float* Kw = Kt + 8 * warp * kLd;
+      if constexpr (W) {  // into set 0, the others stay 0
+        float cw[1][4];
+        scores_g<1, false>(cw, cw, qm + base, kb, qm + base, kb, q0, it * kFwdTile + 8 * warp, T, dh, g, t);
 #pragma unroll
-      for (int ks = 0; ks < kND; ++ks) {
-        uint32_t ab[4], as[4], bb[2], bs[2];
-        frag_a<kLd>(Qs, 8 * ks, g, t, ab, as);
-        frag_bt<kLd>(Kw, 0, 8 * ks, g, t, bb, bs);
-        mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
+        for (int i = 0; i < 4; ++i) cs[0][i] = cw[0][i];
+      } else {
+        const float* Kw = Kt + 8 * warp * kLd;
+#pragma unroll
+        for (int ks = 0; ks < kND; ++ks) {
+          uint32_t ab[4], as[4], bb[2], bs[2];
+          frag_a<kLd>(Qs, 8 * ks, g, t, ab, as);
+          frag_bt<kLd>(Kw, 0, 8 * ks, g, t, bb, bs);
+          mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
+        }
       }
       const int j = 8 * warp + 2 * t;
       float x[4];
@@ -344,7 +366,8 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     for (int j = 0; j < kFwdKT; ++j) {  // O_a += P_a V over keys 8j..8j+7, every arg
       uint32_t bb[kFwdNT][2], bs[kFwdNT][2];  // V's split B fragments, shared by the args
 #pragma unroll
-      for (int n = 0; n < kFwdNT; ++n) frag_b_pairs<kLd>(Vt + c0, 8 * j, 8 * n, g, t, bb[n], bs[n]);
+      for (int n = 0; n < kFwdNT; ++n)  // the wide path's Vt is the block's slice
+        frag_b_pairs<kLd>(Vt + (W ? kFwdCols * warp : c0), 8 * j, 8 * n, g, t, bb[n], bs[n]);
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         // P_a's A fragment in pair order (k = t: key 8j+2t, k = t+4: key
@@ -396,11 +419,15 @@ int launch(const float* qm, const float* km, const float* vm, const float* cn,
                                        A * kFwdRows * kPLd + kFwdRows * kSLd +
                                        2 * A * kFwdTile + 2 * A * kFwdRows + table_floats(F)) +
                       sizeof(int) * 2 * kFwdTile;
+  const bool wide = kWideLib && dh > kDK;
   auto fwd = F <= kTableF ? mm_fwd<A, kSmemTable> : mm_fwd<A, kGlobalTable>;
+  if constexpr (kWideLib && A <= kWideArgs)
+    if (wide) fwd = mm_fwd<A, kGlobalTable, true>;
+  if (wide && A > kWideArgs) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm);
-  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H, HD::kSlices);
+  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H, wide ? wide_slices(dh) : HD::kSlices);
   fwd<<<grid, kFwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, H, T, dh, F, vec);
   return (int)cudaGetLastError();
@@ -424,7 +451,9 @@ mm_bwd_delta(const float* __restrict__ o, const float* __restrict__ gout,
 
 // kEmit: also store comb (B*H, T, T), query-major ("emit" mode).  Block z
 // accumulates dK and dV's column slice z; slice 0's block stores comb and dcn.
-template <int A, int TM, bool kEmit>
+// W: the wide path: S^T and dP_a^T from device memory, the Q and g_a
+// tiles' column slice z staged, no resident K and V.
+template <int A, int TM, bool kEmit, bool W = false>
 __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
 mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ vm, const float* __restrict__ cn,
@@ -436,7 +465,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            DsT* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
   constexpr int NT = kBwdNT;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int z = HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
+  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
   const int k0 = blockIdx.x * kBwdKeys, c0 = z * HD::kDV;
   const bool first = z == 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -461,10 +490,17 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
   // the tile's Q rows, statistics and frames; one commit group a step
   auto stage = [&](int j) {
     const int it = j / A, a = j - it * A, i0 = it * kBwdTile;
-    load_rows<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
-                                          i0, T, dh, vec);
+    if constexpr (W)
+      load_slice<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
+                                             i0, T, dh, c0, vec);
+    else
+      load_rows<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
+                                            i0, T, dh, vec);
     if (a == 0) {
-      load_rows<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
+      if constexpr (W)
+        load_slice<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, c0, vec);
+      else
+        load_rows<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
       float* st = Ss + (it & 1) * 3 * A * kBwdTile;
       for (int i = tid; i < 3 * A * kBwdTile; i += kBwdThreads) {  // zero past T
         const int w = i / (A * kBwdTile), r = i % (A * kBwdTile), qi = i0 + r % kBwdTile;
@@ -484,8 +520,10 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     const int a = i / kBwdKeys, kj = k0 + i % kBwdKeys;
     Cs[i] = kj < T ? cn[arow + (size_t)a * T + kj] : 0.f;
   }
-  load_rows<kBwdKeys, kBwdThreads, kDK>(Ks, km + base, k0, T, dh, vec);
-  load_rows<kBwdKeys, kBwdThreads, kDK>(Vs, vm + base, k0, T, dh, vec);
+  if constexpr (!W) {
+    load_rows<kBwdKeys, kBwdThreads, kDK>(Ks, km + base, k0, T, dh, vec);
+    load_rows<kBwdKeys, kBwdThreads, kDK>(Vs, vm + base, k0, T, dh, vec);
+  }
   stage(0);  // one group: K, V and step 0
 
   // this lane's keys: kr0 = k0 + 16 warp + g and kr0 + 8 (rows g, g + 8 of
@@ -515,7 +553,10 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     const float* Ss_t = Ss + (it & 1) * 3 * A * kBwdTile;
     advance();  // step (it, 0): the tile's Q, statistics and frames, and g_0
     if (active) {  // S^T = K Q^T + fb, once a query tile for all args; masked keys at kNeg
-      scores<NT, false, kDK>(st, st, Kw, Qt, Kw, Qt, g, t);
+      if constexpr (W)
+        scores_g<NT, false>(st, st, km + base, qb, km + base, qb, k0 + warp * 16, i0, T, dh, g, t);
+      else
+        scores<NT, false, kDK>(st, st, Kw, Qt, Kw, Qt, g, t);
       const int* ft = fqs + (it & 1) * kBwdTile;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -539,7 +580,12 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
       const float* dnt = mt + A * kBwdTile;
       const float* dlt = dnt + A * kBwdTile;
       float dpt[NT][4];
-      scores<NT, false, kDK>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);  // dP_a^T = V G_a^T
+      if constexpr (W) {  // dP_a^T = V G_a^T
+        const float* ga = gout + (arow + (size_t)a * T) * dh;
+        scores_g<NT, false>(dpt, dpt, vm + base, ga, vm + base, ga, k0 + warp * 16, i0, T, dh, g, t);
+      } else {
+        scores<NT, false, kDK>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);
+      }
 
       // P_a^T = exp(S^T + cn_a - m_a) / den_a; ds_a = P_a^T (dP_a^T - delta_a)
       const float cn0 = Cs[a * kBwdKeys + kl0], cn1 = Cs[a * kBwdKeys + kl0 + 8];
@@ -568,7 +614,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
           dc[aa][0] += ds0;
           dc[aa][1] += ds1;
         }
-      accumulate<NT, kNV, kLd>(adv, pt, Gt + c0, g, t);  // dV += P_a^T G_a
+      accumulate<NT, kNV, kLd>(adv, pt, Gt + (W ? 0 : c0), g, t);  // dV += P_a^T G_a
     }
     if (!active) continue;
 
@@ -578,7 +624,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (kc[i >> 1] < 0) cb[n][i] = 0.f;
-    accumulate<NT, kNV, kLd>(adk, cb, Qt + c0, g, t);
+    accumulate<NT, kNV, kLd>(adk, cb, Qt + (W ? 0 : c0), g, t);
     if (!kEmit || !first) continue;
     // comb[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
@@ -657,7 +703,9 @@ __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&com
 // Block z of a tile of rows computes dq's column slice z (z < kSlices) and
 // sums comb over key frames 64z..64z+63 (z < ceil(F / 64)), as
 // csrc/attention.cu's flash_bwd_dq: grid.z = max(kSlices, ceil(F / 64)).
-template <int A, int TM>
+// W: the wide path: ceil(dh / 128) slices, S and G_a V^T from device
+// memory, the key tile's K column slice z staged, no resident Q.
+template <int A, int TM, bool W = false>
 __global__ void __launch_bounds__(kDqThreads, 1)
 mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           const float* __restrict__ vm, const float* __restrict__ cn,
@@ -669,10 +717,10 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   constexpr int NT = kDqTile / 16;  // a warp's 8-key n-tiles
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   // one block a tile of rows: no slices, the frames in one tile
-  constexpr bool kOne = HD::kSlices == 1 && TM == kSmemTable;
+  constexpr bool kOne = !W && HD::kSlices == 1 && TM == kSmemTable;
   const int q0 = blockIdx.x * kDqRows, z = kOne ? 0 : blockIdx.z;
-  const bool do_dq = kOne || z < HD::kSlices;  // dq's column slice z
-  const int c0 = HD::kSlices > 1 ? z * HD::kDV : 0;
+  const bool do_dq = kOne || z < (W ? wide_slices(dh) : HD::kSlices);  // dq's column slice z
+  const int c0 = W || HD::kSlices > 1 ? z * HD::kDV : 0;
   const int fbase = kFrameTile * z;    // key frames 64z..64z+63
   const bool do_fr = kOne || fbase < F;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -699,15 +747,20 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   // step j = (key tile j / A, arg j % A): its g_a rows, a step ahead
   auto stage = [&](int j) {
     const int a = j % A;
-    load_rows<kDqRows, kDqThreads, kDK>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
-                                        q0, T, dh, vec);
+    if constexpr (!W)  // the wide path reads g_a from device memory
+      load_rows<kDqRows, kDqThreads, kDK>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
+                                          q0, T, dh, vec);
     cp_commit();
   };
   // key tile it: its K and V rows, cn and key codes, once every warp is done with the tile before
   auto load_tile = [&](int it) {
     const int j0 = it * kDqTile;
-    load_rows<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, vec);
-    load_rows<kDqTile, kDqThreads, kDK>(Vs, vb, j0, T, dh, vec);
+    if constexpr (W) {  // past dh (a block of frame tiles alone): zeros
+      load_slice<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, c0, vec);
+    } else {
+      load_rows<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, vec);
+      load_rows<kDqTile, kDqThreads, kDK>(Vs, vb, j0, T, dh, vec);
+    }
     for (int i = tid; i < A * kDqTile; i += kDqThreads) {  // cn, zero past T
       const int aa = i / kDqTile, jj = j0 + i % kDqTile;
       cp_async4(Cs + i, jj < T ? cb + (size_t)aa * T + jj : cb, jj < T);
@@ -721,7 +774,7 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
     const size_t at = arow + (size_t)(r / kDqRows) * T + qi;
     St[i] = qi >= T ? (w == 1 ? 1.f : 0.f) : w == 0 ? mrow[at] : w == 1 ? 1.f / den[at] : delta[at];
   }
-  load_rows<kDqRows, kDqThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
+  if constexpr (!W) load_rows<kDqRows, kDqThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
   stage(0);
   load_tile(0);
 
@@ -746,8 +799,12 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
       cp_wait_all();
       __syncthreads();  // step j (with arg 0, the tile) is in; every warp is done with step j - 1
       if (j + 1 < nsteps) stage(j + 1);
+      const int y0 = it * kDqTile + kHalf * kh;  // the warp's first key
       if (a == 0) {  // S = Q K^T + fb, once a key tile for all args
-        scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh, Qw, Kh, g, t);
+        if constexpr (W)
+          scores_g<NT, false>(sc, sc, qm + base, kb, qm + base, kb, q0 + 16 * rg, y0, T, dh, g, t);
+        else
+          scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh, Qw, Kh, g, t);
         const int* ct = codes + kHalf * kh;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -762,8 +819,13 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
         zero(comb);
       }
       float gv[NT][4];
-      const float* Ga = Gs + ((j & 1) * kDqRows + 16 * rg) * kLd;
-      scores<NT, false, kDK, kOnePass, kDqChunk>(gv, gv, Ga, Vh, Ga, Vh, g, t);  // gv_a = G_a V^T
+      if constexpr (W) {  // gv_a = G_a V^T
+        const float* ga = gout + (arow + (size_t)a * T) * dh;
+        scores_g<NT, false>(gv, gv, ga, vb, ga, vb, q0 + 16 * rg, y0, T, dh, g, t);
+      } else {
+        const float* Ga = Gs + ((j & 1) * kDqRows + 16 * rg) * kLd;
+        scores<NT, false, kDK, kOnePass, kDqChunk>(gv, gv, Ga, Vh, Ga, Vh, g, t);
+      }
       const float* sm = St + a * kDqRows + r0;
       const float m0 = sm[0], m1 = sm[8];
       const float i0 = sm[A * kDqRows], i1 = sm[A * kDqRows + 8];
@@ -778,7 +840,7 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
             comb[n][2 + e] += expf(sc[n][2 + e] + ca - m1) * i1 * (gv[n][2 + e] - d1);
           }
     }
-    if (do_dq) accumulate<NT, kNV, kLd>(acc, comb, Kh + c0, g, t);  // dQ += comb K
+    if (do_dq) accumulate<NT, kNV, kLd>(acc, comb, Kh + (W ? 0 : c0), g, t);  // dQ += comb K
     if (do_fr) frame_sums<NT>(rs, comb, c, F, fbase, g);
     if (it + 1 < ntiles) {
       __syncthreads();  // every warp is done with the tile's K, V, cn and codes
@@ -857,13 +919,18 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
                                        6 * A * kBwdTile + A * kBwdKeys + table_floats(F)) +
                       sizeof(int) * 2 * kBwdTile;
   const bool emit = comb != nullptr, smem_table = F <= kTableF;
+  const bool wide = kWideLib && dh > kDK;
+  const int slices = wide ? wide_slices(dh) : HD::kSlices;
   auto dkv = emit ? (smem_table ? mm_bwd_dkv<A, kSmemTable, true> : mm_bwd_dkv<A, kGlobalTable, true>)
                   : (smem_table ? mm_bwd_dkv<A, kSmemTable, false> : mm_bwd_dkv<A, kGlobalTable, false>);
+  if constexpr (kWideLib && A <= kWideArgs)
+    if (wide) dkv = emit ? mm_bwd_dkv<A, kGlobalTable, true, true> : mm_bwd_dkv<A, kGlobalTable, false, true>;
+  if (wide && A > kWideArgs) return (int)cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
                    aligned16(gout);
-  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H, HD::kSlices);
+  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H, slices);
   dkv<<<grid, kBwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn,
       comb, H, T, dh, F, vec);
@@ -873,11 +940,12 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
                                          A * kDqTile + 3 * A * kDqRows + table_floats(F)) +
                         sizeof(int) * kDqTile;
   auto dqk = smem_table ? mm_bwd_dq<A, kSmemTable> : mm_bwd_dq<A, kGlobalTable>;
+  if constexpr (kWideLib && A <= kWideArgs)
+    if (wide) dqk = mm_bwd_dq<A, kGlobalTable, true>;
   e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (e != cudaSuccess) return (int)e;
   const int frame_tiles = (F + kFrameTile - 1) / kFrameTile;
-  const dim3 grid_q((T + kDqRows - 1) / kDqRows, B * H,
-                    frame_tiles > HD::kSlices ? frame_tiles : HD::kSlices);
+  const dim3 grid_q((T + kDqRows - 1) / kDqRows, B * H, frame_tiles > slices ? frame_tiles : slices);
   dqk<<<grid_q, kDqThreads, smem_q, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dq, dfb_part, H, T, dh, F, vec);
   return (int)cudaGetLastError();
@@ -885,8 +953,9 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
 
 }  // namespace
 
-// dh must be at most this library's head-dim instance (and, at 256, above
-// 128: the wrapper takes the 128 library there).
+// dh: at most this library's head-dim instance, or any in the DK 128
+// library, whose wide path takes dh > 128 at A <= kWideArgs (the wrapper
+// takes it past 256, and the DK 256 library from 129 to 256).
 // delta: (B,H,A,T) scratch, written here from gout and the forward's out.
 // Emit mode: comb (B*H, T, T), fp32 or, in the one-pass library, bf16, not
 // null; dq and dfb_part are not touched.
@@ -900,7 +969,7 @@ extern "C" int vog_mm_bwd(int device, const float* qm, const float* km, const fl
                           void* comb_out, float* dq, float* dfb_part, int B, int H,
                           int A, int T, int dh, int F, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kDK || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if ((dh > kDK && !kWideLib) || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   DsT* comb = static_cast<DsT*>(comb_out);
   if (comb == nullptr && (dq == nullptr || dfb_part == nullptr)) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
@@ -931,7 +1000,7 @@ extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const fl
                           float* mrow, float* den, int B, int H, int A, int T,
                           int dh, int F, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if (dh > kDK || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if ((dh > kDK && !kWideLib) || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOG_MM_CASE(n) \

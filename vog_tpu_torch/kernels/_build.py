@@ -20,7 +20,8 @@ Head dims: ``mm_attention.cu`` builds once more for its DK 256 instance
 (``-DVOG_MM_DK=256``, the libraries ``mm_attention_dk256`` and
 ``mm_attention_dk256@default``), so that nvcc compiles its two sets of A =
 1..8 templates in parallel; ``attention.cu`` holds its three instances
-(DK 64, 128, 256) in one library.
+(DK 64, 128, 256) in one library.  Head dims past 256 take the DK 128
+instances' wide path, in the libraries that hold them (no third library).
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)
@@ -148,21 +149,24 @@ def build_all() -> float:
         out.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         procs = []
+        started = time.time()
         for src, prec, dk in todo:
             lib = _lib_path(src, prec, dk)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, *_flags(prec, dk), "-o", str(tmp), str(CSRC / src)]
-            procs.append((lib_stem(src, prec, dk), lib, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
+            log = out / f"{lib_stem(src, prec, dk)}.log"
+            with open(log, "w") as f:  # nvcc's output lands in the log as it runs
+                procs.append((log, lib, tmp, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
         failed = []
-        for stem, lib, tmp, p in procs:
-            log, _ = p.communicate()
-            (out / f"{stem}.log").write_text(log)
+        for log, lib, tmp, p in procs:
+            p.wait()
+            took = os.path.getmtime(log) - started  # its last line is written as nvcc ends
             if p.returncode != 0:
-                failed.append(f"{stem}:\n{log}")
+                failed.append(f"{log.stem}:\n{log.read_text()}")
             else:
                 os.replace(tmp, lib)
+            with open(log, "a") as f:
+                f.write(f"[nvcc] {took:.1f} s\n")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0

@@ -12,11 +12,15 @@ fit 227 KB of shared memory at T=4000), and reads the bias from the head's
 (F, F) table in shared memory instead of the TPU kernel's one-hot matmul.
 Masked keys take the finite ``NEG`` so a row with every key masked stays
 finite.  The kernels come in three head-dim instances, 64, 128 and 256
-(a call pads dh up to the next one; at 256 a tile of rows
-has two blocks, each accumulating half of the output's columns), and take
-any frame count: the (F, F) table sits in shared memory up to 64 frames and
-is read from device memory past that, and the dq kernel sums the
-frame-bias gradient in tiles of 64 frames.
+(``HEAD_DIMS``; a call pads dh up to the next one; at 256 a tile of rows
+has two blocks, each accumulating half of the output's columns); past 256
+the DK 128 instance's wide path takes any dh (``head_dim_instance``): its
+score products read their operands from device memory and a tile of rows
+has ceil(dh / 128) blocks, one a 128-column slice of the output
+(csrc/tiles.cuh).  They take any frame count: the (F, F) table sits in
+shared memory up to 64 frames and is read from device memory past that
+(and on the wide path), and the dq kernel sums the frame-bias gradient in
+tiles of 64 frames.
 
 Backward: replaces §_flash_bwd in both of its modes, chosen per call
 (``bwd_mode``) or for the process (``VOG_FLASH_BWD``) as the TPU package
@@ -69,10 +73,23 @@ NEG = -1e30
 NAME = "flash_attention"
 NAME_BWD = "flash_attention_bwd"  # recompute mode
 NAME_BWD_EMIT = "flash_attention_bwd_emit"
-# the widest of the kernels' head-dim instances, 64, 128 and 256 (kMaxDh,
-# csrc/tiles.cuh §HeadDim): the kernel pads dh up to the next one
-MAX_DH = 256
+# the kernels' head-dim instances (csrc/tiles.cuh §HeadDim): a call pads dh
+# up to the next one, and past the widest (kMaxDh) takes the DK 128
+# instance's wide path, in WIDE_SLICE-column slices of the output
+HEAD_DIMS = (64, 128, 256)
+WIDE_SLICE = 128
 BWD_Q_ROWS = 64  # query rows a block of the dq kernel (kRows in csrc/attention.cu)
+
+
+def head_dim_instance(dh: int) -> Tuple[int, int]:
+    """(the kernels' instance that takes a head dim of ``dh``, the column
+    slices a tile of rows has): the narrowest of ``HEAD_DIMS`` that holds
+    dh (slices: 2 at 256, else 1), or past the widest the DK 128 instance's
+    wide path with ceil(dh / 128) slices."""
+    for d in HEAD_DIMS:
+        if dh <= d:
+            return d, max(1, d // WIDE_SLICE)
+    return WIDE_SLICE, -(-dh // WIDE_SLICE)
 
 
 def resolve_bwd_mode(mode: Optional[str]) -> str:
@@ -119,8 +136,6 @@ def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     dev = q.device
     B, H, T, dh = q.shape
-    if dh > MAX_DH:
-        raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH} is not supported by the kernels")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.require(t, name, torch.float32, 4, dev)
         if tuple(t.shape) != (B, H, T, dh):

@@ -31,6 +31,18 @@ waits for it.  The partials are added up here in a
 fixed order (``sum`` over a dimension), so the gradients do not change
 between runs.  All products run in 3xTF32 mma.sync.
 
+Widths: the kernels take D % 32 == 0 and Dh % 16 == 0, at any size; the
+wrapper zero-pads other widths (``pad_head``: exact, the padded z0 and z1
+columns are 0 and stay 0 through the ReLUs) and slices the gradients
+back.  Up to D 512 and Dh 256 they run whole cross tiles and one z1
+accumulator; past either, their wide path (csrc/grounding_head.cu): the
+forward computes z0 by K slices of 512 columns of the cross tile into a
+scratch of 64 rows a block (``zs``, allocated here), then z1 a group of
+256 columns at a time (the stream lays W1 out a group at a time); the
+row kernel's warps walk column groups over K slices staged from its own
+(B,A,T,.) outputs.  The weight kernel's row chunks fall with D
+(``w_chunks``), so its partials stay small.
+
 Args: the backward's kernels take 1 <= A <= 5 (their row tile holds the
 A args of 16 tokens; at A=5 the accumulators fill the register file).  A
 head's logits are independent across args, so for A > 5 the backward
@@ -69,6 +81,10 @@ W_CHUNKS = 11
 ROW_TOKENS = 16  # tokens a block of the row kernel (kBT in csrc/grounding_head.cu)
 KERNEL_ARGS = 5  # the most args a backward launch takes (vog_head_bwd's cases)
 FWD_CHUNK = 64  # z0 columns a chunk of the forward (kNC in csrc/grounding_head.cu)
+HIDDEN_GROUP = 256  # z1 columns a pass of the forward (kNZ)
+WIDE_D = 512  # past this D (or Dh past HIDDEN_GROUP) the kernels take their wide path (kMaxD)
+FWD_ROWS = 64  # flattened (b, t) rows of a forward item (kFRows)
+D_ALIGN, DH_ALIGN = 32, 16  # the widths the kernels take are multiples of these
 
 
 def arg_groups(A: int):
@@ -79,14 +95,52 @@ def arg_groups(A: int):
     return list(zip(bounds[:-1], bounds[1:]))
 
 
-def fwd_stream_floats(D: int, precision: str = "highest") -> int:
+def w_chunks(D: int, Dh: int) -> int:
+    """Row chunks of the weight-gradient kernel: W_CHUNKS up to D 512 (its
+    48 output tiles there x 11 = 528 blocks, two waves); past it, as many
+    as keep about 528 blocks (2 at D 1024, 1 from D 1536), so that the
+    (chunks, D, D) partials stay near D^2 floats (11 D^2 is 738 MB at D
+    4096)."""
+    tiles = -(-D // 128) * (-(-D // 64) + -(-Dh // 64))
+    return max(1, min(W_CHUNKS, 528 // tiles))
+
+
+def pad_head(vis, arg, wv, wl, wx, w1, b1, w2):
+    """The head's operands zero-padded to the widths the kernels take: D
+    to a multiple of 32 (vis, arg, wv, wl, the rows and columns of Wx, the
+    rows of W1) and Dh to a multiple of 16 (the columns of W1, b1, w2); the
+    operands themselves where both already are.  Exact: the padded z0
+    columns are 0 (relu 0), the padded rows of W1 meet them, and the padded
+    z1 columns are 0 with w2 0 there, so the logits are the same and the
+    gradients' padded entries are dropped by slicing."""
+    D, Dh = wx.shape[0], w1.shape[1]
+    Dp, Dhp = -(-D // D_ALIGN) * D_ALIGN, -(-Dh // DH_ALIGN) * DH_ALIGN
+    if (Dp, Dhp) == (D, Dh):
+        return vis, arg, wv, wl, wx, w1, b1, w2
+    pad = lambda t, *n: torch.nn.functional.pad(t, [x for k in reversed(n) for x in (0, k)])  # noqa: E731
+    dd, dhh = Dp - D, Dhp - Dh
+    return (pad(vis, dd), pad(arg, dd), pad(wv, dd), pad(wl, dd), pad(wx, dd, dd), pad(w1, dd, dhh),
+            pad(b1, dhh), pad(w2, dhh))
+
+
+def unpad_grads(grads, D: int, Dh: int):
+    """The 9 gradients of a padded head sliced back to D and Dh."""
+    dvis, darg, dwv, dwl, dwx, dw1, db1, dw2, db2 = grads
+    return (dvis[..., :D].contiguous(), darg[..., :D].contiguous(), dwv[..., :D].contiguous(),
+            dwl[..., :D].contiguous(), dwx[:D, :D].contiguous(), dw1[:D, :Dh].contiguous(),
+            db1[:Dh].contiguous(), dw2[:Dh].contiguous(), db2)
+
+
+def fwd_stream_floats(D: int, precision: str = "highest", Dh: int = HIDDEN_GROUP) -> int:
     """Floats of the forward's weight stream (``head_fwd_prep``): for each
-    of the D_pad / 64 chunks, D_pad / 8 z0 k-steps of 64 x 8 and 8 z1
-    k-steps of 256 x 8 (D_pad = D rounded up to 64), each stored as its big
-    and its small parts ("highest") or once, rounded ("default")."""
+    of the D_pad / 64 chunks, D_pad / 8 z0 k-steps of 64 x 8 and, for each
+    of the ceil(Dh / 256) hidden groups (one up to Dh 256), 8 z1 k-steps of
+    256 x 8 (D_pad = D rounded up to 64), each stored as its big and its
+    small parts ("highest") or once, rounded ("default")."""
     dp = -(-D // FWD_CHUNK) * FWD_CHUNK
+    ng = -(-Dh // HIDDEN_GROUP)
     parts = 2 if precision == "highest" else 1
-    return parts * (dp // FWD_CHUNK) * (dp // 8 * FWD_CHUNK * 8 + 8 * 256 * 8)
+    return parts * (dp // FWD_CHUNK) * (dp // 8 * FWD_CHUNK * 8 + ng * 8 * HIDDEN_GROUP * 8)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -99,9 +153,10 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
 def fwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
     """Plain version of ``head_fwd_prep``: Wx (D, D) and W1 (D, Dh) as the
     forward's weight stream, zero-padded to D_pad (a multiple of 64) and
-    to 256 hidden columns.  Chunk c holds the z0 k-steps s (Wx rows 8s ..
-    8s+7, columns 64c ..) and then the z1 k-steps j (W1 rows 64c + 8j ..,
-    all 256 columns); a k-step is [k half e][column n][k slot u], where slot
+    to ng = ceil(Dh / 256) groups of 256 hidden columns.  Chunk c holds the
+    z0 k-steps s (Wx rows 8s .. 8s+7, columns 64c ..) and then, for each
+    hidden group hg, the z1 k-steps j (W1 rows 64c + 8j .., columns 256 hg
+    .. 256 hg + 255); a k-step is [k half e][column n][k slot u], where slot
     u of half e holds row 2u + e of the step (the K-major core matrices of
     TF32 wgmma, k in pair order).  The stream is cut into stages of 2048
     weights (4 z0 k-steps or 1 z1 k-step), each stored as its big parts (the
@@ -111,28 +166,20 @@ def fwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
     (``round_tf32``)."""
     D, Dh = wx.shape[0], w1.shape[1]
     dp = -(-D // FWD_CHUNK) * FWD_CHUNK
-    nch = dp // FWD_CHUNK
+    nch, ng = dp // FWD_CHUNK, -(-Dh // HIDDEN_GROUP)
     wxp = wx.new_zeros((dp, dp))
     wxp[:D, :D] = wx
-    w1p = w1.new_zeros((dp, 256))
+    w1p = w1.new_zeros((dp, ng * HIDDEN_GROUP))
     w1p[:D, :Dh] = w1
-    # row k = 8 step + 2 u + e -> (step, u, e); Wx column 64 c + n -> (c, n)
+    # row k = 8 step + 2 u + e -> (step, u, e); Wx column 64 c + n -> (c, n);
+    # W1 column 256 hg + n -> (hg, n)
     z0 = wxp.reshape(dp // 8, 4, 2, nch, FWD_CHUNK).permute(3, 0, 2, 4, 1).reshape(nch, -1)
-    z1 = w1p.reshape(nch, 8, 4, 2, 256).permute(0, 1, 3, 4, 2).reshape(nch, -1)
+    z1 = w1p.reshape(nch, 8, 4, 2, ng, HIDDEN_GROUP).permute(0, 4, 1, 3, 5, 2).reshape(nch, -1)
     raw = torch.cat([z0, z1], dim=1).reshape(-1, 2048).contiguous()
     if precision != "highest":
         return round_tf32(raw).reshape(-1)
     big = (raw.view(torch.int32) & -8192).view(torch.float32)  # 0xffffe000
     return torch.stack([big, raw - big], dim=1).reshape(-1).contiguous()
-
-
-def shape_fault(D: int, Dh: int):
-    """Why the kernels do not take feature width D and hidden width Dh, or
-    None when they do."""
-    if D > 512 or D % 32 or Dh > 256 or Dh % 16:
-        return (f"the head kernels take D <= 512 with D % 32 == 0 and Dh <= 256 with "
-                f"Dh % 16 == 0 (D={D}, Dh={Dh})")
-    return None
 
 
 def grounding_head_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, precision=None) -> torch.Tensor:
@@ -153,9 +200,8 @@ def _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, max_args=KERNEL_ARGS) -> t
     B, T, D = vis.shape
     A = arg.shape[1]
     Dh = w1.shape[1]
-    fault = shape_fault(D, Dh)
-    if fault or A < 1 or (max_args is not None and A > max_args):
-        raise ValueError(f"{NAME}: {fault or f'a launch takes 1 <= A <= {max_args} (A={A})'}")
+    if A < 1 or (max_args is not None and A > max_args):
+        raise ValueError(f"{NAME}: a launch takes 1 <= A <= {max_args} (A={A})")
     f32 = torch.float32
     for name, t, shape in (
         ("vis", vis, (B, T, D)), ("wv", wv, (B, T, D)), ("arg", arg, (B, A, D)),
@@ -190,22 +236,27 @@ def grounding_head_fwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, precision=None) -> 
 
 
 def _head_fwd_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, prec) -> torch.Tensor:
-    """The forward kernels' launch, one a call of any A (the op's CUDA
-    implementation)."""
+    """The forward kernels' launch, one a call of any A, on the operands
+    padded to the widths the kernels take (the op's CUDA implementation)."""
     b2 = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2, max_args=None)
+    vis, arg, wv, wl, wx, w1, b1, w2 = pad_head(vis, arg, wv, wl, wx, w1, b1, w2)
     dev = vis.device
     B, T, D = vis.shape
     A, Dh = arg.shape[1], w1.shape[1]
     out = torch.empty((B, A, T), dtype=torch.float32, device=dev)
-    stream = torch.empty((fwd_stream_floats(D, prec),), dtype=torch.float32, device=dev)
+    stream = torch.empty((fwd_stream_floats(D, prec, Dh),), dtype=torch.float32, device=dev)
+    # the wide path's z0 scratch: 64 rows of D_pad a block of its grid
+    blocks = 0 if D <= WIDE_D and Dh <= HIDDEN_GROUP else min(
+        -(-B * T // FWD_ROWS) * A, torch.cuda.get_device_properties(dev).multi_processor_count)
+    zs = torch.empty((blocks * FWD_ROWS * -(-D // FWD_CHUNK) * FWD_CHUNK,), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
     prep = _build.function("grounding_head.cu", "vog_head_fwd_prep", [P] * 3 + [I] * 2 + [P], prec)
     _build.check(prep(dev.index, wx.data_ptr(), w1.data_ptr(), stream.data_ptr(), D, Dh,
                       _build.stream_ptr(vis)), NAME)
-    fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 9 + [I] * 5 + [P], prec)
+    fn = _build.function("grounding_head.cu", "vog_head_fwd", [P] * 10 + [I] * 6 + [P], prec)
     rc = fn(dev.index, vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), stream.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, A, T, D, Dh,
-            _build.stream_ptr(vis))
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), zs.data_ptr() if blocks else None,
+            blocks, B, A, T, D, Dh, _build.stream_ptr(vis))
     _build.check(rc, NAME)
     _build.count(NAME, prec)
     return out
@@ -265,11 +316,25 @@ def grounding_head_bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, precision=None, 
 
 
 def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
-    """One group's 9 gradients: the two CUDA kernels on the card, the plain
-    version on the CPU."""
+    """One group's 9 gradients: the two CUDA kernels on the card (on the
+    operands padded to the widths they take, the gradients sliced back),
+    the plain version on the CPU."""
     if vis.device.type == "cpu":
         return grounding_head_bwd_plain(vis, arg, wv, wl, wx, w1, b1, w2, b2, g)
-    b2c = _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    _check_cuda(vis, arg, wv, wl, wx, w1, b1, w2, b2)
+    D0, Dh0 = wx.shape[0], w1.shape[1]
+    padded = pad_head(vis, arg, wv, wl, wx, w1, b1, w2)
+    if padded[4] is wx:
+        return _bwd_launch(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch)
+    grads = unpad_grads(_bwd_launch(*padded, b2, g, prec, scratch), D0, Dh0)
+    if scratch is not None:
+        scratch.update(h=scratch["h"][..., :D0], dz1=scratch["dz1"][..., :Dh0])
+    return grads
+
+
+def _bwd_launch(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
+    """The two CUDA kernels' launch for one group of args, at widths they
+    take -> the 9 gradients."""
     dev = vis.device
     B, T, D = vis.shape
     A, Dh = arg.shape[1], w1.shape[1]
@@ -282,14 +347,15 @@ def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
     dvis, dwv = e(B, T, D), e(B, T, D)
     darg_p, dwl_p = e(B, nt, A, D), e(B, nt, A, D)
     db1_p, dw2_p = e(B, nt, Dh), e(B, nt, Dh)
-    dwx_p, dw1_p = e(W_CHUNKS, D, D), e(W_CHUNKS, D, Dh)
+    chunks = w_chunks(D, Dh)
+    dwx_p, dw1_p = e(chunks, D, D), e(chunks, D, Dh)
     P, I = _build.P, _build.I
     fn = _build.function("grounding_head.cu", "vog_head_bwd", [P] * 21 + [I] * 6 + [P], prec)
     rc = fn(dev.index, vis.data_ptr(), arg.data_ptr(), wv.data_ptr(), wl.data_ptr(), wx.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), g.data_ptr(), cross.data_ptr(), h.data_ptr(),
             dz0.data_ptr(), dz1.data_ptr(), dvis.data_ptr(), dwv.data_ptr(),
             darg_p.data_ptr(), dwl_p.data_ptr(), db1_p.data_ptr(), dw2_p.data_ptr(),
-            dwx_p.data_ptr(), dw1_p.data_ptr(), B, A, T, D, Dh, W_CHUNKS,
+            dwx_p.data_ptr(), dw1_p.data_ptr(), B, A, T, D, Dh, chunks,
             _build.stream_ptr(vis))
     _build.check(rc, NAME_BWD)
     _build.count(NAME_BWD, prec)

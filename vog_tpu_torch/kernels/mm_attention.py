@@ -47,11 +47,14 @@ Both modes compute the same function; on the CPU both run
 ``mm_attention_bwd_plain``.
 
 Shapes: the kernels come in two head-dim instances, 128 and 256
-(``HEAD_DIMS``, each its own library; a call pads dh up to the next one),
-and take any frame count (the (F, F) table in shared memory up to 64
+(``HEAD_DIMS``, each its own library; a call pads dh up to the next one);
+past 256 the DK 128 library's wide path takes any dh (its score products'
+operands read from device memory, ceil(dh / 128) blocks a tile, one a
+128-column slice of the output: csrc/tiles.cuh), and take any frame count (the (F, F) table in shared memory up to 64
 frames, read from device memory past that; mm_bwd_dq sums the frame-bias
 gradient in tiles of 64 frames).  A launch takes at most 8 args
-(``KERNEL_ARGS``); more run in groups (``arg_groups``: 9 -> 5 + 4), each
+(``KERNEL_ARGS``; 4 on the wide path, ``kernel_args``); more run in groups
+(``arg_groups``: 9 -> 5 + 4), each
 group's launches counted under the kernel's name: the forward's outputs
 are concatenated over A (each arg depends on the shared scores and its
 own cn_a alone), and the groups' gradients added up in group order
@@ -85,21 +88,23 @@ NAME = "mm_shared_qk_attention"
 NAME_BWD = "mm_shared_qk_attention_bwd"  # emit mode
 NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
 KERNEL_ARGS = 8  # args a launch takes (template cases 1..8 in csrc/mm_attention.cu)
+WIDE_KERNEL_ARGS = 4  # ... on the wide path, past dh 256 (kWideArgs: its A cases 1..4)
 # the kernels' head-dim instances, each its own library (the one of 256 is
-# built with -DVOG_MM_DK=256): a call pads dh up to the next one
+# built with -DVOG_MM_DK=256): a call pads dh up to the next one, and past
+# 256 takes the DK 128 library's wide path
 HEAD_DIMS = (128, 256)
-MAX_DH = HEAD_DIMS[-1]
 # query rows a block of mm_bwd_dq owns, by instance (kDqRows in csrc/mm_attention.cu)
 DQ_ROWS = {128: 64, 256: 32}
 
 
 def head_dim_instance(dh: int) -> int:
-    """The kernels' instance that takes a head dim of ``dh`` (above
-    ``MAX_DH`` raises)."""
+    """The kernels' instance that takes a head dim of ``dh``: the
+    narrowest of ``HEAD_DIMS`` that holds it, or past the widest the DK
+    128 instance, whose wide path takes any dh."""
     for d in HEAD_DIMS:
         if dh <= d:
             return d
-    raise ValueError(f"{NAME}: head dim {dh} > {MAX_DH} is not supported by the kernels")
+    return HEAD_DIMS[0]
 
 
 def _library_dk(dh: int):
@@ -108,11 +113,18 @@ def _library_dk(dh: int):
     return None if head_dim_instance(dh) == HEAD_DIMS[0] else _build.WIDE_DK
 
 
-def arg_groups(A: int):
-    """[(a0, a1), ...]: A args in ceil(A / KERNEL_ARGS) groups of at most
-    KERNEL_ARGS, as even as possible, the larger first (9 -> 5 + 4, 10 ->
-    5 + 5), in order: one launch of each kernel a group."""
-    n = -(-A // KERNEL_ARGS)
+def kernel_args(dh: int) -> int:
+    """The args a launch takes at head dim ``dh``: KERNEL_ARGS, or past
+    256 (the wide path) WIDE_KERNEL_ARGS."""
+    return KERNEL_ARGS if dh <= HEAD_DIMS[-1] else WIDE_KERNEL_ARGS
+
+
+def arg_groups(A: int, most: int = KERNEL_ARGS):
+    """[(a0, a1), ...]: A args in ceil(A / most) groups of at most
+    ``most`` (a launch's args, ``kernel_args``), as even as possible, the
+    larger first (9 -> 5 + 4, 10 -> 5 + 5; past dh 256, 5 -> 3 + 2), in
+    order: one launch of each kernel a group."""
+    n = -(-A // most)
     bounds = [0]
     for i in range(n):
         bounds.append(bounds[-1] + A // n + (i < A % n))
@@ -129,7 +141,7 @@ def fwd_by_groups(fwd, qm, km, vm, cn, *rest):
     ``arg_groups``, on its args of ``cn``, -> its outputs concatenated over
     A.  Exact: each arg's output depends on the shared scores and its own
     cn_a alone."""
-    groups = arg_groups(cn.shape[2])
+    groups = arg_groups(cn.shape[2], kernel_args(qm.shape[-1]))
     if len(groups) == 1:
         return fwd(qm, km, vm, cn, *rest)
     parts = [fwd(qm, km, vm, _args(cn, a0, a1), *rest) for a0, a1 in groups]
@@ -153,7 +165,7 @@ def bwd_by_groups(bwd, qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mro
     """``bwd`` (a kernel's launches, or the plain version) once for each
     of ``arg_groups``, on its args of cn, out, the row max, the denominator
     and g, -> the groups' gradients added up by ``sum_arg_groups``."""
-    groups = arg_groups(cn.shape[2])
+    groups = arg_groups(cn.shape[2], kernel_args(qm.shape[-1]))
     if len(groups) == 1:
         return bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g, *rest)
     return sum_arg_groups([

@@ -32,7 +32,6 @@ import torch.nn as nn
 
 from vog_tpu_torch.config import apply_matmul_precision
 from vog_tpu_torch.device import DeviceLike, resolve_device
-from vog_tpu_torch.kernels import attention, grounding_head
 from vog_tpu_torch.kernels.grounding_head import fused_grounding_head
 from vog_tpu_torch.model.dtypes import act_dtype, linear
 from vog_tpu_torch.model.encoders import LangEncoder, PropEncoder, SegEncoder
@@ -183,26 +182,22 @@ MODELS = {"img_grnd": ImgGrnd, "vid_grnd": VidGrnd, "vog": VOGNet}
 
 
 def check_kernel_shapes(cfg) -> None:
-    """Raise ``ValueError``, naming the config key, when the configured
-    model gives a kernel on its path a shape the card's kernel does not
-    take: a head dim above 256 (the attention kernels' widest instance),
-    or a width the fused head does not take.  The attention kernels take
-    any frame count, and any arg count in groups of at most 8.  The JAX
-    package falls back to XLA for any shape; the port's wrappers launch
-    their kernel or raise, so ``get_model`` checks here, before the first
-    forward, for a model built on the card."""
+    """The one place that states the card's kernels' ranges, checked before
+    the first forward of a model built on the card (the port's wrappers
+    launch their kernel or raise; the JAX package falls back to XLA):
+    the attention kernels take any whole head dim of at least 1 (instances
+    64 / 128 / 256, past 256 the DK 128 instance's wide path), any frame
+    count and any arg count (launches of at most 8 args); the fused head
+    any D and Dh (zero-padded to multiples of 32 and 16, past 512 and 256
+    its wide path) and any arg count (launches of at most 5).  Raises
+    ``ValueError``, naming the config key, for a head dim that is not a
+    whole number of at least 1 (``mdl.vis_dim`` not a multiple of
+    ``mdl.n_heads``), which the JAX package's heads do not take either."""
     mdl = cfg.mdl
     D, H = mdl.vis_dim, mdl.n_heads
-    faults = []
-    if mdl.name != "img_grnd" and D // H > attention.MAX_DH:
-        faults.append(f"mdl.vis_dim / mdl.n_heads = {D // H}: the attention kernels take a head "
-                      f"dim <= {attention.MAX_DH}")
-    if mdl.head_type != "dot":
-        fault = grounding_head.shape_fault(D, D // 2)
-        if fault:
-            faults.append(f"mdl.vis_dim = {D}: {fault}")
-    if faults:
-        raise ValueError("the card's kernels do not take this model: " + "; ".join(faults))
+    if mdl.name != "img_grnd" and (D < H or D % H):
+        raise ValueError(f"the card's kernels do not take this model: mdl.vis_dim / mdl.n_heads = {D} / {H}: "
+                         "the attention kernels take a whole head dim of at least 1")
 
 
 def get_model(
