@@ -249,7 +249,15 @@ with ``--wide``):
     (first step and trained state against the plain path on the card,
     with its control), the mm kernels launched twice a call, and 2 steps
     in the other backward-mode pair (flash emit, mm recompute).  Every
-    wide row's launches are counted on (b) and (c).
+    wide row's launches are counted on (b) and (c).  Past head dim 128 the
+    flash backward and the mm forward are the cluster instances
+    (``csrc/cluster.cuh``): their rows carry the cluster's size and passes,
+    ptxas's registers and spill stores of the instances (``[build]``; a
+    spill store fails the run) and ``cudaOccupancyMaxActiveClusters``,
+    and, with the flash forward's rows, the host's time to issue one
+    wrapper call (``host_ms``).  The head-dim-256 flash backward is also
+    split by kernel (torch.profiler) beside the DK 128 instance on its
+    first 128 columns (the same shape at half the work, no cluster).
 
 No thread may warn that it ran cuBLAS without a current CUDA context
 (``watch_context_warnings``).
@@ -351,12 +359,33 @@ def timings(kernel, plain, library=None, reps: int = 15, inner: int = 10) -> dic
     return out
 
 
+def host_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """The host's time to issue one call of ``fn`` (a wrapper: its checks,
+    allocations, C entry and launches), without the card's: median over
+    ``reps`` of ``calls`` back-to-back calls queued behind a sleep kernel,
+    so that the host never waits for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        torch.cuda._sleep(1 << 26)  # ~40 ms: longer than the calls' issue
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        ts.append((time.perf_counter() - t0) * 1e3 / calls)
+        torch.cuda.synchronize()
+    return statistics.median(ts)
+
+
 def fmt_times(t: dict, lib: str = "library") -> str:
     """``timings`` as ``ms=... plain=... <lib>=...``, device time and, after
     the slash, with the host's issue."""
     def pair(key):
         return "none" if t[key + "ms"] is None else f"{t[key + 'ms']:.4f}/{t[key + 'issue_ms']:.4f}"
-    return f"ms={pair('')} plain={pair('plain_')} {lib}={pair('library_')}"
+    host = f" host={t['host_ms']:.4f}" if t.get("host_ms") is not None else ""
+    return f"ms={pair('')} plain={pair('plain_')} {lib}={pair('library_')}{host}"
 
 
 def fmt_direct(t: dict) -> str:
@@ -484,6 +513,9 @@ def phase_card():
     return name, card
 
 
+PTXAS: dict = {}  # library stem -> {kernel function: (registers, spill store bytes)}
+
+
 def phase_build():
     from vog_tpu_torch.kernels import _build
 
@@ -505,8 +537,51 @@ def phase_build():
                 spill = line.strip()
             elif "Used" in line:
                 print(f"[build] {stem} {fn}: {line.split(':', 1)[-1].strip()}; {spill}", flush=True)
+                regs = int(line.split("Used", 1)[1].split()[0])
+                stores = int(spill.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]) if "spill stores" in spill else 0
+                PTXAS.setdefault(stem, {})[fn] = (regs, stores)
             elif line.startswith("[nvcc]"):
                 print(f"[build] {stem}: nvcc took {line.split(' ', 1)[1]}", flush=True)
+    cl = {(stem, fn): v for stem, fns in PTXAS.items() for fn, v in fns.items() if "_cl" in fn}
+    spilled = {k: v for k, v in cl.items() if v[1]}
+    print(f"[build] cluster instances (csrc/cluster.cuh): {len(cl)}, at most {max((v[0] for v in cl.values()), default=0)} "
+          f"registers, spill stores {sum(v[1] for v in cl.values())} bytes", flush=True)
+    if not cl or spilled:
+        fail(f"[build] the cluster instances must build and spill nothing: {len(cl)} built, spills {spilled}")
+
+
+def cluster_info(family: str, dh: int, prec: str, A: int = 5, F: int = 1) -> dict:
+    """A row's cluster design past head dim 128 (``family`` "flash": the
+    backward's flash_bwd_dkv_cl / flash_bwd_dq_cl; "mm": the forward's
+    mm_fwd_cl): the plan (blocks a cluster, passes, the padded head dim),
+    ptxas's registers and spill stores of the library's instances
+    (``[build]``), and ``cudaOccupancyMaxActiveClusters`` of the one-pass
+    instances at this shape (dkv and dq; the mm instance of 5 args, or of
+    7 where a launch takes more)."""
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels import _cluster as cluster
+
+    plan = cluster.cluster_plan(dh, A)
+    I = _build.I
+    if family == "flash":
+        lib, names = _build.lib_stem("attention.cu", prec), ("flash_bwd_dkv_cl", "flash_bwd_dq_cl")
+        fn = _build.function("attention.cu", "vog_flash_bwd_clusters", [I] * 3, prec)
+        occ = [fn(0, plan.cluster, F, which) for which in (0, 1)]
+    else:
+        lib, names = _build.lib_stem("mm_attention.cu", prec, _build.WIDE_DK), ("mm_fwd_cl",)
+        fn = _build.function("mm_attention.cu", "vog_mm_fwd_clusters", [I] * 2, prec, _build.WIDE_DK)
+        most = max(a1 - a0 for a0, a1 in plan.groups)  # a launch's args
+        occ = [fn(0, 5 if most <= 5 else 7, plan.cluster)]
+    inst = [v for f, v in PTXAS.get(lib, {}).items() if f.startswith(names)]
+    return dict(cluster=plan.cluster, passes=plan.passes, dh_pad=plan.dh_pad, instances=len(inst),
+                max_registers=max((v[0] for v in inst), default=None), spill_stores=sum(v[1] for v in inst),
+                max_active_clusters=occ)
+
+
+def fmt_cluster(c: dict) -> str:
+    return (f"cluster {c['cluster']} x {c['passes']} pass(es), dh {c['dh_pad']}, {c['instances']} instances <= "
+            f"{c['max_registers']} registers, {c['spill_stores']} spill bytes, max active clusters "
+            f"{c['max_active_clusters']}")
 
 
 # [wide shapes]: the production model at the shapes the attention kernels
@@ -4599,12 +4674,12 @@ def wide_kernel_rows(cfg) -> tuple:
     inst = f"dh{dh},F{frames}"
     rows = []
 
-    def add(name, source, replaces, err, t, bound, shape, lib_note):
+    def add(name, source, replaces, err, t, bound, shape, lib_note, cl=None):
         rows.append(dict(name=f"{name}[{inst}]", kernel=name, route="cuda", source=source, replaces=replaces,
                          max_abs_err=err, **t, bound_ms=bound[0], bound_by=bound[1], shape=shape,
-                         library=lib_note))
-        print(f"{tag} {name}[{inst}] max_err={err:.3e} {fmt_times(t, 'sdpa')} bound={bound[0]:.4f} ({shape})",
-              flush=True)
+                         library=lib_note, **({} if cl is None else {"cluster": cl})))
+        print(f"{tag} {name}[{inst}] max_err={err:.3e} {fmt_times(t, 'sdpa')} bound={bound[0]:.4f} ({shape})"
+              + ("" if cl is None else f"; {fmt_cluster(cl)}"), flush=True)
 
     # -- flash: the second mm layer's call (B*A sequences, the 80-frame bias)
     Bf = B * A
@@ -4621,6 +4696,7 @@ def wide_kernel_rows(cfg) -> tuple:
     lib_rel = check_yardstick("flash_attention sdpa", sdpa(), o)
     t = timings(lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid),
                 lambda: attention.flash_attention_plain(q, k, v, mask, fb, fid), sdpa, reps, inner)
+    t["host_ms"] = host_ms(lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid))
     shape = f"q,k,v {tuple(q.shape)} f32, ({frames}, {frames}) frame bias"
     add("flash_attention", "vog_tpu_torch/csrc/attention.cu", "vog_tpu/kernels/attention.py:286", err, t,
         bound_ms(nbytes(q, k, v, mask, fb, fid) + nbytes(q) + nbytes(lse), 4.0 * Bf * H * T * T * dh), shape,
@@ -4637,12 +4713,20 @@ def wide_kernel_rows(cfg) -> tuple:
         got = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode)
         err = max(check_close(f"{name} {n}", x, y) for n, x, y in zip(OUT_NAMES[name], got, ref))
         del got
-        t = {**shared, **{key: x for key, x in timings(
-            lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode),
-            None, None, reps, inner).items() if key in ("ms", "issue_ms")}}
+        call = lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode)  # noqa: E731
+        t = {**shared, **{key: x for key, x in timings(call, None, None, reps, inner).items()
+                          if key in ("ms", "issue_ms")}, "host_ms": host_ms(call)}
         add(name, "vog_tpu_torch/csrc/attention.cu", replaces, err, t, bound, shape,
-            "SDPA backward, grads of q, k, v and the float mask")
-    del q, k, v, do, o, lse, ro, rl, fmask, leaves, sd, lib, ref
+            "SDPA backward, grads of q, k, v and the float mask", cluster_info("flash", dh, "highest", F=frames))
+    dk256 = bwd_by_kernel(lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do), reps, inner)
+    half = [x[..., :128].contiguous() for x in (q, k, v, do)]  # the same shape at half the work: DK 128, no cluster
+    o_h, lse_h = attention.flash_attention_fwd(*half[:3], mask, fb, fid)
+    dk128 = bwd_by_kernel(lambda: attention.flash_attention_bwd(*half[:3], mask, fb, fid, o_h, lse_h, half[3]),
+                          reps, inner)
+    probe = dict(shape=f"{tuple(q.shape)}, recompute, fp32", dk256=dk256, dk128_first_columns=dk128)
+    print(f"{tag} flash_attention_bwd[{inst}] recompute by kernel: {fmt_by_kernel(dk256)}; the DK 128 instance "
+          f"on its first 128 columns: {fmt_by_kernel(dk128)}; {dk256['ms'] / dk128['ms']:.3f}x", flush=True)
+    del q, k, v, do, o, lse, ro, rl, fmask, leaves, sd, lib, ref, half, o_h, lse_h
 
     # -- mm: the first mm layer's call (A args in groups of at most 8) ----
     qm = torch.randn((B, H, T, dh), generator=g, device=dev) * dh ** -0.5
@@ -4659,12 +4743,14 @@ def wide_kernel_rows(cfg) -> tuple:
     lib_rel = check_yardstick("mm_shared_qk_attention sdpa", sdpa().reshape(fwd[0].shape), fwd[0])
     t = timings(lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid),
                 lambda: mm_attention.mm_attention_plain(qm, km, vm, cn, mask, fb, fid), sdpa, reps, inner)
-    groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.arg_groups(A))
+    t["host_ms"] = host_ms(lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid))
+    groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.fwd_groups(A, dh))
     shape = f"qm,km,vm {tuple(qm.shape)}, A={A} ({groups}) f32, ({frames}, {frames}) frame bias"
     add("mm_shared_qk_attention", "vog_tpu_torch/csrc/mm_attention.cu", "vog_tpu/kernels/mm_attention.py:315",
         err, t, bound_ms(nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4,
                          2.0 * B * H * T * T * dh * (1 + A)), shape,
-        f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}")
+        f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}",
+        cluster_info("mm", dh, "highest", A=A))
     gm = torch.randn(fwd[0].shape, generator=g, device=dev)
     ref = mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *rf, gm)
     leaves = [x.detach().clone().requires_grad_() for x in (q_rep, km, vm, fm)]
@@ -4704,7 +4790,36 @@ def wide_kernel_rows(cfg) -> tuple:
     tagger = dict(shape=f"q,k,v {tuple(q.shape)} f32, no bias", max_abs_err=err, **t, bound_ms=bms, bound_by=by)
     print(f"{tag} flash_attention at the tagger's shape {TAGGER_ATTN} (dh 64 instance) max_err={err:.3e} "
           f"{fmt_times(t, 'sdpa')} bound={bms:.4f}", flush=True)
-    return rows, tagger
+    return rows, dict(tagger_flash=tagger, flash_bwd_by_kernel=probe)
+
+
+def bwd_by_kernel(fn, reps: int, inner: int) -> dict:
+    """A backward wrapper's device ms a call (``time_ms``) and its kernels'
+    (``flash_bwd_delta``, ``flash_bwd_dkv``, ``flash_bwd_dq``, the cluster
+    instances under the same names, and the wrapper's other device ops)
+    from a torch.profiler run of ``reps`` calls, taken again (up to three
+    runs) while the trace holds no device time; ``by_kernel`` is empty
+    when none held any."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(fn, reps, inner)
+    by_symbol = {}
+    for _ in range(3):  # a profiler run can come back without device events (seen after earlier ones)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        _, other = device_time_by_kernel(prof, reps, by_symbol)
+        if by_symbol:
+            by_symbol["other ops"] = sum(other.values())  # the wrapper's padding, delta's reduction, ...
+            break
+    return dict(ms=ms, by_kernel=by_symbol)
+
+
+def fmt_by_kernel(b: dict) -> str:
+    return f"{b['ms']:.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in b["by_kernel"].items()) + ")"
 
 
 def phase_wide(card: str) -> tuple:
@@ -4732,7 +4847,7 @@ def phase_wide(card: str) -> tuple:
     print(f"{tag} {WIDE}: head dim {cfg.mdl.vis_dim // cfg.mdl.n_heads}, "
           f"{cfg.ds.num_cmp * cfg.ds.num_frms} frames, T = "
           f"{cfg.ds.num_cmp * cfg.ds.num_frms * cfg.ds.num_prop_per_frm}, A = {cfg.ds.max_srl_args}", flush=True)
-    rows, tagger = wide_kernel_rows(train_cfg(0.1, wide=True))
+    rows, probes = wide_kernel_rows(train_cfg(0.1, wide=True))
     gc.collect()
     torch.cuda.empty_cache()
     tables = DeviceFeatureTables.random(cfg, WIDE_ROWS, seed=0, half=True, device="cuda")
@@ -4772,7 +4887,7 @@ def phase_wide(card: str) -> tuple:
     secs = time.perf_counter() - t_phase
     print(f"{tag} launches: serve {serve_counts}; train {train_counts}; emit / recompute pair {swapped_counts}; "
           f"{secs:.1f} s on {card}", flush=True)
-    return rows, dict(serve=serve, train=train, tagger_flash=tagger, serve_launches=serve_counts,
+    return rows, dict(serve=serve, train=train, **probes, serve_launches=serve_counts,
                       train_launches=train_counts, swapped_launches=swapped_counts, seconds=secs)
 
 
@@ -4808,6 +4923,7 @@ def wider_kernel_rows() -> list:
     its bound.  -> the kernel table rows, without launches."""
     import torch
 
+    from vog_tpu_torch.kernels import _cluster as cluster
     from vog_tpu_torch.kernels import attention, grounding_head, mm_attention
     from vog_tpu_torch.kernels.attention import NEG
 
@@ -4829,16 +4945,18 @@ def wider_kernel_rows() -> list:
         err, _, fro = check_default(name, got, ref, fwd)
         return err, fro
 
-    def add(name, prec, inst, source, replaces, errs, t, fl, nb, shape, library):
+    def add(name, prec, inst, source, replaces, errs, t, fl, nb, shape, library, cl=None):
         peak = PEAK_FLOP_PER_S if prec == "highest" else TF32_FLOP_PER_S
         bms, by = bound_ms(nb, fl, peak)
         kernel = name if prec == "highest" else f"{name}@default"
         rows.append(dict(name=f"{kernel}[{inst}]", kernel=kernel, precision=prec, route="cuda",
                          source=f"vog_tpu_torch/csrc/{source}", replaces=replaces,
                          max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs), **t,
-                         bound_ms=bms, bound_by=by, shape=shape, library=library))
+                         bound_ms=bms, bound_by=by, shape=shape, library=library,
+                         **({} if cl is None else {"cluster": cl})))
         print(f"{tag} {kernel}[{inst}] max_err={rows[-1]['max_abs_err']:.3e} rel={rows[-1]['max_rel_err']:.3e} "
-              f"{fmt_times(t, 'library')} bound={bms:.4f} ({shape})", flush=True)
+              f"{fmt_times(t, 'library')} bound={bms:.4f} ({shape})" + ("" if cl is None else f"; {fmt_cluster(cl)}"),
+              flush=True)
 
     # -- the fused head at B = 2, A = 5, T = 200 --------------------------
     B, A, T = 2, 5, 200
@@ -4890,6 +5008,8 @@ def wider_kernel_rows() -> list:
         H = 1 if dh >= 1024 else 2
         dk, slices = attention.head_dim_instance(dh)
         path = f"the DK {dk} instance's wide path, {slices} column slices"
+        plan = cluster.cluster_plan(dh, A)
+        cl_path = f"the cluster instances, {plan.cluster} blocks a cluster, {plan.passes} pass(es)"
         for B, T, frames in WIDER_ATTN:
             inst = f"dh{dh},T{T},F{frames}"
             fid = (torch.arange(T, device=dev) // (T // frames)).to(torch.int32)
@@ -4915,6 +5035,8 @@ def wider_kernel_rows() -> list:
                 t = run(prec, lambda: timings(
                     lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=prec),
                     lambda: attention.flash_attention_plain(q, k, v, mask, fb, fid), sdpa, reps, inner))
+                t["host_ms"] = run(prec, lambda: host_ms(
+                    lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=prec)))
                 add("flash_attention", prec, inst, "attention.cu", "vog_tpu/kernels/attention.py:286", errs, t,
                     4.0 * B * H * T * T * dh, nbytes(q, k, v, mask, fb, fid) + nbytes(q) + nbytes(lse), shape,
                     "SDPA, the bias and key mask as a float mask")
@@ -4928,13 +5050,15 @@ def wider_kernel_rows() -> list:
                     errs = [check(prec, f"{name} {inst} {prec} {on}", x, y, False)
                             for on, x, y in zip(OUT_NAMES[name], got, ref)]
                     del got
+                    call = lambda: attention.flash_attention_bwd(  # noqa: E731
+                        q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode, precision=prec)
                     t = {**shared, **{kk: vv for kk, vv in run(prec, lambda: timings(
-                        lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode,
-                                                              precision=prec), None, None, reps, inner)).items()
-                        if kk in ("ms", "issue_ms")}}
+                        call, None, None, reps, inner)).items() if kk in ("ms", "issue_ms")},
+                        "host_ms": run(prec, lambda: host_ms(call))}
                     add(name, prec, inst, "attention.cu", replaces, errs, t, 10.0 * B * H * T * T * dh,
-                        nbytes(q, k, v, ro, do, rl, mask, fb, fid) + 3 * nbytes(q) + nbytes(fb), shape + f", {mode}",
-                        "SDPA backward, grads of q, k, v and the float mask")
+                        nbytes(q, k, v, ro, do, rl, mask, fb, fid) + 3 * nbytes(q) + nbytes(fb),
+                        shape.replace(path, cl_path) + f", {mode}", "SDPA backward, grads of q, k, v and the float mask",
+                        cluster_info("flash", dh, prec, F=frames))
                 del ref
             del q, k, v, do, fmask, leaves, sd
             # mm: qm, km, vm (B, H, T, dh), A = 5 args, the frame bias
@@ -4944,7 +5068,10 @@ def wider_kernel_rows() -> list:
             gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
             q_rep, fm = mm_sdpa_inputs(qm, cn, mask, fb, fid)
             groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.arg_groups(A, mm_attention.kernel_args(dh)))
+            fgroups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.fwd_groups(A, dh))
             shape = f"qm,km,vm {tuple(qm.shape)}, A={A} ({groups}) f32, ({frames}, {frames}) frame bias; {path}"
+            fshape = (f"qm,km,vm {tuple(qm.shape)}, A={A} ({fgroups}) f32, ({frames}, {frames}) frame bias; "
+                      f"{cl_path}")
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
                 q_rep, km, vm, attn_mask=fm, scale=1.0)
             leaves = [x.detach().clone().requires_grad_() for x in (q_rep, km, vm, fm)]
@@ -4961,10 +5088,12 @@ def wider_kernel_rows() -> list:
                 t = run(prec, lambda: timings(
                     lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid, precision=prec),
                     lambda: mm_attention.mm_attention_plain(qm, km, vm, cn, mask, fb, fid), sdpa, reps, inner))
+                t["host_ms"] = run(prec, lambda: host_ms(
+                    lambda: mm_attention.mm_attention_fwd(qm, km, vm, cn, mask, fb, fid, precision=prec)))
                 add("mm_shared_qk_attention", prec, inst, "mm_attention.cu", "vog_tpu/kernels/mm_attention.py:315",
                     errs, t, 2.0 * B * H * T * T * dh * (1 + A),
-                    nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4, shape,
-                    "SDPA, query repeated over A, float mask (B,H,A*T,T)")
+                    nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4, fshape,
+                    "SDPA, query repeated over A, float mask (B,H,A*T,T)", cluster_info("mm", dh, prec, A=A))
                 ref = run("highest", lambda: mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid,
                                                                                  *rf, gm))
                 shared = run(prec, lambda: timings(
@@ -5068,11 +5197,12 @@ def run_wide(card: str) -> tuple:
     for r in rows:
         r["max_rel_err"] = WORST_REL.get(r["kernel"], 0.0)
     wider_rows, wide["wider"] = phase_wider(card)
+    rows = rows + wider_rows
     WORST_REL.clear()
     WORST_REL.update(kept)
     WORST_DEFAULT.clear()
     WORST_DEFAULT.update(kept_default)
-    return rows + wider_rows, wide
+    return rows, wide
 
 
 def watch_context_warnings() -> None:

@@ -696,29 +696,59 @@ def test_dropout_bits_cpu_equal_card(dev):
 # than a block's shared table (65, 80, 160), more args than a launch (9, 12)
 # --------------------------------------------------------------------------
 # (kernel, dh, F, A): flash at each head-dim instance and past 64 frames; mm
-# at DK 256, past 64 frames, and in groups of args (9 -> 5 + 4, 12 -> 6 + 6)
+# at DK 256, past 64 frames, and in groups of args (9 -> 5 + 4, 12 -> 6 + 6).
+# Past dh 128 the flash backward and the mm forward are the cluster
+# instances (csrc/cluster.cuh): 2 slices at dh 136-256, 3 at 300, 4 at 385
+# (padded to 388) and 512, 8 at 1024, 9 at 1100 (two passes of 5 blocks)
 WIDE_CASES = [("flash", 64, 10, None), ("flash", 200, 10, None), ("flash", 256, 65, None),
               ("flash", 40, 80, None), ("flash", 256, 160, None), ("flash", 64, 160, None),
               ("mm", 200, 10, 5), ("mm", 256, 80, 5), ("mm", 128, 65, 3), ("mm", 40, 160, 2),
               ("mm", 64, 10, 9), ("mm", 256, 10, 12),
               # past 256, the wide path: 4 slices, 3 (dh 300 not a multiple of 8), 8 (dh 1024)
               ("flash", 512, 10, None), ("flash", 300, 80, None), ("flash", 1024, 2, None),
-              ("mm", 512, 10, 5), ("mm", 300, 80, 9), ("mm", 1024, 10, 2)]
+              ("mm", 512, 10, 5), ("mm", 300, 80, 9), ("mm", 1024, 10, 2),
+              # the cluster instances' edges: dh 136, dh 385 (padded), past 1024 (two passes), A 1
+              ("flash", 136, 10, None), ("flash", 385, 65, None), ("flash", 1100, 160, None),
+              ("mm", 136, 65, 1), ("mm", 385, 160, 5), ("mm", 1100, 10, 12), ("mm", 1024, 65, 9)]
+
+
+# and with every row matrix (q, k, v and the output gradient) a contiguous
+# view one float past a 16-byte boundary: past dh 128 the cluster kernels'
+# TMA needs 16-byte base addresses, so the wrappers copy such a view
+# (``pad_cols``), also where dh needs no padding (388, 256, 260)
+MISALIGNED_CASES = [("flash", 388, 10, None), ("flash", 256, 65, None), ("mm", 260, 10, 5), ("mm", 1100, 10, 2)]
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous view that starts one float past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
 
 
 @pytest.mark.parametrize("precision", ["highest", "default"])
-@pytest.mark.parametrize("kernel,dh,F,A", WIDE_CASES)
-def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
+@pytest.mark.parametrize("kernel,dh,F,A,misaligned",
+                         [c + (False,) for c in WIDE_CASES] + [c + (True,) for c in MISALIGNED_CASES],
+                         ids=["-".join(map(str, c)) for c in WIDE_CASES]
+                         + ["-".join(map(str, c)) + "-misaligned" for c in MISALIGNED_CASES])
+def test_wide_instance_matches_plain(dev, kernel, dh, F, A, misaligned, precision):
     """Each wide instance's forward and its backward in both modes against
     the plain versions (at "highest": ``_close`` / ``_close_rel``, a batch
     row with every key masked; at "default": ``_close_default``), launches
-    counted once a group of args, and the recompute mode bitwise on a
-    repeat call (frame sums in a fixed order, no atomics)."""
+    counted once a group of args (the mm forward's ``fwd_groups``), and
+    every output bitwise on a repeat call (frame sums and the cluster's
+    score partials in a fixed order, no atomics); ``misaligned``: the row
+    matrices are ``_misaligned`` views."""
     from vog_tpu_torch.kernels import _build, attention, mm_attention
 
     high = precision == "highest"
+    rows = _misaligned if misaligned else (lambda t: t)
     T = 3 * F + 5 if F > 10 else 77
     g, q, k, v, mask, fb, fid = _attn_inputs(dev, 2, 2, T, dh, F, all_masked=high)
+    q, k, v = rows(q), rows(k), rows(v)
     n = 1 if high else 2  # rows checked of the forward's statistics (the all-masked row's sit at -1e30)
     fwd_check = _close if high else (lambda a, b: _close_default(a, b, True))
     bwd_check = _close if high else (lambda a, b: _close_default(a, b, False))
@@ -728,9 +758,11 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
         o, lse = attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=precision)
         torch.cuda.synchronize()
         assert _build.launches == {_build.variant("flash_attention", precision): 1}
+        assert all(torch.equal(a, b) for a, b in zip(
+            (o, lse), attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=precision)))
         fwd_check(o, ro)
         fwd_check(lse[:n], rl[:n])
-        do = torch.randn(o.shape, generator=g, device=dev)
+        do = rows(torch.randn(o.shape, generator=g, device=dev))
         ref = attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do)
         for mode, name in (("recompute", "flash_attention_bwd"), ("emit", "flash_attention_bwd_emit")):
             _build.reset_counts()
@@ -740,23 +772,25 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
             assert _build.launches == {_build.variant(name, precision): 1}
             for a, b in zip(got, ref):
                 bwd_check(a, b)
-            if mode == "recompute":
-                again = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode,
-                                                      precision=precision)
-                assert all(torch.equal(a, b) for a, b in zip(got, again))
+            again = attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do, bwd_mode=mode,
+                                                  precision=precision)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
         return
+    fwd_groups = len(mm_attention.fwd_groups(A, dh))
     groups = len(mm_attention.arg_groups(A, mm_attention.kernel_args(dh)))
-    qm = q * dh ** -0.5
+    qm = rows(q * dh ** -0.5)
     cn = -3 * torch.rand((2, 2, A, T), generator=g, device=dev)
     rf = mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid)
     _build.reset_counts()
     out = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid, precision=precision)
     torch.cuda.synchronize()
-    assert _build.launches == {_build.variant("mm_shared_qk_attention", precision): groups}
+    assert _build.launches == {_build.variant("mm_shared_qk_attention", precision): fwd_groups}
+    assert all(torch.equal(a, b) for a, b in zip(
+        out, mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid, precision=precision)))
     (_close_rel if high else fwd_check)(out[0], rf[0])
     for x, y in zip(out[1:], rf[1:]):
         fwd_check(x[:n], y[:n])
-    go = torch.randn(rf[0].shape, generator=g, device=dev)
+    go = rows(torch.randn(rf[0].shape, generator=g, device=dev))
     ref = mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid, *rf, go)
     for mode, name in (("emit", "mm_shared_qk_attention_bwd"), ("recompute", "mm_shared_qk_attention_bwd_recompute")):
         _build.reset_counts()
@@ -766,10 +800,9 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, precision):
         assert _build.launches == {_build.variant(name, precision): groups}
         for a, b in zip(got, ref):
             (_close_rel if high else bwd_check)(a, b)
-        if mode == "recompute":
-            again = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
-                                                  precision=precision)
-            assert all(torch.equal(a, b) for a, b in zip(got, again))
+        again = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
+                                              precision=precision)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_wrappers_raise_past_the_widest_head_dim(dev):

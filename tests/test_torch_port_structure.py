@@ -223,7 +223,7 @@ def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setenv("VOG_TORCH_BUILD_DIR", str(tmp_path / "build"))
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["device.cuh", "tf32.cuh", "tiles.cuh"]
+    assert [h.name for h in headers] == ["cluster.cuh", "device.cuh", "tf32.cuh", "tiles.cuh"]
     before = {src: _build._lib_path(src) for src in _build.SOURCES}
     assert before == {src: _build._lib_path(src) for src in _build.SOURCES}
     assert all(p.name.startswith(pathlib.Path(src).stem + "-") for src, p in before.items())
@@ -241,8 +241,10 @@ def _kernel_bodies(text):
 def test_flash_kernels_use_tensor_cores_and_async_copies():
     """Every flash kernel multiplies with 3xTF32 mma.sync (tf32.cuh,
     through the tile products of tiles.cuh) and streams its tiles with
-    cp.async; the head shares the same header.  (flash_bwd_delta, the
-    backward's row sums, has no product.)"""
+    cp.async, or past head dim 128 (the backward's cluster kernels) by TMA
+    on mbarriers, its score partials summed over the cluster
+    (cluster.cuh); the head shares the same header.  (flash_bwd_delta,
+    the backward's row sums, has no product.)"""
     csrc = PKG / "csrc"
     header = (csrc / "tf32.cuh").read_text()
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
@@ -262,11 +264,22 @@ def test_flash_kernels_use_tensor_cores_and_async_copies():
     text = (csrc / "attention.cu").read_text()
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd"]
+    assert sorted(bodies) == ["flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dkv_cl", "flash_bwd_dq",
+                              "flash_bwd_dq_cl", "flash_fwd"]
     del bodies["flash_bwd_delta"]
+    assert '#include "cluster.cuh"' in text
+    cluster = (csrc / "cluster.cuh").read_text()
+    assert "cp.async.bulk.tensor.3d" in cluster and "mbarrier.try_wait.parity" in cluster
+    assert "map_shared_rank(" in cluster and "barrier.cluster.arrive" in cluster
+    assert "cudaLaunchAttributeClusterDimension" in cluster and "cuTensorMapEncodeTiled" in cluster
     for name, body in bodies.items():
         assert "scores<" in body and "accumulate<" in body, name
-        assert "load_rows<" in body and "cp_wait_all()" in body, name
+        if name.endswith("_cl"):  # TMA tiles, the partials summed once over the cluster
+            assert "tma_load(" in body and "mbar_wait(" in body, name
+            assert "put_partial<" in body and "sum_partials<" in body and "cluster_wait()" in body, name
+            assert "load_rows<" not in body and "scores_g<" not in body, name
+        else:
+            assert "load_rows<" in body and "cp_wait_all()" in body, name
 
 
 def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
@@ -279,12 +292,18 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     text = (csrc / "mm_attention.cu").read_text()
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq", "mm_fwd"]
+    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq", "mm_fwd", "mm_fwd_cl"]
     fwd = bodies["mm_fwd"]
     # S = Q K^T once per key tile; P_a V for every arg (3xTF32, or one pass)
     assert fwd.count("mma_p<kOnePass>(") == 2
     assert fwd.count("frag_bt<kLd>(") == 1 and "frag_b_pairs<kLd>(" in fwd and "split<kOnePass>(" in fwd
     assert "load_rows<" in fwd and "cp_async4(" in fwd and "cp_wait_all()" in fwd
+    # past head dim 128: the same tile, the block's columns by TMA, S summed once over the cluster
+    cl = bodies["mm_fwd_cl"]
+    assert cl.count("mma_p<kOnePass>(") == 2
+    assert cl.count("frag_bt<kCLd>(") == 1 and "frag_b_pairs<kCLd>(" in cl and "split<kOnePass>(" in cl
+    assert "tma_load(" in cl and "cp_async4(" in cl and "mbar_wait(" in cl
+    assert cl.count("put_partial<1>(") == 1 and cl.count("sum_partials<1>(") == 1
     assert 'extern "C" int vog_mm_bwd(' in text and 'extern "C" int vog_mm_fwd(' in text
     gather = (csrc / "gather.cu").read_text()
     assert "ld.global.nc.L1::no_allocate.v4.u32" in gather and "st.global.cs.v4.u32" in gather
@@ -323,10 +342,15 @@ def test_backward_modes_not_default_have_kernels_of_their_own():
     csrc = PKG / "csrc"
     flash = (csrc / "attention.cu").read_text()
     dkv = _kernel_bodies(flash)["flash_bwd_dkv"]
-    assert "if (kEmit && z == 0)" in dkv and "ds + ((size_t)bh * T + qi) * T" in dkv
+    assert "if (kEmit) {" in dkv and "ds + ((size_t)bh * T + qi) * T" in dkv
+    dkv_cl = _kernel_bodies(flash)["flash_bwd_dkv_cl"]  # past dh 128: one block of the cluster stores ds
+    assert "if (kEmit && zs == 0)" in dkv_cl and "ds + ((size_t)bh * T + qi) * T" in dkv_cl
     entry = flash[flash.index("int launch_bwd("):]  # the entry point's launches, at each head dim
     assert "flash_bwd_dkv<DK, kSmemTable, true>" in entry and "|| emit) return" in entry
-    assert "VOG_FLASH_DISPATCH(launch_bwd," in flash[flash.index('extern "C" int vog_flash_bwd('):]
+    cl_entry = flash[flash.index("int launch_bwd_cl("):]
+    assert "flash_bwd_dkv_cl<kGlobalTable, true, kDkv>" in cl_entry and "if (emit) return 0;" in cl_entry
+    vog = flash[flash.index('extern "C" int vog_flash_bwd('):]
+    assert "launch_bwd<64>(" in vog and "launch_bwd<128>(" in vog and "launch_bwd_cl(" in vog
     mm = (csrc / "mm_attention.cu").read_text()
     assert "if (!kEmit || !first) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
     dq = _kernel_bodies(mm)["mm_bwd_dq"]

@@ -31,30 +31,36 @@
 //    dV += P^T dO, dK += dS^T Q and dQ += dS K backward.  The operands are
 //    split with split_int (two integer/fp32 operations, no conversion
 //    instruction).
-//  * The head dim is a compile-time parameter: instances at DK 64, 128
-//    and 256 (a call pads dh up to the next one with zeros), so every loop
-//    over it unrolls and the loads run ahead of the products, and a dh-64
-//    call (the BERT tagger's) runs no k-steps on padding.  At DK 256 a
-//    tile of rows has two blocks (grid.z), each accumulating a 128-column
-//    slice of the output after computing the whole scores (tiles.cuh
-//    §HeadDim): the accumulators stay at DK 128's registers.  A score tile
-//    is summed in two accumulator sets (even and odd k-steps) so that its
-//    dependent mma chains are half as long.  Past 256 the DK 128 instances
-//    take the wide path (template flag W, tiles.cuh): ceil(dh / 128) blocks
-//    a tile of rows, each staging only its 128-column slice of the rows its
-//    accumulating products read (V; Q and dO; K) and reading the score
-//    products' operands from device memory (scores_g), so the resident
-//    rows that no longer fit (64 query rows are 132 KB at dh 512) are
-//    never staged; the frame table is read from device memory at any F.
+//  * The head dim is a compile-time parameter: instances at DK 64 and 128
+//    (a call pads dh up to the next one with zeros), so every loop over it
+//    unrolls and the loads run ahead of the products, and a dh-64 call
+//    (the BERT tagger's) runs no k-steps on padding.  A score tile is
+//    summed in two accumulator sets (even and odd k-steps) so that its
+//    dependent mma chains are half as long.
+//  * Past 128 the backward is flash_bwd_dkv_cl and flash_bwd_dq_cl, the
+//    head dim split over a thread block cluster (cluster.cuh): ceil(dh /
+//    128) blocks a tile of rows, each staging by TMA and accumulating only
+//    its 128 columns, the score partials (S and dP) summed once over the
+//    cluster through distributed shared memory in rank order.  The design
+//    it replaced (a DK 256 instance, and past 256 the DK 128 instances'
+//    wide path, template flag W) redid the whole S and dP in every block
+//    of a tile, 2x at DK 256 and 8x at dh 1024, the wide path's operands
+//    read fragment by fragment from L2 (scores_g); the two designs' times
+//    on the H100 are in PERF.md (section 6).  The forward
+//    keeps that design: flash_fwd at DK 256 (two column slices a tile,
+//    each computing the scores) and past 256 its wide path (W: S from
+//    device memory, V's column slice staged).
 //  * The resident rows (Q, or Q and dO, or K and V) stay in shared memory
 //    and are split as their fragments are read.  The streamed tiles (K/V
 //    in flash_fwd, 32 rows, 16 at DK 256; K/V in flash_bwd_dq and Q/dO in
 //    flash_bwd_dkv, 16 rows) come in by cp.async (16-byte copies,
-//    zero-filled past T and past dh) into a two-stage ring: tile i+1 loads
-//    while tile i is multiplied, with one __syncthreads a tile.  Shared
-//    memory: 101 KB a block at DK 128, two blocks (8 warps) an SM, which at
-//    GT5 holds the whole grid (256 blocks) at once; 200 KB at DK 256 (133
-//    KB forward), one block an SM.
+//    zero-filled past T and past dh; by TMA in the cluster kernels) into a
+//    two-stage ring: tile i+1 loads while tile i is multiplied, with one
+//    __syncthreads a tile.  Shared memory: 101 KB a block at DK 128, two
+//    blocks (8 warps) an SM, which at GT5 holds the whole grid (256
+//    blocks) at once; 133 KB for flash_fwd at DK 256, one block an SM;
+//    107-111 KB for the cluster kernels (their 128 columns and the two
+//    partials), two blocks an SM.
 //    The (F, F) bias table sits in shared memory up to 64 frames, and is
 //    read from device memory (L2) past that (tiles.cuh §kTableF,
 //    §TableMode).
@@ -86,8 +92,9 @@
 //                  order: the frame-bias gradient is the same on every run
 //                  (no float atomics).  Past 64 frames a tile of rows has
 //                  ceil(F / 64) blocks, block z summing key frames
-//                  64z..64z+63 (and computing dq's column slice z at DK
-//                  256), each in that order.  With F == 1 the gradient of the scalar
+//                  64z..64z+63, each in that order (the cluster kernel:
+//                  rank z of a group of clusters in grid.x, grid.z being
+//                  the cluster's).  With F == 1 the gradient of the scalar
 //                  is sum_ij ds_ij, zero for every row up to rounding
 //                  (sum_j p_ij dp_ij = delta_i), so the pass is skipped and
 //                  the wrapper returns zeros.
@@ -120,6 +127,7 @@
 #include <stdint.h>
 
 #include "tiles.cuh"  // cp.async row tiles, fragments, scores, accumulate (3xTF32), HeadDim
+#include "cluster.cuh"  // the head dim split over a cluster: slices, barriers, TMA, partials
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 namespace {
@@ -292,12 +300,10 @@ flash_bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
   row_dots(o, dout, delta, rows, dh);
 }
 
-// kEmit: also store the masked ds (B*H, T, T), query-major ("emit" mode);
-// at DK 256 (and on the wide path) the block of column slice 0 stores it.
-// W: the wide path: S^T and dP^T from device memory, the Q and dO tiles'
-// column slice z staged, no resident K and V.
-template <int DK, int TM, bool kEmit, bool W = false>
-__global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
+// kEmit: also store the masked ds (B*H, T, T), query-major ("emit" mode).
+// DK 64 and 128 (past 128: flash_bwd_dkv_cl).
+template <int DK, int TM, bool kEmit>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -306,12 +312,12 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ dv, DsT* __restrict__ ds, int H, int T, int dh,
               int F, float scale, bool vec) {
   using HD = HeadDim<DK>;
+  static_assert(HD::kSlices == 1, "one block a tile of keys");
   constexpr int kLd = HD::kLd;
   constexpr int NT = kTileB / 8;
   constexpr bool kFrames = TM != kNoTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
-  const int k0 = blockIdx.x * kRows, c0 = z * HD::kDV;
+  const int k0 = blockIdx.x * kRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -330,13 +336,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + base;
   const float* ob = dout + base;
   auto stage = [&](int s, int i0) {
-    if constexpr (W) {
-      load_slice<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, c0, vec);
-      load_slice<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, c0, vec);
-    } else {
-      load_rows<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
-      load_rows<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
-    }
+    load_rows<kTileB, kThreads, DK>(Qs + s * kTileB * kLd, qb, i0, T, dh, vec);
+    load_rows<kTileB, kThreads, DK>(Os + s * kTileB * kLd, ob, i0, T, dh, vec);
     if (tid < kTileB) {
       const int qi = i0 + tid;
       ls[s * kTileB + tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
@@ -347,10 +348,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   };
   stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  if constexpr (!W) {
-    load_rows<kRows, kThreads, DK>(Ks, k + base, k0, T, dh, vec);
-    load_rows<kRows, kThreads, DK>(Vs, v + base, k0, T, dh, vec);
-  }
+  load_rows<kRows, kThreads, DK>(Ks, k + base, k0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Vs, v + base, k0, T, dh, vec);
   stage(0, 0);  // one group: K, V and the first Q/dO tile
   const int none = all_masked(key_mask, b, T);
   const float p_none = 1.f / (float)T;
@@ -377,10 +376,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
 
     // S^T = K Q^T and dP^T = V dO^T (16 keys x kTileB queries a warp)
     float st[NT][4], dpt[NT][4];
-    if constexpr (W)
-      scores_g<NT, true>(st, dpt, k + base, qb, v + base, ob, k0 + warp * 16, it * kTileB, T, dh, g, t);
-    else
-      scores<NT, true, DK>(st, dpt, Kw, Qt, Vw, Ot, g, t);
+    scores<NT, true, DK>(st, dpt, Kw, Qt, Vw, Ot, g, t);
 
     // p and ds on the C fragments: key kr0 (c0, c1) and kr0 + 8 (c2, c3)
 #pragma unroll
@@ -400,9 +396,9 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
 
-    accumulate<NT, HD::kNV, kLd>(adv, st, Ot + (W ? 0 : c0), g, t);   // dV += P^T dO
-    accumulate<NT, HD::kNV, kLd>(adk, dpt, Qt + (W ? 0 : c0), g, t);  // dK += dS^T Q
-    if (kEmit && z == 0) {  // ds[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
+    accumulate<NT, HD::kNV, kLd>(adv, st, Ot, g, t);   // dV += P^T dO
+    accumulate<NT, HD::kNV, kLd>(adk, dpt, Qt, g, t);  // dK += dS^T Q
+    if (kEmit) {  // ds[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -416,19 +412,17 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  store_rows(dk + base, adk, kr0, c0, T, dh, t, scale, scale);
-  store_rows(dv + base, adv, kr0, c0, T, dh, t, 1.f, 1.f);
+  store_rows(dk + base, adk, kr0, 0, T, dh, t, scale, scale);
+  store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
 }
 
-// Block z of a tile of rows computes dq's column slice z (z < kSlices) and,
-// with frames, sums ds over key frames 64z..64z+63 (z < ceil(F / 64)): a
-// launch has max(kSlices, ceil(F / 64)) blocks a tile (grid.z), each
-// summing its frames in the one fixed order, so the frame-bias gradient
-// takes any F with the registers and the order of F <= 64.  W: the wide
-// path: ceil(dh / 128) slices, S and dP from device memory, the K tile's
-// column slice z staged, no resident Q and dO.
-template <int DK, int TM, bool W = false>
-__global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
+// With frames, block z of a tile of rows sums ds over key frames
+// 64z..64z+63 (z < ceil(F / 64)): a launch has ceil(F / 64) blocks a tile
+// (grid.z), each summing its frames in the one fixed order, so the
+// frame-bias gradient takes any F with the registers and the order of F <=
+// 64; block 0 also computes dq.  DK 64 and 128 (past 128: flash_bwd_dq_cl).
+template <int DK, int TM>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
@@ -437,17 +431,17 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              float* __restrict__ dfb_part, int H, int T, int dh, int F,
              float scale, bool vec) {
   using HD = HeadDim<DK>;
+  static_assert(HD::kSlices == 1, "one column slice");
   constexpr int kLd = HD::kLd;
   constexpr int NT = kTileB / 8;
   // after the key loop the frame sums of the rows (kRows x kFrameTile) take the K/V ring's place
   static_assert(4 * kTileB * kLd >= kRows * kFrameTile, "the frame sums fit the K/V ring");
   constexpr bool kFrames = TM != kNoTable;
-  // one block a tile of rows: no slices, the frames (if any) in one tile
-  constexpr bool kOne = !W && HD::kSlices == 1 && TM != kGlobalTable;
+  // one block a tile of rows: the frames (if any) in one tile
+  constexpr bool kOne = TM != kGlobalTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kRows, z = kOne ? 0 : blockIdx.z;
-  const bool do_dq = kOne || z < (W ? wide_slices(dh) : HD::kSlices);  // dq's column slice z
-  const int c0 = W || HD::kSlices > 1 ? z * HD::kDV : 0;
+  const bool do_dq = z == 0;
   const int fbase = kFrameTile * z;              // frames 64z..64z+63
   const bool do_fr = kFrames && (kOne || fbase < F);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -467,21 +461,15 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    if constexpr (W) {  // past dh (a block of frame tiles alone): zeros
-      load_slice<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, c0, vec);
-    } else {
-      load_rows<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
-      load_rows<kTileB, kThreads, DK>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
-    }
+    load_rows<kTileB, kThreads, DK>(Ks + s * kTileB * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileB, kThreads, DK>(Vs + s * kTileB * kLd, vb, j0, T, dh, vec);
     if (tid < kTileB) codes[s * kTileB + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  if constexpr (!W) {
-    load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
-    load_rows<kRows, kThreads, DK>(Os, dout + base, q0, T, dh, vec);
-  }
+  load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Os, dout + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q, dO and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -514,10 +502,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
     // S = Q K^T and dP = dO V^T (16 rows x kTileB keys a warp)
     float sc[NT][4], dp[NT][4];
-    if constexpr (W)
-      scores_g<NT, true>(sc, dp, q + base, kb, dout + base, vb, q0 + warp * 16, it * kTileB, T, dh, g, t);
-    else
-      scores<NT, true, DK>(sc, dp, Qw, Kt, Ow, Vt, g, t);
+    scores<NT, true, DK>(sc, dp, Qw, Kt, Ow, Vt, g, t);
 
     // ds on the C fragments (masked keys and keys past T give 0)
 #pragma unroll
@@ -536,7 +521,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
         sc[j][2 + e] = d1;
       }
 
-    if (do_dq) accumulate<NT, HD::kNV, kLd>(acc, sc, Kt + (W ? 0 : c0), g, t);  // dQ += dS K
+    if (do_dq) accumulate<NT, HD::kNV, kLd>(acc, sc, Kt, g, t);  // dQ += dS K
 
     if (do_fr) {
       // the warp's ds tile through shared memory, then a lane per key
@@ -564,7 +549,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  if (do_dq) store_rows(dqo + base, acc, r0, c0, T, dh, t, scale, scale);
+  if (do_dq) store_rows(dqo + base, acc, r0, 0, T, dh, t, scale, scale);
   if (!do_fr) return;
   __syncthreads();  // every warp is done with the K/V ring
   float* racc = Ks;  // kRows x kFrameTile: the rows' sums over this block's frames
@@ -584,6 +569,382 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < kRows && q0 + r < T; ++r)
       if (fid[q0 + r] == f) sum += racc[r * kFrameTile + gk];
     part[f * F + fbase + gk] = sum;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward past head dim 128: the head dim split over a cluster (cluster.cuh)
+// ---------------------------------------------------------------------------
+// The narrow kernels' blocks (4 warps, 64 rows, 16-row streamed tiles) for
+// column slice zs = z + n pass of a cluster of n blocks: the resident rows
+// and the streamed tiles are the block's 128 columns, by TMA; each warp's
+// partial S and dP over them are summed over the cluster in rank order, and
+// the rest of a tile (p, ds, the masks, the accumulating products over the
+// block's columns) is the narrow kernels'.  The frame table is read from
+// device memory at any F.  The score products are rolled in chunks of
+// kClChunk k-steps, S and dP one after the other, each stored to the
+// partial as it is done: the narrow dkv kernel's two products of 16
+// unrolled k-steps spill (ptxas), beside its 128 accumulators a lane.
+constexpr int kClPart = kWarps * 32 * 4 * (kTileB / 8);  // floats of a block's partial S (or dP)
+constexpr int kClChunk = 8;
+
+// DK 128's fragments and products over the block's slice
+using HS = HeadDim<kSlice>;
+
+// The parts of flash_bwd_dkv_cl an instance computes: dK and dV (one pass,
+// no other slices), or past 8 slices (the instances that add a block's
+// other slices, kX) dV alone (S alone) or dK alone (S and dP, and emit
+// mode's ds), one launch each a pass, so that the other slices' operand
+// rows and reads fit beside 64 accumulators a lane, not 128 (spills)
+enum DkvPart : int { kDkv = 0, kDvX = 1, kDkX = 2 };
+
+template <int TM, bool kEmit, int kPart>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+                 const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                 const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                 const float* __restrict__ key_mask, const float* __restrict__ fb, const int* __restrict__ fid,
+                 float* __restrict__ dk, float* __restrict__ dv, DsT* __restrict__ ds, int H, int T, int dh,
+                 int F, float scale, int pass) {
+  constexpr int kLd = kSliceLd;
+  constexpr int NT = kTileB / 8;
+  constexpr bool kFrames = TM != kNoTable;
+  constexpr bool kX = kPart != kDkv;          // other slices, read from device memory
+  constexpr bool kDV = kPart != kDkX;         // dV += P^T dO
+  constexpr bool kDK = kPart != kDvX;         // dP, ds and dK += dS^T Q
+  const int z = (int)cg::this_cluster().block_rank();
+  const int zs = slice_of<kX>(z, pass);  // the slice this block stages and accumulates
+  const bool own = owns<kX>(zs, dh);     // (else it stages slice 0 and adds only its other slices' partials)
+  const int cz = kSlice * (own ? zs : 0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);                // kRows x kLd
+  float* Vs = Ks + kRows * kLd;                                // kRows x kLd
+  float* Qs = Vs + kRows * kLd;                                // 2 stages x kTileB x kLd
+  float* Os = Qs + 2 * kTileB * kLd;                           // 2 stages x kTileB x kLd: dO
+  float* Sp = Os + 2 * kTileB * kLd;                           // kClPart: this block's partial S^T
+  float* Dp = Sp + kClPart;                                    // kClPart: its partial dP^T
+  float* ls = Dp + kClPart;                                    // 2 x kTileB: lse
+  float* dls = ls + 2 * kTileB;                                // 2 x kTileB: delta
+  int* fqs = reinterpret_cast<int*>(dls + 2 * kTileB);        // 2 x kTileB: query frame, -1 past T
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fqs + 2 * kTileB);  // K/V, then the Q/dO stages
+  const float* fbg = head_table(fb, h, F, kFrames);
+  const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
+
+  const size_t base = (size_t)bh * T * dh;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto stage = [&](int s, int i0) {
+    if (tid == 0) {
+      mbar_expect(bars + 1 + s, 2 * box_bytes(kTileB));
+      tma_load(Qs + s * kTileB * kLd, &qmap, cz, i0, bh, bars + 1 + s);
+      tma_load(Os + s * kTileB * kLd, &omap, cz, i0, bh, bars + 1 + s);
+    }
+    if (tid < kTileB) {
+      const int qi = i0 + tid;
+      ls[s * kTileB + tid] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+      dls[s * kTileB + tid] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+      fqs[s * kTileB + tid] = qi < T ? (kFrames ? fid[qi] : 0) : -1;
+    }
+  };
+  if (tid == 0) {
+    mbar_expect(bars, 2 * box_bytes(kRows));
+    tma_load(Ks, &kmap, cz, k0, bh, bars);
+    tma_load(Vs, &vmap, cz, k0, bh, bars);
+  }
+  stage(0, 0);
+  const int none = all_masked(key_mask, b, T);
+  const float p_none = 1.f / (float)T;
+
+  const int kr0 = k0 + warp * 16 + g;  // this lane's keys: kr0 and kr0 + 8
+  const int kc[2] = {key_code<kFrames>(key_mask, fid, b, kr0, T), key_code<kFrames>(key_mask, fid, b, kr0 + 8, T)};
+  const float* Kw = Ks + warp * 16 * kLd;
+  const float* Vw = Vs + warp * 16 * kLd;
+  float adk[kDK ? HS::kNV : 1][4], adv[kDV ? HS::kNV : 1][4];
+  zero(adk);
+  zero(adv);
+  mbar_wait(bars, 0);  // the K and V rows
+
+  const int ntiles = (T + kTileB - 1) / kTileB;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    __syncthreads();  // tile it's statistics are in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kTileB);
+    mbar_wait(bars + 1 + s, (it >> 1) & 1);  // tile it's Q and dO
+    const float* Qt = Qs + s * kTileB * kLd;
+    const float* Ot = Os + s * kTileB * kLd;
+    const float* lt = ls + s * kTileB;
+    const float* dlt = dls + s * kTileB;
+    const int* ft = fqs + s * kTileB;
+
+    // S^T = K Q^T and dP^T = V dO^T (16 keys x kTileB queries a warp): the
+    // block's partials, summed over the cluster
+    float st[NT][4], dpt[NT][4];
+    zero(st);
+    if (own) scores<NT, false, kSlice, kOnePass, kClChunk>(st, st, Kw, Qt, Kw, Qt, g, t);
+    if constexpr (kX) add_other_slices<NT>(st, k + base, q + base, k0 + warp * 16, it * kTileB, T, dh, z, pass, g, t);
+    if (it > 0) cluster_wait();  // every peer has read this block's partials of tile it - 1
+    put_partial<NT>(Sp, st, warp, lane);
+    if constexpr (kDK) {
+      zero(dpt);
+      if (own) scores<NT, false, kSlice, kOnePass, kClChunk>(dpt, dpt, Vw, Ot, Vw, Ot, g, t);
+      if constexpr (kX)
+        add_other_slices<NT>(dpt, v + base, dout + base, k0 + warp * 16, it * kTileB, T, dh, z, pass, g, t);
+      put_partial<NT>(Dp, dpt, warp, lane);
+    }
+    cluster_arrive();
+    cluster_wait();  // every block's partials are in
+
+    // p on the C fragments: key kr0 (c0, c1) and kr0 + 8 (c2, c3); then dV
+    sum_partials<NT>(st, Sp, warp, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float li = lt[col];
+        const int fq = ft[col];  // -1: query past T
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int c = kc[r], i = 2 * r + e;
+          const float x = c >= 0 ? st[j][i] * scale + bias<TM>(nullptr, fbg, fb0, F, max(fq, 0), c) : kNeg;
+          st[j][i] = (fq < 0 || c == kPast) ? 0.f : (none ? p_none : expf(x - li));
+        }
+      }
+    if constexpr (kDV) accumulate<NT, HS::kNV, kLd>(adv, st, Ot, g, t);  // dV += P^T dO
+    if constexpr (kDK) {  // ds = p (dp - delta) on the valid keys, dK += dS^T Q
+      sum_partials<NT>(dpt, Dp, warp, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float di = dlt[8 * j + 2 * t + e];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 2 * r + e;
+            dpt[j][i] = kc[r] >= 0 ? st[j][i] * (dpt[j][i] - di) : 0.f;
+          }
+        }
+    }
+    cluster_arrive();  // this block is done with its peers' partials
+    if constexpr (kDK) {
+      accumulate<NT, HS::kNV, kLd>(adk, dpt, Qt, g, t);
+      if (kEmit && zs == 0) {  // ds[bh, q, k], by one block of the cluster
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qi = it * kTileB + 8 * j + 2 * t + e;
+            if (qi >= T) continue;
+            DsT* row = ds + ((size_t)bh * T + qi) * T;
+            if (kr0 < T) store_ds(row + kr0, dpt[j][e]);
+            if (kr0 + 8 < T) store_ds(row + kr0 + 8, dpt[j][2 + e]);
+          }
+      }
+    }
+  }
+  cluster_wait();  // no peer reads this block's partials any more
+  if (!own) return;
+  if constexpr (kDK) store_rows(dk + base, adk, kr0, cz, T, dh, t, scale, scale);
+  if constexpr (kDV) store_rows(dv + base, adv, kr0, cz, T, dh, t, 1.f, 1.f);
+}
+
+// flash_bwd_dq over a cluster: block (tile of rows rt, group c) of rank z
+// computes dq's slice zs (group 0) and, in pass 0 with frames, sums ds over
+// frame tile c n + z (key frames 64 (c n + z) ..), in the narrow kernel's
+// order, into its tile's (F, F) partial: each partial cell by one block.
+// kPart: both (one pass), or past 8 slices (kX) dQ alone and the frame
+// sums alone, two launches (dQ's 64 accumulators and the sums' 32 beside
+// the other slices' reads spilled).
+enum DqPart : int { kDq = 0, kDqX = 1, kFrX = 2 };
+
+template <int TM, int kPart>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap omap,
+                const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+                const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ key_mask, const float* __restrict__ fb, const int* __restrict__ fid,
+                float* __restrict__ dqo, float* __restrict__ dfb_part, int H, int T, int dh, int F, float scale,
+                int pass) {
+  constexpr int kLd = kSliceLd;
+  constexpr int NT = kTileB / 8;
+  static_assert(4 * kTileB * kLd >= kRows * kFrameTile, "the frame sums fit the K/V ring");
+  constexpr bool kFrames = TM != kNoTable;
+  constexpr bool kX = kPart != kDq;
+  constexpr bool kQ = kPart != kFrX;                // dQ += dS K
+  constexpr bool kFr = kFrames && kPart != kDqX;    // the frame sums
+  const int z = (int)cg::this_cluster().block_rank();
+  const int zs = slice_of<kX>(z, pass);
+  const bool own = owns<kX>(zs, dh);
+  const int cz = kSlice * (own ? zs : 0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row_tiles = (T + kRows - 1) / kRows;
+  const int rt = blockIdx.x % row_tiles, grp = blockIdx.x / row_tiles;
+  const int q0 = rt * kRows;
+  const bool do_dq = kQ && grp == 0 && own;
+  const int fbase = kFrameTile * (grp * (int)gridDim.z + z);  // key frames fbase..fbase+63
+  const bool do_fr = kFr && pass == 0 && fbase < F;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);                // kRows x kLd
+  float* Os = Qs + kRows * kLd;                                // kRows x kLd: dO
+  float* Ks = Os + kRows * kLd;                                // 2 stages x kTileB x kLd
+  float* Vs = Ks + 2 * kTileB * kLd;                           // 2 stages x kTileB x kLd
+  float* Sp = Vs + 2 * kTileB * kLd;                           // kClPart: this block's partial S
+  float* Dp = Sp + kClPart;                                    // kClPart: its partial dP
+  int* codes = reinterpret_cast<int*>(Dp + kClPart);          // 2 stages x kTileB
+  float* dsw = reinterpret_cast<float*>(codes + 2 * kTileB);  // kWarps x 16 x kDsLd (kFr)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dsw + (kFr ? kWarps * 16 * kDsLd : 0));  // Q/dO, K/V stages
+  const float* fbg = head_table(fb, h, F, kFrames);
+  const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
+
+  const size_t base = (size_t)bh * T * dh;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto stage = [&](int s, int j0) {
+    if (tid == 0) {
+      mbar_expect(bars + 1 + s, 2 * box_bytes(kTileB));
+      tma_load(Ks + s * kTileB * kLd, &kmap, cz, j0, bh, bars + 1 + s);
+      tma_load(Vs + s * kTileB * kLd, &vmap, cz, j0, bh, bars + 1 + s);
+    }
+    if (tid < kTileB) codes[s * kTileB + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
+  };
+  if (tid == 0) {
+    mbar_expect(bars, 2 * box_bytes(kRows));
+    tma_load(Qs, &qmap, cz, q0, bh, bars);
+    tma_load(Os, &omap, cz, q0, bh, bars);
+  }
+  stage(0, 0);
+
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
+  const int fq0 = kFrames && r0 < T ? fid[r0] : 0;
+  const int fq1 = kFrames && r1 < T ? fid[r1] : 0;
+  const float li0 = r0 < T ? lse[(size_t)bh * T + r0] : 0.f;
+  const float li1 = r1 < T ? lse[(size_t)bh * T + r1] : 0.f;
+  const float di0 = r0 < T ? delta[(size_t)bh * T + r0] : 0.f;
+  const float di1 = r1 < T ? delta[(size_t)bh * T + r1] : 0.f;
+  const float* Qw = Qs + warp * 16 * kLd;
+  const float* Ow = Os + warp * 16 * kLd;
+  float* dw = dsw + warp * 16 * kDsLd;
+  float acc[kQ ? HS::kNV : 1][4];
+  zero(acc);
+  float rs[kFr ? 16 : 1][2];  // frame sums (do_fr), as flash_bwd_dq's
+#pragma unroll
+  for (int r = 0; r < (kFr ? 16 : 1); ++r) rs[r][0] = rs[r][1] = 0.f;
+  mbar_wait(bars, 0);  // the Q and dO rows
+
+  const int ntiles = (T + kTileB - 1) / kTileB;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    __syncthreads();  // tile it's key codes are in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kTileB);
+    mbar_wait(bars + 1 + s, (it >> 1) & 1);  // tile it's K and V
+    const float* Kt = Ks + s * kTileB * kLd;
+    const float* Vt = Vs + s * kTileB * kLd;
+    const int* ct = codes + s * kTileB;
+
+    // S = Q K^T and dP = dO V^T (16 rows x kTileB keys a warp): the block's
+    // partials, summed over the cluster
+    float sc[NT][4], dp[NT][4];
+    zero(sc);
+    zero(dp);
+    if (own) scores<NT, false, kSlice, kOnePass, kClChunk>(sc, sc, Qw, Kt, Qw, Kt, g, t);
+    if constexpr (kX) add_other_slices<NT>(sc, q + base, k + base, q0 + warp * 16, it * kTileB, T, dh, z, pass, g, t);
+    if (it > 0) cluster_wait();  // every peer has read this block's partials of tile it - 1
+    put_partial<NT>(Sp, sc, warp, lane);
+    if (own) scores<NT, false, kSlice, kOnePass, kClChunk>(dp, dp, Ow, Vt, Ow, Vt, g, t);
+    if constexpr (kX)
+      add_other_slices<NT>(dp, dout + base, v + base, q0 + warp * 16, it * kTileB, T, dh, z, pass, g, t);
+    put_partial<NT>(Dp, dp, warp, lane);
+    cluster_arrive();
+    cluster_wait();  // every block's partials are in
+    sum_partials<NT>(sc, Sp, warp, lane);
+    sum_partials<NT>(dp, Dp, warp, lane);
+    cluster_arrive();  // this block is done with its peers' partials
+
+    // ds on the C fragments (masked keys and keys past T give 0)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = ct[8 * j + 2 * t + e];
+        float d0 = 0.f, d1 = 0.f;
+        if (c >= 0) {
+          const float x0 = sc[j][e] * scale + bias<TM>(nullptr, fbg, fb0, F, fq0, c);
+          const float x1 = sc[j][2 + e] * scale + bias<TM>(nullptr, fbg, fb0, F, fq1, c);
+          d0 = expf(x0 - li0) * (dp[j][e] - di0);
+          d1 = expf(x1 - li1) * (dp[j][2 + e] - di1);
+        }
+        sc[j][e] = d0;
+        sc[j][2 + e] = d1;
+      }
+
+    if constexpr (kQ)
+      if (do_dq) accumulate<NT, HS::kNV, kLd>(acc, sc, Kt, g, t);  // dQ += dS K
+
+    if constexpr (kFr)
+    if (do_fr) {  // the warp's ds tile through shared memory, a lane per key frame
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dw[g * kDsLd + 8 * j + 2 * t + e] = sc[j][e];
+          dw[(g + 8) * kDsLd + 8 * j + 2 * t + e] = sc[j][2 + e];
+        }
+      __syncwarp();
+      const int nk = min(kTileB, T - it * kTileB);
+      for (int jj = 0; jj < nk; ++jj) {
+        const int fk = ct[jj] - fbase;  // masked keys and keys past T: < 0
+        if (fk == lane) {
+#pragma unroll
+          for (int r = 0; r < 16; ++r) rs[r][0] += dw[r * kDsLd + jj];
+        } else if (fk == lane + 32) {
+#pragma unroll
+          for (int r = 0; r < 16; ++r) rs[r][1] += dw[r * kDsLd + jj];
+        }
+      }
+      __syncwarp();  // dw is rewritten by the next tile
+    }
+  }
+  cluster_wait();  // no peer reads this block's partials any more
+
+  if constexpr (kQ)
+    if (do_dq) store_rows(dqo + base, acc, r0, cz, T, dh, t, scale, scale);
+  if constexpr (kFr) {
+    if (!do_fr) return;
+    __syncthreads();  // every warp is done with the K/V ring
+    float* racc = Ks;  // kRows x kFrameTile: the rows' sums over this block's frames
+    const int nf = min(kFrameTile, F - fbase);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int rr = warp * 16 + r;
+      if (lane < nf) racc[rr * kFrameTile + lane] = rs[r][0];
+      if (lane + 32 < nf) racc[rr * kFrameTile + lane + 32] = rs[r][1];
+    }
+    __syncthreads();
+    // this block's columns fbase.. of the (F, F) partial: rows in order, those of query frame f
+    float* part = dfb_part + ((size_t)bh * row_tiles + rt) * F * F;
+    for (int cell = tid; cell < F * nf; cell += kThreads) {
+      const int f = cell / nf, gk = cell - f * nf;
+      float sum = 0.f;
+      for (int r = 0; r < kRows && q0 + r < T; ++r)
+        if (fid[q0 + r] == f) sum += racc[r * kFrameTile + gk];
+      part[f * F + fbase + gk] = sum;
+    }
   }
 }
 
@@ -618,7 +979,7 @@ int launch_fwd(const float* q, const float* k, const float* v, const float* key_
   return (int)cudaGetLastError();
 }
 
-template <int DK, bool W = false>
+template <int DK>
 int launch_bwd(const float* q, const float* k, const float* v, const float* dout, const float* lse,
                const float* delta, const float* key_mask, const float* fb, const int* fid, float* dq,
                float* dk, float* dv, float* dfb_part, DsT* ds, int B, int H, int T, int dh, int F,
@@ -634,23 +995,16 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* dout
 
   const size_t smem_kv = rows_bytes + sizeof(float) * 4 * kTileB + sizeof(int) * 2 * kTileB + fb_bytes;
   const bool emit = ds != nullptr;
-  const int slices = W ? wide_slices(dh) : HD::kSlices;
-  decltype(&flash_bwd_dkv<DK, kNoTable, true>) dkv;
-  if constexpr (W)
-    dkv = emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true, true>
-                                 : flash_bwd_dkv<DK, kGlobalTable, true, true>)
-               : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false, true>
-                                 : flash_bwd_dkv<DK, kGlobalTable, false, true>);
-  else
-    dkv = emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true>
-                  : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, true>
-                                     : flash_bwd_dkv<DK, kGlobalTable, true>)
-               : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false>
-                  : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, false>
-                                     : flash_bwd_dkv<DK, kGlobalTable, false>);
+  decltype(&flash_bwd_dkv<DK, kNoTable, true>) dkv =
+      emit ? (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, true>
+              : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, true>
+                                 : flash_bwd_dkv<DK, kGlobalTable, true>)
+           : (tm == kNoTable ? flash_bwd_dkv<DK, kNoTable, false>
+              : tm == kSmemTable ? flash_bwd_dkv<DK, kSmemTable, false>
+                                 : flash_bwd_dkv<DK, kGlobalTable, false>);
   cudaError_t e = set_smem(dkv, smem_kv);
   if (e != cudaSuccess) return (int)e;
-  dkv<<<dim3(tiles, B * H, slices), kThreads, smem_kv, s>>>(
+  dkv<<<dim3(tiles, B * H), kThreads, smem_kv, s>>>(
       q, k, v, dout, lse, delta, key_mask, fb, fid, dk, dv, ds, H, T, dh, F, scale, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || emit) return (int)e;
@@ -658,17 +1012,86 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* dout
   const size_t smem_q = rows_bytes + sizeof(int) * 2 * kTileB + fb_bytes +
                         (frames ? sizeof(float) * kWarps * 16 * kDsLd : 0);
   const int frame_tiles = frames ? (F + kFrameTile - 1) / kFrameTile : 0;
-  decltype(&flash_bwd_dq<DK, kNoTable>) dqk;
-  if constexpr (W)
-    dqk = tm == kNoTable ? flash_bwd_dq<DK, kNoTable, true> : flash_bwd_dq<DK, kGlobalTable, true>;
-  else
-    dqk = tm == kNoTable ? flash_bwd_dq<DK, kNoTable>
-          : tm == kSmemTable ? flash_bwd_dq<DK, kSmemTable> : flash_bwd_dq<DK, kGlobalTable>;
+  decltype(&flash_bwd_dq<DK, kNoTable>) dqk =
+      tm == kNoTable ? flash_bwd_dq<DK, kNoTable>
+      : tm == kSmemTable ? flash_bwd_dq<DK, kSmemTable> : flash_bwd_dq<DK, kGlobalTable>;
   e = set_smem(dqk, smem_q);
   if (e != cudaSuccess) return (int)e;
-  dqk<<<dim3(tiles, B * H, frame_tiles > slices ? frame_tiles : slices), kThreads, smem_q, s>>>(
+  dqk<<<dim3(tiles, B * H, frame_tiles > 1 ? frame_tiles : 1), kThreads, smem_q, s>>>(
       q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part, H, T, dh, F, scale, vec);
   return (int)cudaGetLastError();
+}
+
+// shared bytes of the cluster kernels: flash_bwd_dkv_cl, and flash_bwd_dq_cl with or without frames
+constexpr size_t kClDkvSmem = sizeof(float) * ((size_t)(2 * kRows + 4 * kTileB) * kSliceLd + 2 * kClPart +
+                                               4 * kTileB) +
+                              sizeof(int) * 2 * kTileB + 3 * sizeof(uint64_t);
+__host__ inline size_t cl_dq_smem(bool frames) {
+  return sizeof(float) * ((size_t)(2 * kRows + 4 * kTileB) * kSliceLd + 2 * kClPart +
+                          (frames ? kWarps * 16 * kDsLd : 0)) +
+         sizeof(int) * 2 * kTileB + 3 * sizeof(uint64_t);
+}
+
+// Past head dim 128: flash_bwd_dkv_cl, then (recompute mode) flash_bwd_dq_cl,
+// each as clusters of n blocks (the wrapper's plan), one launch a pass
+// (cluster.cuh §passes_of; dh % 4 == 0: the wrapper pads).  The dq
+// kernel's frame tiles (F > 64) are folded into grid.x: ceil(tiles of
+// frames / n) groups of clusters, group c's rank z summing frame tile c n
+// + z, group 0 also computing dq.
+int launch_bwd_cl(const float* q, const float* k, const float* v, const float* dout, const float* lse,
+                  const float* delta, const float* key_mask, const float* fb, const int* fid, float* dq,
+                  float* dk, float* dv, float* dfb_part, DsT* ds, int B, int H, int T, int dh, int F,
+                  float scale, int n, cudaStream_t s) {
+  const int BH = B * H;
+  const bool frames = F > 1, emit = ds != nullptr;
+  const int passes = passes_of(dh, n);
+  const int tiles = (T + kRows - 1) / kRows;
+  CUtensorMap qt, ot, kr, vr;  // the streamed Q / dO tiles, the resident K / V rows
+  cudaError_t e = row_map(&qt, q, BH, T, dh, kTileB);
+  if (e == cudaSuccess) e = row_map(&ot, dout, BH, T, dh, kTileB);
+  if (e == cudaSuccess) e = row_map(&kr, k, BH, T, dh, kRows);
+  if (e == cudaSuccess) e = row_map(&vr, v, BH, T, dh, kRows);
+  if (e != cudaSuccess) return (int)e;
+  const bool x = passes > 1;  // the instances that add a block's other slices
+  using Dkv = decltype(&flash_bwd_dkv_cl<kNoTable, false, kDkv>);
+  Dkv parts[2];  // one launch (dK and dV), or past 8 slices two (dV alone, then dK alone)
+  if (!x)
+    parts[0] = emit ? (frames ? flash_bwd_dkv_cl<kGlobalTable, true, kDkv> : flash_bwd_dkv_cl<kNoTable, true, kDkv>)
+                    : (frames ? flash_bwd_dkv_cl<kGlobalTable, false, kDkv> : flash_bwd_dkv_cl<kNoTable, false, kDkv>);
+  else {
+    parts[0] = frames ? flash_bwd_dkv_cl<kGlobalTable, false, kDvX> : flash_bwd_dkv_cl<kNoTable, false, kDvX>;
+    parts[1] = emit ? (frames ? flash_bwd_dkv_cl<kGlobalTable, true, kDkX> : flash_bwd_dkv_cl<kNoTable, true, kDkX>)
+                    : (frames ? flash_bwd_dkv_cl<kGlobalTable, false, kDkX> : flash_bwd_dkv_cl<kNoTable, false, kDkX>);
+  }
+  for (int p = 0; p < passes; ++p)
+    for (int i = 0; i < (x ? 2 : 1); ++i) {
+      e = launch_cluster(parts[i], dim3(tiles, BH, n), kThreads, kClDkvSmem, n, s, qt, ot, kr, vr, q, k, v,
+                         dout, lse, delta, key_mask, fb, fid, dk, dv, ds, H, T, dh, F, scale, p);
+      if (e != cudaSuccess) return (int)e;
+    }
+  if (emit) return 0;
+  CUtensorMap qr, orr, kt, vt;  // the resident Q / dO rows, the streamed K / V tiles
+  e = row_map(&qr, q, BH, T, dh, kRows);
+  if (e == cudaSuccess) e = row_map(&orr, dout, BH, T, dh, kRows);
+  if (e == cudaSuccess) e = row_map(&kt, k, BH, T, dh, kTileB);
+  if (e == cudaSuccess) e = row_map(&vt, v, BH, T, dh, kTileB);
+  if (e != cudaSuccess) return (int)e;
+  // dq (and the frame sums), a launch a pass; past 8 slices the frame sums in a launch of their own
+  auto dqk = frames ? (x ? flash_bwd_dq_cl<kGlobalTable, kDqX> : flash_bwd_dq_cl<kGlobalTable, kDq>)
+                    : (x ? flash_bwd_dq_cl<kNoTable, kDqX> : flash_bwd_dq_cl<kNoTable, kDq>);
+  const int frame_tiles = frames ? (F + kFrameTile - 1) / kFrameTile : 0;
+  const int groups = frames ? (frame_tiles + n - 1) / n : 1;
+  for (int p = 0; p < passes; ++p) {
+    e = launch_cluster(dqk, dim3(tiles * (x ? 1 : groups), BH, n), kThreads, cl_dq_smem(frames && !x), n, s,
+                       qr, orr, kt, vt, q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dfb_part, H, T, dh, F,
+                       scale, p);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (x && frames)
+    e = launch_cluster(flash_bwd_dq_cl<kGlobalTable, kFrX>, dim3(tiles * groups, BH, n), kThreads,
+                       cl_dq_smem(true), n, s, qr, orr, kt, vt, q, k, v, dout, lse, delta, key_mask, fb, fid, dq,
+                       dfb_part, H, T, dh, F, scale, 0);
+  return (int)e;
 }
 
 }  // namespace
@@ -683,8 +1106,8 @@ extern "C" int vog_flash_delta(int device, const float* o, const float* dout, fl
   return (int)cudaGetLastError();
 }
 
-// The instance of a head dim: 64, 128 or 256 (dh padded up to it), past
-// 256 the DK 128 instance's wide path.
+// The forward's instance of a head dim: 64, 128 or 256 (dh padded up to
+// it), past 256 the DK 128 instance's wide path.
 #define VOG_FLASH_DISPATCH(fn, ...)                                           \
   (dh <= 64 ? fn<64>(__VA_ARGS__) : dh <= 128 ? fn<128>(__VA_ARGS__)      \
                                   : dh <= kMaxDh ? fn<256>(__VA_ARGS__)   \
@@ -693,20 +1116,44 @@ extern "C" int vog_flash_delta(int device, const float* o, const float* dout, fl
 // fb and fid may be null when F == 1 (no bias).  Recompute mode (ds null):
 // dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
 // Emit mode (ds, (B*H, T, T), fp32, or bf16 in the one-pass library, not
-// null): dk, dv and ds only; dq and dfb_part are not touched.
+// null): dk, dv and ds only; dq and dfb_part are not touched.  dh 64 and
+// 128 (dh padded up to them), past 128 the cluster kernels (dh % 4 == 0,
+// 16-byte-aligned rows) as clusters of n blocks (n is read only there).
 extern "C" int vog_flash_bwd(int device, const float* q, const float* k, const float* v,
                              const float* dout, const float* lse,
                              const float* delta, const float* key_mask,
                              const float* fb, const int* fid, float* dq,
                              float* dk, float* dv, float* dfb_part, void* ds_out,
-                             int B, int H, int T, int dh, int F, float scale,
+                             int B, int H, int T, int dh, int F, float scale, int n,
                              void* stream) {
   VOG_DEVICE_GUARD(device);
   if (dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
-  return VOG_FLASH_DISPATCH(launch_bwd, q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dk, dv,
-                            dfb_part, static_cast<DsT*>(ds_out), B, H, T, dh, F, scale,
-                            static_cast<cudaStream_t>(stream));
+  DsT* ds = static_cast<DsT*>(ds_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 64)
+    return launch_bwd<64>(q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dk, dv, dfb_part, ds, B, H, T, dh, F,
+                          scale, s);
+  if (dh <= 128)
+    return launch_bwd<128>(q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dk, dv, dfb_part, ds, B, H, T, dh,
+                           F, scale, s);
+  if (dh % 4 != 0 || !cluster_fits(dh, n)) return (int)cudaErrorInvalidValue;
+  return launch_bwd_cl(q, k, v, dout, lse, delta, key_mask, fb, fid, dq, dk, dv, dfb_part, ds, B, H, T, dh, F,
+                       scale, n, s);
+}
+
+// Clusters of n blocks of the backward's cluster kernels resident at once
+// (cudaOccupancyMaxActiveClusters): which 0, flash_bwd_dkv_cl (recompute);
+// 1, flash_bwd_dq_cl; with frames when F > 1
+extern "C" int vog_flash_bwd_clusters(int device, int n, int F, int which) {
+  VOG_DEVICE_GUARD(device);
+  const bool frames = F > 1;
+  if (which == 0)
+    return max_active_clusters(
+        frames ? flash_bwd_dkv_cl<kGlobalTable, false, kDkv> : flash_bwd_dkv_cl<kNoTable, false, kDkv>, kThreads,
+        kClDkvSmem, n);
+  return max_active_clusters(frames ? flash_bwd_dq_cl<kGlobalTable, kDq> : flash_bwd_dq_cl<kNoTable, kDq>,
+                             kThreads, cl_dq_smem(frames), n);
 }
 
 // fb and fid may be null when F == 1 (no bias)

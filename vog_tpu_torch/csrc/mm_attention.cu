@@ -120,22 +120,31 @@
 //
 // Head dims, frames and args.  The file builds once for each head-dim
 // instance, DK 128 (dh <= 128, zero padded) and DK 256 (-DVOG_MM_DK=256),
-// each its own library; the DK 128 library also holds the wide path for
-// dh > 256 (template flag W, tiles.cuh: ceil(dh / 128) column slices on
-// grid.z, the score products' operands read from device memory, only the
-// block's slice of V, of the Q and g_a tiles, or of K staged, the frame
-// table in device memory), so no third library builds.  At DK 256 every kernel's output columns are split
-// over two blocks of a tile (grid.z; tiles.cuh §HeadDim), each computing
-// the tile's scores, so the accumulators stay at DK 128's registers, and
-// mm_bwd_dq's block halves its rows and key tile to fit shared memory.  The
-// (F, F) bias table sits in shared memory up to 64 frames and is read from
+// each its own library.  The forward past 128 is mm_fwd_cl, the head dim
+// split over a thread block cluster (cluster.cuh; in the DK 256 library,
+// which holds no other forward): each block of a tile stages by TMA and
+// accumulates its 128 columns, the score partial summed once over the
+// cluster.  The design it replaced (a DK 256 instance and the wide path,
+// below) redid the scores and the A softmaxes in every block of a tile;
+// the two designs' times on the H100 are in PERF.md (section 6).
+// The backward keeps that design: the DK 256 library's
+// instances for dh <= 256 (every kernel's output columns split over two
+// blocks of a tile, grid.z, each computing the tile's scores, and
+// mm_bwd_dq's block halving its rows and key tile to fit shared memory),
+// and past 256 the DK 128 library's wide path (template flag W, tiles.cuh:
+// ceil(dh / 128) column slices on grid.z, the score products' operands
+// read from device memory, only the block's slice of V, of the Q and g_a
+// tiles, or of K staged, the frame table in device memory).  The (F, F)
+// bias table sits in shared memory up to 64 frames and is read from
 // device memory past that, an instance each (tiles.cuh §TableMode: up to
 // 64 frames the code and registers are those of a kernel without the
-// other case); past 64 frames mm_bwd_dq
-// gives a tile of rows ceil(F / 64) blocks, each summing 64 key frames in
-// the fixed order.  A is a template parameter, 1..8; the wrapper launches
-// more args in groups of at most 8 (4 on the wide path;
-// kernels/mm_attention.py §arg_groups, §kernel_args).
+// other case; the cluster and wide instances read it from device memory
+// at any F); past 64 frames mm_bwd_dq gives a tile of rows ceil(F / 64)
+// blocks, each summing 64 key frames in the fixed order.  A is a template
+// parameter, 1..8 (mm_fwd_cl 1..7, 1..4 past dh 1024); the wrapper
+// launches more args in groups of at most 8 (the backward's wide path 4,
+// mm_fwd_cl 7 or 4; kernels/mm_attention.py §arg_groups, §kernel_args,
+// §fwd_groups).
 //
 // Precision: this file builds twice (kernels/_build.py), as attention.cu:
 // 3xTF32 ("highest") as it is, one TF32 pass ("default") with
@@ -151,6 +160,7 @@
 #include <stdint.h>
 
 #include "tiles.cuh"  // cp.async row tiles, their 3xTF32 fragments, HeadDim
+#include "cluster.cuh"  // the head dim split over a cluster: slices, barriers, TMA, partials
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 // This library's head-dim instance: 128 (dh <= 128) or 256 (128 < dh <=
@@ -185,13 +195,8 @@ constexpr int kFwdThreads = kFwdWarps * 32;
 constexpr int kFwdRows = 16;                    // query rows a block owns
 constexpr int kFwdTile = 32;                    // keys a streamed tile (8 a warp in S)
 constexpr int kFwdKT = kFwdTile / 8;            // k-steps of P.V over a tile
-// Output columns a warp owns in P.V: 32 of the block's column slice.  At
-// DK 256 the columns are split over two blocks (grid.z), not over 8 warps:
-// a block of 8 warps would need a 64-key tile to give each warp its 8 keys
-// of S and 2 rows of the softmax, and the two-stage 64-key K/V ring at DK
-// 256 (266 KB) does not fit; the two blocks each compute the tile's S and
-// softmax (a third or less of the work at A >= 2) and keep A x 32 columns
-// of accumulators a lane, as at DK 128.
+// Output columns a warp owns in P.V: 32 of the block's 128 (mm_fwd_cl:
+// of its cluster slice's 128)
 constexpr int kFwdCols = HD::kDV / kFwdWarps;
 constexpr int kFwdNT = kFwdCols / 8;            // their 8-wide column tiles
 constexpr int kSoftRows = kFwdRows / kFwdWarps;  // rows a warp owns in the softmax
@@ -202,8 +207,7 @@ constexpr int kSLd = kFwdTile + 8;              // S tile row stride (conflict-f
 // conflict-free
 constexpr int kPLd = 2 * kFwdTile + 16;
 
-// W: the wide path (tiles.cuh): S from device memory, V's column slice z staged
-template <int A, int TM, bool W = false>
+template <int A, int TM>
 __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
 mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
        const float* __restrict__ vm, const float* __restrict__ cn,
@@ -233,14 +237,9 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
   const float* kb = km + base;
   const float* vb = vm + base;
   const float* cb = cn + (size_t)bh * A * T;
-  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
   auto stage = [&](int s, int j0) {
-    if constexpr (W) {
-      load_slice<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, z * HD::kDV, vec);
-    } else {
-      load_rows<kFwdTile, kFwdThreads, kDK>(Ks + s * kFwdTile * kLd, kb, j0, T, dh, vec);
-      load_rows<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, vec);
-    }
+    load_rows<kFwdTile, kFwdThreads, kDK>(Ks + s * kFwdTile * kLd, kb, j0, T, dh, vec);
+    load_rows<kFwdTile, kFwdThreads, kDK>(Vs + s * kFwdTile * kLd, vb, j0, T, dh, vec);
     for (int i = tid; i < A * kFwdTile; i += kFwdThreads) {  // cn, zero past T
       const int a = i / kFwdTile, j = j0 + i % kFwdTile;
       cp_async4(Cs + s * A * kFwdTile + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
@@ -249,7 +248,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     cp_commit();
   };
   stage_table<TM, kFwdThreads>(fbs, fbg, F);
-  if constexpr (!W) load_rows<kFwdRows, kFwdThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
+  load_rows<kFwdRows, kFwdThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first tile
 
   // S phase: rows g, g + 8 of the block, keys 8w..8w+7 of a tile
@@ -258,8 +257,8 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
   // running max of each arg, and this lane's part of its sum
   const int sr = kSoftRows * warp + (lane >> 3), sk = 4 * (lane & 7);
   float m[A], l[A];
-  // P.V phase: rows g, g + 8, columns c0..c0+31 (of the block's slice z), every arg
-  const int c0 = z * HD::kDV + kFwdCols * warp;
+  // P.V phase: rows g, g + 8, columns c0..c0+31, every arg
+  const int c0 = kFwdCols * warp;
   float acc[A][kFwdNT][4];
 #pragma unroll
   for (int a = 0; a < A; ++a) {
@@ -283,20 +282,13 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
       float cs[kSets][4];
 #pragma unroll
       for (int q = 0; q < kSets; ++q) cs[q][0] = cs[q][1] = cs[q][2] = cs[q][3] = 0.f;
-      if constexpr (W) {  // into set 0, the others stay 0
-        float cw[1][4];
-        scores_g<1, false>(cw, cw, qm + base, kb, qm + base, kb, q0, it * kFwdTile + 8 * warp, T, dh, g, t);
+      const float* Kw = Kt + 8 * warp * kLd;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) cs[0][i] = cw[0][i];
-      } else {
-        const float* Kw = Kt + 8 * warp * kLd;
-#pragma unroll
-        for (int ks = 0; ks < kND; ++ks) {
-          uint32_t ab[4], as[4], bb[2], bs[2];
-          frag_a<kLd>(Qs, 8 * ks, g, t, ab, as);
-          frag_bt<kLd>(Kw, 0, 8 * ks, g, t, bb, bs);
-          mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
-        }
+      for (int ks = 0; ks < kND; ++ks) {
+        uint32_t ab[4], as[4], bb[2], bs[2];
+        frag_a<kLd>(Qs, 8 * ks, g, t, ab, as);
+        frag_bt<kLd>(Kw, 0, 8 * ks, g, t, bb, bs);
+        mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
       }
       const int j = 8 * warp + 2 * t;
       float x[4];
@@ -366,8 +358,8 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     for (int j = 0; j < kFwdKT; ++j) {  // O_a += P_a V over keys 8j..8j+7, every arg
       uint32_t bb[kFwdNT][2], bs[kFwdNT][2];  // V's split B fragments, shared by the args
 #pragma unroll
-      for (int n = 0; n < kFwdNT; ++n)  // the wide path's Vt is the block's slice
-        frag_b_pairs<kLd>(Vt + (W ? kFwdCols * warp : c0), 8 * j, 8 * n, g, t, bb[n], bs[n]);
+      for (int n = 0; n < kFwdNT; ++n)
+        frag_b_pairs<kLd>(Vt + c0, 8 * j, 8 * n, g, t, bb[n], bs[n]);
 #pragma unroll
       for (int a = 0; a < A; ++a) {
         // P_a's A fragment in pair order (k = t: key 8j+2t, k = t+4: key
@@ -395,7 +387,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
     if ((lane & 7) == 0) {
       Ls[a * kFwdRows + sr] = lt;
       const size_t row = ((size_t)bh * A + a) * T + q0 + sr;
-      if (q0 + sr < T && z == 0) {
+      if (q0 + sr < T) {
         mrow[row] = m[a];
         den[row] = lt;
       }
@@ -419,18 +411,290 @@ int launch(const float* qm, const float* km, const float* vm, const float* cn,
                                        A * kFwdRows * kPLd + kFwdRows * kSLd +
                                        2 * A * kFwdTile + 2 * A * kFwdRows + table_floats(F)) +
                       sizeof(int) * 2 * kFwdTile;
-  const bool wide = kWideLib && dh > kDK;
   auto fwd = F <= kTableF ? mm_fwd<A, kSmemTable> : mm_fwd<A, kGlobalTable>;
-  if constexpr (kWideLib && A <= kWideArgs)
-    if (wide) fwd = mm_fwd<A, kGlobalTable, true>;
-  if (wide && A > kWideArgs) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm);
-  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H, wide ? wide_slices(dh) : HD::kSlices);
+  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
   fwd<<<grid, kFwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, H, T, dh, F, vec);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// forward past head dim 128: the head dim split over a cluster (cluster.cuh)
+// ---------------------------------------------------------------------------
+// mm_fwd's block (4 warps, 16 query rows, 32-key tiles, the three parts of
+// a tile) for column slice zs = z + n pass of a cluster of n blocks: the
+// block's Q rows and K/V tiles are its 128 columns, by TMA (K/V in a
+// two-stage ring), and warp w's partial S over them (keys 8w..8w+7, four
+// accumulator sets) is summed over the cluster in rank order before the
+// bias and masks.  Every block then does the tile's A softmaxes on the same
+// S, its own copy of the P_a tiles: a block's work a tile is the DK 128
+// instance's (S over 128 columns, the A softmaxes, P.V over 128 columns),
+// where sharing one rank's P_a would cost a second cluster barrier a tile
+// and A x 16 x 80 floats of remote stores.  Slice 0's block (pass 0, rank
+// 0) writes the row max and denominator.  The frame table is read from
+// device memory at any F (one instance an arg count).
+constexpr int kClSp = kFwdWarps * 32 * 4;  // floats of a block's partial S (fragment order)
+// args a launch: 7, where A = 8's accumulators spilled (ptxas: 32-152 bytes
+// in 3xTF32), and 4 past dh 1024 (the kX instances, for the build's time)
+constexpr int kClArgs = 7;
+constexpr int kClXArgs = 4;
+
+// shared floats of mm_fwd_cl at A args (the mbarriers follow)
+__host__ __device__ constexpr size_t fwd_cl_floats(int A) {
+  return (size_t)(kFwdRows + 4 * kFwdTile) * kSliceLd + A * kFwdRows * kPLd + kFwdRows * kSLd + kClSp +
+         2 * A * kFwdTile + 2 * A * kFwdRows + 2 * kFwdTile;
+}
+
+template <int A, bool kX>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+mm_fwd_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, const float* __restrict__ qm, const float* __restrict__ km,
+          const float* __restrict__ cn, const float* __restrict__ key_mask, const float* __restrict__ fb,
+          const int* __restrict__ fid, float* __restrict__ o, float* __restrict__ mrow,
+          float* __restrict__ den, int H, int T, int dh, int F, int pass) {
+  constexpr int kCLd = kSliceLd;
+  const int z = (int)cg::this_cluster().block_rank();
+  const int zs = slice_of<kX>(z, pass);  // the slice this block stages and accumulates
+  const bool own = owns<kX>(zs, dh);     // (else it stages slice 0 and adds only its other slices' partials)
+  const int cz = kSlice * (own ? zs : 0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kFwdRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);                  // kFwdRows x kCLd
+  float* Ks = Qs + kFwdRows * kCLd;                              // 2 stages x kFwdTile x kCLd
+  float* Vs = Ks + 2 * kFwdTile * kCLd;                          // 2 stages x kFwdTile x kCLd
+  float* Ps = Vs + 2 * kFwdTile * kCLd;                          // A x kFwdRows x kPLd: split P
+  float* Ss = Ps + A * kFwdRows * kPLd;                          // kFwdRows x kSLd: S of a tile
+  float* Sp = Ss + kFwdRows * kSLd;                              // kClSp: this block's partial S
+  float* Cs = Sp + kClSp;                                        // 2 stages x A x kFwdTile: cn
+  float* Al = Cs + 2 * A * kFwdTile;                             // A x kFwdRows: rescale factors
+  float* Ls = Al + A * kFwdRows;                                 // A x kFwdRows: final sums
+  int* codes = reinterpret_cast<int*>(Ls + A * kFwdRows);       // 2 stages x kFwdTile
+  uint64_t* bars = reinterpret_cast<uint64_t*>(codes + 2 * kFwdTile);  // Q, then the K/V stages
+  const float* fbg = fb + (size_t)h * F * F;
+
+  const size_t base = (size_t)bh * T * dh;
+  const float* cb = cn + (size_t)bh * A * T;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto stage = [&](int s, int j0) {
+    if (tid == 0) {
+      mbar_expect(bars + 1 + s, 2 * box_bytes(kFwdTile));
+      tma_load(Ks + s * kFwdTile * kCLd, &kmap, cz, j0, bh, bars + 1 + s);
+      tma_load(Vs + s * kFwdTile * kCLd, &vmap, cz, j0, bh, bars + 1 + s);
+    }
+    for (int i = tid; i < A * kFwdTile; i += kFwdThreads) {  // cn, zero past T
+      const int a = i / kFwdTile, j = j0 + i % kFwdTile;
+      cp_async4(Cs + s * A * kFwdTile + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
+    }
+    if (tid < kFwdTile) codes[s * kFwdTile + tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
+    cp_commit();
+  };
+  if (tid == 0) {
+    mbar_expect(bars, box_bytes(kFwdRows));
+    tma_load(Qs, &qmap, cz, q0, bh, bars);
+  }
+  stage(0, 0);
+
+  const int fq0 = q0 + g < T ? fid[q0 + g] : 0, fq1 = q0 + g + 8 < T ? fid[q0 + g + 8] : 0;
+  const int sr = kSoftRows * warp + (lane >> 3), sk = 4 * (lane & 7);
+  float m[A], l[A];
+  const int c0 = cz + kFwdCols * warp;  // the warp's output columns in P.V
+  float acc[A][kFwdNT][4];
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    m[a] = kNeg;
+    l[a] = 0.f;
+    zero(acc[a]);
+  }
+  mbar_wait(bars, 0);  // the Q rows
+
+  const int ntiles = (T + kFwdTile - 1) / kFwdTile;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    cp_wait_all();
+    __syncthreads();  // tile it's cn and codes are in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kFwdTile);
+    mbar_wait(bars + 1 + s, (it >> 1) & 1);  // tile it's K and V
+    const float* Kt = Ks + s * kFwdTile * kCLd;
+    const float* Vt = Vs + s * kFwdTile * kCLd;
+    const float* Ct = Cs + s * A * kFwdTile;
+    const int* ct = codes + s * kFwdTile;
+
+    {  // S = Q K^T for keys 8w..8w+7: this block's partial, summed over the cluster
+      float cs[kSets][4];
+#pragma unroll
+      for (int q = 0; q < kSets; ++q) cs[q][0] = cs[q][1] = cs[q][2] = cs[q][3] = 0.f;
+      if (own) {
+        const float* Kw = Kt + 8 * warp * kCLd;
+#pragma unroll
+        for (int ks = 0; ks < kSlice / 8; ++ks) {
+          uint32_t ab[4], as[4], bb[2], bs[2];
+          frag_a<kCLd>(Qs, 8 * ks, g, t, ab, as);
+          frag_bt<kCLd>(Kw, 0, 8 * ks, g, t, bb, bs);
+          mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
+        }
+      }
+      float part[1][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = 0.f;
+#pragma unroll
+        for (int q = 0; q < kSets; ++q) x += cs[q][i];
+        part[0][i] = x;
+      }
+      if constexpr (kX)
+        add_other_slices<1>(part, qm + base, km + base, q0, it * kFwdTile + 8 * warp, T, dh, z, pass, g, t);
+      if (it > 0) cluster_wait();  // every peer has read this block's partial of tile it - 1
+      put_partial<1>(Sp, part, warp, lane);
+      cluster_arrive();
+      cluster_wait();  // every block's partial is in
+      sum_partials<1>(part, Sp, warp, lane);
+      cluster_arrive();  // this block is done with its peers' partials
+      const int j = 8 * warp + 2 * t;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = ct[j + e];
+        if (c >= 0) {
+          x[e] = part[0][e] + table_bias<kGlobalTable>(nullptr, fbg, F, fq0, c);
+          x[2 + e] = part[0][2 + e] + table_bias<kGlobalTable>(nullptr, fbg, F, fq1, c);
+        } else {
+          x[e] = x[2 + e] = c == kMasked ? kNeg : -INFINITY;
+        }
+      }
+      *reinterpret_cast<float2*>(Ss + g * kSLd + j) = make_float2(x[0], x[1]);
+      *reinterpret_cast<float2*>(Ss + (g + 8) * kSLd + j) = make_float2(x[2], x[3]);
+    }
+    __syncthreads();  // the whole S tile is in
+
+    {  // per arg: t_a = S + cn_a, online max and sum, P_a split into the shared tile
+      const float4 sv = *reinterpret_cast<const float4*>(Ss + sr * kSLd + sk);
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const float4 cv = *reinterpret_cast<const float4*>(Ct + a * kFwdTile + sk);
+        float x[4] = {sv.x + cv.x, sv.y + cv.y, sv.z + cv.z, sv.w + cv.w};
+        float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float mn = fmaxf(m[a], mx);
+        const float al = expf(m[a] - mn);
+        m[a] = mn;
+        uint32_t pb[4], ps[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i] = expf(x[i] - mn);  // keys past T: 0
+          split<kOnePass>(x[i], pb[i], ps[i]);
+        }
+        l[a] = l[a] * al + ((x[0] + x[1]) + (x[2] + x[3]));
+        float4* pr = reinterpret_cast<float4*>(Ps + (a * kFwdRows + sr) * kPLd + 2 * sk);
+        pr[0] = make_float4(__uint_as_float(pb[0]), __uint_as_float(pb[1]), __uint_as_float(ps[0]),
+                            __uint_as_float(ps[1]));
+        pr[1] = make_float4(__uint_as_float(pb[2]), __uint_as_float(pb[3]), __uint_as_float(ps[2]),
+                            __uint_as_float(ps[3]));
+        if ((lane & 7) == 0) Al[a * kFwdRows + sr] = al;
+      }
+    }
+    __syncthreads();  // every P_a and rescale factor is in
+
+#pragma unroll
+    for (int a = 0; a < A; ++a) {  // O_a *= alpha_a
+      const float al0 = Al[a * kFwdRows + g], al1 = Al[a * kFwdRows + g + 8];
+#pragma unroll
+      for (int n = 0; n < kFwdNT; ++n) {
+        acc[a][n][0] *= al0;
+        acc[a][n][1] *= al0;
+        acc[a][n][2] *= al1;
+        acc[a][n][3] *= al1;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFwdKT; ++j) {  // O_a += P_a V over keys 8j..8j+7, every arg
+      uint32_t bb[kFwdNT][2], bs[kFwdNT][2];
+#pragma unroll
+      for (int n = 0; n < kFwdNT; ++n)
+        frag_b_pairs<kCLd>(Vt + kFwdCols * warp, 8 * j, 8 * n, g, t, bb[n], bs[n]);
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        const float* P0 = Ps + (a * kFwdRows + g) * kPLd + 4 * (4 * j + t);
+        const float4 u = *reinterpret_cast<const float4*>(P0);
+        const float4 w = *reinterpret_cast<const float4*>(P0 + 8 * kPLd);
+        const uint32_t ab[4] = {__float_as_uint(u.x), __float_as_uint(w.x), __float_as_uint(u.y),
+                                __float_as_uint(w.y)};
+        const uint32_t as[4] = {__float_as_uint(u.z), __float_as_uint(w.z), __float_as_uint(u.w),
+                                __float_as_uint(w.w)};
+#pragma unroll
+        for (int n = 0; n < kFwdNT; ++n) mma_p<kOnePass>(acc[a][n], ab, as, bb[n], bs[n]);
+      }
+    }
+  }
+  cluster_wait();  // no peer reads this block's partial any more
+
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    float lt = l[a];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 4);  // >= 1 by construction
+    if ((lane & 7) == 0) {
+      Ls[a * kFwdRows + sr] = lt;
+      const size_t row = ((size_t)bh * A + a) * T + q0 + sr;
+      if (q0 + sr < T && zs == 0) {
+        mrow[row] = m[a];
+        den[row] = lt;
+      }
+    }
+  }
+  __syncthreads();
+  if (!own) return;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const size_t row = ((size_t)bh * A + a) * T;
+    store_rows(o + row * dh, acc[a], q0 + g, c0, T, dh, t, 1.f / Ls[a * kFwdRows + g],
+               1.f / Ls[a * kFwdRows + g + 8]);
+  }
+}
+
+// mm_fwd_cl's launches as clusters of n blocks (the wrapper's plan), one a
+// pass (dh % 4 == 0: the wrapper pads), at most kClArgs args (kClXArgs
+// past dh 1024)
+template <int A>
+int launch_cl(const float* qm, const float* km, const float* vm, const float* cn,
+              const float* key_mask, const float* fb, const int* fid, float* o,
+              float* mrow, float* den, int B, int H, int T, int dh, int F, int n, cudaStream_t stream) {
+  if constexpr (A > kClArgs) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t e = row_map(&qmap, qm, B * H, T, dh, kFwdRows);
+  if (e == cudaSuccess) e = row_map(&kmap, km, B * H, T, dh, kFwdTile);
+  if (e == cudaSuccess) e = row_map(&vmap, vm, B * H, T, dh, kFwdTile);
+  if (e != cudaSuccess) return (int)e;
+  const int passes = passes_of(dh, n);
+  const size_t smem = sizeof(float) * fwd_cl_floats(A) + 3 * sizeof(uint64_t);
+  const dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H, n);
+  auto fwd = mm_fwd_cl<A, false>;
+  if (passes > 1) {
+    if constexpr (A > kClXArgs) return (int)cudaErrorInvalidValue;
+    else fwd = mm_fwd_cl<A, true>;
+  }
+  for (int p = 0; p < passes; ++p) {
+    e = launch_cluster(fwd, grid, kFwdThreads, smem, n, stream, qmap, kmap, vmap, qm, km, cn, key_mask, fb,
+                       fid, o, mrow, den, H, T, dh, F, p);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -998,14 +1262,23 @@ extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const fl
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, float* o,
                           float* mrow, float* den, int B, int H, int A, int T,
-                          int dh, int F, void* stream) {
+                          int dh, int F, int n, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if ((dh > kDK && !kWideLib) || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  // the DK 128 library takes dh <= 128; the other, dh > 128 (a multiple of
+  // 4) as clusters of n blocks (n is read only there)
+  if (dh < 1 || F < 1 || (dh > 128) != (kDK > 128) || (dh > 128 && (dh % 4 != 0 || !cluster_fits(dh, n))))
+    return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOG_MM_CASE(n) \
-  case n:              \
-    return launch<n>(qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, B, H, T, dh, F, s);
+#if VOG_MM_DK > 128
+#define VOG_MM_CASE(a) \
+  case a:              \
+    return launch_cl<a>(qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, B, H, T, dh, F, n, s);
+#else
+#define VOG_MM_CASE(a) \
+  case a:              \
+    return launch<a>(qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, B, H, T, dh, F, s);
+#endif
   switch (A) {
     VOG_MM_CASE(1)
     VOG_MM_CASE(2)
@@ -1019,4 +1292,20 @@ extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const fl
       return (int)cudaErrorInvalidValue;
   }
 #undef VOG_MM_CASE
+}
+
+// Clusters of n blocks of mm_fwd_cl<A> resident at once
+// (cudaOccupancyMaxActiveClusters; 0 in the DK 128 library)
+extern "C" int vog_mm_fwd_clusters(int device, int A, int n) {
+  VOG_DEVICE_GUARD(device);
+#if VOG_MM_DK > 128
+  const size_t smem = sizeof(float) * fwd_cl_floats(A) + 3 * sizeof(uint64_t);
+  switch (A) {
+    case 5: return max_active_clusters(mm_fwd_cl<5, false>, kFwdThreads, smem, n);
+    case 7: return max_active_clusters(mm_fwd_cl<7, false>, kFwdThreads, smem, n);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+#else
+  return 0;
+#endif
 }

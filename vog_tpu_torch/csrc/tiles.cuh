@@ -9,13 +9,13 @@
 //    ahead of the products.  The score products (Q K^T, dO V^T, G V^T)
 //    run over all DK; the accumulating products (P V, dS^T Q, ...) of a
 //    block cover DV = min(DK, 128) output columns, so their accumulators
-//    take at most 128 columns' registers at any DK: at DK 256 a launch
-//    has two blocks for each tile of rows, grid.z = 2, one a column
-//    slice, and both compute the tile's scores.  The second slice repeats
-//    the score products: half or less of the forward and dkv kernels'
-//    products, most of the dq kernels' (recompute mode).  One block
-//    holding all 256 columns would need twice the accumulators (256
-//    registers a lane for dK and dV).
+//    take at most 128 columns' registers at any DK: at DK 256 (flash_fwd
+//    and the mm backward) a launch has two blocks for each tile of rows,
+//    grid.z = 2, one a column slice, and both compute the tile's scores.
+//    The mm forward and the flash backward take dh > 128 on a thread
+//    block cluster instead (cluster.cuh), whose blocks split the score
+//    products too and sum their partials once; their fragment reads and
+//    products are this file's, on 128-column slices (HeadDim<128>).
 //  * A shared row holds DK floats plus 4: with a row stride of 4 (mod 8)
 //    words, both kinds of fragment read below (rows g, columns t; and rows
 //    2t, 2t+1, columns g) hit 32 distinct banks.
@@ -36,14 +36,15 @@
 //    pass, else 3xTF32; tf32.cuh) as a template parameter whose default is
 //    the library's kOnePass.
 //  * Head dims past kMaxDh (the wide path, an instance flag W of the DK 128
-//    kernels): a row of dh floats no longer fits beside the others (64
-//    query rows are 132 KB at dh 512, 264 KB at 1024), so the score
-//    products read their operands from device memory through the
-//    read-only cache (scores_g: the fragments' rows and k-steps bounded at
-//    run time, zero past T and dh), and shared memory holds only the
-//    block's 128-column slice of the rows that the accumulating products
-//    read (load_slice).  A launch has ceil(dh / 128) slices on grid.z, each
-//    block redoing the tile's scores, as the DK 256 instance's two.
+//    flash_fwd and mm backward kernels): a row of dh floats no longer fits
+//    beside the others (64 query rows are 132 KB at dh 512, 264 KB at
+//    1024), so the score products read their operands from device memory
+//    through the read-only cache (scores_g: the fragments' rows and
+//    k-steps bounded at run time, zero past T and dh), and shared memory
+//    holds only the block's 128-column slice of the rows that the
+//    accumulating products read (load_slice).  A launch has ceil(dh / 128)
+//    slices on grid.z, each block redoing the tile's scores, as the DK 256
+//    instance's two.
 
 #pragma once
 

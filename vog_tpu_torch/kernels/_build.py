@@ -16,12 +16,14 @@ second build adds no wall time where there are cores for it.  A wrapper
 takes the library of ``config.kernel_precision()`` and counts its launches
 under ``variant(name, precision)`` (``flash_attention@default``).
 
-Head dims: ``mm_attention.cu`` builds once more for its DK 256 instance
-(``-DVOG_MM_DK=256``, the libraries ``mm_attention_dk256`` and
-``mm_attention_dk256@default``), so that nvcc compiles its two sets of A =
-1..8 templates in parallel; ``attention.cu`` holds its three instances
-(DK 64, 128, 256) in one library.  Head dims past 256 take the DK 128
-instances' wide path, in the libraries that hold them (no third library).
+Head dims: ``mm_attention.cu`` builds once more for its instances past
+dh 128 (``-DVOG_MM_DK=256``, the libraries ``mm_attention_dk256`` and
+``mm_attention_dk256@default``: the backward's DK 256 instances and the
+forward's cluster instances, ``csrc/cluster.cuh``), so that nvcc compiles
+its two sets of templates in parallel; ``attention.cu`` holds all of its
+instances (DK 64 and 128, the forward's DK 256 and wide path, the
+backward's cluster instances) in one library.  Head dims past 256 of the
+mm backward take the DK 128 instances' wide path (no third library).
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)

@@ -11,16 +11,22 @@ that stream in by cp.async (the TPU kernel's whole-key-axis block does not
 fit 227 KB of shared memory at T=4000), and reads the bias from the head's
 (F, F) table in shared memory instead of the TPU kernel's one-hot matmul.
 Masked keys take the finite ``NEG`` so a row with every key masked stays
-finite.  The kernels come in three head-dim instances, 64, 128 and 256
+finite.  The forward comes in three head-dim instances, 64, 128 and 256
 (``HEAD_DIMS``; a call pads dh up to the next one; at 256 a tile of rows
 has two blocks, each accumulating half of the output's columns); past 256
 the DK 128 instance's wide path takes any dh (``head_dim_instance``): its
 score products read their operands from device memory and a tile of rows
 has ceil(dh / 128) blocks, one a 128-column slice of the output
-(csrc/tiles.cuh).  They take any frame count: the (F, F) table sits in
-shared memory up to 64 frames and is read from device memory past that
-(and on the wide path), and the dq kernel sums the frame-bias gradient in
-tiles of 64 frames.
+(csrc/tiles.cuh).  The backward takes dh 64 and 128 as instances, and
+every dh past 128 on a thread block cluster (csrc/cluster.cuh,
+kernels/_cluster.py): ceil(dh / 128) blocks a tile of rows, each staging
+its 128 columns by TMA, the score partials summed once over the cluster;
+a dh that is not a multiple of 4 is padded with zero columns (TMA's
+16-byte rows), a tensor that does not start on 16 bytes copied, and the
+gradients sliced back.  The kernels take any frame
+count: the (F, F) table sits in shared memory up to 64 frames and is read
+from device memory past that (and on the wide and cluster paths), and
+the dq kernels sum the frame-bias gradient in tiles of 64 frames.
 
 Backward: replaces §_flash_bwd in both of its modes, chosen per call
 (``bwd_mode``) or for the process (``VOG_FLASH_BWD``) as the TPU package
@@ -68,21 +74,23 @@ import torch
 
 from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
+from vog_tpu_torch.kernels._cluster import SLICE, cluster_plan, pad_cols
 
 NEG = -1e30
 NAME = "flash_attention"
 NAME_BWD = "flash_attention_bwd"  # recompute mode
 NAME_BWD_EMIT = "flash_attention_bwd_emit"
-# the kernels' head-dim instances (csrc/tiles.cuh §HeadDim): a call pads dh
-# up to the next one, and past the widest (kMaxDh) takes the DK 128
-# instance's wide path, in WIDE_SLICE-column slices of the output
+# the forward's head-dim instances (csrc/tiles.cuh §HeadDim): a call pads
+# dh up to the next one, and past the widest (kMaxDh) takes the DK 128
+# instance's wide path, in WIDE_SLICE-column slices of the output (the
+# backward: 64 and 128, past 128 the cluster kernels, kernels/_cluster.py)
 HEAD_DIMS = (64, 128, 256)
 WIDE_SLICE = 128
 BWD_Q_ROWS = 64  # query rows a block of the dq kernel (kRows in csrc/attention.cu)
 
 
 def head_dim_instance(dh: int) -> Tuple[int, int]:
-    """(the kernels' instance that takes a head dim of ``dh``, the column
+    """(the forward's instance that takes a head dim of ``dh``, the column
     slices a tile of rows has): the narrowest of ``HEAD_DIMS`` that holds
     dh (slices: 2 at 256, else 1), or past the widest the DK 128 instance's
     wide path with ceil(dh / 128) slices."""
@@ -115,13 +123,14 @@ def _bias_inputs(H, T, frame_bias, frame_ids, device):
 
 
 def flash_attention_plain(
-    q, k, v, key_mask, frame_bias=None, frame_ids=None, precision=None
+    q, k, v, key_mask, frame_bias=None, frame_ids=None, precision=None, scale=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version -> (o (B,H,T,dh), lse (B,H,T))."""
+    """Plain PyTorch version -> (o (B,H,T,dh), lse (B,H,T)); ``scale``
+    (None: 1/sqrt(dh)) is the score scale, as the kernels take it."""
     B, H, T, dh = q.shape
     frame_bias, frame_ids = _bias_inputs(H, T, frame_bias, frame_ids, q.device)
     fid = frame_ids.long()
-    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(dh) if scale is None else scale)
     s = s + frame_bias.float()[:, fid][:, :, fid][None]
     s = torch.where(key_mask[:, None, None, :] > 0, s, torch.full_like(s, NEG))
     lse = torch.logsumexp(s, dim=-1)
@@ -199,7 +208,7 @@ def flash_attention_fwd(
 
 
 def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do,
-                              bwd_mode=None, precision=None):
+                              bwd_mode=None, precision=None, scale=None):
     """Plain PyTorch backward from the saved LSE -> (dq, dk, dv, dfb (H,F,F)),
     as the TPU kernels' ``_block_tile`` defines it: p = exp(s - lse),
     ds = p (do.v - delta) with delta = sum(do * o), masked keys give ds = 0.
@@ -207,9 +216,10 @@ def flash_attention_bwd_plain(q, k, v, key_mask, frame_bias, frame_ids, o, lse, 
     -1e30 in fp32: there p = 1/T (the softmax of equal scores), as
     autograd of ``flash_attention_plain`` gives.  Both modes compute this
     function; ``bwd_mode`` and ``precision`` are taken for the kernel
-    wrapper's signature and do not change the arithmetic."""
+    wrapper's signature and do not change the arithmetic; ``scale`` is
+    the forward's (None: 1/sqrt(dh))."""
     B, H, T, dh = q.shape
-    scale = 1.0 / math.sqrt(dh)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
     frame_bias, frame_ids = _bias_inputs(H, T, frame_bias, frame_ids, q.device)
     fid = frame_ids.long()
     valid = key_mask[:, None, None, :] > 0
@@ -251,24 +261,33 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
     fn = _build.function("attention.cu", "vog_flash_delta", [P] * 3 + [I] * 2 + [P], prec)
     _build.check(fn(dev.index, o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
                     _build.stream_ptr(q)), NAME_BWD)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
     scale = 1.0 / math.sqrt(dh)
+    kd, n = dh, 1  # the kernels' head dim and cluster: past 128, cluster_plan's
+    qk, kk, vk, dok = q, k, v, do
+    if dh > SLICE:
+        plan = cluster_plan(dh)
+        kd, n = plan.dh_pad, plan.cluster
+        qk, kk, vk, dok = (pad_cols(t, kd) for t in (q, k, v, do))
+    dk, dv = torch.empty_like(kk), torch.empty_like(vk)
     if mode == "emit":
         ds_type = torch.float32 if prec == "highest" else torch.bfloat16
         ds = torch.empty((B * H, T, T), dtype=ds_type, device=dev)
         dq = part = None
     else:
         ds = None
-        dq = torch.empty_like(q)
+        dq = torch.empty_like(qk)
         # the kernel writes the frame-bias partials only when F > 1
         part = (torch.empty((B, H, -(-T // BWD_Q_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
                 if Fn > 1 else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 14 + [I] * 5 + [_build.F, P], prec)
-    rc = fn(dev.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+    fn = _build.function("attention.cu", "vog_flash_bwd", [P] * 14 + [I] * 5 + [_build.F, I, P], prec)
+    rc = fn(dev.index, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), dok.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), key_mask.data_ptr(), fb_ptr, fid_ptr, ptr(dq),
-            dk.data_ptr(), dv.data_ptr(), ptr(part), ptr(ds), B, H, T, dh, Fn, scale,
+            dk.data_ptr(), dv.data_ptr(), ptr(part), ptr(ds), B, H, T, kd, Fn, scale, n,
             _build.stream_ptr(q))
+    if kd != dh:
+        dk, dv = dk[..., :dh].contiguous(), dv[..., :dh].contiguous()
+        dq = None if dq is None else dq[..., :dh].contiguous()
     zeros = lambda: torch.zeros((H, 1, 1), dtype=torch.float32, device=dev)  # noqa: E731
     if mode == "emit":
         _build.check(rc, NAME_BWD_EMIT)

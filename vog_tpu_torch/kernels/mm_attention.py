@@ -7,7 +7,7 @@ with the 1/sqrt(dh) scale folded into qm by the caller and cn the per-arg
 log-domain key weighting in its natural (B,H,A,T) layout.
 
 Replaces vog_tpu/kernels/mm_attention.py §_fwd (_fwd_kernel).  CUDA
-kernel: csrc/mm_attention.cu (mm_fwd).  Bound by operations on the H100
+kernel: csrc/mm_attention.cu (mm_fwd; past dh 128 mm_fwd_cl).  Bound by operations on the H100
 (the A value products dominate), so every product runs on the tensor
 cores in 3xTF32 (``mma.sync``, fp32-level accuracy, as the flash kernels):
 a block of 4 warps owns 16 query rows and streams 32-key tiles of km, vm
@@ -46,15 +46,21 @@ dk, dv and dcn (csrc/mm_attention.cu).
 Both modes compute the same function; on the CPU both run
 ``mm_attention_bwd_plain``.
 
-Shapes: the kernels come in two head-dim instances, 128 and 256
+Shapes: the backward kernels come in two head-dim instances, 128 and 256
 (``HEAD_DIMS``, each its own library; a call pads dh up to the next one);
 past 256 the DK 128 library's wide path takes any dh (its score products'
 operands read from device memory, ceil(dh / 128) blocks a tile, one a
-128-column slice of the output: csrc/tiles.cuh), and take any frame count (the (F, F) table in shared memory up to 64
-frames, read from device memory past that; mm_bwd_dq sums the frame-bias
-gradient in tiles of 64 frames).  A launch takes at most 8 args
-(``KERNEL_ARGS``; 4 on the wide path, ``kernel_args``); more run in groups
-(``arg_groups``: 9 -> 5 + 4), each
+128-column slice of the output: csrc/tiles.cuh).  The forward takes dh <=
+128 in the DK 128 library and every dh past 128 on a thread block
+cluster (the other library; csrc/cluster.cuh, kernels/_cluster.py): each
+block of a tile stages its 128 columns by TMA, the score partial summed
+once over the cluster; a dh that is not a multiple of 4 is padded with
+zero columns (TMA's 16-byte rows) and the output sliced back.  Both take
+any frame count (the (F, F) table in shared memory up to 64 frames, read
+from device memory past that; mm_bwd_dq sums the frame-bias gradient in
+tiles of 64 frames).  A launch takes at most 8 args (``KERNEL_ARGS``; the
+backward's wide path 4, ``kernel_args``; the cluster forward 7, 4 past dh
+1024, ``fwd_groups``); more run in groups (``arg_groups``: 9 -> 5 + 4), each
 group's launches counted under the kernel's name: the forward's outputs
 are concatenated over A (each arg depends on the shared scores and its
 own cn_a alone), and the groups' gradients added up in group order
@@ -82,23 +88,26 @@ import torch
 
 from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
+from vog_tpu_torch.kernels._cluster import arg_groups, cluster_plan, pad_cols
 
 NEG = -1e30
 NAME = "mm_shared_qk_attention"
 NAME_BWD = "mm_shared_qk_attention_bwd"  # emit mode
 NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
 KERNEL_ARGS = 8  # args a launch takes (template cases 1..8 in csrc/mm_attention.cu)
-WIDE_KERNEL_ARGS = 4  # ... on the wide path, past dh 256 (kWideArgs: its A cases 1..4)
-# the kernels' head-dim instances, each its own library (the one of 256 is
-# built with -DVOG_MM_DK=256): a call pads dh up to the next one, and past
-# 256 takes the DK 128 library's wide path
+WIDE_KERNEL_ARGS = 4  # ... the backward's wide path, past dh 256 (kWideArgs: its A cases 1..4)
+# the backward kernels' head-dim instances, each its own library (the one
+# of 256 is built with -DVOG_MM_DK=256): a call pads dh up to the next
+# one, and past 256 takes the DK 128 library's wide path.  The forward
+# takes dh <= 128 in the DK 128 library and every dh past 128 as the
+# cluster instance (kernels/_cluster.py) of the other.
 HEAD_DIMS = (128, 256)
 # query rows a block of mm_bwd_dq owns, by instance (kDqRows in csrc/mm_attention.cu)
 DQ_ROWS = {128: 64, 256: 32}
 
 
 def head_dim_instance(dh: int) -> int:
-    """The kernels' instance that takes a head dim of ``dh``: the
+    """The backward kernels' instance that takes a head dim of ``dh``: the
     narrowest of ``HEAD_DIMS`` that holds it, or past the widest the DK
     128 instance, whose wide path takes any dh."""
     for d in HEAD_DIMS:
@@ -108,27 +117,23 @@ def head_dim_instance(dh: int) -> int:
 
 
 def _library_dk(dh: int):
-    """``_build.function``'s ``dk`` of the instance of ``dh``: None for the
-    default library (128), else 256 (``_build.WIDE_DK``)."""
+    """``_build.function``'s ``dk`` of the backward's instance of ``dh``:
+    None for the default library (128), else 256 (``_build.WIDE_DK``)."""
     return None if head_dim_instance(dh) == HEAD_DIMS[0] else _build.WIDE_DK
 
 
 def kernel_args(dh: int) -> int:
-    """The args a launch takes at head dim ``dh``: KERNEL_ARGS, or past
-    256 (the wide path) WIDE_KERNEL_ARGS."""
+    """The args a launch of the backward takes at head dim ``dh``:
+    KERNEL_ARGS, or past 256 (the wide path) WIDE_KERNEL_ARGS.  The
+    forward's are ``fwd_groups``."""
     return KERNEL_ARGS if dh <= HEAD_DIMS[-1] else WIDE_KERNEL_ARGS
 
 
-def arg_groups(A: int, most: int = KERNEL_ARGS):
-    """[(a0, a1), ...]: A args in ceil(A / most) groups of at most
-    ``most`` (a launch's args, ``kernel_args``), as even as possible, the
-    larger first (9 -> 5 + 4, 10 -> 5 + 5; past dh 256, 5 -> 3 + 2), in
-    order: one launch of each kernel a group."""
-    n = -(-A // most)
-    bounds = [0]
-    for i in range(n):
-        bounds.append(bounds[-1] + A // n + (i < A % n))
-    return list(zip(bounds[:-1], bounds[1:]))
+def fwd_groups(A: int, dh: int):
+    """The forward's launches, [(a0, a1), ...]: ``arg_groups`` of
+    KERNEL_ARGS, past dh 128 the cluster plan's (7 args a launch, 4 past
+    dh 1024: kernels/_cluster.py)."""
+    return list(cluster_plan(dh, A).groups) if dh > HEAD_DIMS[0] else arg_groups(A, KERNEL_ARGS)
 
 
 def _args(t: torch.Tensor, a0: int, a1: int) -> torch.Tensor:
@@ -141,7 +146,7 @@ def fwd_by_groups(fwd, qm, km, vm, cn, *rest):
     ``arg_groups``, on its args of ``cn``, -> its outputs concatenated over
     A.  Exact: each arg's output depends on the shared scores and its own
     cn_a alone."""
-    groups = arg_groups(cn.shape[2], kernel_args(qm.shape[-1]))
+    groups = fwd_groups(cn.shape[2], qm.shape[-1])
     if len(groups) == 1:
         return fwd(qm, km, vm, cn, *rest)
     parts = [fwd(qm, km, vm, _args(cn, a0, a1), *rest) for a0, a1 in groups]
@@ -233,23 +238,33 @@ def _mm_fwd_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
 
 
 def _mm_fwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
-    """One launch of the forward kernel, at most KERNEL_ARGS args."""
+    """One launch of the forward kernel, at most KERNEL_ARGS args: dh <=
+    128 in the DK 128 library, past it the cluster instance (the other
+    library) on qm, km, vm padded with zero columns to a multiple of 4
+    and starting on 16 bytes (``pad_cols``), as clusters of the plan's size."""
     dev = qm.device
     B, H, T, dh = qm.shape
     A = cn.shape[2]
     Fn = frame_bias.shape[-1]
-    out = torch.empty((B, H, A, T, dh), dtype=torch.float32, device=dev)
+    wide = dh > HEAD_DIMS[0]
+    dk, n = dh, 1  # the kernel's head dim and cluster: past 128, cluster_plan's
+    if wide:
+        plan = cluster_plan(dh)
+        dk, n = plan.dh_pad, plan.cluster
+        qm, km, vm = (pad_cols(t, dk) for t in (qm, km, vm))
+    out = torch.empty((B, H, A, T, dk), dtype=torch.float32, device=dev)
     mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 6 + [P], prec, _library_dk(dh))
+    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 7 + [P], prec,
+                         _build.WIDE_DK if wide else None)
     rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
             key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(),
             out.data_ptr(), mrow.data_ptr(), den.data_ptr(),
-            B, H, A, T, dh, Fn, _build.stream_ptr(qm))
+            B, H, A, T, dk, Fn, n, _build.stream_ptr(qm))
     _build.check(rc, NAME)
     _build.count(NAME, prec)
-    return out, mrow, den
+    return (out if dk == dh else out[..., :dh].contiguous()), mrow, den
 
 
 def _mm_fwd_fake(qm, km, vm, cn, key_mask, frame_bias, frame_ids, precision):
