@@ -521,8 +521,8 @@ def phase_build():
 
     secs = _build.build_all()
     print(f"[build] {len(_build.LIBRARIES)} libraries ({len(_build.SOURCES)} sources, the three with TF32 "
-          f"products at \"highest\" and at \"default\", {', '.join(_build.WIDE_SOURCES)} also at DK "
-          f"{_build.WIDE_DK}) built in {secs:.1f} s into {_build.build_dir()}", flush=True)
+          f"products at \"highest\" and at \"default\", {', '.join(_build.CLUSTER_SOURCES)} also for its "
+          f"{_build.CLUSTER} instances) built in {secs:.1f} s into {_build.build_dir()}", flush=True)
     for lib in _build.LIBRARIES:
         stem = _build.lib_stem(*lib)
         log = _build.build_dir() / f"{stem}.log"
@@ -550,28 +550,32 @@ def phase_build():
         fail(f"[build] the cluster instances must build and spill nothing: {len(cl)} built, spills {spilled}")
 
 
-def cluster_info(family: str, dh: int, prec: str, A: int = 5, F: int = 1) -> dict:
-    """A row's cluster design past head dim 128 (``family`` "flash": the
-    backward's flash_bwd_dkv_cl / flash_bwd_dq_cl; "mm": the forward's
-    mm_fwd_cl): the plan (blocks a cluster, passes, the padded head dim),
-    ptxas's registers and spill stores of the library's instances
-    (``[build]``), and ``cudaOccupancyMaxActiveClusters`` of the one-pass
-    instances at this shape (dkv and dq; the mm instance of 5 args, or of
-    7 where a launch takes more)."""
+def cluster_info(family: str, dh: int, prec: str, A: int = 5, F: int = 1, part: str = "bwd") -> dict:
+    """A row's cluster design past head dim 128 (``family`` "flash" or
+    "mm", ``part`` "fwd": flash_fwd_cl / mm_fwd_cl, or "bwd": the dkv and
+    dq kernels, flash_bwd_*_cl / mm_bwd_*_cl): the plan (blocks a cluster,
+    passes, the padded head dim), ptxas's registers and spill stores of the
+    library's instances (``[build]``), and ``cudaOccupancyMaxActiveClusters``
+    of the one-pass instances at this shape (the mm instances of 5 args,
+    or of a launch's most where it takes more: 7 forward, 8 backward)."""
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels import _cluster as cluster
 
     plan = cluster.cluster_plan(dh, A)
     I = _build.I
     if family == "flash":
-        lib, names = _build.lib_stem("attention.cu", prec), ("flash_bwd_dkv_cl", "flash_bwd_dq_cl")
-        fn = _build.function("attention.cu", "vog_flash_bwd_clusters", [I] * 3, prec)
-        occ = [fn(0, plan.cluster, F, which) for which in (0, 1)]
+        lib = _build.lib_stem("attention.cu", prec)
+        names = ("flash_fwd_cl",) if part == "fwd" else ("flash_bwd_dkv_cl", "flash_bwd_dq_cl")
+        fn = _build.function("attention.cu", "vog_flash_clusters", [I] * 3, prec)
+        occ = [fn(0, plan.cluster, F, which) for which in ((2,) if part == "fwd" else (0, 1))]
     else:
-        lib, names = _build.lib_stem("mm_attention.cu", prec, _build.WIDE_DK), ("mm_fwd_cl",)
-        fn = _build.function("mm_attention.cu", "vog_mm_fwd_clusters", [I] * 2, prec, _build.WIDE_DK)
-        most = max(a1 - a0 for a0, a1 in plan.groups)  # a launch's args
-        occ = [fn(0, 5 if most <= 5 else 7, plan.cluster)]
+        lib = _build.lib_stem("mm_attention.cu", prec, _build.CLUSTER)
+        names = ("mm_fwd_cl",) if part == "fwd" else ("mm_bwd_dkv_cl", "mm_bwd_dq_cl")
+        fn = _build.function("mm_attention.cu", "vog_mm_clusters", [I] * 3, prec, _build.CLUSTER)
+        groups = plan.groups if part == "fwd" else plan.bwd_groups
+        most = max(a1 - a0 for a0, a1 in groups)  # a launch's args
+        wide = (7 if part == "fwd" else 8) if most > 5 else 5
+        occ = [fn(0, wide, plan.cluster, which) for which in ((0,) if part == "fwd" else (1, 2))]
     inst = [v for f, v in PTXAS.get(lib, {}).items() if f.startswith(names)]
     return dict(cluster=plan.cluster, passes=plan.passes, dh_pad=plan.dh_pad, instances=len(inst),
                 max_registers=max((v[0] for v in inst), default=None), spill_stores=sum(v[1] for v in inst),
@@ -4652,10 +4656,12 @@ def wide_kernel_rows(cfg) -> tuple:
     both backward modes, each against its plain version on the card
     (phase 3's limits), then timed beside it, the one library call that
     computes the same function (SDPA with the bias as a float mask; its
-    backward with the mask's gradient) and the bound; and the flash forward
-    at the BERT-SRL tagger's shape (head dim 64: the instance without
-    padded k-steps) beside SDPA.  -> (the kernel table rows, without
-    launches; the tagger's timings)."""
+    backward with the mask's gradient) and the bound; each recompute
+    backward split by kernel beside the DK 128 instance on the first 128
+    columns (``bwd_by_kernel``); and the flash forward at the BERT-SRL
+    tagger's shape (head dim 64: the instance without padded k-steps)
+    beside SDPA.  -> (the kernel table rows, without launches; the
+    tagger's timings and the splits)."""
     import torch
 
     from vog_tpu_torch.kernels import attention, mm_attention
@@ -4700,7 +4706,8 @@ def wide_kernel_rows(cfg) -> tuple:
     shape = f"q,k,v {tuple(q.shape)} f32, ({frames}, {frames}) frame bias"
     add("flash_attention", "vog_tpu_torch/csrc/attention.cu", "vog_tpu/kernels/attention.py:286", err, t,
         bound_ms(nbytes(q, k, v, mask, fb, fid) + nbytes(q) + nbytes(lse), 4.0 * Bf * H * T * T * dh), shape,
-        f"SDPA, the bias and key mask as a float mask (Bf,H,T,T); rel err vs kernel {lib_rel:.2e}")
+        f"SDPA, the bias and key mask as a float mask (Bf,H,T,T); rel err vs kernel {lib_rel:.2e}",
+        cluster_info("flash", dh, "highest", F=frames, part="fwd"))
     ref = attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do)
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, fmask)]
     sd = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
@@ -4717,7 +4724,8 @@ def wide_kernel_rows(cfg) -> tuple:
         t = {**shared, **{key: x for key, x in timings(call, None, None, reps, inner).items()
                           if key in ("ms", "issue_ms")}, "host_ms": host_ms(call)}
         add(name, "vog_tpu_torch/csrc/attention.cu", replaces, err, t, bound, shape,
-            "SDPA backward, grads of q, k, v and the float mask", cluster_info("flash", dh, "highest", F=frames))
+            "SDPA backward, grads of q, k, v and the float mask",
+            cluster_info("flash", dh, "highest", F=frames, part="bwd"))
     dk256 = bwd_by_kernel(lambda: attention.flash_attention_bwd(q, k, v, mask, fb, fid, ro, rl, do), reps, inner)
     half = [x[..., :128].contiguous() for x in (q, k, v, do)]  # the same shape at half the work: DK 128, no cluster
     o_h, lse_h = attention.flash_attention_fwd(*half[:3], mask, fb, fid)
@@ -4750,7 +4758,7 @@ def wide_kernel_rows(cfg) -> tuple:
         err, t, bound_ms(nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4,
                          2.0 * B * H * T * T * dh * (1 + A)), shape,
         f"SDPA, query repeated over A, float mask (B,H,A*T,T); rel err vs kernel {lib_rel:.2e}",
-        cluster_info("mm", dh, "highest", A=A))
+        cluster_info("mm", dh, "highest", A=A, part="fwd"))
     gm = torch.randn(fwd[0].shape, generator=g, device=dev)
     ref = mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *rf, gm)
     leaves = [x.detach().clone().requires_grad_() for x in (q_rep, km, vm, fm)]
@@ -4762,16 +4770,29 @@ def wide_kernel_rows(cfg) -> tuple:
                      2.0 * B * H * T * T * dh * (3 + 2 * A))
     shared = timings(None, lambda: mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *rf, gm),
                      lib, reps, inner)
+    bgroups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.bwd_groups(A, dh))
+    bshape = shape.replace(f"({groups})", f"({bgroups})")
     for mode, name, replaces in BWD_MODES["mm_shared_qk_attention_bwd"]:
         got = mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode)
         err = max(check_close(f"{name} {n}", x, y) for n, x, y in zip(OUT_NAMES[name], got, ref))
         del got
-        t = {**shared, **{key: x for key, x in timings(
-            lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode),
-            None, None, reps, inner).items() if key in ("ms", "issue_ms")}}
-        add(name, "vog_tpu_torch/csrc/mm_attention.cu", replaces, err, t, bound, shape,
-            "SDPA backward, grads of q (repeated), k, v and the float mask")
-    del qm, km, vm, cn, fwd, rf, gm, ref, leaves, sd, gsd, lib
+        call = lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode)  # noqa: E731
+        t = {**shared, **{key: x for key, x in timings(call, None, None, reps, inner).items()
+                          if key in ("ms", "issue_ms")}, "host_ms": host_ms(call)}
+        add(name, "vog_tpu_torch/csrc/mm_attention.cu", replaces, err, t, bound, bshape,
+            "SDPA backward, grads of q (repeated), k, v and the float mask",
+            cluster_info("mm", dh, "highest", A=A, part="bwd"))
+    mm256 = bwd_by_kernel(lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm,
+                                                                bwd_mode="recompute"), reps, inner)
+    half = [x[..., :128].contiguous() for x in (qm, km, vm)]  # the same shape at half the work: DK 128, no cluster
+    rf_h = mm_attention.mm_attention_fwd(*half, cn, mask, fb, fid)
+    g_h = gm[..., :128].contiguous()
+    mm128 = bwd_by_kernel(lambda: mm_attention.mm_attention_bwd(*half, cn, mask, fb, fid, *rf_h, g_h,
+                                                                bwd_mode="recompute"), reps, inner)
+    mm_probe = dict(shape=f"{tuple(qm.shape)}, A={A}, recompute, fp32", dk256=mm256, dk128_first_columns=mm128)
+    print(f"{tag} mm_shared_qk_attention_bwd_recompute[{inst}] by kernel: {fmt_by_kernel(mm256)}; the DK 128 "
+          f"instance on its first 128 columns: {fmt_by_kernel(mm128)}; {mm256['ms'] / mm128['ms']:.3f}x", flush=True)
+    del qm, km, vm, cn, fwd, rf, gm, ref, leaves, sd, gsd, lib, half, rf_h, g_h
 
     # -- the tagger's flash forward: head dim 64 -------------------------
     Bt, Ht, Tt, dt = TAGGER_ATTN
@@ -4790,13 +4811,14 @@ def wide_kernel_rows(cfg) -> tuple:
     tagger = dict(shape=f"q,k,v {tuple(q.shape)} f32, no bias", max_abs_err=err, **t, bound_ms=bms, bound_by=by)
     print(f"{tag} flash_attention at the tagger's shape {TAGGER_ATTN} (dh 64 instance) max_err={err:.3e} "
           f"{fmt_times(t, 'sdpa')} bound={bms:.4f}", flush=True)
-    return rows, dict(tagger_flash=tagger, flash_bwd_by_kernel=probe)
+    return rows, dict(tagger_flash=tagger, flash_bwd_by_kernel=probe, mm_bwd_by_kernel=mm_probe)
 
 
 def bwd_by_kernel(fn, reps: int, inner: int) -> dict:
     """A backward wrapper's device ms a call (``time_ms``) and its kernels'
-    (``flash_bwd_delta``, ``flash_bwd_dkv``, ``flash_bwd_dq``, the cluster
-    instances under the same names, and the wrapper's other device ops)
+    (``flash_bwd_delta``, ``flash_bwd_dkv``, ``flash_bwd_dq``, or the mm
+    backward's ``mm_bwd_*``; the cluster instances under the same names,
+    and the wrapper's other device ops)
     from a torch.profiler run of ``reps`` calls, taken again (up to three
     runs) while the trace holds no device time; ``by_kernel`` is empty
     when none held any."""
@@ -5006,10 +5028,8 @@ def wider_kernel_rows() -> list:
     # -- flash and mm attention past head dim 256 --------------------------
     for dh in WIDER_DH:
         H = 1 if dh >= 1024 else 2
-        dk, slices = attention.head_dim_instance(dh)
-        path = f"the DK {dk} instance's wide path, {slices} column slices"
         plan = cluster.cluster_plan(dh, A)
-        cl_path = f"the cluster instances, {plan.cluster} blocks a cluster, {plan.passes} pass(es)"
+        path = f"the cluster instances, {plan.cluster} blocks a cluster, {plan.passes} pass(es)"
         for B, T, frames in WIDER_ATTN:
             inst = f"dh{dh},T{T},F{frames}"
             fid = (torch.arange(T, device=dev) // (T // frames)).to(torch.int32)
@@ -5039,7 +5059,7 @@ def wider_kernel_rows() -> list:
                     lambda: attention.flash_attention_fwd(q, k, v, mask, fb, fid, precision=prec)))
                 add("flash_attention", prec, inst, "attention.cu", "vog_tpu/kernels/attention.py:286", errs, t,
                     4.0 * B * H * T * T * dh, nbytes(q, k, v, mask, fb, fid) + nbytes(q) + nbytes(lse), shape,
-                    "SDPA, the bias and key mask as a float mask")
+                    "SDPA, the bias and key mask as a float mask", cluster_info("flash", dh, prec, F=frames, part="fwd"))
                 ref = run("highest", lambda: attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do))
                 shared = run(prec, lambda: timings(
                     None, lambda: attention.flash_attention_bwd_plain(q, k, v, mask, fb, fid, ro, rl, do),
@@ -5057,8 +5077,8 @@ def wider_kernel_rows() -> list:
                         "host_ms": run(prec, lambda: host_ms(call))}
                     add(name, prec, inst, "attention.cu", replaces, errs, t, 10.0 * B * H * T * T * dh,
                         nbytes(q, k, v, ro, do, rl, mask, fb, fid) + 3 * nbytes(q) + nbytes(fb),
-                        shape.replace(path, cl_path) + f", {mode}", "SDPA backward, grads of q, k, v and the float mask",
-                        cluster_info("flash", dh, prec, F=frames))
+                        shape + f", {mode}", "SDPA backward, grads of q, k, v and the float mask",
+                        cluster_info("flash", dh, prec, F=frames, part="bwd"))
                 del ref
             del q, k, v, do, fmask, leaves, sd
             # mm: qm, km, vm (B, H, T, dh), A = 5 args, the frame bias
@@ -5067,11 +5087,10 @@ def wider_kernel_rows() -> list:
             cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
             gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
             q_rep, fm = mm_sdpa_inputs(qm, cn, mask, fb, fid)
-            groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.arg_groups(A, mm_attention.kernel_args(dh)))
+            groups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.bwd_groups(A, dh))
             fgroups = "+".join(str(a1 - a0) for a0, a1 in mm_attention.fwd_groups(A, dh))
             shape = f"qm,km,vm {tuple(qm.shape)}, A={A} ({groups}) f32, ({frames}, {frames}) frame bias; {path}"
-            fshape = (f"qm,km,vm {tuple(qm.shape)}, A={A} ({fgroups}) f32, ({frames}, {frames}) frame bias; "
-                      f"{cl_path}")
+            fshape = f"qm,km,vm {tuple(qm.shape)}, A={A} ({fgroups}) f32, ({frames}, {frames}) frame bias; {path}"
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
                 q_rep, km, vm, attn_mask=fm, scale=1.0)
             leaves = [x.detach().clone().requires_grad_() for x in (q_rep, km, vm, fm)]
@@ -5093,7 +5112,7 @@ def wider_kernel_rows() -> list:
                 add("mm_shared_qk_attention", prec, inst, "mm_attention.cu", "vog_tpu/kernels/mm_attention.py:315",
                     errs, t, 2.0 * B * H * T * T * dh * (1 + A),
                     nbytes(qm, km, vm, cn, mask, fb, fid) + B * H * A * T * (dh + 2) * 4, fshape,
-                    "SDPA, query repeated over A, float mask (B,H,A*T,T)", cluster_info("mm", dh, prec, A=A))
+                    "SDPA, query repeated over A, float mask (B,H,A*T,T)", cluster_info("mm", dh, prec, A=A, part="fwd"))
                 ref = run("highest", lambda: mm_attention.mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid,
                                                                                  *rf, gm))
                 shared = run(prec, lambda: timings(
@@ -5105,13 +5124,15 @@ def wider_kernel_rows() -> list:
                     errs = [check(prec, f"{name} {inst} {prec} {on}", x, y, False)
                             for on, x, y in zip(OUT_NAMES[name], got, ref)]
                     del got
+                    call = lambda: mm_attention.mm_attention_bwd(  # noqa: E731
+                        qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode, precision=prec)
                     t = {**shared, **{kk: vv for kk, vv in run(prec, lambda: timings(
-                        lambda: mm_attention.mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *rf, gm, bwd_mode=mode,
-                                                              precision=prec), None, None, reps, inner)).items()
-                        if kk in ("ms", "issue_ms")}}
+                        call, None, None, reps, inner)).items() if kk in ("ms", "issue_ms")},
+                        "host_ms": run(prec, lambda: host_ms(call))}
                     add(name, prec, inst, "mm_attention.cu", replaces, errs, t, 2.0 * B * H * T * T * dh * (3 + 2 * A),
                         nbytes(qm, km, vm, cn, mask, fb, gm, *rf) + 3 * nbytes(qm) + nbytes(cn), shape + f", {mode}",
-                        "SDPA backward, grads of q (repeated), k, v and the float mask")
+                        "SDPA backward, grads of q (repeated), k, v and the float mask",
+                        cluster_info("mm", dh, prec, A=A, part="bwd"))
                 del rf, ref
             del qm, km, vm, cn, gm, q_rep, fm, leaves, sd, gsd
     return rows

@@ -8,8 +8,9 @@
     cluster's blocks; the cluster is at most the source's portable size
     and at most the slices (the C entries' ``cluster_fits``); the padded
     row stride is a multiple of 16 bytes (TMA's) and the padding is under
-    4 columns; the mm forward's arg groups cover A in order, at most the
-    source's args a launch; the constants are the C sources';
+    4 columns; the mm forward's and the mm backward's arg groups cover A
+    in order, at most the source's args a launch; the constants are the C
+    sources';
   * ``pad_cols``: zero columns, and a copy of a view that does not start
     on 16 bytes (TMA's base address);
   * the wrappers' zero-column padding (dh 385 -> 388, TMA's row stride) on
@@ -34,7 +35,7 @@ from vog_tpu.kernels.attention import flash_attention as jflash
 from vog_tpu.kernels.mm_attention import mm_shared_qk_attention as jmm
 from vog_tpu_torch.kernels import _cluster as cluster
 from vog_tpu_torch.kernels.attention import flash_attention_bwd_plain, flash_attention_plain
-from vog_tpu_torch.kernels.mm_attention import fwd_groups, mm_attention_bwd_plain, mm_attention_plain
+from vog_tpu_torch.kernels.mm_attention import bwd_groups, fwd_groups, mm_attention_bwd_plain, mm_attention_plain
 
 CSRC = Path(__file__).resolve().parents[1] / "vog_tpu_torch" / "csrc"
 
@@ -50,6 +51,9 @@ def test_plan_constants_are_the_sources():
     assert cluster.MAX_CLUSTER == _const("cluster.cuh", "kMaxCluster") == 8
     assert cluster.FWD_KERNEL_ARGS == _const("mm_attention.cu", "kClArgs")
     assert cluster.FWD_KERNEL_ARGS_X == _const("mm_attention.cu", "kClXArgs")
+    assert cluster.BWD_KERNEL_ARGS == _const("mm_attention.cu", "kClBwdArgs") == 8
+    # the 8-warp kernels' halves: 16 rows and 64 columns a warp
+    assert _const("cluster.cuh", "kRowGroups") == 4 and "kHalf = kSlice / 2;" in (CSRC / "cluster.cuh").read_text()
     # the TMA box's width, the shared row stride: a whole number of 16 bytes
     assert "kSliceLd = HeadDim<128>::kLd" in (CSRC / "cluster.cuh").read_text()
     assert (cluster.SLICE + 4) * 4 % 16 == 0
@@ -77,6 +81,13 @@ def test_plan_covers_every_head_dim(A):
         assert all(p.groups[i][1] == p.groups[i + 1][0] for i in range(len(p.groups) - 1))
         assert len(p.groups) == -(-A // most)
         assert fwd_groups(A, dh) == list(p.groups)
+        most = cluster.BWD_KERNEL_ARGS
+        bounds = [a for g in p.bwd_groups for a in g]
+        assert bounds[0] == 0 and bounds[-1] == A
+        assert all(a0 < a1 <= a0 + most for a0, a1 in p.bwd_groups)
+        assert all(p.bwd_groups[i][1] == p.bwd_groups[i + 1][0] for i in range(len(p.bwd_groups) - 1))
+        assert len(p.bwd_groups) == -(-A // most)
+        assert bwd_groups(A, dh) == list(p.bwd_groups)
 
 
 def test_plan_refuses_the_narrow_head_dims():
@@ -90,6 +101,19 @@ def test_pad_cols():
     y = cluster.pad_cols(x, 8)
     assert y.shape == (2, 3, 8) and y.is_contiguous()
     assert torch.equal(y[..., :5], x) and not y[..., 5:].any()
+
+
+def test_cluster_args_route_the_wrappers():
+    """The wrappers' launch arguments: the narrow instances' head dim and no
+    cluster up to 128, past it the plan's padded head dim and cluster with
+    every tensor through ``pad_cols``."""
+    x = torch.ones(2, 3, 128)
+    assert cluster.cluster_args(128, x) == (128, 1, (x,))
+    y = torch.ones(1, 4, 385)
+    kd, n, (yp, zp) = cluster.cluster_args(385, y, y.clone())
+    assert (kd, n) == (388, 4) == (cluster.cluster_plan(385).dh_pad, cluster.cluster_plan(385).cluster)
+    for t in (yp, zp):
+        assert t.shape == (1, 4, 388) and torch.equal(t[..., :385], y) and not t[..., 385:].any()
 
 
 def test_pad_cols_copies_a_misaligned_view():

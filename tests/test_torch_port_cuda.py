@@ -30,12 +30,12 @@ a capture that fails raising with the state untouched; and the dropout
 keep mask's bits equal on the CPU and the card.
 
 The wide instances (``test_wide_instance_matches_plain``): the flash
-kernels at dh 64, 200 (padded to 256) and 256 and at 65, 80 and 160
-frames, the mm kernels at DK 256, past 64 frames and at 9 and 12 args (in
-groups of at most 8), and both past dh 256 (the wide path: dh 300, 512
-and 1024, the mm kernels in groups of at most 4), each forward and
+kernels at dh 64 and 40 and at 65, 80 and 160 frames, the mm kernels
+past 64 frames and at 9 and 12 args (in groups of at most 8), and both
+past dh 128 on a thread block cluster (every kernel: dh 136 to 1100, the
+frame tiles on grid.x, A 8 in one backward launch), each forward and
 backward in both modes at "highest" and at "default" against its plain
-version; the wrappers at dh 264 without a bias; the fused head past D
+version, bitwise on a repeat call; the wrappers at dh 264 without a bias; the fused head past D
 512 (1024, 2080) and at D 300 (padded), its backward against the plain
 backward given its own ReLU decisions (``test_head_wider_matches_plain``),
 and its weight stream at two hidden groups bitwise.
@@ -692,31 +692,36 @@ def test_dropout_bits_cpu_equal_card(dev):
 
 
 # --------------------------------------------------------------------------
-# the wide instances: head dims 64, 200 (padded to 256) and 256, more frames
-# than a block's shared table (65, 80, 160), more args than a launch (9, 12)
+# the wide instances: head dims past 128, more frames than a block's shared
+# table (65, 80, 160), more args than a launch (9, 12)
 # --------------------------------------------------------------------------
 # (kernel, dh, F, A): flash at each head-dim instance and past 64 frames; mm
-# at DK 256, past 64 frames, and in groups of args (9 -> 5 + 4, 12 -> 6 + 6).
-# Past dh 128 the flash backward and the mm forward are the cluster
-# instances (csrc/cluster.cuh): 2 slices at dh 136-256, 3 at 300, 4 at 385
-# (padded to 388) and 512, 8 at 1024, 9 at 1100 (two passes of 5 blocks)
+# past 64 frames, and in groups of args (9 -> 5 + 4, 12 -> 6 + 6).  Past dh
+# 128 all four kernels (the forward and both backward kernels of flash and
+# of mm) are the cluster instances (csrc/cluster.cuh): 2 slices at dh
+# 136-256, 3 at 300, 4 at 385 (padded to 388) and 512, 8 at 1024, 9 at 1100
+# (two passes of 5 blocks)
 WIDE_CASES = [("flash", 64, 10, None), ("flash", 200, 10, None), ("flash", 256, 65, None),
               ("flash", 40, 80, None), ("flash", 256, 160, None), ("flash", 64, 160, None),
               ("mm", 200, 10, 5), ("mm", 256, 80, 5), ("mm", 128, 65, 3), ("mm", 40, 160, 2),
               ("mm", 64, 10, 9), ("mm", 256, 10, 12),
-              # past 256, the wide path: 4 slices, 3 (dh 300 not a multiple of 8), 8 (dh 1024)
+              # past 256: 4 slices, 3 (dh 300 not a multiple of 8), 8 (dh 1024)
               ("flash", 512, 10, None), ("flash", 300, 80, None), ("flash", 1024, 2, None),
               ("mm", 512, 10, 5), ("mm", 300, 80, 9), ("mm", 1024, 10, 2),
               # the cluster instances' edges: dh 136, dh 385 (padded), past 1024 (two passes), A 1
               ("flash", 136, 10, None), ("flash", 385, 65, None), ("flash", 1100, 160, None),
-              ("mm", 136, 65, 1), ("mm", 385, 160, 5), ("mm", 1100, 10, 12), ("mm", 1024, 65, 9)]
+              ("mm", 136, 65, 1), ("mm", 385, 160, 5), ("mm", 1100, 10, 12), ("mm", 1024, 65, 9),
+              # the mm backward's: A 8 in one launch (dh 385; dh 1100, two passes), the dq kernel's frame
+              # tiles on grid.x (F 65 over 4 blocks, F 160 over 2: two groups of clusters)
+              ("mm", 385, 65, 8), ("mm", 1100, 160, 8), ("mm", 256, 160, 3)]
 
 
 # and with every row matrix (q, k, v and the output gradient) a contiguous
 # view one float past a 16-byte boundary: past dh 128 the cluster kernels'
 # TMA needs 16-byte base addresses, so the wrappers copy such a view
 # (``pad_cols``), also where dh needs no padding (388, 256, 260)
-MISALIGNED_CASES = [("flash", 388, 10, None), ("flash", 256, 65, None), ("mm", 260, 10, 5), ("mm", 1100, 10, 2)]
+MISALIGNED_CASES = [("flash", 388, 10, None), ("flash", 256, 65, None), ("flash", 300, 10, None),
+                    ("mm", 260, 10, 5), ("mm", 1100, 10, 2)]
 
 
 def _misaligned(t):
@@ -777,7 +782,7 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, misaligned, precisio
             assert all(torch.equal(a, b) for a, b in zip(got, again))
         return
     fwd_groups = len(mm_attention.fwd_groups(A, dh))
-    groups = len(mm_attention.arg_groups(A, mm_attention.kernel_args(dh)))
+    groups = len(mm_attention.bwd_groups(A, dh))  # cluster_plan's bwd_groups past dh 128
     qm = rows(q * dh ** -0.5)
     cn = -3 * torch.rand((2, 2, A, T), generator=g, device=dev)
     rf = mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid)
@@ -806,8 +811,8 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, misaligned, precisio
 
 
 def test_wrappers_raise_past_the_widest_head_dim(dev):
-    """Past the widest instance (256) the wrappers no longer raise: at dh
-    264 (the wide path, three 128-column slices) they launch their kernel,
+    """Past the widest instance the wrappers do not raise: at dh 264 (the
+    cluster instances, three 128-column blocks) they launch their kernel,
     which matches the plain version."""
     from vog_tpu_torch.kernels import _build, attention, mm_attention
 

@@ -241,10 +241,11 @@ def _kernel_bodies(text):
 def test_flash_kernels_use_tensor_cores_and_async_copies():
     """Every flash kernel multiplies with 3xTF32 mma.sync (tf32.cuh,
     through the tile products of tiles.cuh) and streams its tiles with
-    cp.async, or past head dim 128 (the backward's cluster kernels) by TMA
-    on mbarriers, its score partials summed over the cluster
-    (cluster.cuh); the head shares the same header.  (flash_bwd_delta,
-    the backward's row sums, has no product.)"""
+    cp.async, or past head dim 128 (the cluster kernels, forward and
+    backward) by TMA on mbarriers, its score partials summed over the
+    cluster (cluster.cuh); the head shares the same header.
+    (flash_bwd_delta, the backward's row sums, has no product.)  The wide
+    path's helpers (scores_g, load_slice) are gone from the sources."""
     csrc = PKG / "csrc"
     header = (csrc / "tf32.cuh").read_text()
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
@@ -265,7 +266,9 @@ def test_flash_kernels_use_tensor_cores_and_async_copies():
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
     assert sorted(bodies) == ["flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dkv_cl", "flash_bwd_dq",
-                              "flash_bwd_dq_cl", "flash_fwd"]
+                              "flash_bwd_dq_cl", "flash_fwd", "flash_fwd_cl"]
+    for src in csrc.glob("*.cu*"):  # the wide path's helpers: retired
+        assert "scores_g" not in src.read_text() and "load_slice" not in src.read_text(), src.name
     del bodies["flash_bwd_delta"]
     assert '#include "cluster.cuh"' in text
     cluster = (csrc / "cluster.cuh").read_text()
@@ -276,8 +279,9 @@ def test_flash_kernels_use_tensor_cores_and_async_copies():
         assert "scores<" in body and "accumulate<" in body, name
         if name.endswith("_cl"):  # TMA tiles, the partials summed once over the cluster
             assert "tma_load(" in body and "mbar_wait(" in body, name
-            assert "put_partial<" in body and "sum_partials<" in body and "cluster_wait()" in body, name
-            assert "load_rows<" not in body and "scores_g<" not in body, name
+            # (the 8-warp kernels through cluster.cuh §sum_halves: their two halves added in the block first)
+            assert ("put_partial<" in body and "sum_partials<" in body) or "sum_halves<" in body, name
+            assert "cluster_wait()" in body and "load_rows<" not in body and "scores_g<" not in body, name
         else:
             assert "load_rows<" in body and "cp_wait_all()" in body, name
 
@@ -292,7 +296,8 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     text = (csrc / "mm_attention.cu").read_text()
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq", "mm_fwd", "mm_fwd_cl"]
+    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dkv_cl", "mm_bwd_dq", "mm_bwd_dq_cl", "mm_fwd",
+                              "mm_fwd_cl"]
     fwd = bodies["mm_fwd"]
     # S = Q K^T once per key tile; P_a V for every arg (3xTF32, or one pass)
     assert fwd.count("mma_p<kOnePass>(") == 2
@@ -304,6 +309,13 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     assert cl.count("frag_bt<kCLd>(") == 1 and "frag_b_pairs<kCLd>(" in cl and "split<kOnePass>(" in cl
     assert "tma_load(" in cl and "cp_async4(" in cl and "mbar_wait(" in cl
     assert cl.count("put_partial<1>(") == 1 and cl.count("sum_partials<1>(") == 1
+    # the backward past head dim 128: TMA tiles, each product's partial summed once over the cluster
+    for name in ("mm_bwd_dkv_cl", "mm_bwd_dq_cl"):
+        body = bodies[name]
+        assert "scores<" in body and "accumulate<" in body, name
+        assert "tma_load(" in body and "mbar_wait(" in body, name
+        assert "sum_halves<" in body and "cluster_wait()" in body, name
+        assert "load_rows<" not in body and "scores_g<" not in body, name
     assert 'extern "C" int vog_mm_bwd(' in text and 'extern "C" int vog_mm_fwd(' in text
     gather = (csrc / "gather.cu").read_text()
     assert "ld.global.nc.L1::no_allocate.v4.u32" in gather and "st.global.cs.v4.u32" in gather
@@ -352,12 +364,13 @@ def test_backward_modes_not_default_have_kernels_of_their_own():
     vog = flash[flash.index('extern "C" int vog_flash_bwd('):]
     assert "launch_bwd<64>(" in vog and "launch_bwd<128>(" in vog and "launch_bwd_cl(" in vog
     mm = (csrc / "mm_attention.cu").read_text()
-    assert "if (!kEmit || !first) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
+    assert "if (!kEmit) continue;" in _kernel_bodies(mm)["mm_bwd_dkv"]
+    # past dh 128: one warp of a key group, in one block of the cluster, stores comb
+    assert "if (!kEmit || !lead) continue;" in _kernel_bodies(mm)["mm_bwd_dkv_cl"]
     dq = _kernel_bodies(mm)["mm_bwd_dq"]
-    # 8 warps (4 at DK 256), four 8-key n-tiles a warp (two at DK 256) for
-    # each split A fragment; steps of (key tile, arg) streamed by cp.async,
-    # g_a never all resident
-    assert "kDqGroups = kDK > 128 ? 2 : 4;" in mm and "kDqWarps = 2 * kDqGroups;" in mm
+    # 8 warps, four 8-key n-tiles a warp for each split A fragment; steps
+    # of (key tile, arg) streamed by cp.async, g_a never all resident
+    assert "kDqGroups = 4;" in mm and "kDqWarps = 2 * kDqGroups;" in mm
     assert "constexpr int NT = kDqTile / 16;" in dq
     assert "scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh" in dq
     assert "accumulate<NT, kNV, kLd>(acc, comb, Kh" in dq

@@ -189,8 +189,8 @@ def _wide_batch(cfg, B, seed):
 def test_wide_shapes_pass_the_card_check():
     cfg = port_cfg(_wide_cfg())
     _, n_frames, _ = view_dims(cfg.ds.conc_type, cfg.ds.num_cmp, cfg.ds.num_frms, cfg.ds.num_prop_per_frm)
-    assert n_frames == 80 and cfg.mdl.vis_dim // cfg.mdl.n_heads == attention.HEAD_DIMS[-1] == 256
-    assert attention.head_dim_instance(256) == (256, 2)  # the widest instance, two column slices
+    assert n_frames == 80 and cfg.mdl.vis_dim // cfg.mdl.n_heads == 2 * attention.HEAD_DIMS[-1] == 256
+    assert attention.head_dim_instance(256) == (128, 2)  # past the widest instance: a cluster of two blocks
     check_kernel_shapes(cfg)
 
 

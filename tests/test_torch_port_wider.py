@@ -288,15 +288,18 @@ def test_head_fwd_wide_walk_reads_the_stream_in_order():
 # attention head dims past 256
 # --------------------------------------------------------------------------
 def test_head_dim_rule():
+    # the narrow instances up to 128, past it the cluster: 128-column blocks, cluster_plan's count
     assert attention.head_dim_instance(64) == (64, 1) and attention.head_dim_instance(65) == (128, 1)
-    assert attention.head_dim_instance(200) == (256, 2)
+    assert attention.head_dim_instance(200) == (128, 2) and attention.head_dim_instance(256) == (128, 2)
     assert attention.head_dim_instance(257) == (128, 3) and attention.head_dim_instance(512) == (128, 4)
     assert attention.head_dim_instance(1024) == (128, 8)
-    assert [mm_attention.head_dim_instance(d) for d in (64, 128, 129, 256, 320, 1024)] == [128, 128, 256, 256,
-                                                                                           128, 128]
-    assert mm_attention.DQ_ROWS[mm_attention.head_dim_instance(512)] == 64
-    assert [mm_attention.kernel_args(d) for d in (128, 256, 257, 1024)] == [8, 8, 4, 4]
-    assert mm_attention.arg_groups(5, mm_attention.kernel_args(512)) == [(0, 3), (3, 5)]
+    assert attention.head_dim_instance(1100) == (128, 5)  # two passes of 5 blocks
+    assert [mm_attention.head_dim_instance(d) for d in (64, 128, 129, 256, 320, 1024)] == [
+        (128, 1), (128, 1), (128, 2), (128, 2), (128, 3), (128, 8)]
+    assert mm_attention.DQ_ROWS == 64  # both dq kernels' blocks: the (F, F) partials' row tiles
+    # the launches past 128 (cluster_plan's): the backward 8 args at any dh, the forward 7, 4 past dh 1024
+    assert [len(mm_attention.bwd_groups(12, d)) for d in (128, 256, 257, 1024, 1100)] == [2, 2, 2, 2, 2]
+    assert mm_attention.bwd_groups(8, 1100) == [(0, 8)] and mm_attention.fwd_groups(8, 1100) == [(0, 4), (4, 8)]
 
 
 @pytest.mark.parametrize("dh", [320, 512])

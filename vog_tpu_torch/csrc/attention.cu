@@ -37,33 +37,33 @@
 //    (the BERT tagger's) runs no k-steps on padding.  A score tile is
 //    summed in two accumulator sets (even and odd k-steps) so that its
 //    dependent mma chains are half as long.
-//  * Past 128 the backward is flash_bwd_dkv_cl and flash_bwd_dq_cl, the
-//    head dim split over a thread block cluster (cluster.cuh): ceil(dh /
-//    128) blocks a tile of rows, each staging by TMA and accumulating only
-//    its 128 columns, the score partials (S and dP) summed once over the
-//    cluster through distributed shared memory in rank order.  The design
-//    it replaced (a DK 256 instance, and past 256 the DK 128 instances'
-//    wide path, template flag W) redid the whole S and dP in every block
-//    of a tile, 2x at DK 256 and 8x at dh 1024, the wide path's operands
-//    read fragment by fragment from L2 (scores_g); the two designs' times
-//    on the H100 are in PERF.md (section 6).  The forward
-//    keeps that design: flash_fwd at DK 256 (two column slices a tile,
-//    each computing the scores) and past 256 its wide path (W: S from
-//    device memory, V's column slice staged).
+//  * Past 128 every kernel is a cluster kernel (flash_fwd_cl,
+//    flash_bwd_dkv_cl, flash_bwd_dq_cl), the head dim split over a thread
+//    block cluster (cluster.cuh): ceil(dh / 128) blocks a tile of rows,
+//    each staging by TMA and accumulating only its 128 columns, the score
+//    partials (S, and dP backward) summed once over the cluster through
+//    distributed shared memory in rank order.  The design it replaced (a
+//    DK 256 instance, and past 256 the DK 128 instances' wide path) redid
+//    the whole S (and dP) in every block of a tile, 2x at DK 256 and 8x at
+//    dh 1024, the wide path's operands read fragment by fragment from L2;
+//    the two designs' times on the H100 are in PERF.md (section 6).
+//    flash_fwd_cl has 8 warps, a warp 16 rows and 64 of the block's 128
+//    columns (cluster.cuh), so its 32 output accumulators a lane and the
+//    32-key score tile fit without the spills of flash_fwd<128>.
 //  * The resident rows (Q, or Q and dO, or K and V) stay in shared memory
 //    and are split as their fragments are read.  The streamed tiles (K/V
-//    in flash_fwd, 32 rows, 16 at DK 256; K/V in flash_bwd_dq and Q/dO in
+//    in flash_fwd, 32 rows; K/V in flash_bwd_dq and Q/dO in
 //    flash_bwd_dkv, 16 rows) come in by cp.async (16-byte copies,
 //    zero-filled past T and past dh; by TMA in the cluster kernels) into a
 //    two-stage ring: tile i+1 loads while tile i is multiplied, with one
 //    __syncthreads a tile.  Shared memory: 101 KB a block at DK 128, two
 //    blocks (8 warps) an SM, which at GT5 holds the whole grid (256
-//    blocks) at once; 133 KB for flash_fwd at DK 256, one block an SM;
-//    107-111 KB for the cluster kernels (their 128 columns and the two
-//    partials), two blocks an SM.
+//    blocks) at once; 107-111 KB for the backward's cluster kernels (their
+//    128 columns and the two partials), two blocks an SM; 123 KB for
+//    flash_fwd_cl (8 warps), one block an SM.
 //    The (F, F) bias table sits in shared memory up to 64 frames, and is
 //    read from device memory (L2) past that (tiles.cuh §kTableF,
-//    §TableMode).
+//    §TableMode), and by the cluster kernels at any F.
 //  * Shared rows of DK + 4 floats (conflict-free fragment reads), and P
 //    (and dS) passed from the C fragment of one product to the A fragment
 //    of the next in registers by reading each 8-key step in pair order:
@@ -135,11 +135,7 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;  // rows a block owns
-// rows of a streamed tile, forward: 32, and 16 at DK 256 (with 32 its
-// score tile's registers spilled: 152-208 bytes in 3xTF32, none with 16;
-// DK 128 keeps the tile it had)
-template <int DK>
-constexpr int kFwdTile = DK > 128 ? 16 : 32;
+constexpr int kFwdTile = 32;        // rows of a streamed tile: forward
 constexpr int kTileB = 16;          // rows of a streamed tile: backward
 constexpr int kDsLd = kTileB + 1;   // row stride of a warp's ds tile (frame sums)
 
@@ -156,12 +152,10 @@ __device__ inline const float* head_table(const float* __restrict__ fb, int h, i
   return frames ? fb + (size_t)h * F * F : nullptr;
 }
 
-// Shared memory a block: 101 KB at DK 128, two blocks (8 warps) an SM;
-// 133 KB at DK 256 (the backward kernels' 200 KB), one block an SM, hence
-// the launch bounds' minimum of one there.  W: the wide path (tiles.cuh;
-// DK 128, dh > 256): S from device memory, V's column slice z staged.
-template <int DK, int TM, bool W = false>
-__global__ void __launch_bounds__(kThreads, DK > 128 ? 1 : 2)
+// Shared memory a block: 101 KB at DK 128, two blocks (8 warps) an SM.
+// DK 64 and 128 (past 128: flash_fwd_cl).
+template <int DK, int TM>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ key_mask,
           const float* __restrict__ fb, const int* __restrict__ fid,
@@ -169,12 +163,11 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
           int dh, int F, float scale, bool vec) {
   using HD = HeadDim<DK>;
   constexpr int kLd = HD::kLd;
-  constexpr int kTileF = kFwdTile<DK>;
+  constexpr int kTileF = kFwdTile;
   constexpr int NT = kTileF / 8;
   constexpr bool kFrames = TM != kNoTable;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
-  const int q0 = blockIdx.x * kRows, c0 = z * HD::kDV;
+  const int q0 = blockIdx.x * kRows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -190,18 +183,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + base;
   const float* vb = v + base;
   auto stage = [&](int s, int j0) {
-    if constexpr (W) {
-      load_slice<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, c0, vec);
-    } else {
-      load_rows<kTileF, kThreads, DK>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
-      load_rows<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
-    }
+    load_rows<kTileF, kThreads, DK>(Ks + s * kTileF * kLd, kb, j0, T, dh, vec);
+    load_rows<kTileF, kThreads, DK>(Vs + s * kTileF * kLd, vb, j0, T, dh, vec);
     if (tid < kTileF) codes[s * kTileF + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
     cp_commit();
   };
   stage_table<TM, kThreads>(fbs, fbg, F);
   const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
-  if constexpr (!W) load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
+  load_rows<kRows, kThreads, DK>(Qs, q + base, q0, T, dh, vec);
   stage(0, 0);  // one group: Q and the first K/V tile
 
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -222,11 +211,8 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
     const float* Vt = Vs + s * kTileF * kLd;
     const int* ct = codes + s * kTileF;
 
-    float sc[NT][4];
-    if constexpr (W)  // S = Q K^T
-      scores_g<NT, false>(sc, sc, q + base, kb, q + base, kb, q0 + warp * 16, it * kTileF, T, dh, g, t);
-    else
-      scores<NT, false, DK>(sc, sc, Qw, Kt, Qw, Kt, g, t);
+    float sc[NT][4];  // S = Q K^T
+    scores<NT, false, DK>(sc, sc, Qw, Kt, Qw, Kt, g, t);
 
     // online softmax on the C fragments: rows g (c0, c1) and g + 8 (c2, c3)
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -269,14 +255,14 @@ flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
       acc[n][2] *= a1;
       acc[n][3] *= a1;
     }
-    // O += P V (keys past T: p = 0, zero rows); the wide path's Vt is the slice
-    accumulate<NT, HD::kNV, kLd>(acc, sc, Vt + (W ? 0 : c0), g, t);
+    // O += P V (keys past T: p = 0, zero rows)
+    accumulate<NT, HD::kNV, kLd>(acc, sc, Vt, g, t);
   }
 
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  store_rows(o + base, acc, r0, c0, T, dh, t, 1.f / l0, 1.f / l1);
-  if (t == 0 && z == 0) {
+  store_rows(o + base, acc, r0, 0, T, dh, t, 1.f / l0, 1.f / l1);
+  if (t == 0) {
     if (r0 < T) lse[(size_t)bh * T + r0] = m0 + logf(l0);
     if (r1 < T) lse[(size_t)bh * T + r1] = m1 + logf(l1);
   }
@@ -948,35 +934,210 @@ flash_bwd_dq_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward past head dim 128: the head dim split over a cluster (cluster.cuh)
+// ---------------------------------------------------------------------------
+// flash_fwd's tile (64 query rows a block, 32-key tiles, the online
+// softmax) for column slice zs = z + n pass of a cluster of n blocks, in 8
+// warps: warp w takes rows 16 (w % 4).. and the 64 columns of half w / 4
+// of the block's slice (cluster.cuh).  Per key tile it computes its
+// partial S over those 64 columns and stores it; the cluster's 2n partials
+// of its rows are summed in rank order, so every warp of the rows, in
+// every block, holds the same S, the same running max and sum, and the same
+// P bits; the warp accumulates O's 64 columns of its half.  Q and the K/V
+// tiles (a two-stage ring) come in by TMA; the frame table is read from
+// device memory at any F.  Slice 0's first half writes the LSE.  Past 8
+// slices (kX) a block adds its other slices' partials from device memory
+// (cluster.cuh §add_other_slices), each warp its half's columns of them.
+constexpr int kClFwdWarps = 2 * kRowGroups;
+constexpr int kClFwdThreads = kClFwdWarps * 32;
+constexpr int kClFwdNT = kFwdTile / 8;                          // a warp's 8-key n-tiles
+constexpr int kClFwdPart = kClFwdWarps * 32 * 4 * kClFwdNT;     // floats of the warps' partials
+constexpr int kClFwdSums = kRowGroups * 32 * 4 * kClFwdNT;      // ... of the row groups' sums (cluster.cuh)
+constexpr size_t kClFwdSmem = sizeof(float) * ((size_t)(kRows + 4 * kFwdTile) * kSliceLd + kClFwdPart +
+                                               kClFwdSums) +
+                              sizeof(int) * 2 * kFwdTile + 3 * sizeof(uint64_t);
+
+template <int TM, bool kX>
+__global__ void __launch_bounds__(kClFwdThreads, 1)
+flash_fwd_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ key_mask, const float* __restrict__ fb, const int* __restrict__ fid,
+             float* __restrict__ o, float* __restrict__ lse, int H, int T, int dh, int F, float scale, int pass) {
+  constexpr int kLd = kSliceLd;
+  constexpr int NT = kClFwdNT;
+  constexpr int NV = kHalf / 8;  // a warp's 8-column output tiles
+  constexpr bool kFrames = TM != kNoTable;
+  const int z = (int)cg::this_cluster().block_rank();
+  const int zs = slice_of<kX>(z, pass);  // the slice this block stages and accumulates
+  const bool own = owns<kX>(zs, dh);     // (else it stages slice 0 and adds only its other slices' partials)
+  const int cz = kSlice * (own ? zs : 0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % kRowGroups, hc = kHalf * (warp / kRowGroups);  // the warp's rows, its half's columns
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);                       // kRows x kLd
+  float* Ks = Qs + kRows * kLd;                                       // 2 stages x kFwdTile x kLd
+  float* Vs = Ks + 2 * kFwdTile * kLd;                                // 2 stages x kFwdTile x kLd
+  float* Sp = Vs + 2 * kFwdTile * kLd;                                // kClFwdPart: the warps' partial S
+  float* Ss = Sp + kClFwdPart;                                        // kClFwdSums: the row groups' sums
+  int* codes = reinterpret_cast<int*>(Ss + kClFwdSums);              // 2 stages x kFwdTile
+  uint64_t* bars = reinterpret_cast<uint64_t*>(codes + 2 * kFwdTile);  // Q, then the K/V stages
+  const float* fbg = head_table(fb, h, F, kFrames);
+  const float fb0 = kFrames || fb == nullptr ? 0.f : fb[h];
+
+  const size_t base = (size_t)bh * T * dh;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto stage = [&](int s, int j0) {
+    if (tid == 0) {
+      mbar_expect(bars + 1 + s, 2 * box_bytes(kFwdTile));
+      tma_load(Ks + s * kFwdTile * kLd, &kmap, cz, j0, bh, bars + 1 + s);
+      tma_load(Vs + s * kFwdTile * kLd, &vmap, cz, j0, bh, bars + 1 + s);
+    }
+    if (tid < kFwdTile) codes[s * kFwdTile + tid] = key_code<kFrames>(key_mask, fid, b, j0 + tid, T);
+  };
+  if (tid == 0) {
+    mbar_expect(bars, box_bytes(kRows));
+    tma_load(Qs, &qmap, cz, q0, bh, bars);
+  }
+  stage(0, 0);
+
+  const int r0 = q0 + rg * 16 + g, r1 = r0 + 8;  // this lane's two rows
+  const int fq0 = kFrames && r0 < T ? fid[r0] : 0;
+  const int fq1 = kFrames && r1 < T ? fid[r1] : 0;
+  const float* Qw = Qs + rg * 16 * kLd + hc;
+  float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;  // l: this lane's part of the sum
+  float acc[NV][4];
+  zero(acc);
+  mbar_wait(bars, 0);  // the Q rows
+
+  bool peers = false;  // a tile before this one: its sums may still be read
+  const int ntiles = (T + kFwdTile - 1) / kFwdTile;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it & 1;
+    __syncthreads();  // tile it's key codes are in; every warp is done with tile it - 1
+    if (it + 1 < ntiles) stage(s ^ 1, (it + 1) * kFwdTile);
+    mbar_wait(bars + 1 + s, (it >> 1) & 1);  // tile it's K and V
+    const float* Kt = Ks + s * kFwdTile * kLd + hc;
+    const float* Vt = Vs + s * kFwdTile * kLd + hc;
+    const int* ct = codes + s * kFwdTile;
+
+    // S = Q K^T (16 rows x 32 keys a warp): the warp's partial over its 64
+    // columns, summed over the block's two halves and the cluster's blocks
+    float sc[NT][4];
+    zero(sc);
+    if (own) scores<NT, false, kHalf, kOnePass, kClChunk, kLd>(sc, sc, Qw, Kt, Qw, Kt, g, t);
+    if constexpr (kX)
+      add_other_slices<NT>(sc, q + base, k + base, q0 + rg * 16, it * kFwdTile, T, dh, z, pass, g, t, hc, kHalf);
+    sum_halves<NT>(sc, Sp, Ss, warp, lane, peers);
+
+    // online softmax on the C fragments: rows g (c0, c1) and g + 8 (c2, c3)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = ct[8 * j + 2 * t + e];
+        float x0, x1;
+        if (c >= 0) {
+          x0 = sc[j][e] * scale + bias<TM>(nullptr, fbg, fb0, F, fq0, c);
+          x1 = sc[j][2 + e] * scale + bias<TM>(nullptr, fbg, fb0, F, fq1, c);
+        } else {
+          x0 = x1 = c == kMasked ? kNeg : -INFINITY;
+        }
+        sc[j][e] = x0;
+        sc[j][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[j][e] = expf(sc[j][e] - mn0);
+        sc[j][2 + e] = expf(sc[j][2 + e] - mn1);
+        l0 += sc[j][e];
+        l1 += sc[j][2 + e];
+      }
+#pragma unroll
+    for (int n = 0; n < NV; ++n) {
+      acc[n][0] *= a0;
+      acc[n][1] *= a0;
+      acc[n][2] *= a1;
+      acc[n][3] *= a1;
+    }
+    accumulate<NT, NV, kLd>(acc, sc, Vt, g, t);  // O += P V over the half's columns
+  }
+  cluster_wait();  // no peer reads this block's sums any more
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (own) store_rows(o + base, acc, r0, cz + hc, T, dh, t, 1.f / l0, 1.f / l1);
+  if (t == 0 && zs == 0 && hc == 0) {
+    if (r0 < T) lse[(size_t)bh * T + r0] = m0 + logf(l0);
+    if (r1 < T) lse[(size_t)bh * T + r1] = m1 + logf(l1);
+  }
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// the wide path (W) reads a frame table from device memory at any F: one
-// instance a table mode fewer
-template <int DK, bool W = false>
+template <int DK>
 int launch_fwd(const float* q, const float* k, const float* v, const float* key_mask, const float* fb,
                const int* fid, float* o, float* lse, int B, int H, int T, int dh, int F, float scale,
                cudaStream_t stream) {
   using HD = HeadDim<DK>;
-  constexpr int kTileF = kFwdTile<DK>;
   const bool frames = F > 1;
   const int tm = table_mode(F);
-  const size_t smem = sizeof(float) * (size_t)(kRows + 4 * kTileF) * HD::kLd +
-                      sizeof(int) * 2 * kTileF + (frames ? sizeof(float) * table_floats(F) : 0);
-  decltype(&flash_fwd<DK, kNoTable>) fwd;
-  if constexpr (W)
-    fwd = tm == kNoTable ? flash_fwd<DK, kNoTable, true> : flash_fwd<DK, kGlobalTable, true>;
-  else
-    fwd = tm == kNoTable ? flash_fwd<DK, kNoTable>
-          : tm == kSmemTable ? flash_fwd<DK, kSmemTable> : flash_fwd<DK, kGlobalTable>;
+  const size_t smem = sizeof(float) * (size_t)(kRows + 4 * kFwdTile) * HD::kLd +
+                      sizeof(int) * 2 * kFwdTile + (frames ? sizeof(float) * table_floats(F) : 0);
+  auto fwd = tm == kNoTable ? flash_fwd<DK, kNoTable>
+             : tm == kSmemTable ? flash_fwd<DK, kSmemTable> : flash_fwd<DK, kGlobalTable>;
   cudaError_t e = set_smem(fwd, smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  const dim3 grid((T + kRows - 1) / kRows, B * H, W ? wide_slices(dh) : HD::kSlices);
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
   fwd<<<grid, kThreads, smem, stream>>>(q, k, v, key_mask, fb, fid, o, lse, H, T, dh, F, scale, vec);
   return (int)cudaGetLastError();
+}
+
+// Past head dim 128: flash_fwd_cl as clusters of n blocks (the wrapper's
+// plan), one launch a pass (cluster.cuh §passes_of; dh % 4 == 0: the
+// wrapper pads)
+int launch_fwd_cl(const float* q, const float* k, const float* v, const float* key_mask, const float* fb,
+                  const int* fid, float* o, float* lse, int B, int H, int T, int dh, int F, float scale, int n,
+                  cudaStream_t s) {
+  const int BH = B * H;
+  CUtensorMap qr, kt, vt;  // the resident Q rows, the streamed K / V tiles
+  cudaError_t e = row_map(&qr, q, BH, T, dh, kRows);
+  if (e == cudaSuccess) e = row_map(&kt, k, BH, T, dh, kFwdTile);
+  if (e == cudaSuccess) e = row_map(&vt, v, BH, T, dh, kFwdTile);
+  if (e != cudaSuccess) return (int)e;
+  const int passes = passes_of(dh, n);
+  const bool frames = F > 1;
+  auto fwd = passes > 1 ? (frames ? flash_fwd_cl<kGlobalTable, true> : flash_fwd_cl<kNoTable, true>)
+                        : (frames ? flash_fwd_cl<kGlobalTable, false> : flash_fwd_cl<kNoTable, false>);
+  for (int p = 0; p < passes; ++p) {
+    e = launch_cluster(fwd, dim3((T + kRows - 1) / kRows, BH, n), kClFwdThreads, kClFwdSmem, n, s, qr, kt, vt,
+                       q, k, key_mask, fb, fid, o, lse, H, T, dh, F, scale, p);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 template <int DK>
@@ -1106,13 +1267,6 @@ extern "C" int vog_flash_delta(int device, const float* o, const float* dout, fl
   return (int)cudaGetLastError();
 }
 
-// The forward's instance of a head dim: 64, 128 or 256 (dh padded up to
-// it), past 256 the DK 128 instance's wide path.
-#define VOG_FLASH_DISPATCH(fn, ...)                                           \
-  (dh <= 64 ? fn<64>(__VA_ARGS__) : dh <= 128 ? fn<128>(__VA_ARGS__)      \
-                                  : dh <= kMaxDh ? fn<256>(__VA_ARGS__)   \
-                                                 : fn<128, true>(__VA_ARGS__))
-
 // fb and fid may be null when F == 1 (no bias).  Recompute mode (ds null):
 // dq, and dfb_part (B, H, ceil(T / 64), F, F), written only when F > 1.
 // Emit mode (ds, (B*H, T, T), fp32, or bf16 in the one-pass library, not
@@ -1142,29 +1296,37 @@ extern "C" int vog_flash_bwd(int device, const float* q, const float* k, const f
                        scale, n, s);
 }
 
-// Clusters of n blocks of the backward's cluster kernels resident at once
+// Clusters of n blocks of the cluster kernels resident at once
 // (cudaOccupancyMaxActiveClusters): which 0, flash_bwd_dkv_cl (recompute);
-// 1, flash_bwd_dq_cl; with frames when F > 1
-extern "C" int vog_flash_bwd_clusters(int device, int n, int F, int which) {
+// 1, flash_bwd_dq_cl; 2, flash_fwd_cl; with frames when F > 1
+extern "C" int vog_flash_clusters(int device, int n, int F, int which) {
   VOG_DEVICE_GUARD(device);
   const bool frames = F > 1;
   if (which == 0)
     return max_active_clusters(
         frames ? flash_bwd_dkv_cl<kGlobalTable, false, kDkv> : flash_bwd_dkv_cl<kNoTable, false, kDkv>, kThreads,
         kClDkvSmem, n);
-  return max_active_clusters(frames ? flash_bwd_dq_cl<kGlobalTable, kDq> : flash_bwd_dq_cl<kNoTable, kDq>,
-                             kThreads, cl_dq_smem(frames), n);
+  if (which == 1)
+    return max_active_clusters(frames ? flash_bwd_dq_cl<kGlobalTable, kDq> : flash_bwd_dq_cl<kNoTable, kDq>,
+                               kThreads, cl_dq_smem(frames), n);
+  return max_active_clusters(frames ? flash_fwd_cl<kGlobalTable, false> : flash_fwd_cl<kNoTable, false>,
+                             kClFwdThreads, kClFwdSmem, n);
 }
 
-// fb and fid may be null when F == 1 (no bias)
+// fb and fid may be null when F == 1 (no bias).  dh 64 and 128 (dh padded
+// up to them), past 128 flash_fwd_cl (dh % 4 == 0, 16-byte-aligned rows)
+// as clusters of n blocks (n is read only there).
 extern "C" int vog_flash_fwd(int device, const float* q, const float* k, const float* v,
                              const float* key_mask, const float* fb,
                              const int* fid, float* o, float* lse, int B,
-                             int H, int T, int dh, int F, float scale,
+                             int H, int T, int dh, int F, float scale, int n,
                              void* stream) {
   VOG_DEVICE_GUARD(device);
   if (dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
-  return VOG_FLASH_DISPATCH(launch_fwd, q, k, v, key_mask, fb, fid, o, lse, B, H, T, dh, F, scale,
-                            static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh <= 64) return launch_fwd<64>(q, k, v, key_mask, fb, fid, o, lse, B, H, T, dh, F, scale, s);
+  if (dh <= 128) return launch_fwd<128>(q, k, v, key_mask, fb, fid, o, lse, B, H, T, dh, F, scale, s);
+  if (dh % 4 != 0 || !cluster_fits(dh, n)) return (int)cudaErrorInvalidValue;
+  return launch_fwd_cl(q, k, v, key_mask, fb, fid, o, lse, B, H, T, dh, F, scale, n, s);
 }

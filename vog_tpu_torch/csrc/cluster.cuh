@@ -1,6 +1,10 @@
 // The head dim split over a thread block cluster: the attention kernels'
-// design for head dims past 128 (attention.cu's flash_bwd_dkv_cl and
-// flash_bwd_dq_cl, mm_attention.cu's mm_fwd_cl).
+// one design for head dims past 128 (attention.cu's flash_fwd_cl,
+// flash_bwd_dkv_cl and flash_bwd_dq_cl; mm_attention.cu's mm_fwd_cl,
+// mm_bwd_dkv_cl and mm_bwd_dq_cl).  It replaced a DK 256 instance of each
+// kernel and, past 256, the DK 128 instances' wide path, whose blocks each
+// redid a tile's whole score products (2x at DK 256, 8x at dh 1024), the
+// wide path's operands read fragment by fragment from L2.
 //
 //  * A launch for dh > 128 has ceil(dh / 128) column slices.  Up to
 //    kMaxCluster (8, the portable cluster size) of them are the blocks of
@@ -19,11 +23,18 @@
 //    n) passes.
 //  * The scores.  Per tile, each block computes its partial S_z = Q_z K_z^T
 //    (and dP_z = dO_z V_z^T in the backward) over its 128 columns, stores it
-//    to its own shared memory in fragment order (a lane's C fragments,
-//    float4 at a time), and after a cluster barrier every block reads the n
+//    to its own shared memory in fragment order (§put_partial), and after a
+//    cluster barrier every block reads the n
 //    partials through distributed shared memory (map_shared_rank) and adds
 //    them in rank order 0..n-1: every block holds the same bits, and a
-//    repeated call gives the same bits (no atomics).  A block's partial is
+//    repeated call gives the same bits (no atomics).  The kernels of 8
+//    warps (flash_fwd_cl and the mm backward's) split a block's slice once
+//    more: warp w takes 16 rows (rg = w % 4) and the 64 columns of half w /
+//    4 of the slice, and its partial over those 64 columns is added to its
+//    pair's in the block before the cluster's sum (§sum_halves); it
+//    accumulates only its half's output columns, so its accumulators are
+//    half a narrow warp's (the narrow flash_fwd and mm backward instances
+//    spill at 4 warps of 128 columns).  A block's partial is
 //    single-buffered: after reading its peers' partials a block arrives on
 //    the cluster barrier without waiting (cluster_arrive), and waits on it
 //    only before it stores its next tile's partial, so no block overwrites
@@ -71,6 +82,8 @@ namespace cg = cooperative_groups;
 constexpr int kSlice = 128;                     // columns a block stages and accumulates
 constexpr int kSliceLd = HeadDim<128>::kLd;     // their shared row stride, the TMA box's width
 constexpr int kMaxCluster = 8;                  // the portable cluster size
+constexpr int kHalf = kSlice / 2;               // columns of a slice's half (the 8-warp kernels)
+constexpr int kRowGroups = 4;                   // warps a half: 16 rows each (the 8-warp kernels)
 static_assert(kSliceLd * 4 % 16 == 0, "a TMA box row is a whole number of 16 bytes");
 
 // A head dim's 128-column slices, and the passes (launches) that a cluster
@@ -125,26 +138,44 @@ __device__ inline void tma_load(float* dst, const CUtensorMap* map, int c0, int 
 }
 
 // -- the partials ----------------------------------------------------------
-// Store a lane's NF C fragments (4 floats each) at its place of a
-// fragment-order partial buffer (kWarps x 32 lanes x 4 NF floats)
+// A partial buffer holds, for each warp slot w, its lanes' NF C fragments,
+// fragment j of lane l at float4 (w NF + j) 32 + l: a warp's store, and a
+// peer's read of a slot through distributed shared memory, is 512
+// contiguous bytes a fragment.  With a lane's NF float4 together (16 NF
+// bytes apart a lane), and every warp reading 2n partials (the halves not
+// added in the block first, §sum_halves), the 8-warp kernels took 1.1-4.5x
+// as long (PERF.md, section 6).
+
+// Store a lane's NF C fragments (4 floats each) at its place of slot `warp`
+// of a partial buffer
 template <int NF>
 __device__ inline void put_partial(float* buf, const float (*c)[4], int warp, int lane) {
-  float4* p = reinterpret_cast<float4*>(buf) + (warp * 32 + lane) * NF;
+  float4* p = reinterpret_cast<float4*>(buf) + warp * NF * 32 + lane;
 #pragma unroll
-  for (int j = 0; j < NF; ++j) p[j] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
+  for (int j = 0; j < NF; ++j) p[32 * j] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
+}
+// c += slot `warp` of a partial buffer in this block's shared memory
+template <int NF>
+__device__ inline void add_partial(float (*c)[4], const float* buf, int warp, int lane) {
+  const float4* p = reinterpret_cast<const float4*>(buf) + warp * NF * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    const float4 v = p[32 * j];
+    c[j][0] += v.x, c[j][1] += v.y, c[j][2] += v.z, c[j][3] += v.w;
+  }
 }
 // c = the sum, in rank order 0..n-1, of the cluster's partials at this
-// lane's place (the same bits in every block of the cluster)
+// lane's place of slot `warp` (the same bits in every block of the cluster)
 template <int NF>
 __device__ inline void sum_partials(float (*c)[4], float* buf, int warp, int lane) {
   cg::cluster_group cl = cg::this_cluster();
   const int n = (int)gridDim.z;  // the cluster's blocks
 #pragma unroll 1
   for (int r = 0; r < n; ++r) {
-    const float4* p = reinterpret_cast<const float4*>(cl.map_shared_rank(buf, r)) + (warp * 32 + lane) * NF;
+    const float4* p = reinterpret_cast<const float4*>(cl.map_shared_rank(buf, r)) + warp * NF * 32 + lane;
 #pragma unroll
     for (int j = 0; j < NF; ++j) {
-      const float4 v = p[j];
+      const float4 v = p[32 * j];
       if (r == 0) {
         c[j][0] = v.x, c[j][1] = v.y, c[j][2] = v.z, c[j][3] = v.w;
       } else {
@@ -154,8 +185,37 @@ __device__ inline void sum_partials(float (*c)[4], float* buf, int warp, int lan
   }
 }
 
+// One round of the 8-warp kernels: c, the warp's partial over its half's
+// 64 columns, becomes the sum over the cluster of its rows' partials.  The
+// two halves are added in the block first (half 0 + half 1, into slot rg
+// of `sums`), so a peer reads n slots of a row group, not 2n: every warp
+// then adds the n blocks' sums in rank order (the same bits in every warp
+// of the rows, in every block).  `halves` (kRowGroups x 2 slots) is read
+// only in the block; `sums` (kRowGroups slots) by the peers, and `peers`
+// says whether a round before this one left sums that a peer may still
+// read: the block waits on that round's split barrier before overwriting
+// them.  Every thread of the block calls it (one block barrier and two
+// cluster barriers, the second split).
+template <int NF>
+__device__ inline void sum_halves(float (*c)[4], float* halves, float* sums, int warp, int lane, bool& peers) {
+  const int rg = warp % kRowGroups;
+  put_partial<NF>(halves, c, warp, lane);
+  if (peers) cluster_wait();  // every peer has read this block's sums of the round before
+  __syncthreads();            // both halves of every row group are in
+  if (warp < kRowGroups) {
+    add_partial<NF>(c, halves, warp + kRowGroups, lane);
+    put_partial<NF>(sums, c, rg, lane);
+  }
+  cluster_arrive();
+  cluster_wait();  // every block's sums are in
+  sum_partials<NF>(c, sums, rg, lane);
+  cluster_arrive();  // this block is done with its peers' sums
+  peers = true;
+}
+
 // The score partials of a block's other slices (passes > 1): c += X Y^T
-// over the columns of each slice z + n p' (p' != pass, below slices), read
+// over columns [c0, c0 + cw) of each slice z + n p' (p' != pass, below
+// slices; the 8-warp kernels: the warp's half of each), read
 // from device memory through the read-only cache (rows x0 + g, x0 + g + 8
 // of X, y0 + 8j + g of Y; zero past T and dh), a k-step at a time, in
 // slice order: the fewest registers beside the block's accumulators, at
@@ -163,7 +223,7 @@ __device__ inline void sum_partials(float (*c)[4], float* buf, int warp, int lan
 template <int NT>
 __device__ inline void add_other_slices(float (&c)[NT][4], const float* __restrict__ X,
                                         const float* __restrict__ Y, int x0, int y0, int T, int dh, int z,
-                                        int pass, int g, int t) {
+                                        int pass, int g, int t, int c0 = 0, int cw = kSlice) {
   const int n = (int)gridDim.z, slices = slices_of(dh), passes = passes_of(dh, n);
   const int xa = x0 + g, xb = xa + 8;
   const bool oka = xa < T, okb = xb < T;
@@ -173,9 +233,9 @@ __device__ inline void add_other_slices(float (&c)[NT][4], const float* __restri
   for (int p = 0; p < passes; ++p) {
     const int zs = z + n * p;
     if (p == pass || zs >= slices) continue;
-    const int kend = min(kSlice * zs + kSlice, dh);
+    const int kend = min(kSlice * zs + c0 + cw, dh);
 #pragma unroll 1
-    for (int k = kSlice * zs; k < kend; k += 8) {
+    for (int k = kSlice * zs + c0; k < kend; k += 8) {
       const int ka = k + t, kb = ka + 4;
       const bool ca = ka < kend, cb = kb < kend;
       uint32_t ab[4], as[4];

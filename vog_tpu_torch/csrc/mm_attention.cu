@@ -118,33 +118,29 @@
 // adds up in a fixed order: the gradients are the same on every run, with
 // no atomics.  This design's times are in PERF.md.
 //
-// Head dims, frames and args.  The file builds once for each head-dim
-// instance, DK 128 (dh <= 128, zero padded) and DK 256 (-DVOG_MM_DK=256),
-// each its own library.  The forward past 128 is mm_fwd_cl, the head dim
-// split over a thread block cluster (cluster.cuh; in the DK 256 library,
-// which holds no other forward): each block of a tile stages by TMA and
-// accumulates its 128 columns, the score partial summed once over the
-// cluster.  The design it replaced (a DK 256 instance and the wide path,
-// below) redid the scores and the A softmaxes in every block of a tile;
-// the two designs' times on the H100 are in PERF.md (section 6).
-// The backward keeps that design: the DK 256 library's
-// instances for dh <= 256 (every kernel's output columns split over two
-// blocks of a tile, grid.z, each computing the tile's scores, and
-// mm_bwd_dq's block halving its rows and key tile to fit shared memory),
-// and past 256 the DK 128 library's wide path (template flag W, tiles.cuh:
-// ceil(dh / 128) column slices on grid.z, the score products' operands
-// read from device memory, only the block's slice of V, of the Q and g_a
-// tiles, or of K staged, the frame table in device memory).  The (F, F)
-// bias table sits in shared memory up to 64 frames and is read from
-// device memory past that, an instance each (tiles.cuh §TableMode: up to
-// 64 frames the code and registers are those of a kernel without the
-// other case; the cluster and wide instances read it from device memory
-// at any F); past 64 frames mm_bwd_dq gives a tile of rows ceil(F / 64)
-// blocks, each summing 64 key frames in the fixed order.  A is a template
-// parameter, 1..8 (mm_fwd_cl 1..7, 1..4 past dh 1024); the wrapper
-// launches more args in groups of at most 8 (the backward's wide path 4,
-// mm_fwd_cl 7 or 4; kernels/mm_attention.py §arg_groups, §kernel_args,
-// §fwd_groups).
+// Head dims, frames and args.  The file builds twice, each its own
+// library: the narrow instances, DK 128 (dh <= 128, zero padded), and with
+// -DVOG_MM_CLUSTER=1 the cluster instances for every dh past 128
+// (mm_fwd_cl, mm_bwd_dkv_cl, mm_bwd_dq_cl: the head dim split over a thread
+// block cluster, cluster.cuh), so that nvcc builds the two sets of
+// templates in parallel: 173.0 s and 82.3 s at "highest" in the smoke's
+// [build] lines on the H100's host, where one library would take
+// their sum, longer than any other library's build.  Each block of
+// a cluster stages by TMA and accumulates its 128 columns, each score
+// partial summed once over the cluster.  The design they replaced (a DK 256
+// instance and, past 256, the DK 128 instances' wide path) redid the
+// scores (and the A softmaxes, or the A score gradients) in every block of
+// a tile; the two designs' times on the H100 are in PERF.md (section 6).
+// The (F, F) bias table sits in shared memory up to 64 frames and is read
+// from device memory past that, an instance each (tiles.cuh §TableMode: up
+// to 64 frames the code and registers are those of a kernel without the
+// other case; the cluster instances read it from device memory at any F);
+// past 64 frames mm_bwd_dq gives a tile of rows ceil(F / 64) blocks (grid.z;
+// mm_bwd_dq_cl: groups of clusters in grid.x), each summing 64 key frames
+// in the fixed order.  A is a template parameter, 1..8 (mm_fwd_cl 1..7,
+// 1..4 past dh 1024); the wrapper launches more args in groups of at most 8
+// (mm_fwd_cl 7 or 4; kernels/mm_attention.py §arg_groups, §fwd_groups,
+// §bwd_groups, the cluster's from kernels/_cluster.py §cluster_plan).
 //
 // Precision: this file builds twice (kernels/_build.py), as attention.cu:
 // 3xTF32 ("highest") as it is, one TF32 pass ("default") with
@@ -152,7 +148,8 @@
 // package does at "default" on the chip.  The pass count is a template
 // parameter of the helpers (tiles.cuh, tf32.cuh), not of these kernels,
 // so the template instances (A = 1..8 of three kernels, each at both
-// table modes, tiles.cuh §TableMode) do not double in any of the four
+// table modes, tiles.cuh §TableMode; of the cluster kernels, with and
+// without their other slices, kX) do not double in any of the four
 // builds.
 
 #include <cuda_runtime.h>
@@ -163,29 +160,24 @@
 #include "cluster.cuh"  // the head dim split over a cluster: slices, barriers, TMA, partials
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
-// This library's head-dim instance: 128 (dh <= 128) or 256 (128 < dh <=
-// 256), one library each (kernels/_build.py), so that nvcc builds the two
-// sets of A = 1..8 instances in parallel.
-#ifndef VOG_MM_DK
-#define VOG_MM_DK 128
+// This library's kernels: the narrow instances (dh <= 128, zero padded to
+// 128), or with -DVOG_MM_CLUSTER=1 the cluster instances (dh > 128), one
+// library each (kernels/_build.py), so that nvcc builds the two sets of A
+// = 1..8 instances in parallel.
+#ifndef VOG_MM_CLUSTER
+#define VOG_MM_CLUSTER 0
 #endif
 
 namespace {
 
-constexpr int kDK = VOG_MM_DK;
+constexpr int kDK = 128;
 using HD = HeadDim<kDK>;
 constexpr int kLd = HD::kLd;
 constexpr int kND = HD::kND;
 constexpr int kNV = HD::kNV;
 // Shared memory of a block, at A = 8 and a shared (64, 64) table: 107-193 KB
-// at DK 128 (two blocks an SM for mm_fwd and mm_bwd_dkv), 212-221 KB at DK
-// 256 (one block an SM)
-constexpr int kMinBlocks = kDK > 128 ? 1 : 2;
-// The DK 128 library also holds the wide path (tiles.cuh: dh > 256, the
-// kernels' W instances, the frame table read from device memory at any F),
-// at A <= kWideArgs a launch: half the A cases, for the library's build time
-constexpr bool kWideLib = kDK == 128;
-constexpr int kWideArgs = 4;
+// (two blocks an SM for mm_fwd and mm_bwd_dkv)
+constexpr int kMinBlocks = 2;
 
 // ---------------------------------------------------------------------------
 // forward
@@ -713,11 +705,9 @@ mm_bwd_delta(const float* __restrict__ o, const float* __restrict__ gout,
   row_dots(o, gout, delta, rows, dh);
 }
 
-// kEmit: also store comb (B*H, T, T), query-major ("emit" mode).  Block z
-// accumulates dK and dV's column slice z; slice 0's block stores comb and dcn.
-// W: the wide path: S^T and dP_a^T from device memory, the Q and g_a
-// tiles' column slice z staged, no resident K and V.
-template <int A, int TM, bool kEmit, bool W = false>
+// kEmit: also store comb (B*H, T, T), query-major ("emit" mode).  dh <= 128
+// (past 128: mm_bwd_dkv_cl).
+template <int A, int TM, bool kEmit>
 __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
 mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            const float* __restrict__ vm, const float* __restrict__ cn,
@@ -729,9 +719,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
            DsT* __restrict__ comb, int H, int T, int dh, int F, bool vec) {
   constexpr int NT = kBwdNT;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int z = W || HD::kSlices > 1 ? blockIdx.z : 0;  // the block's column slice
-  const int k0 = blockIdx.x * kBwdKeys, c0 = z * HD::kDV;
-  const bool first = z == 0;
+  const int k0 = blockIdx.x * kBwdKeys;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -754,17 +742,10 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
   // the tile's Q rows, statistics and frames; one commit group a step
   auto stage = [&](int j) {
     const int it = j / A, a = j - it * A, i0 = it * kBwdTile;
-    if constexpr (W)
-      load_slice<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
-                                             i0, T, dh, c0, vec);
-    else
-      load_rows<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
-                                            i0, T, dh, vec);
+    load_rows<kBwdTile, kBwdThreads, kDK>(Gs + (j & 1) * kBwdTile * kLd, gout + (arow + (size_t)a * T) * dh,
+                                          i0, T, dh, vec);
     if (a == 0) {
-      if constexpr (W)
-        load_slice<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, c0, vec);
-      else
-        load_rows<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
+      load_rows<kBwdTile, kBwdThreads, kDK>(Qs + (it & 1) * kBwdTile * kLd, qb, i0, T, dh, vec);
       float* st = Ss + (it & 1) * 3 * A * kBwdTile;
       for (int i = tid; i < 3 * A * kBwdTile; i += kBwdThreads) {  // zero past T
         const int w = i / (A * kBwdTile), r = i % (A * kBwdTile), qi = i0 + r % kBwdTile;
@@ -784,10 +765,8 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     const int a = i / kBwdKeys, kj = k0 + i % kBwdKeys;
     Cs[i] = kj < T ? cn[arow + (size_t)a * T + kj] : 0.f;
   }
-  if constexpr (!W) {
-    load_rows<kBwdKeys, kBwdThreads, kDK>(Ks, km + base, k0, T, dh, vec);
-    load_rows<kBwdKeys, kBwdThreads, kDK>(Vs, vm + base, k0, T, dh, vec);
-  }
+  load_rows<kBwdKeys, kBwdThreads, kDK>(Ks, km + base, k0, T, dh, vec);
+  load_rows<kBwdKeys, kBwdThreads, kDK>(Vs, vm + base, k0, T, dh, vec);
   stage(0);  // one group: K, V and step 0
 
   // this lane's keys: kr0 = k0 + 16 warp + g and kr0 + 8 (rows g, g + 8 of
@@ -817,10 +796,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     const float* Ss_t = Ss + (it & 1) * 3 * A * kBwdTile;
     advance();  // step (it, 0): the tile's Q, statistics and frames, and g_0
     if (active) {  // S^T = K Q^T + fb, once a query tile for all args; masked keys at kNeg
-      if constexpr (W)
-        scores_g<NT, false>(st, st, km + base, qb, km + base, qb, k0 + warp * 16, i0, T, dh, g, t);
-      else
-        scores<NT, false, kDK>(st, st, Kw, Qt, Kw, Qt, g, t);
+      scores<NT, false, kDK>(st, st, Kw, Qt, Kw, Qt, g, t);
       const int* ft = fqs + (it & 1) * kBwdTile;
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -843,13 +819,8 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
       const float* mt = Ss_t + a * kBwdTile;
       const float* dnt = mt + A * kBwdTile;
       const float* dlt = dnt + A * kBwdTile;
-      float dpt[NT][4];
-      if constexpr (W) {  // dP_a^T = V G_a^T
-        const float* ga = gout + (arow + (size_t)a * T) * dh;
-        scores_g<NT, false>(dpt, dpt, vm + base, ga, vm + base, ga, k0 + warp * 16, i0, T, dh, g, t);
-      } else {
-        scores<NT, false, kDK>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);
-      }
+      float dpt[NT][4];  // dP_a^T = V G_a^T
+      scores<NT, false, kDK>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);
 
       // P_a^T = exp(S^T + cn_a - m_a) / den_a; ds_a = P_a^T (dP_a^T - delta_a)
       const float cn0 = Cs[a * kBwdKeys + kl0], cn1 = Cs[a * kBwdKeys + kl0 + 8];
@@ -878,7 +849,7 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
           dc[aa][0] += ds0;
           dc[aa][1] += ds1;
         }
-      accumulate<NT, kNV, kLd>(adv, pt, Gt + (W ? 0 : c0), g, t);  // dV += P_a^T G_a
+      accumulate<NT, kNV, kLd>(adv, pt, Gt, g, t);  // dV += P_a^T G_a
     }
     if (!active) continue;
 
@@ -888,8 +859,8 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         if (kc[i >> 1] < 0) cb[n][i] = 0.f;
-    accumulate<NT, kNV, kLd>(adk, cb, Qt + (W ? 0 : c0), g, t);
-    if (!kEmit || !first) continue;
+    accumulate<NT, kNV, kLd>(adk, cb, Qt, g, t);
+    if (!kEmit) continue;
     // comb[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -910,28 +881,25 @@ mm_bwd_dkv(const float* __restrict__ qm, const float* __restrict__ km,
     for (int r = 0; r < 2; ++r) {
       const float d = quad_sum(dc[a][r]);
       const int kj = kr0 + 8 * r;
-      if (t == 0 && active && first && kj < T) dcn[arow + (size_t)a * T + kj] = d;
+      if (t == 0 && active && kj < T) dcn[arow + (size_t)a * T + kj] = d;
     }
   if (!active) return;
-  store_rows(dk + base, adk, kr0, c0, T, dh, t, 1.f, 1.f);
-  store_rows(dv + base, adv, kr0, c0, T, dh, t, 1.f, 1.f);
+  store_rows(dk + base, adk, kr0, 0, T, dh, t, 1.f, 1.f);
+  store_rows(dv + base, adv, kr0, 0, T, dh, t, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
 // backward, recompute mode: dq and the frame-bias partials
 // ---------------------------------------------------------------------------
 // A block: kDqGroups row groups of 16 rows, each with two warps over the
-// two halves of a key tile.  At DK 256 the rows and the key tile halve (32
-// rows, 32 keys: 166 KB of rows in shared memory against 333 KB at 64 and
-// 64) and a block has 4 warps.
-constexpr int kDqGroups = kDK > 128 ? 2 : 4;
+// two halves of a key tile.
+constexpr int kDqGroups = 4;
 constexpr int kDqWarps = 2 * kDqGroups;
 constexpr int kDqThreads = kDqWarps * 32;
 constexpr int kDqRows = 16 * kDqGroups;   // query rows a block owns
-constexpr int kDqTile = kDK > 128 ? 32 : 64;  // keys of a tile: two halves, a warp's n-tiles
-// scores' k-steps a rolled iteration (tiles.cuh): at DK 256 its whole
-// loop of 32 let the loads run ahead and spill (68 bytes in 3xTF32 at A =
-// 5); the other kernels spilled more in chunks of 16 than unrolled whole
+constexpr int kDqTile = 64;               // keys of a tile: two halves, a warp's n-tiles
+// scores' k-steps a rolled iteration (tiles.cuh): the kernel spilled more
+// in chunks of 16 than unrolled whole
 constexpr int kDqChunk = 16;
 constexpr int kFrameTiles = kFrameTile / 8;  // 8-frame column tiles of a block's frame sums
 
@@ -942,8 +910,9 @@ constexpr int kFrameTiles = kFrameTile / 8;  // 8-frame column tiles of a block'
 // codes < 0), so two mma a tile (small, then big) give the fp32 sum; one
 // (comb rounded to TF32) in a one-pass library.  Each product is formed
 // from zero and added in fp32 (a chain over T keys, as tiles.cuh §accumulate).
-template <int NT>
-__device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&comb)[NT][4],
+// NF: rs's 8-frame column tiles (mm_bwd_dq_cl: a warp's half of the 64).
+template <int NT, int NF = kFrameTiles>
+__device__ inline void frame_sums(float (&rs)[NF][4], const float (&comb)[NT][4],
                                   const int (&c)[NT][2], int F, int fbase, int g) {
   const uint32_t one = __float_as_uint(1.f);
 #pragma unroll
@@ -951,7 +920,7 @@ __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&com
     uint32_t ab[4], as[4];
     a_from_c(comb[n], ab, as);
 #pragma unroll
-    for (int f = 0; f < kFrameTiles; ++f) {
+    for (int f = 0; f < NF; ++f) {
       const int f0 = fbase + 8 * f;
       if (f0 >= F) break;
       const uint32_t b[2] = {c[n][0] == f0 + g ? one : 0u, c[n][1] == f0 + g ? one : 0u};
@@ -964,12 +933,10 @@ __device__ inline void frame_sums(float (&rs)[kFrameTiles][4], const float (&com
   }
 }
 
-// Block z of a tile of rows computes dq's column slice z (z < kSlices) and
-// sums comb over key frames 64z..64z+63 (z < ceil(F / 64)), as
-// csrc/attention.cu's flash_bwd_dq: grid.z = max(kSlices, ceil(F / 64)).
-// W: the wide path: ceil(dh / 128) slices, S and G_a V^T from device
-// memory, the key tile's K column slice z staged, no resident Q.
-template <int A, int TM, bool W = false>
+// Block z of a tile of rows sums comb over key frames 64z..64z+63 (z <
+// ceil(F / 64)), block 0 also computing dq, as csrc/attention.cu's
+// flash_bwd_dq: grid.z = ceil(F / 64).  dh <= 128 (past 128: mm_bwd_dq_cl).
+template <int A, int TM>
 __global__ void __launch_bounds__(kDqThreads, 1)
 mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           const float* __restrict__ vm, const float* __restrict__ cn,
@@ -980,11 +947,10 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           float* __restrict__ dfb_part, int H, int T, int dh, int F, bool vec) {
   constexpr int NT = kDqTile / 16;  // a warp's 8-key n-tiles
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  // one block a tile of rows: no slices, the frames in one tile
-  constexpr bool kOne = !W && HD::kSlices == 1 && TM == kSmemTable;
+  // one block a tile of rows: the frames in one tile
+  constexpr bool kOne = TM == kSmemTable;
   const int q0 = blockIdx.x * kDqRows, z = kOne ? 0 : blockIdx.z;
-  const bool do_dq = kOne || z < (W ? wide_slices(dh) : HD::kSlices);  // dq's column slice z
-  const int c0 = W || HD::kSlices > 1 ? z * HD::kDV : 0;
+  const bool do_dq = kOne || z == 0;
   const int fbase = kFrameTile * z;    // key frames 64z..64z+63
   const bool do_fr = kOne || fbase < F;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1011,20 +977,15 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
   // step j = (key tile j / A, arg j % A): its g_a rows, a step ahead
   auto stage = [&](int j) {
     const int a = j % A;
-    if constexpr (!W)  // the wide path reads g_a from device memory
-      load_rows<kDqRows, kDqThreads, kDK>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
-                                          q0, T, dh, vec);
+    load_rows<kDqRows, kDqThreads, kDK>(Gs + (j & 1) * kDqRows * kLd, gout + (arow + (size_t)a * T) * dh,
+                                        q0, T, dh, vec);
     cp_commit();
   };
   // key tile it: its K and V rows, cn and key codes, once every warp is done with the tile before
   auto load_tile = [&](int it) {
     const int j0 = it * kDqTile;
-    if constexpr (W) {  // past dh (a block of frame tiles alone): zeros
-      load_slice<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, c0, vec);
-    } else {
-      load_rows<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, vec);
-      load_rows<kDqTile, kDqThreads, kDK>(Vs, vb, j0, T, dh, vec);
-    }
+    load_rows<kDqTile, kDqThreads, kDK>(Ks, kb, j0, T, dh, vec);
+    load_rows<kDqTile, kDqThreads, kDK>(Vs, vb, j0, T, dh, vec);
     for (int i = tid; i < A * kDqTile; i += kDqThreads) {  // cn, zero past T
       const int aa = i / kDqTile, jj = j0 + i % kDqTile;
       cp_async4(Cs + i, jj < T ? cb + (size_t)aa * T + jj : cb, jj < T);
@@ -1038,14 +999,14 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
     const size_t at = arow + (size_t)(r / kDqRows) * T + qi;
     St[i] = qi >= T ? (w == 1 ? 1.f : 0.f) : w == 0 ? mrow[at] : w == 1 ? 1.f / den[at] : delta[at];
   }
-  if constexpr (!W) load_rows<kDqRows, kDqThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
+  load_rows<kDqRows, kDqThreads, kDK>(Qs, qm + base, q0, T, dh, vec);
   stage(0);
   load_tile(0);
 
   const int r0 = 16 * rg + g;  // this lane's rows of the block: r0 and r0 + 8
   const int fq0 = q0 + r0 < T ? fid[q0 + r0] : 0, fq1 = q0 + r0 + 8 < T ? fid[q0 + r0 + 8] : 0;
   const float* Qw = Qs + 16 * rg * kLd;
-  float acc[kNV][4];  // dQ (the block's column slice) of the warp's 16 rows over its key halves
+  float acc[kNV][4];  // dQ of the warp's 16 rows over its key half
   zero(acc);
   float rs[kFrameTiles][4];  // the rows' comb summed by key frame (C fragments, 16 x 64 frames)
   zero(rs);
@@ -1063,12 +1024,8 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
       cp_wait_all();
       __syncthreads();  // step j (with arg 0, the tile) is in; every warp is done with step j - 1
       if (j + 1 < nsteps) stage(j + 1);
-      const int y0 = it * kDqTile + kHalf * kh;  // the warp's first key
       if (a == 0) {  // S = Q K^T + fb, once a key tile for all args
-        if constexpr (W)
-          scores_g<NT, false>(sc, sc, qm + base, kb, qm + base, kb, q0 + 16 * rg, y0, T, dh, g, t);
-        else
-          scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh, Qw, Kh, g, t);
+        scores<NT, false, kDK, kOnePass, kDqChunk>(sc, sc, Qw, Kh, Qw, Kh, g, t);
         const int* ct = codes + kHalf * kh;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
@@ -1082,14 +1039,9 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           }
         zero(comb);
       }
-      float gv[NT][4];
-      if constexpr (W) {  // gv_a = G_a V^T
-        const float* ga = gout + (arow + (size_t)a * T) * dh;
-        scores_g<NT, false>(gv, gv, ga, vb, ga, vb, q0 + 16 * rg, y0, T, dh, g, t);
-      } else {
-        const float* Ga = Gs + ((j & 1) * kDqRows + 16 * rg) * kLd;
-        scores<NT, false, kDK, kOnePass, kDqChunk>(gv, gv, Ga, Vh, Ga, Vh, g, t);
-      }
+      float gv[NT][4];  // gv_a = G_a V^T
+      const float* Ga = Gs + ((j & 1) * kDqRows + 16 * rg) * kLd;
+      scores<NT, false, kDK, kOnePass, kDqChunk>(gv, gv, Ga, Vh, Ga, Vh, g, t);
       const float* sm = St + a * kDqRows + r0;
       const float m0 = sm[0], m1 = sm[8];
       const float i0 = sm[A * kDqRows], i1 = sm[A * kDqRows + 8];
@@ -1104,7 +1056,7 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
             comb[n][2 + e] += expf(sc[n][2 + e] + ca - m1) * i1 * (gv[n][2 + e] - d1);
           }
     }
-    if (do_dq) accumulate<NT, kNV, kLd>(acc, comb, Kh + (W ? 0 : c0), g, t);  // dQ += comb K
+    if (do_dq) accumulate<NT, kNV, kLd>(acc, comb, Kh, g, t);  // dQ += comb K
     if (do_fr) frame_sums<NT>(rs, comb, c, F, fbase, g);
     if (it + 1 < ntiles) {
       __syncthreads();  // every warp is done with the tile's K, V, cn and codes
@@ -1149,7 +1101,7 @@ mm_bwd_dq(const float* __restrict__ qm, const float* __restrict__ km,
           acc[n][e] += red[r0 * kLd + 8 * n + 2 * t + e];
           acc[n][2 + e] += red[(r0 + 8) * kLd + 8 * n + 2 * t + e];
         }
-      store_rows(dq + base, acc, q0 + r0, c0, T, dh, t, 1.f, 1.f);
+      store_rows(dq + base, acc, q0 + r0, 0, T, dh, t, 1.f, 1.f);
     }
     if (do_fr) put_rs(true);
   }
@@ -1183,18 +1135,13 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
                                        6 * A * kBwdTile + A * kBwdKeys + table_floats(F)) +
                       sizeof(int) * 2 * kBwdTile;
   const bool emit = comb != nullptr, smem_table = F <= kTableF;
-  const bool wide = kWideLib && dh > kDK;
-  const int slices = wide ? wide_slices(dh) : HD::kSlices;
   auto dkv = emit ? (smem_table ? mm_bwd_dkv<A, kSmemTable, true> : mm_bwd_dkv<A, kGlobalTable, true>)
                   : (smem_table ? mm_bwd_dkv<A, kSmemTable, false> : mm_bwd_dkv<A, kGlobalTable, false>);
-  if constexpr (kWideLib && A <= kWideArgs)
-    if (wide) dkv = emit ? mm_bwd_dkv<A, kGlobalTable, true, true> : mm_bwd_dkv<A, kGlobalTable, false, true>;
-  if (wide && A > kWideArgs) return (int)cudaErrorInvalidValue;
   e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
                    aligned16(gout);
-  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H, slices);
+  dim3 grid((T + kBwdKeys - 1) / kBwdKeys, B * H);
   dkv<<<grid, kBwdThreads, smem, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn,
       comb, H, T, dh, F, vec);
@@ -1204,45 +1151,564 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
                                          A * kDqTile + 3 * A * kDqRows + table_floats(F)) +
                         sizeof(int) * kDqTile;
   auto dqk = smem_table ? mm_bwd_dq<A, kSmemTable> : mm_bwd_dq<A, kGlobalTable>;
-  if constexpr (kWideLib && A <= kWideArgs)
-    if (wide) dqk = mm_bwd_dq<A, kGlobalTable, true>;
   e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_q);
   if (e != cudaSuccess) return (int)e;
   const int frame_tiles = (F + kFrameTile - 1) / kFrameTile;
-  const dim3 grid_q((T + kDqRows - 1) / kDqRows, B * H, frame_tiles > slices ? frame_tiles : slices);
+  const dim3 grid_q((T + kDqRows - 1) / kDqRows, B * H, frame_tiles);
   dqk<<<grid_q, kDqThreads, smem_q, stream>>>(
       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dq, dfb_part, H, T, dh, F, vec);
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// backward past head dim 128: the head dim split over a cluster (cluster.cuh)
+// ---------------------------------------------------------------------------
+// Both kernels have 8 warps: warp w takes 16 rows (keys in mm_bwd_dkv_cl,
+// queries in mm_bwd_dq_cl) and the 64 columns of half w / 4 of the block's
+// 128-column slice (cluster.cuh).  Each score product (S once a tile, then
+// each arg's product, one at a time) is the warp's partial over its 64
+// columns, stored to the block's partial buffer at once and summed over the
+// cluster's 2n partials of its rows in rank order, so every warp of those
+// rows in every block holds the same bits, and only one product's
+// fragments are live beside the accumulators: a warp's dK and dV (or dQ)
+// are 64 columns, 64 floats a lane, where the narrow instances' 128 spill.
+// The partial buffer is single: a block waits on the split cluster barrier
+// of the round before (every peer has read it) only when its next partial
+// is ready, so the wait hides behind that product.  The rows and tiles come
+// in by TMA (mbarriers, two stages), the (B,H,A,T) statistics and cn by
+// cp.async; the frame table is read from device memory at any F.  Past 8
+// slices (kX) a block adds its other slices' partials from device memory
+// (§add_other_slices), each warp its half's columns of them.  The partial
+// of a round (A + 1 rounds a tile) is one product's: every product runs
+// once a tile, against (A + 1) x slices in the design it replaced.
+constexpr int kClWarps = 2 * kRowGroups;
+constexpr int kClThreads = kClWarps * 32;
+constexpr int kClNV = kHalf / 8;  // a warp's 8-column output tiles
+constexpr int kClChunk = 8;       // scores' k-steps a rolled iteration: a half's 8 k-steps, whole
+// args a launch of mm_bwd_dkv_cl and mm_bwd_dq_cl, at any passes: a warp's
+// accumulators do not grow with A (only dcn's, two a lane an arg), and
+// every launch redoes S
+constexpr int kClBwdArgs = 8;
+
+// mm_bwd_dkv_cl: the narrow kernel's tile (64 keys a block, 16-row query
+// tiles, steps (query tile, arg)) in 8 warps, warp w's 16 keys 16 (w % 4)..
+constexpr int kClDkvPart = kClWarps * 32 * 4 * kBwdNT;  // floats of the warps' partials
+constexpr int kClDkvSums = kRowGroups * 32 * 4 * kBwdNT;  // ... of the key groups' sums (cluster.cuh)
+// shared floats of mm_bwd_dkv_cl at A args (the mbarriers follow): K and V
+// rows, the Q and g_a rings, the partials and sums, a step's m, den and
+// delta (two stages), cn of the keys, the tiles' query frames
+__host__ __device__ constexpr size_t dkv_cl_floats(int A) {
+  return (size_t)(2 * kBwdKeys + 4 * kBwdTile) * kSliceLd + kClDkvPart + kClDkvSums + 2 * 3 * kBwdTile +
+         A * kBwdKeys + 2 * kBwdTile;
+}
+
+template <int A, bool kEmit, bool kX>
+__global__ void __launch_bounds__(kClThreads, 1)
+mm_bwd_dkv_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+              const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+              const float* __restrict__ qm, const float* __restrict__ km, const float* __restrict__ vm,
+              const float* __restrict__ cn, const float* __restrict__ key_mask, const float* __restrict__ fb,
+              const int* __restrict__ fid, const float* __restrict__ gout, const float* __restrict__ mrow,
+              const float* __restrict__ den, const float* __restrict__ delta, float* __restrict__ dk,
+              float* __restrict__ dv, float* __restrict__ dcn, DsT* __restrict__ comb, int H, int T, int dh,
+              int F, int pass) {
+  constexpr int kCLd = kSliceLd;
+  constexpr int NT = kBwdNT;
+  const int z = (int)cg::this_cluster().block_rank();
+  const int zs = slice_of<kX>(z, pass);  // the slice this block stages and accumulates
+  const bool own = owns<kX>(zs, dh);     // (else it stages slice 0 and adds only its other slices' partials)
+  const int cz = kSlice * (own ? zs : 0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kBwdKeys;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kg = warp % kRowGroups, hc = kHalf * (warp / kRowGroups);  // the warp's keys, its half's columns
+  const bool lead = zs == 0 && hc == 0;  // writes comb and dcn (every warp of the keys holds the same bits)
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);              // kBwdKeys x kCLd
+  float* Vs = Ks + kBwdKeys * kCLd;                          // kBwdKeys x kCLd
+  float* Qs = Vs + kBwdKeys * kCLd;                          // 2 tiles x kBwdTile x kCLd
+  float* Gs = Qs + 2 * kBwdTile * kCLd;                      // 2 steps x kBwdTile x kCLd: g_a
+  float* Sp = Gs + 2 * kBwdTile * kCLd;                      // kClDkvPart: the warps' partials
+  float* Sq = Sp + kClDkvPart;                               // kClDkvSums: the key groups' sums
+  float* Ss = Sq + kClDkvSums;                               // 2 steps x 3 x kBwdTile: m, den, delta
+  float* Cs = Ss + 2 * 3 * kBwdTile;                         // A x kBwdKeys: cn of the keys
+  int* fqs = reinterpret_cast<int*>(Cs + A * kBwdKeys);     // 2 tiles x kBwdTile: query frames
+  uint64_t* bars = reinterpret_cast<uint64_t*>(fqs + 2 * kBwdTile);  // K/V, then the step stages
+  const float* fbg = fb + (size_t)h * F * F;
+
+  const size_t base = (size_t)bh * T * dh;
+  const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
+  const int ntiles = (T + kBwdTile - 1) / kBwdTile, nsteps = ntiles * A;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // step j = (query tile j / A, arg j % A): its g_a tile and statistics,
+  // and with arg 0 the tile's Q rows and frames
+  auto stage = [&](int j) {
+    const int it = j / A, a = j - it * A, i0 = it * kBwdTile, sg = j & 1;
+    if (tid == 0) {
+      mbar_expect(bars + 1 + sg, box_bytes(kBwdTile) * (a == 0 ? 2 : 1));
+      tma_load(Gs + sg * kBwdTile * kCLd, &gmap, cz, i0, bh * A + a, bars + 1 + sg);
+      if (a == 0) tma_load(Qs + (it & 1) * kBwdTile * kCLd, &qmap, cz, i0, bh, bars + 1 + sg);
+    }
+    for (int i = tid; i < 3 * kBwdTile; i += kClThreads) {  // zero past T
+      const int w = i / kBwdTile, qi = i0 + i % kBwdTile;
+      const float* src = (w == 0 ? mrow : w == 1 ? den : delta) + arow + (size_t)a * T + qi;
+      cp_async4(Ss + sg * 3 * kBwdTile + i, qi < T ? src : mrow, qi < T);
+    }
+    if (a == 0 && tid < kBwdTile) {
+      const int qi = i0 + tid;
+      cp_async4(reinterpret_cast<float*>(fqs + (it & 1) * kBwdTile + tid),
+                reinterpret_cast<const float*>(qi < T ? fid + qi : fid), qi < T);
+    }
+    cp_commit();
+  };
+  for (int i = tid; i < A * kBwdKeys; i += kClThreads) {
+    const int a = i / kBwdKeys, kj = k0 + i % kBwdKeys;
+    Cs[i] = kj < T ? cn[arow + (size_t)a * T + kj] : 0.f;
+  }
+  if (tid == 0) {
+    mbar_expect(bars, 2 * box_bytes(kBwdKeys));
+    tma_load(Ks, &kmap, cz, k0, bh, bars);
+    tma_load(Vs, &vmap, cz, k0, bh, bars);
+  }
+  stage(0);
+
+  // this lane's keys: kr0 = k0 + 16 kg + g and kr0 + 8 (rows g, g + 8 of
+  // the warp's C fragments), query columns 8n + 2t + e of a tile
+  const int kl0 = kg * 16 + g, kr0 = k0 + kl0;
+  const int kc[2] = {key_code<true>(key_mask, fid, b, kr0, T), key_code<true>(key_mask, fid, b, kr0 + 8, T)};
+  const float* Kw = Ks + kg * 16 * kCLd + hc;
+  const float* Vw = Vs + kg * 16 * kCLd + hc;
+  float adk[kClNV][4], adv[kClNV][4];
+  zero(adk);
+  zero(adv);
+  float dc[A][2];  // this lane's part of dcn_a at its two keys
+#pragma unroll
+  for (int a = 0; a < A; ++a) dc[a][0] = dc[a][1] = 0.f;
+  float st[NT][4], cb[NT][4];  // S^T (biased, masked) of the tile; comb^T = sum_a ds_a^T
+  mbar_wait(bars, 0);  // the K and V rows
+
+  bool peers = false;  // a round before this one: its sums may still be read
+  // c: the warp's partial -> the cluster's sum (cluster.cuh §sum_halves)
+  auto round = [&](float (&c)[NT][4]) { sum_halves<NT>(c, Sp, Sq, warp, lane, peers); };
+  int j = 0;  // the step in flight
+  auto advance = [&]() {
+    cp_wait_all();
+    __syncthreads();  // step j's statistics are in; every warp is done with step j - 1
+    if (j + 1 < nsteps) stage(j + 1);
+    mbar_wait(bars + 1 + (j & 1), (j >> 1) & 1);  // step j's g_a (and Q) tile
+  };
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = it * kBwdTile;
+    const float* Qt = Qs + (it & 1) * kBwdTile * kCLd + hc;
+    advance();  // step (it, 0): the tile's Q and frames, and g_0
+    // S^T = K Q^T + fb, once a query tile for all args; masked keys at kNeg
+    zero(st);
+    if (own) scores<NT, false, kHalf, kOnePass, kClChunk, kCLd>(st, st, Kw, Qt, Kw, Qt, g, t);
+    if constexpr (kX)
+      add_other_slices<NT>(st, km + base, qm + base, k0 + kg * 16, i0, T, dh, z, pass, g, t, hc, kHalf);
+    round(st);
+    const int* ft = fqs + (it & 1) * kBwdTile;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int fq = ft[8 * n + 2 * t + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int c = kc[r];
+          st[n][2 * r + e] = c >= 0 ? st[n][2 * r + e] + table_bias<kGlobalTable>(nullptr, fbg, F, fq, c) : kNeg;
+        }
+      }
+    zero(cb);
+#pragma unroll 1
+    for (int a = 0; a < A; ++a, ++j) {
+      if (a > 0) advance();
+      const float* Gt = Gs + (j & 1) * kBwdTile * kCLd + hc;
+      const float* mt = Ss + (j & 1) * 3 * kBwdTile;
+      const float* dnt = mt + kBwdTile;
+      const float* dlt = dnt + kBwdTile;
+      float dpt[NT][4];  // dP_a^T = V G_a^T, the cluster's sum
+      zero(dpt);
+      if (own) scores<NT, false, kHalf, kOnePass, kClChunk, kCLd>(dpt, dpt, Vw, Gt, Vw, Gt, g, t);
+      if constexpr (kX)
+        add_other_slices<NT>(dpt, vm + base, gout + (arow + (size_t)a * T) * dh, k0 + kg * 16, i0, T, dh, z, pass,
+                             g, t, hc, kHalf);
+      round(dpt);
+
+      // P_a^T = exp(S^T + cn_a - m_a) / den_a; ds_a = P_a^T (dP_a^T - delta_a)
+      const float cn0 = Cs[a * kBwdKeys + kl0], cn1 = Cs[a * kBwdKeys + kl0 + 8];
+      float pt[NT][4], ds0 = 0.f, ds1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * t + e;
+          const bool qok = i0 + col < T;
+          const float m = mt[col], inv = qok ? 1.f / dnt[col] : 0.f, dl = dlt[col];  // den >= 1
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 2 * r + e;
+            const float p = !qok || kc[r] == kPast ? 0.f : expf(st[n][i] + (r ? cn1 : cn0) - m) * inv;
+            const float ds = p * (dpt[n][i] - dl);
+            pt[n][i] = p;
+            cb[n][i] += ds;
+            if (r) ds1 += ds;
+            else ds0 += ds;
+          }
+        }
+#pragma unroll
+      for (int aa = 0; aa < A; ++aa)  // a static index keeps dc in registers
+        if (aa == a) {
+          dc[aa][0] += ds0;
+          dc[aa][1] += ds1;
+        }
+      accumulate<NT, kClNV, kCLd>(adv, pt, Gt, g, t);  // dV += P_a^T G_a, the half's columns
+    }
+
+    // comb^T masked to the valid keys; dK += comb^T Q
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (kc[i >> 1] < 0) cb[n][i] = 0.f;
+    accumulate<NT, kClNV, kCLd>(adk, cb, Qt, g, t);
+    if (!kEmit || !lead) continue;
+    // comb[bh, q, k]: a store writes 8 consecutive keys for each of 4 queries
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = i0 + 8 * n + 2 * t + e;
+        if (qi >= T) continue;
+        DsT* row = comb + ((size_t)bh * T + qi) * T;
+        if (kr0 < T) store_ds(row + kr0, cb[n][e]);
+        if (kr0 + 8 < T) store_ds(row + kr0 + 8, cb[n][2 + e]);
+      }
+  }
+  cluster_wait();  // no peer reads this block's sums any more
+
+  // dcn: the four lanes of a key add their query columns, in a fixed order
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float d = quad_sum(dc[a][r]);
+      const int kj = kr0 + 8 * r;
+      if (t == 0 && lead && kj < T) dcn[arow + (size_t)a * T + kj] = d;
+    }
+  if (!own) return;
+  store_rows(dk + base, adk, kr0, cz + hc, T, dh, t, 1.f, 1.f);
+  store_rows(dv + base, adv, kr0, cz + hc, T, dh, t, 1.f, 1.f);
+}
+
+// mm_bwd_dq_cl (recompute mode): the narrow kernel's block (64 query rows,
+// steps (key tile, arg), each arg's g_a rows of the block streamed a step
+// ahead) in 8 warps, warp w's 16 rows 16 (w % 4).., with 32-key tiles (a
+// warp's four 8-key n-tiles).  Per key tile S is summed once over the
+// cluster, then each arg's g_a vm^T; comb = sum_a ds_a is summed on chip,
+// and dq_z += comb K_z over the warp's half of the slice.  Every warp of
+// the rows holds the same comb, so the frame sums split over the halves:
+// half w / 4 sums 32 of the block's 64 key frames (frame_sums, on the
+// tensor cores).  A tile of rows has groups of clusters in grid.x (as
+// attention.cu's flash_bwd_dq_cl): rank z of group c sums frame tile c n
+// + z (key frames 64 (c n + z)..) into its tile's (F, F) partial, rows in
+// order, each cell by one block; group 0 also computes dq.
+constexpr int kClDqTile = 32;                             // keys of a tile
+constexpr int kClDqNT = kClDqTile / 8;                    // a warp's 8-key n-tiles
+constexpr int kClDqRows = 16 * kRowGroups;                // query rows a block owns
+constexpr int kClDqPart = kClWarps * 32 * 4 * kClDqNT;   // floats of the warps' partials
+constexpr int kClDqSums = kRowGroups * 32 * 4 * kClDqNT;  // ... of the row groups' sums (cluster.cuh)
+constexpr int kClFrameTiles = kFrameTiles / 2;            // a warp's 8-frame column tiles
+// scores' k-steps a rolled iteration: unrolled whole, the half's 8 k-steps
+// spilled 4-24 bytes (ptxas, at 255 registers); 4 spill none in 3xTF32 and
+// 4 bytes in one pass, 2 none in one pass and 8 bytes in 3xTF32
+constexpr int kClDqChunk = kOnePass ? 2 : 4;
+// shared floats of mm_bwd_dq_cl at A args (the mbarriers follow): Q rows,
+// the g_a ring, the K and V rings, the partials and sums, cn of the key
+// tiles (two stages), the rows' m, 1 / den and delta, the key codes (two
+// stages)
+__host__ __device__ constexpr size_t dq_cl_floats(int A) {
+  return (size_t)(3 * kClDqRows + 4 * kClDqTile) * kSliceLd + kClDqPart + kClDqSums + 2 * A * kClDqTile +
+         3 * A * kClDqRows + 2 * kClDqTile;
+}
+
+template <int A, bool kX>
+__global__ void __launch_bounds__(kClThreads, 1)
+mm_bwd_dq_cl(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+             const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+             const float* __restrict__ qm, const float* __restrict__ km, const float* __restrict__ vm,
+             const float* __restrict__ cn, const float* __restrict__ key_mask, const float* __restrict__ fb,
+             const int* __restrict__ fid, const float* __restrict__ gout, const float* __restrict__ mrow,
+             const float* __restrict__ den, const float* __restrict__ delta, float* __restrict__ dq,
+             float* __restrict__ dfb_part, int H, int T, int dh, int F, int pass) {
+  constexpr int kCLd = kSliceLd;
+  constexpr int NT = kClDqNT;
+  const int z = (int)cg::this_cluster().block_rank();
+  const int zs = slice_of<kX>(z, pass);
+  const bool own = owns<kX>(zs, dh);
+  const int cz = kSlice * (own ? zs : 0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row_tiles = (T + kClDqRows - 1) / kClDqRows;
+  const int rt = blockIdx.x % row_tiles, grp = blockIdx.x / row_tiles;
+  const int q0 = rt * kClDqRows;
+  const bool do_dq = grp == 0 && own;
+  const int fbase = kFrameTile * (grp * (int)gridDim.z + z);  // key frames fbase..fbase+63
+  const bool do_fr = pass == 0 && fbase < F;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % kRowGroups, half = warp / kRowGroups, hc = kHalf * half;
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);              // kClDqRows x kCLd
+  float* Gs = Qs + kClDqRows * kCLd;                         // 2 steps x kClDqRows x kCLd: g_a of the rows
+  float* Ks = Gs + 2 * kClDqRows * kCLd;                     // 2 tiles x kClDqTile x kCLd
+  float* Vs = Ks + 2 * kClDqTile * kCLd;                     // 2 tiles x kClDqTile x kCLd
+  float* Sp = Vs + 2 * kClDqTile * kCLd;                     // kClDqPart: the warps' partials
+  float* Sq = Sp + kClDqPart;                                // kClDqSums: the row groups' sums
+  float* Cs = Sq + kClDqSums;                                // 2 tiles x A x kClDqTile: cn of the keys
+  float* St = Cs + 2 * A * kClDqTile;                        // 3 x A x kClDqRows: m, 1 / den, delta
+  int* codes = reinterpret_cast<int*>(St + 3 * A * kClDqRows);  // 2 tiles x kClDqTile
+  uint64_t* bars = reinterpret_cast<uint64_t*>(codes + 2 * kClDqTile);  // Q, then the step stages
+  const float* fbg = fb + (size_t)h * F * F;
+
+  const size_t base = (size_t)bh * T * dh;
+  const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
+  const float* cb = cn + arow;
+  const int ntiles = (T + kClDqTile - 1) / kClDqTile, nsteps = ntiles * A;
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // step j = (key tile j / A, arg j % A): its g_a rows, and with arg 0 the
+  // tile's K and V rows, cn and key codes, a step ahead
+  auto stage = [&](int j) {
+    const int it = j / A, a = j - it * A, sg = j & 1, j0 = it * kClDqTile;
+    if (tid == 0) {
+      mbar_expect(bars + 1 + sg, box_bytes(kClDqRows) + (a == 0 ? 2 * box_bytes(kClDqTile) : 0));
+      tma_load(Gs + sg * kClDqRows * kCLd, &gmap, cz, q0, bh * A + a, bars + 1 + sg);
+      if (a == 0) {
+        tma_load(Ks + (it & 1) * kClDqTile * kCLd, &kmap, cz, j0, bh, bars + 1 + sg);
+        tma_load(Vs + (it & 1) * kClDqTile * kCLd, &vmap, cz, j0, bh, bars + 1 + sg);
+      }
+    }
+    if (a == 0) {
+      for (int i = tid; i < A * kClDqTile; i += kClThreads) {  // cn, zero past T
+        const int aa = i / kClDqTile, jj = j0 + i % kClDqTile;
+        cp_async4(Cs + (it & 1) * A * kClDqTile + i, jj < T ? cb + (size_t)aa * T + jj : cb, jj < T);
+      }
+      if (tid < kClDqTile) codes[(it & 1) * kClDqTile + tid] = key_code<true>(key_mask, fid, b, j0 + tid, T);
+    }
+    cp_commit();
+  };
+  for (int i = tid; i < 3 * A * kClDqRows; i += kClThreads) {  // rows past T: m 0, 1/den 1, delta 0
+    const int w = i / (A * kClDqRows), r = i % (A * kClDqRows), qi = q0 + r % kClDqRows;
+    const size_t at = arow + (size_t)(r / kClDqRows) * T + qi;
+    St[i] = qi >= T ? (w == 1 ? 1.f : 0.f) : w == 0 ? mrow[at] : w == 1 ? 1.f / den[at] : delta[at];
+  }
+  if (tid == 0) {
+    mbar_expect(bars, box_bytes(kClDqRows));
+    tma_load(Qs, &qmap, cz, q0, bh, bars);
+  }
+  stage(0);
+
+  const int r0 = 16 * rg + g;  // this lane's rows of the block: r0 and r0 + 8
+  const int fq0 = q0 + r0 < T ? fid[q0 + r0] : 0, fq1 = q0 + r0 + 8 < T ? fid[q0 + r0 + 8] : 0;
+  const float* Qw = Qs + 16 * rg * kCLd + hc;
+  float acc[kClNV][4];  // dQ of the warp's 16 rows, its half's columns
+  zero(acc);
+  float rs[kClFrameTiles][4];  // the rows' comb summed by key frame: the half's 32 frames
+  zero(rs);
+  float sc[NT][4], comb[NT][4];  // S (biased) of the tile; comb = sum_a ds_a
+  mbar_wait(bars, 0);  // the Q rows
+
+  bool peers = false;  // a round before this one: its sums may still be read
+  // x: the warp's partial -> the cluster's sum (cluster.cuh §sum_halves)
+  auto round = [&](float (&x)[NT][4]) { sum_halves<NT>(x, Sp, Sq, warp, lane, peers); };
+  int j = 0;  // the step in flight
+  for (int it = 0; it < ntiles; ++it) {
+    const float* Kt = Ks + (it & 1) * kClDqTile * kCLd + hc;
+    const float* Vt = Vs + (it & 1) * kClDqTile * kCLd + hc;
+    const float* Ct = Cs + (it & 1) * A * kClDqTile;
+    const int* ct = codes + (it & 1) * kClDqTile;  // this lane's keys 8n + 2t + e: ct[8n + 2t + e]
+#pragma unroll 1
+    for (int a = 0; a < A; ++a, ++j) {
+      cp_wait_all();
+      __syncthreads();  // step j's cn and codes are in; every warp is done with step j - 1
+      if (j + 1 < nsteps) stage(j + 1);
+      mbar_wait(bars + 1 + (j & 1), (j >> 1) & 1);  // step j's g_a rows (and the tile's K and V)
+      if (a == 0) {  // S = Q K^T + fb, once a key tile for all args
+        zero(sc);
+        if (own) scores<NT, false, kHalf, kOnePass, kClDqChunk, kCLd>(sc, sc, Qw, Kt, Qw, Kt, g, t);
+        if constexpr (kX)
+          add_other_slices<NT>(sc, qm + base, km + base, q0 + 16 * rg, it * kClDqTile, T, dh, z, pass, g, t, hc,
+                               kHalf);
+        round(sc);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = ct[8 * n + 2 * t + e];
+            if (c >= 0) {
+              sc[n][e] += table_bias<kGlobalTable>(nullptr, fbg, F, fq0, c);
+              sc[n][2 + e] += table_bias<kGlobalTable>(nullptr, fbg, F, fq1, c);
+            }
+          }
+        zero(comb);
+      }
+      float gv[NT][4];  // gv_a = G_a V^T, the cluster's sum
+      zero(gv);
+      const float* Ga = Gs + ((j & 1) * kClDqRows + 16 * rg) * kCLd + hc;
+      if (own) scores<NT, false, kHalf, kOnePass, kClDqChunk, kCLd>(gv, gv, Ga, Vt, Ga, Vt, g, t);
+      if constexpr (kX)
+        add_other_slices<NT>(gv, gout + (arow + (size_t)a * T) * dh, vm + base, q0 + 16 * rg, it * kClDqTile, T,
+                             dh, z, pass, g, t, hc, kHalf);
+      round(gv);
+      const float* sm = St + a * kClDqRows + r0;
+      const float m0 = sm[0], m1 = sm[8];
+      const float i0 = sm[A * kClDqRows], i1 = sm[A * kClDqRows + 8];
+      const float d0 = sm[2 * A * kClDqRows], d1 = sm[2 * A * kClDqRows + 8];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (ct[8 * n + 2 * t + e] >= 0) {  // ds_a on the valid keys; masked keys and keys past T give 0
+            const float ca = Ct[a * kClDqTile + 8 * n + 2 * t + e];
+            comb[n][e] += expf(sc[n][e] + ca - m0) * i0 * (gv[n][e] - d0);
+            comb[n][2 + e] += expf(sc[n][2 + e] + ca - m1) * i1 * (gv[n][2 + e] - d1);
+          }
+    }
+    if (do_dq) accumulate<NT, kClNV, kCLd>(acc, comb, Kt, g, t);  // dQ += comb K
+    if (do_fr) {  // the codes from shared memory (the tile's stage is rewritten two tiles on)
+      int c[NT][2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) c[n][0] = ct[8 * n + 2 * t], c[n][1] = ct[8 * n + 2 * t + 1];
+      frame_sums<NT>(rs, comb, c, F, fbase + 8 * kClFrameTiles * half, g);
+    }
+  }
+  cluster_wait();  // no peer reads this block's sums any more
+
+  if (do_dq) store_rows(dq + base, acc, q0 + r0, cz + hc, T, dh, t, 1.f, 1.f);
+  if (!do_fr) return;
+  __syncthreads();  // every warp is done with Gs
+  float* racc = Gs;  // kClDqRows x kFrameTile: frame sums of the rows
+#pragma unroll
+  for (int f = 0; f < kClFrameTiles; ++f)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = 8 * (kClFrameTiles * half + f) + 2 * t + (i & 1), r = r0 + (i >= 2 ? 8 : 0);
+      if (fbase + col < F) racc[r * kFrameTile + col] = rs[f][i];
+    }
+  __syncthreads();
+  // this block's columns fbase.. of the (F, F) partial: rows in order, those of query frame f
+  const int nf = min(kFrameTile, F - fbase);
+  float* part = dfb_part + ((size_t)bh * row_tiles + rt) * F * F;
+  for (int cell = tid; cell < F * nf; cell += kClThreads) {
+    const int f = cell / nf, gk = cell - f * nf;
+    float sum = 0.f;
+    for (int r = 0; r < kClDqRows && q0 + r < T; ++r)
+      if (fid[q0 + r] == f) sum += racc[r * kFrameTile + gk];
+    part[f * F + fbase + gk] = sum;
+  }
+}
+
+// delta, then mm_bwd_dkv_cl (and in recompute mode mm_bwd_dq_cl), each as
+// clusters of n blocks (the wrapper's plan), one launch a pass (dh % 4 ==
+// 0: the wrapper pads), at most kClBwdArgs args.
+// mm_bwd_dq_cl's frame tiles (F > 64) are folded into grid.x: ceil(tiles of
+// frames / n) groups of clusters in pass 0, group c's rank z summing frame
+// tile c n + z, group 0 also computing dq.
+template <int A>
+int launch_bwd_cl(const float* qm, const float* km, const float* vm, const float* cn,
+                  const float* key_mask, const float* fb, const int* fid,
+                  const float* gout, const float* out, const float* mrow, const float* den,
+                  float* delta, float* dk, float* dv, float* dcn, DsT* comb, float* dq,
+                  float* dfb_part, int B, int H, int T, int dh, int F, int n, cudaStream_t s) {
+  if constexpr (A > kClBwdArgs) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+  const int BH = B * H, passes = passes_of(dh, n);
+  const bool emit = comb != nullptr, x = passes > 1;
+  const int rows = BH * A * T;
+  mm_bwd_delta<<<(rows + 7) / 8, 256, 0, s>>>(out, gout, delta, rows, dh);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap qt, gt, kr, vr;  // the streamed Q / g_a tiles, the resident K / V rows
+  e = row_map(&qt, qm, BH, T, dh, kBwdTile);
+  if (e == cudaSuccess) e = row_map(&gt, gout, BH * A, T, dh, kBwdTile);
+  if (e == cudaSuccess) e = row_map(&kr, km, BH, T, dh, kBwdKeys);
+  if (e == cudaSuccess) e = row_map(&vr, vm, BH, T, dh, kBwdKeys);
+  if (e != cudaSuccess) return (int)e;
+  auto dkv = emit ? (x ? mm_bwd_dkv_cl<A, true, true> : mm_bwd_dkv_cl<A, true, false>)
+                  : (x ? mm_bwd_dkv_cl<A, false, true> : mm_bwd_dkv_cl<A, false, false>);
+  const size_t smem_kv = sizeof(float) * dkv_cl_floats(A) + 3 * sizeof(uint64_t);
+  for (int p = 0; p < passes; ++p) {
+    e = launch_cluster(dkv, dim3((T + kBwdKeys - 1) / kBwdKeys, BH, n), kClThreads, smem_kv, n, s, qt, gt, kr, vr,
+                       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dk, dv, dcn, comb, H, T, dh, F, p);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (emit) return 0;
+  CUtensorMap qr, gr, kt, vt;  // the resident Q rows, the streamed g_a rows, K / V tiles
+  e = row_map(&qr, qm, BH, T, dh, kClDqRows);
+  if (e == cudaSuccess) e = row_map(&gr, gout, BH * A, T, dh, kClDqRows);
+  if (e == cudaSuccess) e = row_map(&kt, km, BH, T, dh, kClDqTile);
+  if (e == cudaSuccess) e = row_map(&vt, vm, BH, T, dh, kClDqTile);
+  if (e != cudaSuccess) return (int)e;
+  auto dqk = x ? mm_bwd_dq_cl<A, true> : mm_bwd_dq_cl<A, false>;
+  const int tiles = (T + kClDqRows - 1) / kClDqRows;
+  const int groups = ((F + kFrameTile - 1) / kFrameTile + n - 1) / n;
+  const size_t smem_q = sizeof(float) * dq_cl_floats(A) + 3 * sizeof(uint64_t);
+  for (int p = 0; p < passes; ++p) {  // the frame groups in pass 0 (the frame sums' pass) only
+    e = launch_cluster(dqk, dim3(tiles * (p == 0 ? groups : 1), BH, n), kClThreads, smem_q, n, s, qr, gr, kt, vt,
+                       qm, km, vm, cn, key_mask, fb, fid, gout, mrow, den, delta, dq, dfb_part, H, T, dh, F, p);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+  }
+}
+
 }  // namespace
 
-// dh: at most this library's head-dim instance, or any in the DK 128
-// library, whose wide path takes dh > 128 at A <= kWideArgs (the wrapper
-// takes it past 256, and the DK 256 library from 129 to 256).
+// dh: at most 128 in the narrow library, past 128 (a multiple of 4, as
+// clusters of n blocks; n is read only there) in the cluster library.
 // delta: (B,H,A,T) scratch, written here from gout and the forward's out.
 // Emit mode: comb (B*H, T, T), fp32 or, in the one-pass library, bf16, not
 // null; dq and dfb_part are not touched.
 // Recompute mode: comb null; dq (B,H,T,dh) and dfb_part (B, H, ceil(T /
-// rows), F, F) are written, rows = 64 at DK 128 and 32 at DK 256.
+// 64), F, F) are written.
 extern "C" int vog_mm_bwd(int device, const float* qm, const float* km, const float* vm,
                           const float* cn, const float* key_mask,
                           const float* fb, const int* fid, const float* gout,
                           const float* out, const float* mrow, const float* den,
                           float* delta, float* dk, float* dv, float* dcn,
                           void* comb_out, float* dq, float* dfb_part, int B, int H,
-                          int A, int T, int dh, int F, void* stream) {
+                          int A, int T, int dh, int F, int n, void* stream) {
   VOG_DEVICE_GUARD(device);
-  if ((dh > kDK && !kWideLib) || dh < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if (dh < 1 || F < 1 || (dh > 128) != (VOG_MM_CLUSTER != 0) ||
+      (dh > 128 && (dh % 4 != 0 || !cluster_fits(dh, n))))
+    return (int)cudaErrorInvalidValue;
   DsT* comb = static_cast<DsT*>(comb_out);
   if (comb == nullptr && (dq == nullptr || dfb_part == nullptr)) return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOG_MM_BWD_CASE(n)                                                    \
-  case n:                                                                     \
-    return launch_bwd<n>(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow,  \
-                         den, delta, dk, dv, dcn, comb, dq, dfb_part, B, H, T,  \
-                         dh, F, s);
+#if VOG_MM_CLUSTER
+#define VOG_MM_BWD_CASE(a)                                                                                     \
+  case a:                                                                                                      \
+    return launch_bwd_cl<a>(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow, den, delta, dk, dv, dcn, comb, \
+                            dq, dfb_part, B, H, T, dh, F, n, s);
+#else
+#define VOG_MM_BWD_CASE(a)                                                                                  \
+  case a:                                                                                                   \
+    return launch_bwd<a>(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow, den, delta, dk, dv, dcn, comb, \
+                         dq, dfb_part, B, H, T, dh, F, s);
+#endif
   switch (A) {
     VOG_MM_BWD_CASE(1)
     VOG_MM_BWD_CASE(2)
@@ -1264,13 +1730,14 @@ extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const fl
                           float* mrow, float* den, int B, int H, int A, int T,
                           int dh, int F, int n, void* stream) {
   VOG_DEVICE_GUARD(device);
-  // the DK 128 library takes dh <= 128; the other, dh > 128 (a multiple of
-  // 4) as clusters of n blocks (n is read only there)
-  if (dh < 1 || F < 1 || (dh > 128) != (kDK > 128) || (dh > 128 && (dh % 4 != 0 || !cluster_fits(dh, n))))
+  // the narrow library takes dh <= 128; the cluster library, dh > 128 (a
+  // multiple of 4) as clusters of n blocks (n is read only there)
+  if (dh < 1 || F < 1 || (dh > 128) != (VOG_MM_CLUSTER != 0) ||
+      (dh > 128 && (dh % 4 != 0 || !cluster_fits(dh, n))))
     return (int)cudaErrorInvalidValue;
   if (B * H == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#if VOG_MM_DK > 128
+#if VOG_MM_CLUSTER
 #define VOG_MM_CASE(a) \
   case a:              \
     return launch_cl<a>(qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, B, H, T, dh, F, n, s);
@@ -1294,15 +1761,29 @@ extern "C" int vog_mm_fwd(int device, const float* qm, const float* km, const fl
 #undef VOG_MM_CASE
 }
 
-// Clusters of n blocks of mm_fwd_cl<A> resident at once
-// (cudaOccupancyMaxActiveClusters; 0 in the DK 128 library)
-extern "C" int vog_mm_fwd_clusters(int device, int A, int n) {
+// Clusters of n blocks of a cluster kernel at A args resident at once
+// (cudaOccupancyMaxActiveClusters): which 0, mm_fwd_cl (A 5 or 7); 1,
+// mm_bwd_dkv_cl (recompute); 2, mm_bwd_dq_cl (A 5 or 8); 0 in the narrow
+// library
+extern "C" int vog_mm_clusters(int device, int A, int n, int which) {
   VOG_DEVICE_GUARD(device);
-#if VOG_MM_DK > 128
-  const size_t smem = sizeof(float) * fwd_cl_floats(A) + 3 * sizeof(uint64_t);
+#if VOG_MM_CLUSTER
+  if (which == 0) {
+    const size_t smem = sizeof(float) * fwd_cl_floats(A) + 3 * sizeof(uint64_t);
+    switch (A) {
+      case 5: return max_active_clusters(mm_fwd_cl<5, false>, kFwdThreads, smem, n);
+      case 7: return max_active_clusters(mm_fwd_cl<7, false>, kFwdThreads, smem, n);
+      default: return -(int)cudaErrorInvalidValue;
+    }
+  }
+  const size_t smem = sizeof(float) * (which == 1 ? dkv_cl_floats(A) : dq_cl_floats(A)) + 3 * sizeof(uint64_t);
   switch (A) {
-    case 5: return max_active_clusters(mm_fwd_cl<5, false>, kFwdThreads, smem, n);
-    case 7: return max_active_clusters(mm_fwd_cl<7, false>, kFwdThreads, smem, n);
+    case 5:
+      return which == 1 ? max_active_clusters(mm_bwd_dkv_cl<5, false, false>, kClThreads, smem, n)
+                        : max_active_clusters(mm_bwd_dq_cl<5, false>, kClThreads, smem, n);
+    case 8:
+      return which == 1 ? max_active_clusters(mm_bwd_dkv_cl<8, false, false>, kClThreads, smem, n)
+                        : max_active_clusters(mm_bwd_dq_cl<8, false>, kClThreads, smem, n);
     default: return -(int)cudaErrorInvalidValue;
   }
 #else

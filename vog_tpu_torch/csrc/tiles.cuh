@@ -3,19 +3,15 @@
 // mm_attention.cu, forward and backward); grounding_head.cu takes its
 // cp.async helpers.
 //
-//  * The head dim is a compile-time parameter of every kernel instance
-//    (HeadDim<DK>: DK 64, 128 or 256; a call pads dh up to the next
+//  * The head dim is a compile-time parameter of every narrow kernel
+//    instance (HeadDim<DK>: DK 64 or 128; a call pads dh up to the next
 //    instance with zeros), so every loop over it unrolls and the loads run
-//    ahead of the products.  The score products (Q K^T, dO V^T, G V^T)
-//    run over all DK; the accumulating products (P V, dS^T Q, ...) of a
-//    block cover DV = min(DK, 128) output columns, so their accumulators
-//    take at most 128 columns' registers at any DK: at DK 256 (flash_fwd
-//    and the mm backward) a launch has two blocks for each tile of rows,
-//    grid.z = 2, one a column slice, and both compute the tile's scores.
-//    The mm forward and the flash backward take dh > 128 on a thread
-//    block cluster instead (cluster.cuh), whose blocks split the score
-//    products too and sum their partials once; their fragment reads and
-//    products are this file's, on 128-column slices (HeadDim<128>).
+//    ahead of the products.  Past 128 every attention kernel splits the
+//    head dim over a thread block cluster (cluster.cuh): each block stages
+//    and accumulates a 128-column slice, the score partials summed once
+//    over the cluster; their fragment reads and products are this file's,
+//    on 128-column slices (HeadDim<128>) or on 64-column halves of them
+//    (``scores``' LD: a half's k-steps in a slice's row stride).
 //  * A shared row holds DK floats plus 4: with a row stride of 4 (mod 8)
 //    words, both kinds of fragment read below (rows g, columns t; and rows
 //    2t, 2t+1, columns g) hit 32 distinct banks.
@@ -35,16 +31,6 @@
 //  * The fragment and product helpers take the pass count (kOne: one TF32
 //    pass, else 3xTF32; tf32.cuh) as a template parameter whose default is
 //    the library's kOnePass.
-//  * Head dims past kMaxDh (the wide path, an instance flag W of the DK 128
-//    flash_fwd and mm backward kernels): a row of dh floats no longer fits
-//    beside the others (64 query rows are 132 KB at dh 512, 264 KB at
-//    1024), so the score products read their operands from device memory
-//    through the read-only cache (scores_g: the fragments' rows and
-//    k-steps bounded at run time, zero past T and dh), and shared memory
-//    holds only the block's 128-column slice of the rows that the
-//    accumulating products read (load_slice).  A launch has ceil(dh / 128)
-//    slices on grid.z, each block redoing the tile's scores, as the DK 256
-//    instance's two.
 
 #pragma once
 
@@ -65,32 +51,28 @@ using DsT = std::conditional_t<kOnePass, __nv_bfloat16, float>;
 __device__ inline void store_ds(float* p, float x) { *p = x; }
 __device__ inline void store_ds(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-// A kernel instance's head dims: DK the padded head dim of the score
-// products, DV the output columns a block accumulates (its column slice,
-// blockIdx.z of kSlices)
+// A narrow kernel instance's head dims: DK the padded head dim of the
+// score products, DV the output columns a block accumulates (all DK: one
+// block a tile of rows)
 template <int DK>
 struct HeadDim {
-  static_assert(DK == 64 || DK == 128 || DK == 256, "instances: 64, 128, 256");
+  static_assert(DK == 64 || DK == 128, "instances: 64, 128 (past 128: the cluster kernels)");
   static constexpr int kND = DK / 8;                // k-steps of a score product
   static constexpr int kLd = DK + 4;                // shared row stride (floats)
-  static constexpr int kDV = DK < 128 ? DK : 128;  // a block's output columns
+  static constexpr int kDV = DK;                    // a block's output columns
   static constexpr int kNV = kDV / 8;               // their 8-wide column tiles
-  static constexpr int kSlices = DK / kDV;          // blocks over the columns (grid.z)
+  static constexpr int kSlices = 1;                 // blocks over the columns
 };
-constexpr int kMaxDh = 256;  // the widest instance; past it the DK 128 instance's wide path
-constexpr int kWideSlice = HeadDim<128>::kDV;  // the wide path's output columns a block
-// the wide path's column slices of a head dim dh, each a block of a tile of rows (grid.z)
-__host__ __device__ inline int wide_slices(int dh) { return (dh + kWideSlice - 1) / kWideSlice; }
 // Frames whose (F, F) bias table (up to 16 KB) a block holds in shared
 // memory.  Past it the kernels read the head's table from device memory
 // through the read-only cache: every table fits L2 (F = 160 is 100 KB a
-// head), and a block's rows and keys each read a few rows of it, while a
-// shared copy of a wide table would not fit beside DK 256's tiles.
+// head), and a block's rows and keys each read a few rows of it (the
+// cluster kernels do so at any F).
 constexpr int kTableF = 64;
 // Frames a block sums the frame-bias gradient over (the dq kernels): a
 // launch with more frames gives every tile of rows ceil(F / 64) blocks,
-// block z summing frames 64z..64z+63 (and, at DK 256, computing column
-// slice z of dq), so the sums keep their order and registers at any F.
+// block z summing frames 64z..64z+63, so the sums keep their order and
+// registers at any F.
 constexpr int kFrameTile = 64;
 constexpr float kNeg = -1e30f;
 constexpr int kMasked = -1;
@@ -142,29 +124,6 @@ __device__ inline void load_rows(float* dst, const float* __restrict__ src, int 
       const int r = idx / DK, c = idx % DK, row = row0 + r;
       const bool ok = row < T && c < dh;
       cp_async4(dst + r * kLd + c, ok ? src + (size_t)row * dh + c : src, ok);
-    }
-  }
-}
-
-// The wide path's copy: rows [row0, row0 + ROWS) of columns [c0, c0 + DK)
-// of a (T, dh) matrix (the block's column slice), zero-filled past T and
-// past dh, as load_rows.  ``vec`` needs dh % 4 == 0 (c0 is a multiple of 4).
-template <int ROWS, int THREADS, int DK>
-__device__ inline void load_slice(float* dst, const float* __restrict__ src, int row0, int T, int dh,
-                                  int c0, bool vec) {
-  constexpr int kLd = HeadDim<DK>::kLd;
-  if (vec) {
-    constexpr int n4 = DK / 4;
-    for (int idx = threadIdx.x; idx < ROWS * n4; idx += THREADS) {
-      const int r = idx / n4, c = 4 * (idx % n4), row = row0 + r;
-      const bool ok = row < T && c0 + c < dh;
-      cp_async16(dst + r * kLd + c, ok ? src + (size_t)row * dh + c0 + c : src, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * DK; idx += THREADS) {
-      const int r = idx / DK, c = idx % DK, row = row0 + r;
-      const bool ok = row < T && c0 + c < dh;
-      cp_async4(dst + r * kLd + c, ok ? src + (size_t)row * dh + c0 + c : src, ok);
     }
   }
 }
@@ -255,15 +214,16 @@ __device__ inline void zero(float (&c)[NT][4]) {
 }
 
 // c = X1 Y1^T and d = X2 Y2^T over the padded head dim DK, for the warp's
-// 16 rows of X1, X2 (row-major shared, stride DK + 4) and NT*8 rows of Y1,
-// Y2.  Each product is summed in two accumulator sets (even and odd
-// k-steps), which halves its dependent mma chains; TWO = false computes c
-// alone (d may then alias c).
+// 16 rows of X1, X2 (row-major shared, stride LD: DK + 4, or a cluster
+// slice's kSliceLd for a 64-column half of it) and NT*8 rows of Y1, Y2.
+// Each product is summed in two accumulator sets (even and odd k-steps),
+// which halves its dependent mma chains; TWO = false computes c alone (d
+// may then alias c).
 // CH > 0: the loop over the k-steps runs in rolled iterations of CH
 // unrolled k-steps (else unrolled whole), which bounds how far ahead of
 // the products the fragment loads run, and so the registers they hold;
 // the sums are the same (k-step ks goes to set ks & 1 either way).
-template <int NT, bool TWO, int DK, bool kOne = kOnePass, int CH = 0>
+template <int NT, bool TWO, int DK, bool kOne = kOnePass, int CH = 0, int LD = HeadDim<DK>::kLd>
 __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float* X1,
                               const float* Y1, const float* X2, const float* Y2, int g, int t) {
   float c2[2][NT][4], d2[2][NT][4];
@@ -272,7 +232,6 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
     zero(c2[p]);
     zero(d2[p]);
   }
-  constexpr int LD = HeadDim<DK>::kLd;
   constexpr int ND = HeadDim<DK>::kND;
   constexpr int kCh = CH > 0 && CH < ND ? CH : ND;
   static_assert(kCh % 2 == 0 && ND % kCh == 0, "a chunk holds whole pairs of k-steps");
@@ -310,75 +269,6 @@ __device__ inline void scores(float (&c)[NT][4], float (&d)[NT][4], const float*
 // an element of a matrix in device memory through the read-only cache, or
 // 0 when !ok (a row past T, a column past dh)
 __device__ inline float ldg0(const float* __restrict__ p, bool ok) { return ok ? __ldg(p) : 0.f; }
-
-// The wide path's scores: c = X1 Y1^T and d = X2 Y2^T as ``scores``, over a
-// run-time head dim dh (ceil(dh / 8) k-steps, rolled two a time, the two
-// accumulator sets), the operands read from device memory: rows x0 ..
-// x0 + 15 of the (T, dh) matrices X1, X2 (the warp's 16 rows) and rows y0
-// .. y0 + NT*8 - 1 of Y1, Y2 (the n index); rows past T and columns past
-// dh read as 0.
-template <int NT, bool TWO, bool kOne = kOnePass>
-__device__ inline void scores_g(float (&c)[NT][4], float (&d)[NT][4], const float* __restrict__ X1,
-                                const float* __restrict__ Y1, const float* __restrict__ X2,
-                                const float* __restrict__ Y2, int x0, int y0, int T, int dh, int g,
-                                int t) {
-  float c2[2][NT][4], d2[2][NT][4];
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    zero(c2[p]);
-    zero(d2[p]);
-  }
-  const int xa = x0 + g, xb = xa + 8;  // this lane's rows of X: g and g + 8
-  const bool oka = xa < T, okb = xb < T;
-  const size_t oa = (size_t)(oka ? xa : 0) * dh, ob = (size_t)(okb ? xb : 0) * dh;
-  bool oky[NT];
-  size_t oy[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {  // this lane's row of Y in n-tile j: 8j + g
-    const int y = y0 + 8 * j + g;
-    oky[j] = y < T;
-    oy[j] = (size_t)(oky[j] ? y : 0) * dh;
-  }
-  const int nk = (dh + 7) / 8;
-#pragma unroll 1
-  for (int k0 = 0; k0 < nk; k0 += 2) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {  // k-step k0 + e into set e (past nk: columns past dh, zeros)
-      const int ka = 8 * (k0 + e) + t, kb = ka + 4;
-      const bool ca = ka < dh, cb = kb < dh;
-      uint32_t ab[4], as[4], bb[2], bs[2];
-      split<kOne>(ldg0(X1 + oa + ka, oka && ca), ab[0], as[0]);
-      split<kOne>(ldg0(X1 + ob + ka, okb && ca), ab[1], as[1]);
-      split<kOne>(ldg0(X1 + oa + kb, oka && cb), ab[2], as[2]);
-      split<kOne>(ldg0(X1 + ob + kb, okb && cb), ab[3], as[3]);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        split<kOne>(ldg0(Y1 + oy[j] + ka, oky[j] && ca), bb[0], bs[0]);
-        split<kOne>(ldg0(Y1 + oy[j] + kb, oky[j] && cb), bb[1], bs[1]);
-        mma_p<kOne>(c2[e][j], ab, as, bb, bs);
-      }
-      if (TWO) {
-        split<kOne>(ldg0(X2 + oa + ka, oka && ca), ab[0], as[0]);
-        split<kOne>(ldg0(X2 + ob + ka, okb && ca), ab[1], as[1]);
-        split<kOne>(ldg0(X2 + oa + kb, oka && cb), ab[2], as[2]);
-        split<kOne>(ldg0(X2 + ob + kb, okb && cb), ab[3], as[3]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          split<kOne>(ldg0(Y2 + oy[j] + ka, oky[j] && ca), bb[0], bs[0]);
-          split<kOne>(ldg0(Y2 + oy[j] + kb, oky[j] && cb), bb[1], bs[1]);
-          mma_p<kOne>(d2[e][j], ab, as, bb, bs);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      c[j][i] = c2[0][j][i] + c2[1][j][i];
-      if (TWO) d[j][i] = d2[0][j][i] + d2[1][j][i];
-    }
-}
 
 // acc[n] += A . Y over the warp's 16 rows: A the C fragments of a 16 x
 // NT*8 tile (k in pair order), Y a row-major shared (NT*8, LD) tile, from

@@ -17,13 +17,12 @@ takes the library of ``config.kernel_precision()`` and counts its launches
 under ``variant(name, precision)`` (``flash_attention@default``).
 
 Head dims: ``mm_attention.cu`` builds once more for its instances past
-dh 128 (``-DVOG_MM_DK=256``, the libraries ``mm_attention_dk256`` and
-``mm_attention_dk256@default``: the backward's DK 256 instances and the
-forward's cluster instances, ``csrc/cluster.cuh``), so that nvcc compiles
-its two sets of templates in parallel; ``attention.cu`` holds all of its
-instances (DK 64 and 128, the forward's DK 256 and wide path, the
-backward's cluster instances) in one library.  Head dims past 256 of the
-mm backward take the DK 128 instances' wide path (no third library).
+dh 128 (``-DVOG_MM_CLUSTER=1``, the libraries ``mm_attention_cluster`` and
+``mm_attention_cluster@default``: the forward's and the backward's cluster
+instances, ``csrc/cluster.cuh``), so that nvcc compiles its two sets of
+A = 1..8 templates in parallel (one library would take their sum, the
+longest build); ``attention.cu`` holds all of its instances (DK 64 and
+128, the cluster instances past 128) in one library.
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)
@@ -48,14 +47,14 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("gather.cu", "attention.cu", "mm_attention.cu", "grounding_head.cu")
 PRECISION_FLAGS = {"highest": (), "default": ("-DVOG_ONE_PASS=1",)}
-# the sources that build a second library for their DK 256 instance
-WIDE_SOURCES = ("mm_attention.cu",)
-WIDE_DK = 256
-# every library: (source, precision, dk: None or WIDE_DK); the gather (a
+# the sources that build a second library for their cluster instances
+CLUSTER_SOURCES = ("mm_attention.cu",)
+CLUSTER = "cluster"
+# every library: (source, precision, part: None or CLUSTER); the gather (a
 # byte copy) has no products
 LIBRARIES = (tuple((s, "highest", None) for s in SOURCES)
              + tuple((s, "default", None) for s in SOURCES if s != "gather.cu")
-             + tuple((s, p, WIDE_DK) for s in WIDE_SOURCES for p in PRECISION_FLAGS))
+             + tuple((s, p, CLUSTER) for s in CLUSTER_SOURCES for p in PRECISION_FLAGS))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -104,14 +103,14 @@ def variant(name: str, precision: str) -> str:
     return name if precision == "highest" else f"{name}@{precision}"
 
 
-def lib_stem(src: str, precision: str, dk=None) -> str:
+def lib_stem(src: str, precision: str, part=None) -> str:
     """The library's (and its build log's) name: ``attention``,
-    ``attention@default`` or ``mm_attention_dk256@default``."""
-    return variant(Path(src).stem + ("" if dk is None else f"_dk{dk}"), precision)
+    ``attention@default`` or ``mm_attention_cluster@default``."""
+    return variant(Path(src).stem + ("" if part is None else f"_{part}"), precision)
 
 
-def _flags(precision: str, dk) -> tuple:
-    return PRECISION_FLAGS[precision] + (() if dk is None else (f"-DVOG_MM_DK={dk}",))
+def _flags(precision: str, part) -> tuple:
+    return PRECISION_FLAGS[precision] + (() if part is None else ("-DVOG_MM_CLUSTER=1",))
 
 
 def build_dir() -> Path:
@@ -129,14 +128,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _lib_path(src: str, precision: str = "highest", dk=None) -> Path:
+def _lib_path(src: str, precision: str = "highest", part=None) -> Path:
     h = hashlib.sha256((CSRC / src).read_bytes())
-    h.update(" ".join(_flags(precision, dk)).encode())
+    h.update(" ".join(_flags(precision, part)).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
-    return build_dir() / f"{lib_stem(src, precision, dk)}-{digest}.so"
+    return build_dir() / f"{lib_stem(src, precision, part)}-{digest}.so"
 
 
 def build_all() -> float:
@@ -152,11 +151,11 @@ def build_all() -> float:
         nvcc = _nvcc()
         procs = []
         started = time.time()
-        for src, prec, dk in todo:
-            lib = _lib_path(src, prec, dk)
+        for src, prec, part in todo:
+            lib = _lib_path(src, prec, part)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, *_flags(prec, dk), "-o", str(tmp), str(CSRC / src)]
-            log = out / f"{lib_stem(src, prec, dk)}.log"
+            cmd = [nvcc, *NVCC_FLAGS, *_flags(prec, part), "-o", str(tmp), str(CSRC / src)]
+            log = out / f"{lib_stem(src, prec, part)}.log"
             with open(log, "w") as f:  # nvcc's output lands in the log as it runs
                 procs.append((log, lib, tmp, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
         failed = []
@@ -174,33 +173,33 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def library(src: str, precision: str = "highest", dk=None) -> ctypes.CDLL:
+def library(src: str, precision: str = "highest", part=None) -> ctypes.CDLL:
     """The loaded library of one source at ``precision`` (and, for a
-    source of ``WIDE_SOURCES``, its DK 256 instance when ``dk``), built on
-    first use."""
-    key = lib_stem(src, precision, dk)
+    source of ``CLUSTER_SOURCES``, its cluster instances when ``part``),
+    built on first use."""
+    key = lib_stem(src, precision, part)
     lib = _libs.get(key)
     if lib is None:
         build_all()
         with _lock:
             lib = _libs.get(key)
             if lib is None:
-                lib = ctypes.CDLL(str(_lib_path(src, precision, dk)))
+                lib = ctypes.CDLL(str(_lib_path(src, precision, part)))
                 _libs[key] = lib
     return lib
 
 
-def function(src: str, name: str, argtypes, precision: str = "highest", dk=None) -> object:
+def function(src: str, name: str, argtypes, precision: str = "highest", part=None) -> object:
     """The C entry point ``name`` of ``src``'s library at ``precision``,
     with its argument types declared and an int (cudaError_t) result.
     Every entry point takes the device ordinal of its tensors first (an
     int ahead of ``argtypes``): it launches under a guard that makes that
     device current on the calling thread (``csrc/device.cuh``), whichever
     thread calls it and whichever device is current there."""
-    key = (lib_stem(src, precision, dk), name)
+    key = (lib_stem(src, precision, part), name)
     fn = _fns.get(key)
     if fn is None:
-        fn = getattr(library(src, precision, dk), name)
+        fn = getattr(library(src, precision, part), name)
         fn.argtypes = [ctypes.c_int, *argtypes]
         fn.restype = ctypes.c_int
         _fns[key] = fn

@@ -11,22 +11,17 @@ that stream in by cp.async (the TPU kernel's whole-key-axis block does not
 fit 227 KB of shared memory at T=4000), and reads the bias from the head's
 (F, F) table in shared memory instead of the TPU kernel's one-hot matmul.
 Masked keys take the finite ``NEG`` so a row with every key masked stays
-finite.  The forward comes in three head-dim instances, 64, 128 and 256
-(``HEAD_DIMS``; a call pads dh up to the next one; at 256 a tile of rows
-has two blocks, each accumulating half of the output's columns); past 256
-the DK 128 instance's wide path takes any dh (``head_dim_instance``): its
-score products read their operands from device memory and a tile of rows
-has ceil(dh / 128) blocks, one a 128-column slice of the output
-(csrc/tiles.cuh).  The backward takes dh 64 and 128 as instances, and
-every dh past 128 on a thread block cluster (csrc/cluster.cuh,
-kernels/_cluster.py): ceil(dh / 128) blocks a tile of rows, each staging
+finite.  Forward and backward take dh 64 and 128 as instances
+(``HEAD_DIMS``; a call pads dh up to the next one), and every dh past 128
+on a thread block cluster (csrc/cluster.cuh, kernels/_cluster.py;
+``head_dim_instance``): ceil(dh / 128) blocks a tile of rows, each staging
 its 128 columns by TMA, the score partials summed once over the cluster;
 a dh that is not a multiple of 4 is padded with zero columns (TMA's
 16-byte rows), a tensor that does not start on 16 bytes copied, and the
-gradients sliced back.  The kernels take any frame
-count: the (F, F) table sits in shared memory up to 64 frames and is read
-from device memory past that (and on the wide and cluster paths), and
-the dq kernels sum the frame-bias gradient in tiles of 64 frames.
+output and gradients sliced back.  The kernels take any frame count: the
+(F, F) table sits in shared memory up to 64 frames and is read from device
+memory past that (and on the cluster path), and the dq kernels sum the
+frame-bias gradient in tiles of 64 frames.
 
 Backward: replaces §_flash_bwd in both of its modes, chosen per call
 (``bwd_mode``) or for the process (``VOG_FLASH_BWD``) as the TPU package
@@ -74,30 +69,28 @@ import torch
 
 from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
-from vog_tpu_torch.kernels._cluster import SLICE, cluster_plan, pad_cols
+from vog_tpu_torch.kernels._cluster import SLICE, cluster_args, cluster_plan
 
 NEG = -1e30
 NAME = "flash_attention"
 NAME_BWD = "flash_attention_bwd"  # recompute mode
 NAME_BWD_EMIT = "flash_attention_bwd_emit"
-# the forward's head-dim instances (csrc/tiles.cuh §HeadDim): a call pads
-# dh up to the next one, and past the widest (kMaxDh) takes the DK 128
-# instance's wide path, in WIDE_SLICE-column slices of the output (the
-# backward: 64 and 128, past 128 the cluster kernels, kernels/_cluster.py)
-HEAD_DIMS = (64, 128, 256)
-WIDE_SLICE = 128
-BWD_Q_ROWS = 64  # query rows a block of the dq kernel (kRows in csrc/attention.cu)
+# the kernels' head-dim instances (csrc/tiles.cuh §HeadDim): a call pads
+# dh up to the next one, and past the widest takes the cluster kernels
+# (kernels/_cluster.py), in SLICE-column blocks
+HEAD_DIMS = (64, 128)
+BWD_Q_ROWS = 64  # query rows a block of the dq kernels (kRows in csrc/attention.cu)
 
 
 def head_dim_instance(dh: int) -> Tuple[int, int]:
-    """(the forward's instance that takes a head dim of ``dh``, the column
-    slices a tile of rows has): the narrowest of ``HEAD_DIMS`` that holds
-    dh (slices: 2 at 256, else 1), or past the widest the DK 128 instance's
-    wide path with ceil(dh / 128) slices."""
+    """(the columns a block of the kernels that take a head dim of ``dh``
+    stages, the blocks a tile of rows has): the narrowest of ``HEAD_DIMS``
+    that holds dh and one block, or past the widest a 128-column slice a
+    block and ``cluster_plan``'s cluster (passes past 8 slices)."""
     for d in HEAD_DIMS:
         if dh <= d:
-            return d, max(1, d // WIDE_SLICE)
-    return WIDE_SLICE, -(-dh // WIDE_SLICE)
+            return d, 1
+    return SLICE, cluster_plan(dh).cluster
 
 
 def resolve_bwd_mode(mode: Optional[str]) -> str:
@@ -165,19 +158,23 @@ def _check_cuda(q, k, v, key_mask, frame_bias, frame_ids):
 
 
 def _flash_fwd_cuda(q, k, v, key_mask, frame_bias, frame_ids, prec):
-    """The forward kernel's launch (the op's CUDA implementation)."""
+    """The forward kernel's launch (the op's CUDA implementation): dh 64
+    and 128, past 128 the cluster kernel on q, k, v padded with zero
+    columns to a multiple of 4 and starting on 16 bytes (``pad_cols``), as
+    clusters of ``cluster_plan``'s size, its output sliced back."""
     Fn, fb_ptr, fid_ptr = _check_cuda(q, k, v, key_mask, frame_bias, frame_ids)
     B, H, T, dh = q.shape
-    o = torch.empty_like(q)
+    kd, n, (qk, kk, vk) = cluster_args(dh, q, k, v)  # past 128: cluster_plan's head dim and cluster
+    o = torch.empty_like(qk)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     P, I = _build.P, _build.I
-    fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, P], prec)
-    rc = fn(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), fb_ptr,
-            fid_ptr, o.data_ptr(), lse.data_ptr(), B, H, T, dh, Fn, 1.0 / math.sqrt(dh),
+    fn = _build.function("attention.cu", "vog_flash_fwd", [P] * 8 + [I] * 5 + [_build.F, I, P], prec)
+    rc = fn(q.device.index, qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), key_mask.data_ptr(), fb_ptr,
+            fid_ptr, o.data_ptr(), lse.data_ptr(), B, H, T, kd, Fn, 1.0 / math.sqrt(dh), n,
             _build.stream_ptr(q))
     _build.check(rc, NAME)
     _build.count(NAME, prec)
-    return o, lse
+    return (o if kd == dh else o[..., :dh].contiguous()), lse
 
 
 # the op ``vog::flash_attention_fwd`` (``_build.define_op``)
@@ -262,12 +259,7 @@ def flash_attention_bwd(q, k, v, key_mask, frame_bias, frame_ids, o, lse, do, bw
     _build.check(fn(dev.index, o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * T, dh,
                     _build.stream_ptr(q)), NAME_BWD)
     scale = 1.0 / math.sqrt(dh)
-    kd, n = dh, 1  # the kernels' head dim and cluster: past 128, cluster_plan's
-    qk, kk, vk, dok = q, k, v, do
-    if dh > SLICE:
-        plan = cluster_plan(dh)
-        kd, n = plan.dh_pad, plan.cluster
-        qk, kk, vk, dok = (pad_cols(t, kd) for t in (q, k, v, do))
+    kd, n, (qk, kk, vk, dok) = cluster_args(dh, q, k, v, do)  # past 128: cluster_plan's head dim and cluster
     dk, dv = torch.empty_like(kk), torch.empty_like(vk)
     if mode == "emit":
         ds_type = torch.float32 if prec == "highest" else torch.bfloat16

@@ -46,22 +46,20 @@ dk, dv and dcn (csrc/mm_attention.cu).
 Both modes compute the same function; on the CPU both run
 ``mm_attention_bwd_plain``.
 
-Shapes: the backward kernels come in two head-dim instances, 128 and 256
-(``HEAD_DIMS``, each its own library; a call pads dh up to the next one);
-past 256 the DK 128 library's wide path takes any dh (its score products'
-operands read from device memory, ceil(dh / 128) blocks a tile, one a
-128-column slice of the output: csrc/tiles.cuh).  The forward takes dh <=
-128 in the DK 128 library and every dh past 128 on a thread block
-cluster (the other library; csrc/cluster.cuh, kernels/_cluster.py): each
-block of a tile stages its 128 columns by TMA, the score partial summed
-once over the cluster; a dh that is not a multiple of 4 is padded with
-zero columns (TMA's 16-byte rows) and the output sliced back.  Both take
-any frame count (the (F, F) table in shared memory up to 64 frames, read
-from device memory past that; mm_bwd_dq sums the frame-bias gradient in
-tiles of 64 frames).  A launch takes at most 8 args (``KERNEL_ARGS``; the
-backward's wide path 4, ``kernel_args``; the cluster forward 7, 4 past dh
-1024, ``fwd_groups``); more run in groups (``arg_groups``: 9 -> 5 + 4), each
-group's launches counted under the kernel's name: the forward's outputs
+Shapes: every kernel takes dh <= 128 as the DK 128 instance (``HEAD_DIMS``;
+a call pads dh up to it) and every dh past 128 on a thread block cluster
+(mm_fwd_cl, mm_bwd_dkv_cl, mm_bwd_dq_cl, in the library built with
+-DVOG_MM_CLUSTER=1; csrc/cluster.cuh, kernels/_cluster.py): each block of a
+tile stages its 128 columns by TMA, each score partial summed once over the
+cluster; a dh that is not a multiple of 4 is padded with zero columns
+(TMA's 16-byte rows), a tensor that does not start on 16 bytes copied, and
+the output and gradients sliced back.  All take any frame count (the (F,
+F) table in shared memory up to 64 frames, read from device memory past
+that and on the cluster path; the dq kernels sum the frame-bias gradient in
+tiles of 64 frames).  A launch takes at most 8 args (``KERNEL_ARGS``; past
+dh 128 ``cluster_plan``'s: the forward 7, 4 past dh 1024, the backward 8;
+``fwd_groups``, ``bwd_groups``); more run in groups (``arg_groups``:
+9 -> 5 + 4), each group's launches counted under the kernel's name: the forward's outputs
 are concatenated over A (each arg depends on the shared scores and its
 own cn_a alone), and the groups' gradients added up in group order
 (``sum_arg_groups``).  ``mm_shared_qk_attention`` is a
@@ -88,45 +86,32 @@ import torch
 
 from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
-from vog_tpu_torch.kernels._cluster import arg_groups, cluster_plan, pad_cols
+from vog_tpu_torch.kernels._cluster import SLICE, arg_groups, cluster_args, cluster_plan
 
 NEG = -1e30
 NAME = "mm_shared_qk_attention"
 NAME_BWD = "mm_shared_qk_attention_bwd"  # emit mode
 NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
 KERNEL_ARGS = 8  # args a launch takes (template cases 1..8 in csrc/mm_attention.cu)
-WIDE_KERNEL_ARGS = 4  # ... the backward's wide path, past dh 256 (kWideArgs: its A cases 1..4)
-# the backward kernels' head-dim instances, each its own library (the one
-# of 256 is built with -DVOG_MM_DK=256): a call pads dh up to the next
-# one, and past 256 takes the DK 128 library's wide path.  The forward
-# takes dh <= 128 in the DK 128 library and every dh past 128 as the
-# cluster instance (kernels/_cluster.py) of the other.
-HEAD_DIMS = (128, 256)
-# query rows a block of mm_bwd_dq owns, by instance (kDqRows in csrc/mm_attention.cu)
-DQ_ROWS = {128: 64, 256: 32}
+# the kernels' head-dim instance (its own library): a call pads dh up to
+# it, and past it takes the cluster instances (kernels/_cluster.py) of the
+# other library (built with -DVOG_MM_CLUSTER=1)
+HEAD_DIMS = (128,)
+DQ_ROWS = 64  # query rows a block of the dq kernels owns (kDqRows, kClDqRows in csrc/mm_attention.cu)
 
 
-def head_dim_instance(dh: int) -> int:
-    """The backward kernels' instance that takes a head dim of ``dh``: the
-    narrowest of ``HEAD_DIMS`` that holds it, or past the widest the DK
-    128 instance, whose wide path takes any dh."""
-    for d in HEAD_DIMS:
-        if dh <= d:
-            return d
-    return HEAD_DIMS[0]
+def head_dim_instance(dh: int) -> Tuple[int, int]:
+    """(the columns a block of the kernels that take a head dim of ``dh``
+    stages, the blocks a tile of rows has): 128 and one block, or past 128
+    a 128-column slice a block and ``cluster_plan``'s cluster."""
+    return (HEAD_DIMS[0], 1) if dh <= HEAD_DIMS[0] else (SLICE, cluster_plan(dh).cluster)
 
 
-def _library_dk(dh: int):
-    """``_build.function``'s ``dk`` of the backward's instance of ``dh``:
-    None for the default library (128), else 256 (``_build.WIDE_DK``)."""
-    return None if head_dim_instance(dh) == HEAD_DIMS[0] else _build.WIDE_DK
-
-
-def kernel_args(dh: int) -> int:
-    """The args a launch of the backward takes at head dim ``dh``:
-    KERNEL_ARGS, or past 256 (the wide path) WIDE_KERNEL_ARGS.  The
-    forward's are ``fwd_groups``."""
-    return KERNEL_ARGS if dh <= HEAD_DIMS[-1] else WIDE_KERNEL_ARGS
+def _part(dh: int):
+    """``_build.function``'s ``part`` of the library that takes a head dim
+    of ``dh``: None (the DK 128 instances), or past 128 the cluster
+    instances' (``_build.CLUSTER``)."""
+    return None if dh <= HEAD_DIMS[0] else _build.CLUSTER
 
 
 def fwd_groups(A: int, dh: int):
@@ -134,6 +119,12 @@ def fwd_groups(A: int, dh: int):
     KERNEL_ARGS, past dh 128 the cluster plan's (7 args a launch, 4 past
     dh 1024: kernels/_cluster.py)."""
     return list(cluster_plan(dh, A).groups) if dh > HEAD_DIMS[0] else arg_groups(A, KERNEL_ARGS)
+
+
+def bwd_groups(A: int, dh: int):
+    """The backward's launches, [(a0, a1), ...]: ``arg_groups`` of
+    KERNEL_ARGS, past dh 128 the cluster plan's (8 args a launch)."""
+    return list(cluster_plan(dh, A).bwd_groups) if dh > HEAD_DIMS[0] else arg_groups(A, KERNEL_ARGS)
 
 
 def _args(t: torch.Tensor, a0: int, a1: int) -> torch.Tensor:
@@ -170,7 +161,7 @@ def bwd_by_groups(bwd, qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mro
     """``bwd`` (a kernel's launches, or the plain version) once for each
     of ``arg_groups``, on its args of cn, out, the row max, the denominator
     and g, -> the groups' gradients added up by ``sum_arg_groups``."""
-    groups = arg_groups(cn.shape[2], kernel_args(qm.shape[-1]))
+    groups = bwd_groups(cn.shape[2], qm.shape[-1])
     if len(groups) == 1:
         return bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g, *rest)
     return sum_arg_groups([
@@ -213,7 +204,6 @@ def _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
     B, H, T, dh = qm.shape
     A = cn.shape[2]
     Fn = frame_bias.shape[-1]
-    head_dim_instance(dh)
     if A < 1:
         raise ValueError(f"{NAME}: no args (A={A})")
     for name, t in (("qm", qm), ("km", km), ("vm", vm)):
@@ -246,18 +236,12 @@ def _mm_fwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
     B, H, T, dh = qm.shape
     A = cn.shape[2]
     Fn = frame_bias.shape[-1]
-    wide = dh > HEAD_DIMS[0]
-    dk, n = dh, 1  # the kernel's head dim and cluster: past 128, cluster_plan's
-    if wide:
-        plan = cluster_plan(dh)
-        dk, n = plan.dh_pad, plan.cluster
-        qm, km, vm = (pad_cols(t, dk) for t in (qm, km, vm))
+    dk, n, (qm, km, vm) = cluster_args(dh, qm, km, vm)  # past 128: cluster_plan's head dim and cluster
     out = torch.empty((B, H, A, T, dk), dtype=torch.float32, device=dev)
     mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 7 + [P], prec,
-                         _build.WIDE_DK if wide else None)
+    fn = _build.function("mm_attention.cu", "vog_mm_fwd", [P] * 10 + [I] * 7 + [P], prec, _part(dh))
     rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
             key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(),
             out.data_ptr(), mrow.data_ptr(), den.data_ptr(),
@@ -358,8 +342,11 @@ def mm_attention_bwd(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow,
 
 
 def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g, mode, prec):
-    """The backward kernels of ``mode`` for one group of at most
-    KERNEL_ARGS args -> (dq, dk, dv, dcn, dfb)."""
+    """The backward kernels of ``mode`` for one group of args (at most
+    KERNEL_ARGS; past dh 128 the cluster instances, ``cluster_plan``'s
+    groups, on qm, km, vm, out and g padded with zero columns to a
+    multiple of 4 and starting on 16 bytes, as clusters of the plan's
+    size, the gradients sliced back) -> (dq, dk, dv, dcn, dfb)."""
     dev = qm.device
     B, H, T, dh = qm.shape
     A = cn.shape[2]
@@ -370,6 +357,7 @@ def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, d
     for name, t in (("mrow", mrow), ("den", den)):
         _build.require(t, name, torch.float32, 4, dev)
     _build.require(out, "out", torch.float32, 5, dev)
+    kd, n, (qm, km, vm, out, g) = cluster_args(dh, qm, km, vm, out, g)  # past 128: cluster_plan's
     delta = torch.empty_like(cn)  # (B,H,A,T) rowsum(g * out), written by the kernel
     dk, dv = torch.empty_like(km), torch.empty_like(vm)
     dcn = torch.empty_like(cn)
@@ -380,20 +368,22 @@ def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, d
     else:  # no (T, T) buffer: dq and the frame-bias partials from mm_bwd_dq
         comb = None
         dq = torch.empty_like(qm)
-        rows = DQ_ROWS[head_dim_instance(dh)]
-        part = torch.empty((B, H, -(-T // rows), Fn, Fn), dtype=torch.float32, device=dev)
+        part = torch.empty((B, H, -(-T // DQ_ROWS), Fn, Fn), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     P, I = _build.P, _build.I
-    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 6 + [P], prec, _library_dk(dh))
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd", [P] * 18 + [I] * 7 + [P], prec, _part(dh))
     rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(),
             key_mask.data_ptr(), frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(),
             mrow.data_ptr(), den.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dcn.data_ptr(), ptr(comb), ptr(dq), ptr(part), B, H, A, T, dh, Fn,
+            dcn.data_ptr(), ptr(comb), ptr(dq), ptr(part), B, H, A, T, kd, Fn, n,
             _build.stream_ptr(qm))
+    if kd != dh:
+        dk, dv = dk[..., :dh].contiguous(), dv[..., :dh].contiguous()
+        dq = None if dq is None else dq[..., :dh].contiguous()
     if mode == "emit":
         _build.check(rc, NAME_BWD)
         _build.count(NAME_BWD, prec)
-        dq, dfb = _dq_dfb(comb, km, frame_ids, Fn, H)
+        dq, dfb = _dq_dfb(comb, km[..., :dh], frame_ids, Fn, H)
     else:
         _build.check(rc, NAME_BWD_RECOMPUTE)
         _build.count(NAME_BWD_RECOMPUTE, prec)

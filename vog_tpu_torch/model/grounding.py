@@ -186,7 +186,7 @@ def check_kernel_shapes(cfg) -> None:
     the first forward of a model built on the card (the port's wrappers
     launch their kernel or raise; the JAX package falls back to XLA):
     the attention kernels take any whole head dim of at least 1 (instances
-    64 / 128 / 256, past 256 the DK 128 instance's wide path), any frame
+    64 / 128, past 128 the cluster kernels, kernels/_cluster.py), any frame
     count and any arg count (launches of at most 8 args); the fused head
     any D and Dh (zero-padded to multiples of 32 and 16, past 512 and 256
     its wide path) and any arg count (launches of at most 5).  Raises
