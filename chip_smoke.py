@@ -514,6 +514,8 @@ def phase_card():
 
 
 PTXAS: dict = {}  # library stem -> {kernel function: (registers, spill store bytes)}
+# the head backward's narrow kernels (csrc/grounding_head.cu): gated on spills as the cluster instances
+WGMMA_BWD_INSTANCES = ("head_bwd_rows_wg", "head_bwd_w_wg", "head_bwd_prep", "head_bwd_finish")
 
 
 def phase_build():
@@ -548,6 +550,14 @@ def phase_build():
           f"registers, spill stores {sum(v[1] for v in cl.values())} bytes", flush=True)
     if not cl or spilled:
         fail(f"[build] the cluster instances must build and spill nothing: {len(cl)} built, spills {spilled}")
+    wg = {(stem, fn): v for stem, fns in PTXAS.items() for fn, v in fns.items()
+          if any(k in fn for k in WGMMA_BWD_INSTANCES)}
+    print("[build] the head backward's narrow (wgmma) instances: "
+          + ", ".join(f"{stem} {fn[:fn.index('E')] if 'E' in fn else fn} {r} registers, {st} bytes spilled"
+                      for (stem, fn), (r, st) in wg.items()), flush=True)
+    built = {(stem, k) for stem, fn in wg for k in WGMMA_BWD_INSTANCES if k in fn}
+    if len(built) != 2 * len(WGMMA_BWD_INSTANCES) or any(v[1] for v in wg.values()):
+        fail(f"[build] the head backward's narrow instances must build at both precisions and spill nothing: {wg}")
 
 
 def cluster_info(family: str, dh: int, prec: str, A: int = 5, F: int = 1, part: str = "bwd") -> dict:
@@ -1893,7 +1903,7 @@ KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_k",), "flash_attention": ("flash_
                   "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
                   "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"),
                   "mm_shared_qk_attention_bwd": ("mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq"),
-                  "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w")}
+                  "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w", "head_bwd_prep", "head_bwd_finish")}
 
 
 def device_time_by_kernel(prof, reps: int, by_symbol=None):
@@ -2068,12 +2078,46 @@ def profiled_busy(fn, reps: int, split=None) -> tuple:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_kernel, other = device_time_by_kernel(prof, reps)
+    by_symbol = {}
+    by_kernel, other = device_time_by_kernel(prof, reps, by_symbol)
     if split is not None:
-        split.update(ours=by_kernel, other=other)
+        split.update(ours=by_kernel, other=other, by_symbol=by_symbol)
     ksum = sum(by_kernel.values()) + sum(other.values())
     busy = device_busy_ms(prof, reps, ksum)
     return (busy if busy > 0 else None), ksum
+
+
+def dispatch_by_symbol(tables, dispatches: int = 3) -> dict:
+    """The production recipe's graphed dispatch (``prod_cfg``, K=16) on
+    ``tables``: ``dispatches`` dispatches (the first captures), then one
+    under torch.profiler -> device ms a step by kernel symbol (ours) and
+    the busy ms a step ("busy") and the other ops' sum ("other")."""
+    import torch
+
+    from vog_tpu_torch.config import apply_matmul_precision
+    from vog_tpu_torch.data.ann_store import AnnTables
+    from vog_tpu_torch.model.grounding import get_model
+    from vog_tpu_torch.train import TrainState, dispatch_sizes, make_multi_train_step
+
+    cfg = prod_cfg()
+    K, _ = dispatch_sizes(cfg)
+    try:
+        anns, vids = random_ann_arrays(cfg, N_ANNS, tables.n_rows, seed=21)
+        all_tables = {**tables.tables, **AnnTables.from_arrays(cfg, anns, vids, device="cuda").tables}
+        batches = make_index_batches(cfg, K * (dispatches + 1), cfg.train.bs, N_ANNS, tables.n_rows, seed=24)
+        state = TrainState.create(cfg, get_model(cfg, 5000, device="cuda", seed=3, train=True))
+        multi = make_multi_train_step(cfg)
+        for i in range(dispatches):
+            multi(state, stack_batches(batches[i * K:(i + 1) * K]), 0, all_tables)[1]["loss"].cpu()
+        split = {}
+        nxt = stack_batches(batches[dispatches * K:])
+        busy, _ = profiled_busy(lambda: multi(state, nxt, 0, all_tables)[1]["loss"].cpu(), K, split)
+        out = dict(split["by_symbol"], busy=busy, other=sum(split["other"].values()))
+        print("[bwd split] the production dispatch (K=16, graphed), device ms a step: "
+              + ", ".join(f"{k}={v:.4f}" for k, v in out.items() if v is not None), flush=True)
+        return out
+    finally:
+        apply_matmul_precision(serve_cfg())
 
 
 def phase_dispatch(tables, card: str) -> dict:
@@ -2587,6 +2631,9 @@ def phase_dispatch_prod(tables, card: str, fp32: dict) -> tuple:
               + ", ".join(f"{k}={v:.3f}" for k, v in split["ours"].items())
               + f"; other {readings['other_device_ms']:.3f} ms in {len(split['other'])} ops: "
               + "; ".join(f"{k[:40]}={v:.3f}" for k, v in top), flush=True)
+        readings["kernels_by_symbol_ms"] = split["by_symbol"]
+        print("[dispatch gt5 prod] (3) device ms a step by kernel symbol: "
+              + ", ".join(f"{k}={v:.4f}" for k, v in split["by_symbol"].items()), flush=True)
         del graph, eager
         gc.collect()
         torch.cuda.empty_cache()
@@ -4814,19 +4861,22 @@ def wide_kernel_rows(cfg) -> tuple:
     return rows, dict(tagger_flash=tagger, flash_bwd_by_kernel=probe, mm_bwd_by_kernel=mm_probe)
 
 
-def bwd_by_kernel(fn, reps: int, inner: int) -> dict:
+def bwd_by_kernel(fn, reps: int, inner: int, issue: bool = False) -> dict:
     """A backward wrapper's device ms a call (``time_ms``) and its kernels'
     (``flash_bwd_delta``, ``flash_bwd_dkv``, ``flash_bwd_dq``, or the mm
     backward's ``mm_bwd_*``; the cluster instances under the same names,
     and the wrapper's other device ops)
     from a torch.profiler run of ``reps`` calls, taken again (up to three
     runs) while the trace holds no device time; ``by_kernel`` is empty
-    when none held any."""
+    when none held any.  Also ``other`` (the other device ops by name, ms
+    a call), ``busy_ms`` (the union of the trace's device intervals a
+    call: kernels on two streams at once count once) and, with ``issue``,
+    ``issue_ms`` (``time_ms`` with the host's issue)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     ms = time_ms(fn, reps, inner)
-    by_symbol = {}
+    by_symbol, other, busy = {}, {}, None
     for _ in range(3):  # a profiler run can come back without device events (seen after earlier ones)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -4836,8 +4886,100 @@ def bwd_by_kernel(fn, reps: int, inner: int) -> dict:
         _, other = device_time_by_kernel(prof, reps, by_symbol)
         if by_symbol:
             by_symbol["other ops"] = sum(other.values())  # the wrapper's padding, delta's reduction, ...
+            busy = device_busy_ms(prof, reps, sum(by_symbol.values()))
             break
-    return dict(ms=ms, by_kernel=by_symbol)
+    out = dict(ms=ms, by_kernel=by_symbol, other={k[:60]: v for k, v in other.items()}, busy_ms=busy)
+    if issue:
+        out["issue_ms"] = time_ms(fn, reps, inner, queued=False)
+    return out
+
+
+def head_inputs(B: int, A: int, T: int, D: int, Dh: int, seed: int = 4) -> tuple:
+    """The head's nine operands and a cotangent on the card, made from
+    ``seed`` as phase_kernels_default makes them (vis and arg past a ReLU,
+    the stems from random projections)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    vis = torch.relu(torch.randn((B, T, D), generator=g, device=dev))
+    arg = torch.relu(torch.randn((B, A, D), generator=g, device=dev))
+    wx = torch.randn((D, D), generator=g, device=dev) / D**0.5
+    w1 = torch.randn((D, Dh), generator=g, device=dev) / D**0.5
+    b1 = torch.randn((Dh,), generator=g, device=dev) * 0.1
+    w2 = torch.randn((Dh,), generator=g, device=dev) / Dh**0.5
+    b2 = torch.randn((1,), generator=g, device=dev)
+    wv = vis @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+    wl = arg @ (torch.randn((D, D), generator=g, device=dev) / D**0.5)
+    gh = torch.randn((B, A, T), generator=g, device=dev)
+    return (vis, arg, wv, wl, wx, w1, b1, w2, b2), gh
+
+
+def mm_inputs(B: int, H: int, T: int, dh: int, A: int, F: int, seed: int = 4) -> tuple:
+    """The mm attention's operands (qm, k, v, cn, mask, fb, fid: the SPAT
+    frame ids of ``F`` frames), its plain forward's outputs at "highest"
+    and a cotangent (B, H, A, T, dh) on the card, made from ``seed``."""
+    import torch
+
+    from vog_tpu_torch.kernels import mm_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    qm = torch.randn((B, H, T, dh), generator=g, device=dev) * dh**-0.5
+    k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(2))
+    mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
+    mask[:, 0] = 1.0
+    fid = (torch.arange(T, device=dev) // (T // F)).to(torch.int32)
+    fb = torch.randn((H, F, F), generator=g, device=dev) * 0.5
+    cn = -3.0 * torch.rand((B, H, A, T), generator=g, device=dev)
+    gm = torch.randn((B, H, A, T, dh), generator=g, device=dev)
+    with tf32(False):
+        fwd = mm_attention.mm_attention_plain(qm, k, v, cn, mask, fb, fid)
+    return (qm, k, v, cn, mask, fb, fid), fwd, gm
+
+
+def phase_bwd_split(card: str) -> dict:
+    """[bwd split]: the production recipe's two costliest kernels by the
+    Learner's launches, at "default", split by kernel (``bwd_by_kernel``:
+    device ms and with issue, each kernel's device ms from a torch.profiler
+    run, the other device ops by name, the union of the device intervals)
+    at GT5 (B=16) and P100 (B=2): the head backward (its row and weight
+    kernels; with two streams the union is below their sum) and the mm
+    backward in emit mode (mm_bwd_delta, mm_bwd_dkv, then the widening of
+    comb and the two cuBLAS products, dq and dfb, among the other ops).
+    -> {regime: {kernel: split}}."""
+    import torch
+
+    from vog_tpu_torch.kernels import grounding_head, mm_attention
+
+    out = {}
+    for tag, B in (("gt5", 16), ("p100", 2)):
+        cfg = serve_cfg(tag)
+        reps, inner = TIMING[tag]
+        V, F, P, A = cfg.ds.num_cmp, cfg.ds.num_frms, cfg.ds.num_prop_per_frm, cfg.ds.max_srl_args
+        D, H = cfg.mdl.vis_dim, cfg.mdl.n_heads
+        T = F * V * P
+        args, gh = head_inputs(B, A, T, D, D // 2)
+        with tf32(True):
+            head = bwd_by_kernel(lambda: grounding_head.grounding_head_bwd(*args, gh, precision="default"),
+                                 reps, inner, issue=True)
+        del args, gh
+        ops, fwd, gm = mm_inputs(B, H, T, D // H, A, F)
+        with tf32(True):
+            mm = bwd_by_kernel(lambda: mm_attention.mm_attention_bwd(*ops, *fwd, gm, bwd_mode="emit",
+                                                                     precision="default"), reps, inner, issue=True)
+        del ops, fwd, gm
+        torch.cuda.empty_cache()
+        out[tag] = {"fused_grounding_head_bwd@default": head, "mm_shared_qk_attention_bwd@default": mm}
+        for name, b in out[tag].items():
+            top = sorted(b["other"].items(), key=lambda kv: -kv[1])[:6]
+            busy = "not measured" if b["busy_ms"] is None else f"{b['busy_ms']:.4f}"
+            print(f"[bwd split] {tag} B={B} {name}: device {fmt_by_kernel(b)}, w/ issue {b['issue_ms']:.4f} ms, "
+                  f"busy (union) {busy} ms; other ops: " + "; ".join(f"{k} {v:.4f}" for k, v in top)
+                  + f" ({card})", flush=True)
+    return out
 
 
 def fmt_by_kernel(b: dict) -> str:
@@ -5266,6 +5408,15 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                  "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--bwd-split" in sys.argv[1:]:  # [bwd split] alone, and the production dispatch's kernels by symbol
+        split = phase_bwd_split(card)
+        rows = 2000
+        tables = DeviceFeatureTables.random(serve_cfg(), rows, seed=0, half=True, device="cuda")
+        print(json.dumps({"bwd_split": split, "dispatch_by_symbol": dispatch_by_symbol(tables), "card": card}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if "--wide" in sys.argv[1:]:  # [wide shapes] alone
         wide_rows, wide = run_wide(card)
         print(json.dumps({"kernels": wide_rows, "wide": wide, "card": card}), flush=True)
@@ -5288,6 +5439,7 @@ def main() -> int:
     rows_gt5 += phase_kernels_bwd(cfg)
     phase_threads(cfg)
     rows_def_gt5 = phase_kernels_default(cfg)
+    bwd_split = phase_bwd_split(card)
     train_counts_gt5, train_gt5 = phase_train(tables, card)
     dispatch_gt5 = phase_dispatch(tables, card)
     serve_prod_counts, serve_prod = phase_serve_prod(tables, card, serve_gt5)
@@ -5378,6 +5530,8 @@ def main() -> int:
         r["gt5"]["learner_launches"] = learner["launches"].get(r["name"], 0)
         # [dist gt5 prod] (a): rank 0's graphed dispatch in the nccl world, counted from 0 just before it
         r["gt5"]["dist_nccl_launches"] = dist["nccl"]["counts"].get(r["name"], 0)
+        if r["name"] in bwd_split["p100"]:  # [bwd split]: the two costliest backwards by kernel
+            r["split"], r["gt5"]["split"] = bwd_split["p100"][r["name"]], bwd_split["gt5"][r["name"]]
     for r in rows:  # [dist gt5 prod] (b): rank 0's eager steps in the gloo world (fp32)
         r["gt5"]["dist_gloo_launches"] = dist["gloo"]["counts"].get(r["name"], 0)
         # [model axis gt5 prod] (b): rank 0's eager TP steps at 2 heads a rank, counted from 0 just before them

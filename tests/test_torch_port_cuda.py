@@ -376,6 +376,55 @@ def test_head_bwd_kernel(dev, B, T, A, D):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # partials summed in a fixed order
 
 
+# the narrow backward's tiling edges: items of 64 tokens of one (b, a), so
+# B * T and T not multiples of 64 (T 37, 65, 129), A = 1 and A = 8 (two
+# launches of 4), D not a multiple of 64 (96, 160: a chunk half past D),
+# at both precisions (the "default" variant given its own ReLU decisions)
+@pytest.mark.parametrize("B,T,A,D", [(3, 37, 1, 64), (2, 65, 8, 128), (1, 129, 5, 512), (5, 13, 2, 96),
+                                     (2, 64, 3, 160)])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_head_bwd_narrow_tiling_edges(dev, B, T, A, D, precision):
+    from chip_smoke import away_from_kinks, head_bwd_given
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.grounding_head import arg_groups, grounding_head_bwd, grounding_head_bwd_plain
+
+    args, g = _head_inputs(dev, B, T, A, D)
+    go, share = away_from_kinks(*args[:7], torch.randn((B, A, T), generator=g, device=dev))
+    assert share < 0.05
+    _build.reset_counts()
+    scratch = {} if A <= 5 else None
+    got = grounding_head_bwd(*args, go, precision=precision, scratch=scratch)
+    torch.cuda.synchronize()
+    assert _build.launches == {_build.variant("fused_grounding_head_bwd", precision): len(arg_groups(A))}
+    if precision == "highest":
+        for a, b in zip(got, grounding_head_bwd_plain(*args, go)):
+            _close(a, b)
+    elif scratch is not None:
+        ref, _ = head_bwd_given(args, go, scratch["h"], scratch["dz1"])
+        for a, b in zip(got, ref):
+            _close_default(a, b.to(a.dtype), False)
+    again = grounding_head_bwd(*args, go, precision=precision)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed-order partials, no atomics
+
+
+@pytest.mark.parametrize("D,Dh", [(512, 256), (96, 48), (32, 16), (160, 208)])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_head_bwd_stream_matches_plain(dev, D, Dh, precision):
+    """head_bwd_prep's weight streams (the forward's, then dh's and
+    dcross's), bitwise against their plain versions."""
+    from vog_tpu_torch.kernels import _build
+    from vog_tpu_torch.kernels.grounding_head import bwd_stream_plain, fwd_stream_plain
+
+    wx, w1 = torch.randn((D, D), device=dev), torch.randn((D, Dh), device=dev)
+    ref = torch.cat([fwd_stream_plain(wx, w1, precision, natural=True), bwd_stream_plain(wx, w1, precision)])
+    got = torch.full_like(ref, float("nan"))
+    fn = _build.function("grounding_head.cu", "vog_head_bwd_prep", [_build.P] * 3 + [_build.I] * 2 + [_build.P],
+                         precision)
+    assert fn(wx.device.index, wx.data_ptr(), w1.data_ptr(), got.data_ptr(), D, Dh, _build.stream_ptr(wx)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
 def _autograd_pair(fn, plain, args, diff):
     """Gradients of sum(out * w) through ``fn`` and through ``plain``."""
     outs = []
@@ -633,8 +682,11 @@ def test_graph_multi_eval_bitwise(dev):
 
 
 def test_graph_step_with_head_side_stream(dev):
-    """B = 16 at T = 200: the head backward's row kernel takes more than one
-    wave, so it forks its second stream (grounding_head.cu §launch_bwd)."""
+    """B = 16 at T = 200: more row blocks than one wave of the SMs (the
+    wide path's row kernel forks its second stream there,
+    grounding_head.cu §launch_bwd; the narrow path's persistent row kernel
+    walks them), and the captured step's gradients are bitwise the eager
+    step's."""
     from chip_smoke import make_index_batches
     from vog_tpu_torch.train import make_multi_train_step, make_train_step
 

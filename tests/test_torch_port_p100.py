@@ -14,8 +14,10 @@ package on the CPU, and the repairs that came with it:
     argument and ``VOG_FLASH_BWD`` / ``VOG_MM_BWD`` value, a bad one
     included;
   * ``apply_matmul_precision``: ``get_model`` alone turns both TF32
-    switches off at "highest" and on at "default", and any other
-    precision raises;
+    switches off at "highest" and "float32" and on at "default", "high",
+    "tensorfloat32" and "bfloat16" (JAX's six names), and a name JAX
+    refuses raises; the model at "high" against the JAX package's at
+    "high";
   * the fused head at A = 6 and 8 (two kernel launches of 3 or 4 args on
     the card) against the JAX package's head kernel in interpret mode,
     forward and all 9 gradients (atol 5e-4, rtol 1e-3: the JAX package's
@@ -178,11 +180,46 @@ def test_get_model_applies_matmul_precision(monkeypatch):
     get_model(pcfg, 50, device="cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is True
     assert torch.backends.cudnn.allow_tf32 is True
-    pcfg.misc.matmul_precision = "high"
+    for name, on in (("high", True), ("float32", False), ("tensorfloat32", True), ("highest", False),
+                     ("bfloat16", True)):  # JAX's other names, each on its path, from either state
+        pcfg.misc.matmul_precision = name
+        get_model(pcfg, 50, device="cpu")
+        assert torch.backends.cuda.matmul.allow_tf32 is on, name
+        assert torch.backends.cudnn.allow_tf32 is on, name
+    pcfg.misc.matmul_precision = "fastest"  # a name jax_default_matmul_precision refuses too
     with pytest.raises(ValueError, match="misc.matmul_precision"):
         apply_matmul_precision(pcfg)
     with pytest.raises(ValueError, match="misc.matmul_precision"):
         get_model(pcfg, 50, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is True  # a refused name leaves the switches as they were
+
+
+def test_model_at_high_matches_jax_at_high(monkeypatch):
+    """The port's model built at ``misc.matmul_precision="high"`` against
+    the JAX package's under ``jax_default_matmul_precision="high"`` (its
+    kernels in interpret mode, as they run on the CPU), the fused head and
+    the decomposed mm layer on: the logits within the fp32 bound of
+    tests/test_torch_port_model.py.  Neither side runs TF32 on the CPU."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = _cfg(tiny=True)
+    cfg.mdl.dropout = 0.0
+    cfg.mdl.name, cfg.mdl.head_type, cfg.mdl.decomposed_mm = "vog", "fused", True
+    cfg.misc.matmul_precision = "high"
+    pcfg = port_cfg(cfg)
+    B = 2
+    with jax.default_matmul_precision("high"):
+        state = jstate.init_state(cfg, _glove(cfg, 400), jax.random.PRNGKey(0), B)
+        batch = _random_batch(cfg, B, seed=3)
+        ref = np.asarray(state.apply_fn(
+            {"params": state.params}, jassemble({k: jnp.asarray(v) for k, v in batch.items()}, cfg.ds.conc_type),
+            deterministic=True))
+    model = get_model(pcfg, 400, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is True  # "high" took the "default" path
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, state.params), pcfg), strict=True)
+    with torch.no_grad():
+        got = model(assemble_batch({k: torch.from_numpy(v) for k, v in batch.items()}, pcfg.ds.conc_type))
+    close(got.numpy(), ref)
 
 
 @pytest.mark.parametrize("A", [6, 8])

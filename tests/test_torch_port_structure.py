@@ -391,20 +391,42 @@ def test_backward_modes_not_default_have_kernels_of_their_own():
 
 
 def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
-    """The head's weight-gradient kernel streams its row stages by 16-byte
-    cp.async into a ring (one barrier a stage) and multiplies in 3xTF32 (one
-    TF32 pass in the "default" library);
-    one launch covers dWx and dW1 for its rows (a call launches it once
-    after each of the row kernel's two parts), and at GT5 (D=512, Dh=256)
-    its grid puts at least two blocks on each of the H100's 132 SMs.  The
-    row kernel streams its weights by cp.async into per-warp rings, in its
-    narrow path and in its wide one (W: past D 512 or Dh 256), each the
+    """The head's weight-gradient kernels form dWx and dW1 in one launch
+    for their rows.  The narrow path (up to D 512 and Dh 256): a row kernel
+    and a weight kernel on wgmma, their stages streamed by bulk copies on
+    mbarriers from producer warps (the weight kernel's rows from the row
+    kernel's transposed cross and h), launched once each a call with the
+    weight streams' prologue and the kernel that adds up the parts; at GT5
+    (D=512, Dh=256) the weight kernel's grid puts a block on each of the
+    H100's 132 SMs.  The wide path (W: past D 512 or Dh 256) keeps its
+    weight kernel streaming row stages by 16-byte cp.async into a ring (one
+    barrier a stage) in 3xTF32 (one TF32 pass in the "default" library),
+    launched once after each of the row kernel's two parts, and its row
+    kernel streaming its weights by cp.async into per-warp rings for the
     four products."""
-    from vog_tpu_torch.kernels.grounding_head import W_CHUNKS
+    from vog_tpu_torch.kernels.grounding_head import W_CHUNKS, narrow_chunks
 
     text = (PKG / "csrc" / "grounding_head.cu").read_text()
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["head_bwd_rows", "head_bwd_w", "head_fwd", "head_fwd_prep"]
+    assert sorted(bodies) == ["head_bwd_finish", "head_bwd_prep", "head_bwd_rows", "head_bwd_rows_wg", "head_bwd_w",
+                              "head_bwd_w_wg", "head_fwd", "head_fwd_prep"]
+    # the narrow path
+    for name in ("head_bwd_rows_wg", "head_bwd_w_wg"):
+        body = bodies[name]
+        assert "mbar_wait(" in body and "wg_fence();" in body and "wg_commit();" in body, name
+        assert "atomicAdd(" not in body, name
+    assert "cp_async16(" not in bodies["head_bwd_w_wg"]  # its stages by bulk copies only
+    rows, wk = bodies["head_bwd_rows_wg"], bodies["head_bwd_w_wg"]
+    assert "bulk_load(" in rows and "mbar_arrive(empty" in rows and "wgmma_n64_ss(" in rows
+    assert "wgmma_n256(acc2," in rows and "wgmma_n64(acc, a4, db);" in rows
+    assert "bulk_copy(" in wk and "mbar_expect(" in wk and "mbar_arrive(empty" in wk and "wgmma_n256(acc," in wk
+    launch = text[text.index("int launch_bwd_wg("):]
+    launch = launch[: launch.index("\n}\n")]
+    for k in ("head_bwd_prep<<<", "head_bwd_rows_wg<<<", "head_bwd_w_wg<<<", "head_bwd_finish<<<"):
+        assert launch.count(k) == 1, k
+    chunks, _ = narrow_chunks(16 * 5 * 200, 512, 256, 132)
+    assert ((512 // 128 + 256 // 128) * (512 // 256)) * chunks >= 132
+    # the wide path
     w = bodies["head_bwd_w"]
     w = w[: w.index("\n}\n")]
     assert "cp_async16(" in w and "cp_wait<" in w and "cp_commit()" in w
@@ -412,21 +434,20 @@ def test_head_weight_gradients_stream_by_cp_async_in_one_launch():
     assert w.count("__syncthreads()") == 1 and "dwx_part" in w and "dw1_part" in w
     part = text[text.index("cudaError_t launch_part("):]
     part = part[: part.index("\n}\n")]
-    assert part.count("head_bwd_w<<<") == 1 and part.count("head_bwd_rows<A, W><<<") == 1
-    assert text.count("head_bwd_w<<<") == 1 and text.count("head_bwd_rows<A, W><<<") == 1
+    assert part.count("head_bwd_w<<<") == 1 and part.count("head_bwd_rows<A><<<") == 1
+    assert text.count("head_bwd_w<<<") == 1 and text.count("head_bwd_rows<A><<<") == 1
     launch = text[text.index("int launch_bwd("):]
     launch = launch[: launch.index("\n}\n")]
-    assert launch.count("launch_part<A, W>(") == 3  # one part, or two on two streams
-    assert "bwd_rows_wide<A>(" in bodies["head_bwd_rows"] and "bwd_rows_narrow<A>(" in bodies["head_bwd_rows"]
-    for path in ("bwd_rows_narrow", "bwd_rows_wide"):
-        rows = text[text.index(f"__device__ __forceinline__ void {path}("):]
-        rows = rows[: rows.index("\n}\n")]
-        assert rows.count("gemm_rows<") == 4 and "ring" in rows, path
+    assert launch.count("launch_part<A>(") == 3  # one part, or two on two streams
+    assert "bwd_rows_wide<A>(" in bodies["head_bwd_rows"]
+    wide = text[text.index("__device__ __forceinline__ void bwd_rows_wide("):]
+    wide = wide[: wide.index("\n}\n")]
+    assert wide.count("gemm_rows<") == 4 and "ring" in wide
     gemm = text[text.index("__device__ inline void gemm_rows("):]
     gemm = gemm[: gemm.index("\n}\n")]
     assert "cp_async16(" in gemm and "cp_wait<" in gemm and "__syncthreads()" not in gemm
-    assert 'extern "C" int vog_head_bwd(' in text
-    tiles = (512 // 128) * (512 // 64 + 256 // 64)  # 128 x 64 output tiles of dWx and dW1
+    assert 'extern "C" int vog_head_bwd(' in text and 'extern "C" int vog_head_bwd_wg(' in text
+    tiles = (512 // 128) * (512 // 64 + 256 // 64)  # the wide kernel's 128 x 64 output tiles at D 512
     assert tiles * W_CHUNKS >= 2 * 132
 
 
@@ -455,7 +476,9 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
     launch = text[text.index("int launch_fwd("):]
     assert "items < sms ? items : sms" in launch[: launch.index("\n}\n")]
     prep = _kernel_bodies(text)["head_fwd_prep"]
-    assert "stream[o] = part ? v - big : big;" in prep  # split once a call
+    assert "fwd_stream_value(o, wx, w1, D, Dp, Dh)" in prep  # split once a call
+    value = text[text.index("__device__ inline float fwd_stream_value("):]
+    assert "return part ? v - big : big;" in value[: value.index("\n}\n")]
     py = (PKG / "kernels" / "grounding_head.py").read_text()
     fwd_py = py[py.index("def grounding_head_fwd("):py.index("def grounding_head_bwd_plain(")]
     assert '"vog_head_fwd_prep"' in fwd_py and '"vog_head_fwd"' in fwd_py

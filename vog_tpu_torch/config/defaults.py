@@ -249,7 +249,12 @@ class MiscCfg:
     compile_cache: str = "tmp/jax_cache"
 
 
-PRECISIONS = ("highest", "default")
+# every name ``jax_default_matmul_precision`` takes, and the port's path
+# for it: the JAX package's kernels read "highest" and "float32" as
+# Precision.HIGHEST and every other name as DEFAULT
+# (``vog_tpu/kernels/attention.py §_precision``)
+PRECISIONS = {"highest": "highest", "float32": "highest", "default": "default", "high": "default",
+              "tensorfloat32": "default", "bfloat16": "default"}
 
 
 def apply_matmul_precision(cfg: "Cfg") -> None:
@@ -257,21 +262,32 @@ def apply_matmul_precision(cfg: "Cfg") -> None:
     (counterpart of ``vog_tpu/config/defaults.py §apply_matmul_precision``,
     which sets ``jax_default_matmul_precision``).
 
-    "highest" turns TF32 off for matmuls and for cuDNN (whose default is
-    on: the fp32 BiLSTM would otherwise run in TF32), so every fp32 product
-    keeps fp32 accuracy, as JAX's "highest".  "default" turns both on: one
-    reduced-precision pass, which JAX reads as TF32 on an NVIDIA card, for
-    cuBLAS's products and the BiLSTM's cuDNN products alike; the kernels
-    read the same switch through ``kernel_precision``.  Any other value
-    raises.  Only these two backend switches are set, never
-    ``torch.set_float32_matmul_precision``: on some CPUs oneDNN reads that
-    global and may run fp32 CPU matmuls in bf16."""
+    It takes the six names that JAX takes, on one of two paths
+    (``PRECISIONS``):
+
+    * "highest" and "float32" turn TF32 off for matmuls and for cuDNN
+      (whose default is on: the fp32 BiLSTM would otherwise run in TF32),
+      so every fp32 product keeps fp32 accuracy, and the kernels run their
+      3xTF32 products, as JAX's HIGHEST;
+    * "default", "high", "tensorfloat32" and "bfloat16" turn both on: one
+      reduced-precision pass for cuBLAS's products and the BiLSTM's cuDNN
+      products alike, and the kernels' one-pass TF32 products.  The JAX
+      package's kernels read all four as DEFAULT.  Outside the kernels JAX
+      reads "high" and "tensorfloat32" as Precision.HIGH, which on an
+      NVIDIA card is one TF32 pass, the port's "default"; "bfloat16" is
+      Precision.DEFAULT by another name.
+
+    The kernels read the switch through ``kernel_precision``.  Any other
+    name raises, naming the key.  Only these two backend switches are set,
+    never ``torch.set_float32_matmul_precision``: on some CPUs oneDNN reads
+    that global and may run fp32 CPU matmuls in bf16."""
     import torch
 
     p = cfg.misc.matmul_precision
     if p not in PRECISIONS:
-        raise ValueError(f"misc.matmul_precision={p!r}: the port runs {' or '.join(PRECISIONS)}")
-    on = p == "default"
+        raise ValueError(f"misc.matmul_precision={p!r}: the port takes {', '.join(PRECISIONS)} "
+                         "(the names jax_default_matmul_precision takes)")
+    on = PRECISIONS[p] == "default"
     torch.backends.cuda.matmul.allow_tf32 = on
     torch.backends.cudnn.allow_tf32 = on
 

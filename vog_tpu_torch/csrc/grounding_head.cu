@@ -58,46 +58,35 @@
 // gradients).  The TPU kernel keeps the (D,D) and (D,Dh) weight-gradient
 // accumulators resident in VMEM across its whole grid; a 1 MB fp32
 // accumulator does not fit a block's 227 KB here, and blocks run in no
-// order.  So two kernels.  The work is 6 B A T (D^2 + D Dh) = 37.7 GFLOP at
-// GT5 (four row products and two weight products), bound by operations:
+// order.  The work is 6 B A T (D^2 + D Dh) = 37.7 GFLOP at GT5 (four row
+// products and two weight products), bound by operations.  Up to D 512 and
+// Dh 256 (the narrow path, every production shape) it runs on wgmma:
+// head_bwd_prep, head_bwd_rows_wg, head_bwd_w_wg and head_bwd_finish (their
+// section below says how).  Past either width (the wide path, W) two
+// kernels on mma.sync:
 //
-//   head_bwd_rows  per (b, 16 tokens) block, the forward's tiling: it
-//                  recomputes z0, h and z1, forms dz1 = [z1 > 0] g w2, dh =
-//                  dz1 W1^T, dz0 = [z0 > 0] dh and dcross = dz0 Wx^T (four
-//                  3xTF32 products, one (A*16, D) shared tile reused for
-//                  cross, h, dz1 and dz0 in turn); it writes dvis, dwv,
-//                  per-block partials of darg, dwl, db1, dw2, and the cross
-//                  rows, h, dz0, dz1 (B,A,T,.) for the second kernel.  Each
-//                  warp streams its own weight columns by cp.async, 8
-//                  k-rows a stage, into a ring of 3 stages in shared memory
-//                  (``gemm_rows``: two stages ahead, warp syncs only), in
-//                  place of loads from L2 one k-step ahead; a block-wide
-//                  ring (one __syncthreads a stage) measured slower than
-//                  those loads.  16 warps and the 165 KB tile hold one
-//                  block an SM (the accumulators alone take the register
-//                  file), so the GT5 grid of 13 x 16 = 208 blocks takes
-//                  1.58 waves;
+//   head_bwd_rows  per (b, 16 tokens) block: it recomputes z0, h and z1,
+//                  forms dz1 = [z1 > 0] g w2, dh = dz1 W1^T, dz0 = [z0 > 0]
+//                  dh and dcross = dz0 Wx^T (four products; each warp
+//                  streams its own weight columns by cp.async, 8 k-rows a
+//                  stage, into a ring of 3: ``gemm_rows``); it writes dvis,
+//                  dwv, per-block partials of darg, dwl, db1, dw2, and the
+//                  cross rows, h, dz0, dz1 (B,A,T,.) for the second kernel;
 //   head_bwd_w     dWx = sum_rows cross^T dz0 and dW1 = sum_rows h^T dz1
 //                  in one launch: a 128 x 64 output tile of either a block,
-//                  8 warps of 32 x 32 (each split fragment feeds 2 or 4
-//                  mma3), rows streamed 32 a stage by cp.async into a ring
-//                  of 3, one partial per row chunk; 48 tiles x 11 chunks =
-//                  528 blocks at GT5, two waves of two blocks an SM.
+//                  8 warps of 32 x 32, rows streamed 32 a stage by cp.async
+//                  into a ring of 3, one partial per row chunk.
 //
 // The two overlap (``launch_bwd``): the batch rows whose row blocks fit one
 // wave run first, and the weight kernel's chunks over their rows fill the
 // SMs that the row kernel's second wave, on a second stream, leaves idle.
 // Every partial is added up by the wrapper in a fixed order, so the
-// gradients are the same on every run.  The previous design (the weight
-// kernel staging 64 x 64 tiles synchronously with scalar loads and forming
-// cross with two divisions an element, in two launches; the row kernel's
-// weights read from L2 by every warp) took 1.8102 / 1.8190 ms at GT5
-// (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
-// PERF.md.
+// gradients are the same on every run.  These two kernels ran the narrow
+// path too until the wgmma design (their times there in PERF.md).
 //
 // Widths: D % 32 == 0 and Dh % 16 == 0 (the wrapper zero-pads others,
-// exactly).  Up to D 512 and Dh 256 the kernels run as above (their narrow
-// path).  Past either they take their wide path (template flag W): the
+// exactly).  Up to D 512 and Dh 256 the kernels run their narrow path.
+// Past either they take their wide path (template flag W): the
 // forward computes z0 once, by K slices of 512 columns of the cross tile,
 // into a scratch of device memory, then z1 a group of 256 columns at a
 // time (the stream lays W1 out a group at a time after each chunk's z0
@@ -114,7 +103,7 @@
 // nearest (tf32.cuh): head_fwd_prep lays out one rounded part a stage (the
 // weight stream halves, and the ring holds twice the stages in the same
 // shared memory), each k-step issues one wgmma, not three, and the
-// backward's mma.sync products take one pass (split, mma_p).  The
+// wide backward's mma.sync products take one pass (split, mma_p).  The
 // operands stay fp32, as the JAX package keeps them.
 
 
@@ -188,6 +177,23 @@ __device__ inline void bulk_load(void* dst, const void* src, uint32_t bytes, uin
       : "memory");
 }
 
+__device__ inline void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// ``bytes`` (a multiple of 16) by the copy engine; completes on ``bar``,
+// whose expected bytes the caller has set
+__device__ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // d (64 x 64, C-fragment order) += a (this warp's 16 x 8 rows, registers) . b (8 x 64,
 // K-major in shared memory: the descriptor ``desc``), TF32 inputs, fp32 sums
 __device__ inline void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
@@ -210,6 +216,31 @@ __device__ inline void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1)
+      : "memory");
+}
+
+// d (64 x 64, C-fragment order) += a (64 x 8, K-major in shared memory: the
+// descriptor ``da``) . b (8 x 64: ``db``), TF32 inputs, fp32 sums
+__device__ inline void wgmma_n64_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1)
       : "memory");
 }
 
@@ -295,35 +326,40 @@ __host__ __device__ inline int chunk_floats(int Dp, int nhg) { return Dp / 8 * k
 // 2u + e of the step (pair order).  Each stage is stored twice: its big
 // parts (low 13 mantissa bits cleared), then its small parts; in a
 // one-pass library once, each weight rounded to the nearest TF32.
+// the forward stream's float o (parts included)
+// (``natural``: the z0 k-steps in natural order, slot u of half e holding k
+// 4e + u, for an A operand read from shared memory; else in pair order)
+__device__ inline float fwd_stream_value(size_t o, const float* __restrict__ wx, const float* __restrict__ w1,
+                                         int D, int Dp, int Dh, bool natural = false) {
+  const int per = chunk_floats(Dp, hidden_groups(Dh));
+  const int stage = (int)(o / kStage), part = kOnePass ? 0 : (int)(o / kStep2) & 1;
+  const int raw = stage * kStep2 + (int)(o % kStep2);  // the weight's place in the unsplit stream
+  const int c = raw / per, r = raw - c * per;
+  const int z1 = r >= Dp / 8 * kStep1;
+  const int step = z1 ? (r - Dp / 8 * kStep1) / kStep2 : r / kStep1;  // z1: 8 hg + j
+  const int w = z1 ? (r - Dp / 8 * kStep1) % kStep2 : r % kStep1;
+  const int u = w & 3, n8 = (w >> 2) & 7, half = w / (z1 ? kStep2 / 2 : kStep1 / 2);
+  const int ng = (w % (z1 ? kStep2 / 2 : kStep1 / 2)) >> 5;
+  const int n = 8 * ng + n8, kk = 8 * (z1 ? step % 8 : step) + (natural && !z1 ? 4 * half + u : 2 * u + half);
+  float v = 0.f;
+  if (z1) {  // W1 row 64c + kk, column 256 hg + n
+    const int k = kNC * c + kk, col = kNZ * (step / 8) + n;
+    if (k < D && col < Dh) v = w1[(size_t)k * Dh + col];
+  } else {  // Wx row kk, column 64c + n
+    const int col = kNC * c + n;
+    if (kk < D && col < D) v = wx[(size_t)kk * D + col];
+  }
+  if constexpr (kOnePass) return __uint_as_float(round_tf32(v));
+  const float big = __uint_as_float(__float_as_uint(v) & kBigMask);
+  return part ? v - big : big;
+}
+
 __global__ void __launch_bounds__(256)
 head_fwd_prep(const float* __restrict__ wx, const float* __restrict__ w1,
               float* __restrict__ stream, int D, int Dp, int Dh) {
-  const int per = chunk_floats(Dp, hidden_groups(Dh)), total = kParts * (Dp / kNC) * per;
-  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < total; o += gridDim.x * blockDim.x) {
-    const int stage = o / kStage, part = kOnePass ? 0 : (o / kStep2) & 1;
-    const int raw = stage * kStep2 + o % kStep2;  // the weight's place in the unsplit stream
-    const int c = raw / per, r = raw - c * per;
-    const int z1 = r >= Dp / 8 * kStep1;
-    const int step = z1 ? (r - Dp / 8 * kStep1) / kStep2 : r / kStep1;  // z1: 8 hg + j
-    const int w = z1 ? (r - Dp / 8 * kStep1) % kStep2 : r % kStep1;
-    const int u = w & 3, n8 = (w >> 2) & 7, half = w / (z1 ? kStep2 / 2 : kStep1 / 2);
-    const int ng = (w % (z1 ? kStep2 / 2 : kStep1 / 2)) >> 5;
-    const int n = 8 * ng + n8, kk = 8 * (z1 ? step % 8 : step) + 2 * u + half;
-    float v = 0.f;
-    if (z1) {  // W1 row 64c + kk, column 256 hg + n
-      const int k = kNC * c + kk, col = kNZ * (step / 8) + n;
-      if (k < D && col < Dh) v = w1[(size_t)k * Dh + col];
-    } else {  // Wx row kk, column 64c + n
-      const int col = kNC * c + n;
-      if (kk < D && col < D) v = wx[(size_t)kk * D + col];
-    }
-    if constexpr (kOnePass) {
-      stream[o] = __uint_as_float(round_tf32(v));
-    } else {
-      const float big = __uint_as_float(__float_as_uint(v) & kBigMask);
-      stream[o] = part ? v - big : big;
-    }
-  }
+  const int total = kParts * (Dp / kNC) * chunk_floats(Dp, hidden_groups(Dh));
+  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < total; o += gridDim.x * blockDim.x)
+    stream[o] = fwd_stream_value(o, wx, w1, D, Dp, Dh);
 }
 
 // W: the wide path (D_pad > 512 or Dh > 256), where neither the whole
@@ -831,205 +867,6 @@ __device__ inline float sum_rows8(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
-// The row kernel's narrow path (D <= 512, Dh <= 256): the (A*16, D) tile
-// holds cross, h, dz1 and dz0 in turn, each warp 32 z0 and 16 z1 columns.
-template <int A>
-__device__ __forceinline__ void bwd_rows_narrow(const float* __restrict__ vis, const float* __restrict__ arg,
-              const float* __restrict__ wv, const float* __restrict__ wl,
-              const float* __restrict__ wx, const float* __restrict__ w1,
-              const float* __restrict__ b1, const float* __restrict__ w2,
-              const float* __restrict__ gin, float* __restrict__ cross_out,
-              float* __restrict__ h_out,
-              float* __restrict__ dz0_out, float* __restrict__ dz1_out,
-              float* __restrict__ dvis, float* __restrict__ dwv,
-              float* __restrict__ darg_part, float* __restrict__ dwl_part,
-              float* __restrict__ db1_part, float* __restrict__ dw2_part, int T,
-              int D, int Dh, int b_first) {
-  constexpr int M = A * kBT;
-  const int ld = D + 4, ld1 = Dh + 4;
-  const int b = b_first + blockIdx.y;
-  const int t0 = blockIdx.x * kBT;
-  const size_t blk = (size_t)b * gridDim.x + blockIdx.x;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;
-
-  extern __shared__ float xs[];  // M x ld: cross, then h, dz1 (ld1), dz0
-  float* ring = xs + M * ld + (threadIdx.x >> 5) * kRing * kWarpSlab;  // this warp's weight ring
-
-  for (int idx = tid; idx < M * D; idx += kThreads) {
-    const int r = idx / D, kk = idx - r * D;
-    const int a = r / kBT, t = t0 + r % kBT;
-    float x = 0.f;
-    if (t < T) {  // the cross rows, also the weight kernel's dWx operand
-      x = vis[((size_t)b * T + t) * D + kk] * arg[((size_t)b * A + a) * D + kk];
-      cross_out[(((size_t)b * A + a) * T + t) * D + kk] = x;
-    }
-    xs[r * ld + kk] = x;
-  }
-  __syncthreads();
-
-  // ---- z0 = cross . Wx (+ stems), h = relu(z0); warp columns nw .. nw+31 --
-  const int nw = warp * kN1;
-  const bool w_ok = nw < D;
-  float acc[A][4][4];
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-  if (w_ok) gemm_rows<A, 4, false>(acc, xs, ld, wx, D, nw, D, ring, lane);
-  __syncthreads();  // every warp is done reading the cross tile
-  uint32_t pos[(A * 16 + 31) / 32];  // z0 > 0 at this lane's (m, j, i)
-#pragma unroll
-  for (int w = 0; w < (A * 16 + 31) / 32; ++w) pos[w] = 0u;
-  if (w_ok) {
-#pragma unroll
-    for (int m = 0; m < A; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * m + g + (i >= 2 ? 8 : 0);
-          const int n = nw + 8 * j + 2 * tq + (i & 1);
-          const int t = t0 + r % kBT;
-          float z = 0.f;
-          if (t < T) {
-            z = acc[m][j][i] + wv[((size_t)b * T + t) * D + n] + wl[((size_t)b * A + m) * D + n];
-            h_out[(((size_t)b * A + m) * T + t) * D + n] = fmaxf(z, 0.f);
-          }
-          const int bit = m * 16 + j * 4 + i;
-          if (z > 0.f) pos[bit / 32] |= 1u << (bit % 32);
-          xs[r * ld + n] = fmaxf(z, 0.f);
-        }
-  }
-  __syncthreads();
-
-  // ---- z1 = h . W1 + b1; dz1 = [z1 > 0] g w2; warp columns n2 .. n2+15 ----
-  const int n2 = warp * kN2;
-  const bool w2_ok = n2 < Dh;
-  float acc2[A][2][4];
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc2[m][j][i] = 0.f;
-  if (w2_ok) gemm_rows<A, 2, false>(acc2, xs, ld, w1, Dh, n2, D, ring, lane);
-  __syncthreads();  // every warp is done reading h
-  if (w2_ok) {
-    float pw2[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, pb1[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-    for (int m = 0; m < A; ++m)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = 16 * m + g + (i >= 2 ? 8 : 0);
-          const int n = n2 + 8 * j + 2 * tq + (i & 1);
-          const int t = t0 + r % kBT;
-          const float gr = t < T ? gin[((size_t)b * A + m) * T + t] : 0.f;
-          const float z1 = acc2[m][j][i] + b1[n];
-          const float d = z1 > 0.f ? gr * w2[n] : 0.f;
-          pw2[j][i & 1] += fmaxf(z1, 0.f) * gr;
-          pb1[j][i & 1] += d;
-          xs[r * ld1 + n] = d;
-          if (t < T) dz1_out[(((size_t)b * A + m) * T + t) * Dh + n] = d;
-        }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float sw = sum_rows8(pw2[j][e]), sb = sum_rows8(pb1[j][e]);
-        if (g == 0) {
-          const int n = n2 + 8 * j + 2 * tq + e;
-          dw2_part[blk * Dh + n] = sw;
-          db1_part[blk * Dh + n] = sb;
-        }
-      }
-  }
-  __syncthreads();
-
-  // ---- dh = dz1 . W1^T; dz0 = [z0 > 0] dh (same layout as z0) ------------
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-  if (w_ok) gemm_rows<A, 4, true>(acc, xs, ld1, w1, Dh, nw, Dh, ring, lane);
-  __syncthreads();  // every warp is done reading dz1
-  if (w_ok) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = nw + 8 * j + 2 * tq + (i & 1);
-        const int t = t0 + g + (i >= 2 ? 8 : 0);
-        float sv = 0.f;
-#pragma unroll
-        for (int m = 0; m < A; ++m) {
-          const int bit = m * 16 + j * 4 + i;
-          const float d = (pos[bit / 32] >> (bit % 32)) & 1u ? acc[m][j][i] : 0.f;
-          acc[m][j][i] = d;
-          sv += d;
-          xs[(16 * m + g + (i >= 2 ? 8 : 0)) * ld + n] = d;
-          if (t < T) dz0_out[(((size_t)b * A + m) * T + t) * D + n] = d;
-        }
-        if (t < T) dwv[((size_t)b * T + t) * D + n] = sv;
-      }
-#pragma unroll
-    for (int m = 0; m < A; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float sw = sum_rows8(acc[m][j][e] + acc[m][j][e + 2]);
-          if (g == 0) dwl_part[(blk * A + m) * D + nw + 8 * j + 2 * tq + e] = sw;
-        }
-  }
-  __syncthreads();
-
-  // ---- dcross = dz0 . Wx^T; dvis = sum_a dcross arg_a, darg = sum_t dcross vis
-#pragma unroll
-  for (int m = 0; m < A; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][j][i] = 0.f;
-  if (w_ok) {
-    gemm_rows<A, 4, true>(acc, xs, ld, wx, D, nw, D, ring, lane);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = nw + 8 * j + 2 * tq + e;
-        float da[A];
-#pragma unroll
-        for (int m = 0; m < A; ++m) da[m] = 0.f;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = e + 2 * hh;
-          const int t = t0 + g + 8 * hh;
-          if (t >= T) continue;
-          const float vtn = vis[((size_t)b * T + t) * D + n];
-          float sv = 0.f;
-#pragma unroll
-          for (int m = 0; m < A; ++m) {
-            sv = fmaf(acc[m][j][i], arg[((size_t)b * A + m) * D + n], sv);
-            da[m] = fmaf(acc[m][j][i], vtn, da[m]);
-          }
-          dvis[((size_t)b * T + t) * D + n] = sv;
-        }
-#pragma unroll
-        for (int m = 0; m < A; ++m) {
-          const float sa = sum_rows8(da[m]);
-          if (g == 0) darg_part[(blk * A + m) * D + n] = sa;
-        }
-      }
-  }
-}
-
 // The row kernel's wide path (D > 512 or Dh > 256): the four products as
 // the narrow path's, each warp walking column groups (32 z0 columns, 16 z1
 // columns a warp, 512 and 256 a group of the block), over K slices of kBK
@@ -1240,7 +1077,7 @@ __device__ __forceinline__ void bwd_rows_wide(const float* __restrict__ vis, con
   }
 }
 
-template <int A, bool W>
+template <int A>
 __global__ void __launch_bounds__(kThreads, 1)
 head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
               const float* __restrict__ wv, const float* __restrict__ wl,
@@ -1253,12 +1090,8 @@ head_bwd_rows(const float* __restrict__ vis, const float* __restrict__ arg,
               float* __restrict__ darg_part, float* __restrict__ dwl_part,
               float* __restrict__ db1_part, float* __restrict__ dw2_part, int T,
               int D, int Dh, int b_first) {
-  if constexpr (W)
-    bwd_rows_wide<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross_out, h_out, dz0_out, dz1_out, dvis, dwv,
-                     darg_part, dwl_part, db1_part, dw2_part, T, D, Dh, b_first);
-  else
-    bwd_rows_narrow<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross_out, h_out, dz0_out, dz1_out, dvis, dwv,
-                       darg_part, dwl_part, db1_part, dw2_part, T, D, Dh, b_first);
+  bwd_rows_wide<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross_out, h_out, dz0_out, dz1_out, dvis, dwv,
+                   darg_part, dwl_part, db1_part, dw2_part, T, D, Dh, b_first);
 }
 
 // C[z] = sum over the rows R of chunk z of X[R]^T Y[R], for both weights
@@ -1404,16 +1237,16 @@ cudaError_t side_stream(int device, SideStream*& out) {
   return cudaSuccess;
 }
 
-// shared memory of the row kernel: its tile of A * 16 rows (of D + 4
-// floats, or of a wide path's K slice) and the warps' weight rings
-template <int A, bool W>
-size_t rows_smem(int D) {
-  return sizeof(float) * ((size_t)A * kBT * ((W ? kBK : D) + 4) + kWarps * kRing * kWarpSlab);
+// shared memory of the wide row kernel: its tile of A * 16 rows of a K
+// slice and the warps' weight rings
+template <int A>
+size_t rows_smem() {
+  return sizeof(float) * ((size_t)A * kBT * (kBK + 4) + kWarps * kRing * kWarpSlab);
 }
 
 // The row kernel's blocks of batch rows [b0, b1), then on the same stream
 // the weight kernel over their rows in chunks [c0, c1).
-template <int A, bool W>
+template <int A>
 cudaError_t launch_part(const float* vis, const float* arg, const float* wv, const float* wl,
                         const float* wx, const float* w1, const float* b1, const float* w2,
                         const float* gin, float* cross, float* h, float* dz0, float* dz1,
@@ -1421,7 +1254,7 @@ cudaError_t launch_part(const float* vis, const float* arg, const float* wv, con
                         float* db1_part, float* dw2_part, float* dwx_part, float* dw1_part,
                         int T, int D, int Dh, int bb0, int bb1, int c0, int c1,
                         cudaStream_t stream) {
-  head_bwd_rows<A, W><<<dim3((T + kBT - 1) / kBT, bb1 - bb0), kThreads, rows_smem<A, W>(D), stream>>>(
+  head_bwd_rows<A><<<dim3((T + kBT - 1) / kBT, bb1 - bb0), kThreads, rows_smem<A>(), stream>>>(
       vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv, darg_part,
       dwl_part, db1_part, dw2_part, T, D, Dh, bb0);
   cudaError_t e = cudaGetLastError();
@@ -1442,7 +1275,7 @@ cudaError_t launch_part(const float* vis, const float* arg, const float* wv, con
 // first chunks fill the SMs that the row kernel's second wave leaves
 // idle.  The caller's stream waits for the second at the end.  The
 // partials go to fixed chunks: the gradients do not depend on the overlap.
-template <int A, bool W>
+template <int A>
 int launch_bwd(const float* vis, const float* arg, const float* wv, const float* wl,
                const float* wx, const float* w1, const float* b1, const float* w2,
                const float* gin, float* cross, float* h, float* dz0, float* dz1, float* dvis,
@@ -1450,7 +1283,7 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
                float* dw2_part, float* dwx_part, float* dw1_part, int B, int T,
                int D, int Dh, int chunks, int device, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      head_bwd_rows<A, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem<A, W>(D));
+      head_bwd_rows<A>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_smem<A>());
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(head_bwd_w, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)(sizeof(float) * kWStages * kWStage));
@@ -1460,17 +1293,17 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
   const int nb1 = side->sms / ((T + kBT - 1) / kBT);
   const int c1 = (int)((long long)chunks * nb1 / B);
   if (nb1 < 1 || nb1 >= B || c1 < 1 || c1 >= chunks)  // no second wave, or too few chunks
-    return (int)launch_part<A, W>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis,
+    return (int)launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis,
                                dwv, darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part,
                                T, D, Dh, 0, B, 0, chunks, stream);
   e = cudaEventRecord(side->in, stream);  // the inputs are ready on the caller's stream
   if (e == cudaSuccess) e = cudaStreamWaitEvent(side->s, side->in, 0);
   if (e == cudaSuccess)
-    e = launch_part<A, W>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
+    e = launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
                           darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
                           0, nb1, 0, c1, stream);
   if (e == cudaSuccess)
-    e = launch_part<A, W>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
+    e = launch_part<A>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv,
                           darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, T, D, Dh,
                           nb1, B, c1, chunks, side->s);
   if (e == cudaSuccess) e = cudaEventRecord(side->out, side->s);
@@ -1478,13 +1311,863 @@ int launch_bwd(const float* vis, const float* arg, const float* wv, const float*
   return (int)e;
 }
 
+// ---------------------------------------------------------------------------
+// backward, narrow path (D <= 512, Dh <= 256): the products on wgmma
+// ---------------------------------------------------------------------------
+//
+// head_bwd_prep lays out, once a call, the forward's weight stream (z0's
+// k-steps in natural order: their A operand comes from shared memory) and
+// the streams of dh = dz1 . W1^T (chunk c: B(k, n) = W1[64c + n][k], k over
+// Dh, pair order: A from registers) and dcross = dz0 . Wx^T (B(k, n) =
+// Wx[64c + n][k], natural order), in the forward's format: 64-column
+// chunks, k-steps of 8, 4 k-steps a stage, a stage's big then small parts
+// or once rounded.
+//
+// head_bwd_rows_wg: a persistent grid, one block an SM of two consumer
+// warpgroups and a producer warpgroup, walks the items: 64 rows of the
+// flattened (b, a, t) rows, so a tile may hold two (b, a) and only the
+// last one is short (at GT5 250 items, two rounds of the H100's 132 SMs;
+// 64 tokens of one (b, a) took 320 items and three).  The consumers split
+// each product's 64-column chunks (warpgroup w the chunks c = w mod 2),
+// each with its own ring of weight stages; two producer warps fill each
+// ring by cp.async.bulk, a stage as its slot is read (mbarriers both
+// ways).  A warp that issues bulk copies waits for each copy, however
+// deep its ring (tools/hopper_rates.cu: one warp of 8 KB copies moves a
+// quarter of what four move), so the copies come from several warps;
+// they bounded the kernel while one thread of each warpgroup issued
+// them.  With the producer warpgroup ptxas reports 168 registers (384
+// threads); setmaxnreg gives the consumers 240.
+// An item:
+//   (1) the cross tile vis * arg_a (64 x D_pad) built in shared memory in
+//       K-major core matrices (tix; rounded to TF32 in a one-pass library),
+//       also written out transposed for the weight kernel;
+//   (2) for each own chunk, z0 = cross . Wx[:, c] with the A operand read
+//       from the tile by wgmma (at "highest" the tile holds fp32, which
+//       the tensor core reads as its big part, and the small parts come
+//       from registers), h = relu(z0 + wv + wl) written out transposed
+//       and, in place, the A operand of z1 += h . W1[c, :] (a 64 x 256
+//       accumulator a warpgroup: its chunks' part), the ReLU decisions
+//       kept as bits;
+//   (3) the two z1 parts added through shared memory (the tile is free),
+//       in a fixed order, so both warpgroups hold the same z1; dz1 = [z1 >
+//       0] g w2 stays in their registers, and warpgroup 0 writes it and
+//       the per-warp parts of db1 and dw2;
+//   (4) for each own chunk dh = dz1 . W1^T[:, c], the A operand dz1's
+//       registers as they stand (pair order); dz0 = [z0 > 0] dh into the
+//       tile and out, the parts of dwl;
+//   (5) for each own chunk dcross = dz0 . Wx^T[:, c] from the tile; out
+//       dcross * arg_a (dvis's part of arg a) and the parts of darg =
+//       sum_t dcross vis.
+// A stage of 4 k-steps is one wgmma group, one group left in flight (at
+// "highest" none in the tile products, which keeps phase (2)'s registers
+// without a spill).  The parts of darg and dwl are column sums over a
+// warp's 16 rows by (b, a): a slot of (b, a) a 16-row block that meets its
+// rows (seg_sum).
+//
+// head_bwd_w_wg: dWx^T = sum_r dz0[r]^T crossT[:, r] and dW1^T = sum_r
+// dz1[r]^T hT[:, r] in one launch, a 128 x 256 output tile (two consumer
+// warpgroups of 64 x 256) and a chunk of rows a block.  TF32 wgmma takes
+// only K-major operands, so the row kernel writes cross and h transposed,
+// in groups of 32 rows: [r / 32][(r % 32) / 4][i][r % 4], where each
+// 16-byte (i, 4 rows) piece is a row of a K-major core matrix and 256
+// columns of 4 rows are one 4 KB bulk copy; the B operand is that, the A
+// operand (dz0 or dz1 rows) comes from a row stage by fragment reads.  Two
+// producer warps fill a ring of stages (32 rows: the A rows and 8 B
+// pieces) in turn as the consumers free them.  Each block writes its
+// chunk's part, transposed back.
+//
+// head_bwd_finish adds every part up in a fixed order: dvis and dwv over
+// the args, dWx and dW1 over the chunks, darg and dwl over the slots, db1
+// and dw2 over the (item, warp) parts.  No atomics: the gradients are the
+// same on every run.
+//
+// At "highest" the B operands are stored as big and small parts (the
+// transposed rows as two planes, the streams as two parts a stage) and
+// each k-step is three wgmma; at "default" once, rounded to TF32.
+
+constexpr int kBRows = 64;                   // rows (b, a, t) of an item
+constexpr int kBThreads = 256;               // two warpgroups
+constexpr int kBRing = kOnePass ? 5 : 2;     // stages (kStage: 8 or 16 KB) of each warpgroup's ring
+constexpr int kBMaxMine = kMaxD / kNC / 2;   // chunks a warpgroup owns at most
+constexpr int kTGroup = 32;                  // rows of a group of the transposed layout
+// the producer warpgroup (two warps a ring), and the register file's split
+// between it and the consumers (setmaxnreg: 128 x 24 + 256 x 240 <= 65536;
+// without it the row kernel ran several times slower on the H100)
+constexpr int kProdThreads = 128, kProdRegs = 24, kConsRegs = 240;
+
+// floats of the backward's stream (head_bwd_prep): D_pad / 64 chunks of
+// ceil(Dh / 32) dh stages, then of D_pad / 32 dcross stages, kStage each
+__host__ __device__ inline size_t bwd_stream_floats(int Dp, int Dh) {
+  return (size_t)(Dp / kNC) * ((Dh + 31) / 32 + Dp / 32) * kStage;
+}
+
+// the place of (row r, column i) in the transposed layout of D columns
+__device__ inline size_t tpos(size_t r, int i, int D) {
+  return ((r / kTGroup * 8 + (r % kTGroup) / 4) * (size_t)D + i) * 4 + (r & 3);
+}
+
+// the place of (row r, column k) in the row kernel's 64-row tile: K-major
+// core matrices (8 rows x 4 columns, 128 contiguous bytes), [k / 4][r][k % 4]
+__device__ inline int tix(int r, int k) { return ((k >> 2) * kBRows + r) * 4 + (k & 3); }
+
+// x into a B operand: rounded to TF32 (one pass), or its big part at p and
+// its small part a plane further (3xTF32)
+__device__ inline void store_b(float* p, size_t plane, float x) {
+  if constexpr (kOnePass) {
+    *p = __uint_as_float(round_tf32(x));
+  } else {
+    const float big = __uint_as_float(__float_as_uint(x) & kBigMask);
+    p[0] = big;
+    p[plane] = x - big;
+  }
+}
+
+// the forward's stream (Dh <= 256), then the backward's (bwd_stream_floats)
+__global__ void __launch_bounds__(256)
+head_bwd_prep(const float* __restrict__ wx, const float* __restrict__ w1, float* __restrict__ stream, int D,
+              int Dp, int Dh) {
+  const int nch = Dp / kNC, s2 = (Dh + 31) / 32, p1 = Dp / 32;
+  const size_t first = (size_t)kParts * nch * chunk_floats(Dp, 1), total = first + bwd_stream_floats(Dp, Dh);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total; i += (size_t)gridDim.x * blockDim.x) {
+    if (i < first) {
+      stream[i] = fwd_stream_value(i, wx, w1, D, Dp, Dh, true);
+      continue;
+    }
+    const size_t o = i - first;
+    const int stage = (int)(o / kStage), part = kOnePass ? 0 : (int)(o / kStep2) & 1;
+    const int w = (int)(o % kStep2), kk = w / kStep1, x = w % kStep1;
+    const int u = x & 3, n = 8 * ((x >> 5) & 7) + ((x >> 2) & 7), e = x >> 8;
+    const int kin = stage < nch * s2 ? 2 * u + e : 4 * e + u;  // dh in pair order, dcross in natural order
+    float v = 0.f;
+    if (stage < nch * s2) {  // dh: W1[64c + n][k]
+      const int c = stage / s2, k = 8 * (4 * (stage % s2) + kk) + kin, row = kNC * c + n;
+      if (row < D && k < Dh) v = w1[(size_t)row * Dh + k];
+    } else {  // dcross: Wx[64c + n][k]
+      const int st = stage - nch * s2, c = st / p1, k = 8 * (4 * (st % p1) + kk) + kin, row = kNC * c + n;
+      if (row < D && k < D) v = wx[(size_t)row * D + k];
+    }
+    if constexpr (kOnePass) {
+      stream[i] = __uint_as_float(round_tf32(v));
+    } else {
+      const float big = __uint_as_float(__float_as_uint(v) & kBigMask);
+      stream[i] = part ? v - big : big;
+    }
+  }
+}
+
+// floats of the row kernel's first region: the cross (later dz0) tile, or
+// the two warpgroups' z1 parts while they are added
+__host__ __device__ inline int bwd_region(int Dp) {
+  const int tile = kBRows * Dp, xchg = 2 * kBRows * kNZ;
+  return tile > xchg ? tile : xchg;
+}
+
+size_t bwd_rows_smem(int Dp) {
+  return sizeof(float) * ((size_t)bwd_region(Dp) + 2 * kBRing * kStage + 2 * kNZ) +
+         sizeof(uint32_t) * kBMaxMine * kBThreads + sizeof(uint64_t) * 4 * kBRing;
+}
+
+__global__ void __launch_bounds__(kBThreads + kProdThreads, 1)
+head_bwd_rows_wg(const float* __restrict__ vis, const float* __restrict__ arg, const float* __restrict__ wv,
+                 const float* __restrict__ wl, const float* __restrict__ fstream,
+                 const float* __restrict__ bstream, const float* __restrict__ b1, const float* __restrict__ w2,
+                 const float* __restrict__ gin, float* __restrict__ crossT, float* __restrict__ hT,
+                 float* __restrict__ dz0g, float* __restrict__ dz1g, float* __restrict__ dvisp,
+                 float* __restrict__ dargp, float* __restrict__ dwlp, float* __restrict__ db1p,
+                 float* __restrict__ dw2p, int B, int A, int T, int D, int Dp, int Dh, size_t plane) {
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127, warp = wt >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  extern __shared__ __align__(1024) float4 smem4[];
+  // 64 x Dp (tix): cross, then dz0, rounded to TF32 in a one-pass library; or the z1 parts
+  float* tile = reinterpret_cast<float*>(smem4);
+  float* rings = tile + bwd_region(Dp);                      // 2 x kBRing x kStage: a warpgroup's ring each
+  float* b1s = rings + 2 * kBRing * kStage;                  // kNZ, zero past Dh
+  float* w2s = b1s + kNZ;                                    // kNZ, zero past Dh
+  uint32_t* maskb = reinterpret_cast<uint32_t*>(w2s + kNZ);  // kBMaxMine x 256: z0 > 0 bits
+  uint64_t* fulls = reinterpret_cast<uint64_t*>(maskb + kBMaxMine * kBThreads);  // 2 x kBRing: a stage is in
+  uint64_t* empties = fulls + 2 * kBRing;  // 2 x kBRing: a stage is read (a lane of each consumer warp)
+
+  // stages a chunk: z0 p1 (4 k-steps each) and z1 8 (one k-step each), dh s2, dcross p1
+  const int nch = Dp / kNC, p1 = Dp / 32, s2 = (Dh + 31) / 32;
+  const int R = B * A * T;  // rows (b, a, t), flattened (fewer than 2^31: R x D floats fit the card)
+  const int nitems = (R + kBRows - 1) / kBRows;
+  const int nslots = (T + 15) / 16 + 1;  // 16-row blocks that meet the rows of one (b, a), at most
+  const int items = (nitems - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  // warpgroup w's chunks (c = w + 2i), and its stages an item: z0 + z1, dh, dcross
+  auto mine_of = [&](int w) { return (nch - w + 1) / 2; };
+  auto per_item_of = [&](int w) { return mine_of(w) * (2 * p1 + 8 + s2); };
+  // the stream stage of an item's stage u of warpgroup w
+  auto stage_src = [&](int w, int u) -> const float* {
+    const int mn = mine_of(w), L0 = mn * (p1 + 8), L1 = mn * s2;
+    if (u < L0) {
+      const int i = u / (p1 + 8);
+      return fstream + (size_t)((w + 2 * i) * (p1 + 8) + u - i * (p1 + 8)) * kStage;
+    }
+    u -= L0;
+    if (u < L1) return bstream + (size_t)((w + 2 * (u / s2)) * s2 + u % s2) * kStage;
+    u -= L1;
+    return bstream + (size_t)(nch * s2 + (w + 2 * (u / p1)) * p1 + u % p1) * kStage;
+  };
+  if (tid == 0) {
+    for (int r = 0; r < 2 * kBRing; ++r) {
+      mbar_init(fulls + r, 1);
+      mbar_init(empties + r, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kNZ; i += kBThreads + kProdThreads) {
+    b1s[i] = i < Dh ? b1[i] : 0.f;
+    w2s[i] = i < Dh ? w2[i] : 0.f;
+  }
+  __syncthreads();
+  // The producer warpgroup: its warp p fills warpgroup p / 2's ring with
+  // the stages of parity p % 2, each as its slot is read (four issuing
+  // warps: a warp waits for each of its copies).
+  if (tid >= kBThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProdRegs));
+    const int p = (tid - kBThreads) >> 5, w = p >> 1;
+    if (lane == 0) {
+      const int per = per_item_of(w), total = items * per;
+      for (int q = p & 1; q < total; q += 2) {
+        if (q >= kBRing) mbar_wait(empties + w * kBRing + q % kBRing, (q / kBRing - 1) & 1);
+        bulk_load(rings + (w * kBRing + q % kBRing) * kStage, stage_src(w, q % per), kStage * 4,
+                  fulls + w * kBRing + q % kBRing);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsRegs));
+  const int mine = mine_of(wg);
+  float* ring = rings + wg * kBRing * kStage;
+  uint64_t* full = fulls + wg * kBRing;
+  uint64_t* empty = empties + wg * kBRing;
+  // after the wgmmas of stage q - 1 have completed: its slot is free
+  auto refill = [&](int q) {
+    if (lane == 0 && q >= 1) mbar_arrive(empty + (q - 1) % kBRing);
+  };
+  // the two consumer warpgroups alone (the producer warpgroup has left)
+  auto sync_consumers = []() { asm volatile("bar.sync 1, %0;\n" ::"n"(kBThreads) : "memory"); };
+  int q = 0;  // the stage this warpgroup reads next
+  const int r0 = 16 * warp + g;  // this thread's rows of an item: r0 and r0 + 8
+  uint32_t fs[2][4];  // "highest": z1's small A fragments, two sets in turn
+
+  // acc = (the tile: cross or dz0) . (p1 stages of the stream): a chunk's 64
+  // columns, the A operand read from shared memory by wgmma, one group a
+  // stage of 4 k-steps and one group left in flight.  At "highest" the
+  // tile holds fp32, which the tensor core reads as its big part (the low
+  // bits ignored: split_int's big), and the small parts come from
+  // registers, a stage's 4 k-steps.
+  auto tile_product = [&](float (&acc)[32]) {
+    uint32_t sm[4][4];  // "highest": a stage's small A fragments
+    auto stage = [&](int s) {
+      if constexpr (!kOnePass) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int k = 8 * (4 * s + kk) + t;  // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+          const float xs[4] = {tile[tix(r0, k)], tile[tix(r0 + 8, k)], tile[tix(r0, k + 4)],
+                               tile[tix(r0 + 8, k + 4)]};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t big;
+            split_int(xs[i], big, sm[kk][i]);
+          }
+        }
+      }
+      mbar_wait(full + q % kBRing, (q / kBRing) & 1);
+      const float* sb = ring + (q % kBRing) * kStage;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = kmajor_desc(tile + 2 * (4 * s + kk) * kBRows * 4, kBRows * 16, 128);
+        const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
+        if constexpr (!kOnePass) {
+          const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
+          wgmma_n64(acc, sm[kk], db);
+          wgmma_n64_ss(acc, da, ds);
+        }
+        wgmma_n64_ss(acc, da, db);
+      }
+      wg_commit();
+      // stage q - 1 has completed (3xTF32: stage q too, whose fragments the
+      // next stage rewrites; one set keeps the registers of phase (2))
+      if constexpr (kOnePass) wg_wait<1>(); else wg_wait<0>();
+      refill(q);
+      ++q;
+    };
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < p1; ++s) stage(s);
+    wg_wait<0>();
+  };
+
+  for (int it = 0; it < items; ++it) {
+    const int item = blockIdx.x + it * gridDim.x;
+    const int row0 = item * kBRows;  // the item's first row
+    // this thread's rows rg0 = row0 + r0 and rg1 = rg0 + 8 (valid below R):
+    // their (b, a) rows ba0, ba1 of arg, wl and the gradients' partials,
+    // and their (b, t) rows vr0, vr1 of vis and wv
+    const int rg0 = row0 + r0, rg1 = rg0 + 8;
+    const bool ok0 = rg0 < R, ok1 = rg1 < R;
+    const int ba0 = ok0 ? rg0 / T : 0, ba1 = ok1 ? rg1 / T : 0;
+    const int vr0 = ok0 ? ba0 / A * T + (rg0 - ba0 * T) : 0, vr1 = ok1 ? ba1 / A * T + (rg1 - ba1 * T) : 0;
+    // this warp's 16-row block and the (b, a) rows it meets (seg_sum)
+    const int blk = row0 / 16 + warp, blk_last = min(R - 1, 16 * blk + 15);
+    const int seg_lo = 16 * blk < R ? 16 * blk / T : 1, seg_hi = 16 * blk < R ? blk_last / T : 0;
+    sync_consumers();  // every thread is done with the previous item's tile
+    // part (BA, nslots, width) += this warp's column sums over its 16 rows, by (b, a):
+    // a (b, a)'s rows T are met by its 16-row blocks in turn, slot = the
+    // warp's block less that (b, a)'s first block (nslots = ceil(T / 16) + 1)
+    // Rows past R hold zeros.  T >= 16 (the wrapper pads a shorter T), so
+    // a block meets at most two (b, a): both sums straight-line (a loop
+    // here, even one never taken, cost the kernel a third of its time at
+    // P100).
+    auto seg_sum = [&](float* __restrict__ part, int width, int col, float v0a, float v0b, float v1a, float v1b) {
+      if (seg_lo > seg_hi) return;  // the block lies past R
+      const bool m0 = ba0 == seg_lo, m1 = ba1 == seg_lo;
+      const float s0 = sum_rows8((m0 ? v0a : 0.f) + (m1 ? v1a : 0.f));
+      const float s1 = sum_rows8((m0 ? v0b : 0.f) + (m1 ? v1b : 0.f));
+      if (g == 0 && col < width)
+        *reinterpret_cast<float2*>(part + ((size_t)seg_lo * nslots + blk - seg_lo * T / 16) * width + col) =
+            make_float2(s0, s1);
+      if (seg_hi > seg_lo) {  // the next (b, a), slot 0 of its rows
+        const float u0 = sum_rows8((m0 ? 0.f : v0a) + (m1 ? 0.f : v1a));
+        const float u1 = sum_rows8((m0 ? 0.f : v0b) + (m1 ? 0.f : v1b));
+        if (g == 0 && col < width)
+          *reinterpret_cast<float2*>(part + ((size_t)seg_hi * nslots + blk - seg_hi * T / 16) * width + col) =
+              make_float2(u0, u1);
+      }
+    };
+
+    // (1) cross = vis * arg_a by cp.async (zero past T and D), scaled in place
+    // a warp 8 rows x 4 column quads a pass: 64 contiguous bytes of each
+    // row read, 8 contiguous rows of a core matrix written by 8 lanes
+    auto cross_rc = [](int idx, int& r, int& c) {
+      const int w = idx >> 5, lane = idx & 31;
+      r = 8 * (w & 7) + (lane & 7);
+      c = 4 * (4 * (w >> 3) + (lane >> 3));
+    };
+    int cr, cc;  // a thread's row of the tile is the same at every pass (256 threads: whole rounds of 8 warps)
+    cross_rc(tid, cr, cc);
+    const int crr = row0 + cr, cba = crr < R ? crr / T : 0;
+    const float* vrow = vis + ((size_t)(cba / A) * T + (crr - cba * T)) * D;
+    const float* arow = arg + (size_t)cba * D;
+    for (int idx = tid; idx < kBRows * (Dp / 4); idx += kBThreads) {
+      int r, c;
+      cross_rc(idx, r, c);
+      const bool ok = crr < R && c < D;
+      cp_async16(tile + tix(r, c), ok ? vrow + c : vis, ok);
+    }
+    cp_commit();
+    cp_wait_all();
+    for (int idx = tid; idx < kBRows * (Dp / 4); idx += kBThreads) {  // the thread's own copies
+      int r, c;
+      cross_rc(idx, r, c);
+      if (crr < R && c < D) {
+        float4* x = reinterpret_cast<float4*>(tile + tix(r, c));
+        const float4 w = __ldg(reinterpret_cast<const float4*>(arow + c));
+        const float4 v = *x;
+        *x = make_float4(v.x * w.x, v.y * w.y, v.z * w.z, v.w * w.w);
+        // the cross rows out, transposed (row r's 4 columns c .. c + 3)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) store_b(crossT + tpos(crr, c + e, D), plane, (&x->x)[e]);
+        if constexpr (kOnePass) {
+          const float4 y = *x;
+          *x = make_float4(__uint_as_float(round_tf32(y.x)), __uint_as_float(round_tf32(y.y)),
+                           __uint_as_float(round_tf32(y.z)), __uint_as_float(round_tf32(y.w)));
+        }
+      }
+    }
+    sync_consumers();
+
+    // (2) z0 and z1 over this warpgroup's chunks
+    float acc2[kNZ / 2];
+#pragma unroll
+    for (int i = 0; i < kNZ / 2; ++i) acc2[i] = 0.f;
+    const float* wl0 = wl + (size_t)ba0 * D;
+    const float* wl1 = wl + (size_t)ba1 * D;
+#pragma unroll 1
+    for (int i = 0; i < mine; ++i) {
+      const int c = wg + 2 * i;
+      float acc1[kNC / 2];
+      tile_product(acc1);
+      // h = relu(z0 + wv + wl) in place, the chunk's loads issued together
+      // (no asm barrier between them), then written out and its bits kept
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const int col = kNC * c + 8 * j + 2 * t;  // D is even: both columns or neither lie below D
+        const float2 zero2 = make_float2(0.f, 0.f);
+        const float2 v0 = ok0 && col < D ? __ldg(reinterpret_cast<const float2*>(wv + (size_t)vr0 * D + col)) : zero2;
+        const float2 v1 = ok1 && col < D ? __ldg(reinterpret_cast<const float2*>(wv + (size_t)vr1 * D + col)) : zero2;
+        const float2 l0 = ok0 && col < D ? __ldg(reinterpret_cast<const float2*>(wl0 + col)) : zero2;
+        const float2 l1 = ok1 && col < D ? __ldg(reinterpret_cast<const float2*>(wl1 + col)) : zero2;
+        // C fragment (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1); rows past R and columns past D stay 0
+        float* z = acc1 + 4 * j;
+        z[0] += v0.x + l0.x;
+        z[1] += v0.y + l0.y;
+        z[2] += v1.x + l1.x;
+        z[3] += v1.y + l1.y;
+        if (!ok0 || col >= D) z[0] = z[1] = 0.f;
+        if (!ok1 || col >= D) z[2] = z[3] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bits |= (z[e] > 0.f ? 1u : 0u) << (4 * j + e);
+          z[e] = fmaxf(z[e], 0.f);
+          if constexpr (kOnePass) z[e] = __uint_as_float(round_tf32(z[e]));  // z1's A operand and h's stores
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const int col = kNC * c + 8 * j + 2 * t;
+        const float* z = acc1 + 4 * j;
+        if (col < D) {
+          if (ok0) {
+            store_b(hT + tpos(rg0, col, D), plane, z[0]);
+            store_b(hT + tpos(rg0, col + 1, D), plane, z[1]);
+          }
+          if (ok1) {
+            store_b(hT + tpos(rg1, col, D), plane, z[2]);
+            store_b(hT + tpos(rg1, col + 1, D), plane, z[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const float* z = acc1 + 4 * j;
+        // h's C fragment as the A fragment of z1's k-step (pair order), as it
+        // stands: rounded in place (one pass), or fp32, its big part (3xTF32)
+        const uint32_t a4[4] = {__float_as_uint(z[0]), __float_as_uint(z[2]), __float_as_uint(z[1]),
+                                __float_as_uint(z[3])};
+        mbar_wait(full + q % kBRing, (q / kBRing) & 1);
+        const int f = j & 1;
+        if constexpr (!kOnePass) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = __uint_as_float(a4[e]);
+            asm volatile("mov.b32 %0, %0;\n" : "+f"(x));  // after this k-step's wait (see phase (4))
+            uint32_t big;
+            split_int(x, big, fs[f][e]);
+          }
+        }
+        wg_fence();
+        const float* sb = ring + (q % kBRing) * kStage;
+        const uint64_t db = kmajor_desc(sb, kStep2 / 2 * 4, 128);
+        if constexpr (!kOnePass) {
+          const uint64_t ds = kmajor_desc(sb + kStage / 2, kStep2 / 2 * 4, 128);
+          wgmma_n256(acc2, fs[f], db);
+          wgmma_n256(acc2, a4, ds);
+        }
+        wgmma_n256(acc2, a4, db);
+        wg_commit();
+        wg_wait<1>();  // stage q - 1 has completed
+        refill(q);
+        ++q;
+      }
+      wg_wait<0>();  // the last k-step has read acc1, which the next chunk rewrites
+      maskb[i * kBThreads + tid] = bits;
+    }
+
+    // (3) z1 = the two warpgroups' parts, added in order; dz1 = [z1 > 0] g w2
+    sync_consumers();  // both warpgroups are done with the cross tile
+    float4* xchg = reinterpret_cast<float4*>(tile);
+#pragma unroll
+    for (int i = 0; i < kNZ / 8; ++i)
+      xchg[(wg * (kNZ / 8) + i) * 128 + wt] = make_float4(acc2[4 * i], acc2[4 * i + 1], acc2[4 * i + 2], acc2[4 * i + 3]);
+    sync_consumers();
+    const float gr0 = ok0 ? gin[rg0] : 0.f, gr1 = ok1 ? gin[rg1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kNZ / 8; ++i) {
+      const float4 x0 = xchg[i * 128 + wt], x1 = xchg[(kNZ / 8 + i) * 128 + wt];
+      const float zs[4] = {x0.x + x1.x, x0.y + x1.y, x0.z + x1.z, x0.w + x1.w};
+      float pw[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 8 * i + 2 * t + (e & 1);
+        const float z1 = zs[e] + b1s[n], gr = e < 2 ? gr0 : gr1;
+        acc2[4 * i + e] = z1 > 0.f ? gr * w2s[n] : 0.f;
+        pw[e] = fmaxf(z1, 0.f) * gr;
+      }
+      if (wg == 0) {  // dz1 out, and the warp's partials of dw2 (relu(z1) g) and db1 (dz1) over its 16 rows
+        const int n = 8 * i + 2 * t;
+        if (n < Dh) {
+          if (ok0) *reinterpret_cast<float2*>(dz1g + (size_t)rg0 * Dh + n) = make_float2(acc2[4 * i], acc2[4 * i + 1]);
+          if (ok1) *reinterpret_cast<float2*>(dz1g + (size_t)rg1 * Dh + n) = make_float2(acc2[4 * i + 2], acc2[4 * i + 3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float sw = sum_rows8(pw[e] + pw[e + 2]), sb = sum_rows8(acc2[4 * i + e] + acc2[4 * i + 2 + e]);
+          if (g == 0 && n + e < Dh) {
+            dw2p[((size_t)item * 4 + warp) * Dh + n + e] = sw;
+            db1p[((size_t)item * 4 + warp) * Dh + n + e] = sb;
+          }
+        }
+      }
+    }
+    if constexpr (kOnePass)  // dh's A operand, read from these registers as they stand
+#pragma unroll
+      for (int i = 0; i < kNZ / 2; ++i) acc2[i] = __uint_as_float(round_tf32(acc2[i]));
+    sync_consumers();  // every thread has read the parts: the tile takes dz0 next
+
+    // (4) dh = dz1 . W1^T[:, c]; dz0 = [z0 > 0] dh, into the tile and out
+#pragma unroll 1
+    for (int i = 0; i < mine; ++i) {
+      const int c = wg + 2 * i;
+      float acc[kNC / 2];
+#pragma unroll
+      for (int e = 0; e < kNC / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kNZ / 32; ++s) {
+        if (s < s2) {
+          mbar_wait(full + q % kBRing, (q / kBRing) & 1);
+          const float* sb = ring + (q % kBRing) * kStage;
+          uint32_t fl[4][4];  // "highest": the stage's small A fragments
+          if constexpr (!kOnePass) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const int j = 4 * s + kk;
+              float xs[4] = {acc2[4 * j], acc2[4 * j + 2], acc2[4 * j + 1], acc2[4 * j + 3]};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                // pinned after this stage's wait (asm volatile keeps its order), so the
+                // splits of later stages are not hoisted into this one's registers
+                asm volatile("mov.b32 %0, %0;\n" : "+f"(xs[e]));
+                uint32_t big;
+                split_int(xs[e], big, fl[kk][e]);
+              }
+            }
+          }
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const int j = 4 * s + kk;
+            const uint64_t db = kmajor_desc(sb + kk * kStep1, kStep1 * 2, 128);
+            // dz1's C fragment as the A fragment of hidden k-step j (pair order), as it
+            // stands: rounded in place (one pass), or fp32, whose TF32 bits the tensor
+            // core reads, its big part (3xTF32)
+            const uint32_t a4[4] = {__float_as_uint(acc2[4 * j]), __float_as_uint(acc2[4 * j + 2]),
+                                    __float_as_uint(acc2[4 * j + 1]), __float_as_uint(acc2[4 * j + 3])};
+            if constexpr (!kOnePass) {
+              const uint64_t ds = kmajor_desc(sb + kStage / 2 + kk * kStep1, kStep1 * 2, 128);
+              wgmma_n64(acc, fl[kk], db);
+              wgmma_n64(acc, a4, ds);
+            }
+            wgmma_n64(acc, a4, db);
+          }
+          wg_commit();
+          // one pass: dz1 stays as it is, so one group stays in flight; 3xTF32:
+          // the stage's fragments are rewritten by the next stage
+          if constexpr (kOnePass) wg_wait<1>(); else wg_wait<0>();
+          refill(q);
+          ++q;
+        }
+      }
+      wg_wait<0>();
+      const uint32_t bits = maskb[i * kBThreads + tid];
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const int col = kNC * c + 8 * j + 2 * t;
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = (bits >> (4 * j + e)) & 1u ? acc[4 * j + e] : 0.f;
+        auto tv = [](float x) { return kOnePass ? __uint_as_float(round_tf32(x)) : x; };
+        *reinterpret_cast<float2*>(tile + tix(r0, col)) = make_float2(tv(d[0]), tv(d[1]));
+        *reinterpret_cast<float2*>(tile + tix(r0 + 8, col)) = make_float2(tv(d[2]), tv(d[3]));
+        if (col < D) {
+          if (ok0) *reinterpret_cast<float2*>(dz0g + (size_t)rg0 * D + col) = make_float2(d[0], d[1]);
+          if (ok1) *reinterpret_cast<float2*>(dz0g + (size_t)rg1 * D + col) = make_float2(d[2], d[3]);
+        }
+        seg_sum(dwlp, D, col, d[0], d[1], d[2], d[3]);
+      }
+    }
+    sync_consumers();  // the dz0 tile is whole
+
+    // (5) dcross = dz0 . Wx^T[:, c]: dcross * arg_a out, darg = sum_t dcross vis by warp
+    if (it + 1 < items) {  // the next item's vis and wv rows into L2 meanwhile (128-byte lines)
+      const int nrow0 = row0 + gridDim.x * kBRows;
+      for (int idx = tid; idx < 2 * kBRows * (D / 32); idx += kBThreads) {
+        const int r = idx / (2 * (D / 32)), w = idx % (2 * (D / 32)), rr = nrow0 + r, pba = rr / T;
+        const float* src = (w & 1 ? wv : vis) + ((size_t)(pba / A) * T + (rr - pba * T)) * D + 32 * (w >> 1);
+        if (rr < R) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src));
+      }
+    }
+#pragma unroll 1
+    for (int i = 0; i < mine; ++i) {
+      const int c = wg + 2 * i;
+      float acc[kNC / 2];
+      tile_product(acc);
+      float4 av[kNC / 8];  // arg at the two rows' (b, a)
+      float2 x0[kNC / 8], x1[kNC / 8];  // the chunk's loads, issued together
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const int col = kNC * c + 8 * j + 2 * t;
+        const float2 zero2 = make_float2(0.f, 0.f);
+        const float2 a0 = ok0 && col < D ? __ldg(reinterpret_cast<const float2*>(arg + (size_t)ba0 * D + col)) : zero2;
+        const float2 a1 = ok1 && col < D ? __ldg(reinterpret_cast<const float2*>(arg + (size_t)ba1 * D + col)) : zero2;
+        x0[j] = ok0 && col < D ? __ldg(reinterpret_cast<const float2*>(vis + (size_t)vr0 * D + col)) : zero2;
+        x1[j] = ok1 && col < D ? __ldg(reinterpret_cast<const float2*>(vis + (size_t)vr1 * D + col)) : zero2;
+        av[j] = make_float4(a0.x, a0.y, a1.x, a1.y);
+      }
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const int col = kNC * c + 8 * j + 2 * t;
+        if (col >= D) continue;
+        if (ok0)
+          *reinterpret_cast<float2*>(dvisp + (size_t)rg0 * D + col) = make_float2(acc[4 * j] * av[j].x, acc[4 * j + 1] * av[j].y);
+        if (ok1)
+          *reinterpret_cast<float2*>(dvisp + (size_t)rg1 * D + col) =
+              make_float2(acc[4 * j + 2] * av[j].z, acc[4 * j + 3] * av[j].w);
+        seg_sum(dargp, D, col, acc[4 * j] * x0[j].x, acc[4 * j + 1] * x0[j].y, acc[4 * j + 2] * x1[j].x,
+                acc[4 * j + 3] * x1[j].y);
+      }
+    }
+  }
+}
+
+constexpr int kGM = 128;                          // output rows a block (dz columns j): two warpgroups of 64
+constexpr int kGN = 256;                          // output columns a block (cross or h columns i)
+constexpr int kGALd = kGM + 8;                    // A stage row stride: 8 (mod 32) words
+constexpr int kGAStage = kTGroup * kGALd;         // floats: 32 rows of dz
+constexpr int kGBPart = kTGroup * kGN;            // floats: 8 pieces of 4 rows x 256 columns
+constexpr int kGStage = kGAStage + kParts * kGBPart;
+constexpr int kGRing = kOnePass ? 4 : 2;
+constexpr int kGThreads = 320;                    // two consumer warpgroups and two producer warps
+
+size_t bwd_w_smem() { return sizeof(float) * (size_t)kGRing * kGStage + sizeof(uint64_t) * 2 * kGRing; }
+
+// blockIdx.x: an output tile of dWx^T (ceil(D / 128) x ceil(D / 256) of
+// them), then of dW1^T; blockIdx.y: a chunk of ``per`` row groups of 32.
+// dz0 (groups x 32, D) and dz1 (groups x 32, Dh) rows, zero past R;
+// crossT and hT the transposed layout (tpos), a plane each part, zero past R.
+__global__ void __launch_bounds__(kGThreads, 1)
+head_bwd_w_wg(const float* __restrict__ dz0, const float* __restrict__ dz1, const float* __restrict__ crossT,
+              const float* __restrict__ hT, float* __restrict__ dwx_part, float* __restrict__ dw1_part, int D,
+              int Dh, int groups, int per, size_t plane) {
+  extern __shared__ __align__(1024) float4 gsm4[];
+  float* sm = reinterpret_cast<float*>(gsm4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kGRing * kGStage);
+  uint64_t* empty = full + kGRing;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tn = (D + kGN - 1) / kGN, tmx = (D + kGM - 1) / kGM;
+  int tile = blockIdx.x;
+  const bool first = tile < tmx * tn;
+  if (!first) tile -= tmx * tn;
+  const int j0 = tile / tn * kGM, i0 = tile % tn * kGN;
+  const int M = first ? D : Dh;
+  const float* Y = first ? dz0 : dz1;
+  const float* X = first ? crossT : hT;
+  const int g_lo = blockIdx.y * per, nst = min(groups, g_lo + per) - g_lo;
+  if (tid == 0) {
+    for (int r = 0; r < kGRing; ++r) {
+      mbar_init(full + r, 1);
+      mbar_init(empty + r, 8);  // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producers, stages of parity warp - 8: lane l copies A row l, lanes 0 .. 8 kParts - 1 the B pieces
+    const uint32_t abytes = 4 * min(kGM, M - j0), bbytes = 16 * min(kGN, D - i0);
+    const uint32_t bytes = kTGroup * abytes + kParts * 8 * bbytes;
+    for (int s = warp - 8; s < nst; s += 2) {
+      const int slot = s % kGRing;
+      if (s >= kGRing) mbar_wait(empty + slot, (s / kGRing - 1) & 1);
+      if (lane == 0) mbar_expect(full + slot, bytes);
+      __syncwarp();
+      float* as = sm + slot * kGStage;
+      const size_t grp = (size_t)g_lo + s;
+      bulk_copy(as + lane * kGALd, Y + (grp * kTGroup + lane) * M + j0, abytes, full + slot);
+      if (lane < 8 * kParts) {
+        const int kq = lane & 7, p = lane >> 3;
+        bulk_copy(as + kGAStage + p * kGBPart + kq * kGN * 4, X + p * plane + ((grp * 8 + kq) * D + i0) * 4, bbytes,
+                  full + slot);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int m0 = 64 * wg + 16 * (warp & 3) + g;  // this thread's A rows (output rows j - j0): m0, m0 + 8
+  float acc[kGN / 2];
+#pragma unroll
+  for (int i = 0; i < kGN / 2; ++i) acc[i] = 0.f;
+  uint32_t fa[2][4], fs[2][4];
+  for (int s = 0; s < nst; ++s) {
+    const int slot = s % kGRing;
+    mbar_wait(full + slot, (s / kGRing) & 1);
+    const float* as = sm + slot * kGStage;
+    const float* bs = as + kGAStage;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int f = kk & 1;
+      const float* p = as + (8 * kk + t) * kGALd + m0;  // A(m, k) = dz[row k][column m]
+      const float xs[4] = {p[0], p[8], p[4 * kGALd], p[4 * kGALd + 8]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split<kOnePass>(xs[e], fa[f][e], fs[f][e]);
+      wg_fence();
+      // B: pieces 2 kk and 2 kk + 1 (rows 0-3, 4-7 of the k-step), 4 KB apart; 8-column groups 128 bytes apart
+      const uint64_t db = kmajor_desc(bs + 2 * kk * kGN * 4, kGN * 16, 128);
+      if constexpr (!kOnePass) {
+        const uint64_t ds = kmajor_desc(bs + kGBPart + 2 * kk * kGN * 4, kGN * 16, 128);
+        wgmma_n256(acc, fs[f], db);
+        wgmma_n256(acc, fa[f], ds);
+      }
+      wgmma_n256(acc, fa[f], db);
+      wg_commit();
+      wg_wait<1>();
+      if (kk == 0 && s > 0 && lane == 0) mbar_arrive(empty + (s - 1) % kGRing);  // stage s - 1 is read
+    }
+  }
+  wg_wait<0>();
+  // C fragment: acc[4q + e] at (m0 + 8 (e >> 1), column 8q + 2t + (e & 1)); out[i][j] = acc(j, i)
+  float* out = (first ? dwx_part + (size_t)blockIdx.y * D * D : dw1_part + (size_t)blockIdx.y * D * Dh);
+#pragma unroll
+  for (int qq = 0; qq < kGN / 8; ++qq)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + m0 + 8 * (e >> 1), i = i0 + 8 * qq + 2 * t + (e & 1);
+      if (j < M && i < D) out[(size_t)i * M + j] = acc[4 * qq + e];
+    }
+}
+
+// The narrow backward's gradients from the kernels' parts, each a sum in a
+// fixed order (16 bytes a thread; D % 4 == Dh % 4 == 0): dvis[b, t] =
+// sum_a dvis_part[b, a, t] and dwv[b, t] = sum_a dz0[b, a, t]; dWx and dW1
+// over the weight kernel's chunks; darg and dwl over their slots; db1 and
+// dw2 over the row kernel's (item, warp) parts.
+__global__ void __launch_bounds__(256)
+head_bwd_finish(const float* __restrict__ dvisp, const float* __restrict__ dz0, const float* __restrict__ dwxp,
+                const float* __restrict__ dw1p, const float* __restrict__ dargp, const float* __restrict__ dwlp,
+                const float* __restrict__ db1p, const float* __restrict__ dw2p, float* __restrict__ dvis,
+                float* __restrict__ dwv, float* __restrict__ dwx, float* __restrict__ dw1, float* __restrict__ darg,
+                float* __restrict__ dwl, float* __restrict__ db1, float* __restrict__ dw2, int B, int A, int T, int D,
+                int Dh, int chunks, int nslots, int nparts) {
+  auto add = [](float4 a, float4 b) { return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w); };
+  const int nq = Dh / 4;  // the last nq blocks: db1 and dw2, a column quad a block
+  if ((int)blockIdx.x >= (int)gridDim.x - nq) {
+    // a thread the parts tid, tid + 256, ... in order, then a fixed tree over the block
+    __shared__ float4 red[2][256];
+    const int c = blockIdx.x - (gridDim.x - nq);
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    for (int pp = threadIdx.x; pp < nparts; pp += 256) {
+      x = add(x, __ldg(reinterpret_cast<const float4*>(db1p) + (size_t)pp * nq + c));
+      y = add(y, __ldg(reinterpret_cast<const float4*>(dw2p) + (size_t)pp * nq + c));
+    }
+    red[0][threadIdx.x] = x;
+    red[1][threadIdx.x] = y;
+    __syncthreads();
+    for (int w = 128; w > 0; w >>= 1) {
+      if ((int)threadIdx.x < w) {
+        red[0][threadIdx.x] = add(red[0][threadIdx.x], red[0][threadIdx.x + w]);
+        red[1][threadIdx.x] = add(red[1][threadIdx.x], red[1][threadIdx.x + w]);
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+      reinterpret_cast<float4*>(db1)[c] = red[0][0];
+      reinterpret_cast<float4*>(dw2)[c] = red[1][0];
+    }
+    return;
+  }
+  const size_t n1 = (size_t)B * T * D / 4, n2 = (size_t)D * D / 4, n3 = (size_t)D * Dh / 4;
+  const size_t n4 = (size_t)B * A * D / 4, nb = gridDim.x - nq;
+  const float4* v4 = reinterpret_cast<const float4*>(dvisp);
+  const float4* z4 = reinterpret_cast<const float4*>(dz0);
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n1 + n2 + n3 + n4; i += nb * blockDim.x) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+    if (i < n1) {  // over the args (32-bit index math: fewer than 2^31 float4 a tensor)
+      const unsigned d4 = D / 4, bt = (unsigned)i / d4, b = bt / T, tr = bt - b * T, c = (unsigned)i - bt * d4;
+      for (int a = 0; a < A; ++a) {
+        const size_t at = ((size_t)(b * A + a) * T + tr) * d4 + c;
+        x = add(x, __ldg(v4 + at));
+        y = add(y, __ldg(z4 + at));
+      }
+      reinterpret_cast<float4*>(dvis)[i] = x;
+      reinterpret_cast<float4*>(dwv)[i] = y;
+    } else if (i < n1 + n2 + n3) {  // over the chunks
+      const bool first = i < n1 + n2;
+      const size_t o = first ? i - n1 : i - n1 - n2, n = first ? n2 : n3;
+      const float4* src = reinterpret_cast<const float4*>(first ? dwxp : dw1p) + o;
+      for (int c = 0; c < chunks; ++c) x = add(x, __ldg(src + c * n));
+      reinterpret_cast<float4*>(first ? dwx : dw1)[o] = x;
+    } else {  // over the slots
+      const unsigned o = (unsigned)(i - n1 - n2 - n3), ba = o / (D / 4), c = o - ba * (D / 4);
+      for (int sl = 0; sl < nslots; ++sl) {
+        const size_t at = (ba * nslots + sl) * (D / 4) + c;
+        x = add(x, __ldg(reinterpret_cast<const float4*>(dargp) + at));
+        y = add(y, __ldg(reinterpret_cast<const float4*>(dwlp) + at));
+      }
+      reinterpret_cast<float4*>(darg)[o] = x;
+      reinterpret_cast<float4*>(dwl)[o] = y;
+    }
+  }
+}
+
+// The narrow path's backward: the two streams, the row kernel (a
+// persistent grid), then the weight kernel (``chunks`` x ``per`` row groups)
+int launch_bwd_wg(const float* vis, const float* arg, const float* wv, const float* wl, const float* wx,
+                  const float* w1, const float* b1, const float* w2, const float* gin, float* wstream,
+                  float* crossT, float* hT, float* dz0, float* dz1, float* dvisp, float* dargp,
+                  float* dwlp, float* db1p, float* dw2p, float* dwx_part, float* dw1_part, float* const* out,
+                  int B, int A, int T, int D, int Dh, int chunks, int per, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t e = sm_count(device, sms);
+  if (e != cudaSuccess) return (int)e;
+  const int Dp = (D + kNC - 1) / kNC * kNC;
+  const size_t R = (size_t)B * A * T;
+  const int groups = (int)((R + kTGroup - 1) / kTGroup);
+  if (chunks != (groups + per - 1) / per) return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)groups * kTGroup * D;
+  // zero past R: the last row group of each transposed plane, the dz rows past R
+  for (int p = 0; p < kParts && e == cudaSuccess; ++p) {
+    const size_t last = (size_t)(groups - 1) * kTGroup * D;
+    e = cudaMemsetAsync(crossT + p * plane + last, 0, sizeof(float) * kTGroup * D, stream);
+    if (e == cudaSuccess) e = cudaMemsetAsync(hT + p * plane + last, 0, sizeof(float) * kTGroup * D, stream);
+  }
+  const size_t pad = (size_t)groups * kTGroup - R;
+  if (e == cudaSuccess && pad) e = cudaMemsetAsync(dz0 + R * D, 0, sizeof(float) * pad * D, stream);
+  if (e == cudaSuccess && pad) e = cudaMemsetAsync(dz1 + R * Dh, 0, sizeof(float) * pad * Dh, stream);
+  // the slots of darg's and dwl's parts that no 16-row block meets stay 0
+  const size_t slots = (size_t)B * A * ((T + 15) / 16 + 1) * D;
+  if (e == cudaSuccess) e = cudaMemsetAsync(dargp, 0, sizeof(float) * slots, stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(dwlp, 0, sizeof(float) * slots, stream);
+  if (e != cudaSuccess) return (int)e;
+  const size_t first = (size_t)kParts * (Dp / kNC) * chunk_floats(Dp, 1);
+  const size_t total = first + bwd_stream_floats(Dp, Dh);
+  head_bwd_prep<<<(int)((total + 255) / 256), 256, 0, stream>>>(wx, w1, wstream, D, Dp, Dh);
+  const size_t rsm = bwd_rows_smem(Dp), wsm = bwd_w_smem();
+  e = cudaFuncSetAttribute(head_bwd_rows_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rsm);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(head_bwd_w_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wsm);
+  if (e != cudaSuccess) return (int)e;
+  const int items = (int)((R + kBRows - 1) / kBRows);
+  head_bwd_rows_wg<<<items < sms ? items : sms, kBThreads + kProdThreads, rsm, stream>>>(
+      vis, arg, wv, wl, wstream, wstream + first, b1, w2, gin, crossT, hT, dz0, dz1, dvisp, dargp, dwlp, db1p, dw2p, B, A,
+      T, D, Dp, Dh, plane);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((D + kGM - 1) / kGM + (Dh + kGM - 1) / kGM) * ((D + kGN - 1) / kGN);
+  head_bwd_w_wg<<<dim3(tiles, chunks), kGThreads, wsm, stream>>>(dz0, dz1, crossT, hT, dwx_part, dw1_part, D, Dh,
+                                                                 groups, per, plane);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int nslots = (T + 15) / 16 + 1, nparts = 4 * items;
+  const size_t n = ((size_t)B * T * D + (size_t)D * D + (size_t)D * Dh + (size_t)B * A * D) / 4;
+  const int nb = (int)((n + 255) / 256 < 8 * (size_t)sms ? (n + 255) / 256 : 8 * (size_t)sms);
+  head_bwd_finish<<<nb + Dh / 4, 256, 0, stream>>>(
+      dvisp, dz0, dwx_part, dw1_part, dargp, dwlp, db1p, dw2p, out[0], out[1], out[2], out[3], out[4], out[5], out[6],
+      out[7], B, A, T, D, Dh, chunks, nslots, nparts);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// D % 32 == 0, Dh % 16 == 0 (the wrapper zero-pads other widths).
-// cross, h, dz0: (B, A, T, D) and dz1 (B, A, T, Dh) scratch between the
-// two kernels; chunks: the row split of the weight-gradient kernel
-// (dwx_part holds chunks x D x D, dw1_part chunks x D x Dh); darg/dwl partials hold
-// B x ceil(T/16) x A x D, db1/dw2 partials B x ceil(T/16) x Dh.
+// The wide path (D > 512 or Dh > 256; D % 32 == 0, Dh % 16 == 0, the
+// wrapper zero-pads other widths).  cross, h, dz0: (B, A, T, D) and dz1
+// (B, A, T, Dh) scratch between the two kernels; chunks: the row split of
+// the weight-gradient kernel (dwx_part holds chunks x D x D, dw1_part
+// chunks x D x Dh); darg/dwl partials hold B x ceil(T/16) x A x D, db1/dw2
+// partials B x ceil(T/16) x Dh.
 extern "C" int vog_head_bwd(int device, const float* vis, const float* arg, const float* wv,
                             const float* wl, const float* wx, const float* w1,
                             const float* b1, const float* w2, const float* gin,
@@ -1495,19 +2178,14 @@ extern "C" int vog_head_bwd(int device, const float* vis, const float* arg, cons
                             int chunks, void* stream) {
   VOG_DEVICE_GUARD(device);
   if (D < 32 || D % 32 != 0 || Dh < 16 || Dh % 16 != 0 || chunks < 1 || !aligned16(wx) ||
-      !aligned16(w1))  // the weights stream by 16-byte cp.async
+      !aligned16(w1) || (D <= kMaxD && Dh <= kMaxHid))  // the weights stream by 16-byte cp.async
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = D > kMaxD || Dh > kMaxHid;
-#define VOG_HEAD_BWD_CASE(n)                                                                   \
-  case n:                                                                                      \
-    return wide ? launch_bwd<n, true>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1,  \
-                                      dvis, dwv, darg_part, dwl_part, db1_part, dw2_part,      \
-                                      dwx_part, dw1_part, B, T, D, Dh, chunks, device, s)      \
-                : launch_bwd<n, false>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, \
-                                       dvis, dwv, darg_part, dwl_part, db1_part, dw2_part,     \
-                                       dwx_part, dw1_part, B, T, D, Dh, chunks, device, s);
+#define VOG_HEAD_BWD_CASE(n)                                                                          \
+  case n:                                                                                             \
+    return launch_bwd<n>(vis, arg, wv, wl, wx, w1, b1, w2, gin, cross, h, dz0, dz1, dvis, dwv, darg_part, \
+                         dwl_part, db1_part, dw2_part, dwx_part, dw1_part, B, T, D, Dh, chunks, device, s);
   switch (A) {
     VOG_HEAD_BWD_CASE(1)
     VOG_HEAD_BWD_CASE(2)
@@ -1518,6 +2196,38 @@ extern "C" int vog_head_bwd(int device, const float* vis, const float* arg, cons
       return (int)cudaErrorInvalidValue;
   }
 #undef VOG_HEAD_BWD_CASE
+}
+
+// The narrow path (D <= 512, Dh <= 256; D % 32 == 0, Dh % 16 == 0; T >=
+// 16, the wrapper pads a shorter one), any A.
+// Scratch: wstream, the forward's stream (vog_head_fwd_prep's size at Dh
+// <= 256) and then the backward's (kParts x D_pad / 64 x (ceil(Dh / 32) +
+// D_pad / 32) x 2048 floats); crossT and hT kParts planes of ceil(R /
+// 32) 32 x D floats (R = B A T rows (b, a, t)); dz0 and dz1 ceil(R / 32)
+// 32 rows of D and Dh; dvis_part (B, A, T, D: dcross * arg_a); the parts
+// darg_part and dwl_part (B A, ceil(T / 16) + 1, D: a slot a 16-row block
+// that meets the (b, a)'s rows, the others zeroed here), db1_part and
+// dw2_part (ceil(R / 64), 4, Dh), dwx_part (chunks, D, D) and dw1_part
+// (chunks, D, Dh), chunks = ceil(ceil(R / 32) / per).  Out (head_bwd_finish):
+// dvis, dwv (B, T, D), dwx (D, D), dw1 (D, Dh), darg, dwl (B, A, D), db1,
+// dw2 (Dh).
+extern "C" int vog_head_bwd_wg(int device, const float* vis, const float* arg, const float* wv, const float* wl,
+                               const float* wx, const float* w1, const float* b1, const float* w2,
+                               const float* gin, float* wstream, float* crossT, float* hT,
+                               float* dz0, float* dz1, float* dvis_part, float* darg_part, float* dwl_part,
+                               float* db1_part, float* dw2_part, float* dwx_part, float* dw1_part, float* dvis,
+                               float* dwv, float* dwx, float* dw1, float* darg, float* dwl, float* db1, float* dw2,
+                               int B, int A, int T, int D, int Dh, int chunks, int per, void* stream) {
+  VOG_DEVICE_GUARD(device);
+  if (D < 32 || D % 32 != 0 || Dh < 16 || Dh % 16 != 0 || D > kMaxD || Dh > kMaxHid || A < 1 || per < 1 ||
+      (T > 0 && T < 16) || !aligned16(vis) || !aligned16(arg) || !aligned16(wstream) || !aligned16(crossT) ||
+      !aligned16(hT) || !aligned16(dz0) || !aligned16(dz1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  float* const out[8] = {dvis, dwv, dwx, dw1, darg, dwl, db1, dw2};
+  return launch_bwd_wg(vis, arg, wv, wl, wx, w1, b1, w2, gin, wstream, crossT, hT, dz0, dz1, dvis_part,
+                       darg_part, dwl_part, db1_part, dw2_part, dwx_part, dw1_part, out, B, A, T, D, Dh,
+                       chunks, per, device, static_cast<cudaStream_t>(stream));
 }
 
 // The forward's weight stream (head_fwd_prep): wstream holds kParts (2, or
@@ -1532,6 +2242,20 @@ extern "C" int vog_head_fwd_prep(int device, const float* wx, const float* w1, f
   const int total = kParts * (Dp / kNC) * chunk_floats(Dp, hidden_groups(Dh));
   head_fwd_prep<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(wx, w1, wstream,
                                                                                     D, Dp, Dh);
+  return (int)cudaGetLastError();
+}
+
+// The narrow backward's streams (head_bwd_prep, launched by vog_head_bwd_wg;
+// here for a check against its plain version): wstream holds the forward's
+// stream and then the backward's, as vog_head_bwd_wg takes them.
+extern "C" int vog_head_bwd_prep(int device, const float* wx, const float* w1, float* wstream, int D, int Dh,
+                                 void* stream) {
+  VOG_DEVICE_GUARD(device);
+  if (D < 32 || D % 32 != 0 || Dh < 16 || Dh % 16 != 0 || D > kMaxD || Dh > kMaxHid) return (int)cudaErrorInvalidValue;
+  const int Dp = (D + kNC - 1) / kNC * kNC;
+  const size_t total = (size_t)kParts * (Dp / kNC) * chunk_floats(Dp, 1) + bwd_stream_floats(Dp, Dh);
+  head_bwd_prep<<<(int)((total + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(wx, w1, wstream, D, Dp,
+                                                                                         Dh);
   return (int)cudaGetLastError();
 }
 

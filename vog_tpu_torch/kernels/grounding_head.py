@@ -19,17 +19,20 @@ single library call computes this function.
 Backward: replaces §_fused_head_bwd (``_bwd_kernel``, all 9 gradients).
 The TPU kernel accumulates the (D,D) and (D,Dh) weight gradients in VMEM
 across its sequential grid; CUDA blocks run in parallel, so the card runs
-two kernels (csrc/grounding_head.cu): ``head_bwd_rows`` recomputes the
-tiles per (b, 16 tokens), its weights streamed by ``cp.async`` into per-warp
-rings, and writes dvis, dwv, the cross rows, h, dz0, dz1 and per-block
-partials of darg, dwl, db1, dw2; ``head_bwd_w``, one launch for both
-weights, forms dWx = sum cross^T dz0 and dW1 = sum h^T dz1 in row chunks
-(rows streamed by ``cp.async``).  The batch rows past the row kernel's
-first wave run on a second stream, so that the weight kernel's first
-chunks fill the SMs its second wave leaves idle; the caller's stream
-waits for it.  The partials are added up here in a
-fixed order (``sum`` over a dimension), so the gradients do not change
-between runs.  All products run in 3xTF32 mma.sync.
+a row kernel and a weight kernel (csrc/grounding_head.cu).  Up to D 512
+and Dh 256 (``_bwd_launch_narrow``, one C call): ``head_bwd_prep`` lays
+out the weight streams, ``head_bwd_rows_wg`` (a persistent grid on
+wgmma, tiles of 64 flattened (b, a, t) rows, the weights streamed by bulk
+copies from a producer warpgroup) recomputes z0, h and z1 and forms dz1,
+dz0 and dcross, writing cross and h transposed (the K-major operands of
+the weight products), dz0 and dz1 rows and its parts of the other
+gradients; ``head_bwd_w_wg`` forms dWx and dW1 on wgmma in row chunks; and
+``head_bwd_finish`` adds every part up in a fixed order, so the gradients
+do not change between runs.  Past either width the wide path's two
+kernels on mma.sync (``head_bwd_rows``, ``head_bwd_w``), the batch rows
+past the row kernel's first wave on a second stream, so that the weight
+kernel's first chunks fill the SMs its second wave leaves idle; their
+partials are added up here in a fixed order (``sum`` over a dimension).
 
 Widths: the kernels take D % 32 == 0 and Dh % 16 == 0, at any size; the
 wrapper zero-pads other widths (``pad_head``: exact, the padded z0 and z1
@@ -58,9 +61,10 @@ Precision (``config.kernel_precision``): at "highest" the products are
 3xTF32, as above; at "default" (the library built with
 ``-DVOG_ONE_PASS=1``) they are one TF32 pass: ``head_fwd_prep`` lays out
 each weight once, rounded to the nearest TF32, so the stream halves, each
-k-step issues one wgmma instead of three, and the backward's mma.sync
-products take one pass.  Launches count as ``fused_grounding_head@default``
-and ``fused_grounding_head_bwd@default``.  The operands stay fp32 (as the
+k-step issues one wgmma instead of three (the backward's too: its weight
+streams and transposed operands hold one rounded part), and the wide
+backward's mma.sync products take one pass.  Launches count as
+``fused_grounding_head@default`` and ``fused_grounding_head_bwd@default``.  The operands stay fp32 (as the
 JAX package keeps them, its grounding.py:92-98); the forward reads the
 precision and its ctx carries it to the backward.
 """
@@ -150,7 +154,7 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((x.view(torch.int32) + 0x1000) & -8192).view(torch.float32)
 
 
-def fwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
+def fwd_stream_plain(wx, w1, precision: str = "highest", natural: bool = False) -> torch.Tensor:
     """Plain version of ``head_fwd_prep``: Wx (D, D) and W1 (D, Dh) as the
     forward's weight stream, zero-padded to D_pad (a multiple of 64) and
     to ng = ceil(Dh / 256) groups of 256 hidden columns.  Chunk c holds the
@@ -163,7 +167,9 @@ def fwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
     low 13 mantissa bits cleared: TF32 toward zero), then its small parts
     (the rest, exact): big + small rebuilds every weight.  At "default" a
     stage holds each weight once, rounded to the nearest TF32
-    (``round_tf32``)."""
+    (``round_tf32``).  ``natural``: the z0 k-steps in natural order, slot
+    u of half e holding row 4e + u (the backward's layout, whose z0 A
+    operand is read from shared memory, ``head_bwd_prep``)."""
     D, Dh = wx.shape[0], w1.shape[1]
     dp = -(-D // FWD_CHUNK) * FWD_CHUNK
     nch, ng = dp // FWD_CHUNK, -(-Dh // HIDDEN_GROUP)
@@ -173,7 +179,10 @@ def fwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
     w1p[:D, :Dh] = w1
     # row k = 8 step + 2 u + e -> (step, u, e); Wx column 64 c + n -> (c, n);
     # W1 column 256 hg + n -> (hg, n)
-    z0 = wxp.reshape(dp // 8, 4, 2, nch, FWD_CHUNK).permute(3, 0, 2, 4, 1).reshape(nch, -1)
+    if natural:  # row k = 8 step + 4 e + u
+        z0 = wxp.reshape(dp // 8, 2, 4, nch, FWD_CHUNK).permute(3, 0, 1, 4, 2).reshape(nch, -1)
+    else:
+        z0 = wxp.reshape(dp // 8, 4, 2, nch, FWD_CHUNK).permute(3, 0, 2, 4, 1).reshape(nch, -1)
     z1 = w1p.reshape(nch, 8, 4, 2, ng, HIDDEN_GROUP).permute(0, 4, 1, 3, 5, 2).reshape(nch, -1)
     raw = torch.cat([z0, z1], dim=1).reshape(-1, 2048).contiguous()
     if precision != "highest":
@@ -332,15 +341,88 @@ def _bwd(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
     return grads
 
 
+def bwd_stream_floats(D: int, precision: str = "highest", Dh: int = HIDDEN_GROUP) -> int:
+    """Floats of the narrow backward's weight stream (``head_bwd_prep``):
+    for each of the D_pad / 64 chunks, ceil(Dh / 32) stages of dh = dz1 .
+    W1^T and then, for each chunk, D_pad / 32 stages of dcross = dz0 . Wx^T,
+    2048 weights a stage, each stored as its big and small parts
+    ("highest") or once, rounded ("default")."""
+    dp = -(-D // FWD_CHUNK) * FWD_CHUNK
+    parts = 2 if precision == "highest" else 1
+    return parts * (dp // FWD_CHUNK) * (-(-Dh // 32) + dp // 32) * 2048
+
+
+def bwd_stream_plain(wx, w1, precision: str = "highest") -> torch.Tensor:
+    """Plain version of the backward's part of ``head_bwd_prep`` (which
+    writes ``fwd_stream_plain(..., natural=True)`` first): W1^T and Wx^T as
+    the stream of the narrow backward's dh and dcross products, in the
+    forward's z0 format (``fwd_stream_plain``): for each 64-column chunk c,
+    the k-steps s of dh (B(k, n) = W1[64c + n, 8s + k], k over Dh
+    zero-padded to 32), then for each chunk the k-steps of dcross (B(k, n)
+    = Wx[64c + n, 8s + k]); a k-step is [k half e][column n][k slot u],
+    slot u of half e holding k 2u + e for dh (its A operand comes from
+    registers in pair order) and k 4e + u for dcross (from shared memory);
+    stages of 2048 weights, big then small parts, or rounded at
+    "default"."""
+    D, Dh = wx.shape[0], w1.shape[1]
+    dp = -(-D // FWD_CHUNK) * FWD_CHUNK
+    nch, kh = dp // FWD_CHUNK, -(-Dh // 32) * 32
+
+    def steps(m, K, natural):  # m (D_pad, K): B(k, n) = m[64c + n, k] -> (nch, K * 64) in k-step order
+        if natural:  # k = 8 s + 4 e + u
+            return m.reshape(nch, FWD_CHUNK, K // 8, 2, 4).permute(0, 2, 3, 1, 4).reshape(nch, -1)
+        return m.reshape(nch, FWD_CHUNK, K // 8, 4, 2).permute(0, 2, 4, 1, 3).reshape(nch, -1)
+
+    w1p = w1.new_zeros((dp, kh))
+    w1p[:D, :Dh] = w1
+    wxp = wx.new_zeros((dp, dp))
+    wxp[:D, :D] = wx
+    raw = torch.cat([steps(w1p, kh, False).reshape(-1), steps(wxp, dp, True).reshape(-1)]).reshape(-1, 2048)
+    if precision != "highest":
+        return round_tf32(raw).reshape(-1)
+    big = (raw.view(torch.int32) & -8192).view(torch.float32)  # 0xffffe000
+    return torch.stack([big, raw - big], dim=1).reshape(-1).contiguous()
+
+
+T_GROUP = 32  # rows of a group of the narrow backward's transposed layout (kTGroup)
+NARROW_MIN_T = 16  # the narrow backward's shortest T (a 16-row block meets at most two (b, a))
+BWD_ROWS = 64  # rows (b, a, t) of an item of the narrow backward's row kernel (kBRows)
+W_TILES = (128, 256)  # output rows (dz columns) and columns of a block of its weight kernel (kGM, kGN)
+
+
+def untranspose(x: torch.Tensor, R: int, D: int) -> torch.Tensor:
+    """The narrow backward's transposed layout back to rows: x holds planes
+    of ceil(R / 32) groups of [(r % 32) / 4][i][r % 4] (D columns i) -> the
+    planes added, (R, D) (big + small at "highest", the rounded values at
+    "default")."""
+    groups = -(-R // T_GROUP)
+    y = x.reshape(-1, groups, T_GROUP // 4, D, 4).sum(0)
+    return y.permute(0, 1, 3, 2).reshape(groups * T_GROUP, D)[:R]
+
+
+def narrow_chunks(R: int, D: int, Dh: int, sms: int) -> tuple:
+    """(chunks, groups a chunk) of the narrow weight kernel: about ``sms``
+    blocks over its output tiles, every chunk holding at least one group of
+    32 rows."""
+    tm, tn = W_TILES
+    tiles = (-(-D // tm) + -(-Dh // tm)) * -(-D // tn)
+    groups = -(-R // T_GROUP)
+    per = -(-groups // max(1, sms // tiles))
+    return -(-groups // per), per
+
+
 def _bwd_launch(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
-    """The two CUDA kernels' launch for one group of args, at widths they
-    take -> the 9 gradients."""
+    """The CUDA kernels' launch for one group of args, at widths they
+    take -> the 9 gradients: the narrow path's (D <= 512, Dh <= 256) or
+    the wide path's."""
     dev = vis.device
     B, T, D = vis.shape
     A, Dh = arg.shape[1], w1.shape[1]
     _build.require(g, "g", torch.float32, 3, dev)
     if tuple(g.shape) != (B, A, T):
         raise ValueError(f"{NAME_BWD}: g shape {tuple(g.shape)} != {(B, A, T)}")
+    if D <= WIDE_D and Dh <= HIDDEN_GROUP:
+        return _bwd_launch_narrow(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch)
     nt = -(-T // ROW_TOKENS)
     e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     cross, h, dz0, dz1 = e(B, A, T, D), e(B, A, T, D), e(B, A, T, D), e(B, A, T, Dh)
@@ -365,6 +447,49 @@ def _bwd_launch(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
         dvis, darg_p.sum(1), dwv, dwl_p.sum(1), dwx_p.sum(0), dw1_p.sum(0),
         db1_p.sum((0, 1)), dw2_p.sum((0, 1)), g.sum().reshape(b2.shape),
     )
+
+
+def _bwd_launch_narrow(vis, arg, wv, wl, wx, w1, b1, w2, b2, g, prec, scratch=None):
+    """The narrow path's launch (``vog_head_bwd_wg``: the weight streams,
+    ``fwd_stream_plain(natural=True)`` then ``bwd_stream_plain``, the row
+    kernel, the weight kernel, and the kernel that adds up their parts in a
+    fixed order) -> the 9 gradients.  T below NARROW_MIN_T is padded with
+    zero tokens whose cotangent is zero."""
+    T0 = vis.shape[1]
+    if T0 < NARROW_MIN_T:  # zero tokens with a zero cotangent: every gradient exact, dvis and dwv sliced back
+        pad = NARROW_MIN_T - T0
+        vis, wv = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (vis, wv))
+        g = torch.nn.functional.pad(g, (0, pad))
+    dev = vis.device
+    B, T, D = vis.shape
+    A, Dh = arg.shape[1], w1.shape[1]
+    R, nslots = B * A * T, -(-T // 16) + 1
+    parts = 2 if prec == "highest" else 1
+    chunks, per = narrow_chunks(R, D, Dh, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rp = -(-R // T_GROUP) * T_GROUP
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    wstream = e(fwd_stream_floats(D, prec, Dh) + bwd_stream_floats(D, prec, Dh))
+    cross_t, h_t = e(parts, rp * D), e(parts, rp * D)
+    dz0, dz1, dvis_p = e(rp, D), e(rp, Dh), e(B, A, T, D)
+    darg_p, dwl_p = e(B * A, nslots, D), e(B * A, nslots, D)  # a slot a 16-row block meeting the (b, a)
+    db1_p, dw2_p = e(-(-R // BWD_ROWS), 4, Dh), e(-(-R // BWD_ROWS), 4, Dh)
+    dwx_p, dw1_p = e(chunks, D, D), e(chunks, D, Dh)
+    grads = (e(B, T, D), e(B, A, D), e(B, T, D), e(B, A, D), e(D, D), e(D, Dh), e(Dh), e(Dh))
+    dvis, darg, dwv, dwl, dwx, dw1, db1, dw2 = grads
+    P, I = _build.P, _build.I
+    fn = _build.function("grounding_head.cu", "vog_head_bwd_wg", [P] * 29 + [I] * 7 + [P], prec)
+    rc = fn(dev.index, *(t.data_ptr() for t in (
+        vis, arg, wv, wl, wx, w1, b1, w2, g, wstream, cross_t, h_t, dz0, dz1, dvis_p, darg_p, dwl_p,
+        db1_p, dw2_p, dwx_p, dw1_p, dvis, dwv, dwx, dw1, darg, dwl, db1, dw2)), B, A, T, D, Dh, chunks, per,
+            _build.stream_ptr(vis))
+    _build.check(rc, NAME_BWD)
+    _build.count(NAME_BWD, prec)
+    if scratch is not None:
+        scratch.update(h=untranspose(h_t, R, D).view(B, A, T, D)[:, :, :T0],
+                       dz1=dz1[:R].view(B, A, T, Dh)[:, :, :T0])
+    if T0 < T:
+        dvis, dwv = dvis[:, :T0].contiguous(), dwv[:, :T0].contiguous()
+    return (dvis, darg, dwv, dwl, dwx, dw1, db1, dw2, g.sum().reshape(b2.shape))
 
 
 class FusedGroundingHead(torch.autograd.Function):
