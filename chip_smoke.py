@@ -516,6 +516,9 @@ def phase_card():
 PTXAS: dict = {}  # library stem -> {kernel function: (registers, spill store bytes)}
 # the head backward's narrow kernels (csrc/grounding_head.cu): gated on spills as the cluster instances
 WGMMA_BWD_INSTANCES = ("head_bwd_rows_wg", "head_bwd_w_wg", "head_bwd_prep", "head_bwd_finish")
+# the mm backward's wgmma kernel and its pass before it (csrc/mm_attention.cu, the library
+# mm_attention_wg@default): gated the same way
+WGMMA_MM_INSTANCES = ("mm_bwd_dkv_wg", "mm_bwd_prep_wg")
 
 
 def phase_build():
@@ -558,6 +561,13 @@ def phase_build():
     built = {(stem, k) for stem, fn in wg for k in WGMMA_BWD_INSTANCES if k in fn}
     if len(built) != 2 * len(WGMMA_BWD_INSTANCES) or any(v[1] for v in wg.values()):
         fail(f"[build] the head backward's narrow instances must build at both precisions and spill nothing: {wg}")
+    mm_stem = _build.lib_stem("mm_attention.cu", "default", _build.WG)
+    mm = {fn: v for fn, v in PTXAS.get(mm_stem, {}).items() if fn.startswith(WGMMA_MM_INSTANCES)}
+    print(f"[build] the mm backward's wgmma instances ({mm_stem}): "
+          + ", ".join(f"{fn[:fn.index('E')] if 'E' in fn else fn} {r} registers, {st} bytes spilled"
+                      for fn, (r, st) in mm.items()), flush=True)
+    if len(mm) != len(WGMMA_MM_INSTANCES) or any(v[1] for v in mm.values()):
+        fail(f"[build] the mm backward's wgmma instances must build and spill nothing: {mm}")
 
 
 def cluster_info(family: str, dh: int, prec: str, A: int = 5, F: int = 1, part: str = "bwd") -> dict:
@@ -1360,6 +1370,37 @@ def phase_kernels_default(cfg, B: int = 16):
               f"{r['frobenius_rel_err']:.3e} (max |err| {r['max_abs_err']:.3e}) {fmt_times(t, 'library')} "
               f"bound={bms:.4f} (TF32)", flush=True)
 
+    def wg_row(errs, t, shared):
+        """The emit backward's dk/dv/dcn kernel, mm_bwd_dkv_wg, as a row of
+        its own: its device ms a launch from a profiler run of the emit
+        backward (``launch_ms``; its split by kernel, ``bwd_by_kernel``,
+        beside it), errors the emit backward's (dk, dv, dcn, and dq and dfb
+        through its comb), the plain backward's time beside it;
+        its bound: its products, 2 BH T^2 dh (2 + 2A), and its bytes (the
+        row matrices, g, the statistics in; dk, dv, dcn, bf16 comb out).
+        No PyTorch call computes dk, dv, dcn and comb alone."""
+        call = lambda: mm_attention.mm_attention_bwd(  # noqa: E731
+            qm, k, v, cn, mask, fb, fid_spat, *fwd, gm, bwd_mode="emit", precision=d)
+        split = kern(lambda: bwd_by_kernel(call, reps, inner))
+        ms = kern(lambda: launch_ms(call, mm_attention.NAME_WG, reps))
+        if ms is None:
+            fail(f"[kernels {tag} default] no device time of {mm_attention.NAME_WG} in the profile: {split}")
+        bms, by = bound_ms(nbytes(qm, k, v, cn, mask, fb, fid_spat, gm, fwd[1], fwd[2]) + 2 * nbytes(cn)
+                           + 2 * nbytes(qm) + B * H * T * T * 2, 2.0 * B * H * T * T * dh * (2 + 2 * A),
+                           TF32_FLOP_PER_S)
+        r = dict(name=f"{mm_attention.NAME_WG}@default", precision=d, route="cuda",
+                 source="vog_tpu_torch/csrc/mm_attention.cu", replaces="vog_tpu/kernels/mm_attention.py:430",
+                 max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+                 frobenius_rel_err=max(e[2] for e in errs), ms=ms, issue_ms=None,
+                 plain_ms=shared["plain_ms"], plain_issue_ms=shared["plain_issue_ms"], library_ms=None,
+                 library_issue_ms=None, bound_ms=bms, bound_by=by, by_kernel=split["by_kernel"],
+                 emit_backward_ms=t["ms"], shape=f"qm,km,vm {tuple(qm.shape)}, A={A}, emit, comb bf16", library=None)
+        out.append(r)
+        print(f"[kernels {tag} default] {r['name']} (the emit backward's dk/dv/dcn kernel: its checks above) "
+              f"device ms={ms:.4f} (a launch, profiler; the emit backward {t['ms']:.4f}: "
+              + ", ".join(f"{kk} {vv:.4f}" for kk, vv in split["by_kernel"].items())
+              + f") plain backward={shared['plain_ms']:.4f} bound={bms:.4f} ({by}, TF32) library=none", flush=True)
+
     # -- flash attention, forward and backward ----------------------------
     q, k, v = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
     mask = (torch.rand((B, T), generator=g, device=dev) > 0.2).float()
@@ -1462,6 +1503,8 @@ def phase_kernels_default(cfg, B: int = 16):
             nbytes(qm, k, v, cn, mask, fb, gm, *fwd) + 3 * nbytes(q) + nbytes(cn),
             f"qm,km,vm {tuple(qm.shape)}, A={A} f32, {mode}" + (", comb bf16" if mode == "emit" else ""),
             "SDPA backward over the repeated query and the float mask, TF32" if shared["library_ms"] else None)
+        if mode == "emit" and mm_attention.bwd_route(mode, d, dh) == "wg":
+            wg_row(errs, t, shared)
     del fwd, gm
 
     # -- fused grounding head, forward and backward -----------------------
@@ -1902,7 +1945,8 @@ def phase_train(tables, card: str, exp_setting: str = "gt5", steps: int = TRAIN_
 KERNEL_SYMBOLS = {"gather_rows": ("gather_rows_k",), "flash_attention": ("flash_fwd",),
                   "mm_shared_qk_attention": ("mm_fwd",), "fused_grounding_head": ("head_fwd",),
                   "flash_attention_bwd": ("flash_bwd_delta", "flash_bwd_dkv", "flash_bwd_dq"),
-                  "mm_shared_qk_attention_bwd": ("mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dq"),
+                  "mm_shared_qk_attention_bwd": ("mm_bwd_delta", "mm_bwd_prep_wg", "mm_bwd_dkv_wg", "mm_bwd_dkv",
+                                                 "mm_bwd_dq"),
                   "fused_grounding_head_bwd": ("head_bwd_rows", "head_bwd_w", "head_bwd_prep", "head_bwd_finish")}
 
 
@@ -2378,6 +2422,22 @@ def variant_name(name: str, cfg) -> str:
     return name if name == "gather_rows" else _build.variant(name, cfg.misc.matmul_precision)
 
 
+def path_names(cfg, names=KERNEL_NAMES) -> set:
+    """The launch counters that a run of ``cfg`` shows for the wrappers
+    ``names``: each one's ``variant_name``, and where the mm backward's
+    emit mode takes mm_bwd_dkv_wg (``mm_attention.bwd_route`` "wg":
+    "default", head dim <= 128), that kernel's counter beside its
+    wrapper's."""
+    from vog_tpu_torch.kernels import mm_attention
+
+    out = {variant_name(n, cfg) for n in names}
+    dh = cfg.mdl.vis_dim // cfg.mdl.n_heads
+    if "mm_shared_qk_attention_bwd" in names and \
+            mm_attention.bwd_route("emit", cfg.misc.matmul_precision, dh) == "wg":
+        out.add(variant_name(mm_attention.NAME_WG, cfg))
+    return out
+
+
 def prod_cfg(exp_setting: str = "gt5", dropout: float = 0.1):
     """The production recipe's numerics on ``train_cfg``: bf16 activations
     and matmul precision "default".  At GT5 with steps_per_dispatch 16 and
@@ -2593,7 +2653,7 @@ def phase_dispatch_prod(tables, card: str, fp32: dict) -> tuple:
         if not all(t.dtype == torch.float32 for t in graph.tensors().values() if t.is_floating_point()):
             fail("dispatch prod: a parameter or optimizer tensor is not fp32 in bf16 mode")
         replays = sum(DISPATCH_GROUPS[1:])
-        want = {variant_name(n, cfg) for n in KERNEL_NAMES}
+        want = path_names(cfg)
         if set(counts) != want:
             fail(f"dispatch prod: launched {sorted(counts)}, expected exactly {sorted(want)}")
         per_step = {k: v / replays for k, v in counts.items()}
@@ -2865,7 +2925,7 @@ def learner_runs(card: str, dispatch_prod: dict, tmp: Path) -> dict:
     if out["nonfinite_steps"]:
         fail(f"{tag} {out['nonfinite_steps']} non-finite steps")
     epochs = read_events(runs, "curve", "epoch")[-(LEARNER_EPOCHS - 2):]  # the last resume's, whole epochs
-    want = {variant_name(n, cfg) for n in KERNEL_NAMES}
+    want = path_names(cfg)
     missing = [k for k in sorted(want) if not counts.get(k)]
     if missing:
         fail(f"{tag} kernels of the path never launched: {missing} (launched {counts})")
@@ -3311,7 +3371,7 @@ def phase_dispatch_p100_prod(tables, card: str, fp32: dict) -> tuple:
                 g_ms = (time.perf_counter() - t0) * 1e3 / K
             if not torch.isfinite(losses).all() or int(state.opt_state["total_notfinite"]) != 0:
                 fail(f"dispatch p100 prod ({key}): a non-finite loss or a dropped step ({losses.tolist()})")
-            want = {variant_name(n, cfg) for n in launched}
+            want = path_names(cfg, launched)
             got = {k for k, v in counts[key].items() if v}
             if got != want:
                 fail(f"dispatch p100 prod ({key}): launched {sorted(got)}, expected {sorted(want)}")
@@ -3709,7 +3769,7 @@ def phase_dist(card: str) -> dict:
     except Exception as e:
         fail(f"dist nccl world of {world}: {e}")
     ta = time.perf_counter() - t0
-    want = {variant_name(n, a) for n in KERNEL_NAMES}
+    want = path_names(a)
     r0 = ra[0]
     if set(r0["counts"]) != want or min(r0["counts"].values()) <= 0:
         fail(f"dist nccl: launched {r0['counts']}, expected each of {sorted(want)}")
@@ -4168,8 +4228,8 @@ def phase_model_axis(card: str) -> dict:
                     len({r["meshes"][i]["replicated"] for r in ra}) != 1:
                 fail(f"model axis nccl {mesh}: the ranks' states differ after the dispatches")
             # every kernel of the path at H/m heads; with the ring, the object layer's flash is not on it
-            want = {variant_name(k, meshes[i][0]) for k in KERNEL_NAMES
-                    if not (r0["sp"] and k.startswith("flash_attention"))}
+            want = path_names(meshes[i][0], [k for k in KERNEL_NAMES
+                                             if not (r0["sp"] and k.startswith("flash_attention"))])
             if set(r0["counts"]) != want or min(r0["counts"].values()) <= 0:
                 fail(f"model axis nccl {mesh}: launched {r0['counts']}, expected each of {sorted(want)}")
             f = r0["fp32_first_step"]
@@ -4894,6 +4954,28 @@ def bwd_by_kernel(fn, reps: int, inner: int, issue: bool = False) -> dict:
     return out
 
 
+def launch_ms(fn, symbol: str, reps: int):
+    """Device ms of one launch of the kernel whose name holds ``symbol``,
+    from a torch.profiler run of ``reps`` calls of ``fn``: its device time
+    over its own launch count, so a trace that lost some calls' events (a
+    P100 backward's, after earlier profiles) still gives a launch's time;
+    None when the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if symbol in e.key and e.device_type == torch.autograd.DeviceType.CUDA:
+            us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            n += e.count
+    return us / 1e3 / n if n else None
+
+
 def head_inputs(B: int, A: int, T: int, D: int, Dh: int, seed: int = 4) -> tuple:
     """The head's nine operands and a cotangent on the card, made from
     ``seed`` as phase_kernels_default makes them (vis and arg past a ReLU,
@@ -4947,7 +5029,7 @@ def phase_bwd_split(card: str) -> dict:
     run, the other device ops by name, the union of the device intervals)
     at GT5 (B=16) and P100 (B=2): the head backward (its row and weight
     kernels; with two streams the union is below their sum) and the mm
-    backward in emit mode (mm_bwd_delta, mm_bwd_dkv, then the widening of
+    backward in emit mode (mm_bwd_prep_wg, mm_bwd_dkv_wg, then the widening of
     comb and the two cuBLAS products, dq and dfb, among the other ops).
     -> {regime: {kernel: split}}."""
     import torch

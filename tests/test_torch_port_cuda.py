@@ -322,27 +322,54 @@ def test_flash_no_bias_gt5_one_launch_each(dev):
         _close(a, b)
 
 
-# T = 13 (below one 64-key block) and 65 (one key past it), dh = 40, A = 1
-# and 8; batch row 1 has every key masked
-@pytest.mark.parametrize("A,T,dh", [(5, 200, 128), (3, 45, 40), (1, 13, 40), (8, 13, 40), (1, 65, 40),
-                                    (8, 65, 40), (1, 200, 128), (8, 200, 128)])
-def test_mm_bwd_kernel(dev, A, T, dh):
+def _mm_bwd_launches(mode, precision, dh, groups):
+    """The launch counts of one mm backward call: its wrapper's name, and
+    on the "wg" route (emit at "default", dh <= 128) mm_bwd_dkv_wg's too,
+    once a group of args."""
+    from vog_tpu_torch.kernels import _build, mm_attention
+
+    name = mm_attention.NAME_BWD if mode == "emit" else mm_attention.NAME_BWD_RECOMPUTE
+    out = {_build.variant(name, precision): groups}
+    if mm_attention.bwd_route(mode, precision, dh) == "wg":
+        out[_build.variant(mm_attention.NAME_WG, precision)] = groups
+    return out
+
+
+# T = 13 (below one 64-key block), 65 (one key past it), 300 (past two of
+# the "default" kernel's 128-key blocks: its third block's second
+# warpgroup holds no key below T), dh = 40, 128 and 37 (padded to 40),
+# every A from 1 to 8, 10 frames and past 64 (the table read from device
+# memory); batch row 1 has every key masked.  At "highest" mm_bwd_dkv
+# within 1e-4; at "default" the emit route's mm_bwd_dkv_wg within the
+# "default" bounds, comb stored in bf16, given the plain forward.
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("A,T,dh,F", [(5, 200, 128, 10), (3, 45, 40, 10), (1, 13, 40, 10), (8, 13, 40, 10),
+                                      (1, 65, 40, 10), (8, 65, 40, 10), (1, 200, 128, 10), (8, 200, 128, 10),
+                                      (2, 300, 128, 80), (4, 45, 40, 80), (6, 300, 40, 10), (7, 65, 128, 70),
+                                      (3, 45, 37, 10)])
+def test_mm_bwd_kernel(dev, A, T, dh, F, precision, monkeypatch):
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.mm_attention import (
-        mm_attention_bwd, mm_attention_bwd_plain, mm_attention_fwd,
+        mm_attention_bwd, mm_attention_bwd_plain, mm_attention_fwd, mm_attention_plain,
     )
 
-    g, qm, km, vm, mask, fb, fid = _attn_inputs(dev, 2, 3, T, dh, 10)
+    g, qm, km, vm, mask, fb, fid = _attn_inputs(dev, 2, 3, T, dh, F)
     cn = -3 * torch.rand((2, 3, A, T), generator=g, device=dev)
-    fwd = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
+    high = precision == "highest"
+    fwd = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid) if high else mm_attention_plain(qm, km, vm, cn, mask, fb, fid)
     go = torch.randn(fwd[0].shape, generator=g, device=dev)
+    seen = []
+    real = _build.bmm_wide
+    monkeypatch.setattr(_build, "bmm_wide", lambda a, b: seen.append(a.dtype) or real(a, b))
     _build.reset_counts()
-    got = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go)
+    got = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go, bwd_mode="emit", precision=precision)
     torch.cuda.synchronize()
-    assert _build.launches == {"mm_shared_qk_attention_bwd": 1}
+    assert _build.launches == _mm_bwd_launches("emit", precision, dh, 1)
+    assert seen and set(seen) == {torch.float32 if high else torch.bfloat16}  # comb as stored
     for a, b in zip(got, mm_attention_bwd_plain(qm, km, vm, cn, mask, fb, fid, *fwd, go)):
-        _close(a, b)
-    again = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go)
+        assert a.dtype == torch.float32
+        _close(a, b) if high else _close_default(a, b, False)
+    again = mm_attention_bwd(qm, km, vm, cn, mask, fb, fid, *fwd, go, bwd_mode="emit", precision=precision)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # fixed order, no atomics
 
 
@@ -849,12 +876,12 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, misaligned, precisio
         fwd_check(x[:n], y[:n])
     go = rows(torch.randn(rf[0].shape, generator=g, device=dev))
     ref = mm_attention.mm_attention_bwd_plain(qm, k, v, cn, mask, fb, fid, *rf, go)
-    for mode, name in (("emit", "mm_shared_qk_attention_bwd"), ("recompute", "mm_shared_qk_attention_bwd_recompute")):
+    for mode in ("emit", "recompute"):
         _build.reset_counts()
         got = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
                                             precision=precision)
         torch.cuda.synchronize()
-        assert _build.launches == {_build.variant(name, precision): groups}
+        assert _build.launches == _mm_bwd_launches(mode, precision, dh, groups)
         for a, b in zip(got, ref):
             (_close_rel if high else bwd_check)(a, b)
         again = mm_attention.mm_attention_bwd(qm, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
@@ -997,9 +1024,8 @@ def test_default_variant_matches_plain(dev, kernel, mode):
             out = mm_attention.mm_attention_fwd(q * 0.2, k, v, cn, mask, fb, fid, precision=d)
             got = mm_attention.mm_attention_bwd(q * 0.2, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
                                                 precision=d)
-            name = "mm_shared_qk_attention_bwd" + ("_recompute" if mode == "recompute" else "")
             torch.cuda.synchronize()
-            assert _build.launches == {"mm_shared_qk_attention@default": 1, f"{name}@default": 1}
+            assert _build.launches == {"mm_shared_qk_attention@default": 1, **_mm_bwd_launches(mode, d, 40, 1)}
             for x, y in zip(out, rf):
                 _close_default(x, y, True)
             ref = mm_attention.mm_attention_bwd_plain(q * 0.2, k, v, cn, mask, fb, fid, *rf, go)
@@ -1458,12 +1484,12 @@ def test_dist_nccl_world1_dispatch_bitwise(dev):
     with the all-reduce, the loss's count and the sharded store's
     collectives captured, bitwise its eager steps and the single-device
     dispatch (``chip_smoke.dist_nccl_rank`` raises otherwise)."""
-    from chip_smoke import KERNEL_NAMES, dist_nccl_rank, run_world, variant_name
+    from chip_smoke import dist_nccl_rank, path_names, run_world
 
     cfg = _dist_cfg("bfloat16", "default", 4)
     (r,) = run_world(dist_nccl_rank, 1, "nccl", cfg, None, 250, 60)
     assert r["single_bitwise"] and len(r["losses"]) == 4
-    assert set(r["counts"]) == {variant_name(n, cfg) for n in KERNEL_NAMES}
+    assert set(r["counts"]) == path_names(cfg)  # every wrapper's, and mm_bwd_dkv_wg's ("default", dh 16)
 
 
 def test_dist_gloo_two_ranks_on_one_card(dev):

@@ -223,7 +223,7 @@ def test_library_name_hashes_the_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setenv("VOG_TORCH_BUILD_DIR", str(tmp_path / "build"))
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["cluster.cuh", "device.cuh", "tf32.cuh", "tiles.cuh"]
+    assert [h.name for h in headers] == ["cluster.cuh", "device.cuh", "hopper.cuh", "tf32.cuh", "tiles.cuh"]
     before = {src: _build._lib_path(src) for src in _build.SOURCES}
     assert before == {src: _build._lib_path(src) for src in _build.SOURCES}
     assert all(p.name.startswith(pathlib.Path(src).stem + "-") for src, p in before.items())
@@ -272,7 +272,8 @@ def test_flash_kernels_use_tensor_cores_and_async_copies():
     del bodies["flash_bwd_delta"]
     assert '#include "cluster.cuh"' in text
     cluster = (csrc / "cluster.cuh").read_text()
-    assert "cp.async.bulk.tensor.3d" in cluster and "mbarrier.try_wait.parity" in cluster
+    assert "cp.async.bulk.tensor.3d" in cluster and '#include "hopper.cuh"' in cluster
+    assert "mbarrier.try_wait.parity" in (csrc / "hopper.cuh").read_text()  # its mbarriers: the shared header
     assert "map_shared_rank(" in cluster and "barrier.cluster.arrive" in cluster
     assert "cudaLaunchAttributeClusterDimension" in cluster and "cuTensorMapEncodeTiled" in cluster
     for name, body in bodies.items():
@@ -296,8 +297,8 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     text = (csrc / "mm_attention.cu").read_text()
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
-    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dkv_cl", "mm_bwd_dq", "mm_bwd_dq_cl", "mm_fwd",
-                              "mm_fwd_cl"]
+    assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dkv_cl", "mm_bwd_dkv_wg", "mm_bwd_dq",
+                              "mm_bwd_dq_cl", "mm_bwd_prep_wg", "mm_fwd", "mm_fwd_cl"]
     fwd = bodies["mm_fwd"]
     # S = Q K^T once per key tile; P_a V for every arg (3xTF32, or one pass)
     assert fwd.count("mma_p<kOnePass>(") == 2
@@ -342,6 +343,51 @@ def test_mm_backward_on_tensor_cores_scores_once_a_query_tile():
     assert body.count(s_tile) == 1 and body.count("Kw,") == 2 and tiles < body.index(s_tile) < args
     assert body.index("scores<NT, false, kDK>(dpt, dpt, Vw, Gt") > args  # dP_a^T = V G_a^T, per arg
     assert "mm_bwd_delta<<<" in text and 'extern "C" int vog_mm_bwd(' in text
+
+
+def test_production_mm_backward_on_wgmma_with_producer_warps():
+    """The "default" emit mm backward at dh <= 128 is mm_bwd_prep_wg (delta,
+    and the operands rounded to TF32) and mm_bwd_dkv_wg, in a library part
+    of its own (-DVOG_MM_WG=1, at "default" only): two consumer warpgroups
+    on wgmma (S^T and dP^T from shared memory, dV^T and dK^T with A from
+    registers), a producer warpgroup streaming the Q and g_a tiles on
+    mbarriers both ways, the register file split by setmaxnreg, comb
+    staged and stored whole, no atomics; the one-pass
+    narrow library holds no emit instance of mm_bwd_dkv.  The Hopper
+    helpers live in one header (hopper.cuh) that the head, the cluster
+    kernels and this kernel include, with no second copy."""
+    from vog_tpu_torch.kernels import _build
+
+    csrc = PKG / "csrc"
+    hopper = (csrc / "hopper.cuh").read_text()
+    for helper in ("kmajor_desc(", "wg_fence(", "wg_commit(", "wg_wait(", "mbar_init(", "mbar_wait(",
+                   "bulk_load(", "bulk_copy(", "wgmma_n64(", "wgmma_n64_ss(", "wgmma_n256(", "wgmma_n32_ss("):
+        assert f" {helper}" in hopper, helper
+        for src in ("grounding_head.cu", "mm_attention.cu", "attention.cu", "cluster.cuh"):
+            assert f"__device__ inline void {helper}" not in (csrc / src).read_text(), (src, helper)
+            assert f"__device__ inline uint64_t {helper}" not in (csrc / src).read_text(), (src, helper)
+    text = (csrc / "mm_attention.cu").read_text()
+    assert '#include "hopper.cuh"' in text
+    body = _kernel_bodies(text)["mm_bwd_dkv_wg"]
+    body = body[: body.index("\n}\n")]
+    assert "setmaxnreg.dec" in body and "setmaxnreg.inc" in body
+    assert body.count("mbar_wait(") >= 3 and "mbar_arrive(gempty" in body and "mbar_arrive(qempty" in body
+    assert "scores_t<kWgQLd>(st, Kw, Qt)" in body and "scores_t<kWgGLd>(dp, Vw, Gt)" in body
+    assert "product_t(dvt, af, Pw)" in body and "product_t(dkt, af, Pw)" in body
+    assert "fence_proxy_async()" in body and "atomicAdd" not in body and "uint4" in body
+    tiles = body.index("for (int it = 0; it < ntiles; ++it) {\n    const int i0 = it * kWgRows, qs = it & 1;\n    const float* Qt")
+    args = body.index("for (int a = 0; a < A; ++a, ++j) {\n      const int gs = j & 1;\n      const float* Gt")
+    assert tiles < body.index("scores_t<kWgQLd>(st") < args < body.index("scores_t<kWgGLd>(dp")
+    assert ("mm_attention.cu", "default", _build.WG) in _build.LIBRARIES
+    assert ("mm_attention.cu", "highest", _build.WG) not in _build.LIBRARIES
+    assert _build.PART_FLAGS[_build.WG] == ("-DVOG_MM_WG=1",)
+    launch = text[text.index("int launch_bwd(const float* qm"):]
+    launch = launch[: launch.index("\n}\n")]
+    assert "if constexpr (kOnePass) {  // the one-pass emit backward is mm_bwd_dkv_wg's" in launch
+    assert 'extern "C" int vog_mm_bwd_wg(' in text and "launch_bwd_wg(" in text
+    wg = text[text.index("int launch_bwd_wg("):]
+    wg = wg[: wg.index("\n}\n")]
+    assert wg.count("mm_bwd_prep_wg<<<") == 1 and wg.count("mm_bwd_dkv_wg<<<") == 1
 
 
 def test_backward_modes_not_default_have_kernels_of_their_own():
@@ -461,15 +507,17 @@ def test_head_forward_on_wgmma_with_a_bulk_copied_weight_stream():
     one launch name.  Past D 512 or Dh 256 its wide path (W) does the
     same, z0 by K slices into a scratch, then z1 a group at a time."""
     text = (PKG / "csrc" / "grounding_head.cu").read_text()
+    hopper = (PKG / "csrc" / "hopper.cuh").read_text()  # the wgmma and copy helpers, one copy
     fwd = _kernel_bodies(text)["head_fwd"]
     fwd = fwd[: fwd.index("\nsize_t fwd_smem(")]
-    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in text
-    assert "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32" in text
+    assert '#include "hopper.cuh"' in text
+    assert "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32" in hopper
+    assert "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32" in hopper
     # three products a k-step (3xTF32), in the narrow path and in the wide one (W)
     assert fwd.count("wgmma_n64(acc1,") == 6 and fwd.count("wgmma_n256(acc2,") == 6
     assert fwd.count("if constexpr (W) {") == 1 and "} else {" in fwd
     assert "wg_fence();" in fwd and "wg_commit();" in fwd and "wg_wait<" in fwd
-    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in text
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in hopper
     assert "bulk_load(" in fwd and "mbar_wait(" in fwd and "cp_async16(" in fwd
     assert "item += gridDim.x" in fwd or "it * gridDim.x" in fwd  # the persistent walk
     assert "atomicAdd(" not in fwd and "kFThreads = 128;" in text

@@ -10,7 +10,9 @@ parent):
 (one build directory: the trees' unchanged sources build once).  Each
 kernel row: device ms (``chip_smoke.time_ms`` behind a sleep kernel) and
 with the host's issue, at GT5 (B=16, T=200) and P100 (B=2, T=4000), A=5,
-D=512, "default" and "highest", on inputs made from seed 4; the step:
+D=512, "default" and "highest", on inputs made from seed 4, and the mm
+backward's kernels each (``chip_smoke.bwd_by_kernel``: a profiler run);
+the step:
 host ms of a graphed dispatch of 16 production steps (``prod_cfg``) on
 2,000 random table rows, the median of 4 over 16.  Prints one line a
 reading and, last, one JSON object with all of them and the card's name
@@ -73,9 +75,12 @@ def main() -> int:
                 with cs.tf32(prec == "default"):
                     ms = cs.time_ms(fn, reps, inner)
                     issue = cs.time_ms(fn, reps, inner, queued=False)
+                    # each kernel's device ms from a profiler run (the mm backward's dkv kernel alone)
+                    split = cs.bwd_by_kernel(fn, reps, inner)["by_kernel"] if name == "mm_bwd_emit" else {}
                 key = f"{name} {tag} {prec}"
-                out["rows"][key] = {"ms": ms, "issue_ms": issue}
-                print(f"[{opts.label}] {key}: device {ms:.4f} ms, w/ issue {issue:.4f} ms ({card})", flush=True)
+                out["rows"][key] = {"ms": ms, "issue_ms": issue, "by_kernel": split}
+                print(f"[{opts.label}] {key}: device {ms:.4f} ms, w/ issue {issue:.4f} ms"
+                      + "".join(f", {k} {v:.4f}" for k, v in split.items()) + f" ({card})", flush=True)
         del hargs, hg, ops, fwd, gm
         torch.cuda.empty_cache()
 

@@ -73,6 +73,7 @@
 #include <mutex>
 #include <utility>  // std::forward, std::pair
 
+#include "hopper.cuh"  // mbarriers (init, expected bytes, wait)
 #include "tiles.cuh"
 
 namespace {
@@ -108,26 +109,7 @@ __host__ __device__ constexpr uint32_t box_bytes(int rows) { return (uint32_t)ro
 __device__ inline void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory"); }
 __device__ inline void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
 
-// -- mbarriers and TMA ------------------------------------------------------
-__device__ inline void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// make the initialised barriers visible to the async proxy (the TMA unit)
-__device__ inline void mbar_fence_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
-__device__ inline void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-__device__ inline void mbar_wait(uint64_t* bar, uint32_t phase) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(phase)
-        : "memory");
-}
+// -- TMA (its mbarriers: hopper.cuh) -----------------------------------------
 // the box at (column c0, row r0, matrix bh) of `map` into dst, completing on bar
 __device__ inline void tma_load(float* dst, const CUtensorMap* map, int c0, int r0, int bh, uint64_t* bar) {
   asm volatile(

@@ -83,7 +83,65 @@
 // keys a block, synchronous staging of Q and the A g_a tiles, 158 KB of
 // shared memory, one block an SM) took 0.8822 / 0.8867 ms at GT5
 // (chip_smoke.py, H100 80GB HBM3, 700 W); this design's times are in
-// PERF.md.
+// PERF.md.  mm_bwd_dkv runs every "highest" instance and recompute mode.
+//
+// Emit mode at "default" (the production recipe's: one TF32 pass, comb in
+// bf16), dh <= 128: mm_bwd_dkv_wg, on Hopper's wgmma (hopper.cuh).  Its
+// work is that of mm_bwd_dkv, 7.9 GFLOP at GT5 and 393 at P100 (BH 8, T
+// 4000, A 5): 0.016 and 0.79 ms at 495 TF32 TFLOP/s.  mm_bwd_dkv's 16-row
+// query tiles (each A fragment fed two 8-key products) and one
+// __syncthreads a (tile, arg) step held it at 34-52 TFLOP/s (0.2287 ms at
+// GT5, 7.6208 at P100; PERF.md "PR 21", run S, H100 80GB HBM3, 700 W), and
+// its A = 5 instance spilled 112 bytes.  Two kernels:
+//  * mm_bwd_prep_wg, a warp a row: delta_a as mm_bwd_delta forms it, and
+//    the wgmma operands rounded to TF32 into scratch the wrapper allocates
+//    (g_a's rows, qm's rows) with 1 / den_a;
+//  * mm_bwd_dkv_wg: a block of 384 threads owns 128 keys, two consumer
+//    warpgroups of 64 keys each (wgmma's M) and a producer warpgroup
+//    (setmaxnreg: 40 registers, the consumers 232, as grounding_head.cu's
+//    row kernel).  K and V of the block's keys stay resident (64 KB each),
+//    in K-major core matrices (8 rows x 16 bytes), rounded to TF32 once.
+//    The producer streams each query tile of 32 rows: its Q rows and
+//    frames into one of two Q slots, then each arg's g_a rows with the
+//    rows' m_a, 1 / den_a and delta_a into one of two g_a slots, in the
+//    same core matrices, each slot as the consumers free it (mbarriers both
+//    ways).  Each producer thread copies one row's 8 of 32 column groups by
+//    16-byte cp.async (all 128 threads issue: PERF.md "PR 21" found a warp
+//    that issues bulk copies waits for each; a bulk copy lands a row
+//    contiguous, and no TMA box lands rows in these padded core matrices),
+//    then fences them for the async proxy.
+//    A consumer warpgroup, per query tile: S^T = K Q^T (64 keys x 32 rows,
+//    16 k-steps of m64n32k8, both operands from shared memory) and the
+//    frame bias, masks, once for all args; per arg, dP_a^T = V G_a^T
+//    (m64n32k8) and, while it runs, P_a^T = exp(S^T + cn_a - m_a) / den_a
+//    (no branch: 0 past T and at keys past T by a factor); then ds_a =
+//    P_a^T (dP_a^T - delta_a), comb^T += ds_a, dcn_a's partial (a 4-lane
+//    sum, added into shared memory by the key's one thread: the tiles in
+//    order), and dV^T += G_a^T P_a: TF32 wgmma takes no transposed
+//    operand, so P_a^T goes from the C fragments into a K-major staging
+//    tile (the B operand) and the A fragments of G_a^T are read from the
+//    g_a tile as it stands (a float2 gives two head-dim rows: the product's
+//    M rows are the head dim in the order kernels/mm_attention.py
+//    §wg_d_of_m mirrors).  After the last arg: comb^T masked to the valid
+//    keys, dK^T += Q^T comb the same way, and comb in bf16 staged [query]
+//    [key] and stored 16 bytes (8 keys) a store while that product runs.
+//    dK^T and dV^T (128 head-dim rows x 64 keys, 64 registers each) stay
+//    in the wgmma accumulators over every tile; a product's chain over T
+//    keeps the tensor core's fp32 sums ("default": one TF32 pass, operands
+//    to ~5e-4 already); dK, dV and dcn are written once.  No atomics: a
+//    repeated call is bitwise equal.  226 KB of shared memory, one block an
+//    SM: GT5's 2 x 64 blocks one wave, P100's 32 x 8 two.  The frame table
+//    is read through the read-only cache at any F; A (1..8) is a run-time
+//    argument: one instance.
+// Where its time goes: tools/mm_wg_phases.py (clock64 phases a (query
+// tile, arg) step; its readings in PERF.md "PR 23").  Tried first: the
+// producer rounding each stage in place after its copies (its shared-memory
+// reads wait behind the consumers' wgmma operand traffic, and it bounded
+// the kernel); loads rounded on their way in, four in flight (slower
+// still); each probability behind a branch (exp under a test); the dcn
+// sums moved under dV^T (no faster).  The rounding pass before the kernel
+// moves g_a once more through device memory, which GT5's short rows feel
+// and P100's do not.
 //
 // Recompute mode: mm_bwd_dkv without the comb store (kEmit false), then
 // mm_bwd_dq, the counterpart of §_bwd_dq_kernel: no (T, T) buffer (comb is
@@ -150,7 +208,9 @@
 // so the template instances (A = 1..8 of three kernels, each at both
 // table modes, tiles.cuh §TableMode; of the cluster kernels, with and
 // without their other slices, kX) do not double in any of the four
-// builds.
+// builds.  The one-pass narrow library holds no emit instance of
+// mm_bwd_dkv: its emit backward is mm_bwd_dkv_wg, a fifth library
+// (-DVOG_MM_WG=1) built beside the others.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -158,15 +218,22 @@
 
 #include "tiles.cuh"  // cp.async row tiles, their 3xTF32 fragments, HeadDim
 #include "cluster.cuh"  // the head dim split over a cluster: slices, barriers, TMA, partials
+#include "hopper.cuh"  // wgmma, mbarriers, the proxy fence (mm_bwd_dkv_wg)
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 // This library's kernels: the narrow instances (dh <= 128, zero padded to
 // 128), or with -DVOG_MM_CLUSTER=1 the cluster instances (dh > 128), one
 // library each (kernels/_build.py), so that nvcc builds the two sets of A
-// = 1..8 instances in parallel.
+// = 1..8 instances in parallel; with -DVOG_MM_WG=1 (one pass only)
+// mm_bwd_dkv_wg, the "default" emit backward at dh <= 128, whose entry
+// point vog_mm_bwd_wg is that library's only one.
 #ifndef VOG_MM_CLUSTER
 #define VOG_MM_CLUSTER 0
 #endif
+#ifndef VOG_MM_WG
+#define VOG_MM_WG 0
+#endif
+static_assert(!VOG_MM_WG || (VOG_ONE_PASS && !VOG_MM_CLUSTER), "mm_bwd_dkv_wg: the one-pass library's part");
 
 namespace {
 
@@ -1135,8 +1202,12 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
                                        6 * A * kBwdTile + A * kBwdKeys + table_floats(F)) +
                       sizeof(int) * 2 * kBwdTile;
   const bool emit = comb != nullptr, smem_table = F <= kTableF;
-  auto dkv = emit ? (smem_table ? mm_bwd_dkv<A, kSmemTable, true> : mm_bwd_dkv<A, kGlobalTable, true>)
-                  : (smem_table ? mm_bwd_dkv<A, kSmemTable, false> : mm_bwd_dkv<A, kGlobalTable, false>);
+  auto dkv = smem_table ? mm_bwd_dkv<A, kSmemTable, false> : mm_bwd_dkv<A, kGlobalTable, false>;
+  if constexpr (kOnePass) {  // the one-pass emit backward is mm_bwd_dkv_wg's (its own library)
+    if (emit) return (int)cudaErrorInvalidValue;
+  } else if (emit) {
+    dkv = smem_table ? mm_bwd_dkv<A, kSmemTable, true> : mm_bwd_dkv<A, kGlobalTable, true>;
+  }
   e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm) &&
@@ -1160,6 +1231,443 @@ int launch_bwd(const float* qm, const float* km, const float* vm, const float* c
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// backward, emit mode at "default", dh <= 128: mm_bwd_dkv_wg on wgmma
+// ---------------------------------------------------------------------------
+// The production recipe's instance (one TF32 pass, comb in bf16), built as
+// a library part of its own (-DVOG_MM_WG=1, with -DVOG_ONE_PASS=1): the
+// kernel has no template parameter (A, F and dh <= 128 are run-time), so
+// the part builds in seconds beside the other libraries.  The design note
+// at the top of this file says how it works.
+#if VOG_MM_WG
+constexpr int kWgKeys = 64;                  // keys a consumer warpgroup owns: wgmma's M
+constexpr int kWgBlockKeys = 2 * kWgKeys;    // keys a block owns: two consumer warpgroups
+constexpr int kWgRows = 32;                  // query rows of a streamed tile: N of S^T and dP^T
+constexpr int kWgCons = 256;                 // the consumer threads
+constexpr int kWgThreads = kWgCons + 128;    // and a producer warpgroup
+// setmaxnreg's split of the register file: 128 x 40 + 256 x 232 <= 65536
+// (ptxas gives the 384-thread kernel 168 a thread)
+constexpr int kWgProdRegs = 40, kWgConsRegs = 232;
+constexpr int kWgArgs = 8;                   // args a launch takes at most (the wrapper's groups)
+constexpr int kWgGroups = kDK / 4;           // 4-column groups of the padded head dim: core-matrix columns
+// Shared tiles in K-major core matrices (hopper.cuh §kmajor_desc), element
+// (row r, column c) at (c / 4) LD + 4 r + c % 4: 16 bytes of a row, 8 rows
+// a 128-byte core matrix, LD floats between two 4-column groups.
+constexpr int kWgKV = kWgGroups * kWgKeys * 4;  // K or V of a warpgroup's keys: LD 256
+constexpr int kWgQLd = kWgRows * 4;             // a Q tile's LD: 128
+constexpr int kWgQ = kWgGroups * kWgQLd;
+// a g_a tile's LD: 16 floats of padding a group, so that the transposed
+// A-fragment reads (two rows' float2 a lane) of dV^T hit 32 distinct banks
+constexpr int kWgGLd = kWgRows * 4 + 16;
+constexpr int kWgG = kWgGroups * kWgGLd;
+// P_a^T, then comb^T, of a warpgroup as the B operand of dV^T and dK^T:
+// rows the 64 keys, columns the 32 query rows (padded as the g_a tile: the
+// float2 stores from the C fragments hit 32 distinct banks)
+constexpr int kWgPLd = kWgKeys * 4 + 16;
+constexpr int kWgP = (kWgRows / 4) * kWgPLd;
+constexpr int kWgC = kWgRows * kWgKeys / 2;     // comb of a warpgroup in bf16, [query][key], in floats
+constexpr int kWgStats = 3 * kWgRows;           // a g_a stage's m, 1 / den (0 past T) and delta
+constexpr size_t kWgFloats = 2 * (size_t)kWgKV * 2 + 2 * kWgQ + 2 * kWgG + 2 * kWgStats + 2 * kWgRows +
+                             2 * kWgP + 2 * kWgC + kWgArgs * kWgBlockKeys;
+constexpr size_t kWgSmem = sizeof(float) * kWgFloats + 8 * sizeof(uint64_t);
+static_assert(kWgSmem <= 232448, "a block's shared memory on the H100");
+
+// (row r, column group c) of a core-matrix tile of row stride 4 and group stride ld
+__device__ inline int cm_idx(int r, int c, int ld) { return c * ld + 4 * r; }
+
+__device__ inline float4 round4(float4 v) {
+  return make_float4(__uint_as_float(round_tf32(v.x)), __uint_as_float(round_tf32(v.y)),
+                     __uint_as_float(round_tf32(v.z)), __uint_as_float(round_tf32(v.w)));
+}
+
+// dst = the A fragments of rows 64 h + 16 w + 2 g (+ 1: row g + 8) of X^T,
+// X a (32, 128) core-matrix tile of group stride LD, k-step s (the
+// tile's rows 8 s + t, + 4): a0, a1 from one float2 and a2, a3 from
+// another.  X^T's rows are the product's M rows in the order
+// kernels/mm_attention.py §wg_d_of_m mirrors: row 16 w + g is d = 16 w + 2 g,
+// row 16 w + g + 8 is d + 1 (in each 64-row half h).
+template <int LD>
+__device__ inline void a_frags_t(uint32_t (&dst)[2][4][4], const float* X, int w, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float* p = X + cm_idx(8 * s + t, 16 * h + 4 * w + (g >> 1), LD) + 2 * (g & 1);
+      const float2 lo = *reinterpret_cast<const float2*>(p);
+      const float2 hi = *reinterpret_cast<const float2*>(p + 16);  // row + 4
+      dst[h][s][0] = __float_as_uint(lo.x);
+      dst[h][s][1] = __float_as_uint(lo.y);
+      dst[h][s][2] = __float_as_uint(hi.x);
+      dst[h][s][3] = __float_as_uint(hi.y);
+    }
+}
+
+// acc[h] (64 x 64: head-dim rows 64 h .. in §wg_d_of_m's order, the warpgroup's keys) += X^T (A from
+// registers, af) . B (the 32 x 64 staging tile Pw: P_a^T or comb^T)
+__device__ inline void product_t(float (&acc)[2][32], const uint32_t (&af)[2][4][4], const float* Pw) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) wgmma_n64(acc[h], af[h][s], kmajor_desc(Pw + 2 * s * kWgPLd, kWgPLd * 4, 128));
+}
+
+// c (the warpgroup's 64 keys x 32 query rows) = X (its K or V, A) . Y^T (a
+// Q or g_a tile of group stride YLD, B): 16 k-steps, one group (the caller
+// commits and waits)
+template <int YLD>
+__device__ inline void scores_t(float (&c)[16], const float* X, const float* Y) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) c[i] = 0.f;
+  wg_fence();  // after the accumulator's zeros
+#pragma unroll
+  for (int s = 0; s < kWgGroups / 2; ++s)
+    wgmma_n32_ss(c, kmajor_desc(X + 2 * s * kWgKeys * 4, kWgKeys * 16, 128),
+                 kmajor_desc(Y + 2 * s * YLD, YLD * 4, 128));
+}
+
+// The pass before mm_bwd_dkv_wg, a warp a row: rows r < rows_g of the
+// (B*H*A*T, dh) g_a and forward output: delta[r] = rowsum(g * o) (the
+// arithmetic of mm_bwd_delta), g's row rounded to TF32 into gr and inv[r] =
+// 1 / den[r]; rows_g + r' (r' < rows_q): qm's row r' rounded into qr.  The
+// kernel's producer then copies its operands as they are (dh % 4 == 0,
+// 16-byte rows: the wrapper pads).
+__global__ void __launch_bounds__(256)
+mm_bwd_prep_wg(const float* __restrict__ o, const float* __restrict__ g, const float* __restrict__ den,
+               const float* __restrict__ q, float* __restrict__ delta, float* __restrict__ gr,
+               float* __restrict__ inv, float* __restrict__ qr, int rows_g, int rows_q, int dh) {
+  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r < rows_g) {
+    const float4* x4 = reinterpret_cast<const float4*>(o + (size_t)r * dh);
+    const float4* y4 = reinterpret_cast<const float4*>(g + (size_t)r * dh);
+    float4* z4 = reinterpret_cast<float4*>(gr + (size_t)r * dh);
+    float sum = 0.f;
+    for (int c = lane; c < dh / 4; c += 32) {
+      const float4 a = __ldg(x4 + c), b = __ldg(y4 + c);
+      sum += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+      z4[c] = round4(b);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      delta[r] = sum;
+      inv[r] = __frcp_rn(den[r]);  // den >= 1
+    }
+  } else if (r - rows_g < rows_q) {
+    const size_t rq = (size_t)(r - rows_g) * dh;
+    for (int c = lane; c < dh / 4; c += 32)
+      reinterpret_cast<float4*>(qr + rq)[c] = round4(__ldg(reinterpret_cast<const float4*>(q + rq) + c));
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+mm_bwd_dkv_wg(const float* __restrict__ qr, const float* __restrict__ km, const float* __restrict__ vm,
+              const float* __restrict__ cn, const float* __restrict__ key_mask, const float* __restrict__ fb,
+              const int* __restrict__ fid, const float* __restrict__ gr, const float* __restrict__ mrow,
+              const float* __restrict__ inv, const float* __restrict__ delta, float* __restrict__ dk,
+              float* __restrict__ dv, float* __restrict__ dcn, __nv_bfloat16* __restrict__ comb, int H, int A,
+              int T, int dh, int F, bool vec_comb) {
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kWgBlockKeys;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);  // 2 warpgroups x kWgKV
+  float* Vs = Ks + 2 * kWgKV;                   // 2 warpgroups x kWgKV
+  float* Qr = Vs + 2 * kWgKV;                   // 2 slots x kWgQ
+  float* Gr = Qr + 2 * kWgQ;                    // 2 slots x kWgG
+  float* Sr = Gr + 2 * kWgG;                    // 2 slots x kWgStats
+  int* Fq = reinterpret_cast<int*>(Sr + 2 * kWgStats);                // 2 slots x kWgRows: query frames
+  float* Ps = reinterpret_cast<float*>(Fq + 2 * kWgRows);             // 2 warpgroups x kWgP
+  __nv_bfloat16* Cb = reinterpret_cast<__nv_bfloat16*>(Ps + 2 * kWgP);  // 2 warpgroups x kWgC floats
+  float* Dc = Ps + 2 * kWgP + 2 * kWgC;                               // kWgArgs x kWgBlockKeys: dcn
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Dc + kWgArgs * kWgBlockKeys);
+  uint64_t* qfull = bars;       // a Q slot is in (the producer warpgroup's 128 threads)
+  uint64_t* qempty = bars + 2;  // a Q slot is read (a lane of each consumer warp)
+  uint64_t* gfull = bars + 4;
+  uint64_t* gempty = bars + 6;
+  const float* fbg = fb + (size_t)h * F * F;
+  const size_t base = (size_t)bh * T * dh;
+  const size_t arow = (size_t)bh * A * T;  // row (bh, a = 0, i = 0) of the (B,H,A,T) tensors
+  const int ntiles = (T + kWgRows - 1) / kWgRows;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull + i, 128);
+      mbar_init(gfull + i, 128);
+      mbar_init(qempty + i, 8);
+      mbar_init(gempty + i, 8);
+    }
+    mbar_fence_init();
+  }
+  for (int i = tid; i < kWgArgs * kWgBlockKeys; i += kWgThreads) Dc[i] = 0.f;
+  // the block's K and V rows, resident: lanes over 8 rows x 4 column groups
+  // (64 contiguous bytes of a row read, 4-way writes of 16 bytes: one pass)
+  for (int i = tid; i < 2 * kWgBlockKeys * kWgGroups; i += kWgThreads) {
+    const int x = i & 4095, r = ((x >> 2) & 7) + 8 * ((x >> 5) & 15), c = (x & 3) + 4 * (x >> 9);
+    const int kj = k0 + r;
+    const bool ok = kj < T && 4 * c < dh;
+    const float* src = (i < 4096 ? km : vm) + base;
+    float* dst = (i < 4096 ? Ks : Vs) + (r >> 6) * kWgKV + cm_idx(r & 63, c, kWgKeys * 4);
+    cp_async16(dst, ok ? src + (size_t)kj * dh + 4 * c : src, ok);
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  for (int i = tid; i < 2 * 2 * kWgKV / 4; i += kWgThreads) {  // rounded to TF32 in place (K and V)
+    float4* p = reinterpret_cast<float4*>(Ks) + i;
+    *p = round4(*p);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // The producer warpgroup: each thread one row of a tile (lanes over 8 rows
+  // x 4 column groups) and 8 of its 32 groups, by 16-byte cp.async from the
+  // rows mm_bwd_prep_wg rounded to TF32 (rounding them here, after the
+  // copies, made the producer the kernel's bound: its shared-memory reads
+  // wait behind the consumers' wgmma operand traffic), and a g_a stage's m,
+  // 1 / den and delta by 4-byte cp.async (zero past T); once its copies
+  // have landed, a fence for the async proxy and an arrival on the slot's
+  // barrier.  The stream: per query tile its Q rows (and frames) into a Q
+  // slot, then each arg's g_a rows and statistics into a g_a slot, each
+  // slot as the consumers free it.
+  if (tid >= kWgCons) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProdRegs));
+    const int pt = tid - kWgCons, pr = ((pt >> 2) & 7) + 8 * (pt >> 5), pc = pt & 3;
+    auto fill = [&](float* dst, int ld, const float* src, int i0) {
+      const int row = i0 + pr;
+#pragma unroll
+      for (int i = 0; i < kWgGroups / 4; ++i) {
+        const int c = pc + 4 * i;
+        const bool ok = row < T && 4 * c < dh;
+        cp_async16(dst + cm_idx(pr, c, ld), ok ? src + (size_t)row * dh + 4 * c : src, ok);
+      }
+      cp_commit();
+    };
+    auto land = [&](uint64_t* full) {
+      cp_wait_all();
+      fence_proxy_async();
+      mbar_arrive(full);
+    };
+    int j = 0;  // g_a stages issued
+    for (int it = 0; it < ntiles; ++it) {
+      const int i0 = it * kWgRows, qs = it & 1;
+      if (it >= 2) mbar_wait(qempty + qs, ((it >> 1) - 1) & 1);
+      if (pt < kWgRows) Fq[qs * kWgRows + pt] = i0 + pt < T ? fid[i0 + pt] : 0;
+      fill(Qr + qs * kWgQ, kWgQLd, qr + base, i0);
+      land(qfull + qs);
+      for (int a = 0; a < A; ++a, ++j) {
+        const int gs = j & 1;
+        if (j >= 2) mbar_wait(gempty + gs, ((j >> 1) - 1) & 1);
+        if (pt < kWgStats) {  // rows past T: m 0, 1 / den 0 (p = 0), delta 0
+          const int w = pt / kWgRows, qi = i0 + pt % kWgRows;
+          const size_t at = arow + (size_t)a * T + (qi < T ? qi : 0);
+          cp_async4(Sr + gs * kWgStats + pt, (w == 0 ? mrow : w == 1 ? inv : delta) + at, qi < T);
+        }
+        fill(Gr + gs * kWgG, kWgGLd, gr + (arow + (size_t)a * T) * dh, i0);
+        land(gfull + gs);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsRegs));
+  const int wg = tid >> 7, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  // this thread's keys (rows g, g + 8 of its warp's 16 in the C fragments):
+  // the block's kl and kl + 8, and their codes
+  const int kl = kWgKeys * wg + 16 * w + g, kr = k0 + kl;
+  const int kc[2] = {key_code<true>(key_mask, fid, b, kr, T), key_code<true>(key_mask, fid, b, kr + 8, T)};
+  const float live[2] = {kc[0] == kPast ? 0.f : 1.f, kc[1] == kPast ? 0.f : 1.f};  // p = 0 at keys past T
+  const float* Kw = Ks + wg * kWgKV;
+  const float* Vw = Vs + wg * kWgKV;
+  float* Pw = Ps + wg * kWgP;
+  __nv_bfloat16* Cw = Cb + wg * 2 * kWgC;
+  // the warpgroup alone (named barrier 1 + wg)
+  auto sync_wg = [&]() { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
+  // dV^T and dK^T: rows (d) in §wg_d_of_m's order, columns the warpgroup's keys
+  float dvt[2][32], dkt[2][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dvt[0][i] = dvt[1][i] = dkt[0][i] = dkt[1][i] = 0.f;
+  // S^T (biased, masked) and comb^T of the tile: C fragment i = 4 n + 2 r + e
+  // at key kl + 8 r, query column 8 n + 2 t + e
+  float st[16], cb[16];
+  uint32_t af[2][4][4];  // the A fragments of a transposed product
+
+  int j = 0;  // the g_a stage read next
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = it * kWgRows, qs = it & 1;
+    const float* Qt = Qr + qs * kWgQ;
+    mbar_wait(qfull + qs, (it >> 1) & 1);
+    scores_t<kWgQLd>(st, Kw, Qt);  // S^T = K Q^T, once a query tile for all args
+    wg_commit();
+    float bias[16];  // the frame bias, loaded while the products run
+    const int* fq = Fq + qs * kWgRows;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int f = fq[8 * n + 2 * t + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) bias[4 * n + 2 * r + e] = __ldg(fbg + f * F + max(kc[r], 0));
+      }
+    wg_wait<0>();
+    wg_fence_operand(st);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      st[i] = kc[(i >> 1) & 1] >= 0 ? st[i] + bias[i] : kNeg;  // masked keys and keys past T
+      cb[i] = 0.f;
+    }
+
+#pragma unroll 1
+    for (int a = 0; a < A; ++a, ++j) {
+      const int gs = j & 1;
+      const float* Gt = Gr + gs * kWgG;
+      const float* ss = Sr + gs * kWgStats;
+      const float cn0 = kr < T ? __ldg(cn + arow + (size_t)a * T + kr) : 0.f;
+      const float cn1 = kr + 8 < T ? __ldg(cn + arow + (size_t)a * T + kr + 8) : 0.f;
+      mbar_wait(gfull + gs, (j >> 1) & 1);
+      float dp[16];  // dP_a^T = V G_a^T
+      scores_t<kWgGLd>(dp, Vw, Gt);
+      wg_commit();
+      // while it runs: P_a^T = exp(S^T + cn_a - m_a) / den_a, 0 past T (1 / den
+      // = 0 there) and at keys past T, without a branch (every exp is finite:
+      // S^T + cn_a <= m_a but for rounding, or -1e30 at a masked key)
+      float p[16];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float2 m = *reinterpret_cast<const float2*>(ss + 8 * n + 2 * t);
+        const float2 inv = *reinterpret_cast<const float2*>(ss + kWgRows + 8 * n + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float c = r ? cn1 : cn0;
+          p[4 * n + 2 * r] = expf(st[4 * n + 2 * r] + c - m.x) * (inv.x * live[r]);
+          p[4 * n + 2 * r + 1] = expf(st[4 * n + 2 * r + 1] + c - m.y) * (inv.y * live[r]);
+        }
+      }
+      float2 dl[4];  // delta_a at this lane's query columns
+#pragma unroll
+      for (int n = 0; n < 4; ++n) dl[n] = *reinterpret_cast<const float2*>(ss + 2 * kWgRows + 8 * n + 2 * t);
+      wg_wait<0>();
+      wg_fence_operand(dp);
+      // ds_a = P_a^T (dP_a^T - delta_a)
+      float d0 = 0.f, d1 = 0.f;  // this lane's part of dcn_a at its two keys
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // (key row e >> 1, query column e & 1)
+          const int i = 4 * n + e;
+          const float ds = p[i] * (dp[i] - (e & 1 ? dl[n].y : dl[n].x));
+          cb[i] += ds;
+          if (e >> 1) d1 += ds;
+          else d0 += ds;
+          dp[i] = __uint_as_float(round_tf32(p[i]));  // P_a^T, the B operand of dV^T
+        }
+      }
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+      if (t == 0) {  // each (arg, key) sum kept by one thread: the tiles add in order
+        Dc[a * kWgBlockKeys + kl] += d0;
+        Dc[a * kWgBlockKeys + kl + 8] += d1;
+      }
+      // P_a^T into the staging tile: row (key) kl + 8 r, columns 8 n + 2 t, + 1
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(Pw + cm_idx(16 * w + g + 8 * r, 2 * n + (t >> 1), kWgPLd) + 2 * (t & 1)) =
+              make_float2(dp[4 * n + 2 * r], dp[4 * n + 2 * r + 1]);
+      fence_proxy_async();
+      a_frags_t<kWgGLd>(af, Gt, w, g, t);
+      sync_wg();  // the whole P_a^T tile is in
+      wg_fence();
+      product_t(dvt, af, Pw);  // dV^T += G_a^T P_a^T^T
+      wg_commit();
+      wg_wait<0>();
+      if (lane == 0) mbar_arrive(gempty + gs);  // this warp is done with the g_a stage
+    }
+
+    // comb^T on the valid keys: rounded into the staging tile (dK^T's B),
+    // and in bf16 into the store tile [query][key]
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * n + 2 * r;
+        const float c0 = kc[r] < 0 ? 0.f : cb[i], c1 = kc[r] < 0 ? 0.f : cb[i + 1];
+        *reinterpret_cast<float2*>(Pw + cm_idx(16 * w + g + 8 * r, 2 * n + (t >> 1), kWgPLd) + 2 * (t & 1)) =
+            make_float2(__uint_as_float(round_tf32(c0)), __uint_as_float(round_tf32(c1)));
+        const int key = 16 * w + g + 8 * r, q = 8 * n + 2 * t;
+        Cw[q * kWgKeys + key] = __float2bfloat16_rn(c0);
+        Cw[(q + 1) * kWgKeys + key] = __float2bfloat16_rn(c1);
+      }
+    fence_proxy_async();
+    a_frags_t<kWgQLd>(af, Qt, w, g, t);
+    sync_wg();  // comb^T is whole
+    wg_fence();
+    product_t(dkt, af, Pw);  // dK^T += Q^T comb^T^T
+    wg_commit();
+    // comb (B*H, T, T) out while the product runs: 16 bytes (8 keys of a
+    // query row) a store, a row's 64 keys 128 contiguous bytes
+    const int key0 = k0 + kWgKeys * wg;
+#pragma unroll
+    for (int c = tid & 127; c < kWgRows * kWgKeys / 8; c += 128) {
+      const int row = c >> 3, kk = 8 * (c & 7), qi = i0 + row;
+      if (qi >= T || key0 + kk >= T) continue;
+      __nv_bfloat16* dst = comb + ((size_t)bh * T + qi) * T + key0 + kk;
+      const __nv_bfloat16* src = Cw + row * kWgKeys + kk;
+      if (vec_comb && key0 + kk + 8 <= T) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && key0 + kk + e < T; ++e) dst[e] = src[e];
+      }
+    }
+    wg_wait<0>();
+    if (lane == 0) mbar_arrive(qempty + qs);  // this warp is done with the Q slot
+  }
+
+  // dcn, dK and dV of the warpgroup's keys: C fragment (h, 4 n + e) at d =
+  // 64 h + 16 w + 2 g + (e >> 1) (§wg_d_of_m), key 8 n + 2 t + (e & 1)
+  if (t == 0)
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (kr + 8 * r < T) dcn[arow + (size_t)a * T + kr + 8 * r] = Dc[a * kWgBlockKeys + kl + 8 * r];
+  const int key0 = k0 + kWgKeys * wg;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 64 * hh + 16 * w + 2 * g + (e >> 1), kj = key0 + 8 * n + 2 * t + (e & 1);
+        if (kj < T && d < dh) {
+          dv[base + (size_t)kj * dh + d] = dvt[hh][4 * n + e];
+          dk[base + (size_t)kj * dh + d] = dkt[hh][4 * n + e];
+        }
+      }
+}
+
+// mm_bwd_prep_wg, then mm_bwd_dkv_wg (dh % 4 == 0, 16-byte-aligned rows:
+// the wrapper pads; gr, qr and inv the wrapper's scratch, the size of gout,
+// qm and den)
+int launch_bwd_wg(const float* qm, const float* km, const float* vm, const float* cn, const float* key_mask,
+                  const float* fb, const int* fid, const float* gout, const float* out, const float* mrow,
+                  const float* den, float* delta, float* gr, float* qr, float* inv, float* dk, float* dv,
+                  float* dcn, __nv_bfloat16* comb, int B, int H, int A, int T, int dh, int F, cudaStream_t stream) {
+  const int rows = B * H * A * T, rows_q = B * H * T;
+  mm_bwd_prep_wg<<<(rows + rows_q + 7) / 8, 256, 0, stream>>>(out, gout, den, qm, delta, gr, inv, qr, rows, rows_q,
+                                                              dh);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(mm_bwd_dkv_wg, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgSmem);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec_comb = T % 8 == 0 && aligned16(comb);  // every row's 8-key runs on 16 bytes
+  const dim3 grid((T + kWgBlockKeys - 1) / kWgBlockKeys, B * H);
+  mm_bwd_dkv_wg<<<grid, kWgThreads, kWgSmem, stream>>>(qr, km, vm, cn, key_mask, fb, fid, gr, mrow, inv,
+                                                        delta, dk, dv, dcn, comb, H, A, T, dh, F, vec_comb);
+  return (int)cudaGetLastError();
+}
+#endif  // VOG_MM_WG
 
 // ---------------------------------------------------------------------------
 // backward past head dim 128: the head dim split over a cluster (cluster.cuh)
@@ -1676,6 +2184,7 @@ int launch_bwd_cl(const float* qm, const float* km, const float* vm, const float
 
 }  // namespace
 
+#if !VOG_MM_WG
 // dh: at most 128 in the narrow library, past 128 (a multiple of 4, as
 // clusters of n blocks; n is read only there) in the cluster library.
 // delta: (B,H,A,T) scratch, written here from gout and the forward's out.
@@ -1790,3 +2299,24 @@ extern "C" int vog_mm_clusters(int device, int A, int n, int which) {
   return 0;
 #endif
 }
+#else  // VOG_MM_WG
+// The one-pass emit backward at dh <= 128 (kernels/mm_attention.py
+// §bwd_route).  Scratch written here: delta and inv (B,H,A,T), gr
+// (B,H,A,T,dh) and qr (B,H,T,dh); dk, dv (B,H,T,dh), dcn (B,H,A,T) and comb
+// (B*H, T, T) bf16 written.  1 <= A <= 8; dh % 4 == 0 and every row matrix
+// on 16 bytes (the wrapper pads).
+extern "C" int vog_mm_bwd_wg(int device, const float* qm, const float* km, const float* vm, const float* cn,
+                             const float* key_mask, const float* fb, const int* fid, const float* gout,
+                             const float* out, const float* mrow, const float* den, float* delta, float* gr,
+                             float* qr, float* inv, float* dk, float* dv, float* dcn, void* comb, int B, int H,
+                             int A, int T, int dh, int F, void* stream) {
+  VOG_DEVICE_GUARD(device);
+  if (dh < 1 || dh > kDK || dh % 4 != 0 || F < 1 || A < 1 || A > kWgArgs || comb == nullptr ||
+      !aligned16(qm) || !aligned16(km) || !aligned16(vm) || !aligned16(gout) || !aligned16(out) ||
+      !aligned16(gr) || !aligned16(qr))
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || T == 0) return 0;
+  return launch_bwd_wg(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow, den, delta, gr, qr, inv, dk, dv, dcn,
+                       static_cast<__nv_bfloat16*>(comb), B, H, A, T, dh, F, static_cast<cudaStream_t>(stream));
+}
+#endif  // VOG_MM_WG

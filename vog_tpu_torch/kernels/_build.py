@@ -22,7 +22,10 @@ dh 128 (``-DVOG_MM_CLUSTER=1``, the libraries ``mm_attention_cluster`` and
 instances, ``csrc/cluster.cuh``), so that nvcc compiles its two sets of
 A = 1..8 templates in parallel (one library would take their sum, the
 longest build); ``attention.cu`` holds all of its instances (DK 64 and
-128, the cluster instances past 128) in one library.
+128, the cluster instances past 128) in one library.  At "default" it
+builds a third time for ``mm_bwd_dkv_wg`` (``-DVOG_MM_WG=1``, the library
+``mm_attention_wg@default``): the production recipe's emit backward at dh
+<= 128, one instance, which the narrow "default" library does not hold.
 
 Also holds the per-kernel launch counters: every wrapper adds one where it
 launches its kernel, and nowhere else.  A CUDA graph (train/graphs.py)
@@ -50,11 +53,16 @@ PRECISION_FLAGS = {"highest": (), "default": ("-DVOG_ONE_PASS=1",)}
 # the sources that build a second library for their cluster instances
 CLUSTER_SOURCES = ("mm_attention.cu",)
 CLUSTER = "cluster"
-# every library: (source, precision, part: None or CLUSTER); the gather (a
-# byte copy) has no products
+# mm_attention.cu's part of mm_bwd_dkv_wg, the one-pass emit backward at dh
+# <= 128 (one library, at "default" only)
+WG = "wg"
+PART_FLAGS = {None: (), CLUSTER: ("-DVOG_MM_CLUSTER=1",), WG: ("-DVOG_MM_WG=1",)}
+# every library: (source, precision, part: None, CLUSTER or WG); the gather
+# (a byte copy) has no products
 LIBRARIES = (tuple((s, "highest", None) for s in SOURCES)
              + tuple((s, "default", None) for s in SOURCES if s != "gather.cu")
-             + tuple((s, p, CLUSTER) for s in CLUSTER_SOURCES for p in PRECISION_FLAGS))
+             + tuple((s, p, CLUSTER) for s in CLUSTER_SOURCES for p in PRECISION_FLAGS)
+             + (("mm_attention.cu", "default", WG),))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -105,12 +113,13 @@ def variant(name: str, precision: str) -> str:
 
 def lib_stem(src: str, precision: str, part=None) -> str:
     """The library's (and its build log's) name: ``attention``,
-    ``attention@default`` or ``mm_attention_cluster@default``."""
+    ``attention@default``, ``mm_attention_cluster@default`` or
+    ``mm_attention_wg@default``."""
     return variant(Path(src).stem + ("" if part is None else f"_{part}"), precision)
 
 
 def _flags(precision: str, part) -> tuple:
-    return PRECISION_FLAGS[precision] + (() if part is None else ("-DVOG_MM_CLUSTER=1",))
+    return PRECISION_FLAGS[precision] + PART_FLAGS[part]
 
 
 def build_dir() -> Path:
@@ -174,9 +183,8 @@ def build_all() -> float:
 
 
 def library(src: str, precision: str = "highest", part=None) -> ctypes.CDLL:
-    """The loaded library of one source at ``precision`` (and, for a
-    source of ``CLUSTER_SOURCES``, its cluster instances when ``part``),
-    built on first use."""
+    """The loaded library of one source at ``precision`` (and, for
+    ``mm_attention.cu``, its part: CLUSTER or WG), built on first use."""
     key = lib_stem(src, precision, part)
     lib = _libs.get(key)
     if lib is None:

@@ -72,7 +72,12 @@ with ``-DVOG_ONE_PASS=1``), launches counted as
 ``mm_shared_qk_attention@default`` and so on, and emit mode stores comb
 in bf16, as the TPU package does at "default" on the chip (its
 mm_attention.py:413-427), widened to fp32 for the two products over it
-(``_build.bmm_wide``).  The forward reads the precision and its ctx
+(``_build.bmm_wide``).  The production recipe's backward (emit at
+"default", dh <= 128) is its own kernel, mm_bwd_dkv_wg (``bwd_route``
+"wg"): Hopper's wgmma, a block of two consumer warpgroups of 64 keys and
+a producer warpgroup streaming 32-row query tiles (csrc/mm_attention.cu),
+its launches counted under ``mm_bwd_dkv_wg@default`` beside
+``mm_shared_qk_attention_bwd@default``.  The forward reads the precision and its ctx
 carries it to the backward; the plain versions take ``precision`` for the
 wrappers' signature only.
 """
@@ -86,12 +91,15 @@ import torch
 
 from vog_tpu_torch.config.defaults import kernel_precision
 from vog_tpu_torch.kernels import _build
-from vog_tpu_torch.kernels._cluster import SLICE, arg_groups, cluster_args, cluster_plan
+from vog_tpu_torch.kernels._cluster import ROW_ALIGN, SLICE, arg_groups, cluster_args, cluster_plan, pad_cols
 
 NEG = -1e30
 NAME = "mm_shared_qk_attention"
 NAME_BWD = "mm_shared_qk_attention_bwd"  # emit mode
 NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
+# the emit backward's dk/dv/dcn kernel at "default" and dh <= 128 (``bwd_route``
+# "wg"), counted beside NAME_BWD where it launches
+NAME_WG = "mm_bwd_dkv_wg"
 KERNEL_ARGS = 8  # args a launch takes (template cases 1..8 in csrc/mm_attention.cu)
 # the kernels' head-dim instance (its own library): a call pads dh up to
 # it, and past it takes the cluster instances (kernels/_cluster.py) of the
@@ -112,6 +120,48 @@ def _part(dh: int):
     of ``dh``: None (the DK 128 instances), or past 128 the cluster
     instances' (``_build.CLUSTER``)."""
     return None if dh <= HEAD_DIMS[0] else _build.CLUSTER
+
+
+def bwd_route(mode: str, precision: str, dh: int) -> str:
+    """The backward's kernels for a call in ``mode`` at ``precision`` and
+    head dim ``dh``, at any frame count and arg count (each group of
+    ``bwd_groups`` takes the same route): "cluster" past dh 128
+    (mm_bwd_dkv_cl, and mm_bwd_dq_cl in recompute mode); "wg" in emit mode
+    at "default", the production recipe's (mm_bwd_dkv_wg: wgmma, a producer
+    warpgroup; the library part ``_build.WG``); else "narrow" (mm_bwd_dkv,
+    and mm_bwd_dq in recompute mode): every "highest" call and recompute
+    mode."""
+    if dh > HEAD_DIMS[0]:
+        return "cluster"
+    return "wg" if mode == "emit" and precision == "default" else "narrow"
+
+
+# mm_bwd_dkv_wg's shared tiles (csrc/mm_attention.cu §cm_idx): K-major core
+# matrices, element (row r, column c) at (c / 4) ld + 4 r + c % 4, where ld
+# is the floats between two 4-column groups: the K / V rows of a
+# warpgroup's 64 keys (WG_KV_LD), a Q tile (WG_Q_LD) and a g_a tile
+# (WG_G_LD) of 32 query rows, and the staging tile of P_a^T or comb^T (rows
+# the 64 keys, columns the 32 query rows: WG_P_LD); a g_a and a staging
+# tile carry 16 floats of padding a group (conflict-free fragment traffic)
+WG_KEYS, WG_ROWS = 64, 32
+WG_KV_LD, WG_Q_LD, WG_G_LD, WG_P_LD = 4 * WG_KEYS, 4 * WG_ROWS, 4 * WG_ROWS + 16, 4 * WG_KEYS + 16
+
+
+def wg_tile_index(r: int, c: int, ld: int) -> int:
+    """Mirror of ``cm_idx``: the float of (row r, column c) in a tile of
+    group stride ``ld``."""
+    return (c // 4) * ld + 4 * r + c % 4
+
+
+def wg_d_of_m(m: int) -> int:
+    """The head-dim column d of row m (0 <= m < 128, two 64-row halves) of
+    mm_bwd_dkv_wg's transposed products dV^T and dK^T: row 16 w + g of a
+    half is d = 16 w + 2 g and row 16 w + g + 8 is d + 1, so that the two
+    rows of a lane's A fragment (g and g + 8) are one float2 of a g_a or Q
+    tile; the kernel writes dV[key, d] and dK[key, d] from row m."""
+    h, x = divmod(m, 64)
+    w, y = divmod(x, 16)
+    return 64 * h + 16 * w + 2 * (y % 8) + y // 8
 
 
 def fwd_groups(A: int, dh: int):
@@ -357,6 +407,8 @@ def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, d
     for name, t in (("mrow", mrow), ("den", den)):
         _build.require(t, name, torch.float32, 4, dev)
     _build.require(out, "out", torch.float32, 5, dev)
+    if bwd_route(mode, prec, dh) == "wg":
+        return _mm_bwd_wg_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g)
     kd, n, (qm, km, vm, out, g) = cluster_args(dh, qm, km, vm, out, g)  # past 128: cluster_plan's
     delta = torch.empty_like(cn)  # (B,H,A,T) rowsum(g * out), written by the kernel
     dk, dv = torch.empty_like(km), torch.empty_like(vm)
@@ -380,7 +432,7 @@ def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, d
     if kd != dh:
         dk, dv = dk[..., :dh].contiguous(), dv[..., :dh].contiguous()
         dq = None if dq is None else dq[..., :dh].contiguous()
-    if mode == "emit":
+    if mode == "emit":  # "highest" (at "default" dh <= 128 is the "wg" route's)
         _build.check(rc, NAME_BWD)
         _build.count(NAME_BWD, prec)
         dq, dfb = _dq_dfb(comb, km[..., :dh], frame_ids, Fn, H)
@@ -388,6 +440,40 @@ def _mm_bwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, d
         _build.check(rc, NAME_BWD_RECOMPUTE)
         _build.count(NAME_BWD_RECOMPUTE, prec)
         dfb = part.sum(dim=(0, 2))
+    return dq, dk, dv, dcn, dfb
+
+
+def _mm_bwd_wg_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, out, mrow, den, g):
+    """The "wg" route (``bwd_route``) for one group of at most KERNEL_ARGS
+    args: mm_bwd_prep_wg and mm_bwd_dkv_wg (the library part ``_build.WG``),
+    comb in bf16, then dq and dfb over it; qm, km, vm, out and g padded with
+    zero columns to a multiple of 4 and starting on 16 bytes (``pad_cols``:
+    the kernel copies 16-byte row pieces) -> (dq, dk, dv, dcn, dfb)."""
+    dev = qm.device
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    Fn = frame_bias.shape[-1]
+    kd = -(-dh // ROW_ALIGN) * ROW_ALIGN
+    qm, km, vm, out, g = (pad_cols(t, kd) for t in (qm, km, vm, out, g))
+    # scratch, written by the kernels: delta = rowsum(g * out), 1 / den, g and
+    # qm rounded to TF32 (the operands mm_bwd_dkv_wg's producer copies)
+    delta, inv = torch.empty_like(cn), torch.empty_like(cn)
+    gr, qr = torch.empty_like(g), torch.empty_like(qm)
+    dk, dv = torch.empty_like(km), torch.empty_like(vm)
+    dcn = torch.empty_like(cn)
+    comb = torch.empty((B * H, T, T), dtype=torch.bfloat16, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("mm_attention.cu", "vog_mm_bwd_wg", [P] * 19 + [I] * 6 + [P], "default", _build.WG)
+    rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
+            frame_bias.data_ptr(), frame_ids.data_ptr(), g.data_ptr(), out.data_ptr(), mrow.data_ptr(),
+            den.data_ptr(), delta.data_ptr(), gr.data_ptr(), qr.data_ptr(), inv.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dcn.data_ptr(), comb.data_ptr(), B, H, A, T, kd, Fn, _build.stream_ptr(qm))
+    _build.check(rc, NAME_WG)
+    _build.count(NAME_BWD, "default")
+    _build.count(NAME_WG, "default")
+    if kd != dh:
+        dk, dv = dk[..., :dh].contiguous(), dv[..., :dh].contiguous()
+    dq, dfb = _dq_dfb(comb, km[..., :dh], frame_ids, Fn, H)
     return dq, dk, dv, dcn, dfb
 
 
