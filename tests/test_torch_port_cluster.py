@@ -80,7 +80,7 @@ def test_plan_covers_every_head_dim(A):
         assert all(a0 < a1 <= a0 + most for a0, a1 in p.groups)
         assert all(p.groups[i][1] == p.groups[i + 1][0] for i in range(len(p.groups) - 1))
         assert len(p.groups) == -(-A // most)
-        assert fwd_groups(A, dh) == list(p.groups)
+        assert fwd_groups(A, dh, "highest") == fwd_groups(A, dh, "default") == list(p.groups)
         most = cluster.BWD_KERNEL_ARGS
         bounds = [a for g in p.bwd_groups for a in g]
         assert bounds[0] == 0 and bounds[-1] == A

@@ -157,20 +157,40 @@ def test_flash(dev, B, H, T, dh, bias):
     _close(lse[:n], rl[:n])
 
 
-# (B, A, T, dh): every A at GT5's T and dh; dh 20, 37 (not a multiple of
-# 4), 64, 128; T = 1, 33 and 45 (not multiples of the 32-key tile), 90,
-# 200; batch row B - 1 has every key masked when B > 1; the P100 length
-MM_CASES = ([(3, a, 200, 128) for a in range(1, 9)]
-            + [(3, 5, 45, dh) for dh in (20, 37, 64, 128)]
-            + [(3, 3, 1, 128), (3, 3, 33, 128), (3, 1, 33, 16), (3, 8, 90, 64), (1, 5, 4000, 128)])
+# (B, A, T, dh, F): every A at GT5's T and dh (past 8 "highest" takes two
+# launches, past 5 "default" does: mm_fwd_wg's groups); dh 20, 37 (not a
+# multiple of 4), 64, 128; T = 1, 33 and 45 (not multiples of the 32-key
+# tile), 90, 200; frames past 64 (the table read from device memory);
+# batch row B - 1 has every key masked when B > 1; the P100 length
+MM_CASES = ([(3, a, 200, 128, 5) for a in range(1, 10)]
+            + [(3, 5, 45, dh, 5) for dh in (20, 37, 64, 128)]
+            + [(3, 3, 1, 128, 5), (3, 3, 33, 128, 5), (3, 1, 33, 16, 5), (3, 8, 90, 64, 5), (1, 5, 4000, 128, 5),
+               (3, 5, 200, 128, 80), (2, 9, 45, 37, 70)])
 
 
-@pytest.mark.parametrize("B,A,T,dh", MM_CASES)
-def test_mm(dev, B, A, T, dh):
+def _mm_fwd_launches(precision, dh, A):
+    """The launch counts of one mm forward call: its wrapper's name once a
+    group of ``fwd_groups``, and on the "wg" route (a one-pass precision,
+    dh <= 128) mm_fwd_wg's too."""
+    from vog_tpu_torch.kernels import _build, mm_attention
+
+    groups = len(mm_attention.fwd_groups(A, dh, precision))
+    out = {_build.variant(mm_attention.NAME, precision): groups}
+    if mm_attention.fwd_route(precision, dh) == "wg":
+        out[_build.variant(mm_attention.NAME_FWD_WG, precision)] = groups
+    return out
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("B,A,T,dh,F", MM_CASES)
+def test_mm(dev, B, A, T, dh, F, precision):
+    """The forward against its plain version: at "highest" (mm_fwd, 3xTF32)
+    within ``_close_rel``, at "default" (mm_fwd_wg) within the "default"
+    bounds; launches counted once a group, and bitwise on a repeat call."""
     from vog_tpu_torch.kernels import _build
     from vog_tpu_torch.kernels.mm_attention import mm_attention_fwd, mm_attention_plain
 
-    H, F = 2 if B > 1 else 1, 5
+    H = 2 if B > 1 else 1
     g = torch.Generator(device=dev)
     g.manual_seed(A * 1000 + T + dh)
     qm, km, vm = (torch.randn((B, H, T, dh), generator=g, device=dev) for _ in range(3))
@@ -182,14 +202,17 @@ def test_mm(dev, B, A, T, dh):
     fb = torch.randn((H, F, F), generator=g, device=dev)
     fid = torch.randint(0, F, (T,), dtype=torch.int32, device=dev, generator=g)
     _build.reset_counts()
-    got = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid)
+    got = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid, precision=precision)
     torch.cuda.synchronize()
-    assert _build.launches == {"mm_shared_qk_attention": 1}
+    assert _build.launches == _mm_fwd_launches(precision, dh, A)
     ref = mm_attention_plain(qm, km, vm, cn, mask, fb, fid)
-    _close_rel(got[0], ref[0])
+    check = _close_rel if precision == "highest" else (lambda a, b: _close_default(a, b, True))
+    check(got[0], ref[0])
     n = B - 1 if B > 1 else B  # the all-masked row's stats sit at -1e30 and T
     for x, y in zip(got[1:], ref[1:]):  # row max and denominator
-        _close_rel(x[:n], y[:n])
+        check(x[:n], y[:n])
+    again = mm_attention_fwd(qm, km, vm, cn, mask, fb, fid, precision=precision)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
 
 
 # the forward's items are 64 flattened (b, t) rows: B * T below, at and just
@@ -860,7 +883,6 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, misaligned, precisio
                                                   precision=precision)
             assert all(torch.equal(a, b) for a, b in zip(got, again))
         return
-    fwd_groups = len(mm_attention.fwd_groups(A, dh))
     groups = len(mm_attention.bwd_groups(A, dh))  # cluster_plan's bwd_groups past dh 128
     qm = rows(q * dh ** -0.5)
     cn = -3 * torch.rand((2, 2, A, T), generator=g, device=dev)
@@ -868,7 +890,7 @@ def test_wide_instance_matches_plain(dev, kernel, dh, F, A, misaligned, precisio
     _build.reset_counts()
     out = mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid, precision=precision)
     torch.cuda.synchronize()
-    assert _build.launches == {_build.variant("mm_shared_qk_attention", precision): fwd_groups}
+    assert _build.launches == _mm_fwd_launches(precision, dh, A)  # mm_fwd_wg's too at "default", dh <= 128
     assert all(torch.equal(a, b) for a, b in zip(
         out, mm_attention.mm_attention_fwd(qm, k, v, cn, mask, fb, fid, precision=precision)))
     (_close_rel if high else fwd_check)(out[0], rf[0])
@@ -982,7 +1004,8 @@ def _close_default(got, ref, fwd):
 def test_default_variant_matches_plain(dev, kernel, mode):
     """Each kernel's "default" variant, forward and backward (both modes;
     emit stores its ds / comb in bf16), against its plain version, with
-    its launches counted under the variant's name."""
+    its launches counted under the variant's name; the mm backward fed by
+    the "default" forward's outputs (mm_fwd_wg's row max and denominator)."""
     from vog_tpu_torch.kernels import _build, attention, grounding_head, mm_attention
 
     d = "default"
@@ -1022,10 +1045,11 @@ def test_default_variant_matches_plain(dev, kernel, mode):
             go = torch.randn(rf[0].shape, generator=g, device=dev)
             _build.reset_counts()
             out = mm_attention.mm_attention_fwd(q * 0.2, k, v, cn, mask, fb, fid, precision=d)
-            got = mm_attention.mm_attention_bwd(q * 0.2, k, v, cn, mask, fb, fid, *rf, go, bwd_mode=mode,
+            # the backward fed by the "default" forward's out, row max and denominator (mm_fwd_wg's)
+            got = mm_attention.mm_attention_bwd(q * 0.2, k, v, cn, mask, fb, fid, *out, go, bwd_mode=mode,
                                                 precision=d)
             torch.cuda.synchronize()
-            assert _build.launches == {"mm_shared_qk_attention@default": 1, **_mm_bwd_launches(mode, d, 40, 1)}
+            assert _build.launches == {**_mm_fwd_launches(d, 40, 4), **_mm_bwd_launches(mode, d, 40, 1)}
             for x, y in zip(out, rf):
                 _close_default(x, y, True)
             ref = mm_attention.mm_attention_bwd_plain(q * 0.2, k, v, cn, mask, fb, fid, *rf, go)

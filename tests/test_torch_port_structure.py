@@ -298,11 +298,12 @@ def test_mm_forward_on_tensor_cores_and_gather_streams_a_unit_a_thread():
     assert '#include "tiles.cuh"' in text
     bodies = _kernel_bodies(text)
     assert sorted(bodies) == ["mm_bwd_delta", "mm_bwd_dkv", "mm_bwd_dkv_cl", "mm_bwd_dkv_wg", "mm_bwd_dq",
-                              "mm_bwd_dq_cl", "mm_bwd_prep_wg", "mm_fwd", "mm_fwd_cl"]
+                              "mm_bwd_dq_cl", "mm_bwd_prep_wg", "mm_fwd", "mm_fwd_cl", "mm_fwd_prep_wg", "mm_fwd_wg"]
     fwd = bodies["mm_fwd"]
-    # S = Q K^T once per key tile; P_a V for every arg (3xTF32, or one pass)
-    assert fwd.count("mma_p<kOnePass>(") == 2
-    assert fwd.count("frag_bt<kLd>(") == 1 and "frag_b_pairs<kLd>(" in fwd and "split<kOnePass>(" in fwd
+    # S = Q K^T once per key tile; P_a V for every arg (3xTF32 only: the
+    # one-pass forward at dh <= 128 is mm_fwd_wg)
+    assert fwd.count("mma_p<false>(") == 2
+    assert fwd.count("frag_bt<kLd>(") == 1 and "frag_b_pairs<kLd>(" in fwd and "split<false>(" in fwd
     assert "load_rows<" in fwd and "cp_async4(" in fwd and "cp_wait_all()" in fwd
     # past head dim 128: the same tile, the block's columns by TMA, S summed once over the cluster
     cl = bodies["mm_fwd_cl"]
@@ -388,6 +389,55 @@ def test_production_mm_backward_on_wgmma_with_producer_warps():
     wg = text[text.index("int launch_bwd_wg("):]
     wg = wg[: wg.index("\n}\n")]
     assert wg.count("mm_bwd_prep_wg<<<") == 1 and wg.count("mm_bwd_dkv_wg<<<") == 1
+
+
+def test_production_mm_forward_on_wgmma_with_a_producer_warpgroup():
+    """The one-pass mm forward at dh <= 128 is mm_fwd_prep_wg (km rounded to
+    TF32) and mm_fwd_wg, in the library part of mm_bwd_dkv_wg
+    (-DVOG_MM_WG=1, at "default" only), whose entry point vog_mm_fwd_wg
+    sits beside vog_mm_bwd_wg: two consumer warpgroups on wgmma (S = Q K^T
+    from shared memory once a tile, O_a^T += V^T P_a^T with V^T from
+    registers), a producer warpgroup streaming K and V tiles on mbarriers
+    both ways, the register file split by setmaxnreg, the warpgroups
+    meeting on a named barrier, no atomics.  The one-pass narrow library
+    holds no instance of mm_fwd (its launch returns before one is named),
+    and the wrapper routes by ``fwd_route``.  The code of this slice imports
+    neither jax nor vog_tpu."""
+    from vog_tpu_torch.kernels import _build, mm_attention
+
+    text = (PKG / "csrc" / "mm_attention.cu").read_text()
+    wg_part = text[text.index("#if VOG_MM_WG\n"):text.index("#endif  // VOG_MM_WG\n")]
+    assert "template <int A>\n__global__ void __launch_bounds__(kWgThreads, 1)\nmm_fwd_wg(" in wg_part
+    assert "mm_fwd_prep_wg(" in wg_part
+    entries = text[text.index("#else  // VOG_MM_WG"):]
+    assert 'extern "C" int vog_mm_fwd_wg(' in entries and 'extern "C" int vog_mm_bwd_wg(' in entries
+    narrow = text[text.index("#if !VOG_MM_WG\n"):text.index("#else  // VOG_MM_WG")]
+    assert "vog_mm_fwd_wg" not in narrow and 'extern "C" int vog_mm_fwd(' in narrow
+    body = _kernel_bodies(text)["mm_fwd_wg"]
+    body = body[: body.index("\n}\n")]
+    assert "setmaxnreg.dec" in body and "setmaxnreg.inc" in body
+    assert body.count("mbar_wait(") >= 4 and "mbar_arrive(kempty" in body and "mbar_arrive(vempty" in body
+    assert "scores_t<kFwKLd>(sa, Qs, Ks" in body and "wgmma_n64(oa[a], vf[k]," in body
+    assert "bar.sync 1, 256;" in body and "fence_proxy_async()" in body and "atomic" not in body
+    tiles = body.index("for (; it + 1 < ntiles; ++it) {")
+    assert body.index("scores_t<kFwKLd>(sa, Qs, Ks + s1 * kFwK)") > tiles  # S once a tile, for every arg
+    launch = text[text.index("int launch(const float* qm"):]
+    launch = launch[: launch.index("\n}\n")]
+    one_pass = "if constexpr (kOnePass) {  // the one-pass forward is mm_fwd_wg's (its own library)"
+    assert one_pass in launch and launch.index(one_pass) < launch.index("mm_fwd<A, kSmemTable>")
+    assert launch[launch.index(one_pass):].split("\n")[1].strip() == "return (int)cudaErrorInvalidValue;"
+    assert "} else {" in launch
+    wg = text[text.index("int launch_fwd_wg("):]
+    wg = wg[: wg.index("\n}\n")]
+    assert wg.count("mm_fwd_prep_wg<<<") == 1 and wg.count("  fwd<<<") == 1
+    assert f"mm_fwd_wg<{mm_attention.WG_FWD_ARGS}>" in wg
+    assert ("mm_attention.cu", "default", _build.WG) in _build.LIBRARIES
+    assert mm_attention.fwd_route("default", 128) == "wg" and mm_attention.fwd_route("highest", 128) == "narrow"
+    src = (PKG / "kernels" / "mm_attention.py").read_text()
+    assert '"vog_mm_fwd_wg", [P] * 11 + [I] * 8 + [P], "default", _build.WG)' in src
+    for f in (PKG / "kernels" / "mm_attention.py", SMOKE, ROOT / "tools" / "bwd_ab.py",
+              ROOT / "tools" / "mm_wg_phases.py"):
+        assert not _imported_roots(f) & FORBIDDEN, f
 
 
 def test_backward_modes_not_default_have_kernels_of_their_own():

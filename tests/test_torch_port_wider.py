@@ -299,7 +299,8 @@ def test_head_dim_rule():
     assert mm_attention.DQ_ROWS == 64  # both dq kernels' blocks: the (F, F) partials' row tiles
     # the launches past 128 (cluster_plan's): the backward 8 args at any dh, the forward 7, 4 past dh 1024
     assert [len(mm_attention.bwd_groups(12, d)) for d in (128, 256, 257, 1024, 1100)] == [2, 2, 2, 2, 2]
-    assert mm_attention.bwd_groups(8, 1100) == [(0, 8)] and mm_attention.fwd_groups(8, 1100) == [(0, 4), (4, 8)]
+    assert mm_attention.bwd_groups(8, 1100) == [(0, 8)]
+    assert mm_attention.fwd_groups(8, 1100, "default") == [(0, 4), (4, 8)]
 
 
 @pytest.mark.parametrize("dh", [320, 512])

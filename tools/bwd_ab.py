@@ -1,7 +1,7 @@
-"""Time the head backward and the mm backward (emit) of the package at
-``--root`` on the card, and the production recipe's graphed train step, so
-that two trees can be compared in one call (parent, change, change,
-parent):
+"""Time the head backward, the mm backward (emit) and the mm forward of
+the package at ``--root`` on the card, and the production recipe's graphed
+train step, so that two trees can be compared in one call (parent, change,
+change, parent):
 
     git archive <parent> | tar -x -C <parent dir>
     VOG_TORCH_BUILD_DIR=<build dir> python3 tools/bwd_ab.py --root <parent dir> --label P1
@@ -11,7 +11,9 @@ parent):
 kernel row: device ms (``chip_smoke.time_ms`` behind a sleep kernel) and
 with the host's issue, at GT5 (B=16, T=200) and P100 (B=2, T=4000), A=5,
 D=512, "default" and "highest", on inputs made from seed 4, and the mm
-backward's kernels each (``chip_smoke.bwd_by_kernel``: a profiler run);
+backward's and forward's kernels each (``chip_smoke.bwd_by_kernel``: a
+profiler run; at "default" the forward is mm_fwd_prep_wg + mm_fwd_wg since
+the "wg" route, mm_fwd before it);
 the step:
 host ms of a graphed dispatch of 16 production steps (``prod_cfg``) on
 2,000 random table rows, the median of 4 over 16.  Prints one line a
@@ -70,13 +72,14 @@ def main() -> int:
             calls = {
                 "head_bwd": lambda: grounding_head.grounding_head_bwd(*hargs, hg, precision=prec),
                 "mm_bwd_emit": lambda: mm_attention.mm_attention_bwd(*ops, *fwd, gm, bwd_mode="emit", precision=prec),
+                "mm_fwd": lambda: mm_attention.mm_attention_fwd(*ops, precision=prec),
             }
             for name, fn in calls.items():
                 with cs.tf32(prec == "default"):
                     ms = cs.time_ms(fn, reps, inner)
                     issue = cs.time_ms(fn, reps, inner, queued=False)
-                    # each kernel's device ms from a profiler run (the mm backward's dkv kernel alone)
-                    split = cs.bwd_by_kernel(fn, reps, inner)["by_kernel"] if name == "mm_bwd_emit" else {}
+                    # each kernel's device ms from a profiler run (the mm backward's and forward's kernels)
+                    split = cs.bwd_by_kernel(fn, reps, inner)["by_kernel"] if name.startswith("mm_") else {}
                 key = f"{name} {tag} {prec}"
                 out["rows"][key] = {"ms": ms, "issue_ms": issue, "by_kernel": split}
                 print(f"[{opts.label}] {key}: device {ms:.4f} ms, w/ issue {issue:.4f} ms"

@@ -45,7 +45,69 @@
 // The previous design (fp32 FMA: a warp two query rows, lane j scoring key
 // j, two shuffle reductions a row per arg, float4 P.V loops) took 0.3044 /
 // 0.3037 ms at GT5 (chip_smoke.py, H100 80GB HBM3, 700 W); this design's
-// times are in PERF.md.
+// times are in PERF.md.  mm_fwd runs every "highest" instance.
+//
+// Forward at a one-pass precision ("default"), dh <= 128: mm_fwd_wg, on
+// Hopper's wgmma (hopper.cuh).  Its work is mm_fwd's, 2 BH T^2 dh (1 + A):
+// 3.93 GFLOP at GT5, 196.6 at P100 (BH 8, T 4000, A 5), 0.008 and 0.40 ms
+// at 495 TF32 TFLOP/s; GT5 is bound by its 32.8 MB output (0.016 ms).
+// mm_fwd's 16-row blocks (each K/V tile fetched once per 16 query rows),
+// three phases a tile with a __syncthreads after each, and mma.sync held
+// it at ~41 TFLOP/s (4.7608 ms at P100, 0.1648 at GT5; PERF.md, H100
+// 80GB HBM3, 700 W), and its A = 8 instance spilled.  Two kernels:
+//  * mm_fwd_prep_wg: km rounded to TF32 into scratch the wrapper
+//    allocates (the streamed B operand of S), as mm_bwd_prep_wg rounds
+//    g_a and qm;
+//  * mm_fwd_wg: a block of 384 threads owns 64 query rows (wgmma's M):
+//    two consumer warpgroups and a producer warpgroup (setmaxnreg 40 /
+//    232).  The block's Q rows stay resident (32 KB, rounded to
+//    TF32 in place once); the producer streams 32-key tiles, K (with the
+//    tile's key codes and each arg's cn) and V in slots of their own, two
+//    each, by 16-byte cp.async from all 128 threads, under mbarriers both
+//    ways: a K slot is freed once the tile's scores and softmax are done,
+//    a V slot once the consumers hold its fragments, so each loads a tile
+//    ahead.  The per-arg output state sets the shape: O_a of 64 rows x 128
+//    columns is 32 accumulators a thread an arg in each warpgroup when the
+//    two warpgroups split the head dim (64 columns each; 160 at A = 5, a
+//    launch's most: kernels/mm_attention.py §fwd_groups runs more in
+//    groups, each launch writing its args in place into the outputs of
+//    every arg, km rounded once a call).  TF32 wgmma reads K-major operands only, so
+//    the value product is the transposed one mm_bwd_dkv_wg uses for dV^T:
+//    O_a^T += V^T P_a^T, with V^T's A fragments read from the V tile as it
+//    lies (in §wg_d_of_m's head-dim order, rounded in registers once a
+//    k-step for every arg) and P_a staged [query][key] in K-major core
+//    matrices as the B operand.  Each warpgroup computes the tile's
+//    scores S = Q K^T (m64n32k8, both operands in shared memory) and the
+//    frame bias and key masks, then per arg each row's max over the tile
+//    (so the two warpgroups hold the same maxima with no exchange) and
+//    the exps of its own 16 keys only (every exp once a block), their sum
+//    into its part of the row sums, P_a rounded into the shared staging
+//    tile.  The softmax is lazy, as FlashAttention-4's: a row's reference
+//    max moves only where the tile's max passes it by more than kLazy (8;
+//    a warp's 16 rows together, by a vote), so P <= e^8 and O_a^T is
+//    rescaled only in the tiles that move a reference (the factors in the
+//    order §fw_pos gives, a lane's 16 query columns of O^T in four 16-byte
+//    reads, and a flag a warp); each lane keeps its part of the true max,
+//    and the denominator is rebased onto it at the end.  The tile
+//    pipeline: S of tile i + 1 and O_a^T of tile i (A x 4 m64n64k8) run
+//    on the tensor core together, then the softmax of tile i + 1 (kept in
+//    flight across it, the products' accumulators and V^T's fragments
+//    beside the softmax's registers spilled at A = 5); the two
+//    warpgroups meet on a named barrier once a tile (P of tile i + 1
+//    whole, both done reading P of tile i: two staging buffers).  O_a^T is
+//    rescaled before S of tile i + 1 is issued: ptxas serializes every
+//    wgmma of a kernel in which a non-wgmma instruction reads or writes an
+//    accumulator while any wgmma is in flight.  At the end each row's two
+//    sums are added in order, O_a = (O_a^T)^T / sum is stored a float2
+//    (two head-dim columns of a row) a store, and the row max and den (>=
+//    1) are written in the meaning mm_bwd_prep_wg and mm_bwd_dkv_wg read.
+//    Keys: masked -1e30, past T -inf (key_code<true>); rows past T are
+//    not written; the frame table is read through the read-only cache at
+//    any F; F and dh <= 128 are run-time, A a template parameter (1..5:
+//    the accumulators and every arg loop static).  No atomics: a repeated
+//    call is bitwise equal.  222 KB of shared memory, one block an SM:
+//    GT5's 4 x 64 blocks 1.94 waves on 132 SMs, P100's 63 x 8 3.82.
+//    Where its time goes: tools/mm_wg_phases.py --kernel fwd.
 //
 // Backward: the counterpart of the TPU's dk/dv/dcn kernel in both of its
 // modes (vog_tpu/kernels/mm_attention.py §_make_bwd_dkv_kernel(True) in the
@@ -209,8 +271,9 @@
 // table modes, tiles.cuh §TableMode; of the cluster kernels, with and
 // without their other slices, kX) do not double in any of the four
 // builds.  The one-pass narrow library holds no emit instance of
-// mm_bwd_dkv: its emit backward is mm_bwd_dkv_wg, a fifth library
-// (-DVOG_MM_WG=1) built beside the others.
+// mm_bwd_dkv and no instance of mm_fwd: its emit backward is
+// mm_bwd_dkv_wg and its forward mm_fwd_wg, a fifth library (-DVOG_MM_WG=1)
+// built beside the others.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -218,22 +281,23 @@
 
 #include "tiles.cuh"  // cp.async row tiles, their 3xTF32 fragments, HeadDim
 #include "cluster.cuh"  // the head dim split over a cluster: slices, barriers, TMA, partials
-#include "hopper.cuh"  // wgmma, mbarriers, the proxy fence (mm_bwd_dkv_wg)
+#include "hopper.cuh"  // wgmma, mbarriers, the proxy fence (mm_bwd_dkv_wg, mm_fwd_wg)
 #include "device.cuh"  // DeviceGuard: every entry point runs on its tensors' device
 
 // This library's kernels: the narrow instances (dh <= 128, zero padded to
 // 128), or with -DVOG_MM_CLUSTER=1 the cluster instances (dh > 128), one
 // library each (kernels/_build.py), so that nvcc builds the two sets of A
 // = 1..8 instances in parallel; with -DVOG_MM_WG=1 (one pass only)
-// mm_bwd_dkv_wg, the "default" emit backward at dh <= 128, whose entry
-// point vog_mm_bwd_wg is that library's only one.
+// mm_bwd_dkv_wg and mm_fwd_wg, the "default" emit backward and forward at
+// dh <= 128, whose entry points vog_mm_bwd_wg and vog_mm_fwd_wg are that
+// library's only ones.
 #ifndef VOG_MM_CLUSTER
 #define VOG_MM_CLUSTER 0
 #endif
 #ifndef VOG_MM_WG
 #define VOG_MM_WG 0
 #endif
-static_assert(!VOG_MM_WG || (VOG_ONE_PASS && !VOG_MM_CLUSTER), "mm_bwd_dkv_wg: the one-pass library's part");
+static_assert(!VOG_MM_WG || (VOG_ONE_PASS && !VOG_MM_CLUSTER), "mm_bwd_dkv_wg, mm_fwd_wg: the one-pass library's part");
 
 namespace {
 
@@ -266,6 +330,8 @@ constexpr int kSLd = kFwdTile + 8;              // S tile row stride (conflict-f
 // conflict-free
 constexpr int kPLd = 2 * kFwdTile + 16;
 
+// 3xTF32 only: a one-pass forward at dh <= 128 is mm_fwd_wg's (launch
+// below names no instance in a one-pass library)
 template <int A, int TM>
 __global__ void __launch_bounds__(kFwdThreads, kMinBlocks)
 mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
@@ -347,7 +413,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
         uint32_t ab[4], as[4], bb[2], bs[2];
         frag_a<kLd>(Qs, 8 * ks, g, t, ab, as);
         frag_bt<kLd>(Kw, 0, 8 * ks, g, t, bb, bs);
-        mma_p<kOnePass>(cs[ks % kSets], ab, as, bb, bs);
+        mma_p<false>(cs[ks % kSets], ab, as, bb, bs);
       }
       const int j = 8 * warp + 2 * t;
       float x[4];
@@ -389,7 +455,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           x[i] = expf(x[i] - mn);  // keys past T: 0
-          split<kOnePass>(x[i], pb[i], ps[i]);
+          split<false>(x[i], pb[i], ps[i]);
         }
         l[a] = l[a] * al + ((x[0] + x[1]) + (x[2] + x[3]));
         float4* pr = reinterpret_cast<float4*>(Ps + (a * kFwdRows + sr) * kPLd + 2 * sk);
@@ -431,7 +497,7 @@ mm_fwd(const float* __restrict__ qm, const float* __restrict__ km,
         const uint32_t as[4] = {__float_as_uint(u.z), __float_as_uint(w.z), __float_as_uint(u.w),
                                 __float_as_uint(w.w)};
 #pragma unroll
-        for (int n = 0; n < kFwdNT; ++n) mma_p<kOnePass>(acc[a][n], ab, as, bb[n], bs[n]);
+        for (int n = 0; n < kFwdNT; ++n) mma_p<false>(acc[a][n], ab, as, bb[n], bs[n]);
       }
     }
   }
@@ -466,18 +532,22 @@ int launch(const float* qm, const float* km, const float* vm, const float* cn,
            const float* key_mask, const float* fb, const int* fid, float* o,
            float* mrow, float* den, int B, int H, int T, int dh, int F,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(kFwdRows + 4 * kFwdTile) * kLd +
-                                       A * kFwdRows * kPLd + kFwdRows * kSLd +
-                                       2 * A * kFwdTile + 2 * A * kFwdRows + table_floats(F)) +
-                      sizeof(int) * 2 * kFwdTile;
-  auto fwd = F <= kTableF ? mm_fwd<A, kSmemTable> : mm_fwd<A, kGlobalTable>;
-  cudaError_t e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm);
-  dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
-  fwd<<<grid, kFwdThreads, smem, stream>>>(
-      qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, H, T, dh, F, vec);
-  return (int)cudaGetLastError();
+  if constexpr (kOnePass) {  // the one-pass forward is mm_fwd_wg's (its own library)
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const size_t smem = sizeof(float) * ((size_t)(kFwdRows + 4 * kFwdTile) * kLd +
+                                         A * kFwdRows * kPLd + kFwdRows * kSLd +
+                                         2 * A * kFwdTile + 2 * A * kFwdRows + table_floats(F)) +
+                        sizeof(int) * 2 * kFwdTile;
+    auto fwd = F <= kTableF ? mm_fwd<A, kSmemTable> : mm_fwd<A, kGlobalTable>;
+    cudaError_t e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    const bool vec = dh % 4 == 0 && aligned16(qm) && aligned16(km) && aligned16(vm);
+    dim3 grid((T + kFwdRows - 1) / kFwdRows, B * H);
+    fwd<<<grid, kFwdThreads, smem, stream>>>(
+        qm, km, vm, cn, key_mask, fb, fid, o, mrow, den, H, T, dh, F, vec);
+    return (int)cudaGetLastError();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1667,6 +1737,458 @@ int launch_bwd_wg(const float* qm, const float* km, const float* vm, const float
                                                         delta, dk, dv, dcn, comb, H, A, T, dh, F, vec_comb);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// forward at "default", dh <= 128: mm_fwd_wg on wgmma
+// ---------------------------------------------------------------------------
+// The production recipe's forward (one TF32 pass) at dh <= 128, in the same
+// library part as mm_bwd_dkv_wg; F and dh are run-time, A (1..kFwArgs) a
+// template parameter.  The design note at the top of this file says how it
+// works.
+constexpr int kFwRows = 64;                  // query rows a block owns: wgmma's M
+constexpr int kFwKeys = 32;                  // keys a streamed tile: N of S
+constexpr int kFwArgs = 5;                   // args a launch takes at most (the wrapper's groups)
+// setmaxnreg's split of the register file: 128 x 40 + 256 x 232 = 384 x 168
+// (56 / 224 spilled in the consumers at A = 5; 40 in the producer until its
+// loop over cn stayed rolled)
+constexpr int kFwProdRegs = 40, kFwConsRegs = 232;
+constexpr int kFwQLd = kFwRows * 4;          // the resident Q tile's LD (A of S): 256
+constexpr int kFwQ = kWgGroups * kFwQLd;
+constexpr int kFwKLd = kFwKeys * 4;          // a K tile's LD (B of S): 128
+constexpr int kFwK = kWgGroups * kFwKLd;
+// a V tile's LD: 16 floats of padding a group, so that the transposed
+// A-fragment reads (two rows' float2 a lane) hit 32 distinct banks
+constexpr int kFwVLd = kFwKeys * 4 + 16;
+constexpr int kFwV = kWgGroups * kFwVLd;
+// P_a of a tile, the B operand of O_a^T: rows the 64 query rows, columns
+// the 32 keys (padded: the float2 stores from the C fragments hit 32
+// distinct banks)
+constexpr int kFwPLd = kFwRows * 4 + 16;
+constexpr int kFwP = (kFwKeys / 4) * kFwPLd;
+// a float2 a (arg, consumer thread): its rows' reference max, true max part or sum part
+constexpr int kFwStats = kFwArgs * kWgCons * 2;
+constexpr int kFwRow = kFwArgs * kFwRows;        // a value a (arg, query row), in §fw_pos order
+constexpr int kFwFlags = kFwArgs * 4;            // a tile's rescale flags: an int a (arg, warp)
+// a row's reference max moves only where a tile passes it by more than this
+// (P <= e^8: the sums stay far inside fp32's range)
+constexpr float kLazy = 8.f;
+constexpr size_t kFwFloats = kFwQ + 2 * (size_t)kFwK + 2 * kFwV + 2 * kFwArgs * kFwP + 2 * kFwArgs * kFwKeys +
+                             2 * kFwKeys + 3 * kFwStats + 4 * kFwRow + 4 * kFwFlags;
+constexpr size_t kFwSmem = sizeof(float) * kFwFloats + 8 * sizeof(uint64_t);
+static_assert(kFwSmem <= 232448, "a block's shared memory on the H100");
+static_assert(2 * kFwRow <= 2 * kFwArgs * kFwP, "the row sums' exchange fits a P buffer");
+
+// where a per-row value of query row q (0..63) sits in a 64-float vector:
+// the 16 columns of a lane (t) of an O^T C fragment, q = 8 n + 2 t + e,
+// are contiguous (16 t + 2 n + e), four 16-byte reads a lane
+__device__ inline int fw_pos(int q) { return 16 * ((q >> 1) & 3) + 2 * (q >> 3) + (q & 1); }
+
+// The pass before mm_fwd_wg: km rounded to TF32 into kr (the streamed B
+// operand of S, which the producer copies as it is), n4 float4s
+__global__ void __launch_bounds__(256)
+mm_fwd_prep_wg(const float4* __restrict__ k, float4* __restrict__ kr, size_t n4) {
+  for (size_t i = (size_t)blockIdx.x * 256 + threadIdx.x; i < n4; i += (size_t)gridDim.x * 256)
+    kr[i] = round4(__ldg(k + i));
+}
+
+template <int A>
+__global__ void __launch_bounds__(kWgThreads, 1)
+mm_fwd_wg(const float* __restrict__ qm, const float* __restrict__ kr, const float* __restrict__ vm,
+          const float* __restrict__ cn, const float* __restrict__ key_mask, const float* __restrict__ fb,
+          const int* __restrict__ fid, float* __restrict__ o, float* __restrict__ mrow, float* __restrict__ den,
+          int H, int T, int dh, int F, int Aall, int a0) {
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kFwRows;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  extern __shared__ __align__(128) float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);  // kFwQ
+  float* Ks = Qs + kFwQ;                        // 2 slots x kFwK
+  float* Vs = Ks + 2 * kFwK;                    // 2 slots x kFwV
+  float* Ps = Vs + 2 * kFwV;                    // 2 buffers x kFwArgs x kFwP
+  float* Cs = Ps + 2 * kFwArgs * kFwP;          // 2 slots x kFwArgs x kFwKeys: cn, zero past T
+  int* codes = reinterpret_cast<int*>(Cs + 2 * kFwArgs * kFwKeys);  // 2 slots x kFwKeys: key codes
+  float* Ms = reinterpret_cast<float*>(codes + 2 * kFwKeys);      // kFwStats: each thread's rows' reference max
+  float* Ts = Ms + kFwStats;                                        // kFwStats: its part of their true max
+  float* Ls = Ts + kFwStats;                                        // kFwStats: its part of their sums
+  float* Al = Ls + kFwStats;  // 2 warpgroups x 2 parities x kFwRow: the rescale factors of a tile
+  int* Fl = reinterpret_cast<int*>(Al + 4 * kFwRow);  // 2 warpgroups x 2 parities x kFwFlags
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Fl + 4 * kFwFlags);
+  uint64_t* kfull = bars;       // a K slot is in (the producer warpgroup's 128 threads)
+  uint64_t* kempty = bars + 2;  // a K slot is read (a lane of each consumer warp)
+  uint64_t* vfull = bars + 4;
+  uint64_t* vempty = bars + 6;
+  const size_t base = (size_t)bh * T * dh;
+  const int ntiles = (T + kFwKeys - 1) / kFwKeys;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kfull + i, 128);
+      mbar_init(vfull + i, 128);
+      mbar_init(kempty + i, 8);
+      mbar_init(vempty + i, 8);
+    }
+    mbar_fence_init();
+  }
+  // the block's Q rows, resident: lanes over 8 rows x 4 column groups, then
+  // rounded to TF32 in place once
+  for (int i = tid; i < kFwRows * kWgGroups; i += kWgThreads) {
+    const int r = ((i >> 2) & 7) + 8 * ((i >> 5) & 7), c = (i & 3) + 4 * (i >> 8);
+    const int qi = q0 + r;
+    const bool ok = qi < T && 4 * c < dh;
+    cp_async16(Qs + cm_idx(r, c, kFwQLd), ok ? qm + base + (size_t)qi * dh + 4 * c : qm, ok);
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+  for (int i = tid; i < kFwQ / 4; i += kWgThreads) {
+    float4* p = reinterpret_cast<float4*>(Qs) + i;
+    *p = round4(*p);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // The producer warpgroup: each thread one row of a tile (lanes over 8 rows
+  // x 4 column groups) and 8 of its 32 groups, by 16-byte cp.async (all 128
+  // threads issue); a K stage also holds the tile's key codes and each
+  // arg's cn (4-byte cp.async, zero past T).  Once its copies have landed,
+  // a fence for the async proxy and an arrival on the slot's barrier.  K and
+  // V have slots of their own: a K slot is freed once the tile's scores and
+  // softmax are done, a V slot once the consumers hold its fragments, so
+  // each loads a tile ahead.
+  // the warpgroup's index, warp-uniform for the compiler (a shuffle from
+  // lane 0): ptxas serializes the wgmma of code it cannot prove convergent
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wgi == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwProdRegs));
+    const int pt = tid - kWgCons, pr = ((pt >> 2) & 7) + 8 * (pt >> 5), pc = pt & 3;
+    auto fill = [&](float* dst, int ld, const float* src, int j0) {
+      const int row = j0 + pr;
+#pragma unroll 1
+      for (int i = 0; i < kWgGroups / 4; ++i) {
+        const int c = pc + 4 * i;
+        const bool ok = row < T && 4 * c < dh;
+        cp_async16(dst + cm_idx(pr, c, ld), ok ? src + (size_t)row * dh + 4 * c : src, ok);
+      }
+      cp_commit();
+    };
+    auto land = [&](uint64_t* full) {
+      cp_wait_all();
+      fence_proxy_async();
+      mbar_arrive(full);
+    };
+    const float* cb = cn + ((size_t)bh * Aall + a0) * T;  // this launch's args of the (B,H,Aall,T) cn
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it & 1, j0 = it * kFwKeys;
+      if (it >= 2) mbar_wait(kempty + s, ((it >> 1) - 1) & 1);
+      if (pt < kFwKeys) codes[s * kFwKeys + pt] = key_code<true>(key_mask, fid, b, j0 + pt, T);
+      // each arg's cn (rolled: unrolled, the loop spills at 40 registers)
+#pragma unroll 1
+      for (int i = pt; i < A * kFwKeys; i += 128) {
+        const int a = i / kFwKeys, j = j0 + i % kFwKeys;
+        cp_async4(Cs + s * kFwArgs * kFwKeys + i, j < T ? cb + (size_t)a * T + j : cb, j < T);
+      }
+      fill(Ks + s * kFwK, kFwKLd, kr + base, j0);
+      land(kfull + s);
+      if (it >= 2) mbar_wait(vempty + s, ((it >> 1) - 1) & 1);
+      fill(Vs + s * kFwV, kFwVLd, vm + base, j0);
+      land(vfull + s);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFwConsRegs));
+  const int wg = wgi, w = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  // this thread's query rows in S (rows g, g + 8 of its warp's 16): the
+  // block's r0 and r0 + 8, their frames' rows of the bias table
+  const int r0 = 16 * w + g;
+  const int fo0 = (h * F + (q0 + r0 < T ? fid[q0 + r0] : 0)) * F;
+  const int fo1 = (h * F + (q0 + r0 + 8 < T ? fid[q0 + r0 + 8] : 0)) * F;
+  float2* Mt = reinterpret_cast<float2*>(Ms) + tid;  // + a * kWgCons: this thread's rows' reference max, arg a
+  float2* Tt = reinterpret_cast<float2*>(Ts) + tid;  // ... its part of their true max
+  float2* Lt = reinterpret_cast<float2*>(Ls) + tid;  // ... its part of their sums
+  float* Alw = Al + wg * 2 * kFwRow;                 // + parity * kFwRow + a * kFwRows: this warpgroup's factors
+  int* Flw = Fl + wg * 2 * kFwFlags;                 // + parity * kFwFlags + 4 a + w: its warps' flags
+  // the consumers alone (named barrier 1, 256 threads)
+  auto sync_cons = [&]() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+  for (int a = 0; a < A; ++a) {
+    Mt[a * kWgCons] = Tt[a * kWgCons] = make_float2(kNeg, kNeg);
+    Lt[a * kWgCons] = make_float2(0.f, 0.f);
+  }
+  // O_a^T of the warpgroup's 64 head-dim columns (rows, in §wg_d_of_m's
+  // order) x the 64 query rows: C fragment (a, 4 n + 2 r + e) at d = 64 wg +
+  // 16 w + 2 g + r, query 8 n + 2 t + e
+  float oa[A][32];
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oa[a][i] = 0.f;
+  // S of a tile, biased and masked: C fragment i = 4 n + 2 r + e at query
+  // row r0 + 8 r, key 8 n + 2 t + e
+  float sa[16];
+
+  // S of tile it (in sa, its wgmma done): bias and key masks; then per arg
+  // the online softmax over the tile's 32 keys.  Every warpgroup computes
+  // each row's max over all of them, so the two hold the same reference
+  // maxima with no exchange.  A row's reference m_a moves only where the
+  // tile's max passes it by more than kLazy (a warp's 16 rows together,
+  // decided by a vote): then m_a becomes the running max and the tile's
+  // rescale factors exp(m_old - m_a) go into this warpgroup's parity
+  // buffer with the warp's flag set; elsewhere the factor is 1 and the
+  // flag clear, so O_a^T is rescaled only in the tiles that move a
+  // reference.  Each lane also keeps its part of the true running max (the
+  // row max written out).  P_a = exp(S + cn_a - m_a) (<= e^kLazy) at this
+  // warpgroup's 16 keys (n = 2 wg, 2 wg + 1: every exp once a block) is
+  // rounded to TF32 into the shared P tile, its sum into this thread's part
+  auto softmax = [&](int it) {
+    const int s = it & 1;
+    const int* kc = codes + s * kFwKeys;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int2 c2 = *reinterpret_cast<const int2*>(kc + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = e ? c2.y : c2.x;
+        const float b0 = __ldg(fb + fo0 + max(c, 0)), b1 = __ldg(fb + fo1 + max(c, 0));
+        const float fill = c == kMasked ? kNeg : -INFINITY;  // a masked key, a key past T
+        sa[4 * n + e] = c >= 0 ? sa[4 * n + e] + b0 : fill;
+        sa[4 * n + 2 + e] = c >= 0 ? sa[4 * n + 2 + e] + b1 : fill;
+      }
+    }
+    float* Pb = Ps + s * kFwArgs * kFwP;
+    float* Alp = Alw + s * kFwRow;
+    int* Flp = Flw + s * kFwArgs * 4;
+    const float* ct = Cs + s * kFwArgs * kFwKeys + 2 * t;  // + a * kFwKeys: cn_a at this lane's keys
+#pragma unroll 1
+    for (int a = 0; a < A; ++a) {  // this lane's max of t_a = S + cn_a at its rows, the reference's move
+      float mx0 = kNeg, mx1 = kNeg;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float2 c2 = *reinterpret_cast<const float2*>(ct + a * kFwKeys + 8 * n);
+        mx0 = fmaxf(mx0, fmaxf(sa[4 * n] + c2.x, sa[4 * n + 1] + c2.y));
+        mx1 = fmaxf(mx1, fmaxf(sa[4 * n + 2] + c2.x, sa[4 * n + 3] + c2.y));
+      }
+      const float2 mr = Mt[a * kWgCons], mt = Tt[a * kWgCons];
+      Tt[a * kWgCons] = make_float2(fmaxf(mt.x, mx0), fmaxf(mt.y, mx1));
+      const bool up = __any_sync(0xffffffffu, mx0 > mr.x + kLazy || mx1 > mr.y + kLazy);
+      float al0 = 1.f, al1 = 1.f;
+      {  // where up, the warp's rows take the running max as their reference (no branch
+        // while the values' products run)
+        const float q0 = quad_max(mx0), q1 = quad_max(mx1);
+        const float m0 = up ? fmaxf(mr.x, q0) : mr.x, m1 = up ? fmaxf(mr.y, q1) : mr.y;
+        al0 = __expf(mr.x - m0);
+        al1 = __expf(mr.y - m1);
+        Mt[a * kWgCons] = make_float2(m0, m1);
+        const float2 lo = Lt[a * kWgCons];
+        Lt[a * kWgCons] = make_float2(lo.x * al0, lo.y * al1);
+      }
+      if (t == 0) {
+        Alp[a * kFwRows + fw_pos(r0)] = al0;
+        Alp[a * kFwRows + fw_pos(r0 + 8)] = al1;
+      }
+      if (lane == 0) Flp[a * 4 + w] = up;
+    }
+#pragma unroll 1
+    for (int a = 0; a < A; ++a) {
+      const float2 mr = Mt[a * kWgCons];
+      float* Pa = Pb + a * kFwP;
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // n = 2 wg + j, without indexing the registers at run time
+        const float v0 = wg ? sa[8 + 4 * j] : sa[4 * j], v1 = wg ? sa[9 + 4 * j] : sa[1 + 4 * j];
+        const float v2 = wg ? sa[10 + 4 * j] : sa[2 + 4 * j], v3 = wg ? sa[11 + 4 * j] : sa[3 + 4 * j];
+        const float2 c2 = *reinterpret_cast<const float2*>(ct + a * kFwKeys + 8 * (2 * wg + j));
+        const float p0 = __expf((v0 + c2.x) - mr.x), p1 = __expf((v1 + c2.y) - mr.x);
+        const float p2 = __expf((v2 + c2.x) - mr.y), p3 = __expf((v3 + c2.y) - mr.y);
+        l0 += p0 + p1;
+        l1 += p2 + p3;
+        float* pp = Pa + cm_idx(r0, 2 * (2 * wg + j) + (t >> 1), kFwPLd) + 2 * (t & 1);
+        *reinterpret_cast<float2*>(pp) = make_float2(__uint_as_float(round_tf32(p0)), __uint_as_float(round_tf32(p1)));
+        *reinterpret_cast<float2*>(pp + 32) =  // row r0 + 8
+            make_float2(__uint_as_float(round_tf32(p2)), __uint_as_float(round_tf32(p3)));
+      }
+      const float2 lo = Lt[a * kWgCons];
+      Lt[a * kWgCons] = make_float2(lo.x + l0, lo.y + l1);
+    }
+  };
+
+  // the prologue: S and the softmax of tile 0
+  mbar_wait(kfull, 0);
+  scores_t<kFwKLd>(sa, Qs, Ks);
+  wg_commit();
+  wg_wait<0>();
+  wg_fence_operand(sa);
+  softmax(0);
+  if (lane == 0) mbar_arrive(kempty);
+  fence_proxy_async();
+  sync_cons();  // P_0 is whole
+
+  // the A fragments of V^T of tile it (this warpgroup's 64 head-dim rows, 4
+  // k-steps of 8 keys), read from the V tile as it lies and rounded to
+  // TF32: row 16 w + g is d = 64 wg + 16 w + 2 g, row 16 w + g + 8 is d + 1;
+  // then O_a^T *= alpha_a of tile it, by query column, where a warp's flag
+  // is set.  No wgmma is in flight here: ptxas serializes every wgmma of a
+  // kernel that touches an accumulator between a wgmma's issue and its wait
+  uint32_t vf[4][4];
+  auto frags_rescale = [&](int it) {
+    const int s = it & 1;
+    mbar_wait(vfull + s, (it >> 1) & 1);
+    const float* Vt = Vs + s * kFwV;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float* p = Vt + cm_idx(8 * k + t, 16 * wg + 4 * w + (g >> 1), kFwVLd) + 2 * (g & 1);
+      const float2 lo = *reinterpret_cast<const float2*>(p);
+      const float2 hi = *reinterpret_cast<const float2*>(p + 16);  // row + 4
+      vf[k][0] = round_tf32(lo.x);
+      vf[k][1] = round_tf32(lo.y);
+      vf[k][2] = round_tf32(hi.x);
+      vf[k][3] = round_tf32(hi.y);
+    }
+    if (it == 0) return;
+    const float* Alp = Alw + s * kFwRow;
+    const int4* fl = reinterpret_cast<const int4*>(Flw + s * kFwFlags);
+#pragma unroll
+    for (int a = 0; a < A; ++a) {
+      const int4 f = fl[a];
+      if (!(f.x | f.y | f.z | f.w)) continue;
+      const float4* al = reinterpret_cast<const float4*>(Alp + a * kFwRows + 16 * t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 v = al[j];  // n = 2 j (e 0, 1), n = 2 j + 1 (e 0, 1)
+        oa[a][8 * j] *= v.x;
+        oa[a][8 * j + 2] *= v.x;
+        oa[a][8 * j + 1] *= v.y;
+        oa[a][8 * j + 3] *= v.y;
+        oa[a][8 * j + 4] *= v.z;
+        oa[a][8 * j + 6] *= v.z;
+        oa[a][8 * j + 5] *= v.w;
+        oa[a][8 * j + 7] *= v.w;
+      }
+    }
+  };
+  // O_a^T += V^T P_a^T of tile it, every arg (one group)
+  auto values = [&](int it) {
+#pragma unroll
+    for (int a = 0; a < A; ++a) wg_fence_operand(oa[a]);
+    wg_fence();  // after the accumulators' and fragments' writes
+    const float* Pb = Ps + (it & 1) * kFwArgs * kFwP;
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_n64(oa[a], vf[k], kmajor_desc(Pb + a * kFwP + 2 * k * kFwPLd, kFwPLd * 4, 128));
+    wg_commit();
+    if (lane == 0) mbar_arrive(vempty + (it & 1));  // this warp holds its V fragments
+  };
+
+  // Tile it: S of tile it + 1 and O_a^T of tile it on the tensor core
+  // together, then the softmax of tile it + 1 (none in flight across it:
+  // so 5 args a launch spill nothing); the two warpgroups meet once a tile
+  // (P whole, the P buffer it overwrites next read by both).  The last
+  // tile's values alone after the loop.
+  int it = 0;
+  for (; it + 1 < ntiles; ++it) {
+    const int s1 = (it + 1) & 1;
+    frags_rescale(it);
+    mbar_wait(kfull + s1, ((it + 1) >> 1) & 1);
+    scores_t<kFwKLd>(sa, Qs, Ks + s1 * kFwK);
+    wg_commit();
+    values(it);
+    wg_wait<0>();  // S of tile it + 1 and the values of tile it
+#pragma unroll
+    for (int a = 0; a < A; ++a) wg_fence_operand(oa[a]);
+    wg_fence_operand(sa);
+    softmax(it + 1);
+    if (lane == 0) mbar_arrive(kempty + s1);  // this warp is done with the K slot
+    fence_proxy_async();
+    sync_cons();  // P of tile it + 1 is whole; both warpgroups are done with P of tile it
+  }
+  frags_rescale(it);
+  values(it);
+  wg_wait<0>();
+#pragma unroll
+  for (int a = 0; a < A; ++a) wg_fence_operand(oa[a]);
+  sync_cons();  // both warpgroups are done with the P buffers
+
+  // The row sums: this thread's parts summed over its quad, the two
+  // warpgroups' added in order (the P buffers are free)
+  float* Lx = Ps;  // 2 warpgroups x kFwRow
+  for (int a = 0; a < A; ++a) {
+    const float2 lp = Lt[a * kWgCons];
+    const float s0 = quad_sum(lp.x), s1 = quad_sum(lp.y);
+    if (t == 0) {
+      Lx[wg * kFwRow + a * kFwRows + fw_pos(r0)] = s0;
+      Lx[wg * kFwRow + a * kFwRows + fw_pos(r0 + 8)] = s1;
+    }
+  }
+  sync_cons();
+  // the row max (the lanes' true max parts over the quad) and the
+  // denominator relative to it, sum * exp(m_ref - max) (>= 1 by
+  // construction), of rows < T
+  const size_t arow = ((size_t)bh * Aall + a0) * T;  // row (bh, this launch's arg 0, i = 0) of the (B,H,Aall,T) tensors
+  if (wg == 0)
+    for (int a = 0; a < A; ++a) {
+      const float2 mt = Tt[a * kWgCons], mr = Mt[a * kWgCons];
+      const float m[2] = {quad_max(mt.x), quad_max(mt.y)}, ref[2] = {mr.x, mr.y};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = r0 + 8 * r, qi = q0 + q;
+        if (t == 0 && qi < T) {
+          mrow[arow + (size_t)a * T + qi] = m[r];
+          den[arow + (size_t)a * T + qi] =
+              (Lx[a * kFwRows + fw_pos(q)] + Lx[kFwRow + a * kFwRows + fw_pos(q)]) * expf(ref[r] - m[r]);
+        }
+      }
+    }
+  // O_a = (O_a^T)^T / den: a float2 (d, d + 1) a query row
+  const int d = 64 * wg + 16 * w + 2 * g;
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    const float4* l0 = reinterpret_cast<const float4*>(Lx + a * kFwRows + 16 * t);
+    const float4* l1 = reinterpret_cast<const float4*>(Lx + kFwRow + a * kFwRows + 16 * t);
+    float* oo = o + (arow + (size_t)a * T) * dh;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 x = l0[j], y = l1[j];
+      const float inv[4] = {1.f / (x.x + y.x), 1.f / (x.y + y.y), 1.f / (x.z + y.z), 1.f / (x.w + y.w)};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {  // n = 2 j + (u >> 1), e = u & 1
+        const int n = 2 * j + (u >> 1), e = u & 1, qi = q0 + 8 * n + 2 * t + e;
+        if (qi < T && d < dh)
+          *reinterpret_cast<float2*>(oo + (size_t)qi * dh + d) =
+              make_float2(oa[a][4 * n + e] * inv[u], oa[a][4 * n + 2 + e] * inv[u]);
+      }
+    }
+  }
+}
+
+// mm_fwd_prep_wg (with the first group of args: a0 == 0), then mm_fwd_wg on
+// args a0 .. a0 + A - 1 of Aall, written in place into the (B,H,Aall,...)
+// outputs (dh % 4 == 0, 16-byte-aligned rows: the wrapper pads; kr the
+// wrapper's scratch, the size of km, shared by a call's groups)
+int launch_fwd_wg(const float* qm, const float* km, const float* vm, const float* cn, const float* key_mask,
+                  const float* fb, const int* fid, float* kr, float* o, float* mrow, float* den, int B, int H,
+                  int A, int T, int dh, int F, int Aall, int a0, cudaStream_t stream) {
+  cudaError_t e;
+  if (a0 == 0) {
+    const size_t n4 = (size_t)B * H * T * dh / 4;
+    const int blocks = (int)((n4 + 255) / 256 < 1056 ? (n4 + 255) / 256 : 1056);
+    mm_fwd_prep_wg<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(km), reinterpret_cast<float4*>(kr),
+                                                n4);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  auto fwd = A == 1   ? mm_fwd_wg<1>
+             : A == 2 ? mm_fwd_wg<2>
+             : A == 3 ? mm_fwd_wg<3>
+             : A == 4 ? mm_fwd_wg<4>
+                      : mm_fwd_wg<5>;
+  e = cudaFuncSetAttribute(fwd, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFwSmem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((T + kFwRows - 1) / kFwRows, B * H);
+  fwd<<<grid, kWgThreads, kFwSmem, stream>>>(qm, kr, vm, cn, key_mask, fb, fid, o, mrow, den, H, T, dh, F, Aall, a0);
+  return (int)cudaGetLastError();
+}
 #endif  // VOG_MM_WG
 
 // ---------------------------------------------------------------------------
@@ -2318,5 +2840,24 @@ extern "C" int vog_mm_bwd_wg(int device, const float* qm, const float* km, const
   if (B * H == 0 || T == 0) return 0;
   return launch_bwd_wg(qm, km, vm, cn, key_mask, fb, fid, gout, out, mrow, den, delta, gr, qr, inv, dk, dv, dcn,
                        static_cast<__nv_bfloat16*>(comb), B, H, A, T, dh, F, static_cast<cudaStream_t>(stream));
+}
+
+// The one-pass forward at dh <= 128 (kernels/mm_attention.py §fwd_route),
+// on args a0 .. a0 + A - 1 of the call's Aall (cn (B,H,Aall,T)).  Scratch
+// written here with a0 == 0: kr (B,H,T,dh), km rounded to TF32 (a later
+// group reads it); those args of o (B,H,Aall,T,dh), mrow and den
+// (B,H,Aall,T) written.  1 <= A <= kFwArgs; dh % 4 == 0 and every row
+// matrix on 16 bytes (the wrapper pads).
+extern "C" int vog_mm_fwd_wg(int device, const float* qm, const float* km, const float* vm, const float* cn,
+                             const float* key_mask, const float* fb, const int* fid, float* kr, float* o,
+                             float* mrow, float* den, int B, int H, int A, int T, int dh, int F, int Aall, int a0,
+                             void* stream) {
+  VOG_DEVICE_GUARD(device);
+  if (dh < 1 || dh > kDK || dh % 4 != 0 || F < 1 || A < 1 || A > kFwArgs || a0 < 0 || a0 + A > Aall ||
+      !aligned16(qm) || !aligned16(km) || !aligned16(vm) || !aligned16(kr) || !aligned16(o))
+    return (int)cudaErrorInvalidValue;
+  if (B * H == 0 || T == 0) return 0;
+  return launch_fwd_wg(qm, km, vm, cn, key_mask, fb, fid, kr, o, mrow, den, B, H, A, T, dh, F, Aall, a0,
+                       static_cast<cudaStream_t>(stream));
 }
 #endif  // VOG_MM_WG

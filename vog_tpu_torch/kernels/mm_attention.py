@@ -7,7 +7,7 @@ with the 1/sqrt(dh) scale folded into qm by the caller and cn the per-arg
 log-domain key weighting in its natural (B,H,A,T) layout.
 
 Replaces vog_tpu/kernels/mm_attention.py §_fwd (_fwd_kernel).  CUDA
-kernel: csrc/mm_attention.cu (mm_fwd; past dh 128 mm_fwd_cl).  Bound by operations on the H100
+kernel: csrc/mm_attention.cu (mm_fwd; at "default" mm_fwd_wg, below; past dh 128 mm_fwd_cl).  Bound by operations on the H100
 (the A value products dominate), so every product runs on the tensor
 cores in 3xTF32 (``mma.sync``, fp32-level accuracy, as the flash kernels):
 a block of 4 warps owns 16 query rows and streams 32-key tiles of km, vm
@@ -77,7 +77,13 @@ mm_attention.py:413-427), widened to fp32 for the two products over it
 "wg"): Hopper's wgmma, a block of two consumer warpgroups of 64 keys and
 a producer warpgroup streaming 32-row query tiles (csrc/mm_attention.cu),
 its launches counted under ``mm_bwd_dkv_wg@default`` beside
-``mm_shared_qk_attention_bwd@default``.  The forward reads the precision and its ctx
+``mm_shared_qk_attention_bwd@default``; so is its forward at every
+one-pass precision name, dh <= 128 (``fwd_route`` "wg"): mm_fwd_wg, a
+block of 64 query rows, two consumer warpgroups of 64 head-dim columns
+each on wgmma (O_a^T += V^T P_a^T) and a producer warpgroup streaming
+32-key K and V tiles, at most WG_FWD_ARGS args a launch, counted under
+``mm_fwd_wg@default`` beside ``mm_shared_qk_attention@default``; the
+one-pass narrow library holds no mm_fwd.  The forward reads the precision and its ctx
 carries it to the backward; the plain versions take ``precision`` for the
 wrappers' signature only.
 """
@@ -89,7 +95,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from vog_tpu_torch.config.defaults import kernel_precision
+from vog_tpu_torch.config.defaults import PRECISIONS, kernel_precision
 from vog_tpu_torch.kernels import _build
 from vog_tpu_torch.kernels._cluster import ROW_ALIGN, SLICE, arg_groups, cluster_args, cluster_plan, pad_cols
 
@@ -100,7 +106,11 @@ NAME_BWD_RECOMPUTE = "mm_shared_qk_attention_bwd_recompute"
 # the emit backward's dk/dv/dcn kernel at "default" and dh <= 128 (``bwd_route``
 # "wg"), counted beside NAME_BWD where it launches
 NAME_WG = "mm_bwd_dkv_wg"
+# the forward's kernel at a one-pass precision and dh <= 128 (``fwd_route``
+# "wg"), counted beside NAME where it launches
+NAME_FWD_WG = "mm_fwd_wg"
 KERNEL_ARGS = 8  # args a launch takes (template cases 1..8 in csrc/mm_attention.cu)
+WG_FWD_ARGS = 5  # args a launch of mm_fwd_wg takes (kFwArgs: its accumulators, 32 registers an arg)
 # the kernels' head-dim instance (its own library): a call pads dh up to
 # it, and past it takes the cluster instances (kernels/_cluster.py) of the
 # other library (built with -DVOG_MM_CLUSTER=1)
@@ -120,6 +130,17 @@ def _part(dh: int):
     of ``dh``: None (the DK 128 instances), or past 128 the cluster
     instances' (``_build.CLUSTER``)."""
     return None if dh <= HEAD_DIMS[0] else _build.CLUSTER
+
+
+def fwd_route(precision: str, dh: int) -> str:
+    """The forward's kernel for a call at ``precision`` (any name
+    ``PRECISIONS`` takes) and head dim ``dh``, at any frame count and arg
+    count: "cluster" past dh 128 (mm_fwd_cl); "wg" at a one-pass precision,
+    the production recipe's (mm_fwd_wg: wgmma, a producer warpgroup; the
+    library part ``_build.WG``); else "narrow" (mm_fwd, 3xTF32)."""
+    if dh > HEAD_DIMS[0]:
+        return "cluster"
+    return "wg" if PRECISIONS.get(precision, precision) == "default" else "narrow"
 
 
 def bwd_route(mode: str, precision: str, dh: int) -> str:
@@ -164,11 +185,33 @@ def wg_d_of_m(m: int) -> int:
     return 64 * h + 16 * w + 2 * (y % 8) + y // 8
 
 
-def fwd_groups(A: int, dh: int):
-    """The forward's launches, [(a0, a1), ...]: ``arg_groups`` of
-    KERNEL_ARGS, past dh 128 the cluster plan's (7 args a launch, 4 past
-    dh 1024: kernels/_cluster.py)."""
-    return list(cluster_plan(dh, A).groups) if dh > HEAD_DIMS[0] else arg_groups(A, KERNEL_ARGS)
+# mm_fwd_wg's shared tiles, in the same core-matrix layout (``wg_tile_index``):
+# the resident Q rows of a 64-row block (FW_Q_LD, wgmma's A of S), a K tile
+# and a V tile of 32 keys (FW_K_LD, the B operand of S; FW_V_LD, read as
+# the A fragments of V^T, in ``wg_d_of_m``'s head-dim order, padded 16
+# floats a group), and the staging tile of P_a (rows the 64 query rows,
+# columns the tile's 32 keys: FW_P_LD, padded), the B operand of O_a^T
+FW_ROWS, FW_KEYS = 64, 32
+FW_Q_LD, FW_K_LD, FW_V_LD, FW_P_LD = 4 * FW_ROWS, 4 * FW_KEYS, 4 * FW_KEYS + 16, 4 * FW_ROWS + 16
+
+
+def fw_pos(q: int) -> int:
+    """Mirror of ``fw_pos``: where mm_fwd_wg keeps query row q's (0..63)
+    rescale factor or row sum in a 64-float vector, so that the 16 query
+    columns q = 8 n + 2 t + e of a lane t of an O^T C fragment are the 16
+    floats from 16 t on."""
+    return 16 * ((q >> 1) & 3) + 2 * (q >> 3) + (q & 1)
+
+
+def fwd_groups(A: int, dh: int, precision: str):
+    """The forward's launches at ``precision``, [(a0, a1), ...]: on the
+    "wg" route (``fwd_route``) ``arg_groups`` of WG_FWD_ARGS, on the narrow
+    one of KERNEL_ARGS, past dh 128 the cluster plan's (7 args a launch, 4
+    past dh 1024: kernels/_cluster.py)."""
+    route = fwd_route(precision, dh)
+    if route == "cluster":
+        return list(cluster_plan(dh, A).groups)
+    return arg_groups(A, WG_FWD_ARGS if route == "wg" else KERNEL_ARGS)
 
 
 def bwd_groups(A: int, dh: int):
@@ -183,11 +226,11 @@ def _args(t: torch.Tensor, a0: int, a1: int) -> torch.Tensor:
 
 
 def fwd_by_groups(fwd, qm, km, vm, cn, *rest):
-    """``fwd`` (a kernel's launch, or the plain version) once for each of
-    ``arg_groups``, on its args of ``cn``, -> its outputs concatenated over
-    A.  Exact: each arg's output depends on the shared scores and its own
-    cn_a alone."""
-    groups = fwd_groups(cn.shape[2], qm.shape[-1])
+    """``fwd`` (the narrow or cluster kernel's launch, or the plain
+    version) once for each of those routes' ``fwd_groups``, on its args of
+    ``cn``, -> its outputs concatenated over A.  Exact: each arg's output
+    depends on the shared scores and its own cn_a alone."""
+    groups = fwd_groups(cn.shape[2], qm.shape[-1], "highest")  # no precision changes these routes' groups
     if len(groups) == 1:
         return fwd(qm, km, vm, cn, *rest)
     parts = [fwd(qm, km, vm, _args(cn, a0, a1), *rest) for a0, a1 in groups]
@@ -274,14 +317,16 @@ def _mm_fwd_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
     """The forward kernel's launches (the op's CUDA implementation), one
     a group of args (``fwd_by_groups``)."""
     _check_cuda(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
+    if fwd_route(prec, qm.shape[-1]) == "wg":
+        return _mm_fwd_wg_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids)
     return fwd_by_groups(_mm_fwd_launch, qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec)
 
 
 def _mm_fwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
-    """One launch of the forward kernel, at most KERNEL_ARGS args: dh <=
-    128 in the DK 128 library, past it the cluster instance (the other
-    library) on qm, km, vm padded with zero columns to a multiple of 4
-    and starting on 16 bytes (``pad_cols``), as clusters of the plan's size."""
+    """One launch of the forward kernel, at most ``fwd_groups``' args: dh
+    <= 128 in the DK 128 library, past it the cluster instance (the other
+    library) on qm, km, vm padded with zero columns to a multiple of 4 and
+    starting on 16 bytes (``pad_cols``), as clusters of the plan's size."""
     dev = qm.device
     B, H, T, dh = qm.shape
     A = cn.shape[2]
@@ -299,6 +344,36 @@ def _mm_fwd_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids, prec):
     _build.check(rc, NAME)
     _build.count(NAME, prec)
     return (out if dk == dh else out[..., :dh].contiguous()), mrow, den
+
+
+def _mm_fwd_wg_launch(qm, km, vm, cn, key_mask, frame_bias, frame_ids):
+    """The "wg" route (``fwd_route``): mm_fwd_prep_wg (once) and mm_fwd_wg
+    (the library part ``_build.WG``), a launch a group of ``fwd_groups``
+    (at most WG_FWD_ARGS args), each writing its args in place into the
+    outputs of every arg (no copy of cn or of the outputs); qm, km and vm
+    padded with zero columns to a multiple of 4 and starting on 16 bytes
+    (``pad_cols``: the kernel copies 16-byte row pieces), the output sliced
+    back -> (out, row max, den)."""
+    dev = qm.device
+    B, H, T, dh = qm.shape
+    A = cn.shape[2]
+    Fn = frame_bias.shape[-1]
+    kd = -(-dh // ROW_ALIGN) * ROW_ALIGN
+    qm, km, vm = (pad_cols(t, kd) for t in (qm, km, vm))
+    kr = torch.empty_like(km)  # scratch: km rounded to TF32, written by the kernels
+    out = torch.empty((B, H, A, T, kd), dtype=torch.float32, device=dev)
+    mrow = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
+    den = torch.empty((B, H, A, T), dtype=torch.float32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("mm_attention.cu", "vog_mm_fwd_wg", [P] * 11 + [I] * 8 + [P], "default", _build.WG)
+    for a0, a1 in fwd_groups(A, dh, "default"):
+        rc = fn(dev.index, qm.data_ptr(), km.data_ptr(), vm.data_ptr(), cn.data_ptr(), key_mask.data_ptr(),
+                frame_bias.data_ptr(), frame_ids.data_ptr(), kr.data_ptr(), out.data_ptr(), mrow.data_ptr(),
+                den.data_ptr(), B, H, a1 - a0, T, kd, Fn, A, a0, _build.stream_ptr(qm))
+        _build.check(rc, NAME_FWD_WG)
+        _build.count(NAME, "default")
+        _build.count(NAME_FWD_WG, "default")
+    return (out if kd == dh else out[..., :dh].contiguous()), mrow, den
 
 
 def _mm_fwd_fake(qm, km, vm, cn, key_mask, frame_bias, frame_ids, precision):
